@@ -1,0 +1,72 @@
+"""Carry weights from the JAX package's param pytree into the port.
+
+The JAX BERT keeps its params as a nested dict of arrays
+(``{"embeddings": {"word": {"embedding": ...}}, "layers": [...], ...}``,
+``dense`` kernels in ``[d_in, d_out]``).  ``bert_params_from_jax`` maps
+that pytree, given as numpy arrays, onto ``BertModel``'s state dict: each
+dense kernel is transposed into ``nn.Linear``'s ``[d_out, d_in]``; every
+other leaf passes through.  It raises on a missing leaf, an unused leaf or
+a shape that does not fit the config, so a wrong checkpoint never serves.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..models.bert import BertConfig, BertModel
+
+
+def _flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = ((str(i), v) for i, v in enumerate(tree))
+    else:
+        return {prefix[:-1]: np.asarray(tree)}
+    out: dict[str, np.ndarray] = {}
+    for k, v in items:
+        out.update(_flatten(v, f"{prefix}{k}."))
+    return out
+
+
+def _jax_name(port_name: str) -> tuple[str, bool]:
+    """JAX leaf path for a port state-dict key, and whether it is a dense
+    kernel (transposed on the way across)."""
+    mod, _, leaf = port_name.rpartition(".")
+    if mod.endswith(".ln"):
+        return f"{mod}.{'scale' if leaf == 'weight' else 'bias'}", False
+    if mod.startswith("embeddings."):
+        return f"{mod}.embedding", False  # nn.Embedding.weight
+    if leaf == "weight":
+        return f"{mod}.kernel", True
+    return f"{mod}.bias", False
+
+
+def bert_params_from_jax(pytree, cfg: BertConfig) -> dict[str, torch.Tensor]:
+    """The JAX BERT param pytree (numpy leaves) as ``BertModel``'s state
+    dict, f32 on the CPU."""
+    leaves = _flatten(pytree)
+    with torch.device("meta"):
+        expected = BertModel(cfg).state_dict()
+    out: dict[str, torch.Tensor] = {}
+    missing = []
+    for name, ref in expected.items():
+        jname, transpose = _jax_name(name)
+        arr = leaves.pop(jname, None)
+        if arr is None:
+            missing.append(jname)
+            continue
+        if transpose:
+            arr = arr.T
+        if tuple(arr.shape) != tuple(ref.shape):
+            raise ValueError(
+                f"JAX leaf {jname} has shape {tuple(arr.shape)}; the port's "
+                f"{name} needs {tuple(ref.shape)} for {cfg}"
+            )
+        out[name] = torch.from_numpy(np.array(arr, dtype=np.float32))  # owned copy
+    if missing:
+        raise KeyError(f"JAX BERT params lack {len(missing)} leaves: {missing[:8]}")
+    if leaves:
+        raise KeyError(f"JAX BERT params have {len(leaves)} unused leaves: {sorted(leaves)[:8]}")
+    return out

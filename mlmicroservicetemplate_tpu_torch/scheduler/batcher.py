@@ -1,0 +1,214 @@
+"""Asyncio dynamic batcher: admit -> queue (deadline-aware) -> dispatch ->
+route futures.
+
+The non-streaming path of the JAX package's ``scheduler/batcher.py``.  A
+batch closes when it reaches ``max_batch`` items or ``batch_timeout_ms``
+after its first item arrived, whichever comes first; a burst already
+queued forms a full batch with no added wait.  Past ``max_queue`` waiting
+items ``submit`` sheds with ``QueueFullError`` (503); a request whose
+``deadline_ms`` passes while it waits fails with ``DeadlineExceededError``
+(504).  Dispatch runs on worker threads so the device call never blocks
+the event loop; ``stop()`` drains the queue and joins them.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any
+
+import numpy as np
+
+from ..utils import metrics, tracing
+from .policy import DeadlineExceededError, DeadlineQueue, QueueFullError
+
+__all__ = ["Batcher", "DeadlineExceededError", "QueueFullError", "batch_results"]
+
+# Batches in flight at once: the next batch is collated and queued on the
+# host while the current one runs (the engine runs one forward at a time).
+PIPELINE_DEPTH = 2
+
+
+class _QueuedCall:
+    __slots__ = ("feats", "future", "t_in", "deadline")
+
+    def __init__(self, feats: dict, future: asyncio.Future):
+        self.feats = feats
+        self.future = future
+        self.t_in = time.monotonic()
+        ms = feats.get("deadline_ms")
+        self.deadline = self.t_in + float(ms) / 1000.0 if ms else None
+
+    def fail(self, exc: BaseException) -> None:
+        if not self.future.done():
+            self.future.set_exception(exc)
+
+
+class Batcher:
+    def __init__(self, engine, cfg):
+        self.engine = engine
+        self.model = engine.bundle.name
+        self.max_batch = int(cfg.max_batch)
+        self.timeout_s = float(cfg.batch_timeout_ms) / 1000.0
+        self._queue = DeadlineQueue(cfg.max_queue)
+        self._wake = asyncio.Event()
+        self._executor = ThreadPoolExecutor(
+            max_workers=PIPELINE_DEPTH, thread_name_prefix="dispatch"
+        )
+        self._dispatch_sem = asyncio.Semaphore(PIPELINE_DEPTH)
+        self._batch_ewma_s = 0.05  # behind the Retry-After guidance on 503s
+        self._task: asyncio.Task | None = None
+        self._inflight: set[asyncio.Task] = set()
+        self._closed = False
+        self.draining = False
+
+    async def start(self) -> None:
+        if self._task is None:
+            self._task = asyncio.get_running_loop().create_task(self._run())
+
+    async def stop(self) -> None:
+        """Stop admitting, finish everything queued and in flight, and
+        join the dispatch threads."""
+        self._closed = True
+        if self._task is not None:
+            self._wake.set()
+            await self._task
+            self._task = None
+        if self._inflight:
+            await asyncio.gather(*self._inflight, return_exceptions=True)
+        self._executor.shutdown(wait=True)
+
+    def pending_work(self) -> int:
+        return self._queue.qsize() + len(self._inflight)
+
+    def retry_after_s(self) -> float:
+        """Client guidance on 503: queue depth x observed batch time."""
+        est = (self._queue.qsize() / max(1, self.max_batch) + 1.0) * self._batch_ewma_s
+        return min(60.0, max(1.0, est))
+
+    def _shed(self, reason: str) -> None:
+        metrics.SHED.labels(self.model, reason).inc()
+
+    async def submit(self, feats: dict) -> np.ndarray:
+        """Enqueue one preprocessed item; resolves to its logits row."""
+        if self._closed:
+            raise RuntimeError("batcher is stopped")
+        if self.draining:
+            self._shed("drain")
+            raise QueueFullError("draining", reason="drain",
+                                 retry_after_s=self.retry_after_s())
+        fut = asyncio.get_running_loop().create_future()
+        item = _QueuedCall(feats, fut)
+        try:
+            self._queue.put(item)
+        except QueueFullError as e:
+            e.retry_after_s = self.retry_after_s()
+            self._shed("queue_full")
+            raise
+        self._wake.set()
+        metrics.QUEUE_DEPTH.labels(self.model).set(self._queue.qsize())
+        return await fut
+
+    def _expire(self) -> None:
+        for item in self._queue.expire():
+            self._shed("deadline")
+            item.fail(DeadlineExceededError(
+                "deadline passed while queued; request shed before dispatch"
+            ))
+
+    def _pop_ready(self):
+        self._expire()
+        return self._queue.pop_nowait()
+
+    async def _wait_wake(self, timeout: float | None) -> None:
+        try:
+            if timeout is None:
+                await self._wake.wait()
+            else:
+                await asyncio.wait_for(self._wake.wait(), timeout)
+        except asyncio.TimeoutError:
+            pass
+        self._wake.clear()
+
+    async def _next_item(self):
+        """Block until an item is ready, or return None once the batcher
+        is closed and its queue is empty."""
+        while True:
+            item = self._pop_ready()
+            if item is not None:
+                return item
+            if self._closed:
+                return None
+            nd = self._queue.next_deadline()
+            timeout = None if nd is None else max(0.01, nd - time.monotonic())
+            await self._wait_wake(timeout)
+
+    async def _acquire_dispatch(self) -> None:
+        """Take a dispatch slot; while every slot is busy, keep failing
+        waiters whose deadline passes, so they 504 on time."""
+        while True:
+            try:
+                await asyncio.wait_for(self._dispatch_sem.acquire(), 0.05)
+                return
+            except asyncio.TimeoutError:
+                self._expire()
+
+    async def _run(self) -> None:
+        while True:
+            await self._acquire_dispatch()
+            first = await self._next_item()
+            if first is None:
+                self._dispatch_sem.release()
+                return
+            batch = [first]
+            deadline = time.monotonic() + self.timeout_s
+            while len(batch) < self.max_batch:
+                item = self._pop_ready()
+                if item is None:
+                    remaining = deadline - time.monotonic()
+                    if self._closed or remaining <= 0:
+                        break
+                    await self._wait_wake(remaining)
+                    continue
+                batch.append(item)
+            metrics.QUEUE_DEPTH.labels(self.model).set(self._queue.qsize())
+            task = asyncio.get_running_loop().create_task(self._dispatch(batch))
+            self._inflight.add(task)
+            task.add_done_callback(self._dispatch_done)
+
+    def _dispatch_done(self, task: asyncio.Task) -> None:
+        self._inflight.discard(task)
+        self._dispatch_sem.release()
+        self._wake.set()
+
+    async def _dispatch(self, batch: list[_QueuedCall]) -> None:
+        loop = asyncio.get_running_loop()
+        now = time.monotonic()
+        tr = tracing.tracer()
+        for item in batch:
+            metrics.QUEUE_WAIT.labels(self.model).observe(now - item.t_in)
+            if tr is not None:
+                tr.add("queue_wait", cat="sched",
+                       rid=str(item.feats.get("request_id") or ""),
+                       t0=item.t_in, dur=now - item.t_in)
+        metrics.BATCH_SIZE.labels(self.model).observe(len(batch))
+        feats = [item.feats for item in batch]
+        t0 = time.monotonic()
+        try:
+            rows = await loop.run_in_executor(self._executor, self.engine.run_batch, feats)
+        except Exception as e:
+            for item in batch:
+                item.fail(e)
+            return
+        dt = time.monotonic() - t0
+        self._batch_ewma_s = 0.8 * self._batch_ewma_s + 0.2 * dt
+        metrics.DEVICE_TIME.labels(self.model).observe(dt)
+        for item, row in zip(batch, rows):
+            if not item.future.done():
+                item.future.set_result(row)
+
+
+def batch_results(rows: list[np.ndarray]) -> Any:
+    """Helper for tests: stack row results."""
+    return np.stack(rows)

@@ -1,0 +1,122 @@
+"""Env-var driven service configuration (12-factor), as a stdlib dataclass.
+
+Holds the fields the BERT-base ``/predict`` path reads, under the same
+environment names as the JAX package's ``ServiceConfig``.  ``DEVICE`` is
+``cuda|cpu`` and defaults to ``cuda``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+
+VALID_DEVICES = ("cuda", "cpu")
+_LOG_LEVELS = ("DEBUG", "INFO", "WARNING", "ERROR", "CRITICAL")
+
+
+def _check_buckets(name: str, v: tuple[int, ...]) -> None:
+    if not v:
+        raise ValueError(f"{name} must be non-empty")
+    if any(b < 1 for b in v):
+        raise ValueError(f"{name}: bucket sizes must be >= 1")
+    if list(v) != sorted(set(v)):
+        raise ValueError(f"{name} must be strictly ascending (got {v})")
+
+
+@dataclasses.dataclass(frozen=True)
+class ServiceConfig:
+    """All knobs for one model-serving process."""
+
+    device: str = "cuda"
+    model_name: str = "bert-base"
+    # Checkpoint (HF state dict as .npz / .safetensors / .bin); unset =
+    # deterministic random init from a seed.
+    model_path: str | None = None
+    # WordPiece vocab.txt; unset = byte-level tokenizer.
+    tokenizer_path: str | None = None
+    labels_path: str | None = None
+    host: str = "0.0.0.0"
+    port: int = 8000
+    # Dynamic batching: a batch closes at max_batch items or
+    # batch_timeout_ms after its first item; past max_queue waiting items
+    # the server sheds (503).
+    max_batch: int = 32
+    batch_timeout_ms: float = 3.0
+    max_queue: int = 1024
+    # Shape buckets: requests are padded up to the nearest bucket.
+    batch_buckets: tuple[int, ...] = (1, 2, 4, 8, 16, 32)
+    seq_buckets: tuple[int, ...] = (32, 64, 128, 256, 512)
+    # Run every (batch, seq) bucket once before reporting ready.
+    warmup: bool = True
+    log_level: str = "INFO"
+    # TRACE=1 records request / queue-wait / dispatch spans.
+    trace: bool = False
+
+    def __post_init__(self) -> None:
+        dev = self.device.lower()
+        if dev not in VALID_DEVICES:
+            raise ValueError(f"DEVICE must be one of {VALID_DEVICES}, got {self.device!r}")
+        object.__setattr__(self, "device", dev)
+        if self.max_batch < 1:
+            raise ValueError("MAX_BATCH must be >= 1")
+        if self.max_queue < 1:
+            raise ValueError("MAX_QUEUE must be >= 1")
+        if self.batch_timeout_ms < 0:
+            raise ValueError("BATCH_TIMEOUT_MS must be >= 0")
+        if not 0 <= self.port < 65536:
+            raise ValueError(f"PORT must be in [0, 65535], got {self.port}")
+        _check_buckets("BATCH_BUCKETS", self.batch_buckets)
+        _check_buckets("SEQ_BUCKETS", self.seq_buckets)
+        if self.log_level.upper() not in _LOG_LEVELS:
+            raise ValueError(f"LOG_LEVEL must be a standard logging level, got {self.log_level!r}")
+
+
+def _flag(v: str) -> bool:
+    return v.lower() not in ("0", "false", "no")
+
+
+def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
+    """Build a ServiceConfig from environment variables, with ``overrides``
+    (same names) taking precedence.
+
+    Recognized: DEVICE, MODEL_NAME, MODEL_PATH, TOKENIZER_PATH, LABELS_PATH,
+    HOST, PORT, MAX_BATCH, BATCH_TIMEOUT_MS, MAX_QUEUE, BATCH_BUCKETS,
+    SEQ_BUCKETS, WARMUP, LOG_LEVEL, TRACE."""
+    e = dict(os.environ)
+    if overrides:
+        e.update(overrides)
+
+    def get(name: str) -> str | None:
+        v = e.get(name)
+        return v if v not in (None, "") else None
+
+    kwargs: dict = {}
+    for field, var in (
+        ("device", "DEVICE"), ("model_name", "MODEL_NAME"),
+        ("model_path", "MODEL_PATH"), ("tokenizer_path", "TOKENIZER_PATH"),
+        ("labels_path", "LABELS_PATH"), ("host", "HOST"),
+        ("log_level", "LOG_LEVEL"),
+    ):
+        v = get(var)
+        if v is not None:
+            kwargs[field] = v
+    for field, var in (("port", "PORT"), ("max_batch", "MAX_BATCH"),
+                       ("max_queue", "MAX_QUEUE")):
+        v = get(var)
+        if v is not None:
+            kwargs[field] = int(v)
+    v = get("BATCH_TIMEOUT_MS")
+    if v is not None:
+        kwargs["batch_timeout_ms"] = float(v)
+    for field, var in (("batch_buckets", "BATCH_BUCKETS"), ("seq_buckets", "SEQ_BUCKETS")):
+        v = get(var)
+        if v is not None:
+            buckets = tuple(int(x) for x in v.split(",") if x.strip())
+            if not buckets:
+                raise ValueError(f"{var}={v!r} parsed to no buckets")
+            kwargs[field] = buckets
+    for field, var in (("warmup", "WARMUP"), ("trace", "TRACE")):
+        v = get(var)
+        if v is not None:
+            kwargs[field] = _flag(v)
+    return ServiceConfig(**kwargs)

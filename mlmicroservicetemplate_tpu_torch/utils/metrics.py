@@ -1,0 +1,85 @@
+"""Prometheus series of the ``/predict`` path, exported at ``GET /metrics``.
+
+Request count and latency, queue wait, device time per batch, batch size,
+queue depth and load sheds.  The series live in this package's own
+registry, so a process that also imports the JAX package registers no
+name twice.  Without ``prometheus_client`` every series is a no-op stub.
+"""
+
+from __future__ import annotations
+
+try:
+    from prometheus_client import (
+        CONTENT_TYPE_LATEST,
+        CollectorRegistry,
+        Counter,
+        Gauge,
+        Histogram,
+        generate_latest,
+    )
+except ImportError:
+    CONTENT_TYPE_LATEST = "text/plain"
+
+    class _Noop:
+        def labels(self, *a, **k):
+            return self
+
+        def inc(self, *a, **k):
+            pass
+
+        def observe(self, *a, **k):
+            pass
+
+        def set(self, *a, **k):
+            pass
+
+    def Counter(*a, **k):  # noqa: N802
+        return _Noop()
+
+    Gauge = Histogram = Counter
+
+    def CollectorRegistry():  # noqa: N802
+        return None
+
+    def generate_latest(registry=None):
+        return b"# prometheus_client not installed\n"
+
+
+REGISTRY = CollectorRegistry()
+
+_LATENCY_BUCKETS = (
+    0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5,
+    5.0, 10.0, 30.0, 60.0, 120.0,
+)
+
+REQUESTS = Counter(
+    "predict_requests_total", "Completed /predict requests", ["model", "status"],
+    registry=REGISTRY,
+)
+LATENCY = Histogram(
+    "predict_latency_seconds", "End-to-end /predict latency", ["model"],
+    buckets=_LATENCY_BUCKETS, registry=REGISTRY,
+)
+QUEUE_WAIT = Histogram(
+    "batch_queue_wait_seconds", "Time a request waits in the batching queue",
+    ["model"], buckets=_LATENCY_BUCKETS, registry=REGISTRY,
+)
+DEVICE_TIME = Histogram(
+    "device_batch_seconds", "Device time per dispatched batch", ["model"],
+    buckets=_LATENCY_BUCKETS, registry=REGISTRY,
+)
+BATCH_SIZE = Histogram(
+    "batch_size", "Items per dispatched batch", ["model"],
+    buckets=(1, 2, 4, 8, 16, 32, 64), registry=REGISTRY,
+)
+QUEUE_DEPTH = Gauge(
+    "batch_queue_depth", "Requests currently queued", ["model"], registry=REGISTRY,
+)
+SHED = Counter(
+    "requests_shed_total", "Load-shed requests by reason (queue_full | deadline)",
+    ["model", "reason"], registry=REGISTRY,
+)
+
+
+def render() -> tuple[bytes, str]:
+    return generate_latest(REGISTRY), CONTENT_TYPE_LATEST
