@@ -15,21 +15,35 @@ result line:
    row, an all-masked row and a bias + scale=1.0 case; CUDA-event times of
    the kernel, the plain version and ``scaled_dot_product_attention`` (a
    yardstick only; the port never calls it) beside the kernel's bound.
-4. serve bert-base: the full-width service through ``Batcher.submit`` in
+4. kernel decode_attention: the same for the decode kernel, dense bf16,
+   dense f32 and int8 with bf16 scales, B in {1, 8, 32}, H=32, KVH=4,
+   D=64, T in {96, 576, 2048}; one row padded to a third of T, and (B > 1)
+   an all-masked row.
+5. serve bert-base: the full-width service through ``Batcher.submit`` in
    waves that hit several batch and seq buckets; every kernel launch
    counter must show the path went through the kernel (12 launches per
    dispatch), and the answers must match the same port on the CPU in f32
    on the same weights.
-5. forward: where one forward's time goes at three buckets: wall time
+6. forward: where one BERT forward's time goes at three buckets: wall time
    (CUDA events) against the card's busy time from ``torch.profiler``'s
    kernel records, split into K1, GEMMs and the rest.
-6. http: one ``/predict`` over loopback through the aiohttp app (skipped,
-   and said so, where aiohttp is missing).
+7. serve llama / serve llama int8: full-width TinyLlama (22 layers, random
+   weights from seed 0 drawn once and given to both services), bf16, the
+   dense and the int8 KV cache, through ``Batcher.submit`` in waves over
+   several buckets, some with ``max_tokens``.  The decode kernel must
+   launch 22 times per decode step and never in prefill; every emitted
+   token is checked teacher-forced against an f32 forward of the plain
+   path on the same weights.
+8. decode step: where one llama decode step's time goes at B in {1, 8,
+   32}, T=576: wall time against busy time, split into K2, GEMMs, other.
+9. http: ``/predict`` on bert-base, ``/predict`` and ``/v1/completions`` on
+   llama, over loopback through the aiohttp app (skipped, and said so,
+   where aiohttp is missing).
 
 The last lines are the kernels summary, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.  ``--cpu-rehearsal`` skips the build
-and kernel phases, serves on the CPU at small buckets, and prints no result
-line.
+and kernel phases, serves BERT-base and a 2-layer llama (``LLAMA_CONFIG``)
+on the CPU at small buckets, and prints no result line.
 """
 
 from __future__ import annotations
@@ -45,18 +59,32 @@ import sys
 import time
 import traceback
 
-# Tolerances of the kernel against its plain version in f32 on the same
+# Tolerances of a kernel against its plain version in f32 on the same
 # inputs: f32 differs only by summation order; bf16 adds the output's and
-# the probabilities' rounding to bf16 (8 bits of mantissa).
-KERNEL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# the probabilities' rounding to bf16 (8 bits of mantissa); the int8 cache
+# (f32 dequantization in both) adds only the bf16 output's rounding.
+KERNEL_TOL = {"float32": 1e-4, "bfloat16": 2e-2, "int8": 1e-2}
 # Served probabilities, bf16 weights and activations through 12 layers
 # against the port's own f32 run on the CPU.
 PROB_TOL = 2e-2
 # Published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, and
-# FLOP/s for bf16 tensor cores and for f32 outside the tensor cores.
+# operations/s for bf16 tensor cores, int8 tensor cores and f32 outside
+# the tensor cores.
 HBM_BYTES_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 HEADS, HEAD_DIM, LAYERS = 12, 64, 12
+# TinyLlama's decode shape: 32 query heads over 4 KV heads.
+LLAMA_HEADS, LLAMA_KV_HEADS = 32, 4
+# The llama the rehearsal serves on the CPU.
+REHEARSAL_LLAMA = dict(vocab_size=512, d_model=256, num_heads=4, num_kv_heads=2,
+                       num_layers=2, d_ff=512)
+# Teacher-forced check: an emitted token may trail the f32 reference's
+# best logit at its step by at most TF_FACTOR times the logit error
+# measured in the same run (the served precision's, plus the int8 cache's
+# under QUANT_KV), never less than TF_FLOOR (f32 summation order).  A
+# greedy pick under logit error e is within 2e of the true best; the
+# factor 3 covers the decode path's other kernels and GEMM shapes.
+TF_FACTOR, TF_FLOOR = 3.0, 1e-4
 # cuBLAS / CUTLASS matrix-product kernels, by name
 GEMM_KERNEL = re.compile(r"gemm|nvjet|xmma|cutlass", re.IGNORECASE)
 
@@ -87,17 +115,22 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def bound(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
+    """Least time (ms) on an H100: the bytes over HBM, or the operations
+    at the type's peak; the larger wins."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = ops / PEAK_FLOPS[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def attention_bound(b: int, s: int, dtype, bias) -> tuple[float, str]:
-    """Least time for the function on an H100: every input read once and
-    the output written once over HBM, or its FLOPs at the type's peak."""
+    """K1: q, k, v, mask (and bias) read once, the output written once;
+    4·B·H·S²·D operations."""
     el = 2 if str(dtype).endswith("bfloat16") else 4
     nbytes = 4 * b * s * HEADS * HEAD_DIM * el + b * s * 4
     if bias is not None:
         nbytes += bias.numel() * bias.element_size()
-    flops = 4 * b * HEADS * s * s * HEAD_DIM
-    t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = flops / PEAK_FLOPS[str(dtype).split(".")[-1]] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return bound(nbytes, 4 * b * HEADS * s * s * HEAD_DIM, str(dtype).split(".")[-1])
 
 
 def phase_kernel() -> dict:
@@ -168,10 +201,108 @@ def phase_kernel() -> dict:
     return headline
 
 
+def decode_case(gen, kind: str, b: int, t: int):
+    """Decode-attention inputs on the card: q [B, H, D], a [B, T, KVH, D]
+    cache (dense in ``kind``, or int8 with bf16 scales and a bf16 q), and
+    a mask with row 0 padded to a third of T and, for B > 1, row 1 all
+    masked."""
+    import torch
+
+    from mlmicroservicetemplate_tpu_torch.models.common import kv_quantize
+
+    qdtype = torch.float32 if kind == "float32" else torch.bfloat16
+    q = torch.randn(b, LLAMA_HEADS, HEAD_DIM, device="cuda", generator=gen).to(qdtype)
+    k, v = (torch.randn(b, t, LLAMA_KV_HEADS, HEAD_DIM, device="cuda", generator=gen)
+            for _ in range(2))
+    mask = torch.ones(b, t, dtype=torch.int32, device="cuda")
+    mask[0, t // 3:] = 0
+    if b > 1:
+        mask[1, :] = 0
+    if kind != "int8":
+        return q, k.to(qdtype), v.to(qdtype), mask, None, None
+    (k8, ks), (v8, vs) = kv_quantize(k), kv_quantize(v)
+    return q, k8, v8, mask, ks.to(torch.bfloat16), vs.to(torch.bfloat16)
+
+
+def decode_bound(q, k, v, mask, ks, vs, kind: str) -> tuple[float, str]:
+    """K2: K and V (and their scales), q and the mask read once, the output
+    written once; 4·B·H·T·D operations (q·k and p·v)."""
+    nbytes = 2 * k.numel() * k.element_size() + 2 * q.numel() * q.element_size()
+    nbytes += mask.numel() * mask.element_size()
+    if ks is not None:
+        nbytes += 2 * ks.numel() * ks.element_size()
+    b, h, d = q.shape
+    return bound(nbytes, 4 * b * h * k.shape[1] * d, kind)
+
+
+def phase_decode_kernel() -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from mlmicroservicetemplate_tpu_torch.ops.attention import (
+        decode_attention,
+        decode_attention_ref,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    headline = None
+    rep = LLAMA_HEADS // LLAMA_KV_HEADS
+    for kind in ("bfloat16", "float32", "int8"):
+        for b in (1, 8, 32):
+            for t in (96, 576, 2048):
+                q, k, v, mask, ks, vs = decode_case(gen, kind, b, t)
+                out = decode_attention(q, k, v, mask, ks, vs)
+                torch.cuda.synchronize()
+                ref = decode_attention_ref(
+                    q.float(), k if ks is not None else k.float(),
+                    v if vs is not None else v.float(), mask,
+                    None if ks is None else ks.float(), None if vs is None else vs.float(),
+                )
+                diff = (out.float() - ref).abs()
+                tol = KERNEL_TOL[kind]
+                ok = bool(torch.isfinite(out).all()) and bool(
+                    (diff <= tol + tol * ref.abs()).all()
+                )
+                # dense (or dequantized) cache at H heads, for the masked-row
+                # check and the yardstick
+                vf = v.float() if vs is None else v.float() * vs.float()
+                if b > 1:  # the all-masked row is the plain mean of its group's V
+                    uniform = vf[1].mean(0).repeat_interleave(rep, dim=0)
+                    ok = ok and bool(((out[1].float() - uniform).abs() <= tol * 4).all())
+                iters = 50 if b * t >= 32 * 576 else 200
+                kernel_ms = cuda_ms(lambda: decode_attention(q, k, v, mask, ks, vs), iters)
+                plain_ms = cuda_ms(lambda: decode_attention_ref(q, k, v, mask, ks, vs), iters)
+                kf = k.float() if ks is None else k.float() * ks.float()
+                kt, vt = (x.to(q.dtype).transpose(1, 2).repeat_interleave(rep, dim=1)
+                          for x in (kf, vf))
+                add = torch.where(mask[:, None, None, :] != 0, 0.0, -1e9).to(q.dtype)
+                q4 = q[:, :, None]
+                library_ms = cuda_ms(
+                    lambda: F.scaled_dot_product_attention(q4, kt, vt, attn_mask=add), iters
+                )
+                bound_ms, bound_by = decode_bound(q, k, v, mask, ks, vs, kind)
+                row = dict(
+                    dtype=kind, shape=[b, t, LLAMA_HEADS, LLAMA_KV_HEADS, HEAD_DIM],
+                    max_abs_err=diff.max().item(), tol=f"atol=rtol={tol}", ok=ok,
+                    kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                    bound_us=bound_ms * 1e3, bound_by=bound_by,
+                )
+                emit("kernel decode_attention", **row)
+                if not ok:
+                    raise AssertionError(
+                        f"decode_attention disagrees with its plain version: {row}"
+                    )
+                if (kind, b, t) == ("bfloat16", 8, 576):
+                    headline = row
+    return headline
+
+
 def make_waves(rehearsal: bool):
     """Text requests in five waves of 1, 2, 5, 8 and 16, each wave longer,
     so dispatches land in several batch and seq buckets."""
     import numpy as np
+
+    from mlmicroservicetemplate_tpu_torch.models.registry import RawItem
 
     rng = np.random.default_rng(0)
     words = ["serve", "batch", "token", "kernel", "queue", "model", "card", "bucket"]
@@ -182,37 +313,64 @@ def make_waves(rehearsal: bool):
         for _ in range(n):
             length = int(rng.integers(cap // 2, cap))
             text = " ".join(rng.choice(words, size=length))[:length]
-            wave.append(text)
+            wave.append(RawItem(text=text))
+        waves.append(wave)
+    return waves
+
+
+def llama_waves(rehearsal: bool):
+    """Prompts in waves of 1, 2, 5, 8 and 16 (rehearsal: 1, 2, 3, 4),
+    growing so prefill lands in several seq buckets; every third request
+    carries a max_tokens below MAX_DECODE_LEN."""
+    import numpy as np
+
+    from mlmicroservicetemplate_tpu_torch.models.registry import RawItem
+
+    rng = np.random.default_rng(1)
+    words = ["decode", "cache", "prompt", "greedy", "llama", "token", "step", "wave"]
+    sizes = (1, 2, 3, 4) if rehearsal else (1, 2, 5, 8, 16)
+    caps = (20, 40, 60, 60) if rehearsal else (24, 50, 110, 200, 250)
+    budgets = (5, 17, 30)
+    waves, i = [], 0
+    for n, cap in zip(sizes, caps):
+        wave = []
+        for _ in range(n):
+            length = int(rng.integers(cap // 2, cap))
+            text = " ".join(rng.choice(words, size=length))[:length]
+            wave.append(RawItem(text=text, max_tokens=budgets[i // 3 % 3] if i % 3 == 1 else None))
+            i += 1
         waves.append(wave)
     return waves
 
 
 async def drive(batcher, bundle, waves):
-    from mlmicroservicetemplate_tpu_torch.models.registry import RawItem
-
+    """Submit each wave at once and wait for it; returns (feats, rows,
+    per-request latencies, wall seconds)."""
     await batcher.start()
-    latencies, rows = [], []
+    feats, rows, latencies = [], [], []
 
-    async def one(text):
+    async def one(item):
         t0 = time.monotonic()
-        row = await batcher.submit(bundle.preprocess(RawItem(text=text)))
+        f = bundle.preprocess(item)
+        row = await batcher.submit(f)
         latencies.append(time.monotonic() - t0)
-        return row
+        return f, row
 
     try:
         t0 = time.monotonic()
         for wave in waves:
-            rows.extend(await asyncio.gather(*(one(t) for t in wave)))
+            for f, row in await asyncio.gather(*(one(item) for item in wave)):
+                feats.append(f)
+                rows.append(row)
         wall = time.monotonic() - t0
     finally:
         await batcher.stop()
-    return rows, latencies, wall
+    return feats, rows, latencies, wall
 
 
 def phase_serve(rehearsal: bool, card_line: str):
     import numpy as np
 
-    from mlmicroservicetemplate_tpu_torch.models.registry import RawItem
     from mlmicroservicetemplate_tpu_torch.ops.attention import fused_attention
     from mlmicroservicetemplate_tpu_torch.serve import build_service
 
@@ -225,7 +383,7 @@ def phase_serve(rehearsal: bool, card_line: str):
 
     fused_attention.launches = 0
     engine.dispatches = 0
-    rows, latencies, wall = asyncio.run(drive(batcher, bundle, waves))
+    feats, rows, latencies, wall = asyncio.run(drive(batcher, bundle, waves))
     launches, dispatches = fused_attention.launches, engine.dispatches
 
     if not rehearsal and (dispatches < 1 or launches != LAYERS * dispatches):
@@ -241,9 +399,7 @@ def phase_serve(rehearsal: bool, card_line: str):
     asyncio.run(cpu_batcher.stop())
     ref = []
     for wave in waves:
-        ref.extend(cpu_engine.run_batch(
-            [cpu_bundle.preprocess(RawItem(text=t)) for t in wave]
-        ))
+        ref.extend(cpu_engine.run_batch([cpu_bundle.preprocess(item) for item in wave]))
     worst, label_checked = 0.0, 0
     for got, want in zip(rows, ref):
         if got.shape != want.shape or not np.isfinite(got).all():
@@ -270,45 +426,192 @@ def phase_serve(rehearsal: bool, card_line: str):
     return cfg, bundle, engine, launches
 
 
-def phase_forward(bundle) -> None:
+def profile_split(fn, reps: int, kernel_name: str, label: str) -> dict:
+    """Device busy time of ``reps`` calls of ``fn`` from ``torch.profiler``'s
+    kernel records, per call, split into the port's kernel (by name),
+    GEMMs and the rest, with the four busiest kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = {label: 0.0, "gemm": 0.0, "other": 0.0}
+    by_name: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = e.time_range.elapsed_us()
+        part = (label if kernel_name in e.name
+                else "gemm" if GEMM_KERNEL.search(e.name) else "other")
+        split[part] += us
+        by_name[e.name] = by_name.get(e.name, 0.0) + us
+    busy_ms = sum(split.values()) / reps / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    return dict(
+        device_busy_ms=busy_ms if by_name else None,
+        **{f"{k}_ms": v / reps / 1e3 for k, v in split.items()},
+        top_kernels=[[name[:80], us / reps / 1e3] for name, us in top],
+        note=None if by_name else "torch.profiler recorded no device kernels",
+    )
+
+
+def phase_forward(bundle) -> None:
+    import torch
+
     gen = torch.Generator(device="cuda").manual_seed(1)
-    reps = 5
     for b, s in ((1, 32), (8, 128), (32, 512)):
         ids = torch.randint(5, 261, (b, s), device="cuda", generator=gen, dtype=torch.int32)
         mask = torch.ones(b, s, dtype=torch.int32, device="cuda")
         with torch.inference_mode():
             wall_ms = cuda_ms(lambda: bundle.forward(ids, mask), 10)
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                for _ in range(reps):
-                    bundle.forward(ids, mask)
-                torch.cuda.synchronize()
-        split = {"attention": 0.0, "gemm": 0.0, "other": 0.0}
-        by_name: dict[str, float] = {}
-        for e in prof.events():
-            if e.device_type != DeviceType.CUDA:
-                continue
-            us = e.time_range.elapsed_us()
-            part = ("attention" if "fused_attention" in e.name
-                    else "gemm" if GEMM_KERNEL.search(e.name) else "other")
-            split[part] += us
-            by_name[e.name] = by_name.get(e.name, 0.0) + us
-        busy_ms = sum(split.values()) / reps / 1e3
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
-        emit(
-            "forward", shape=[b, s], wall_ms=wall_ms,
-            device_busy_ms=busy_ms if by_name else None,
-            busy_share=busy_ms / wall_ms if by_name else None,
-            **{f"{k}_ms": v / reps / 1e3 for k, v in split.items()},
-            top_kernels=[[name[:80], us / reps / 1e3] for name, us in top],
-            note=None if by_name else "torch.profiler recorded no device kernels",
+            split = profile_split(lambda: bundle.forward(ids, mask), 5,
+                                  "fused_attention", "attention")
+        busy = split["device_busy_ms"]
+        emit("forward", shape=[b, s], wall_ms=wall_ms,
+             busy_share=busy / wall_ms if busy else None, **split)
+
+
+def llama_pytree(cfg, seed: int) -> dict:
+    """Random weights in the JAX package's llama layout (numpy f32,
+    ``[d_in, d_out]`` kernels): N(0, 0.02), unit RMSNorm scales."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def w(*shape):
+        a = rng.standard_normal(shape, dtype=np.float32)
+        a *= 0.02
+        return a
+
+    d, kv = cfg.d_model, cfg.num_kv_heads * cfg.head_dim
+    ones = np.ones(d, np.float32)
+    return {
+        "embed": {"embedding": w(cfg.vocab_size, d)},
+        "layers": [
+            {
+                "attn_ln": {"scale": ones},
+                "attn": {"q": {"kernel": w(d, d)}, "k": {"kernel": w(d, kv)},
+                         "v": {"kernel": w(d, kv)}, "o": {"kernel": w(d, d)}},
+                "mlp_ln": {"scale": ones},
+                "mlp": {"gate": {"kernel": w(d, cfg.d_ff)}, "up": {"kernel": w(d, cfg.d_ff)},
+                        "down": {"kernel": w(cfg.d_ff, d)}},
+            }
+            for _ in range(cfg.num_layers)
+        ],
+        "final_ln": {"scale": ones},
+        "lm_head": {"kernel": w(d, cfg.vocab_size)},
+    }
+
+
+def teacher_forced(bundle, ref_model, feats, rows, max_len: int) -> dict:
+    """Hold every emitted token against an f32 forward of the plain path
+    over the prompt and the tokens emitted before it (same weights).  The
+    token must be within the tolerance of that step's best reference
+    logit; the tolerance comes from errors measured here, on the same
+    sequences: the served model's plain forward against f32 and, for the
+    int8 cache, f32 with K/V through int8 against f32."""
+    import torch
+
+    from mlmicroservicetemplate_tpu_torch.models.llama import lm_logits
+
+    cfg = bundle.cfg
+    dev = bundle.device
+    gaps, err_served, err_kv8, exact, checked = [], 0.0, 0.0, 0, 0
+    with torch.inference_mode():
+        for f, row in zip(feats, rows):
+            budget = min(int(f.get("max_tokens", max_len)), max_len)
+            toks = [int(t) for t in row[:budget]]
+            if cfg.eos_id in toks:
+                toks = toks[: toks.index(cfg.eos_id) + 1]
+            prompt = [int(t) for t in f["input_ids"]]
+            n = len(prompt)
+            ids = torch.tensor([prompt + toks[:-1]], dtype=torch.int32, device=dev)
+            mask = torch.ones_like(ids)
+            ref = lm_logits(ref_model, ids, mask)[0, n - 1:]
+            served = lm_logits(bundle.model, ids, mask, bundle.policy.compute_dtype)[0, n - 1:]
+            err_served = max(err_served, (served - ref).abs().max().item())
+            if cfg.kv_quant:
+                kq = lm_logits(ref_model, ids, mask, kv_int8_roundtrip=True)[0, n - 1:]
+                err_kv8 = max(err_kv8, (kq - ref).abs().max().item())
+            t = torch.tensor(toks, device=dev)
+            gap = ref.max(dim=-1).values - ref.gather(1, t[:, None])[:, 0]
+            exact += int((gap == 0).sum())
+            checked += len(toks)
+            gaps.append(gap.max().item())
+    tol = max(TF_FACTOR * (err_served + err_kv8), TF_FLOOR)
+    worst = max(gaps)
+    out = dict(tokens_checked=checked, argmax_equal_share=exact / max(1, checked),
+               worst_gap=worst, tol=tol, served_logit_err=err_served,
+               kv8_logit_err=err_kv8 if cfg.kv_quant else None)
+    if worst > tol:
+        raise AssertionError(f"an emitted token trails the f32 reference: {out}")
+    return out
+
+
+def phase_serve_llama(label: str, overrides: dict, params, ref_model, rehearsal: bool,
+                      card_line: str):
+    import numpy as np
+
+    from mlmicroservicetemplate_tpu_torch.ops.attention import decode_attention
+    from mlmicroservicetemplate_tpu_torch.serve import build_service
+
+    cfg, bundle, engine, batcher = build_service(overrides, params=params)
+    warm_s = engine.warmup()
+    waves = llama_waves(rehearsal)
+
+    decode_attention.launches = 0
+    engine.decode_steps = 0
+    engine.dispatches = 0
+    feats, rows, latencies, wall = asyncio.run(drive(batcher, bundle, waves))
+    launches, steps = decode_attention.launches, engine.decode_steps
+    layers = bundle.cfg.num_layers
+    want = 0 if rehearsal else layers * steps
+    if steps < 1 or launches != want:
+        raise AssertionError(
+            f"decode_attention launched {launches} times over {steps} decode steps; "
+            f"the main path must launch it {layers} times per step and never in prefill"
         )
+    for row in rows:
+        if row.dtype != np.int32 or row.shape != (engine.max_decode_len,):
+            raise AssertionError(f"bad token row {row!r}")
+    check = teacher_forced(bundle, ref_model, feats, rows, engine.max_decode_len)
+    lat = np.array(latencies) * 1e3
+    emit(
+        label, device=str(bundle.device), card=card_line, layers=layers,
+        kv_quant=bundle.cfg.kv_quant, requests=len(rows), dispatches=engine.dispatches,
+        decode_steps=steps, decode_attention_launches=launches, warmup_s=warm_s,
+        p50_ms=float(np.percentile(lat, 50)), p99_ms=float(np.percentile(lat, 99)),
+        generated_tok_per_s=check["tokens_checked"] / wall,
+        wall_ms_per_decode_step=wall * 1e3 / steps, **check,
+    )
+    return cfg, bundle, engine, launches
 
 
-async def http_predict(cfg, bundle, engine) -> dict:
+def phase_decode_step(bundle) -> None:
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for b in (1, 8, 32):
+        # Prompt 512 + 64 decode positions = a 576-key cache.
+        ids = torch.randint(5, 261, (b, 512), device="cuda", generator=gen, dtype=torch.int32)
+        mask = torch.ones_like(ids)
+        with torch.inference_mode():
+            box = [bundle.init_state(ids, mask, 64)]
+
+            def step():
+                box[0], _ = bundle.generate_chunk(box[0], 1)
+
+            wall_ms = cuda_ms(step, 10)  # 3 warm-up steps + 10
+            split = profile_split(step, 5, "decode_attention", "decode_attention")
+        busy = split["device_busy_ms"]
+        emit("decode step", batch=b, cache_len=576, wall_ms=wall_ms,
+             busy_share=busy / wall_ms if busy else None, **split)
+
+
+async def http_check(cfg, bundle, engine, posts) -> list:
     import aiohttp
     from aiohttp import web
 
@@ -324,6 +627,7 @@ async def http_predict(cfg, bundle, engine) -> dict:
     try:
         await web.TCPSite(runner, "127.0.0.1", port).start()
         url = f"http://127.0.0.1:{port}"
+        out = []
         async with aiohttp.ClientSession() as session:
             for _ in range(600):
                 async with session.get(f"{url}/readyz") as r:
@@ -332,11 +636,13 @@ async def http_predict(cfg, bundle, engine) -> dict:
                 await asyncio.sleep(0.05)
             else:
                 raise AssertionError("/readyz never turned 200")
-            async with session.post(f"{url}/predict", json={"text": "hello card"}) as r:
-                body = await r.json()
-                if r.status != 200 or "prediction" not in body:
-                    raise AssertionError(f"/predict answered {r.status}: {body}")
-        return body
+            for path, body, key in posts:
+                async with session.post(f"{url}{path}", json=body) as r:
+                    answer = await r.json()
+                    if r.status != 200 or key not in answer:
+                        raise AssertionError(f"{path} answered {r.status}: {answer}")
+                    out.append(answer[key])
+        return out
     finally:
         await runner.cleanup()
 
@@ -359,10 +665,11 @@ def main(argv: list[str]) -> int:
         card_line = "cpu (rehearsal)" if rehearsal else card()
         emit(phase, card=card_line, torch=torch.__version__, cuda=torch.version.cuda,
              python=sys.version.split()[0])
-        headline = None
+        headline = decode_headline = None
         if rehearsal:
             emit("build", skipped="cpu rehearsal: no nvcc, no kernels")
             emit("kernel fused_attention", skipped="cpu rehearsal: the plain version runs")
+            emit("kernel decode_attention", skipped="cpu rehearsal: the plain version runs")
         else:
             phase = "build"
             t0 = time.monotonic()
@@ -374,6 +681,8 @@ def main(argv: list[str]) -> int:
             ])
             phase = "kernel fused_attention"
             headline = phase_kernel()
+            phase = "kernel decode_attention"
+            decode_headline = phase_decode_kernel()
         phase = "serve bert-base"
         cfg, bundle, engine, launches = phase_serve(rehearsal, card_line)
         if rehearsal:
@@ -381,14 +690,52 @@ def main(argv: list[str]) -> int:
         else:
             phase = "forward"
             phase_forward(bundle)
+
+        phase = "serve llama"
+        from mlmicroservicetemplate_tpu_torch.convert.jax_params import llama_params_from_jax
+        from mlmicroservicetemplate_tpu_torch.models import llama as llama_mod
+
+        device = "cpu" if rehearsal else "cuda"
+        llama_overrides = {"MODEL_NAME": "llama", "DEVICE": device,
+                           "BATCH_BUCKETS": "1,2,4,8,16", "SEQ_BUCKETS": "32,64,128,256"}
+        dims = {}
+        if rehearsal:
+            dims = REHEARSAL_LLAMA
+            llama_overrides.update(LLAMA_CONFIG=json.dumps(dims), SEQ_BUCKETS="32,64")
+        # eos/pad of the byte tokenizer, as the registry sets them
+        lcfg = llama_mod.LlamaConfig(**dims, eos_id=1, pad_id=0)
+        params = llama_pytree(lcfg, seed=0)
+        ref_model = llama_mod.build_model(lcfg, llama_params_from_jax(params, lcfg),
+                                          torch.device(device), torch.float32)
+        llama_svc = phase_serve_llama(phase, llama_overrides, params, ref_model,
+                                      rehearsal, card_line)
+        phase = "serve llama int8"
+        llama8_launches = phase_serve_llama(
+            phase, {**llama_overrides, "QUANT_KV": "int8"}, params, ref_model, rehearsal,
+            card_line,
+        )[3]
+        del ref_model, params
+        if rehearsal:
+            emit("decode step", skipped="cpu rehearsal: no card to profile")
+        else:
+            phase = "decode step"
+            phase_decode_step(llama_svc[1])
+
         phase = "http"
         try:
             import aiohttp  # noqa: F401
         except ImportError:
             emit(phase, skipped="aiohttp is not installed; HTTP is no device path")
         else:
-            body = asyncio.run(http_predict(cfg, bundle, engine))
-            emit(phase, status=200, prediction=body["prediction"])
+            (prediction,) = asyncio.run(http_check(
+                cfg, bundle, engine, [("/predict", {"text": "hello card"}, "prediction")]))
+            generated = asyncio.run(http_check(*llama_svc[:3], [
+                ("/predict", {"text": "hello card", "max_tokens": 8, "stop": ["zz"]},
+                 "prediction"),
+                ("/v1/completions", {"prompt": "hello card", "max_tokens": 8}, "usage"),
+            ]))
+            emit(phase, status=200, prediction=prediction, llama_prediction=generated[0],
+                 llama_completion_usage=generated[1])
     except Exception as e:
         traceback.print_exc()
         emit(phase, ok=False, error=f"{type(e).__name__}: {e}")
@@ -396,16 +743,23 @@ def main(argv: list[str]) -> int:
     if rehearsal:
         print("chip_smoke: cpu rehearsal passed (no result line: nothing ran on a card)")
         return 0
-    print(json.dumps({"kernels": [{
-        "name": "fused_attention", "route": "cuda",
-        "source": "mlmicroservicetemplate_tpu_torch/csrc/fused_attention.cu",
-        "replaces": "mlmicroservicetemplate_tpu/ops/attention.py:400",
-        "launches": launches, "max_abs_err": headline["max_abs_err"],
-        "ms": headline["kernel_ms"], "plain_ms": headline["plain_ms"],
-        "bound_ms": headline["bound_us"] / 1e3, "bound_by": headline["bound_by"],
-        "library_ms": headline["library_ms"], "dtype": headline["dtype"],
-        "shape": headline["shape"],
-    }]}))
+
+    def kernel_entry(name: str, replaces: str, launches: int, row: dict) -> dict:
+        return {
+            "name": name, "route": "cuda",
+            "source": f"mlmicroservicetemplate_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces, "launches": launches, "max_abs_err": row["max_abs_err"],
+            "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_us"] / 1e3, "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"], "dtype": row["dtype"], "shape": row["shape"],
+        }
+
+    print(json.dumps({"kernels": [
+        kernel_entry("fused_attention", "mlmicroservicetemplate_tpu/ops/attention.py:400",
+                     launches, headline),
+        kernel_entry("decode_attention", "mlmicroservicetemplate_tpu/ops/attention.py:310",
+                     llama_svc[3] + llama8_launches, decode_headline),
+    ]}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,11 @@
 
 Request path, as in the JAX package's ``api/app.py``: parse the JSON
 ``{"text": ...}`` body -> preprocess (thread offloaded) -> dynamic-batching
-queue -> engine dispatch -> postprocess -> JSON.  Also ``/healthz``,
-``/readyz``, ``/status`` and ``/metrics``.  This is the only module of the
-package that imports aiohttp.
+queue -> engine dispatch -> postprocess -> JSON.  A generative model also
+takes ``max_tokens`` and ``stop`` on ``/predict`` and answers non-streaming
+``POST /v1/completions``; ``stream: true`` and ``temperature > 0`` are not
+ported and answer 400.  Also ``/healthz``, ``/readyz``, ``/status`` and
+``/metrics``.  This is the only module of the package that imports aiohttp.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import numpy as np
 import torch
 from aiohttp import web
 
-from ..models.registry import ModelBundle, RawItem
+from ..models.registry import KIND_SEQ2SEQ, ModelBundle, RawItem
 from ..scheduler.batcher import Batcher, DeadlineExceededError, QueueFullError
 from ..utils import metrics, tracing
 
@@ -81,6 +83,7 @@ def build_app(cfg, bundle: ModelBundle, engine, batcher: Batcher) -> web.Applica
     # mapping once it starts.
     app[K_STATE] = {"ready_error": None, "warmup_s": None}
     app.router.add_post("/predict", handle_predict)
+    app.router.add_post("/v1/completions", handle_completions)
     app.router.add_get("/healthz", handle_healthz)
     app.router.add_get("/readyz", handle_readyz)
     app.router.add_get("/status", handle_status)
@@ -151,22 +154,98 @@ async def _parse_request(request: web.Request) -> RawItem:
         raise web.HTTPBadRequest(reason="invalid JSON body") from None
     if not isinstance(body, dict):
         raise web.HTTPBadRequest(reason="JSON body must be an object")
+    return _parse_json_item(body)
+
+
+def _parse_json_item(body: dict) -> RawItem:
+    """Validate a JSON /predict-shaped body into a RawItem (shared with the
+    /v1/completions translation; every failure is an HTTPBadRequest).
+    Sampling fields are validated as the JAX package does; whether they
+    can be served is the generative handlers' call (``_reject_unported``)."""
     text = body.get("text") or body.get("input")
     if not isinstance(text, str) or not text:
         raise web.HTTPBadRequest(reason='JSON body needs a non-empty "text" field')
-    return RawItem(text=text)
+    try:
+        temperature = float(body.get("temperature") or 0.0)
+        top_k = int(body.get("top_k") or 0)
+        top_p = float(body.get("top_p") if body.get("top_p") is not None else 1.0)
+        seed = body.get("seed")
+        seed = int(seed) if seed is not None else None
+    except (TypeError, ValueError):
+        raise web.HTTPBadRequest(
+            reason="temperature/top_p must be numbers, top_k/seed integers"
+        ) from None
+    if temperature < 0 or not (0.0 < top_p <= 1.0) or top_k < 0:
+        raise web.HTTPBadRequest(reason="need temperature >= 0, 0 < top_p <= 1, top_k >= 0")
+    if seed is not None and not (0 <= seed < 2**32):
+        raise web.HTTPBadRequest(reason="seed must be in [0, 2**32)")
+    try:
+        max_tokens = body.get("max_tokens")
+        max_tokens = int(max_tokens) if max_tokens is not None else None
+    except (TypeError, ValueError):
+        raise web.HTTPBadRequest(reason="max_tokens must be an integer") from None
+    if max_tokens is not None and max_tokens < 1:
+        raise web.HTTPBadRequest(reason="max_tokens must be >= 1")
+    stop = body.get("stop")
+    if stop is None:  # JSON null == absent
+        stop = ()
+    if isinstance(stop, str):
+        stop = (stop,)
+    if not isinstance(stop, (list, tuple)) or len(stop) > 8 or not all(
+        isinstance(s, str) and s for s in stop
+    ):
+        raise web.HTTPBadRequest(reason='"stop" must be a non-empty string or a list of up to 8')
+    return RawItem(text=text, stream=bool(body.get("stream", False)),
+                   temperature=temperature, max_tokens=max_tokens, stop=tuple(stop))
+
+
+def _reject_unported(item: RawItem) -> None:
+    """Streaming and sampling are not ported: a generative request that
+    asks for either is answered 400, never served greedy and whole."""
+    if item.stream:
+        raise web.HTTPBadRequest(reason="streaming responses are not ported yet")
+    if item.temperature > 0.0:
+        raise web.HTTPBadRequest(
+            reason="sampling (temperature > 0) is not ported yet; greedy decoding only"
+        )
 
 
 async def handle_predict(request: web.Request) -> web.Response:
     app = request.app
     bundle: ModelBundle = app[K_BUNDLE]
     t0 = time.monotonic()
+    generative = bundle.kind == KIND_SEQ2SEQ
     try:
         item = await _parse_request(request)
+        if request.query.get("stream", "") in ("1", "true"):
+            item.stream = True
+        if generative:
+            _reject_unported(item)
         sched = _deadline_field(request)
     except web.HTTPBadRequest:
         metrics.REQUESTS.labels(bundle.name, "400").inc()
         raise
+    feats = await _preprocess(request, bundle, item, sched)
+    try:
+        row = await app[K_BATCHER].submit(feats)
+        if generative and item.max_tokens is not None:
+            row = row[: item.max_tokens]
+        result = bundle.postprocess(row)
+        if generative and item.stop:
+            result["prediction"]["text"] = _apply_stop(result["prediction"]["text"], item.stop)
+    except Exception as e:
+        return _failure(request, bundle.name, e)
+    dt = time.monotonic() - t0
+    result["model"] = bundle.name
+    result["timing_ms"] = round(dt * 1000.0, 3)
+    metrics.REQUESTS.labels(bundle.name, "200").inc()
+    metrics.LATENCY.labels(bundle.name).observe(dt)
+    return web.json_response(result)
+
+
+async def _preprocess(request: web.Request, bundle: ModelBundle, item: RawItem,
+                      sched: dict) -> dict:
+    """Tokenize off the event loop; an undecodable payload is a 400."""
     loop = asyncio.get_running_loop()
     try:
         feats = await loop.run_in_executor(None, bundle.preprocess, item)
@@ -175,33 +254,159 @@ async def handle_predict(request: web.Request) -> web.Response:
         raise web.HTTPBadRequest(reason=str(e) or "undecodable payload") from None
     feats.update(sched)
     feats["request_id"] = request.get("request_id", "")
-    try:
-        row = await app[K_BATCHER].submit(feats)
-        result = bundle.postprocess(row)
-    except QueueFullError as e:
-        metrics.REQUESTS.labels(bundle.name, "503").inc()
+    return feats
+
+
+def _failure(request: web.Request, model: str, e: Exception) -> web.Response:
+    """The answer to a failed dispatch, counted: a shed raises 503 with
+    Retry-After, a passed deadline 504; anything else is a structured 500."""
+    if isinstance(e, QueueFullError):
+        metrics.REQUESTS.labels(model, "503").inc()
         ra = max(1, int(math.ceil(e.retry_after_s or 1.0)))
         raise web.HTTPServiceUnavailable(
             reason=str(e) or "overloaded, retry later", headers={"Retry-After": str(ra)}
         ) from None
-    except DeadlineExceededError:
-        metrics.REQUESTS.labels(bundle.name, "504").inc()
+    if isinstance(e, DeadlineExceededError):
+        metrics.REQUESTS.labels(model, "504").inc()
         raise web.HTTPGatewayTimeout(
             reason="deadline passed before dispatch; request shed"
         ) from None
+    metrics.REQUESTS.labels(model, "500").inc()
+    rid = request.get("request_id", "")
+    log.exception("inference dispatch failed (request_id=%s)", rid, exc_info=e)
+    return web.json_response(_error_body(type(e).__name__, "inference failed", rid), status=500)
+
+
+def _apply_stop(text: str, stops) -> str:
+    """Truncate at the first occurrence of any stop string."""
+    cut = len(text)
+    for s in stops:
+        i = text.find(s)
+        if i != -1:
+            cut = min(cut, i)
+    return text[:cut]
+
+
+def _tokens_covering(decode, tokens, target_len: int) -> int:
+    """Smallest n with len(decode(tokens[:n])) >= target_len (bisection,
+    then a walk down through plateaus at split multi-byte characters);
+    len(tokens) when even the full decode falls short."""
+    if len(decode(tokens)) < target_len:
+        return len(tokens)
+    lo, hi = 0, len(tokens)
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if len(decode(tokens[:mid])) >= target_len:
+            hi = mid
+        else:
+            lo = mid + 1
+    while lo > 0 and len(decode(tokens[: lo - 1])) >= target_len:
+        lo -= 1
+    return lo
+
+
+# ---------------------------------------------------------------------------
+# /v1/completions: the OpenAI completions shape over the same serving path
+
+
+def _usage(feats: dict, completion_tokens: int) -> dict:
+    """OpenAI ``usage``: ``completion_tokens`` counts the tokens of the
+    returned text (capped by max_tokens, trimmed to a stop string)."""
+    prompt = int(feats.get("length", 0))
+    return {
+        "prompt_tokens": prompt,
+        "completion_tokens": int(completion_tokens),
+        "total_tokens": prompt + int(completion_tokens),
+    }
+
+
+async def _generate_once(request: web.Request, bundle: ModelBundle, feats: dict,
+                         item: RawItem) -> tuple[str, str, int]:
+    """Submit, trim to max_tokens, apply the stop strings; returns (text,
+    finish_reason, completion token count)."""
+    row = await request.app[K_BATCHER].submit(feats)
+    full_len = int(np.count_nonzero(np.asarray(row) != bundle.cfg.pad_id))
+    if item.max_tokens is not None:
+        row = row[: item.max_tokens]
+    text = bundle.postprocess(row)["prediction"]["text"]
+    n_tok = min(full_len, item.max_tokens or full_len)
+    stopped_by_string = False
+    if item.stop:
+        cut = _apply_stop(text, item.stop)
+        stopped_by_string = cut != text
+        if stopped_by_string:
+            # The count must not run past the truncation: the smallest
+            # count whose decode covers the final text.
+            row_list = [int(t) for t in np.asarray(row).tolist()][:n_tok]
+            n_tok = _tokens_covering(
+                lambda ts: bundle.tokenizer.decode(np.array(ts, np.int32)), row_list, len(cut)
+            )
+        text = cut
+    finish = "stop" if (
+        stopped_by_string or item.max_tokens is None or full_len <= item.max_tokens
+    ) else "length"
+    return text, finish, n_tok
+
+
+async def handle_completions(request: web.Request) -> web.Response:
+    """Non-streaming ``POST /v1/completions`` for generative models: the
+    field names OpenAI-style clients speak (``prompt``, ``max_tokens``,
+    ``stop``), served by the same batcher and engine as /predict."""
+    app = request.app
+    bundle: ModelBundle = app[K_BUNDLE]
+    if bundle.kind != KIND_SEQ2SEQ:
+        metrics.REQUESTS.labels(bundle.name, "400").inc()
+        raise web.HTTPBadRequest(reason=f"{bundle.name} is not a generative model")
+    t0 = time.monotonic()
+    try:
+        try:
+            body = await request.json()
+        except json.JSONDecodeError:
+            raise web.HTTPBadRequest(reason="invalid JSON body") from None
+        if not isinstance(body, dict):
+            raise web.HTTPBadRequest(reason="invalid JSON body")
+        # Unsupported OpenAI fields get an explicit 400, not a silent drop.
+        if body.get("n") not in (None, 1):
+            raise web.HTTPBadRequest(reason='"n" > 1 is not supported (one choice per request)')
+        if body.get("best_of") not in (None, 1):
+            raise web.HTTPBadRequest(reason='"best_of" > 1 is not supported')
+        if (body.get("logprobs") is not None and body.get("logprobs") is not False) or (
+            body.get("top_logprobs") not in (None, 0)
+        ):
+            raise web.HTTPBadRequest(reason='"logprobs" is not supported')
+        prompt = body.get("prompt")
+        if isinstance(prompt, list):  # the API allows a singleton batch
+            prompt = prompt[0] if len(prompt) == 1 else None
+        if not isinstance(prompt, str) or not prompt:
+            raise web.HTTPBadRequest(reason='"prompt" must be a non-empty string')
+        item = _parse_json_item({
+            "text": prompt,
+            "stream": body.get("stream", False),
+            "temperature": body.get("temperature", 0.0),
+            "top_k": body.get("top_k", 0),
+            "top_p": body.get("top_p", 1.0),
+            "seed": body.get("seed"),
+            "max_tokens": body.get("max_tokens"),
+            "stop": body.get("stop"),
+        })
+        _reject_unported(item)
+        sched = _deadline_field(request)
+    except web.HTTPBadRequest:
+        metrics.REQUESTS.labels(bundle.name, "400").inc()
+        raise
+    feats = await _preprocess(request, bundle, item, sched)
+    try:
+        text, finish, n_tok = await _generate_once(request, bundle, feats, item)
     except Exception as e:
-        metrics.REQUESTS.labels(bundle.name, "500").inc()
-        rid = request.get("request_id", "")
-        log.exception("inference dispatch failed (request_id=%s)", rid)
-        return web.json_response(
-            _error_body(type(e).__name__, "inference failed", rid), status=500
-        )
-    dt = time.monotonic() - t0
-    result["model"] = bundle.name
-    result["timing_ms"] = round(dt * 1000.0, 3)
+        return _failure(request, bundle.name, e)
     metrics.REQUESTS.labels(bundle.name, "200").inc()
-    metrics.LATENCY.labels(bundle.name).observe(dt)
-    return web.json_response(result)
+    metrics.LATENCY.labels(bundle.name).observe(time.monotonic() - t0)
+    return web.json_response({
+        "object": "text_completion",
+        "model": bundle.name,
+        "choices": [{"index": 0, "text": text, "finish_reason": finish}],
+        "usage": _usage(feats, n_tok),
+    })
 
 
 async def handle_healthz(request: web.Request) -> web.Response:
@@ -238,6 +443,7 @@ async def handle_status(request: web.Request) -> web.Response:
         "seq_buckets": list(engine.seq_buckets),
         "warmup_s": app[K_STATE]["warmup_s"],
         "dispatches": engine.dispatches,
+        "decode_steps": engine.decode_steps,
         "scheduler": {
             "draining": app[K_BATCHER].draining,
             "pending": app[K_BATCHER].pending_work(),

@@ -1,6 +1,6 @@
-"""HuggingFace BERT state dict -> the JAX package's param pytree layout.
+"""HuggingFace state dicts -> the JAX package's param pytree layout.
 
-A copy of the BERT part of the JAX package's ``convert/hf_maps.py``:
+A copy of the BERT and Llama parts of the JAX package's ``convert/hf_maps.py``:
 ``MODEL_PATH`` checkpoints go HF names -> this pytree (numpy, linear
 weights transposed to ``[in, out]``) -> ``convert.jax_params``, so the
 port serves exactly the weights the JAX package serves from the same file.
@@ -55,4 +55,47 @@ def bert_state_to_pytree(state: State, n_layers: int = 12) -> dict:
         p["pooler"] = lin("bert.pooler.dense")
     if "classifier.weight" in state:
         p["classifier"] = lin("classifier")
+    return p
+
+
+def llama_state_to_pytree(state: State, n_layers: int | None = None) -> dict:
+    """HF Llama-family names -> the JAX package's ``llama.init_params``
+    layout: every projection is an ``nn.Linear`` (``[out, in]``,
+    transposed here), norms are RMSNorm weight vectors, ``lm_head.weight``
+    ``[V, D]`` becomes the untied ``[D, V]`` kernel.  A tied checkpoint
+    (no ``lm_head.weight``) uses the embedding table."""
+    if n_layers is None:
+        n_layers = 1 + max(
+            int(k.split(".")[2]) for k in state if k.startswith("model.layers.")
+        )
+
+    def lin(prefix: str) -> dict:
+        return {"kernel": _lin(state[f"{prefix}.weight"])}
+
+    embed_w = state["model.embed_tokens.weight"]
+    p: dict = {
+        "embed": {"embedding": embed_w},
+        "layers": [],
+        "final_ln": {"scale": state["model.norm.weight"]},
+        "lm_head": {"kernel": _lin(state.get("lm_head.weight", embed_w))},
+    }
+    for i in range(n_layers):
+        b = f"model.layers.{i}"
+        p["layers"].append(
+            {
+                "attn_ln": {"scale": state[f"{b}.input_layernorm.weight"]},
+                "attn": {
+                    "q": lin(f"{b}.self_attn.q_proj"),
+                    "k": lin(f"{b}.self_attn.k_proj"),
+                    "v": lin(f"{b}.self_attn.v_proj"),
+                    "o": lin(f"{b}.self_attn.o_proj"),
+                },
+                "mlp_ln": {"scale": state[f"{b}.post_attention_layernorm.weight"]},
+                "mlp": {
+                    "gate": lin(f"{b}.mlp.gate_proj"),
+                    "up": lin(f"{b}.mlp.up_proj"),
+                    "down": lin(f"{b}.mlp.down_proj"),
+                },
+            }
+        )
     return p

@@ -5,8 +5,11 @@ The JAX BERT keeps its params as a nested dict of arrays
 ``dense`` kernels in ``[d_in, d_out]``).  ``bert_params_from_jax`` maps
 that pytree, given as numpy arrays, onto ``BertModel``'s state dict: each
 dense kernel is transposed into ``nn.Linear``'s ``[d_out, d_in]``; every
-other leaf passes through.  It raises on a missing leaf, an unused leaf or
-a shape that does not fit the config, so a wrong checkpoint never serves.
+other leaf passes through.  ``llama_params_from_jax`` does the same for the
+JAX llama pytree (``{"embed", "layers": [{"attn_ln", "attn", "mlp_ln",
+"mlp"}], "final_ln", "lm_head"}``) onto ``LlamaModel``.  Both raise on a
+missing leaf, an unused leaf or a shape that does not fit the config, so a
+wrong checkpoint never serves.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import numpy as np
 import torch
 
 from ..models.bert import BertConfig, BertModel
+from ..models.llama import LlamaConfig, LlamaModel
 
 
 def _flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
@@ -43,16 +47,40 @@ def _jax_name(port_name: str) -> tuple[str, bool]:
     return f"{mod}.bias", False
 
 
+def _llama_jax_name(port_name: str) -> tuple[str, bool]:
+    """As ``_jax_name``, for ``LlamaModel``: RMSNorm weights are JAX
+    ``scale`` leaves, the embedding an ``embedding`` leaf, every other
+    weight (the LM head included) a transposed ``kernel``."""
+    mod, _, _ = port_name.rpartition(".")
+    if mod.endswith("_ln"):
+        return f"{mod}.scale", False
+    if mod == "embed":
+        return "embed.embedding", False
+    return f"{mod}.kernel", True
+
+
 def bert_params_from_jax(pytree, cfg: BertConfig) -> dict[str, torch.Tensor]:
     """The JAX BERT param pytree (numpy leaves) as ``BertModel``'s state
     dict, f32 on the CPU."""
-    leaves = _flatten(pytree)
     with torch.device("meta"):
         expected = BertModel(cfg).state_dict()
+    return _from_jax(pytree, expected, _jax_name, "BERT", cfg)
+
+
+def llama_params_from_jax(pytree, cfg: LlamaConfig) -> dict[str, torch.Tensor]:
+    """The JAX llama param pytree (numpy leaves) as ``LlamaModel``'s state
+    dict, f32 on the CPU."""
+    with torch.device("meta"):
+        expected = LlamaModel(cfg).state_dict()
+    return _from_jax(pytree, expected, _llama_jax_name, "llama", cfg)
+
+
+def _from_jax(pytree, expected, jax_name, family: str, cfg) -> dict[str, torch.Tensor]:
+    leaves = _flatten(pytree)
     out: dict[str, torch.Tensor] = {}
     missing = []
     for name, ref in expected.items():
-        jname, transpose = _jax_name(name)
+        jname, transpose = jax_name(name)
         arr = leaves.pop(jname, None)
         if arr is None:
             missing.append(jname)
@@ -64,9 +92,12 @@ def bert_params_from_jax(pytree, cfg: BertConfig) -> dict[str, torch.Tensor]:
                 f"JAX leaf {jname} has shape {tuple(arr.shape)}; the port's "
                 f"{name} needs {tuple(ref.shape)} for {cfg}"
             )
-        out[name] = torch.from_numpy(np.array(arr, dtype=np.float32))  # owned copy
+        # an owned, row-major copy
+        out[name] = torch.from_numpy(np.array(arr, dtype=np.float32, order="C"))
     if missing:
-        raise KeyError(f"JAX BERT params lack {len(missing)} leaves: {missing[:8]}")
+        raise KeyError(f"JAX {family} params lack {len(missing)} leaves: {missing[:8]}")
     if leaves:
-        raise KeyError(f"JAX BERT params have {len(leaves)} unused leaves: {sorted(leaves)[:8]}")
+        raise KeyError(
+            f"JAX {family} params have {len(leaves)} unused leaves: {sorted(leaves)[:8]}"
+        )
     return out

@@ -1,13 +1,19 @@
 """InferenceEngine: bucketed dispatch of one model on one device.
 
 Counterpart of the JAX package's ``engine/engine.py`` for text
-classification.  Requests are padded up to a small set of (batch, seq)
-buckets, as in the JAX package where each bucket is one compiled
-executable; here execution is eager, and ``warmup`` runs every bucket
-once so first-call costs (kernel build and load, allocator growth) land
-before the service reports ready.  Each dispatch is one
-``torch.inference_mode`` forward and one device-to-host copy of the
-logits.
+classification and for non-streaming generation.  Requests are padded up
+to a small set of (batch, seq) buckets, as in the JAX package where each
+bucket is one compiled executable; here execution is eager, and
+``warmup`` runs every bucket once so first-call costs (kernel build and
+load, allocator growth) land before the service reports ready.
+
+- Classification: each dispatch is one ``torch.inference_mode`` forward
+  and one device-to-host copy of the logits.
+- Generation (``KIND_SEQ2SEQ``): prefill, then greedy decode in chunks of
+  ``STREAM_CHUNK_TOKENS`` steps.  After each chunk the engine reads once
+  from the device whether every row is done (EOS, or its ``max_tokens``
+  budget), the eager counterpart of the JAX package's done-aware
+  ``while_loop``; rows come back pad-filled to ``max_decode_len``.
 """
 
 from __future__ import annotations
@@ -19,7 +25,7 @@ import time
 import numpy as np
 import torch
 
-from ..models.registry import ModelBundle
+from ..models.registry import KIND_SEQ2SEQ, ModelBundle, decode_budget
 from ..utils import tracing
 
 log = logging.getLogger(__name__)
@@ -42,17 +48,25 @@ class InferenceEngine:
         self.device = bundle.device
         self.batch_buckets = tuple(cfg.batch_buckets)
         self.seq_buckets = tuple(cfg.seq_buckets)
-        if max(self.seq_buckets) > bundle.cfg.max_position:
+        limit = getattr(bundle, "max_prompt_len", None) or bundle.cfg.max_position
+        if max(self.seq_buckets) > limit:
             raise ValueError(
-                f"SEQ_BUCKETS {cfg.seq_buckets} exceed the model's "
-                f"{bundle.cfg.max_position} positions"
+                f"SEQ_BUCKETS {cfg.seq_buckets} exceed the model's {limit} positions "
+                "for a prompt"
             )
+        # Generation: decode steps per chunk, and the decode budget rounded
+        # up to whole chunks (the width of every generation's cache).
+        self.chunk_tokens = cfg.stream_chunk_tokens
+        self.max_decode_len = decode_budget(cfg)
         # One forward at a time on the device: eager dispatch from several
         # batcher threads would only interleave on the same stream.
         self._lock = threading.Lock()
-        # Forward passes run since start or the last reset (the counter
-        # the kernel launch counts are held against).
+        # Dispatches (forwards, or generations) and decode steps run since
+        # start or the last reset: the counters kernel launch counts are
+        # held against.
         self.dispatches = 0
+        self.decode_steps = 0
+        self.last_decode_steps = 0
 
     def _collate_text(self, feats: list[dict]) -> tuple[np.ndarray, np.ndarray, int]:
         n = len(feats)
@@ -67,6 +81,15 @@ class InferenceEngine:
             mask[i, :L] = 1
         return ids, mask, n
 
+    def _collate_budget(self, feats: list[dict], bsz: int) -> np.ndarray:
+        """Per-row decode budgets: a request's max_tokens clamped to the
+        server's budget; padding rows 0."""
+        budgets = np.zeros(bsz, np.int32)
+        for i, f in enumerate(feats):
+            budgets[i] = min(int(f.get("max_tokens", self.max_decode_len)),
+                             self.max_decode_len)
+        return budgets
+
     def _forward(self, ids: np.ndarray, mask: np.ndarray) -> np.ndarray:
         with self._lock, torch.inference_mode():
             ids_t = torch.from_numpy(ids).to(self.device, non_blocking=True)
@@ -75,9 +98,30 @@ class InferenceEngine:
             self.dispatches += 1
             return logits.to(self.bundle.policy.output_dtype).cpu().numpy()
 
+    def _generate(self, ids: np.ndarray, mask: np.ndarray,
+                  budgets: np.ndarray) -> tuple[np.ndarray, int]:
+        """Prefill plus chunked greedy decode of one batch; returns the
+        token rows [B, max_decode_len] int32 and the decode steps run."""
+        with self._lock, torch.inference_mode():
+            ids_t = torch.from_numpy(ids).to(self.device)
+            mask_t = torch.from_numpy(mask).to(self.device)
+            budgets_t = torch.from_numpy(budgets).to(self.device)
+            state = self.bundle.init_state(ids_t, mask_t, self.max_decode_len)
+            # Bucket-padding rows (all-zero mask) never emit EOS: they count
+            # as done from the start, or no padded batch could stop early.
+            state.done = state.done | (mask_t.sum(dim=-1) == 0)
+            while state.steps < self.max_decode_len and not bool(state.done.all()):
+                state, _ = self.bundle.generate_chunk(state, self.chunk_tokens)
+                self.decode_steps += self.chunk_tokens
+                # A row at its max_tokens budget counts as done.
+                state.done = state.done | (state.pos >= budgets_t)
+            self.dispatches += 1
+            return state.tokens.cpu().numpy(), state.steps
+
     def run_batch(self, feats: list[dict]) -> list[np.ndarray]:
-        """Forward one formed batch; returns one f32 logits row per item.
-        Batches larger than the max bucket split into sub-dispatches."""
+        """Run one formed batch; returns one row per item: f32 logits, or
+        int32 tokens for a generative model.  Batches larger than the max
+        bucket split into sub-dispatches."""
         cap = max(self.batch_buckets)
         if len(feats) > cap:
             out: list[np.ndarray] = []
@@ -86,16 +130,28 @@ class InferenceEngine:
             return out
         ids, mask, n = self._collate_text(feats)
         with tracing.span("dispatch", cat="engine", batch=ids.shape[0], seq=ids.shape[1], n=n):
-            rows = self._forward(ids, mask)
+            if self.bundle.kind == KIND_SEQ2SEQ:
+                rows, self.last_decode_steps = self._generate(
+                    ids, mask, self._collate_budget(feats, ids.shape[0])
+                )
+            else:
+                rows = self._forward(ids, mask)
         return [rows[i] for i in range(n)]
 
     def warmup(self) -> float:
-        """Run every (batch, seq) bucket once; returns the seconds taken."""
+        """Run every (batch, seq) bucket once (a generative model: its
+        prefill and one decode chunk); returns the seconds taken."""
         t0 = time.monotonic()
         for b in self.batch_buckets:
             for s in self.seq_buckets:
                 ids = np.ones((b, s), np.int32)
-                self._forward(ids, np.ones((b, s), np.int32))
+                if self.bundle.kind == KIND_SEQ2SEQ:
+                    with self._lock, torch.inference_mode():
+                        ones = torch.from_numpy(ids).to(self.device)
+                        state = self.bundle.init_state(ones, ones, self.max_decode_len)
+                        self.bundle.generate_chunk(state, self.chunk_tokens)
+                else:
+                    self._forward(ids, np.ones((b, s), np.int32))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         dt = time.monotonic() - t0

@@ -4,6 +4,9 @@ Counterparts of the JAX package's ``models/common.py``.  Two layout notes:
 the JAX ``dense`` kernel is ``[d_in, d_out]`` (``x @ W``) while the port
 keeps weights in ``nn.Linear``'s ``[d_out, d_in]`` (``convert.jax_params``
 transposes); attention activations stay ``[B, S, H, D]`` as in JAX.
+The int8 KV helpers (``kv_quantize``, ``mha_attention_kv8``) and the
+llama pieces (``rmsnorm``, ``lm_head_logits``, ``repeat_kv``) follow the
+JAX functions of the same names.
 """
 
 from __future__ import annotations
@@ -25,6 +28,37 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     inputs (statistics and affine) in f32 itself, so no f32 copy of the
     activations is made."""
     return F.layer_norm(x, x.shape[-1:], scale.to(x.dtype), bias.to(x.dtype), eps)
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm (no mean, no bias): statistics and scale in f32, result in
+    x's type."""
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def lm_head_logits(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """f32 logits ``x @ weight.T`` for a dense head stored ``[V, D]``
+    (the JAX ``lm_head_logits`` with an unquantized ``[D, V]`` kernel)."""
+    return F.linear(x.float(), weight.float())
+
+
+def kv_quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-token, per-head symmetric int8 of K or V: ``[..., H, D]`` ->
+    (int8 of the same shape, f32 scale ``[..., H, 1]``)."""
+    from .quant import symmetric_int8
+
+    return symmetric_int8(x, dim=-1)
+
+
+def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """GQA broadcast ``[B, S, KVH, D]`` -> ``[B, S, KVH * n_rep, D]``:
+    query head h reads KV head h // n_rep."""
+    if n_rep == 1:
+        return x
+    b, s, h, d = x.shape
+    return x[:, :, :, None, :].expand(b, s, h, n_rep, d).reshape(b, s, h * n_rep, d)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -66,3 +100,28 @@ def mha_attention(
         logits = logits.masked_fill(~mask, -1e9)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def mha_attention_kv8(
+    q: torch.Tensor,  # [B, Sq, H, D]
+    k8: torch.Tensor,  # [B, Sk, H, D] int8
+    k_scale: torch.Tensor,  # [B, Sk, H, 1]
+    v8: torch.Tensor,  # [B, Sk, H, D] int8
+    v_scale: torch.Tensor,  # [B, Sk, H, 1]
+    mask: torch.Tensor | None = None,  # bool, broadcastable to [B, H, Sq, Sk]
+    scale: float | None = None,
+) -> torch.Tensor:
+    """``mha_attention`` over an int8 cache, the scales factored out of
+    both products: the key scale multiplies its logit column, the value
+    scale folds into the softmax weights; returns [B, Sq, H, D] in q's
+    type."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    ks = k_scale[..., 0].permute(0, 2, 1)[:, :, None, :].float()  # [B, H, 1, Sk]
+    vs = v_scale[..., 0].permute(0, 2, 1)[:, :, None, :].float()
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k8.to(q.dtype)).float() * scale * ks
+    if mask is not None:
+        logits = logits.masked_fill(~mask, -1e9)
+    probs = torch.softmax(logits, dim=-1)
+    weighted = (probs * vs).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", weighted, v8.to(q.dtype))

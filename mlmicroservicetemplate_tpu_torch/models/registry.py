@@ -4,13 +4,19 @@ Weights come from, in order: a param pytree handed in by the caller (the
 JAX package's layout, as numpy arrays), ``MODEL_PATH`` (an HF state dict,
 mapped through the same pytree layout), or a deterministic random init
 drawn on the CPU from a seeded ``torch.Generator``.  All three go through
-``convert.jax_params.bert_params_from_jax`` or produce its output layout.
+``convert.jax_params`` or produce its output layout.
+
+Two kinds are served: BERT-base text classification, and llama greedy
+generation (``KIND_SEQ2SEQ``, the JAX package's kind for every generative
+model).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import logging
+import math
 import os
 from typing import Any, Callable
 
@@ -19,12 +25,14 @@ import torch
 
 from ..runtime.device import DtypePolicy, default_policy, get_device
 from . import bert as bert_mod
+from . import llama as llama_mod
 from .preprocess import load_labels, softmax_np
 from .tokenizer import build_tokenizer
 
 log = logging.getLogger(__name__)
 
 KIND_TEXT = "text_classification"
+KIND_SEQ2SEQ = "seq2seq"
 # Seed of the random init when no weights are given.
 INIT_SEED = 0
 
@@ -41,18 +49,33 @@ class ModelBundle:
     policy: DtypePolicy
     tokenizer: Any
     labels: list[str] | None
-    # (input_ids [B, S] int32, attention_mask [B, S] int32) on the device
-    # -> f32 logits [B, num_labels].
-    forward: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+    # Text classification: (input_ids [B, S] int32, attention_mask [B, S]
+    # int32) on the device -> f32 logits [B, num_labels].
+    forward: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] | None = None
+    # Generation: (input_ids, attention_mask, max_len) -> decode state
+    # after prefill, and (state, n_steps) -> (state, tokens [B, n_steps]).
+    init_state: Callable | None = None
+    generate_chunk: Callable | None = None
+    # Cap on a tokenized prompt (generation keeps position-table room for
+    # the decode budget).
+    max_prompt_len: int | None = None
 
     def preprocess(self, item: "RawItem") -> dict[str, np.ndarray]:
         if item.text is None:
             raise ValueError("this model expects a text payload")
-        ids, mask = self.tokenizer.encode(item.text, self.cfg.max_position)
+        max_len = self.max_prompt_len or self.cfg.max_position
+        ids, mask = self.tokenizer.encode(item.text, max_len)
         n = int(mask.sum())
-        return {"input_ids": ids[:n], "length": np.int32(n)}
+        feats = {"input_ids": ids[:n], "length": np.int32(n)}
+        if self.kind == KIND_SEQ2SEQ and item.max_tokens is not None:
+            # The engine stops spending decode chunks on a row once its
+            # budget is reached.
+            feats["max_tokens"] = int(item.max_tokens)
+        return feats
 
     def postprocess(self, row: np.ndarray) -> dict:
+        if self.kind == KIND_SEQ2SEQ:  # row is a token id vector
+            return {"prediction": {"text": self.tokenizer.decode(row)}}
         probs = softmax_np(row)
         label_id = int(np.argmax(probs))
         return {
@@ -67,9 +90,17 @@ class ModelBundle:
 
 @dataclasses.dataclass
 class RawItem:
-    """One unparsed /predict payload."""
+    """One unparsed /predict payload.  The generation fields apply to
+    generative models only; decoding is greedy (sampling is not ported)."""
 
     text: str | None = None
+    # Asked for, and answered 400 until streaming and sampling are ported.
+    stream: bool = False
+    temperature: float = 0.0
+    # Generation stops after this many tokens (None = the server's
+    # MAX_DECODE_LEN budget) or where a stop string appears.
+    max_tokens: int | None = None
+    stop: tuple[str, ...] = ()
 
 
 def _bert_state(svc_cfg, cfg: bert_mod.BertConfig, params) -> dict[str, torch.Tensor]:
@@ -79,18 +110,23 @@ def _bert_state(svc_cfg, cfg: bert_mod.BertConfig, params) -> dict[str, torch.Te
         return bert_params_from_jax(params, cfg)
     if svc_cfg.model_path:
         from ..convert.hf_maps import bert_state_to_pytree
-        from .checkpoint import load_state_dict
 
-        if os.path.isdir(svc_cfg.model_path):
-            raise ValueError(
-                f"MODEL_PATH={svc_cfg.model_path!r} is a directory; the port loads "
-                "HF state dicts (.npz, .safetensors, .bin), not orbax checkpoints"
-            )
-        log.info("loading bert-base checkpoint from %s", svc_cfg.model_path)
-        state = load_state_dict(svc_cfg.model_path)
+        state = _load_hf_state(svc_cfg.model_path, "bert-base")
         return bert_params_from_jax(bert_state_to_pytree(state, cfg.num_layers), cfg)
     log.info("no MODEL_PATH for bert-base: deterministic random init (seed %d)", INIT_SEED)
     return bert_mod.init_params(cfg, torch.Generator().manual_seed(INIT_SEED))
+
+
+def _load_hf_state(path: str, name: str) -> dict[str, np.ndarray]:
+    from .checkpoint import load_state_dict
+
+    if os.path.isdir(path):
+        raise ValueError(
+            f"MODEL_PATH={path!r} is a directory; the port loads HF state dicts "
+            "(.npz, .safetensors, .bin), not orbax checkpoints"
+        )
+    log.info("loading %s checkpoint from %s", name, path)
+    return load_state_dict(path)
 
 
 def _build_bert(svc_cfg, policy: DtypePolicy, device: torch.device,
@@ -118,13 +154,115 @@ def _build_bert(svc_cfg, policy: DtypePolicy, device: torch.device,
     )
 
 
+def decode_budget(svc_cfg) -> int:
+    """MAX_DECODE_LEN rounded up to whole STREAM_CHUNK_TOKENS chunks: the
+    decode width of every generation's cache."""
+    chunk = svc_cfg.stream_chunk_tokens
+    return int(math.ceil(svc_cfg.max_decode_len / chunk) * chunk)
+
+
+def _llama_config(svc_cfg, tokenizer) -> llama_mod.LlamaConfig:
+    overrides = {}
+    if svc_cfg.llama_config:
+        overrides = json.loads(svc_cfg.llama_config)
+        if not isinstance(overrides, dict):
+            raise ValueError(f"LLAMA_CONFIG must be a JSON object, got {svc_cfg.llama_config!r}")
+    known = {f.name for f in dataclasses.fields(llama_mod.LlamaConfig)}
+    unknown = sorted(set(overrides) - known)
+    if unknown:
+        raise ValueError(
+            f"LLAMA_CONFIG keys {unknown} are not LlamaConfig fields of the port "
+            "(the TPU kernel knobs pallas_* and tp are not ported yet)"
+        )
+    # The model's EOS/pad are the tokenizer's ids, as in the JAX package.
+    overrides.setdefault("eos_id", int(tokenizer.eos_id))
+    overrides.setdefault("pad_id", int(tokenizer.pad_id))
+    if svc_cfg.quant_kv == "int8":
+        overrides["kv_quant"] = True
+    cfg = llama_mod.LlamaConfig(**overrides)
+    max_id = int(getattr(tokenizer, "vocab_size", 1)) - 1
+    if max_id >= cfg.vocab_size:
+        raise ValueError(
+            f"tokenizer at {svc_cfg.tokenizer_path!r} can emit id {max_id} "
+            f">= llama embedding table rows {cfg.vocab_size}"
+        )
+    if not (0 <= cfg.eos_id < cfg.vocab_size and 0 <= cfg.pad_id < cfg.vocab_size):
+        raise ValueError(
+            f"eos_id={cfg.eos_id}/pad_id={cfg.pad_id} outside llama vocab of {cfg.vocab_size}"
+        )
+    return cfg
+
+
+def _llama_state(svc_cfg, cfg: llama_mod.LlamaConfig, params) -> dict[str, torch.Tensor]:
+    from ..convert.jax_params import llama_params_from_jax
+
+    if params is not None:
+        return llama_params_from_jax(params, cfg)
+    if svc_cfg.model_path:
+        from ..convert.hf_maps import llama_state_to_pytree
+
+        state = _load_hf_state(svc_cfg.model_path, "llama")
+        return llama_params_from_jax(llama_state_to_pytree(state), cfg)
+    log.info("no MODEL_PATH for llama: deterministic random init (seed %d)", INIT_SEED)
+    return llama_mod.init_params(cfg, torch.Generator().manual_seed(INIT_SEED))
+
+
+def _build_llama(svc_cfg, policy: DtypePolicy, device: torch.device,
+                 params=None) -> ModelBundle:
+    """Llama-family greedy generation.  Default dims are TinyLlama-1.1B;
+    ``LLAMA_CONFIG`` takes a JSON object of ``LlamaConfig`` overrides and
+    ``QUANT_KV=int8`` turns on the int8 KV cache."""
+    # Without TOKENIZER_PATH: the byte fallback with a trailing EOS, as the
+    # JAX package's llama uses (SentencePiece files raise "not ported").
+    tokenizer = build_tokenizer(svc_cfg.tokenizer_path, for_t5=True)
+    cfg = _llama_config(svc_cfg, tokenizer)
+    budget = decode_budget(svc_cfg)
+    # Prompt + decode must fit the position table.
+    if budget >= cfg.max_position:
+        raise ValueError(
+            f"MAX_DECODE_LEN(+chunk rounding)={budget} leaves no room for a prompt "
+            f"within llama's {cfg.max_position} positions"
+        )
+    max_prompt = cfg.max_position - budget
+    bad = [s for s in svc_cfg.seq_buckets if s > max_prompt]
+    if bad:
+        raise ValueError(
+            f"SEQ_BUCKETS {bad} exceed llama's position budget: max prompt = "
+            f"{cfg.max_position} - {budget} decode = {max_prompt}"
+        )
+    model = llama_mod.build_model(cfg, _llama_state(svc_cfg, cfg, params), device,
+                                  policy.param_dtype)
+
+    def init_state(input_ids, attention_mask, max_len: int):
+        return llama_mod.init_decode_state(model, input_ids, attention_mask, max_len,
+                                           dtype=policy.compute_dtype)
+
+    def generate_chunk(state, n_steps: int):
+        return llama_mod.generate_chunk(model, state, n_steps)
+
+    return ModelBundle(
+        name="llama",
+        kind=KIND_SEQ2SEQ,
+        cfg=cfg,
+        model=model,
+        device=device,
+        policy=policy,
+        tokenizer=tokenizer,
+        labels=None,
+        init_state=init_state,
+        generate_chunk=generate_chunk,
+        max_prompt_len=max_prompt,
+    )
+
+
 MODEL_REGISTRY: dict[str, Callable] = {
     "bert-base": _build_bert,
     "bert-base-uncased": _build_bert,
+    "llama": _build_llama,
+    "tinyllama": _build_llama,
 }
 # Served by the JAX package, not by this port yet.
-NOT_PORTED = ("resnet50", "resnet-50", "bert-long", "t5-small", "t5small",
-              "gpt2", "llama", "tinyllama")
+NOT_PORTED = ("resnet50", "resnet-50", "bert-long", "t5-small", "t5small", "gpt2")
 
 
 def build_model(svc_cfg, policy: DtypePolicy | None = None, params=None) -> ModelBundle:
@@ -142,5 +280,10 @@ def build_model(svc_cfg, policy: DtypePolicy | None = None, params=None) -> Mode
             )
         raise ValueError(
             f"unknown model {svc_cfg.model_name!r}; available: {sorted(MODEL_REGISTRY)}"
+        )
+    if svc_cfg.quant_kv and MODEL_REGISTRY[svc_cfg.model_name] is not _build_llama:
+        raise ValueError(
+            f"QUANT_KV is not supported for {svc_cfg.model_name!r} "
+            "(int8 KV cache covers the llama family)"
         )
     return builder(svc_cfg, policy, device, params)

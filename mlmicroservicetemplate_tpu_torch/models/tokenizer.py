@@ -1,7 +1,8 @@
 """Tokenizers for the text models: pure Python, no external assets.
 
 Copies of the JAX package's ``ByteTokenizer`` and ``WordPieceTokenizer``
-and of ``build_tokenizer``'s BERT branch:
+and of ``build_tokenizer``'s WordPiece and byte-fallback branches
+(SentencePiece and byte-level BPE files raise "not ported yet"):
 
 - ``WordPieceTokenizer``: BERT-style WordPiece (basic tokenize, then greedy
   longest-match subwords) over a standard ``vocab.txt``
@@ -191,9 +192,11 @@ class WordPieceTokenizer:
         return text
 
 
-def build_tokenizer(tokenizer_path: str | None):
+def build_tokenizer(tokenizer_path: str | None, for_t5: bool = False):
     """WordPiece over ``tokenizer_path`` (a BERT ``vocab.txt``) when given,
-    else the byte-level tokenizer with [CLS]/[SEP]."""
+    else the byte-level tokenizer: with [CLS]/[SEP] for the classifiers,
+    with a trailing EOS and no [CLS]/[SEP] for the generative models
+    (``for_t5``, the JAX package's name for that fallback)."""
     if tokenizer_path and tokenizer_path.endswith((".model", ".tsv", ".vocab", ".json")):
         raise ValueError(
             f"TOKENIZER_PATH={tokenizer_path!r}: SentencePiece and byte-level BPE "
@@ -201,4 +204,4 @@ def build_tokenizer(tokenizer_path: str | None):
         )
     if tokenizer_path:
         return WordPieceTokenizer(tokenizer_path)
-    return ByteTokenizer(add_cls_sep=True)
+    return ByteTokenizer(add_cls_sep=not for_t5, add_eos=for_t5)

@@ -1,6 +1,16 @@
-"""Fused encoder self-attention: a hand-written CUDA kernel for Hopper.
+"""Attention kernels written by hand in CUDA for Hopper, with their plain
+versions.
 
-Replaces the Pallas TPU kernel ``mlmicroservicetemplate_tpu/ops/attention.py``
+- ``fused_attention`` (K1): encoder self-attention, ``csrc/fused_attention.cu``.
+- ``decode_attention`` (K2): one decode step's attention over a contiguous
+  KV cache, dense or int8, grouped-query; ``csrc/decode_attention.cu``,
+  replacing the Pallas kernel ``decode_attention`` of the JAX package's
+  ``ops/attention.py`` (bodies ``_decode_body``, ``_decode_body_v``).  One
+  CTA per (batch row, KV head) reads that head's K/V slab once and serves
+  all the query heads of its group; the source's header says what bounds
+  it.  ``decode_attention.launches`` counts its launches.
+
+K1 replaces the Pallas TPU kernel ``mlmicroservicetemplate_tpu/ops/attention.py``
 (``_attn_body``, launched by its ``fused_attention``).  The kernel lives in
 ``csrc/fused_attention.cu``; its header says what bounds it on the card and
 what its design does about that.  In short: the TPU kernel keeps one head's
@@ -9,9 +19,9 @@ shared memory, so the CUDA kernel walks the keys in 64-key tiles with an f32
 online softmax and never writes scores to device memory.  It reads and
 writes [B, S, H, D] through strides, so no transposes surround it.
 
-``fused_attention`` launches the kernel for CUDA tensors and raises on any
-input the kernel does not take; for CPU tensors it runs
-``fused_attention_ref``, the plain PyTorch version of the same function.
+Each wrapper launches its kernel for CUDA tensors and raises on any
+input the kernel does not take; for CPU tensors it runs its plain PyTorch
+version (``fused_attention_ref``, ``decode_attention_ref``).
 ``fused_attention.launches`` counts kernel launches.
 """
 
@@ -23,7 +33,7 @@ import math
 import torch
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIM = 64  # the only head width the kernel takes (BERT-base, T5-small)
+HEAD_DIM = 64  # the only head width the kernels take (BERT-base, TinyLlama)
 
 
 def fused_attention_ref(
@@ -155,3 +165,178 @@ def fused_attention(
 
 
 fused_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# decode attention (K2): one query per row over a contiguous KV cache
+
+MAX_GROUP = 16  # query heads per KV head the decode kernel takes
+_KV_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+def decode_attention_ref(
+    q: torch.Tensor,  # [B, H, D]
+    k: torch.Tensor,  # [B, T, KVH, D] dense, or int8
+    v: torch.Tensor,  # [B, T, KVH, D]
+    mask: torch.Tensor,  # [B, T], nonzero = attend
+    k_scale: torch.Tensor | None = None,  # [B, T, KVH, 1]: int8 cache
+    v_scale: torch.Tensor | None = None,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of the decode step's cache attention.
+
+    Query head h reads KV head h // (H / KVH).  Scores and softmax in f32,
+    masked keys at -1e9.  Dense cache: probabilities cast to V's type,
+    f32 sum.  int8 cache: K = k8 * k_scale and V = v8 * v_scale in f32,
+    probabilities stay f32.  Returns [B, H, D] in q's type."""
+    b, h, d = q.shape
+    kvh = k.shape[2]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    qg = q.float().reshape(b, kvh, h // kvh, d)
+    kf = k.float() if k_scale is None else k.float() * k_scale.float()
+    scores = torch.einsum("bgrd,btgd->bgrt", qg, kf) * scale
+    keep = (mask != 0)[:, None, None, :]
+    scores = torch.where(keep, scores, torch.tensor(-1e9, dtype=torch.float32,
+                                                    device=scores.device))
+    probs = torch.softmax(scores, dim=-1)
+    if v_scale is None:
+        probs, vf = probs.to(v.dtype).float(), v.float()
+    else:
+        vf = v.float() * v_scale.float()
+    ctx = torch.einsum("bgrt,btgd->bgrd", probs, vf)
+    return ctx.reshape(b, h, d).to(q.dtype)
+
+
+def _check_decode(q, k, v, mask, k_scale, v_scale) -> None:
+    tensors = [q, k, v, mask] + [t for t in (k_scale, v_scale) if t is not None]
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("decode_attention: all inputs must be on one device")
+    quant = k_scale is not None or v_scale is not None
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"decode_attention: q must be float32 or bfloat16, got {q.dtype}")
+    if quant:
+        if k_scale is None or v_scale is None:
+            raise ValueError("decode_attention: the int8 cache needs k_scale and v_scale")
+        if k.dtype != torch.int8 or v.dtype != torch.int8:
+            raise TypeError(
+                f"decode_attention: scales given, so k/v must be int8, got {k.dtype}/{v.dtype}"
+            )
+        if k_scale.dtype not in _DTYPE_CODE or v_scale.dtype != k_scale.dtype:
+            raise TypeError(
+                f"decode_attention: scales must share float32 or bfloat16, got "
+                f"{k_scale.dtype}/{v_scale.dtype}"
+            )
+    elif k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(
+            f"decode_attention: a dense cache must have q's type {q.dtype}, got "
+            f"{k.dtype}/{v.dtype}"
+        )
+    if q.dim() != 3 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(
+            f"decode_attention: q must be [B, H, D] and k/v one [B, T, KVH, D] "
+            f"shape, got {tuple(q.shape)}/{tuple(k.shape)}/{tuple(v.shape)}"
+        )
+    b, h, d = q.shape
+    _, t, kvh, dk = k.shape
+    if k.shape[0] != b or dk != d:
+        raise ValueError(
+            f"decode_attention: k/v {tuple(k.shape)} do not fit q {tuple(q.shape)}"
+        )
+    if d != HEAD_DIM:
+        raise ValueError(f"decode_attention: head dim {d} (the kernel takes {HEAD_DIM})")
+    if h % kvh or h // kvh > MAX_GROUP:
+        raise ValueError(
+            f"decode_attention: {h} query heads over {kvh} KV heads (the kernel "
+            f"takes a whole group of at most {MAX_GROUP})"
+        )
+    if tuple(mask.shape) != (b, t):
+        raise ValueError(f"decode_attention: mask must be [B, T], got {tuple(mask.shape)}")
+    if q.stride(2) != 1:
+        raise ValueError(f"decode_attention: q needs a unit head_dim stride, got {q.stride()}")
+    per_access = 16 // k.element_size()  # the kernel moves 16 bytes per access
+    for name, x in (("k", k), ("v", v)):
+        if x.stride(3) != 1 or any(st % per_access for st in x.stride()[:3]):
+            raise ValueError(
+                f"decode_attention: {name} needs a unit head_dim stride and other "
+                f"strides divisible by {per_access}, got {x.stride()}"
+            )
+        if x.data_ptr() % 16:
+            raise ValueError(f"decode_attention: {name} is not 16-byte aligned")
+    if quant:
+        for name, x in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if tuple(x.shape) != (b, t, kvh, 1):
+                raise ValueError(
+                    f"decode_attention: {name} must be [B, T, KVH, 1], got {tuple(x.shape)}"
+                )
+
+
+def _bind_decode(lib: ctypes.CDLL) -> None:
+    fn = lib.decode_attention_forward
+    if fn.argtypes is None:
+        p = ctypes.c_void_p
+        i = ctypes.c_int
+        fn.argtypes = [
+            p, p, p, p, p, p, p,  # q, k, v, k_scale, v_scale, mask, out
+            i, i, i,  # q dtype, kv dtype, scale dtype
+            i, i, i, i, i,  # batch, cache length, heads, kv heads, head_dim
+            ctypes.POINTER(ctypes.c_longlong),  # strides
+            ctypes.c_float, i, p,  # scale, device, stream
+        ]
+        fn.restype = i
+        lib.decode_attention_error_string.argtypes = [i]
+        lib.decode_attention_error_string.restype = ctypes.c_char_p
+
+
+def decode_attention(
+    q: torch.Tensor,  # [B, H, D]
+    k: torch.Tensor,  # [B, T, KVH, D] dense, or int8
+    v: torch.Tensor,
+    mask: torch.Tensor,  # [B, T], nonzero = attend
+    k_scale: torch.Tensor | None = None,  # [B, T, KVH, 1]: int8 cache
+    v_scale: torch.Tensor | None = None,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """One decode step's attention over the KV cache; returns [B, H, D]
+    in q's type.
+
+    CUDA tensors launch the kernel (``csrc/decode_attention.cu``) or
+    raise; CPU tensors take ``decode_attention_ref``."""
+    if q.device.type == "cpu":
+        return decode_attention_ref(q, k, v, mask, k_scale, v_scale, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention: unsupported device {q.device}")
+    _check_decode(q, k, v, mask, k_scale, v_scale)
+    from ._build import load_library
+
+    lib = load_library("decode_attention")
+    _bind_decode(lib)
+    b, h, d = q.shape
+    _, t, kvh, _ = k.shape
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    if mask.dtype != torch.int32 or mask.stride(1) != 1:
+        mask = mask.to(torch.int32).contiguous()
+    out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
+    quant = k_scale is not None
+    sc_strides = (k_scale.stride()[:3] + v_scale.stride()[:3]) if quant else (0,) * 6
+    strides = (ctypes.c_longlong * 17)(
+        *q.stride()[:2], *k.stride()[:3], *v.stride()[:3], *sc_strides,
+        *out.stride()[:2], mask.stride(0),
+    )
+    rc = lib.decode_attention_forward(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        k_scale.data_ptr() if quant else None, v_scale.data_ptr() if quant else None,
+        mask.data_ptr(), out.data_ptr(),
+        _DTYPE_CODE[q.dtype], _KV_CODE[k.dtype], _DTYPE_CODE[k_scale.dtype] if quant else -1,
+        b, t, h, kvh, d, strides, float(scale), q.device.index,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if rc != 0:
+        msg = lib.decode_attention_error_string(rc).decode()
+        raise RuntimeError(f"decode_attention kernel launch failed ({rc}): {msg}")
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0

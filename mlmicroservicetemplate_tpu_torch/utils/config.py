@@ -1,6 +1,6 @@
 """Env-var driven service configuration (12-factor), as a stdlib dataclass.
 
-Holds the fields the BERT-base ``/predict`` path reads, under the same
+Holds the fields the BERT-base and llama paths read, under the same
 environment names as the JAX package's ``ServiceConfig``.  ``DEVICE`` is
 ``cuda|cpu`` and defaults to ``cuda``.
 """
@@ -51,6 +51,15 @@ class ServiceConfig:
     log_level: str = "INFO"
     # TRACE=1 records request / queue-wait / dispatch spans.
     trace: bool = False
+    # Generative models: decode budget per request (rounded up to whole
+    # chunks), and decode steps between the engine's checks for finished
+    # rows (one device-to-host read per chunk).
+    max_decode_len: int = 64
+    stream_chunk_tokens: int = 4
+    # "int8" = int8 KV cache with per-token, per-head scales (llama).
+    quant_kv: str | None = None
+    # JSON object of LlamaConfig overrides, e.g. '{"num_layers": 4}'.
+    llama_config: str | None = None
 
     def __post_init__(self) -> None:
         dev = self.device.lower()
@@ -69,10 +78,33 @@ class ServiceConfig:
         _check_buckets("SEQ_BUCKETS", self.seq_buckets)
         if self.log_level.upper() not in _LOG_LEVELS:
             raise ValueError(f"LOG_LEVEL must be a standard logging level, got {self.log_level!r}")
+        if self.max_decode_len < 1 or self.stream_chunk_tokens < 1:
+            raise ValueError("MAX_DECODE_LEN and STREAM_CHUNK_TOKENS must be >= 1")
+        if self.quant_kv is not None:
+            q = self.quant_kv.lower()
+            q = None if q in ("", "none", "0", "false") else q
+            if q not in (None, "int8"):
+                raise ValueError(f"QUANT_KV must be 'int8' or unset, got {self.quant_kv!r}")
+            object.__setattr__(self, "quant_kv", q)
 
 
 def _flag(v: str) -> bool:
     return v.lower() not in ("0", "false", "no")
+
+
+# Knobs of the JAX package this port does not serve yet, with the values
+# that leave them off.  Setting one raises instead of serving without it.
+UNPORTED_KNOBS = {
+    "PROMPT_PREFIX": (),
+    "PREFIX_CACHE": ("0", "false", "no"),
+    "SPEC_DECODE": ("none", "0", "false", "no"),
+    "PAGED_KV": ("0", "false", "no"),
+    "PREFILL_CHUNK": ("0",),
+    "DECODE_WINDOW": ("1",),
+    "TP": ("0", "1"),
+    "QUANTIZE": ("none", "0", "false", "no"),
+    "ADAPTER_DIR": (),
+}
 
 
 def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
@@ -81,7 +113,9 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
 
     Recognized: DEVICE, MODEL_NAME, MODEL_PATH, TOKENIZER_PATH, LABELS_PATH,
     HOST, PORT, MAX_BATCH, BATCH_TIMEOUT_MS, MAX_QUEUE, BATCH_BUCKETS,
-    SEQ_BUCKETS, WARMUP, LOG_LEVEL, TRACE."""
+    SEQ_BUCKETS, WARMUP, LOG_LEVEL, TRACE, MAX_DECODE_LEN,
+    STREAM_CHUNK_TOKENS, QUANT_KV, LLAMA_CONFIG.  Any of
+    ``UNPORTED_KNOBS`` set to a value that turns it on raises."""
     e = dict(os.environ)
     if overrides:
         e.update(overrides)
@@ -90,18 +124,29 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
         v = e.get(name)
         return v if v not in (None, "") else None
 
+    on = sorted(
+        var for var, off in UNPORTED_KNOBS.items()
+        if get(var) is not None and get(var).strip().lower() not in off
+    )
+    if on:
+        raise ValueError(
+            f"{', '.join(on)}: not ported yet to the PyTorch service "
+            "(the JAX package serves them)"
+        )
     kwargs: dict = {}
     for field, var in (
         ("device", "DEVICE"), ("model_name", "MODEL_NAME"),
         ("model_path", "MODEL_PATH"), ("tokenizer_path", "TOKENIZER_PATH"),
         ("labels_path", "LABELS_PATH"), ("host", "HOST"),
-        ("log_level", "LOG_LEVEL"),
+        ("log_level", "LOG_LEVEL"), ("quant_kv", "QUANT_KV"),
+        ("llama_config", "LLAMA_CONFIG"),
     ):
         v = get(var)
         if v is not None:
             kwargs[field] = v
     for field, var in (("port", "PORT"), ("max_batch", "MAX_BATCH"),
-                       ("max_queue", "MAX_QUEUE")):
+                       ("max_queue", "MAX_QUEUE"), ("max_decode_len", "MAX_DECODE_LEN"),
+                       ("stream_chunk_tokens", "STREAM_CHUNK_TOKENS")):
         v = get(var)
         if v is not None:
             kwargs[field] = int(v)

@@ -30,6 +30,21 @@ def test_load_config_reads_the_jax_package_env_names():
         assert getattr(port, field) == getattr(ref, field), field
 
 
+@pytest.mark.parametrize("quant", ["int8", "none", "INT8"])
+def test_generation_knobs_read_the_jax_package_env_names(quant):
+    env = {"DEVICE": "cpu", "MAX_DECODE_LEN": "37", "STREAM_CHUNK_TOKENS": "8",
+           "QUANT_KV": quant}
+    port, ref = load_config(env), jax_load_config(env)
+    for field in ("max_decode_len", "quant_kv"):
+        assert getattr(port, field) == getattr(ref, field), field
+    # The JAX ServiceConfig field has no env reader; the port reads it
+    # under the name of the field's validator message.
+    assert port.stream_chunk_tokens == 8 and ref.stream_chunk_tokens == 4
+    assert load_config({"DEVICE": "cpu", "LLAMA_CONFIG": '{"num_layers": 2}'}).llama_config
+    with pytest.raises(ValueError):
+        load_config({"DEVICE": "cpu", "QUANT_KV": "int4"})
+
+
 def test_device_defaults_to_cuda(monkeypatch):
     monkeypatch.delenv("DEVICE", raising=False)
     assert load_config({}).device == "cuda"
