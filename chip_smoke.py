@@ -19,6 +19,11 @@ result line:
    dense f32 and int8 with bf16 scales, B in {1, 8, 32}, H=32, KVH=4,
    D=64, T in {96, 576, 2048}; one row padded to a third of T, and (B > 1)
    an all-masked row.
+4b. kernel paged_decode_attention: the same for the paged decode kernel
+   over pools of 16-token blocks, B in {1, 8, 16}, table width T in {6,
+   36, 128} blocks; a shuffled table with a sentinel tail on one row and
+   (B > 1) a row with no valid key; the yardstick gathers the dense view,
+   expands it to 32 heads and runs ``scaled_dot_product_attention``.
 5. serve bert-base: the full-width service through ``Batcher.submit`` in
    waves that hit several batch and seq buckets; every kernel launch
    counter must show the path went through the kernel (12 launches per
@@ -34,16 +39,28 @@ result line:
    launch 22 times per decode step and never in prefill; every emitted
    token is checked teacher-forced against an f32 forward of the plain
    path on the same weights.
+7b. serve llama stream / stream int8 / stream contiguous: the same weights
+   streamed through ``Batcher.submit_stream`` and the continuous decode
+   loop (16 slots, 64-token budget): paged KV (16-token blocks) with the
+   dense and the int8 cache, then contiguous slots; 32 streams in waves of
+   1, 2, 5, 8 and 16.  Every token is teacher-forced as in 7; the paged
+   kernel must launch 22 times per slot decode step, the decode kernel 22
+   times per step of each admission wave's first chunk (and, contiguous,
+   per slot step); the pool must hold 0 blocks after the last stream.
+   Then one chunk of the 16-slot state at full width is timed (CUDA
+   events) and split by kernel (``torch.profiler``).
 8. decode step: where one llama decode step's time goes at B in {1, 8,
    32}, T=576: wall time against busy time, split into K2, GEMMs, other.
 9. http: ``/predict`` on bert-base, ``/predict`` and ``/v1/completions`` on
-   llama, over loopback through the aiohttp app (skipped, and said so,
-   where aiohttp is missing).
+   llama, whole and streamed (ndjson, and SSE ending in ``data: [DONE]``),
+   over loopback through the aiohttp app (skipped, and said so, where
+   aiohttp is missing).
 
 The last lines are the kernels summary, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.  ``--cpu-rehearsal`` skips the build
-and kernel phases, serves BERT-base and a 2-layer llama (``LLAMA_CONFIG``)
-on the CPU at small buckets, and prints no result line.
+and kernel phases, serves BERT-base and a 2-layer llama (``LLAMA_CONFIG``),
+whole and streamed, on the CPU at small buckets, and prints no result
+line.
 """
 
 from __future__ import annotations
@@ -73,8 +90,9 @@ PROB_TOL = 2e-2
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 HEADS, HEAD_DIM, LAYERS = 12, 64, 12
-# TinyLlama's decode shape: 32 query heads over 4 KV heads.
-LLAMA_HEADS, LLAMA_KV_HEADS = 32, 4
+# TinyLlama's decode shape: 32 query heads over 4 KV heads; KV blocks of
+# PAGE tokens under PAGED_KV.
+LLAMA_HEADS, LLAMA_KV_HEADS, PAGE = 32, 4, 16
 # The llama the rehearsal serves on the CPU.
 REHEARSAL_LLAMA = dict(vocab_size=512, d_model=256, num_heads=4, num_kv_heads=2,
                        num_layers=2, d_ff=512)
@@ -293,6 +311,127 @@ def phase_decode_kernel() -> dict:
                         f"decode_attention disagrees with its plain version: {row}"
                     )
                 if (kind, b, t) == ("bfloat16", 8, 576):
+                    headline = row
+    return headline
+
+
+def paged_case(gen, kind: str, b: int, t: int):
+    """Paged decode-attention inputs on the card at block size PAGE: q
+    [B, H, D]; pools of B·T + 4 blocks (dense in ``kind``, or int8 with
+    bf16 scale pools and a bf16 q); a shuffled table whose row 0 ends in a
+    third of sentinel entries (their keys invalid); key_valid with each
+    row's leading keys valid and, for B > 1, row 1 all invalid."""
+    import torch
+
+    from mlmicroservicetemplate_tpu_torch.models.common import kv_quantize
+
+    nb = b * t + 4
+    qdtype = torch.float32 if kind == "float32" else torch.bfloat16
+    q = torch.randn(b, LLAMA_HEADS, HEAD_DIM, device="cuda", generator=gen).to(qdtype)
+    k, v = (torch.randn(nb, PAGE, LLAMA_KV_HEADS, HEAD_DIM, device="cuda", generator=gen)
+            for _ in range(2))
+    table = torch.randperm(nb, device="cuda", generator=gen)[: b * t].reshape(b, t)
+    table = table.to(torch.int32)
+    keys = t * PAGE
+    lengths = torch.randint(keys // 2, keys + 1, (b,), device="cuda", generator=gen)
+    valid = (torch.arange(keys, device="cuda")[None, :] < lengths[:, None]).to(torch.int32)
+    tail = max(1, t // 3)
+    table[0, t - tail:] = nb
+    valid[0, (t - tail) * PAGE:] = 0
+    if b > 1:
+        valid[1] = 0
+    if kind != "int8":
+        return q, k.to(qdtype), v.to(qdtype), table, valid, None, None
+    (k8, ks), (v8, vs) = kv_quantize(k), kv_quantize(v)
+    return q, k8, v8, table, valid, ks.to(torch.bfloat16), vs.to(torch.bfloat16)
+
+
+def paged_bound(q, k, table, valid, ks, kind: str) -> tuple[float, str]:
+    """K3: the bytes this run's data needs, each read once: the K and V
+    (and scales) of every valid key; for a row with no valid key, whose
+    output is the plain mean of its gathered values, the V (and scales) of
+    each distinct block its table names, sentinels clamped; q, the table
+    and key_valid; the output written once.  Operations: 4·H·D per valid
+    key (q·k and p·v), 2·H·D per position of a row with no valid key."""
+    b, h, d = q.shape
+    per_pos = LLAMA_KV_HEADS * d * k.element_size()
+    if ks is not None:
+        per_pos += LLAMA_KV_HEADS * ks.element_size()
+    live = valid.sum(dim=1)
+    n_valid = int(live.sum())
+    nbytes, ops = 2 * n_valid * per_pos, 4 * h * d * n_valid
+    for row in (live == 0).nonzero().flatten().tolist():
+        blocks = table[row].clamp(max=k.shape[0] - 1).unique().numel()
+        nbytes += blocks * PAGE * per_pos
+        ops += 2 * h * d * table.shape[1] * PAGE
+    nbytes += 2 * q.numel() * q.element_size() + table.numel() * 4 + valid.numel() * 4
+    return bound(nbytes, ops, kind)
+
+
+def phase_paged_kernel() -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from mlmicroservicetemplate_tpu_torch.ops.paged_attention import (
+        gather_pages,
+        paged_attention_ref,
+        paged_decode_attention,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    headline = None
+    rep = LLAMA_HEADS // LLAMA_KV_HEADS
+    for kind in ("bfloat16", "float32", "int8"):
+        for b in (1, 8, 16):
+            for t in (6, 36, 128):
+                q, k, v, table, valid, ks, vs = paged_case(gen, kind, b, t)
+                out = paged_decode_attention(q, k, v, table, valid, PAGE, ks, vs)
+                torch.cuda.synchronize()
+                ref = paged_attention_ref(
+                    q.float(), k if ks is not None else k.float(),
+                    v if vs is not None else v.float(), table, valid, PAGE,
+                    None if ks is None else ks.float(), None if vs is None else vs.float(),
+                )
+                diff = (out.float() - ref).abs()
+                tol = KERNEL_TOL[kind]
+                ok = bool(torch.isfinite(out).all()) and bool(
+                    (diff <= tol + tol * ref.abs()).all()
+                )
+                vf = v.float() if vs is None else v.float() * vs.float()
+                if b > 1:  # no valid key: the plain mean of the row's gathered V
+                    vrow = gather_pages(vf, table[1:2], PAGE)[0]
+                    uniform = vrow.mean(0).repeat_interleave(rep, dim=0)
+                    ok = ok and bool(((out[1].float() - uniform).abs() <= tol * 4).all())
+                iters = 50 if b * t >= 16 * 36 else 200
+                kernel_ms = cuda_ms(
+                    lambda: paged_decode_attention(q, k, v, table, valid, PAGE, ks, vs), iters)
+                plain_ms = cuda_ms(
+                    lambda: paged_attention_ref(q, k, v, table, valid, PAGE, ks, vs), iters)
+                kf = k.float() if ks is None else k.float() * ks.float()
+                kq, vq = kf.to(q.dtype), vf.to(q.dtype)
+                add = torch.where(valid[:, None, None, :] != 0, 0.0, -1e30).to(q.dtype)
+                q4 = q[:, :, None]
+
+                def library():
+                    kt, vt = (gather_pages(x, table, PAGE).transpose(1, 2)
+                              .repeat_interleave(rep, dim=1) for x in (kq, vq))
+                    return F.scaled_dot_product_attention(q4, kt, vt, attn_mask=add)
+
+                library_ms = cuda_ms(library, iters)
+                bound_ms, bound_by = paged_bound(q, k, table, valid, ks, kind)
+                row = dict(
+                    dtype=kind,
+                    shape=[b, t, PAGE, LLAMA_HEADS, LLAMA_KV_HEADS, HEAD_DIM],
+                    max_abs_err=diff.max().item(), tol=f"atol=rtol={tol}", ok=ok,
+                    kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                    bound_us=bound_ms * 1e3, bound_by=bound_by,
+                )
+                emit("kernel paged_decode_attention", **row)
+                if not ok:
+                    raise AssertionError(
+                        f"paged_decode_attention disagrees with its plain version: {row}"
+                    )
+                if (kind, b, t) == ("bfloat16", 16, 36):
                     headline = row
     return headline
 
@@ -590,6 +729,125 @@ def phase_serve_llama(label: str, overrides: dict, params, ref_model, rehearsal:
     return cfg, bundle, engine, launches
 
 
+async def drive_streams(batcher, bundle, waves):
+    """Open each wave's streams at once through ``Batcher.submit_stream``
+    and read them to the end; returns (feats, token rows, per-stream
+    latencies, times to the first chunk, wall seconds)."""
+    import numpy as np
+
+    await batcher.start()
+    feats, rows, latencies, ttfts = [], [], [], []
+
+    async def one(item):
+        t0 = time.monotonic()
+        f = bundle.preprocess(item)
+        toks, first = [], None
+        async for chunk in batcher.submit_stream(f):
+            if first is None:
+                first = time.monotonic() - t0
+            toks.extend(int(x) for x in chunk)
+        latencies.append(time.monotonic() - t0)
+        ttfts.append(first)
+        return f, np.array(toks, np.int32)
+
+    try:
+        t0 = time.monotonic()
+        for wave in waves:
+            for f, row in await asyncio.gather(*(one(item) for item in wave)):
+                feats.append(f)
+                rows.append(row)
+        wall = time.monotonic() - t0
+    finally:
+        await batcher.stop()
+    return feats, rows, latencies, ttfts, wall
+
+
+def phase_serve_stream(label: str, overrides: dict, params, ref_model, rehearsal: bool,
+                       card_line: str):
+    """Streaming llama through the continuous decode loop: every token
+    teacher-forced, the kernels' launches held against the loop's counts,
+    the paged pool back to 0 blocks; on the card, one slot-state chunk
+    timed and split by kernel."""
+    import numpy as np
+    import torch
+
+    from mlmicroservicetemplate_tpu_torch.ops.attention import decode_attention
+    from mlmicroservicetemplate_tpu_torch.ops.paged_attention import paged_decode_attention
+    from mlmicroservicetemplate_tpu_torch.serve import build_service
+
+    cfg, bundle, engine, batcher = build_service(overrides, params=params)
+    loop = batcher._cdl
+    warm_s = batcher.warm_streams()
+    waves = llama_waves(rehearsal)
+
+    decode_attention.launches = paged_decode_attention.launches = 0
+    loop.prefill_dispatches = loop.chunk_dispatches = loop.decode_steps = 0
+    feats, rows, latencies, ttfts, wall = asyncio.run(drive_streams(batcher, bundle, waves))
+    k2, k3 = decode_attention.launches, paged_decode_attention.launches
+    layers, chunk = bundle.cfg.num_layers, engine.chunk_tokens
+    first_chunks = chunk * loop.prefill_dispatches
+    if rehearsal:
+        want_k2 = want_k3 = 0
+    elif engine.paged_kv:
+        want_k2, want_k3 = layers * first_chunks, layers * loop.decode_steps
+    else:
+        want_k2, want_k3 = layers * (first_chunks + loop.decode_steps), 0
+    if loop.decode_steps < 1 or (k2, k3) != (want_k2, want_k3) or (
+        engine.paged_kv and not rehearsal and k3 < 1
+    ):
+        raise AssertionError(
+            f"{label}: decode_attention launched {k2} times (want {want_k2}) and "
+            f"paged_decode_attention {k3} (want {want_k3}) over {loop.prefill_dispatches} "
+            f"admission waves and {loop.decode_steps} slot decode steps"
+        )
+    if engine.paged_kv and engine.kv_pool.used_blocks != 0:
+        raise AssertionError(f"{label}: {engine.kv_pool.used_blocks} pool blocks still held")
+    if loop.admitted != 0:
+        raise AssertionError(f"{label}: {loop.admitted} streams never released")
+    for f, row in zip(feats, rows):
+        budget = min(int(f.get("max_tokens", engine.max_decode_len)), engine.max_decode_len)
+        if not 1 <= len(row) <= budget:
+            raise AssertionError(f"{label}: a stream of {len(row)} tokens, budget {budget}")
+    check = teacher_forced(bundle, ref_model, feats, rows, engine.max_decode_len)
+    lat, ttft = np.array(latencies) * 1e3, np.array(ttfts) * 1e3
+    out = dict(
+        device=str(bundle.device), card=card_line, layers=layers,
+        kv_quant=bundle.cfg.kv_quant, paged=engine.paged_kv, streams=len(rows),
+        slots=loop.n_slots, admission_waves=loop.prefill_dispatches,
+        chunk_dispatches=loop.chunk_dispatches, slot_decode_steps=loop.decode_steps,
+        decode_attention_launches=k2, paged_decode_attention_launches=k3,
+        pool_blocks=engine.kv_pool.num_blocks if engine.paged_kv else None,
+        pool_mb=(engine.kv_pool.num_blocks * engine.kv_block_bytes() / 1e6
+                 if engine.paged_kv else None),
+        warm_s=warm_s, p50_ms=float(np.percentile(lat, 50)), p99_ms=float(np.percentile(lat, 99)),
+        ttft_p50_ms=float(np.percentile(ttft, 50)), ttft_p99_ms=float(np.percentile(ttft, 99)),
+        generated_tok_per_s=check["tokens_checked"] / wall,
+        wall_ms_per_chunk_dispatch=wall * 1e3 / max(1, loop.chunk_dispatches), **check,
+    )
+    if not rehearsal:
+        # One chunk of the slot state after the run, timed and split by
+        # kernel: every slot live at full width (all keys valid and, paged,
+        # a table of distinct pool blocks; a dead row's compute is a live
+        # row's), so the attention reads what 16 full streams would.
+        with torch.inference_mode(), engine._lock:
+            loop._state.key_valid.fill_(1)
+            if engine.paged_kv:
+                loop._table[:] = np.arange(loop._table.size).reshape(loop._table.shape) % \
+                    engine.kv_pool.num_blocks
+
+            def one_chunk():
+                loop._state, _ = loop._chunk_call()
+
+            out["chunk_wall_ms"] = cuda_ms(one_chunk, 10)
+            kernel = "paged_decode_attention" if engine.paged_kv else "decode_attention"
+            split = profile_split(one_chunk, 5, kernel, "attention")
+        busy = split["device_busy_ms"]
+        out.update({f"chunk_{k}": v for k, v in split.items()},
+                   chunk_busy_share=busy / out["chunk_wall_ms"] if busy else None)
+    emit(label, **out)
+    return cfg, bundle, engine, k2, k3
+
+
 def phase_decode_step(bundle) -> None:
     import torch
 
@@ -611,7 +869,34 @@ def phase_decode_step(bundle) -> None:
              busy_share=busy / wall_ms if busy else None, **split)
 
 
+def ndjson_text(body: str) -> dict:
+    """The final line of an ndjson stream, checked: its deltas concatenate
+    to its text."""
+    lines = [json.loads(ln) for ln in body.splitlines() if ln]
+    final = lines[-1]
+    if not final.get("done") or "".join(ln["delta"] for ln in lines[:-1]) != \
+            final["prediction"]["text"]:
+        raise AssertionError(f"bad ndjson stream: {body[:400]}")
+    return {k: final[k] for k in ("tokens_generated", "decode_steps", "finish_reason")}
+
+
+def sse_text(body: str) -> dict:
+    """An SSE completion stream, checked: it ends with ``data: [DONE]``
+    and exactly one event carries a finish reason."""
+    frames = [f for f in body.split("\n\n") if f]
+    if frames[-1] != "data: [DONE]":
+        raise AssertionError(f"SSE stream without [DONE]: {body[-400:]}")
+    events = [json.loads(f[len("data: "):]) for f in frames[:-1]]
+    finals = [e["choices"][0]["finish_reason"] for e in events
+              if e["choices"] and e["choices"][0]["finish_reason"]]
+    if len(finals) != 1:
+        raise AssertionError(f"SSE stream with finish reasons {finals}")
+    return {"events": len(events), "finish_reason": finals[0]}
+
+
 async def http_check(cfg, bundle, engine, posts) -> list:
+    """POST each ``(path, body, read)`` over loopback through the aiohttp
+    app; ``read`` turns a 200's body text into what is collected."""
     import aiohttp
     from aiohttp import web
 
@@ -636,15 +921,25 @@ async def http_check(cfg, bundle, engine, posts) -> list:
                 await asyncio.sleep(0.05)
             else:
                 raise AssertionError("/readyz never turned 200")
-            for path, body, key in posts:
+            for path, body, read in posts:
                 async with session.post(f"{url}{path}", json=body) as r:
-                    answer = await r.json()
-                    if r.status != 200 or key not in answer:
-                        raise AssertionError(f"{path} answered {r.status}: {answer}")
-                    out.append(answer[key])
+                    text = await r.text()
+                    if r.status != 200:
+                        raise AssertionError(f"{path} answered {r.status}: {text[:400]}")
+                    out.append(read(text))
         return out
     finally:
         await runner.cleanup()
+
+
+def json_key(key: str):
+    def read(text: str):
+        answer = json.loads(text)
+        if key not in answer:
+            raise AssertionError(f"answer without {key!r}: {answer}")
+        return answer[key]
+
+    return read
 
 
 def main(argv: list[str]) -> int:
@@ -665,11 +960,13 @@ def main(argv: list[str]) -> int:
         card_line = "cpu (rehearsal)" if rehearsal else card()
         emit(phase, card=card_line, torch=torch.__version__, cuda=torch.version.cuda,
              python=sys.version.split()[0])
-        headline = decode_headline = None
+        headline = decode_headline = paged_headline = None
         if rehearsal:
             emit("build", skipped="cpu rehearsal: no nvcc, no kernels")
             emit("kernel fused_attention", skipped="cpu rehearsal: the plain version runs")
             emit("kernel decode_attention", skipped="cpu rehearsal: the plain version runs")
+            emit("kernel paged_decode_attention",
+                 skipped="cpu rehearsal: the plain version runs")
         else:
             phase = "build"
             t0 = time.monotonic()
@@ -683,6 +980,8 @@ def main(argv: list[str]) -> int:
             headline = phase_kernel()
             phase = "kernel decode_attention"
             decode_headline = phase_decode_kernel()
+            phase = "kernel paged_decode_attention"
+            paged_headline = phase_paged_kernel()
         phase = "serve bert-base"
         cfg, bundle, engine, launches = phase_serve(rehearsal, card_line)
         if rehearsal:
@@ -714,6 +1013,20 @@ def main(argv: list[str]) -> int:
             phase, {**llama_overrides, "QUANT_KV": "int8"}, params, ref_model, rehearsal,
             card_line,
         )[3]
+        # Streaming through the continuous decode loop: paged (dense, int8),
+        # then contiguous slots.
+        stream_overrides = {**llama_overrides, "PAGED_KV": "1", "KV_BLOCK_SIZE": str(PAGE),
+                            "MAX_STREAMS": "16", "MAX_DECODE_LEN": "64"}
+        k2_streams = k3_streams = 0
+        stream_svc = None
+        for phase, extra in (("serve llama stream", {}),
+                             ("serve llama stream int8", {"QUANT_KV": "int8"}),
+                             ("serve llama stream contiguous", {"PAGED_KV": "0"})):
+            svc = phase_serve_stream(phase, {**stream_overrides, **extra}, params, ref_model,
+                                     rehearsal, card_line)
+            k2_streams += svc[3]
+            k3_streams += svc[4]
+            stream_svc = stream_svc or svc
         del ref_model, params
         if rehearsal:
             emit("decode step", skipped="cpu rehearsal: no card to profile")
@@ -728,14 +1041,22 @@ def main(argv: list[str]) -> int:
             emit(phase, skipped="aiohttp is not installed; HTTP is no device path")
         else:
             (prediction,) = asyncio.run(http_check(
-                cfg, bundle, engine, [("/predict", {"text": "hello card"}, "prediction")]))
+                cfg, bundle, engine,
+                [("/predict", {"text": "hello card"}, json_key("prediction"))]))
             generated = asyncio.run(http_check(*llama_svc[:3], [
                 ("/predict", {"text": "hello card", "max_tokens": 8, "stop": ["zz"]},
-                 "prediction"),
-                ("/v1/completions", {"prompt": "hello card", "max_tokens": 8}, "usage"),
+                 json_key("prediction")),
+                ("/v1/completions", {"prompt": "hello card", "max_tokens": 8}, json_key("usage")),
+            ]))
+            streamed = asyncio.run(http_check(*stream_svc[:3], [
+                ("/predict", {"text": "hello card", "stream": True, "max_tokens": 12},
+                 ndjson_text),
+                ("/v1/completions", {"prompt": "hello card", "stream": True, "max_tokens": 12,
+                                     "stream_options": {"include_usage": True}}, sse_text),
             ]))
             emit(phase, status=200, prediction=prediction, llama_prediction=generated[0],
-                 llama_completion_usage=generated[1])
+                 llama_completion_usage=generated[1], llama_stream_predict=streamed[0],
+                 llama_stream_completions=streamed[1])
     except Exception as e:
         traceback.print_exc()
         emit(phase, ok=False, error=f"{type(e).__name__}: {e}")
@@ -758,7 +1079,10 @@ def main(argv: list[str]) -> int:
         kernel_entry("fused_attention", "mlmicroservicetemplate_tpu/ops/attention.py:400",
                      launches, headline),
         kernel_entry("decode_attention", "mlmicroservicetemplate_tpu/ops/attention.py:310",
-                     llama_svc[3] + llama8_launches, decode_headline),
+                     llama_svc[3] + llama8_launches + k2_streams, decode_headline),
+        kernel_entry("paged_decode_attention",
+                     "mlmicroservicetemplate_tpu/ops/paged_attention.py:353",
+                     k3_streams, paged_headline),
     ]}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {

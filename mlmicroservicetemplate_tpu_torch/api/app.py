@@ -3,10 +3,13 @@
 Request path, as in the JAX package's ``api/app.py``: parse the JSON
 ``{"text": ...}`` body -> preprocess (thread offloaded) -> dynamic-batching
 queue -> engine dispatch -> postprocess -> JSON.  A generative model also
-takes ``max_tokens`` and ``stop`` on ``/predict`` and answers non-streaming
-``POST /v1/completions``; ``stream: true`` and ``temperature > 0`` are not
-ported and answer 400.  Also ``/healthz``, ``/readyz``, ``/status`` and
-``/metrics``.  This is the only module of the package that imports aiohttp.
+takes ``max_tokens`` and ``stop`` on ``/predict`` and answers
+``POST /v1/completions``; with ``stream: true`` both stream through the
+continuous decode loop, ``/predict`` as ndjson lines of text deltas and
+``/v1/completions`` as server-sent events ending in ``data: [DONE]``.
+``temperature > 0`` is not ported and answers 400.  Also ``/healthz``,
+``/readyz``, ``/status`` and ``/metrics``.  This is the only module of the
+package that imports aiohttp.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 from aiohttp import web
 
+from ..engine.streams import StreamClosedError
 from ..models.registry import KIND_SEQ2SEQ, ModelBundle, RawItem
 from ..scheduler.batcher import Batcher, DeadlineExceededError, QueueFullError
 from ..utils import metrics, tracing
@@ -104,6 +108,8 @@ async def _on_startup(app: web.Application) -> None:
             if cfg.warmup:
                 loop = asyncio.get_running_loop()
                 app[K_STATE]["warmup_s"] = await loop.run_in_executor(None, engine.warmup)
+                app[K_STATE]["warmup_s"] += await loop.run_in_executor(
+                    None, batcher.warm_streams)
             else:
                 # Canary: ready means "the device answers".
                 await batcher.submit({"input_ids": np.ones(8, np.int32), "length": 8})
@@ -200,10 +206,8 @@ def _parse_json_item(body: dict) -> RawItem:
 
 
 def _reject_unported(item: RawItem) -> None:
-    """Streaming and sampling are not ported: a generative request that
-    asks for either is answered 400, never served greedy and whole."""
-    if item.stream:
-        raise web.HTTPBadRequest(reason="streaming responses are not ported yet")
+    """Sampling is not ported: a generative request that asks for it is
+    answered 400, never served greedy."""
     if item.temperature > 0.0:
         raise web.HTTPBadRequest(
             reason="sampling (temperature > 0) is not ported yet; greedy decoding only"
@@ -226,6 +230,8 @@ async def handle_predict(request: web.Request) -> web.Response:
         metrics.REQUESTS.labels(bundle.name, "400").inc()
         raise
     feats = await _preprocess(request, bundle, item, sched)
+    if generative and item.stream:
+        return await _stream_predict(request, feats, t0, item)
     try:
         row = await app[K_BATCHER].submit(feats)
         if generative and item.max_tokens is not None:
@@ -306,6 +312,212 @@ def _tokens_covering(decode, tokens, target_len: int) -> int:
 
 
 # ---------------------------------------------------------------------------
+# streaming: token chunks from the continuous decode loop as text deltas
+
+
+def _stop_holdback(text: str, stops) -> int:
+    """Chars to withhold from streaming: the longest suffix of ``text``
+    that is a strict prefix of some stop string (it may complete into a
+    stop next chunk, and an emitted delta cannot be retracted)."""
+    hb = 0
+    for s in stops:
+        for k in range(min(len(s) - 1, len(text)), 0, -1):
+            if text.endswith(s[:k]):
+                hb = max(hb, k)
+                break
+    return hb
+
+
+async def _delta_stream(bundle: ModelBundle, stream_iter, item: RawItem):
+    """Token chunks -> text deltas, for both streaming endpoints.
+
+    Yields ``{"delta": str}`` per chunk, then one final ``{"done": True,
+    "text", "tokens", "steps", "finish_reason"}``.  The deltas concatenate
+    to the final text; stop strings never appear in it (a suffix that may
+    complete into one is held back, and flushed if the stream ends
+    otherwise); ``tokens`` never counts past a stop truncation;
+    finish_reason is "stop" (EOS or a stop string) or "length"."""
+    eos, pad = bundle.cfg.eos_id, bundle.cfg.pad_id
+    tokens: list[int] = []
+    prev_text = ""
+    steps = 0
+    finished = False
+    reason = "length"
+
+    def decode(toks: list[int]) -> str:
+        return bundle.tokenizer.decode(np.array(toks, np.int32))
+
+    async for chunk in stream_iter:
+        steps += int(chunk.size)
+        for t in chunk.tolist():
+            if t == eos:
+                finished, reason = True, "stop"
+                break
+            if item.max_tokens is not None and len(tokens) >= item.max_tokens:
+                finished, reason = True, "length"
+                break
+            if t != pad or not tokens:
+                tokens.append(int(t))
+        text = decode(tokens)
+        if item.stop:
+            stopped = _apply_stop(text, item.stop)
+            if stopped != text and len(stopped) >= len(prev_text):
+                text, finished, reason = stopped, True, "stop"
+                tokens = tokens[: _tokens_covering(decode, tokens, len(text))]
+            elif not finished:
+                text = text[: len(text) - _stop_holdback(text, item.stop)]
+        if len(text) < len(prev_text):
+            text = prev_text  # emission only grows
+        delta = text[len(prev_text):]
+        prev_text = text
+        yield {"delta": delta}
+        if finished:
+            break
+    if not finished and item.stop:
+        # Budget spent with a held-back suffix: it can no longer complete
+        # into a stop string.
+        text = _apply_stop(decode(tokens), item.stop)
+        if len(text) > len(prev_text):
+            yield {"delta": text[len(prev_text):]}
+            prev_text = text
+    yield {"done": True, "text": prev_text, "tokens": len(tokens), "steps": steps,
+           "finish_reason": reason}
+
+
+async def _open_stream(request: web.Request, feats: dict, item: RawItem, t0: float):
+    """Submit the stream and pull its first event before any response
+    bytes go out, so a shed (503), a drain (503) or a prompt too long for
+    the loop (400) still gets its HTTP status; the TTFT observation point.
+    Returns (event iterator, stream iterator)."""
+    app = request.app
+    bundle: ModelBundle = app[K_BUNDLE]
+    try:
+        stream_iter = app[K_BATCHER].submit_stream(feats)
+    except ValueError as e:
+        metrics.REQUESTS.labels(bundle.name, "400").inc()
+        raise web.HTTPBadRequest(reason=str(e)) from None
+    except QueueFullError as e:
+        _failure(request, bundle.name, e)
+    events = _delta_stream(bundle, stream_iter, item)
+    try:
+        first = await events.__anext__()
+    except (QueueFullError, StreamClosedError) as e:
+        await stream_iter.aclose()
+        if isinstance(e, StreamClosedError):
+            e = QueueFullError(str(e), reason="drain")
+        _failure(request, bundle.name, e)
+    except Exception:
+        await stream_iter.aclose()
+        metrics.REQUESTS.labels(bundle.name, "500").inc()
+        raise
+    metrics.TTFT.labels(bundle.name).observe(time.monotonic() - t0)
+
+    async def chained():
+        yield first
+        async for ev in events:
+            yield ev
+
+    return chained(), stream_iter
+
+
+async def _stream_predict(request: web.Request, feats: dict, t0: float,
+                          item: RawItem) -> web.StreamResponse:
+    """``/predict`` streaming: ndjson lines of text deltas, then a final
+    line with the text, token counts and finish reason."""
+    bundle: ModelBundle = request.app[K_BUNDLE]
+    rid = request.get("request_id", "")
+    events, stream_iter = await _open_stream(request, feats, item, t0)
+    resp = web.StreamResponse(status=200, headers={
+        "Content-Type": "application/x-ndjson", "X-Accel-Buffering": "no",
+        "X-Request-Id": rid,
+    })
+    resp.enable_chunked_encoding()
+    await resp.prepare(request)
+    try:
+        async for ev in events:
+            if "delta" in ev:
+                # One line per chunk, even when its delta is empty.
+                await resp.write((json.dumps({"delta": ev["delta"]}) + "\n").encode())
+                continue
+            dt = time.monotonic() - t0
+            await resp.write((json.dumps({
+                "done": True,
+                "prediction": {"text": ev["text"]},
+                "tokens_generated": ev["tokens"],
+                "decode_steps": ev["steps"],
+                "finish_reason": ev["finish_reason"],
+                "model": bundle.name,
+                "timing_ms": round(dt * 1000.0, 3),
+            }) + "\n").encode())
+            metrics.REQUESTS.labels(bundle.name, "200").inc()
+            metrics.LATENCY.labels(bundle.name).observe(dt)
+    except ConnectionError:
+        pass  # client gone mid-write
+    except Exception as e:
+        # After the 200 went out, an in-band error line is the only signal.
+        metrics.REQUESTS.labels(bundle.name, "500").inc()
+        log.exception("stream failed mid-flight (request_id=%s)", rid)
+        try:
+            await resp.write((json.dumps(_error_body(
+                type(e).__name__, str(e) or "stream failed", rid)) + "\n").encode())
+        except ConnectionError:
+            pass
+    finally:
+        # Closing the stream now (not at garbage collection) frees its slot
+        # at the next chunk boundary.
+        await stream_iter.aclose()
+        try:
+            await resp.write_eof()
+        except ConnectionError:
+            pass
+    return resp
+
+
+def _sse_frame(payload: dict) -> bytes:
+    return f"data: {json.dumps(payload)}\n\n".encode()
+
+
+async def _sse_stream(request: web.Request, feats: dict, item: RawItem, t0: float,
+                      frames) -> web.StreamResponse:
+    """Server-sent events: ``frames(ev) -> list[bytes]`` shapes each event,
+    ``data: [DONE]`` closes the stream."""
+    bundle: ModelBundle = request.app[K_BUNDLE]
+    rid = request.get("request_id", "")
+    events, stream_iter = await _open_stream(request, feats, item, t0)
+    resp = web.StreamResponse(status=200, headers={
+        "Content-Type": "text/event-stream", "Cache-Control": "no-cache",
+        "X-Accel-Buffering": "no", "X-Request-Id": rid,
+    })
+    resp.enable_chunked_encoding()
+    await resp.prepare(request)
+    try:
+        async for ev in events:
+            for frame in frames(ev):
+                await resp.write(frame)
+            if ev.get("done"):
+                await resp.write(b"data: [DONE]\n\n")
+                metrics.REQUESTS.labels(bundle.name, "200").inc()
+                metrics.LATENCY.labels(bundle.name).observe(time.monotonic() - t0)
+    except ConnectionError:
+        pass
+    except Exception as e:
+        metrics.REQUESTS.labels(bundle.name, "500").inc()
+        log.exception("SSE stream failed mid-flight (request_id=%s)", rid)
+        try:
+            await resp.write(b"event: error\ndata: " + json.dumps(_error_body(
+                type(e).__name__, str(e) or "stream failed", rid)).encode() + b"\n\n")
+        except ConnectionError:
+            pass
+    finally:
+        await stream_iter.aclose()
+        try:
+            await resp.write_eof()
+        except ConnectionError:
+            pass
+    return resp
+
+
+# ---------------------------------------------------------------------------
 # /v1/completions: the OpenAI completions shape over the same serving path
 
 
@@ -348,10 +560,12 @@ async def _generate_once(request: web.Request, bundle: ModelBundle, feats: dict,
     return text, finish, n_tok
 
 
-async def handle_completions(request: web.Request) -> web.Response:
-    """Non-streaming ``POST /v1/completions`` for generative models: the
-    field names OpenAI-style clients speak (``prompt``, ``max_tokens``,
-    ``stop``), served by the same batcher and engine as /predict."""
+async def handle_completions(request: web.Request) -> web.StreamResponse:
+    """``POST /v1/completions`` for generative models: the field names
+    OpenAI-style clients speak (``prompt``, ``max_tokens``, ``stop``,
+    ``stream``), served by the same batcher and engine as /predict.
+    Streaming answers with server-sent events ending in ``data: [DONE]``;
+    usage rides in them only when ``stream_options.include_usage`` asks."""
     app = request.app
     bundle: ModelBundle = app[K_BUNDLE]
     if bundle.kind != KIND_SEQ2SEQ:
@@ -395,6 +609,26 @@ async def handle_completions(request: web.Request) -> web.Response:
         metrics.REQUESTS.labels(bundle.name, "400").inc()
         raise
     feats = await _preprocess(request, bundle, item, sched)
+    if item.stream:
+        include_usage = bool((body.get("stream_options") or {}).get("include_usage", False))
+
+        def frame(text, finish) -> dict:
+            payload = {"object": "text_completion", "model": bundle.name,
+                       "choices": [{"index": 0, "text": text, "finish_reason": finish}]}
+            if include_usage:
+                payload["usage"] = None
+            return payload
+
+        def frames(ev) -> list[bytes]:
+            if "delta" in ev:
+                return [_sse_frame(frame(ev["delta"], None))] if ev["delta"] else []
+            out = [_sse_frame(frame("", ev["finish_reason"]))]
+            if include_usage:
+                out.append(_sse_frame({"object": "text_completion", "model": bundle.name,
+                                       "choices": [], "usage": _usage(feats, ev["tokens"])}))
+            return out
+
+        return await _sse_stream(request, feats, item, t0, frames)
     try:
         text, finish, n_tok = await _generate_once(request, bundle, feats, item)
     except Exception as e:

@@ -9,7 +9,9 @@ other leaf passes through.  ``llama_params_from_jax`` does the same for the
 JAX llama pytree (``{"embed", "layers": [{"attn_ln", "attn", "mlp_ln",
 "mlp"}], "final_ln", "lm_head"}``) onto ``LlamaModel``.  Both raise on a
 missing leaf, an unused leaf or a shape that does not fit the config, so a
-wrong checkpoint never serves.
+wrong checkpoint never serves.  ``paged_state_from_jax`` carries a JAX
+paged decode state (numpy leaves) into the port's ``PagedState``, so a test
+can step both from the very same pool.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from ..models.bert import BertConfig, BertModel
+from ..models.gpt import PagedState
 from ..models.llama import LlamaConfig, LlamaModel
 
 
@@ -101,3 +104,35 @@ def _from_jax(pytree, expected, jax_name, family: str, cfg) -> dict[str, torch.T
             f"JAX {family} params have {len(leaves)} unused leaves: {sorted(leaves)[:8]}"
         )
     return out
+
+
+def paged_state_from_jax(state) -> PagedState:
+    """A JAX ``PagedState`` (numpy leaves; pools ``[NB, BS, KVH, D]``, int8
+    pools as ``(payload, scale)``) as the port's, on the CPU: each pool
+    gains the port's scratch block ``NB`` (zeros; scale pools ones), the
+    per-row indices become int64 and the sampling field is dropped
+    (greedy decoding only)."""
+
+    def pool(x, fill):
+        x = torch.from_numpy(np.array(x))
+        return torch.cat([x, torch.full((1,) + tuple(x.shape[1:]), fill, dtype=x.dtype)])
+
+    def entry(c):
+        if isinstance(c, tuple):
+            return (pool(c[0], 0), pool(c[1], 1))
+        return pool(c, 0)
+
+    def t(x, dtype=None):
+        x = torch.from_numpy(np.array(x))
+        return x if dtype is None else x.to(dtype)
+
+    return PagedState(
+        cache_k=[entry(c) for c in state.cache_k],
+        cache_v=[entry(c) for c in state.cache_v],
+        key_valid=t(state.key_valid, torch.int32),
+        write_idx=t(state.write_idx, torch.long),
+        pos=t(state.pos, torch.long),
+        last_token=t(state.last_token, torch.long),
+        done=t(state.done, torch.bool),
+        tokens=t(state.tokens, torch.int32),
+    )

@@ -14,6 +14,12 @@ load, allocator growth) land before the service reports ready.
   from the device whether every row is done (EOS, or its ``max_tokens``
   budget), the eager counterpart of the JAX package's done-aware
   ``while_loop``; rows come back pad-filled to ``max_decode_len``.
+- Streaming generation runs in the continuous decode loop
+  (``engine/streams.py``), which admits a wave of streams through
+  ``start`` (prefill plus the first chunk, fused as in the JAX package)
+  and, with ``PAGED_KV=1``, keeps its KV in ``kv_pool``: blocks for
+  ``MAX_STREAMS`` worst-case streams (largest seq bucket plus the decode
+  budget each), so growth never finds the pool dry.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import torch
 
 from ..models.registry import KIND_SEQ2SEQ, ModelBundle, decode_budget
 from ..utils import tracing
+from .kv_blocks import BlockPool, blocks_for, kv_token_bytes
 
 log = logging.getLogger(__name__)
 
@@ -67,6 +74,33 @@ class InferenceEngine:
         self.dispatches = 0
         self.decode_steps = 0
         self.last_decode_steps = 0
+        # Block-paged KV of the continuous loop (PAGED_KV=1).
+        self.paged_kv = bool(cfg.paged_kv)
+        self.kv_block_size = int(cfg.kv_block_size)
+        self.kv_pool = None
+        if self.paged_kv:
+            # The most blocks one stream can hold (the loop's table width),
+            # and a pool of MAX_STREAMS of them.
+            self.kv_blocks_per_stream = blocks_for(
+                max(self.seq_buckets) + self.max_decode_len, self.kv_block_size)
+            self.kv_pool = BlockPool(cfg.max_streams * self.kv_blocks_per_stream)
+
+    def budget_for(self, feats: dict) -> int:
+        """One stream's token budget: its max_tokens clamped to the
+        server's decode budget."""
+        return min(int(feats.get("max_tokens", self.max_decode_len)), self.max_decode_len)
+
+    def kv_token_bytes(self) -> int:
+        """KV bytes one token position costs (scales in the compute type
+        under the int8 cache)."""
+        c = self.bundle.cfg
+        elt = torch.empty(0, dtype=self.bundle.policy.compute_dtype).element_size()
+        return kv_token_bytes(c.num_layers, c.num_kv_heads, c.head_dim, elt, c.kv_quant,
+                              scale_bytes=elt)
+
+    def kv_block_bytes(self) -> int:
+        """Bytes one ``KV_BLOCK_SIZE``-token block costs."""
+        return self.kv_token_bytes() * self.kv_block_size
 
     def _collate_text(self, feats: list[dict]) -> tuple[np.ndarray, np.ndarray, int]:
         n = len(feats)
@@ -117,6 +151,18 @@ class InferenceEngine:
                 state.done = state.done | (state.pos >= budgets_t)
             self.dispatches += 1
             return state.tokens.cpu().numpy(), state.steps
+
+    def start(self, feats: list[dict]):
+        """Prefill plus the first decode chunk of a wave of streams,
+        collated as one batch at the wave's widest bucket; returns (state,
+        tokens [B, chunk], collated width).  The caller holds ``_lock``
+        inside ``torch.inference_mode``."""
+        ids, mask, _ = self._collate_text(feats)
+        ids_t = torch.from_numpy(ids).to(self.device)
+        mask_t = torch.from_numpy(mask).to(self.device)
+        state = self.bundle.init_state(ids_t, mask_t, self.max_decode_len)
+        state, toks = self.bundle.generate_chunk(state, self.chunk_tokens)
+        return state, toks, ids.shape[1]
 
     def run_batch(self, feats: list[dict]) -> list[np.ndarray]:
         """Run one formed batch; returns one row per item: f32 logits, or

@@ -1,0 +1,624 @@
+"""Continuous batching for streaming generation.
+
+Counterpart of the JAX package's ``engine/streams.py``
+(``ContinuousDecodeLoop``), cut to the greedy path.  One loop thread owns
+a batched decode state of ``MAX_STREAMS`` rows ("slots").  At every chunk
+boundary it admits the waiting streams as one wave (one prefill plus the
+first decode chunk for the whole wave, ``InferenceEngine.start``), copies
+each wave row into a free slot, dispatches one batched decode chunk for
+every live slot and routes each row's tokens to its stream; a stream that
+hits EOS or its budget frees its slot.  One chunk stays in flight: chunk
+N+1 is dispatched before chunk N's tokens and ``done`` flags are read to
+the host, once per chunk.
+
+KV layouts, as in the reference:
+- contiguous (``PAGED_KV=0``): every slot holds ``[largest seq bucket +
+  decode budget]`` cache rows; decode runs the contiguous decode-attention
+  kernel (K2).
+- block-paged (``PAGED_KV=1``): per-layer pools of ``KV_BLOCK_SIZE``-token
+  blocks shared by every slot, plus a host-owned block table per slot
+  (``engine/kv_blocks.py``) that each chunk carries to the device.  A
+  stream holds its prompt's blocks and the first chunk's at admission,
+  grows block by block before each chunk and returns every block when it
+  ends.  Decode runs the paged decode-attention kernel (K3); the wave's
+  first chunk runs on its contiguous prefill state, so K2 runs once per
+  admission wave here too.
+
+A freed slot's row keeps stepping until the slot is reused, as in the
+reference: its writes past a width land in its own last column
+(``models/llama.py``; in paged mode its table row is the sentinel, whose
+K/V writes land in the pool's scratch block) and its tokens are
+discarded; an insert overwrites the whole row.  The
+per-slot step counts live on the host (``_dispatched_steps``), so the
+slot state carries none.
+
+The engine's ``_lock`` serializes the loop's dispatches with the
+non-streaming batcher's; tokens reach each stream's asyncio queue through
+``loop.call_soon_threadsafe``.  The loop thread enters
+``torch.inference_mode`` itself (it is thread-local).
+
+Not ported (``ROADMAP.md``): preemption and checkpoint-resume, the prefix
+cache and shared blocks, chunked prefill, the host and disk KV tiers,
+decode windows, pipelining deeper than one chunk, speculative decoding in
+the loop, fleets, the journal and the supervisor.  The pool holds
+``MAX_STREAMS`` worst-case streams, so growth never finds it dry; if it
+ever does, the dispatch raises instead of requeueing.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+import threading
+import time
+from typing import Any, AsyncIterator
+
+import numpy as np
+import torch
+
+from ..models.gpt import GPTState, PagedState
+from ..ops.paged_attention import scatter_pages
+from ..scheduler.policy import QueueFullError, StreamQueue
+from ..utils import metrics, tracing
+from .kv_blocks import OutOfBlocks, StreamBlocks
+
+log = logging.getLogger(__name__)
+
+_END = object()
+# An idle loop waits this long for the rest of a concurrent burst before
+# admitting the wave (the reference's ADMIT_GRACE_MS default).
+ADMIT_GRACE_S = 0.008
+
+
+class StreamClosedError(Exception):
+    """The decode loop is shutting down."""
+
+
+class _Stream:
+    """One client stream: the loop thread's handle on an event-loop
+    queue of token chunks."""
+
+    __slots__ = ("feats", "chunks", "loop", "cancelled", "produced", "delivered",
+                 "released", "budget", "blocks", "s_base", "rid", "t_emit")
+
+    def __init__(self, feats: dict, loop: asyncio.AbstractEventLoop, budget: int):
+        self.feats = feats
+        self.chunks: asyncio.Queue = asyncio.Queue()
+        self.loop = loop
+        self.cancelled = threading.Event()
+        # Decode steps run for this stream, and tokens sent to it (never
+        # past ``budget``: max_tokens clamped to the server's budget).
+        self.produced = 0
+        self.delivered = 0
+        self.released = False  # exactly-once release
+        self.budget = budget
+        # Paged KV: the stream's blocks and its prefill's collated width.
+        self.blocks: StreamBlocks | None = None
+        self.s_base = 0
+        self.rid = str(feats.get("request_id") or "")
+        self.t_emit = 0.0
+
+    def emit(self, item: Any) -> None:
+        try:
+            self.loop.call_soon_threadsafe(self.chunks.put_nowait, item)
+        except RuntimeError:
+            # Event loop closed: the consumer is gone.
+            self.cancelled.set()
+
+
+class _HostCopy:
+    """Device-to-host copies started without waiting (pinned buffers and
+    an event on the card; copies on the CPU).  ``get`` waits for them."""
+
+    def __init__(self, *tensors: torch.Tensor):
+        self.event = None
+        if tensors[0].device.type == "cuda":
+            self.host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+            for h, t in zip(self.host, tensors):
+                h.copy_(t, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host = [t.clone() for t in tensors]
+
+    def get(self) -> list[np.ndarray]:
+        if self.event is not None:
+            self.event.synchronize()
+        return [h.numpy() for h in self.host]
+
+
+class ContinuousDecodeLoop:
+    """Slot-based batched decode over one ``InferenceEngine``."""
+
+    def __init__(self, engine, cfg):
+        self.engine = engine
+        self.model = engine.bundle.name
+        self.max_streams = int(cfg.max_streams)
+        self.n_slots = self.max_streams
+        # Slots hold prompts up to the largest seq bucket.
+        self.max_prompt = max(engine.seq_buckets)
+        self.chunk = engine.chunk_tokens
+        self.paged = engine.paged_kv
+        if self.paged:
+            self.block_size = engine.kv_block_size
+            self.pool = engine.kv_pool
+            self.nb_max = engine.kv_blocks_per_stream
+            # A free slot's row names the sentinel id (== pool size).
+            self._table = np.full((self.n_slots, self.nb_max), self.pool.num_blocks, np.int32)
+            self._dispatched_steps: dict[int, int] = {}
+        self.queue = StreamQueue(self.max_streams)
+        self.active: dict[int, _Stream] = {}
+        self.free: list[int] = list(range(self.n_slots))
+        self._state = None  # the slot state, loop-thread-owned
+        # Dispatched chunks not yet routed: (host copy of (tokens, done),
+        # {slot: stream at dispatch}); the snapshot keeps a late chunk's
+        # rows from reaching a slot's next tenant.
+        self._inflight: list[tuple[_HostCopy, dict[int, _Stream]]] = []
+        # Streams admitted and not yet released (queued or in a slot).
+        self._admitted = 0
+        self._admitted_lock = threading.Lock()
+        # Streams popped off the queue whose prefill is not yet dispatched,
+        # and admissions dispatched but not yet in a slot: the failure
+        # path must end these consumers too.
+        self._pending_wave: list[_Stream] = []
+        self._pending_admissions: list = []
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+        self._thread_lock = threading.Lock()
+        # Counters (since start or a reset by the caller): wave prefills
+        # (each also runs one contiguous decode chunk), chunk dispatches
+        # of the slot state and their decode steps.
+        self.prefill_dispatches = 0
+        self.chunk_dispatches = 0
+        self.decode_steps = 0
+
+    # ------------------------------------------------------------------
+    # event-loop side
+
+    @property
+    def admitted(self) -> int:
+        return self._admitted
+
+    def submit_stream(self, feats: dict) -> AsyncIterator[np.ndarray]:
+        """Queue one stream; returns the async iterator of its token
+        chunks.  Sheds with ``QueueFullError`` once ``max_streams`` streams
+        are admitted."""
+        if self._stop.is_set():
+            raise RuntimeError("decode loop is stopped")
+        st = _Stream(feats, asyncio.get_running_loop(), self.engine.budget_for(feats))
+        with tracing.span("admission", cat="sched", rid=st.rid):
+            with self._admitted_lock:
+                total = self._admitted
+                if total < self.max_streams:
+                    self._admitted += 1
+            if total >= self.max_streams:
+                metrics.SHED.labels(self.model, "queue_full").inc()
+                raise QueueFullError(
+                    f"{total} streams active >= max_streams={self.max_streams}",
+                    retry_after_s=self._retry_after_s(),
+                )
+            self.queue.put(st)
+        self._ensure_thread()
+        return self._consumer_gen(st)
+
+    def _consumer_gen(self, st: _Stream):
+        async def gen():
+            try:
+                while True:
+                    item = await st.chunks.get()
+                    if item is _END:
+                        break
+                    if isinstance(item, BaseException):
+                        raise item
+                    yield item
+            finally:
+                # Consumer gone (disconnect or full drain): the loop thread
+                # frees the slot at the next chunk boundary.
+                st.cancelled.set()
+
+        return gen()
+
+    def _retry_after_s(self) -> float:
+        """Client guidance on 503: a second per slot's worth of streams
+        ahead."""
+        return min(60.0, max(1.0, (self._admitted + 1) / self.max_streams))
+
+    # ------------------------------------------------------------------
+    # lifecycle
+
+    def _ensure_thread(self) -> None:
+        with self._thread_lock:
+            if self._thread is None or not self._thread.is_alive():
+                self._thread = threading.Thread(target=self._run, name="decode-loop",
+                                                daemon=True)
+                self._thread.start()
+
+    def stop(self) -> None:
+        """Stop the loop thread; every stream still queued or live ends
+        with ``StreamClosedError``."""
+        self._stop.set()
+        t = self._thread
+        if t is not None and t.is_alive():
+            t.join(timeout=30)
+
+    def warm(self) -> float:
+        """Build the slot state and run one chunk over it (every row dead)
+        before the first stream, so the pools' allocation and the decode
+        kernels' first build and load land before the service reports
+        ready; returns the seconds taken.  A no-op once the loop thread
+        runs."""
+        t0 = time.monotonic()
+        with self._thread_lock:
+            if self._thread is not None:
+                return 0.0
+            eng = self.engine
+            with torch.inference_mode():
+                if self._state is None:
+                    self._build_empty_state()
+                with eng._lock:
+                    self._state, toks = self._chunk_call()
+                    toks.cpu()
+        return time.monotonic() - t0
+
+    # ------------------------------------------------------------------
+    # loop thread
+
+    def _run(self) -> None:
+        """Thread entry.  If the loop body dies on something its
+        per-iteration handler does not catch, every consumer still gets a
+        terminal error instead of waiting forever."""
+        try:
+            with torch.inference_mode():
+                self._run_loop()
+        except BaseException as e:
+            log.exception("decode loop thread died")
+            self._fail_all(e)
+            for st in self.queue.drain_all():
+                self._finish(st, e)
+            raise
+
+    def _run_loop(self) -> None:
+        log.info("continuous decode loop up: %d slots, %s KV", self.n_slots,
+                 "paged" if self.paged else "contiguous")
+        while not self._stop.is_set():
+            try:
+                if not self.active and not self._inflight and self.queue.qsize() == 0:
+                    st = self.queue.pop(timeout=0.05)
+                    if st is None:
+                        continue
+                    wave = [st]
+                else:
+                    wave = []
+                # Chunk boundary: admit everything that fits, as one wave.
+                while len(wave) + len(self.active) < self.n_slots:
+                    st = self.queue.pop_nowait()
+                    if st is None:
+                        break
+                    wave.append(st)
+                if wave and not self.active and not self._inflight:
+                    # Idle: give the rest of a concurrent burst a moment to
+                    # arrive, so it prefills as one wave.
+                    deadline = time.monotonic() + ADMIT_GRACE_S
+                    while len(wave) < self.n_slots:
+                        remaining = deadline - time.monotonic()
+                        if remaining <= 0:
+                            break
+                        st = self.queue.pop(timeout=remaining)
+                        if st is None:
+                            break
+                        wave.append(st)
+                # The live chunk goes first; the wave's prefill queues
+                # behind it on the device.
+                dispatched = False
+                self._pending_wave = wave
+                if self.active and self._work_remains():
+                    self._dispatch_chunk()
+                    dispatched = True
+                if wave:
+                    self._pending_admissions = self._admit_dispatch(wave)
+                self._pending_wave = []
+                if self._pending_admissions:
+                    self._admit_complete(self._pending_admissions)
+                    self._pending_admissions = []
+                # One chunk in flight: route the older one once the next
+                # is dispatched, or everything when nothing was.
+                if len(self._inflight) > 1:
+                    self._deliver_oldest()
+                elif self._inflight and not dispatched:
+                    while self._inflight:
+                        self._deliver_oldest()
+            except Exception as e:
+                log.exception("decode loop iteration failed")
+                self._fail_all(e)
+        closed = StreamClosedError("server stopping")
+        for st in self.queue.drain_all():
+            self._finish(st, closed)
+        for slot in list(self.active):
+            self.active[slot].emit(closed)
+            self._free_slot(slot)
+        self._inflight.clear()
+
+    def _fail_all(self, exc: BaseException) -> None:
+        """End every pending and live stream with ``exc``; the slot state
+        is rebuilt at the next admission."""
+        for st, *_ in self._pending_admissions:
+            self._finish(st, exc)
+        self._pending_admissions = []
+        for st in self._pending_wave:
+            self._finish(st, exc)
+        self._pending_wave = []
+        for slot in list(self.active):
+            self.active[slot].emit(exc)
+            self._free_slot(slot)
+        self._inflight.clear()
+        self._state = None
+
+    def _release(self, st: _Stream) -> None:
+        """Exactly once per stream."""
+        if not st.released:
+            st.released = True
+            with self._admitted_lock:
+                self._admitted -= 1
+
+    def _finish(self, st: _Stream, item: Any = _END) -> None:
+        st.emit(item)
+        self._release(st)
+
+    def _free_slot(self, slot: int) -> None:
+        st = self.active.pop(slot, None)
+        self.free.append(slot)
+        self._release_blocks(slot, st)
+        if st is not None:
+            self._release(st)
+
+    def _release_blocks(self, slot: int, st: _Stream | None) -> None:
+        """Return a slot's blocks to the pool and point its table row at
+        the sentinel, so the dead row's writes go to the scratch block."""
+        if not self.paged:
+            return
+        if st is not None and st.blocks is not None:
+            st.blocks.release()
+            st.blocks = None
+        self._table[slot, :] = self.pool.num_blocks
+        self._dispatched_steps.pop(slot, None)
+        self._note_pool()
+
+    def _note_pool(self) -> None:
+        used = self.pool.used_blocks
+        metrics.KV_POOL_BLOCKS.labels(self.model, "used").set(used)
+        metrics.KV_POOL_BLOCKS.labels(self.model, "free").set(self.pool.num_blocks - used)
+
+    def _emit_tokens(self, st: _Stream, chunk: np.ndarray) -> None:
+        """Send one chunk's tokens to a stream, never past its budget."""
+        arr = chunk[: max(0, st.budget - st.delivered)]
+        if not arr.size:
+            return
+        st.delivered += int(arr.size)
+        st.emit(arr)
+        metrics.TOKENS.labels(self.model).inc(int(arr.size))
+        now = time.monotonic()
+        if st.t_emit:
+            metrics.TBT.labels(self.model).observe(now - st.t_emit)
+        st.t_emit = now
+
+    # -- admission -----------------------------------------------------
+
+    def _admit_dispatch(self, wave: list[_Stream]) -> list:
+        """Prefill the wave as one batch, with its first decode chunk, and
+        start the host copy of that chunk's tokens and done flags."""
+        eng = self.engine
+        ok: list[_Stream] = []
+        for st in wave:
+            if st.cancelled.is_set():
+                self._release(st)
+            elif int(st.feats.get("length", 0)) > self.max_prompt:
+                self._finish(st, ValueError(
+                    f"prompt longer than the largest seq bucket ({self.max_prompt}) "
+                    "cannot join the shared batch"
+                ))
+            else:
+                ok.append(st)
+        if not ok:
+            return []
+        try:
+            with eng._lock:
+                state1, toks, width = eng.start([st.feats for st in ok])
+                copy = _HostCopy(toks, state1.done)
+        except Exception as e:
+            for st in ok:
+                self._finish(st, e)
+            return []
+        self.prefill_dispatches += 1
+        return [(st, state1, copy, row, width) for row, st in enumerate(ok)]
+
+    def _admit_complete(self, started: list) -> None:
+        """Route each admitted stream's first chunk, then copy its row into
+        a free slot (or end it, when the first chunk finished it)."""
+        for st, state1, copy, row, width in started:
+            toks_np, done_np = copy.get()
+            st.produced = self.chunk
+            self._emit_tokens(st, toks_np[row])
+            if bool(done_np[row]) or st.produced >= st.budget:
+                self._finish(st)
+                continue
+            slot = None
+            try:
+                if self._state is None:
+                    self._build_empty_state()
+                slot = self.free.pop()
+                with self.engine._lock:
+                    if self.paged:
+                        self._insert_paged(st, state1, slot, row, width)
+                    else:
+                        self._insert(state1, slot, row)
+            except Exception as e:
+                if slot is not None:
+                    self.free.append(slot)
+                self._finish(st, e)
+                continue
+            self.active[slot] = st
+
+    def _build_empty_state(self) -> None:
+        """Every slot dead: zeroed caches (paged: ``num_blocks`` pool
+        blocks plus the scratch block, int8 scale pools of ones) and
+        per-row fields at the slot count."""
+        eng = self.engine
+        cfg = eng.bundle.cfg
+        dev = eng.device
+        dtype = eng.bundle.policy.compute_dtype
+        n = self.n_slots
+        if self.paged:
+            lead, width = (self.pool.num_blocks + 1, self.block_size), self.nb_max * self.block_size
+        else:
+            width = self.max_prompt + eng.max_decode_len
+            lead = (n, width)
+        shape = lead + (cfg.num_kv_heads, cfg.head_dim)
+
+        def entry():
+            if cfg.kv_quant:
+                fill = torch.ones if self.paged else torch.zeros
+                return (torch.zeros(shape, dtype=torch.int8, device=dev),
+                        fill(shape[:3] + (1,), dtype=dtype, device=dev))
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        def per_row(dt):
+            return torch.zeros(n, dtype=dt, device=dev)
+
+        fields = dict(
+            cache_k=[entry() for _ in range(cfg.num_layers)],
+            cache_v=[entry() for _ in range(cfg.num_layers)],
+            key_valid=torch.zeros(n, width, dtype=torch.int32, device=dev),
+            write_idx=per_row(torch.long), pos=per_row(torch.long),
+            last_token=per_row(torch.long),
+            done=torch.ones(n, dtype=torch.bool, device=dev),
+            tokens=torch.full((n, eng.max_decode_len), cfg.pad_id, dtype=torch.int32,
+                              device=dev),
+        )
+        self._state = PagedState(**fields) if self.paged else GPTState(**fields, steps=None)
+        if self.paged:
+            self._note_pool()
+
+    def _insert_rows(self, single, slot: int, row: int) -> None:
+        """The per-row fields of wave row ``row`` into slot ``slot``
+        (widths padded with zeros)."""
+        dst = self._state
+        for name in ("key_valid", "tokens"):
+            d, s = getattr(dst, name), getattr(single, name)
+            d[slot, : s.shape[1]] = s[row]
+            d[slot, s.shape[1]:] = 0
+        for name in ("write_idx", "pos", "last_token", "done"):
+            getattr(dst, name)[slot] = getattr(single, name)[row]
+
+    def _insert(self, single: GPTState, slot: int, row: int) -> None:
+        """Contiguous insert: one wave row of the prefill state into one
+        slot (the slot's cache rows past the wave's width zeroed)."""
+        for d_entry, s_entry in zip(self._state.cache_k + self._state.cache_v,
+                                    single.cache_k + single.cache_v):
+            pairs = zip(d_entry, s_entry) if isinstance(d_entry, tuple) else [(d_entry, s_entry)]
+            for d, s in pairs:
+                d[slot, : s.shape[1]] = s[row]
+                d[slot, s.shape[1]:] = 0
+        self._insert_rows(single, slot, row)
+
+    def _insert_paged(self, st: _Stream, single: GPTState, slot: int, row: int,
+                      width: int) -> None:
+        """Paged insert: grant the stream the blocks its prompt and first
+        chunk wrote (positions ``[0, width + chunk)``), point the slot's
+        table row at them and scatter that span of the wave row's caches
+        into them."""
+        s_cut = width + self.chunk
+        sb = StreamBlocks(self.pool, self.block_size)
+        try:
+            sb.ensure(s_cut)
+            table_row = np.full(self.nb_max, self.pool.num_blocks, np.int32)
+            table_row[: len(sb.ids)] = sb.ids
+            row_t = torch.from_numpy(table_row)
+            for d_entry, s_entry in zip(self._state.cache_k + self._state.cache_v,
+                                        single.cache_k + single.cache_v):
+                pairs = (zip(d_entry, s_entry) if isinstance(d_entry, tuple)
+                         else [(d_entry, s_entry)])
+                for pool, s in pairs:
+                    scatter_pages(pool, row_t, s[row, :s_cut], self.block_size)
+            self._insert_rows(single, slot, row)
+        except BaseException:
+            sb.release()
+            raise
+        st.blocks = sb
+        st.s_base = width
+        self._table[slot] = table_row
+        self._dispatched_steps[slot] = self.chunk
+        self._note_pool()
+
+    # -- decode chunks -------------------------------------------------
+
+    def _work_remains(self) -> bool:
+        """True while a live stream needs tokens beyond what the chunks in
+        flight will deliver."""
+        ahead = len(self._inflight) * self.chunk
+        return any(st.produced + ahead < st.budget for st in self.active.values())
+
+    def _grow_for_dispatch(self) -> None:
+        """Grant every live row the blocks the next chunk writes (never
+        past its budget: later writes go to the scratch block and are
+        never read)."""
+        grew = False
+        for slot, st in self.active.items():
+            if st.cancelled.is_set() or st.blocks is None:
+                continue  # frees at the next delivery; its writes go to scratch
+            steps = self._dispatched_steps.get(slot, 0) + self.chunk
+            try:
+                fresh = st.blocks.ensure(st.s_base + min(steps, st.budget))
+            except OutOfBlocks as e:
+                raise RuntimeError(
+                    "paged KV pool ran dry although it holds MAX_STREAMS worst-case "
+                    "streams (preemption is not ported)"
+                ) from e
+            if fresh:
+                self._table[slot, : len(st.blocks.ids)] = st.blocks.ids
+                grew = True
+            self._dispatched_steps[slot] = steps
+        if grew:
+            self._note_pool()
+
+    def _chunk_call(self):
+        """One decode chunk over the whole slot state (caller holds the
+        engine's lock); returns (state, tokens [n_slots, chunk])."""
+        eng = self.engine
+        if self.paged:
+            table = torch.tensor(self._table, device=eng.device)
+            return eng.bundle.paged_chunk(self._state, table, self.chunk)
+        return eng.bundle.generate_chunk(self._state, self.chunk)
+
+    def _dispatch_chunk(self) -> None:
+        with tracing.span("decode_chunk", cat="engine", n_streams=len(self.active),
+                          streams=[st.rid for st in self.active.values()], paged=self.paged):
+            if self.paged:
+                self._grow_for_dispatch()
+            with self.engine._lock:
+                self._state, toks = self._chunk_call()
+                copy = _HostCopy(toks, self._state.done)
+        self.chunk_dispatches += 1
+        self.decode_steps += self.chunk
+        metrics.STREAM_BATCH.labels(self.model).observe(len(self.active))
+        self._inflight.append((copy, dict(self.active)))
+
+    def _deliver_oldest(self) -> None:
+        copy, snapshot = self._inflight.pop(0)
+        toks_np, done_np = copy.get()
+        self._route_chunk(toks_np, done_np, snapshot)
+
+    def _route_chunk(self, toks_np: np.ndarray, done_np: np.ndarray,
+                     snapshot: dict[int, _Stream]) -> None:
+        for slot, st in snapshot.items():
+            # The slot may have been freed, or re-tenanted, since the chunk
+            # was dispatched: never emit stale rows.
+            if self.active.get(slot) is not st:
+                continue
+            if st.cancelled.is_set():
+                self._free_slot(slot)
+                continue
+            self._emit_tokens(st, toks_np[slot])
+            st.produced += self.chunk
+            if bool(done_np[slot]) or st.produced >= st.budget:
+                st.emit(_END)
+                self._free_slot(slot)

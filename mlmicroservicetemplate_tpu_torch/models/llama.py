@@ -16,6 +16,14 @@ Unlike the JAX package's immutable arrays, the KV cache is preallocated
 at ``[B, S + max_len, KVH, D]`` per layer (int8 payload plus a
 ``[B, S + max_len, KVH, 1]`` scale under ``kv_quant``) and every decode
 step writes its K/V row, the key-validity bit and its token in place.
+The continuous loop's freed rows keep stepping until their slot is
+reused; their writes past a width land in the row's own last column
+(``_write_at``), where the reference's ``mode="drop"`` drops them.
+
+Paged decode (``PAGED_KV=1``, the continuous loop) keeps the same step
+over a ``gpt.PagedState``: K/V rows go to a block pool through a block
+table, and the single query attends through
+``ops.paged_attention.paged_decode_attention``.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import decode_attention
+from ..ops.paged_attention import paged_decode_attention
 from .common import (
     dense,
     embed,
@@ -38,7 +47,7 @@ from .common import (
     rmsnorm,
     split_heads,
 )
-from .gpt import GPTState
+from .gpt import GPTState, PagedState, paged_dest, paged_write_token
 
 
 @dataclasses.dataclass(frozen=True)
@@ -270,6 +279,18 @@ def _cache_dtype(state: GPTState) -> torch.dtype:
     return entry[1].dtype if isinstance(entry, tuple) else entry.dtype
 
 
+def _write_at(state, idx: torch.Tensor, width: int) -> torch.Tensor:
+    """Where each row's write at ``idx`` lands in a per-row field ``width``
+    wide.  Rows that step together (``steps`` set) never pass a width.
+    The continuous loop's slot state (``steps`` None) clamps: a freed row
+    steps on until its slot is reused, and its writes past a width land in
+    its own last column, which no other row reads and the slot's next
+    insert overwrites (the reference drops them)."""
+    if getattr(state, "steps", None) is not None:
+        return idx
+    return idx.clamp(max=width - 1)
+
+
 def _write_kv(cache, rows, t, new: torch.Tensor, dtype) -> None:
     """Write one K (or V) row per batch row at ``t`` into a dense or an
     (int8, scale) cache entry, in place."""
@@ -291,45 +312,60 @@ def _cache_attention(q, ck, cv, key_valid) -> torch.Tensor:
     return ctx[:, None]
 
 
-def decode_step(model: LlamaModel, state: GPTState) -> tuple[GPTState, torch.Tensor]:
-    """One greedy step for every row: each row embeds its last token at
-    its own position, writes its K/V row and attends to its cache.  Rows
-    already done emit ``pad_id``.  Returns the new state and the tokens."""
+def _step(model: LlamaModel, state, write_kv, attend):
+    """One greedy step for every row, over the cache layout that
+    ``write_kv(cache, at, new)`` and ``attend(q, ck, cv, key_valid)``
+    address (``at``: each row's write position, ``_write_at``): each row
+    embeds its last token at its own position, writes its K/V row and
+    attends to its cache.  Rows already done emit ``pad_id``.  Returns the
+    new state and the tokens."""
     cfg = model.cfg
     dtype = _cache_dtype(state)
     b = state.last_token.shape[0]
     rows = torch.arange(b, device=state.last_token.device)
     t = state.write_idx
+    at = _write_at(state, t, state.key_valid.shape[1])
     x = embed(model.embed.weight, state.last_token[:, None], dtype)  # [B, 1, D]
     cos, sin = rope_tables(cfg, t.clamp(max=cfg.max_position - 1), dtype)
     cos, sin = cos[:, None, None, :], sin[:, None, None, :]
-    state.key_valid[rows, t] = 1
+    state.key_valid[rows, at] = 1
     for li, layer in enumerate(model.layers):
         q, k1, v1 = layer.qkv(cfg, x, cos, sin)
-        _write_kv(state.cache_k[li], rows, t, k1[:, 0], dtype)
-        _write_kv(state.cache_v[li], rows, t, v1[:, 0], dtype)
-        ctx = _cache_attention(q, state.cache_k[li], state.cache_v[li], state.key_valid)
+        write_kv(state.cache_k[li], at, k1[:, 0])
+        write_kv(state.cache_v[li], at, v1[:, 0])
+        ctx = attend(q, state.cache_k[li], state.cache_v[li], state.key_valid)
         x = layer.finish(x, ctx)
     x = model.final_ln(x)
     logits = lm_head_logits(x[:, 0], model.lm_head.weight)
     next_tok = logits.argmax(dim=-1)
     next_tok = torch.where(state.done, torch.full_like(next_tok, cfg.pad_id), next_tok)
-    state.tokens[rows, state.pos] = next_tok.to(torch.int32)
+    state.tokens[rows, _write_at(state, state.pos, state.tokens.shape[1])] = \
+        next_tok.to(torch.int32)
+    steps = getattr(state, "steps", None)
     return dataclasses.replace(
         state,
         write_idx=t + 1,
         pos=state.pos + 1,
         last_token=next_tok,
         done=state.done | (next_tok == cfg.eos_id),
-        steps=state.steps + 1,
+        **({} if steps is None else {"steps": steps + 1}),
     ), next_tok
+
+
+def decode_step(model: LlamaModel, state: GPTState) -> tuple[GPTState, torch.Tensor]:
+    """One greedy step over the contiguous cache."""
+    dtype = _cache_dtype(state)
+    rows = torch.arange(state.last_token.shape[0], device=state.last_token.device)
+    return _step(model, state, lambda cache, at, new: _write_kv(cache, rows, at, new, dtype),
+                 _cache_attention)
 
 
 def generate_chunk(model: LlamaModel, state: GPTState, n_steps: int
                    ) -> tuple[GPTState, torch.Tensor]:
     """``n_steps`` greedy decode steps; returns the state and the chunk's
-    tokens [B, n_steps]."""
-    if state.steps + n_steps > state.tokens.shape[1]:
+    tokens [B, n_steps].  A state whose rows step together (``steps`` not
+    None) refuses to step past its token width."""
+    if state.steps is not None and state.steps + n_steps > state.tokens.shape[1]:
         raise ValueError(
             f"{n_steps} more steps after {state.steps} overrun the cache's "
             f"{state.tokens.shape[1]} decode positions"
@@ -337,6 +373,59 @@ def generate_chunk(model: LlamaModel, state: GPTState, n_steps: int
     toks = []
     for _ in range(n_steps):
         state, tok = decode_step(model, state)
+        toks.append(tok)
+    return state, torch.stack(toks, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# block-paged decode (PAGED_KV=1): gpt.PagedState at GQA width, dense or int8
+
+
+def _paged_write_kv(cache, dest: torch.Tensor, val: torch.Tensor, dtype) -> None:
+    """Write one new K (or V) row per batch row at flat pool indices
+    ``dest`` into a dense pool or an (int8 payload, scale) pool pair, with
+    the contiguous cache's quantization."""
+    if isinstance(cache, tuple):
+        q8, sc = kv_quantize(val)
+        paged_write_token(cache[0], dest, q8)
+        paged_write_token(cache[1], dest, sc.to(dtype))
+    else:
+        paged_write_token(cache, dest, val)
+
+
+def _paged_cache_attention(q, ck, cv, table, key_valid, bs: int) -> torch.Tensor:
+    """The step's single query [B, 1, H, D] over the paged pool through
+    the paged decode-attention kernel (on the card, every paged step);
+    returns [B, 1, H, D]."""
+    if isinstance(ck, tuple):
+        ctx = paged_decode_attention(q[:, 0], ck[0], cv[0], table, key_valid, bs,
+                                     k_scale=ck[1], v_scale=cv[1])
+    else:
+        ctx = paged_decode_attention(q[:, 0], ck, cv, table, key_valid, bs)
+    return ctx[:, None]
+
+
+def paged_decode_step(model: LlamaModel, state: PagedState, table: torch.Tensor,
+                      block_size: int) -> tuple[PagedState, torch.Tensor]:
+    """One greedy step with K/V written and read through the block table
+    ``table`` [B, T] (positions, masks and EOS logic as the contiguous
+    step: the physical layout is the only difference)."""
+    dtype = _cache_dtype(state)
+    dest = paged_dest(table, state.write_idx, block_size, state.num_blocks)
+    return _step(
+        model, state, lambda cache, _at, new: _paged_write_kv(cache, dest, new, dtype),
+        lambda q, ck, cv, key_valid: _paged_cache_attention(q, ck, cv, table, key_valid,
+                                                            block_size),
+    )
+
+
+def generate_chunk_paged(model: LlamaModel, state: PagedState, table: torch.Tensor,
+                         block_size: int, n_steps: int) -> tuple[PagedState, torch.Tensor]:
+    """``n_steps`` paged greedy steps; returns the state and the chunk's
+    tokens [B, n_steps]."""
+    toks = []
+    for _ in range(n_steps):
+        state, tok = paged_decode_step(model, state, table, block_size)
         toks.append(tok)
     return state, torch.stack(toks, dim=1)
 

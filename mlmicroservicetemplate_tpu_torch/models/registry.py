@@ -8,7 +8,8 @@ drawn on the CPU from a seeded ``torch.Generator``.  All three go through
 
 Two kinds are served: BERT-base text classification, and llama greedy
 generation (``KIND_SEQ2SEQ``, the JAX package's kind for every generative
-model).
+model), whole or streamed through the continuous decode loop over a
+contiguous or (``PAGED_KV=1``) block-paged KV cache.
 """
 
 from __future__ import annotations
@@ -56,6 +57,9 @@ class ModelBundle:
     # after prefill, and (state, n_steps) -> (state, tokens [B, n_steps]).
     init_state: Callable | None = None
     generate_chunk: Callable | None = None
+    # Paged generation (PAGED_KV=1, the continuous loop): (PagedState,
+    # table [B, T] int32 on the device, n_steps) -> (state, tokens).
+    paged_chunk: Callable | None = None
     # Cap on a tokenized prompt (generation keeps position-table room for
     # the decode budget).
     max_prompt_len: int | None = None
@@ -94,7 +98,8 @@ class RawItem:
     generative models only; decoding is greedy (sampling is not ported)."""
 
     text: str | None = None
-    # Asked for, and answered 400 until streaming and sampling are ported.
+    # Streamed through the continuous decode loop; temperature > 0 is
+    # answered 400 until sampling is ported.
     stream: bool = False
     temperature: float = 0.0
     # Generation stops after this many tokens (None = the server's
@@ -240,6 +245,10 @@ def _build_llama(svc_cfg, policy: DtypePolicy, device: torch.device,
     def generate_chunk(state, n_steps: int):
         return llama_mod.generate_chunk(model, state, n_steps)
 
+    def paged_chunk(state, table, n_steps: int):
+        return llama_mod.generate_chunk_paged(model, state, table, svc_cfg.kv_block_size,
+                                              n_steps)
+
     return ModelBundle(
         name="llama",
         kind=KIND_SEQ2SEQ,
@@ -251,6 +260,7 @@ def _build_llama(svc_cfg, policy: DtypePolicy, device: torch.device,
         labels=None,
         init_state=init_state,
         generate_chunk=generate_chunk,
+        paged_chunk=paged_chunk,
         max_prompt_len=max_prompt,
     )
 
@@ -285,5 +295,10 @@ def build_model(svc_cfg, policy: DtypePolicy | None = None, params=None) -> Mode
         raise ValueError(
             f"QUANT_KV is not supported for {svc_cfg.model_name!r} "
             "(int8 KV cache covers the llama family)"
+        )
+    if svc_cfg.paged_kv and builder is not _build_llama:
+        raise ValueError(
+            f"PAGED_KV is not supported for {svc_cfg.model_name!r} "
+            "(block-paged KV covers the llama family)"
         )
     return builder(svc_cfg, policy, device, params)

@@ -1,5 +1,5 @@
 """Asyncio dynamic batcher: admit -> queue (deadline-aware) -> dispatch ->
-route futures.
+route futures; and the entry of streaming generation.
 
 The non-streaming path of the JAX package's ``scheduler/batcher.py``.  A
 batch closes when it reaches ``max_batch`` items or ``batch_timeout_ms``
@@ -9,6 +9,10 @@ items ``submit`` sheds with ``QueueFullError`` (503); a request whose
 ``deadline_ms`` passes while it waits fails with ``DeadlineExceededError``
 (504).  Dispatch runs on worker threads so the device call never blocks
 the event loop; ``stop()`` drains the queue and joins them.
+
+A generative model also gets a ``ContinuousDecodeLoop`` (one loop, as the
+JAX package builds with ``CONTINUOUS_BATCHING=1``): ``submit_stream``
+hands it every stream whose prompt fits its slots, and ``stop()`` stops it.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from typing import Any
 
 import numpy as np
 
+from ..models.registry import KIND_SEQ2SEQ
 from ..utils import metrics, tracing
 from .policy import DeadlineExceededError, DeadlineQueue, QueueFullError
 
@@ -62,6 +67,11 @@ class Batcher:
         self._inflight: set[asyncio.Task] = set()
         self._closed = False
         self.draining = False
+        self._cdl = None
+        if getattr(engine.bundle, "kind", None) == KIND_SEQ2SEQ:
+            from ..engine.streams import ContinuousDecodeLoop
+
+            self._cdl = ContinuousDecodeLoop(engine, cfg)
 
     async def start(self) -> None:
         if self._task is None:
@@ -78,9 +88,37 @@ class Batcher:
         if self._inflight:
             await asyncio.gather(*self._inflight, return_exceptions=True)
         self._executor.shutdown(wait=True)
+        if self._cdl is not None:
+            await asyncio.get_running_loop().run_in_executor(None, self._cdl.stop)
 
     def pending_work(self) -> int:
-        return self._queue.qsize() + len(self._inflight)
+        streams = self._cdl.admitted if self._cdl is not None else 0
+        return self._queue.qsize() + len(self._inflight) + streams
+
+    def warm_streams(self) -> float:
+        """Warm the decode loop (a no-op without one); returns seconds."""
+        return self._cdl.warm() if self._cdl is not None else 0.0
+
+    def submit_stream(self, feats: dict):
+        """Streaming generation: the async iterator of the stream's token
+        chunks (int32 arrays) from the continuous decode loop.  Sheds with
+        ``QueueFullError`` past ``max_streams`` (or while draining); a
+        prompt longer than the loop's largest seq bucket raises
+        ``ValueError``."""
+        if self._closed:
+            raise RuntimeError("batcher is stopped")
+        if self._cdl is None:
+            raise ValueError(f"{self.model} is not a generative model; nothing to stream")
+        if self.draining:
+            self._shed("drain")
+            raise QueueFullError("draining", reason="drain", retry_after_s=self.retry_after_s())
+        n = int(feats.get("length", 0))
+        if n > self._cdl.max_prompt:
+            raise ValueError(
+                f"a {n}-token prompt is longer than the largest seq bucket "
+                f"({self._cdl.max_prompt}) that streams take"
+            )
+        return self._cdl.submit_stream(feats)
 
     def retry_after_s(self) -> float:
         """Client guidance on 503: queue depth x observed batch time."""

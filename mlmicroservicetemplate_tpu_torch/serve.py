@@ -4,10 +4,15 @@ Boots from env vars with optional CLI overrides, e.g.::
 
     python -m mlmicroservicetemplate_tpu_torch.serve --device cuda --model bert-base
     QUANT_KV=int8 python -m mlmicroservicetemplate_tpu_torch.serve --model llama
+    PAGED_KV=1 python -m mlmicroservicetemplate_tpu_torch.serve --model llama
     DEVICE=cpu MODEL_NAME=bert-base python -m mlmicroservicetemplate_tpu_torch.serve
 
 ``build_service`` assembles everything but the HTTP layer, so it needs no
 aiohttp; ``main`` adds the aiohttp app and serves until SIGTERM/SIGINT.
+For a generative model the batcher holds the continuous decode loop that
+serves streams: warmed with the engine before the service reports ready,
+its thread started by the first stream and stopped with the batcher when
+the app shuts down.
 """
 
 from __future__ import annotations

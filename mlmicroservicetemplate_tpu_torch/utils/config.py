@@ -60,6 +60,14 @@ class ServiceConfig:
     quant_kv: str | None = None
     # JSON object of LlamaConfig overrides, e.g. '{"num_layers": 4}'.
     llama_config: str | None = None
+    # Streaming generations: concurrent streams of the continuous decode
+    # loop (its slot count) before new ones shed with 503.
+    max_streams: int = 8
+    # Block-paged KV for the continuous loop: a pool of kv_block_size-token
+    # blocks with per-slot block tables instead of per-slot contiguous
+    # caches.  Seq buckets round up to the block grid.
+    paged_kv: bool = False
+    kv_block_size: int = 16
 
     def __post_init__(self) -> None:
         dev = self.device.lower()
@@ -86,6 +94,21 @@ class ServiceConfig:
             if q not in (None, "int8"):
                 raise ValueError(f"QUANT_KV must be 'int8' or unset, got {self.quant_kv!r}")
             object.__setattr__(self, "quant_kv", q)
+        if self.max_streams < 1:
+            raise ValueError("MAX_STREAMS must be >= 1")
+        if not 1 <= self.kv_block_size <= 1024:
+            raise ValueError("KV_BLOCK_SIZE must be in [1, 1024]")
+        object.__setattr__(self, "seq_buckets", _align_paged_seq_buckets(self))
+
+
+def _align_paged_seq_buckets(cfg: ServiceConfig) -> tuple[int, ...]:
+    """Under PAGED_KV the seq buckets round up to the block grid (deduped,
+    still ascending), so a prompt's collated width is whole blocks;
+    aligned grids pass through unchanged."""
+    if not cfg.paged_kv or cfg.kv_block_size <= 1:
+        return cfg.seq_buckets
+    bs = cfg.kv_block_size
+    return tuple(sorted({-(-b // bs) * bs for b in cfg.seq_buckets}))
 
 
 def _flag(v: str) -> bool:
@@ -98,12 +121,22 @@ UNPORTED_KNOBS = {
     "PROMPT_PREFIX": (),
     "PREFIX_CACHE": ("0", "false", "no"),
     "SPEC_DECODE": ("none", "0", "false", "no"),
-    "PAGED_KV": ("0", "false", "no"),
     "PREFILL_CHUNK": ("0",),
     "DECODE_WINDOW": ("1",),
     "TP": ("0", "1"),
     "QUANTIZE": ("none", "0", "false", "no"),
     "ADAPTER_DIR": (),
+    # The continuous loop runs one chunk in flight (0 = auto picks that on
+    # a directly attached card) and holds a pool sized for MAX_STREAMS
+    # worst cases; its other knobs wait for later slices.
+    "STREAM_PIPELINE": ("0", "1"),
+    "KV_BUDGET_MB": ("0", "0.0"),
+    "MAX_STREAM_QUEUE": ("0",),
+    "KV_HOST_BUDGET_MB": ("0", "0.0"),
+    "KV_DISK_BUDGET_MB": ("0", "0.0"),
+    "FLEET_REPLICAS": ("0", "1"),
+    "SPEC_CONTINUOUS": ("0", "false", "no"),
+    "JOURNAL_DIR": (),
 }
 
 
@@ -114,8 +147,10 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
     Recognized: DEVICE, MODEL_NAME, MODEL_PATH, TOKENIZER_PATH, LABELS_PATH,
     HOST, PORT, MAX_BATCH, BATCH_TIMEOUT_MS, MAX_QUEUE, BATCH_BUCKETS,
     SEQ_BUCKETS, WARMUP, LOG_LEVEL, TRACE, MAX_DECODE_LEN,
-    STREAM_CHUNK_TOKENS, QUANT_KV, LLAMA_CONFIG.  Any of
-    ``UNPORTED_KNOBS`` set to a value that turns it on raises."""
+    STREAM_CHUNK_TOKENS, QUANT_KV, LLAMA_CONFIG, MAX_STREAMS, PAGED_KV,
+    KV_BLOCK_SIZE.  Any of ``UNPORTED_KNOBS`` set to a value that turns it
+    on raises, as does ``CONTINUOUS_BATCHING=0`` (the per-stream decode
+    workers are not ported)."""
     e = dict(os.environ)
     if overrides:
         e.update(overrides)
@@ -128,6 +163,8 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
         var for var, off in UNPORTED_KNOBS.items()
         if get(var) is not None and get(var).strip().lower() not in off
     )
+    if get("CONTINUOUS_BATCHING") is not None and not _flag(get("CONTINUOUS_BATCHING")):
+        on.append("CONTINUOUS_BATCHING=0")
     if on:
         raise ValueError(
             f"{', '.join(on)}: not ported yet to the PyTorch service "
@@ -146,7 +183,8 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
             kwargs[field] = v
     for field, var in (("port", "PORT"), ("max_batch", "MAX_BATCH"),
                        ("max_queue", "MAX_QUEUE"), ("max_decode_len", "MAX_DECODE_LEN"),
-                       ("stream_chunk_tokens", "STREAM_CHUNK_TOKENS")):
+                       ("stream_chunk_tokens", "STREAM_CHUNK_TOKENS"),
+                       ("max_streams", "MAX_STREAMS"), ("kv_block_size", "KV_BLOCK_SIZE")):
         v = get(var)
         if v is not None:
             kwargs[field] = int(v)
@@ -160,7 +198,7 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
             if not buckets:
                 raise ValueError(f"{var}={v!r} parsed to no buckets")
             kwargs[field] = buckets
-    for field, var in (("warmup", "WARMUP"), ("trace", "TRACE")):
+    for field, var in (("warmup", "WARMUP"), ("trace", "TRACE"), ("paged_kv", "PAGED_KV")):
         v = get(var)
         if v is not None:
             kwargs[field] = _flag(v)

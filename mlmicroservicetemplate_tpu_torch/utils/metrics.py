@@ -1,7 +1,9 @@
-"""Prometheus series of the ``/predict`` path, exported at ``GET /metrics``.
+"""Prometheus series of the serving path, exported at ``GET /metrics``.
 
 Request count and latency, queue wait, device time per batch, batch size,
-queue depth and load sheds.  The series live in this package's own
+queue depth and load sheds; for streaming generation, generated tokens,
+live streams per loop chunk, time to first token, the gap between chunk
+deliveries and the paged KV pool's blocks.  The series live in this package's own
 registry, so a process that also imports the JAX package registers no
 name twice.  Without ``prometheus_client`` every series is a no-op stub.
 """
@@ -51,6 +53,10 @@ _LATENCY_BUCKETS = (
     0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5,
     5.0, 10.0, 30.0, 60.0, 120.0,
 )
+_FINE_BUCKETS = (
+    0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
+    0.1, 0.25, 0.5, 1.0, 2.5, 10.0, 30.0, 120.0,
+)
 
 REQUESTS = Counter(
     "predict_requests_total", "Completed /predict requests", ["model", "status"],
@@ -78,6 +84,29 @@ QUEUE_DEPTH = Gauge(
 SHED = Counter(
     "requests_shed_total", "Load-shed requests by reason (queue_full | deadline)",
     ["model", "reason"], registry=REGISTRY,
+)
+
+TOKENS = Counter(
+    "generated_tokens_total", "Seq2seq tokens generated", ["model"], registry=REGISTRY,
+)
+STREAM_BATCH = Histogram(
+    "stream_batch_size", "Live streams served per continuous-batching chunk dispatch",
+    ["model"], buckets=(1, 2, 4, 8, 16, 32), registry=REGISTRY,
+)
+TTFT = Histogram(
+    "stream_ttft_seconds",
+    "Streaming time-to-first-token-chunk (submit to first event)",
+    ["model"], buckets=_LATENCY_BUCKETS, registry=REGISTRY,
+)
+KV_POOL_BLOCKS = Gauge(
+    "kv_pool_blocks", "Paged-KV pool blocks by state (used | free)",
+    ["model", "state"], registry=REGISTRY,
+)
+TBT = Histogram(
+    "stream_tbt_seconds",
+    "Streaming inter-chunk delivery gap (time between consecutive token-chunk "
+    "deliveries to one stream after its first chunk)",
+    ["model"], buckets=_FINE_BUCKETS, registry=REGISTRY,
 )
 
 

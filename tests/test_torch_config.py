@@ -122,3 +122,14 @@ def test_wordpiece_matches_jax(tmp_path, text):
 def test_unported_tokenizer_formats_raise():
     with pytest.raises(ValueError, match="not ported"):
         port_tok.build_tokenizer("spiece.model")
+
+
+@pytest.mark.parametrize("buckets,paged", [("24,48", "1"), ("16,24,32", "1"), ("24,48", "0")])
+def test_loop_knobs_and_paged_bucket_alignment_match_jax(buckets, paged):
+    """MAX_STREAMS, PAGED_KV and KV_BLOCK_SIZE read as in the JAX package;
+    under PAGED_KV the seq buckets round up to the block grid, deduped."""
+    env = {"DEVICE": "cpu", "SEQ_BUCKETS": buckets, "PAGED_KV": paged, "MAX_STREAMS": "5",
+           "KV_BLOCK_SIZE": "16"}
+    port, ref = load_config(env), jax_load_config(env)
+    for field in ("seq_buckets", "paged_kv", "kv_block_size", "max_streams"):
+        assert getattr(port, field) == getattr(ref, field), field

@@ -7,8 +7,8 @@ and the port's, on the same weights (the JAX params carried across by
   included, with a dense and with an int8 KV cache (f32: identical).
 - HTTP ``/predict`` and ``/v1/completions`` answer with the fields and
   values of the JAX handlers for the same bodies.
-- What the port does not serve yet (streaming, sampling, the knobs of
-  later slices) is an error, never a quiet greedy answer.
+- What the port does not serve yet (sampling, streamed or not, and the
+  knobs of later slices) is an error, never a quiet greedy answer.
 """
 
 import asyncio
@@ -157,9 +157,9 @@ def test_http_matches_the_jax_handlers(services):
 @pytest.mark.parametrize(
     "path,body",
     [
-        ("/predict", {"text": "hi", "stream": True}),
+        ("/predict", {"text": "hi", "stream": True, "temperature": 0.7}),
         ("/predict", {"text": "hi", "temperature": 0.7}),
-        ("/v1/completions", {"prompt": "hi", "stream": True}),
+        ("/v1/completions", {"prompt": "hi", "stream": True, "temperature": 0.7}),
         ("/v1/completions", {"prompt": "hi", "temperature": 1.0}),
         ("/v1/completions", {"prompt": "hi", "n": 2}),
         ("/v1/completions", {"prompt": ""}),
@@ -179,10 +179,11 @@ def test_unported_requests_answer_400(services, path, body):
     "knob",
     [
         {"PROMPT_PREFIX": "You are a helpful"}, {"PREFIX_CACHE": "1"},
-        {"SPEC_DECODE": "ngram"}, {"PAGED_KV": "1"}, {"PREFILL_CHUNK": "64"},
+        {"SPEC_DECODE": "ngram"}, {"KV_BUDGET_MB": "64"}, {"PREFILL_CHUNK": "64"},
         {"DECODE_WINDOW": "4"}, {"TP": "2"}, {"QUANTIZE": "int8"},
         {"ADAPTER_DIR": "/adapters"}, {"TOKENIZER_PATH": "tokenizer.model"},
         {"LLAMA_CONFIG": json.dumps({**SMALL, "pallas_decode": True})},
+        {"CONTINUOUS_BATCHING": "0"}, {"STREAM_PIPELINE": "2"},
     ],
     ids=lambda k: next(iter(k)),
 )
