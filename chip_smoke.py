@@ -24,6 +24,12 @@ result line:
    36, 128} blocks; a shuffled table with a sentinel tail on one row and
    (B > 1) a row with no valid key; the yardstick gathers the dense view,
    expands it to 32 heads and runs ``scaled_dot_product_attention``.
+4c. kernel ring_hop: the ring-hop kernel (K4) against its plain version,
+   bf16 and f32, B in {1, 8}, S_loc in {96, 512, 2048}, H=12, D=64, from a
+   fresh carried state and a mid-ring one; a padded row and (B > 1) a row
+   with no valid key in the block; o, m and l checked; the yardstick is
+   ``scaled_dot_product_attention`` over the same block (the hop's work
+   without the carried merge).
 5. serve bert-base: the full-width service through ``Batcher.submit`` in
    waves that hit several batch and seq buckets; every kernel launch
    counter must show the path went through the kernel (12 launches per
@@ -32,6 +38,18 @@ result line:
 6. forward: where one BERT forward's time goes at three buckets: wall time
    (CUDA events) against the card's busy time from ``torch.profiler``'s
    kernel records, split into K1, GEMMs and the rest.
+6b. serve bert-long: the long-context BERT at full width (12 layers, 768
+   hidden, position table 2048, random weights from seed 0, bf16) at SP=1,
+   SEQ_BUCKETS=512,1024,2048, through ``Batcher.submit`` in waves of texts
+   up to ~2000 bytes; the ring-hop kernel must launch 12 times per dispatch
+   and K1 never; the answers must match an f32 forward on the card of the
+   same weights through the plain hop.
+6c. forward bert-long: one B=8, S=2048 forward timed and split into K4,
+   GEMMs and the rest, as in 6.
+6d. ring 4-shard: the same weights through a 4-shard placement whose
+   shards all sit on the one card, over the 2048 bucket (4 hops of
+   S_loc=512 a layer, 192 launches a forward); probabilities must match the
+   SP=1 run; the forward is timed beside the SP=1 one and split by kernel.
 7. serve llama / serve llama int8: full-width TinyLlama (22 layers, random
    weights from seed 0 drawn once and given to both services), bf16, the
    dense and the int8 KV cache, through ``Batcher.submit`` in waves over
@@ -51,16 +69,17 @@ result line:
    events) and split by kernel (``torch.profiler``).
 8. decode step: where one llama decode step's time goes at B in {1, 8,
    32}, T=576: wall time against busy time, split into K2, GEMMs, other.
-9. http: ``/predict`` on bert-base, ``/predict`` and ``/v1/completions`` on
+9. http: ``/predict`` on bert-base, ``/predict`` and ``/status`` (its
+   ``n_devices``) on bert-long, ``/predict`` and ``/v1/completions`` on
    llama, whole and streamed (ndjson, and SSE ending in ``data: [DONE]``),
    over loopback through the aiohttp app (skipped, and said so, where
    aiohttp is missing).
 
 The last lines are the kernels summary, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.  ``--cpu-rehearsal`` skips the build
-and kernel phases, serves BERT-base and a 2-layer llama (``LLAMA_CONFIG``),
-whole and streamed, on the CPU at small buckets, and prints no result
-line.
+and kernel phases, serves BERT-base, bert-long (SP=2, SEQ_BUCKETS=64,128)
+and a 2-layer llama (``LLAMA_CONFIG``), whole and streamed, on the CPU at
+small buckets, and prints no result line.
 """
 
 from __future__ import annotations
@@ -81,6 +100,11 @@ import traceback
 # the probabilities' rounding to bf16 (8 bits of mantissa); the int8 cache
 # (f32 dequantization in both) adds only the bf16 output's rounding.
 KERNEL_TOL = {"float32": 1e-4, "bfloat16": 2e-2, "int8": 1e-2}
+# K4's normalised context o / l (what the ring passes on), held tighter than
+# KERNEL_TOL in bf16: about twice the largest error of the ring_hop phase on
+# an H100 (0.0023), where a kernel that drops its last key tile or skips the
+# rescale of the carried o misses by more than 1.
+RING_CTX_TOL = {"float32": 1e-4, "bfloat16": 5e-3}
 # Served probabilities, bf16 weights and activations through 12 layers
 # against the port's own f32 run on the CPU.
 PROB_TOL = 2e-2
@@ -436,6 +460,116 @@ def phase_paged_kernel() -> dict:
     return headline
 
 
+def ring_hop_case(gen, dtype, b: int, s: int, state: str):
+    """Ring-hop inputs on the card: q, k, v [B, S, H, D] in ``dtype``, a
+    mask with row 0 padded from a third of S and, for B > 1, row 1 without
+    a valid key, and a carried (o, m, l): fresh (0, -inf, 0) or mid-ring
+    (random o, finite m, positive l)."""
+    import torch
+
+    q, k, v = (torch.randn(b, s, HEADS, HEAD_DIM, device="cuda", generator=gen).to(dtype)
+               for _ in range(3))
+    mask = torch.ones(b, s, dtype=torch.int32, device="cuda")
+    mask[0, s // 3:] = 0
+    if b > 1:
+        mask[1] = 0
+    if state == "fresh":
+        o = torch.zeros(b, HEADS, s, HEAD_DIM, device="cuda")
+        m = torch.full((b, HEADS, s), float("-inf"), device="cuda")
+        l = torch.zeros(b, HEADS, s, device="cuda")
+    else:
+        o = torch.randn(b, HEADS, s, HEAD_DIM, device="cuda", generator=gen)
+        m = torch.randn(b, HEADS, s, device="cuda", generator=gen)
+        l = torch.rand(b, HEADS, s, device="cuda", generator=gen) + 0.5
+    return q, k, v, mask, o, m, l
+
+
+def ring_hop_bound(mask, state: str, dtype) -> tuple[float, str]:
+    """K4, counting what this mask needs.  Once a row has a valid key, a
+    masked key weighs exp(-1e9 - m) = 0 exactly in f32, so a batch row with
+    n valid keys needs q, the n keys' k and v, the mask, the carried o, m
+    and l read and written (f32), and 4·H·S·n·D operations (q·k and p·v).
+    A batch row with no valid key from a fresh state makes every query row
+    the block's plain sum of v (l = S, m = -1e9): v read, o, m and l
+    written, H·S·D additions; from a mid-ring state exp(-1e9 - m) = 0 and
+    the carried state stands, with nothing to move."""
+    b, s = mask.shape
+    el = 2 if str(dtype).endswith("bfloat16") else 4
+    block = s * HEADS * HEAD_DIM  # elements of one batch row's q, k or v
+    carried = HEADS * s * (HEAD_DIM + 2) * 4  # one batch row's o, m, l in f32
+    nbytes, ops = mask.numel() * mask.element_size(), 0
+    for n in mask.ne(0).sum(dim=1).tolist():
+        if n:
+            nbytes += block * el + 2 * n * HEADS * HEAD_DIM * el + 2 * carried
+            ops += 4 * HEADS * s * n * HEAD_DIM
+        elif state == "fresh":
+            nbytes += block * el + carried
+            ops += block
+    return bound(nbytes, ops, str(dtype).split(".")[-1])
+
+
+def phase_ring_kernel() -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from mlmicroservicetemplate_tpu_torch.parallel.ring import ring_hop, ring_hop_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    scale = 1.0 / HEAD_DIM ** 0.5
+    headline = None
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        tol, ctx_tol = KERNEL_TOL[name], RING_CTX_TOL[name]
+        for b in (1, 8):
+            for s in (96, 512, 2048):
+                for state in ("fresh", "mid"):
+                    q, k, v, mask, o, m, l = ring_hop_case(gen, dtype, b, s, state)
+                    got = ring_hop(q, k, v, mask, o.clone(), m.clone(), l.clone(), scale)
+                    torch.cuda.synchronize()
+                    want = ring_hop_ref(q.float(), k.float(), v.float(), mask, o, m, l, scale)
+                    ok = all(bool(torch.isfinite(g).all()) for g in got)
+                    errs = {part: (g - w).abs().max().item() for part, g, w in zip("oml", got, want)}
+                    # m and l against the reference; o, the unnormalised sum
+                    # of up to S_loc terms of p·v, through o / l: the ring's
+                    # output and the scale its bf16 error lives on.
+                    for g, w in zip(got[1:], want[1:]):
+                        ok = ok and bool(((g - w).abs() <= tol + tol * w.abs()).all())
+                    ctx, ctx_want = (x[0] / x[2][..., None] for x in (got, want))
+                    ctx_err = (ctx - ctx_want).abs()
+                    ok = ok and bool((ctx_err <= ctx_tol + ctx_tol * ctx_want.abs()).all())
+                    if b > 1 and state == "fresh":  # no valid key: o / l is the plain mean of v
+                        mean = v[1].float().mean(0)[:, None, :]  # [H, 1, D]
+                        # p = 1 exactly for every key, so only f32 summation
+                        # order separates the two: held to the mean's own scale.
+                        ok = ok and bool(
+                            ((ctx[1] - mean).abs() <= ctx_tol * mean.abs().max()).all())
+                    iters = 20 if s >= 2048 else 50
+                    bufs = [x.clone() for x in (o, m, l)]
+                    kernel_ms = cuda_ms(lambda: ring_hop(q, k, v, mask, *bufs, scale), iters)
+                    plain_ms = cuda_ms(lambda: ring_hop_ref(q, k, v, mask, o, m, l, scale), iters)
+                    add = torch.where(mask[:, None, None, :] != 0, 0.0, -1e9).to(dtype)
+                    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+                    library_ms = cuda_ms(
+                        lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=add), iters)
+                    bound_ms, bound_by = ring_hop_bound(mask, state, dtype)
+                    err_ctx = ctx_err.max().item()
+                    row = dict(
+                        dtype=name, shape=[b, s, HEADS, HEAD_DIM], state=state,
+                        max_abs_err=max(err_ctx, errs["m"], errs["l"]), err_o=errs["o"],
+                        err_m=errs["m"], err_l=errs["l"], err_o_over_l=err_ctx,
+                        tol=f"m, l: atol=rtol={tol}; o / l: atol=rtol={ctx_tol}", ok=ok,
+                        kernel_ms=kernel_ms,
+                        plain_ms=plain_ms, library_ms=library_ms, bound_us=bound_ms * 1e3,
+                        bound_by=bound_by,
+                    )
+                    emit("kernel ring_hop", **row)
+                    if not ok:
+                        raise AssertionError(f"ring_hop disagrees with its plain version: {row}")
+                    if (name, b, s, state) == ("bfloat16", 8, 2048, "fresh"):
+                        headline = row
+    return headline
+
+
 def make_waves(rehearsal: bool):
     """Text requests in five waves of 1, 2, 5, 8 and 16, each wave longer,
     so dispatches land in several batch and seq buckets."""
@@ -455,6 +589,176 @@ def make_waves(rehearsal: bool):
             wave.append(RawItem(text=text))
         waves.append(wave)
     return waves
+
+
+def long_waves(rehearsal: bool):
+    """Byte-tokenizer texts for bert-long in waves of 1, 2, 5 and 8, each
+    wave longer (on the card up to ~2000 bytes, the 2048 bucket)."""
+    import numpy as np
+
+    from mlmicroservicetemplate_tpu_torch.models.registry import RawItem
+
+    rng = np.random.default_rng(6)
+    words = ["context", "ring", "shard", "sequence", "attention", "long", "hop", "block"]
+    caps = (40, 70, 100, 126) if rehearsal else (300, 700, 1300, 2040)
+    waves = []
+    for n, cap in zip((1, 2, 5, 8), caps):
+        wave = []
+        for _ in range(n):
+            length = int(rng.integers(cap // 2, cap))
+            text = " ".join(rng.choice(words, size=length))[:length]
+            wave.append(RawItem(text=text))
+        waves.append(wave)
+    return waves
+
+
+def check_probs(bundle, rows, ref_rows, what: str) -> tuple[float, int]:
+    """Served logits against reference logits: finite, the reference's
+    shape, probabilities within PROB_TOL and, where the reference's top two
+    are further apart than 2·PROB_TOL, the same label.  Returns the worst
+    probability error and the labels checked."""
+    import numpy as np
+
+    worst, label_checked = 0.0, 0
+    for got, want in zip(rows, ref_rows):
+        if got.shape != want.shape or not np.isfinite(got).all():
+            raise AssertionError(f"bad logits row {got} (want shape {want.shape})")
+        pg, pw = bundle.postprocess(got), bundle.postprocess(want)
+        worst = max(worst, float(np.max(np.abs(np.array(pg["probs"]) - np.array(pw["probs"])))))
+        top2 = sorted(pw["probs"])[-2:]
+        if top2[1] - top2[0] > 2 * PROB_TOL:  # a closer call may flip within tolerance
+            label_checked += 1
+            if pg["prediction"]["label_id"] != pw["prediction"]["label_id"]:
+                raise AssertionError(f"label differs from {what}: {pg} vs {pw}")
+    if worst > PROB_TOL:
+        raise AssertionError(f"probs differ from {what} by {worst} > {PROB_TOL}")
+    return worst, label_checked
+
+
+def phase_serve_long(rehearsal: bool, card_line: str):
+    """bert-long through the batcher: K4 launched 12·SP² times per dispatch
+    (each layer's ring: SP hops of SP shards), K1 never; every answer held
+    against an f32 forward of the same weights through the plain hop."""
+    import numpy as np
+    import torch
+
+    from mlmicroservicetemplate_tpu_torch.models import bert as bert_mod
+    from mlmicroservicetemplate_tpu_torch.models.registry import INIT_SEED
+    from mlmicroservicetemplate_tpu_torch.ops.attention import fused_attention
+    from mlmicroservicetemplate_tpu_torch.parallel.ring import ring_hop, ring_hop_ref
+    from mlmicroservicetemplate_tpu_torch.serve import build_service
+
+    sp = 2 if rehearsal else 1
+    overrides = {"MODEL_NAME": "bert-long", "DEVICE": "cpu" if rehearsal else "cuda",
+                 "SP": str(sp), "BATCH_BUCKETS": "1,2,4,8",
+                 "SEQ_BUCKETS": "64,128" if rehearsal else "512,1024,2048"}
+    cfg, bundle, engine, batcher = build_service(overrides)
+    warm_s = engine.warmup()
+    waves = long_waves(rehearsal)
+
+    ring_hop.launches = fused_attention.launches = 0
+    engine.dispatches = 0
+    feats, rows, latencies, wall = asyncio.run(drive(batcher, bundle, waves))
+    launches, k1, dispatches = ring_hop.launches, fused_attention.launches, engine.dispatches
+    want = 0 if rehearsal else LAYERS * sp * sp * dispatches
+    if dispatches < 1 or launches != want or k1 != 0:
+        raise AssertionError(
+            f"ring_hop launched {launches} times (want {want}) and fused_attention {k1} "
+            f"(want 0) over {dispatches} dispatches"
+        )
+    # The same weights in f32 on the same device (random init is drawn on
+    # the CPU from one seed), attention through the plain hop.
+    state = bert_mod.init_params(bundle.cfg, torch.Generator().manual_seed(INIT_SEED))
+    ref_model = bert_mod.build_model(bundle.cfg, state, bundle.device, torch.float32)
+    ref = []
+    with torch.inference_mode():
+        for f in feats:
+            ids = torch.from_numpy(f["input_ids"][None]).to(bundle.device)
+            logits = bert_mod.classify_seq_parallel(
+                [ref_model], [ids], [torch.ones_like(ids)], hop=ring_hop_ref)
+            ref.append(logits[0].cpu().numpy())
+    del ref_model, state
+    worst, label_checked = check_probs(bundle, rows, ref, "the f32 plain-hop forward")
+    lat = np.array(latencies) * 1e3
+    emit(
+        "serve bert-long", device=str(bundle.device), card=card_line, sp=sp,
+        seq_buckets=list(engine.seq_buckets), max_len=max(int(f["length"]) for f in feats),
+        requests=len(rows), dispatches=dispatches, ring_hop_launches=launches,
+        fused_attention_launches=k1, warmup_s=warm_s, p50_ms=float(np.percentile(lat, 50)),
+        p99_ms=float(np.percentile(lat, 99)), req_per_s=len(rows) / wall,
+        max_prob_err_vs_f32_plain_hop=worst, prob_tol=PROB_TOL, labels_checked=label_checked,
+    )
+    return cfg, bundle, engine, launches, feats
+
+
+def phase_ring_4shard(bundle, engine, feats, rehearsal: bool) -> int:
+    """The served weights through a 4-shard placement whose shards share
+    the service's device, over the largest bucket: K4 launched 12 · 4 · 4
+    times a forward; probabilities within PROB_TOL of the served (one-shard
+    on the card) forward of the same batch."""
+    import numpy as np
+    import torch
+
+    from mlmicroservicetemplate_tpu_torch.models.bert import classify_seq_parallel
+    from mlmicroservicetemplate_tpu_torch.parallel import SeqParallelSet
+    from mlmicroservicetemplate_tpu_torch.parallel.ring import ring_hop
+
+    shards = 4
+    seq = max(engine.seq_buckets)
+    batch = feats[-8:]
+    ids = np.zeros((len(batch), seq), np.int32)
+    mask = np.zeros_like(ids)
+    for i, f in enumerate(batch):
+        n = int(f["length"])
+        ids[i, :n], mask[i, :n] = f["input_ids"], 1
+    placement = SeqParallelSet([bundle.device] * shards)
+    replicas = placement.place_params(lambda dev: bundle.model)
+    dtype = bundle.policy.compute_dtype
+
+    def four():
+        return classify_seq_parallel(replicas, placement.place_batch(ids),
+                                     placement.place_batch(mask), dtype=dtype)
+
+    def served():
+        return bundle.forward(bundle.placement.place_batch(ids),
+                              bundle.placement.place_batch(mask))
+
+    with torch.inference_mode():
+        ring_hop.launches = 0
+        got = four().float().cpu().numpy()
+        launches = ring_hop.launches
+        want = served().float().cpu().numpy()
+        timing = {}
+        if not rehearsal:
+            timing = {"wall_ms_4shard": cuda_ms(four, 5), "wall_ms_served": cuda_ms(served, 5)}
+            split = profile_split(four, 3, "ring_hop", "ring_hop")
+            timing.update({f"4shard_{k}": v for k, v in split.items()})
+    if launches != (0 if rehearsal else LAYERS * shards * shards):
+        raise AssertionError(f"ring_hop launched {launches} times over one {shards}-shard "
+                             f"forward; want {LAYERS * shards * shards}")
+    worst, label_checked = check_probs(bundle, list(got), list(want), "the served forward")
+    emit("ring 4-shard", device=str(bundle.device), shards=shards, shape=[len(batch), seq],
+         s_loc=seq // shards, ring_hop_launches=launches, max_prob_err_vs_served=worst,
+         prob_tol=PROB_TOL, labels_checked=label_checked, **timing)
+    return launches
+
+
+def phase_forward_long(bundle) -> None:
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(7)
+    b, s = 8, 2048
+    ids = rng.integers(5, 261, (b, s)).astype(np.int32)
+    mask = np.ones((b, s), np.int32)
+    placement = bundle.placement
+    ids_s, mask_s = placement.place_batch(ids), placement.place_batch(mask)
+    with torch.inference_mode():
+        wall_ms = cuda_ms(lambda: bundle.forward(ids_s, mask_s), 5)
+        split = profile_split(lambda: bundle.forward(ids_s, mask_s), 3, "ring_hop", "ring_hop")
+    busy = split["device_busy_ms"]
+    emit("forward bert-long", shape=[b, s], sp=placement.n_devices, wall_ms=wall_ms,
+         busy_share=busy / wall_ms if busy else None, **split)
 
 
 def llama_waves(rehearsal: bool):
@@ -539,20 +843,7 @@ def phase_serve(rehearsal: bool, card_line: str):
     ref = []
     for wave in waves:
         ref.extend(cpu_engine.run_batch([cpu_bundle.preprocess(item) for item in wave]))
-    worst, label_checked = 0.0, 0
-    for got, want in zip(rows, ref):
-        if got.shape != want.shape or not np.isfinite(got).all():
-            raise AssertionError(f"bad logits row {got} (want shape {want.shape})")
-        pg, pw = bundle.postprocess(got), cpu_bundle.postprocess(want)
-        err = float(np.max(np.abs(np.array(pg["probs"]) - np.array(pw["probs"]))))
-        worst = max(worst, err)
-        top2 = sorted(pw["probs"])[-2:]
-        if top2[1] - top2[0] > 2 * PROB_TOL:  # a closer call may flip within tolerance
-            label_checked += 1
-            if pg["prediction"]["label_id"] != pw["prediction"]["label_id"]:
-                raise AssertionError(f"label differs from the CPU f32 run: {pg} vs {pw}")
-    if worst > PROB_TOL:
-        raise AssertionError(f"probs differ from the CPU f32 run by {worst} > {PROB_TOL}")
+    worst, label_checked = check_probs(bundle, rows, ref, "the CPU f32 run")
     lat = np.array(latencies) * 1e3
     emit(
         "serve bert-base", device=str(bundle.device), card=card_line,
@@ -895,8 +1186,9 @@ def sse_text(body: str) -> dict:
 
 
 async def http_check(cfg, bundle, engine, posts) -> list:
-    """POST each ``(path, body, read)`` over loopback through the aiohttp
-    app; ``read`` turns a 200's body text into what is collected."""
+    """POST each ``(path, body, read)`` (GET where ``body`` is None) over
+    loopback through the aiohttp app; ``read`` turns a 200's body text into
+    what is collected."""
     import aiohttp
     from aiohttp import web
 
@@ -922,7 +1214,9 @@ async def http_check(cfg, bundle, engine, posts) -> list:
             else:
                 raise AssertionError("/readyz never turned 200")
             for path, body, read in posts:
-                async with session.post(f"{url}{path}", json=body) as r:
+                request = (session.get(f"{url}{path}") if body is None
+                           else session.post(f"{url}{path}", json=body))
+                async with request as r:
                     text = await r.text()
                     if r.status != 200:
                         raise AssertionError(f"{path} answered {r.status}: {text[:400]}")
@@ -960,13 +1254,12 @@ def main(argv: list[str]) -> int:
         card_line = "cpu (rehearsal)" if rehearsal else card()
         emit(phase, card=card_line, torch=torch.__version__, cuda=torch.version.cuda,
              python=sys.version.split()[0])
-        headline = decode_headline = paged_headline = None
+        headline = decode_headline = paged_headline = ring_headline = None
         if rehearsal:
             emit("build", skipped="cpu rehearsal: no nvcc, no kernels")
-            emit("kernel fused_attention", skipped="cpu rehearsal: the plain version runs")
-            emit("kernel decode_attention", skipped="cpu rehearsal: the plain version runs")
-            emit("kernel paged_decode_attention",
-                 skipped="cpu rehearsal: the plain version runs")
+            for name in ("fused_attention", "decode_attention", "paged_decode_attention",
+                         "ring_hop"):
+                emit(f"kernel {name}", skipped="cpu rehearsal: the plain version runs")
         else:
             phase = "build"
             t0 = time.monotonic()
@@ -982,6 +1275,8 @@ def main(argv: list[str]) -> int:
             decode_headline = phase_decode_kernel()
             phase = "kernel paged_decode_attention"
             paged_headline = phase_paged_kernel()
+            phase = "kernel ring_hop"
+            ring_headline = phase_ring_kernel()
         phase = "serve bert-base"
         cfg, bundle, engine, launches = phase_serve(rehearsal, card_line)
         if rehearsal:
@@ -989,6 +1284,17 @@ def main(argv: list[str]) -> int:
         else:
             phase = "forward"
             phase_forward(bundle)
+
+        phase = "serve bert-long"
+        long_cfg, long_bundle, long_engine, long_launches, long_feats = phase_serve_long(
+            rehearsal, card_line)
+        if rehearsal:
+            emit("forward bert-long", skipped="cpu rehearsal: no card to profile")
+        else:
+            phase = "forward bert-long"
+            phase_forward_long(long_bundle)
+        phase = "ring 4-shard"
+        shard4_launches = phase_ring_4shard(long_bundle, long_engine, long_feats, rehearsal)
 
         phase = "serve llama"
         from mlmicroservicetemplate_tpu_torch.convert.jax_params import llama_params_from_jax
@@ -1043,6 +1349,13 @@ def main(argv: list[str]) -> int:
             (prediction,) = asyncio.run(http_check(
                 cfg, bundle, engine,
                 [("/predict", {"text": "hello card"}, json_key("prediction"))]))
+            long_prediction, n_devices = asyncio.run(http_check(
+                long_cfg, long_bundle, long_engine,
+                [("/predict", {"text": "a long context request " * 80}, json_key("prediction")),
+                 ("/status", None, json_key("n_devices"))]))
+            if n_devices != long_bundle.placement.n_devices:
+                raise AssertionError(f"/status n_devices {n_devices}, placement "
+                                     f"{long_bundle.placement.n_devices}")
             generated = asyncio.run(http_check(*llama_svc[:3], [
                 ("/predict", {"text": "hello card", "max_tokens": 8, "stop": ["zz"]},
                  json_key("prediction")),
@@ -1054,7 +1367,9 @@ def main(argv: list[str]) -> int:
                 ("/v1/completions", {"prompt": "hello card", "stream": True, "max_tokens": 12,
                                      "stream_options": {"include_usage": True}}, sse_text),
             ]))
-            emit(phase, status=200, prediction=prediction, llama_prediction=generated[0],
+            emit(phase, status=200, prediction=prediction,
+                 bert_long_prediction=long_prediction, bert_long_n_devices=n_devices,
+                 llama_prediction=generated[0],
                  llama_completion_usage=generated[1], llama_stream_predict=streamed[0],
                  llama_stream_completions=streamed[1])
     except Exception as e:
@@ -1065,7 +1380,7 @@ def main(argv: list[str]) -> int:
         print("chip_smoke: cpu rehearsal passed (no result line: nothing ran on a card)")
         return 0
 
-    def kernel_entry(name: str, replaces: str, launches: int, row: dict) -> dict:
+    def kernel_entry(name: str, replaces: str, launches: int, row: dict, **extra) -> dict:
         return {
             "name": name, "route": "cuda",
             "source": f"mlmicroservicetemplate_tpu_torch/csrc/{name}.cu",
@@ -1073,6 +1388,7 @@ def main(argv: list[str]) -> int:
             "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_us"] / 1e3, "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "dtype": row["dtype"], "shape": row["shape"],
+            **extra,
         }
 
     print(json.dumps({"kernels": [
@@ -1083,6 +1399,10 @@ def main(argv: list[str]) -> int:
         kernel_entry("paged_decode_attention",
                      "mlmicroservicetemplate_tpu/ops/paged_attention.py:353",
                      k3_streams, paged_headline),
+        # launches: the served bert-long path; the 4-shard check (a direct
+        # call, no serving path) is counted apart.
+        kernel_entry("ring_hop", "mlmicroservicetemplate_tpu/parallel/ring.py:58",
+                     long_launches, ring_headline, launches_4shard_check=shard4_launches),
     ]}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {

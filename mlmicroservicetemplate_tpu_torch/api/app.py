@@ -671,6 +671,8 @@ async def handle_status(request: web.Request) -> web.Response:
         "ready": app[K_READY].is_set(),
         "device": dev.type,
         "device_name": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+        # Shards of a sequence-parallel placement (bert-long), else 1.
+        "n_devices": bundle.placement.n_devices if bundle.placement is not None else 1,
         "max_batch": app[K_CFG].max_batch,
         "uptime_s": round(time.time() - app[K_STARTED_AT], 1),
         "batch_buckets": list(engine.batch_buckets),

@@ -8,7 +8,10 @@ bucket is one compiled executable; here execution is eager, and
 load, allocator growth) land before the service reports ready.
 
 - Classification: each dispatch is one ``torch.inference_mode`` forward
-  and one device-to-host copy of the logits.
+  and one device-to-host copy of the logits.  Under a sequence-parallel
+  placement (bert-long) the batch goes to the forward as sequence shards,
+  one per device of the placement, and seq buckets round up to a multiple
+  of the shard count, as in the JAX package.
 - Generation (``KIND_SEQ2SEQ``): prefill, then greedy decode in chunks of
   ``STREAM_CHUNK_TOKENS`` steps.  After each chunk the engine reads once
   from the device whether every row is done (EOS, or its ``max_tokens``
@@ -25,6 +28,7 @@ load, allocator growth) land before the service reports ready.
 from __future__ import annotations
 
 import logging
+import math
 import threading
 import time
 
@@ -38,12 +42,15 @@ from .kv_blocks import BlockPool, blocks_for, kv_token_bytes
 log = logging.getLogger(__name__)
 
 
-def bucket_for(n: int, buckets: tuple[int, ...]) -> int:
-    """Smallest bucket >= n; n itself past the largest bucket."""
+def bucket_for(n: int, buckets: tuple[int, ...], multiple: int = 1) -> int:
+    """Smallest bucket >= max(n, multiple) that is a multiple of
+    ``multiple``; past every such bucket, the larger of the largest bucket
+    and n, rounded up to the multiple."""
+    lo = max(n, multiple)
     for b in sorted(buckets):
-        if b >= n:
+        if b >= lo and b % multiple == 0:
             return b
-    return n
+    return int(math.ceil(max(buckets + (lo,)) / multiple)) * multiple
 
 
 class InferenceEngine:
@@ -55,6 +62,10 @@ class InferenceEngine:
         self.device = bundle.device
         self.batch_buckets = tuple(cfg.batch_buckets)
         self.seq_buckets = tuple(cfg.seq_buckets)
+        # Sequence-parallel placement (bert-long): batches go to the forward
+        # as sequence shards, and seq buckets round to its shard count.
+        self.placement = getattr(bundle, "placement", None)
+        self.seq_multiple = self.placement.seq_multiple() if self.placement else 1
         limit = getattr(bundle, "max_prompt_len", None) or bundle.cfg.max_position
         if max(self.seq_buckets) > limit:
             raise ValueError(
@@ -106,7 +117,7 @@ class InferenceEngine:
         n = len(feats)
         bsz = bucket_for(n, self.batch_buckets)
         max_len = max(int(f["length"]) for f in feats)
-        seq = bucket_for(max_len, self.seq_buckets)
+        seq = bucket_for(max_len, self.seq_buckets, self.seq_multiple)
         ids = np.zeros((bsz, seq), np.int32)
         mask = np.zeros((bsz, seq), np.int32)
         for i, f in enumerate(feats):
@@ -126,8 +137,12 @@ class InferenceEngine:
 
     def _forward(self, ids: np.ndarray, mask: np.ndarray) -> np.ndarray:
         with self._lock, torch.inference_mode():
-            ids_t = torch.from_numpy(ids).to(self.device, non_blocking=True)
-            mask_t = torch.from_numpy(mask).to(self.device, non_blocking=True)
+            if self.placement is not None:  # lists of sequence shards
+                ids_t = self.placement.place_batch(ids)
+                mask_t = self.placement.place_batch(mask)
+            else:
+                ids_t = torch.from_numpy(ids).to(self.device, non_blocking=True)
+                mask_t = torch.from_numpy(mask).to(self.device, non_blocking=True)
             logits = self.bundle.forward(ids_t, mask_t)
             self.dispatches += 1
             return logits.to(self.bundle.policy.output_dtype).cpu().numpy()

@@ -6,10 +6,11 @@ mapped through the same pytree layout), or a deterministic random init
 drawn on the CPU from a seeded ``torch.Generator``.  All three go through
 ``convert.jax_params`` or produce its output layout.
 
-Two kinds are served: BERT-base text classification, and llama greedy
-generation (``KIND_SEQ2SEQ``, the JAX package's kind for every generative
-model), whole or streamed through the continuous decode loop over a
-contiguous or (``PAGED_KV=1``) block-paged KV cache.
+Two kinds are served: text classification (BERT-base, and bert-long, the
+long-context BERT whose attention runs as a ring over sequence shards),
+and llama greedy generation (``KIND_SEQ2SEQ``, the JAX package's kind for
+every generative model), whole or streamed through the continuous decode
+loop over a contiguous or (``PAGED_KV=1``) block-paged KV cache.
 """
 
 from __future__ import annotations
@@ -63,6 +64,9 @@ class ModelBundle:
     # Cap on a tokenized prompt (generation keeps position-table room for
     # the decode budget).
     max_prompt_len: int | None = None
+    # Sequence-parallel placement (bert-long): the engine hands ``forward``
+    # lists of sequence shards placed by it instead of tensors.
+    placement: Any = None
 
     def preprocess(self, item: "RawItem") -> dict[str, np.ndarray]:
         if item.text is None:
@@ -108,17 +112,25 @@ class RawItem:
     stop: tuple[str, ...] = ()
 
 
-def _bert_state(svc_cfg, cfg: bert_mod.BertConfig, params) -> dict[str, torch.Tensor]:
-    from ..convert.jax_params import bert_params_from_jax
-
-    if params is not None:
-        return bert_params_from_jax(params, cfg)
-    if svc_cfg.model_path:
+def _bert_pytree(svc_cfg, cfg: bert_mod.BertConfig, params, name: str):
+    """BERT weights in the JAX package's layout: ``params`` if given, else
+    MODEL_PATH's HF state dict mapped onto it; None means random init."""
+    if params is None and svc_cfg.model_path:
         from ..convert.hf_maps import bert_state_to_pytree
 
-        state = _load_hf_state(svc_cfg.model_path, "bert-base")
-        return bert_params_from_jax(bert_state_to_pytree(state, cfg.num_layers), cfg)
-    log.info("no MODEL_PATH for bert-base: deterministic random init (seed %d)", INIT_SEED)
+        state = _load_hf_state(svc_cfg.model_path, name)
+        params = bert_state_to_pytree(state, cfg.num_layers)
+    return params
+
+
+def _bert_state(svc_cfg, cfg: bert_mod.BertConfig, params,
+                name: str = "bert-base") -> dict[str, torch.Tensor]:
+    from ..convert.jax_params import bert_params_from_jax
+
+    params = _bert_pytree(svc_cfg, cfg, params, name)
+    if params is not None:
+        return bert_params_from_jax(params, cfg)
+    log.info("no MODEL_PATH for %s: deterministic random init (seed %d)", name, INIT_SEED)
     return bert_mod.init_params(cfg, torch.Generator().manual_seed(INIT_SEED))
 
 
@@ -156,6 +168,63 @@ def _build_bert(svc_cfg, policy: DtypePolicy, device: torch.device,
         tokenizer=build_tokenizer(svc_cfg.tokenizer_path),
         labels=load_labels(svc_cfg.labels_path),
         forward=forward,
+    )
+
+
+def _build_bert_long(svc_cfg, policy: DtypePolicy, device: torch.device,
+                     params=None) -> ModelBundle:
+    """Long-context BERT classifier served with ring attention.
+
+    The sequence axis shards over ``SP`` devices (``parallel.SeqParallelSet``;
+    0 = every visible card, one shard on the CPU) and every encoder layer's
+    attention runs as a ring across the shards (``parallel.ring_attention``,
+    kernel K4 on the card at every hop).  The position table covers the
+    largest seq bucket (at least 512 rows); every seq bucket must divide by
+    the shard count."""
+    from ..parallel import SeqParallelSet, make_sp_devices
+
+    placement = SeqParallelSet(make_sp_devices(device.type, svc_cfg.sp))
+    width = placement.seq_multiple()
+    bad = [s for s in svc_cfg.seq_buckets if s % width]
+    if bad:
+        raise ValueError(f"SEQ_BUCKETS {bad} not divisible by sp mesh width {width}")
+    max_pos = max(max(svc_cfg.seq_buckets), 512)
+    cfg = bert_mod.BertConfig(max_position=max_pos)
+    params = _bert_pytree(svc_cfg, cfg, params, "bert-long")
+    if params is not None:
+        # The position table must cover the long buckets: an embedding
+        # lookup past it would fail at the first long request (the JAX
+        # package's jnp.take would clamp it and serve wrong logits), so fail
+        # at startup instead.
+        pos_rows = int(np.shape(params["embeddings"]["position"]["embedding"])[0])
+        if pos_rows < max_pos:
+            raise ValueError(
+                f"bert-long needs a position-embedding table with >= {max_pos} rows for "
+                f"SEQ_BUCKETS={svc_cfg.seq_buckets}, but the loaded checkpoint has "
+                f"{pos_rows}; extend the table (e.g. interpolate) or lower the buckets"
+            )
+        cfg = dataclasses.replace(cfg, max_position=pos_rows)
+    state = _bert_state(svc_cfg, cfg, params, "bert-long")
+    replicas = placement.place_params(
+        lambda dev: bert_mod.build_model(cfg, state, dev, policy.param_dtype))
+
+    def forward(input_ids: list[torch.Tensor], attention_mask: list[torch.Tensor]):
+        # Sequence shards in, logits [B, num_labels] f32 on the first
+        # shard's device out; ring_hop runs the kernel on the card.
+        return bert_mod.classify_seq_parallel(replicas, input_ids, attention_mask,
+                                              dtype=policy.compute_dtype)
+
+    return ModelBundle(
+        name="bert-long",
+        kind=KIND_TEXT,
+        cfg=cfg,
+        model=replicas[0],
+        device=placement.devices[0],
+        policy=policy,
+        tokenizer=build_tokenizer(svc_cfg.tokenizer_path),
+        labels=load_labels(svc_cfg.labels_path),
+        forward=forward,
+        placement=placement,
     )
 
 
@@ -268,11 +337,12 @@ def _build_llama(svc_cfg, policy: DtypePolicy, device: torch.device,
 MODEL_REGISTRY: dict[str, Callable] = {
     "bert-base": _build_bert,
     "bert-base-uncased": _build_bert,
+    "bert-long": _build_bert_long,
     "llama": _build_llama,
     "tinyllama": _build_llama,
 }
 # Served by the JAX package, not by this port yet.
-NOT_PORTED = ("resnet50", "resnet-50", "bert-long", "t5-small", "t5small", "gpt2")
+NOT_PORTED = ("resnet50", "resnet-50", "t5-small", "t5small", "gpt2")
 
 
 def build_model(svc_cfg, policy: DtypePolicy | None = None, params=None) -> ModelBundle:

@@ -5,6 +5,8 @@ Boots from env vars with optional CLI overrides, e.g.::
     python -m mlmicroservicetemplate_tpu_torch.serve --device cuda --model bert-base
     QUANT_KV=int8 python -m mlmicroservicetemplate_tpu_torch.serve --model llama
     PAGED_KV=1 python -m mlmicroservicetemplate_tpu_torch.serve --model llama
+    SP=1 SEQ_BUCKETS=512,1024,2048 python -m mlmicroservicetemplate_tpu_torch.serve \
+        --model bert-long
     DEVICE=cpu MODEL_NAME=bert-base python -m mlmicroservicetemplate_tpu_torch.serve
 
 ``build_service`` assembles everything but the HTTP layer, so it needs no
@@ -24,7 +26,8 @@ import sys
 
 def parse_args(argv: list[str] | None = None) -> dict:
     p = argparse.ArgumentParser(description="PyTorch/CUDA inference microservice")
-    p.add_argument("--model", dest="MODEL_NAME", help="bert-base | llama (alias tinyllama)")
+    p.add_argument("--model", dest="MODEL_NAME",
+                   help="bert-base | bert-long | llama (alias tinyllama)")
     p.add_argument("--device", dest="DEVICE", help="cuda | cpu")
     p.add_argument("--host", dest="HOST")
     p.add_argument("--port", dest="PORT")
@@ -44,8 +47,8 @@ def build_service(overrides: dict | None = None, params=None):
     """Assemble (cfg, bundle, engine, batcher) without running anything.
 
     ``params``: optional param pytree in the JAX package's layout (numpy
-    leaves) of the named model (BERT-base or llama), served in place of
-    MODEL_PATH or random init."""
+    leaves) of the named model (BERT-base, bert-long or llama), served in
+    place of MODEL_PATH or random init."""
     from .utils.config import load_config
 
     cfg = load_config(overrides)

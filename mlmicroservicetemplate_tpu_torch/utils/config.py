@@ -1,8 +1,8 @@
 """Env-var driven service configuration (12-factor), as a stdlib dataclass.
 
-Holds the fields the BERT-base and llama paths read, under the same
-environment names as the JAX package's ``ServiceConfig``.  ``DEVICE`` is
-``cuda|cpu`` and defaults to ``cuda``.
+Holds the fields the BERT-base, bert-long and llama paths read, under the
+same environment names as the JAX package's ``ServiceConfig``.  ``DEVICE``
+is ``cuda|cpu`` and defaults to ``cuda``.
 """
 
 from __future__ import annotations
@@ -68,6 +68,10 @@ class ServiceConfig:
     # caches.  Seq buckets round up to the block grid.
     paged_kv: bool = False
     kv_block_size: int = 16
+    # Sequence-parallel width for bert-long: the sequence axis shards over
+    # this many devices and attention runs as a ring (parallel/ring.py).
+    # 0 = every visible card (one shard on the CPU).
+    sp: int = 0
 
     def __post_init__(self) -> None:
         dev = self.device.lower()
@@ -98,6 +102,8 @@ class ServiceConfig:
             raise ValueError("MAX_STREAMS must be >= 1")
         if not 1 <= self.kv_block_size <= 1024:
             raise ValueError("KV_BLOCK_SIZE must be in [1, 1024]")
+        if self.sp < 0:
+            raise ValueError(f"SP must be >= 0, got {self.sp}")
         object.__setattr__(self, "seq_buckets", _align_paged_seq_buckets(self))
 
 
@@ -137,6 +143,9 @@ UNPORTED_KNOBS = {
     "FLEET_REPLICAS": ("0", "1"),
     "SPEC_CONTINUOUS": ("0", "false", "no"),
     "JOURNAL_DIR": (),
+    # Data-parallel replicas over several cards (ReplicaSet) and bert-long's
+    # 2-D ('replica', 'sp') mesh.
+    "REPLICAS": ("0", "1"),
 }
 
 
@@ -148,7 +157,7 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
     HOST, PORT, MAX_BATCH, BATCH_TIMEOUT_MS, MAX_QUEUE, BATCH_BUCKETS,
     SEQ_BUCKETS, WARMUP, LOG_LEVEL, TRACE, MAX_DECODE_LEN,
     STREAM_CHUNK_TOKENS, QUANT_KV, LLAMA_CONFIG, MAX_STREAMS, PAGED_KV,
-    KV_BLOCK_SIZE.  Any of ``UNPORTED_KNOBS`` set to a value that turns it
+    KV_BLOCK_SIZE, SP.  Any of ``UNPORTED_KNOBS`` set to a value that turns it
     on raises, as does ``CONTINUOUS_BATCHING=0`` (the per-stream decode
     workers are not ported)."""
     e = dict(os.environ)
@@ -184,7 +193,8 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
     for field, var in (("port", "PORT"), ("max_batch", "MAX_BATCH"),
                        ("max_queue", "MAX_QUEUE"), ("max_decode_len", "MAX_DECODE_LEN"),
                        ("stream_chunk_tokens", "STREAM_CHUNK_TOKENS"),
-                       ("max_streams", "MAX_STREAMS"), ("kv_block_size", "KV_BLOCK_SIZE")):
+                       ("max_streams", "MAX_STREAMS"), ("kv_block_size", "KV_BLOCK_SIZE"),
+                       ("sp", "SP")):
         v = get(var)
         if v is not None:
             kwargs[field] = int(v)

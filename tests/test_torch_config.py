@@ -133,3 +133,33 @@ def test_loop_knobs_and_paged_bucket_alignment_match_jax(buckets, paged):
     port, ref = load_config(env), jax_load_config(env)
     for field in ("seq_buckets", "paged_kv", "kv_block_size", "max_streams"):
         assert getattr(port, field) == getattr(ref, field), field
+
+
+@pytest.mark.parametrize("value,ok", [("2", False), ("8", False), ("1", True), ("0", True)])
+def test_replicas_raises_unless_off(value, ok):
+    """The port serves on one device: REPLICAS past 1 (data-parallel
+    replicas) raises instead of being silently ignored."""
+    env = {"DEVICE": "cpu", "REPLICAS": value}
+    if ok:
+        assert load_config(env).device == "cpu"
+    else:
+        with pytest.raises(ValueError, match="REPLICAS: not ported"):
+            load_config(env)
+
+
+@pytest.mark.parametrize("sp", ["0", "4", "8"])
+def test_sp_reads_the_jax_package_env_name(sp):
+    env = {"DEVICE": "cpu", "SP": sp}
+    assert load_config(env).sp == jax_load_config(env).sp == int(sp)
+
+
+def test_negative_sp_is_rejected():
+    with pytest.raises(ValueError, match="SP"):
+        load_config({"DEVICE": "cpu", "SP": "-1"})
+
+
+@pytest.mark.parametrize("n", [1, 7, 8, 17, 33, 64, 65, 200])
+@pytest.mark.parametrize("multiple", [1, 2, 8])
+def test_bucket_for_with_a_multiple_matches_jax(n, multiple):
+    for buckets in ((32, 64), (32, 36), (16, 24, 40)):
+        assert bucket_for(n, buckets, multiple) == jax_bucket_for(n, buckets, multiple)

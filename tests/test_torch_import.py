@@ -1,7 +1,7 @@
 """Import discipline of the PyTorch port: importing it pulls in neither
 jax nor the JAX package (the way tests/test_no_torch.py pins the
 reverse), no module of it or chip_smoke.py imports either, and importing
-the attention op neither builds nor loads the CUDA library."""
+the attention op or the ring neither builds nor loads the CUDA library."""
 
 import ast
 import pathlib
@@ -73,6 +73,32 @@ def test_importing_attention_op_builds_nothing():
         "attention.fused_attention(q, q, q, torch.ones(1, 32, dtype=torch.int32))\n"
         "assert 'mlmicroservicetemplate_tpu_torch.ops._build' not in sys.modules\n"
         "assert attention.fused_attention.launches == 0\n"
+        "print('OK')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", check], capture_output=True, text=True, cwd=REPO, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "OK" in out.stdout
+
+
+def test_port_modules_cover_the_parallel_package():
+    mods = _port_modules()
+    for name in ("parallel", "parallel.mesh", "parallel.ring"):
+        assert f"mlmicroservicetemplate_tpu_torch.{name}" in mods, name
+
+
+def test_ring_on_the_cpu_builds_nothing():
+    """A CPU ring (the plain hop) neither imports the build module nor
+    counts a launch."""
+    check = (
+        "import sys, torch\n"
+        "from mlmicroservicetemplate_tpu_torch.parallel import ring\n"
+        "q = torch.zeros(1, 8, 1, 64)\n"
+        "m = torch.ones(1, 8, dtype=torch.int32)\n"
+        "ring.ring_attention(q.chunk(2, 1), q.chunk(2, 1), q.chunk(2, 1), m.chunk(2, 1))\n"
+        "assert 'mlmicroservicetemplate_tpu_torch.ops._build' not in sys.modules\n"
+        "assert ring.ring_hop.launches == 0\n"
         "print('OK')\n"
     )
     out = subprocess.run(
