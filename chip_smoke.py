@@ -9,10 +9,15 @@ result line:
 
 1. env: the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions.
-2. build: nvcc builds every ``csrc/*.cu`` of the package (in parallel).
+2. build: nvcc builds every ``csrc/*.cu`` of the package (in parallel);
+   ptxas's registers and spills per kernel and the SASS HGMMA count per
+   library are printed, and K1's and K4's (the shared wgmma loop of
+   ``csrc/attention_sm90.cuh``) must be > 0.
 3. kernel fused_attention: the CUDA kernel against its plain PyTorch
    version on the card, bf16 and f32, at the serving shapes, with a padded
-   row, an all-masked row and a bias + scale=1.0 case; CUDA-event times of
+   row, an all-masked row, ragged valid prefixes, masks with whole 128-key
+   tiles masked between valid keys, and bias + scale=1.0 cases (the
+   headline keeps its original inputs); CUDA-event times of
    the kernel, the plain version and ``scaled_dot_product_attention`` (a
    yardstick only; the port never calls it) beside the kernel's bound.
 4. kernel decode_attention: the same for the decode kernel, dense bf16,
@@ -27,7 +32,10 @@ result line:
 4c. kernel ring_hop: the ring-hop kernel (K4) against its plain version,
    bf16 and f32, B in {1, 8}, S_loc in {96, 512, 2048}, H=12, D=64, from a
    fresh carried state and a mid-ring one; a padded row and (B > 1) a row
-   with no valid key in the block; o, m and l checked; the yardstick is
+   with no valid key in the block; o, m and l checked; then
+   ``RING_EXTRA_CASES``: the ``fresh`` and ``out`` arguments (the SP=1 hop,
+   a ring's first and last), ragged and interior masks, and a carried m of
+   exactly -1e9 over a block row with no valid key; the yardstick is
    ``scaled_dot_product_attention`` over the same block (the hop's work
    without the carried merge).
 5. serve bert-base: the full-width service through ``Batcher.submit`` in
@@ -75,7 +83,8 @@ result line:
    over loopback through the aiohttp app (skipped, and said so, where
    aiohttp is missing).
 
-The last lines are the kernels summary, the card's name and power limit,
+The last lines are the kernels summary (K1's and K4's with the headline's
+TFLOP/s, K4's also with the SP=1 hop's time), the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.  ``--cpu-rehearsal`` skips the build
 and kernel phases, serves BERT-base, bert-long (SP=2, SEQ_BUCKETS=64,128)
 and a 2-layer llama (``LLAMA_CONFIG``), whole and streamed, on the CPU at
@@ -129,6 +138,14 @@ REHEARSAL_LLAMA = dict(vocab_size=512, d_model=256, num_heads=4, num_kv_heads=2,
 TF_FACTOR, TF_FLOOR = 3.0, 1e-4
 # cuBLAS / CUTLASS matrix-product kernels, by name
 GEMM_KERNEL = re.compile(r"gemm|nvjet|xmma|cutlass", re.IGNORECASE)
+# Libraries built on the shared wgmma loop (csrc/attention_sm90.cuh), and
+# the names of K1's and K4's kernels in a profile (the loop's kernel
+# carries its Op in its name; the f32 kernels carry the library's).
+WGMMA_LIBRARIES = ("fused_attention", "ring_hop")
+K1_KERNEL, K4_KERNEL = r"fused_attention|EncoderOp", r"ring_hop|HopOp"
+# Valid prefix of batch row i, in thousandths of S, for the "ragged" masks
+# (at S = 2048: 700, 2, 2045, 129, 1024, 1802, 63, 2048 keys).
+RAGGED = (342, 1, 999, 63, 500, 880, 31, 1000)
 
 
 def emit(phase: str, **kw) -> None:
@@ -175,6 +192,95 @@ def attention_bound(b: int, s: int, dtype, bias) -> tuple[float, str]:
     return bound(nbytes, 4 * b * HEADS * s * s * HEAD_DIM, str(dtype).split(".")[-1])
 
 
+def rates(mask, ms: float) -> dict:
+    """K1's and K4's tensor-core rate in TFLOP/s: ``tflops`` counts q·k and
+    p·v over each batch row's valid keys (what the bounds count, and the
+    least the kernels do, since they skip only tiles with no valid key);
+    ``tflops_every_key`` counts every key, as a dense attention would."""
+    b, s = mask.shape
+    per_key = 4 * HEADS * s * HEAD_DIM
+    return {"tflops": per_key * int(mask.ne(0).sum()) / ms / 1e9,
+            "tflops_every_key": per_key * b * s / ms / 1e9}
+
+
+def ptxas_report(log: str) -> list[dict]:
+    """Per kernel of a library, what ptxas reported: registers and barriers,
+    and the stack frame with its spill stores and loads."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = {"kernel": m.group(1)[:72]}
+            out.append(cur)
+        elif cur is not None and "spill" in line:
+            cur["frame"] = line.strip()
+        elif cur is not None and "Used" in line:
+            cur["used"] = line.split(":", 1)[-1].strip()
+    return out
+
+
+def hgmma_count(path) -> int:
+    """wgmma instructions (SASS HGMMA) in a built library."""
+    import shutil
+    from pathlib import Path
+
+    tool = shutil.which("cuobjdump") or str(Path(_nvcc_dir()) / "cuobjdump")
+    sass = subprocess.run([tool, "--dump-sass", str(path)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    return sum("HGMMA" in line for line in sass.splitlines())
+
+
+def _nvcc_dir() -> str:
+    from pathlib import Path
+
+    from mlmicroservicetemplate_tpu_torch.ops._build import nvcc
+
+    return str(Path(nvcc()).parent)
+
+
+def phase_build() -> None:
+    """nvcc builds every kernel source; ptxas's report per kernel and the
+    HGMMA count per library are printed, and K1's and K4's libraries (the
+    shared wgmma loop) must hold HGMMA instructions."""
+    from mlmicroservicetemplate_tpu_torch.ops import _build
+
+    t0 = time.monotonic()
+    built = _build.build()
+    libraries = []
+    for b in built:
+        libraries.append({"name": b.name, "seconds": b.seconds, "hgmma": hgmma_count(b.path),
+                          "ptxas": ptxas_report(b.log),
+                          "warnings": sorted({ln.strip()[:240] for ln in b.log.splitlines()
+                                              if "warning" in ln.lower()})})
+    emit("build", seconds=time.monotonic() - t0, libraries=libraries)
+    for lib in libraries:
+        if lib["name"] in WGMMA_LIBRARIES and lib["hgmma"] == 0:
+            raise AssertionError(f"{lib['name']}: no HGMMA instruction in the built library")
+
+
+def k1_mask(b: int, s: int, layout: str):
+    """K1's key mask on the card.  pad: row 1 padded from a third of S, row
+    2 without a valid key (B > 2).  ragged: every row's valid prefix ends at
+    another place, most inside a 128-key tile.  interior: rows whose valid
+    keys leave whole 128-key tiles masked between them (and a row valid
+    only in its last tile)."""
+    import torch
+
+    mask = torch.ones(b, s, dtype=torch.int32, device="cuda")
+    if layout == "pad" and b > 2:
+        mask[1, s // 3:] = 0  # a padded row
+        mask[2, :] = 0  # an all-masked row, as a padded batch row is
+    elif layout == "ragged":
+        for i in range(b):
+            mask[i, max(1, s * RAGGED[i % len(RAGGED)] // 1000):] = 0
+    elif layout == "interior":
+        mask[0, 100:s - s // 3] = 0
+        mask[1, : s - 50] = 0
+        mask[2, 130:] = 0
+        mask[2, s - 7:] = 1
+    return mask
+
+
 def phase_kernel() -> dict:
     import torch
     import torch.nn.functional as F
@@ -186,18 +292,17 @@ def phase_kernel() -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     headline = None
-    cases = [(b, s, False) for b, s in ((1, 32), (8, 128), (32, 512))] + [(8, 128, True)]
+    cases = [(b, s, False, "pad") for b, s in ((1, 32), (8, 128), (32, 512))] + [
+        (8, 128, True, "pad"), (8, 512, False, "ragged"), (8, 512, False, "interior"),
+        (8, 512, True, "interior")]
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[-1]
-        for b, s, with_bias in cases:
+        for b, s, with_bias, layout in cases:
             q, k, v = (
                 torch.randn(b, s, HEADS, HEAD_DIM, device="cuda", generator=gen).to(dtype)
                 for _ in range(3)
             )
-            mask = torch.ones(b, s, dtype=torch.int32, device="cuda")
-            if b > 2:
-                mask[1, s // 3:] = 0  # a padded row
-                mask[2, :] = 0  # an all-masked row, as a padded batch row is
+            mask = k1_mask(b, s, layout)
             bias = scale = None
             if with_bias:
                 bias = torch.randn(1, HEADS, s, s, device="cuda", generator=gen).to(dtype)
@@ -214,7 +319,7 @@ def phase_kernel() -> dict:
             ok = bool(torch.isfinite(out).all()) and bool(
                 (diff <= tol + tol * ref.abs()).all()
             )
-            if b > 2:  # the all-masked row is the plain mean of v
+            if b > 2 and layout == "pad":  # the all-masked row is the plain mean of v
                 uniform = v[2].float().mean(0, keepdim=True).expand(s, -1, -1)
                 ok = ok and bool(((out[2].float() - uniform).abs() <= tol * 4).all())
             iters = 20 if s >= 512 else 100
@@ -230,15 +335,16 @@ def phase_kernel() -> dict:
             )
             bound_ms, bound_by = attention_bound(b, s, dtype, bias)
             row = dict(
-                dtype=name, shape=[b, s, HEADS, HEAD_DIM], bias=with_bias,
+                dtype=name, shape=[b, s, HEADS, HEAD_DIM], bias=with_bias, mask=layout,
                 max_abs_err=max_err, tol=f"atol=rtol={tol}", ok=ok,
                 kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_us=bound_ms * 1e3, bound_by=bound_by,
+                **rates(mask, kernel_ms),
             )
             emit("kernel fused_attention", **row)
             if not ok:
                 raise AssertionError(f"fused_attention disagrees with its plain version: {row}")
-            if name == "bfloat16" and (b, s, with_bias) == (32, 512, False):
+            if name == "bfloat16" and (b, s, with_bias, layout) == (32, 512, False, "pad"):
                 headline = row
     return headline
 
@@ -460,19 +566,24 @@ def phase_paged_kernel() -> dict:
     return headline
 
 
-def ring_hop_case(gen, dtype, b: int, s: int, state: str):
+def ring_hop_case(gen, dtype, b: int, s: int, state: str, layout: str = "pad"):
     """Ring-hop inputs on the card: q, k, v [B, S, H, D] in ``dtype``, a
-    mask with row 0 padded from a third of S and, for B > 1, row 1 without
-    a valid key, and a carried (o, m, l): fresh (0, -inf, 0) or mid-ring
-    (random o, finite m, positive l)."""
+    key mask (``k1_mask``'s layouts; pad: row 0 padded from a third of S
+    and, for B > 1, row 1 without a valid key), and a carried (o, m, l):
+    fresh (0, -inf, 0), mid-ring (random o, finite m, positive l) or
+    masked_mid (mid-ring, with m exactly -1e9 on batch row 1, whose block
+    holds no valid key: the state after an earlier all-masked block)."""
     import torch
 
     q, k, v = (torch.randn(b, s, HEADS, HEAD_DIM, device="cuda", generator=gen).to(dtype)
                for _ in range(3))
-    mask = torch.ones(b, s, dtype=torch.int32, device="cuda")
-    mask[0, s // 3:] = 0
-    if b > 1:
-        mask[1] = 0
+    if layout == "pad":
+        mask = torch.ones(b, s, dtype=torch.int32, device="cuda")
+        mask[0, s // 3:] = 0
+        if b > 1:
+            mask[1] = 0
+    else:
+        mask = k1_mask(b, s, layout)
     if state == "fresh":
         o = torch.zeros(b, HEADS, s, HEAD_DIM, device="cuda")
         m = torch.full((b, HEADS, s), float("-inf"), device="cuda")
@@ -481,34 +592,67 @@ def ring_hop_case(gen, dtype, b: int, s: int, state: str):
         o = torch.randn(b, HEADS, s, HEAD_DIM, device="cuda", generator=gen)
         m = torch.randn(b, HEADS, s, device="cuda", generator=gen)
         l = torch.rand(b, HEADS, s, device="cuda", generator=gen) + 0.5
+        if state == "masked_mid":
+            m[1] = -1e9
     return q, k, v, mask, o, m, l
 
 
-def ring_hop_bound(mask, state: str, dtype) -> tuple[float, str]:
+def ring_hop_bound(mask, state: str, dtype, fresh: bool = False,
+                   final: bool = False) -> tuple[float, str]:
     """K4, counting what this mask needs.  Once a row has a valid key, a
     masked key weighs exp(-1e9 - m) = 0 exactly in f32, so a batch row with
     n valid keys needs q, the n keys' k and v, the mask, the carried o, m
-    and l read and written (f32), and 4·H·S·n·D operations (q·k and p·v).
-    A batch row with no valid key from a fresh state makes every query row
-    the block's plain sum of v (l = S, m = -1e9): v read, o, m and l
-    written, H·S·D additions; from a mid-ring state exp(-1e9 - m) = 0 and
-    the carried state stands, with nothing to move."""
+    and l read (unless ``fresh``) and written (or, ``final``, the output
+    o / l written in q's type), and 4·H·S·n·D operations (q·k and p·v).
+    A batch row with no valid key from m = -inf (a fresh state) makes every
+    query row the block's plain sum of v: v read, the result written, H·S·D
+    additions; from m = -1e9 (masked_mid) o + Σv and l + S: v and the state
+    read, the result written; from a finite m exp(-1e9 - m) = 0 and the
+    state stands: nothing to move, or, final, o / l of the state."""
     b, s = mask.shape
     el = 2 if str(dtype).endswith("bfloat16") else 4
-    block = s * HEADS * HEAD_DIM  # elements of one batch row's q, k or v
+    block = s * HEADS * HEAD_DIM  # elements of one batch row's q, k, v or output
     carried = HEADS * s * (HEAD_DIM + 2) * 4  # one batch row's o, m, l in f32
+    written = block * el if final else carried
     nbytes, ops = mask.numel() * mask.element_size(), 0
     for n in mask.ne(0).sum(dim=1).tolist():
         if n:
-            nbytes += block * el + 2 * n * HEADS * HEAD_DIM * el + 2 * carried
+            nbytes += block * el + 2 * n * HEADS * HEAD_DIM * el + written
+            nbytes += 0 if fresh else carried
             ops += 4 * HEADS * s * n * HEAD_DIM
-        elif state == "fresh":
-            nbytes += block * el + carried
+        elif fresh or state == "fresh":
+            nbytes += block * el + written
+            ops += block
+        elif state == "masked_mid":
+            nbytes += block * el + carried + written
+            ops += 2 * block
+        elif final:
+            nbytes += carried + written
             ops += block
     return bound(nbytes, ops, str(dtype).split(".")[-1])
 
 
-def phase_ring_kernel() -> dict:
+# K4's cases beyond the base grid (dtype x B in {1, 8} x S_loc in {96, 512,
+# 2048} x fresh / mid, flags off): (S_loc, state, mask layout, fresh flag,
+# out), at B = 8.  fresh + out is the SP=1 hop every bert-long layer runs;
+# fresh alone and out alone are a multi-shard ring's first and last hops.
+RING_EXTRA_CASES = (
+    (2048, "fresh", "pad", True, True),
+    (96, "fresh", "pad", True, True),
+    (512, "fresh", "pad", True, False),
+    (512, "mid", "pad", False, True),
+    (2048, "fresh", "ragged", False, False),
+    (2048, "mid", "interior", False, False),
+    (512, "fresh", "interior", True, True),
+    (2048, "masked_mid", "pad", False, False),
+    (96, "masked_mid", "pad", False, True),
+)
+
+
+def phase_ring_kernel() -> tuple[dict, dict]:
+    """K4 against its plain version; returns the headline row (bf16, B=8,
+    S_loc=2048, from a fresh carried state, flags off: the original call) and the
+    SP=1 serving hop's row (the same inputs, fresh and final)."""
     import torch
     import torch.nn.functional as F
 
@@ -516,58 +660,84 @@ def phase_ring_kernel() -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(5)
     scale = 1.0 / HEAD_DIM ** 0.5
-    headline = None
+    headline = serving = None
+    grid = [(b, s, state, "pad", False, False)
+            for b in (1, 8) for s in (96, 512, 2048) for state in ("fresh", "mid")]
+    grid += [(8, *case) for case in RING_EXTRA_CASES]
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[-1]
         tol, ctx_tol = KERNEL_TOL[name], RING_CTX_TOL[name]
-        for b in (1, 8):
-            for s in (96, 512, 2048):
-                for state in ("fresh", "mid"):
-                    q, k, v, mask, o, m, l = ring_hop_case(gen, dtype, b, s, state)
-                    got = ring_hop(q, k, v, mask, o.clone(), m.clone(), l.clone(), scale)
-                    torch.cuda.synchronize()
-                    want = ring_hop_ref(q.float(), k.float(), v.float(), mask, o, m, l, scale)
-                    ok = all(bool(torch.isfinite(g).all()) for g in got)
-                    errs = {part: (g - w).abs().max().item() for part, g, w in zip("oml", got, want)}
-                    # m and l against the reference; o, the unnormalised sum
-                    # of up to S_loc terms of p·v, through o / l: the ring's
-                    # output and the scale its bf16 error lives on.
-                    for g, w in zip(got[1:], want[1:]):
-                        ok = ok and bool(((g - w).abs() <= tol + tol * w.abs()).all())
-                    ctx, ctx_want = (x[0] / x[2][..., None] for x in (got, want))
-                    ctx_err = (ctx - ctx_want).abs()
-                    ok = ok and bool((ctx_err <= ctx_tol + ctx_tol * ctx_want.abs()).all())
-                    if b > 1 and state == "fresh":  # no valid key: o / l is the plain mean of v
-                        mean = v[1].float().mean(0)[:, None, :]  # [H, 1, D]
-                        # p = 1 exactly for every key, so only f32 summation
-                        # order separates the two: held to the mean's own scale.
-                        ok = ok and bool(
-                            ((ctx[1] - mean).abs() <= ctx_tol * mean.abs().max()).all())
-                    iters = 20 if s >= 2048 else 50
-                    bufs = [x.clone() for x in (o, m, l)]
-                    kernel_ms = cuda_ms(lambda: ring_hop(q, k, v, mask, *bufs, scale), iters)
-                    plain_ms = cuda_ms(lambda: ring_hop_ref(q, k, v, mask, o, m, l, scale), iters)
-                    add = torch.where(mask[:, None, None, :] != 0, 0.0, -1e9).to(dtype)
-                    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-                    library_ms = cuda_ms(
-                        lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=add), iters)
-                    bound_ms, bound_by = ring_hop_bound(mask, state, dtype)
-                    err_ctx = ctx_err.max().item()
-                    row = dict(
-                        dtype=name, shape=[b, s, HEADS, HEAD_DIM], state=state,
-                        max_abs_err=max(err_ctx, errs["m"], errs["l"]), err_o=errs["o"],
-                        err_m=errs["m"], err_l=errs["l"], err_o_over_l=err_ctx,
-                        tol=f"m, l: atol=rtol={tol}; o / l: atol=rtol={ctx_tol}", ok=ok,
-                        kernel_ms=kernel_ms,
-                        plain_ms=plain_ms, library_ms=library_ms, bound_us=bound_ms * 1e3,
-                        bound_by=bound_by,
-                    )
-                    emit("kernel ring_hop", **row)
-                    if not ok:
-                        raise AssertionError(f"ring_hop disagrees with its plain version: {row}")
-                    if (name, b, s, state) == ("bfloat16", 8, 2048, "fresh"):
-                        headline = row
-    return headline
+        for b, s, state, layout, fresh, final in grid:
+            q, k, v, mask, o, m, l = ring_hop_case(gen, dtype, b, s, state, layout)
+            out = torch.empty(q.shape, dtype=dtype, device="cuda") if final else None
+            # fresh: the kernel must not read the state, so it is handed junk
+            junk = [torch.full_like(x, float("nan")) for x in (o, m, l)] if fresh else None
+            got = ring_hop(q, k, v, mask, *(junk or (x.clone() for x in (o, m, l))), scale,
+                           fresh=fresh, out=out)
+            torch.cuda.synchronize()
+            want = ring_hop_ref(q.float(), k.float(), v.float(), mask, o, m, l, scale,
+                                fresh=fresh, out=torch.empty(q.shape, device="cuda")
+                                if final else None)
+            if final:  # the normalised context in q's type
+                ok = bool(torch.isfinite(got).all())
+                ctx, ctx_want = got.float().transpose(1, 2), want.transpose(1, 2)
+                errs = {}
+            else:
+                ok = all(bool(torch.isfinite(g).all()) for g in got)
+                errs = {part: (g - w).abs().max().item()
+                        for part, g, w in zip("oml", got, want)}
+                # m and l against the reference; o, the unnormalised sum
+                # of up to S_loc terms of p·v, through o / l: the ring's
+                # output and the scale its bf16 error lives on.
+                for g, w in zip(got[1:], want[1:]):
+                    ok = ok and bool(((g - w).abs() <= tol + tol * w.abs()).all())
+                ctx, ctx_want = (x[0] / x[2][..., None] for x in (got, want))
+            ctx_err = (ctx - ctx_want).abs()
+            ok = ok and bool((ctx_err <= ctx_tol + ctx_tol * ctx_want.abs()).all())
+            if b > 1 and layout == "pad" and state == "fresh":
+                # no valid key: o / l is the plain mean of v.  p = 1 exactly
+                # for every key, so only f32 summation order (and, final,
+                # the output's rounding) separates the two: held to the
+                # mean's own scale.
+                mean = v[1].float().mean(0)[:, None, :]  # [H, 1, D]
+                ok = ok and bool(((ctx[1] - mean).abs() <= ctx_tol * mean.abs().max()).all())
+            if state == "masked_mid" and not final:  # from m = -1e9: m stays -1e9
+                ok = ok and bool((got[1][1] == -1e9).all())
+            iters = 20 if s >= 2048 else 50
+            bufs = [x.clone() for x in (o, m, l)]
+            kernel_ms = cuda_ms(
+                lambda: ring_hop(q, k, v, mask, *bufs, scale, fresh=fresh, out=out), iters)
+            plain_ms = cuda_ms(
+                lambda: ring_hop_ref(q, k, v, mask, o, m, l, scale, fresh=fresh,
+                                     out=torch.empty_like(q) if final else None), iters)
+            add = torch.where(mask[:, None, None, :] != 0, 0.0, -1e9).to(dtype)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            library_ms = cuda_ms(
+                lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=add), iters)
+            bound_ms, bound_by = ring_hop_bound(mask, state, dtype, fresh, final)
+            err_ctx = ctx_err.max().item()
+            row = dict(
+                dtype=name, shape=[b, s, HEADS, HEAD_DIM], state=state, mask=layout,
+                fresh=fresh, final=final,
+                max_abs_err=max(err_ctx, errs.get("m", 0.0), errs.get("l", 0.0)),
+                err_o=errs.get("o"), err_m=errs.get("m"), err_l=errs.get("l"),
+                err_o_over_l=err_ctx,
+                tol=f"m, l: atol=rtol={tol}; o / l: atol=rtol={ctx_tol}", ok=ok,
+                kernel_ms=kernel_ms,
+                plain_ms=plain_ms, library_ms=library_ms, bound_us=bound_ms * 1e3,
+                bound_by=bound_by,
+                **rates(mask, kernel_ms),
+            )
+            emit("kernel ring_hop", **row)
+            if not ok:
+                raise AssertionError(f"ring_hop disagrees with its plain version: {row}")
+            key = (name, b, s, state, layout)
+            if key == ("bfloat16", 8, 2048, "fresh", "pad"):
+                if not fresh and not final:
+                    headline = row
+                elif fresh and final:
+                    serving = row
+    return headline, serving
 
 
 def make_waves(rehearsal: bool):
@@ -731,7 +901,7 @@ def phase_ring_4shard(bundle, engine, feats, rehearsal: bool) -> int:
         timing = {}
         if not rehearsal:
             timing = {"wall_ms_4shard": cuda_ms(four, 5), "wall_ms_served": cuda_ms(served, 5)}
-            split = profile_split(four, 3, "ring_hop", "ring_hop")
+            split = profile_split(four, 3, K4_KERNEL, "ring_hop")
             timing.update({f"4shard_{k}": v for k, v in split.items()})
     if launches != (0 if rehearsal else LAYERS * shards * shards):
         raise AssertionError(f"ring_hop launched {launches} times over one {shards}-shard "
@@ -755,7 +925,7 @@ def phase_forward_long(bundle) -> None:
     ids_s, mask_s = placement.place_batch(ids), placement.place_batch(mask)
     with torch.inference_mode():
         wall_ms = cuda_ms(lambda: bundle.forward(ids_s, mask_s), 5)
-        split = profile_split(lambda: bundle.forward(ids_s, mask_s), 3, "ring_hop", "ring_hop")
+        split = profile_split(lambda: bundle.forward(ids_s, mask_s), 3, K4_KERNEL, "ring_hop")
     busy = split["device_busy_ms"]
     emit("forward bert-long", shape=[b, s], sp=placement.n_devices, wall_ms=wall_ms,
          busy_share=busy / wall_ms if busy else None, **split)
@@ -858,7 +1028,8 @@ def phase_serve(rehearsal: bool, card_line: str):
 
 def profile_split(fn, reps: int, kernel_name: str, label: str) -> dict:
     """Device busy time of ``reps`` calls of ``fn`` from ``torch.profiler``'s
-    kernel records, per call, split into the port's kernel (by name),
+    kernel records, per call, split into the port's kernel (names matching
+    the regex ``kernel_name``),
     GEMMs and the rest, with the four busiest kernels."""
     import torch
     from torch.autograd import DeviceType
@@ -874,7 +1045,7 @@ def profile_split(fn, reps: int, kernel_name: str, label: str) -> dict:
         if e.device_type != DeviceType.CUDA:
             continue
         us = e.time_range.elapsed_us()
-        part = (label if kernel_name in e.name
+        part = (label if re.search(kernel_name, e.name)
                 else "gemm" if GEMM_KERNEL.search(e.name) else "other")
         split[part] += us
         by_name[e.name] = by_name.get(e.name, 0.0) + us
@@ -897,8 +1068,7 @@ def phase_forward(bundle) -> None:
         mask = torch.ones(b, s, dtype=torch.int32, device="cuda")
         with torch.inference_mode():
             wall_ms = cuda_ms(lambda: bundle.forward(ids, mask), 10)
-            split = profile_split(lambda: bundle.forward(ids, mask), 5,
-                                  "fused_attention", "attention")
+            split = profile_split(lambda: bundle.forward(ids, mask), 5, K1_KERNEL, "attention")
         busy = split["device_busy_ms"]
         emit("forward", shape=[b, s], wall_ms=wall_ms,
              busy_share=busy / wall_ms if busy else None, **split)
@@ -1246,7 +1416,7 @@ def main(argv: list[str]) -> int:
     try:
         import torch
 
-        from mlmicroservicetemplate_tpu_torch.ops import _build
+        import mlmicroservicetemplate_tpu_torch  # noqa: F401  (fails without the package)
 
         if not rehearsal and not torch.cuda.is_available():
             print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -1254,7 +1424,7 @@ def main(argv: list[str]) -> int:
         card_line = "cpu (rehearsal)" if rehearsal else card()
         emit(phase, card=card_line, torch=torch.__version__, cuda=torch.version.cuda,
              python=sys.version.split()[0])
-        headline = decode_headline = paged_headline = ring_headline = None
+        headline = decode_headline = paged_headline = ring_headline = ring_serving = None
         if rehearsal:
             emit("build", skipped="cpu rehearsal: no nvcc, no kernels")
             for name in ("fused_attention", "decode_attention", "paged_decode_attention",
@@ -1262,13 +1432,7 @@ def main(argv: list[str]) -> int:
                 emit(f"kernel {name}", skipped="cpu rehearsal: the plain version runs")
         else:
             phase = "build"
-            t0 = time.monotonic()
-            built = _build.build()
-            emit(phase, seconds=time.monotonic() - t0, libraries=[
-                {"name": b.name, "seconds": b.seconds,
-                 "ptxas": [ln.strip() for ln in b.log.splitlines() if "Used" in ln]}
-                for b in built
-            ])
+            phase_build()
             phase = "kernel fused_attention"
             headline = phase_kernel()
             phase = "kernel decode_attention"
@@ -1276,7 +1440,7 @@ def main(argv: list[str]) -> int:
             phase = "kernel paged_decode_attention"
             paged_headline = phase_paged_kernel()
             phase = "kernel ring_hop"
-            ring_headline = phase_ring_kernel()
+            ring_headline, ring_serving = phase_ring_kernel()
         phase = "serve bert-base"
         cfg, bundle, engine, launches = phase_serve(rehearsal, card_line)
         if rehearsal:
@@ -1393,7 +1557,8 @@ def main(argv: list[str]) -> int:
 
     print(json.dumps({"kernels": [
         kernel_entry("fused_attention", "mlmicroservicetemplate_tpu/ops/attention.py:400",
-                     launches, headline),
+                     launches, headline, tflops=headline["tflops"],
+                     tflops_every_key=headline["tflops_every_key"]),
         kernel_entry("decode_attention", "mlmicroservicetemplate_tpu/ops/attention.py:310",
                      llama_svc[3] + llama8_launches + k2_streams, decode_headline),
         kernel_entry("paged_decode_attention",
@@ -1402,7 +1567,11 @@ def main(argv: list[str]) -> int:
         # launches: the served bert-long path; the 4-shard check (a direct
         # call, no serving path) is counted apart.
         kernel_entry("ring_hop", "mlmicroservicetemplate_tpu/parallel/ring.py:58",
-                     long_launches, ring_headline, launches_4shard_check=shard4_launches),
+                     long_launches, ring_headline, launches_4shard_check=shard4_launches,
+                     tflops=ring_headline["tflops"],
+                     tflops_every_key=ring_headline["tflops_every_key"],
+                     fresh_final_ms=ring_serving["kernel_ms"],
+                     fresh_final_bound_ms=ring_serving["bound_us"] / 1e3),
     ]}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {

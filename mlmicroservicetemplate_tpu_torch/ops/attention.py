@@ -12,12 +12,14 @@ versions.
 
 K1 replaces the Pallas TPU kernel ``mlmicroservicetemplate_tpu/ops/attention.py``
 (``_attn_body``, launched by its ``fused_attention``).  The kernel lives in
-``csrc/fused_attention.cu``; its header says what bounds it on the card and
-what its design does about that.  In short: the TPU kernel keeps one head's
-whole [S, S] f32 score tile in VMEM, which at S = 512 does not fit an SM's
-shared memory, so the CUDA kernel walks the keys in 64-key tiles with an f32
-online softmax and never writes scores to device memory.  It reads and
-writes [B, S, H, D] through strides, so no transposes surround it.
+``csrc/fused_attention.cu`` on the Hopper main loop it shares with K4
+(``csrc/attention_sm90.cuh``); their headers say what bounds it on the card
+and what the design does about that.  In short: the TPU kernel keeps one
+head's whole [S, S] f32 score tile in VMEM, which at S = 512 does not fit an
+SM's shared memory, so the CUDA kernel walks the keys in 128-key tiles
+(wgmma, TMA, tiles with no valid key skipped) with an f32 online softmax and
+never writes scores to device memory.  It reads and writes [B, S, H, D]
+through strides, so no transposes surround it.
 
 Each wrapper launches its kernel for CUDA tensors and raises on any
 input the kernel does not take; for CPU tensors it runs its plain PyTorch
@@ -34,6 +36,7 @@ import torch
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIM = 64  # the only head width the kernels take (BERT-base, TinyLlama)
+MAX_SEQ = 1 << 16  # keys K1's key bitmap covers
 
 
 def fused_attention_ref(
@@ -78,6 +81,8 @@ def _check(q, k, v, mask, bias) -> None:
     b, s, h, d = q.shape
     if d != HEAD_DIM:
         raise ValueError(f"fused_attention: head dim {d} (the kernel takes {HEAD_DIM})")
+    if s > MAX_SEQ:
+        raise ValueError(f"fused_attention: {s} keys (the kernel takes {MAX_SEQ})")
     per_access = 16 // q.element_size()  # the kernel moves 16 bytes per access
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1 or any(st % per_access for st in t.stride()[:3]):

@@ -1,7 +1,8 @@
 """The port's fused_attention (CPU: its plain version) against the JAX
 package's Pallas kernel run in interpret mode, on the same numpy inputs.
 Tolerance atol=rtol=2e-5 in f32, the JAX package's own kernel tolerance
-(tests/test_ops.py)."""
+(tests/test_ops.py); the kernel's key-tile skip (a row's keys in tiles with
+no valid key dropped) against the whole row within 1e-6."""
 
 import numpy as np
 import pytest
@@ -97,3 +98,36 @@ def test_kernel_wrapper_rejects_inputs_it_does_not_take(change, err):
     q2, m2 = change(q, mask)
     with pytest.raises(err):
         port_attention._check(q2, q2, q2, m2, None)
+
+
+@pytest.mark.parametrize("layout", ["interior", "tail"])
+def test_attention_without_fully_masked_tiles_equals_the_whole_row(layout):
+    """The kernel's skip: a batch row with a valid key, attended over only
+    its key tiles (8 keys here, 128 in the kernel) that hold one, gives the
+    JAX kernel's attention over every key: masked keys weigh exp(-1e9 - m)
+    = 0 once the row max is a valid key's."""
+    rng = np.random.default_rng(4)
+    b, s, h, d, tile = 2, 32, 2, 16, 8
+    q, k, v = _qkv(rng, b, s, h, d)
+    mask = np.zeros((b, s), np.int32)
+    mask[0, 1:6] = 1
+    mask[1, :7] = 1
+    if layout == "interior":
+        mask[0, 26:31] = 1  # tiles 1 and 2 of row 0 hold no valid key
+    want, whole = _both(q, k, v, mask)
+    for row in range(b):
+        live = mask[row].reshape(-1, tile).any(axis=1).repeat(tile)
+        assert not live.all()
+        got = port_attention.fused_attention_ref(
+            torch.from_numpy(q[row:row + 1]),
+            *(torch.from_numpy(np.ascontiguousarray(x[row:row + 1, live])) for x in (k, v)),
+            torch.from_numpy(mask[row:row + 1, live]),
+        ).numpy()[0]
+        np.testing.assert_allclose(got, whole[row], rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(got, want[row], **TOL)
+
+
+def test_kernel_wrapper_rejects_a_row_past_the_key_bitmap():
+    q = torch.zeros(1, port_attention.MAX_SEQ + 1, 1, 64)
+    with pytest.raises(ValueError, match="keys"):
+        port_attention._check(q, q, q, torch.ones(1, q.shape[1], dtype=torch.int32), None)

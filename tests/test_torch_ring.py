@@ -5,6 +5,11 @@ JAX package's, on the same numpy inputs, f32 on the CPU.
   ``tests/test_ring.py`` runs the Pallas path): fresh and mid-ring carried
   states, a partly padded row and a block with no valid key, D = 16 and
   64; o, m and l within 1e-5 (f32, products summed in another order).
+- The hop's ``fresh`` and ``out`` arguments against ``_hop_pallas`` from
+  (0, -inf, 0) and followed by ``o / max(l, 1e-20)``; the kernel's key-tile
+  skip (keys of tiles with no valid key dropped) against the whole block;
+  a block with no valid key against its algebra (m <= -1e9: o + sum v,
+  l + S; m > -1e9: unchanged); the wrapper's checks of the new arguments.
 - ``ring_attention`` over 1, 2, 4 and 8 CPU shards against the JAX ring
   over the 8-device mesh and against dense attention, within 1e-5; bf16
   within 2e-2 (the output's rounding to bf16); a row masked in every hop.
@@ -23,6 +28,7 @@ from jax.sharding import Mesh
 
 from mlmicroservicetemplate_tpu.models.common import mha_attention
 from mlmicroservicetemplate_tpu.parallel.ring import _hop_pallas, make_ring_attention
+from mlmicroservicetemplate_tpu_torch.parallel import ring as port_ring
 from mlmicroservicetemplate_tpu_torch.parallel import (
     SeqParallelSet,
     make_sp_devices,
@@ -133,6 +139,175 @@ def test_ring_hop_wrapper_rejects_other_devices():
         ring_hop(t, t, t, torch.ones(1, 4, device="meta"), t, t, t, 0.125)
 
 
+def _normalised(o, l):
+    """The ring's output from a carried state: [B, S, H, D] of o / max(l, 1e-20)."""
+    return np.swapaxes(o / np.maximum(l, 1e-20)[..., None], 1, 2)
+
+
+@pytest.mark.parametrize("final", [False, True])
+def test_fresh_hop_matches_jax_hop_from_the_empty_state(final):
+    """``fresh=True`` ignores whatever o, m, l hold and starts from (0, -inf,
+    0); with ``out`` the hop writes o / max(l, 1e-20) and returns it."""
+    q, k, v, mask, o, m, l = _hop_inputs(64, "fresh", seed=3)
+    want = _jax_hop(q, k, v, mask, o, m, l, 0.125)
+    junk = [torch.full(x.shape, 7.0) for x in (o, m, l)]
+    args = [torch.from_numpy(x) for x in (q, k, v, mask)]
+    if final:
+        out = torch.empty(q.shape)
+        got = ring_hop_ref(*args, None, None, None, 0.125, fresh=True, out=out)
+        assert got is out
+        np.testing.assert_allclose(out.numpy(), _normalised(want[0], want[2]), **TOL)
+    else:
+        got = ring_hop_ref(*args, *junk, 0.125, fresh=True)
+        for name, g, w in zip("oml", got, want):
+            np.testing.assert_allclose(g.numpy(), w, err_msg=name, **TOL)
+
+
+@pytest.mark.parametrize("order", ["masked_then_valid", "valid_then_masked"])
+def test_chain_with_fresh_first_and_out_last_matches_jax(order):
+    """Three hops as the ring runs them (fresh, carried, out) against the
+    JAX kernel's three hops from (0, -inf, 0) and the normalisation after;
+    row 1 meets a block with no valid key first or last."""
+    q, k, v, _, o, m, l = _hop_inputs(64, "fresh", seed=4)
+    rng = np.random.default_rng(5)
+    blocks = []
+    for i in range(3):
+        kb, vb = (rng.standard_normal(k.shape).astype(np.float32) for _ in range(2))
+        mask = np.ones((2, 24), np.int32)
+        mask[0, 3 + 2 * i:] = 0
+        if i == (0 if order == "masked_then_valid" else 2):
+            mask[1] = 0
+        blocks.append((kb, vb, mask))
+    want = (o, m, l)
+    for kb, vb, mask in blocks:
+        want = _jax_hop(q, kb, vb, mask, *want, 0.125)
+    tq = torch.from_numpy(q)
+    state = (None, None, None)
+    for i, (kb, vb, mask) in enumerate(blocks[:2]):
+        state = ring_hop_ref(tq, *(torch.from_numpy(x) for x in (kb, vb, mask)), *state,
+                             0.125, fresh=i == 0)
+    out = torch.empty(q.shape)
+    ring_hop_ref(tq, *(torch.from_numpy(x) for x in blocks[2]), *state, 0.125, out=out)
+    np.testing.assert_allclose(out.numpy(), _normalised(want[0], want[2]), **TOL)
+
+
+def _tiled_mask(layout: str) -> np.ndarray:
+    """[2, 32] key masks in tiles of 8 keys (the kernel's 128 scaled down):
+    row 0 valid in tiles 0 and 3 with tiles 1-2 fully masked (an interior
+    run); row 1 valid in tile 0 only, a masked tail."""
+    mask = np.zeros((2, 32), np.int32)
+    mask[0, 2:7] = 1
+    mask[0, 25:30] = 1
+    mask[1, :5] = 1
+    if layout == "tail":
+        mask[0, 8:] = 0
+    return mask
+
+
+@pytest.mark.parametrize("state", ["fresh", "mid"])
+@pytest.mark.parametrize("layout", ["interior", "tail"])
+def test_hop_without_fully_masked_tiles_equals_the_whole_block(layout, state):
+    """The kernel's skip: a batch row with a valid key, hopped over only its
+    tiles that hold one, gives the JAX hop over the whole block (masked keys
+    weigh exp(-1e9 - m) = 0, whatever the carried state)."""
+    rng = np.random.default_rng(6)
+    b, s, h, d, tile = 2, 32, 2, 16, 8
+    q, k, v = (rng.standard_normal((b, s, h, d)).astype(np.float32) for _ in range(3))
+    mask = _tiled_mask(layout)
+    if state == "fresh":
+        o = np.zeros((b, h, s, d), np.float32)
+        m = np.full((b, h, s), -np.inf, np.float32)
+        l = np.zeros((b, h, s), np.float32)
+    else:
+        o = rng.standard_normal((b, h, s, d)).astype(np.float32)
+        m = rng.standard_normal((b, h, s)).astype(np.float32)
+        l = rng.uniform(0.5, 2.0, (b, h, s)).astype(np.float32)
+    scale = 1.0 / math.sqrt(d)
+    want = _jax_hop(q, k, v, mask, o, m, l, scale)
+    whole = _port_hop(q, k, v, mask, o, m, l, scale)
+    for row in range(b):
+        live = mask[row].reshape(-1, tile).any(axis=1).repeat(tile)  # keys of kept tiles
+        assert not live.all()  # something is skipped
+        kept = [torch.from_numpy(np.ascontiguousarray(x[row:row + 1, live]))
+                for x in (k, v)]
+        got = ring_hop_ref(torch.from_numpy(q[row:row + 1]), *kept,
+                           torch.from_numpy(mask[row:row + 1, live]),
+                           *(torch.from_numpy(x[row:row + 1]) for x in (o, m, l)), scale)
+        for name, g, w, p in zip("oml", got, want, whole):
+            np.testing.assert_allclose(g.numpy()[0], p[row], rtol=1e-6, atol=1e-6,
+                                       err_msg=name)
+            np.testing.assert_allclose(g.numpy()[0], w[row], err_msg=name, **TOL)
+
+
+def test_block_without_a_valid_key_follows_its_algebra():
+    """No valid key in the block: every score is -1e9, so a query row whose
+    carried m is at most -1e9 (-inf fresh, or -1e9 after such blocks) ends
+    at m = -1e9, l = l·corr + S, o = o·corr + sum v (corr 0 from -inf, 1
+    from -1e9), and a row with m > -1e9 keeps its state exactly: the JAX
+    hop and the plain hop both."""
+    rng = np.random.default_rng(7)
+    b, s, h, d = 1, 24, 2, 16
+    q, k, v = (rng.standard_normal((b, s, h, d)).astype(np.float32) for _ in range(3))
+    mask = np.zeros((b, s), np.int32)
+    o = rng.standard_normal((b, h, s, d)).astype(np.float32)
+    l = rng.uniform(0.5, 2.0, (b, h, s)).astype(np.float32)
+    m = rng.standard_normal((b, h, s)).astype(np.float32)
+    m[:, :, :8] = -np.inf
+    m[:, :, 8:16] = -1e9
+    o[:, :, :8], l[:, :, :8] = 0.0, 0.0
+    sum_v = v.sum(axis=1)[:, :, None, :]  # [1, H, 1, D]
+    want_o, want_m, want_l = o.copy(), m.copy(), l.copy()
+    want_o[:, :, :8] = np.broadcast_to(sum_v, want_o[:, :, :8].shape)
+    want_o[:, :, 8:16] += sum_v
+    want_m[:, :, :16] = -1e9
+    want_l[:, :, :8] = s
+    want_l[:, :, 8:16] += s
+    for hop in (_jax_hop, _port_hop):
+        got = hop(q, k, v, mask, o, m, l, 0.25)
+        np.testing.assert_array_equal(got[1], want_m)
+        np.testing.assert_allclose(got[2], want_l, rtol=1e-6)
+        np.testing.assert_allclose(got[0], want_o, **TOL)
+        # m > -1e9: corr = exp(0) = 1 and every p = 0, bit for bit
+        np.testing.assert_array_equal(got[0][:, :, 16:], o[:, :, 16:])
+        np.testing.assert_array_equal(got[2][:, :, 16:], l[:, :, 16:])
+
+
+def _check_args(**change):
+    b, s, h, d = 1, 8, 2, 64
+    q = torch.zeros(b, s, h, d)
+    args = dict(q=q, k=q, v=q, mask=torch.ones(b, s, dtype=torch.int32),
+                o=torch.zeros(b, h, s, d), m=torch.zeros(b, h, s), l=torch.zeros(b, h, s),
+                fresh=False, out=None)
+    args.update(change)
+    return args
+
+
+@pytest.mark.parametrize(
+    "change,err",
+    [
+        (dict(fresh=False, o=None), "unless fresh"),
+        (dict(out=torch.zeros(1, 8, 2, 32)), "out must be"),
+        (dict(out=torch.zeros(1, 2, 8, 64)), "out must be"),
+        (dict(out=torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16)), "out must be"),
+        (dict(out=torch.zeros(1, 8, 2, 128)[..., ::2]), "unit head_dim"),
+    ],
+    ids=["fresh_false_without_o", "out_head_dim", "out_layout", "out_dtype", "out_strides"],
+)
+def test_ring_hop_wrapper_rejects_bad_fresh_and_out(change, err):
+    """The checks that guard the CUDA launch (run directly: the CPU has no
+    kernel to reach)."""
+    with pytest.raises(ValueError, match=err):
+        port_ring._check(**_check_args(**change))
+
+
+@pytest.mark.parametrize("final", [False, True])
+def test_ring_hop_checks_accept_a_fresh_hop_without_state(final):
+    """A fresh hop reads no state: the last one writes only ``out``, an
+    earlier one gets new o, m, l from the wrapper."""
+    out = torch.zeros(1, 8, 2, 64) if final else None
+    port_ring._check(**_check_args(fresh=True, o=None, m=None, l=None, out=out))
+
+
 B, S, H, D = 2, 64, 4, 16
 
 
@@ -196,6 +371,25 @@ def test_row_masked_in_every_hop_is_the_mean_of_v(n):
     assert np.isfinite(got).all()
     want = np.broadcast_to(v[1].mean(axis=0, keepdims=True), got[1].shape)
     np.testing.assert_allclose(got[1], want, **TOL)
+
+
+@pytest.mark.parametrize("n", [1, 3])
+def test_ring_attention_hops_fresh_first_and_into_the_output_last(n):
+    """One shard: one hop, fresh and final, no carried state handed in. n
+    shards: n² hops, the first n fresh, the last n writing the output."""
+    calls = []
+
+    def spy(q, k, v, mask, o, m, l, scale, *, fresh=False, out=None):
+        calls.append((fresh, out is not None, o is None))
+        return ring_hop_ref(q, k, v, mask, o, m, l, scale, fresh=fresh, out=out)
+
+    q, k, v, mask = _ring_inputs()
+    shards = [torch.from_numpy(x[:, :48]).chunk(n, dim=1) for x in (q, k, v)]
+    ring_attention(*shards, torch.from_numpy(mask[:, :48]).chunk(n, dim=1), hop=spy)
+    assert len(calls) == n * n
+    assert calls[:n] == [(True, n == 1, True)] * n
+    assert calls[-n:] == [(n == 1, True, n == 1)] * n
+    assert all(c == (False, False, False) for c in calls[n:-n])
 
 
 def test_ring_attention_rejects_mismatched_shard_lists():
