@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                  # on a machine with a CUDA GPU
     python3 chip_smoke.py --cpu-rehearsal  # small CPU dry run of the paths
+    python3 chip_smoke.py --perf           # decode kernels' timing phases only
 
 Phases, one JSON line each; any failure exits non-zero and prints no
 result line:
@@ -10,9 +11,10 @@ result line:
 1. env: the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions.
 2. build: nvcc builds every ``csrc/*.cu`` of the package (in parallel);
-   ptxas's registers and spills per kernel and the SASS HGMMA count per
-   library are printed, and K1's and K4's (the shared wgmma loop of
-   ``csrc/attention_sm90.cuh``) must be > 0.
+   ptxas's registers and spills per kernel and the SASS HGMMA and HMMA
+   counts per library are printed; K1's and K4's HGMMA (the shared wgmma
+   loop of ``csrc/attention_sm90.cuh``) and K2's and K3's HMMA (mma.sync
+   in ``csrc/decode_sm90.cuh``) must be > 0.
 3. kernel fused_attention: the CUDA kernel against its plain PyTorch
    version on the card, bf16 and f32, at the serving shapes, with a padded
    row, an all-masked row, ragged valid prefixes, masks with whole 128-key
@@ -23,12 +25,19 @@ result line:
 4. kernel decode_attention: the same for the decode kernel, dense bf16,
    dense f32 and int8 with bf16 scales, B in {1, 8, 32}, H=32, KVH=4,
    D=64, T in {96, 576, 2048}; one row padded to a third of T, and (B > 1)
-   an all-masked row.
+   an all-masked row; then ``DECODE_EXTRA_CASES``: valid prefixes of an
+   eighth of T, valid keys only in the last tile, T < 64, B=32 at T=2048.
+   Each row also gives ``device_us`` (the profiler's kernel time a call:
+   split kernel and combine; ``library_device_us`` SDPA's) and ``host_us``
+   (the wrapper's host time a call, back to back, no synchronisation).
 4b. kernel paged_decode_attention: the same for the paged decode kernel
    over pools of 16-token blocks, B in {1, 8, 16}, table width T in {6,
    36, 128} blocks; a shuffled table with a sentinel tail on one row and
-   (B > 1) a row with no valid key; the yardstick gathers the dense view,
-   expands it to 32 heads and runs ``scaled_dot_product_attention``.
+   (B > 1) a row with no valid key; then ``PAGED_EXTRA_CASES``: short
+   rows (1-3 blocks valid, the table past them sentinels) at up to 128
+   blocks, with a row with no valid key whose table is half sentinels; the
+   yardstick gathers the dense view, expands it to 32 heads and runs
+   ``scaled_dot_product_attention``.
 4c. kernel ring_hop: the ring-hop kernel (K4) against its plain version,
    bf16 and f32, B in {1, 8}, S_loc in {96, 512, 2048}, H=12, D=64, from a
    fresh carried state and a mid-ring one; a padded row and (B > 1) a row
@@ -143,6 +152,13 @@ GEMM_KERNEL = re.compile(r"gemm|nvjet|xmma|cutlass", re.IGNORECASE)
 # carries its Op in its name; the f32 kernels carry the library's).
 WGMMA_LIBRARIES = ("fused_attention", "ring_hop")
 K1_KERNEL, K4_KERNEL = r"fused_attention|EncoderOp", r"ring_hop|HopOp"
+# The decode kernels K2 and K3 (csrc/decode_sm90.cuh: the split kernel and
+# the combine, the bool template argument naming K3), and the names of their
+# first design's kernels, so a build of that design profiles the same way.
+# Their libraries must hold mma.sync (SASS HMMA) for the dense bf16 cache.
+K2_KERNEL = r"(?<!paged_)decode_attention_kernel|decode_(split|combine)_kernel<.*false>"
+K3_KERNEL = r"paged_decode_attention_kernel|decode_(split|combine)_kernel<.*true>"
+MMA_LIBRARIES = ("decode_attention", "paged_decode_attention")
 # Valid prefix of batch row i, in thousandths of S, for the "ragged" masks
 # (at S = 2048: 700, 2, 2045, 129, 1024, 1802, 63, 2048 keys).
 RAGGED = (342, 1, 999, 63, 500, 880, 31, 1000)
@@ -219,15 +235,16 @@ def ptxas_report(log: str) -> list[dict]:
     return out
 
 
-def hgmma_count(path) -> int:
-    """wgmma instructions (SASS HGMMA) in a built library."""
+def mma_counts(path) -> tuple[int, int]:
+    """wgmma (SASS HGMMA) and mma.sync (SASS HMMA) instructions in a built
+    library."""
     import shutil
     from pathlib import Path
 
     tool = shutil.which("cuobjdump") or str(Path(_nvcc_dir()) / "cuobjdump")
     sass = subprocess.run([tool, "--dump-sass", str(path)], capture_output=True, text=True,
-                          timeout=300, check=True).stdout
-    return sum("HGMMA" in line for line in sass.splitlines())
+                          timeout=300, check=True).stdout.splitlines()
+    return sum("HGMMA" in ln for ln in sass), sum("HMMA" in ln for ln in sass)
 
 
 def _nvcc_dir() -> str:
@@ -238,24 +255,28 @@ def _nvcc_dir() -> str:
     return str(Path(nvcc()).parent)
 
 
-def phase_build() -> None:
+def phase_build(require_mma: bool = True) -> None:
     """nvcc builds every kernel source; ptxas's report per kernel and the
-    HGMMA count per library are printed, and K1's and K4's libraries (the
-    shared wgmma loop) must hold HGMMA instructions."""
+    HGMMA and HMMA counts per library are printed; K1's and K4's libraries
+    (the shared wgmma loop) must hold HGMMA instructions, K2's and K3's
+    (mma.sync for the dense bf16 cache) HMMA."""
     from mlmicroservicetemplate_tpu_torch.ops import _build
 
     t0 = time.monotonic()
     built = _build.build()
     libraries = []
     for b in built:
-        libraries.append({"name": b.name, "seconds": b.seconds, "hgmma": hgmma_count(b.path),
+        hgmma, hmma = mma_counts(b.path)
+        libraries.append({"name": b.name, "seconds": b.seconds, "hgmma": hgmma, "hmma": hmma,
                           "ptxas": ptxas_report(b.log),
                           "warnings": sorted({ln.strip()[:240] for ln in b.log.splitlines()
                                               if "warning" in ln.lower()})})
     emit("build", seconds=time.monotonic() - t0, libraries=libraries)
-    for lib in libraries:
+    for lib in libraries if require_mma else ():
         if lib["name"] in WGMMA_LIBRARIES and lib["hgmma"] == 0:
             raise AssertionError(f"{lib['name']}: no HGMMA instruction in the built library")
+        if lib["name"] in MMA_LIBRARIES and lib["hmma"] == 0:
+            raise AssertionError(f"{lib['name']}: no HMMA instruction in the built library")
 
 
 def k1_mask(b: int, s: int, layout: str):
@@ -349,11 +370,32 @@ def phase_kernel() -> dict:
     return headline
 
 
-def decode_case(gen, kind: str, b: int, t: int):
+def decode_mask(b: int, t: int, layout: str):
+    """K2's key mask on the card.  pad: row 0 valid for a third of T.
+    prefix8: every row valid for the first eighth of T.  last_tile: every
+    row valid only in the last 64-key tile (from a row-dependent key of
+    it).  In each, for B > 1, row 1 holds no valid key."""
+    import torch
+
+    mask = torch.zeros(b, t, dtype=torch.int32, device="cuda")
+    if layout == "pad":
+        mask[:] = 1
+        mask[0, t // 3:] = 0
+    elif layout == "prefix8":
+        mask[:, : max(1, t // 8)] = 1
+    elif layout == "last_tile":
+        last = (t - 1) // 64 * 64
+        for i in range(b):
+            mask[i, min(t - 1, last + i % 7):] = 1
+    if b > 1:
+        mask[1, :] = 0
+    return mask
+
+
+def decode_case(gen, kind: str, b: int, t: int, layout: str = "pad"):
     """Decode-attention inputs on the card: q [B, H, D], a [B, T, KVH, D]
     cache (dense in ``kind``, or int8 with bf16 scales and a bf16 q), and
-    a mask with row 0 padded to a third of T and, for B > 1, row 1 all
-    masked."""
+    a ``decode_mask`` of ``layout``."""
     import torch
 
     from mlmicroservicetemplate_tpu_torch.models.common import kv_quantize
@@ -362,10 +404,7 @@ def decode_case(gen, kind: str, b: int, t: int):
     q = torch.randn(b, LLAMA_HEADS, HEAD_DIM, device="cuda", generator=gen).to(qdtype)
     k, v = (torch.randn(b, t, LLAMA_KV_HEADS, HEAD_DIM, device="cuda", generator=gen)
             for _ in range(2))
-    mask = torch.ones(b, t, dtype=torch.int32, device="cuda")
-    mask[0, t // 3:] = 0
-    if b > 1:
-        mask[1, :] = 0
+    mask = decode_mask(b, t, layout)
     if kind != "int8":
         return q, k.to(qdtype), v.to(qdtype), mask, None, None
     (k8, ks), (v8, vs) = kv_quantize(k), kv_quantize(v)
@@ -373,14 +412,73 @@ def decode_case(gen, kind: str, b: int, t: int):
 
 
 def decode_bound(q, k, v, mask, ks, vs, kind: str) -> tuple[float, str]:
-    """K2: K and V (and their scales), q and the mask read once, the output
-    written once; 4·B·H·T·D operations (q·k and p·v)."""
-    nbytes = 2 * k.numel() * k.element_size() + 2 * q.numel() * q.element_size()
-    nbytes += mask.numel() * mask.element_size()
-    if ks is not None:
-        nbytes += 2 * ks.numel() * ks.element_size()
+    """K2, counting what this mask needs, each byte once: a row with a valid
+    key needs the K and V (and scales) of its valid keys, since every other
+    key weighs exactly 0; a row with none, whose output is the plain mean
+    of V, its V (and scales); q, the mask, the output written.  Operations:
+    4·R·D per valid key and KV head (q·k and p·v), D per position of a row
+    with no valid key."""
     b, h, d = q.shape
-    return bound(nbytes, 4 * b * h * k.shape[1] * d, kind)
+    t, kvh = k.shape[1], k.shape[2]
+    per_pos = kvh * d * k.element_size() + (kvh * ks.element_size() if ks is not None else 0)
+    live = mask.ne(0).sum(dim=1)
+    n_valid = int(live.sum())
+    dead = int((live == 0).sum())
+    nbytes = 2 * n_valid * per_pos + dead * t * per_pos
+    nbytes += 2 * q.numel() * q.element_size() + mask.numel() * mask.element_size()
+    return bound(nbytes, 4 * h * d * n_valid + dead * t * kvh * d, kind)
+
+
+def device_us(fn, reps: int = 20) -> float | None:
+    """Device time of one call of ``fn`` in microseconds: the kernels
+    ``torch.profiler`` records over ``reps`` calls (for the port's wrappers
+    the split kernel and the combine), summed, over ``reps``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a profile now and then records no device kernel: again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA)
+        if us:
+            return us / reps
+    return None
+
+
+def host_us(fn, reps: int = 50) -> float:
+    """Host time of one call of ``fn`` in microseconds: ``reps`` calls back
+    to back with no synchronisation between them."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / reps * 1e6
+
+
+# K2's cases beyond the base grid (dtype x B in {1, 8, 32} x T in {96, 576,
+# 2048}, pad masks): (dtype, B, T, mask layout).
+DECODE_EXTRA_CASES = (
+    ("bfloat16", 8, 576, "prefix8"),
+    ("bfloat16", 8, 576, "last_tile"),
+    ("bfloat16", 8, 40, "pad"),
+    ("bfloat16", 32, 2048, "prefix8"),
+    ("bfloat16", 32, 2048, "last_tile"),
+    ("float32", 8, 40, "pad"),
+    ("float32", 8, 576, "last_tile"),
+    ("int8", 8, 576, "last_tile"),
+    ("int8", 32, 2048, "prefix8"),
+)
 
 
 def phase_decode_kernel() -> dict:
@@ -395,62 +493,67 @@ def phase_decode_kernel() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(2)
     headline = None
     rep = LLAMA_HEADS // LLAMA_KV_HEADS
-    for kind in ("bfloat16", "float32", "int8"):
-        for b in (1, 8, 32):
-            for t in (96, 576, 2048):
-                q, k, v, mask, ks, vs = decode_case(gen, kind, b, t)
-                out = decode_attention(q, k, v, mask, ks, vs)
-                torch.cuda.synchronize()
-                ref = decode_attention_ref(
-                    q.float(), k if ks is not None else k.float(),
-                    v if vs is not None else v.float(), mask,
-                    None if ks is None else ks.float(), None if vs is None else vs.float(),
-                )
-                diff = (out.float() - ref).abs()
-                tol = KERNEL_TOL[kind]
-                ok = bool(torch.isfinite(out).all()) and bool(
-                    (diff <= tol + tol * ref.abs()).all()
-                )
-                # dense (or dequantized) cache at H heads, for the masked-row
-                # check and the yardstick
-                vf = v.float() if vs is None else v.float() * vs.float()
-                if b > 1:  # the all-masked row is the plain mean of its group's V
-                    uniform = vf[1].mean(0).repeat_interleave(rep, dim=0)
-                    ok = ok and bool(((out[1].float() - uniform).abs() <= tol * 4).all())
-                iters = 50 if b * t >= 32 * 576 else 200
-                kernel_ms = cuda_ms(lambda: decode_attention(q, k, v, mask, ks, vs), iters)
-                plain_ms = cuda_ms(lambda: decode_attention_ref(q, k, v, mask, ks, vs), iters)
-                kf = k.float() if ks is None else k.float() * ks.float()
-                kt, vt = (x.to(q.dtype).transpose(1, 2).repeat_interleave(rep, dim=1)
-                          for x in (kf, vf))
-                add = torch.where(mask[:, None, None, :] != 0, 0.0, -1e9).to(q.dtype)
-                q4 = q[:, :, None]
-                library_ms = cuda_ms(
-                    lambda: F.scaled_dot_product_attention(q4, kt, vt, attn_mask=add), iters
-                )
-                bound_ms, bound_by = decode_bound(q, k, v, mask, ks, vs, kind)
-                row = dict(
-                    dtype=kind, shape=[b, t, LLAMA_HEADS, LLAMA_KV_HEADS, HEAD_DIM],
-                    max_abs_err=diff.max().item(), tol=f"atol=rtol={tol}", ok=ok,
-                    kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                    bound_us=bound_ms * 1e3, bound_by=bound_by,
-                )
-                emit("kernel decode_attention", **row)
-                if not ok:
-                    raise AssertionError(
-                        f"decode_attention disagrees with its plain version: {row}"
-                    )
-                if (kind, b, t) == ("bfloat16", 8, 576):
-                    headline = row
+    grid = [(kind, b, t, "pad") for kind in ("bfloat16", "float32", "int8")
+            for b in (1, 8, 32) for t in (96, 576, 2048)]
+    for kind, b, t, layout in grid + list(DECODE_EXTRA_CASES):
+        q, k, v, mask, ks, vs = decode_case(gen, kind, b, t, layout)
+        out = decode_attention(q, k, v, mask, ks, vs)
+        torch.cuda.synchronize()
+        ref = decode_attention_ref(
+            q.float(), k if ks is not None else k.float(),
+            v if vs is not None else v.float(), mask,
+            None if ks is None else ks.float(), None if vs is None else vs.float(),
+        )
+        diff = (out.float() - ref).abs()
+        tol = KERNEL_TOL[kind]
+        ok = bool(torch.isfinite(out).all()) and bool((diff <= tol + tol * ref.abs()).all())
+        # dense (or dequantized) cache at H heads, for the masked-row check
+        # and the yardstick
+        vf = v.float() if vs is None else v.float() * vs.float()
+        if b > 1:  # the all-masked row is the plain mean of its group's V
+            uniform = vf[1].mean(0).repeat_interleave(rep, dim=0)
+            ok = ok and bool(((out[1].float() - uniform).abs() <= tol * 4).all())
+        iters = 50 if b * t >= 32 * 576 else 200
+
+        def kernel():
+            return decode_attention(q, k, v, mask, ks, vs)
+
+        kernel_ms = cuda_ms(kernel, iters)
+        plain_ms = cuda_ms(lambda: decode_attention_ref(q, k, v, mask, ks, vs), iters)
+        kf = k.float() if ks is None else k.float() * ks.float()
+        kt, vt = (x.to(q.dtype).transpose(1, 2).repeat_interleave(rep, dim=1) for x in (kf, vf))
+        add = torch.where(mask[:, None, None, :] != 0, 0.0, -1e9).to(q.dtype)
+        q4 = q[:, :, None]
+
+        def library():
+            return F.scaled_dot_product_attention(q4, kt, vt, attn_mask=add)
+
+        library_ms = cuda_ms(library, iters)
+        bound_ms, bound_by = decode_bound(q, k, v, mask, ks, vs, kind)
+        row = dict(
+            dtype=kind, shape=[b, t, LLAMA_HEADS, LLAMA_KV_HEADS, HEAD_DIM], mask=layout,
+            max_abs_err=diff.max().item(), tol=f"atol=rtol={tol}", ok=ok,
+            kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+            device_us=device_us(kernel), library_device_us=device_us(library),
+            host_us=host_us(kernel), bound_us=bound_ms * 1e3, bound_by=bound_by,
+        )
+        emit("kernel decode_attention", **row)
+        if not ok:
+            raise AssertionError(f"decode_attention disagrees with its plain version: {row}")
+        if (kind, b, t, layout) == ("bfloat16", 8, 576, "pad"):
+            headline = row
     return headline
 
 
-def paged_case(gen, kind: str, b: int, t: int):
+def paged_case(gen, kind: str, b: int, t: int, layout: str = "pad"):
     """Paged decode-attention inputs on the card at block size PAGE: q
     [B, H, D]; pools of B·T + 4 blocks (dense in ``kind``, or int8 with
-    bf16 scale pools and a bf16 q); a shuffled table whose row 0 ends in a
-    third of sentinel entries (their keys invalid); key_valid with each
-    row's leading keys valid and, for B > 1, row 1 all invalid."""
+    bf16 scale pools and a bf16 q); a shuffled table.  pad: each row's
+    leading keys valid (half to all of them), row 0's table ending in a
+    third of sentinel entries (their keys invalid).  short: each row valid
+    for 1 to 3 blocks' worth of keys, its table past them sentinels, as the
+    loop's rows are.  For B > 1, row 1 holds no valid key (short: its table
+    half sentinels)."""
     import torch
 
     from mlmicroservicetemplate_tpu_torch.models.common import kv_quantize
@@ -463,13 +566,23 @@ def paged_case(gen, kind: str, b: int, t: int):
     table = torch.randperm(nb, device="cuda", generator=gen)[: b * t].reshape(b, t)
     table = table.to(torch.int32)
     keys = t * PAGE
-    lengths = torch.randint(keys // 2, keys + 1, (b,), device="cuda", generator=gen)
-    valid = (torch.arange(keys, device="cuda")[None, :] < lengths[:, None]).to(torch.int32)
-    tail = max(1, t // 3)
-    table[0, t - tail:] = nb
-    valid[0, (t - tail) * PAGE:] = 0
-    if b > 1:
-        valid[1] = 0
+    pos = torch.arange(keys, device="cuda")[None, :]
+    if layout == "short":
+        lengths = torch.randint(1, 3 * PAGE + 1, (b,), device="cuda", generator=gen)
+        valid = (pos < lengths[:, None]).to(torch.int32)
+        blocks = (lengths + PAGE - 1) // PAGE
+        table[torch.arange(t, device="cuda")[None, :] >= blocks[:, None]] = nb
+        if b > 1:
+            valid[1] = 0
+            table[1, t // 2:] = nb
+    else:
+        lengths = torch.randint(keys // 2, keys + 1, (b,), device="cuda", generator=gen)
+        valid = (pos < lengths[:, None]).to(torch.int32)
+        tail = max(1, t // 3)
+        table[0, t - tail:] = nb
+        valid[0, (t - tail) * PAGE:] = 0
+        if b > 1:
+            valid[1] = 0
     if kind != "int8":
         return q, k.to(qdtype), v.to(qdtype), table, valid, None, None
     (k8, ks), (v8, vs) = kv_quantize(k), kv_quantize(v)
@@ -498,6 +611,17 @@ def paged_bound(q, k, table, valid, ks, kind: str) -> tuple[float, str]:
     return bound(nbytes, ops, kind)
 
 
+# K3's cases beyond the base grid (dtype x B in {1, 8, 16} x T in {6, 36,
+# 128} blocks, pad layout): (dtype, B, T, layout).
+PAGED_EXTRA_CASES = (
+    ("bfloat16", 16, 128, "short"),
+    ("bfloat16", 1, 128, "short"),
+    ("bfloat16", 16, 36, "short"),
+    ("float32", 8, 128, "short"),
+    ("int8", 16, 128, "short"),
+)
+
+
 def phase_paged_kernel() -> dict:
     import torch
     import torch.nn.functional as F
@@ -511,58 +635,58 @@ def phase_paged_kernel() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(4)
     headline = None
     rep = LLAMA_HEADS // LLAMA_KV_HEADS
-    for kind in ("bfloat16", "float32", "int8"):
-        for b in (1, 8, 16):
-            for t in (6, 36, 128):
-                q, k, v, table, valid, ks, vs = paged_case(gen, kind, b, t)
-                out = paged_decode_attention(q, k, v, table, valid, PAGE, ks, vs)
-                torch.cuda.synchronize()
-                ref = paged_attention_ref(
-                    q.float(), k if ks is not None else k.float(),
-                    v if vs is not None else v.float(), table, valid, PAGE,
-                    None if ks is None else ks.float(), None if vs is None else vs.float(),
-                )
-                diff = (out.float() - ref).abs()
-                tol = KERNEL_TOL[kind]
-                ok = bool(torch.isfinite(out).all()) and bool(
-                    (diff <= tol + tol * ref.abs()).all()
-                )
-                vf = v.float() if vs is None else v.float() * vs.float()
-                if b > 1:  # no valid key: the plain mean of the row's gathered V
-                    vrow = gather_pages(vf, table[1:2], PAGE)[0]
-                    uniform = vrow.mean(0).repeat_interleave(rep, dim=0)
-                    ok = ok and bool(((out[1].float() - uniform).abs() <= tol * 4).all())
-                iters = 50 if b * t >= 16 * 36 else 200
-                kernel_ms = cuda_ms(
-                    lambda: paged_decode_attention(q, k, v, table, valid, PAGE, ks, vs), iters)
-                plain_ms = cuda_ms(
-                    lambda: paged_attention_ref(q, k, v, table, valid, PAGE, ks, vs), iters)
-                kf = k.float() if ks is None else k.float() * ks.float()
-                kq, vq = kf.to(q.dtype), vf.to(q.dtype)
-                add = torch.where(valid[:, None, None, :] != 0, 0.0, -1e30).to(q.dtype)
-                q4 = q[:, :, None]
+    grid = [(kind, b, t, "pad") for kind in ("bfloat16", "float32", "int8")
+            for b in (1, 8, 16) for t in (6, 36, 128)]
+    for kind, b, t, layout in grid + list(PAGED_EXTRA_CASES):
+        q, k, v, table, valid, ks, vs = paged_case(gen, kind, b, t, layout)
+        out = paged_decode_attention(q, k, v, table, valid, PAGE, ks, vs)
+        torch.cuda.synchronize()
+        ref = paged_attention_ref(
+            q.float(), k if ks is not None else k.float(),
+            v if vs is not None else v.float(), table, valid, PAGE,
+            None if ks is None else ks.float(), None if vs is None else vs.float(),
+        )
+        diff = (out.float() - ref).abs()
+        tol = KERNEL_TOL[kind]
+        ok = bool(torch.isfinite(out).all()) and bool((diff <= tol + tol * ref.abs()).all())
+        vf = v.float() if vs is None else v.float() * vs.float()
+        if b > 1:  # no valid key: the plain mean of the row's gathered V
+            vrow = gather_pages(vf, table[1:2], PAGE)[0]
+            uniform = vrow.mean(0).repeat_interleave(rep, dim=0)
+            ok = ok and bool(((out[1].float() - uniform).abs() <= tol * 4).all())
+        iters = 50 if b * t >= 16 * 36 else 200
 
-                def library():
-                    kt, vt = (gather_pages(x, table, PAGE).transpose(1, 2)
-                              .repeat_interleave(rep, dim=1) for x in (kq, vq))
-                    return F.scaled_dot_product_attention(q4, kt, vt, attn_mask=add)
+        def kernel():
+            return paged_decode_attention(q, k, v, table, valid, PAGE, ks, vs)
 
-                library_ms = cuda_ms(library, iters)
-                bound_ms, bound_by = paged_bound(q, k, table, valid, ks, kind)
-                row = dict(
-                    dtype=kind,
-                    shape=[b, t, PAGE, LLAMA_HEADS, LLAMA_KV_HEADS, HEAD_DIM],
-                    max_abs_err=diff.max().item(), tol=f"atol=rtol={tol}", ok=ok,
-                    kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                    bound_us=bound_ms * 1e3, bound_by=bound_by,
-                )
-                emit("kernel paged_decode_attention", **row)
-                if not ok:
-                    raise AssertionError(
-                        f"paged_decode_attention disagrees with its plain version: {row}"
-                    )
-                if (kind, b, t) == ("bfloat16", 16, 36):
-                    headline = row
+        kernel_ms = cuda_ms(kernel, iters)
+        plain_ms = cuda_ms(
+            lambda: paged_attention_ref(q, k, v, table, valid, PAGE, ks, vs), iters)
+        kf = k.float() if ks is None else k.float() * ks.float()
+        kq, vq = kf.to(q.dtype), vf.to(q.dtype)
+        add = torch.where(valid[:, None, None, :] != 0, 0.0, -1e30).to(q.dtype)
+        q4 = q[:, :, None]
+
+        def library():
+            kt, vt = (gather_pages(x, table, PAGE).transpose(1, 2)
+                      .repeat_interleave(rep, dim=1) for x in (kq, vq))
+            return F.scaled_dot_product_attention(q4, kt, vt, attn_mask=add)
+
+        library_ms = cuda_ms(library, iters)
+        bound_ms, bound_by = paged_bound(q, k, table, valid, ks, kind)
+        row = dict(
+            dtype=kind, shape=[b, t, PAGE, LLAMA_HEADS, LLAMA_KV_HEADS, HEAD_DIM], mask=layout,
+            max_abs_err=diff.max().item(), tol=f"atol=rtol={tol}", ok=ok,
+            kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+            device_us=device_us(kernel), library_device_us=device_us(library),
+            host_us=host_us(kernel), bound_us=bound_ms * 1e3, bound_by=bound_by,
+        )
+        emit("kernel paged_decode_attention", **row)
+        if not ok:
+            raise AssertionError(
+                f"paged_decode_attention disagrees with its plain version: {row}")
+        if (kind, b, t, layout) == ("bfloat16", 16, 36, "pad"):
+            headline = row
     return headline
 
 
@@ -1230,7 +1354,6 @@ def phase_serve_stream(label: str, overrides: dict, params, ref_model, rehearsal
     the paged pool back to 0 blocks; on the card, one slot-state chunk
     timed and split by kernel."""
     import numpy as np
-    import torch
 
     from mlmicroservicetemplate_tpu_torch.ops.attention import decode_attention
     from mlmicroservicetemplate_tpu_torch.ops.paged_attention import paged_decode_attention
@@ -1286,27 +1409,34 @@ def phase_serve_stream(label: str, overrides: dict, params, ref_model, rehearsal
         wall_ms_per_chunk_dispatch=wall * 1e3 / max(1, loop.chunk_dispatches), **check,
     )
     if not rehearsal:
-        # One chunk of the slot state after the run, timed and split by
-        # kernel: every slot live at full width (all keys valid and, paged,
-        # a table of distinct pool blocks; a dead row's compute is a live
-        # row's), so the attention reads what 16 full streams would.
-        with torch.inference_mode(), engine._lock:
-            loop._state.key_valid.fill_(1)
-            if engine.paged_kv:
-                loop._table[:] = np.arange(loop._table.size).reshape(loop._table.shape) % \
-                    engine.kv_pool.num_blocks
-
-            def one_chunk():
-                loop._state, _ = loop._chunk_call()
-
-            out["chunk_wall_ms"] = cuda_ms(one_chunk, 10)
-            kernel = "paged_decode_attention" if engine.paged_kv else "decode_attention"
-            split = profile_split(one_chunk, 5, kernel, "attention")
-        busy = split["device_busy_ms"]
-        out.update({f"chunk_{k}": v for k, v in split.items()},
-                   chunk_busy_share=busy / out["chunk_wall_ms"] if busy else None)
+        out.update(time_chunk(engine, loop))
     emit(label, **out)
     return cfg, bundle, engine, k2, k3
+
+
+def time_chunk(engine, loop) -> dict:
+    """One chunk of the loop's slot state, timed (CUDA events) and split by
+    kernel (``torch.profiler``): every slot live at full width (all keys
+    valid and, paged, a table of distinct pool blocks; a dead row's compute
+    is a live row's), so the attention reads what full streams would."""
+    import numpy as np
+    import torch
+
+    with torch.inference_mode(), engine._lock:
+        loop._state.key_valid.fill_(1)
+        if engine.paged_kv:
+            loop._table[:] = np.arange(loop._table.size).reshape(loop._table.shape) % \
+                engine.kv_pool.num_blocks
+
+        def one_chunk():
+            loop._state, _ = loop._chunk_call()
+
+        wall_ms = cuda_ms(one_chunk, 10)
+        split = profile_split(one_chunk, 5, K3_KERNEL if engine.paged_kv else K2_KERNEL,
+                              "attention")
+    busy = split["device_busy_ms"]
+    return {"chunk_wall_ms": wall_ms, **{f"chunk_{k}": v for k, v in split.items()},
+            "chunk_busy_share": busy / wall_ms if busy else None}
 
 
 def phase_decode_step(bundle) -> None:
@@ -1324,7 +1454,7 @@ def phase_decode_step(bundle) -> None:
                 box[0], _ = bundle.generate_chunk(box[0], 1)
 
             wall_ms = cuda_ms(step, 10)  # 3 warm-up steps + 10
-            split = profile_split(step, 5, "decode_attention", "decode_attention")
+            split = profile_split(step, 5, K2_KERNEL, "decode_attention")
         busy = split["device_busy_ms"]
         emit("decode step", batch=b, cache_len=576, wall_ms=wall_ms,
              busy_share=busy / wall_ms if busy else None, **split)
@@ -1406,11 +1536,57 @@ def json_key(key: str):
     return read
 
 
+def perf_main() -> int:
+    """``--perf``: the phases that time the decode kernels, alone and inside
+    the decode step and the loop chunk; prints no result line.  Run from
+    the root of another tree's checkout, the same phases time that tree's
+    kernels, so two trees compare on one card, in turns."""
+    import torch
+
+    from mlmicroservicetemplate_tpu_torch.serve import build_service
+
+    phase = "env"
+    try:
+        if not torch.cuda.is_available():
+            print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
+            return 1
+        emit(phase, card=card(), torch=torch.__version__, cuda=torch.version.cuda, mode="perf")
+        phase = "build"
+        phase_build(require_mma=False)  # counted, not required: any tree's kernels
+        phase = "kernel decode_attention"
+        phase_decode_kernel()
+        phase = "kernel paged_decode_attention"
+        phase_paged_kernel()
+        phase = "decode step"
+        llama = {"MODEL_NAME": "llama", "DEVICE": "cuda", "WARMUP": "0",
+                 "BATCH_BUCKETS": "1,2,4,8,16", "SEQ_BUCKETS": "32,64,128,256"}
+        bundle = build_service(llama)[1]
+        phase_decode_step(bundle)
+        del bundle
+        for phase, paged in (("stream chunk", "1"), ("stream chunk contiguous", "0")):
+            torch.cuda.empty_cache()
+            _, bundle, engine, batcher = build_service(
+                {**llama, "PAGED_KV": paged, "KV_BLOCK_SIZE": str(PAGE), "MAX_STREAMS": "16",
+                 "MAX_DECODE_LEN": "64"})
+            batcher.warm_streams()
+            emit(phase, paged=engine.paged_kv, **time_chunk(engine, batcher._cdl))
+            del bundle, engine, batcher
+    except Exception as e:
+        traceback.print_exc()
+        emit(phase, ok=False, error=f"{type(e).__name__}: {e}")
+        return 1
+    return 0
+
+
 def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
                     help="skip build and kernel phases; serve on the CPU at small buckets")
+    ap.add_argument("--perf", action="store_true",
+                    help="only the decode kernels' phases, the decode step and a loop chunk")
     args = ap.parse_args(argv)
+    if args.perf:
+        return perf_main()
     rehearsal = args.cpu_rehearsal
     phase = "env"
     try:
@@ -1552,6 +1728,8 @@ def main(argv: list[str]) -> int:
             "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_us"] / 1e3, "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "dtype": row["dtype"], "shape": row["shape"],
+            **{key: row[key] for key in ("device_us", "host_us", "library_device_us")
+               if key in row},
             **extra,
         }
 

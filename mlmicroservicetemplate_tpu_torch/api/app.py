@@ -136,7 +136,22 @@ async def _on_cleanup(app: web.Application) -> None:
     await app[K_BATCHER].stop()
 
 
-def _deadline_field(request: web.Request) -> dict:
+def _sched_fields(request: web.Request) -> dict:
+    """X-Priority / X-Deadline-Ms headers -> the scheduling fields of the
+    feats dict.  Every request is interactive: ``X-Priority: batch``
+    answers 400 (priority classes are not ported), as does a value the
+    JAX package refuses.  A request without X-Deadline-Ms takes the
+    batcher's DEADLINE_MS."""
+    p = request.headers.get("X-Priority")
+    if p is not None:
+        p = p.strip().lower()
+        if p not in ("interactive", "batch"):
+            raise web.HTTPBadRequest(reason='X-Priority must be "interactive" or "batch"')
+        if p == "batch":
+            raise web.HTTPBadRequest(
+                reason="X-Priority: batch is not ported yet; priority classes are not "
+                       "served, every request is interactive"
+            )
     d = request.headers.get("X-Deadline-Ms")
     if d is None:
         return {}
@@ -225,7 +240,7 @@ async def handle_predict(request: web.Request) -> web.Response:
             item.stream = True
         if generative:
             _reject_unported(item)
-        sched = _deadline_field(request)
+        sched = _sched_fields(request)
     except web.HTTPBadRequest:
         metrics.REQUESTS.labels(bundle.name, "400").inc()
         raise
@@ -604,7 +619,7 @@ async def handle_completions(request: web.Request) -> web.StreamResponse:
             "stop": body.get("stop"),
         })
         _reject_unported(item)
-        sched = _deadline_field(request)
+        sched = _sched_fields(request)
     except web.HTTPBadRequest:
         metrics.REQUESTS.labels(bundle.name, "400").inc()
         raise

@@ -3,12 +3,15 @@ versions.
 
 - ``fused_attention`` (K1): encoder self-attention, ``csrc/fused_attention.cu``.
 - ``decode_attention`` (K2): one decode step's attention over a contiguous
-  KV cache, dense or int8, grouped-query; ``csrc/decode_attention.cu``,
-  replacing the Pallas kernel ``decode_attention`` of the JAX package's
-  ``ops/attention.py`` (bodies ``_decode_body``, ``_decode_body_v``).  One
-  CTA per (batch row, KV head) reads that head's K/V slab once and serves
-  all the query heads of its group; the source's header says what bounds
-  it.  ``decode_attention.launches`` counts its launches.
+  KV cache, dense or int8, grouped-query; ``csrc/decode_attention.cu`` on
+  the decode core ``csrc/decode_sm90.cuh``, replacing the Pallas kernel
+  ``decode_attention`` of the JAX package's ``ops/attention.py`` (bodies
+  ``_decode_body``, ``_decode_body_v``).  Each CTA reads one (batch row, KV
+  head, key split)'s share of the K/V slab once and serves all the query
+  heads of its group; ``split_plan`` picks the splits from the shapes; the
+  headers say what bounds it.  The wrapper builds each call signature's
+  plan (checks, strides, splits) once.  ``decode_attention.launches``
+  counts its calls that launched.
 
 K1 replaces the Pallas TPU kernel ``mlmicroservicetemplate_tpu/ops/attention.py``
 (``_attn_body``, launched by its ``fused_attention``).  The kernel lives in
@@ -30,7 +33,10 @@ version (``fused_attention_ref``, ``decode_attention_ref``).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
+import struct
+import threading
 
 import torch
 
@@ -276,21 +282,167 @@ def _check_decode(q, k, v, mask, k_scale, v_scale) -> None:
                 )
 
 
-def _bind_decode(lib: ctypes.CDLL) -> None:
-    fn = lib.decode_attention_forward
-    if fn.argtypes is None:
-        p = ctypes.c_void_p
-        i = ctypes.c_int
-        fn.argtypes = [
-            p, p, p, p, p, p, p,  # q, k, v, k_scale, v_scale, mask, out
-            i, i, i,  # q dtype, kv dtype, scale dtype
-            i, i, i, i, i,  # batch, cache length, heads, kv heads, head_dim
-            ctypes.POINTER(ctypes.c_longlong),  # strides
-            ctypes.c_float, i, p,  # scale, device, stream
-        ]
-        fn.restype = i
-        lib.decode_attention_error_string.argtypes = [i]
-        lib.decode_attention_error_string.restype = ctypes.c_char_p
+# The decode kernels' key split (csrc/decode_sm90.cuh): 64-key tiles, at most
+# MAX_SPLIT_TILES a split, and enough splits that the grid (KV head, row,
+# split) holds about two CTAs for each of an H100's 132 SMs.
+SPLIT_TILE = 64
+MAX_SPLIT_TILES = 16
+TARGET_CTAS = 2 * 132
+
+
+def split_plan(batch: int, kv_heads: int, n_keys: int, unit_tiles: int = 1) -> tuple[int, int]:
+    """(splits, tiles per split) of the decode kernels' grid, from the shapes
+    alone: a split holds a whole number of ``unit_tiles`` tiles (the paged
+    kernel's unit is a whole number of blocks), at most MAX_SPLIT_TILES
+    tiles, every split holds a key, and the splits cover every key."""
+    n_tiles = -(-n_keys // SPLIT_TILE)
+    units = -(-n_tiles // unit_tiles)
+    want = -(-TARGET_CTAS // (batch * kv_heads))
+    least = -(-units // (MAX_SPLIT_TILES // unit_tiles))
+    per = -(-units // min(units, max(want, least)))
+    return -(-units // per), per * unit_tiles
+
+
+@dataclasses.dataclass(frozen=True)
+class _Plan:
+    """What one call signature of a decode kernel needs, built once: the
+    entry point's plan array (dtype codes, shapes, splits, device, element
+    strides; its layout is in the .cu source) and what the wrapper
+    allocates."""
+
+    args: ctypes.Array  # the plan array, c_longlong
+    splits: int
+    split_tiles: int
+    ws_numel: int  # f32 partials past one split, else 0
+    out_shape: tuple[int, int, int]
+    out_dtype: torch.dtype
+    device: int
+    scale: float  # the default 1 / sqrt(D)
+    cast_keep: bool  # the mask / key_valid (and table) go to contiguous int32 first
+
+    @property
+    def address(self) -> int:
+        return ctypes.addressof(self.args)
+
+    def allocate(self) -> tuple[torch.Tensor, int]:
+        """The output and the address of the partials' workspace (0 at one
+        split): one ``torch.empty`` whose head is the output and whose tail,
+        16-byte aligned (the output is whole 64-wide rows), the workspace."""
+        if not self.ws_numel:
+            return torch.empty(self.out_shape, dtype=self.out_dtype, device=self.device), 0
+        n_out = math.prod(self.out_shape)
+        el = self.out_dtype.itemsize
+        buf = torch.empty(n_out + -(-self.ws_numel * 4 // el), dtype=self.out_dtype,
+                          device=self.device)
+        return buf[:n_out].view(self.out_shape), buf.data_ptr() + n_out * el
+
+
+_PLAN_CACHE_MAX = 256
+
+
+def _signature(q, k, v, keep, *rest) -> tuple:
+    """What a plan depends on: each tensor's shape, strides, dtype and
+    device (the int8 scales' only where given)."""
+    return (q.shape, q.stride(), q.dtype, q.get_device(), k.shape, k.stride(), k.dtype,
+            k.get_device(), v.shape, v.stride(), v.dtype, v.get_device(), keep.shape,
+            keep.stride(), keep.dtype, keep.get_device(),
+            *((t.shape, t.stride(), t.dtype, t.get_device()) for t in rest if t is not None))
+
+
+def _check_aligned(name: str, **tensors) -> None:
+    for what, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {what} is not 16-byte aligned")
+
+
+_tls = threading.local()
+_PACK = {n: struct.Struct(f"{n}Q").pack_into for n in (9, 10)}
+
+
+def _pointers(*values: int) -> int:
+    """The address of this thread's array of up to 10 call addresses, filled
+    with ``values`` (0 for an absent tensor)."""
+    try:
+        arr, address = _tls.ptrs
+    except AttributeError:
+        arr = (ctypes.c_uint64 * 10)()
+        address = ctypes.addressof(arr)
+        _tls.ptrs = arr, address
+    _PACK[len(values)](arr, 0, *values)
+    return address
+
+
+def _stream(device: int) -> int:
+    """The current CUDA stream of ``device``, as an address."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    return raw(device) if raw is not None else torch.cuda.current_stream(device).cuda_stream
+
+
+def _bind_run(lib: ctypes.CDLL, name: str) -> None:
+    """Argument types of ``<name>_run(ptrs, plan, scale)`` and its error
+    string, bound once when the library loads."""
+    fn = getattr(lib, f"{name}_run")
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float]
+    fn.restype = ctypes.c_int
+    err = getattr(lib, f"{name}_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+
+
+_decode_plans: dict[tuple, _Plan] = {}
+
+
+def _decode_plan(q, k, v, mask, k_scale=None, v_scale=None) -> _Plan:
+    """The launch plan of ``decode_attention`` for these inputs: on the first
+    call of a signature (shapes, dtypes, strides, devices) the full
+    ``_check_decode``; on every call the checks that depend on the data
+    (16-byte alignment of the K/V rows)."""
+    key = _signature(q, k, v, mask, k_scale, v_scale)
+    plan = _decode_plans.get(key)
+    if plan is not None:
+        if k.data_ptr() % 16 or v.data_ptr() % 16:
+            _check_aligned("decode_attention", k=k, v=v)
+        return plan
+    _check_decode(q, k, v, mask, k_scale, v_scale)
+    b, h, d = q.shape
+    _, t, kvh, _ = k.shape
+    cast = mask.dtype != torch.int32 or mask.stride(1) != 1
+    quant = k_scale is not None
+    sc_strides = (k_scale.stride()[:3] + v_scale.stride()[:3]) if quant else (0,) * 6
+    splits, split_tiles = split_plan(b, kvh, t)
+    device = q.get_device()
+    plan = _Plan(
+        args=(ctypes.c_longlong * 28)(
+            _DTYPE_CODE[q.dtype], _KV_CODE[k.dtype],
+            _DTYPE_CODE[k_scale.dtype] if quant else -1,
+            b, t, h, kvh, d, splits, split_tiles, device,
+            *q.stride()[:2], *k.stride()[:3], *v.stride()[:3], *sc_strides,
+            h * d, d, t if cast else mask.stride(0),
+        ),
+        splits=splits, split_tiles=split_tiles,
+        ws_numel=b * h * splits * (d + 2) if splits > 1 else 0,
+        out_shape=(b, h, d), out_dtype=q.dtype, device=device,
+        scale=1.0 / math.sqrt(d), cast_keep=cast,
+    )
+    if len(_decode_plans) >= _PLAN_CACHE_MAX:
+        _decode_plans.clear()
+    _decode_plans[key] = plan
+    return plan
+
+
+_decode_lib: ctypes.CDLL | None = None
+
+
+def _load_decode() -> ctypes.CDLL:
+    """The built K2 library, its argument types bound once."""
+    global _decode_lib
+    if _decode_lib is None:
+        from ._build import load_library
+
+        lib = load_library("decode_attention")
+        _bind_run(lib, "decode_attention")
+        _decode_lib = lib
+    return _decode_lib
 
 
 def decode_attention(
@@ -305,37 +457,25 @@ def decode_attention(
     """One decode step's attention over the KV cache; returns [B, H, D]
     in q's type.
 
-    CUDA tensors launch the kernel (``csrc/decode_attention.cu``) or
-    raise; CPU tensors take ``decode_attention_ref``."""
+    CUDA tensors launch the kernel (``csrc/decode_attention.cu``: the split
+    kernel, and past one split the combine, on the current stream; the
+    host reads nothing back) or raise; CPU tensors take
+    ``decode_attention_ref``."""
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, mask, k_scale, v_scale, scale)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
-    _check_decode(q, k, v, mask, k_scale, v_scale)
-    from ._build import load_library
-
-    lib = load_library("decode_attention")
-    _bind_decode(lib)
-    b, h, d = q.shape
-    _, t, kvh, _ = k.shape
-    if scale is None:
-        scale = 1.0 / math.sqrt(d)
-    if mask.dtype != torch.int32 or mask.stride(1) != 1:
+    plan = _decode_plan(q, k, v, mask, k_scale, v_scale)
+    lib = _load_decode()
+    if plan.cast_keep:
         mask = mask.to(torch.int32).contiguous()
-    out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
+    out, ws = plan.allocate()
     quant = k_scale is not None
-    sc_strides = (k_scale.stride()[:3] + v_scale.stride()[:3]) if quant else (0,) * 6
-    strides = (ctypes.c_longlong * 17)(
-        *q.stride()[:2], *k.stride()[:3], *v.stride()[:3], *sc_strides,
-        *out.stride()[:2], mask.stride(0),
-    )
-    rc = lib.decode_attention_forward(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        k_scale.data_ptr() if quant else None, v_scale.data_ptr() if quant else None,
-        mask.data_ptr(), out.data_ptr(),
-        _DTYPE_CODE[q.dtype], _KV_CODE[k.dtype], _DTYPE_CODE[k_scale.dtype] if quant else -1,
-        b, t, h, kvh, d, strides, float(scale), q.device.index,
-        torch.cuda.current_stream(q.device).cuda_stream,
+    rc = lib.decode_attention_run(
+        _pointers(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  k_scale.data_ptr() if quant else 0, v_scale.data_ptr() if quant else 0,
+                  mask.data_ptr(), out.data_ptr(), ws, _stream(plan.device)),
+        plan.address, plan.scale if scale is None else scale,
     )
     if rc != 0:
         msg = lib.decode_attention_error_string(rc).decode()

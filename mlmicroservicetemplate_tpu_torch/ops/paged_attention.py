@@ -11,11 +11,14 @@ position ``p`` of row ``b`` lives at ``pool[table[b, p // BS], p % BS]``.
 - ``paged_attention_ref``: the plain version (gather the dense view,
   dequantize, masked f32 softmax with masked keys at -1e30).
 - ``paged_decode_attention``: the wrapper.  CUDA tensors launch the
-  hand-written kernel ``csrc/paged_decode_attention.cu`` (replacing the
-  Pallas kernel ``paged_decode_attention`` of the JAX package, bodies
-  ``_paged_kernel_v`` and ``_fold_block``) or raise; CPU tensors take
-  ``paged_attention_ref``.  ``paged_decode_attention.launches`` counts its
-  launches.  The source's header says what bounds the kernel.
+  hand-written kernel ``csrc/paged_decode_attention.cu`` on the decode core
+  ``csrc/decode_sm90.cuh`` that K2 shares (replacing the Pallas kernel
+  ``paged_decode_attention`` of the JAX package, bodies ``_paged_kernel_v``
+  and ``_fold_block``) or raise; CPU tensors take ``paged_attention_ref``.
+  The table splits across CTAs in whole blocks (``block_unit_tiles``,
+  ``split_plan``); each call signature's plan is built once.
+  ``paged_decode_attention.launches`` counts its launches.  The sources'
+  headers say what bounds the kernel.
 
 The Pallas kernel's tuning variants, its TP sharding wrapper and its
 autotuner are TPU tuning points of the same function and are not carried.
@@ -28,7 +31,22 @@ import math
 
 import torch
 
-from .attention import _DTYPE_CODE, _KV_CODE, HEAD_DIM, MAX_GROUP
+from .attention import (
+    _DTYPE_CODE,
+    _KV_CODE,
+    HEAD_DIM,
+    MAX_GROUP,
+    MAX_SPLIT_TILES,
+    SPLIT_TILE,
+    _bind_run,
+    _check_aligned,
+    _Plan,
+    _PLAN_CACHE_MAX,
+    _pointers,
+    _signature,
+    _stream,
+    split_plan,
+)
 
 
 def gather_pages(pool: torch.Tensor, table: torch.Tensor, block_size: int) -> torch.Tensor:
@@ -171,22 +189,70 @@ def _check(q, k_pool, v_pool, table, key_valid, block_size, k_scale, v_scale) ->
                 )
 
 
-def _bind(lib: ctypes.CDLL) -> None:
-    fn = lib.paged_decode_attention_forward
-    if fn.argtypes is None:
-        p = ctypes.c_void_p
-        i = ctypes.c_int
-        fn.argtypes = [
-            p, p, p, p, p, p, p, p,  # q, k, v, k_scale, v_scale, table, key_valid, out
-            i, i, i,  # q dtype, kv dtype, scale dtype
-            # batch, blocks, block size, table width, heads, kv heads, head_dim
-            i, i, i, i, i, i, i,
-            ctypes.POINTER(ctypes.c_longlong),  # strides
-            ctypes.c_float, i, p,  # scale, device, stream
-        ]
-        fn.restype = i
-        lib.paged_decode_attention_error_string.argtypes = [i]
-        lib.paged_decode_attention_error_string.restype = ctypes.c_char_p
+def block_unit_tiles(block_size: int) -> int:
+    """Tiles of a paged split's unit: the fewest 64-key tiles that hold a
+    whole number of blocks (1 where that would pass the split's cap)."""
+    unit = SPLIT_TILE * block_size // math.gcd(SPLIT_TILE, block_size) // SPLIT_TILE
+    return unit if unit <= MAX_SPLIT_TILES else 1
+
+
+_paged_plans: dict[tuple, _Plan] = {}
+
+
+def _paged_plan(q, k_pool, v_pool, table, key_valid, block_size, k_scale=None,
+                v_scale=None) -> _Plan:
+    """The launch plan of ``paged_decode_attention`` for these inputs: on the
+    first call of a signature the full ``_check``; on every call the pools'
+    16-byte alignment."""
+    key = (block_size,) + _signature(q, k_pool, v_pool, table, key_valid, k_scale, v_scale)
+    plan = _paged_plans.get(key)
+    if plan is not None:
+        if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+            _check_aligned("paged_decode_attention", k_pool=k_pool, v_pool=v_pool)
+        return plan
+    _check(q, k_pool, v_pool, table, key_valid, block_size, k_scale, v_scale)
+    b, h, d = q.shape
+    nb, bs, kvh, _ = k_pool.shape
+    t = table.shape[1]
+    # one flag casts both; a cast of a contiguous int32 tensor is no copy
+    cast = (table.dtype != torch.int32 or table.stride(1) != 1
+            or key_valid.dtype != torch.int32 or key_valid.stride(1) != 1)
+    quant = k_scale is not None
+    sc_strides = (k_scale.stride()[:3] + v_scale.stride()[:3]) if quant else (0,) * 6
+    splits, split_tiles = split_plan(b, kvh, t * bs, block_unit_tiles(bs))
+    device = q.get_device()
+    plan = _Plan(
+        args=(ctypes.c_longlong * 31)(
+            _DTYPE_CODE[q.dtype], _KV_CODE[k_pool.dtype],
+            _DTYPE_CODE[k_scale.dtype] if quant else -1,
+            b, nb, bs, t, h, kvh, d, splits, split_tiles, device,
+            *q.stride()[:2], *k_pool.stride()[:3], *v_pool.stride()[:3], *sc_strides,
+            h * d, d, t if cast else table.stride(0), t * bs if cast else key_valid.stride(0),
+        ),
+        splits=splits, split_tiles=split_tiles,
+        ws_numel=b * h * splits * (d + 2) if splits > 1 else 0,
+        out_shape=(b, h, d), out_dtype=q.dtype, device=device,
+        scale=1.0 / math.sqrt(d), cast_keep=cast,
+    )
+    if len(_paged_plans) >= _PLAN_CACHE_MAX:
+        _paged_plans.clear()
+    _paged_plans[key] = plan
+    return plan
+
+
+_paged_lib: ctypes.CDLL | None = None
+
+
+def _load_paged() -> ctypes.CDLL:
+    """The built K3 library, its argument types bound once."""
+    global _paged_lib
+    if _paged_lib is None:
+        from ._build import load_library
+
+        lib = load_library("paged_decode_attention")
+        _bind_run(lib, "paged_decode_attention")
+        _paged_lib = lib
+    return _paged_lib
 
 
 def paged_decode_attention(
@@ -203,42 +269,28 @@ def paged_decode_attention(
     """One decode step's attention over the paged pool; returns [B, H, D]
     in q's type.
 
-    CUDA tensors launch the kernel (``csrc/paged_decode_attention.cu``) or
-    raise; CPU tensors take ``paged_attention_ref``."""
+    CUDA tensors launch the kernel (``csrc/paged_decode_attention.cu``: the
+    split kernel, and past one split the combine, on the current stream; the
+    host reads nothing back) or raise; CPU tensors take
+    ``paged_attention_ref``."""
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pool, v_pool, table, key_valid, block_size,
                                    k_scale, v_scale, scale)
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: unsupported device {q.device}")
-    _check(q, k_pool, v_pool, table, key_valid, block_size, k_scale, v_scale)
-    from ._build import load_library
-
-    lib = load_library("paged_decode_attention")
-    _bind(lib)
-    b, h, d = q.shape
-    nb, bs, kvh, _ = k_pool.shape
-    t = table.shape[1]
-    if scale is None:
-        scale = 1.0 / math.sqrt(d)
-    if table.dtype != torch.int32 or table.stride(1) != 1:
+    plan = _paged_plan(q, k_pool, v_pool, table, key_valid, block_size, k_scale, v_scale)
+    lib = _load_paged()
+    if plan.cast_keep:
         table = table.to(torch.int32).contiguous()
-    if key_valid.dtype != torch.int32 or key_valid.stride(1) != 1:
         key_valid = key_valid.to(torch.int32).contiguous()
-    out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
+    out, ws = plan.allocate()
     quant = k_scale is not None
-    sc_strides = (k_scale.stride()[:3] + v_scale.stride()[:3]) if quant else (0,) * 6
-    strides = (ctypes.c_longlong * 18)(
-        *q.stride()[:2], *k_pool.stride()[:3], *v_pool.stride()[:3], *sc_strides,
-        *out.stride()[:2], table.stride(0), key_valid.stride(0),
-    )
-    rc = lib.paged_decode_attention_forward(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        k_scale.data_ptr() if quant else None, v_scale.data_ptr() if quant else None,
-        table.data_ptr(), key_valid.data_ptr(), out.data_ptr(),
-        _DTYPE_CODE[q.dtype], _KV_CODE[k_pool.dtype],
-        _DTYPE_CODE[k_scale.dtype] if quant else -1,
-        b, nb, bs, t, h, kvh, d, strides, float(scale), q.device.index,
-        torch.cuda.current_stream(q.device).cuda_stream,
+    rc = lib.paged_decode_attention_run(
+        _pointers(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                  k_scale.data_ptr() if quant else 0, v_scale.data_ptr() if quant else 0,
+                  table.data_ptr(), key_valid.data_ptr(), out.data_ptr(), ws,
+                  _stream(plan.device)),
+        plan.address, plan.scale if scale is None else scale,
     )
     if rc != 0:
         msg = lib.paged_decode_attention_error_string(rc).decode()

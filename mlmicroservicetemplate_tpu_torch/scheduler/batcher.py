@@ -30,19 +30,20 @@ from .policy import DeadlineExceededError, DeadlineQueue, QueueFullError
 
 __all__ = ["Batcher", "DeadlineExceededError", "QueueFullError", "batch_results"]
 
-# Batches in flight at once: the next batch is collated and queued on the
-# host while the current one runs (the engine runs one forward at a time).
+# Batches in flight at once unless the config sets ``pipeline_depth``
+# (PIPELINE_DEPTH): the next batch is collated and queued on the host while
+# the current one runs (the engine runs one forward at a time).
 PIPELINE_DEPTH = 2
 
 
 class _QueuedCall:
     __slots__ = ("feats", "future", "t_in", "deadline")
 
-    def __init__(self, feats: dict, future: asyncio.Future):
+    def __init__(self, feats: dict, future: asyncio.Future, default_ms: float = 0.0):
         self.feats = feats
         self.future = future
         self.t_in = time.monotonic()
-        ms = feats.get("deadline_ms")
+        ms = feats.get("deadline_ms") or default_ms
         self.deadline = self.t_in + float(ms) / 1000.0 if ms else None
 
     def fail(self, exc: BaseException) -> None:
@@ -56,12 +57,15 @@ class Batcher:
         self.model = engine.bundle.name
         self.max_batch = int(cfg.max_batch)
         self.timeout_s = float(cfg.batch_timeout_ms) / 1000.0
+        # DEADLINE_MS: the deadline of an item that brings none
+        self.default_deadline_ms = float(getattr(cfg, "deadline_ms", 0.0) or 0.0)
+        self.pipeline_depth = int(getattr(cfg, "pipeline_depth", PIPELINE_DEPTH))
         self._queue = DeadlineQueue(cfg.max_queue)
         self._wake = asyncio.Event()
         self._executor = ThreadPoolExecutor(
-            max_workers=PIPELINE_DEPTH, thread_name_prefix="dispatch"
+            max_workers=self.pipeline_depth, thread_name_prefix="dispatch"
         )
-        self._dispatch_sem = asyncio.Semaphore(PIPELINE_DEPTH)
+        self._dispatch_sem = asyncio.Semaphore(self.pipeline_depth)
         self._batch_ewma_s = 0.05  # behind the Retry-After guidance on 503s
         self._task: asyncio.Task | None = None
         self._inflight: set[asyncio.Task] = set()
@@ -137,7 +141,7 @@ class Batcher:
             raise QueueFullError("draining", reason="drain",
                                  retry_after_s=self.retry_after_s())
         fut = asyncio.get_running_loop().create_future()
-        item = _QueuedCall(feats, fut)
+        item = _QueuedCall(feats, fut, self.default_deadline_ms)
         try:
             self._queue.put(item)
         except QueueFullError as e:

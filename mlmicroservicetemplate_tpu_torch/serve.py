@@ -58,7 +58,7 @@ def build_service(overrides: dict | None = None, params=None):
     )
     from .utils import tracing
 
-    tracing.configure(cfg.trace)
+    tracing.configure(cfg.trace, cfg.trace_ring)
 
     from .engine.engine import InferenceEngine
     from .models.registry import build_model
@@ -72,7 +72,7 @@ def build_service(overrides: dict | None = None, params=None):
 
 async def _serve_until_signalled(app, cfg, grace_s: float = 30.0) -> None:
     """Serve; on SIGTERM/SIGINT drain (readyz -> 503, in-flight work
-    finishes within ``grace_s``) and exit."""
+    finishes within ``grace_s``, ``DRAIN_GRACE_S``) and exit."""
     import asyncio
     import signal
 
@@ -105,7 +105,7 @@ def main(argv: list[str] | None = None) -> None:
         "serving %s on %s:%d (device=%s, max_batch=%d)",
         bundle.name, cfg.host, cfg.port, cfg.device, cfg.max_batch,
     )
-    asyncio.run(_serve_until_signalled(app, cfg))
+    asyncio.run(_serve_until_signalled(app, cfg, cfg.drain_grace_s))
 
 
 if __name__ == "__main__":

@@ -49,8 +49,18 @@ class ServiceConfig:
     # Run every (batch, seq) bucket once before reporting ready.
     warmup: bool = True
     log_level: str = "INFO"
-    # TRACE=1 records request / queue-wait / dispatch spans.
+    # TRACE=1 records request / queue-wait / dispatch spans, the newest
+    # trace_ring of them.
     trace: bool = False
+    trace_ring: int = 4096
+    # Batches in flight at once: the next batch is collated and queued on
+    # the host while the current one runs (the engine runs one forward at
+    # a time).  The JAX package's default is 8.
+    pipeline_depth: int = 2
+    # Deadline of a request that carries no X-Deadline-Ms header; 0 = none.
+    deadline_ms: float = 0.0
+    # Seconds the SIGTERM drain waits for queued and in-flight work.
+    drain_grace_s: float = 30.0
     # Generative models: decode budget per request (rounded up to whole
     # chunks), and decode steps between the engine's checks for finished
     # rows (one device-to-host read per chunk).
@@ -104,6 +114,10 @@ class ServiceConfig:
             raise ValueError("KV_BLOCK_SIZE must be in [1, 1024]")
         if self.sp < 0:
             raise ValueError(f"SP must be >= 0, got {self.sp}")
+        if self.pipeline_depth < 1 or self.trace_ring < 1:
+            raise ValueError("PIPELINE_DEPTH and TRACE_RING must be >= 1")
+        if not (self.deadline_ms >= 0 and self.drain_grace_s >= 0):  # also rejects NaN
+            raise ValueError("DEADLINE_MS and DRAIN_GRACE_S must be >= 0")
         object.__setattr__(self, "seq_buckets", _align_paged_seq_buckets(self))
 
 
@@ -121,32 +135,137 @@ def _flag(v: str) -> bool:
     return v.lower() not in ("0", "false", "no")
 
 
+_OFF = ("0", "false", "no")
+_ON = ("1", "true", "yes")
+
 # Knobs of the JAX package this port does not serve yet, with the values
-# that leave them off.  Setting one raises instead of serving without it.
+# that leave them off (for a knob read only under another one, its JAX
+# default).  Setting one to any other value raises instead of serving
+# without it.
 UNPORTED_KNOBS = {
     "PROMPT_PREFIX": (),
-    "PREFIX_CACHE": ("0", "false", "no"),
-    "SPEC_DECODE": ("none", "0", "false", "no"),
+    "PREFIX_CACHE": _OFF,
+    "PREFIX_CACHE_MB": ("256",),
+    "SPEC_DECODE": ("none",) + _OFF,
+    "SPEC_K": ("8",),
+    "SPEC_NGRAM": ("2",),
+    "SPEC_MAX_STREAMS": ("1",),
+    "SPEC_SAMPLED": _ON,
+    "SPEC_CONTINUOUS": _OFF,
     "PREFILL_CHUNK": ("0",),
+    "PREFILL_BUDGET": ("0",),
+    "PREFILL_MAX_PROMPT": ("0",),
     "DECODE_WINDOW": ("1",),
+    "DECODE_WINDOW_AUTO": _ON,
     "TP": ("0", "1"),
-    "QUANTIZE": ("none", "0", "false", "no"),
+    "QUANTIZE": ("none",) + _OFF,
     "ADAPTER_DIR": (),
+    "ADAPTER_SLOTS": ("8",),
     # The continuous loop runs one chunk in flight (0 = auto picks that on
-    # a directly attached card) and holds a pool sized for MAX_STREAMS
-    # worst cases; its other knobs wait for later slices.
+    # a directly attached card), preps each chunk after the last one, and
+    # holds a pool sized for MAX_STREAMS worst cases; its other knobs wait
+    # for later slices.
     "STREAM_PIPELINE": ("0", "1"),
-    "KV_BUDGET_MB": ("0", "0.0"),
+    "HOST_PREP_DOUBLE": _OFF,
+    "KV_BUDGET_MB": ("0",),
     "MAX_STREAM_QUEUE": ("0",),
-    "KV_HOST_BUDGET_MB": ("0", "0.0"),
-    "KV_DISK_BUDGET_MB": ("0", "0.0"),
-    "FLEET_REPLICAS": ("0", "1"),
-    "SPEC_CONTINUOUS": ("0", "false", "no"),
+    "KV_HOST_BUDGET_MB": ("0",),
+    "KV_DISK_BUDGET_MB": ("0",),
+    "KV_PREFETCH_BLOCKS": ("4",),
     "JOURNAL_DIR": (),
+    "JOURNAL_FSYNC": ("always",),
+    # Priority classes: every request is interactive (X-Priority: batch
+    # answers 400), nothing is preempted.
+    "PRIORITY_DEFAULT": ("interactive",),
+    "CLASS_WEIGHT": ("4",),
+    "PREEMPT": _OFF,
+    # Parent registration (SERVER_URL starts it in the JAX app).
+    "SERVER_URL": (),
+    "REGISTER_HEARTBEAT_S": ("0",),
+    "TENANTS": (),
+    "TENANTS_FILE": (),
+    "TENANT_DEFAULT_WEIGHT": ("1",),
+    "TENANT_WINDOW_S": ("60",),
+    "TENANT_METRICS_TOPK": ("8",),
+    "JOBS_ENABLED": _OFF,
+    "JOB_MAX_CONCURRENT_LINES": ("4",),
+    "JOB_RESULT_TTL_S": ("3600",),
+    # Fault injection, dispatch watchdog and engine supervision.
+    "FAULT_SPEC": (),
+    "FAULT_SEED": ("0",),
+    "DISPATCH_TIMEOUT_S": ("0",),
+    "DISPATCH_RETRIES": ("2",),
+    "DISPATCH_BACKOFF_S": ("0.05",),
+    "ENGINE_RESTARTS_MAX": ("3",),
+    "ENGINE_RESTART_WINDOW_S": ("0",),
+    "SUPERVISE": _OFF,
     # Data-parallel replicas over several cards (ReplicaSet) and bert-long's
-    # 2-D ('replica', 'sp') mesh.
+    # 2-D ('replica', 'sp') mesh; the fleet router and its autoscaler.
     "REPLICAS": ("0", "1"),
+    "FLEET_REPLICAS": ("0", "1"),
+    "FLEET_ROUTE": ("least",),
+    "FLEET_BREAKER_N": ("3",),
+    "FLEET_EVICT_S": ("10",),
+    "FLEET_TP_GROUPS": (),
+    "FLEET_MIN_REPLICAS": ("0",),
+    "FLEET_MAX_REPLICAS": ("0",),
+    "SCALE_UP_QUEUE": ("2",),
+    "SCALE_UP_KV_FRAC": ("0.85",),
+    "SCALE_UP_TTFT_MS": ("0",),
+    "SCALE_UP_COOLDOWN_S": ("3",),
+    "SCALE_DOWN_LOAD": ("0.25",),
+    "SCALE_DOWN_COOLDOWN_S": ("10",),
+    "SCALE_PERIOD_S": ("0.5",),
+    "SCALE_UP_SLO_BURN": ("0",),
+    # Observability beyond /metrics and TRACE: the flight recorder, the
+    # profiler endpoint, JSON logs, utilisation gauges, SLO burn rates.
+    "FLIGHT_RING": ("256",),
+    "PROFILE_DIR": (),
+    "LOG_FORMAT": ("text",),
+    "PERF_OBS": _OFF,
+    "PEAK_TFLOPS": ("0",),
+    "LATENCY_BUCKETS": (),
+    "SLO_TTFT_MS": ("0",),
+    "SLO_TBT_MS": ("0",),
+    "SLO_BATCH_TTFT_MS": ("0",),
+    "SLO_BATCH_TBT_MS": ("0",),
+    "SLO_TARGET": ("0.99",),
+    "SLO_WINDOWS_S": ("60,600",),
 }
+
+# Knobs of the JAX package with no meaning on the card, each with the
+# reason; the port accepts and ignores them.
+INERT_KNOBS = {
+    "COMPILE_CACHE_DIR": "XLA's persistent compilation cache; the port's kernels "
+                         "are cached by source hash under build/torch_kernels",
+    "PALLAS_AUTOTUNE": "sweeps the Pallas kernels' TPU tuning variants; the CUDA "
+                       "kernels have one configuration",
+    "PALLAS_VARIANT": "names a Pallas tuning variant of the same function",
+    "PALLAS_INTERPRET": "runs Pallas kernels in interpret mode; CPU tensors take "
+                        "the plain PyTorch versions instead",
+    "PALLAS_SINGLE_BLOCK_MAX_SEQ": "caps the TPU encoder kernel's single VMEM block; "
+                                   "the CUDA kernel walks 128-key tiles at any length",
+    "DECODE_KERNEL_VMEM_BUDGET_MB": "TPU VMEM budget of the decode kernel's "
+                                    "whole-slab blocks; the CUDA kernels stream tiles",
+}
+
+
+def _is_off(value: str, off: tuple[str, ...]) -> bool:
+    """Whether ``value`` is one of ``off``, numbers compared as numbers."""
+    v = value.strip().lower()
+    if v in off:
+        return True
+    try:
+        x = float(v)
+    except ValueError:
+        return False
+    for o in off:
+        try:
+            if float(o) == x:
+                return True
+        except ValueError:
+            pass
+    return False
 
 
 def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
@@ -157,9 +276,10 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
     HOST, PORT, MAX_BATCH, BATCH_TIMEOUT_MS, MAX_QUEUE, BATCH_BUCKETS,
     SEQ_BUCKETS, WARMUP, LOG_LEVEL, TRACE, MAX_DECODE_LEN,
     STREAM_CHUNK_TOKENS, QUANT_KV, LLAMA_CONFIG, MAX_STREAMS, PAGED_KV,
-    KV_BLOCK_SIZE, SP.  Any of ``UNPORTED_KNOBS`` set to a value that turns it
+    KV_BLOCK_SIZE, SP, TRACE_RING, PIPELINE_DEPTH, DEADLINE_MS,
+    DRAIN_GRACE_S.  Any of ``UNPORTED_KNOBS`` set to a value that turns it
     on raises, as does ``CONTINUOUS_BATCHING=0`` (the per-stream decode
-    workers are not ported)."""
+    workers are not ported); ``INERT_KNOBS`` are accepted and ignored."""
     e = dict(os.environ)
     if overrides:
         e.update(overrides)
@@ -170,7 +290,7 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
 
     on = sorted(
         var for var, off in UNPORTED_KNOBS.items()
-        if get(var) is not None and get(var).strip().lower() not in off
+        if get(var) is not None and not _is_off(get(var), off)
     )
     if get("CONTINUOUS_BATCHING") is not None and not _flag(get("CONTINUOUS_BATCHING")):
         on.append("CONTINUOUS_BATCHING=0")
@@ -194,13 +314,16 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
                        ("max_queue", "MAX_QUEUE"), ("max_decode_len", "MAX_DECODE_LEN"),
                        ("stream_chunk_tokens", "STREAM_CHUNK_TOKENS"),
                        ("max_streams", "MAX_STREAMS"), ("kv_block_size", "KV_BLOCK_SIZE"),
-                       ("sp", "SP")):
+                       ("sp", "SP"), ("trace_ring", "TRACE_RING"),
+                       ("pipeline_depth", "PIPELINE_DEPTH")):
         v = get(var)
         if v is not None:
             kwargs[field] = int(v)
-    v = get("BATCH_TIMEOUT_MS")
-    if v is not None:
-        kwargs["batch_timeout_ms"] = float(v)
+    for field, var in (("batch_timeout_ms", "BATCH_TIMEOUT_MS"), ("deadline_ms", "DEADLINE_MS"),
+                       ("drain_grace_s", "DRAIN_GRACE_S")):
+        v = get(var)
+        if v is not None:
+            kwargs[field] = float(v)
     for field, var in (("batch_buckets", "BATCH_BUCKETS"), ("seq_buckets", "SEQ_BUCKETS")):
         v = get(var)
         if v is not None:

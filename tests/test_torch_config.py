@@ -1,6 +1,12 @@
 """The port's config, device layer, tokenizers and bucketing against the
 JAX package's, on the same inputs."""
 
+import asyncio
+import dataclasses
+import threading
+import time
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -163,3 +169,210 @@ def test_negative_sp_is_rejected():
 def test_bucket_for_with_a_multiple_matches_jax(n, multiple):
     for buckets in ((32, 64), (32, 36), (16, 24, 40)):
         assert bucket_for(n, buckets, multiple) == jax_bucket_for(n, buckets, multiple)
+
+
+# ---------------------------------------------------------------------------
+# Every knob the JAX load_config recognizes is read, refused or inert
+
+def _jax_knob_names() -> list[str]:
+    """The names of the JAX load_config's docstring list, and every name
+    its body reads."""
+    import inspect
+    import re
+
+    doc = jax_load_config.__doc__
+    listed = re.findall(r"\b[A-Z][A-Z0-9_]{2,}\b", doc[doc.index("Recognized"):])
+    read = re.findall(r'"([A-Z][A-Z0-9_]{2,})"', inspect.getsource(jax_load_config))
+    return sorted(set(listed) | set(read))
+
+
+# A value that asks for something other than what the port does when the
+# name is unset.  For PREEMPT, SUPERVISE, PERF_OBS and HOST_PREP_DOUBLE,
+# whose JAX default is on and which the port does not do, that is "1".
+NON_DEFAULT = {
+    "DEVICE": "cuda", "MODEL_NAME": "llama", "MODEL_PATH": "/w.npz",
+    "TOKENIZER_PATH": "/vocab.txt", "HOST": "127.0.0.1", "PORT": "8123",
+    "MAX_BATCH": "7", "BATCH_TIMEOUT_MS": "9", "MAX_QUEUE": "5", "REPLICAS": "2",
+    "SP": "2", "TP": "2", "MAX_DECODE_LEN": "12", "SERVER_URL": "http://127.0.0.1:9",
+    "WARMUP": "0", "LOG_LEVEL": "debug", "PIPELINE_DEPTH": "8", "MAX_STREAMS": "3",
+    "BATCH_BUCKETS": "1,4", "SEQ_BUCKETS": "16,48", "QUANTIZE": "int8",
+    "QUANT_KV": "int8", "REGISTER_HEARTBEAT_S": "5", "CONTINUOUS_BATCHING": "0",
+    "PROMPT_PREFIX": "You are", "SPEC_DECODE": "ngram", "SPEC_K": "4", "SPEC_NGRAM": "3",
+    "SPEC_MAX_STREAMS": "2", "SPEC_SAMPLED": "0", "SPEC_CONTINUOUS": "1",
+    "PREFIX_CACHE": "1", "PREFIX_CACHE_MB": "64", "PRIORITY_DEFAULT": "batch",
+    "DEADLINE_MS": "250", "CLASS_WEIGHT": "2", "KV_BUDGET_MB": "64",
+    "MAX_STREAM_QUEUE": "4", "PREEMPT": "1", "DRAIN_GRACE_S": "5", "PAGED_KV": "1",
+    "KV_BLOCK_SIZE": "32", "KV_HOST_BUDGET_MB": "128", "KV_DISK_BUDGET_MB": "128",
+    "JOURNAL_DIR": "/journal", "JOURNAL_FSYNC": "never", "KV_PREFETCH_BLOCKS": "2",
+    "JOBS_ENABLED": "1", "JOB_MAX_CONCURRENT_LINES": "2", "JOB_RESULT_TTL_S": "60",
+    "TENANTS": "a:1", "TENANTS_FILE": "/tenants.json", "TENANT_DEFAULT_WEIGHT": "2",
+    "TENANT_WINDOW_S": "30", "TENANT_METRICS_TOPK": "4", "ADAPTER_DIR": "/adapters",
+    "ADAPTER_SLOTS": "4", "PREFILL_CHUNK": "64", "PREFILL_BUDGET": "128",
+    "PREFILL_MAX_PROMPT": "256", "DECODE_WINDOW": "4", "DECODE_WINDOW_AUTO": "0",
+    "STREAM_PIPELINE": "2", "FAULT_SPEC": "dispatch:error:0.1", "FAULT_SEED": "7",
+    "DISPATCH_TIMEOUT_S": "5", "DISPATCH_RETRIES": "0", "DISPATCH_BACKOFF_S": "0.5",
+    "ENGINE_RESTARTS_MAX": "1", "ENGINE_RESTART_WINDOW_S": "60", "SUPERVISE": "1",
+    "FLEET_REPLICAS": "2", "FLEET_ROUTE": "round_robin", "FLEET_BREAKER_N": "5",
+    "FLEET_EVICT_S": "20", "FLEET_TP_GROUPS": "2", "FLEET_MIN_REPLICAS": "1",
+    "FLEET_MAX_REPLICAS": "4", "SCALE_UP_QUEUE": "4", "SCALE_UP_KV_FRAC": "0.5",
+    "SCALE_UP_TTFT_MS": "200", "SCALE_UP_COOLDOWN_S": "1", "SCALE_DOWN_LOAD": "0.1",
+    "SCALE_DOWN_COOLDOWN_S": "5", "SCALE_PERIOD_S": "1", "TRACE": "1", "TRACE_RING": "64",
+    "FLIGHT_RING": "32", "PROFILE_DIR": "/profiles", "LOG_FORMAT": "json",
+    "COMPILE_CACHE_DIR": "/cache", "HOST_PREP_DOUBLE": "1", "PERF_OBS": "1",
+    "PEAK_TFLOPS": "989", "LATENCY_BUCKETS": "0.1,1", "SLO_TTFT_MS": "500",
+    "SLO_TBT_MS": "50", "SLO_BATCH_TTFT_MS": "5000", "SLO_BATCH_TBT_MS": "500",
+    "SLO_TARGET": "0.9", "SLO_WINDOWS_S": "30,300", "SCALE_UP_SLO_BURN": "2",
+    "PALLAS_AUTOTUNE": "1", "PALLAS_VARIANT": "head_batched", "PALLAS_INTERPRET": "1",
+    "PALLAS_SINGLE_BLOCK_MAX_SEQ": "256", "DECODE_KERNEL_VMEM_BUDGET_MB": "20",
+}
+
+
+@pytest.mark.parametrize("name", _jax_knob_names())
+def test_every_jax_knob_is_read_refused_or_inert(name, monkeypatch):
+    """Each name the JAX package recognizes, set to a non-default value: the
+    port reads it (a ServiceConfig field changes), raises "not ported", or
+    lists it as inert with a reason.  A name the port has not classified
+    fails here."""
+    from mlmicroservicetemplate_tpu_torch.utils import config as port_config
+
+    assert name in NON_DEFAULT, f"{name}: a JAX knob this test gives no value"
+    for var in NON_DEFAULT:  # the process environment (e.g. WARMUP=0) stays out
+        monkeypatch.delenv(var, raising=False)
+    base_env = {"DEVICE": "cpu"}
+    env = {**base_env, name: NON_DEFAULT[name]}
+    if name in port_config.UNPORTED_KNOBS or name == "CONTINUOUS_BATCHING":
+        assert name not in port_config.INERT_KNOBS
+        with pytest.raises(ValueError, match=f"{name}.*not ported"):
+            load_config(env)
+        return
+    got = dataclasses.asdict(load_config(env))
+    base = dataclasses.asdict(load_config(base_env))
+    if name in port_config.INERT_KNOBS:
+        assert port_config.INERT_KNOBS[name].strip()
+        assert got == base
+    else:
+        assert got != base, f"{name}: neither read, refused nor listed as inert"
+
+
+@pytest.mark.parametrize("name", ["PREEMPT", "SUPERVISE", "PERF_OBS", "HOST_PREP_DOUBLE"])
+def test_knobs_the_port_leaves_off_accept_off(name):
+    """The JAX default of these is on; the port does none of them, so it
+    takes their off value and refuses the on one."""
+    assert load_config({"DEVICE": "cpu", name: "0"}).device == "cpu"
+    with pytest.raises(ValueError, match="not ported"):
+        load_config({"DEVICE": "cpu", name: "true"})
+
+
+def test_numeric_off_values_compare_as_numbers():
+    assert load_config({"DEVICE": "cpu", "KV_BUDGET_MB": "0.0", "SCALE_UP_QUEUE": "2.0",
+                        "FLEET_EVICT_S": "10"}).device == "cpu"
+    with pytest.raises(ValueError, match="SCALE_UP_KV_FRAC"):
+        load_config({"DEVICE": "cpu", "SCALE_UP_KV_FRAC": "0.86"})
+
+
+def test_read_knobs_reach_the_service():
+    """PIPELINE_DEPTH sizes the batcher's dispatch slots, DEADLINE_MS is
+    its default deadline, TRACE_RING the tracer's ring, DRAIN_GRACE_S the
+    drain's wait; the defaults stay the port's (2, none, 4096, 30 s)."""
+    from mlmicroservicetemplate_tpu_torch.scheduler.batcher import Batcher
+
+    engine = types.SimpleNamespace(bundle=types.SimpleNamespace(name="fake"))
+    cfg = load_config({"DEVICE": "cpu", "PIPELINE_DEPTH": "5", "DEADLINE_MS": "40",
+                       "DRAIN_GRACE_S": "2.5", "TRACE_RING": "64"})
+    batcher = Batcher(engine, cfg)
+    assert (batcher.pipeline_depth, batcher.default_deadline_ms) == (5, 40.0)
+    assert cfg.drain_grace_s == 2.5 and cfg.trace_ring == 64
+    default = load_config({"DEVICE": "cpu"})
+    assert (default.pipeline_depth, default.deadline_ms, default.drain_grace_s,
+            default.trace_ring) == (2, 0.0, 30.0, 4096)
+    assert Batcher(engine, default).pipeline_depth == 2
+    for bad in ({"PIPELINE_DEPTH": "0"}, {"DEADLINE_MS": "-1"}, {"DRAIN_GRACE_S": "nan"}):
+        with pytest.raises(ValueError):
+            load_config({"DEVICE": "cpu", **bad})
+
+
+class _HeldEngine:
+    """Answers each item with its id once ``release`` is set."""
+
+    def __init__(self):
+        self.bundle = types.SimpleNamespace(name="fake")
+        self.release = threading.Event()
+
+    def run_batch(self, feats):
+        self.release.wait(5.0)
+        return [np.array([f["id"]], np.float32) for f in feats]
+
+
+def test_deadline_ms_is_the_deadline_of_a_request_without_one():
+    """With DEADLINE_MS=60, an item queued behind a held dispatch and
+    bringing no deadline of its own is shed (504) after ~60 ms; one that
+    brings its own longer deadline waits and is served."""
+    from mlmicroservicetemplate_tpu_torch.scheduler.batcher import (
+        Batcher,
+        DeadlineExceededError,
+    )
+
+    cfg = load_config({"DEVICE": "cpu", "DEADLINE_MS": "60", "PIPELINE_DEPTH": "1",
+                       "MAX_BATCH": "1", "BATCH_TIMEOUT_MS": "0"})
+    engine = _HeldEngine()
+
+    async def main():
+        batcher = Batcher(engine, cfg)
+        await batcher.start()
+        try:
+            first = asyncio.ensure_future(batcher.submit({"id": 0}))
+            await asyncio.sleep(0.05)  # the first holds the only dispatch slot
+            t0 = time.monotonic()
+            defaulted = asyncio.ensure_future(batcher.submit({"id": 1}))
+            own = asyncio.ensure_future(batcher.submit({"id": 2, "deadline_ms": 5000.0}))
+            with pytest.raises(DeadlineExceededError):
+                await defaulted
+            shed_after = time.monotonic() - t0
+            engine.release.set()
+            return shed_after, await first, await own
+        finally:
+            engine.release.set()
+            await batcher.stop()
+
+    shed_after, first, own = asyncio.run(main())
+    assert 0.05 <= shed_after < 2.0
+    assert int(first[0]) == 0 and int(own[0]) == 2
+
+
+TINY_LLAMA = ('{"vocab_size": 512, "d_model": 64, "num_heads": 4, "num_kv_heads": 2, '
+              '"num_layers": 1, "d_ff": 128}')
+
+
+@pytest.mark.parametrize("priority,status", [(None, 200), ("interactive", 200),
+                                             ("Interactive", 200), ("batch", 400),
+                                             ("urgent", 400)])
+def test_x_priority_header(priority, status):
+    """Every request is interactive: X-Priority interactive (or none) is
+    served, batch answers 400 saying priority classes are not ported, and
+    any other value answers 400 with the JAX package's reason."""
+    from aiohttp.test_utils import TestClient, TestServer
+
+    from mlmicroservicetemplate_tpu_torch.api.app import build_app
+    from mlmicroservicetemplate_tpu_torch.serve import build_service
+
+    cfg, bundle, engine, batcher = build_service(
+        {"DEVICE": "cpu", "MODEL_NAME": "llama", "LLAMA_CONFIG": TINY_LLAMA, "WARMUP": "0",
+         "MAX_DECODE_LEN": "4", "SEQ_BUCKETS": "32", "BATCH_BUCKETS": "1"})
+
+    async def main():
+        client = TestClient(TestServer(build_app(cfg, bundle, engine, batcher)))
+        await client.start_server()
+        try:
+            headers = {} if priority is None else {"X-Priority": priority}
+            resp = await client.post("/predict", json={"text": "hi", "max_tokens": 2},
+                                     headers=headers)
+            return resp.status, resp.reason
+        finally:
+            await client.close()
+
+    got, reason = asyncio.run(main())
+    assert got == status, reason
+    if priority == "batch":
+        assert "not ported" in reason
+    elif priority == "urgent":
+        assert reason == 'X-Priority must be "interactive" or "batch"'

@@ -121,3 +121,92 @@ def test_wrapper_refuses_a_device_it_does_not_take():
             for x in _inputs(False)[:5]]
     with pytest.raises(ValueError, match="unsupported device"):
         port_pa.paged_decode_attention(*args, BS)
+
+
+# ---------------------------------------------------------------------------
+# The kernel's split over the table (csrc/decode_sm90.cuh), emulated
+
+from test_torch_decode_attention import split_emulation  # noqa: E402
+
+
+def _split_inputs(quant: bool, bs: int, t: int, seed: int = 5):
+    """B=4 rows over a shuffled table of t blocks of bs: row 0 a short valid
+    prefix, row 1 valid keys only in its last tile, row 2 no valid key and a
+    table ending in sentinels, row 3 random; pools of 4 t + 3 blocks."""
+    rng = np.random.default_rng(seed)
+    pool = 4 * t + 3
+    n = t * bs
+    q = rng.standard_normal((4, KVH * NREP, D)).astype(np.float32)
+    kp = rng.standard_normal((pool, bs, KVH, D)).astype(np.float32)
+    vp = rng.standard_normal((pool, bs, KVH, D)).astype(np.float32)
+    table = rng.permutation(pool)[: 4 * t].reshape(4, t).astype(np.int32)
+    table[2, t // 2:] = pool  # sentinels: they clamp to the last block
+    valid = np.zeros((4, n), np.int32)
+    valid[0, :5] = 1
+    valid[1, n - 6:] = 1
+    valid[3] = rng.random(n) < 0.6
+    ks = vs = None
+    if quant:
+        kp = np.clip(np.round(kp * 16), -127, 127).astype(np.int8)
+        vp = np.clip(np.round(vp * 16), -127, 127).astype(np.int8)
+        ks = (np.abs(rng.standard_normal((pool, bs, KVH, 1))) + 0.01).astype(np.float32)
+        vs = (np.abs(rng.standard_normal((pool, bs, KVH, 1))) + 0.01).astype(np.float32)
+    return q, kp, vp, table, valid, ks, vs
+
+
+# (block size, table width, splits, tiles a split).  Block size 8: 240 keys
+# in 4 tiles, split 1, 2 even, and a ragged last split.  Block size 128:
+# 384 keys in 6 tiles, a split a whole number of 2-tile blocks (3 even, 2
+# with a ragged last).
+PAGED_SPLITS = [(8, 30, 1, 4), (8, 30, 2, 2), (8, 30, 2, 3), (128, 3, 3, 2), (128, 3, 2, 4)]
+
+
+@pytest.mark.parametrize("bs,t,splits,split_tiles", PAGED_SPLITS)
+@pytest.mark.parametrize("quant", [False, True], ids=["dense", "int8"])
+def test_split_algebra_matches_the_jax_kernel_and_the_plain_version(quant, bs, t, splits,
+                                                                     split_tiles):
+    """The split, skip, merge and closed-form row of the CUDA kernel over
+    the gathered, clamped view give the JAX kernel's answer (interpret
+    mode) and the plain version's, to 1e-6 of the output's scale in f32."""
+    assert split_tiles % port_pa.block_unit_tiles(bs) == 0
+    q, kp, vp, table, valid, ks, vs = _split_inputs(quant, bs, t)
+    opt = {} if ks is None else {"k_scale": jnp.asarray(ks), "v_scale": jnp.asarray(vs)}
+    args = [jnp.asarray(x) for x in (q, kp, vp, table, valid)]
+    want_jax = np.asarray(jax_pa.paged_decode_attention(*args, bs, **opt, interpret=True))
+    tq, tk, tv, tt, tvalid = (torch.from_numpy(x) for x in (q, kp, vp, table, valid))
+    tks, tvs = (None, None) if ks is None else (torch.from_numpy(ks), torch.from_numpy(vs))
+    want_ref = port_pa.paged_attention_ref(tq, tk, tv, tt, tvalid, bs, tks, tvs).numpy()
+
+    def view(x):
+        return None if x is None else port_pa.gather_pages(x, tt, bs)
+
+    got = split_emulation(tq, view(tk), view(tv), tvalid, splits, split_tiles,
+                          view(tks), view(tvs)).numpy()
+    assert np.isfinite(got).all()
+    # 1e-6 of the output's scale: f32 summation order (the int8 pools'
+    # outputs reach ~100)
+    atol = 1e-6 * max(1.0, float(np.abs(want_ref).max()))
+    np.testing.assert_allclose(got, want_jax, atol=atol, rtol=1e-6)
+    np.testing.assert_allclose(got, want_ref, atol=atol, rtol=1e-6)
+
+
+def test_a_cached_signature_still_checks_the_data(monkeypatch):
+    """The plan is built once per signature (block size included); a later
+    call with the same signature but a pool that is not 16-byte aligned
+    still raises."""
+    monkeypatch.setattr(port_pa, "_paged_plans", {})
+    calls = []
+    check = port_pa._check
+    monkeypatch.setattr(port_pa, "_check", lambda *a: calls.append(1) or check(*a))
+    n = POOL * BS * KVH * D
+    base = torch.zeros(n + 16, dtype=torch.bfloat16)
+    ok = base[8:8 + n].view(POOL, BS, KVH, D)
+    bad = base[1:1 + n].view(POOL, BS, KVH, D)
+    q = torch.zeros(B, KVH * NREP, D, dtype=torch.bfloat16)
+    table = torch.zeros(B, T, dtype=torch.int32)
+    valid = torch.ones(B, T * BS, dtype=torch.int32)
+    plan = port_pa._paged_plan(q, ok, ok, table, valid, BS)
+    assert port_pa._paged_plan(q, ok, ok, table, valid, BS) is plan and len(calls) == 1
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        port_pa._paged_plan(q, ok, bad, table, valid, BS)
+    assert len(calls) == 1
