@@ -55,6 +55,21 @@ result line:
 6. forward: where one BERT forward's time goes at three buckets: wall time
    (CUDA events) against the card's busy time from ``torch.profiler``'s
    kernel records, split into K1, GEMMs and the rest.
+6a. serve resnet50: ResNet-50 v1.5 at full width (random weights from seed
+   0, every BN drawn at random; bf16, channels-last cuDNN convs; no TPU
+   kernel on this path) with every batch bucket warmed in every dispatch
+   thread (the warmup first timed on fresh threads: the first, then one
+   with cuDNN's autotuning off and one with it on), uint8 images in
+   waves of 1, 2, 5, 8, 16 through ``Batcher.submit`` (batches above 1
+   required); every row's logits within 3e-2 of the reference row's
+   largest |logit| of the port's f32 run on the CPU on the same weights,
+   and the same top-1 where the reference's top two are further apart than
+   twice that.  No phase but the ``http`` one imports PIL.  Then ``forward
+   resnet50``: one forward at B=1 and B=32 (and B=32 with the autotuning
+   flipped), each on a fresh thread: the first call's time, wall against
+   busy time, img/s, TFLOP/s over 2 x 4.09 GMAC an image, the conv
+   kernels' share and the layout transposes a forward (0 while
+   channels-last holds).
 6b. serve bert-long: the long-context BERT at full width (12 layers, 768
    hidden, position table 2048, random weights from seed 0, bf16) at SP=1,
    SEQ_BUCKETS=512,1024,2048, through ``Batcher.submit`` in waves of texts
@@ -90,12 +105,16 @@ result line:
    ``n_devices``) on bert-long, ``/predict`` and ``/v1/completions`` on
    llama, whole and streamed (ndjson, and SSE ending in ``data: [DONE]``),
    over loopback through the aiohttp app (skipped, and said so, where
-   aiohttp is missing).
+   aiohttp is missing); where PIL is installed, a PNG to resnet50 as a raw
+   ``image/png`` body and as a multipart ``file`` part, each answered with
+   the engine's top-1 on the decoded image (skipped, and said so, without
+   PIL).
 
 The last lines are the kernels summary (K1's and K4's with the headline's
 TFLOP/s, K4's also with the SP=1 hop's time), the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.  ``--cpu-rehearsal`` skips the build
-and kernel phases, serves BERT-base, bert-long (SP=2, SEQ_BUCKETS=64,128)
+and kernel phases, serves BERT-base, ResNet-50 (f32, batch buckets 1-8),
+bert-long (SP=2, SEQ_BUCKETS=64,128)
 and a 2-layer llama (``LLAMA_CONFIG``), whole and streamed, on the CPU at
 small buckets, and prints no result line.
 """
@@ -126,6 +145,16 @@ RING_CTX_TOL = {"float32": 1e-4, "bfloat16": 5e-3}
 # Served probabilities, bf16 weights and activations through 12 layers
 # against the port's own f32 run on the CPU.
 PROB_TOL = 2e-2
+# Served ResNet-50 logits, bf16 weights and activations through 53 convs,
+# against the port's own f32 run on the CPU: the largest logit error of a
+# row, as a fraction of the reference row's largest |logit|.
+RESNET_LOGIT_TOL = 3e-2
+# ResNet-50 v1.5 at 224x224: multiply-accumulates of one image's forward.
+RESNET_MACS = 4.09e9
+# cuDNN's convolution kernels, and the layout transposes it inserts around
+# a conv whose tensors are not channels-last.
+CONV_KERNEL = r"conv|fprop|implicit_gemm|nhwckrsc|nchwkcrs"
+TRANSPOSE_KERNEL = r"nchwToNhwc|nhwcToNchw|[Tt]ranspose"
 # Published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, and
 # operations/s for bf16 tensor cores, int8 tensor cores and f32 outside
 # the tensor cores.
@@ -1055,6 +1084,218 @@ def phase_forward_long(bundle) -> None:
          busy_share=busy / wall_ms if busy else None, **split)
 
 
+def resnet_pytree(cfg, seed: int) -> dict:
+    """Random weights in the JAX package's ResNet layout (numpy f32, HWIO
+    convs, ``[d_in, d_out]`` classifier): He-normal convs, Xavier-uniform
+    classifier, and every BN's statistics and affine drawn at random, as
+    ``tests/test_resnet_golden.py`` randomizes them (``bn3``, the residual
+    branch's last, scaled down so activations stay O(1) through 16 blocks)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def conv(k, c_in, c_out):
+        w = rng.standard_normal((k, k, c_in, c_out), dtype=np.float32)
+        w *= np.float32(np.sqrt(2.0 / (k * k * c_in)))
+        return {"kernel": w}
+
+    def bn(c, lo=0.8, hi=1.2):
+        return {"scale": rng.uniform(lo, hi, c).astype(np.float32),
+                "bias": (0.1 * rng.standard_normal(c)).astype(np.float32),
+                "mean": (0.1 * rng.standard_normal(c)).astype(np.float32),
+                "var": rng.uniform(0.5, 1.5, c).astype(np.float32)}
+
+    p = {"embedder": {"conv": conv(7, 3, cfg.embedding_size), "bn": bn(cfg.embedding_size)}}
+    stages, c_in = [], cfg.embedding_size
+    for depth, c_out in zip(cfg.depths, cfg.hidden_sizes):
+        blocks = []
+        for bi in range(depth):
+            c_mid = c_out // cfg.reduction
+            block = {"conv1": conv(1, c_in, c_mid), "bn1": bn(c_mid),
+                     "conv2": conv(3, c_mid, c_mid), "bn2": bn(c_mid),
+                     "conv3": conv(1, c_mid, c_out), "bn3": bn(c_out, 0.1, 0.3)}
+            if bi == 0:  # the width or the resolution changes
+                block["shortcut"] = {"conv": conv(1, c_in, c_out), "bn": bn(c_out)}
+            blocks.append(block)
+            c_in = c_out
+        stages.append(blocks)
+    p["stages"] = stages
+    a = np.sqrt(6.0 / (c_in + cfg.num_labels))
+    p["classifier"] = {"kernel": rng.uniform(-a, a, (c_in, cfg.num_labels)).astype(np.float32),
+                       "bias": np.zeros(cfg.num_labels, np.float32)}
+    return p
+
+
+def image_waves(rehearsal: bool):
+    """uint8 224x224 images (the decoded wire type) from a seed, in waves
+    of 1, 2, 5, 8 and 16 (rehearsal: 1, 2 and 5) submitted at once."""
+    import numpy as np
+
+    rng = np.random.default_rng(8)
+    return [[{"image": rng.integers(0, 256, (224, 224, 3), dtype=np.uint8)}
+             for _ in range(n)] for n in ((1, 2, 5) if rehearsal else (1, 2, 5, 8, 16))]
+
+
+def check_logits(rows, ref_rows, what: str) -> tuple[float, int]:
+    """Served image logits against reference logits: finite, the
+    reference's shape, each row's largest error within RESNET_LOGIT_TOL of
+    the reference row's largest |logit| and, where the reference's top two
+    are further apart than twice that, the same top-1.  Returns the worst
+    error ratio and the top-1s checked."""
+    import numpy as np
+
+    worst, checked = 0.0, 0
+    for got, want in zip(rows, ref_rows):
+        if got.shape != want.shape or not np.isfinite(got).all():
+            raise AssertionError(f"bad logits row {got} (want shape {want.shape})")
+        scale = float(np.abs(want).max())
+        err = float(np.abs(got - want).max()) / scale
+        worst = max(worst, err)
+        if err > RESNET_LOGIT_TOL:
+            raise AssertionError(f"logits differ from {what} by {err} x max|logit| "
+                                 f"> {RESNET_LOGIT_TOL}")
+        top2 = np.sort(want)[-2:]
+        if top2[1] - top2[0] > 2 * RESNET_LOGIT_TOL * scale:
+            checked += 1
+            if int(np.argmax(got)) != int(np.argmax(want)):
+                raise AssertionError(f"top-1 {np.argmax(got)} differs from {what}'s "
+                                     f"{np.argmax(want)}")
+    return worst, checked
+
+
+def in_new_thread(fn):
+    """``fn()`` on a thread of its own (cuDNN keeps its execution plans per
+    thread, so its first call there builds them); returns its result."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(1) as pool:
+        return pool.submit(fn).result()
+
+
+def phase_serve_resnet(rehearsal: bool, card_line: str):
+    """ResNet-50 at full width through the batcher: every batch bucket
+    warmed in every dispatch thread (``Batcher.warm_engine``, as the app
+    does), waves of uint8 images batched dynamically, each answer held
+    against the port's f32 forward on the CPU on the same weights.  On the
+    card the warmup of the six buckets is first timed on fresh threads:
+    the process's first (cuDNN's start included), then a second thread
+    with cuDNN's autotuning off and a third with it on."""
+    import numpy as np
+    import torch
+
+    from mlmicroservicetemplate_tpu_torch.models.resnet import ResNetConfig
+    from mlmicroservicetemplate_tpu_torch.serve import build_service
+
+    overrides = {"MODEL_NAME": "resnet50", "DEVICE": "cpu" if rehearsal else "cuda"}
+    if rehearsal:
+        overrides["BATCH_BUCKETS"] = "1,2,4,8"
+    params = resnet_pytree(ResNetConfig(), seed=0)
+    cfg, bundle, engine, batcher = build_service(overrides, params=params)
+    warm = {}
+    if not rehearsal:
+        kept = torch.backends.cudnn.benchmark
+        try:
+            for key, autotune in (("warmup_s_first_thread", kept),
+                                  ("warmup_s_new_thread", False),
+                                  ("warmup_s_new_thread_autotune", True)):
+                torch.backends.cudnn.benchmark = autotune
+                warm[key] = in_new_thread(engine.warmup)
+        finally:
+            torch.backends.cudnn.benchmark = kept
+    warm["warmup_s"] = batcher.warm_engine()
+    waves = image_waves(rehearsal)
+    sizes = []
+    run_batch = engine.run_batch
+
+    def recording(feats):
+        sizes.append(len(feats))
+        return run_batch(feats)
+
+    engine.run_batch = recording
+    engine.dispatches = 0
+    try:
+        feats, rows, latencies, wall = asyncio.run(drive(batcher, bundle, waves, prep=dict))
+    finally:
+        del engine.run_batch
+    if max(sizes) < 2:
+        raise AssertionError(f"dynamic batching formed no batch above 1: {sizes}")
+    _, cpu_bundle, cpu_engine, cpu_batcher = build_service(
+        {**overrides, "DEVICE": "cpu", "WARMUP": "0"}, params=params)
+    asyncio.run(cpu_batcher.stop())
+    ref = cpu_engine.run_batch(feats)
+    worst, checked = check_logits(rows, ref, "the CPU f32 run")
+    lat = np.array(latencies) * 1e3
+    emit("serve resnet50", device=str(bundle.device), card=card_line, requests=len(rows),
+         dispatches=engine.dispatches, batch_sizes=sizes, **warm,
+         p50_ms=float(np.percentile(lat, 50)), p99_ms=float(np.percentile(lat, 99)),
+         img_per_s=len(rows) / wall, max_logit_err_over_max_logit=worst,
+         logit_tol=RESNET_LOGIT_TOL, top1_checked=checked)
+    return cfg, bundle, engine
+
+
+def phase_forward_resnet(bundle) -> None:
+    """One forward at B=1 and B=32, and B=32 with cuDNN's autotuning
+    flipped, each on a fresh thread (so each setting picks its own plans):
+    the first call's time (plan building), wall (CUDA events) against busy
+    time, the conv kernels' share, the layout transposes a forward and the
+    rate over 2 x 4.09 GMAC an image."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    kept = torch.backends.cudnn.benchmark
+
+    def measure(images):
+        with torch.inference_mode():
+            t0 = time.monotonic()
+            bundle.forward(images)
+            torch.cuda.synchronize()
+            first_ms = (time.monotonic() - t0) * 1e3
+            wall_ms = cuda_ms(lambda: bundle.forward(images), 10)
+            split = profile_split(lambda: bundle.forward(images), 5, CONV_KERNEL, "conv",
+                                  count=TRANSPOSE_KERNEL)
+        return first_ms, wall_ms, split
+
+    for b, autotune in ((1, kept), (32, kept), (32, not kept)):
+        images = torch.randint(0, 256, (b, 224, 224, 3), device="cuda", generator=gen,
+                               dtype=torch.uint8)
+        torch.backends.cudnn.benchmark = autotune
+        try:
+            first_ms, wall_ms, split = in_new_thread(lambda: measure(images))
+        finally:
+            torch.backends.cudnn.benchmark = kept
+        busy = split["device_busy_ms"]
+        flops = 2 * RESNET_MACS * b
+        emit("forward resnet50", batch=b, cudnn_autotune=autotune, first_call_ms=first_ms,
+             wall_ms=wall_ms, busy_share=busy / wall_ms if busy else None,
+             img_per_s=b / wall_ms * 1e3, tflops_wall=flops / wall_ms / 1e9,
+             tflops_busy=flops / busy / 1e9 if busy else None,
+             conv_share=split["conv_ms"] / busy if busy else None,
+             transposes=split.pop("counted"), **split)
+
+
+def png_bytes(seed: int) -> bytes:
+    """A PNG of a seeded 256x320 array (needs PIL)."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(np.random.default_rng(seed).integers(0, 256, (256, 320, 3),
+                                                         dtype=np.uint8)).save(buf, "PNG")
+    return buf.getvalue()
+
+
+def multipart_file(data: bytes):
+    """A multipart/form-data body with the image as its ``file`` part."""
+    from aiohttp import MultipartWriter
+
+    writer = MultipartWriter("form-data")
+    writer.append(data, {"Content-Type": "image/png"}).set_content_disposition(
+        "form-data", name="file", filename="image.png")
+    return writer
+
+
 def llama_waves(rehearsal: bool):
     """Prompts in waves of 1, 2, 5, 8 and 16 (rehearsal: 1, 2, 3, 4),
     growing so prefill lands in several seq buckets; every third request
@@ -1080,15 +1321,17 @@ def llama_waves(rehearsal: bool):
     return waves
 
 
-async def drive(batcher, bundle, waves):
+async def drive(batcher, bundle, waves, prep=None):
     """Submit each wave at once and wait for it; returns (feats, rows,
-    per-request latencies, wall seconds)."""
+    per-request latencies, wall seconds).  ``prep`` turns an item into its
+    feats (default ``bundle.preprocess``)."""
     await batcher.start()
     feats, rows, latencies = [], [], []
+    prep = prep or bundle.preprocess
 
     async def one(item):
         t0 = time.monotonic()
-        f = bundle.preprocess(item)
+        f = prep(item)
         row = await batcher.submit(f)
         latencies.append(time.monotonic() - t0)
         return f, row
@@ -1150,11 +1393,12 @@ def phase_serve(rehearsal: bool, card_line: str):
     return cfg, bundle, engine, launches
 
 
-def profile_split(fn, reps: int, kernel_name: str, label: str) -> dict:
+def profile_split(fn, reps: int, kernel_name: str, label: str, count: str | None = None) -> dict:
     """Device busy time of ``reps`` calls of ``fn`` from ``torch.profiler``'s
     kernel records, per call, split into the port's kernel (names matching
     the regex ``kernel_name``),
-    GEMMs and the rest, with the four busiest kernels."""
+    GEMMs and the rest, with the four busiest kernels; with ``count``, also
+    the kernels a call whose names match that regex (``counted``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1165,9 +1409,12 @@ def profile_split(fn, reps: int, kernel_name: str, label: str) -> dict:
         torch.cuda.synchronize()
     split = {label: 0.0, "gemm": 0.0, "other": 0.0}
     by_name: dict[str, float] = {}
+    counted = launched = 0
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
+        launched += 1
+        counted += bool(count and re.search(count, e.name))
         us = e.time_range.elapsed_us()
         part = (label if re.search(kernel_name, e.name)
                 else "gemm" if GEMM_KERNEL.search(e.name) else "other")
@@ -1180,6 +1427,7 @@ def profile_split(fn, reps: int, kernel_name: str, label: str) -> dict:
         **{f"{k}_ms": v / reps / 1e3 for k, v in split.items()},
         top_kernels=[[name[:80], us / reps / 1e3] for name, us in top],
         note=None if by_name else "torch.profiler recorded no device kernels",
+        **({"counted": counted / reps, "kernels": launched / reps} if count else {}),
     )
 
 
@@ -1487,8 +1735,9 @@ def sse_text(body: str) -> dict:
 
 async def http_check(cfg, bundle, engine, posts) -> list:
     """POST each ``(path, body, read)`` (GET where ``body`` is None) over
-    loopback through the aiohttp app; ``read`` turns a 200's body text into
-    what is collected."""
+    loopback through the aiohttp app: a dict as JSON, bytes as a raw
+    ``image/png`` body, anything else (a multipart writer) as it is;
+    ``read`` turns a 200's body text into what is collected."""
     import aiohttp
     from aiohttp import web
 
@@ -1514,8 +1763,15 @@ async def http_check(cfg, bundle, engine, posts) -> list:
             else:
                 raise AssertionError("/readyz never turned 200")
             for path, body, read in posts:
-                request = (session.get(f"{url}{path}") if body is None
-                           else session.post(f"{url}{path}", json=body))
+                if body is None:
+                    request = session.get(f"{url}{path}")
+                elif isinstance(body, dict):
+                    request = session.post(f"{url}{path}", json=body)
+                elif isinstance(body, bytes):
+                    request = session.post(f"{url}{path}", data=body,
+                                           headers={"Content-Type": "image/png"})
+                else:
+                    request = session.post(f"{url}{path}", data=body)
                 async with request as r:
                     text = await r.text()
                     if r.status != 200:
@@ -1625,6 +1881,14 @@ def main(argv: list[str]) -> int:
             phase = "forward"
             phase_forward(bundle)
 
+        phase = "serve resnet50"
+        img_cfg, img_bundle, img_engine = phase_serve_resnet(rehearsal, card_line)
+        if rehearsal:
+            emit("forward resnet50", skipped="cpu rehearsal: no card to profile")
+        else:
+            phase = "forward resnet50"
+            phase_forward_resnet(img_bundle)
+
         phase = "serve bert-long"
         long_cfg, long_bundle, long_engine, long_launches, long_feats = phase_serve_long(
             rehearsal, card_line)
@@ -1701,6 +1965,25 @@ def main(argv: list[str]) -> int:
                  json_key("prediction")),
                 ("/v1/completions", {"prompt": "hello card", "max_tokens": 8}, json_key("usage")),
             ]))
+            try:
+                import PIL  # noqa: F401  (decodes the image bodies)
+            except ImportError:
+                image = {"skipped": "PIL is not installed; it is needed only to decode "
+                                    "image bodies"}
+            else:
+                from mlmicroservicetemplate_tpu_torch.models.registry import RawItem
+
+                data = png_bytes(9)
+                raw, multipart = asyncio.run(http_check(img_cfg, img_bundle, img_engine, [
+                    ("/predict", data, json_key("prediction")),
+                    ("/predict", multipart_file(data), json_key("prediction")),
+                ]))
+                top1 = int(img_engine.run_batch(
+                    [img_bundle.preprocess(RawItem(image=data))])[0].argmax())
+                if raw["class_id"] != top1 or multipart["class_id"] != top1:
+                    raise AssertionError(f"/predict class ids {raw}, {multipart}; "
+                                         f"the engine's top-1 {top1}")
+                image = {"raw_png": raw, "multipart_file": multipart, "engine_top1": top1}
             streamed = asyncio.run(http_check(*stream_svc[:3], [
                 ("/predict", {"text": "hello card", "stream": True, "max_tokens": 12},
                  ndjson_text),
@@ -1709,7 +1992,7 @@ def main(argv: list[str]) -> int:
             ]))
             emit(phase, status=200, prediction=prediction,
                  bert_long_prediction=long_prediction, bert_long_n_devices=n_devices,
-                 llama_prediction=generated[0],
+                 resnet50=image, llama_prediction=generated[0],
                  llama_completion_usage=generated[1], llama_stream_predict=streamed[0],
                  llama_stream_completions=streamed[1])
     except Exception as e:

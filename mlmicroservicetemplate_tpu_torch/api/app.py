@@ -1,15 +1,18 @@
 """aiohttp application: ``POST /predict`` plus health and observability.
 
-Request path, as in the JAX package's ``api/app.py``: parse the JSON
-``{"text": ...}`` body -> preprocess (thread offloaded) -> dynamic-batching
-queue -> engine dispatch -> postprocess -> JSON.  A generative model also
-takes ``max_tokens`` and ``stop`` on ``/predict`` and answers
+Request path, as in the JAX package's ``api/app.py``: parse the body (JSON
+``{"text": ...}``; multipart with a ``file``/``image``/``upload`` part, or
+any part with a filename, or a ``text`` part; or raw image bytes) ->
+preprocess (thread offloaded: image decode, or tokenize) -> dynamic-
+batching queue -> engine dispatch -> postprocess -> JSON.  A generative
+model also takes ``max_tokens`` and ``stop`` on ``/predict`` and answers
 ``POST /v1/completions``; with ``stream: true`` both stream through the
 continuous decode loop, ``/predict`` as ndjson lines of text deltas and
 ``/v1/completions`` as server-sent events ending in ``data: [DONE]``.
 ``temperature > 0`` is not ported and answers 400.  Also ``/healthz``,
-``/readyz``, ``/status`` and ``/metrics``.  This is the only module of the
-package that imports aiohttp.
+``/readyz``, ``/status`` and ``/metrics``.  With ``SERVER_URL`` set, the
+app registers with its parent on startup (``api/registration.py``).  The
+``api`` package is the only part of the port that imports aiohttp.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ import torch
 from aiohttp import web
 
 from ..engine.streams import StreamClosedError
-from ..models.registry import KIND_SEQ2SEQ, ModelBundle, RawItem
+from ..models.registry import KIND_IMAGE, KIND_SEQ2SEQ, ModelBundle, RawItem
 from ..scheduler.batcher import Batcher, DeadlineExceededError, QueueFullError
 from ..utils import metrics, tracing
 
@@ -76,7 +79,9 @@ async def request_id_middleware(request: web.Request, handler):
 
 
 def build_app(cfg, bundle: ModelBundle, engine, batcher: Batcher) -> web.Application:
-    app = web.Application(client_max_size=1024 * 1024, middlewares=[request_id_middleware])
+    # Image uploads: up to 32 MiB, as the JAX package takes.
+    app = web.Application(client_max_size=32 * 1024 * 1024,
+                          middlewares=[request_id_middleware])
     app[K_CFG] = cfg
     app[K_BUNDLE] = bundle
     app[K_ENGINE] = engine
@@ -107,12 +112,13 @@ async def _on_startup(app: web.Application) -> None:
         try:
             if cfg.warmup:
                 loop = asyncio.get_running_loop()
-                app[K_STATE]["warmup_s"] = await loop.run_in_executor(None, engine.warmup)
+                app[K_STATE]["warmup_s"] = await loop.run_in_executor(
+                    None, batcher.warm_engine)
                 app[K_STATE]["warmup_s"] += await loop.run_in_executor(
                     None, batcher.warm_streams)
             else:
                 # Canary: ready means "the device answers".
-                await batcher.submit({"input_ids": np.ones(8, np.int32), "length": 8})
+                await batcher.submit(_canary_feats(app[K_BUNDLE]))
         except asyncio.CancelledError:
             raise
         except Exception as e:
@@ -123,16 +129,30 @@ async def _on_startup(app: web.Application) -> None:
         log.info("model %s ready", app[K_BUNDLE].name)
 
     app[K_STATE]["_ready_task"] = asyncio.get_running_loop().create_task(warm_then_ready())
+    if cfg.server_url:
+        from .registration import registration_loop
+
+        app[K_STATE]["_register_task"] = asyncio.get_running_loop().create_task(
+            registration_loop(cfg, app[K_BUNDLE].name))
+
+
+def _canary_feats(bundle: ModelBundle) -> dict:
+    """The smallest real request: a zero uint8 image (the wire type of every
+    image) or eight tokens."""
+    if bundle.kind == KIND_IMAGE:
+        return {"image": np.zeros((bundle.image_size, bundle.image_size, 3), np.uint8)}
+    return {"input_ids": np.ones(8, np.int32), "length": 8}
 
 
 async def _on_cleanup(app: web.Application) -> None:
-    task = app[K_STATE].get("_ready_task")
-    if task is not None:
-        task.cancel()
-        try:
-            await task
-        except asyncio.CancelledError:
-            pass
+    for key in ("_ready_task", "_register_task"):
+        task = app[K_STATE].get(key)
+        if task is not None:
+            task.cancel()
+            try:
+                await task
+            except asyncio.CancelledError:
+                pass
     await app[K_BATCHER].stop()
 
 
@@ -165,17 +185,34 @@ def _sched_fields(request: web.Request) -> dict:
 
 
 async def _parse_request(request: web.Request) -> RawItem:
-    if request.content_type != "application/json":
-        raise web.HTTPBadRequest(
-            reason='this model takes a JSON body {"text": ...} (image payloads are not ported)'
-        )
-    try:
-        body = await request.json()
-    except json.JSONDecodeError:
-        raise web.HTTPBadRequest(reason="invalid JSON body") from None
-    if not isinstance(body, dict):
-        raise web.HTTPBadRequest(reason="JSON body must be an object")
-    return _parse_json_item(body)
+    """JSON, multipart or raw image bytes -> a RawItem; whether the model
+    takes what came is ``bundle.preprocess``'s call."""
+    ctype = request.content_type
+    if ctype == "application/json":
+        try:
+            body = await request.json()
+        except json.JSONDecodeError:
+            raise web.HTTPBadRequest(reason="invalid JSON body") from None
+        if not isinstance(body, dict):
+            raise web.HTTPBadRequest(reason="JSON body must be an object")
+        return _parse_json_item(body)
+    if ctype.startswith("multipart/"):
+        reader = await request.multipart()
+        async for part in reader:
+            if part.name in ("file", "image", "upload") or part.filename is not None:
+                data = await part.read(decode=False)
+                if data:
+                    return RawItem(image=bytes(data))
+            elif part.name == "text":
+                text = (await part.text()).strip()
+                if text:
+                    return RawItem(text=text)
+        raise web.HTTPBadRequest(reason="multipart body had no file/image/text part")
+    # Raw image bytes (image/* or octet-stream).
+    data = await request.read()
+    if not data:
+        raise web.HTTPBadRequest(reason="empty request body")
+    return RawItem(image=data)
 
 
 def _parse_json_item(body: dict) -> RawItem:
@@ -266,11 +303,13 @@ async def handle_predict(request: web.Request) -> web.Response:
 
 async def _preprocess(request: web.Request, bundle: ModelBundle, item: RawItem,
                       sched: dict) -> dict:
-    """Tokenize off the event loop; an undecodable payload is a 400."""
+    """Decode or tokenize off the event loop; an undecodable payload is a
+    400 (``OSError`` covers PIL's ``UnidentifiedImageError`` on corrupt
+    bytes)."""
     loop = asyncio.get_running_loop()
     try:
         feats = await loop.run_in_executor(None, bundle.preprocess, item)
-    except ValueError as e:
+    except (ValueError, OSError) as e:
         metrics.REQUESTS.labels(bundle.name, "400").inc()
         raise web.HTTPBadRequest(reason=str(e) or "undecodable payload") from None
     feats.update(sched)

@@ -4,6 +4,10 @@ A copy of the BERT and Llama parts of the JAX package's ``convert/hf_maps.py``:
 ``MODEL_PATH`` checkpoints go HF names -> this pytree (numpy, linear
 weights transposed to ``[in, out]``) -> ``convert.jax_params``, so the
 port serves exactly the weights the JAX package serves from the same file.
+
+ResNet is the exception: HF's layouts (OIHW convs, ``[out, in]`` linear)
+are the port's, so ``resnet_state_to_pytree`` maps HF names straight onto
+``ResNet``'s state-dict names (the JAX pytree's paths) and moves no axis.
 """
 
 from __future__ import annotations
@@ -99,3 +103,29 @@ def llama_state_to_pytree(state: State, n_layers: int | None = None) -> dict:
             }
         )
     return p
+
+
+def resnet_state_to_pytree(state: State, depths=(3, 4, 6, 3)) -> State:
+    """HF ``ResNetForImageClassification`` names -> ``ResNet``'s state
+    dict (numpy, layouts unchanged): the JAX package's map of the same
+    name, with ``weight`` for its ``kernel`` and no transposes."""
+
+    def bn(dst: str, src: str) -> None:
+        for leaf, hf in (("scale", "weight"), ("bias", "bias"), ("mean", "running_mean"),
+                         ("var", "running_var")):
+            out[f"{dst}.{leaf}"] = state[f"{src}.{hf}"]
+
+    out: State = {"embedder.conv.weight": state["resnet.embedder.embedder.convolution.weight"]}
+    bn("embedder.bn", "resnet.embedder.embedder.normalization")
+    for si, depth in enumerate(depths):
+        for bi in range(depth):
+            src, dst = f"resnet.encoder.stages.{si}.layers.{bi}", f"stages.{si}.{bi}"
+            if f"{src}.shortcut.convolution.weight" in state:
+                out[f"{dst}.shortcut.conv.weight"] = state[f"{src}.shortcut.convolution.weight"]
+                bn(f"{dst}.shortcut.bn", f"{src}.shortcut.normalization")
+            for li in range(3):
+                out[f"{dst}.conv{li + 1}.weight"] = state[f"{src}.layer.{li}.convolution.weight"]
+                bn(f"{dst}.bn{li + 1}", f"{src}.layer.{li}.normalization")
+    out["classifier.weight"] = state["classifier.1.weight"]
+    out["classifier.bias"] = state["classifier.1.bias"]
+    return out

@@ -7,11 +7,14 @@ that pytree, given as numpy arrays, onto ``BertModel``'s state dict: each
 dense kernel is transposed into ``nn.Linear``'s ``[d_out, d_in]``; every
 other leaf passes through.  ``llama_params_from_jax`` does the same for the
 JAX llama pytree (``{"embed", "layers": [{"attn_ln", "attn", "mlp_ln",
-"mlp"}], "final_ln", "lm_head"}``) onto ``LlamaModel``.  Both raise on a
-missing leaf, an unused leaf or a shape that does not fit the config, so a
-wrong checkpoint never serves.  ``paged_state_from_jax`` carries a JAX
-paged decode state (numpy leaves) into the port's ``PagedState``, so a test
-can step both from the very same pool.
+"mlp"}], "final_ln", "lm_head"}``) onto ``LlamaModel``, and
+``resnet_params_from_jax`` the JAX ResNet pytree (HWIO conv kernels, BN
+``scale``/``bias``/``mean``/``var``) onto ``ResNet``, each conv kernel
+permuted to OIHW.  All raise on a missing leaf, an unused leaf or a shape
+that does not fit the config, so a wrong checkpoint never serves.
+``paged_state_from_jax`` carries a JAX paged decode state (numpy leaves)
+into the port's ``PagedState``, so a test can step both from the very same
+pool.
 """
 
 from __future__ import annotations
@@ -22,6 +25,11 @@ import torch
 from ..models.bert import BertConfig, BertModel
 from ..models.gpt import PagedState
 from ..models.llama import LlamaConfig, LlamaModel
+from ..models.resnet import ResNet, ResNetConfig
+
+# JAX layout -> the port's: a dense kernel [in, out] -> [out, in], a conv
+# kernel HWIO -> OIHW.
+DENSE, CONV = (1, 0), (3, 2, 0, 1)
 
 
 def _flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
@@ -37,29 +45,39 @@ def _flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
     return out
 
 
-def _jax_name(port_name: str) -> tuple[str, bool]:
-    """JAX leaf path for a port state-dict key, and whether it is a dense
-    kernel (transposed on the way across)."""
+def _jax_name(port_name: str) -> tuple[str, tuple[int, ...] | None]:
+    """JAX leaf path for a port state-dict key, and the axis permutation
+    that carries the leaf across (dense kernels are transposed)."""
     mod, _, leaf = port_name.rpartition(".")
     if mod.endswith(".ln"):
-        return f"{mod}.{'scale' if leaf == 'weight' else 'bias'}", False
+        return f"{mod}.{'scale' if leaf == 'weight' else 'bias'}", None
     if mod.startswith("embeddings."):
-        return f"{mod}.embedding", False  # nn.Embedding.weight
+        return f"{mod}.embedding", None  # nn.Embedding.weight
     if leaf == "weight":
-        return f"{mod}.kernel", True
-    return f"{mod}.bias", False
+        return f"{mod}.kernel", DENSE
+    return f"{mod}.bias", None
 
 
-def _llama_jax_name(port_name: str) -> tuple[str, bool]:
+def _llama_jax_name(port_name: str) -> tuple[str, tuple[int, ...] | None]:
     """As ``_jax_name``, for ``LlamaModel``: RMSNorm weights are JAX
     ``scale`` leaves, the embedding an ``embedding`` leaf, every other
     weight (the LM head included) a transposed ``kernel``."""
     mod, _, _ = port_name.rpartition(".")
     if mod.endswith("_ln"):
-        return f"{mod}.scale", False
+        return f"{mod}.scale", None
     if mod == "embed":
-        return "embed.embedding", False
-    return f"{mod}.kernel", True
+        return "embed.embedding", None
+    return f"{mod}.kernel", DENSE
+
+
+def _resnet_jax_name(port_name: str) -> tuple[str, tuple[int, ...] | None]:
+    """As ``_jax_name``, for ``ResNet``: the module paths are the JAX
+    pytree's; a ``weight`` is a ``kernel`` (the classifier's dense, every
+    other a conv's); BN and bias leaves keep their names."""
+    mod, _, leaf = port_name.rpartition(".")
+    if leaf != "weight":
+        return port_name, None
+    return f"{mod}.kernel", DENSE if mod == "classifier" else CONV
 
 
 def bert_params_from_jax(pytree, cfg: BertConfig) -> dict[str, torch.Tensor]:
@@ -78,18 +96,26 @@ def llama_params_from_jax(pytree, cfg: LlamaConfig) -> dict[str, torch.Tensor]:
     return _from_jax(pytree, expected, _llama_jax_name, "llama", cfg)
 
 
+def resnet_params_from_jax(pytree, cfg: ResNetConfig) -> dict[str, torch.Tensor]:
+    """The JAX ResNet param pytree (numpy leaves) as ``ResNet``'s state
+    dict, f32 on the CPU."""
+    with torch.device("meta"):
+        expected = ResNet(cfg).state_dict()
+    return _from_jax(pytree, expected, _resnet_jax_name, "ResNet", cfg)
+
+
 def _from_jax(pytree, expected, jax_name, family: str, cfg) -> dict[str, torch.Tensor]:
     leaves = _flatten(pytree)
     out: dict[str, torch.Tensor] = {}
     missing = []
     for name, ref in expected.items():
-        jname, transpose = jax_name(name)
+        jname, perm = jax_name(name)
         arr = leaves.pop(jname, None)
         if arr is None:
             missing.append(jname)
             continue
-        if transpose:
-            arr = arr.T
+        if perm is not None and arr.ndim == len(perm):
+            arr = np.transpose(arr, perm)
         if tuple(arr.shape) != tuple(ref.shape):
             raise ValueError(
                 f"JAX leaf {jname} has shape {tuple(arr.shape)}; the port's "

@@ -1,6 +1,6 @@
 """InferenceEngine: bucketed dispatch of one model on one device.
 
-Counterpart of the JAX package's ``engine/engine.py`` for text
+Counterpart of the JAX package's ``engine/engine.py`` for image and text
 classification and for non-streaming generation.  Requests are padded up
 to a small set of (batch, seq) buckets, as in the JAX package where each
 bucket is one compiled executable; here execution is eager, and
@@ -8,10 +8,13 @@ bucket is one compiled executable; here execution is eager, and
 load, allocator growth) land before the service reports ready.
 
 - Classification: each dispatch is one ``torch.inference_mode`` forward
-  and one device-to-host copy of the logits.  Under a sequence-parallel
-  placement (bert-long) the batch goes to the forward as sequence shards,
-  one per device of the placement, and seq buckets round up to a multiple
-  of the shard count, as in the JAX package.
+  and one device-to-host copy of the logits.  An image batch crosses to
+  the device as uint8 (a quarter of f32's bytes) from pinned host memory,
+  padded to a batch bucket only (every image has the model's size).
+  Under a sequence-parallel placement (bert-long) the batch goes to the
+  forward as sequence shards, one per device of the placement, and seq
+  buckets round up to a multiple of the shard count, as in the JAX
+  package.
 - Generation (``KIND_SEQ2SEQ``): prefill, then greedy decode in chunks of
   ``STREAM_CHUNK_TOKENS`` steps.  After each chunk the engine reads once
   from the device whether every row is done (EOS, or its ``max_tokens``
@@ -35,7 +38,7 @@ import time
 import numpy as np
 import torch
 
-from ..models.registry import KIND_SEQ2SEQ, ModelBundle, decode_budget
+from ..models.registry import KIND_IMAGE, KIND_SEQ2SEQ, ModelBundle, decode_budget
 from ..utils import tracing
 from .kv_blocks import BlockPool, blocks_for, kv_token_bytes
 
@@ -66,8 +69,12 @@ class InferenceEngine:
         # as sequence shards, and seq buckets round to its shard count.
         self.placement = getattr(bundle, "placement", None)
         self.seq_multiple = self.placement.seq_multiple() if self.placement else 1
-        limit = getattr(bundle, "max_prompt_len", None) or bundle.cfg.max_position
-        if max(self.seq_buckets) > limit:
+        # Images have no sequence: only a text model's prompts bound the
+        # seq buckets.
+        limit = None
+        if getattr(bundle, "kind", None) != KIND_IMAGE:
+            limit = getattr(bundle, "max_prompt_len", None) or bundle.cfg.max_position
+        if limit is not None and max(self.seq_buckets) > limit:
             raise ValueError(
                 f"SEQ_BUCKETS {cfg.seq_buckets} exceed the model's {limit} positions "
                 "for a prompt"
@@ -112,6 +119,27 @@ class InferenceEngine:
     def kv_block_bytes(self) -> int:
         """Bytes one ``KV_BLOCK_SIZE``-token block costs."""
         return self.kv_token_bytes() * self.kv_block_size
+
+    def _collate_images(self, feats: list[dict]) -> tuple[torch.Tensor, int]:
+        """A uint8 [bsz, S, S, 3] batch at the batch bucket, written straight
+        into pinned host memory when the model is on the card (the copy to
+        it then runs without a staging copy)."""
+        n = len(feats)
+        bsz = bucket_for(n, self.batch_buckets)
+        size = self.bundle.image_size
+        out = torch.empty((bsz, size, size, 3), dtype=torch.uint8,
+                          pin_memory=self.device.type == "cuda")
+        arr = out.numpy()
+        for i, f in enumerate(feats):
+            arr[i] = f["image"]
+        arr[n:] = 0
+        return out, n
+
+    def _forward_images(self, images: torch.Tensor) -> np.ndarray:
+        with self._lock, torch.inference_mode():
+            logits = self.bundle.forward(images.to(self.device, non_blocking=True))
+            self.dispatches += 1
+            return logits.to(self.bundle.policy.output_dtype).cpu().numpy()
 
     def _collate_text(self, feats: list[dict]) -> tuple[np.ndarray, np.ndarray, int]:
         n = len(feats)
@@ -189,6 +217,12 @@ class InferenceEngine:
             for i in range(0, len(feats), cap):
                 out.extend(self.run_batch(feats[i : i + cap]))
             return out
+        if self.bundle.kind == KIND_IMAGE:
+            images, n = self._collate_images(feats)
+            with tracing.span("dispatch", cat="engine", batch=images.shape[0],
+                              image=images.shape[1], n=n):
+                rows = self._forward_images(images)
+            return [rows[i] for i in range(n)]
         ids, mask, n = self._collate_text(feats)
         with tracing.span("dispatch", cat="engine", batch=ids.shape[0], seq=ids.shape[1], n=n):
             if self.bundle.kind == KIND_SEQ2SEQ:
@@ -201,9 +235,15 @@ class InferenceEngine:
 
     def warmup(self) -> float:
         """Run every (batch, seq) bucket once (a generative model: its
-        prefill and one decode chunk); returns the seconds taken."""
+        prefill and one decode chunk; an image model: every batch bucket);
+        returns the seconds taken."""
         t0 = time.monotonic()
+        image = self.bundle.kind == KIND_IMAGE
         for b in self.batch_buckets:
+            if image:
+                self.run_batch(
+                    [{"image": np.zeros((self.bundle.image_size,) * 2 + (3,), np.uint8)}] * b)
+                continue
             for s in self.seq_buckets:
                 ids = np.ones((b, s), np.int32)
                 if self.bundle.kind == KIND_SEQ2SEQ:
@@ -216,6 +256,6 @@ class InferenceEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         dt = time.monotonic() - t0
-        log.info("warmed %d buckets in %.2fs",
-                 len(self.batch_buckets) * len(self.seq_buckets), dt)
+        n_seq = 1 if image else len(self.seq_buckets)
+        log.info("warmed %d buckets in %.2fs", len(self.batch_buckets) * n_seq, dt)
         return dt

@@ -6,7 +6,10 @@ keeps weights in ``nn.Linear``'s ``[d_out, d_in]`` (``convert.jax_params``
 transposes); attention activations stay ``[B, S, H, D]`` as in JAX.
 The int8 KV helpers (``kv_quantize``, ``mha_attention_kv8``) and the
 llama pieces (``rmsnorm``, ``lm_head_logits``, ``repeat_kv``) follow the
-JAX functions of the same names.
+JAX functions of the same names.  The ResNet pieces (``conv2d``,
+``batchnorm``) keep torch's layouts: OIHW conv weights and NCHW-logical
+activations, both in ``torch.channels_last`` memory format, which is the
+JAX package's NHWC in memory.
 """
 
 from __future__ import annotations
@@ -20,6 +23,37 @@ import torch.nn.functional as F
 def dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
     """``x @ weight.T + bias`` in x's type (weight in ``[d_out, d_in]``)."""
     return F.linear(x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype))
+
+
+def conv2d(x: torch.Tensor, weight: torch.Tensor, stride: int = 1,
+           padding: int = 0) -> torch.Tensor:
+    """Convolution of a channels-last NCHW ``x`` by an OIHW ``weight`` in
+    x's type (cuDNN on the card; the JAX package's is plain XLA)."""
+    return F.conv2d(x, weight.to(x.dtype), stride=stride, padding=padding)
+
+
+def batchnorm_init(c: int) -> dict[str, torch.Tensor]:
+    """Inference-mode BN state (running stats + affine)."""
+    return {"scale": torch.ones(c), "bias": torch.zeros(c), "mean": torch.zeros(c),
+            "var": torch.ones(c)}
+
+
+def batchnorm_affine(scale: torch.Tensor, bias: torch.Tensor, mean: torch.Tensor,
+                     var: torch.Tensor, dtype: torch.dtype,
+                     eps: float = 1e-5) -> tuple[torch.Tensor, torch.Tensor]:
+    """Inference BN as one affine ``y = x * g + b``: ``g`` and ``b`` formed
+    in f32 (the rsqrt of the running variance), then cast to ``dtype``, the
+    activations' type, as the JAX ``batchnorm`` does."""
+    inv = torch.rsqrt(var.float() + eps)
+    g = scale.float() * inv
+    b = bias.float() - mean.float() * g
+    return g.to(dtype), b.to(dtype)
+
+
+def batchnorm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``x * g + b`` per channel of an NCHW ``x`` (``g``, ``b`` from
+    ``batchnorm_affine``); keeps x's memory format."""
+    return torch.addcmul(b.view(-1, 1, 1), x, g.view(-1, 1, 1))
 
 
 def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

@@ -2,15 +2,18 @@
 
 Weights come from, in order: a param pytree handed in by the caller (the
 JAX package's layout, as numpy arrays), ``MODEL_PATH`` (an HF state dict,
-mapped through the same pytree layout), or a deterministic random init
+mapped through the same pytree layout; ResNet's HF layouts are the port's,
+so its map gives the state dict directly), or a deterministic random init
 drawn on the CPU from a seeded ``torch.Generator``.  All three go through
 ``convert.jax_params`` or produce its output layout.
 
-Two kinds are served: text classification (BERT-base, and bert-long, the
-long-context BERT whose attention runs as a ring over sequence shards),
-and llama greedy generation (``KIND_SEQ2SEQ``, the JAX package's kind for
-every generative model), whole or streamed through the continuous decode
-loop over a contiguous or (``PAGED_KV=1``) block-paged KV cache.
+Three kinds are served: image classification (ResNet-50), text
+classification (BERT-base, and bert-long, the long-context BERT whose
+attention runs as a ring over sequence shards), and llama greedy
+generation (``KIND_SEQ2SEQ``, the JAX package's kind for every generative
+model), whole or streamed through the continuous decode loop over a
+contiguous or (``PAGED_KV=1``) block-paged KV cache.  ``register_model``
+adds a model of the user's own under a name.
 """
 
 from __future__ import annotations
@@ -28,11 +31,21 @@ import torch
 from ..runtime.device import DtypePolicy, default_policy, get_device
 from . import bert as bert_mod
 from . import llama as llama_mod
-from .preprocess import load_labels, softmax_np
+from . import resnet as resnet_mod
+from .preprocess import (
+    IMAGENET_MEAN,
+    IMAGENET_STD,
+    decode_image_u8,
+    load_labels,
+    normalize_imagenet,
+    softmax_np,
+    topk_np,
+)
 from .tokenizer import build_tokenizer
 
 log = logging.getLogger(__name__)
 
+KIND_IMAGE = "image_classification"
 KIND_TEXT = "text_classification"
 KIND_SEQ2SEQ = "seq2seq"
 # Seed of the random init when no weights are given.
@@ -52,8 +65,10 @@ class ModelBundle:
     tokenizer: Any
     labels: list[str] | None
     # Text classification: (input_ids [B, S] int32, attention_mask [B, S]
-    # int32) on the device -> f32 logits [B, num_labels].
-    forward: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] | None = None
+    # int32) on the device -> f32 logits [B, num_labels].  Image
+    # classification: (images [B, S, S, 3] uint8 on the device) -> f32
+    # logits [B, num_labels].
+    forward: Callable[..., torch.Tensor] | None = None
     # Generation: (input_ids, attention_mask, max_len) -> decode state
     # after prefill, and (state, n_steps) -> (state, tokens [B, n_steps]).
     init_state: Callable | None = None
@@ -67,8 +82,15 @@ class ModelBundle:
     # Sequence-parallel placement (bert-long): the engine hands ``forward``
     # lists of sequence shards placed by it instead of tensors.
     placement: Any = None
+    # Image classification: the side of the square crop the model takes.
+    image_size: int = 224
 
     def preprocess(self, item: "RawItem") -> dict[str, np.ndarray]:
+        if self.kind == KIND_IMAGE:
+            if item.image is None:
+                raise ValueError("this model expects an image payload")
+            # uint8 on the wire; the normalization runs on the device.
+            return {"image": decode_image_u8(item.image, self.image_size)}
         if item.text is None:
             raise ValueError("this model expects a text payload")
         max_len = self.max_prompt_len or self.cfg.max_position
@@ -82,6 +104,17 @@ class ModelBundle:
         return feats
 
     def postprocess(self, row: np.ndarray) -> dict:
+        if self.kind == KIND_IMAGE:
+            idx, probs = topk_np(row[None], k=5)
+            top = [
+                {
+                    "class_id": int(i),
+                    "score": round(float(p), 6),
+                    **({"label": self.labels[int(i)]} if self.labels else {}),
+                }
+                for i, p in zip(idx[0], probs[0])
+            ]
+            return {"prediction": top[0], "topk": top}
         if self.kind == KIND_SEQ2SEQ:  # row is a token id vector
             return {"prediction": {"text": self.tokenizer.decode(row)}}
         probs = softmax_np(row)
@@ -98,9 +131,11 @@ class ModelBundle:
 
 @dataclasses.dataclass
 class RawItem:
-    """One unparsed /predict payload.  The generation fields apply to
-    generative models only; decoding is greedy (sampling is not ported)."""
+    """One unparsed /predict payload: image bytes or a text.  The
+    generation fields apply to generative models only; decoding is greedy
+    (sampling is not ported)."""
 
+    image: bytes | None = None
     text: str | None = None
     # Streamed through the continuous decode loop; temperature > 0 is
     # answered 400 until sampling is ported.
@@ -144,6 +179,49 @@ def _load_hf_state(path: str, name: str) -> dict[str, np.ndarray]:
         )
     log.info("loading %s checkpoint from %s", name, path)
     return load_state_dict(path)
+
+
+def _build_resnet(svc_cfg, policy: DtypePolicy, device: torch.device,
+                  params=None) -> ModelBundle:
+    """ResNet-50 v1.5 at full width: weights from ``params`` (the JAX
+    package's layout), MODEL_PATH's HF state dict, or a random init."""
+    from ..convert.jax_params import resnet_params_from_jax
+
+    cfg = resnet_mod.ResNetConfig()
+    if params is not None:
+        state = resnet_params_from_jax(params, cfg)
+    elif svc_cfg.model_path:
+        from ..convert.hf_maps import resnet_state_to_pytree
+
+        state = resnet_state_to_pytree(_load_hf_state(svc_cfg.model_path, "resnet50"),
+                                       cfg.depths)
+    else:
+        log.info("no MODEL_PATH for resnet50: deterministic random init (seed %d)", INIT_SEED)
+        state = resnet_mod.init_params(cfg, torch.Generator().manual_seed(INIT_SEED))
+    model = resnet_mod.build_model(cfg, state, device, policy.param_dtype)
+    # On the device once: a per-call copy from the host would wait for the
+    # previous forward.
+    stats = [torch.from_numpy(a).to(device) for a in (IMAGENET_MEAN, IMAGENET_STD)]
+
+    def forward(images: torch.Tensor) -> torch.Tensor:
+        # uint8 NHWC in; normalize on the device, then NCHW-logical with
+        # channels-last strides (the permute of NHWC already has them).
+        x = normalize_imagenet(images, *stats).permute(0, 3, 1, 2)
+        x = x.to(policy.compute_dtype).contiguous(memory_format=torch.channels_last)
+        return resnet_mod.apply(model, x)
+
+    return ModelBundle(
+        name="resnet50",
+        kind=KIND_IMAGE,
+        cfg=cfg,
+        model=model,
+        device=device,
+        policy=policy,
+        tokenizer=None,
+        labels=load_labels(svc_cfg.labels_path),
+        forward=forward,
+        image_size=cfg.image_size,
+    )
 
 
 def _build_bert(svc_cfg, policy: DtypePolicy, device: torch.device,
@@ -335,6 +413,8 @@ def _build_llama(svc_cfg, policy: DtypePolicy, device: torch.device,
 
 
 MODEL_REGISTRY: dict[str, Callable] = {
+    "resnet50": _build_resnet,
+    "resnet-50": _build_resnet,
     "bert-base": _build_bert,
     "bert-base-uncased": _build_bert,
     "bert-long": _build_bert_long,
@@ -342,7 +422,26 @@ MODEL_REGISTRY: dict[str, Callable] = {
     "tinyllama": _build_llama,
 }
 # Served by the JAX package, not by this port yet.
-NOT_PORTED = ("resnet50", "resnet-50", "t5-small", "t5small", "gpt2")
+NOT_PORTED = ("t5-small", "t5small", "gpt2")
+
+
+def register_model(name: str, builder: Callable) -> None:
+    """The template's extension point: serve your own model under a name.
+
+    ``builder(svc_cfg, policy, device, params=None) -> ModelBundle`` (the
+    port's builder signature: the JAX package's takes ``(svc_cfg,
+    policy)``) gets the service config, the dtype policy, the
+    ``torch.device`` to place the model on and the ``params`` handed to
+    ``build_service`` (None unless the caller gives some).  Set
+    ``MODEL_NAME=<name>`` and the engine, batcher and API serve it
+    unchanged: a ``KIND_TEXT`` or ``KIND_IMAGE`` bundle through its
+    ``forward``."""
+    if not callable(builder):
+        raise TypeError(
+            "builder must be callable(svc_cfg, policy, device, params=None) -> ModelBundle")
+    if name in MODEL_REGISTRY:
+        log.warning("register_model: overriding existing model %r", name)
+    MODEL_REGISTRY[name] = builder
 
 
 def build_model(svc_cfg, policy: DtypePolicy | None = None, params=None) -> ModelBundle:

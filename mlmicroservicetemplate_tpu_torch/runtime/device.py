@@ -17,9 +17,13 @@ VALID_DEVICES = ("cuda", "cpu")
 
 def configure_precision() -> None:
     """Full-precision f32 products everywhere (the JAX package's tests run
-    XLA at "highest" matmul precision); bf16 serving is unaffected."""
+    XLA at "highest" matmul precision); bf16 serving is unaffected.  cuDNN
+    picks its conv algorithms by heuristics, not by timing them: on an H100
+    timing gave ResNet-50 no faster forward at B=32 and cost ~9 s of warmup
+    in every dispatch thread (PERF.md §5)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
 
 
 def get_device(name: str) -> torch.device:

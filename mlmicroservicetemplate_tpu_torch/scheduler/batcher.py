@@ -18,13 +18,14 @@ hands it every stream whose prompt fits its slots, and ``stop()`` stops it.
 from __future__ import annotations
 
 import asyncio
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any
 
 import numpy as np
 
-from ..models.registry import KIND_SEQ2SEQ
+from ..models.registry import KIND_IMAGE, KIND_SEQ2SEQ
 from ..utils import metrics, tracing
 from .policy import DeadlineExceededError, DeadlineQueue, QueueFullError
 
@@ -98,6 +99,24 @@ class Batcher:
     def pending_work(self) -> int:
         streams = self._cdl.admitted if self._cdl is not None else 0
         return self._queue.qsize() + len(self._inflight) + streams
+
+    def warm_engine(self) -> float:
+        """``engine.warmup`` where batches will run: in every dispatch thread
+        for an image model, whose cuDNN convolutions keep their execution
+        plans per thread (a thread's first batch of a bucket would build
+        them while its requests wait), once for the others.  Returns the
+        seconds taken."""
+        n = self.pipeline_depth if self.engine.bundle.kind == KIND_IMAGE else 1
+        barrier = threading.Barrier(n)
+
+        def warm_here() -> None:
+            barrier.wait(timeout=60)  # each of the n calls holds a thread of its own
+            self.engine.warmup()
+
+        t0 = time.monotonic()
+        for f in [self._executor.submit(warm_here) for _ in range(n)]:
+            f.result()
+        return time.monotonic() - t0
 
     def warm_streams(self) -> float:
         """Warm the decode loop (a no-op without one); returns seconds."""

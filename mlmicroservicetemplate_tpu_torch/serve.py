@@ -2,12 +2,14 @@
 
 Boots from env vars with optional CLI overrides, e.g.::
 
+    python -m mlmicroservicetemplate_tpu_torch            # resnet50 on the card
     python -m mlmicroservicetemplate_tpu_torch.serve --device cuda --model bert-base
     QUANT_KV=int8 python -m mlmicroservicetemplate_tpu_torch.serve --model llama
     PAGED_KV=1 python -m mlmicroservicetemplate_tpu_torch.serve --model llama
     SP=1 SEQ_BUCKETS=512,1024,2048 python -m mlmicroservicetemplate_tpu_torch.serve \
         --model bert-long
     DEVICE=cpu MODEL_NAME=bert-base python -m mlmicroservicetemplate_tpu_torch.serve
+    SERVER_URL=http://parent:9000 python -m mlmicroservicetemplate_tpu_torch
 
 ``build_service`` assembles everything but the HTTP layer, so it needs no
 aiohttp; ``main`` adds the aiohttp app and serves until SIGTERM/SIGINT.
@@ -27,12 +29,14 @@ import sys
 def parse_args(argv: list[str] | None = None) -> dict:
     p = argparse.ArgumentParser(description="PyTorch/CUDA inference microservice")
     p.add_argument("--model", dest="MODEL_NAME",
-                   help="bert-base | bert-long | llama (alias tinyllama)")
+                   help="resnet50 (default) | bert-base | bert-long | llama (alias tinyllama)")
     p.add_argument("--device", dest="DEVICE", help="cuda | cpu")
     p.add_argument("--host", dest="HOST")
     p.add_argument("--port", dest="PORT")
     p.add_argument("--model-path", dest="MODEL_PATH")
     p.add_argument("--tokenizer-path", dest="TOKENIZER_PATH")
+    p.add_argument("--server-url", dest="SERVER_URL",
+                   help="parent server to register with (POST <url>/register)")
     p.add_argument("--max-batch", dest="MAX_BATCH")
     p.add_argument("--batch-timeout-ms", dest="BATCH_TIMEOUT_MS")
     p.add_argument("--no-warmup", action="store_true")
@@ -47,8 +51,8 @@ def build_service(overrides: dict | None = None, params=None):
     """Assemble (cfg, bundle, engine, batcher) without running anything.
 
     ``params``: optional param pytree in the JAX package's layout (numpy
-    leaves) of the named model (BERT-base, bert-long or llama), served in
-    place of MODEL_PATH or random init."""
+    leaves) of the named model (ResNet-50, BERT-base, bert-long or llama),
+    served in place of MODEL_PATH or random init."""
     from .utils.config import load_config
 
     cfg = load_config(overrides)

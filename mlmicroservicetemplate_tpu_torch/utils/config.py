@@ -1,8 +1,9 @@
 """Env-var driven service configuration (12-factor), as a stdlib dataclass.
 
-Holds the fields the BERT-base, bert-long and llama paths read, under the
-same environment names as the JAX package's ``ServiceConfig``.  ``DEVICE``
-is ``cuda|cpu`` and defaults to ``cuda``.
+Holds the fields the ResNet-50, BERT-base, bert-long and llama paths and
+the parent registration read, under the same environment names as the JAX
+package's ``ServiceConfig``.  ``DEVICE`` is ``cuda|cpu`` and defaults to
+``cuda``; ``MODEL_NAME`` defaults to ``resnet50``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ class ServiceConfig:
     """All knobs for one model-serving process."""
 
     device: str = "cuda"
-    model_name: str = "bert-base"
+    model_name: str = "resnet50"
     # Checkpoint (HF state dict as .npz / .safetensors / .bin); unset =
     # deterministic random init from a seed.
     model_path: str | None = None
@@ -37,6 +38,14 @@ class ServiceConfig:
     labels_path: str | None = None
     host: str = "0.0.0.0"
     port: int = 8000
+    # Parent registration: with server_url set, POST {name, host, port} to
+    # <server_url>/register, retrying every register_retry_s up to
+    # register_max_tries times until a 2xx, then again every
+    # register_heartbeat_s (0 = register once).
+    server_url: str | None = None
+    register_retry_s: float = 2.0
+    register_max_tries: int = 30
+    register_heartbeat_s: float = 0.0
     # Dynamic batching: a batch closes at max_batch items or
     # batch_timeout_ms after its first item; past max_queue waiting items
     # the server sheds (503).
@@ -94,6 +103,10 @@ class ServiceConfig:
             raise ValueError("MAX_QUEUE must be >= 1")
         if self.batch_timeout_ms < 0:
             raise ValueError("BATCH_TIMEOUT_MS must be >= 0")
+        if self.register_max_tries < 1:
+            raise ValueError("REGISTER_MAX_TRIES must be >= 1")
+        if not (self.register_retry_s >= 0 and self.register_heartbeat_s >= 0):  # also NaN
+            raise ValueError("REGISTER_RETRY_S/REGISTER_HEARTBEAT_S must be >= 0")
         if not 0 <= self.port < 65536:
             raise ValueError(f"PORT must be in [0, 65535], got {self.port}")
         _check_buckets("BATCH_BUCKETS", self.batch_buckets)
@@ -179,9 +192,6 @@ UNPORTED_KNOBS = {
     "PRIORITY_DEFAULT": ("interactive",),
     "CLASS_WEIGHT": ("4",),
     "PREEMPT": _OFF,
-    # Parent registration (SERVER_URL starts it in the JAX app).
-    "SERVER_URL": (),
-    "REGISTER_HEARTBEAT_S": ("0",),
     "TENANTS": (),
     "TENANTS_FILE": (),
     "TENANT_DEFAULT_WEIGHT": ("1",),
@@ -273,8 +283,8 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
     (same names) taking precedence.
 
     Recognized: DEVICE, MODEL_NAME, MODEL_PATH, TOKENIZER_PATH, LABELS_PATH,
-    HOST, PORT, MAX_BATCH, BATCH_TIMEOUT_MS, MAX_QUEUE, BATCH_BUCKETS,
-    SEQ_BUCKETS, WARMUP, LOG_LEVEL, TRACE, MAX_DECODE_LEN,
+    HOST, PORT, SERVER_URL, REGISTER_HEARTBEAT_S, MAX_BATCH, BATCH_TIMEOUT_MS,
+    MAX_QUEUE, BATCH_BUCKETS, SEQ_BUCKETS, WARMUP, LOG_LEVEL, TRACE, MAX_DECODE_LEN,
     STREAM_CHUNK_TOKENS, QUANT_KV, LLAMA_CONFIG, MAX_STREAMS, PAGED_KV,
     KV_BLOCK_SIZE, SP, TRACE_RING, PIPELINE_DEPTH, DEADLINE_MS,
     DRAIN_GRACE_S.  Any of ``UNPORTED_KNOBS`` set to a value that turns it
@@ -303,7 +313,7 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
     for field, var in (
         ("device", "DEVICE"), ("model_name", "MODEL_NAME"),
         ("model_path", "MODEL_PATH"), ("tokenizer_path", "TOKENIZER_PATH"),
-        ("labels_path", "LABELS_PATH"), ("host", "HOST"),
+        ("labels_path", "LABELS_PATH"), ("host", "HOST"), ("server_url", "SERVER_URL"),
         ("log_level", "LOG_LEVEL"), ("quant_kv", "QUANT_KV"),
         ("llama_config", "LLAMA_CONFIG"),
     ):
@@ -320,7 +330,8 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
         if v is not None:
             kwargs[field] = int(v)
     for field, var in (("batch_timeout_ms", "BATCH_TIMEOUT_MS"), ("deadline_ms", "DEADLINE_MS"),
-                       ("drain_grace_s", "DRAIN_GRACE_S")):
+                       ("drain_grace_s", "DRAIN_GRACE_S"),
+                       ("register_heartbeat_s", "REGISTER_HEARTBEAT_S")):
         v = get(var)
         if v is not None:
             kwargs[field] = float(v)

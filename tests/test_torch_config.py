@@ -57,6 +57,28 @@ def test_device_defaults_to_cuda(monkeypatch):
     assert ServiceConfig().device == "cuda"
 
 
+def test_model_name_defaults_to_resnet50_as_in_jax(monkeypatch):
+    monkeypatch.delenv("MODEL_NAME", raising=False)
+    assert load_config({"DEVICE": "cpu"}).model_name == "resnet50"
+    assert jax_load_config({"DEVICE": "cpu"}).model_name == "resnet50"
+    assert ServiceConfig().model_name == "resnet50"
+
+
+def test_registration_knobs_read_the_jax_package_env_names():
+    env = {"DEVICE": "cpu", "SERVER_URL": "http://parent:9000", "REGISTER_HEARTBEAT_S": "2.5"}
+    port, ref = load_config(env), jax_load_config(env)
+    for field in ("server_url", "register_heartbeat_s", "register_retry_s",
+                  "register_max_tries"):
+        assert getattr(port, field) == getattr(ref, field), field
+    assert load_config({"DEVICE": "cpu"}).server_url is None
+    for bad in ({"register_heartbeat_s": -1.0}, {"register_retry_s": -1.0},
+                {"register_max_tries": 0}):
+        with pytest.raises(ValueError):
+            ServiceConfig(device="cpu", **bad)
+    with pytest.raises(ValueError):
+        load_config({"DEVICE": "cpu", "REGISTER_HEARTBEAT_S": "-1"})
+
+
 @pytest.mark.parametrize(
     "overrides",
     [

@@ -88,6 +88,12 @@ def test_port_modules_cover_the_parallel_package():
         assert f"mlmicroservicetemplate_tpu_torch.{name}" in mods, name
 
 
+def test_port_modules_cover_the_image_slice_and_the_template():
+    mods = _port_modules()
+    for name in ("models.resnet", "api.registration", "__main__"):
+        assert f"mlmicroservicetemplate_tpu_torch.{name}" in mods, name
+
+
 def test_ring_on_the_cpu_builds_nothing():
     """A CPU ring (the plain hop) neither imports the build module nor
     counts a launch."""

@@ -181,9 +181,10 @@ def test_model_path_npz_loads_the_jax_weights(tmp_path):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-4, rtol=0)
 
 
-def test_unported_model_names_raise():
+@pytest.mark.parametrize("name", ["t5-small", "t5small", "gpt2"])
+def test_unported_model_names_raise(name):
     with pytest.raises(ValueError, match="not ported"):
-        build_service({"DEVICE": "cpu", "MODEL_NAME": "resnet50"})
+        build_service({"DEVICE": "cpu", "MODEL_NAME": name})
 
 
 def test_cuda_without_a_gpu_raises(monkeypatch):
