@@ -47,14 +47,29 @@ result line:
    exactly -1e9 over a block row with no valid key; the yardstick is
    ``scaled_dot_product_attention`` over the same block (the hop's work
    without the carried merge).
+4d. kernel graphs: each of K1-K4 captured alone in a CUDA graph at a
+   serving shape (its library links its own static CUDA runtime), replayed
+   on new inputs against an eager call: equal bit for bit, one launch
+   counted a replay, and the profiler's trace of a replay naming it.
 5. serve bert-base: the full-width service through ``Batcher.submit`` in
-   waves that hit several batch and seq buckets; every kernel launch
-   counter must show the path went through the kernel (12 launches per
-   dispatch), and the answers must match the same port on the CPU in f32
+   waves that hit several batch and seq buckets, every bucket captured as
+   a CUDA graph at warmup; every kernel launch counter must show the path
+   went through the kernel (12 launches per dispatch, counted from the
+   replays), and the answers must match the same port on the CPU in f32
    on the same weights.
-6. forward: where one BERT forward's time goes at three buckets: wall time
-   (CUDA events) against the card's busy time from ``torch.profiler``'s
-   kernel records, split into K1, GEMMs and the rest.
+5a. graphs <service> (after each service): captures, capture seconds,
+   replays and static output bytes by kind, the graph pools' bytes, cache
+   misses after warmup (must be 0), the launch counters of the drive
+   against the launches its replays made (must agree), one replay of each
+   kind traced by ``torch.profiler`` with K1-K4 by name (as many as its
+   capture recorded), and the same batch through the graph and, with the
+   engine's graphs off, eagerly: logits within 1e-3 of a row's largest
+   |logit|, greedy tokens identical (a loop chunk of 16 live slots for the
+   streaming services).
+6. forward: where one BERT forward's time goes at three buckets, eager
+   and as the bucket's graph replay side by side: wall time (CUDA events)
+   against the card's busy time from ``torch.profiler``'s kernel records,
+   split into K1, GEMMs and the rest, and the kernels a call.
 6a. serve resnet50: ResNet-50 v1.5 at full width (random weights from seed
    0, every BN drawn at random; bf16, channels-last cuDNN convs; no TPU
    kernel on this path) with every batch bucket warmed in every dispatch
@@ -69,7 +84,9 @@ result line:
    flipped), each on a fresh thread: the first call's time, wall against
    busy time, img/s, TFLOP/s over 2 x 4.09 GMAC an image, the conv
    kernels' share and the layout transposes a forward (0 while
-   channels-last holds).
+   channels-last holds), eager and (not autotuned) as the bucket's graph
+   replay.  The BNs are folded into the convs at load, and each conv with
+   a ReLU after it is one fused cuDNN call.
 6b. serve bert-long: the long-context BERT at full width (12 layers, 768
    hidden, position table 2048, random weights from seed 0, bf16) at SP=1,
    SEQ_BUCKETS=512,1024,2048, through ``Batcher.submit`` in waves of texts
@@ -77,11 +94,14 @@ result line:
    and K1 never; the answers must match an f32 forward on the card of the
    same weights through the plain hop.
 6c. forward bert-long: one B=8, S=2048 forward timed and split into K4,
-   GEMMs and the rest, as in 6.
+   GEMMs and the rest, eager and as its graph, as in 6.
 6d. ring 4-shard: the same weights through a 4-shard placement whose
    shards all sit on the one card, over the 2048 bucket (4 hops of
    S_loc=512 a layer, 192 launches a forward); probabilities must match the
-   SP=1 run; the forward is timed beside the SP=1 one and split by kernel.
+   SP=1 run; the same placement served by an engine of its own, whose
+   graph (every shard on one card) must match the eager forward within
+   1e-3 of a row's largest |logit|; eager and graph timed beside the SP=1
+   forward and split by kernel.
 7. serve llama / serve llama int8: full-width TinyLlama (22 layers, random
    weights from seed 0 drawn once and given to both services), bf16, the
    dense and the int8 KV cache, through ``Batcher.submit`` in waves over
@@ -97,10 +117,13 @@ result line:
    kernel must launch 22 times per slot decode step, the decode kernel 22
    times per step of each admission wave's first chunk (and, contiguous,
    per slot step); the pool must hold 0 blocks after the last stream.
-   Then one chunk of the 16-slot state at full width is timed (CUDA
-   events) and split by kernel (``torch.profiler``).
+   Every bucket's ``start`` and the loop's chunk are captured before the
+   first stream, as the app warms.  Then one chunk of the 16-slot state at
+   full width is timed (CUDA events) and split by kernel
+   (``torch.profiler``), eager and as the loop's graph.
 8. decode step: where one llama decode step's time goes at B in {1, 8,
-   32}, T=576: wall time against busy time, split into K2, GEMMs, other.
+   32}, T=576: wall time against busy time, split into K2, GEMMs, other,
+   eager and as a graph of the step.
 9. http: ``/predict`` on bert-base, ``/predict`` and ``/status`` (its
    ``n_devices``) on bert-long, ``/predict`` and ``/v1/completions`` on
    llama, whole and streamed (ndjson, and SSE ending in ``data: [DONE]``),
@@ -112,11 +135,11 @@ result line:
 
 The last lines are the kernels summary (K1's and K4's with the headline's
 TFLOP/s, K4's also with the SP=1 hop's time), the card's name and power limit,
-and ``{"ok": true, "device": {...}}``.  ``--cpu-rehearsal`` skips the build
-and kernel phases, serves BERT-base, ResNet-50 (f32, batch buckets 1-8),
-bert-long (SP=2, SEQ_BUCKETS=64,128)
-and a 2-layer llama (``LLAMA_CONFIG``), whole and streamed, on the CPU at
-small buckets, and prints no result line.
+and ``{"ok": true, "device": {...}}``.  ``--cpu-rehearsal`` skips the build,
+kernel and graphs phases (the CPU runs the eager functions), serves
+BERT-base, ResNet-50 (f32, batch buckets 1-8), bert-long (SP=2,
+SEQ_BUCKETS=64,128) and a 2-layer llama (``LLAMA_CONFIG``), whole and
+streamed, on the CPU at small buckets, and prints no result line.
 """
 
 from __future__ import annotations
@@ -187,6 +210,16 @@ K1_KERNEL, K4_KERNEL = r"fused_attention|EncoderOp", r"ring_hop|HopOp"
 # Their libraries must hold mma.sync (SASS HMMA) for the dense bf16 cache.
 K2_KERNEL = r"(?<!paged_)decode_attention_kernel|decode_(split|combine)_kernel<.*false>"
 K3_KERNEL = r"paged_decode_attention_kernel|decode_(split|combine)_kernel<.*true>"
+# One device kernel per wrapper launch, by name (K2 and K3: the split
+# kernel; the combine runs past one split only), by launch counter.
+LAUNCHED_KERNEL = {"fused_attention": r"EncoderOp", "decode_attention": r"decode_split_kernel<.*false>",
+                   "paged_decode_attention": r"decode_split_kernel<.*true>",
+                   "ring_hop": r"HopOp"}
+# Served logits through a CUDA graph against the same engine's eager
+# dispatch on the same batch: the largest error of a row, as a fraction of
+# that row's largest |logit| (the same kernels on the same inputs; only a
+# library's choice of algorithm under capture could differ).
+GRAPH_LOGIT_TOL = 1e-3
 MMA_LIBRARIES = ("decode_attention", "paged_decode_attention")
 # Valid prefix of batch row i, in thousandths of S, for the "ragged" masks
 # (at S = 2048: 700, 2, 2045, 129, 1024, 1802, 63, 2048 keys).
@@ -893,6 +926,73 @@ def phase_ring_kernel() -> tuple[dict, dict]:
     return headline, serving
 
 
+def phase_kernel_graphs() -> dict:
+    """Each hand-written kernel captured alone in a CUDA graph at a serving
+    shape, then replayed twice on new inputs written into its static ones,
+    against an eager call on the same inputs: outputs equal bit for bit,
+    and the launch counter moving by the one launch its capture recorded.
+    The kernels launch from libraries that nvcc links to their own static
+    CUDA runtime (``ops/_build.py``), on PyTorch's capturing stream."""
+    import torch
+
+    from mlmicroservicetemplate_tpu_torch.ops.attention import decode_attention, fused_attention
+    from mlmicroservicetemplate_tpu_torch.ops.paged_attention import paged_decode_attention
+    from mlmicroservicetemplate_tpu_torch.parallel.ring import ring_hop
+    from mlmicroservicetemplate_tpu_torch.runtime.compile_cache import capture_graph
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    bf16 = torch.bfloat16
+
+    def k1():
+        q, k, v = (torch.randn(8, 128, HEADS, HEAD_DIM, device="cuda", generator=gen).to(bf16)
+                   for _ in range(3))
+        return (q, k, v, k1_mask(8, 128, "pad")), lambda a: fused_attention(*a)
+
+    def k2():
+        return decode_case(gen, "bfloat16", 8, 576), lambda a: decode_attention(*a)
+
+    def k3():
+        q, kp, vp, table, valid, _, _ = paged_case(gen, "bfloat16", 16, 36)
+        return (q, kp, vp, table, valid), lambda a: paged_decode_attention(*a[:5], PAGE)
+
+    def k4():
+        q, k, v, mask, *_ = ring_hop_case(gen, bf16, 2, 512, "fresh")
+        return (q, k, v, mask), lambda a: ring_hop(
+            *a, None, None, None, HEAD_DIM ** -0.5, fresh=True,
+            out=torch.empty(a[0].shape, dtype=bf16, device="cuda"))
+
+    rows = {}
+    for name, case in (("fused_attention", k1), ("decode_attention", k2),
+                       ("paged_decode_attention", k3), ("ring_hop", k4)):
+        counter = {"fused_attention": fused_attention, "decode_attention": decode_attention,
+                   "paged_decode_attention": paged_decode_attention, "ring_hop": ring_hop}[name]
+        args, call = case()
+        with torch.inference_mode():
+            entry = capture_graph(f"kernel {name}", lambda: call(args), args, "cuda")
+            diffs = []
+            for _ in range(2):
+                fresh, _ = case()
+                for dst, src in zip(args, fresh):
+                    if dst is not None:
+                        dst.copy_(src)
+                want = call(args)
+                before = counter.launches
+                entry.replay()
+                torch.cuda.synchronize()
+                if counter.launches - before != 1:
+                    raise AssertionError(f"{name}: a replay counted {counter.launches - before} "
+                                         "launches, its capture recorded one")
+                diffs.append(float((entry.outputs.float() - want.float()).abs().max()))
+        if entry.launches != {name: 1} or any(diffs):
+            raise AssertionError(f"{name}: captured launches {entry.launches}, replay against "
+                                 f"eager max |diff| {diffs}")
+        rows[name] = {"captured_launches": entry.launches[name], "capture_s": entry.capture_s,
+                      "replay_vs_eager_max_abs_diff": max(diffs),
+                      "trace_one_replay": graph_trace(entry)}
+    emit("kernel graphs", cudart="static, one per library (nvcc default)", **rows)
+    return rows
+
+
 def make_waves(rehearsal: bool):
     """Text requests in five waves of 1, 2, 5, 8 and 16, each wave longer,
     so dispatches land in several batch and seq buckets."""
@@ -981,8 +1081,10 @@ def phase_serve_long(rehearsal: bool, card_line: str):
 
     ring_hop.launches = fused_attention.launches = 0
     engine.dispatches = 0
+    marks = graph_marks(bundle)
     feats, rows, latencies, wall = asyncio.run(drive(batcher, bundle, waves))
     launches, k1, dispatches = ring_hop.launches, fused_attention.launches, engine.dispatches
+    gdrive = graph_drive(bundle, marks, {"ring_hop": launches, "fused_attention": k1})
     want = 0 if rehearsal else LAYERS * sp * sp * dispatches
     if dispatches < 1 or launches != want or k1 != 0:
         raise AssertionError(
@@ -1010,18 +1112,23 @@ def phase_serve_long(rehearsal: bool, card_line: str):
         fused_attention_launches=k1, warmup_s=warm_s, p50_ms=float(np.percentile(lat, 50)),
         p99_ms=float(np.percentile(lat, 99)), req_per_s=len(rows) / wall,
         max_prob_err_vs_f32_plain_hop=worst, prob_tol=PROB_TOL, labels_checked=label_checked,
+        graph_modes=engine.graph_modes(),
     )
-    return cfg, bundle, engine, launches, feats
+    return cfg, bundle, engine, launches, feats, gdrive
 
 
-def phase_ring_4shard(bundle, engine, feats, rehearsal: bool) -> int:
+def phase_ring_4shard(cfg, bundle, engine, feats, rehearsal: bool) -> int:
     """The served weights through a 4-shard placement whose shards share
     the service's device, over the largest bucket: K4 launched 12 · 4 · 4
     times a forward; probabilities within PROB_TOL of the served (one-shard
-    on the card) forward of the same batch."""
+    on the card) forward of the same batch.  On the card the same placement
+    also serves through an engine of its own, whose forward graph (every
+    shard on one card, so captured) is held against the eager forward
+    within GRAPH_LOGIT_TOL and timed beside it."""
     import numpy as np
     import torch
 
+    from mlmicroservicetemplate_tpu_torch.engine.engine import InferenceEngine
     from mlmicroservicetemplate_tpu_torch.models.bert import classify_seq_parallel
     from mlmicroservicetemplate_tpu_torch.parallel import SeqParallelSet
     from mlmicroservicetemplate_tpu_torch.parallel.ring import ring_hop
@@ -1051,11 +1158,25 @@ def phase_ring_4shard(bundle, engine, feats, rehearsal: bool) -> int:
         got = four().float().cpu().numpy()
         launches = ring_hop.launches
         want = served().float().cpu().numpy()
-        timing = {}
-        if not rehearsal:
-            timing = {"wall_ms_4shard": cuda_ms(four, 5), "wall_ms_served": cuda_ms(served, 5)}
-            split = profile_split(four, 3, K4_KERNEL, "ring_hop")
-            timing.update({f"4shard_{k}": v for k, v in split.items()})
+    timing = {}
+    if not rehearsal:
+        bundle4 = dataclasses.replace(
+            bundle, placement=placement,
+            forward=lambda i, m: classify_seq_parallel(replicas, i, m, dtype=dtype))
+        engine4 = InferenceEngine(bundle4, dataclasses.replace(
+            cfg, batch_buckets=(len(batch),), seq_buckets=(seq,)))
+        graph_rows = np.stack(engine4.run_batch(batch))  # captures, then replays
+        entry = engine_graph(engine4, "forward", (len(batch), seq))
+        diff = float((np.abs(graph_rows - got).max(axis=1) / np.abs(got).max(axis=1)).max())
+        if diff > GRAPH_LOGIT_TOL or entry.launches != {"ring_hop": LAYERS * shards * shards}:
+            raise AssertionError(f"4-shard graph: logits {diff} x max|logit| from eager, "
+                                 f"launches {entry.launches}")
+        with torch.inference_mode():
+            timing = eager_and_graph(four, entry.replay, 3, K4_KERNEL, "ring_hop", iters=5)
+            timing["wall_ms_served"] = cuda_ms(served, 5)
+        timing.update(graph_modes=engine4.graph_modes(),
+                      graph_logit_diff_over_max_logit=diff,
+                      graph_trace_one_replay=graph_trace(entry))
     if launches != (0 if rehearsal else LAYERS * shards * shards):
         raise AssertionError(f"ring_hop launched {launches} times over one {shards}-shard "
                              f"forward; want {LAYERS * shards * shards}")
@@ -1066,7 +1187,7 @@ def phase_ring_4shard(bundle, engine, feats, rehearsal: bool) -> int:
     return launches
 
 
-def phase_forward_long(bundle) -> None:
+def phase_forward_long(bundle, engine) -> None:
     import numpy as np
     import torch
 
@@ -1076,12 +1197,14 @@ def phase_forward_long(bundle) -> None:
     mask = np.ones((b, s), np.int32)
     placement = bundle.placement
     ids_s, mask_s = placement.place_batch(ids), placement.place_batch(mask)
+    entry = engine_graph(engine, "forward", (b, s))
     with torch.inference_mode():
-        wall_ms = cuda_ms(lambda: bundle.forward(ids_s, mask_s), 5)
-        split = profile_split(lambda: bundle.forward(ids_s, mask_s), 3, K4_KERNEL, "ring_hop")
-    busy = split["device_busy_ms"]
-    emit("forward bert-long", shape=[b, s], sp=placement.n_devices, wall_ms=wall_ms,
-         busy_share=busy / wall_ms if busy else None, **split)
+        for static, shards in zip(entry.inputs, (ids_s, mask_s)):
+            for dst, src in zip(static, shards):
+                dst.copy_(src)
+        out = eager_and_graph(lambda: bundle.forward(ids_s, mask_s), entry.replay, 3,
+                              K4_KERNEL, "ring_hop", iters=5)
+    emit("forward bert-long", shape=[b, s], sp=placement.n_devices, **out)
 
 
 def resnet_pytree(cfg, seed: int) -> dict:
@@ -1213,10 +1336,12 @@ def phase_serve_resnet(rehearsal: bool, card_line: str):
 
     engine.run_batch = recording
     engine.dispatches = 0
+    marks = graph_marks(bundle)
     try:
         feats, rows, latencies, wall = asyncio.run(drive(batcher, bundle, waves, prep=dict))
     finally:
         del engine.run_batch
+    gdrive = graph_drive(bundle, marks, {})
     if max(sizes) < 2:
         raise AssertionError(f"dynamic batching formed no batch above 1: {sizes}")
     _, cpu_bundle, cpu_engine, cpu_batcher = build_service(
@@ -1229,48 +1354,64 @@ def phase_serve_resnet(rehearsal: bool, card_line: str):
          dispatches=engine.dispatches, batch_sizes=sizes, **warm,
          p50_ms=float(np.percentile(lat, 50)), p99_ms=float(np.percentile(lat, 99)),
          img_per_s=len(rows) / wall, max_logit_err_over_max_logit=worst,
-         logit_tol=RESNET_LOGIT_TOL, top1_checked=checked)
-    return cfg, bundle, engine
+         logit_tol=RESNET_LOGIT_TOL, top1_checked=checked, graph_modes=engine.graph_modes())
+    return cfg, bundle, engine, gdrive, feats
 
 
-def phase_forward_resnet(bundle) -> None:
+def phase_forward_resnet(bundle, engine) -> None:
     """One forward at B=1 and B=32, and B=32 with cuDNN's autotuning
     flipped, each on a fresh thread (so each setting picks its own plans):
     the first call's time (plan building), wall (CUDA events) against busy
     time, the conv kernels' share, the layout transposes a forward and the
-    rate over 2 x 4.09 GMAC an image."""
+    rate over 2 x 4.09 GMAC an image; with the heuristics' plans also the
+    bucket's graph replay side by side (the BNs folded into the convs in
+    both)."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     kept = torch.backends.cudnn.benchmark
 
-    def measure(images):
+    def rates(b, row):
+        busy, wall = row["device_busy_ms"], row["wall_ms"]
+        flops = 2 * RESNET_MACS * b
+        return dict(img_per_s=b / wall * 1e3, tflops_wall=flops / wall / 1e9,
+                    tflops_busy=flops / busy / 1e9 if busy else None,
+                    conv_share=row["conv_ms"] / busy if busy else None,
+                    transposes=row.pop("counted"))
+
+    def measure(images, graph):
         with torch.inference_mode():
             t0 = time.monotonic()
             bundle.forward(images)
             torch.cuda.synchronize()
             first_ms = (time.monotonic() - t0) * 1e3
-            wall_ms = cuda_ms(lambda: bundle.forward(images), 10)
-            split = profile_split(lambda: bundle.forward(images), 5, CONV_KERNEL, "conv",
-                                  count=TRANSPOSE_KERNEL)
-        return first_ms, wall_ms, split
+            if graph is None:
+                wall_ms = cuda_ms(lambda: bundle.forward(images), 10)
+                split = profile_split(lambda: bundle.forward(images), 5, CONV_KERNEL, "conv",
+                                      count=TRANSPOSE_KERNEL)
+                return first_ms, {"eager": {"wall_ms": wall_ms, "busy_share":
+                                            split["device_busy_ms"] / wall_ms, **split}}
+            return first_ms, eager_and_graph(lambda: bundle.forward(images), graph.replay, 5,
+                                             CONV_KERNEL, "conv", count=TRANSPOSE_KERNEL)
 
     for b, autotune in ((1, kept), (32, kept), (32, not kept)):
         images = torch.randint(0, 256, (b, 224, 224, 3), device="cuda", generator=gen,
                                dtype=torch.uint8)
+        graph = None
+        if autotune == kept:
+            graph = engine_graph(engine, "forward_images", (b, 224, 224, 3))
+            with torch.inference_mode():
+                graph.inputs.copy_(images)
         torch.backends.cudnn.benchmark = autotune
         try:
-            first_ms, wall_ms, split = in_new_thread(lambda: measure(images))
+            first_ms, out = in_new_thread(lambda: measure(images, graph))
         finally:
             torch.backends.cudnn.benchmark = kept
-        busy = split["device_busy_ms"]
-        flops = 2 * RESNET_MACS * b
+        for mode in ("eager", "graph"):
+            if mode in out:
+                out[mode].update(rates(b, out[mode]))
         emit("forward resnet50", batch=b, cudnn_autotune=autotune, first_call_ms=first_ms,
-             wall_ms=wall_ms, busy_share=busy / wall_ms if busy else None,
-             img_per_s=b / wall_ms * 1e3, tflops_wall=flops / wall_ms / 1e9,
-             tflops_busy=flops / busy / 1e9 if busy else None,
-             conv_share=split["conv_ms"] / busy if busy else None,
-             transposes=split.pop("counted"), **split)
+             **out)
 
 
 def png_bytes(seed: int) -> bytes:
@@ -1363,8 +1504,10 @@ def phase_serve(rehearsal: bool, card_line: str):
 
     fused_attention.launches = 0
     engine.dispatches = 0
+    marks = graph_marks(bundle)
     feats, rows, latencies, wall = asyncio.run(drive(batcher, bundle, waves))
     launches, dispatches = fused_attention.launches, engine.dispatches
+    gdrive = graph_drive(bundle, marks, {"fused_attention": launches})
 
     if not rehearsal and (dispatches < 1 or launches != LAYERS * dispatches):
         raise AssertionError(
@@ -1388,17 +1531,18 @@ def phase_serve(rehearsal: bool, card_line: str):
         warmup_s=warm_s, p50_ms=float(np.percentile(lat, 50)),
         p99_ms=float(np.percentile(lat, 99)), req_per_s=len(rows) / wall,
         max_prob_err_vs_cpu_f32=worst, prob_tol=PROB_TOL,
-        labels_checked=label_checked,
+        labels_checked=label_checked, graph_modes=engine.graph_modes(),
     )
-    return cfg, bundle, engine, launches
+    return cfg, bundle, engine, launches, gdrive, feats
 
 
 def profile_split(fn, reps: int, kernel_name: str, label: str, count: str | None = None) -> dict:
     """Device busy time of ``reps`` calls of ``fn`` from ``torch.profiler``'s
     kernel records, per call, split into the port's kernel (names matching
     the regex ``kernel_name``),
-    GEMMs and the rest, with the four busiest kernels; with ``count``, also
-    the kernels a call whose names match that regex (``counted``)."""
+    GEMMs and the rest, with the four busiest kernels and the device
+    kernels a call (``kernels``); with ``count``, also the kernels a call
+    whose names match that regex (``counted``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1427,23 +1571,259 @@ def profile_split(fn, reps: int, kernel_name: str, label: str, count: str | None
         **{f"{k}_ms": v / reps / 1e3 for k, v in split.items()},
         top_kernels=[[name[:80], us / reps / 1e3] for name, us in top],
         note=None if by_name else "torch.profiler recorded no device kernels",
-        **({"counted": counted / reps, "kernels": launched / reps} if count else {}),
+        kernels=launched / reps,
+        **({"counted": counted / reps} if count else {}),
     )
 
 
-def phase_forward(bundle) -> None:
+def eager_and_graph(eager, graph, reps: int, kernel_name: str, label: str, iters: int = 10,
+                    count: str | None = None) -> dict:
+    """Wall time (CUDA events over ``iters`` calls) and ``profile_split``
+    over ``reps`` calls of the eager function and of the graph replay, side
+    by side; the kernel launches a call are the profile's ``kernels``."""
+    out = {}
+    for mode, fn in (("eager", eager), ("graph", graph)):
+        wall = cuda_ms(fn, iters)
+        split = profile_split(fn, reps, kernel_name, label, count=count)
+        busy = split["device_busy_ms"]
+        out[mode] = {"wall_ms": wall, "busy_share": busy / wall if busy else None, **split}
+    out["wall_speedup"] = out["eager"]["wall_ms"] / out["graph"]["wall_ms"]
+    return out
+
+
+def engine_graph(engine, kind: str, shape: tuple):
+    """The engine's graph of ``kind`` for the bucket ``shape`` (captured if
+    it is missing)."""
+    import torch
+
+    make = {"forward": engine._make_forward, "forward_images": engine._make_images,
+            "start": engine._make_start, "gen_chunk": engine._make_gen_chunk}[kind]
+    with engine._lock, torch.inference_mode():
+        return engine._graph(kind, shape, lambda: make(shape))
+
+
+def graph_marks(bundle) -> tuple:
+    """What a drive's graph accounting starts from: the bundle's replays
+    and the cache's misses so far."""
+    from mlmicroservicetemplate_tpu_torch.runtime.compile_cache import CACHE
+
+    return replays_of(bundle), CACHE.stats()["miss"]
+
+
+def graph_drive(bundle, marks: tuple, counted: dict) -> dict:
+    """A drive's graph accounting since ``marks``: cache misses, the launch
+    counters' counts and the launches the replays made."""
+    from mlmicroservicetemplate_tpu_torch.runtime.compile_cache import CACHE
+
+    return {"misses": CACHE.stats()["miss"] - marks[1], "counted": counted,
+            "replayed": launches_replayed(bundle, marks[0])}
+
+
+def replays_of(bundle) -> dict:
+    """Replays so far of each of the bundle's graphs, by entry."""
+    from mlmicroservicetemplate_tpu_torch.runtime.compile_cache import CACHE
+
+    return {id(e): e.replays for e in CACHE.entries(bundle)}
+
+
+def launches_replayed(bundle, before: dict) -> dict:
+    """Kernel launches the bundle's graphs made since ``before``
+    (``replays_of``): each entry's new replays times the launches recorded
+    at its capture, and once more for an entry captured since, whose
+    capture ran its call eagerly."""
+    from mlmicroservicetemplate_tpu_torch.runtime.compile_cache import CACHE
+
+    out = {}
+    for e in CACHE.entries(bundle):
+        calls = e.replays - before.get(id(e), 0) + (id(e) not in before)
+        for name, n in e.launches.items():
+            out[name] = out.get(name, 0) + calls * n
+    return out
+
+
+def graph_trace(entry, attempts: int = 3) -> dict:
+    """One replay of ``entry`` under ``torch.profiler``: its device kernels,
+    and those of each hand-written kernel by name, which must be as many as
+    its capture recorded.  A trace that shows no device kernel at all is
+    taken again, up to ``attempts`` times in all; a trace that shows
+    kernels fails at once unless it agrees.  Every attempt's counts are
+    returned."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mlmicroservicetemplate_tpu_torch.runtime.compile_cache import device_lock
+
+    want = {name: entry.launches.get(name, 0) for name in LAUNCHED_KERNEL}
+    tries = []
+    for _ in range(attempts):
+        with device_lock(torch.device("cuda", torch.cuda.current_device())):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                entry.replay()
+                torch.cuda.synchronize()
+        seen = dict.fromkeys(LAUNCHED_KERNEL, 0)
+        kernels = 0
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            kernels += 1
+            for name, pattern in LAUNCHED_KERNEL.items():
+                seen[name] += bool(re.search(pattern, e.name))
+        tries.append({"kernels": kernels, **{k: v for k, v in seen.items() if v}})
+        if kernels:
+            break
+    if not kernels or seen != want:
+        raise AssertionError(f"{entry.kind}: one replay's traces show {tries}; its capture "
+                             f"recorded {want}")
+    return {**tries[-1], "attempts": tries}
+
+
+def phase_graphs(label: str, bundle, misses: int, counted: dict, replayed: dict,
+                 want_misses: int = 0, **checks) -> dict:
+    """A service's graphs: captures, capture seconds and replays by kind,
+    the graph pools' bytes, the misses after warmup (must be 0: every
+    bucket was captured at warmup), the launch counters of the drive held
+    against the launches its replays made, and one replay of each kind
+    traced by the profiler with the hand-written kernels by name."""
+    from mlmicroservicetemplate_tpu_torch.runtime import compile_cache
+
+    if misses != want_misses:
+        raise AssertionError(f"{label}: {misses} graph-cache misses after warmup; "
+                             f"want {want_misses}")
+    if {k: v for k, v in counted.items() if v} != {k: v for k, v in replayed.items() if v}:
+        raise AssertionError(f"{label}: launch counters {counted} but the replays made "
+                             f"{replayed}")
+    kinds: dict = {}
+    for e in compile_cache.CACHE.entries(bundle):
+        k = kinds.setdefault(e.kind, {"captures": 0, "capture_s": 0.0, "replays": 0,
+                                      "static_output_bytes": 0, "launches_per_replay": {},
+                                      "_entry": e})
+        k["captures"] += 1
+        k["capture_s"] += e.capture_s
+        k["replays"] += e.replays
+        k["static_output_bytes"] += tensor_bytes(e.outputs)
+        if sum(e.launches.values()) >= sum(k["_entry"].launches.values()):
+            k["_entry"] = e
+    for k in kinds.values():
+        e = k.pop("_entry")
+        k["launches_per_replay"] = e.launches
+        k["trace_one_replay"] = graph_trace(e)
+    out = dict(kinds=kinds, graph_pool_bytes=compile_cache.graph_pool_bytes(),
+               misses_after_warmup=misses, launches_counted=counted,
+               launches_by_replays=replayed, **checks)
+    emit(f"graphs {label}", **out)
+    return out
+
+
+def logits_graph_vs_eager(engine, feats) -> dict:
+    """The same batch through the engine's graph and, with its graphs off,
+    its eager dispatch: each row's largest difference within
+    GRAPH_LOGIT_TOL of that row's largest |logit|."""
+    import numpy as np
+
+    graphs = engine.graphs
+    got = engine.run_batch(feats)
+    engine.graphs = None
+    try:
+        want = engine.run_batch(feats)
+    finally:
+        engine.graphs = graphs
+    worst = max(float(np.abs(g - w).max() / np.abs(w).max()) for g, w in zip(got, want))
+    if worst > GRAPH_LOGIT_TOL:
+        raise AssertionError(f"graph logits differ from eager by {worst} x max|logit|")
+    return {"rows": len(got), "max_logit_diff_over_max_logit": worst,
+            "tol": GRAPH_LOGIT_TOL}
+
+
+def tokens_graph_vs_eager(engine, feats) -> dict:
+    """One generation batch through the engine's ``start`` and
+    ``gen_chunk`` graphs and, with its graphs off, eagerly: greedy tokens
+    identical."""
+    import numpy as np
+
+    graphs = engine.graphs
+    got = engine.run_batch(feats)
+    engine.graphs = None
+    try:
+        want = engine.run_batch(feats)
+    finally:
+        engine.graphs = graphs
+    same = all(np.array_equal(g, w) for g, w in zip(got, want))
+    if not same:
+        raise AssertionError("greedy tokens through graphs differ from eager ones")
+    return {"rows": len(got), "tokens_identical": same}
+
+
+def chunk_graph_vs_eager(engine, loop) -> dict:
+    """One loop chunk of the slot state with every slot live (as
+    ``time_chunk`` sets it) through the chunk's graph and, from the same
+    state restored, eagerly: greedy tokens identical."""
+    import numpy as np
+    import torch
+
+    with torch.inference_mode(), engine._lock:
+        st = loop._state
+        st.key_valid.fill_(1)
+        st.done.fill_(False)
+        if engine.paged_kv:
+            loop._table[:] = np.arange(loop._table.size).reshape(loop._table.shape) % \
+                engine.kv_pool.num_blocks
+        saved = [t.clone() for t in state_tensors(st)]
+        _, toks = loop._chunk_call()
+        got = toks.clone()
+        for t, s in zip(state_tensors(st), saved):
+            t.copy_(s)
+        graphs = engine.graphs
+        engine.graphs = None
+        try:
+            _, want = loop._chunk_call()
+        finally:
+            engine.graphs = graphs
+        same = torch.equal(got, want)
+    if not same:
+        raise AssertionError("a loop chunk's tokens through its graph differ from eager ones")
+    return {"slots": int(got.shape[0]), "steps": int(got.shape[1]), "tokens_identical": same}
+
+
+def tensor_bytes(obj) -> int:
+    """Bytes of the tensors in ``obj`` (a tensor, a decode state, or lists
+    and tuples of them)."""
+    if hasattr(obj, "data_ptr"):
+        return obj.numel() * obj.element_size()
+    if dataclasses.is_dataclass(obj):
+        return sum(tensor_bytes(t) for t in state_tensors(obj))
+    if isinstance(obj, (list, tuple)):
+        return sum(tensor_bytes(t) for t in obj)
+    return 0
+
+
+def state_tensors(state) -> list:
+    """Every tensor of a decode state (caches, int8 scales, per-row fields)."""
+    out = []
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        for t in (v if isinstance(v, list) else [v]):
+            out.extend(t if isinstance(t, tuple) else [t] if hasattr(t, "data_ptr") else [])
+    return out
+
+
+def phase_forward(bundle, engine) -> None:
+    """One BERT forward at three buckets, eager and as the bucket's graph
+    replay, side by side: wall, busy, the split and the kernels a call."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     for b, s in ((1, 32), (8, 128), (32, 512)):
         ids = torch.randint(5, 261, (b, s), device="cuda", generator=gen, dtype=torch.int32)
         mask = torch.ones(b, s, dtype=torch.int32, device="cuda")
+        entry = engine_graph(engine, "forward", (b, s))
         with torch.inference_mode():
-            wall_ms = cuda_ms(lambda: bundle.forward(ids, mask), 10)
-            split = profile_split(lambda: bundle.forward(ids, mask), 5, K1_KERNEL, "attention")
-        busy = split["device_busy_ms"]
-        emit("forward", shape=[b, s], wall_ms=wall_ms,
-             busy_share=busy / wall_ms if busy else None, **split)
+            entry.inputs[0][0].copy_(ids)
+            entry.inputs[1][0].copy_(mask)
+            out = eager_and_graph(lambda: bundle.forward(ids, mask), entry.replay, 5,
+                                  K1_KERNEL, "attention")
+        emit("forward", shape=[b, s], **out)
 
 
 def llama_pytree(cfg, seed: int) -> dict:
@@ -1537,8 +1917,10 @@ def phase_serve_llama(label: str, overrides: dict, params, ref_model, rehearsal:
     decode_attention.launches = 0
     engine.decode_steps = 0
     engine.dispatches = 0
+    marks = graph_marks(bundle)
     feats, rows, latencies, wall = asyncio.run(drive(batcher, bundle, waves))
     launches, steps = decode_attention.launches, engine.decode_steps
+    gdrive = graph_drive(bundle, marks, {"decode_attention": launches})
     layers = bundle.cfg.num_layers
     want = 0 if rehearsal else layers * steps
     if steps < 1 or launches != want:
@@ -1557,9 +1939,9 @@ def phase_serve_llama(label: str, overrides: dict, params, ref_model, rehearsal:
         decode_steps=steps, decode_attention_launches=launches, warmup_s=warm_s,
         p50_ms=float(np.percentile(lat, 50)), p99_ms=float(np.percentile(lat, 99)),
         generated_tok_per_s=check["tokens_checked"] / wall,
-        wall_ms_per_decode_step=wall * 1e3 / steps, **check,
+        wall_ms_per_decode_step=wall * 1e3 / steps, graph_modes=engine.graph_modes(), **check,
     )
-    return cfg, bundle, engine, launches
+    return cfg, bundle, engine, launches, gdrive, feats
 
 
 async def drive_streams(batcher, bundle, waves):
@@ -1596,11 +1978,13 @@ async def drive_streams(batcher, bundle, waves):
 
 
 def phase_serve_stream(label: str, overrides: dict, params, ref_model, rehearsal: bool,
-                       card_line: str):
+                       card_line: str, warm_loop: bool = True):
     """Streaming llama through the continuous decode loop: every token
     teacher-forced, the kernels' launches held against the loop's counts,
     the paged pool back to 0 blocks; on the card, one slot-state chunk
-    timed and split by kernel."""
+    timed and split by kernel.  Without ``warm_loop`` the loop is not
+    warmed (as under ``WARMUP=0``): its chunk's graph is captured at the
+    first admission, one miss in the drive."""
     import numpy as np
 
     from mlmicroservicetemplate_tpu_torch.ops.attention import decode_attention
@@ -1609,21 +1993,26 @@ def phase_serve_stream(label: str, overrides: dict, params, ref_model, rehearsal
 
     cfg, bundle, engine, batcher = build_service(overrides, params=params)
     loop = batcher._cdl
-    warm_s = batcher.warm_streams()
+    # As the app warms: every bucket's start, then the loop's chunk.
+    warm_s = batcher.warm_engine() + (batcher.warm_streams() if warm_loop else 0.0)
     waves = llama_waves(rehearsal)
 
     decode_attention.launches = paged_decode_attention.launches = 0
     loop.prefill_dispatches = loop.chunk_dispatches = loop.decode_steps = 0
+    marks = graph_marks(bundle)
     feats, rows, latencies, ttfts, wall = asyncio.run(drive_streams(batcher, bundle, waves))
     k2, k3 = decode_attention.launches, paged_decode_attention.launches
+    gdrive = graph_drive(bundle, marks, {"decode_attention": k2, "paged_decode_attention": k3})
     layers, chunk = bundle.cfg.num_layers, engine.chunk_tokens
     first_chunks = chunk * loop.prefill_dispatches
+    # Unwarmed, the chunk's capture at the first admission runs it eagerly.
+    slot_steps = loop.decode_steps + (0 if warm_loop else chunk)
     if rehearsal:
         want_k2 = want_k3 = 0
     elif engine.paged_kv:
-        want_k2, want_k3 = layers * first_chunks, layers * loop.decode_steps
+        want_k2, want_k3 = layers * first_chunks, layers * slot_steps
     else:
-        want_k2, want_k3 = layers * (first_chunks + loop.decode_steps), 0
+        want_k2, want_k3 = layers * (first_chunks + slot_steps), 0
     if loop.decode_steps < 1 or (k2, k3) != (want_k2, want_k3) or (
         engine.paged_kv and not rehearsal and k3 < 1
     ):
@@ -1654,41 +2043,52 @@ def phase_serve_stream(label: str, overrides: dict, params, ref_model, rehearsal
         warm_s=warm_s, p50_ms=float(np.percentile(lat, 50)), p99_ms=float(np.percentile(lat, 99)),
         ttft_p50_ms=float(np.percentile(ttft, 50)), ttft_p99_ms=float(np.percentile(ttft, 99)),
         generated_tok_per_s=check["tokens_checked"] / wall,
-        wall_ms_per_chunk_dispatch=wall * 1e3 / max(1, loop.chunk_dispatches), **check,
+        wall_ms_per_chunk_dispatch=wall * 1e3 / max(1, loop.chunk_dispatches),
+        loop_warmed=warm_loop, graph_modes=engine.graph_modes(), **check,
     )
     if not rehearsal:
-        out.update(time_chunk(engine, loop))
+        out["chunk"] = time_chunk(engine, loop)
     emit(label, **out)
-    return cfg, bundle, engine, k2, k3
+    return cfg, bundle, engine, k2, k3, gdrive, loop
 
 
 def time_chunk(engine, loop) -> dict:
-    """One chunk of the loop's slot state, timed (CUDA events) and split by
-    kernel (``torch.profiler``): every slot live at full width (all keys
-    valid and, paged, a table of distinct pool blocks; a dead row's compute
-    is a live row's), so the attention reads what full streams would."""
+    """One chunk of the loop's slot state, eager and through its graph,
+    timed (CUDA events) and split by kernel (``torch.profiler``): every
+    slot live at full width (all keys valid and, paged, a table of distinct
+    pool blocks; a dead row's compute is a live row's), so the attention
+    reads what full streams would."""
     import numpy as np
     import torch
 
+    bundle = engine.bundle
     with torch.inference_mode(), engine._lock:
         loop._state.key_valid.fill_(1)
         if engine.paged_kv:
             loop._table[:] = np.arange(loop._table.size).reshape(loop._table.shape) % \
                 engine.kv_pool.num_blocks
+            loop._table_dev.copy_(torch.from_numpy(loop._table))
 
-        def one_chunk():
-            loop._state, _ = loop._chunk_call()
+        def eager():
+            if engine.paged_kv:
+                bundle.paged_chunk(loop._state, loop._table_dev, loop.chunk)
+            else:
+                bundle.generate_chunk(loop._state, loop.chunk)
 
-        wall_ms = cuda_ms(one_chunk, 10)
-        split = profile_split(one_chunk, 5, K3_KERNEL if engine.paged_kv else K2_KERNEL,
-                              "attention")
-    busy = split["device_busy_ms"]
-    return {"chunk_wall_ms": wall_ms, **{f"chunk_{k}": v for k, v in split.items()},
-            "chunk_busy_share": busy / wall_ms if busy else None}
+        def graph():
+            loop._chunk_call()
+
+        return eager_and_graph(eager, graph, 5, K3_KERNEL if engine.paged_kv else K2_KERNEL,
+                               "attention")
 
 
 def phase_decode_step(bundle) -> None:
+    """One llama decode step at B in {1, 8, 32} over a 576-key cache,
+    eager and as a captured graph of the step over the same state, side
+    by side (37 steps in all, inside the 64 decode positions)."""
     import torch
+
+    from mlmicroservicetemplate_tpu_torch.runtime.compile_cache import capture_graph
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     for b in (1, 8, 32):
@@ -1696,16 +2096,15 @@ def phase_decode_step(bundle) -> None:
         ids = torch.randint(5, 261, (b, 512), device="cuda", generator=gen, dtype=torch.int32)
         mask = torch.ones_like(ids)
         with torch.inference_mode():
-            box = [bundle.init_state(ids, mask, 64)]
+            state = bundle.init_state(ids, mask, 64)
 
             def step():
-                box[0], _ = bundle.generate_chunk(box[0], 1)
+                state.steps = 0  # the graph's steps are not counted on the host
+                return bundle.generate_chunk(state, 1)[1]
 
-            wall_ms = cuda_ms(step, 10)  # 3 warm-up steps + 10
-            split = profile_split(step, 5, K2_KERNEL, "decode_attention")
-        busy = split["device_busy_ms"]
-        emit("decode step", batch=b, cache_len=576, wall_ms=wall_ms,
-             busy_share=busy / wall_ms if busy else None, **split)
+            entry = capture_graph("gen_chunk", step, state, "cuda")
+            out = eager_and_graph(step, entry.replay, 5, K2_KERNEL, "decode_attention")
+        emit("decode step", batch=b, cache_len=576, **out)
 
 
 def ndjson_text(body: str) -> dict:
@@ -1857,11 +2256,20 @@ def main(argv: list[str]) -> int:
         emit(phase, card=card_line, torch=torch.__version__, cuda=torch.version.cuda,
              python=sys.version.split()[0])
         headline = decode_headline = paged_headline = ring_headline = ring_serving = None
+        skip_graphs = "cpu rehearsal: no CUDA graphs on the CPU"
+
+        def graphs(label, bundle, gdrive, **checks):
+            if rehearsal:
+                emit(f"graphs {label}", skipped=skip_graphs)
+            else:
+                phase_graphs(label, bundle, **gdrive, **{k: f() for k, f in checks.items()})
+
         if rehearsal:
             emit("build", skipped="cpu rehearsal: no nvcc, no kernels")
             for name in ("fused_attention", "decode_attention", "paged_decode_attention",
                          "ring_hop"):
                 emit(f"kernel {name}", skipped="cpu rehearsal: the plain version runs")
+            emit("kernel graphs", skipped=skip_graphs)
         else:
             phase = "build"
             phase_build()
@@ -1873,32 +2281,44 @@ def main(argv: list[str]) -> int:
             paged_headline = phase_paged_kernel()
             phase = "kernel ring_hop"
             ring_headline, ring_serving = phase_ring_kernel()
+            phase = "kernel graphs"
+            phase_kernel_graphs()
         phase = "serve bert-base"
-        cfg, bundle, engine, launches = phase_serve(rehearsal, card_line)
+        cfg, bundle, engine, launches, gdrive, feats = phase_serve(rehearsal, card_line)
+        phase = "graphs bert-base"
+        graphs("bert-base", bundle, gdrive,
+               graph_vs_eager=lambda: logits_graph_vs_eager(engine, feats[-16:]))
         if rehearsal:
             emit("forward", skipped="cpu rehearsal: no card to profile")
         else:
             phase = "forward"
-            phase_forward(bundle)
+            phase_forward(bundle, engine)
 
         phase = "serve resnet50"
-        img_cfg, img_bundle, img_engine = phase_serve_resnet(rehearsal, card_line)
+        img_cfg, img_bundle, img_engine, gdrive, feats = phase_serve_resnet(rehearsal, card_line)
+        phase = "graphs resnet50"
+        graphs("resnet50", img_bundle, gdrive,
+               graph_vs_eager=lambda: logits_graph_vs_eager(img_engine, feats[-16:]))
         if rehearsal:
             emit("forward resnet50", skipped="cpu rehearsal: no card to profile")
         else:
             phase = "forward resnet50"
-            phase_forward_resnet(img_bundle)
+            phase_forward_resnet(img_bundle, img_engine)
 
         phase = "serve bert-long"
-        long_cfg, long_bundle, long_engine, long_launches, long_feats = phase_serve_long(
-            rehearsal, card_line)
+        (long_cfg, long_bundle, long_engine, long_launches, long_feats,
+         gdrive) = phase_serve_long(rehearsal, card_line)
+        phase = "graphs bert-long"
+        graphs("bert-long", long_bundle, gdrive,
+               graph_vs_eager=lambda: logits_graph_vs_eager(long_engine, long_feats[-8:]))
         if rehearsal:
             emit("forward bert-long", skipped="cpu rehearsal: no card to profile")
         else:
             phase = "forward bert-long"
-            phase_forward_long(long_bundle)
+            phase_forward_long(long_bundle, long_engine)
         phase = "ring 4-shard"
-        shard4_launches = phase_ring_4shard(long_bundle, long_engine, long_feats, rehearsal)
+        shard4_launches = phase_ring_4shard(long_cfg, long_bundle, long_engine, long_feats,
+                                            rehearsal)
 
         phase = "serve llama"
         from mlmicroservicetemplate_tpu_torch.convert.jax_params import llama_params_from_jax
@@ -1918,25 +2338,40 @@ def main(argv: list[str]) -> int:
                                           torch.device(device), torch.float32)
         llama_svc = phase_serve_llama(phase, llama_overrides, params, ref_model,
                                       rehearsal, card_line)
+        phase = "graphs llama"
+        graphs("llama", llama_svc[1], llama_svc[4],
+               graph_vs_eager=lambda: tokens_graph_vs_eager(llama_svc[2], llama_svc[5][-16:]))
         phase = "serve llama int8"
-        llama8_launches = phase_serve_llama(
+        llama8 = phase_serve_llama(
             phase, {**llama_overrides, "QUANT_KV": "int8"}, params, ref_model, rehearsal,
             card_line,
-        )[3]
+        )
+        llama8_launches = llama8[3]
+        phase = "graphs llama int8"
+        graphs("llama int8", llama8[1], llama8[4],
+               graph_vs_eager=lambda: tokens_graph_vs_eager(llama8[2], llama8[5][-16:]))
+        del llama8
         # Streaming through the continuous decode loop: paged (dense, int8),
         # then contiguous slots.
         stream_overrides = {**llama_overrides, "PAGED_KV": "1", "KV_BLOCK_SIZE": str(PAGE),
                             "MAX_STREAMS": "16", "MAX_DECODE_LEN": "64"}
         k2_streams = k3_streams = 0
         stream_svc = None
-        for phase, extra in (("serve llama stream", {}),
-                             ("serve llama stream int8", {"QUANT_KV": "int8"}),
-                             ("serve llama stream contiguous", {"PAGED_KV": "0"})):
+        # The int8 loop runs unwarmed: its chunk is captured at the first
+        # admission, before any slot is live.
+        for phase, extra, warm_loop in (
+                ("serve llama stream", {}, True),
+                ("serve llama stream int8", {"QUANT_KV": "int8"}, False),
+                ("serve llama stream contiguous", {"PAGED_KV": "0"}, True)):
             svc = phase_serve_stream(phase, {**stream_overrides, **extra}, params, ref_model,
-                                     rehearsal, card_line)
+                                     rehearsal, card_line, warm_loop)
             k2_streams += svc[3]
             k3_streams += svc[4]
             stream_svc = stream_svc or svc
+            label = phase[len("serve "):]
+            phase = f"graphs {label}"
+            graphs(label, svc[1], {**svc[5], "want_misses": 0 if warm_loop else 1},
+                   graph_vs_eager=lambda: chunk_graph_vs_eager(svc[2], svc[6]))
         del ref_model, params
         if rehearsal:
             emit("decode step", skipped="cpu rehearsal: no card to profile")

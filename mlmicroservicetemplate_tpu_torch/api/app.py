@@ -738,6 +738,7 @@ async def handle_status(request: web.Request) -> web.Response:
             "draining": app[K_BATCHER].draining,
             "pending": app[K_BATCHER].pending_work(),
         },
+        "compile": app[K_BATCHER].compile_status(),
     }
     err = app[K_STATE]["ready_error"]
     if err:

@@ -2,10 +2,18 @@
 
 Counterpart of the JAX package's ``engine/engine.py`` for image and text
 classification and for non-streaming generation.  Requests are padded up
-to a small set of (batch, seq) buckets, as in the JAX package where each
-bucket is one compiled executable; here execution is eager, and
-``warmup`` runs every bucket once so first-call costs (kernel build and
-load, allocator growth) land before the service reports ready.
+to a small set of (batch, seq) buckets.  In the JAX package each bucket
+is one compiled executable; here, on the card, each bucket is one CUDA
+graph (``runtime/compile_cache.py``): the dispatch copies the collated
+batch into the bucket's static inputs, replays the graph and copies the
+static output to the host, all under ``_lock`` (on the card the lock of
+the card's graph pool, shared by every engine there), so no graph output
+escapes the lock except as a host copy.  ``warmup`` captures every bucket
+before the service reports ready; with ``WARMUP=0`` a bucket's first
+dispatch captures it (a cache miss), as jit compiles at first use.  A
+capture that fails raises: there is no eager fallback.  On the CPU, and
+under a placement whose shards span several cards (multi-card capture is
+not ported), the same functions run eagerly; ``graph_modes`` says which.
 
 - Classification: each dispatch is one ``torch.inference_mode`` forward
   and one device-to-host copy of the logits.  An image batch crosses to
@@ -15,10 +23,13 @@ load, allocator growth) land before the service reports ready.
   forward as sequence shards, one per device of the placement, and seq
   buckets round up to a multiple of the shard count, as in the JAX
   package.
-- Generation (``KIND_SEQ2SEQ``): prefill, then greedy decode in chunks of
-  ``STREAM_CHUNK_TOKENS`` steps.  After each chunk the engine reads once
-  from the device whether every row is done (EOS, or its ``max_tokens``
-  budget), the eager counterpart of the JAX package's done-aware
+- Generation (``KIND_SEQ2SEQ``): ``start`` (prefill plus the first
+  decode chunk, one graph per bucket as the JAX package's fused ``start``
+  executable), then greedy decode in chunks of ``STREAM_CHUNK_TOKENS``
+  steps (``gen_chunk``, one graph per bucket over the state ``start``
+  wrote, updated in place).  After each chunk the engine reads once from
+  the device whether every row is done (EOS, or its ``max_tokens``
+  budget), the host-side counterpart of the JAX package's done-aware
   ``while_loop``; rows come back pad-filled to ``max_decode_len``.
 - Streaming generation runs in the continuous decode loop
   (``engine/streams.py``), which admits a wave of streams through
@@ -33,12 +44,12 @@ from __future__ import annotations
 import logging
 import math
 import threading
-import time
 
 import numpy as np
 import torch
 
-from ..models.registry import KIND_IMAGE, KIND_SEQ2SEQ, ModelBundle, decode_budget
+from ..models.registry import KIND_IMAGE, KIND_SEQ2SEQ, KIND_TEXT, ModelBundle, decode_budget
+from ..runtime import compile_cache
 from ..utils import tracing
 from .kv_blocks import BlockPool, blocks_for, kv_token_bytes
 
@@ -83,9 +94,26 @@ class InferenceEngine:
         # up to whole chunks (the width of every generation's cache).
         self.chunk_tokens = cfg.stream_chunk_tokens
         self.max_decode_len = decode_budget(cfg)
-        # One forward at a time on the device: eager dispatch from several
-        # batcher threads would only interleave on the same stream.
+        # One dispatch at a time: it serializes this engine's batches and
+        # its loop's chunks (on the card, every engine's: see below).
         self._lock = threading.Lock()
+        # CUDA graphs on the card when every shard of the placement sits on
+        # one device; else eager, and why.
+        devices = self.placement.devices if self.placement else [self.device]
+        self.placement_key = compile_cache.placement_key(devices)
+        self.graphs: compile_cache.GraphCache | None = None
+        self.eager_reason = None
+        if self.device.type != "cuda":
+            self.eager_reason = f"{self.device.type} has no CUDA graphs"
+        elif len(set(devices)) > 1:
+            self.eager_reason = (f"placement spans {len(set(devices))} cards (multi-card "
+                                 "capture is not ported)")
+        else:
+            self.graphs = compile_cache.CACHE
+            # Every engine on the card replays into its one graph pool,
+            # whose outputs are valid until the pool's next replay: they
+            # all dispatch under the pool's lock.
+            self._lock = compile_cache.device_lock(self.device)
         # Dispatches (forwards, or generations) and decode steps run since
         # start or the last reset: the counters kernel launch counts are
         # held against.
@@ -135,11 +163,39 @@ class InferenceEngine:
         arr[n:] = 0
         return out, n
 
+    def graph_modes(self) -> dict[str, str]:
+        """Per graph kind this engine dispatches: ``"graph"``, or
+        ``"eager: <reason>"``."""
+        kinds = {KIND_IMAGE: ("forward_images",), KIND_TEXT: ("forward",),
+                 KIND_SEQ2SEQ: ("start", "gen_chunk",
+                                "loop_chunk_paged" if self.paged_kv else "loop_chunk")}
+        mode = "graph" if self.graphs is not None else f"eager: {self.eager_reason}"
+        return {kind: mode for kind in kinds.get(self.bundle.kind, ())}
+
+    def _graph(self, kind: str, descriptor: tuple, make) -> compile_cache.GraphEntry:
+        """This bundle's graph of ``kind`` for ``descriptor`` (captured from
+        ``make()`` on a miss); the caller holds ``_lock``."""
+        dtype = str(self.bundle.policy.compute_dtype).split(".")[-1]
+        quant = "int8" if getattr(self.bundle.cfg, "kv_quant", False) else "none"
+        return self.graphs.get(self.bundle, kind, (*descriptor, dtype, quant),
+                               self.placement_key, make)
+
     def _forward_images(self, images: torch.Tensor) -> np.ndarray:
         with self._lock, torch.inference_mode():
-            logits = self.bundle.forward(images.to(self.device, non_blocking=True))
+            if self.graphs is None:
+                logits = self.bundle.forward(images.to(self.device, non_blocking=True))
+            else:
+                entry = self._graph("forward_images", tuple(images.shape),
+                                    lambda: self._make_images(tuple(images.shape)))
+                entry.inputs.copy_(images, non_blocking=True)
+                entry.replay()
+                logits = entry.outputs
             self.dispatches += 1
             return logits.to(self.bundle.policy.output_dtype).cpu().numpy()
+
+    def _make_images(self, shape: tuple):
+        x = torch.zeros(shape, dtype=torch.uint8, device=self.device)
+        return (lambda: self.bundle.forward(x)), x, self.device
 
     def _collate_text(self, feats: list[dict]) -> tuple[np.ndarray, np.ndarray, int]:
         n = len(feats)
@@ -163,48 +219,124 @@ class InferenceEngine:
                              self.max_decode_len)
         return budgets
 
+    def _shards(self, a: np.ndarray) -> list[np.ndarray]:
+        """A [B, S] host array as the placement's sequence shards (one
+        shard without a placement)."""
+        n = len(self.placement.devices) if self.placement is not None else 1
+        return np.split(a, n, axis=1)
+
     def _forward(self, ids: np.ndarray, mask: np.ndarray) -> np.ndarray:
         with self._lock, torch.inference_mode():
-            if self.placement is not None:  # lists of sequence shards
-                ids_t = self.placement.place_batch(ids)
-                mask_t = self.placement.place_batch(mask)
+            if self.graphs is not None:
+                entry = self._graph("forward", ids.shape, lambda: self._make_forward(ids.shape))
+                for static, host in zip(entry.inputs, (ids, mask)):
+                    for dst, part in zip(static, self._shards(host)):
+                        dst.copy_(torch.from_numpy(np.ascontiguousarray(part)),
+                                  non_blocking=True)
+                entry.replay()
+                logits = entry.outputs
+            elif self.placement is not None:  # lists of sequence shards
+                logits = self.bundle.forward(self.placement.place_batch(ids),
+                                             self.placement.place_batch(mask))
             else:
-                ids_t = torch.from_numpy(ids).to(self.device, non_blocking=True)
-                mask_t = torch.from_numpy(mask).to(self.device, non_blocking=True)
-            logits = self.bundle.forward(ids_t, mask_t)
+                logits = self.bundle.forward(
+                    torch.from_numpy(ids).to(self.device, non_blocking=True),
+                    torch.from_numpy(mask).to(self.device, non_blocking=True))
             self.dispatches += 1
             return logits.to(self.bundle.policy.output_dtype).cpu().numpy()
+
+    def _make_forward(self, shape: tuple):
+        """Static [B, S] ids and mask (lists of sequence shards under a
+        placement) and the forward over them."""
+        b, s = shape
+        devices = self.placement.devices if self.placement is not None else [self.device]
+        ids, mask = ([torch.ones((b, s // len(devices)), dtype=torch.int32, device=d)
+                      for d in devices] for _ in range(2))
+        if self.placement is not None:
+            return (lambda: self.bundle.forward(ids, mask)), (ids, mask), self.device
+        return (lambda: self.bundle.forward(ids[0], mask[0])), (ids, mask), self.device
+
+    def _make_start(self, shape: tuple):
+        """Static [B, S] ids and mask, and prefill plus the first chunk over
+        them; the outputs are (state, tokens [B, chunk])."""
+        ids, mask = (torch.ones(shape, dtype=torch.int32, device=self.device) for _ in range(2))
+
+        def start():
+            state = self.bundle.init_state(ids, mask, self.max_decode_len)
+            return self.bundle.generate_chunk(state, self.chunk_tokens)
+
+        return start, (ids, mask), self.device
+
+    def _make_gen_chunk(self, shape: tuple):
+        """One decode chunk over the state of the bucket's ``start`` graph,
+        which is replayed first, so the eager warm run reads a real state;
+        the output is the chunk's tokens."""
+        entry = self._graph("start", shape, lambda: self._make_start(shape))
+        entry.replay()
+        state = entry.outputs[0]
+
+        def chunk():
+            state.steps = self.chunk_tokens  # as after start
+            return self.bundle.generate_chunk(state, self.chunk_tokens)[1]
+
+        return chunk, state, self.device
+
+    def _start(self, ids: np.ndarray, mask: np.ndarray):
+        """Prefill plus the first decode chunk of a collated batch; returns
+        (state, tokens [B, chunk]).  On the card the state is the bucket's
+        static one, valid until the next replay.  The caller holds
+        ``_lock`` inside ``torch.inference_mode``."""
+        if self.graphs is None:
+            state = self.bundle.init_state(torch.from_numpy(ids).to(self.device),
+                                           torch.from_numpy(mask).to(self.device),
+                                           self.max_decode_len)
+            return self.bundle.generate_chunk(state, self.chunk_tokens)
+        entry = self._graph("start", ids.shape, lambda: self._make_start(ids.shape))
+        for dst, host in zip(entry.inputs, (ids, mask)):
+            dst.copy_(torch.from_numpy(host), non_blocking=True)
+        entry.replay()
+        state, toks = entry.outputs
+        state.steps = self.chunk_tokens
+        return state, toks
 
     def _generate(self, ids: np.ndarray, mask: np.ndarray,
                   budgets: np.ndarray) -> tuple[np.ndarray, int]:
         """Prefill plus chunked greedy decode of one batch; returns the
-        token rows [B, max_decode_len] int32 and the decode steps run."""
+        token rows [B, max_decode_len] int32 and the decode steps run.
+        Bucket-padding rows (all-zero mask) count as done from the start
+        (``init_state``), or no padded batch could stop early."""
         with self._lock, torch.inference_mode():
-            ids_t = torch.from_numpy(ids).to(self.device)
-            mask_t = torch.from_numpy(mask).to(self.device)
+            chunk = None
+            if self.graphs is not None and self.max_decode_len > self.chunk_tokens:
+                # Before start replays: a first capture replays start itself.
+                chunk = self._graph("gen_chunk", ids.shape,
+                                    lambda: self._make_gen_chunk(ids.shape))
             budgets_t = torch.from_numpy(budgets).to(self.device)
-            state = self.bundle.init_state(ids_t, mask_t, self.max_decode_len)
-            # Bucket-padding rows (all-zero mask) never emit EOS: they count
-            # as done from the start, or no padded batch could stop early.
-            state.done = state.done | (mask_t.sum(dim=-1) == 0)
-            while state.steps < self.max_decode_len and not bool(state.done.all()):
-                state, _ = self.bundle.generate_chunk(state, self.chunk_tokens)
+            state, _ = self._start(ids, mask)
+            steps = self.chunk_tokens
+            while True:
                 self.decode_steps += self.chunk_tokens
                 # A row at its max_tokens budget counts as done.
-                state.done = state.done | (state.pos >= budgets_t)
+                torch.logical_or(state.done, state.pos >= budgets_t, out=state.done)
+                if steps >= self.max_decode_len or bool(state.done.all()):
+                    break
+                if chunk is None:
+                    self.bundle.generate_chunk(state, self.chunk_tokens)
+                else:
+                    chunk.replay()
+                steps += self.chunk_tokens
+                state.steps = steps
             self.dispatches += 1
-            return state.tokens.cpu().numpy(), state.steps
+            return state.tokens.cpu().numpy(), steps
 
     def start(self, feats: list[dict]):
         """Prefill plus the first decode chunk of a wave of streams,
         collated as one batch at the wave's widest bucket; returns (state,
         tokens [B, chunk], collated width).  The caller holds ``_lock``
-        inside ``torch.inference_mode``."""
+        inside ``torch.inference_mode`` until it has read the state, which
+        on the card the bucket's next ``start`` overwrites."""
         ids, mask, _ = self._collate_text(feats)
-        ids_t = torch.from_numpy(ids).to(self.device)
-        mask_t = torch.from_numpy(mask).to(self.device)
-        state = self.bundle.init_state(ids_t, mask_t, self.max_decode_len)
-        state, toks = self.bundle.generate_chunk(state, self.chunk_tokens)
+        state, toks = self._start(ids, mask)
         return state, toks, ids.shape[1]
 
     def run_batch(self, feats: list[dict]) -> list[np.ndarray]:
@@ -234,28 +366,41 @@ class InferenceEngine:
         return [rows[i] for i in range(n)]
 
     def warmup(self) -> float:
-        """Run every (batch, seq) bucket once (a generative model: its
-        prefill and one decode chunk; an image model: every batch bucket);
-        returns the seconds taken."""
-        t0 = time.monotonic()
+        """Every (batch, seq) bucket once (an image model: every batch
+        bucket): on the card its graphs captured (a generative model's
+        ``start`` and ``gen_chunk``), on the CPU its functions run; returns
+        the seconds taken.  A failed capture raises."""
         image = self.bundle.kind == KIND_IMAGE
-        for b in self.batch_buckets:
-            if image:
-                self.run_batch(
-                    [{"image": np.zeros((self.bundle.image_size,) * 2 + (3,), np.uint8)}] * b)
-                continue
-            for s in self.seq_buckets:
-                ids = np.ones((b, s), np.int32)
-                if self.bundle.kind == KIND_SEQ2SEQ:
+        captured = self.graphs.stats()["insert"] if self.graphs is not None else 0
+        with compile_cache.warm_phase(self.bundle.name, "engine") as phase:
+            for b in self.batch_buckets:
+                if image:
+                    self.run_batch(
+                        [{"image": np.zeros((self.bundle.image_size,) * 2 + (3,), np.uint8)}] * b)
+                    continue
+                for s in self.seq_buckets:
+                    ids = np.ones((b, s), np.int32)
+                    if self.bundle.kind != KIND_SEQ2SEQ:
+                        self._forward(ids, ids)
+                        continue
                     with self._lock, torch.inference_mode():
-                        ones = torch.from_numpy(ids).to(self.device)
-                        state = self.bundle.init_state(ones, ones, self.max_decode_len)
-                        self.bundle.generate_chunk(state, self.chunk_tokens)
-                else:
-                    self._forward(ids, np.ones((b, s), np.int32))
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        dt = time.monotonic() - t0
+                        if self.graphs is None:
+                            self._start(ids, ids)
+                            continue
+                        self._graph("start", ids.shape, lambda: self._make_start(ids.shape))
+                        if self.max_decode_len > self.chunk_tokens:
+                            self._graph("gen_chunk", ids.shape,
+                                        lambda: self._make_gen_chunk(ids.shape))
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
         n_seq = 1 if image else len(self.seq_buckets)
-        log.info("warmed %d buckets in %.2fs", len(self.batch_buckets) * n_seq, dt)
-        return dt
+        if self.graphs is not None:
+            captured = self.graphs.stats()["insert"] - captured
+            log.info("%s: warmed %d buckets in %.2fs, %d CUDA graphs captured (%s)",
+                     self.bundle.name, len(self.batch_buckets) * n_seq, phase.seconds,
+                     captured, ", ".join(self.graph_modes()))
+        else:
+            log.info("%s: warmed %d buckets in %.2fs; %s run eagerly: %s", self.bundle.name,
+                     len(self.batch_buckets) * n_seq, phase.seconds,
+                     ", ".join(self.graph_modes()), self.eager_reason)
+        return phase.seconds

@@ -32,6 +32,19 @@ discarded; an insert overwrites the whole row.  The
 per-slot step counts live on the host (``_dispatched_steps``), so the
 slot state carries none.
 
+On the card each chunk replays one CUDA graph (``loop_chunk``, or
+``loop_chunk_paged``; ``runtime/compile_cache.py``) captured over the slot
+state, which is allocated once and reset in place, never reallocated,
+and over a static ``[n_slots, nb_max]`` copy of the block table written
+before each replay.  The graph is captured when the slot state is
+allocated, every slot dead (whether or not the service warmed up): the
+capture's eager run advances the rows it runs over, which a live stream
+must not see.  The host copy of a chunk's tokens and ``done`` flags
+is enqueued right after its replay, before the next one.  A wave's
+prefill runs the bucket's ``start`` graph, whose static state the next
+``start`` overwrites, so the loop holds the engine's ``_lock`` from the
+wave's ``start`` until its rows are copied into their slots.
+
 The engine's ``_lock`` serializes the loop's dispatches with the
 non-streaming batcher's; tokens reach each stream's asyncio queue through
 ``loop.call_soon_threadsafe``.  The loop thread enters
@@ -58,6 +71,7 @@ import torch
 
 from ..models.gpt import GPTState, PagedState
 from ..ops.paged_attention import scatter_pages
+from ..runtime import compile_cache
 from ..scheduler.policy import QueueFullError, StreamQueue
 from ..utils import metrics, tracing
 from .kv_blocks import OutOfBlocks, StreamBlocks
@@ -149,7 +163,11 @@ class ContinuousDecodeLoop:
         self.queue = StreamQueue(self.max_streams)
         self.active: dict[int, _Stream] = {}
         self.free: list[int] = list(range(self.n_slots))
-        self._state = None  # the slot state, loop-thread-owned
+        # The slot state (loop-thread-owned; built once, reset in place) and,
+        # paged, the block table's device copy.
+        self._state = None
+        self._table_dev: torch.Tensor | None = None
+        self._state_stale = False
         # Dispatched chunks not yet routed: (host copy of (tokens, done),
         # {slot: stream at dispatch}); the snapshot keeps a late chunk's
         # rows from reaching a slot's next tenant.
@@ -243,22 +261,21 @@ class ContinuousDecodeLoop:
 
     def warm(self) -> float:
         """Build the slot state and run one chunk over it (every row dead)
-        before the first stream, so the pools' allocation and the decode
-        kernels' first build and load land before the service reports
-        ready; returns the seconds taken.  A no-op once the loop thread
-        runs."""
-        t0 = time.monotonic()
+        before the first stream, so the pools' allocation, the decode
+        kernels' first build and load and, on the card, the chunk's graph
+        capture land before the service reports ready; returns the seconds
+        taken.  A no-op once the loop thread runs."""
         with self._thread_lock:
             if self._thread is not None:
                 return 0.0
             eng = self.engine
-            with torch.inference_mode():
+            with compile_cache.warm_phase(self.model, "loop") as phase, \
+                    torch.inference_mode(), eng._lock:
                 if self._state is None:
                     self._build_empty_state()
-                with eng._lock:
-                    self._state, toks = self._chunk_call()
-                    toks.cpu()
-        return time.monotonic() - t0
+                self._state, toks = self._chunk_call()
+                toks.cpu()
+        return phase.seconds
 
     # ------------------------------------------------------------------
     # loop thread
@@ -315,11 +332,15 @@ class ContinuousDecodeLoop:
                     self._dispatch_chunk()
                     dispatched = True
                 if wave:
-                    self._pending_admissions = self._admit_dispatch(wave)
-                self._pending_wave = []
-                if self._pending_admissions:
-                    self._admit_complete(self._pending_admissions)
-                    self._pending_admissions = []
+                    # One hold of the lock from the wave's start until its
+                    # rows sit in their slots: the next start overwrites
+                    # the state they are copied from.
+                    with self.engine._lock:
+                        self._pending_admissions = self._admit_dispatch(wave)
+                        self._pending_wave = []
+                        if self._pending_admissions:
+                            self._admit_complete(self._pending_admissions)
+                            self._pending_admissions = []
                 # One chunk in flight: route the older one once the next
                 # is dispatched, or everything when nothing was.
                 if len(self._inflight) > 1:
@@ -351,7 +372,7 @@ class ContinuousDecodeLoop:
             self.active[slot].emit(exc)
             self._free_slot(slot)
         self._inflight.clear()
-        self._state = None
+        self._state_stale = True  # reset at the next admission
 
     def _release(self, st: _Stream) -> None:
         """Exactly once per stream."""
@@ -405,7 +426,8 @@ class ContinuousDecodeLoop:
 
     def _admit_dispatch(self, wave: list[_Stream]) -> list:
         """Prefill the wave as one batch, with its first decode chunk, and
-        start the host copy of that chunk's tokens and done flags."""
+        start the host copy of that chunk's tokens and done flags (the
+        caller holds the engine's lock)."""
         eng = self.engine
         ok: list[_Stream] = []
         for st in wave:
@@ -421,9 +443,8 @@ class ContinuousDecodeLoop:
         if not ok:
             return []
         try:
-            with eng._lock:
-                state1, toks, width = eng.start([st.feats for st in ok])
-                copy = _HostCopy(toks, state1.done)
+            state1, toks, width = eng.start([st.feats for st in ok])
+            copy = _HostCopy(toks, state1.done)
         except Exception as e:
             for st in ok:
                 self._finish(st, e)
@@ -433,7 +454,8 @@ class ContinuousDecodeLoop:
 
     def _admit_complete(self, started: list) -> None:
         """Route each admitted stream's first chunk, then copy its row into
-        a free slot (or end it, when the first chunk finished it)."""
+        a free slot (or end it, when the first chunk finished it); the
+        caller holds the engine's lock."""
         for st, state1, copy, row, width in started:
             toks_np, done_np = copy.get()
             st.produced = self.chunk
@@ -443,14 +465,13 @@ class ContinuousDecodeLoop:
                 continue
             slot = None
             try:
-                if self._state is None:
+                if self._state is None or self._state_stale:
                     self._build_empty_state()
                 slot = self.free.pop()
-                with self.engine._lock:
-                    if self.paged:
-                        self._insert_paged(st, state1, slot, row, width)
-                    else:
-                        self._insert(state1, slot, row)
+                if self.paged:
+                    self._insert_paged(st, state1, slot, row, width)
+                else:
+                    self._insert(state1, slot, row)
             except Exception as e:
                 if slot is not None:
                     self.free.append(slot)
@@ -461,7 +482,11 @@ class ContinuousDecodeLoop:
     def _build_empty_state(self) -> None:
         """Every slot dead: zeroed caches (paged: ``num_blocks`` pool
         blocks plus the scratch block, int8 scale pools of ones) and
-        per-row fields at the slot count."""
+        per-row fields at the slot count.  Allocated once, and on the card
+        the chunk's graph captured over it then, while no slot is live
+        (the caller holds the engine's lock); later calls (a failed
+        dispatch) reset the same tensors in place, which the graph reads
+        and writes."""
         eng = self.engine
         cfg = eng.bundle.cfg
         dev = eng.device
@@ -473,12 +498,26 @@ class ContinuousDecodeLoop:
             width = self.max_prompt + eng.max_decode_len
             lead = (n, width)
         shape = lead + (cfg.num_kv_heads, cfg.head_dim)
+        scale_fill = 1 if self.paged else 0
+        st = self._state
+        if st is not None:
+            for entry in st.cache_k + st.cache_v:
+                if isinstance(entry, tuple):
+                    entry[0].zero_()
+                    entry[1].fill_(scale_fill)
+                else:
+                    entry.zero_()
+            for t in (st.key_valid, st.write_idx, st.pos, st.last_token):
+                t.zero_()
+            st.done.fill_(True)
+            st.tokens.fill_(cfg.pad_id)
+            self._state_stale = False
+            return
 
         def entry():
             if cfg.kv_quant:
-                fill = torch.ones if self.paged else torch.zeros
                 return (torch.zeros(shape, dtype=torch.int8, device=dev),
-                        fill(shape[:3] + (1,), dtype=dtype, device=dev))
+                        torch.full(shape[:3] + (1,), scale_fill, dtype=dtype, device=dev))
             return torch.zeros(shape, dtype=dtype, device=dev)
 
         def per_row(dt):
@@ -495,8 +534,16 @@ class ContinuousDecodeLoop:
                               device=dev),
         )
         self._state = PagedState(**fields) if self.paged else GPTState(**fields, steps=None)
+        self._state_stale = False
         if self.paged:
+            self._table_dev = torch.tensor(self._table, device=dev)
             self._note_pool()
+        if eng.graphs is not None:
+            try:
+                self.chunk_graph()
+            except BaseException:
+                self._state = None  # the next admission allocates and captures anew
+                raise
 
     def _insert_rows(self, single, slot: int, row: int) -> None:
         """The per-row fields of wave row ``row`` into slot ``slot``
@@ -582,12 +629,46 @@ class ContinuousDecodeLoop:
 
     def _chunk_call(self):
         """One decode chunk over the whole slot state (caller holds the
-        engine's lock); returns (state, tokens [n_slots, chunk])."""
+        engine's lock): the block table copied to its device buffer, then
+        the chunk's graph replayed (on the CPU: the chunk run); returns
+        (state, tokens [n_slots, chunk])."""
         eng = self.engine
         if self.paged:
-            table = torch.tensor(self._table, device=eng.device)
-            return eng.bundle.paged_chunk(self._state, table, self.chunk)
-        return eng.bundle.generate_chunk(self._state, self.chunk)
+            self._table_dev.copy_(torch.from_numpy(self._table), non_blocking=True)
+        if eng.graphs is None:
+            if self.paged:
+                return eng.bundle.paged_chunk(self._state, self._table_dev, self.chunk)
+            return eng.bundle.generate_chunk(self._state, self.chunk)
+        entry = self.chunk_graph()
+        entry.replay()
+        return self._state, entry.outputs
+
+    def chunk_graph(self) -> compile_cache.GraphEntry:
+        """The graph of one chunk over this loop's slot state (captured on
+        the first call): its descriptor holds the slot state's token, so
+        no other loop's state aliases it."""
+        eng = self.engine
+        cfg = eng.bundle.cfg
+        kind = "loop_chunk_paged" if self.paged else "loop_chunk"
+        shape = ((self.pool.num_blocks, self.block_size, self.nb_max) if self.paged
+                 else (self.max_prompt + eng.max_decode_len,))
+        descriptor = (self.n_slots, *shape, self.chunk,
+                      str(eng.bundle.policy.compute_dtype).split(".")[-1],
+                      "int8" if cfg.kv_quant else "none", compile_cache.fingerprint(self))
+        return eng.graphs.get(eng.bundle, kind, descriptor, eng.placement_key, self._make_chunk)
+
+    def _make_chunk(self):
+        if self.active:
+            raise RuntimeError(f"{self.model}: the loop chunk's capture would advance "
+                               f"{len(self.active)} live streams")
+        eng, state, table = self.engine, self._state, self._table_dev
+        if self.paged:
+            def chunk():
+                return eng.bundle.paged_chunk(state, table, self.chunk)[1]
+        else:
+            def chunk():
+                return eng.bundle.generate_chunk(state, self.chunk)[1]
+        return chunk, (state, table), eng.device
 
     def _dispatch_chunk(self) -> None:
         with tracing.span("decode_chunk", cat="engine", n_streams=len(self.active),

@@ -7,9 +7,9 @@ transposes); attention activations stay ``[B, S, H, D]`` as in JAX.
 The int8 KV helpers (``kv_quantize``, ``mha_attention_kv8``) and the
 llama pieces (``rmsnorm``, ``lm_head_logits``, ``repeat_kv``) follow the
 JAX functions of the same names.  The ResNet pieces (``conv2d``,
-``batchnorm``) keep torch's layouts: OIHW conv weights and NCHW-logical
-activations, both in ``torch.channels_last`` memory format, which is the
-JAX package's NHWC in memory.
+``batchnorm_affine``) keep torch's layouts: OIHW conv weights and
+NCHW-logical activations, both in ``torch.channels_last`` memory format,
+which is the JAX package's NHWC in memory.
 """
 
 from __future__ import annotations
@@ -25,11 +25,27 @@ def dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None) -> t
     return F.linear(x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype))
 
 
-def conv2d(x: torch.Tensor, weight: torch.Tensor, stride: int = 1,
-           padding: int = 0) -> torch.Tensor:
-    """Convolution of a channels-last NCHW ``x`` by an OIHW ``weight`` in
-    x's type (cuDNN on the card; the JAX package's is plain XLA)."""
-    return F.conv2d(x, weight.to(x.dtype), stride=stride, padding=padding)
+def conv2d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = None,
+           stride: int = 1, padding: int = 0, relu: bool = False,
+           residual: torch.Tensor | None = None) -> torch.Tensor:
+    """Convolution of a channels-last NCHW ``x`` by an OIHW ``weight``, plus
+    a per-channel ``bias``, then with ``relu`` the ``residual`` added and a
+    ReLU, in x's type (cuDNN on the card; the JAX package's is plain XLA).
+    On the card a conv with a bias and a ReLU is one cuDNN call that fuses
+    them (``torch.cudnn_convolution_relu`` / ``_add_relu``): PyTorch's own
+    conv adds a bias in a pass of its own, and the add and the ReLU would
+    be two more."""
+    w = weight.to(x.dtype)
+    b = None if bias is None else bias.to(x.dtype)
+    if relu and b is not None and x.is_cuda:
+        s, p = (stride, stride), (padding, padding)
+        if residual is None:
+            return torch.cudnn_convolution_relu(x, w, b, s, p, (1, 1), 1)
+        return torch.cudnn_convolution_add_relu(x, w, residual, 1.0, b, s, p, (1, 1), 1)
+    y = F.conv2d(x, w, b, stride=stride, padding=padding)
+    if residual is not None:
+        y = y + residual
+    return F.relu(y) if relu else y
 
 
 def batchnorm_init(c: int) -> dict[str, torch.Tensor]:
@@ -42,18 +58,11 @@ def batchnorm_affine(scale: torch.Tensor, bias: torch.Tensor, mean: torch.Tensor
                      var: torch.Tensor, dtype: torch.dtype,
                      eps: float = 1e-5) -> tuple[torch.Tensor, torch.Tensor]:
     """Inference BN as one affine ``y = x * g + b``: ``g`` and ``b`` formed
-    in f32 (the rsqrt of the running variance), then cast to ``dtype``, the
-    activations' type, as the JAX ``batchnorm`` does."""
+    in f32 (the rsqrt of the running variance), then cast to ``dtype``."""
     inv = torch.rsqrt(var.float() + eps)
     g = scale.float() * inv
     b = bias.float() - mean.float() * g
     return g.to(dtype), b.to(dtype)
-
-
-def batchnorm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``x * g + b`` per channel of an NCHW ``x`` (``g``, ``b`` from
-    ``batchnorm_affine``); keeps x's memory format."""
-    return torch.addcmul(b.view(-1, 1, 1), x, g.view(-1, 1, 1))
 
 
 def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

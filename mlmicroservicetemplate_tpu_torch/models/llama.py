@@ -15,7 +15,9 @@ card, its plain version on the CPU.
 Unlike the JAX package's immutable arrays, the KV cache is preallocated
 at ``[B, S + max_len, KVH, D]`` per layer (int8 payload plus a
 ``[B, S + max_len, KVH, 1]`` scale under ``kv_quant``) and every decode
-step writes its K/V row, the key-validity bit and its token in place.
+step writes its K/V row, the key-validity bit, its token and the per-row
+fields (``write_idx``, ``pos``, ``last_token``, ``done``) in place, so a
+CUDA graph of a chunk replays over the same state.
 The continuous loop's freed rows keep stepping until their slot is
 reused; their writes past a width land in the row's own last column
 (``_write_at``), where the reference's ``mode="drop"`` drops them.
@@ -317,8 +319,10 @@ def _step(model: LlamaModel, state, write_kv, attend):
     ``write_kv(cache, at, new)`` and ``attend(q, ck, cv, key_valid)``
     address (``at``: each row's write position, ``_write_at``): each row
     embeds its last token at its own position, writes its K/V row and
-    attends to its cache.  Rows already done emit ``pad_id``.  Returns the
-    new state and the tokens."""
+    attends to its cache.  Rows already done emit ``pad_id``.  Every field
+    is updated in the state's own tensors (and ``steps`` on the host), so
+    a captured step reads and writes the same addresses at every replay.
+    Returns the state and the tokens."""
     cfg = model.cfg
     dtype = _cache_dtype(state)
     b = state.last_token.shape[0]
@@ -328,7 +332,8 @@ def _step(model: LlamaModel, state, write_kv, attend):
     x = embed(model.embed.weight, state.last_token[:, None], dtype)  # [B, 1, D]
     cos, sin = rope_tables(cfg, t.clamp(max=cfg.max_position - 1), dtype)
     cos, sin = cos[:, None, None, :], sin[:, None, None, :]
-    state.key_valid[rows, at] = 1
+    # A device tensor, not a Python 1: a scalar would be copied from the host.
+    state.key_valid[rows, at] = torch.ones_like(at, dtype=state.key_valid.dtype)
     for li, layer in enumerate(model.layers):
         q, k1, v1 = layer.qkv(cfg, x, cos, sin)
         write_kv(state.cache_k[li], at, k1[:, 0])
@@ -341,15 +346,13 @@ def _step(model: LlamaModel, state, write_kv, attend):
     next_tok = torch.where(state.done, torch.full_like(next_tok, cfg.pad_id), next_tok)
     state.tokens[rows, _write_at(state, state.pos, state.tokens.shape[1])] = \
         next_tok.to(torch.int32)
-    steps = getattr(state, "steps", None)
-    return dataclasses.replace(
-        state,
-        write_idx=t + 1,
-        pos=state.pos + 1,
-        last_token=next_tok,
-        done=state.done | (next_tok == cfg.eos_id),
-        **({} if steps is None else {"steps": steps + 1}),
-    ), next_tok
+    t.add_(1)
+    state.pos.add_(1)
+    state.last_token.copy_(next_tok)
+    torch.logical_or(state.done, next_tok == cfg.eos_id, out=state.done)
+    if getattr(state, "steps", None) is not None:
+        state.steps += 1
+    return state, next_tok
 
 
 def decode_step(model: LlamaModel, state: GPTState) -> tuple[GPTState, torch.Tensor]:

@@ -7,6 +7,13 @@ affine after each conv, and the global average pool and the classifier
 run in f32.  Conv weights are OIHW and activations NCHW-logical, both in
 ``torch.channels_last`` memory format (the reference's NHWC/HWIO in
 memory), so cuDNN runs every conv without a layout transpose.
+
+The weights load in the reference's layout, a BN state beside each conv;
+``build_model`` then folds each BN's affine into its conv (the weight
+scaled per output channel, a bias added), in f32, and casts the result
+once to the compute type.  The forward runs 53 convs with bias and no
+separate BN pass; on the card each conv with a ReLU after it is one cuDNN
+call with its bias, the residual add and the ReLU fused.
 """
 
 from __future__ import annotations
@@ -18,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import batchnorm, batchnorm_affine, batchnorm_init, conv2d, dense
+from .common import batchnorm_affine, batchnorm_init, conv2d
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,34 +40,31 @@ class ResNetConfig:
 
 
 class Conv(nn.Module):
-    """A bias-free conv: OIHW ``weight``, its stride and padding."""
+    """A conv: OIHW ``weight``, its stride and padding, and the ``bias``
+    its BN folds into (None until ``fold_batchnorm``)."""
 
     def __init__(self, c_in: int, c_out: int, k: int, stride: int = 1, padding: int = 0):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(c_out, c_in, k, k))
+        self.register_parameter("bias", None)
         self.stride, self.padding = stride, padding
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv2d(x, self.weight, self.stride, self.padding)
+    def forward(self, x: torch.Tensor, relu: bool = False,
+                residual: torch.Tensor | None = None) -> torch.Tensor:
+        """The conv and its bias, then (``relu``) ``residual`` added and a
+        ReLU: one fused cuDNN call on the card (``common.conv2d``)."""
+        return conv2d(x, self.weight, self.bias, self.stride, self.padding, relu, residual)
 
 
 class BatchNorm(nn.Module):
-    """Inference BN.  The state is the running statistics and the affine
-    (``scale``, ``bias``, ``mean``, ``var``); ``prepare`` forms the ``g``,
-    ``b`` the forward applies once, from that state in f32."""
+    """An inference BN's state: the running statistics and the affine
+    (``scale``, ``bias``, ``mean``, ``var``), as the checkpoint holds it.
+    It has no forward: ``fold_batchnorm`` folds it into its conv."""
 
     def __init__(self, c: int):
         super().__init__()
         for name, init in batchnorm_init(c).items():
             self.register_buffer(name, init)
-        self.register_buffer("g", None, persistent=False)
-        self.register_buffer("b", None, persistent=False)
-
-    def prepare(self, dtype: torch.dtype) -> None:
-        self.g, self.b = batchnorm_affine(self.scale, self.bias, self.mean, self.var, dtype)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return batchnorm(x, self.g.to(x.dtype), self.b.to(x.dtype))
 
 
 class Shortcut(nn.Module):
@@ -83,13 +87,11 @@ class Bottleneck(nn.Module):
         self.shortcut = Shortcut(c_in, c_out, stride) if c_in != c_out or stride != 1 else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        residual = x
-        if self.shortcut is not None:
-            residual = self.shortcut.bn(self.shortcut.conv(x))
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = F.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
-        return F.relu(y + residual)
+        """The folded block: each conv carries its BN, and the last one the
+        residual add and the ReLU."""
+        residual = x if self.shortcut is None else self.shortcut.conv(x)
+        y = self.conv2(self.conv1(x, relu=True), relu=True)
+        return self.conv3(y, relu=True, residual=residual)
 
 
 class Embedder(nn.Module):
@@ -123,19 +125,51 @@ class ResNet(nn.Module):
         self.classifier = nn.Linear(cfg.hidden_sizes[-1], cfg.num_labels)
 
 
+def _conv_bn_pairs(model: ResNet):
+    """(module, conv name, BN name) of every conv and the BN after it."""
+    for mod in model.modules():
+        if isinstance(mod, (Embedder, Shortcut)):
+            yield mod, "conv", "bn"
+        elif isinstance(mod, Bottleneck):
+            for i in (1, 2, 3):
+                yield mod, f"conv{i}", f"bn{i}"
+
+
+def fold_batchnorm(model: ResNet, dtype: torch.dtype) -> None:
+    """Fold every BN into the conv before it, in f32 (``W * g`` per output
+    channel, bias ``b``, from ``batchnorm_affine``), cast once to ``dtype``
+    (conv weights channels-last), and remove the BN modules."""
+    for mod, conv_name, bn_name in _conv_bn_pairs(model):
+        conv, bn = getattr(mod, conv_name), getattr(mod, bn_name)
+        g, b = batchnorm_affine(bn.scale, bn.bias, bn.mean, bn.var, torch.float32)
+        w = conv.weight.float() * g[:, None, None, None]
+        conv.weight = nn.Parameter(w.to(dtype).contiguous(memory_format=torch.channels_last),
+                                   requires_grad=False)
+        conv.bias = nn.Parameter(b.to(dtype), requires_grad=False)
+        delattr(mod, bn_name)
+    model.folded = True
+
+
 def apply(model: ResNet, images: torch.Tensor) -> torch.Tensor:
     """images: [B, 3, H, W] normalized, channels-last, in the compute type
-    -> logits [B, labels] f32."""
+    -> logits [B, labels] f32.  ``model`` is folded (``build_model``)."""
+    if not getattr(model, "folded", False):
+        raise ValueError("resnet.apply takes a model whose BNs are folded (build_model)")
     e = model.embedder
-    x = F.relu(e.bn(e.conv(images)))
+    x = e.conv(images, relu=True)
     # torch's implicit max-pool padding is -inf, as the reference's window.
     x = F.max_pool2d(x, 3, 2, padding=1)
     for blocks in model.stages:
         for block in blocks:
             x = block(x)
-    # Global average pool -> classifier, in f32 for an exact argmax.
+    # Global average pool -> classifier, in f32 for an exact argmax: one
+    # product a row (a batched GEMV over the broadcast weight), so a row's
+    # logits never depend on the batch bucket it rides in.
     pooled = x.float().mean(dim=(2, 3))
-    return dense(pooled, model.classifier.weight, model.classifier.bias)
+    n = pooled.shape[0]
+    w = model.classifier.weight.float().t().expand(n, -1, -1)
+    b = model.classifier.bias.float().expand(n, 1, -1)
+    return torch.baddbmm(b, pooled[:, None, :], w)[:, 0]
 
 
 def init_params(cfg: ResNetConfig, generator: torch.Generator) -> dict[str, torch.Tensor]:
@@ -164,25 +198,14 @@ def init_params(cfg: ResNetConfig, generator: torch.Generator) -> dict[str, torc
 def build_model(cfg: ResNetConfig, state: dict[str, torch.Tensor], device: torch.device,
                 dtype: torch.dtype) -> ResNet:
     """A ``ResNet`` holding ``state`` (strictly: every key, no extras) on
-    ``device``: conv and classifier weights in ``dtype``, the conv weights
-    channels-last; the BN state stays f32 and its affine is formed once,
-    in ``dtype``."""
+    ``device``, loaded in f32, its BNs folded into the convs
+    (``fold_batchnorm``), then conv weights and biases and the classifier
+    in ``dtype``, the conv weights channels-last."""
     with torch.device("meta"):
         model = ResNet(cfg)
-    bn_names = {f"{m}.{leaf}" for m, mod in model.named_modules() if isinstance(mod, BatchNorm)
-                for leaf in ("scale", "bias", "mean", "var")}
-    placed = {}
-    for name, v in state.items():
-        t = torch.as_tensor(v)
-        if name in bn_names:
-            placed[name] = t.to(device=device, dtype=torch.float32)
-        elif t.dim() == 4:
-            placed[name] = t.to(device=device, dtype=dtype).contiguous(
-                memory_format=torch.channels_last)
-        else:
-            placed[name] = t.to(device=device, dtype=dtype)
+    placed = {name: torch.as_tensor(v).to(device=device, dtype=torch.float32)
+              for name, v in state.items()}
     model.load_state_dict(placed, strict=True, assign=True)
-    for mod in model.modules():
-        if isinstance(mod, BatchNorm):
-            mod.prepare(dtype)
+    fold_batchnorm(model, dtype)
+    model.classifier.to(dtype)
     return model.eval()

@@ -40,6 +40,8 @@ import threading
 
 import torch
 
+from ..runtime.compile_cache import counts_launches
+
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIM = 64  # the only head width the kernels take (BERT-base, TinyLlama)
 MAX_SEQ = 1 << 16  # keys K1's key bitmap covers
@@ -175,7 +177,7 @@ def fused_attention(
     return out
 
 
-fused_attention.launches = 0
+counts_launches(fused_attention)
 
 
 # ---------------------------------------------------------------------------
@@ -484,4 +486,4 @@ def decode_attention(
     return out
 
 
-decode_attention.launches = 0
+counts_launches(decode_attention)

@@ -47,6 +47,7 @@ from .attention import (
     _stream,
     split_plan,
 )
+from ..runtime.compile_cache import counts_launches
 
 
 def gather_pages(pool: torch.Tensor, table: torch.Tensor, block_size: int) -> torch.Tensor:
@@ -299,4 +300,4 @@ def paged_decode_attention(
     return out
 
 
-paged_decode_attention.launches = 0
+counts_launches(paged_decode_attention)

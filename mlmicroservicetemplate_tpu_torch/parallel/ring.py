@@ -35,6 +35,7 @@ from typing import Callable, Sequence
 import torch
 
 from ..ops.attention import _DTYPE_CODE, HEAD_DIM, MAX_SEQ
+from ..runtime.compile_cache import counts_launches
 
 MASKED = -1e9  # score of a masked key: finite, so an all-masked row averages V
 MIN_SUM = 1e-20  # the ring's output is o / max(l, MIN_SUM)
@@ -202,7 +203,7 @@ def ring_hop(
     return (o, m, l) if out is None else out
 
 
-ring_hop.launches = 0
+counts_launches(ring_hop)
 
 
 def ring_attention(

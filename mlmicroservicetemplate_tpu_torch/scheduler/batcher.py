@@ -118,6 +118,24 @@ class Batcher:
             f.result()
         return time.monotonic() - t0
 
+    def compile_status(self) -> dict:
+        """``/status.compile``: the graph cache's counters, the accumulated
+        warm-phase seconds, the captures and their seconds, the bytes the
+        graph pools hold, and per graph kind ``"graph"`` or ``"eager:
+        <reason>"`` (the JAX package's ``compile_status``, with CUDA graphs
+        in place of XLA executables)."""
+        from ..runtime import compile_cache
+
+        captures = compile_cache.capture_stats()
+        return {
+            "executable_cache": compile_cache.cache_stats(),
+            "warm_phases_s": compile_cache.warm_stats(),
+            "graph_captures": captures["count"],
+            "graph_capture_s": round(captures["seconds"], 3),
+            "graph_pool_bytes": compile_cache.graph_pool_bytes(),
+            "kinds": self.engine.graph_modes(),
+        }
+
     def warm_streams(self) -> float:
         """Warm the decode loop (a no-op without one); returns seconds."""
         return self._cdl.warm() if self._cdl is not None else 0.0

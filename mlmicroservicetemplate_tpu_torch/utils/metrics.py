@@ -1,7 +1,8 @@
 """Prometheus series of the serving path, exported at ``GET /metrics``.
 
 Request count and latency, queue wait, device time per batch, batch size,
-queue depth and load sheds; for streaming generation, generated tokens,
+queue depth and load sheds; graph-cache events and warm-phase seconds;
+for streaming generation, generated tokens,
 live streams per loop chunk, time to first token, the gap between chunk
 deliveries and the paged KV pool's blocks.  The series live in this package's own
 registry, so a process that also imports the JAX package registers no
@@ -107,6 +108,20 @@ TBT = Histogram(
     "Streaming inter-chunk delivery gap (time between consecutive token-chunk "
     "deliveries to one stream after its first chunk)",
     ["model"], buckets=_FINE_BUCKETS, registry=REGISTRY,
+)
+WARM_SECONDS = Histogram(
+    "engine_warm_seconds",
+    "Wall seconds one warm phase took (engine = the bucket grid's graph "
+    "captures, loop = the continuous loop's chunk capture)",
+    ["model", "phase"], buckets=(0.1, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0, 120.0, 300.0),
+    registry=REGISTRY,
+)
+EXEC_CACHE_EVENTS = Counter(
+    "executable_cache_events_total",
+    "Graph-cache lookups by event (hit = a captured graph replays; miss = "
+    "none under the key; insert = a graph was captured) - "
+    "runtime/compile_cache.py",
+    ["event"], registry=REGISTRY,
 )
 
 

@@ -116,6 +116,57 @@ def test_channels_last_holds_through_the_model():
     assert len(seen) == 1 + 4 * 3 + 4 and all(seen)
 
 
+@pytest.mark.parametrize("kw", [TINY, {}], ids=["small", "resnet50"])
+def test_build_folds_every_batchnorm_and_applies_none(kw, monkeypatch):
+    """``build_model`` folds each BN into its conv: no BN module is left,
+    every conv (53 at full width) carries a bias, and the forward runs no
+    BatchNorm and no per-channel affine, yet gives the unfolded logits."""
+    cfg = port_resnet.ResNetConfig(**kw)
+    params = jax_params(jax_resnet.ResNetConfig(**kw))
+    model = port_resnet.build_model(cfg, resnet_params_from_jax(params, cfg),
+                                    torch.device("cpu"), torch.float32)
+    assert not any(isinstance(m, port_resnet.BatchNorm) for m in model.modules())
+    convs = [m for m in model.modules() if isinstance(m, port_resnet.Conv)]
+    assert len(convs) == 1 + 3 * sum(cfg.depths) + len(cfg.depths)
+    assert all(c.bias is not None and c.bias.shape == (c.weight.shape[0],) for c in convs)
+    if not kw:
+        assert len(convs) == 53
+
+    def refuse(*a, **k):
+        raise AssertionError("a BatchNorm ran at run time")
+
+    for mod, name in ((torch, "addcmul"), (torch, "batch_norm"),
+                      (torch.nn.functional, "batch_norm")):
+        monkeypatch.setattr(mod, name, refuse)
+    x = np.random.default_rng(5).standard_normal((1, 64, 64, 3)).astype(np.float32)
+    with torch.inference_mode():
+        got = port_resnet.apply(model, torch.from_numpy(x).permute(0, 3, 1, 2)).numpy()
+    monkeypatch.undo()
+    want = np.asarray(jax_resnet.apply(params, jax_resnet.ResNetConfig(**kw), x))
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_fold_is_the_conv_then_its_affine():
+    """One conv and its BN, folded, against the conv followed by the BN's
+    f32 affine, and an unfolded model is refused by ``apply``."""
+    cfg = port_resnet.ResNetConfig(**TINY)
+    state = resnet_params_from_jax(jax_params(cfg), cfg)
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal((2, 3, 32, 32))
+                         .astype(np.float32)).contiguous(memory_format=torch.channels_last)
+    g = state["embedder.bn.scale"] / torch.sqrt(state["embedder.bn.var"] + 1e-5)
+    b = state["embedder.bn.bias"] - state["embedder.bn.mean"] * g
+    want = torch.nn.functional.conv2d(x, state["embedder.conv.weight"], stride=2, padding=3)
+    want = want * g[:, None, None] + b[:, None, None]
+    model = port_resnet.build_model(cfg, state, torch.device("cpu"), torch.float32)
+    with torch.inference_mode():
+        got = model.embedder.conv(x)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    with torch.device("meta"):
+        unfolded = port_resnet.ResNet(cfg)
+    with pytest.raises(ValueError, match="folded"):
+        port_resnet.apply(unfolded, x)
+
+
 def test_params_from_jax_are_exact():
     cfg = port_resnet.ResNetConfig(**TINY)
     params = jax_params(cfg)
