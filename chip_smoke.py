@@ -30,6 +30,10 @@ result line:
    Each row also gives ``device_us`` (the profiler's kernel time a call:
    split kernel and combine; ``library_device_us`` SDPA's) and ``host_us``
    (the wrapper's host time a call, back to back, no synchronisation).
+   Then GPT-2's shape at one query head per KV head (H = KVH = 12, R = 1):
+   every dtype at B in {1, 8, 16} over a 320-key cache with a padded row
+   and (B > 1) a row with no valid key, then valid prefixes and last-tile
+   keys (``GPT2_DECODE_CASES``).
 4b. kernel paged_decode_attention: the same for the paged decode kernel
    over pools of 16-token blocks, B in {1, 8, 16}, table width T in {6,
    36, 128} blocks; a shuffled table with a sentinel tail on one row and
@@ -37,7 +41,13 @@ result line:
    rows (1-3 blocks valid, the table past them sentinels) at up to 128
    blocks, with a row with no valid key whose table is half sentinels; the
    yardstick gathers the dense view, expands it to 32 heads and runs
-   ``scaled_dot_product_attention``.
+   ``scaled_dot_product_attention``.  Then GPT-2's shape at R = 1 over
+   tables of 20 blocks (``GPT2_PAGED_CASES``).
+4a. sampler: ``models/sampling.py`` on the card against the CPU at B = 16,
+   V = 50257: threefry keys, bits and uniforms of three chained steps equal
+   bit for bit, Gumbel noise within 2e-6, ``select_token``'s rng chains
+   equal and its tokens equal (or parted only inside the measured score
+   difference).
 4c. kernel ring_hop: the ring-hop kernel (K4) against its plain version,
    bf16 and f32, B in {1, 8}, S_loc in {96, 512, 2048}, H=12, D=64, from a
    fresh carried state and a mid-ring one; a padded row and (B > 1) a row
@@ -103,14 +113,23 @@ result line:
    1e-3 of a row's largest |logit|; eager and graph timed beside the SP=1
    forward and split by kernel.
 7. serve llama / serve llama int8: full-width TinyLlama (22 layers, random
-   weights from seed 0 drawn once and given to both services), bf16, the
-   dense and the int8 KV cache, through ``Batcher.submit`` in waves over
-   several buckets, some with ``max_tokens``.  The decode kernel must
-   launch 22 times per decode step and never in prefill; every emitted
-   token is checked teacher-forced against an f32 forward of the plain
-   path on the same weights.
+   weights from seed 0; the int8 service at CUT_LAYERS = 6 layers of
+   weights of their own from seed 0, to keep the run within its time
+   limit), bf16, the dense and the int8 KV cache, through ``Batcher.submit`` in waves over
+   several buckets, some with ``max_tokens``, every third sampled and
+   seeded (temperature 0.7 or 1, top_k 0 or 40, top_p 1 or 0.9).  The
+   decode kernel must launch 22 times per decode step and never in
+   prefill; every emitted token is checked teacher-forced against an f32
+   forward of the plain path on the same weights: a greedy one against the
+   step's best logit, a sampled one against the draw rebuilt from its seed
+   and step (the reference's filtered logits plus the same Gumbel noise),
+   both within 3x the logit error measured in the run.  The last sampled
+   request of the full wave is served again alone: the same tokens, or a
+   first parting where the reference's two best perturbed scores are within
+   the tolerance (batch buckets run other GEMM shapes in bf16).  Warmup
+   captures every bucket's argmax and sampled graphs.
 7b. serve llama stream / stream int8 / stream contiguous: the same weights
-   streamed through ``Batcher.submit_stream`` and the continuous decode
+   (the int8 and the contiguous loop at CUT_LAYERS layers) streamed through ``Batcher.submit_stream`` and the continuous decode
    loop (16 slots, 64-token budget): paged KV (16-token blocks) with the
    dense and the int8 cache, then contiguous slots; 32 streams in waves of
    1, 2, 5, 8 and 16.  Every token is teacher-forced as in 7; the paged
@@ -124,9 +143,19 @@ result line:
 8. decode step: where one llama decode step's time goes at B in {1, 8,
    32}, T=576: wall time against busy time, split into K2, GEMMs, other,
    eager and as a graph of the step.
+8a. serve gpt2, serve gpt2 stream (paged), serve gpt2 stream contiguous,
+   each with its graphs phase: GPT-2 small at full width (12 layers, 768
+   hidden, 12 heads, vocab 50257, position table 1024; random weights from
+   seed 0; bf16; the byte tokenizer), as 7 and 7b: K2 or K3 launch 12 times
+   a decode step (R = 1) and never in prefill.
+8b. decode step gpt2: one GPT-2 step at B in {1, 8, 16} over a 320-key
+   cache, greedy against sampled, eager and as graphs, split into K2,
+   GEMMs and the rest; the sampler alone as graphs on [B, 50257] logits
+   (threefry Gumbel noise, sort and filter, ``select_token``, argmax).
 9. http: ``/predict`` on bert-base, ``/predict`` and ``/status`` (its
-   ``n_devices``) on bert-long, ``/predict`` and ``/v1/completions`` on
-   llama, whole and streamed (ndjson, and SSE ending in ``data: [DONE]``),
+   ``n_devices``) on bert-long, ``/predict``, ``/v1/completions`` (greedy
+   and sampled), ``/v1/chat/completions`` and ``/v1/models`` on llama and
+   gpt2, whole and streamed (ndjson, and SSE ending in ``data: [DONE]``),
    over loopback through the aiohttp app (skipped, and said so, where
    aiohttp is missing); where PIL is installed, a PNG to resnet50 as a raw
    ``image/png`` body and as a multipart ``file`` part, each answered with
@@ -138,8 +167,9 @@ TFLOP/s, K4's also with the SP=1 hop's time), the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.  ``--cpu-rehearsal`` skips the build,
 kernel and graphs phases (the CPU runs the eager functions), serves
 BERT-base, ResNet-50 (f32, batch buckets 1-8), bert-long (SP=2,
-SEQ_BUCKETS=64,128) and a 2-layer llama (``LLAMA_CONFIG``), whole and
-streamed, on the CPU at small buckets, and prints no result line.
+SEQ_BUCKETS=64,128), a 2-layer llama (``LLAMA_CONFIG``) and full-width
+GPT-2 (batch buckets 1-4, 16 decode positions), whole and streamed, on the
+CPU at small buckets, and prints no result line.
 """
 
 from __future__ import annotations
@@ -187,9 +217,19 @@ HEADS, HEAD_DIM, LAYERS = 12, 64, 12
 # TinyLlama's decode shape: 32 query heads over 4 KV heads; KV blocks of
 # PAGE tokens under PAGED_KV.
 LLAMA_HEADS, LLAMA_KV_HEADS, PAGE = 32, 4, 16
+# Depth of the llama services cut to stay within the run's time limit (the
+# int8 services and the contiguous loop; the rest keep TinyLlama's 22).
+CUT_LAYERS = 6
 # The llama the rehearsal serves on the CPU.
 REHEARSAL_LLAMA = dict(vocab_size=512, d_model=256, num_heads=4, num_kv_heads=2,
                        num_layers=2, d_ff=512)
+# GPT-2 small's decode shape: 12 query heads over 12 KV heads (one query
+# head per KV head, R = 1), and its vocabulary (the sampler's width).
+GPT2_HEADS, GPT2_VOCAB = (12, 12), 50257
+# Card against CPU Gumbel noise: torch's log on the card and on the CPU may
+# differ in the last bits of f32 (the bits and uniforms under them must be
+# equal).
+GUMBEL_TOL = 2e-6
 # Teacher-forced check: an emitted token may trail the f32 reference's
 # best logit at its step by at most TF_FACTOR times the logit error
 # measured in the same run (the served precision's, plus the int8 cache's
@@ -215,6 +255,11 @@ K3_KERNEL = r"paged_decode_attention_kernel|decode_(split|combine)_kernel<.*true
 LAUNCHED_KERNEL = {"fused_attention": r"EncoderOp", "decode_attention": r"decode_split_kernel<.*false>",
                    "paged_decode_attention": r"decode_split_kernel<.*true>",
                    "ring_hop": r"HopOp"}
+# torch.profiler, started, first runs PRIMER_KERNELS short spin kernels and
+# waits PROFILER_SETTLE_S before the traced work (``profiler_primer``); the
+# spin kernels are left out of every count by their name.
+PRIMER_KERNELS, PROFILER_SETTLE_S = 256, 0.05
+PRIMER_KERNEL = re.compile(r"spin_kernel")
 # Served logits through a CUDA graph against the same engine's eager
 # dispatch on the same batch: the largest error of a row, as a fraction of
 # that row's largest |logit| (the same kernels on the same inputs; only a
@@ -454,17 +499,18 @@ def decode_mask(b: int, t: int, layout: str):
     return mask
 
 
-def decode_case(gen, kind: str, b: int, t: int, layout: str = "pad"):
+def decode_case(gen, kind: str, b: int, t: int, layout: str = "pad",
+                heads: tuple = (LLAMA_HEADS, LLAMA_KV_HEADS)):
     """Decode-attention inputs on the card: q [B, H, D], a [B, T, KVH, D]
     cache (dense in ``kind``, or int8 with bf16 scales and a bf16 q), and
-    a ``decode_mask`` of ``layout``."""
+    a ``decode_mask`` of ``layout``; (H, KVH) = ``heads``."""
     import torch
 
     from mlmicroservicetemplate_tpu_torch.models.common import kv_quantize
 
     qdtype = torch.float32 if kind == "float32" else torch.bfloat16
-    q = torch.randn(b, LLAMA_HEADS, HEAD_DIM, device="cuda", generator=gen).to(qdtype)
-    k, v = (torch.randn(b, t, LLAMA_KV_HEADS, HEAD_DIM, device="cuda", generator=gen)
+    q = torch.randn(b, heads[0], HEAD_DIM, device="cuda", generator=gen).to(qdtype)
+    k, v = (torch.randn(b, t, heads[1], HEAD_DIM, device="cuda", generator=gen)
             for _ in range(2))
     mask = decode_mask(b, t, layout)
     if kind != "int8":
@@ -491,6 +537,20 @@ def decode_bound(q, k, v, mask, ks, vs, kind: str) -> tuple[float, str]:
     return bound(nbytes, 4 * h * d * n_valid + dead * t * kvh * d, kind)
 
 
+def profiler_primer() -> None:
+    """Inside a started torch.profiler: PRIMER_KERNELS short device kernels,
+    waited for, then PROFILER_SETTLE_S on the host, before the traced work.
+    A long-lived process's traces have lost their first ~20 device records
+    (a GPT-2 chunk's trace began at its first layer's norm, a spin kernel
+    before it missing too), so those records are the primer's."""
+    import torch
+
+    for _ in range(PRIMER_KERNELS):
+        torch.cuda._sleep(100)
+    torch.cuda.synchronize()
+    time.sleep(PROFILER_SETTLE_S)
+
+
 def device_us(fn, reps: int = 20) -> float | None:
     """Device time of one call of ``fn`` in microseconds: the kernels
     ``torch.profiler`` records over ``reps`` calls (for the port's wrappers
@@ -503,11 +563,12 @@ def device_us(fn, reps: int = 20) -> float | None:
     torch.cuda.synchronize()
     for _ in range(3):  # a profile now and then records no device kernel: again
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            profiler_primer()
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
         us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == DeviceType.CUDA)
+                 if e.device_type == DeviceType.CUDA and not PRIMER_KERNEL.search(e.name))
         if us:
             return us / reps
     return None
@@ -529,7 +590,17 @@ def host_us(fn, reps: int = 50) -> float:
 
 
 # K2's cases beyond the base grid (dtype x B in {1, 8, 32} x T in {96, 576,
-# 2048}, pad masks): (dtype, B, T, mask layout).
+# 2048}, pad masks, TinyLlama's heads): (dtype, B, T, mask layout[, heads]).
+# GPT-2's, at one query head per KV head: every dtype at B in {1, 8, 16} over
+# a 320-key cache (the loop's slot width: 256-token prompts + 64 decode
+# positions), a padded row and (B > 1) a row with no valid key; then valid
+# prefixes and last-tile keys.
+GPT2_DECODE_CASES = tuple(
+    (kind, b, 320, "pad", GPT2_HEADS) for kind in ("bfloat16", "float32", "int8")
+    for b in (1, 8, 16)) + (
+    ("bfloat16", 16, 320, "prefix8", GPT2_HEADS),
+    ("bfloat16", 16, 1024, "last_tile", GPT2_HEADS),
+)
 DECODE_EXTRA_CASES = (
     ("bfloat16", 8, 576, "prefix8"),
     ("bfloat16", 8, 576, "last_tile"),
@@ -543,7 +614,10 @@ DECODE_EXTRA_CASES = (
 )
 
 
-def phase_decode_kernel() -> dict:
+def phase_decode_kernel() -> tuple[dict, dict]:
+    """K2 against its plain version over the cases above; returns the
+    headline rows: TinyLlama's (bf16, B=8, T=576) and GPT-2's (bf16, B=16,
+    T=320)."""
     import torch
     import torch.nn.functional as F
 
@@ -553,12 +627,13 @@ def phase_decode_kernel() -> dict:
     )
 
     gen = torch.Generator(device="cuda").manual_seed(2)
-    headline = None
-    rep = LLAMA_HEADS // LLAMA_KV_HEADS
+    headline = gpt2_headline = None
     grid = [(kind, b, t, "pad") for kind in ("bfloat16", "float32", "int8")
             for b in (1, 8, 32) for t in (96, 576, 2048)]
-    for kind, b, t, layout in grid + list(DECODE_EXTRA_CASES):
-        q, k, v, mask, ks, vs = decode_case(gen, kind, b, t, layout)
+    for kind, b, t, layout, *heads in grid + list(DECODE_EXTRA_CASES) + list(GPT2_DECODE_CASES):
+        heads = tuple(heads[0]) if heads else (LLAMA_HEADS, LLAMA_KV_HEADS)
+        rep = heads[0] // heads[1]
+        q, k, v, mask, ks, vs = decode_case(gen, kind, b, t, layout, heads)
         out = decode_attention(q, k, v, mask, ks, vs)
         torch.cuda.synchronize()
         ref = decode_attention_ref(
@@ -593,7 +668,7 @@ def phase_decode_kernel() -> dict:
         library_ms = cuda_ms(library, iters)
         bound_ms, bound_by = decode_bound(q, k, v, mask, ks, vs, kind)
         row = dict(
-            dtype=kind, shape=[b, t, LLAMA_HEADS, LLAMA_KV_HEADS, HEAD_DIM], mask=layout,
+            dtype=kind, shape=[b, t, *heads, HEAD_DIM], mask=layout,
             max_abs_err=diff.max().item(), tol=f"atol=rtol={tol}", ok=ok,
             kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
             device_us=device_us(kernel), library_device_us=device_us(library),
@@ -602,12 +677,15 @@ def phase_decode_kernel() -> dict:
         emit("kernel decode_attention", **row)
         if not ok:
             raise AssertionError(f"decode_attention disagrees with its plain version: {row}")
-        if (kind, b, t, layout) == ("bfloat16", 8, 576, "pad"):
+        if (kind, b, t, layout, heads) == ("bfloat16", 8, 576, "pad", (32, 4)):
             headline = row
-    return headline
+        if (kind, b, t, layout, heads) == ("bfloat16", 16, 320, "pad", GPT2_HEADS):
+            gpt2_headline = row
+    return headline, gpt2_headline
 
 
-def paged_case(gen, kind: str, b: int, t: int, layout: str = "pad"):
+def paged_case(gen, kind: str, b: int, t: int, layout: str = "pad",
+               heads: tuple = (LLAMA_HEADS, LLAMA_KV_HEADS)):
     """Paged decode-attention inputs on the card at block size PAGE: q
     [B, H, D]; pools of B·T + 4 blocks (dense in ``kind``, or int8 with
     bf16 scale pools and a bf16 q); a shuffled table.  pad: each row's
@@ -615,15 +693,15 @@ def paged_case(gen, kind: str, b: int, t: int, layout: str = "pad"):
     third of sentinel entries (their keys invalid).  short: each row valid
     for 1 to 3 blocks' worth of keys, its table past them sentinels, as the
     loop's rows are.  For B > 1, row 1 holds no valid key (short: its table
-    half sentinels)."""
+    half sentinels).  (H, KVH) = ``heads``."""
     import torch
 
     from mlmicroservicetemplate_tpu_torch.models.common import kv_quantize
 
     nb = b * t + 4
     qdtype = torch.float32 if kind == "float32" else torch.bfloat16
-    q = torch.randn(b, LLAMA_HEADS, HEAD_DIM, device="cuda", generator=gen).to(qdtype)
-    k, v = (torch.randn(nb, PAGE, LLAMA_KV_HEADS, HEAD_DIM, device="cuda", generator=gen)
+    q = torch.randn(b, heads[0], HEAD_DIM, device="cuda", generator=gen).to(qdtype)
+    k, v = (torch.randn(nb, PAGE, heads[1], HEAD_DIM, device="cuda", generator=gen)
             for _ in range(2))
     table = torch.randperm(nb, device="cuda", generator=gen)[: b * t].reshape(b, t)
     table = table.to(torch.int32)
@@ -659,9 +737,10 @@ def paged_bound(q, k, table, valid, ks, kind: str) -> tuple[float, str]:
     and key_valid; the output written once.  Operations: 4·H·D per valid
     key (q·k and p·v), 2·H·D per position of a row with no valid key."""
     b, h, d = q.shape
-    per_pos = LLAMA_KV_HEADS * d * k.element_size()
+    kvh = k.shape[2]
+    per_pos = kvh * d * k.element_size()
     if ks is not None:
-        per_pos += LLAMA_KV_HEADS * ks.element_size()
+        per_pos += kvh * ks.element_size()
     live = valid.sum(dim=1)
     n_valid = int(live.sum())
     nbytes, ops = 2 * n_valid * per_pos, 4 * h * d * n_valid
@@ -674,7 +753,15 @@ def paged_bound(q, k, table, valid, ks, kind: str) -> tuple[float, str]:
 
 
 # K3's cases beyond the base grid (dtype x B in {1, 8, 16} x T in {6, 36,
-# 128} blocks, pad layout): (dtype, B, T, layout).
+# 128} blocks, pad layout, TinyLlama's heads): (dtype, B, T, layout[,
+# heads]).  GPT-2's at R = 1: every dtype at B in {1, 8, 16} over tables of
+# 20 blocks (the loop's: 320 keys), then the loop's short rows.
+GPT2_PAGED_CASES = tuple(
+    (kind, b, 20, "pad", GPT2_HEADS) for kind in ("bfloat16", "float32", "int8")
+    for b in (1, 8, 16)) + (
+    ("bfloat16", 16, 20, "short", GPT2_HEADS),
+    ("int8", 16, 20, "short", GPT2_HEADS),
+)
 PAGED_EXTRA_CASES = (
     ("bfloat16", 16, 128, "short"),
     ("bfloat16", 1, 128, "short"),
@@ -684,7 +771,10 @@ PAGED_EXTRA_CASES = (
 )
 
 
-def phase_paged_kernel() -> dict:
+def phase_paged_kernel() -> tuple[dict, dict]:
+    """K3 against its plain version over the cases above; returns the
+    headline rows: TinyLlama's (bf16, B=16, 36 blocks) and GPT-2's (bf16,
+    B=16, 20 blocks)."""
     import torch
     import torch.nn.functional as F
 
@@ -695,12 +785,13 @@ def phase_paged_kernel() -> dict:
     )
 
     gen = torch.Generator(device="cuda").manual_seed(4)
-    headline = None
-    rep = LLAMA_HEADS // LLAMA_KV_HEADS
+    headline = gpt2_headline = None
     grid = [(kind, b, t, "pad") for kind in ("bfloat16", "float32", "int8")
             for b in (1, 8, 16) for t in (6, 36, 128)]
-    for kind, b, t, layout in grid + list(PAGED_EXTRA_CASES):
-        q, k, v, table, valid, ks, vs = paged_case(gen, kind, b, t, layout)
+    for kind, b, t, layout, *heads in grid + list(PAGED_EXTRA_CASES) + list(GPT2_PAGED_CASES):
+        heads = tuple(heads[0]) if heads else (LLAMA_HEADS, LLAMA_KV_HEADS)
+        rep = heads[0] // heads[1]
+        q, k, v, table, valid, ks, vs = paged_case(gen, kind, b, t, layout, heads)
         out = paged_decode_attention(q, k, v, table, valid, PAGE, ks, vs)
         torch.cuda.synchronize()
         ref = paged_attention_ref(
@@ -737,7 +828,7 @@ def phase_paged_kernel() -> dict:
         library_ms = cuda_ms(library, iters)
         bound_ms, bound_by = paged_bound(q, k, table, valid, ks, kind)
         row = dict(
-            dtype=kind, shape=[b, t, PAGE, LLAMA_HEADS, LLAMA_KV_HEADS, HEAD_DIM], mask=layout,
+            dtype=kind, shape=[b, t, PAGE, *heads, HEAD_DIM], mask=layout,
             max_abs_err=diff.max().item(), tol=f"atol=rtol={tol}", ok=ok,
             kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
             device_us=device_us(kernel), library_device_us=device_us(library),
@@ -747,9 +838,11 @@ def phase_paged_kernel() -> dict:
         if not ok:
             raise AssertionError(
                 f"paged_decode_attention disagrees with its plain version: {row}")
-        if (kind, b, t, layout) == ("bfloat16", 16, 36, "pad"):
+        if (kind, b, t, layout, heads) == ("bfloat16", 16, 36, "pad", (32, 4)):
             headline = row
-    return headline
+        if (kind, b, t, layout, heads) == ("bfloat16", 16, 20, "pad", GPT2_HEADS):
+            gpt2_headline = row
+    return headline, gpt2_headline
 
 
 def ring_hop_case(gen, dtype, b: int, s: int, state: str, layout: str = "pad"):
@@ -1437,10 +1530,12 @@ def multipart_file(data: bytes):
     return writer
 
 
-def llama_waves(rehearsal: bool):
+def gen_waves(rehearsal: bool):
     """Prompts in waves of 1, 2, 5, 8 and 16 (rehearsal: 1, 2, 3, 4),
     growing so prefill lands in several seq buckets; every third request
-    carries a max_tokens below MAX_DECODE_LEN."""
+    carries a max_tokens below MAX_DECODE_LEN, and every third (another
+    one) is sampled and seeded: temperature 0.7 or 1.0, top_k in {0, 40},
+    top_p in {1, 0.9}."""
     import numpy as np
 
     from mlmicroservicetemplate_tpu_torch.models.registry import RawItem
@@ -1456,7 +1551,13 @@ def llama_waves(rehearsal: bool):
         for _ in range(n):
             length = int(rng.integers(cap // 2, cap))
             text = " ".join(rng.choice(words, size=length))[:length]
-            wave.append(RawItem(text=text, max_tokens=budgets[i // 3 % 3] if i % 3 == 1 else None))
+            sampling = {}
+            if i % 3 == 2:
+                j = i // 3
+                sampling = dict(temperature=(0.7, 1.0)[j % 2], top_k=(0, 40)[j // 2 % 2],
+                                top_p=(1.0, 0.9)[j // 4 % 2], seed=1000 + i)
+            wave.append(RawItem(text=text, **sampling,
+                                max_tokens=budgets[i // 3 % 3] if i % 3 == 1 else None))
             i += 1
         waves.append(wave)
     return waves
@@ -1548,6 +1649,7 @@ def profile_split(fn, reps: int, kernel_name: str, label: str, count: str | None
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profiler_primer()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -1555,7 +1657,7 @@ def profile_split(fn, reps: int, kernel_name: str, label: str, count: str | None
     by_name: dict[str, float] = {}
     counted = launched = 0
     for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+        if e.device_type != DeviceType.CUDA or PRIMER_KERNEL.search(e.name):
             continue
         launched += 1
         counted += bool(count and re.search(count, e.name))
@@ -1592,14 +1694,13 @@ def eager_and_graph(eager, graph, reps: int, kernel_name: str, label: str, iters
 
 
 def engine_graph(engine, kind: str, shape: tuple):
-    """The engine's graph of ``kind`` for the bucket ``shape`` (captured if
-    it is missing)."""
+    """The engine's ``forward`` or ``forward_images`` graph for the bucket
+    ``shape`` (captured if it is missing)."""
     import torch
 
-    make = {"forward": engine._make_forward, "forward_images": engine._make_images,
-            "start": engine._make_start, "gen_chunk": engine._make_gen_chunk}[kind]
+    make = {"forward": engine._make_forward, "forward_images": engine._make_images}[kind]
     with engine._lock, torch.inference_mode():
-        return engine._graph(kind, shape, lambda: make(shape))
+        return engine._graph(kind, shape, None, lambda: make(shape))
 
 
 def graph_marks(bundle) -> tuple:
@@ -1644,10 +1745,18 @@ def launches_replayed(bundle, before: dict) -> dict:
 def graph_trace(entry, attempts: int = 3) -> dict:
     """One replay of ``entry`` under ``torch.profiler``: its device kernels,
     and those of each hand-written kernel by name, which must be as many as
-    its capture recorded.  A trace that shows no device kernel at all is
-    taken again, up to ``attempts`` times in all; a trace that shows
-    kernels fails at once unless it agrees.  Every attempt's counts are
-    returned."""
+    its capture recorded.  The profiler has lost kernels of a one-replay
+    window: once all of them; in a long-lived process the first ~20 of
+    every GPT-2 chunk's trace (its first decode kernel among them, while
+    the same graph traced in full in a fresh process and its tokens matched
+    eager), and now and then a block of 200-1000; so the replay follows
+    ``profiler_primer``.  A replay runs the same
+    kernels every time, so a trace short of the capture that shows fewer
+    device kernels in all than another trace of the same graph lost
+    records: a short trace is taken again, up to ``attempts`` times in all,
+    and the check holds on the fullest one; a trace that shows more of a
+    kernel than the capture recorded fails at once.  Every attempt's counts
+    are returned."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1655,25 +1764,37 @@ def graph_trace(entry, attempts: int = 3) -> dict:
     from mlmicroservicetemplate_tpu_torch.runtime.compile_cache import device_lock
 
     want = {name: entry.launches.get(name, 0) for name in LAUNCHED_KERNEL}
-    tries = []
+    tries, best = [], None
     for _ in range(attempts):
         with device_lock(torch.device("cuda", torch.cuda.current_device())):
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                profiler_primer()
                 entry.replay()
                 torch.cuda.synchronize()
         seen = dict.fromkeys(LAUNCHED_KERNEL, 0)
         kernels = 0
         for e in prof.events():
-            if e.device_type != DeviceType.CUDA:
+            if e.device_type != DeviceType.CUDA or PRIMER_KERNEL.search(e.name):
                 continue
             kernels += 1
             for name, pattern in LAUNCHED_KERNEL.items():
                 seen[name] += bool(re.search(pattern, e.name))
         tries.append({"kernels": kernels, **{k: v for k, v in seen.items() if v}})
-        if kernels:
+        if any(seen[k] > want[k] for k in want):
             break
-    if not kernels or seen != want:
+        if best is None or kernels > best[0]:
+            best = (kernels, seen)
+        if seen == want:
+            break
+    if best is None or not best[0] or best[1] != want:
+        import pathlib
+
+        out = pathlib.Path("chiprun_out")
+        if out.is_dir():
+            names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+            names.append(f"(timeline {tries})")
+            (out / f"trace_{entry.kind}.txt").write_text("\n".join(n[:120] for n in names))
         raise AssertionError(f"{entry.kind}: one replay's traces show {tries}; its capture "
                              f"recorded {want}")
     return {**tries[-1], "attempts": tries}
@@ -1703,7 +1824,10 @@ def phase_graphs(label: str, bundle, misses: int, counted: dict, replayed: dict,
         k["capture_s"] += e.capture_s
         k["replays"] += e.replays
         k["static_output_bytes"] += tensor_bytes(e.outputs)
-        if sum(e.launches.values()) >= sum(k["_entry"].launches.values()):
+        # The first captured (the smallest bucket, argmax) of those with the
+        # most kernel launches: the profiler drops records in the largest
+        # traces (``graph_trace``).
+        if sum(e.launches.values()) > sum(k["_entry"].launches.values()):
             k["_entry"] = e
     for k in kinds.values():
         e = k.pop("_entry")
@@ -1758,10 +1882,12 @@ def tokens_graph_vs_eager(engine, feats) -> dict:
 def chunk_graph_vs_eager(engine, loop) -> dict:
     """One loop chunk of the slot state with every slot live (as
     ``time_chunk`` sets it) through the chunk's graph and, from the same
-    state restored, eagerly: greedy tokens identical."""
+    state restored, eagerly: tokens identical, for the argmax chunk and for
+    the sampled one (every slot at temperature 1, top_k 40, top_p 0.9)."""
     import numpy as np
     import torch
 
+    out = {}
     with torch.inference_mode(), engine._lock:
         st = loop._state
         st.key_valid.fill_(1)
@@ -1769,21 +1895,29 @@ def chunk_graph_vs_eager(engine, loop) -> dict:
         if engine.paged_kv:
             loop._table[:] = np.arange(loop._table.size).reshape(loop._table.shape) % \
                 engine.kv_pool.num_blocks
-        saved = [t.clone() for t in state_tensors(st)]
-        _, toks = loop._chunk_call()
-        got = toks.clone()
-        for t, s in zip(state_tensors(st), saved):
-            t.copy_(s)
-        graphs = engine.graphs
-        engine.graphs = None
-        try:
-            _, want = loop._chunk_call()
-        finally:
-            engine.graphs = graphs
-        same = torch.equal(got, want)
-    if not same:
-        raise AssertionError("a loop chunk's tokens through its graph differ from eager ones")
-    return {"slots": int(got.shape[0]), "steps": int(got.shape[1]), "tokens_identical": same}
+        for sample in (False, True):
+            if sample:
+                st.sample.temperature.fill_(1.0)
+                st.sample.top_k.fill_(40)
+                st.sample.top_p.fill_(0.9)
+                st.sample.rng.copy_(torch.arange(st.sample.rng.numel()).view_as(st.sample.rng))
+            saved = [t.clone() for t in state_tensors(st)]
+            _, toks = loop._chunk_call(sample)
+            got = toks.clone()
+            for t, s in zip(state_tensors(st), saved):
+                t.copy_(s)
+            graphs = engine.graphs
+            engine.graphs = None
+            try:
+                _, want = loop._chunk_call(sample)
+            finally:
+                engine.graphs = graphs
+            if not torch.equal(got, want):
+                raise AssertionError(f"a loop chunk's tokens through its graph differ from "
+                                     f"eager ones (sampled: {sample})")
+            out["sampled" if sample else "argmax"] = True
+    return {"slots": int(got.shape[0]), "steps": int(got.shape[1]),
+            "tokens_identical": out}
 
 
 def tensor_bytes(obj) -> int:
@@ -1799,10 +1933,14 @@ def tensor_bytes(obj) -> int:
 
 
 def state_tensors(state) -> list:
-    """Every tensor of a decode state (caches, int8 scales, per-row fields)."""
+    """Every tensor of a decode state (caches, int8 scales, per-row fields,
+    sampling parameters)."""
     out = []
     for f in dataclasses.fields(state):
         v = getattr(state, f.name)
+        if dataclasses.is_dataclass(v):  # the rows' SampleParams
+            out.extend(state_tensors(v))
+            continue
         for t in (v if isinstance(v, list) else [v]):
             out.extend(t if isinstance(t, tuple) else [t] if hasattr(t, "data_ptr") else [])
     return out
@@ -1858,20 +1996,87 @@ def llama_pytree(cfg, seed: int) -> dict:
     }
 
 
-def teacher_forced(bundle, ref_model, feats, rows, max_len: int) -> dict:
-    """Hold every emitted token against an f32 forward of the plain path
-    over the prompt and the tokens emitted before it (same weights).  The
-    token must be within the tolerance of that step's best reference
-    logit; the tolerance comes from errors measured here, on the same
-    sequences: the served model's plain forward against f32 and, for the
-    int8 cache, f32 with K/V through int8 against f32."""
+def family(bundle):
+    """The model module of a generative bundle (``gpt`` or ``llama``)."""
+    from mlmicroservicetemplate_tpu_torch.models import gpt, llama
+
+    return gpt if bundle.name == "gpt2" else llama
+
+
+def step_keys(seed: int, n: int, device):
+    """A seeded row's step keys [n, 2]: the key of its step j is the second
+    half of the (j + 1)-th split of its chain."""
     import torch
 
-    from mlmicroservicetemplate_tpu_torch.models.llama import lm_logits
+    from mlmicroservicetemplate_tpu_torch.models import sampling
 
+    rng = sampling.make_params([seed], [1.0], [0], [1.0]).rng.to(device)
+    keys = []
+    for _ in range(n):
+        rng, key = sampling.row_split(rng)
+        keys.append(key)
+    return torch.cat(keys)
+
+
+def perturbed(ref, f: dict, steps, tol: float):
+    """For a sampled row: the f32 reference logits ``ref`` [L, V] at its
+    steps ``steps`` as its draws see them (temperature, top-k, top-p) plus
+    the row's Gumbel noise at those steps.  Returns (scores [L, V], the
+    temperature-scaled logits, the filter's cutoff a step, and the
+    tolerance ``tol`` in score units).  An entry within the tolerance of a
+    cutoff may fall either side of it in the served precision."""
+    import torch
+
+    from mlmicroservicetemplate_tpu_torch.models import sampling
+
+    temp = float(f["temperature"])
+    n = ref.shape[0]
+    params = [torch.full((n,), x, device=ref.device, dtype=dt) for x, dt in (
+        (temp, torch.float32), (int(f.get("top_k", 0)), torch.int32),
+        (float(f.get("top_p", 1.0)), torch.float32))]
+    z = sampling.filtered_logits(ref, *params)
+    raw = ref.float() / max(temp, 1e-6)
+    cutoff = torch.where(z > -1e8, raw, torch.full_like(raw, float("inf"))).amin(dim=-1)
+    keys = step_keys(int(f["seed"]), int(steps.max()) + 1, ref.device)[steps.to(ref.device)]
+    return raw + sampling.gumbel(keys, ref.shape[1]), raw, cutoff, tol / temp
+
+
+def sampled_gaps(ref, f: dict, toks, tol: float):
+    """Each emitted token of a sampled row against the f32 reference's
+    draw at its step: how far its perturbed score trails the best one among
+    the tokens surely inside the filter, and how far its logit falls below
+    the filter's cutoff; both must stay within the tolerance."""
+    import torch
+
+    steps = torch.arange(len(toks), device=ref.device)
+    score, raw, cutoff, tol_s = perturbed(ref, f, steps, tol)
+    t = torch.tensor(toks, device=ref.device)[:, None]
+    sure = raw >= (cutoff + tol_s)[:, None]
+    sure |= raw == raw.max(dim=-1, keepdim=True).values
+    best = torch.where(sure, score, torch.full_like(score, -float("inf"))).amax(dim=-1)
+    trail = best - score.gather(1, t)[:, 0]
+    outside = cutoff - raw.gather(1, t)[:, 0]
+    return float(torch.maximum(trail, outside).max()), tol_s
+
+
+def teacher_forced(bundle, ref_model, feats, rows, max_len: int) -> dict:
+    """Hold every emitted token against an f32 forward of the plain path
+    over the prompt and the tokens emitted before it (same weights).  A
+    greedy token must be within the tolerance of that step's best reference
+    logit.  A sampled token's draw is rebuilt from its seed and step: the
+    reference's filtered logits plus the same Gumbel noise, where its
+    perturbed score must be within the tolerance (over its temperature) of
+    the best one (``sampled_gaps``).  The tolerance comes from errors
+    measured here, on the same sequences: the served model's plain forward
+    against f32 and, for the int8 cache, f32 with K/V through int8 against
+    f32."""
+    import torch
+
+    lm_logits = family(bundle).lm_logits
     cfg = bundle.cfg
     dev = bundle.device
     gaps, err_served, err_kv8, exact, checked = [], 0.0, 0.0, 0, 0
+    sampled = []
     with torch.inference_mode():
         for f, row in zip(feats, rows):
             budget = min(int(f.get("max_tokens", max_len)), max_len)
@@ -1888,23 +2093,86 @@ def teacher_forced(bundle, ref_model, feats, rows, max_len: int) -> dict:
             if cfg.kv_quant:
                 kq = lm_logits(ref_model, ids, mask, kv_int8_roundtrip=True)[0, n - 1:]
                 err_kv8 = max(err_kv8, (kq - ref).abs().max().item())
+            checked += len(toks)
+            if float(f.get("temperature", 0.0)) > 0:
+                sampled.append((ref, f, toks))
+                continue
             t = torch.tensor(toks, device=dev)
             gap = ref.max(dim=-1).values - ref.gather(1, t[:, None])[:, 0]
             exact += int((gap == 0).sum())
-            checked += len(toks)
             gaps.append(gap.max().item())
-    tol = max(TF_FACTOR * (err_served + err_kv8), TF_FLOOR)
-    worst = max(gaps)
-    out = dict(tokens_checked=checked, argmax_equal_share=exact / max(1, checked),
-               worst_gap=worst, tol=tol, served_logit_err=err_served,
+        tol = max(TF_FACTOR * (err_served + err_kv8), TF_FLOOR)
+        worst_s, n_s = 0.0, 0
+        for ref, f, toks in sampled:
+            gap, tol_s = sampled_gaps(ref, f, toks, tol)
+            worst_s = max(worst_s, gap / tol_s)
+            n_s += len(toks)
+    worst = max(gaps) if gaps else 0.0
+    out = dict(tokens_checked=checked, greedy_tokens=checked - n_s,
+               argmax_equal_share=exact / max(1, checked - n_s), worst_gap=worst, tol=tol,
+               sampled_rows=len(sampled), sampled_tokens=n_s,
+               sampled_worst_gap_over_tol=worst_s, served_logit_err=err_served,
                kv8_logit_err=err_kv8 if cfg.kv_quant else None)
-    if worst > tol:
-        raise AssertionError(f"an emitted token trails the f32 reference: {out}")
+    if worst > tol or worst_s > 1.0:
+        raise AssertionError(f"an emitted token trails the f32 reference's draw: {out}")
     return out
 
 
-def phase_serve_llama(label: str, overrides: dict, params, ref_model, rehearsal: bool,
-                      card_line: str):
+def alone_vs_batch(bundle, ref_model, f: dict, in_batch, alone, tol: float) -> dict:
+    """A seeded sampled request's tokens served inside a full batch and
+    alone.  Identical, or they part first at a step where the f32
+    reference's two best perturbed scores (teacher-forced on the batch's
+    tokens) are within twice the tolerance: batch buckets run different
+    GEMM shapes in bf16, whose last bits may flip such a draw."""
+    import torch
+
+    a, b = [int(t) for t in alone], [int(t) for t in in_batch]
+    n = min(len(a), len(b))
+    at = next((j for j in range(n) if a[j] != b[j]), None)
+    out = {"tokens": n, "identical": at is None and len(a) == len(b)}
+    if at is None:
+        if len(a) != len(b):
+            raise AssertionError(f"alone {len(a)} tokens, in a batch {len(b)}")
+        return out
+    with torch.inference_mode():
+        prompt = [int(t) for t in f["input_ids"]]
+        ids = torch.tensor([prompt + b[:at]], dtype=torch.int32, device=bundle.device)
+        ref = family(bundle).lm_logits(ref_model, ids, torch.ones_like(ids))[0, -1:]
+        score, raw, cutoff, tol_s = perturbed(ref, f, torch.tensor([at]), tol)
+        kept = (raw >= (cutoff - tol_s)[:, None])[0]
+        top = score[0][kept].topk(2).values
+    out.update(parted_at=at, margin=float(top[0] - top[1]), tol=2 * tol_s)
+    if out["margin"] > 2 * tol_s:
+        raise AssertionError(f"a seeded request drew other tokens alone than in a batch: {out}")
+    return out
+
+
+def release(bundle) -> None:
+    """Drop a finished service's graphs from the cache and return their
+    memory (the http phase keeps the services it drives)."""
+    import torch
+
+    from mlmicroservicetemplate_tpu_torch.runtime.compile_cache import CACHE
+
+    CACHE.drop(bundle)
+    torch.cuda.empty_cache()
+
+
+def with_solo(waves) -> tuple[list, int]:
+    """``waves`` and, as a last wave of its own, the last sampled request of
+    the largest wave again; returns them and that request's index in the
+    drive's order (the solo run is the drive's last)."""
+    items = [item for wave in waves for item in wave]
+    i = max(i for i, item in enumerate(items) if item.temperature > 0)
+    return waves + [[items[i]]], i
+
+
+def phase_serve_gen(label: str, overrides: dict, params, ref_model, rehearsal: bool,
+                    card_line: str):
+    """A generative service (llama or gpt2) through ``Batcher.submit``: the
+    decode kernel's launches held against the decode steps, every token
+    teacher-forced (greedy and sampled), and the last sampled request of
+    the full wave served again alone."""
     import numpy as np
 
     from mlmicroservicetemplate_tpu_torch.ops.attention import decode_attention
@@ -1912,7 +2180,7 @@ def phase_serve_llama(label: str, overrides: dict, params, ref_model, rehearsal:
 
     cfg, bundle, engine, batcher = build_service(overrides, params=params)
     warm_s = engine.warmup()
-    waves = llama_waves(rehearsal)
+    waves, solo = with_solo(gen_waves(rehearsal))
 
     decode_attention.launches = 0
     engine.decode_steps = 0
@@ -1932,6 +2200,10 @@ def phase_serve_llama(label: str, overrides: dict, params, ref_model, rehearsal:
         if row.dtype != np.int32 or row.shape != (engine.max_decode_len,):
             raise AssertionError(f"bad token row {row!r}")
     check = teacher_forced(bundle, ref_model, feats, rows, engine.max_decode_len)
+    budget = min(int(feats[solo].get("max_tokens", engine.max_decode_len)),
+                 engine.max_decode_len)
+    alone = alone_vs_batch(bundle, ref_model, feats[solo], rows[solo][:budget],
+                           rows[-1][:budget], check["tol"])
     lat = np.array(latencies) * 1e3
     emit(
         label, device=str(bundle.device), card=card_line, layers=layers,
@@ -1939,7 +2211,8 @@ def phase_serve_llama(label: str, overrides: dict, params, ref_model, rehearsal:
         decode_steps=steps, decode_attention_launches=launches, warmup_s=warm_s,
         p50_ms=float(np.percentile(lat, 50)), p99_ms=float(np.percentile(lat, 99)),
         generated_tok_per_s=check["tokens_checked"] / wall,
-        wall_ms_per_decode_step=wall * 1e3 / steps, graph_modes=engine.graph_modes(), **check,
+        wall_ms_per_decode_step=wall * 1e3 / steps, graph_modes=engine.graph_modes(),
+        seeded_alone_vs_batch=alone, **check,
     )
     return cfg, bundle, engine, launches, gdrive, feats
 
@@ -1979,12 +2252,14 @@ async def drive_streams(batcher, bundle, waves):
 
 def phase_serve_stream(label: str, overrides: dict, params, ref_model, rehearsal: bool,
                        card_line: str, warm_loop: bool = True):
-    """Streaming llama through the continuous decode loop: every token
-    teacher-forced, the kernels' launches held against the loop's counts,
-    the paged pool back to 0 blocks; on the card, one slot-state chunk
-    timed and split by kernel.  Without ``warm_loop`` the loop is not
-    warmed (as under ``WARMUP=0``): its chunk's graph is captured at the
-    first admission, one miss in the drive."""
+    """A generative service (llama or gpt2) streaming through the continuous
+    decode loop: every token teacher-forced (greedy and sampled), the
+    kernels' launches held against the loop's counts, the paged pool back
+    to 0 blocks, the last sampled stream of the full wave streamed again
+    alone; on the card, one slot-state chunk timed and split by kernel.
+    Without ``warm_loop`` the loop is not warmed (as under ``WARMUP=0``):
+    its chunk's graphs (argmax and sampled) are captured at the first
+    admission, two misses in the drive."""
     import numpy as np
 
     from mlmicroservicetemplate_tpu_torch.ops.attention import decode_attention
@@ -1995,7 +2270,7 @@ def phase_serve_stream(label: str, overrides: dict, params, ref_model, rehearsal
     loop = batcher._cdl
     # As the app warms: every bucket's start, then the loop's chunk.
     warm_s = batcher.warm_engine() + (batcher.warm_streams() if warm_loop else 0.0)
-    waves = llama_waves(rehearsal)
+    waves, solo = with_solo(gen_waves(rehearsal))
 
     decode_attention.launches = paged_decode_attention.launches = 0
     loop.prefill_dispatches = loop.chunk_dispatches = loop.decode_steps = 0
@@ -2005,8 +2280,9 @@ def phase_serve_stream(label: str, overrides: dict, params, ref_model, rehearsal
     gdrive = graph_drive(bundle, marks, {"decode_attention": k2, "paged_decode_attention": k3})
     layers, chunk = bundle.cfg.num_layers, engine.chunk_tokens
     first_chunks = chunk * loop.prefill_dispatches
-    # Unwarmed, the chunk's capture at the first admission runs it eagerly.
-    slot_steps = loop.decode_steps + (0 if warm_loop else chunk)
+    # Unwarmed, the chunks' captures (argmax, sampled) at the first admission
+    # run one chunk each eagerly.
+    slot_steps = loop.decode_steps + (0 if warm_loop else 2 * chunk)
     if rehearsal:
         want_k2 = want_k3 = 0
     elif engine.paged_kv:
@@ -2030,6 +2306,7 @@ def phase_serve_stream(label: str, overrides: dict, params, ref_model, rehearsal
         if not 1 <= len(row) <= budget:
             raise AssertionError(f"{label}: a stream of {len(row)} tokens, budget {budget}")
     check = teacher_forced(bundle, ref_model, feats, rows, engine.max_decode_len)
+    alone = alone_vs_batch(bundle, ref_model, feats[solo], rows[solo], rows[-1], check["tol"])
     lat, ttft = np.array(latencies) * 1e3, np.array(ttfts) * 1e3
     out = dict(
         device=str(bundle.device), card=card_line, layers=layers,
@@ -2044,7 +2321,8 @@ def phase_serve_stream(label: str, overrides: dict, params, ref_model, rehearsal
         ttft_p50_ms=float(np.percentile(ttft, 50)), ttft_p99_ms=float(np.percentile(ttft, 99)),
         generated_tok_per_s=check["tokens_checked"] / wall,
         wall_ms_per_chunk_dispatch=wall * 1e3 / max(1, loop.chunk_dispatches),
-        loop_warmed=warm_loop, graph_modes=engine.graph_modes(), **check,
+        loop_warmed=warm_loop, graph_modes=engine.graph_modes(),
+        seeded_alone_vs_batch=alone, **check,
     )
     if not rehearsal:
         out["chunk"] = time_chunk(engine, loop)
@@ -2082,29 +2360,165 @@ def time_chunk(engine, loop) -> dict:
                                "attention")
 
 
-def phase_decode_step(bundle) -> None:
-    """One llama decode step at B in {1, 8, 32} over a 576-key cache,
-    eager and as a captured graph of the step over the same state, side
-    by side (37 steps in all, inside the 64 decode positions)."""
+def phase_decode_step(bundle, label: str = "decode step", batches=(1, 8, 32),
+                      prompt: int = 512, sampled: bool = False) -> None:
+    """One decode step at each batch size over a (prompt + 64)-key cache,
+    eager and as a captured graph of the step over the same state, side by
+    side (37 steps in all, inside the 64 decode positions).  With
+    ``sampled``, the sampled step too (every row at temperature 1, top_k 40,
+    top_p 0.9; its own state), and the sampler alone on [B, V] f32 logits as
+    graphs: the threefry Gumbel noise, the sort and filter, the whole
+    ``select_token`` and, for scale, the greedy argmax."""
+    import numpy as np
     import torch
 
+    from mlmicroservicetemplate_tpu_torch.models import sampling
     from mlmicroservicetemplate_tpu_torch.runtime.compile_cache import capture_graph
 
     gen = torch.Generator(device="cuda").manual_seed(3)
-    for b in (1, 8, 32):
-        # Prompt 512 + 64 decode positions = a 576-key cache.
-        ids = torch.randint(5, 261, (b, 512), device="cuda", generator=gen, dtype=torch.int32)
+    v = bundle.cfg.vocab_size
+    for b in batches:
+        ids = torch.randint(5, 261, (b, prompt), device="cuda", generator=gen, dtype=torch.int32)
         mask = torch.ones_like(ids)
-        with torch.inference_mode():
-            state = bundle.init_state(ids, mask, 64)
+        params = sampling.make_params(np.arange(b) + 7, [1.0] * b, [40] * b, [0.9] * b)
+        out = {}
+        for variant in ("greedy", "sampled") if sampled else ("greedy",):
+            sample = variant == "sampled"
+            with torch.inference_mode():
+                state = bundle.init_state(ids, mask, 64, sample=params if sample else None)
 
-            def step():
-                state.steps = 0  # the graph's steps are not counted on the host
-                return bundle.generate_chunk(state, 1)[1]
+                def step():
+                    state.steps = 0  # the graph's steps are not counted on the host
+                    return bundle.generate_chunk(state, 1, sample)[1]
 
-            entry = capture_graph("gen_chunk", step, state, "cuda")
-            out = eager_and_graph(step, entry.replay, 5, K2_KERNEL, "decode_attention")
-        emit("decode step", batch=b, cache_len=576, **out)
+                entry = capture_graph("gen_chunk", step, state, "cuda")
+                out[variant] = eager_and_graph(step, entry.replay, 5, K2_KERNEL,
+                                               "decode_attention")
+        if not sampled:
+            emit(label, batch=b, cache_len=prompt + 64, **out["greedy"])
+            continue
+        logits = torch.randn(b, v, device="cuda", generator=gen) * 3
+        sp = params.to("cuda")
+        keys = sampling.row_split(sp.rng)[1]
+        parts = {
+            "threefry_gumbel": lambda: sampling.gumbel(keys, v),
+            "sort_filter": lambda: sampling.filtered_logits(logits, sp.temperature, sp.top_k,
+                                                            sp.top_p),
+            "select_token": lambda: sampling.select_token(logits, sp)[0],
+            "argmax": lambda: logits.argmax(dim=-1),
+        }
+        sampler = {}
+        for name, fn in parts.items():
+            with torch.inference_mode():
+                e = capture_graph("sampler", fn, None, "cuda")
+                split = profile_split(e.replay, 3, r"^$", "none")
+                sampler[name] = {"graph_ms": cuda_ms(e.replay, 20),
+                                 "busy_ms": split["device_busy_ms"], "kernels": split["kernels"]}
+        g, sm = out["greedy"]["graph"], out["sampled"]["graph"]
+        emit(label, batch=b, cache_len=prompt + 64, vocab=v, **out, sampler=sampler,
+             sampled_minus_greedy_busy_ms=(sm["device_busy_ms"] - g["device_busy_ms"]
+                                           if sm["device_busy_ms"] and g["device_busy_ms"]
+                                           else None),
+             sampler_share_of_sampled_busy=(sampler["select_token"]["busy_ms"]
+                                            / sm["device_busy_ms"]
+                                            if sm["device_busy_ms"] else None))
+
+
+def phase_sampler() -> dict:
+    """The sampler on the card against the same functions on the CPU, at
+    B = 16 and GPT-2's V = 50257: the split keys, threefry bits and
+    uniforms of three chained steps equal bit for bit, the Gumbel noise
+    within GUMBEL_TOL (the two sides' log), and ``select_token`` over four
+    steps of the same f32 logits gives the same rng chains and tokens (a
+    token may differ only where the CPU's two best perturbed scores are
+    closer than twice the two sides' largest score difference)."""
+    import numpy as np
+    import torch
+
+    from mlmicroservicetemplate_tpu_torch.models import sampling
+
+    b, v = 16, GPT2_VOCAB
+    rng = np.random.default_rng(5)
+    seeds = rng.integers(0, 2**32, b).astype(np.uint32)
+    temp = np.array([0.0, 0.7, 1.0, 1.3] * 4, np.float32)
+    top_k = np.array([0, 40, 1, 0, 40, 0, 5, 0] * 2, np.int32)
+    top_p = np.array([1.0, 0.9, 1.0, 0.5] * 2 + [0.9, 1.0, 1.0, 0.9] * 2, np.float32)
+    logits = torch.from_numpy((rng.standard_normal((b, v)) * 3).astype(np.float32))
+    cpu = sampling.make_params(seeds, temp, top_k, top_p)
+    card = cpu.to("cuda")
+    rc, rg = cpu.rng, card.rng
+    gumbel_err, gumbel_equal = 0.0, []
+    for _ in range(3):
+        rc, kc = sampling.row_split(rc)
+        rg, kg = sampling.row_split(rg)
+        bc, bg = sampling.random_bits(kc, v), sampling.random_bits(kg, v)
+        uc, ug = sampling.uniforms(bc), sampling.uniforms(bg)
+        if not (torch.equal(kc, kg.cpu()) and torch.equal(bc, bg.cpu())
+                and torch.equal(uc, ug.cpu())):
+            raise AssertionError("threefry keys, bits or uniforms differ between card and CPU")
+        gc, gg = -torch.log(-torch.log(uc)), -torch.log(-torch.log(ug)).cpu()
+        gumbel_err = max(gumbel_err, float(((gc - gg).abs() / (1 + gc.abs())).max()))
+        gumbel_equal.append(float((gc == gg).float().mean()))
+    if gumbel_err > GUMBEL_TOL:
+        raise AssertionError(f"Gumbel noise differs between card and CPU by {gumbel_err}")
+    lg = logits.to("cuda")
+    parted = []
+    for step in range(4):
+        keys = sampling.row_split(cpu.rng)[1]
+        tc, cpu = sampling.select_token(logits, cpu)
+        tg, card = sampling.select_token(lg, card)
+        if not torch.equal(cpu.rng, card.rng.cpu()):
+            raise AssertionError("select_token's rng chains differ between card and CPU")
+        for r in (tc != tg.cpu()).nonzero().flatten().tolist():
+            z = [sampling.filtered_logits(x[r:r + 1], p.temperature[r:r + 1],
+                                          p.top_k[r:r + 1], p.top_p[r:r + 1]).cpu()[0]
+                 for x, p in ((logits, cpu), (lg, card))]
+            g = sampling.gumbel(keys[r:r + 1], v)[0]
+            sc, sg = z[0] + g, z[1] + g
+            both = (z[0] > -1e8) & (z[1] > -1e8)
+            margin = float(sc.topk(2).values[0] - sc.topk(2).values[1])
+            diff = float((sc - sg).abs()[both].max()) + 2 * GUMBEL_TOL * float(g.abs().max())
+            parted.append(dict(step=step, row=r, margin=margin, diff=diff))
+            if temp[r] <= 0 or margin > 2 * diff:
+                raise AssertionError(f"select_token differs between card and CPU: {parted}")
+    out = dict(batch=b, vocab=v, steps=4, keys_bits_uniforms_equal=True,
+               gumbel_max_rel_err=gumbel_err, gumbel_tol=GUMBEL_TOL,
+               gumbel_bitwise_share=min(gumbel_equal), rng_chains_equal=True,
+               tokens_parted=parted)
+    emit("sampler", **out)
+    return out
+
+
+def gpt2_pytree(cfg, seed: int) -> dict:
+    """Random weights in the JAX package's GPT-2 layout (numpy f32,
+    ``[d_in, d_out]`` kernels) at its init's scales: N(0, 0.02) token
+    table and projections, N(0, 0.01) positions, zero biases, unit
+    LayerNorm scales."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def w(std, *shape):
+        a = rng.standard_normal(shape, dtype=np.float32)
+        a *= std
+        return a
+
+    d, f = cfg.d_model, cfg.d_ff
+
+    def ln():
+        return {"scale": np.ones(d, np.float32), "bias": np.zeros(d, np.float32)}
+
+    def dense(n_in, n_out):
+        return {"kernel": w(0.02, n_in, n_out), "bias": np.zeros(n_out, np.float32)}
+
+    return {
+        "wte": {"embedding": w(0.02, cfg.vocab_size, d)},
+        "wpe": {"embedding": w(0.01, cfg.max_position, d)},
+        "layers": [{"ln1": ln(), "attn": {"qkv": dense(d, 3 * d), "out": dense(d, d)},
+                    "ln2": ln(), "mlp": {"up": dense(d, f), "down": dense(f, d)}}
+                   for _ in range(cfg.num_layers)],
+        "final_ln": ln(),
+    }
 
 
 def ndjson_text(body: str) -> dict:
@@ -2269,6 +2683,7 @@ def main(argv: list[str]) -> int:
             for name in ("fused_attention", "decode_attention", "paged_decode_attention",
                          "ring_hop"):
                 emit(f"kernel {name}", skipped="cpu rehearsal: the plain version runs")
+            emit("sampler", skipped="cpu rehearsal: no card to hold the CPU against")
             emit("kernel graphs", skipped=skip_graphs)
         else:
             phase = "build"
@@ -2276,9 +2691,11 @@ def main(argv: list[str]) -> int:
             phase = "kernel fused_attention"
             headline = phase_kernel()
             phase = "kernel decode_attention"
-            decode_headline = phase_decode_kernel()
+            decode_headline, gpt2_decode = phase_decode_kernel()
             phase = "kernel paged_decode_attention"
-            paged_headline = phase_paged_kernel()
+            paged_headline, gpt2_paged = phase_paged_kernel()
+            phase = "sampler"
+            phase_sampler()
             phase = "kernel ring_hop"
             ring_headline, ring_serving = phase_ring_kernel()
             phase = "kernel graphs"
@@ -2321,7 +2738,11 @@ def main(argv: list[str]) -> int:
                                             rehearsal)
 
         phase = "serve llama"
-        from mlmicroservicetemplate_tpu_torch.convert.jax_params import llama_params_from_jax
+        from mlmicroservicetemplate_tpu_torch.convert.jax_params import (
+            gpt_params_from_jax,
+            llama_params_from_jax,
+        )
+        from mlmicroservicetemplate_tpu_torch.models import gpt as gpt_mod
         from mlmicroservicetemplate_tpu_torch.models import llama as llama_mod
 
         device = "cpu" if rehearsal else "cuda"
@@ -2336,48 +2757,105 @@ def main(argv: list[str]) -> int:
         params = llama_pytree(lcfg, seed=0)
         ref_model = llama_mod.build_model(lcfg, llama_params_from_jax(params, lcfg),
                                           torch.device(device), torch.float32)
-        llama_svc = phase_serve_llama(phase, llama_overrides, params, ref_model,
-                                      rehearsal, card_line)
+        llama_svc = phase_serve_gen(phase, llama_overrides, params, ref_model,
+                                    rehearsal, card_line)
         phase = "graphs llama"
         graphs("llama", llama_svc[1], llama_svc[4],
                graph_vs_eager=lambda: tokens_graph_vs_eager(llama_svc[2], llama_svc[5][-16:]))
+        # The int8 services and the contiguous loop run at CUT_LAYERS layers
+        # (the whole-generation and paged-loop services keep TinyLlama's 22),
+        # with weights of their own from seed 0: a llama service's warmup
+        # captures 80 graphs, and the run must stay within its time limit.
+        cut = {**dims, "num_layers": CUT_LAYERS} if not rehearsal else dims
+        ccfg = llama_mod.LlamaConfig(**cut, eos_id=1, pad_id=0)
+        cparams = llama_pytree(ccfg, seed=0)
+        cref = llama_mod.build_model(ccfg, llama_params_from_jax(cparams, ccfg),
+                                     torch.device(device), torch.float32)
+        cut_overrides = {**llama_overrides, "LLAMA_CONFIG": json.dumps(cut)}
         phase = "serve llama int8"
-        llama8 = phase_serve_llama(
-            phase, {**llama_overrides, "QUANT_KV": "int8"}, params, ref_model, rehearsal,
-            card_line,
-        )
+        llama8 = phase_serve_gen(phase, {**cut_overrides, "QUANT_KV": "int8"}, cparams, cref,
+                                 rehearsal, card_line)
         llama8_launches = llama8[3]
         phase = "graphs llama int8"
         graphs("llama int8", llama8[1], llama8[4],
                graph_vs_eager=lambda: tokens_graph_vs_eager(llama8[2], llama8[5][-16:]))
+        release(llama8[1])
         del llama8
         # Streaming through the continuous decode loop: paged (dense, int8),
         # then contiguous slots.
-        stream_overrides = {**llama_overrides, "PAGED_KV": "1", "KV_BLOCK_SIZE": str(PAGE),
-                            "MAX_STREAMS": "16", "MAX_DECODE_LEN": "64"}
+        stream = {"PAGED_KV": "1", "KV_BLOCK_SIZE": str(PAGE), "MAX_STREAMS": "16",
+                  "MAX_DECODE_LEN": "64"}
         k2_streams = k3_streams = 0
         stream_svc = None
-        # The int8 loop runs unwarmed: its chunk is captured at the first
+        # The int8 loop runs unwarmed: its chunks are captured at the first
         # admission, before any slot is live.
-        for phase, extra, warm_loop in (
-                ("serve llama stream", {}, True),
-                ("serve llama stream int8", {"QUANT_KV": "int8"}, False),
-                ("serve llama stream contiguous", {"PAGED_KV": "0"}, True)):
-            svc = phase_serve_stream(phase, {**stream_overrides, **extra}, params, ref_model,
+        for phase, extra, warm_loop, weights in (
+                ("serve llama stream", {}, True, (llama_overrides, params, ref_model)),
+                ("serve llama stream int8", {"QUANT_KV": "int8"}, False,
+                 (cut_overrides, cparams, cref)),
+                ("serve llama stream contiguous", {"PAGED_KV": "0"}, True,
+                 (cut_overrides, cparams, cref))):
+            svc = phase_serve_stream(phase, {**weights[0], **stream, **extra}, *weights[1:],
                                      rehearsal, card_line, warm_loop)
             k2_streams += svc[3]
             k3_streams += svc[4]
-            stream_svc = stream_svc or svc
             label = phase[len("serve "):]
             phase = f"graphs {label}"
-            graphs(label, svc[1], {**svc[5], "want_misses": 0 if warm_loop else 1},
+            graphs(label, svc[1], {**svc[5], "want_misses": 0 if warm_loop else 2},
                    graph_vs_eager=lambda: chunk_graph_vs_eager(svc[2], svc[6]))
-        del ref_model, params
+            if stream_svc is None:
+                stream_svc = svc  # kept for the http phase
+            else:
+                release(svc[1])
+        del ref_model, params, cref, cparams
         if rehearsal:
             emit("decode step", skipped="cpu rehearsal: no card to profile")
         else:
             phase = "decode step"
             phase_decode_step(llama_svc[1])
+
+        # GPT-2 small at full width, random weights from seed 0, bf16: whole,
+        # then streamed through the loop (paged, then contiguous).
+        phase = "serve gpt2"
+        gcfg = gpt_mod.GPTConfig(eos_id=1, pad_id=0)
+        gparams = gpt2_pytree(gcfg, seed=0)
+        gref = gpt_mod.build_model(gcfg, gpt_params_from_jax(gparams, gcfg),
+                                   torch.device(device), torch.float32)
+        gpt2_overrides = {"MODEL_NAME": "gpt2", "DEVICE": device,
+                          "BATCH_BUCKETS": "1,2,4,8,16", "SEQ_BUCKETS": "32,64,128,256"}
+        if rehearsal:
+            gpt2_overrides.update(BATCH_BUCKETS="1,2,4", SEQ_BUCKETS="32,64",
+                                  MAX_DECODE_LEN="16")
+        gpt2_svc = phase_serve_gen(phase, gpt2_overrides, gparams, gref, rehearsal, card_line)
+        phase = "graphs gpt2"
+        graphs("gpt2", gpt2_svc[1], gpt2_svc[4],
+               graph_vs_eager=lambda: tokens_graph_vs_eager(gpt2_svc[2], gpt2_svc[5][-16:]))
+        gpt2_k2, gpt2_k3 = gpt2_svc[3], 0
+        gpt2_stream = None
+        for phase, extra in (("serve gpt2 stream", {}),
+                             ("serve gpt2 stream contiguous", {"PAGED_KV": "0"})):
+            svc = phase_serve_stream(phase, {**gpt2_overrides, "PAGED_KV": "1",
+                                             "KV_BLOCK_SIZE": str(PAGE), "MAX_STREAMS": "16",
+                                             "MAX_DECODE_LEN": "16" if rehearsal else "64",
+                                             **extra},
+                                     gparams, gref, rehearsal, card_line)
+            gpt2_k2 += svc[3]
+            gpt2_k3 += svc[4]
+            label = phase[len("serve "):]
+            phase = f"graphs {label}"
+            graphs(label, svc[1], svc[5],
+                   graph_vs_eager=lambda: chunk_graph_vs_eager(svc[2], svc[6]))
+            if gpt2_stream is None:
+                gpt2_stream = svc  # kept for the http phase
+            else:
+                release(svc[1])
+        del gref, gparams
+        if rehearsal:
+            emit("decode step gpt2", skipped="cpu rehearsal: no card to profile")
+        else:
+            phase = "decode step gpt2"
+            phase_decode_step(gpt2_svc[1], phase, batches=(1, 8, 16), prompt=256,
+                              sampled=True)
 
         phase = "http"
         try:
@@ -2395,10 +2873,23 @@ def main(argv: list[str]) -> int:
             if n_devices != long_bundle.placement.n_devices:
                 raise AssertionError(f"/status n_devices {n_devices}, placement "
                                      f"{long_bundle.placement.n_devices}")
+            chat = [{"role": "system", "content": "be brief"},
+                    {"role": "user", "content": "hello card"}]
             generated = asyncio.run(http_check(*llama_svc[:3], [
                 ("/predict", {"text": "hello card", "max_tokens": 8, "stop": ["zz"]},
                  json_key("prediction")),
                 ("/v1/completions", {"prompt": "hello card", "max_tokens": 8}, json_key("usage")),
+                ("/v1/completions", {"prompt": "hello card", "max_tokens": 8,
+                                     "temperature": 0.8, "top_k": 40, "seed": 3},
+                 json_key("usage")),
+                ("/v1/chat/completions", {"messages": chat, "max_tokens": 8},
+                 json_key("choices")),
+                ("/v1/models", None, json_key("data")),
+            ]))
+            gpt2_whole = asyncio.run(http_check(*gpt2_svc[:3], [
+                ("/v1/chat/completions", {"messages": chat, "max_tokens": 8, "temperature": 0.9,
+                                          "top_p": 0.9, "seed": 5}, json_key("choices")),
+                ("/v1/models", None, json_key("data")),
             ]))
             try:
                 import PIL  # noqa: F401  (decodes the image bodies)
@@ -2424,12 +2915,27 @@ def main(argv: list[str]) -> int:
                  ndjson_text),
                 ("/v1/completions", {"prompt": "hello card", "stream": True, "max_tokens": 12,
                                      "stream_options": {"include_usage": True}}, sse_text),
+                ("/v1/chat/completions", {"messages": chat, "stream": True, "max_tokens": 12},
+                 sse_text),
+            ]))
+            gpt2_streamed = asyncio.run(http_check(*gpt2_stream[:3], [
+                ("/predict", {"text": "hello card", "stream": True, "max_tokens": 12,
+                              "temperature": 0.8, "top_k": 40, "seed": 6}, ndjson_text),
+                ("/v1/chat/completions", {"messages": chat, "stream": True, "max_tokens": 12,
+                                          "temperature": 1.0, "seed": 7}, sse_text),
+                ("/v1/completions", {"prompt": "hello card", "stream": True, "max_tokens": 12},
+                 sse_text),
             ]))
             emit(phase, status=200, prediction=prediction,
                  bert_long_prediction=long_prediction, bert_long_n_devices=n_devices,
                  resnet50=image, llama_prediction=generated[0],
-                 llama_completion_usage=generated[1], llama_stream_predict=streamed[0],
-                 llama_stream_completions=streamed[1])
+                 llama_completion_usage=generated[1], llama_sampled_usage=generated[2],
+                 llama_chat=generated[3], llama_models=generated[4],
+                 llama_stream_predict=streamed[0], llama_stream_completions=streamed[1],
+                 llama_stream_chat=streamed[2], gpt2_chat_sampled=gpt2_whole[0],
+                 gpt2_models=gpt2_whole[1], gpt2_stream_predict_sampled=gpt2_streamed[0],
+                 gpt2_stream_chat_sampled=gpt2_streamed[1],
+                 gpt2_stream_completions=gpt2_streamed[2])
     except Exception as e:
         traceback.print_exc()
         emit(phase, ok=False, error=f"{type(e).__name__}: {e}")
@@ -2437,6 +2943,13 @@ def main(argv: list[str]) -> int:
     if rehearsal:
         print("chip_smoke: cpu rehearsal passed (no result line: nothing ran on a card)")
         return 0
+
+    def gpt2_entry(row: dict, launches: int) -> dict:
+        return {"launches": launches, "shape": row["shape"], "dtype": row["dtype"],
+                "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
+                "device_us": row["device_us"], "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_us"] / 1e3, "bound_by": row["bound_by"],
+                "library_ms": row["library_ms"]}
 
     def kernel_entry(name: str, replaces: str, launches: int, row: dict, **extra) -> dict:
         return {
@@ -2455,11 +2968,14 @@ def main(argv: list[str]) -> int:
         kernel_entry("fused_attention", "mlmicroservicetemplate_tpu/ops/attention.py:400",
                      launches, headline, tflops=headline["tflops"],
                      tflops_every_key=headline["tflops_every_key"]),
+        # launches: llama's and GPT-2's (at R = 1, beside its own case's
+        # numbers), each served path of the run.
         kernel_entry("decode_attention", "mlmicroservicetemplate_tpu/ops/attention.py:310",
-                     llama_svc[3] + llama8_launches + k2_streams, decode_headline),
+                     llama_svc[3] + llama8_launches + k2_streams + gpt2_k2, decode_headline,
+                     gpt2=gpt2_entry(gpt2_decode, gpt2_k2)),
         kernel_entry("paged_decode_attention",
                      "mlmicroservicetemplate_tpu/ops/paged_attention.py:353",
-                     k3_streams, paged_headline),
+                     k3_streams + gpt2_k3, paged_headline, gpt2=gpt2_entry(gpt2_paged, gpt2_k3)),
         # launches: the served bert-long path; the 4-shard check (a direct
         # call, no serving path) is counted apart.
         kernel_entry("ring_hop", "mlmicroservicetemplate_tpu/parallel/ring.py:58",

@@ -5,12 +5,14 @@ Request path, as in the JAX package's ``api/app.py``: parse the body (JSON
 any part with a filename, or a ``text`` part; or raw image bytes) ->
 preprocess (thread offloaded: image decode, or tokenize) -> dynamic-
 batching queue -> engine dispatch -> postprocess -> JSON.  A generative
-model also takes ``max_tokens`` and ``stop`` on ``/predict`` and answers
-``POST /v1/completions``; with ``stream: true`` both stream through the
-continuous decode loop, ``/predict`` as ndjson lines of text deltas and
-``/v1/completions`` as server-sent events ending in ``data: [DONE]``.
-``temperature > 0`` is not ported and answers 400.  Also ``/healthz``,
-``/readyz``, ``/status`` and ``/metrics``.  With ``SERVER_URL`` set, the
+model also takes ``max_tokens``, ``stop`` and the sampling fields
+(``temperature``, ``top_k``, ``top_p``, ``seed``) on ``/predict`` and
+answers ``POST /v1/completions`` and ``POST /v1/chat/completions`` (the
+message list rendered by ``CHAT_TEMPLATE``, ``api/chat.py``); with
+``stream: true`` they stream through the continuous decode loop,
+``/predict`` as ndjson lines of text deltas and the ``/v1`` routes as
+server-sent events ending in ``data: [DONE]``.  Also ``GET /v1/models``,
+``/healthz``, ``/readyz``, ``/status`` and ``/metrics``.  With ``SERVER_URL`` set, the
 app registers with its parent on startup (``api/registration.py``).  The
 ``api`` package is the only part of the port that imports aiohttp.
 """
@@ -93,10 +95,27 @@ def build_app(cfg, bundle: ModelBundle, engine, batcher: Batcher) -> web.Applica
     app[K_STATE] = {"ready_error": None, "warmup_s": None}
     app.router.add_post("/predict", handle_predict)
     app.router.add_post("/v1/completions", handle_completions)
+    app.router.add_post("/v1/chat/completions", handle_chat_completions)
+    app.router.add_get("/v1/models", handle_models)
     app.router.add_get("/healthz", handle_healthz)
     app.router.add_get("/readyz", handle_readyz)
     app.router.add_get("/status", handle_status)
     app.router.add_get("/metrics", handle_metrics)
+
+    # A misconfigured CHAT_TEMPLATE fails at startup, not as 500s once the
+    # server is ready; a tokenizer that shatters the template's markers was
+    # not tuned on it, which is logged and shown on /status.
+    from .chat import TEMPLATES, validate_chat_template
+
+    template = cfg.chat_template
+    if template not in TEMPLATES:
+        raise ValueError(f"unknown CHAT_TEMPLATE {template!r} ({'|'.join(TEMPLATES)})")
+    warnings = (validate_chat_template(template, bundle.tokenizer)
+                if bundle.kind == KIND_SEQ2SEQ else [])
+    for w in warnings:
+        log.warning("%s", w)
+    app[K_STATE]["chat_template"] = template
+    app[K_STATE]["chat_template_warnings"] = warnings
     app.on_startup.append(_on_startup)
     app.on_cleanup.append(_on_cleanup)
     return app
@@ -217,9 +236,7 @@ async def _parse_request(request: web.Request) -> RawItem:
 
 def _parse_json_item(body: dict) -> RawItem:
     """Validate a JSON /predict-shaped body into a RawItem (shared with the
-    /v1/completions translation; every failure is an HTTPBadRequest).
-    Sampling fields are validated as the JAX package does; whether they
-    can be served is the generative handlers' call (``_reject_unported``)."""
+    /v1 translations; every failure is an HTTPBadRequest)."""
     text = body.get("text") or body.get("input")
     if not isinstance(text, str) or not text:
         raise web.HTTPBadRequest(reason='JSON body needs a non-empty "text" field')
@@ -254,16 +271,8 @@ def _parse_json_item(body: dict) -> RawItem:
     ):
         raise web.HTTPBadRequest(reason='"stop" must be a non-empty string or a list of up to 8')
     return RawItem(text=text, stream=bool(body.get("stream", False)),
-                   temperature=temperature, max_tokens=max_tokens, stop=tuple(stop))
-
-
-def _reject_unported(item: RawItem) -> None:
-    """Sampling is not ported: a generative request that asks for it is
-    answered 400, never served greedy."""
-    if item.temperature > 0.0:
-        raise web.HTTPBadRequest(
-            reason="sampling (temperature > 0) is not ported yet; greedy decoding only"
-        )
+                   temperature=temperature, top_k=top_k, top_p=top_p, seed=seed,
+                   max_tokens=max_tokens, stop=tuple(stop))
 
 
 async def handle_predict(request: web.Request) -> web.Response:
@@ -275,8 +284,6 @@ async def handle_predict(request: web.Request) -> web.Response:
         item = await _parse_request(request)
         if request.query.get("stream", "") in ("1", "true"):
             item.stream = True
-        if generative:
-            _reject_unported(item)
         sched = _sched_fields(request)
     except web.HTTPBadRequest:
         metrics.REQUESTS.labels(bundle.name, "400").inc()
@@ -532,9 +539,10 @@ def _sse_frame(payload: dict) -> bytes:
 
 
 async def _sse_stream(request: web.Request, feats: dict, item: RawItem, t0: float,
-                      frames) -> web.StreamResponse:
-    """Server-sent events: ``frames(ev) -> list[bytes]`` shapes each event,
-    ``data: [DONE]`` closes the stream."""
+                      frames, preamble: bytes | None = None) -> web.StreamResponse:
+    """Server-sent events: ``preamble`` first (chat's role chunk), then
+    ``frames(ev) -> list[bytes]`` shapes each event, ``data: [DONE]``
+    closes the stream."""
     bundle: ModelBundle = request.app[K_BUNDLE]
     rid = request.get("request_id", "")
     events, stream_iter = await _open_stream(request, feats, item, t0)
@@ -545,6 +553,8 @@ async def _sse_stream(request: web.Request, feats: dict, item: RawItem, t0: floa
     resp.enable_chunked_encoding()
     await resp.prepare(request)
     try:
+        if preamble is not None:
+            await resp.write(preamble)
         async for ev in events:
             for frame in frames(ev):
                 await resp.write(frame)
@@ -614,14 +624,13 @@ async def _generate_once(request: web.Request, bundle: ModelBundle, feats: dict,
     return text, finish, n_tok
 
 
-async def handle_completions(request: web.Request) -> web.StreamResponse:
-    """``POST /v1/completions`` for generative models: the field names
-    OpenAI-style clients speak (``prompt``, ``max_tokens``, ``stop``,
-    ``stream``), served by the same batcher and engine as /predict.
-    Streaming answers with server-sent events ending in ``data: [DONE]``;
-    usage rides in them only when ``stream_options.include_usage`` asks."""
-    app = request.app
-    bundle: ModelBundle = app[K_BUNDLE]
+async def _openai_prologue(request: web.Request, to_prompt):
+    """The /v1 routes' shared start: the generative-model gate, the JSON
+    body, an explicit 400 for the OpenAI fields not served, the prompt
+    (``to_prompt(body)``: ValueError is the client's 400, LookupError the
+    server's 500), the fields carried onto /predict's validator, and the
+    preprocess.  Returns (bundle, item, feats, t0, include_usage)."""
+    bundle: ModelBundle = request.app[K_BUNDLE]
     if bundle.kind != KIND_SEQ2SEQ:
         metrics.REQUESTS.labels(bundle.name, "400").inc()
         raise web.HTTPBadRequest(reason=f"{bundle.name} is not a generative model")
@@ -633,7 +642,6 @@ async def handle_completions(request: web.Request) -> web.StreamResponse:
             raise web.HTTPBadRequest(reason="invalid JSON body") from None
         if not isinstance(body, dict):
             raise web.HTTPBadRequest(reason="invalid JSON body")
-        # Unsupported OpenAI fields get an explicit 400, not a silent drop.
         if body.get("n") not in (None, 1):
             raise web.HTTPBadRequest(reason='"n" > 1 is not supported (one choice per request)')
         if body.get("best_of") not in (None, 1):
@@ -642,30 +650,55 @@ async def handle_completions(request: web.Request) -> web.StreamResponse:
             body.get("top_logprobs") not in (None, 0)
         ):
             raise web.HTTPBadRequest(reason='"logprobs" is not supported')
-        prompt = body.get("prompt")
-        if isinstance(prompt, list):  # the API allows a singleton batch
-            prompt = prompt[0] if len(prompt) == 1 else None
-        if not isinstance(prompt, str) or not prompt:
-            raise web.HTTPBadRequest(reason='"prompt" must be a non-empty string')
+        try:
+            prompt = to_prompt(body)
+        except LookupError as e:
+            metrics.REQUESTS.labels(bundle.name, "500").inc()
+            rid = request.get("request_id", "")
+            log.error("%s (request_id=%s)", e, rid)
+            raise web.HTTPInternalServerError(
+                text=json.dumps(_error_body(type(e).__name__, str(e), rid)),
+                content_type="application/json") from None
+        except ValueError as e:
+            raise web.HTTPBadRequest(reason=str(e)) from None
         item = _parse_json_item({
             "text": prompt,
             "stream": body.get("stream", False),
             "temperature": body.get("temperature", 0.0),
-            "top_k": body.get("top_k", 0),
+            "top_k": body.get("top_k", 0),  # a common extension field
             "top_p": body.get("top_p", 1.0),
             "seed": body.get("seed"),
             "max_tokens": body.get("max_tokens"),
             "stop": body.get("stop"),
         })
-        _reject_unported(item)
         sched = _sched_fields(request)
     except web.HTTPBadRequest:
         metrics.REQUESTS.labels(bundle.name, "400").inc()
         raise
     feats = await _preprocess(request, bundle, item, sched)
-    if item.stream:
-        include_usage = bool((body.get("stream_options") or {}).get("include_usage", False))
+    # Usage rides in a stream only when the client asks
+    # (stream_options.include_usage); a whole answer always carries it.
+    include_usage = bool((body.get("stream_options") or {}).get("include_usage", False))
+    return bundle, item, feats, t0, include_usage
 
+
+async def handle_completions(request: web.Request) -> web.StreamResponse:
+    """``POST /v1/completions`` for generative models: the field names
+    OpenAI-style clients speak (``prompt``, ``max_tokens``, ``temperature``,
+    ``top_p``, ``stop``, ``stream``), served by the same batcher and engine
+    as /predict.  Streaming answers with server-sent events ending in
+    ``data: [DONE]``."""
+
+    def to_prompt(body: dict) -> str:
+        prompt = body.get("prompt")
+        if isinstance(prompt, list):  # the API allows a singleton batch
+            prompt = prompt[0] if len(prompt) == 1 else None
+        if not isinstance(prompt, str) or not prompt:
+            raise ValueError('"prompt" must be a non-empty string')
+        return prompt
+
+    bundle, item, feats, t0, include_usage = await _openai_prologue(request, to_prompt)
+    if item.stream:
         def frame(text, finish) -> dict:
             payload = {"object": "text_completion", "model": bundle.name,
                        "choices": [{"index": 0, "text": text, "finish_reason": finish}]}
@@ -694,6 +727,64 @@ async def handle_completions(request: web.Request) -> web.StreamResponse:
         "model": bundle.name,
         "choices": [{"index": 0, "text": text, "finish_reason": finish}],
         "usage": _usage(feats, n_tok),
+    })
+
+
+async def handle_chat_completions(request: web.Request) -> web.StreamResponse:
+    """``POST /v1/chat/completions``: the message list rendered into one
+    prompt by the template validated at startup (``CHAT_TEMPLATE``), served
+    as /v1/completions is, in the chat answer shapes (a stream opens with
+    the assistant's role chunk)."""
+    from .chat import render_chat
+
+    template = request.app[K_STATE]["chat_template"]
+    bundle, item, feats, t0, include_usage = await _openai_prologue(
+        request, lambda body: render_chat(body.get("messages"), template))
+    if item.stream:
+        def chunk(delta: dict, finish) -> bytes:
+            payload = {"object": "chat.completion.chunk", "model": bundle.name,
+                       "choices": [{"index": 0, "delta": delta, "finish_reason": finish}]}
+            if include_usage:
+                payload["usage"] = None
+            return _sse_frame(payload)
+
+        def frames(ev) -> list[bytes]:
+            if "delta" in ev:
+                return [chunk({"content": ev["delta"]}, None)] if ev["delta"] else []
+            out = [chunk({}, ev["finish_reason"])]
+            if include_usage:
+                out.append(_sse_frame({"object": "chat.completion.chunk", "model": bundle.name,
+                                       "choices": [], "usage": _usage(feats, ev["tokens"])}))
+            return out
+
+        return await _sse_stream(request, feats, item, t0, frames,
+                                 preamble=chunk({"role": "assistant"}, None))
+    try:
+        text, finish, n_tok = await _generate_once(request, bundle, feats, item)
+    except Exception as e:
+        return _failure(request, bundle.name, e)
+    metrics.REQUESTS.labels(bundle.name, "200").inc()
+    metrics.LATENCY.labels(bundle.name).observe(time.monotonic() - t0)
+    return web.json_response({
+        "object": "chat.completion",
+        "model": bundle.name,
+        "choices": [{"index": 0, "message": {"role": "assistant", "content": text},
+                     "finish_reason": finish}],
+        "usage": _usage(feats, n_tok),
+    })
+
+
+async def handle_models(request: web.Request) -> web.Response:
+    """OpenAI ``/v1/models``: one entry, the served model."""
+    app = request.app
+    return web.json_response({
+        "object": "list",
+        "data": [{
+            "id": app[K_BUNDLE].name,
+            "object": "model",
+            "created": int(app[K_STARTED_AT]),
+            "owned_by": "mlmicroservicetemplate-tpu",
+        }],
     })
 
 
@@ -743,6 +834,11 @@ async def handle_status(request: web.Request) -> web.Response:
     err = app[K_STATE]["ready_error"]
     if err:
         body["ready_error"] = err
+    if bundle.kind == KIND_SEQ2SEQ:
+        body["chat_template"] = app[K_STATE]["chat_template"]
+        warnings = app[K_STATE]["chat_template_warnings"]
+        if warnings:
+            body["chat_template_warnings"] = warnings
     return web.json_response(body)
 
 

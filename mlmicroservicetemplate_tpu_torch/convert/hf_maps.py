@@ -1,9 +1,16 @@
 """HuggingFace state dicts -> the JAX package's param pytree layout.
 
-A copy of the BERT and Llama parts of the JAX package's ``convert/hf_maps.py``:
+A copy of the BERT, GPT-2 and Llama parts of the JAX package's
+``convert/hf_maps.py``:
 ``MODEL_PATH`` checkpoints go HF names -> this pytree (numpy, linear
 weights transposed to ``[in, out]``) -> ``convert.jax_params``, so the
 port serves exactly the weights the JAX package serves from the same file.
+
+GPT-2's linear layers are HF ``Conv1D`` modules, stored ``[in, out]``
+already: ``gpt2_state_to_pytree`` keeps them as they are (as the JAX map
+does), and ``convert.jax_params.gpt_params_from_jax`` then transposes them
+into ``nn.Linear``'s ``[out, in]``, so a Conv1D weight reaches the port
+transposed, unlike every other family's HF linear weight.
 
 ResNet is the exception: HF's layouts (OIHW convs, ``[out, in]`` linear)
 are the port's, so ``resnet_state_to_pytree`` maps HF names straight onto
@@ -59,6 +66,33 @@ def bert_state_to_pytree(state: State, n_layers: int = 12) -> dict:
         p["pooler"] = lin("bert.pooler.dense")
     if "classifier.weight" in state:
         p["classifier"] = lin("classifier")
+    return p
+
+
+def gpt2_state_to_pytree(state: State, n_layers: int = 12) -> dict:
+    """HF ``GPT2LMHeadModel`` names (``transformer.*``) -> the JAX
+    ``models/gpt.init_params`` layout; Conv1D weights stay ``[in, out]``."""
+
+    def ln(prefix: str) -> dict:
+        return {"scale": state[f"{prefix}.weight"], "bias": state[f"{prefix}.bias"]}
+
+    def conv1d(prefix: str) -> dict:
+        return {"kernel": state[f"{prefix}.weight"], "bias": state[f"{prefix}.bias"]}
+
+    p: dict = {
+        "wte": {"embedding": state["transformer.wte.weight"]},
+        "wpe": {"embedding": state["transformer.wpe.weight"]},
+        "layers": [],
+        "final_ln": ln("transformer.ln_f"),
+    }
+    for i in range(n_layers):
+        b = f"transformer.h.{i}"
+        p["layers"].append({
+            "ln1": ln(f"{b}.ln_1"),
+            "attn": {"qkv": conv1d(f"{b}.attn.c_attn"), "out": conv1d(f"{b}.attn.c_proj")},
+            "ln2": ln(f"{b}.ln_2"),
+            "mlp": {"up": conv1d(f"{b}.mlp.c_fc"), "down": conv1d(f"{b}.mlp.c_proj")},
+        })
     return p
 
 

@@ -7,7 +7,10 @@ that pytree, given as numpy arrays, onto ``BertModel``'s state dict: each
 dense kernel is transposed into ``nn.Linear``'s ``[d_out, d_in]``; every
 other leaf passes through.  ``llama_params_from_jax`` does the same for the
 JAX llama pytree (``{"embed", "layers": [{"attn_ln", "attn", "mlp_ln",
-"mlp"}], "final_ln", "lm_head"}``) onto ``LlamaModel``, and
+"mlp"}], "final_ln", "lm_head"}``) onto ``LlamaModel``,
+``gpt_params_from_jax`` the JAX GPT-2 pytree (``{"wte", "wpe", "layers":
+[{"ln1", "attn": {"qkv", "out"}, "ln2", "mlp": {"up", "down"}}],
+"final_ln"}``) onto ``GPTModel``, and
 ``resnet_params_from_jax`` the JAX ResNet pytree (HWIO conv kernels, BN
 ``scale``/``bias``/``mean``/``var``) onto ``ResNet``, each conv kernel
 permuted to OIHW.  All raise on a missing leaf, an unused leaf or a shape
@@ -23,9 +26,10 @@ import numpy as np
 import torch
 
 from ..models.bert import BertConfig, BertModel
-from ..models.gpt import PagedState
+from ..models.gpt import GPTConfig, GPTModel, PagedState
 from ..models.llama import LlamaConfig, LlamaModel
 from ..models.resnet import ResNet, ResNetConfig
+from ..models.sampling import SampleParams
 
 # JAX layout -> the port's: a dense kernel [in, out] -> [out, in], a conv
 # kernel HWIO -> OIHW.
@@ -70,6 +74,20 @@ def _llama_jax_name(port_name: str) -> tuple[str, tuple[int, ...] | None]:
     return f"{mod}.kernel", DENSE
 
 
+def _gpt_jax_name(port_name: str) -> tuple[str, tuple[int, ...] | None]:
+    """As ``_jax_name``, for ``GPTModel``: LayerNorm weights are JAX
+    ``scale`` leaves, the two tables ``embedding`` leaves, every other
+    weight a transposed ``kernel``."""
+    mod, _, leaf = port_name.rpartition(".")
+    if mod in ("wte", "wpe"):
+        return f"{mod}.embedding", None
+    if mod.endswith(("ln1", "ln2")) or mod == "final_ln":
+        return f"{mod}.{'scale' if leaf == 'weight' else 'bias'}", None
+    if leaf == "weight":
+        return f"{mod}.kernel", DENSE
+    return port_name, None
+
+
 def _resnet_jax_name(port_name: str) -> tuple[str, tuple[int, ...] | None]:
     """As ``_jax_name``, for ``ResNet``: the module paths are the JAX
     pytree's; a ``weight`` is a ``kernel`` (the classifier's dense, every
@@ -94,6 +112,14 @@ def llama_params_from_jax(pytree, cfg: LlamaConfig) -> dict[str, torch.Tensor]:
     with torch.device("meta"):
         expected = LlamaModel(cfg).state_dict()
     return _from_jax(pytree, expected, _llama_jax_name, "llama", cfg)
+
+
+def gpt_params_from_jax(pytree, cfg: GPTConfig) -> dict[str, torch.Tensor]:
+    """The JAX GPT-2 param pytree (numpy leaves) as ``GPTModel``'s state
+    dict, f32 on the CPU."""
+    with torch.device("meta"):
+        expected = GPTModel(cfg).state_dict()
+    return _from_jax(pytree, expected, _gpt_jax_name, "GPT-2", cfg)
 
 
 def resnet_params_from_jax(pytree, cfg: ResNetConfig) -> dict[str, torch.Tensor]:
@@ -136,8 +162,8 @@ def paged_state_from_jax(state) -> PagedState:
     """A JAX ``PagedState`` (numpy leaves; pools ``[NB, BS, KVH, D]``, int8
     pools as ``(payload, scale)``) as the port's, on the CPU: each pool
     gains the port's scratch block ``NB`` (zeros; scale pools ones), the
-    per-row indices become int64 and the sampling field is dropped
-    (greedy decoding only)."""
+    per-row indices become int64 and the sampling field becomes the port's
+    ``SampleParams`` (u32 key words in int64)."""
 
     def pool(x, fill):
         x = torch.from_numpy(np.array(x))
@@ -161,4 +187,6 @@ def paged_state_from_jax(state) -> PagedState:
         last_token=t(state.last_token, torch.long),
         done=t(state.done, torch.bool),
         tokens=t(state.tokens, torch.int32),
+        sample=SampleParams(t(state.sample.rng, torch.long), t(state.sample.temperature),
+                            t(state.sample.top_k), t(state.sample.top_p)),
     )

@@ -25,12 +25,18 @@ not ported), the same functions run eagerly; ``graph_modes`` says which.
   package.
 - Generation (``KIND_SEQ2SEQ``): ``start`` (prefill plus the first
   decode chunk, one graph per bucket as the JAX package's fused ``start``
-  executable), then greedy decode in chunks of ``STREAM_CHUNK_TOKENS``
-  steps (``gen_chunk``, one graph per bucket over the state ``start``
-  wrote, updated in place).  After each chunk the engine reads once from
-  the device whether every row is done (EOS, or its ``max_tokens``
-  budget), the host-side counterpart of the JAX package's done-aware
-  ``while_loop``; rows come back pad-filled to ``max_decode_len``.
+  executable), then decode in chunks of ``STREAM_CHUNK_TOKENS`` steps
+  (``gen_chunk``, one graph per bucket over the state ``start`` wrote,
+  updated in place).  Each request's sampling fields become per-row
+  ``SampleParams`` (``_collate_sample``; bucket-padding rows greedy); a
+  batch with a sampled row runs the sampled variant of both graphs (the
+  JAX package's static ``sample=True`` executables, keyed apart here by
+  ``sample`` in the descriptor), an all-greedy batch the argmax one.
+  Warmup captures both variants unless ``WARMUP_SAMPLING=0``.  After each
+  chunk the engine reads once from the device whether every row is done
+  (EOS, or its ``max_tokens`` budget), the host-side counterpart of the JAX
+  package's done-aware ``while_loop``; rows come back pad-filled to
+  ``max_decode_len``.
 - Streaming generation runs in the continuous decode loop
   (``engine/streams.py``), which admits a wave of streams through
   ``start`` (prefill plus the first chunk, fused as in the JAX package)
@@ -43,12 +49,14 @@ from __future__ import annotations
 
 import logging
 import math
+import random
 import threading
 
 import numpy as np
 import torch
 
 from ..models.registry import KIND_IMAGE, KIND_SEQ2SEQ, KIND_TEXT, ModelBundle, decode_budget
+from ..models.sampling import SampleParams, greedy_params, make_params
 from ..runtime import compile_cache
 from ..utils import tracing
 from .kv_blocks import BlockPool, blocks_for, kv_token_bytes
@@ -172,12 +180,15 @@ class InferenceEngine:
         mode = "graph" if self.graphs is not None else f"eager: {self.eager_reason}"
         return {kind: mode for kind in kinds.get(self.bundle.kind, ())}
 
-    def _graph(self, kind: str, descriptor: tuple, make) -> compile_cache.GraphEntry:
-        """This bundle's graph of ``kind`` for ``descriptor`` (captured from
-        ``make()`` on a miss); the caller holds ``_lock``."""
+    def _graph(self, kind: str, shape: tuple, sample: bool | None,
+               make) -> compile_cache.GraphEntry:
+        """This bundle's graph of ``kind`` for a bucket ``shape`` (a
+        generation's: its greedy or ``sample`` variant), captured from
+        ``make()`` on a miss; the caller holds ``_lock``."""
         dtype = str(self.bundle.policy.compute_dtype).split(".")[-1]
         quant = "int8" if getattr(self.bundle.cfg, "kv_quant", False) else "none"
-        return self.graphs.get(self.bundle, kind, (*descriptor, dtype, quant),
+        variant = () if sample is None else ("sample" if sample else "greedy",)
+        return self.graphs.get(self.bundle, kind, (*shape, *variant, dtype, quant),
                                self.placement_key, make)
 
     def _forward_images(self, images: torch.Tensor) -> np.ndarray:
@@ -185,7 +196,7 @@ class InferenceEngine:
             if self.graphs is None:
                 logits = self.bundle.forward(images.to(self.device, non_blocking=True))
             else:
-                entry = self._graph("forward_images", tuple(images.shape),
+                entry = self._graph("forward_images", tuple(images.shape), None,
                                     lambda: self._make_images(tuple(images.shape)))
                 entry.inputs.copy_(images, non_blocking=True)
                 entry.replay()
@@ -219,6 +230,30 @@ class InferenceEngine:
                              self.max_decode_len)
         return budgets
 
+    def _collate_sample(self, feats: list[dict], bsz: int) -> tuple[SampleParams, bool]:
+        """Per-row ``SampleParams`` (on the CPU) from the request fields;
+        bucket-padding rows are greedy.  Returns them and whether any row
+        samples, which picks the sampled graphs (an all-greedy batch never
+        pays the per-step sort and threefry)."""
+        temp = np.zeros(bsz, np.float32)
+        top_k = np.zeros(bsz, np.int32)
+        top_p = np.ones(bsz, np.float32)
+        seed = np.zeros(bsz, np.uint32)
+        sampled = False
+        for i, f in enumerate(feats):
+            t = float(f.get("temperature", 0.0))
+            temp[i] = t
+            if t > 0.0:
+                sampled = True
+                top_k[i] = int(f.get("top_k", 0))
+                top_p[i] = float(f.get("top_p", 1.0))
+                s = f.get("seed")
+                # Unseeded sampled requests must differ from each other; the
+                # mask keeps one bad row from failing a shared batch.
+                s = int(s) if s is not None else random.getrandbits(32)
+                seed[i] = np.uint32(s & 0xFFFFFFFF)
+        return make_params(seed, temp, top_k, top_p), sampled
+
     def _shards(self, a: np.ndarray) -> list[np.ndarray]:
         """A [B, S] host array as the placement's sequence shards (one
         shard without a placement)."""
@@ -228,7 +263,8 @@ class InferenceEngine:
     def _forward(self, ids: np.ndarray, mask: np.ndarray) -> np.ndarray:
         with self._lock, torch.inference_mode():
             if self.graphs is not None:
-                entry = self._graph("forward", ids.shape, lambda: self._make_forward(ids.shape))
+                entry = self._graph("forward", ids.shape, None,
+                                    lambda: self._make_forward(ids.shape))
                 for static, host in zip(entry.inputs, (ids, mask)):
                     for dst, part in zip(static, self._shards(host)):
                         dst.copy_(torch.from_numpy(np.ascontiguousarray(part)),
@@ -256,32 +292,34 @@ class InferenceEngine:
             return (lambda: self.bundle.forward(ids, mask)), (ids, mask), self.device
         return (lambda: self.bundle.forward(ids[0], mask[0])), (ids, mask), self.device
 
-    def _make_start(self, shape: tuple):
-        """Static [B, S] ids and mask, and prefill plus the first chunk over
-        them; the outputs are (state, tokens [B, chunk])."""
+    def _make_start(self, shape: tuple, sample: bool):
+        """Static [B, S] ids and mask and per-row ``SampleParams``, and
+        prefill plus the first chunk over them (``sample``: the sampled
+        variant); the outputs are (state, tokens [B, chunk])."""
         ids, mask = (torch.ones(shape, dtype=torch.int32, device=self.device) for _ in range(2))
+        sp = greedy_params(shape[0], self.device)
 
         def start():
-            state = self.bundle.init_state(ids, mask, self.max_decode_len)
-            return self.bundle.generate_chunk(state, self.chunk_tokens)
+            state = self.bundle.init_state(ids, mask, self.max_decode_len, sample=sp)
+            return self.bundle.generate_chunk(state, self.chunk_tokens, sample)
 
-        return start, (ids, mask), self.device
+        return start, (ids, mask, sp), self.device
 
-    def _make_gen_chunk(self, shape: tuple):
-        """One decode chunk over the state of the bucket's ``start`` graph,
-        which is replayed first, so the eager warm run reads a real state;
-        the output is the chunk's tokens."""
-        entry = self._graph("start", shape, lambda: self._make_start(shape))
+    def _make_gen_chunk(self, shape: tuple, sample: bool):
+        """One decode chunk over the state of the bucket's ``start`` graph
+        of the same variant, which is replayed first, so the eager warm run
+        reads a real state; the output is the chunk's tokens."""
+        entry = self._graph("start", shape, sample, lambda: self._make_start(shape, sample))
         entry.replay()
         state = entry.outputs[0]
 
         def chunk():
             state.steps = self.chunk_tokens  # as after start
-            return self.bundle.generate_chunk(state, self.chunk_tokens)[1]
+            return self.bundle.generate_chunk(state, self.chunk_tokens, sample)[1]
 
         return chunk, state, self.device
 
-    def _start(self, ids: np.ndarray, mask: np.ndarray):
+    def _start(self, ids: np.ndarray, mask: np.ndarray, sp: SampleParams, sample: bool):
         """Prefill plus the first decode chunk of a collated batch; returns
         (state, tokens [B, chunk]).  On the card the state is the bucket's
         static one, valid until the next replay.  The caller holds
@@ -289,30 +327,33 @@ class InferenceEngine:
         if self.graphs is None:
             state = self.bundle.init_state(torch.from_numpy(ids).to(self.device),
                                            torch.from_numpy(mask).to(self.device),
-                                           self.max_decode_len)
-            return self.bundle.generate_chunk(state, self.chunk_tokens)
-        entry = self._graph("start", ids.shape, lambda: self._make_start(ids.shape))
+                                           self.max_decode_len, sample=sp.to(self.device))
+            return self.bundle.generate_chunk(state, self.chunk_tokens, sample)
+        entry = self._graph("start", ids.shape, sample,
+                            lambda: self._make_start(ids.shape, sample))
         for dst, host in zip(entry.inputs, (ids, mask)):
             dst.copy_(torch.from_numpy(host), non_blocking=True)
+        entry.inputs[2].copy_(sp)
         entry.replay()
         state, toks = entry.outputs
         state.steps = self.chunk_tokens
         return state, toks
 
-    def _generate(self, ids: np.ndarray, mask: np.ndarray,
-                  budgets: np.ndarray) -> tuple[np.ndarray, int]:
-        """Prefill plus chunked greedy decode of one batch; returns the
-        token rows [B, max_decode_len] int32 and the decode steps run.
-        Bucket-padding rows (all-zero mask) count as done from the start
-        (``init_state``), or no padded batch could stop early."""
+    def _generate(self, ids: np.ndarray, mask: np.ndarray, budgets: np.ndarray,
+                  sp: SampleParams, sample: bool) -> tuple[np.ndarray, int]:
+        """Prefill plus chunked decode of one batch (``sample``: the sampled
+        variant); returns the token rows [B, max_decode_len] int32 and the
+        decode steps run.  Bucket-padding rows (all-zero mask) count as
+        done from the start (``init_state``), or no padded batch could stop
+        early."""
         with self._lock, torch.inference_mode():
             chunk = None
             if self.graphs is not None and self.max_decode_len > self.chunk_tokens:
                 # Before start replays: a first capture replays start itself.
-                chunk = self._graph("gen_chunk", ids.shape,
-                                    lambda: self._make_gen_chunk(ids.shape))
+                chunk = self._graph("gen_chunk", ids.shape, sample,
+                                    lambda: self._make_gen_chunk(ids.shape, sample))
             budgets_t = torch.from_numpy(budgets).to(self.device)
-            state, _ = self._start(ids, mask)
+            state, _ = self._start(ids, mask, sp, sample)
             steps = self.chunk_tokens
             while True:
                 self.decode_steps += self.chunk_tokens
@@ -321,7 +362,7 @@ class InferenceEngine:
                 if steps >= self.max_decode_len or bool(state.done.all()):
                     break
                 if chunk is None:
-                    self.bundle.generate_chunk(state, self.chunk_tokens)
+                    self.bundle.generate_chunk(state, self.chunk_tokens, sample)
                 else:
                     chunk.replay()
                 steps += self.chunk_tokens
@@ -331,12 +372,14 @@ class InferenceEngine:
 
     def start(self, feats: list[dict]):
         """Prefill plus the first decode chunk of a wave of streams,
-        collated as one batch at the wave's widest bucket; returns (state,
-        tokens [B, chunk], collated width).  The caller holds ``_lock``
-        inside ``torch.inference_mode`` until it has read the state, which
-        on the card the bucket's next ``start`` overwrites."""
+        collated as one batch at the wave's widest bucket (sampled if any
+        row samples); returns (state, tokens [B, chunk], collated width).
+        The caller holds ``_lock`` inside ``torch.inference_mode`` until it
+        has read the state, which on the card the bucket's next ``start``
+        overwrites."""
         ids, mask, _ = self._collate_text(feats)
-        state, toks = self._start(ids, mask)
+        sp, sampled = self._collate_sample(feats, ids.shape[0])
+        state, toks = self._start(ids, mask, sp, sampled)
         return state, toks, ids.shape[1]
 
     def run_batch(self, feats: list[dict]) -> list[np.ndarray]:
@@ -359,7 +402,8 @@ class InferenceEngine:
         with tracing.span("dispatch", cat="engine", batch=ids.shape[0], seq=ids.shape[1], n=n):
             if self.bundle.kind == KIND_SEQ2SEQ:
                 rows, self.last_decode_steps = self._generate(
-                    ids, mask, self._collate_budget(feats, ids.shape[0])
+                    ids, mask, self._collate_budget(feats, ids.shape[0]),
+                    *self._collate_sample(feats, ids.shape[0]),
                 )
             else:
                 rows = self._forward(ids, mask)
@@ -368,10 +412,12 @@ class InferenceEngine:
     def warmup(self) -> float:
         """Every (batch, seq) bucket once (an image model: every batch
         bucket): on the card its graphs captured (a generative model's
-        ``start`` and ``gen_chunk``), on the CPU its functions run; returns
-        the seconds taken.  A failed capture raises."""
+        ``start`` and ``gen_chunk``, greedy and, unless
+        ``WARMUP_SAMPLING=0``, sampled), on the CPU its functions run;
+        returns the seconds taken.  A failed capture raises."""
         image = self.bundle.kind == KIND_IMAGE
         captured = self.graphs.stats()["insert"] if self.graphs is not None else 0
+        variants = (False, True) if self.cfg.warmup_sampling else (False,)
         with compile_cache.warm_phase(self.bundle.name, "engine") as phase:
             for b in self.batch_buckets:
                 if image:
@@ -384,13 +430,17 @@ class InferenceEngine:
                         self._forward(ids, ids)
                         continue
                     with self._lock, torch.inference_mode():
-                        if self.graphs is None:
-                            self._start(ids, ids)
-                            continue
-                        self._graph("start", ids.shape, lambda: self._make_start(ids.shape))
-                        if self.max_decode_len > self.chunk_tokens:
-                            self._graph("gen_chunk", ids.shape,
-                                        lambda: self._make_gen_chunk(ids.shape))
+                        for sample in variants:
+                            if self.graphs is None:
+                                sp, _ = self._collate_sample(
+                                    [{"temperature": 1.0, "seed": 0}] * b if sample else [], b)
+                                self._start(ids, ids, sp, sample)
+                                continue
+                            self._graph("start", ids.shape, sample,
+                                        lambda: self._make_start(ids.shape, sample))
+                            if self.max_decode_len > self.chunk_tokens:
+                                self._graph("gen_chunk", ids.shape, sample,
+                                            lambda: self._make_gen_chunk(ids.shape, sample))
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         n_seq = 1 if image else len(self.seq_buckets)

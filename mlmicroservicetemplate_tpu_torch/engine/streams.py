@@ -1,7 +1,7 @@
 """Continuous batching for streaming generation.
 
 Counterpart of the JAX package's ``engine/streams.py``
-(``ContinuousDecodeLoop``), cut to the greedy path.  One loop thread owns
+(``ContinuousDecodeLoop``).  One loop thread owns
 a batched decode state of ``MAX_STREAMS`` rows ("slots").  At every chunk
 boundary it admits the waiting streams as one wave (one prefill plus the
 first decode chunk for the whole wave, ``InferenceEngine.start``), copies
@@ -10,6 +10,13 @@ every live slot and routes each row's tokens to its stream; a stream that
 hits EOS or its budget frees its slot.  One chunk stays in flight: chunk
 N+1 is dispatched before chunk N's tokens and ``done`` flags are read to
 the host, once per chunk.
+
+Sampling: each slot row carries its stream's ``SampleParams`` (copied in
+at insert with the rest of the row, the rng chain as the wave's first
+chunk left it), and the loop runs the sampled variant of its chunk while
+any live slot samples (``sampled_slots``), the argmax one otherwise; a
+seeded stream draws the same tokens whichever slots it shares the state
+with.
 
 KV layouts, as in the reference:
 - contiguous (``PAGED_KV=0``): every slot holds ``[largest seq bucket +
@@ -39,7 +46,8 @@ and over a static ``[n_slots, nb_max]`` copy of the block table written
 before each replay.  The graph is captured when the slot state is
 allocated, every slot dead (whether or not the service warmed up): the
 capture's eager run advances the rows it runs over, which a live stream
-must not see.  The host copy of a chunk's tokens and ``done`` flags
+must not see; both variants (argmax and sampled) are captured then.  The
+host copy of a chunk's tokens and ``done`` flags
 is enqueued right after its replay, before the next one.  A wave's
 prefill runs the bucket's ``start`` graph, whose static state the next
 ``start`` overwrites, so the loop holds the engine's ``_lock`` from the
@@ -70,6 +78,7 @@ import numpy as np
 import torch
 
 from ..models.gpt import GPTState, PagedState
+from ..models.sampling import greedy_params
 from ..ops.paged_attention import scatter_pages
 from ..runtime import compile_cache
 from ..scheduler.policy import QueueFullError, StreamQueue
@@ -79,9 +88,6 @@ from .kv_blocks import OutOfBlocks, StreamBlocks
 log = logging.getLogger(__name__)
 
 _END = object()
-# An idle loop waits this long for the rest of a concurrent burst before
-# admitting the wave (the reference's ADMIT_GRACE_MS default).
-ADMIT_GRACE_S = 0.008
 
 
 class StreamClosedError(Exception):
@@ -160,8 +166,14 @@ class ContinuousDecodeLoop:
             # A free slot's row names the sentinel id (== pool size).
             self._table = np.full((self.n_slots, self.nb_max), self.pool.num_blocks, np.int32)
             self._dispatched_steps: dict[int, int] = {}
+        # An idle loop waits this long for the rest of a concurrent burst
+        # before admitting the wave (ADMIT_GRACE_MS).
+        self.admit_grace_s = float(getattr(cfg, "admit_grace_ms", 8.0)) / 1e3
         self.queue = StreamQueue(self.max_streams)
         self.active: dict[int, _Stream] = {}
+        # Live slots whose stream samples: the loop runs the sampled chunk
+        # while this is non-empty.
+        self.sampled_slots: set[int] = set()
         self.free: list[int] = list(range(self.n_slots))
         # The slot state (loop-thread-owned; built once, reset in place) and,
         # paged, the block table's device copy.
@@ -315,7 +327,7 @@ class ContinuousDecodeLoop:
                 if wave and not self.active and not self._inflight:
                     # Idle: give the rest of a concurrent burst a moment to
                     # arrive, so it prefills as one wave.
-                    deadline = time.monotonic() + ADMIT_GRACE_S
+                    deadline = time.monotonic() + self.admit_grace_s
                     while len(wave) < self.n_slots:
                         remaining = deadline - time.monotonic()
                         if remaining <= 0:
@@ -388,6 +400,7 @@ class ContinuousDecodeLoop:
     def _free_slot(self, slot: int) -> None:
         st = self.active.pop(slot, None)
         self.free.append(slot)
+        self.sampled_slots.discard(slot)
         self._release_blocks(slot, st)
         if st is not None:
             self._release(st)
@@ -478,15 +491,17 @@ class ContinuousDecodeLoop:
                 self._finish(st, e)
                 continue
             self.active[slot] = st
+            if float(st.feats.get("temperature", 0.0)) > 0.0:
+                self.sampled_slots.add(slot)
 
     def _build_empty_state(self) -> None:
         """Every slot dead: zeroed caches (paged: ``num_blocks`` pool
         blocks plus the scratch block, int8 scale pools of ones) and
-        per-row fields at the slot count.  Allocated once, and on the card
-        the chunk's graph captured over it then, while no slot is live
-        (the caller holds the engine's lock); later calls (a failed
-        dispatch) reset the same tensors in place, which the graph reads
-        and writes."""
+        per-row fields at the slot count, every row greedy.  Allocated
+        once, and on the card the chunk's graphs (argmax and sampled)
+        captured over it then, while no slot is live (the caller holds the
+        engine's lock); later calls (a failed dispatch) reset the same
+        tensors in place, which the graphs read and write."""
         eng = self.engine
         cfg = eng.bundle.cfg
         dev = eng.device
@@ -511,6 +526,7 @@ class ContinuousDecodeLoop:
                 t.zero_()
             st.done.fill_(True)
             st.tokens.fill_(cfg.pad_id)
+            st.sample.copy_(greedy_params(n, dev))
             self._state_stale = False
             return
 
@@ -532,6 +548,7 @@ class ContinuousDecodeLoop:
             done=torch.ones(n, dtype=torch.bool, device=dev),
             tokens=torch.full((n, eng.max_decode_len), cfg.pad_id, dtype=torch.int32,
                               device=dev),
+            sample=greedy_params(n, dev),
         )
         self._state = PagedState(**fields) if self.paged else GPTState(**fields, steps=None)
         self._state_stale = False
@@ -540,7 +557,8 @@ class ContinuousDecodeLoop:
             self._note_pool()
         if eng.graphs is not None:
             try:
-                self.chunk_graph()
+                self.chunk_graph(False)
+                self.chunk_graph(True)
             except BaseException:
                 self._state = None  # the next admission allocates and captures anew
                 raise
@@ -555,6 +573,8 @@ class ContinuousDecodeLoop:
             d[slot, s.shape[1]:] = 0
         for name in ("write_idx", "pos", "last_token", "done"):
             getattr(dst, name)[slot] = getattr(single, name)[row]
+        for d, s in zip(dst.sample.fields(), single.sample.fields()):
+            d[slot] = s[row]
 
     def _insert(self, single: GPTState, slot: int, row: int) -> None:
         """Contiguous insert: one wave row of the prefill state into one
@@ -627,47 +647,48 @@ class ContinuousDecodeLoop:
         if grew:
             self._note_pool()
 
-    def _chunk_call(self):
+    def _chunk_call(self, sample: bool = False):
         """One decode chunk over the whole slot state (caller holds the
-        engine's lock): the block table copied to its device buffer, then
-        the chunk's graph replayed (on the CPU: the chunk run); returns
-        (state, tokens [n_slots, chunk])."""
+        engine's lock; ``sample``: the sampled variant): the block table
+        copied to its device buffer, then the chunk's graph replayed (on
+        the CPU: the chunk run); returns (state, tokens [n_slots, chunk])."""
         eng = self.engine
         if self.paged:
             self._table_dev.copy_(torch.from_numpy(self._table), non_blocking=True)
         if eng.graphs is None:
             if self.paged:
-                return eng.bundle.paged_chunk(self._state, self._table_dev, self.chunk)
-            return eng.bundle.generate_chunk(self._state, self.chunk)
-        entry = self.chunk_graph()
+                return eng.bundle.paged_chunk(self._state, self._table_dev, self.chunk, sample)
+            return eng.bundle.generate_chunk(self._state, self.chunk, sample)
+        entry = self.chunk_graph(sample)
         entry.replay()
         return self._state, entry.outputs
 
-    def chunk_graph(self) -> compile_cache.GraphEntry:
-        """The graph of one chunk over this loop's slot state (captured on
-        the first call): its descriptor holds the slot state's token, so
-        no other loop's state aliases it."""
+    def chunk_graph(self, sample: bool = False) -> compile_cache.GraphEntry:
+        """The graph of one chunk over this loop's slot state, argmax or
+        ``sample`` (captured on the first call): its descriptor holds the
+        slot state's token, so no other loop's state aliases it."""
         eng = self.engine
         cfg = eng.bundle.cfg
         kind = "loop_chunk_paged" if self.paged else "loop_chunk"
         shape = ((self.pool.num_blocks, self.block_size, self.nb_max) if self.paged
                  else (self.max_prompt + eng.max_decode_len,))
-        descriptor = (self.n_slots, *shape, self.chunk,
+        descriptor = (self.n_slots, *shape, self.chunk, "sample" if sample else "greedy",
                       str(eng.bundle.policy.compute_dtype).split(".")[-1],
                       "int8" if cfg.kv_quant else "none", compile_cache.fingerprint(self))
-        return eng.graphs.get(eng.bundle, kind, descriptor, eng.placement_key, self._make_chunk)
+        return eng.graphs.get(eng.bundle, kind, descriptor, eng.placement_key,
+                              lambda: self._make_chunk(sample))
 
-    def _make_chunk(self):
+    def _make_chunk(self, sample: bool):
         if self.active:
             raise RuntimeError(f"{self.model}: the loop chunk's capture would advance "
                                f"{len(self.active)} live streams")
         eng, state, table = self.engine, self._state, self._table_dev
         if self.paged:
             def chunk():
-                return eng.bundle.paged_chunk(state, table, self.chunk)[1]
+                return eng.bundle.paged_chunk(state, table, self.chunk, sample)[1]
         else:
             def chunk():
-                return eng.bundle.generate_chunk(state, self.chunk)[1]
+                return eng.bundle.generate_chunk(state, self.chunk, sample)[1]
         return chunk, (state, table), eng.device
 
     def _dispatch_chunk(self) -> None:
@@ -676,7 +697,7 @@ class ContinuousDecodeLoop:
             if self.paged:
                 self._grow_for_dispatch()
             with self.engine._lock:
-                self._state, toks = self._chunk_call()
+                self._state, toks = self._chunk_call(bool(self.sampled_slots))
                 copy = _HostCopy(toks, self._state.done)
         self.chunk_dispatches += 1
         self.decode_steps += self.chunk

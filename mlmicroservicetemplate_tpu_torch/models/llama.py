@@ -1,7 +1,7 @@
 """Llama-family decoder (RoPE, grouped-query attention, SwiGLU), KV-cached.
 
-Counterpart of the JAX package's ``models/llama.py`` for greedy
-generation: pre-norm RMSNorm blocks, rotary embeddings (HF rotate-half)
+Counterpart of the JAX package's ``models/llama.py``, greedy or sampled
+per row (``models/sampling.py``): pre-norm RMSNorm blocks, rotary embeddings (HF rotate-half)
 applied before K is cached, GQA (K/V kept at KV-head width; query head h
 reads KV head h // R), SwiGLU MLP, no biases, untied LM head.  Defaults
 are TinyLlama-1.1B.
@@ -16,11 +16,12 @@ Unlike the JAX package's immutable arrays, the KV cache is preallocated
 at ``[B, S + max_len, KVH, D]`` per layer (int8 payload plus a
 ``[B, S + max_len, KVH, 1]`` scale under ``kv_quant``) and every decode
 step writes its K/V row, the key-validity bit, its token and the per-row
-fields (``write_idx``, ``pos``, ``last_token``, ``done``) in place, so a
+fields (``write_idx``, ``pos``, ``last_token``, ``done``, the sampling
+chains) in place, so a
 CUDA graph of a chunk replays over the same state.
 The continuous loop's freed rows keep stepping until their slot is
 reused; their writes past a width land in the row's own last column
-(``_write_at``), where the reference's ``mode="drop"`` drops them.
+(``gpt.write_at``), where the reference's ``mode="drop"`` drops them.
 
 Paged decode (``PAGED_KV=1``, the continuous loop) keeps the same step
 over a ``gpt.PagedState``: K/V rows go to a block pool through a block
@@ -36,8 +37,6 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import decode_attention
-from ..ops.paged_attention import paged_decode_attention
 from .common import (
     dense,
     embed,
@@ -49,7 +48,19 @@ from .common import (
     rmsnorm,
     split_heads,
 )
-from .gpt import GPTState, PagedState, paged_dest, paged_write_token
+from .gpt import (
+    GPTState,
+    PagedState,
+    cache_dtype,
+    contiguous_io,
+    finish_step,
+    paged_io,
+    prefill_caches,
+    row_fields,
+    run_steps,
+    write_at,
+)
+from .sampling import SampleParams
 
 
 @dataclasses.dataclass(frozen=True)
@@ -234,101 +245,40 @@ def init_decode_state(
     attention_mask: torch.Tensor,  # [B, S]
     max_len: int,
     dtype: torch.dtype = torch.float32,
+    sample: SampleParams | None = None,
 ) -> GPTState:
-    """Prefill, then the preallocated cache and the per-row state.
+    """Prefill, then the preallocated cache and the per-row state
+    (``sample``: per-row sampling parameters, copied; None = greedy).
 
     As in the JAX package, ``write_idx`` starts at the last prompt token:
     the first decode step embeds it again and rewrites its K/V row."""
     cfg = model.cfg
     b, s = input_ids.shape
-    dev = input_ids.device
     total = s + max_len
-    shape = (b, total, cfg.num_kv_heads, cfg.head_dim)
     _, kv = forward_hidden(model, input_ids, attention_mask, dtype, collect_kv=True)
-    cache_k, cache_v = [], []
-    for k, v in kv:
-        for new, caches in ((k, cache_k), (v, cache_v)):
-            if cfg.kv_quant:
-                q8, sc = kv_quantize(new)
-                c8 = torch.zeros(shape, dtype=torch.int8, device=dev)
-                cs = torch.ones(shape[:3] + (1,), dtype=dtype, device=dev)
-                c8[:, :s] = q8
-                cs[:, :s] = sc.to(dtype)
-                caches.append((c8, cs))
-            else:
-                c = torch.zeros(shape, dtype=new.dtype, device=dev)
-                c[:, :s] = new
-                caches.append(c)
-    lengths = attention_mask.sum(dim=-1)
-    key_valid = torch.zeros(b, total, dtype=torch.int32, device=dev)
+    cache_k, cache_v = prefill_caches(kv, total, cfg.kv_quant, dtype, input_ids.device)
+    key_valid = torch.zeros(b, total, dtype=torch.int32, device=input_ids.device)
     key_valid[:, :s] = attention_mask.to(torch.int32)
-    write_idx = (lengths - 1).clamp(min=0).long()
-    rows = torch.arange(b, device=dev)
-    return GPTState(
-        cache_k=cache_k,
-        cache_v=cache_v,
-        key_valid=key_valid,
-        write_idx=write_idx,
-        pos=torch.zeros(b, dtype=torch.long, device=dev),
-        last_token=input_ids[rows, write_idx].long(),
-        done=lengths == 0,
-        tokens=torch.full((b, max_len), cfg.pad_id, dtype=torch.int32, device=dev),
-    )
+    return GPTState(cache_k=cache_k, cache_v=cache_v, key_valid=key_valid,
+                    **row_fields(input_ids, attention_mask, max_len, cfg.pad_id, sample))
 
 
-def _cache_dtype(state: GPTState) -> torch.dtype:
-    entry = state.cache_k[0]
-    return entry[1].dtype if isinstance(entry, tuple) else entry.dtype
-
-
-def _write_at(state, idx: torch.Tensor, width: int) -> torch.Tensor:
-    """Where each row's write at ``idx`` lands in a per-row field ``width``
-    wide.  Rows that step together (``steps`` set) never pass a width.
-    The continuous loop's slot state (``steps`` None) clamps: a freed row
-    steps on until its slot is reused, and its writes past a width land in
-    its own last column, which no other row reads and the slot's next
-    insert overwrites (the reference drops them)."""
-    if getattr(state, "steps", None) is not None:
-        return idx
-    return idx.clamp(max=width - 1)
-
-
-def _write_kv(cache, rows, t, new: torch.Tensor, dtype) -> None:
-    """Write one K (or V) row per batch row at ``t`` into a dense or an
-    (int8, scale) cache entry, in place."""
-    if isinstance(cache, tuple):
-        q8, sc = kv_quantize(new)
-        cache[0][rows, t] = q8
-        cache[1][rows, t] = sc.to(dtype)
-    else:
-        cache[rows, t] = new
-
-
-def _cache_attention(q, ck, cv, key_valid) -> torch.Tensor:
-    """The step's single query [B, 1, H, D] over a dense or int8 cache,
-    through the decode-attention kernel; returns [B, 1, H, D]."""
-    if isinstance(ck, tuple):
-        ctx = decode_attention(q[:, 0], ck[0], cv[0], key_valid, k_scale=ck[1], v_scale=cv[1])
-    else:
-        ctx = decode_attention(q[:, 0], ck, cv, key_valid)
-    return ctx[:, None]
-
-
-def _step(model: LlamaModel, state, write_kv, attend):
-    """One greedy step for every row, over the cache layout that
-    ``write_kv(cache, at, new)`` and ``attend(q, ck, cv, key_valid)``
-    address (``at``: each row's write position, ``_write_at``): each row
-    embeds its last token at its own position, writes its K/V row and
-    attends to its cache.  Rows already done emit ``pad_id``.  Every field
-    is updated in the state's own tensors (and ``steps`` on the host), so
-    a captured step reads and writes the same addresses at every replay.
-    Returns the state and the tokens."""
+def _step(model: LlamaModel, state, write_kv_fn, attend, sample: bool):
+    """One step for every row, over the cache layout that
+    ``write_kv_fn(cache, at, new)`` and ``attend(q, ck, cv, key_valid)``
+    address (``at``: each row's write position, ``gpt.write_at``): each
+    row embeds its last token at its own position, writes its K/V row and
+    attends to its cache; ``gpt.finish_step`` picks the tokens (argmax, or
+    with ``sample`` per-row sampling).  Every field is updated in the
+    state's own tensors (and ``steps`` on the host), so a captured step
+    reads and writes the same addresses at every replay.  Returns the
+    state and the tokens."""
     cfg = model.cfg
-    dtype = _cache_dtype(state)
+    dtype = cache_dtype(state)
     b = state.last_token.shape[0]
     rows = torch.arange(b, device=state.last_token.device)
     t = state.write_idx
-    at = _write_at(state, t, state.key_valid.shape[1])
+    at = write_at(state, t, state.key_valid.shape[1])
     x = embed(model.embed.weight, state.last_token[:, None], dtype)  # [B, 1, D]
     cos, sin = rope_tables(cfg, t.clamp(max=cfg.max_position - 1), dtype)
     cos, sin = cos[:, None, None, :], sin[:, None, None, :]
@@ -336,101 +286,49 @@ def _step(model: LlamaModel, state, write_kv, attend):
     state.key_valid[rows, at] = torch.ones_like(at, dtype=state.key_valid.dtype)
     for li, layer in enumerate(model.layers):
         q, k1, v1 = layer.qkv(cfg, x, cos, sin)
-        write_kv(state.cache_k[li], at, k1[:, 0])
-        write_kv(state.cache_v[li], at, v1[:, 0])
+        write_kv_fn(state.cache_k[li], at, k1[:, 0])
+        write_kv_fn(state.cache_v[li], at, v1[:, 0])
         ctx = attend(q, state.cache_k[li], state.cache_v[li], state.key_valid)
         x = layer.finish(x, ctx)
     x = model.final_ln(x)
     logits = lm_head_logits(x[:, 0], model.lm_head.weight)
-    next_tok = logits.argmax(dim=-1)
-    next_tok = torch.where(state.done, torch.full_like(next_tok, cfg.pad_id), next_tok)
-    state.tokens[rows, _write_at(state, state.pos, state.tokens.shape[1])] = \
-        next_tok.to(torch.int32)
-    t.add_(1)
-    state.pos.add_(1)
-    state.last_token.copy_(next_tok)
-    torch.logical_or(state.done, next_tok == cfg.eos_id, out=state.done)
-    if getattr(state, "steps", None) is not None:
-        state.steps += 1
-    return state, next_tok
+    return finish_step(state, cfg, logits, sample)
 
 
-def decode_step(model: LlamaModel, state: GPTState) -> tuple[GPTState, torch.Tensor]:
-    """One greedy step over the contiguous cache."""
-    dtype = _cache_dtype(state)
-    rows = torch.arange(state.last_token.shape[0], device=state.last_token.device)
-    return _step(model, state, lambda cache, at, new: _write_kv(cache, rows, at, new, dtype),
-                 _cache_attention)
+def decode_step(model: LlamaModel, state: GPTState,
+                sample: bool = False) -> tuple[GPTState, torch.Tensor]:
+    """One step over the contiguous cache."""
+    return _step(model, state, *contiguous_io(state), sample)
 
 
-def generate_chunk(model: LlamaModel, state: GPTState, n_steps: int
-                   ) -> tuple[GPTState, torch.Tensor]:
-    """``n_steps`` greedy decode steps; returns the state and the chunk's
-    tokens [B, n_steps].  A state whose rows step together (``steps`` not
-    None) refuses to step past its token width."""
-    if state.steps is not None and state.steps + n_steps > state.tokens.shape[1]:
-        raise ValueError(
-            f"{n_steps} more steps after {state.steps} overrun the cache's "
-            f"{state.tokens.shape[1]} decode positions"
-        )
-    toks = []
-    for _ in range(n_steps):
-        state, tok = decode_step(model, state)
-        toks.append(tok)
-    return state, torch.stack(toks, dim=1)
+def generate_chunk(model: LlamaModel, state: GPTState, n_steps: int,
+                   sample: bool = False) -> tuple[GPTState, torch.Tensor]:
+    """``n_steps`` decode steps (``sample``: the per-row sampling path,
+    else argmax, as the JAX static argument); returns the state and the
+    chunk's tokens [B, n_steps].  A state whose rows step together
+    (``steps`` not None) refuses to step past its token width."""
+    return run_steps(lambda s: decode_step(model, s, sample), state, n_steps)
 
 
 # ---------------------------------------------------------------------------
 # block-paged decode (PAGED_KV=1): gpt.PagedState at GQA width, dense or int8
 
 
-def _paged_write_kv(cache, dest: torch.Tensor, val: torch.Tensor, dtype) -> None:
-    """Write one new K (or V) row per batch row at flat pool indices
-    ``dest`` into a dense pool or an (int8 payload, scale) pool pair, with
-    the contiguous cache's quantization."""
-    if isinstance(cache, tuple):
-        q8, sc = kv_quantize(val)
-        paged_write_token(cache[0], dest, q8)
-        paged_write_token(cache[1], dest, sc.to(dtype))
-    else:
-        paged_write_token(cache, dest, val)
-
-
-def _paged_cache_attention(q, ck, cv, table, key_valid, bs: int) -> torch.Tensor:
-    """The step's single query [B, 1, H, D] over the paged pool through
-    the paged decode-attention kernel (on the card, every paged step);
-    returns [B, 1, H, D]."""
-    if isinstance(ck, tuple):
-        ctx = paged_decode_attention(q[:, 0], ck[0], cv[0], table, key_valid, bs,
-                                     k_scale=ck[1], v_scale=cv[1])
-    else:
-        ctx = paged_decode_attention(q[:, 0], ck, cv, table, key_valid, bs)
-    return ctx[:, None]
-
-
 def paged_decode_step(model: LlamaModel, state: PagedState, table: torch.Tensor,
-                      block_size: int) -> tuple[PagedState, torch.Tensor]:
-    """One greedy step with K/V written and read through the block table
+                      block_size: int, sample: bool = False) -> tuple[PagedState, torch.Tensor]:
+    """One step with K/V written and read through the block table
     ``table`` [B, T] (positions, masks and EOS logic as the contiguous
     step: the physical layout is the only difference)."""
-    dtype = _cache_dtype(state)
-    dest = paged_dest(table, state.write_idx, block_size, state.num_blocks)
-    return _step(
-        model, state, lambda cache, _at, new: _paged_write_kv(cache, dest, new, dtype),
-        lambda q, ck, cv, key_valid: _paged_cache_attention(q, ck, cv, table, key_valid,
-                                                            block_size),
-    )
+    return _step(model, state, *paged_io(state, table, block_size), sample)
 
 
 def generate_chunk_paged(model: LlamaModel, state: PagedState, table: torch.Tensor,
-                         block_size: int, n_steps: int) -> tuple[PagedState, torch.Tensor]:
-    """``n_steps`` paged greedy steps; returns the state and the chunk's
-    tokens [B, n_steps]."""
-    toks = []
-    for _ in range(n_steps):
-        state, tok = paged_decode_step(model, state, table, block_size)
-        toks.append(tok)
-    return state, torch.stack(toks, dim=1)
+                         block_size: int, n_steps: int,
+                         sample: bool = False) -> tuple[PagedState, torch.Tensor]:
+    """``n_steps`` paged steps; returns the state and the chunk's tokens
+    [B, n_steps]."""
+    return run_steps(lambda s: paged_decode_step(model, s, table, block_size, sample),
+                     state, n_steps)
 
 
 def greedy_generate(model: LlamaModel, input_ids, attention_mask, max_len: int,

@@ -9,10 +9,11 @@ drawn on the CPU from a seeded ``torch.Generator``.  All three go through
 
 Three kinds are served: image classification (ResNet-50), text
 classification (BERT-base, and bert-long, the long-context BERT whose
-attention runs as a ring over sequence shards), and llama greedy
-generation (``KIND_SEQ2SEQ``, the JAX package's kind for every generative
-model), whole or streamed through the continuous decode loop over a
-contiguous or (``PAGED_KV=1``) block-paged KV cache.  ``register_model``
+attention runs as a ring over sequence shards), and generation with llama
+and GPT-2 (``KIND_SEQ2SEQ``, the JAX package's kind for every generative
+model), greedy or sampled per request, whole or streamed through the
+continuous decode loop over a contiguous or (``PAGED_KV=1``) block-paged
+KV cache.  ``register_model``
 adds a model of the user's own under a name.
 """
 
@@ -30,6 +31,7 @@ import torch
 
 from ..runtime.device import DtypePolicy, default_policy, get_device
 from . import bert as bert_mod
+from . import gpt as gpt_mod
 from . import llama as llama_mod
 from . import resnet as resnet_mod
 from .preprocess import (
@@ -69,12 +71,15 @@ class ModelBundle:
     # classification: (images [B, S, S, 3] uint8 on the device) -> f32
     # logits [B, num_labels].
     forward: Callable[..., torch.Tensor] | None = None
-    # Generation: (input_ids, attention_mask, max_len) -> decode state
-    # after prefill, and (state, n_steps) -> (state, tokens [B, n_steps]).
+    # Generation: (input_ids, attention_mask, max_len, sample=None) ->
+    # decode state after prefill (``sample``: per-row SampleParams), and
+    # (state, n_steps, sample=False) -> (state, tokens [B, n_steps]), where
+    # ``sample`` picks per-row sampling over argmax (the JAX static arg).
     init_state: Callable | None = None
     generate_chunk: Callable | None = None
     # Paged generation (PAGED_KV=1, the continuous loop): (PagedState,
-    # table [B, T] int32 on the device, n_steps) -> (state, tokens).
+    # table [B, T] int32 on the device, n_steps, sample=False) -> (state,
+    # tokens).
     paged_chunk: Callable | None = None
     # Cap on a tokenized prompt (generation keeps position-table room for
     # the decode budget).
@@ -97,10 +102,17 @@ class ModelBundle:
         ids, mask = self.tokenizer.encode(item.text, max_len)
         n = int(mask.sum())
         feats = {"input_ids": ids[:n], "length": np.int32(n)}
-        if self.kind == KIND_SEQ2SEQ and item.max_tokens is not None:
-            # The engine stops spending decode chunks on a row once its
-            # budget is reached.
-            feats["max_tokens"] = int(item.max_tokens)
+        if self.kind == KIND_SEQ2SEQ:
+            if item.temperature > 0.0:
+                feats["temperature"] = float(item.temperature)
+                feats["top_k"] = int(item.top_k)
+                feats["top_p"] = float(item.top_p)
+                if item.seed is not None:
+                    feats["seed"] = int(item.seed)
+            if item.max_tokens is not None:
+                # The engine stops spending decode chunks on a row once its
+                # budget is reached.
+                feats["max_tokens"] = int(item.max_tokens)
         return feats
 
     def postprocess(self, row: np.ndarray) -> dict:
@@ -132,15 +144,17 @@ class ModelBundle:
 @dataclasses.dataclass
 class RawItem:
     """One unparsed /predict payload: image bytes or a text.  The
-    generation fields apply to generative models only; decoding is greedy
-    (sampling is not ported)."""
+    generation fields apply to generative models only: temperature 0 is
+    greedy (the default); an unseeded sampled request draws a fresh seed."""
 
     image: bytes | None = None
     text: str | None = None
-    # Streamed through the continuous decode loop; temperature > 0 is
-    # answered 400 until sampling is ported.
+    # Streamed through the continuous decode loop.
     stream: bool = False
     temperature: float = 0.0
+    top_k: int = 0
+    top_p: float = 1.0
+    seed: int | None = None
     # Generation stops after this many tokens (None = the server's
     # MAX_DECODE_LEN budget) or where a stop string appears.
     max_tokens: int | None = None
@@ -313,6 +327,27 @@ def decode_budget(svc_cfg) -> int:
     return int(math.ceil(svc_cfg.max_decode_len / chunk) * chunk)
 
 
+def _decode_position_budget(svc_cfg, max_position: int, family: str) -> int:
+    """Prompt plus decode must fit the position table (an embedding lookup
+    past it would fail, where the JAX package's would silently clamp):
+    returns the longest prompt; raises when no prompt fits or a seq bucket
+    exceeds it."""
+    budget = decode_budget(svc_cfg)
+    if budget >= max_position:
+        raise ValueError(
+            f"MAX_DECODE_LEN(+chunk rounding)={budget} plus prefix 0 leaves no room for a "
+            f"prompt within {family}'s {max_position} positions"
+        )
+    max_prompt = max_position - budget
+    bad = [s for s in svc_cfg.seq_buckets if s > max_prompt]
+    if bad:
+        raise ValueError(
+            f"SEQ_BUCKETS {bad} exceed {family}'s position budget: max prompt = "
+            f"{max_position} - {budget} decode - 0 prefix = {max_prompt}"
+        )
+    return max_prompt
+
+
 def _llama_config(svc_cfg, tokenizer) -> llama_mod.LlamaConfig:
     overrides = {}
     if svc_cfg.llama_config:
@@ -361,43 +396,40 @@ def _llama_state(svc_cfg, cfg: llama_mod.LlamaConfig, params) -> dict[str, torch
 
 def _build_llama(svc_cfg, policy: DtypePolicy, device: torch.device,
                  params=None) -> ModelBundle:
-    """Llama-family greedy generation.  Default dims are TinyLlama-1.1B;
+    """Llama-family generation.  Default dims are TinyLlama-1.1B;
     ``LLAMA_CONFIG`` takes a JSON object of ``LlamaConfig`` overrides and
     ``QUANT_KV=int8`` turns on the int8 KV cache."""
     # Without TOKENIZER_PATH: the byte fallback with a trailing EOS, as the
     # JAX package's llama uses (SentencePiece files raise "not ported").
     tokenizer = build_tokenizer(svc_cfg.tokenizer_path, for_t5=True)
     cfg = _llama_config(svc_cfg, tokenizer)
-    budget = decode_budget(svc_cfg)
-    # Prompt + decode must fit the position table.
-    if budget >= cfg.max_position:
-        raise ValueError(
-            f"MAX_DECODE_LEN(+chunk rounding)={budget} leaves no room for a prompt "
-            f"within llama's {cfg.max_position} positions"
-        )
-    max_prompt = cfg.max_position - budget
-    bad = [s for s in svc_cfg.seq_buckets if s > max_prompt]
-    if bad:
-        raise ValueError(
-            f"SEQ_BUCKETS {bad} exceed llama's position budget: max prompt = "
-            f"{cfg.max_position} - {budget} decode = {max_prompt}"
-        )
+    max_prompt = _decode_position_budget(svc_cfg, cfg.max_position, "llama")
     model = llama_mod.build_model(cfg, _llama_state(svc_cfg, cfg, params), device,
                                   policy.param_dtype)
+    return _generative_bundle("llama", llama_mod, model, cfg, tokenizer, svc_cfg, policy,
+                              device, max_prompt)
 
-    def init_state(input_ids, attention_mask, max_len: int):
-        return llama_mod.init_decode_state(model, input_ids, attention_mask, max_len,
-                                           dtype=policy.compute_dtype)
 
-    def generate_chunk(state, n_steps: int):
-        return llama_mod.generate_chunk(model, state, n_steps)
+def _generative_bundle(name: str, family, model, cfg, tokenizer, svc_cfg,
+                       policy: DtypePolicy, device: torch.device,
+                       max_prompt: int) -> ModelBundle:
+    """A ``KIND_SEQ2SEQ`` bundle over a decoder family's module (``gpt`` or
+    ``llama``: ``init_decode_state``, ``generate_chunk``,
+    ``generate_chunk_paged``)."""
 
-    def paged_chunk(state, table, n_steps: int):
-        return llama_mod.generate_chunk_paged(model, state, table, svc_cfg.kv_block_size,
-                                              n_steps)
+    def init_state(input_ids, attention_mask, max_len: int, sample=None):
+        return family.init_decode_state(model, input_ids, attention_mask, max_len,
+                                        dtype=policy.compute_dtype, sample=sample)
+
+    def generate_chunk(state, n_steps: int, sample: bool = False):
+        return family.generate_chunk(model, state, n_steps, sample)
+
+    def paged_chunk(state, table, n_steps: int, sample: bool = False):
+        return family.generate_chunk_paged(model, state, table, svc_cfg.kv_block_size,
+                                           n_steps, sample)
 
     return ModelBundle(
-        name="llama",
+        name=name,
         kind=KIND_SEQ2SEQ,
         cfg=cfg,
         model=model,
@@ -412,6 +444,50 @@ def _build_llama(svc_cfg, policy: DtypePolicy, device: torch.device,
     )
 
 
+def _gpt_state(svc_cfg, cfg: gpt_mod.GPTConfig, params) -> dict[str, torch.Tensor]:
+    from ..convert.jax_params import gpt_params_from_jax
+
+    if params is not None:
+        return gpt_params_from_jax(params, cfg)
+    if svc_cfg.model_path:
+        from ..convert.hf_maps import gpt2_state_to_pytree
+
+        state = _load_hf_state(svc_cfg.model_path, "gpt2")
+        return gpt_params_from_jax(gpt2_state_to_pytree(state, cfg.num_layers), cfg)
+    log.info("no MODEL_PATH for gpt2: deterministic random init (seed %d)", INIT_SEED)
+    return gpt_mod.init_params(cfg, torch.Generator().manual_seed(INIT_SEED))
+
+
+def _build_gpt(svc_cfg, policy: DtypePolicy, device: torch.device,
+               params=None) -> ModelBundle:
+    """GPT-2 small generation, greedy or sampled, whole or streamed.
+    Tokenizer: a GPT-2 ``vocab.json`` (with ``merges.txt``) through
+    ``TOKENIZER_PATH``, else the byte-level fallback, whose eos and pad the
+    model takes so that EOS detection agrees with the detokenizer."""
+    tokenizer = build_tokenizer(svc_cfg.tokenizer_path, for_t5=True)
+    cfg = gpt_mod.GPTConfig(eos_id=int(tokenizer.eos_id), pad_id=int(tokenizer.pad_id))
+    # An id past the embedding table would fail at lookup (the JAX package's
+    # would be silently clamped): compare the largest id the tokenizer can
+    # emit, not its vocab count.
+    max_id = int(getattr(tokenizer, "max_token_id", getattr(tokenizer, "vocab_size", 1) - 1))
+    if max_id >= cfg.vocab_size:
+        raise ValueError(
+            f"tokenizer at {svc_cfg.tokenizer_path!r} can emit id {max_id} >= gpt2 "
+            f"embedding table rows {cfg.vocab_size}; out-of-range ids would be silently "
+            "clamped"
+        )
+    if not (0 <= cfg.eos_id < cfg.vocab_size and 0 <= cfg.pad_id < cfg.vocab_size):
+        raise ValueError(
+            f"tokenizer eos_id={cfg.eos_id}/pad_id={cfg.pad_id} outside gpt2 vocab of "
+            f"{cfg.vocab_size}"
+        )
+    max_prompt = _decode_position_budget(svc_cfg, cfg.max_position, "gpt2")
+    model = gpt_mod.build_model(cfg, _gpt_state(svc_cfg, cfg, params), device,
+                                policy.param_dtype)
+    return _generative_bundle("gpt2", gpt_mod, model, cfg, tokenizer, svc_cfg, policy, device,
+                              max_prompt)
+
+
 MODEL_REGISTRY: dict[str, Callable] = {
     "resnet50": _build_resnet,
     "resnet-50": _build_resnet,
@@ -420,9 +496,10 @@ MODEL_REGISTRY: dict[str, Callable] = {
     "bert-long": _build_bert_long,
     "llama": _build_llama,
     "tinyllama": _build_llama,
+    "gpt2": _build_gpt,
 }
 # Served by the JAX package, not by this port yet.
-NOT_PORTED = ("t5-small", "t5small", "gpt2")
+NOT_PORTED = ("t5-small", "t5small")
 
 
 def register_model(name: str, builder: Callable) -> None:
@@ -465,9 +542,9 @@ def build_model(svc_cfg, policy: DtypePolicy | None = None, params=None) -> Mode
             f"QUANT_KV is not supported for {svc_cfg.model_name!r} "
             "(int8 KV cache covers the llama family)"
         )
-    if svc_cfg.paged_kv and builder is not _build_llama:
+    if svc_cfg.paged_kv and builder not in (_build_llama, _build_gpt):
         raise ValueError(
             f"PAGED_KV is not supported for {svc_cfg.model_name!r} "
-            "(block-paged KV covers the llama family)"
+            "(block-paged KV covers the decoder families: gpt2, llama)"
         )
     return builder(svc_cfg, policy, device, params)

@@ -1,14 +1,19 @@
 """Tokenizers for the text models: pure Python, no external assets.
 
-Copies of the JAX package's ``ByteTokenizer`` and ``WordPieceTokenizer``
-and of ``build_tokenizer``'s WordPiece and byte-fallback branches
-(SentencePiece and byte-level BPE files raise "not ported yet"):
+Copies of the JAX package's ``ByteTokenizer``, ``WordPieceTokenizer`` and
+``ByteLevelBPETokenizer`` and of ``build_tokenizer``'s WordPiece, GPT-2
+``vocab.json`` and byte-fallback branches (SentencePiece files raise "not
+ported yet"):
 
 - ``WordPieceTokenizer``: BERT-style WordPiece (basic tokenize, then greedy
   longest-match subwords) over a standard ``vocab.txt``
   (``TOKENIZER_PATH``).
 - ``ByteTokenizer``: byte-level fallback needing no assets; ids = byte +
   offset, specials laid out inside BERT's 30522-id vocab.
+- ``ByteLevelBPETokenizer``: GPT-2's byte-level BPE over ``vocab.json`` and
+  ``merges.txt``.  GPT-2's split pattern needs Unicode letter and number
+  classes; the JAX package compiles it with the third-party ``regex``
+  module, the port scans it with the standard library (``gpt2_pretokenize``).
 
 Both expose ``encode(text, max_len) -> (ids, mask)`` and
 ``decode(ids) -> text``.
@@ -16,6 +21,9 @@ Both expose ``encode(text, max_len) -> (ids, mask)`` and
 
 from __future__ import annotations
 
+import functools
+import json
+import os
 import unicodedata
 
 import numpy as np
@@ -192,16 +200,192 @@ class WordPieceTokenizer:
         return text
 
 
+# ---------------------------------------------------------------------------
+# GPT-2 byte-level BPE
+
+
+@functools.lru_cache(maxsize=1)
+def _bytes_to_unicode() -> dict[int, str]:
+    """GPT-2's reversible byte -> printable-unicode table: printable latin
+    bytes map to themselves, the rest to 256 + n."""
+    bs = list(range(33, 127)) + list(range(161, 173)) + list(range(174, 256))
+    cs = bs[:]
+    n = 0
+    for b in range(256):
+        if b not in bs:
+            bs.append(b)
+            cs.append(256 + n)
+            n += 1
+    return dict(zip(bs, (chr(c) for c in cs)))
+
+
+_CONTRACTIONS = ("'s", "'t", "'re", "'ve", "'m", "'ll", "'d")
+
+
+def _is_space(ch: str) -> bool:
+    """``\\s`` of GPT-2's pattern: Python's whitespace less the information
+    separators U+001C-U+001F, which the pattern's regex engine does not
+    count as space."""
+    return ch.isspace() and not "\x1c" <= ch <= "\x1f"
+
+
+def _cls(ch: str) -> str:
+    """'L' (letter), 'N' (number), 'S' (whitespace) or 'P' (anything else)."""
+    if _is_space(ch):
+        return "S"
+    cat = unicodedata.category(ch)[0]
+    return cat if cat in "LN" else "P"
+
+
+def gpt2_pretokenize(text: str) -> list[str]:
+    """GPT-2's pre-tokenizer, ``'s|'t|'re|'ve|'m|'ll|'d| ?\\p{L}+|
+    ?\\p{N}+| ?[^\\s\\p{L}\\p{N}]+|\\s+(?!\\S)|\\s+`` read left to right,
+    with the standard library's Unicode categories ('L*' letters, 'N*'
+    numbers)."""
+    out = []
+    i, n = 0, len(text)
+    classes = [_cls(ch) for ch in text]
+
+    def run(j: int, c: str) -> int:
+        while j < n and classes[j] == c:
+            j += 1
+        return j
+
+    while i < n:
+        if text[i] == "'":
+            hit = next((c for c in _CONTRACTIONS if text.startswith(c, i)), None)
+            if hit is not None:
+                out.append(hit)
+                i += len(hit)
+                continue
+        # ' ?X+' for X in letters, numbers, other: an optional leading space
+        # (U+0020 only) joins the run that follows it.
+        start = i + 1 if text[i] == " " and i + 1 < n and classes[i + 1] != "S" else i
+        c = classes[start]
+        if c != "S":
+            j = run(start, c)
+            out.append(text[i:j])
+            i = j
+            continue
+        # Whitespace: the run less its last character when a non-space
+        # follows it (that character then leads the next piece), else all.
+        j = run(i, "S")
+        if j < n and j - i > 1:
+            j -= 1
+        out.append(text[i:j])
+        i = j
+    return out
+
+
+class ByteLevelBPETokenizer:
+    """GPT-2 style byte-level BPE over ``vocab.json`` + ``merges.txt``
+    (beside it unless given)."""
+
+    def __init__(self, vocab_path: str, merges_path: str | None = None):
+        if merges_path is None:
+            merges_path = os.path.join(os.path.dirname(vocab_path), "merges.txt")
+        with open(vocab_path, encoding="utf-8") as f:
+            self.vocab: dict[str, int] = json.load(f)
+        self.inv_vocab = {i: t for t, i in self.vocab.items()}
+        with open(merges_path, encoding="utf-8") as f:
+            lines = [ln.rstrip("\n") for ln in f]
+        # Only the first line is a header ("#version: ..."); a real merge may
+        # start with '#' (the "# #" merge that builds "##").
+        if lines and lines[0].startswith("#version"):
+            lines = lines[1:]
+        merges = [tuple(ln.split()) for ln in lines if ln]
+        self.ranks = {pair: i for i, pair in enumerate(m for m in merges if len(m) == 2)}
+        self.byte_enc = _bytes_to_unicode()
+        self.byte_dec = {c: b for b, c in self.byte_enc.items()}
+        self.eos_id = self.vocab.get("<|endoftext|>", len(self.vocab) - 1)
+        self.pad_id = self.eos_id  # GPT-2 has no pad token
+        self._cache: dict[str, tuple[str, ...]] = {}
+
+    @property
+    def vocab_size(self) -> int:
+        return len(self.vocab)
+
+    @property
+    def max_token_id(self) -> int:
+        """The largest id this tokenizer can emit (a sparse vocab.json may
+        hold ids past its length): what embedding-table checks compare."""
+        return max(self.vocab.values()) if self.vocab else 0
+
+    def _bpe(self, token: str) -> tuple[str, ...]:
+        cached = self._cache.get(token)
+        if cached is not None:
+            return cached
+        if len(self._cache) >= 65536:  # bounded under high-cardinality traffic
+            self._cache.clear()
+        word = tuple(token)
+        while len(word) > 1:
+            pairs = {(word[i], word[i + 1]) for i in range(len(word) - 1)}
+            best = min(pairs, key=lambda p: self.ranks.get(p, 1 << 60))
+            if best not in self.ranks:
+                break
+            a, b = best
+            merged: list[str] = []
+            i = 0
+            while i < len(word):
+                if i < len(word) - 1 and word[i] == a and word[i + 1] == b:
+                    merged.append(a + b)
+                    i += 2
+                else:
+                    merged.append(word[i])
+                    i += 1
+            word = tuple(merged)
+        self._cache[token] = word
+        return word
+
+    def encode(self, text: str, max_len: int) -> tuple[np.ndarray, np.ndarray]:
+        ids: list[int] = []
+        for tok in gpt2_pretokenize(text):
+            mapped = "".join(self.byte_enc[b] for b in tok.encode("utf-8"))
+            for piece in self._bpe(mapped):
+                piece_id = self.vocab.get(piece)
+                if piece_id is None:
+                    # Only a truncated vocab lacks a byte; skip it rather
+                    # than cut the prompt with an eos (GPT-2 has no unk).
+                    continue
+                ids.append(piece_id)
+                if len(ids) >= max_len:
+                    break
+            if len(ids) >= max_len:
+                break
+        n = len(ids)
+        out = np.full((max_len,), self.pad_id, np.int32)
+        out[:n] = ids
+        mask = np.zeros((max_len,), np.int32)
+        mask[:n] = 1
+        return out, mask
+
+    def decode(self, ids) -> str:
+        chars: list[str] = []
+        for i in ids:
+            i = int(i)
+            if i == self.eos_id:
+                break
+            tok = self.inv_vocab.get(i)
+            if tok is not None:
+                chars.append(tok)
+        data = bytes(self.byte_dec.get(c, 32) for c in "".join(chars))
+        return data.decode("utf-8", errors="replace")
+
+
 def build_tokenizer(tokenizer_path: str | None, for_t5: bool = False):
-    """WordPiece over ``tokenizer_path`` (a BERT ``vocab.txt``) when given,
-    else the byte-level tokenizer: with [CLS]/[SEP] for the classifiers,
-    with a trailing EOS and no [CLS]/[SEP] for the generative models
-    (``for_t5``, the JAX package's name for that fallback)."""
-    if tokenizer_path and tokenizer_path.endswith((".model", ".tsv", ".vocab", ".json")):
+    """By ``tokenizer_path``: a GPT-2 ``vocab.json`` (with ``merges.txt``
+    beside it) -> byte-level BPE, any other file -> WordPiece (a BERT
+    ``vocab.txt``); unset -> the byte-level tokenizer: with [CLS]/[SEP] for
+    the classifiers, with a trailing EOS and no [CLS]/[SEP] for the
+    generative models (``for_t5``, the JAX package's name for that
+    fallback)."""
+    if tokenizer_path and tokenizer_path.endswith((".model", ".tsv", ".vocab")):
         raise ValueError(
-            f"TOKENIZER_PATH={tokenizer_path!r}: SentencePiece and byte-level BPE "
-            "vocabularies are not ported yet (WordPiece vocab.txt only)"
+            f"TOKENIZER_PATH={tokenizer_path!r}: SentencePiece vocabularies are not "
+            "ported yet (WordPiece vocab.txt and GPT-2 vocab.json only)"
         )
+    if tokenizer_path and tokenizer_path.endswith(".json"):
+        return ByteLevelBPETokenizer(tokenizer_path)
     if tokenizer_path:
         return WordPieceTokenizer(tokenizer_path)
     return ByteTokenizer(add_cls_sep=not for_t5, add_eos=for_t5)

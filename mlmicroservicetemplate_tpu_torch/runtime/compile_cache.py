@@ -265,6 +265,16 @@ class GraphCache:
         with self._lock:
             return {"count": self.counts["insert"], "seconds": self.capture_s}
 
+    def drop(self, bundle) -> int:
+        """Drop one bundle's entries (a service torn down), so their graphs
+        and static outputs can be freed; returns how many went."""
+        fp = fingerprint(bundle)
+        with self._lock:
+            keys = [k for k in self._entries if k[0] == fp]
+            for k in keys:
+                del self._entries[k]
+        return len(keys)
+
     def clear(self) -> None:
         """Drop every entry and zero the counts."""
         with self._lock:

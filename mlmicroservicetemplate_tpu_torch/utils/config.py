@@ -1,7 +1,7 @@
 """Env-var driven service configuration (12-factor), as a stdlib dataclass.
 
-Holds the fields the ResNet-50, BERT-base, bert-long and llama paths and
-the parent registration read, under the same environment names as the JAX
+Holds the fields the ResNet-50, BERT-base, bert-long, llama and GPT-2 paths,
+chat and the parent registration read, under the same environment names as the JAX
 package's ``ServiceConfig``.  ``DEVICE`` is ``cuda|cpu`` and defaults to
 ``cuda``; ``MODEL_NAME`` defaults to ``resnet50``, as in the JAX package.
 """
@@ -55,8 +55,12 @@ class ServiceConfig:
     # Shape buckets: requests are padded up to the nearest bucket.
     batch_buckets: tuple[int, ...] = (1, 2, 4, 8, 16, 32)
     seq_buckets: tuple[int, ...] = (32, 64, 128, 256, 512)
-    # Run every (batch, seq) bucket once before reporting ready.
+    # Run every (batch, seq) bucket once before reporting ready; a
+    # generative model's sampled graphs too, unless warmup_sampling is off
+    # (WARMUP_SAMPLING=0: greedy-only deployments, the first sampled
+    # request of a bucket then captures its graphs).
     warmup: bool = True
+    warmup_sampling: bool = True
     log_level: str = "INFO"
     # TRACE=1 records request / queue-wait / dispatch spans, the newest
     # trace_ring of them.
@@ -82,6 +86,13 @@ class ServiceConfig:
     # Streaming generations: concurrent streams of the continuous decode
     # loop (its slot count) before new ones shed with 503.
     max_streams: int = 8
+    # How long an idle loop waits for the rest of a concurrent burst before
+    # admitting the wave (ms).
+    admit_grace_ms: float = 8.0
+    # How /v1/chat/completions renders a message list into a prompt
+    # (api/chat.py: plain|llama2|chatml|zephyr|llama3); validated when the
+    # app is built.
+    chat_template: str = "plain"
     # Block-paged KV for the continuous loop: a pool of kv_block_size-token
     # blocks with per-slot block tables instead of per-slot contiguous
     # caches.  Seq buckets round up to the block grid.
@@ -131,6 +142,9 @@ class ServiceConfig:
             raise ValueError("PIPELINE_DEPTH and TRACE_RING must be >= 1")
         if not (self.deadline_ms >= 0 and self.drain_grace_s >= 0):  # also rejects NaN
             raise ValueError("DEADLINE_MS and DRAIN_GRACE_S must be >= 0")
+        if not self.admit_grace_ms >= 0:
+            raise ValueError("ADMIT_GRACE_MS must be >= 0")
+        object.__setattr__(self, "chat_template", self.chat_template.lower())
         object.__setattr__(self, "seq_buckets", _align_paged_seq_buckets(self))
 
 
@@ -187,6 +201,9 @@ UNPORTED_KNOBS = {
     "KV_PREFETCH_BLOCKS": ("4",),
     "JOURNAL_DIR": (),
     "JOURNAL_FSYNC": ("always",),
+    # The loop always admits behind the live chunk (the JAX default); the
+    # blocking admission order of ADMIT_OVERLAP=0 is not ported.
+    "ADMIT_OVERLAP": _ON,
     # Priority classes: every request is interactive (X-Priority: batch
     # answers 400), nothing is preempted.
     "PRIORITY_DEFAULT": ("interactive",),
@@ -231,6 +248,10 @@ UNPORTED_KNOBS = {
     # profiler endpoint, JSON logs, utilisation gauges, SLO burn rates.
     "FLIGHT_RING": ("256",),
     "PROFILE_DIR": (),
+    # The lock-order detector and the /debug/profile route (its trace
+    # directory).
+    "LOCKTRACE": _OFF,
+    "JAX_TRACE_DIR": (),
     "LOG_FORMAT": ("text",),
     "PERF_OBS": _OFF,
     "PEAK_TFLOPS": ("0",),
@@ -257,6 +278,15 @@ INERT_KNOBS = {
                                    "the CUDA kernel walks 128-key tiles at any length",
     "DECODE_KERNEL_VMEM_BUDGET_MB": "TPU VMEM budget of the decode kernel's "
                                     "whole-slab blocks; the CUDA kernels stream tiles",
+    "JAX_PLATFORMS": "picks JAX's backend; the port's device is DEVICE",
+    "USE_PALLAS_ATTENTION": "switches the encoder's Pallas kernel on or off; the port "
+                            "always launches its CUDA kernel on the card",
+    "USE_PALLAS_DECODE": "switches the Pallas decode kernels on or off; the port "
+                         "always launches its CUDA kernels on the card",
+    "PALLAS_AUTOTUNE_ITERS": "timing iterations of the Pallas autotuner; the CUDA "
+                             "kernels have one configuration",
+    "PALLAS_TUNE_TABLE": "file of the Pallas autotuner's chosen variants; the CUDA "
+                         "kernels have one configuration",
 }
 
 
@@ -287,8 +317,8 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
     MAX_QUEUE, BATCH_BUCKETS, SEQ_BUCKETS, WARMUP, LOG_LEVEL, TRACE, MAX_DECODE_LEN,
     STREAM_CHUNK_TOKENS, QUANT_KV, LLAMA_CONFIG, MAX_STREAMS, PAGED_KV,
     KV_BLOCK_SIZE, SP, TRACE_RING, PIPELINE_DEPTH, DEADLINE_MS,
-    DRAIN_GRACE_S.  Any of ``UNPORTED_KNOBS`` set to a value that turns it
-    on raises, as does ``CONTINUOUS_BATCHING=0`` (the per-stream decode
+    DRAIN_GRACE_S, WARMUP_SAMPLING, ADMIT_GRACE_MS, CHAT_TEMPLATE.  Any of
+    ``UNPORTED_KNOBS`` set to a value that turns it on raises, as does ``CONTINUOUS_BATCHING=0`` (the per-stream decode
     workers are not ported); ``INERT_KNOBS`` are accepted and ignored."""
     e = dict(os.environ)
     if overrides:
@@ -315,7 +345,7 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
         ("model_path", "MODEL_PATH"), ("tokenizer_path", "TOKENIZER_PATH"),
         ("labels_path", "LABELS_PATH"), ("host", "HOST"), ("server_url", "SERVER_URL"),
         ("log_level", "LOG_LEVEL"), ("quant_kv", "QUANT_KV"),
-        ("llama_config", "LLAMA_CONFIG"),
+        ("llama_config", "LLAMA_CONFIG"), ("chat_template", "CHAT_TEMPLATE"),
     ):
         v = get(var)
         if v is not None:
@@ -330,7 +360,7 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
         if v is not None:
             kwargs[field] = int(v)
     for field, var in (("batch_timeout_ms", "BATCH_TIMEOUT_MS"), ("deadline_ms", "DEADLINE_MS"),
-                       ("drain_grace_s", "DRAIN_GRACE_S"),
+                       ("drain_grace_s", "DRAIN_GRACE_S"), ("admit_grace_ms", "ADMIT_GRACE_MS"),
                        ("register_heartbeat_s", "REGISTER_HEARTBEAT_S")):
         v = get(var)
         if v is not None:
@@ -342,7 +372,8 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
             if not buckets:
                 raise ValueError(f"{var}={v!r} parsed to no buckets")
             kwargs[field] = buckets
-    for field, var in (("warmup", "WARMUP"), ("trace", "TRACE"), ("paged_kv", "PAGED_KV")):
+    for field, var in (("warmup", "WARMUP"), ("trace", "TRACE"), ("paged_kv", "PAGED_KV"),
+                       ("warmup_sampling", "WARMUP_SAMPLING")):
         v = get(var)
         if v is not None:
             kwargs[field] = _flag(v)

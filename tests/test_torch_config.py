@@ -197,15 +197,27 @@ def test_bucket_for_with_a_multiple_matches_jax(n, multiple):
 # Every knob the JAX load_config recognizes is read, refused or inert
 
 def _jax_knob_names() -> list[str]:
-    """The names of the JAX load_config's docstring list, and every name
-    its body reads."""
+    """The names of the JAX load_config's docstring list, every name its
+    body reads, and every name any module of the JAX package reads from
+    the environment: a string literal within two lines of ``environ`` or
+    ``getenv`` in its sources."""
     import inspect
+    import pathlib
     import re
+
+    import mlmicroservicetemplate_tpu
 
     doc = jax_load_config.__doc__
     listed = re.findall(r"\b[A-Z][A-Z0-9_]{2,}\b", doc[doc.index("Recognized"):])
     read = re.findall(r'"([A-Z][A-Z0-9_]{2,})"', inspect.getsource(jax_load_config))
-    return sorted(set(listed) | set(read))
+    anywhere = set()
+    for path in pathlib.Path(mlmicroservicetemplate_tpu.__file__).parent.rglob("*.py"):
+        lines = path.read_text(encoding="utf-8").splitlines()
+        for i, line in enumerate(lines):
+            if "environ" in line or "getenv" in line:
+                for near in lines[max(0, i - 2): i + 3]:
+                    anywhere.update(re.findall(r'"([A-Z][A-Z0-9_]{2,})"', near))
+    return sorted(set(listed) | set(read) | anywhere)
 
 
 # A value that asks for something other than what the port does when the
@@ -246,6 +258,11 @@ NON_DEFAULT = {
     "SLO_TARGET": "0.9", "SLO_WINDOWS_S": "30,300", "SCALE_UP_SLO_BURN": "2",
     "PALLAS_AUTOTUNE": "1", "PALLAS_VARIANT": "head_batched", "PALLAS_INTERPRET": "1",
     "PALLAS_SINGLE_BLOCK_MAX_SEQ": "256", "DECODE_KERNEL_VMEM_BUDGET_MB": "20",
+    # Read outside load_config by the JAX package.
+    "ADMIT_GRACE_MS": "20", "ADMIT_OVERLAP": "0", "CHAT_TEMPLATE": "chatml",
+    "JAX_PLATFORMS": "tpu", "JAX_TRACE_DIR": "/traces", "LLAMA_CONFIG": '{"num_layers": 2}',
+    "LOCKTRACE": "1", "PALLAS_AUTOTUNE_ITERS": "5", "PALLAS_TUNE_TABLE": "/tune.json",
+    "USE_PALLAS_ATTENTION": "0", "USE_PALLAS_DECODE": "1", "WARMUP_SAMPLING": "0",
 }
 
 
@@ -398,3 +415,52 @@ def test_x_priority_header(priority, status):
         assert "not ported" in reason
     elif priority == "urgent":
         assert reason == 'X-Priority must be "interactive" or "batch"'
+
+
+def test_the_knob_list_covers_every_module():
+    """The parametrisation above reaches past load_config: the names the
+    JAX package reads in its engine, loop, app, registry, kernels and
+    device layer are all in it."""
+    names = set(_jax_knob_names())
+    assert {"CHAT_TEMPLATE", "WARMUP_SAMPLING", "ADMIT_OVERLAP", "LOCKTRACE", "JAX_TRACE_DIR",
+            "JAX_PLATFORMS", "USE_PALLAS_ATTENTION", "USE_PALLAS_DECODE",
+            "PALLAS_AUTOTUNE_ITERS", "PALLAS_TUNE_TABLE", "ADMIT_GRACE_MS"} <= names
+
+
+@pytest.mark.parametrize("name,off", [("LOCKTRACE", "0"), ("LOCKTRACE", "false"),
+                                      ("ADMIT_OVERLAP", "1"), ("ADMIT_OVERLAP", "yes")])
+def test_unported_loop_and_debug_knobs_accept_their_default(name, off):
+    assert load_config({"DEVICE": "cpu", name: off}).device == "cpu"
+
+
+def test_bad_chat_template_fails_at_startup_with_the_jax_reason(monkeypatch):
+    """An unknown CHAT_TEMPLATE stops the app from being built, with the JAX
+    package's reason; a known one is read (any case) and shown."""
+    from mlmicroservicetemplate_tpu.api import build_app as jax_build_app
+    from mlmicroservicetemplate_tpu_torch.api.app import build_app
+    from mlmicroservicetemplate_tpu_torch.serve import build_service
+
+    monkeypatch.setenv("CHAT_TEMPLATE", "alpaca")
+    with pytest.raises(ValueError) as want:
+        jax_build_app(None, types.SimpleNamespace(kind="seq2seq", tokenizer=None), None,
+                      types.SimpleNamespace(jobs=None))
+    monkeypatch.delenv("CHAT_TEMPLATE")
+    cfg, bundle, engine, batcher = build_service(
+        {"DEVICE": "cpu", "MODEL_NAME": "bert-base", "WARMUP": "0", "CHAT_TEMPLATE": "alpaca"})
+    with pytest.raises(ValueError) as got:
+        build_app(cfg, bundle, engine, batcher)
+    assert str(got.value) == str(want.value)
+    ok = load_config({"DEVICE": "cpu", "CHAT_TEMPLATE": "ChatML"})
+    assert ok.chat_template == "chatml"
+
+
+def test_admit_grace_ms_is_the_loops_grace():
+    from mlmicroservicetemplate_tpu_torch.engine.streams import ContinuousDecodeLoop
+
+    cfg = load_config({"DEVICE": "cpu", "ADMIT_GRACE_MS": "20"})
+    loop = ContinuousDecodeLoop(types.SimpleNamespace(
+        bundle=types.SimpleNamespace(name="m"), seq_buckets=(16,), chunk_tokens=4,
+        paged_kv=False), cfg)
+    assert loop.admit_grace_s == 0.02
+    with pytest.raises(ValueError, match="ADMIT_GRACE_MS"):
+        load_config({"DEVICE": "cpu", "ADMIT_GRACE_MS": "-1"})

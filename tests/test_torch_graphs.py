@@ -438,8 +438,8 @@ def test_generation_through_graphs_gives_jax_tokens(quant):
     _, bundle, engine, _ = build_service({**LLAMA, **({"QUANT_KV": "int8"} if quant else {})},
                                          params=params)
     cache = _with_graphs(engine)
-    engine.warmup()
-    assert cache.kinds() == {"start": 4, "gen_chunk": 4}
+    engine.warmup()  # every bucket's argmax and sampled graphs, as JAX warms both
+    assert cache.kinds() == {"start": 8, "gen_chunk": 8}
     misses = cache.stats()["miss"]
     got = engine.run_batch([bundle.preprocess(RawItem(text=t, max_tokens=m))
                             for t, m in REQUESTS])
@@ -450,6 +450,40 @@ def test_generation_through_graphs_gives_jax_tokens(quant):
     # One prompt alone, in a bucket whose graphs are then replayed again.
     alone = engine.run_batch([bundle.preprocess(RawItem(text="hi"))])
     np.testing.assert_array_equal(alone[0], want[0])
+
+
+# Seeded sampled requests beside greedy ones: (text, max_tokens, sampling).
+SAMPLED = [("hi", None, dict(temperature=0.8, seed=1)),
+           ("the quick brown fox", 3, {}),
+           ("serving tokens, twice", None, dict(temperature=1.2, top_k=40, top_p=0.9, seed=2)),
+           ("a", 7, dict(temperature=0.6, top_p=0.5, seed=3))]
+
+
+@pytest.mark.parametrize("warm_sampling", [True, False], ids=["warmed", "unwarmed"])
+def test_sampled_generation_through_graphs_gives_jax_tokens(warm_sampling):
+    """A batch with a sampled row replays the sampled variant of its bucket's
+    graphs, captured at warmup, or, under ``WARMUP_SAMPLING=0``, at its
+    first dispatch (a miss); its seeded rows are the JAX engine's."""
+    jcfg, jbundle = _jax_bundle(continuous_batching=False)
+    params = jax.tree.map(np.asarray, jbundle.params)
+    jengine = JaxEngine(jbundle, jcfg, ReplicaSet(make_mesh(1)))
+    want = jengine.run_batch(
+        [jbundle.preprocess(JaxRawItem(text=t, max_tokens=m, **kw)) for t, m, kw in SAMPLED])
+    _, bundle, engine, _ = build_service(
+        {**LLAMA, "WARMUP_SAMPLING": "1" if warm_sampling else "0"}, params=params)
+    cache = _with_graphs(engine)
+    engine.warmup()
+    n = 8 if warm_sampling else 4
+    assert cache.kinds() == {"start": n, "gen_chunk": n}
+    misses = cache.stats()["miss"]
+    got = engine.run_batch([bundle.preprocess(RawItem(text=t, max_tokens=m, **kw))
+                            for t, m, kw in SAMPLED])
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert cache.stats()["miss"] == misses + (0 if warm_sampling else 2)
+    sampled = [e for e in cache.entries() if e.replays and e.inputs is not None
+               and e.kind == "start" and bool(e.inputs[2].temperature.any())]
+    assert len(sampled) == 1
 
 
 async def _streams(loop, preprocess) -> list[list[int]]:
@@ -502,9 +536,11 @@ def test_loop_through_graphs_gives_jax_tokens(paged, quant, warm):
         loop.stop()
     assert got == want
     kind = "loop_chunk_paged" if paged else "loop_chunk"
-    (chunk,) = [e for e in cache.entries() if e.kind == kind]
-    # warm() replays once before the streams' chunks
+    assert len([e for e in cache.entries() if e.kind == kind]) == 2  # argmax and sampled
+    chunk, sampled = loop.chunk_graph(False), loop.chunk_graph(True)
+    # warm() replays once before the streams' chunks; no stream samples
     assert chunk.replays == loop.chunk_dispatches + warm and loop.chunk_dispatches > 0
+    assert sampled.replays == 0
     if warm:
         assert loop._state is state and [t.data_ptr() for t in _tensors(state)] == ptrs
     assert chunk.inputs[0] is loop._state
@@ -532,7 +568,7 @@ def test_a_second_loop_never_replays_the_first_loops_graph():
     second.warm()
     a, b = first.chunk_graph(), second.chunk_graph()
     assert a is not b and a.inputs[0] is first._state and b.inputs[0] is second._state
-    assert cache.kinds() == {"loop_chunk_paged": 2}
+    assert cache.kinds() == {"loop_chunk_paged": 4}  # each loop's argmax and sampled
 
 
 def test_failed_dispatch_resets_the_slot_state_in_place():

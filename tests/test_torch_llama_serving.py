@@ -7,8 +7,9 @@ and the port's, on the same weights (the JAX params carried across by
   included, with a dense and with an int8 KV cache (f32: identical).
 - HTTP ``/predict`` and ``/v1/completions`` answer with the fields and
   values of the JAX handlers for the same bodies.
-- What the port does not serve yet (sampling, streamed or not, and the
-  knobs of later slices) is an error, never a quiet greedy answer.
+- Seeded sampled requests, whole and streamed, get the JAX app's answer.
+- What the port does not serve yet (the knobs of later slices) is an
+  error, never a quiet answer without it.
 """
 
 import asyncio
@@ -154,25 +155,63 @@ def test_http_matches_the_jax_handlers(services):
                 assert g[key] == w[key], (path, body, key)
 
 
+async def _http_text(app, posts):
+    """(status, body text) per post: ndjson and SSE bodies too."""
+    client = TestClient(TestServer(app))
+    await client.start_server()
+    try:
+        for _ in range(400):
+            if (await client.get("/readyz")).status == 200:
+                break
+            await asyncio.sleep(0.05)
+        return [(r.status, await r.text())
+                for r in [await client.post(path, json=body) for path, body in posts]]
+    finally:
+        await client.close()
+
+
+def _comparable(path: str, body: dict, text: str):
+    """A 200's body without its timing: JSON, ndjson lines or SSE frames."""
+    if body.get("stream"):
+        if path == "/predict":
+            lines = [json.loads(ln) for ln in text.splitlines() if ln]
+            lines[-1].pop("timing_ms")
+            return lines
+        return [f for f in text.split("\n\n") if f]
+    answer = json.loads(text)
+    answer.pop("timing_ms", None)
+    return answer
+
+
 @pytest.mark.parametrize(
     "path,body",
     [
-        ("/predict", {"text": "hi", "stream": True, "temperature": 0.7}),
-        ("/predict", {"text": "hi", "temperature": 0.7}),
-        ("/v1/completions", {"prompt": "hi", "stream": True, "temperature": 0.7}),
-        ("/v1/completions", {"prompt": "hi", "temperature": 1.0}),
+        ("/predict", {"text": "hi", "stream": True, "temperature": 0.7, "seed": 3}),
+        ("/predict", {"text": "hi", "temperature": 0.7, "top_k": 40, "seed": 4}),
+        ("/v1/completions", {"prompt": "hi", "stream": True, "temperature": 0.7,
+                             "top_p": 0.9, "seed": 5}),
+        ("/v1/completions", {"prompt": "hi", "temperature": 1.0, "seed": 6}),
         ("/v1/completions", {"prompt": "hi", "n": 2}),
         ("/v1/completions", {"prompt": ""}),
         ("/predict", {"text": "hi", "max_tokens": 0}),
     ],
 )
 def test_unported_requests_answer_400(services, path, body):
-    _, (cfg, bundle, engine, _) = services
+    """What the port does not serve answers 400 and dispatches nothing.
+    Sampling (the first four bodies, answered 400 until it was ported) is
+    served now, whole and streamed: seeded, the JAX app's very answer."""
+    (jcfg, jbundle, jengine), (cfg, bundle, engine, _) = services
     dispatches = engine.dispatches
-    ((status, _),) = asyncio.run(_http(build_app(cfg, bundle, engine, Batcher(engine, cfg)),
-                                       [(path, body)]))
-    assert status == 400
-    assert engine.dispatches == dispatches + 1  # the readiness canary, nothing else
+    ((status, text),) = asyncio.run(_http_text(
+        build_app(cfg, bundle, engine, Batcher(engine, cfg)), [(path, body)]))
+    if not body.get("temperature"):
+        assert status == 400
+        assert engine.dispatches == dispatches + 1  # the readiness canary, nothing else
+        return
+    ((jstatus, jtext),) = asyncio.run(_http_text(
+        jax_build_app(jcfg, jbundle, jengine, JaxBatcher(jengine, jcfg)), [(path, body)]))
+    assert status == jstatus == 200, text
+    assert _comparable(path, body, text) == _comparable(path, body, jtext)
 
 
 @pytest.mark.parametrize(

@@ -3,7 +3,7 @@ weights and buckets, f32 on the CPU: ndjson ``/predict`` and SSE
 ``/v1/completions`` bodies equal the JAX handlers' for the same requests
 (``max_tokens``, ``stop`` strings, ``stream_options.include_usage``; the
 final ndjson line's ``timing_ms`` aside), the deltas concatenate to the
-final text, and ``temperature > 0`` still answers 400."""
+final text, and a seeded ``temperature > 0`` stream is the JAX app's."""
 
 import asyncio
 import json
@@ -153,14 +153,20 @@ def test_sse_completions_match_jax(services):
 
 
 @pytest.mark.parametrize("path,body", [
-    ("/predict", {"text": "hi", "stream": True, "temperature": 0.7}),
-    ("/v1/completions", {"prompt": "hi", "stream": True, "temperature": 1.0}),
+    ("/predict", {"text": "hi", "stream": True, "temperature": 0.7, "top_k": 40, "seed": 11}),
+    ("/v1/completions", {"prompt": "hi", "stream": True, "temperature": 1.0, "top_p": 0.9,
+                         "seed": 12}),
 ])
 def test_sampled_streams_answer_400(services, path, body):
-    _, (cfg, bundle, engine, _) = services
-    ((status, _),) = asyncio.run(_http(build_app(cfg, bundle, engine, Batcher(engine, cfg)),
-                                       [(path, body)]))
-    assert status == 400
+    """Sampled streams answered 400 until sampling was ported; now they are
+    served, and a seeded one streams the JAX app's very body."""
+    got, want = _both(services, [(path, body)])
+    ((gs, g),), ((ws, w),) = got, want
+    assert gs == ws == 200, g
+    if path == "/predict":
+        assert _ndjson(g) == _ndjson(w)
+    else:
+        assert g == w
 
 
 def test_stream_past_the_largest_bucket_answers_400(services):
