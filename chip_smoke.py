@@ -22,6 +22,14 @@ result line:
    headline keeps its original inputs); CUDA-event times of
    the kernel, the plain version and ``scaled_dot_product_attention`` (a
    yardstick only; the port never calls it) beside the kernel's bound.
+3a. kernel fused_attention t5: K1 at T5-small's shape (H=8, D=64) with
+   its position bias in q's type and ``scale=1.0``: bf16 and f32, B in {1,
+   8, 32}, S in {18, 64, 128, 417, 512} (the seq buckets the T5 phases
+   serve, and two widths whose bias rows end inside a 128-key tile and
+   off 16 bytes), unpadded and padded masks, against its plain
+   version; CUDA-event ms, device µs (bf16, S 128 and 512), the bound over q, k, v, mask,
+   bias and output bytes, and SDPA with the same bias folded into its
+   ``attn_mask``; then ptxas's registers and spills of the bias variants.
 4. kernel decode_attention: the same for the decode kernel, dense bf16,
    dense f32 and int8 with bf16 scales, B in {1, 8, 32}, H=32, KVH=4,
    D=64, T in {96, 576, 2048}; one row padded to a third of T, and (B > 1)
@@ -152,10 +160,26 @@ result line:
    cache, greedy against sampled, eager and as graphs, split into K2,
    GEMMs and the rest; the sampler alone as graphs on [B, 50257] logits
    (threefry Gumbel noise, sort and filter, ``select_token``, argmax).
+8c. serve t5, serve t5 stream, serve t5 long prompt, serve t5 per-stream,
+   each with its graphs phase: T5-small at full width (6+6 layers, d_model
+   512, 8 heads of 64, d_ff 2048, vocab 32128; random weights from seed 0
+   at the JAX init's scales with an untied head; bf16; the byte
+   tokenizer), whole, through the contiguous loop, with two prompts of
+   different lengths past a cut SEQ_BUCKETS on the per-stream path (one
+   width, their lengths rounded up to a multiple of 128: 2 misses), and
+   with ``CONTINUOUS_BATCHING=0``; the waves of 7 and four long prompts
+   (the 512 bucket).  K1 must launch 6 times per run of a ``start`` graph
+   and K2 never; every token is teacher-forced against an f32 one-pass
+   forward through K1's plain version; the device's bucket tables must
+   equal the CPU's; graphs against eager for the batch, the loop's chunk
+   and a per-stream generation.  Then ``start t5``: encode + cross K/V +
+   first chunk at B in {1, 8, 32}, S=512, eager and as graphs, split into
+   K1, GEMMs and the rest, and ``decode step t5`` at the same batches.
 9. http: ``/predict`` on bert-base, ``/predict`` and ``/status`` (its
    ``n_devices``) on bert-long, ``/predict``, ``/v1/completions`` (greedy
    and sampled), ``/v1/chat/completions`` and ``/v1/models`` on llama and
-   gpt2, whole and streamed (ndjson, and SSE ending in ``data: [DONE]``),
+   gpt2 and t5-small, whole and streamed (ndjson, and SSE ending in
+   ``data: [DONE]``),
    over loopback through the aiohttp app (skipped, and said so, where
    aiohttp is missing); where PIL is installed, a PNG to resnet50 as a raw
    ``image/png`` body and as a multipart ``file`` part, each answered with
@@ -168,7 +192,8 @@ and ``{"ok": true, "device": {...}}``.  ``--cpu-rehearsal`` skips the build,
 kernel and graphs phases (the CPU runs the eager functions), serves
 BERT-base, ResNet-50 (f32, batch buckets 1-8), bert-long (SP=2,
 SEQ_BUCKETS=64,128), a 2-layer llama (``LLAMA_CONFIG``) and full-width
-GPT-2 (batch buckets 1-4, 16 decode positions), whole and streamed, on the
+GPT-2 (batch buckets 1-4, 16 decode positions) and full-width T5-small
+(batch buckets 1-4, seq buckets 32-128), whole and streamed, on the
 CPU at small buckets, and prints no result line.
 """
 
@@ -226,6 +251,8 @@ REHEARSAL_LLAMA = dict(vocab_size=512, d_model=256, num_heads=4, num_kv_heads=2,
 # GPT-2 small's decode shape: 12 query heads over 12 KV heads (one query
 # head per KV head, R = 1), and its vocabulary (the sampler's width).
 GPT2_HEADS, GPT2_VOCAB = (12, 12), 50257
+# T5-small's encoder: 8 heads of 64, 6 layers (K1 launches per start).
+T5_HEADS, T5_LAYERS = 8, 6
 # Card against CPU Gumbel noise: torch's log on the card and on the CPU may
 # differ in the last bits of f32 (the bits and uniforms under them must be
 # equal).
@@ -305,23 +332,23 @@ def bound(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def attention_bound(b: int, s: int, dtype, bias) -> tuple[float, str]:
+def attention_bound(b: int, s: int, dtype, bias, heads: int = HEADS) -> tuple[float, str]:
     """K1: q, k, v, mask (and bias) read once, the output written once;
     4·B·H·S²·D operations."""
     el = 2 if str(dtype).endswith("bfloat16") else 4
-    nbytes = 4 * b * s * HEADS * HEAD_DIM * el + b * s * 4
+    nbytes = 4 * b * s * heads * HEAD_DIM * el + b * s * 4
     if bias is not None:
         nbytes += bias.numel() * bias.element_size()
-    return bound(nbytes, 4 * b * HEADS * s * s * HEAD_DIM, str(dtype).split(".")[-1])
+    return bound(nbytes, 4 * b * heads * s * s * HEAD_DIM, str(dtype).split(".")[-1])
 
 
-def rates(mask, ms: float) -> dict:
+def rates(mask, ms: float, heads: int = HEADS) -> dict:
     """K1's and K4's tensor-core rate in TFLOP/s: ``tflops`` counts q·k and
     p·v over each batch row's valid keys (what the bounds count, and the
     least the kernels do, since they skip only tiles with no valid key);
     ``tflops_every_key`` counts every key, as a dense attention would."""
     b, s = mask.shape
-    per_key = 4 * HEADS * s * HEAD_DIM
+    per_key = 4 * heads * s * HEAD_DIM
     return {"tflops": per_key * int(mask.ne(0).sum()) / ms / 1e9,
             "tflops_every_key": per_key * b * s / ms / 1e9}
 
@@ -384,6 +411,7 @@ def phase_build(require_mma: bool = True) -> None:
             raise AssertionError(f"{lib['name']}: no HGMMA instruction in the built library")
         if lib["name"] in MMA_LIBRARIES and lib["hmma"] == 0:
             raise AssertionError(f"{lib['name']}: no HMMA instruction in the built library")
+    return libraries
 
 
 def k1_mask(b: int, s: int, layout: str):
@@ -474,6 +502,86 @@ def phase_kernel() -> dict:
                 raise AssertionError(f"fused_attention disagrees with its plain version: {row}")
             if name == "bfloat16" and (b, s, with_bias, layout) == (32, 512, False, "pad"):
                 headline = row
+    return headline
+
+
+def bias_variants(libraries) -> list[dict]:
+    """ptxas's report of K1's kernels that take a bias (the loop's Op
+    templated on a bias type other than void, and the f32 kernel, which
+    takes one as an argument)."""
+    lib = next((x for x in libraries or () if x["name"] == "fused_attention"), None)
+    return [k for k in (lib or {}).get("ptxas", []) if "IvE" not in k["kernel"]]
+
+
+# K1's widths at T5's shape: 64, a partial key tile, and 128 and 512, whole
+# tiles, as every seq bucket of the T5 phases and every multiple of 128 a
+# prompt past the largest bucket is served at; and two widths whose last key
+# tile is partial and whose bf16 bias rows (36 and 834 bytes) are not whole
+# 16-byte words, as a SEQ_BUCKETS entry may be.
+T5_K1_SEQS = (18, 64, 128, 417, 512)
+
+
+def phase_t5_kernel(libraries) -> dict:
+    """K1 at T5-small's shape (H=8, D=64) with its position bias: bf16 and
+    f32, B in {1, 8, 32}, S in ``T5_K1_SEQS``, the bias in q's type and
+    ``scale=1.0``, on unpadded and padded masks; against its plain version,
+    with CUDA-event ms, device µs (bf16 at S 128 and 512), the bound over
+    q, k, v, mask, bias
+    and output bytes, and SDPA with the same additive bias folded into its
+    ``attn_mask`` as the library time.  Returns the bf16 B=32, S=512 padded
+    row with the bias variants' registers and spills."""
+    import torch
+    import torch.nn.functional as F
+
+    from mlmicroservicetemplate_tpu_torch.ops.attention import (
+        fused_attention,
+        fused_attention_ref,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    headline = None
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        for b, s, layout in [(b, s, m) for b in (1, 8, 32) for s in T5_K1_SEQS
+                             for m in ("none", "pad")]:
+            q, k, v = (torch.randn(b, s, T5_HEADS, HEAD_DIM, device="cuda",
+                                   generator=gen).to(dtype) for _ in range(3))
+            bias = torch.randn(1, T5_HEADS, s, s, device="cuda", generator=gen).to(dtype)
+            mask = k1_mask(b, s, layout)
+            if layout == "pad" and b <= 2:
+                mask[0, 2 * s // 3:] = 0
+            out = fused_attention(q, k, v, mask, bias, 1.0)
+            torch.cuda.synchronize()
+            ref = fused_attention_ref(q.float(), k.float(), v.float(), mask, bias.float(), 1.0)
+            diff = (out.float() - ref).abs()
+            tol = KERNEL_TOL[name]
+            ok = bool(torch.isfinite(out).all()) and bool((diff <= tol + tol * ref.abs()).all())
+            iters = 20 if s >= 512 else 100
+            add = torch.where(mask[:, None, None, :] != 0, 0.0, -1e9).to(dtype) + bias
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            bound_ms, bound_by = attention_bound(b, s, dtype, bias, heads=T5_HEADS)
+            kernel_ms = cuda_ms(lambda: fused_attention(q, k, v, mask, bias, 1.0), iters)
+            row = dict(
+                dtype=name, shape=[b, s, T5_HEADS, HEAD_DIM], bias=name, scale=1.0,
+                mask=layout, max_abs_err=diff.max().item(), tol=f"atol=rtol={tol}", ok=ok,
+                kernel_ms=kernel_ms,
+                device_us=(device_us(lambda: fused_attention(q, k, v, mask, bias, 1.0))
+                           if name == "bfloat16" and s in (128, 512) else None),
+                plain_ms=cuda_ms(lambda: fused_attention_ref(q, k, v, mask, bias, 1.0),
+                                 iters),
+                library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=add, scale=1.0), iters),
+                bound_us=bound_ms * 1e3, bound_by=bound_by,
+                **rates(mask, kernel_ms, heads=T5_HEADS),
+            )
+            emit("kernel fused_attention t5", **row)
+            if not ok:
+                raise AssertionError(f"fused_attention with T5's bias disagrees with its "
+                                     f"plain version: {row}")
+            if name == "bfloat16" and (b, s, layout) == (32, 512, "pad"):
+                headline = row
+    headline["bias_variants_ptxas"] = bias_variants(libraries)
+    emit("kernel fused_attention t5 registers", variants=headline["bias_variants_ptxas"])
     return headline
 
 
@@ -1887,10 +1995,12 @@ def chunk_graph_vs_eager(engine, loop) -> dict:
     import numpy as np
     import torch
 
+    from mlmicroservicetemplate_tpu_torch.models.gpt import state_tensors
+
     out = {}
     with torch.inference_mode(), engine._lock:
         st = loop._state
-        st.key_valid.fill_(1)
+        every_key_valid(st)
         st.done.fill_(False)
         if engine.paged_kv:
             loop._table[:] = np.arange(loop._table.size).reshape(loop._table.shape) % \
@@ -1920,9 +2030,20 @@ def chunk_graph_vs_eager(engine, loop) -> dict:
             "tokens_identical": out}
 
 
+def every_key_valid(state) -> None:
+    """Every key of a slot state valid: a decoder's cache keys, or an
+    encoder-decoder's encoder keys (its self-attention reads its cache up
+    to each row's position)."""
+    for name in ("key_valid", "enc_mask"):
+        if hasattr(state, name):
+            getattr(state, name).fill_(1)
+
+
 def tensor_bytes(obj) -> int:
     """Bytes of the tensors in ``obj`` (a tensor, a decode state, or lists
     and tuples of them)."""
+    from mlmicroservicetemplate_tpu_torch.models.gpt import state_tensors
+
     if hasattr(obj, "data_ptr"):
         return obj.numel() * obj.element_size()
     if dataclasses.is_dataclass(obj):
@@ -1930,20 +2051,6 @@ def tensor_bytes(obj) -> int:
     if isinstance(obj, (list, tuple)):
         return sum(tensor_bytes(t) for t in obj)
     return 0
-
-
-def state_tensors(state) -> list:
-    """Every tensor of a decode state (caches, int8 scales, per-row fields,
-    sampling parameters)."""
-    out = []
-    for f in dataclasses.fields(state):
-        v = getattr(state, f.name)
-        if dataclasses.is_dataclass(v):  # the rows' SampleParams
-            out.extend(state_tensors(v))
-            continue
-        for t in (v if isinstance(v, list) else [v]):
-            out.extend(t if isinstance(t, tuple) else [t] if hasattr(t, "data_ptr") else [])
-    return out
 
 
 def phase_forward(bundle, engine) -> None:
@@ -1997,10 +2104,33 @@ def llama_pytree(cfg, seed: int) -> dict:
 
 
 def family(bundle):
-    """The model module of a generative bundle (``gpt`` or ``llama``)."""
-    from mlmicroservicetemplate_tpu_torch.models import gpt, llama
+    """The model module of a generative bundle (``gpt``, ``llama`` or
+    ``t5``)."""
+    from mlmicroservicetemplate_tpu_torch.models import gpt, llama, t5
 
-    return gpt if bundle.name == "gpt2" else llama
+    return {"gpt2": gpt, "t5-small": t5}.get(bundle.name, llama)
+
+
+def forced_logits(bundle, model, f: dict, toks: list, dtype=None, **kw):
+    """f32 logits [L, V] of ``model`` at the steps that emitted ``toks``,
+    in one pass (teacher-forced): a decoder over the prompt and the tokens
+    before each, T5's decoder over its start token and the tokens before
+    each with the prompt encoded (with ``dtype`` None: f32 and, for T5, K1's
+    plain version: the reference)."""
+    import torch
+
+    prompt = [int(t) for t in f["input_ids"]]
+    dev = bundle.device
+    if bundle.name == "t5-small":
+        ids = torch.tensor([prompt], dtype=torch.int32, device=dev)
+        tgt = torch.tensor([toks], dtype=torch.long, device=dev)
+        return family(bundle).teacher_forced_logits(
+            model, ids, torch.ones_like(ids), tgt, dtype or torch.float32,
+            plain=dtype is None)[0]
+    ids = torch.tensor([prompt + toks[:-1]], dtype=torch.int32, device=dev)
+    args = () if dtype is None else (dtype,)
+    logits = family(bundle).lm_logits(model, ids, torch.ones_like(ids), *args, **kw)
+    return logits[0, len(prompt) - 1:]
 
 
 def step_keys(seed: int, n: int, device):
@@ -2072,9 +2202,9 @@ def teacher_forced(bundle, ref_model, feats, rows, max_len: int) -> dict:
     f32."""
     import torch
 
-    lm_logits = family(bundle).lm_logits
     cfg = bundle.cfg
     dev = bundle.device
+    kv_quant = cfg.kv_quant
     gaps, err_served, err_kv8, exact, checked = [], 0.0, 0.0, 0, 0
     sampled = []
     with torch.inference_mode():
@@ -2083,15 +2213,11 @@ def teacher_forced(bundle, ref_model, feats, rows, max_len: int) -> dict:
             toks = [int(t) for t in row[:budget]]
             if cfg.eos_id in toks:
                 toks = toks[: toks.index(cfg.eos_id) + 1]
-            prompt = [int(t) for t in f["input_ids"]]
-            n = len(prompt)
-            ids = torch.tensor([prompt + toks[:-1]], dtype=torch.int32, device=dev)
-            mask = torch.ones_like(ids)
-            ref = lm_logits(ref_model, ids, mask)[0, n - 1:]
-            served = lm_logits(bundle.model, ids, mask, bundle.policy.compute_dtype)[0, n - 1:]
+            ref = forced_logits(bundle, ref_model, f, toks)
+            served = forced_logits(bundle, bundle.model, f, toks, bundle.policy.compute_dtype)
             err_served = max(err_served, (served - ref).abs().max().item())
-            if cfg.kv_quant:
-                kq = lm_logits(ref_model, ids, mask, kv_int8_roundtrip=True)[0, n - 1:]
+            if kv_quant:
+                kq = forced_logits(bundle, ref_model, f, toks, kv_int8_roundtrip=True)
                 err_kv8 = max(err_kv8, (kq - ref).abs().max().item())
             checked += len(toks)
             if float(f.get("temperature", 0.0)) > 0:
@@ -2112,7 +2238,7 @@ def teacher_forced(bundle, ref_model, feats, rows, max_len: int) -> dict:
                argmax_equal_share=exact / max(1, checked - n_s), worst_gap=worst, tol=tol,
                sampled_rows=len(sampled), sampled_tokens=n_s,
                sampled_worst_gap_over_tol=worst_s, served_logit_err=err_served,
-               kv8_logit_err=err_kv8 if cfg.kv_quant else None)
+               kv8_logit_err=err_kv8 if kv_quant else None)
     if worst > tol or worst_s > 1.0:
         raise AssertionError(f"an emitted token trails the f32 reference's draw: {out}")
     return out
@@ -2135,9 +2261,7 @@ def alone_vs_batch(bundle, ref_model, f: dict, in_batch, alone, tol: float) -> d
             raise AssertionError(f"alone {len(a)} tokens, in a batch {len(b)}")
         return out
     with torch.inference_mode():
-        prompt = [int(t) for t in f["input_ids"]]
-        ids = torch.tensor([prompt + b[:at]], dtype=torch.int32, device=bundle.device)
-        ref = family(bundle).lm_logits(ref_model, ids, torch.ones_like(ids))[0, -1:]
+        ref = forced_logits(bundle, ref_model, f, b[: at + 1])[-1:]
         score, raw, cutoff, tol_s = perturbed(ref, f, torch.tensor([at]), tol)
         kept = (raw >= (cutoff - tol_s)[:, None])[0]
         top = score[0][kept].topk(2).values
@@ -2341,7 +2465,7 @@ def time_chunk(engine, loop) -> dict:
 
     bundle = engine.bundle
     with torch.inference_mode(), engine._lock:
-        loop._state.key_valid.fill_(1)
+        every_key_valid(loop._state)
         if engine.paged_kv:
             loop._table[:] = np.arange(loop._table.size).reshape(loop._table.shape) % \
                 engine.kv_pool.num_blocks
@@ -2361,14 +2485,16 @@ def time_chunk(engine, loop) -> dict:
 
 
 def phase_decode_step(bundle, label: str = "decode step", batches=(1, 8, 32),
-                      prompt: int = 512, sampled: bool = False) -> None:
+                      prompt: int = 512, sampled: bool = False,
+                      kernel: tuple[str, str] = (K2_KERNEL, "decode_attention")) -> None:
     """One decode step at each batch size over a (prompt + 64)-key cache,
     eager and as a captured graph of the step over the same state, side by
     side (37 steps in all, inside the 64 decode positions).  With
     ``sampled``, the sampled step too (every row at temperature 1, top_k 40,
     top_p 0.9; its own state), and the sampler alone on [B, V] f32 logits as
     graphs: the threefry Gumbel noise, the sort and filter, the whole
-    ``select_token`` and, for scale, the greedy argmax."""
+    ``select_token`` and, for scale, the greedy argmax.  ``kernel``: the
+    (name regex, label) of the kernel the split sets apart."""
     import numpy as np
     import torch
 
@@ -2392,10 +2518,13 @@ def phase_decode_step(bundle, label: str = "decode step", batches=(1, 8, 32),
                     return bundle.generate_chunk(state, 1, sample)[1]
 
                 entry = capture_graph("gen_chunk", step, state, "cuda")
-                out[variant] = eager_and_graph(step, entry.replay, 5, K2_KERNEL,
-                                               "decode_attention")
+                out[variant] = eager_and_graph(step, entry.replay, 5, *kernel)
+        # A decoder's cache holds prompt and decode positions; T5's self
+        # cache only the decode ones, its encoder keys the prompt.
+        cache = ({"self_cache_len": 64, "encoder_keys": prompt} if hasattr(state, "enc_mask")
+                 else {"cache_len": prompt + 64})
         if not sampled:
-            emit(label, batch=b, cache_len=prompt + 64, **out["greedy"])
+            emit(label, batch=b, **cache, **out["greedy"])
             continue
         logits = torch.randn(b, v, device="cuda", generator=gen) * 3
         sp = params.to("cuda")
@@ -2415,7 +2544,7 @@ def phase_decode_step(bundle, label: str = "decode step", batches=(1, 8, 32),
                 sampler[name] = {"graph_ms": cuda_ms(e.replay, 20),
                                  "busy_ms": split["device_busy_ms"], "kernels": split["kernels"]}
         g, sm = out["greedy"]["graph"], out["sampled"]["graph"]
-        emit(label, batch=b, cache_len=prompt + 64, vocab=v, **out, sampler=sampler,
+        emit(label, batch=b, **cache, vocab=v, **out, sampler=sampler,
              sampled_minus_greedy_busy_ms=(sm["device_busy_ms"] - g["device_busy_ms"]
                                            if sm["device_busy_ms"] and g["device_busy_ms"]
                                            else None),
@@ -2519,6 +2648,222 @@ def gpt2_pytree(cfg, seed: int) -> dict:
                    for _ in range(cfg.num_layers)],
         "final_ln": ln(),
     }
+
+
+def t5_pytree(cfg, seed: int) -> dict:
+    """Random weights in the JAX package's T5 layout (numpy f32, ``[d_in,
+    d_out]`` kernels) at the JAX init's scales, with an untied N(0, 1)
+    ``lm_head`` kernel: a tied head on random weights argmax-locks onto one
+    token, and every token check would pass vacuously."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def w(std, *shape):
+        a = rng.standard_normal(shape, dtype=np.float32)
+        a *= std
+        return a
+
+    d, inner, f = cfg.d_model, cfg.inner_dim, cfg.d_ff
+
+    def ln():
+        return {"scale": np.ones(d, np.float32)}
+
+    def attn(rel: bool) -> dict:
+        p = {"q": {"kernel": w((d * cfg.d_kv) ** -0.5, d, inner)},
+             "k": {"kernel": w(d ** -0.5, d, inner)}, "v": {"kernel": w(d ** -0.5, d, inner)},
+             "out": {"kernel": w(inner ** -0.5, inner, d)}}
+        if rel:
+            p["rel_bias"] = {"embedding": w(d ** -0.5, cfg.rel_buckets, cfg.num_heads)}
+        return p
+
+    def mlp() -> dict:
+        return {"wi": {"kernel": w(d ** -0.5, d, f)}, "wo": {"kernel": w(f ** -0.5, f, d)}}
+
+    layers = range(cfg.num_layers)
+    return {
+        "shared": {"embedding": w(1.0, cfg.vocab_size, d)},
+        "encoder": {"layers": [{"attn": attn(i == 0), "attn_ln": ln(), "mlp": mlp(),
+                                "mlp_ln": ln()} for i in layers], "final_ln": ln()},
+        "decoder": {"layers": [{"self_attn": attn(i == 0), "self_attn_ln": ln(),
+                                "cross_attn": attn(False), "cross_attn_ln": ln(),
+                                "mlp": mlp(), "mlp_ln": ln()} for i in layers],
+                    "final_ln": ln()},
+        "lm_head": {"kernel": w(1.0, d, cfg.vocab_size)},
+    }
+
+
+def t5_long_wave(rehearsal: bool, n: int = 4, lengths=None):
+    """``n`` document-like prompts (rehearsal: 100-120 bytes; on the card
+    300-480, the 512 bucket), the second sampled and seeded, the third with
+    a max_tokens."""
+    import numpy as np
+
+    from mlmicroservicetemplate_tpu_torch.models.registry import RawItem
+
+    rng = np.random.default_rng(2)
+    words = ["summarize", "the", "document", "encoder", "decoder", "relative", "bias", "wave"]
+    lo, hi = lengths or ((100, 120) if rehearsal else (300, 480))
+    wave = []
+    for i in range(n):
+        length = int(rng.integers(lo, hi))
+        text = " ".join(rng.choice(words, size=length))[:length]
+        kw = dict(temperature=0.9, top_k=40, seed=77) if i == 1 else {}
+        wave.append(RawItem(text=text, max_tokens=20 if i == 2 else None, **kw))
+    return wave
+
+
+def start_calls(bundle, before: dict) -> int:
+    """Runs of the bundle's ``start`` graphs since ``before``
+    (``replays_of``): replays, and a capture's eager run."""
+    from mlmicroservicetemplate_tpu_torch.runtime.compile_cache import CACHE
+
+    return sum(e.replays - before.get(id(e), 0) + (id(e) not in before)
+               for e in CACHE.entries(bundle) if e.kind == "start")
+
+
+def bucket_tables_check(bundle) -> dict:
+    """T5's bucket tables on the device against the CPU's (numpy f32, the
+    reference's integers), every width the run used."""
+    import numpy as np
+
+    t5 = family(bundle)
+    checked = []
+    for (kind, width, _), table in sorted(bundle.model._buckets.items()):
+        fn = t5.encoder_buckets if kind == "encoder" else t5.decoder_buckets
+        if not np.array_equal(table.cpu().numpy(), fn(bundle.cfg, width)):
+            raise AssertionError(f"T5 {kind} bucket table at width {width} differs on the "
+                                 f"device from the CPU's")
+        checked.append(f"{kind}:{width}")
+    if not checked:
+        raise AssertionError("no T5 bucket table was built")
+    return {"tables": checked}
+
+
+def stream_graph_vs_eager(engine, f: dict) -> dict:
+    """One stream through ``generate_stream`` with the engine's graphs and,
+    with its graphs off, eagerly: tokens identical."""
+    import numpy as np
+
+    graphs = engine.graphs
+    got = np.concatenate(list(engine.generate_stream(f)))
+    engine.graphs = None
+    try:
+        want = np.concatenate(list(engine.generate_stream(f)))
+    finally:
+        engine.graphs = graphs
+    if not np.array_equal(got, want):
+        raise AssertionError("per-stream tokens through graphs differ from eager ones")
+    return {"tokens": int(got.size), "tokens_identical": True}
+
+
+def phase_serve_t5(label: str, overrides: dict, params, ref_model, waves, rehearsal: bool,
+                   card_line: str, stream: bool = False):
+    """T5-small served at full width, whole through ``Batcher.submit`` or
+    streamed through ``Batcher.submit_stream`` (the continuous loop, or the
+    per-stream path for prompts past the largest seq bucket and under
+    ``CONTINUOUS_BATCHING=0``): K1 launched 6 times per run of a ``start``
+    graph (replays and capture runs) and K2 never; every token teacher-forced
+    (greedy and sampled) against an f32 forward through K1's plain version
+    on the same weights, the solo request (the last of ``waves``, from
+    ``with_solo``) against its run in the full wave, the device's bucket
+    tables against the CPU's; streamed through the loop, one chunk of its
+    slot state timed."""
+    import numpy as np
+
+    from mlmicroservicetemplate_tpu_torch.ops.attention import decode_attention, fused_attention
+    from mlmicroservicetemplate_tpu_torch.serve import build_service
+
+    cfg, bundle, engine, batcher = build_service(overrides, params=params)
+    loop = batcher._cdl
+    warm_s = batcher.warm_engine() + (batcher.warm_streams() if stream else 0.0)
+    waves, solo = with_solo(waves)
+
+    fused_attention.launches = decode_attention.launches = 0
+    engine.dispatches = engine.decode_steps = 0
+    if loop is not None:
+        loop.prefill_dispatches = loop.chunk_dispatches = loop.decode_steps = 0
+    marks = graph_marks(bundle)
+    if stream:
+        feats, rows, latencies, ttfts, wall = asyncio.run(drive_streams(batcher, bundle, waves))
+    else:
+        feats, rows, latencies, wall = asyncio.run(drive(batcher, bundle, waves))
+        ttfts = None
+    k1, k2 = fused_attention.launches, decode_attention.launches
+    starts = start_calls(bundle, marks[0])
+    gdrive = graph_drive(bundle, marks, {"fused_attention": k1})
+    if not rehearsal and (starts < 1 or k1 != T5_LAYERS * starts):
+        raise AssertionError(f"{label}: fused_attention launched {k1} times over {starts} "
+                             f"start runs; the encoder must launch it {T5_LAYERS} times each")
+    if k2:
+        raise AssertionError(f"{label}: decode_attention launched {k2} times; T5's decoder "
+                             "attention is plain PyTorch")
+    if loop is not None and loop.admitted != 0:
+        raise AssertionError(f"{label}: {loop.admitted} streams never released")
+    if batcher._active_streams:
+        raise AssertionError(f"{label}: {batcher._active_streams} per-stream workers left")
+    for f, row in zip(feats, rows):
+        budget = min(int(f.get("max_tokens", engine.max_decode_len)), engine.max_decode_len)
+        if row.dtype != np.int32 or not (1 <= len(row) <= budget if stream
+                                         else row.shape == (engine.max_decode_len,)):
+            raise AssertionError(f"{label}: bad token row {row!r} (budget {budget})")
+    check = teacher_forced(bundle, ref_model, feats, rows, engine.max_decode_len)
+    budget = min(int(feats[solo].get("max_tokens", engine.max_decode_len)),
+                 engine.max_decode_len)
+    alone = alone_vs_batch(bundle, ref_model, feats[solo], rows[solo][:budget],
+                           rows[-1][:budget], check["tol"])
+    lat = np.array(latencies) * 1e3
+    out = dict(
+        device=str(bundle.device), card=card_line, layers=bundle.cfg.num_layers,
+        streamed=stream, path=("loop" if loop is not None else "per-stream") if stream
+        else "whole", requests=len(rows), longest_prompt=max(int(f["length"]) for f in feats),
+        dispatches=engine.dispatches, start_runs=starts, fused_attention_launches=k1,
+        admission_waves=loop.prefill_dispatches if loop is not None else None,
+        chunk_dispatches=loop.chunk_dispatches if loop is not None else None,
+        warmup_s=warm_s, p50_ms=float(np.percentile(lat, 50)),
+        p99_ms=float(np.percentile(lat, 99)),
+        ttft_p50_ms=float(np.percentile(np.array(ttfts) * 1e3, 50)) if ttfts else None,
+        generated_tok_per_s=check["tokens_checked"] / wall,
+        graph_modes=engine.graph_modes(), bucket_tables=bucket_tables_check(bundle),
+        seeded_alone_vs_batch=alone, **check,
+    )
+    if stream and loop is not None and not rehearsal:
+        out["chunk"] = time_chunk(engine, loop)
+    emit(label, **out)
+    return cfg, bundle, engine, k1, gdrive, feats, loop
+
+
+def phase_t5_timings(bundle, engine) -> None:
+    """Where T5's time goes on the card: ``start`` (encode, the cross K/V,
+    the first chunk) at B in {1, 8, 32}, S=512, eager and as the bucket's
+    graph, split into K1, GEMMs and the rest; then one decode step at the
+    same batches over a 64-position cache (``phase_decode_step``; K1 runs in
+    none)."""
+    import torch
+
+    from mlmicroservicetemplate_tpu_torch.models.sampling import greedy_params
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for b in (1, 8, 32):
+        shape = (b, 512)
+        ids = torch.randint(5, 261, shape, device="cuda", generator=gen, dtype=torch.int32)
+        mask = torch.ones_like(ids)
+        with engine._lock, torch.inference_mode():
+            entry = engine._graph("start", shape, False,
+                                  lambda: engine._make_start(shape, False))
+            entry.inputs[0].copy_(ids)
+            entry.inputs[1].copy_(mask)
+            entry.inputs[2].copy_(greedy_params(b, "cuda"))
+
+            def eager():
+                state = bundle.init_state(ids, mask, engine.max_decode_len)
+                return bundle.generate_chunk(state, engine.chunk_tokens)
+
+            out = eager_and_graph(eager, entry.replay, 5, K1_KERNEL, "attention",
+                                  count=LAUNCHED_KERNEL["fused_attention"])
+        emit("start t5", shape=list(shape), chunk=engine.chunk_tokens, **out)
+    phase_decode_step(bundle, "decode step t5", batches=(1, 8, 32), prompt=512,
+                      kernel=(K1_KERNEL, "attention"))
 
 
 def ndjson_text(body: str) -> dict:
@@ -2670,6 +3015,7 @@ def main(argv: list[str]) -> int:
         emit(phase, card=card_line, torch=torch.__version__, cuda=torch.version.cuda,
              python=sys.version.split()[0])
         headline = decode_headline = paged_headline = ring_headline = ring_serving = None
+        t5_headline = None
         skip_graphs = "cpu rehearsal: no CUDA graphs on the CPU"
 
         def graphs(label, bundle, gdrive, **checks):
@@ -2680,16 +3026,18 @@ def main(argv: list[str]) -> int:
 
         if rehearsal:
             emit("build", skipped="cpu rehearsal: no nvcc, no kernels")
-            for name in ("fused_attention", "decode_attention", "paged_decode_attention",
-                         "ring_hop"):
+            for name in ("fused_attention", "fused_attention t5", "decode_attention",
+                         "paged_decode_attention", "ring_hop"):
                 emit(f"kernel {name}", skipped="cpu rehearsal: the plain version runs")
             emit("sampler", skipped="cpu rehearsal: no card to hold the CPU against")
             emit("kernel graphs", skipped=skip_graphs)
         else:
             phase = "build"
-            phase_build()
+            libraries = phase_build()
             phase = "kernel fused_attention"
             headline = phase_kernel()
+            phase = "kernel fused_attention t5"
+            t5_headline = phase_t5_kernel(libraries)
             phase = "kernel decode_attention"
             decode_headline, gpt2_decode = phase_decode_kernel()
             phase = "kernel paged_decode_attention"
@@ -2857,6 +3205,69 @@ def main(argv: list[str]) -> int:
             phase_decode_step(gpt2_svc[1], phase, batches=(1, 8, 16), prompt=256,
                               sampled=True)
 
+        # T5-small at full width (6+6 layers, d_model 512, 8 heads of 64,
+        # d_ff 2048, vocab 32128), seed-0 weights at the JAX init's scales
+        # with an untied head, bf16, the byte tokenizer: whole, through the
+        # contiguous loop, and on the per-stream path (two prompts past a cut
+        # SEQ_BUCKETS; every stream under CONTINUOUS_BATCHING=0).
+        from mlmicroservicetemplate_tpu_torch.convert.jax_params import t5_params_from_jax
+        from mlmicroservicetemplate_tpu_torch.models import t5 as t5_mod
+
+        tcfg = t5_mod.T5Config()
+        tparams = t5_pytree(tcfg, seed=0)
+        tref = t5_mod.build_model(tcfg, t5_params_from_jax(tparams, tcfg), torch.device(device),
+                                  torch.float32)
+        t5_overrides = {"MODEL_NAME": "t5-small", "DEVICE": device, "BATCH_BUCKETS": "1,4,8,32",
+                        "SEQ_BUCKETS": "64,128,512", "MAX_DECODE_LEN": "64",
+                        "MAX_STREAMS": "16"}
+        cut_seq, long_lens = "64,128,256", ((400, 420), (385, 400))
+        if rehearsal:
+            t5_overrides.update(BATCH_BUCKETS="1,2,4", SEQ_BUCKETS="32,64,128",
+                                MAX_DECODE_LEN="16")
+            cut_seq, long_lens = "32,64", ((100, 110), (70, 90))
+        t5_waves = gen_waves(rehearsal) + [t5_long_wave(rehearsal)]
+        phase = "serve t5"
+        t5_svc = phase_serve_t5(phase, t5_overrides, tparams, tref, t5_waves, rehearsal,
+                                card_line)
+        phase = "graphs t5"
+        graphs("t5", t5_svc[1], t5_svc[4],
+               graph_vs_eager=lambda: tokens_graph_vs_eager(t5_svc[2], t5_svc[5][-16:]))
+        if rehearsal:
+            for name in ("start t5", "decode step t5"):
+                emit(name, skipped="cpu rehearsal: no card to profile")
+        else:
+            phase = "start t5"
+            phase_t5_timings(t5_svc[1], t5_svc[2])
+        phase = "serve t5 stream"
+        t5_stream = phase_serve_t5(phase, t5_overrides, tparams, tref, t5_waves, rehearsal,
+                                   card_line, stream=True)
+        phase = "graphs t5 stream"
+        graphs("t5 stream", t5_stream[1], t5_stream[4],
+               graph_vs_eager=lambda: chunk_graph_vs_eager(t5_stream[2], t5_stream[6]))
+        t5_k1 = t5_svc[3] + t5_stream[3]
+        # The per-stream path: two prompts of different lengths past the
+        # largest of cut buckets (one width, a multiple of 128: start and
+        # gen_chunk captured at first use, 2 misses for both), then every
+        # stream with the loop off (B=1 buckets, all warmed).
+        long_wave = [t5_long_wave(rehearsal, n=1, lengths=lens)[0] for lens in long_lens]
+        for phase, extra, waves, misses in (
+                ("serve t5 long prompt", {"SEQ_BUCKETS": cut_seq, "BATCH_BUCKETS": "1,4,16"},
+                 gen_waves(rehearsal) + [long_wave], 2),
+                ("serve t5 per-stream", {"CONTINUOUS_BATCHING": "0", "BATCH_BUCKETS": "1"},
+                 gen_waves(rehearsal), 0)):
+            if rehearsal and "BATCH_BUCKETS" in extra:
+                extra = {**extra, "BATCH_BUCKETS": "1,2,4"}
+            svc = phase_serve_t5(phase, {**t5_overrides, **extra}, tparams, tref, waves,
+                                 rehearsal, card_line, stream=True)
+            widest = max(svc[5], key=lambda f: int(f["length"]))
+            label = phase[len("serve "):]
+            phase = f"graphs {label}"
+            graphs(label, svc[1], {**svc[4], "want_misses": misses},
+                   graph_vs_eager=lambda: stream_graph_vs_eager(svc[2], widest))
+            t5_k1 += svc[3]
+            release(svc[1])
+        del tref, tparams
+
         phase = "http"
         try:
             import aiohttp  # noqa: F401
@@ -2926,6 +3337,24 @@ def main(argv: list[str]) -> int:
                 ("/v1/completions", {"prompt": "hello card", "stream": True, "max_tokens": 12},
                  sse_text),
             ]))
+            t5_whole = asyncio.run(http_check(*t5_svc[:3], [
+                ("/predict", {"text": "summarize: hello card", "max_tokens": 8},
+                 json_key("prediction")),
+                ("/v1/completions", {"prompt": "hello card", "max_tokens": 8,
+                                     "temperature": 0.8, "top_k": 40, "seed": 3},
+                 json_key("usage")),
+                ("/v1/chat/completions", {"messages": chat, "max_tokens": 8},
+                 json_key("choices")),
+                ("/v1/models", None, json_key("data")),
+            ]))
+            t5_streamed = asyncio.run(http_check(*t5_stream[:3], [
+                ("/predict", {"text": "summarize: hello card", "stream": True,
+                              "max_tokens": 12}, ndjson_text),
+                ("/v1/completions", {"prompt": "hello card", "stream": True, "max_tokens": 12,
+                                     "temperature": 0.9, "seed": 4}, sse_text),
+                ("/v1/chat/completions", {"messages": chat, "stream": True, "max_tokens": 12},
+                 sse_text),
+            ]))
             emit(phase, status=200, prediction=prediction,
                  bert_long_prediction=long_prediction, bert_long_n_devices=n_devices,
                  resnet50=image, llama_prediction=generated[0],
@@ -2935,7 +3364,10 @@ def main(argv: list[str]) -> int:
                  llama_stream_chat=streamed[2], gpt2_chat_sampled=gpt2_whole[0],
                  gpt2_models=gpt2_whole[1], gpt2_stream_predict_sampled=gpt2_streamed[0],
                  gpt2_stream_chat_sampled=gpt2_streamed[1],
-                 gpt2_stream_completions=gpt2_streamed[2])
+                 gpt2_stream_completions=gpt2_streamed[2], t5_prediction=t5_whole[0],
+                 t5_sampled_usage=t5_whole[1], t5_chat=t5_whole[2], t5_models=t5_whole[3],
+                 t5_stream_predict=t5_streamed[0], t5_stream_completions_sampled=t5_streamed[1],
+                 t5_stream_chat=t5_streamed[2])
     except Exception as e:
         traceback.print_exc()
         emit(phase, ok=False, error=f"{type(e).__name__}: {e}")
@@ -2965,9 +3397,14 @@ def main(argv: list[str]) -> int:
         }
 
     print(json.dumps({"kernels": [
+        # launches: BERT-base's and T5's encoder (with its bias, beside its
+        # own case's numbers), each served path of the run.
         kernel_entry("fused_attention", "mlmicroservicetemplate_tpu/ops/attention.py:400",
-                     launches, headline, tflops=headline["tflops"],
-                     tflops_every_key=headline["tflops_every_key"]),
+                     launches + t5_k1, headline, tflops=headline["tflops"],
+                     tflops_every_key=headline["tflops_every_key"],
+                     t5={**gpt2_entry(t5_headline, t5_k1), "bias": t5_headline["bias"],
+                         "mask": t5_headline["mask"], "tflops": t5_headline["tflops"],
+                         "bias_variants_ptxas": t5_headline["bias_variants_ptxas"]}),
         # launches: llama's and GPT-2's (at R = 1, beside its own case's
         # numbers), each served path of the run.
         kernel_entry("decode_attention", "mlmicroservicetemplate_tpu/ops/attention.py:310",

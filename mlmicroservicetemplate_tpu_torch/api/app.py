@@ -9,8 +9,9 @@ model also takes ``max_tokens``, ``stop`` and the sampling fields
 (``temperature``, ``top_k``, ``top_p``, ``seed``) on ``/predict`` and
 answers ``POST /v1/completions`` and ``POST /v1/chat/completions`` (the
 message list rendered by ``CHAT_TEMPLATE``, ``api/chat.py``); with
-``stream: true`` they stream through the continuous decode loop,
-``/predict`` as ndjson lines of text deltas and the ``/v1`` routes as
+``stream: true`` they stream through the continuous decode loop (or the
+per-stream path: a prompt past the largest seq bucket, or
+``CONTINUOUS_BATCHING=0``), ``/predict`` as ndjson lines of text deltas and the ``/v1`` routes as
 server-sent events ending in ``data: [DONE]``.  Also ``GET /v1/models``,
 ``/healthz``, ``/readyz``, ``/status`` and ``/metrics``.  With ``SERVER_URL`` set, the
 app registers with its parent on startup (``api/registration.py``).  The
@@ -373,7 +374,7 @@ def _tokens_covering(decode, tokens, target_len: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# streaming: token chunks from the continuous decode loop as text deltas
+# streaming: token chunks from the batcher's stream paths as text deltas
 
 
 def _stop_holdback(text: str, stops) -> int:

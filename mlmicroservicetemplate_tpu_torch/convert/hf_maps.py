@@ -1,7 +1,7 @@
 """HuggingFace state dicts -> the JAX package's param pytree layout.
 
-A copy of the BERT, GPT-2 and Llama parts of the JAX package's
-``convert/hf_maps.py``:
+A copy of the BERT, T5, GPT-2 and Llama parts of the JAX package's
+``convert/hf_maps.py`` (T5's with its optional untied ``lm_head.weight``):
 ``MODEL_PATH`` checkpoints go HF names -> this pytree (numpy, linear
 weights transposed to ``[in, out]``) -> ``convert.jax_params``, so the
 port serves exactly the weights the JAX package serves from the same file.
@@ -66,6 +66,64 @@ def bert_state_to_pytree(state: State, n_layers: int = 12) -> dict:
         p["pooler"] = lin("bert.pooler.dense")
     if "classifier.weight" in state:
         p["classifier"] = lin("classifier")
+    return p
+
+
+def t5_state_to_pytree(state: State, n_layers: int = 6) -> dict:
+    def rms(prefix: str) -> dict:
+        return {"scale": state[f"{prefix}.weight"]}
+
+    def lin(prefix: str) -> dict:
+        # T5 linears have no bias.
+        return {"kernel": _lin(state[f"{prefix}.weight"])}
+
+    def attn(base: str, cross: bool = False) -> dict:
+        d = {
+            "q": lin(f"{base}.q"),
+            "k": lin(f"{base}.k"),
+            "v": lin(f"{base}.v"),
+            "out": lin(f"{base}.o"),
+        }
+        rp = f"{base}.relative_attention_bias.weight"
+        if rp in state:
+            d["rel_bias"] = {"embedding": state[rp]}
+        return d
+
+    p: dict = {
+        "shared": {"embedding": state["shared.weight"]},
+        "encoder": {"layers": [], "final_ln": rms("encoder.final_layer_norm")},
+        "decoder": {"layers": [], "final_ln": rms("decoder.final_layer_norm")},
+    }
+    for i in range(n_layers):
+        b = f"encoder.block.{i}.layer"
+        p["encoder"]["layers"].append(
+            {
+                "attn": attn(f"{b}.0.SelfAttention"),
+                "attn_ln": rms(f"{b}.0.layer_norm"),
+                "mlp": {
+                    "wi": lin(f"{b}.1.DenseReluDense.wi"),
+                    "wo": lin(f"{b}.1.DenseReluDense.wo"),
+                },
+                "mlp_ln": rms(f"{b}.1.layer_norm"),
+            }
+        )
+    for i in range(n_layers):
+        b = f"decoder.block.{i}.layer"
+        p["decoder"]["layers"].append(
+            {
+                "self_attn": attn(f"{b}.0.SelfAttention"),
+                "self_attn_ln": rms(f"{b}.0.layer_norm"),
+                "cross_attn": attn(f"{b}.1.EncDecAttention", cross=True),
+                "cross_attn_ln": rms(f"{b}.1.layer_norm"),
+                "mlp": {
+                    "wi": lin(f"{b}.2.DenseReluDense.wi"),
+                    "wo": lin(f"{b}.2.DenseReluDense.wo"),
+                },
+                "mlp_ln": rms(f"{b}.2.layer_norm"),
+            }
+        )
+    if "lm_head.weight" in state:
+        p["lm_head"] = {"kernel": _lin(state["lm_head.weight"])}
     return p
 
 

@@ -10,7 +10,9 @@ JAX llama pytree (``{"embed", "layers": [{"attn_ln", "attn", "mlp_ln",
 "mlp"}], "final_ln", "lm_head"}``) onto ``LlamaModel``,
 ``gpt_params_from_jax`` the JAX GPT-2 pytree (``{"wte", "wpe", "layers":
 [{"ln1", "attn": {"qkv", "out"}, "ln2", "mlp": {"up", "down"}}],
-"final_ln"}``) onto ``GPTModel``, and
+"final_ln"}``) onto ``GPTModel``, ``t5_params_from_jax`` the JAX T5 pytree
+(``{"shared", "encoder", "decoder"}`` with layer 0's ``rel_bias`` tables,
+and an optional untied ``lm_head`` kernel) onto ``T5Model``, and
 ``resnet_params_from_jax`` the JAX ResNet pytree (HWIO conv kernels, BN
 ``scale``/``bias``/``mean``/``var``) onto ``ResNet``, each conv kernel
 permuted to OIHW.  All raise on a missing leaf, an unused leaf or a shape
@@ -30,6 +32,7 @@ from ..models.gpt import GPTConfig, GPTModel, PagedState
 from ..models.llama import LlamaConfig, LlamaModel
 from ..models.resnet import ResNet, ResNetConfig
 from ..models.sampling import SampleParams
+from ..models.t5 import T5Config, T5Model
 
 # JAX layout -> the port's: a dense kernel [in, out] -> [out, in], a conv
 # kernel HWIO -> OIHW.
@@ -88,6 +91,19 @@ def _gpt_jax_name(port_name: str) -> tuple[str, tuple[int, ...] | None]:
     return port_name, None
 
 
+def _t5_jax_name(port_name: str) -> tuple[str, tuple[int, ...] | None]:
+    """As ``_jax_name``, for ``T5Model``, whose module paths are the JAX
+    pytree's: RMSNorm weights are ``scale`` leaves, the shared table and
+    the relative-position tables ``embedding`` leaves, every other weight
+    (the untied head included) a transposed ``kernel``."""
+    mod, _, _ = port_name.rpartition(".")
+    if mod.endswith("_ln"):
+        return f"{mod}.scale", None
+    if mod == "shared" or mod.endswith(".rel_bias"):
+        return f"{mod}.embedding", None
+    return f"{mod}.kernel", DENSE
+
+
 def _resnet_jax_name(port_name: str) -> tuple[str, tuple[int, ...] | None]:
     """As ``_jax_name``, for ``ResNet``: the module paths are the JAX
     pytree's; a ``weight`` is a ``kernel`` (the classifier's dense, every
@@ -120,6 +136,15 @@ def gpt_params_from_jax(pytree, cfg: GPTConfig) -> dict[str, torch.Tensor]:
     with torch.device("meta"):
         expected = GPTModel(cfg).state_dict()
     return _from_jax(pytree, expected, _gpt_jax_name, "GPT-2", cfg)
+
+
+def t5_params_from_jax(pytree, cfg: T5Config) -> dict[str, torch.Tensor]:
+    """The JAX T5 param pytree (numpy leaves) as ``T5Model``'s state dict,
+    f32 on the CPU; with ``lm_head.weight`` when the pytree carries an
+    untied ``lm_head``."""
+    with torch.device("meta"):
+        expected = T5Model(cfg, untied_head="lm_head" in pytree).state_dict()
+    return _from_jax(pytree, expected, _t5_jax_name, "T5", cfg)
 
 
 def resnet_params_from_jax(pytree, cfg: ResNetConfig) -> dict[str, torch.Tensor]:

@@ -272,6 +272,28 @@ __device__ __forceinline__ void rescale(float (&o)[32], int r, float alpha) {
 // -1e9 would, 0.  Columns 16kk .. 16kk + 15 of the score accumulator are
 // the A fragment of P's 16-key slice kk.  A row's 128 scores sit in the 4
 // lanes of one quad (32 each), so its reductions are two xor shuffles.
+// A tile's scores in the op's units, the bias added (kBias), masked keys
+// at -inf.  kFull: every key of the tile is valid, so no key is tested and
+// the bias is read unchecked; else a key past the end reads no bias.
+template <bool kFull, class Op>
+__device__ __forceinline__ void score_tile(const Op& op, float (&s)[64], const uint32_t (&word)[4],
+                                           int k0, int h, const int (&rows)[2]) {
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int j = 0; j < kTileKeys / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = 8 * j + 2 * t + (e & 1);
+      const bool keep = kFull || ((word[j / 4] >> (col % 32)) & 1u);
+      float x = s[4 * j + e];
+      if constexpr (Op::kBias) {
+        x = x * op.scale + op.template add<kFull>(h, rows[e >> 1], k0 + col);
+      }
+      s[4 * j + e] = keep ? x : -INFINITY;
+    }
+  }
+}
+
 template <class Op>
 __device__ __forceinline__ void softmax_tile(const Op& op, float (&s)[64], const uint32_t* words,
                                              int k0, int h, const int (&rows)[2],
@@ -282,19 +304,10 @@ __device__ __forceinline__ void softmax_tile(const Op& op, float (&s)[64], const
 #pragma unroll
   for (int i = 0; i < 4; ++i) word[i] = words[i];
   const bool full_tile = (word[0] & word[1] & word[2] & word[3]) == 0xffffffffu;
-  const int t = threadIdx.x % 4;
-  if (Op::kBias || !full_tile) {
-#pragma unroll
-    for (int j = 0; j < kTileKeys / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 8 * j + 2 * t + (e & 1);
-        const bool keep = (word[j / 4] >> (col % 32)) & 1u;
-        float x = s[4 * j + e];
-        if constexpr (Op::kBias) x = x * op.scale + op.add(h, rows[e >> 1], k0 + col);
-        s[4 * j + e] = keep ? x : -INFINITY;
-      }
-    }
+  if (!full_tile) {
+    score_tile<false>(op, s, word, k0, h, rows);
+  } else if constexpr (Op::kBias) {
+    score_tile<true>(op, s, word, k0, h, rows);
   }
   // Scores in the op's units are x·scale (x biased: x); exp2 takes them
   // times to2, folded into one FFMA with the row's max.
@@ -350,7 +363,8 @@ constexpr int smem_bytes(int n_tiles) {
 //   static constexpr bool kBias;      // add(h, row, col) is called
 //   static constexpr float kMaskedScore;  // a masked key's score, same units
 //   begin(b, h, row, r, t, o, m, l)   // the start state of accumulator half r
-//   add(h, row, col)                  // extra score term (kBias)
+//   add<kFull>(h, row, col)           // extra score term (kBias); kFull:
+//                                     // col is a valid key, else any key
 //   end(b, h, row, r, t, o, m, l)     // the epilogue of half r (row < seq)
 template <class Op>
 __global__ void __launch_bounds__(kConsumers * 128 + 32, kMinBlocks)

@@ -102,9 +102,12 @@ struct EncoderOp {
     l = 0.f;
   }
 
-  // The bias in log2 units (called only with kBias).
+  // The bias in log2 units (called only with kBias).  A row past the end
+  // is never written and a key past the end scores -inf: neither reads the
+  // bias, whose last row ends at the tensor's end.  kFull: col is valid.
+  template <bool kFull>
   __device__ __forceinline__ float add(int h, int row, int col) const {
-    if (row >= seq) return 0.f;  // a row past the end is never written
+    if (row >= seq || (!kFull && col >= seq)) return 0.f;
     return to_f32(static_cast<const TB*>(bias)[h * b_sh + row * b_sq + col]) * kLog2e;
   }
 

@@ -38,7 +38,9 @@ not ported), the same functions run eagerly; ``graph_modes`` says which.
   package's done-aware ``while_loop``; rows come back pad-filled to
   ``max_decode_len``.
 - Streaming generation runs in the continuous decode loop
-  (``engine/streams.py``), which admits a wave of streams through
+  (``engine/streams.py``), or for one request on its own through
+  ``generate_stream`` (prompts past the loop's largest seq bucket, and
+  ``CONTINUOUS_BATCHING=0``).  The loop admits a wave of streams through
   ``start`` (prefill plus the first chunk, fused as in the JAX package)
   and, with ``PAGED_KV=1``, keeps its KV in ``kv_pool``: blocks for
   ``MAX_STREAMS`` worst-case streams (largest seq bucket plus the decode
@@ -51,15 +53,22 @@ import logging
 import math
 import random
 import threading
+from typing import Iterator
 
 import numpy as np
 import torch
 
+from ..models.gpt import clone_state, copy_state
 from ..models.registry import KIND_IMAGE, KIND_SEQ2SEQ, KIND_TEXT, ModelBundle, decode_budget
 from ..models.sampling import SampleParams, greedy_params, make_params
 from ..runtime import compile_cache
 from ..utils import tracing
 from .kv_blocks import BlockPool, blocks_for, kv_token_bytes
+
+# A per-stream prompt past the largest seq bucket is collated at its length
+# rounded up to this step (at most the model's prompt cap), so such prompts
+# share a bounded set of widths, and of graphs.
+LONG_PROMPT_STEP = 128
 
 log = logging.getLogger(__name__)
 
@@ -369,6 +378,69 @@ class InferenceEngine:
                 state.steps = steps
             self.dispatches += 1
             return state.tokens.cpu().numpy(), steps
+
+    def generate_stream(self, feats: dict) -> Iterator[np.ndarray]:
+        """Streaming generation of one request on its own, the per-stream
+        path (prompts longer than the loop's largest seq bucket, and every
+        stream under ``CONTINUOUS_BATCHING=0``): ``start`` at the request's
+        own bucket (a prompt past every seq bucket at ``stream_width``; on
+        the card its graph is captured at first use, a miss), then ``gen_chunk``
+        until EOS or the request's budget; yields each chunk's int32 tokens,
+        the last trimmed to the budget.  The lock is held per dispatch only.
+        On the card the bucket's graphs read and write one static state,
+        which another dispatch of the bucket may overwrite between two
+        chunks, so the stream keeps its own copy of the state and moves it
+        in and out around each replay."""
+        if self.bundle.kind != KIND_SEQ2SEQ:
+            raise ValueError(f"{self.bundle.name} does not support streaming")
+        budget = self.budget_for(feats)
+        ids, mask, _ = self._collate_text([feats])
+        pad = ((0, 0), (0, self.stream_width(ids.shape[1]) - ids.shape[1]))
+        ids, mask = np.pad(ids, pad), np.pad(mask, pad)
+        sp, sampled = self._collate_sample([feats], ids.shape[0])
+        with self._lock, torch.inference_mode():
+            state, toks = self._start(ids, mask, sp, sampled)
+            chunk, done = toks[0].cpu().numpy(), bool(state.done[0])
+            if self.graphs is not None:
+                state = clone_state(state)
+            self.decode_steps += self.chunk_tokens
+            self.dispatches += 1
+        produced = self.chunk_tokens
+        yield chunk[:budget]
+        while not done and produced < budget:
+            with self._lock, torch.inference_mode():
+                toks = self._stream_chunk(ids.shape, state, sampled)
+                chunk, done = toks[0].cpu().numpy(), bool(state.done[0])
+                self.decode_steps += self.chunk_tokens
+            yield chunk[: budget - produced]
+            produced += self.chunk_tokens
+
+    def stream_width(self, width: int) -> int:
+        """The per-stream path's width for a collated prompt width: a seq
+        bucket as it is; past the largest, rounded up to a multiple of
+        ``LONG_PROMPT_STEP``, at most the model's prompt cap.  Padded keys
+        are masked, so the tokens do not change."""
+        if width <= max(self.seq_buckets):
+            return width
+        cap = max(width, self.bundle.max_prompt_len or width)
+        return min(-(-width // LONG_PROMPT_STEP) * LONG_PROMPT_STEP, cap)
+
+    def _stream_chunk(self, shape: tuple, state, sample: bool) -> torch.Tensor:
+        """One decode chunk of a per-stream state (the caller holds
+        ``_lock``): eagerly, or on the card through the bucket's
+        ``gen_chunk`` graph with the state copied into the bucket's static
+        state and back; returns the chunk's tokens [1, chunk]."""
+        if self.graphs is None:
+            return self.bundle.generate_chunk(state, self.chunk_tokens, sample)[1]
+        entry = self._graph("gen_chunk", shape, sample,
+                            lambda: self._make_gen_chunk(shape, sample))
+        static = self._graph("start", shape, sample,
+                             lambda: self._make_start(shape, sample)).outputs[0]
+        copy_state(static, state)
+        entry.replay()
+        copy_state(state, static)
+        state.steps += self.chunk_tokens
+        return entry.outputs
 
     def start(self, feats: list[dict]):
         """Prefill plus the first decode chunk of a wave of streams,

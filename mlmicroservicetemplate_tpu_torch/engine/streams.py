@@ -21,7 +21,11 @@ with.
 KV layouts, as in the reference:
 - contiguous (``PAGED_KV=0``): every slot holds ``[largest seq bucket +
   decode budget]`` cache rows; decode runs the contiguous decode-attention
-  kernel (K2).
+  kernel (K2).  An encoder-decoder (T5) brings its own slot state
+  (``ModelBundle.slot_state``): self caches ``[decode budget]`` rows, cross
+  K/V and an encoder mask as wide as the largest seq bucket; an insert
+  copies every field of the wave row, zero-padding the narrower ones, as
+  the reference's ``ins_row`` does, whatever the family.
 - block-paged (``PAGED_KV=1``): per-layer pools of ``KV_BLOCK_SIZE``-token
   blocks shared by every slot, plus a host-owned block table per slot
   (``engine/kv_blocks.py``) that each chunk carries to the device.  A
@@ -54,7 +58,9 @@ prefill runs the bucket's ``start`` graph, whose static state the next
 wave's ``start`` until its rows are copied into their slots.
 
 The engine's ``_lock`` serializes the loop's dispatches with the
-non-streaming batcher's; tokens reach each stream's asyncio queue through
+non-streaming batcher's and the per-stream path's (prompts past the
+largest seq bucket; ``MAX_STREAMS`` counts those streams too,
+``external_active``); tokens reach each stream's asyncio queue through
 ``loop.call_soon_threadsafe``.  The loop thread enters
 ``torch.inference_mode`` itself (it is thread-local).
 
@@ -69,6 +75,7 @@ ever does, the dispatch raises instead of requeueing.
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import logging
 import threading
 import time
@@ -77,7 +84,7 @@ from typing import Any, AsyncIterator
 import numpy as np
 import torch
 
-from ..models.gpt import GPTState, PagedState
+from ..models.gpt import GPTState, PagedState, state_tensors
 from ..models.sampling import greedy_params
 from ..ops.paged_attention import scatter_pages
 from ..runtime import compile_cache
@@ -170,6 +177,9 @@ class ContinuousDecodeLoop:
         # before admitting the wave (ADMIT_GRACE_MS).
         self.admit_grace_s = float(getattr(cfg, "admit_grace_ms", 8.0)) / 1e3
         self.queue = StreamQueue(self.max_streams)
+        # Streams the batcher serves on the per-stream path: MAX_STREAMS
+        # caps them and the loop's together.
+        self.external_active = lambda: 0
         self.active: dict[int, _Stream] = {}
         # Live slots whose stream samples: the loop runs the sampled chunk
         # while this is non-empty.
@@ -218,7 +228,7 @@ class ContinuousDecodeLoop:
         st = _Stream(feats, asyncio.get_running_loop(), self.engine.budget_for(feats))
         with tracing.span("admission", cat="sched", rid=st.rid):
             with self._admitted_lock:
-                total = self._admitted
+                total = self._admitted + int(self.external_active())
                 if total < self.max_streams:
                     self._admitted += 1
             if total >= self.max_streams:
@@ -507,6 +517,15 @@ class ContinuousDecodeLoop:
         dev = eng.device
         dtype = eng.bundle.policy.compute_dtype
         n = self.n_slots
+        st = self._state
+        if st is not None:
+            self._reset_state(st)
+            return
+        if eng.bundle.slot_state is not None:  # an encoder-decoder's own layout
+            self._state = eng.bundle.slot_state(n, self.max_prompt, eng.max_decode_len)
+            self._state_stale = False
+            self._capture_chunks()
+            return
         if self.paged:
             lead, width = (self.pool.num_blocks + 1, self.block_size), self.nb_max * self.block_size
         else:
@@ -514,21 +533,6 @@ class ContinuousDecodeLoop:
             lead = (n, width)
         shape = lead + (cfg.num_kv_heads, cfg.head_dim)
         scale_fill = 1 if self.paged else 0
-        st = self._state
-        if st is not None:
-            for entry in st.cache_k + st.cache_v:
-                if isinstance(entry, tuple):
-                    entry[0].zero_()
-                    entry[1].fill_(scale_fill)
-                else:
-                    entry.zero_()
-            for t in (st.key_valid, st.write_idx, st.pos, st.last_token):
-                t.zero_()
-            st.done.fill_(True)
-            st.tokens.fill_(cfg.pad_id)
-            st.sample.copy_(greedy_params(n, dev))
-            self._state_stale = False
-            return
 
         def entry():
             if cfg.kv_quant:
@@ -555,13 +559,42 @@ class ContinuousDecodeLoop:
         if self.paged:
             self._table_dev = torch.tensor(self._table, device=dev)
             self._note_pool()
-        if eng.graphs is not None:
+        self._capture_chunks()
+
+    def _capture_chunks(self) -> None:
+        """On the card, capture the chunk's graphs (argmax and sampled) over
+        the freshly allocated slot state, every slot dead."""
+        if self.engine.graphs is not None:
             try:
                 self.chunk_graph(False)
                 self.chunk_graph(True)
             except BaseException:
                 self._state = None  # the next admission allocates and captures anew
                 raise
+
+    def _reset_state(self, st) -> None:
+        """Every slot dead again, in place (the graphs keep their
+        addresses): caches zeroed (int8 scale pools of the paged layout
+        ones), the other fields zeroed, rows done, tokens pad, greedy."""
+        eng = self.engine
+        scale_fill = 1 if self.paged else 0
+        for entry in st.cache_k + st.cache_v:
+            if isinstance(entry, tuple):
+                entry[0].zero_()
+                entry[1].fill_(scale_fill)
+            else:
+                entry.zero_()
+        kept = ("cache_k", "cache_v", "done", "tokens", "sample")
+        for f in dataclasses.fields(st):
+            value = getattr(st, f.name)
+            if f.name not in kept:
+                for t in value if isinstance(value, list) else [value]:
+                    if isinstance(t, torch.Tensor):
+                        t.zero_()
+        st.done.fill_(True)
+        st.tokens.fill_(eng.bundle.cfg.pad_id)
+        st.sample.copy_(greedy_params(self.n_slots, eng.device))
+        self._state_stale = False
 
     def _insert_rows(self, single, slot: int, row: int) -> None:
         """The per-row fields of wave row ``row`` into slot ``slot``
@@ -576,16 +609,18 @@ class ContinuousDecodeLoop:
         for d, s in zip(dst.sample.fields(), single.sample.fields()):
             d[slot] = s[row]
 
-    def _insert(self, single: GPTState, slot: int, row: int) -> None:
-        """Contiguous insert: one wave row of the prefill state into one
-        slot (the slot's cache rows past the wave's width zeroed)."""
-        for d_entry, s_entry in zip(self._state.cache_k + self._state.cache_v,
-                                    single.cache_k + single.cache_v):
-            pairs = zip(d_entry, s_entry) if isinstance(d_entry, tuple) else [(d_entry, s_entry)]
-            for d, s in pairs:
-                d[slot, : s.shape[1]] = s[row]
-                d[slot, s.shape[1]:] = 0
-        self._insert_rows(single, slot, row)
+    def _insert(self, single, slot: int, row: int) -> None:
+        """Contiguous insert: every field of wave row ``row`` of the prefill
+        state into slot ``slot``, any family's state (the reference's
+        ``ins_row``): a field narrower than the slot's (a cache, an encoder-
+        decoder's cross K/V and encoder mask at the wave's width) zero-padded
+        past its width."""
+        for d, s in zip(state_tensors(self._state), state_tensors(single)):
+            if d.dim() == 1:
+                d[slot] = s[row]
+                continue
+            d[slot, : s.shape[1]] = s[row]
+            d[slot, s.shape[1]:] = 0
 
     def _insert_paged(self, st: _Stream, single: GPTState, slot: int, row: int,
                       width: int) -> None:
@@ -674,7 +709,8 @@ class ContinuousDecodeLoop:
                  else (self.max_prompt + eng.max_decode_len,))
         descriptor = (self.n_slots, *shape, self.chunk, "sample" if sample else "greedy",
                       str(eng.bundle.policy.compute_dtype).split(".")[-1],
-                      "int8" if cfg.kv_quant else "none", compile_cache.fingerprint(self))
+                      "int8" if cfg.kv_quant else "none",
+                      compile_cache.fingerprint(self))
         return eng.graphs.get(eng.bundle, kind, descriptor, eng.placement_key,
                               lambda: self._make_chunk(sample))
 

@@ -104,6 +104,43 @@ class PagedState:
         return (entry[0] if isinstance(entry, tuple) else entry).shape[0] - 1
 
 
+def state_tensors(state) -> list[torch.Tensor]:
+    """Every tensor of a decode state (any family's dataclass), in field
+    order: caches (int8 pairs flattened), per-row fields, the rows'
+    ``SampleParams``."""
+    out: list[torch.Tensor] = []
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        if dataclasses.is_dataclass(v):
+            out.extend(state_tensors(v))
+            continue
+        for t in v if isinstance(v, list) else [v]:
+            out.extend(t if isinstance(t, tuple) else [t] if isinstance(t, torch.Tensor) else [])
+    return out
+
+
+def clone_state(state):
+    """A copy of a decode state with tensors of its own (the host-side
+    ``steps`` carried over)."""
+    def clone(v):
+        if isinstance(v, torch.Tensor):
+            return v.clone()
+        if isinstance(v, (list, tuple)):
+            return type(v)(clone(x) for x in v)
+        if dataclasses.is_dataclass(v):
+            return dataclasses.replace(v, **{f.name: clone(getattr(v, f.name))
+                                             for f in dataclasses.fields(v)})
+        return v
+
+    return clone(state)
+
+
+def copy_state(dst, src) -> None:
+    """Write every tensor of ``src`` into the same-shaped ``dst``, in place."""
+    for d, s in zip(state_tensors(dst), state_tensors(src)):
+        d.copy_(s)
+
+
 def paged_dest(table: torch.Tensor, t: torch.Tensor, bs: int, nb: int) -> torch.Tensor:
     """Flat pool index of logical position ``t`` of each row.  Positions
     past the table and sentinel entries both resolve into the scratch block
@@ -234,7 +271,9 @@ def finish_step(state, cfg, logits: torch.Tensor, sample: bool):
     over each row's own parameters, whose rng chains advance in place),
     ``pad_id`` for rows already done; then the token, positions, last
     token and done flags written into the state's own tensors (and
-    ``steps`` on the host).  Returns the state and the tokens."""
+    ``steps`` on the host).  Shared by every generative family; a family
+    with its own K/V write index advances it itself.  Returns the state
+    and the tokens."""
     if sample:
         if state.sample is None:
             raise ValueError("a sampled step needs the state's SampleParams")
@@ -246,7 +285,6 @@ def finish_step(state, cfg, logits: torch.Tensor, sample: bool):
     rows = torch.arange(next_tok.shape[0], device=next_tok.device)
     state.tokens[rows, write_at(state, state.pos, state.tokens.shape[1])] = \
         next_tok.to(torch.int32)
-    state.write_idx.add_(1)
     state.pos.add_(1)
     state.last_token.copy_(next_tok)
     torch.logical_or(state.done, next_tok == cfg.eos_id, out=state.done)
@@ -424,6 +462,7 @@ def _step(model: GPTModel, state, write_kv_fn, attend, sample: bool):
         write_kv_fn(state.cache_v[li], at, v1[:, 0])
         x = layer.finish(x, attend(q, state.cache_k[li], state.cache_v[li], state.key_valid))
     x = model.final_ln(x)
+    state.write_idx.add_(1)
     return finish_step(state, cfg, logits_of(model, x[:, 0]), sample)
 
 

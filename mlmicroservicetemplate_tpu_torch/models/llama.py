@@ -292,6 +292,7 @@ def _step(model: LlamaModel, state, write_kv_fn, attend, sample: bool):
         x = layer.finish(x, ctx)
     x = model.final_ln(x)
     logits = lm_head_logits(x[:, 0], model.lm_head.weight)
+    state.write_idx.add_(1)
     return finish_step(state, cfg, logits, sample)
 
 

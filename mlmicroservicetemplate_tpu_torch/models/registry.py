@@ -9,12 +9,12 @@ drawn on the CPU from a seeded ``torch.Generator``.  All three go through
 
 Three kinds are served: image classification (ResNet-50), text
 classification (BERT-base, and bert-long, the long-context BERT whose
-attention runs as a ring over sequence shards), and generation with llama
-and GPT-2 (``KIND_SEQ2SEQ``, the JAX package's kind for every generative
-model), greedy or sampled per request, whole or streamed through the
-continuous decode loop over a contiguous or (``PAGED_KV=1``) block-paged
-KV cache.  ``register_model``
-adds a model of the user's own under a name.
+attention runs as a ring over sequence shards), and generation with llama,
+GPT-2 and the T5-small encoder-decoder (``KIND_SEQ2SEQ``, the JAX
+package's kind for every generative model), greedy or sampled per request,
+whole or streamed through the continuous decode loop over a contiguous or
+(``PAGED_KV=1``, the decoder-only families) block-paged KV cache.
+``register_model`` adds a model of the user's own under a name.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ from . import bert as bert_mod
 from . import gpt as gpt_mod
 from . import llama as llama_mod
 from . import resnet as resnet_mod
+from . import t5 as t5_mod
 from .preprocess import (
     IMAGENET_MEAN,
     IMAGENET_STD,
@@ -81,6 +82,10 @@ class ModelBundle:
     # table [B, T] int32 on the device, n_steps, sample=False) -> (state,
     # tokens).
     paged_chunk: Callable | None = None
+    # Encoder-decoders: (n_slots, encoder width, max_len) -> the continuous
+    # loop's slot state, every row dead (decoder-only families: None, the
+    # loop builds a ``gpt.GPTState`` or ``gpt.PagedState``).
+    slot_state: Callable | None = None
     # Cap on a tokenized prompt (generation keeps position-table room for
     # the decode budget).
     max_prompt_len: int | None = None
@@ -399,9 +404,17 @@ def _build_llama(svc_cfg, policy: DtypePolicy, device: torch.device,
     """Llama-family generation.  Default dims are TinyLlama-1.1B;
     ``LLAMA_CONFIG`` takes a JSON object of ``LlamaConfig`` overrides and
     ``QUANT_KV=int8`` turns on the int8 KV cache."""
-    # Without TOKENIZER_PATH: the byte fallback with a trailing EOS, as the
-    # JAX package's llama uses (SentencePiece files raise "not ported").
-    tokenizer = build_tokenizer(svc_cfg.tokenizer_path, for_t5=True)
+    # Llama prompts start with <s> and end in no </s> (T5's convention
+    # inverted), so a SentencePiece file loads with add_bos and without
+    # add_eos; other paths, and none, take the generative fallback (the
+    # byte tokenizer with a trailing EOS), as in the JAX package.
+    tok_path = svc_cfg.tokenizer_path
+    if tok_path and tok_path.endswith((".model", ".tsv", ".vocab")):
+        from .sentencepiece import load_sentencepiece
+
+        tokenizer = load_sentencepiece(tok_path, add_eos=False, add_bos=True)
+    else:
+        tokenizer = build_tokenizer(tok_path, for_t5=True)
     cfg = _llama_config(svc_cfg, tokenizer)
     max_prompt = _decode_position_budget(svc_cfg, cfg.max_position, "llama")
     model = llama_mod.build_model(cfg, _llama_state(svc_cfg, cfg, params), device,
@@ -488,6 +501,71 @@ def _build_gpt(svc_cfg, policy: DtypePolicy, device: torch.device,
                               max_prompt)
 
 
+# T5 has no position table (relative positions), so its prompts are capped
+# at 512 tokens whatever the seq buckets are, as in the JAX package.
+T5_MAX_PROMPT = 512
+
+
+def _t5_state(svc_cfg, cfg: t5_mod.T5Config, params) -> dict[str, torch.Tensor]:
+    from ..convert.jax_params import t5_params_from_jax
+
+    if params is not None:
+        return t5_params_from_jax(params, cfg)
+    if svc_cfg.model_path:
+        from ..convert.hf_maps import t5_state_to_pytree
+
+        state = _load_hf_state(svc_cfg.model_path, "t5-small")
+        return t5_params_from_jax(t5_state_to_pytree(state, cfg.num_layers), cfg)
+    log.info("no MODEL_PATH for t5-small: deterministic random init (seed %d)", INIT_SEED)
+    return t5_mod.init_params(cfg, torch.Generator().manual_seed(INIT_SEED))
+
+
+def _build_t5(svc_cfg, policy: DtypePolicy, device: torch.device,
+              params=None) -> ModelBundle:
+    """T5-small seq2seq, greedy or sampled, whole or streamed.  ``init_state``
+    encodes (K1 with the relative-position bias on the card) and builds the
+    decode state with the cross K/V projected once; the continuous loop's
+    slots hold self caches ``MAX_DECODE_LEN`` wide and cross K/V as wide as
+    the largest seq bucket.  Tokenizer: a SentencePiece ``TOKENIZER_PATH``
+    (with a trailing EOS), else the byte fallback."""
+    cfg = t5_mod.T5Config()
+    tokenizer = build_tokenizer(svc_cfg.tokenizer_path, for_t5=True)
+    max_id = int(getattr(tokenizer, "vocab_size", 1)) - 1
+    if max_id >= cfg.vocab_size:
+        raise ValueError(
+            f"tokenizer at {svc_cfg.tokenizer_path!r} can emit id {max_id} >= t5-small "
+            f"embedding table rows {cfg.vocab_size}"
+        )
+    model = t5_mod.build_model(cfg, _t5_state(svc_cfg, cfg, params), device,
+                               policy.param_dtype)
+
+    def init_state(input_ids, attention_mask, max_len: int, sample=None):
+        enc = t5_mod.encode(model, input_ids, attention_mask, policy.compute_dtype)
+        return t5_mod.init_decode_state(model, enc, attention_mask, max_len, sample=sample)
+
+    def generate_chunk(state, n_steps: int, sample: bool = False):
+        return t5_mod.generate_chunk(model, state, n_steps, sample)
+
+    def slot_state(n_slots: int, enc_width: int, max_len: int):
+        return t5_mod.empty_state(cfg, n_slots, enc_width, max_len, policy.compute_dtype,
+                                  device)
+
+    return ModelBundle(
+        name="t5-small",
+        kind=KIND_SEQ2SEQ,
+        cfg=cfg,
+        model=model,
+        device=device,
+        policy=policy,
+        tokenizer=tokenizer,
+        labels=None,
+        init_state=init_state,
+        generate_chunk=generate_chunk,
+        slot_state=slot_state,
+        max_prompt_len=T5_MAX_PROMPT,
+    )
+
+
 MODEL_REGISTRY: dict[str, Callable] = {
     "resnet50": _build_resnet,
     "resnet-50": _build_resnet,
@@ -497,9 +575,9 @@ MODEL_REGISTRY: dict[str, Callable] = {
     "llama": _build_llama,
     "tinyllama": _build_llama,
     "gpt2": _build_gpt,
+    "t5-small": _build_t5,
+    "t5small": _build_t5,
 }
-# Served by the JAX package, not by this port yet.
-NOT_PORTED = ("t5-small", "t5small")
 
 
 def register_model(name: str, builder: Callable) -> None:
@@ -529,11 +607,6 @@ def build_model(svc_cfg, policy: DtypePolicy | None = None, params=None) -> Mode
         policy = default_policy(svc_cfg.device)
     builder = MODEL_REGISTRY.get(svc_cfg.model_name)
     if builder is None:
-        if svc_cfg.model_name in NOT_PORTED:
-            raise ValueError(
-                f"model {svc_cfg.model_name!r} is not ported to PyTorch yet; "
-                f"available: {sorted(MODEL_REGISTRY)}"
-            )
         raise ValueError(
             f"unknown model {svc_cfg.model_name!r}; available: {sorted(MODEL_REGISTRY)}"
         )

@@ -1,0 +1,430 @@
+"""Pure-Python SentencePiece tokenizer: unigram (T5) and BPE (llama).
+
+A copy of the JAX package's ``models/sentencepiece.py`` (pure Python and
+numpy, so the port keeps its own copy rather than importing that
+package): the same pieces give the same ids, masks and text.  No
+``sentencepiece`` wheel is needed:
+
+- ``load_spiece_model`` — minimal protobuf wire-format reader for the
+  standard ``spiece.model`` file (ModelProto: repeated SentencePiece
+  ``pieces`` = field 1, each with ``piece``/``score``/``type``).  No
+  protobuf dependency; unknown fields are skipped, so real exported
+  models load.
+- ``SentencePieceTokenizer`` — unigram encoding as a Viterbi search for
+  the max-score segmentation (the same objective the C++ library
+  optimizes), with byte-fallback for out-of-vocab characters when the
+  model carries ``<0xXX>`` byte pieces, else ``<unk>``.
+- ``write_spiece_model`` — the inverse of the loader: serialize a piece
+  table to a valid ``spiece.model``.  Used by tests to build fixtures
+  and by the convert CLI to materialize tokenizers from piece tables.
+
+Normalization approximates the library's default ``nmt_nfkc`` rules:
+NFKC + whitespace collapse + dummy-prefix space, with " " mapped to the
+U+2581 meta symbol.  Exact charsmap replication is out of scope; for
+the ASCII/latin text of the serving workloads the two agree.
+
+Interface matches ``models/tokenizer.py``: ``encode(text, max_len) ->
+(ids, mask)`` / ``decode(ids) -> str`` plus pad/eos/unk ids.
+"""
+
+from __future__ import annotations
+
+import struct
+import unicodedata
+
+import numpy as np
+
+# SentencePiece ModelProto piece types.
+TYPE_NORMAL = 1
+TYPE_UNKNOWN = 2
+TYPE_CONTROL = 3
+TYPE_USER_DEFINED = 4
+TYPE_UNUSED = 5
+TYPE_BYTE = 6
+
+_META = "▁"  # ▁ — the SentencePiece whitespace meta symbol
+
+
+# ---------------------------------------------------------------------------
+# protobuf wire format (read + write), just enough for ModelProto
+
+
+def _read_varint(buf: bytes, pos: int) -> tuple[int, int]:
+    result = 0
+    shift = 0
+    while True:
+        b = buf[pos]
+        pos += 1
+        result |= (b & 0x7F) << shift
+        if not b & 0x80:
+            return result, pos
+        shift += 7
+        if shift > 63:
+            raise ValueError("varint too long — not a protobuf file")
+
+
+def _iter_fields(buf: bytes):
+    """Yield (field_number, wire_type, value) over one message body."""
+    pos = 0
+    n = len(buf)
+    while pos < n:
+        tag, pos = _read_varint(buf, pos)
+        field, wire = tag >> 3, tag & 7
+        if wire == 0:  # varint
+            val, pos = _read_varint(buf, pos)
+        elif wire == 1:  # 64-bit
+            val = buf[pos : pos + 8]
+            pos += 8
+        elif wire == 2:  # length-delimited
+            ln, pos = _read_varint(buf, pos)
+            val = buf[pos : pos + ln]
+            pos += ln
+        elif wire == 5:  # 32-bit
+            val = buf[pos : pos + 4]
+            pos += 4
+        else:
+            raise ValueError(f"unsupported protobuf wire type {wire}")
+        yield field, wire, val
+
+
+# TrainerSpec.model_type enum values (sentencepiece.proto).
+MODEL_UNIGRAM = 1
+MODEL_BPE = 2
+
+
+def load_spiece_model_ex(path: str) -> tuple[list[tuple[str, float, int]], int]:
+    """Parse a ``spiece.model`` → ([(piece, score, type)] in id order,
+    trainer model_type).  model_type defaults to unigram when the file
+    carries no trainer_spec (e.g. fixtures written by
+    ``write_spiece_model`` without one)."""
+    with open(path, "rb") as f:
+        buf = f.read()
+    pieces: list[tuple[str, float, int]] = []
+    model_type = MODEL_UNIGRAM
+    for field, wire, val in _iter_fields(buf):
+        if field == 2 and wire == 2:  # ModelProto.trainer_spec
+            for sfield, swire, sval in _iter_fields(val):
+                if sfield == 3 and swire == 0:  # TrainerSpec.model_type
+                    model_type = int(sval)
+            continue
+        if field != 1 or wire != 2:  # ModelProto.pieces
+            continue
+        piece, score, ptype = "", 0.0, TYPE_NORMAL
+        for sfield, swire, sval in _iter_fields(val):
+            if sfield == 1 and swire == 2:  # SentencePiece.piece
+                piece = sval.decode("utf-8")
+            elif sfield == 2 and swire == 5:  # SentencePiece.score (float)
+                score = struct.unpack("<f", sval)[0]
+            elif sfield == 3 and swire == 0:  # SentencePiece.type
+                ptype = int(sval)
+        pieces.append((piece, score, ptype))
+    if not pieces:
+        raise ValueError(f"{path}: no sentencepiece pieces found (wrong file?)")
+    return pieces, model_type
+
+
+def load_spiece_model(path: str) -> list[tuple[str, float, int]]:
+    """Back-compat wrapper: pieces only."""
+    return load_spiece_model_ex(path)[0]
+
+
+def _varint(n: int) -> bytes:
+    out = bytearray()
+    while True:
+        b = n & 0x7F
+        n >>= 7
+        if n:
+            out.append(b | 0x80)
+        else:
+            out.append(b)
+            return bytes(out)
+
+
+def write_spiece_model(path: str, pieces: list[tuple[str, float, int]],
+                       model_type: int | None = None) -> None:
+    """Serialize [(piece, score, type)] to a valid ``spiece.model``
+    (optionally with a trainer_spec carrying ``model_type``)."""
+    body = bytearray()
+    for piece, score, ptype in pieces:
+        sub = bytearray()
+        pb = piece.encode("utf-8")
+        sub += _varint((1 << 3) | 2) + _varint(len(pb)) + pb
+        sub += _varint((2 << 3) | 5) + struct.pack("<f", score)
+        sub += _varint((3 << 3) | 0) + _varint(ptype)
+        body += _varint((1 << 3) | 2) + _varint(len(sub)) + bytes(sub)
+    if model_type is not None:
+        spec = _varint((3 << 3) | 0) + _varint(model_type)
+        body += _varint((2 << 3) | 2) + _varint(len(spec)) + spec
+    with open(path, "wb") as f:
+        f.write(bytes(body))
+
+
+def load_piece_tsv(path: str) -> list[tuple[str, float, int]]:
+    """``piece<TAB>score`` per line (the exportable text form); types are
+    inferred for the conventional specials."""
+    pieces: list[tuple[str, float, int]] = []
+    with open(path, encoding="utf-8") as f:
+        for line in f:
+            line = line.rstrip("\n")
+            if not line:
+                continue
+            piece, _, score_s = line.partition("\t")
+            score = float(score_s) if score_s else 0.0
+            if piece == "<unk>":
+                ptype = TYPE_UNKNOWN
+            elif piece in ("<pad>", "</s>", "<s>"):
+                ptype = TYPE_CONTROL
+            elif piece.startswith("<0x") and piece.endswith(">") and len(piece) == 6:
+                ptype = TYPE_BYTE
+            else:
+                ptype = TYPE_NORMAL
+            pieces.append((piece, score, ptype))
+    if not pieces:
+        raise ValueError(f"{path}: empty piece table")
+    return pieces
+
+
+# ---------------------------------------------------------------------------
+# unigram tokenizer
+
+
+class SentencePieceTokenizer:
+    """Unigram LM tokenizer over a loaded piece table.
+
+    Viterbi max-score segmentation, byte-fallback OOV handling, T5-style
+    trailing ``</s>`` on encode.
+    """
+
+    def __init__(self, pieces: list[tuple[str, float, int]], add_eos: bool = True,
+                 add_bos: bool = False, algorithm: str = "unigram"):
+        if algorithm not in ("unigram", "bpe"):
+            raise ValueError(f"algorithm must be unigram|bpe, got {algorithm!r}")
+        self.pieces = pieces
+        self.add_eos = add_eos
+        # Llama-family convention: prompts start with <s> and do NOT end
+        # in </s> (the exact inverse of T5's add_eos).
+        self.add_bos = add_bos
+        # Segmentation algorithm, from the file's TrainerSpec: unigram
+        # (T5 family, Viterbi max-score) or BPE (Llama family, greedy
+        # best-scoring merges — scores encode merge order, -rank).
+        self.algorithm = algorithm
+        self.vocab: dict[str, int] = {}
+        self.byte_pieces: dict[int, int] = {}
+        self.scores = np.full((len(pieces),), -1e9, np.float32)
+        self.pad_id, self.eos_id, self.unk_id, self.bos_id = 0, 1, 2, None
+        min_score = 0.0
+        for i, (piece, score, ptype) in enumerate(pieces):
+            self.scores[i] = score
+            if ptype in (TYPE_NORMAL, TYPE_USER_DEFINED):
+                # Matchable in segmentation.  First writer wins on dupes
+                # (id order = priority order, like the library).
+                self.vocab.setdefault(piece, i)
+                min_score = min(min_score, score)
+            elif ptype == TYPE_BYTE:
+                self.byte_pieces[int(piece[1:-1], 16)] = i
+            elif ptype == TYPE_UNKNOWN:
+                self.unk_id = i
+            elif ptype == TYPE_CONTROL:
+                if piece == "<pad>":
+                    self.pad_id = i
+                elif piece == "</s>":
+                    self.eos_id = i
+                elif piece == "<s>":
+                    self.bos_id = i
+        self.max_piece_len = max((len(p) for p in self.vocab), default=1)
+        # OOV edge weight: below every real piece so known segmentations
+        # always win (the library applies the same kind of unk penalty).
+        self._unk_score = min_score - 10.0
+
+    @property
+    def vocab_size(self) -> int:
+        return len(self.pieces)
+
+    # -- normalization ------------------------------------------------------
+
+    def _normalize(self, text: str) -> str:
+        text = unicodedata.normalize("NFKC", text)
+        text = " ".join(text.split())  # collapse whitespace runs, strip
+        if not text:
+            return ""
+        return _META + text.replace(" ", _META)  # dummy prefix + meta spaces
+
+    # -- encode -------------------------------------------------------------
+
+    def _segment(self, s: str) -> list[int]:
+        """Viterbi: max-score segmentation of the normalized string."""
+        n = len(s)
+        NEG = -1e18
+        best = [NEG] * (n + 1)
+        best[0] = 0.0
+        # back[i] = (start_j, ids_for_span_j_i)
+        back: list[tuple[int, tuple[int, ...]]] = [(0, ())] * (n + 1)
+        for i in range(1, n + 1):
+            lo = max(0, i - self.max_piece_len)
+            for j in range(lo, i):
+                if best[j] <= NEG:
+                    continue
+                pid = self.vocab.get(s[j:i])
+                if pid is None:
+                    continue
+                sc = best[j] + float(self.scores[pid])
+                if sc > best[i]:
+                    best[i] = sc
+                    back[i] = (j, (pid,))
+            if best[i] <= NEG:
+                # OOV character s[i-1]: byte-fallback, else <unk>
+                # (shared with the BPE path — _ids_for_symbol).
+                j = i - 1
+                best[i] = best[j] + self._unk_score
+                back[i] = (j, self._ids_for_symbol(s[j]))
+        out: list[int] = []
+        i = n
+        while i > 0:
+            j, ids = back[i]
+            out.extend(reversed(ids))
+            i = j
+        out.reverse()
+        return out
+
+    def _ids_for_symbol(self, sym: str) -> tuple[int, ...]:
+        """Vocab id for a surviving symbol, byte-fallback, else <unk>."""
+        pid = self.vocab.get(sym)
+        if pid is not None:
+            return (pid,)
+        byte_ids = tuple(self.byte_pieces.get(b) for b in sym.encode("utf-8"))
+        if byte_ids and None not in byte_ids:
+            return byte_ids
+        return (self.unk_id,)
+
+    def _segment_bpe(self, s: str) -> list[int]:
+        """SentencePiece BPE: repeatedly merge the adjacent symbol pair
+        whose MERGED piece has the best score (scores are -merge-rank in
+        BPE models), leftmost on ties — bpe_model.cc's agenda order,
+        implemented the same way: a heap keyed (score desc, position
+        asc) over a doubly-linked symbol list, O(n log n) per word
+        instead of rescanning every pair after each merge.  Merges
+        never cross whitespace: each ▁-prefixed word segments
+        independently (split_by_whitespace, the library default)."""
+        import heapq
+
+        out: list[int] = []
+
+        def flush(word: list[str]) -> None:
+            n = len(word)
+            if n == 0:
+                return
+            syms = list(word)
+            nxt = list(range(1, n)) + [-1]
+            prv = [-1] + list(range(0, n - 1))
+            alive = [True] * n
+            heap: list[tuple[float, int, str, str]] = []
+
+            def consider(i: int) -> None:
+                j = nxt[i]
+                if j == -1:
+                    return
+                pid = self.vocab.get(syms[i] + syms[j])
+                if pid is not None:
+                    heapq.heappush(
+                        heap, (-float(self.scores[pid]), i, syms[i], syms[j])
+                    )
+
+            for i in range(n - 1):
+                consider(i)
+            while heap:
+                _, i, ls, rs = heapq.heappop(heap)
+                j = nxt[i] if alive[i] else -1
+                # Stale agenda entries (either side already merged away)
+                # are detected by symbol mismatch and skipped.
+                if j == -1 or not alive[i] or syms[i] != ls or syms[j] != rs:
+                    continue
+                syms[i] = ls + rs
+                alive[j] = False
+                nxt[i] = nxt[j]
+                if nxt[j] != -1:
+                    prv[nxt[j]] = i
+                consider(i)
+                if prv[i] != -1:
+                    consider(prv[i])
+            k = 0  # merges only ever remove the RIGHT symbol; 0 survives
+            while k != -1:
+                out.extend(self._ids_for_symbol(syms[k]))
+                k = nxt[k]
+
+        word: list[str] = []
+        for ch in s:
+            if ch == _META and word:
+                flush(word)
+                word = []
+            word.append(ch)
+        flush(word)
+        return out
+
+    def encode(self, text: str, max_len: int) -> tuple[np.ndarray, np.ndarray]:
+        seg = self._segment_bpe if self.algorithm == "bpe" else self._segment
+        s = self._normalize(text)
+        # Every output token covers >= 1 input char, so chars past
+        # max_len * max_piece_len cannot reach the truncated output —
+        # bound segmentation work on pathological (huge, space-free)
+        # request bodies.
+        s = s[: max_len * max(self.max_piece_len, 4)]
+        ids = seg(s)
+        if self.add_bos and self.bos_id is not None:
+            ids = [self.bos_id] + ids
+        if self.add_eos:
+            ids = ids[: max_len - 1] + [self.eos_id]
+        else:
+            ids = ids[:max_len]
+        n = len(ids)
+        out = np.full((max_len,), self.pad_id, np.int32)
+        out[:n] = ids
+        mask = np.zeros((max_len,), np.int32)
+        mask[:n] = 1
+        return out, mask
+
+    # -- decode -------------------------------------------------------------
+
+    def decode(self, ids) -> str:
+        parts: list[str] = []
+        pending: bytearray = bytearray()
+        control = {self.pad_id, self.eos_id}
+        if self.bos_id is not None:
+            control.add(self.bos_id)
+        for i in ids:
+            i = int(i)
+            if i == self.eos_id:
+                break
+            if not 0 <= i < len(self.pieces):
+                continue
+            piece, _, ptype = self.pieces[i]
+            if ptype == TYPE_BYTE:
+                pending.append(int(piece[1:-1], 16))
+                continue
+            if pending:
+                parts.append(pending.decode("utf-8", errors="replace"))
+                pending = bytearray()
+            if i in control or ptype in (TYPE_CONTROL, TYPE_UNUSED):
+                continue
+            if ptype == TYPE_UNKNOWN:
+                parts.append(" ⁇ ")  # the library's default unk surface
+                continue
+            parts.append(piece)
+        if pending:
+            parts.append(pending.decode("utf-8", errors="replace"))
+        text = "".join(parts).replace(_META, " ")
+        return text[1:] if text.startswith(" ") else text
+
+
+def load_sentencepiece(path: str, add_eos: bool = True,
+                       add_bos: bool = False) -> SentencePieceTokenizer:
+    """Build from a binary ``spiece.model`` or a ``piece\\tscore`` tsv.
+    The segmentation algorithm follows the file's TrainerSpec
+    (unigram = T5 family, BPE = Llama family)."""
+    if path.endswith((".tsv", ".vocab")):
+        pieces, model_type = load_piece_tsv(path), MODEL_UNIGRAM
+    else:
+        pieces, model_type = load_spiece_model_ex(path)
+    return SentencePieceTokenizer(
+        pieces, add_eos=add_eos, add_bos=add_bos,
+        algorithm="bpe" if model_type == MODEL_BPE else "unigram",
+    )

@@ -1,9 +1,9 @@
 """Tokenizers for the text models: pure Python, no external assets.
 
 Copies of the JAX package's ``ByteTokenizer``, ``WordPieceTokenizer`` and
-``ByteLevelBPETokenizer`` and of ``build_tokenizer``'s WordPiece, GPT-2
-``vocab.json`` and byte-fallback branches (SentencePiece files raise "not
-ported yet"):
+``ByteLevelBPETokenizer`` and of its ``build_tokenizer``, which routes
+SentencePiece files (``.model``, ``.tsv``, ``.vocab``) to
+``sentencepiece.load_sentencepiece``:
 
 - ``WordPieceTokenizer``: BERT-style WordPiece (basic tokenize, then greedy
   longest-match subwords) over a standard ``vocab.txt``
@@ -373,17 +373,17 @@ class ByteLevelBPETokenizer:
 
 
 def build_tokenizer(tokenizer_path: str | None, for_t5: bool = False):
-    """By ``tokenizer_path``: a GPT-2 ``vocab.json`` (with ``merges.txt``
-    beside it) -> byte-level BPE, any other file -> WordPiece (a BERT
-    ``vocab.txt``); unset -> the byte-level tokenizer: with [CLS]/[SEP] for
-    the classifiers, with a trailing EOS and no [CLS]/[SEP] for the
-    generative models (``for_t5``, the JAX package's name for that
-    fallback)."""
+    """By ``tokenizer_path``: a SentencePiece ``spiece.model`` / ``.tsv`` /
+    ``.vocab`` -> ``SentencePieceTokenizer`` (a trailing EOS with
+    ``for_t5``), a GPT-2 ``vocab.json`` (with ``merges.txt`` beside it) ->
+    byte-level BPE, any other file -> WordPiece (a BERT ``vocab.txt``);
+    unset -> the byte-level tokenizer: with [CLS]/[SEP] for the
+    classifiers, with a trailing EOS and no [CLS]/[SEP] for the generative
+    models (``for_t5``, the JAX package's name for that fallback)."""
     if tokenizer_path and tokenizer_path.endswith((".model", ".tsv", ".vocab")):
-        raise ValueError(
-            f"TOKENIZER_PATH={tokenizer_path!r}: SentencePiece vocabularies are not "
-            "ported yet (WordPiece vocab.txt and GPT-2 vocab.json only)"
-        )
+        from .sentencepiece import load_sentencepiece
+
+        return load_sentencepiece(tokenizer_path, add_eos=for_t5)
     if tokenizer_path and tokenizer_path.endswith(".json"):
         return ByteLevelBPETokenizer(tokenizer_path)
     if tokenizer_path:

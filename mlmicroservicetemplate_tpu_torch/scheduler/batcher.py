@@ -10,9 +10,13 @@ items ``submit`` sheds with ``QueueFullError`` (503); a request whose
 (504).  Dispatch runs on worker threads so the device call never blocks
 the event loop; ``stop()`` drains the queue and joins them.
 
-A generative model also gets a ``ContinuousDecodeLoop`` (one loop, as the
-JAX package builds with ``CONTINUOUS_BATCHING=1``): ``submit_stream``
-hands it every stream whose prompt fits its slots, and ``stop()`` stops it.
+A generative model also gets a ``ContinuousDecodeLoop`` (one loop, unless
+``CONTINUOUS_BATCHING=0``): ``submit_stream`` hands it every stream whose
+prompt fits its slots, and ``stop()`` stops it.  The other streams (a
+prompt past the loop's largest seq bucket, or every stream without a loop)
+take the per-stream path, as in the JAX package: one worker thread each
+runs ``InferenceEngine.generate_stream``, admitted at once or shed, with
+``MAX_STREAMS`` capping both paths' streams together.
 """
 
 from __future__ import annotations
@@ -73,10 +77,18 @@ class Batcher:
         self._closed = False
         self.draining = False
         self._cdl = None
+        # The per-stream path: its workers and its live streams.
+        self.max_streams = int(getattr(cfg, "max_streams", 8))
+        self._stream_executor = None
+        self._active_streams = 0
         if getattr(engine.bundle, "kind", None) == KIND_SEQ2SEQ:
-            from ..engine.streams import ContinuousDecodeLoop
+            self._stream_executor = ThreadPoolExecutor(max_workers=self.max_streams,
+                                                       thread_name_prefix="stream")
+            if getattr(cfg, "continuous_batching", True):
+                from ..engine.streams import ContinuousDecodeLoop
 
-            self._cdl = ContinuousDecodeLoop(engine, cfg)
+                self._cdl = ContinuousDecodeLoop(engine, cfg)
+                self._cdl.external_active = lambda: self._active_streams
 
     async def start(self) -> None:
         if self._task is None:
@@ -95,10 +107,14 @@ class Batcher:
         self._executor.shutdown(wait=True)
         if self._cdl is not None:
             await asyncio.get_running_loop().run_in_executor(None, self._cdl.stop)
+        if self._stream_executor is not None:
+            # Each per-stream worker stops at its next chunk once its
+            # consumer is gone.
+            self._stream_executor.shutdown(wait=False)
 
     def pending_work(self) -> int:
         streams = self._cdl.admitted if self._cdl is not None else 0
-        return self._queue.qsize() + len(self._inflight) + streams
+        return self._queue.qsize() + len(self._inflight) + streams + self._active_streams
 
     def warm_engine(self) -> float:
         """``engine.warmup`` where batches will run: in every dispatch thread
@@ -142,24 +158,82 @@ class Batcher:
 
     def submit_stream(self, feats: dict):
         """Streaming generation: the async iterator of the stream's token
-        chunks (int32 arrays) from the continuous decode loop.  Sheds with
-        ``QueueFullError`` past ``max_streams`` (or while draining); a
-        prompt longer than the loop's largest seq bucket raises
-        ``ValueError``."""
+        chunks (int32 arrays), from the continuous decode loop when its
+        slots take the prompt, else from the per-stream path
+        (``_submit_per_stream``).  Sheds with ``QueueFullError`` past
+        ``max_streams`` streams on both paths together (or while
+        draining)."""
         if self._closed:
             raise RuntimeError("batcher is stopped")
-        if self._cdl is None:
+        if self._stream_executor is None:
             raise ValueError(f"{self.model} is not a generative model; nothing to stream")
         if self.draining:
             self._shed("drain")
             raise QueueFullError("draining", reason="drain", retry_after_s=self.retry_after_s())
-        n = int(feats.get("length", 0))
-        if n > self._cdl.max_prompt:
-            raise ValueError(
-                f"a {n}-token prompt is longer than the largest seq bucket "
-                f"({self._cdl.max_prompt}) that streams take"
+        if self._cdl is not None and int(feats.get("length", 0)) <= self._cdl.max_prompt:
+            return self._cdl.submit_stream(feats)
+        return self._submit_per_stream(feats)
+
+    def _submit_per_stream(self, feats: dict):
+        """One worker thread runs ``engine.generate_stream`` and pumps its
+        chunks onto the event loop.  Admission is checked and counted here,
+        in the event loop, before the iterator is returned; the count drops
+        when the worker ends, so an abandoned iterator frees its place.  A
+        consumer that goes away stops the worker before its next chunk."""
+        loop_admitted = self._cdl.admitted if self._cdl is not None else 0
+        if self._active_streams + loop_admitted >= self.max_streams:
+            self._shed("queue_full")
+            raise QueueFullError(
+                f"{self._active_streams + loop_admitted} streams active >= "
+                f"max_streams={self.max_streams}",
+                retry_after_s=self.retry_after_s(),
             )
-        return self._cdl.submit_stream(feats)
+        loop = asyncio.get_running_loop()
+        chunks: asyncio.Queue = asyncio.Queue()
+        cancelled = threading.Event()
+        end = object()
+
+        def pump() -> None:
+            t_prev = 0.0
+            try:
+                gen = self.engine.generate_stream(feats)
+                try:
+                    for chunk in gen:
+                        loop.call_soon_threadsafe(chunks.put_nowait, chunk)
+                        metrics.TOKENS.labels(self.model).inc(int(chunk.size))
+                        t_now = time.monotonic()
+                        if t_prev:
+                            metrics.TBT.labels(self.model).observe(t_now - t_prev)
+                        t_prev = t_now
+                        if cancelled.is_set():
+                            return
+                finally:
+                    gen.close()
+                loop.call_soon_threadsafe(chunks.put_nowait, end)
+            except BaseException as e:  # to the consumer
+                loop.call_soon_threadsafe(chunks.put_nowait, e)
+
+        self._active_streams += 1
+        done = loop.run_in_executor(self._stream_executor, pump)
+
+        def release(_fut) -> None:
+            self._active_streams -= 1
+
+        done.add_done_callback(release)
+
+        async def gen():
+            try:
+                while True:
+                    item = await chunks.get()
+                    if item is end:
+                        break
+                    if isinstance(item, BaseException):
+                        raise item
+                    yield item
+            finally:
+                cancelled.set()
+
+        return gen()
 
     def retry_after_s(self) -> float:
         """Client guidance on 503: queue depth x observed batch time."""

@@ -1,9 +1,10 @@
 """Env-var driven service configuration (12-factor), as a stdlib dataclass.
 
-Holds the fields the ResNet-50, BERT-base, bert-long, llama and GPT-2 paths,
-chat and the parent registration read, under the same environment names as the JAX
-package's ``ServiceConfig``.  ``DEVICE`` is ``cuda|cpu`` and defaults to
-``cuda``; ``MODEL_NAME`` defaults to ``resnet50``, as in the JAX package.
+Holds the fields the ResNet-50, BERT-base, bert-long, llama, GPT-2 and
+T5-small paths, chat and the parent registration read, under the same
+environment names as the JAX package's ``ServiceConfig``.  ``DEVICE`` is
+``cuda|cpu`` and defaults to ``cuda``; ``MODEL_NAME`` defaults to
+``resnet50``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -83,9 +84,15 @@ class ServiceConfig:
     quant_kv: str | None = None
     # JSON object of LlamaConfig overrides, e.g. '{"num_layers": 4}'.
     llama_config: str | None = None
-    # Streaming generations: concurrent streams of the continuous decode
-    # loop (its slot count) before new ones shed with 503.
+    # Streaming generations: concurrent streams (the continuous decode
+    # loop's slot count, and the cap on its streams and the per-stream
+    # path's together) before new ones shed with 503.
     max_streams: int = 8
+    # Streams share the continuous decode loop's batched chunks; off
+    # (CONTINUOUS_BATCHING=0), each stream decodes on its own through
+    # InferenceEngine.generate_stream, as do prompts past the largest seq
+    # bucket either way.
+    continuous_batching: bool = True
     # How long an idle loop waits for the rest of a concurrent burst before
     # admitting the wave (ms).
     admit_grace_ms: float = 8.0
@@ -316,10 +323,10 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
     HOST, PORT, SERVER_URL, REGISTER_HEARTBEAT_S, MAX_BATCH, BATCH_TIMEOUT_MS,
     MAX_QUEUE, BATCH_BUCKETS, SEQ_BUCKETS, WARMUP, LOG_LEVEL, TRACE, MAX_DECODE_LEN,
     STREAM_CHUNK_TOKENS, QUANT_KV, LLAMA_CONFIG, MAX_STREAMS, PAGED_KV,
-    KV_BLOCK_SIZE, SP, TRACE_RING, PIPELINE_DEPTH, DEADLINE_MS,
+    KV_BLOCK_SIZE, CONTINUOUS_BATCHING, SP, TRACE_RING, PIPELINE_DEPTH, DEADLINE_MS,
     DRAIN_GRACE_S, WARMUP_SAMPLING, ADMIT_GRACE_MS, CHAT_TEMPLATE.  Any of
-    ``UNPORTED_KNOBS`` set to a value that turns it on raises, as does ``CONTINUOUS_BATCHING=0`` (the per-stream decode
-    workers are not ported); ``INERT_KNOBS`` are accepted and ignored."""
+    ``UNPORTED_KNOBS`` set to a value that turns it on raises;
+    ``INERT_KNOBS`` are accepted and ignored."""
     e = dict(os.environ)
     if overrides:
         e.update(overrides)
@@ -332,8 +339,6 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
         var for var, off in UNPORTED_KNOBS.items()
         if get(var) is not None and not _is_off(get(var), off)
     )
-    if get("CONTINUOUS_BATCHING") is not None and not _flag(get("CONTINUOUS_BATCHING")):
-        on.append("CONTINUOUS_BATCHING=0")
     if on:
         raise ValueError(
             f"{', '.join(on)}: not ported yet to the PyTorch service "
@@ -373,7 +378,8 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
                 raise ValueError(f"{var}={v!r} parsed to no buckets")
             kwargs[field] = buckets
     for field, var in (("warmup", "WARMUP"), ("trace", "TRACE"), ("paged_kv", "PAGED_KV"),
-                       ("warmup_sampling", "WARMUP_SAMPLING")):
+                       ("warmup_sampling", "WARMUP_SAMPLING"),
+                       ("continuous_batching", "CONTINUOUS_BATCHING")):
         v = get(var)
         if v is not None:
             kwargs[field] = _flag(v)

@@ -147,9 +147,22 @@ def test_wordpiece_matches_jax(tmp_path, text):
     assert port.decode(got[0]) == ref.decode(want[0])
 
 
-def test_unported_tokenizer_formats_raise():
-    with pytest.raises(ValueError, match="not ported"):
-        port_tok.build_tokenizer("spiece.model")
+def test_unported_tokenizer_formats_raise(tmp_path):
+    """SentencePiece files, once refused, load as the JAX factory loads
+    them: the same ids and masks, with and without the trailing EOS."""
+    from mlmicroservicetemplate_tpu.models.sentencepiece import write_spiece_model
+    from test_sentencepiece import _pieces
+
+    path = str(tmp_path / "spiece.model")
+    write_spiece_model(path, _pieces())
+    for for_t5 in (True, False):
+        port = port_tok.build_tokenizer(path, for_t5=for_t5)
+        ref = jax_tok.build_tokenizer(path, for_t5=for_t5)
+        for text in TEXTS:
+            got, want = port.encode(text, 32), ref.encode(text, 32)
+            np.testing.assert_array_equal(got[0], want[0])
+            np.testing.assert_array_equal(got[1], want[1])
+            assert port.decode(got[0]) == ref.decode(want[0])
 
 
 @pytest.mark.parametrize("buckets,paged", [("24,48", "1"), ("16,24,32", "1"), ("24,48", "0")])
@@ -279,7 +292,7 @@ def test_every_jax_knob_is_read_refused_or_inert(name, monkeypatch):
         monkeypatch.delenv(var, raising=False)
     base_env = {"DEVICE": "cpu"}
     env = {**base_env, name: NON_DEFAULT[name]}
-    if name in port_config.UNPORTED_KNOBS or name == "CONTINUOUS_BATCHING":
+    if name in port_config.UNPORTED_KNOBS:
         assert name not in port_config.INERT_KNOBS
         with pytest.raises(ValueError, match=f"{name}.*not ported"):
             load_config(env)

@@ -226,10 +226,62 @@ def test_unported_requests_answer_400(services, path, body):
     ],
     ids=lambda k: next(iter(k)),
 )
-def test_unported_knobs_raise(knob):
+def test_unported_knobs_raise(knob, tmp_path):
+    """Knobs the port does not serve raise "not ported".  Two it once
+    refused serve now, and their cases pin what the JAX package does: a
+    SentencePiece ``TOKENIZER_PATH`` loads with a leading <s> and no
+    trailing </s> (the model's eos/pad the tokenizer's), and
+    ``CONTINUOUS_BATCHING=0`` builds no loop and streams every request on
+    the per-stream path, with the JAX batcher's tokens."""
+    name = next(iter(knob))
+    overrides = {"MODEL_NAME": "llama", "DEVICE": "cpu", "WARMUP": "0",
+                 "LLAMA_CONFIG": json.dumps(SMALL), **knob}
+    if name == "TOKENIZER_PATH":
+        from mlmicroservicetemplate_tpu.models.sentencepiece import MODEL_BPE, write_spiece_model
+        from test_sentencepiece import _bpe_fixture
+
+        path = str(tmp_path / knob[name])
+        write_spiece_model(path, _bpe_fixture()[0], model_type=MODEL_BPE)
+        os.environ["LLAMA_CONFIG"] = json.dumps(SMALL)
+        try:
+            jbundle = jax_build_model(JaxServiceConfig(
+                device="cpu", model_name="llama", warmup=False, tokenizer_path=path, **SERVE))
+        finally:
+            del os.environ["LLAMA_CONFIG"]
+        _, bundle, _, _ = build_service({**overrides, name: path, "SEQ_BUCKETS": "16,32",
+                                         "MAX_DECODE_LEN": "10"})
+        assert (bundle.cfg.eos_id, bundle.cfg.pad_id) == (jbundle.cfg.eos_id, jbundle.cfg.pad_id)
+        for text in ("hello world", "the quick world"):
+            got = bundle.preprocess(RawItem(text=text))
+            want = jbundle.preprocess(JaxRawItem(text=text))
+            np.testing.assert_array_equal(got["input_ids"], want["input_ids"])
+        assert int(got["input_ids"][0]) == bundle.tokenizer.bos_id
+        return
+    if name == "CONTINUOUS_BATCHING":
+        jcfg, jbundle, jengine = _jax_service(quant=False)
+        _, bundle, engine, batcher = build_service(
+            {**overrides, "SEQ_BUCKETS": "16,32", "MAX_DECODE_LEN": "10",
+             "STREAM_CHUNK_TOKENS": "4"}, params=jax.tree.map(np.asarray, jbundle.params))
+        assert batcher._cdl is None
+        want = asyncio.run(_stream_all(JaxBatcher(jengine, jcfg), jbundle, JaxRawItem))
+        got = asyncio.run(_stream_all(batcher, bundle, RawItem))
+        assert got == want and engine.dispatches == len(REQUESTS)
+        return
     with pytest.raises(ValueError, match="not ported"):
-        build_service({"MODEL_NAME": "llama", "DEVICE": "cpu", "WARMUP": "0",
-                       "LLAMA_CONFIG": json.dumps(SMALL), **knob})
+        build_service(overrides)
+
+
+async def _stream_all(batcher, bundle, item_cls):
+    """Every request of ``REQUESTS`` streamed at once through the batcher."""
+    async def one(f):
+        return [t async for chunk in batcher.submit_stream(f) for t in np.asarray(chunk).tolist()]
+
+    await batcher.start()
+    try:
+        return await asyncio.gather(*(one(bundle.preprocess(item_cls(text=t, max_tokens=m)))
+                                      for t, m in REQUESTS))
+    finally:
+        await batcher.stop()
 
 
 def test_knobs_left_off_and_aliases_build():

@@ -182,15 +182,50 @@ def test_model_path_npz_loads_the_jax_weights(tmp_path):
 
 
 @pytest.mark.parametrize("name", ["t5-small", "t5small", "gpt2"])
-def test_unported_model_names_raise(name):
-    """T5 is not ported; gpt2 is (so its case now asks it for what it still
-    lacks: a SentencePiece vocabulary, which raises before any weight is
-    drawn)."""
-    overrides = {"DEVICE": "cpu", "MODEL_NAME": name}
+def test_unported_model_names_raise(name, tmp_path):
+    """The names these cases once saw refused now serve as the JAX package
+    serves them: t5-small under both names (shrunk in both packages; the
+    port on the JAX service's weights answers a request with the JAX
+    engine's tokens), and gpt2 with a SentencePiece ``spiece.model``
+    (the JAX factory's tokenizer: the same ids, a trailing EOS, and the
+    model's eos/pad taken from it)."""
+    from mlmicroservicetemplate_tpu.models import t5 as jax_t5
+    from mlmicroservicetemplate_tpu.models import tokenizer as jax_tok
+    from mlmicroservicetemplate_tpu.models.sentencepiece import write_spiece_model
+    from mlmicroservicetemplate_tpu_torch.models import gpt as port_gpt
+    from mlmicroservicetemplate_tpu_torch.models import t5 as port_t5
+    from test_sentencepiece import _pieces
+
     if name == "gpt2":
-        overrides["TOKENIZER_PATH"] = "spiece.model"
-    with pytest.raises(ValueError, match="not ported"):
-        build_service(overrides)
+        path = str(tmp_path / "spiece.model")
+        write_spiece_model(path, _pieces())
+        small = dict(vocab_size=512, d_model=64, num_heads=2, num_layers=1, d_ff=128,
+                     max_position=128)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(port_gpt, "GPTConfig", functools.partial(port_gpt.GPTConfig, **small))
+            _, bundle, _, _ = build_service({"DEVICE": "cpu", "MODEL_NAME": name, "WARMUP": "0",
+                                             "TOKENIZER_PATH": path, "SEQ_BUCKETS": "32",
+                                             "MAX_DECODE_LEN": "8"})
+        want = jax_tok.build_tokenizer(path, for_t5=True)
+        assert bundle.tokenizer.add_eos and bundle.cfg.eos_id == bundle.tokenizer.eos_id
+        for text in ("hello world", "the quick"):
+            got = bundle.preprocess(RawItem(text=text))
+            ids, mask = want.encode(text, bundle.max_prompt_len)
+            np.testing.assert_array_equal(got["input_ids"], ids[: int(mask.sum())])
+        return
+    dims = dict(vocab_size=300, d_model=32, d_kv=8, num_heads=4, d_ff=64, num_layers=1)
+    overrides = {"DEVICE": "cpu", "MODEL_NAME": name, "WARMUP": "0", "SEQ_BUCKETS": "16",
+                 "BATCH_BUCKETS": "1", "MAX_DECODE_LEN": "8"}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_t5, "T5Config", functools.partial(jax_t5.T5Config, **dims))
+        mp.setattr(port_t5, "T5Config", functools.partial(port_t5.T5Config, **dims))
+        _, jbundle, jengine, _, _ = jax_build_service({**overrides, "REPLICAS": "1"})
+        _, bundle, engine, _ = build_service(overrides,
+                                             params=jax.tree.map(np.asarray, jbundle.params))
+    assert bundle.name == jbundle.name == "t5-small"
+    want = jengine.run_batch([jbundle.preprocess(JaxRawItem(text="hello"))])
+    got = engine.run_batch([bundle.preprocess(RawItem(text="hello"))])
+    np.testing.assert_array_equal(got[0], want[0])
 
 
 def test_cuda_without_a_gpu_raises(monkeypatch):

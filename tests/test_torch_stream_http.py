@@ -170,9 +170,14 @@ def test_sampled_streams_answer_400(services, path, body):
 
 
 def test_stream_past_the_largest_bucket_answers_400(services):
-    """Streams take prompts up to the largest seq bucket (32 here): a
-    longer one answers 400, as before streams were served."""
-    _, (cfg, bundle, engine, _) = services
-    ((status, _),) = asyncio.run(_http(build_app(cfg, bundle, engine, Batcher(engine, cfg)),
-                                       [("/predict", {"text": "x" * 40, "stream": True})]))
-    assert status == 400
+    """A prompt longer than the largest seq bucket (32 here), once answered
+    400, streams on the per-stream path as in the JAX package: the JAX
+    app's very bodies, ndjson and SSE, and none of it through the loop."""
+    posts = [("/predict", {"text": "x" * 40, "stream": True}),
+             ("/v1/completions", {"prompt": "y" * 45, "stream": True, "max_tokens": 6})]
+    dispatches = services[1][2].dispatches
+    got, want = _both(services, posts)
+    assert [s for s, _ in got] == [s for s, _ in want] == [200, 200], got
+    assert _ndjson(got[0][1]) == _ndjson(want[0][1])
+    assert got[1][1] == want[1][1]
+    assert services[1][2].dispatches - dispatches == 1 + len(posts)  # canary + streams
