@@ -29,7 +29,12 @@ result line:
    off 16 bytes), unpadded and padded masks, against its plain
    version; CUDA-event ms, device µs (bf16, S 128 and 512), the bound over q, k, v, mask,
    bias and output bytes, and SDPA with the same bias folded into its
-   ``attn_mask``; then ptxas's registers and spills of the bias variants.
+   ``attn_mask``; each row names how the kernel read the bias
+   (``bias_path``: "smem tile", TMA tiles through shared memory, for a
+   bf16 bias with 16-byte aligned rows; "per-element" otherwise); then
+   ptxas's registers and spills of every instantiation of the wgmma loop
+   (each bias variant, K1 without a bias, K4) with its stages, shared
+   memory and CTAs an SM at S=512 (K4: 2048).
 4. kernel decode_attention: the same for the decode kernel, dense bf16,
    dense f32 and int8 with bf16 scales, B in {1, 8, 32}, H=32, KVH=4,
    D=64, T in {96, 576, 2048}; one row padded to a third of T, and (B > 1)
@@ -360,7 +365,7 @@ def ptxas_report(log: str) -> list[dict]:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            cur = {"kernel": m.group(1)[:72]}
+            cur = {"kernel": m.group(1)[:200]}
             out.append(cur)
         elif cur is not None and "spill" in line:
             cur["frame"] = line.strip()
@@ -505,12 +510,85 @@ def phase_kernel() -> dict:
     return headline
 
 
+# K1's and K4's instantiations of the shared wgmma loop by their mangled
+# Op (EncoderOp<bias type, tiles>), and K1's f32 kernel (which takes a bias
+# as an argument): a label, and the bias dtype and tiling its library's
+# config query takes (None: not the loop, no query).
+SM90_VARIANTS = (
+    ("EncoderOpIvLb0E", "K1 no bias", (-1, 0)),
+    ("EncoderOpIfLb0E", "K1 f32 bias, per-element", (0, 0)),
+    ("EncoderOpI13__nv_bfloat16Lb0E", "K1 bf16 bias, per-element", (1, 0)),
+    ("EncoderOpI13__nv_bfloat16Lb1E", "K1 bf16 bias, smem tile", (1, 1)),
+    ("fused_attention_f32_kernel", "K1 f32 kernel (bias or not)", None),
+    ("HopOp", "K4 ring hop", "ring_hop"),
+)
+
+
+def kernel_config(library: str, key, seq: int) -> dict:
+    """The loop's stages, dynamic shared memory, CTAs an SM (the occupancy
+    calculator) and launch-bound CTAs for one instantiation at ``seq``
+    keys, from the library's config query."""
+    import ctypes
+
+    import torch
+
+    from mlmicroservicetemplate_tpu_torch.ops._build import load_library
+
+    lib = load_library(library)
+    out = (ctypes.c_int * 4)()
+    dev = torch.cuda.current_device()
+    if key == "ring_hop":
+        lib.ring_hop_config.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        rc = lib.ring_hop_config(seq, dev, out)
+    else:
+        lib.fused_attention_config.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+        rc = lib.fused_attention_config(key[0], key[1], seq, dev, out)
+    if rc != 0:
+        raise RuntimeError(f"{library}: config query failed ({rc})")
+    return {"seq": seq, "stages": out[0], "smem_bytes": out[1], "ctas_per_sm": out[2],
+            "launch_bound_ctas": out[3]}
+
+
+def bias_read(q, bias) -> str:
+    """How ``fused_attention`` on the card reads ``bias`` for ``q``, by the
+    library's own rule (``fused_attention_bias_tiled``): "smem tile" (a bf16 bias with 16-byte aligned
+    base and rows, as TMA tiles through shared memory) or "per-element"
+    (one load a score)."""
+    import ctypes
+
+    import torch
+
+    from mlmicroservicetemplate_tpu_torch.ops._build import load_library
+
+    lib = load_library("fused_attention")
+    fn = lib.fused_attention_bias_tiled
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_longlong, ctypes.c_int]
+    code = {torch.float32: 0, torch.bfloat16: 1}
+    tiled = fn(code[q.dtype], code[bias.dtype], bias.data_ptr(), bias.stride(1),
+               bias.stride(2), q.shape[1])
+    return "smem tile" if tiled else "per-element"
+
+
 def bias_variants(libraries) -> list[dict]:
-    """ptxas's report of K1's kernels that take a bias (the loop's Op
-    templated on a bias type other than void, and the f32 kernel, which
-    takes one as an argument)."""
-    lib = next((x for x in libraries or () if x["name"] == "fused_attention"), None)
-    return [k for k in (lib or {}).get("ptxas", []) if "IvE" not in k["kernel"]]
+    """ptxas's registers, barriers and spills of K1's kernels (each bias
+    variant, the no-bias one, the f32 kernel) and of K4's, with each loop
+    instantiation's stages, dynamic shared memory and CTAs an SM at S=512
+    (K4 at its 2048-key headline)."""
+    out = []
+    for lib in libraries or ():
+        if lib["name"] not in WGMMA_LIBRARIES:
+            continue
+        for k in lib.get("ptxas", []):
+            hit = next((v for v in SM90_VARIANTS if v[0] in k["kernel"]), None)
+            if hit is None:
+                continue
+            row = {"variant": hit[1], **k}
+            if hit[2] is not None:
+                seq = 2048 if hit[2] == "ring_hop" else 512
+                row.update(kernel_config(lib["name"], hit[2], seq))
+            out.append(row)
+    return out
 
 
 # K1's widths at T5's shape: 64, a partial key tile, and 128 and 512, whole
@@ -563,6 +641,7 @@ def phase_t5_kernel(libraries) -> dict:
             kernel_ms = cuda_ms(lambda: fused_attention(q, k, v, mask, bias, 1.0), iters)
             row = dict(
                 dtype=name, shape=[b, s, T5_HEADS, HEAD_DIM], bias=name, scale=1.0,
+                bias_path=bias_read(q, bias),
                 mask=layout, max_abs_err=diff.max().item(), tol=f"atol=rtol={tol}", ok=ok,
                 kernel_ms=kernel_ms,
                 device_us=(device_us(lambda: fused_attention(q, k, v, mask, bias, 1.0))
@@ -3403,6 +3482,7 @@ def main(argv: list[str]) -> int:
                      launches + t5_k1, headline, tflops=headline["tflops"],
                      tflops_every_key=headline["tflops_every_key"],
                      t5={**gpt2_entry(t5_headline, t5_k1), "bias": t5_headline["bias"],
+                         "bias_path": t5_headline["bias_path"],
                          "mask": t5_headline["mask"], "tflops": t5_headline["tflops"],
                          "bias_variants_ptxas": t5_headline["bias_variants_ptxas"]}),
         # launches: llama's and GPT-2's (at R = 1, beside its own case's

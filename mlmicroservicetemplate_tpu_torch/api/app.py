@@ -463,11 +463,11 @@ async def _open_stream(request: web.Request, feats: dict, item: RawItem, t0: flo
     events = _delta_stream(bundle, stream_iter, item)
     try:
         first = await events.__anext__()
-    except (QueueFullError, StreamClosedError) as e:
+    except (QueueFullError, DeadlineExceededError, StreamClosedError) as e:
         await stream_iter.aclose()
         if isinstance(e, StreamClosedError):
             e = QueueFullError(str(e), reason="drain")
-        _failure(request, bundle.name, e)
+        _failure(request, bundle.name, e)  # 503, or 504 for a passed deadline
     except Exception:
         await stream_iter.aclose()
         metrics.REQUESTS.labels(bundle.name, "500").inc()

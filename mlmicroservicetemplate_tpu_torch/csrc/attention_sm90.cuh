@@ -53,6 +53,34 @@
 //   Keys past S in the last tile, and masked keys of a tile that holds a
 //   valid key, score -inf and weigh 0, as -1e9 would.
 //
+// - A bias as TMA tiles (an Op with kBiasTile: K1 with T5's bf16
+//   [1, H, S, S] relative-position bias).  Read one global load a score, as
+//   first designed, the bias made K1 1.35x slower than SDPA with the bias
+//   in its mask: 64 scalar 2-byte loads a thread a tile, 8 rows x 8
+//   bytes a warp each, on the consumers' critical path, while K and V came
+//   by TMA.  Now the producer warp also loads, for each key tile, the bias
+//   block of the CTA's 64 query rows x 128 keys (16 KB of bf16, two 64-key
+//   boxes with the 128-byte swizzle, rows and keys past S zero-filled) onto
+//   the stage's full barrier, and a consumer thread reads its 64 scores'
+//   bias with eight ldmatrix.x4, which deliver it in the accumulator's own
+//   layout; scale and bias are one FFMA (scores in natural units).  The
+//   swizzle puts the 8 rows of each ldmatrix phase in 8 different 16-byte
+//   chunks, so no phase has a bank conflict (unswizzled, 128-byte rows would
+//   put all 8 in the same 4 banks); tests/test_torch_k1_bias_tile.py models
+//   these addresses in numpy (a model of the layout, not a reading of this
+//   code; no bank-conflict counter has been read on the card).  Bytes: the 4.2 MB bias of T5's B=32, S=512 call comes
+//   from HBM once and stays in L2; each CTA moves 16 KB of it to shared
+//   memory a key tile beside 32 KB of K and V.  Shared memory: 16 KB more
+//   a stage, so the bias ring runs at 2 stages (~105 KB, two CTAs an SM, as
+//   the 3-stage ring without a bias); 3 stages (~153 KB) leave one CTA an
+//   SM.  On an NVIDIA H100 80GB HBM3 at 700 W, bf16 B=32, S=512, H=8,
+//   padded (chip_smoke.py's T5 kernel phase; PERF.md): 0.0885 ms at 2
+//   stages against 0.1399 ms read one load a score and 0.1026 ms for SDPA;
+//   3 stages took 0.1288 ms.  A bias
+//   whose base or row stride is not 16-byte aligned (S not a multiple of
+//   8), or in f32, keeps the one-load-a-score read; without a bias nothing
+//   of this is compiled in (3 stages, 156 / 166 registers for K1 / K4).
+//
 // Scores, softmax and the P.V sum stay in f32; P is rounded to bf16 before
 // P.V.  An Op (see below) supplies the start state, the score's extras and
 // the epilogue of each kernel.
@@ -71,7 +99,6 @@ namespace sm90 {
 
 constexpr int kHeadDim = 64;
 constexpr int kConsumers = 1;       // consumer warpgroups a CTA
-constexpr int kStages = 3;          // K/V tiles in flight
 constexpr int kMinBlocks = 2;       // CTAs an SM
 constexpr int kMaxDevices = 64;     // devices whose shared-memory cap is remembered
 constexpr int kRowsPerGroup = 64;   // query rows of one consumer warpgroup
@@ -79,6 +106,21 @@ constexpr int kTileKeys = 128;      // keys of one K/V tile
 constexpr int kRowBytes = kHeadDim * 2;                // one bf16 row: 128 B
 constexpr int kTileBytes = kTileKeys * kRowBytes;      // 16 KB
 constexpr int kGroupQBytes = kRowsPerGroup * kRowBytes;  // 8 KB
+// A bias tile: the CTA's 64 query rows x 128 keys in bf16, as two TMA boxes
+// of 64 keys (128 B a row, the 128-byte swizzle's span).
+constexpr int kBiasBoxKeys = 64;
+constexpr int kBiasBoxBytes = kConsumers * kRowsPerGroup * kBiasBoxKeys * 2;  // 8 KB
+constexpr int kBiasTileBytes = 2 * kBiasBoxBytes;                             // 16 KB
+
+// The ring of an Op: K/V tiles in flight.  An Op that brings its bias
+// through shared memory (kBiasTile) adds a 16 KB bias tile to every stage;
+// at 2 stages a CTA keeps the ~105 KB of the 3-stage K/V ring and two CTAs
+// still share an SM (3 stages: ~153 KB, one CTA an SM, measured slower).
+template <class Op>
+struct Ring {
+  static constexpr int kStages = Op::kBiasTile ? 2 : 3;
+  static constexpr int kBiasBytes = Op::kBiasTile ? kBiasTileBytes : 0;  // a stage's
+};
 constexpr int kMaxSeq = 1 << 16;    // keys a CTA's bitmap covers (8 KB)
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kTmaError = -2;       // a tensor map could not be built
@@ -128,6 +170,25 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
         "selp.u32 %0, 1, 0, p;\n}\n"
         : "=r"(done) : "r"(addr), "r"(parity) : "memory");
   } while (!done);
+}
+
+// One box of a 3-D tensor map (keys, rows, H) of the bias into shared memory.
+__device__ __forceinline__ void tma_load_bias(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                              int key, int row, int h) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
+         "r"(key), "r"(row), "r"(h)
+      : "memory");
+}
+
+// Four 8x8 b16 matrices from shared memory: lanes 8i .. 8i + 7 give the row
+// addresses of matrix i, and lane 4g + t receives, in w[i], the 32-bit word
+// at row g, columns 2t and 2t + 1 of matrix i -- the accumulator's layout.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&w)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(w[0]), "=r"(w[1]), "=r"(w[2]), "=r"(w[3]) : "r"(addr) : "memory");
 }
 
 // One box of a 4-D tensor map (D, H, S, B) into shared memory; completion is
@@ -274,22 +335,51 @@ __device__ __forceinline__ void rescale(float (&o)[32], int r, float alpha) {
 // lanes of one quad (32 each), so its reductions are two xor shuffles.
 // A tile's scores in the op's units, the bias added (kBias), masked keys
 // at -inf.  kFull: every key of the tile is valid, so no key is tested and
-// the bias is read unchecked; else a key past the end reads no bias.
+// the bias is read unchecked; else a key past the end reads no bias from
+// device memory (a bias tile holds zeros there).  bias_tile (kBiasTile):
+// this lane's ldmatrix row address in the stage's bias tile.
 template <bool kFull, class Op>
 __device__ __forceinline__ void score_tile(const Op& op, float (&s)[64], const uint32_t (&word)[4],
-                                           int k0, int h, const int (&rows)[2]) {
+                                           int k0, int h, const int (&rows)[2],
+                                           uint32_t bias_tile) {
   const int t = threadIdx.x % 4;
+  if constexpr (Op::kBiasTile) {
 #pragma unroll
-  for (int j = 0; j < kTileKeys / 8; ++j) {
+    for (int j = 0; j < kTileKeys / 8; j += 2) {
+      // s[4j .. 4j + 7]: columns 8j + 2t (+1) of rows g and g + 8, then
+      // the same of 8(j + 1), from matrices (row half 0, key octet j),
+      // (1, j), (0, j + 1), (1, j + 1).  The swizzle puts 16-byte chunk c
+      // of row R at c ^ (R % 8): the lane's address holds its row's chunk
+      // of j in bits 4-6, so j moves it by xor.
+      uint32_t w[4];
+      ldmatrix_x4(w, (bias_tile ^ ((j % 8) << 4)) + (j / 8) * kBiasBoxBytes);
+      float b[8];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int col = 8 * j + 2 * t + (e & 1);
-      const bool keep = kFull || ((word[j / 4] >> (col % 32)) & 1u);
-      float x = s[4 * j + e];
-      if constexpr (Op::kBias) {
-        x = x * op.scale + op.template add<kFull>(h, rows[e >> 1], k0 + col);
+      for (int i = 0; i < 4; ++i) {
+        b[2 * i] = __uint_as_float(w[i] << 16);
+        b[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
       }
-      s[4 * j + e] = keep ? x : -INFINITY;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int col = 8 * (j + i / 4) + 2 * t + (i & 1);
+        const bool keep = kFull || ((word[(j + i / 4) / 4] >> (col % 32)) & 1u);
+        const float x = fmaf(s[4 * j + i], op.scale, b[i]);
+        s[4 * j + i] = keep ? x : -INFINITY;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kTileKeys / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * t + (e & 1);
+        const bool keep = kFull || ((word[j / 4] >> (col % 32)) & 1u);
+        float x = s[4 * j + e];
+        if constexpr (Op::kBias) {
+          x = x * op.scale + op.template add<kFull>(h, rows[e >> 1], k0 + col);
+        }
+        s[4 * j + e] = keep ? x : -INFINITY;
+      }
     }
   }
 }
@@ -297,17 +387,17 @@ __device__ __forceinline__ void score_tile(const Op& op, float (&s)[64], const u
 template <class Op>
 __device__ __forceinline__ void softmax_tile(const Op& op, float (&s)[64], const uint32_t* words,
                                              int k0, int h, const int (&rows)[2],
-                                             float (&row_max)[2], float (&row_sum)[2],
-                                             float (&alpha)[2],
+                                             uint32_t bias_tile, float (&row_max)[2],
+                                             float (&row_sum)[2], float (&alpha)[2],
                                              uint32_t (&pa)[kTileKeys / 16][4]) {
   uint32_t word[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) word[i] = words[i];
   const bool full_tile = (word[0] & word[1] & word[2] & word[3]) == 0xffffffffu;
   if (!full_tile) {
-    score_tile<false>(op, s, word, k0, h, rows);
+    score_tile<false>(op, s, word, k0, h, rows, bias_tile);
   } else if constexpr (Op::kBias) {
-    score_tile<true>(op, s, word, k0, h, rows);
+    score_tile<true>(op, s, word, k0, h, rows, bias_tile);
   }
   // Scores in the op's units are x·scale (x biased: x); exp2 takes them
   // times to2, folded into one FFMA with the row's max.
@@ -349,18 +439,23 @@ __device__ __forceinline__ void softmax_tile(const Op& op, float (&s)[64], const
   }
 }
 
+template <class Op>
 constexpr int smem_bytes(int n_tiles) {
   // 1 KB of slack to align the tiles to the swizzle's 1024 B, Q, the K and
-  // V rings, full/empty barriers per stage and Q's, the key bitmap.
-  return 1024 + kConsumers * kGroupQBytes + 2 * kStages * kTileBytes +
-         (2 * kStages + 1) * 8 + n_tiles * 16;
+  // V rings (and the bias ring), full/empty barriers per stage and Q's, the
+  // key bitmap.
+  using R = Ring<Op>;
+  return 1024 + kConsumers * kGroupQBytes + R::kStages * (2 * kTileBytes + R::kBiasBytes) +
+         (2 * R::kStages + 1) * 8 + n_tiles * 16;
 }
 
 // Op, per kernel:
 //   const int32_t* mask; long long mask_sb; int seq;   // the key mask row
 //   float scale;                  // multiplies q.k
 //   static constexpr bool kNatural;   // scores in natural units (else log2)
-//   static constexpr bool kBias;      // add(h, row, col) is called
+//   static constexpr bool kBias;      // a bias is added to the scaled score
+//   static constexpr bool kBiasTile;  // ... read from bias tiles in shared
+//                                     // memory (b_map), else add(h, row, col)
 //   static constexpr float kMaskedScore;  // a masked key's score, same units
 //   begin(b, h, row, r, t, o, m, l)   // the start state of accumulator half r
 //   add<kFull>(h, row, col)           // extra score term (kBias); kFull:
@@ -370,14 +465,18 @@ template <class Op>
 __global__ void __launch_bounds__(kConsumers * 128 + 32, kMinBlocks)
 attention_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
                       const __grid_constant__ CUtensorMap k_map,
-                      const __grid_constant__ CUtensorMap v_map, const Op op) {
+                      const __grid_constant__ CUtensorMap v_map,
+                      const __grid_constant__ CUtensorMap b_map, const Op op) {
+  constexpr int kStages = Ring<Op>::kStages;
+  static_assert(!Op::kBiasTile || kConsumers == 1, "a bias box holds one group's rows");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
   uint8_t* q_s = base;
   uint8_t* k_s = q_s + kConsumers * kGroupQBytes;
   uint8_t* v_s = k_s + kStages * kTileBytes;
-  uint64_t* full = reinterpret_cast<uint64_t*>(v_s + kStages * kTileBytes);
+  uint8_t* b_s = v_s + kStages * kTileBytes;  // bias tiles (kBiasTile)
+  uint64_t* full = reinterpret_cast<uint64_t*>(b_s + kStages * Ring<Op>::kBiasBytes);
   uint64_t* empty = full + kStages;
   uint64_t* q_full = empty + kStages;
   uint32_t* bits = reinterpret_cast<uint32_t*>(q_full + 1);
@@ -431,10 +530,23 @@ attention_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
       int stage = 0, phase = 0;
       for (int t = next_tile(bits, -1, n_tiles, every); t < n_tiles;
            t = next_tile(bits, t, n_tiles, every)) {
+        // The bias of the tile's keys for the CTA's rows (none where no Q.K^T
+        // runs); a second box only where the tile has keys past its first 64.
+        const bool bias = Op::kBiasTile && !every;
+        const bool box2 = bias && t * kTileKeys + kBiasBoxKeys < seq;
+        const uint32_t bias_bytes = !bias ? 0 : box2 ? kBiasTileBytes : kBiasBoxBytes;
         mbar_wait(&empty[stage], phase ^ 1);
-        mbar_expect_tx(&full[stage], bytes);
+        mbar_expect_tx(&full[stage], bytes + bias_bytes);
         if (!every) tma_load(k_s + stage * kTileBytes, &k_map, &full[stage], h, t * kTileKeys, b);
         tma_load(v_s + stage * kTileBytes, &v_map, &full[stage], h, t * kTileKeys, b);
+        if constexpr (Op::kBiasTile) {
+          uint8_t* dst = b_s + stage * kBiasTileBytes;
+          if (bias) tma_load_bias(dst, &b_map, &full[stage], t * kTileKeys, q0, h);
+          if (box2) {
+            tma_load_bias(dst + kBiasBoxBytes, &b_map, &full[stage], t * kTileKeys + kBiasBoxKeys,
+                          q0, h);
+          }
+        }
         if (++stage == kStages) {
           stage = 0;
           phase ^= 1;
@@ -452,6 +564,17 @@ attention_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
   const int t = lane % 4;
   const int row0 = q0 + group * kRowsPerGroup + (warp % 4) * 16 + g;
   const int rows[2] = {row0, row0 + 8};
+  // This lane's ldmatrix row in stage 0's bias tile (score_tile): lanes
+  // 8i .. 8i + 7 address matrix i = (row half i % 2, key octet i / 2) of a
+  // pair, row 8·(i % 2) + (lane % 8) of the warp's 16, the octet's chunk
+  // swizzled by the row: chunk (i / 2) ^ (lane % 8) for the pair's first
+  // octet 0.
+  uint32_t bias_lane = 0;
+  if constexpr (Op::kBiasTile) {
+    const int mi = lane / 8, i = lane % 8;
+    bias_lane = smem_u32(b_s) + ((warp % 4) * 16 + 8 * (mi % 2) + i) * 128 +
+                (((mi / 2) ^ i) << 4);
+  }
 
   float o[32];
   float row_max[2], row_sum[2];
@@ -514,8 +637,8 @@ attention_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
     wgmma_wait<0>();
     fence_regs(s);
     float alpha[2];
-    softmax_tile(op, s, bits + 4 * tile, tile * kTileKeys, h, rows, row_max, row_sum, alpha,
-                 pa);
+    softmax_tile(op, s, bits + 4 * tile, tile * kTileKeys, h, rows,
+                 bias_lane + stage * Ring<Op>::kBiasBytes, row_max, row_sum, alpha, pa);
 #pragma unroll
     for (int r = 0; r < 2; ++r) rescale(o, r, alpha[r]);
     int cur = stage;
@@ -532,8 +655,8 @@ attention_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
       wgmma_wait<1>();  // Q.K^T of the next tile has landed; P.V may still run
       fence_regs(s);
       uint32_t pn[kTileKeys / 16][4];
-      softmax_tile(op, s, bits + 4 * next, next * kTileKeys, h, rows, row_max, row_sum, alpha,
-                   pn);
+      softmax_tile(op, s, bits + 4 * next, next * kTileKeys, h, rows,
+                   bias_lane + stage * Ring<Op>::kBiasBytes, row_max, row_sum, alpha, pn);
       wgmma_wait<0>();
       fence_regs(o);
       release(cur);
@@ -610,6 +733,32 @@ inline bool encode(CUtensorMap* map, const Tensor& x, int batch, int seq, int he
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// Whether a bf16 [1, H, S, S] bias at `ptr` with element strides (head,
+// query row; unit key stride) can be read as TMA boxes: a 16-byte aligned
+// base and row strides, rows and heads that do not overlap.
+inline bool bias_tileable(const void* ptr, long long b_sh, long long b_sq, int seq) {
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && b_sq % 8 == 0 && b_sh % 8 == 0 &&
+         b_sq >= seq && b_sh >= b_sq * seq;
+}
+
+// The 3-D map (keys, query rows, H) of a bf16 bias, boxes of 64 keys x the
+// CTA's rows, 128-byte swizzle, keys and rows past S zero-filled.
+inline bool encode_bias(CUtensorMap* map, const void* ptr, long long b_sh, long long b_sq,
+                        int seq, int heads) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(seq), static_cast<cuuint64_t>(seq),
+                              static_cast<cuuint64_t>(heads)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(b_sq) * 2,
+                                 static_cast<cuuint64_t>(b_sh) * 2};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(kBiasBoxKeys),
+                             static_cast<cuuint32_t>(kConsumers * kRowsPerGroup), 1u};
+  const cuuint32_t unit[3] = {1u, 1u, 1u};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
+            box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // Raises the kernel's dynamic shared-memory cap to what the longest sequence
 // needs, once per device (the cap is an attribute of the function on the
 // current device), so a launch pays no attribute call.
@@ -620,9 +769,29 @@ cudaError_t allow_smem(int device) {
   if (known && done[device].load(std::memory_order_relaxed)) return cudaSuccess;
   const cudaError_t err =
       cudaFuncSetAttribute(attention_sm90_kernel<Op>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           smem_bytes(kMaxSeq / kTileKeys));
+                           smem_bytes<Op>(kMaxSeq / kTileKeys));
   if (known && err == cudaSuccess) done[device].store(true, std::memory_order_relaxed);
   return err;
+}
+
+// The kernel of `op` at `seq` keys, on `device` (the current one): out[0]
+// stages, out[1] dynamic shared memory in bytes, out[2] CTAs an SM can hold
+// (the occupancy calculator), out[3] the CTAs an SM its launch bounds ask.
+// Returns 0 or a cudaError_t.
+template <class Op>
+int config(int seq, int device, int* out) {
+  const int smem = smem_bytes<Op>((seq + kTileKeys - 1) / kTileKeys);
+  cudaError_t err = allow_smem<Op>(device);
+  int ctas = 0;
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, attention_sm90_kernel<Op>,
+                                                        kConsumers * 128 + 32, smem);
+  }
+  out[0] = Ring<Op>::kStages;
+  out[1] = smem;
+  out[2] = ctas;
+  out[3] = kMinBlocks;
+  return static_cast<int>(err);
 }
 
 // Launches the bf16 kernel for `op` over q, k, v on `device` (the current
@@ -633,19 +802,22 @@ int launch(const Op& op, const Tensor& q, const Tensor& k, const Tensor& v, int 
            int heads, int device, cudaStream_t stream) {
   const int seq = op.seq;
   if (seq > kMaxSeq) return -1;
-  CUtensorMap q_map, k_map, v_map;
+  CUtensorMap q_map, k_map, v_map, b_map = {};
   if (!encode(&q_map, q, batch, seq, heads, kConsumers * kRowsPerGroup) ||
       !encode(&k_map, k, batch, seq, heads, kTileKeys) ||
       !encode(&v_map, v, batch, seq, heads, kTileKeys)) {
     return kTmaError;
+  }
+  if constexpr (Op::kBiasTile) {
+    if (!encode_bias(&b_map, op.bias, op.b_sh, op.b_sq, seq, heads)) return kTmaError;
   }
   const cudaError_t err = allow_smem<Op>(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rows = kConsumers * kRowsPerGroup;
   const dim3 grid((seq + rows - 1) / rows, heads, batch);
   attention_sm90_kernel<Op><<<grid, kConsumers * 128 + 32,
-                              smem_bytes((seq + kTileKeys - 1) / kTileKeys), stream>>>(
-      q_map, k_map, v_map, op);
+                              smem_bytes<Op>((seq + kTileKeys - 1) / kTileKeys), stream>>>(
+      q_map, k_map, v_map, b_map, op);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -22,7 +22,14 @@
 //   a batch row with no valid key no Q.K^T at all.  This file adds the Op:
 //   scores in log2 units (scale and bias times log2(e), masked keys
 //   -1e9·log2(e)), a zero start state, and the epilogue o / l in bf16
-//   through the output's strides.
+//   through the output's strides.  A bf16 bias whose base and row strides
+//   are 16-byte aligned (every T5 serving width) is read as TMA tiles
+//   through shared memory (the header's bias ring: 16 KB a stage, 2
+//   stages, two CTAs an SM; scores in natural units there): T5's B=32,
+//   S=512, H=8 padded call went from 0.1399 to 0.0885 ms, SDPA's 0.1026 ms
+//   (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py, PERF.md).  Any other bias (f32, or widths such as S = 18
+//   or 417 whose rows end off 16 bytes) keeps one global load a score in
+//   the same launch path.
 // - f32 (the parity path) uses scalar f32 FMAs (4x4 register tiles, float4
 //   shared-memory reads), compute-bound on the f32 pipe.
 //
@@ -78,17 +85,24 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
 // ---------------------------------------------------------------------------
 // bf16: the shared sm_90a loop (attention_sm90.cuh) with K1's Op
 
-// TB: the bias's element type, or void for no bias.
-template <typename TB>
+// TB: the bias's element type, or void for no bias.  kTile: a bf16 bias
+// read as TMA tiles through shared memory (attention_sm90.cuh), else one
+// global load a score.
+template <typename TB, bool kTile = false>
 struct EncoderOp {
-  static constexpr bool kNatural = false;  // log2 units: the softmax runs on exp2
+  // Scores in log2 units (scale and bias times log2(e)), except with bias
+  // tiles: those hold the bias as it is, so scores stay in natural units,
+  // scale and bias are one FFMA and the exp2's FFMA takes log2(e).
   static constexpr bool kBias = !std::is_void<TB>::value;
-  static constexpr float kMaskedScore = kMasked * kLog2e;
+  static constexpr bool kBiasTile = kTile;
+  static constexpr bool kNatural = kTile;
+  static constexpr float kMaskedScore = kNatural ? kMasked : kMasked * kLog2e;
+  static_assert(!kTile || std::is_same<TB, __nv_bfloat16>::value, "bias tiles are bf16");
 
   const int32_t* mask;
   long long mask_sb;
   int seq;
-  float scale;  // scale * log2(e)
+  float scale;  // scale, times log2(e) unless kNatural
   const void* bias;
   long long b_sh, b_sq;
   __nv_bfloat16* out;
@@ -102,9 +116,10 @@ struct EncoderOp {
     l = 0.f;
   }
 
-  // The bias in log2 units (called only with kBias).  A row past the end
-  // is never written and a key past the end scores -inf: neither reads the
-  // bias, whose last row ends at the tensor's end.  kFull: col is valid.
+  // The bias of one score in log2 units (kBias without kTile).  A row past
+  // the end is never written and a key past the end scores -inf: neither
+  // reads the bias, whose last row ends at the tensor's end.  kFull: col is
+  // valid.
   template <bool kFull>
   __device__ __forceinline__ float add(int h, int row, int col) const {
     if (row >= seq || (!kFull && col >= seq)) return 0.f;
@@ -123,14 +138,14 @@ struct EncoderOp {
   }
 };
 
-template <typename TB>
+template <typename TB, bool kTile = false>
 int launch_bf16(const Params& p, int batch, int heads, int device,
                 cudaStream_t stream) {
-  EncoderOp<TB> op;
+  EncoderOp<TB, kTile> op;
   op.mask = p.mask;
   op.mask_sb = p.m_sb;
   op.seq = p.seq;
-  op.scale = p.scale * kLog2e;
+  op.scale = EncoderOp<TB, kTile>::kNatural ? p.scale : p.scale * kLog2e;
   op.bias = p.bias;
   op.b_sh = p.b_sh;
   op.b_sq = p.b_sq;
@@ -373,8 +388,31 @@ extern "C" int fused_attention_forward(
   if (dtype == 1 && bias_dtype == -1) return launch_bf16<void>(p, batch, heads, device, s);
   if (dtype == 1 && bias_dtype == 0) return launch_bf16<float>(p, batch, heads, device, s);
   if (dtype == 1 && bias_dtype == 1) {
-    return launch_bf16<__nv_bfloat16>(p, batch, heads, device, s);
+    return sm90::bias_tileable(bias, p.b_sh, p.b_sq, seq)
+               ? launch_bf16<__nv_bfloat16, true>(p, batch, heads, device, s)
+               : launch_bf16<__nv_bfloat16, false>(p, batch, heads, device, s);
   }
+  return -1;
+}
+
+// 1 when fused_attention_forward reads a bias of this dtype, base and
+// strides as TMA tiles through shared memory, 0 when one load a score.
+extern "C" int fused_attention_bias_tiled(int dtype, int bias_dtype, const void* bias,
+                                          long long b_sh, long long b_sq, int seq) {
+  return dtype == 1 && bias_dtype == 1 && sm90::bias_tileable(bias, b_sh, b_sq, seq);
+}
+
+// The bf16 kernel's stages, shared memory, CTAs an SM and launch-bound
+// CTAs (sm90::config) at `seq` keys: no bias (bias_dtype -1), a bias of
+// bias_dtype read one load a score (tiled 0) or as tiles (tiled 1, bf16).
+extern "C" int fused_attention_config(int bias_dtype, int tiled, int seq, int device,
+                                      int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (bias_dtype == -1) return sm90::config<EncoderOp<void>>(seq, device, out);
+  if (bias_dtype == 0 && !tiled) return sm90::config<EncoderOp<float>>(seq, device, out);
+  if (bias_dtype == 1 && !tiled) return sm90::config<EncoderOp<__nv_bfloat16>>(seq, device, out);
+  if (bias_dtype == 1) return sm90::config<EncoderOp<__nv_bfloat16, true>>(seq, device, out);
   return -1;
 }
 

@@ -97,6 +97,7 @@ __device__ __forceinline__ long long state_row0(const Params& p, int b, int h) {
 struct HopOp {
   static constexpr bool kNatural = true;
   static constexpr bool kBias = false;
+  static constexpr bool kBiasTile = false;
   static constexpr float kMaskedScore = kMasked;
 
   const int32_t* mask;
@@ -433,6 +434,14 @@ extern "C" int ring_hop_forward(const void* q, const void* k, const void* v,
   if (dtype == 0) return launch_f32(p, batch, heads, s);
   if (dtype == 1) return launch_bf16(p, batch, heads, device, s);
   return -1;
+}
+
+// The bf16 kernel's stages, shared memory, CTAs an SM and launch-bound
+// CTAs (sm90::config) at `seq` keys.
+extern "C" int ring_hop_config(int seq, int device, int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return sm90::config<HopOp>(seq, device, out);
 }
 
 extern "C" const char* ring_hop_error_string(int code) {

@@ -64,8 +64,17 @@ largest seq bucket; ``MAX_STREAMS`` counts those streams too,
 ``loop.call_soon_threadsafe``.  The loop thread enters
 ``torch.inference_mode`` itself (it is thread-local).
 
-Not ported (``ROADMAP.md``): preemption and checkpoint-resume, the prefix
-cache and shared blocks, chunked prefill, the host and disk KV tiers,
+Shedding, as in the reference: past ``MAX_STREAMS`` admitted streams a
+submit raises ``QueueFullError`` with ``Retry-After`` advice of (admitted +
+1) x the EWMA of stream lifetimes (submit to release) / ``MAX_STREAMS``; a
+stream still queued when its deadline (``deadline_ms``, else
+``DEADLINE_MS``) passes is failed with ``DeadlineExceededError`` at the
+next iteration top (the API answers 504).  A stream in a slot never
+expires.
+
+Not ported (``ROADMAP.md``): priority classes and eviction, preemption
+and checkpoint-resume, the prefix cache and shared blocks, chunked
+prefill, the host and disk KV tiers,
 decode windows, pipelining deeper than one chunk, speculative decoding in
 the loop, fleets, the journal and the supervisor.  The pool holds
 ``MAX_STREAMS`` worst-case streams, so growth never finds it dry; if it
@@ -88,7 +97,7 @@ from ..models.gpt import GPTState, PagedState, state_tensors
 from ..models.sampling import greedy_params
 from ..ops.paged_attention import scatter_pages
 from ..runtime import compile_cache
-from ..scheduler.policy import QueueFullError, StreamQueue
+from ..scheduler.policy import DeadlineExceededError, DeadlineQueue, QueueFullError
 from ..utils import metrics, tracing
 from .kv_blocks import OutOfBlocks, StreamBlocks
 
@@ -106,10 +115,16 @@ class _Stream:
     queue of token chunks."""
 
     __slots__ = ("feats", "chunks", "loop", "cancelled", "produced", "delivered",
-                 "released", "budget", "blocks", "s_base", "rid", "t_emit")
+                 "released", "budget", "blocks", "s_base", "rid", "t_emit", "t_in",
+                 "deadline")
 
-    def __init__(self, feats: dict, loop: asyncio.AbstractEventLoop, budget: int):
+    def __init__(self, feats: dict, loop: asyncio.AbstractEventLoop, budget: int,
+                 deadline: float | None = None):
         self.feats = feats
+        self.t_in = time.monotonic()  # submit; release - t_in is the lifetime
+        # Absolute monotonic seconds by which the stream must leave the
+        # queue for a slot, or None.
+        self.deadline = deadline
         self.chunks: asyncio.Queue = asyncio.Queue()
         self.loop = loop
         self.cancelled = threading.Event()
@@ -176,7 +191,11 @@ class ContinuousDecodeLoop:
         # An idle loop waits this long for the rest of a concurrent burst
         # before admitting the wave (ADMIT_GRACE_MS).
         self.admit_grace_s = float(getattr(cfg, "admit_grace_ms", 8.0)) / 1e3
-        self.queue = StreamQueue(self.max_streams)
+        # DEADLINE_MS: the deadline of a stream that brings none (<= 0: none).
+        self.default_deadline_ms = float(getattr(cfg, "deadline_ms", 0.0) or 0.0)
+        self.queue = DeadlineQueue(self.max_streams)
+        # EWMA of stream lifetimes (submit to release), behind Retry-After.
+        self._stream_ewma_s = 1.0
         # Streams the batcher serves on the per-stream path: MAX_STREAMS
         # caps them and the loop's together.
         self.external_active = lambda: 0
@@ -222,10 +241,16 @@ class ContinuousDecodeLoop:
     def submit_stream(self, feats: dict) -> AsyncIterator[np.ndarray]:
         """Queue one stream; returns the async iterator of its token
         chunks.  Sheds with ``QueueFullError`` once ``max_streams`` streams
-        are admitted."""
+        are admitted.  A stream still queued when its deadline
+        (``deadline_ms``, else ``DEADLINE_MS``) passes fails with
+        ``DeadlineExceededError`` (the API answers 504)."""
         if self._stop.is_set():
             raise RuntimeError("decode loop is stopped")
-        st = _Stream(feats, asyncio.get_running_loop(), self.engine.budget_for(feats))
+        ms = feats.get("deadline_ms")
+        ms = float(ms) if ms is not None else self.default_deadline_ms
+        deadline = time.monotonic() + ms / 1e3 if ms > 0 else None
+        st = _Stream(feats, asyncio.get_running_loop(), self.engine.budget_for(feats),
+                     deadline)
         with tracing.span("admission", cat="sched", rid=st.rid):
             with self._admitted_lock:
                 total = self._admitted + int(self.external_active())
@@ -259,9 +284,10 @@ class ContinuousDecodeLoop:
         return gen()
 
     def _retry_after_s(self) -> float:
-        """Client guidance on 503: a second per slot's worth of streams
-        ahead."""
-        return min(60.0, max(1.0, (self._admitted + 1) / self.max_streams))
+        """Client guidance on 503: the streams ahead, and this one, each
+        for the mean stream lifetime, spread over the slots."""
+        est = (self._admitted + 1) * self._stream_ewma_s / max(1, self.max_streams)
+        return min(60.0, max(1.0, est))
 
     # ------------------------------------------------------------------
     # lifecycle
@@ -321,6 +347,9 @@ class ContinuousDecodeLoop:
                  "paged" if self.paged else "contiguous")
         while not self._stop.is_set():
             try:
+                # Streams whose deadline passed in the queue shed as 504s
+                # before any admission work.
+                self._expire_queued()
                 if not self.active and not self._inflight and self.queue.qsize() == 0:
                     st = self.queue.pop(timeout=0.05)
                     if st is None:
@@ -396,12 +425,23 @@ class ContinuousDecodeLoop:
         self._inflight.clear()
         self._state_stale = True  # reset at the next admission
 
+    def _expire_queued(self) -> None:
+        """Fail every queued stream whose deadline passed while it waited;
+        its consumer raises before any response bytes went out.  A stream
+        in a slot never expires."""
+        for st in self.queue.expire():
+            metrics.SHED.labels(self.model, "deadline").inc()
+            self._finish(st, DeadlineExceededError(
+                "deadline passed while queued; stream shed before dispatch"))
+
     def _release(self, st: _Stream) -> None:
         """Exactly once per stream."""
         if not st.released:
             st.released = True
+            dt = time.monotonic() - st.t_in
             with self._admitted_lock:
                 self._admitted -= 1
+                self._stream_ewma_s = 0.8 * self._stream_ewma_s + 0.2 * dt
 
     def _finish(self, st: _Stream, item: Any = _END) -> None:
         st.emit(item)

@@ -20,8 +20,9 @@ K1 replaces the Pallas TPU kernel ``mlmicroservicetemplate_tpu/ops/attention.py`
 and what the design does about that.  In short: the TPU kernel keeps one
 head's whole [S, S] f32 score tile in VMEM, which at S = 512 does not fit an
 SM's shared memory, so the CUDA kernel walks the keys in 128-key tiles
-(wgmma, TMA, tiles with no valid key skipped) with an f32 online softmax and
-never writes scores to device memory.  It reads and writes [B, S, H, D]
+(wgmma, TMA, tiles with no valid key skipped; a bf16 bias with 16-byte
+aligned rows comes as TMA tiles too) with an f32 online softmax and never
+writes scores to device memory.  It reads and writes [B, S, H, D]
 through strides, so no transposes surround it.
 
 Each wrapper launches its kernel for CUDA tensors and raises on any

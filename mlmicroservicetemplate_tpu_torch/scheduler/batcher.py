@@ -81,6 +81,7 @@ class Batcher:
         self.max_streams = int(getattr(cfg, "max_streams", 8))
         self._stream_executor = None
         self._active_streams = 0
+        self._stream_ewma_s = 1.0  # per-stream lifetimes, behind their Retry-After
         if getattr(engine.bundle, "kind", None) == KIND_SEQ2SEQ:
             self._stream_executor = ThreadPoolExecutor(max_workers=self.max_streams,
                                                        thread_name_prefix="stream")
@@ -186,7 +187,7 @@ class Batcher:
             raise QueueFullError(
                 f"{self._active_streams + loop_admitted} streams active >= "
                 f"max_streams={self.max_streams}",
-                retry_after_s=self.retry_after_s(),
+                retry_after_s=self.retry_after_s(streams=True),
             )
         loop = asyncio.get_running_loop()
         chunks: asyncio.Queue = asyncio.Queue()
@@ -214,10 +215,13 @@ class Batcher:
                 loop.call_soon_threadsafe(chunks.put_nowait, e)
 
         self._active_streams += 1
+        t_started = time.monotonic()
         done = loop.run_in_executor(self._stream_executor, pump)
 
         def release(_fut) -> None:
             self._active_streams -= 1
+            dt = time.monotonic() - t_started
+            self._stream_ewma_s = 0.8 * self._stream_ewma_s + 0.2 * dt
 
         done.add_done_callback(release)
 
@@ -235,9 +239,15 @@ class Batcher:
 
         return gen()
 
-    def retry_after_s(self) -> float:
-        """Client guidance on 503: queue depth x observed batch time."""
-        est = (self._queue.qsize() / max(1, self.max_batch) + 1.0) * self._batch_ewma_s
+    def retry_after_s(self, streams: bool = False) -> float:
+        """Client guidance on 503: queue depth x observed batch time; for a
+        stream, the streams on both paths and this one, each for the
+        per-stream path's mean lifetime, spread over ``max_streams``."""
+        if streams:
+            waiting = self._active_streams + (self._cdl.admitted if self._cdl is not None else 0)
+            est = (waiting + 1) * self._stream_ewma_s / max(1, self.max_streams)
+        else:
+            est = (self._queue.qsize() / max(1, self.max_batch) + 1.0) * self._batch_ewma_s
         return min(60.0, max(1.0, est))
 
     def _shed(self, reason: str) -> None:

@@ -1,16 +1,16 @@
-"""The wait-queue policy of the dynamic batcher.
+"""The wait-queue policy of the dynamic batcher and the continuous loop.
 
-The parts of the JAX package's ``scheduler/policy.py`` that the
-``/predict`` path uses: the shed and deadline errors and a bounded
-earliest-deadline-first queue (FIFO among requests without a deadline,
-so the default is plain FIFO); and for the continuous decode loop a
-bounded FIFO of waiting streams.  Priority classes, fair share and the KV
-budget are not ported.
+The parts of the JAX package's ``scheduler/policy.py`` that the port
+uses: the shed and deadline errors and one bounded earliest-deadline-first
+queue (FIFO among waiters with equal deadlines or none, so without
+deadlines it is plain FIFO), the ``/predict`` path's request queue and the
+continuous decode loop's stream queue (the JAX stream ``DeadlineQueue`` cut
+to one class).  Priority classes, eviction, fair share and the KV budget
+are not ported.
 """
 
 from __future__ import annotations
 
-import collections
 import heapq
 import itertools
 import threading
@@ -32,84 +32,66 @@ class DeadlineExceededError(Exception):
 
 
 class DeadlineQueue:
-    """Bounded EDF wait queue.  Items expose ``deadline`` (absolute
-    ``time.monotonic()`` seconds, or None for no deadline)."""
+    """Bounded EDF wait queue.  Items expose ``deadline``: absolute seconds
+    on the queue's clock (``time.monotonic`` unless one is injected, so
+    tests pin expiry without sleeping), or None for no deadline, which
+    ranks after every deadline.  Thread-safe; ``pop`` waits."""
 
-    def __init__(self, maxsize: int):
+    def __init__(self, maxsize: int, clock=None):
         self.maxsize = max(1, int(maxsize))
         self._heap: list = []
         self._seq = itertools.count()
-        self._lock = threading.Lock()
+        self._cv = threading.Condition()
+        self._clock = clock if clock is not None else time.monotonic
 
     @staticmethod
     def _key(item) -> float:
         return item.deadline if item.deadline is not None else float("inf")
 
     def qsize(self) -> int:
-        with self._lock:
+        with self._cv:
             return len(self._heap)
 
     def next_deadline(self) -> float | None:
-        with self._lock:
+        with self._cv:
             return min((it.deadline for _, _, it in self._heap
                         if it.deadline is not None), default=None)
 
     def put(self, item) -> None:
-        with self._lock:
+        with self._cv:
             if len(self._heap) >= self.maxsize:
                 raise QueueFullError(f"queue depth {len(self._heap)} >= {self.maxsize}")
             heapq.heappush(self._heap, (self._key(item), next(self._seq), item))
-
-    def pop_nowait(self):
-        with self._lock:
-            return heapq.heappop(self._heap)[2] if self._heap else None
-
-    def expire(self) -> list:
-        """Remove and return every waiter whose deadline has passed."""
-        now = time.monotonic()
-        out = []
-        with self._lock:
-            while self._heap and self._heap[0][0] <= now:
-                out.append(heapq.heappop(self._heap)[2])
-        return out
-
-
-class StreamQueue:
-    """Bounded FIFO of streams waiting for a slot of the continuous decode
-    loop: the plain-FIFO cut of the JAX package's stream ``DeadlineQueue``
-    (no priority classes, deadlines or eviction).  Thread-safe; the loop
-    thread pops with a timeout."""
-
-    def __init__(self, maxsize: int):
-        self.maxsize = max(1, int(maxsize))
-        self._items: collections.deque = collections.deque()
-        self._cv = threading.Condition()
-
-    def qsize(self) -> int:
-        with self._cv:
-            return len(self._items)
-
-    def put(self, item) -> None:
-        with self._cv:
-            if len(self._items) >= self.maxsize:
-                raise QueueFullError(f"stream queue depth {len(self._items)} >= {self.maxsize}")
-            self._items.append(item)
             self._cv.notify()
 
     def pop_nowait(self):
         with self._cv:
-            return self._items.popleft() if self._items else None
+            return heapq.heappop(self._heap)[2] if self._heap else None
 
     def pop(self, timeout: float):
-        """The oldest waiter, waiting up to ``timeout`` seconds; None if
-        none arrived."""
+        """The first waiter, waiting up to ``timeout`` seconds of the
+        queue's clock; None if none arrived."""
+        until = self._clock() + timeout
         with self._cv:
-            if not self._items:
-                self._cv.wait(timeout)
-            return self._items.popleft() if self._items else None
+            while not self._heap:
+                remaining = until - self._clock()
+                if remaining <= 0 or not self._cv.wait(remaining):
+                    break
+            return heapq.heappop(self._heap)[2] if self._heap else None
+
+    def expire(self, now: float | None = None) -> list:
+        """Remove and return every waiter whose deadline has passed (at
+        ``now``, default the queue's clock)."""
+        now = self._clock() if now is None else now
+        out = []
+        with self._cv:
+            while self._heap and self._heap[0][0] <= now:
+                out.append(heapq.heappop(self._heap)[2])
+        return out
 
     def drain_all(self) -> list:
+        """Remove and return every waiter (shutdown)."""
         with self._cv:
-            out = list(self._items)
-            self._items.clear()
+            out = [it for _, _, it in sorted(self._heap, key=lambda e: e[:2])]
+            self._heap.clear()
             return out
