@@ -153,6 +153,17 @@ result line:
    first stream, as the app warms.  Then one chunk of the 16-slot state at
    full width is timed (CUDA events) and split by kernel
    (``torch.profiler``), eager and as the loop's graph.
+7c. serve llama classes: the same full-depth weights through the paged
+   loop (16 slots, 64-token budget, ``MAX_STREAM_QUEUE`` 16, ``PREEMPT``)
+   over a pool of ``KV_BUDGET_MB`` = 4 of the engine's worst-case streams
+   (its block bytes times its blocks a stream): 16 ``batch``-class
+   streams (a third sampled and seeded) hold the slots and the pool, then
+   8 interactive ones arrive.  At least one preemption and one dry-pool
+   requeue; every delivered token teacher-forced across the resume seams
+   (recast and replay); K2 and K3 held against the loop's counts; the pool
+   back to 0 blocks, no KV committed; 0 graph misses after warmup;
+   preemptions, recasts, replays, dry-pool stalls and TTFT p50/p99 per
+   class printed.
 8. decode step: where one llama decode step's time goes at B in {1, 8,
    32}, T=576: wall time against busy time, split into K2, GEMMs, other,
    eager and as a graph of the step.
@@ -180,6 +191,9 @@ result line:
    and a per-stream generation.  Then ``start t5``: encode + cross K/V +
    first chunk at B in {1, 8, 32}, S=512, eager and as graphs, split into
    K1, GEMMs and the rest, and ``decode step t5`` at the same batches.
+   ``serve t5 classes``: 4 batch streams in T5's 4 contiguous slots, then 4
+   interactive ones; the victims replay (K1 runs their ``start`` again);
+   at least one preemption, every token teacher-forced.
 9. http: ``/predict`` on bert-base, ``/predict`` and ``/status`` (its
    ``n_devices``) on bert-long, ``/predict``, ``/v1/completions`` (greedy
    and sampled), ``/v1/chat/completions`` and ``/v1/models`` on llama and
@@ -2533,6 +2547,169 @@ def phase_serve_stream(label: str, overrides: dict, params, ref_model, rehearsal
     return cfg, bundle, engine, k2, k3, gdrive, loop
 
 
+def class_items(rehearsal: bool, n_batch: int, n_inter: int, cap: int):
+    """``n_batch`` batch-class prompts (every third sampled and seeded) and
+    ``n_inter`` interactive ones, each under ``cap`` bytes (the smallest
+    seq bucket), none with a ``max_tokens``: every stream asks for the whole
+    decode budget."""
+    import numpy as np
+
+    from mlmicroservicetemplate_tpu_torch.models.registry import RawItem
+
+    rng = np.random.default_rng(3)
+    words = ["batch", "class", "stream", "budget", "block", "resume", "slot", "pool"]
+    items = []
+    for i in range(n_batch + n_inter):
+        length = int(rng.integers(cap // 2, cap))
+        text = " ".join(rng.choice(words, size=length))[:length]
+        sampling = {}
+        if i < n_batch and i % 3 == 2:
+            sampling = dict(temperature=(0.7, 1.0)[i // 3 % 2], top_k=(0, 40)[i // 6 % 2],
+                            seed=2000 + i)
+        items.append(RawItem(text=text, **sampling))
+    return items[:n_batch], items[n_batch:]
+
+
+async def drive_classes(batcher, bundle, batch_items, inter_items):
+    """Open the batch-class streams at once; once each has its first chunk
+    (they hold the slots and the pool), open the interactive ones; read
+    every stream to its end.  Returns ([(feats, tokens, class, ttft s)],
+    wall seconds)."""
+    import numpy as np
+
+    await batcher.start()
+
+    async def one(item, klass, first_seen=None):
+        t0 = time.monotonic()
+        f = dict(bundle.preprocess(item), priority=klass)
+        toks, ttft = [], None
+        try:
+            async for chunk in batcher.submit_stream(f):
+                if ttft is None:
+                    ttft = time.monotonic() - t0
+                    if first_seen is not None:
+                        first_seen.set()
+                toks.extend(int(x) for x in chunk)
+        finally:
+            if first_seen is not None:
+                first_seen.set()
+        return f, np.array(toks, np.int32), klass, ttft
+
+    try:
+        t0 = time.monotonic()
+        seen = [asyncio.Event() for _ in batch_items]
+        tasks = [asyncio.create_task(one(item, "batch", ev))
+                 for item, ev in zip(batch_items, seen)]
+        for ev in seen:
+            await ev.wait()
+        tasks += [asyncio.create_task(one(item, "interactive")) for item in inter_items]
+        done = await asyncio.gather(*tasks)
+        wall = time.monotonic() - t0
+    finally:
+        await batcher.stop()
+    return done, wall
+
+
+def phase_serve_classes(label: str, overrides: dict, params, ref_model, rehearsal: bool,
+                        card_line: str, n_batch: int, n_inter: int, cap: int,
+                        budget_streams: int | None = None):
+    """Priority classes through the continuous loop: batch-class streams
+    fill the slots (and, with ``budget_streams``, a paged pool of
+    ``KV_BUDGET_MB`` = that many of the engine's worst-case streams), then
+    interactive ones arrive and preempt them.  Gates: every stream ends
+    with tokens, at least one preemption (and, paged, one dry-pool requeue),
+    every delivered token teacher-forced across the resume seams, the
+    kernels' launches held against the loop's counts, the pool back to 0
+    blocks, every stream released.  Returns (bundle, {kernel: launches},
+    graph accounting)."""
+    import numpy as np
+
+    from mlmicroservicetemplate_tpu_torch.engine.engine import InferenceEngine
+    from mlmicroservicetemplate_tpu_torch.ops.attention import decode_attention, fused_attention
+    from mlmicroservicetemplate_tpu_torch.ops.paged_attention import paged_decode_attention
+    from mlmicroservicetemplate_tpu_torch.scheduler.batcher import Batcher
+    from mlmicroservicetemplate_tpu_torch.serve import build_service
+
+    cfg, bundle, engine, batcher = build_service(overrides, params=params)
+    budget_blocks = None
+    if budget_streams:
+        # KV_BUDGET_MB from this engine's blocks (half a block over, so the
+        # pool's floor lands on the count), then the service over it.
+        budget_blocks = budget_streams * engine.kv_blocks_per_stream
+        bb = engine.kv_block_bytes()
+        cfg = dataclasses.replace(cfg, kv_budget_mb=(budget_blocks * bb + bb // 2) / 1e6)
+        engine = InferenceEngine(bundle, cfg)
+        batcher = Batcher(engine, cfg)
+        if engine.kv_pool.num_blocks != budget_blocks:
+            raise AssertionError(f"{label}: KV_BUDGET_MB={cfg.kv_budget_mb} gave "
+                                 f"{engine.kv_pool.num_blocks} blocks, want {budget_blocks}")
+    loop = batcher._cdl
+    warm_s = batcher.warm_engine() + batcher.warm_streams()
+    batch_items, inter_items = class_items(rehearsal, n_batch, n_inter, cap)
+
+    kernels = (fused_attention, decode_attention, paged_decode_attention)
+    for k in kernels:
+        k.launches = 0
+    loop.prefill_dispatches = loop.chunk_dispatches = loop.decode_steps = 0
+    marks = graph_marks(bundle)
+    done, wall = asyncio.run(drive_classes(batcher, bundle, batch_items, inter_items))
+    k1, k2, k3 = (k.launches for k in kernels)
+    t5 = bundle.name == "t5-small"
+    counted = ({"fused_attention": k1} if t5
+               else {"decode_attention": k2, "paged_decode_attention": k3})
+    gdrive = graph_drive(bundle, marks, counted)
+    layers, chunk = bundle.cfg.num_layers, engine.chunk_tokens
+    if t5:
+        starts = start_calls(bundle, marks[0])
+        want = {"fused_attention": T5_LAYERS * starts, "decode_attention": 0}
+    elif engine.paged_kv:
+        want = {"decode_attention": layers * chunk * loop.prefill_dispatches,
+                "paged_decode_attention": layers * loop.decode_steps}
+    else:
+        want = {"decode_attention": layers * (chunk * loop.prefill_dispatches
+                                              + loop.decode_steps)}
+    got = {"fused_attention": k1, "decode_attention": k2, "paged_decode_attention": k3}
+    if not rehearsal and any(got[k] != v for k, v in want.items()):
+        raise AssertionError(f"{label}: launches {got}, want {want} over "
+                             f"{loop.prefill_dispatches} waves and {loop.decode_steps} steps")
+    counts = dict(preemptions=loop.preemptions, recasts=loop.recasts, replays=loop.replays,
+                  kv_growth_stalls=loop.kv_growth_stalls)
+    if loop.preemptions < 1:
+        raise AssertionError(f"{label}: no interactive arrival preempted a batch stream "
+                             f"({counts})")
+    if engine.paged_kv and loop.kv_growth_stalls < 1:
+        raise AssertionError(f"{label}: the {engine.kv_pool.num_blocks}-block pool never ran "
+                             f"dry ({counts})")
+    if engine.paged_kv and engine.kv_pool.used_blocks != 0:
+        raise AssertionError(f"{label}: {engine.kv_pool.used_blocks} pool blocks still held")
+    if loop.admitted != 0 or batcher.admission.committed_bytes != 0:
+        raise AssertionError(f"{label}: {loop.admitted} streams never released, "
+                             f"{batcher.admission.committed_bytes} KV bytes still committed")
+    feats = [f for f, *_ in done]
+    rows = [row for _, row, *_ in done]
+    for f, row in zip(feats, rows):
+        if not 1 <= len(row) <= engine.max_decode_len:
+            raise AssertionError(f"{label}: a stream of {len(row)} tokens")
+    check = teacher_forced(bundle, ref_model, feats, rows, engine.max_decode_len)
+    ttft = {klass: np.array([t for _, _, k, t in done if k == klass]) * 1e3
+            for klass in ("batch", "interactive")}
+    out = dict(
+        device=str(bundle.device), card=card_line, layers=layers, paged=engine.paged_kv,
+        slots=loop.n_slots, queue=loop.max_stream_queue, batch_streams=n_batch,
+        interactive_streams=n_inter, kv_budget_mb=cfg.kv_budget_mb or None,
+        pool_blocks=engine.kv_pool.num_blocks if engine.paged_kv else None,
+        **counts, admission_waves=loop.prefill_dispatches,
+        chunk_dispatches=loop.chunk_dispatches, slot_decode_steps=loop.decode_steps,
+        launches={k: v for k, v in got.items() if v}, warm_s=warm_s,
+        **{f"ttft_{k}_p{q}_ms": float(np.percentile(v, q)) for k, v in ttft.items()
+           for q in (50, 99)},
+        generated_tok_per_s=check["tokens_checked"] / wall, graph_modes=engine.graph_modes(),
+        **check,
+    )
+    emit(label, **out)
+    return bundle, {k: v for k, v in got.items() if v}, gdrive
+
+
 def time_chunk(engine, loop) -> dict:
     """One chunk of the loop's slot state, eager and through its graph,
     timed (CUDA events) and split by kernel (``torch.profiler``): every
@@ -3234,6 +3411,21 @@ def main(argv: list[str]) -> int:
                 stream_svc = svc  # kept for the http phase
             else:
                 release(svc[1])
+        # Priority classes at full depth: 16 batch streams over a pool of 4
+        # worst-case streams (KV_BUDGET_MB; the rehearsal's smaller buckets
+        # take 7), then 8 interactive arrivals.  Batch buckets cut to 1, 4
+        # and 16 (a wave pads to one): warmup captures 48 graphs, not 80.
+        phase = "serve llama classes"
+        classes = phase_serve_classes(
+            phase, {**llama_overrides, **stream, "BATCH_BUCKETS": "1,4,16",
+                    "MAX_STREAM_QUEUE": "16", "PREEMPT": "1"},
+            params, ref_model, rehearsal, card_line, n_batch=16, n_inter=8, cap=28,
+            budget_streams=7 if rehearsal else 4)
+        k2_streams += classes[1].get("decode_attention", 0)
+        k3_streams += classes[1].get("paged_decode_attention", 0)
+        phase = "graphs llama classes"
+        graphs("llama classes", classes[0], classes[2])
+        release(classes[0])
         del ref_model, params, cref, cparams
         if rehearsal:
             emit("decode step", skipped="cpu rehearsal: no card to profile")
@@ -3324,6 +3516,17 @@ def main(argv: list[str]) -> int:
         graphs("t5 stream", t5_stream[1], t5_stream[4],
                graph_vs_eager=lambda: chunk_graph_vs_eager(t5_stream[2], t5_stream[6]))
         t5_k1 = t5_svc[3] + t5_stream[3]
+        # Priority classes through T5's contiguous loop: 4 batch streams in
+        # the 4 slots, then 4 interactive arrivals; the victims replay.
+        phase = "serve t5 classes"
+        classes = phase_serve_classes(
+            phase, {**t5_overrides, "MAX_STREAMS": "4", "MAX_STREAM_QUEUE": "8",
+                    "PREEMPT": "1", "BATCH_BUCKETS": "1,4"},
+            tparams, tref, rehearsal, card_line, n_batch=4, n_inter=4, cap=28)
+        t5_k1 += classes[1].get("fused_attention", 0)
+        phase = "graphs t5 classes"
+        graphs("t5 classes", classes[0], classes[2])
+        release(classes[0])
         # The per-stream path: two prompts of different lengths past the
         # largest of cut buckets (one width, a multiple of 128: start and
         # gen_chunk captured at first use, 2 misses for both), then every
@@ -3460,7 +3663,8 @@ def main(argv: list[str]) -> int:
                 "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
                 "device_us": row["device_us"], "plain_ms": row["plain_ms"],
                 "bound_ms": row["bound_us"] / 1e3, "bound_by": row["bound_by"],
-                "library_ms": row["library_ms"]}
+                "library_ms": row["library_ms"],
+                "library_device_us": row.get("library_device_us")}
 
     def kernel_entry(name: str, replaces: str, launches: int, row: dict, **extra) -> dict:
         return {

@@ -178,30 +178,27 @@ async def _on_cleanup(app: web.Application) -> None:
 
 def _sched_fields(request: web.Request) -> dict:
     """X-Priority / X-Deadline-Ms headers -> the scheduling fields of the
-    feats dict.  Every request is interactive: ``X-Priority: batch``
-    answers 400 (priority classes are not ported), as does a value the
-    JAX package refuses.  A request without X-Deadline-Ms takes the
-    batcher's DEADLINE_MS."""
+    feats dict that the admission controller reads (``priority``,
+    ``deadline_ms``); a malformed header answers 400 with the JAX package's
+    reason.  A request without them takes ``PRIORITY_DEFAULT`` and
+    ``DEADLINE_MS``."""
+    out: dict = {}
     p = request.headers.get("X-Priority")
     if p is not None:
         p = p.strip().lower()
         if p not in ("interactive", "batch"):
             raise web.HTTPBadRequest(reason='X-Priority must be "interactive" or "batch"')
-        if p == "batch":
-            raise web.HTTPBadRequest(
-                reason="X-Priority: batch is not ported yet; priority classes are not "
-                       "served, every request is interactive"
-            )
+        out["priority"] = p
     d = request.headers.get("X-Deadline-Ms")
-    if d is None:
-        return {}
-    try:
-        dv = float(d)
-    except ValueError:
-        raise web.HTTPBadRequest(reason="X-Deadline-Ms must be a number") from None
-    if not dv > 0:  # also rejects NaN
-        raise web.HTTPBadRequest(reason="X-Deadline-Ms must be > 0")
-    return {"deadline_ms": dv}
+    if d is not None:
+        try:
+            dv = float(d)
+        except ValueError:
+            raise web.HTTPBadRequest(reason="X-Deadline-Ms must be a number") from None
+        if not dv > 0:  # also rejects NaN
+            raise web.HTTPBadRequest(reason="X-Deadline-Ms must be > 0")
+        out["deadline_ms"] = dv
+    return out
 
 
 async def _parse_request(request: web.Request) -> RawItem:
@@ -829,6 +826,8 @@ async def handle_status(request: web.Request) -> web.Response:
         "scheduler": {
             "draining": app[K_BATCHER].draining,
             "pending": app[K_BATCHER].pending_work(),
+            "kv_committed_bytes": app[K_BATCHER].admission.committed_bytes,
+            "kv_budget_bytes": app[K_BATCHER].admission.kv_budget_bytes,
         },
         "compile": app[K_BATCHER].compile_status(),
     }
@@ -852,7 +851,7 @@ async def drain_app(app: web.Application, grace_s: float = 30.0) -> bool:
     """SIGTERM drain: stop admitting (readyz -> 503, new requests 503),
     then wait up to ``grace_s`` for queued and in-flight work."""
     batcher: Batcher = app[K_BATCHER]
-    batcher.draining = True
+    batcher.begin_drain()
     deadline = time.monotonic() + grace_s
     while batcher.pending_work() > 0 and time.monotonic() < deadline:
         await asyncio.sleep(0.05)

@@ -42,9 +42,11 @@ not ported), the same functions run eagerly; ``graph_modes`` says which.
   ``generate_stream`` (prompts past the loop's largest seq bucket, and
   ``CONTINUOUS_BATCHING=0``).  The loop admits a wave of streams through
   ``start`` (prefill plus the first chunk, fused as in the JAX package)
-  and, with ``PAGED_KV=1``, keeps its KV in ``kv_pool``: blocks for
-  ``MAX_STREAMS`` worst-case streams (largest seq bucket plus the decode
-  budget each), so growth never finds the pool dry.
+  and, with ``PAGED_KV=1``, keeps its KV in ``kv_pool``: the blocks of
+  ``KV_BUDGET_MB``, else of ``MAX_STREAMS`` worst-case streams (largest
+  seq bucket plus the decode budget each).  ``kv_bytes_estimate`` and
+  ``kv_blocks_estimate`` are the admission controller's footprints
+  (``scheduler/admission.py``).
 """
 
 from __future__ import annotations
@@ -143,10 +145,15 @@ class InferenceEngine:
         self.kv_pool = None
         if self.paged_kv:
             # The most blocks one stream can hold (the loop's table width),
-            # and a pool of MAX_STREAMS of them.
+            # and a pool of KV_BUDGET_MB's blocks, else of MAX_STREAMS of
+            # those worst cases.
             self.kv_blocks_per_stream = blocks_for(
                 max(self.seq_buckets) + self.max_decode_len, self.kv_block_size)
-            self.kv_pool = BlockPool(cfg.max_streams * self.kv_blocks_per_stream)
+            bb = self.kv_block_bytes()
+            budget = int(float(getattr(cfg, "kv_budget_mb", 0.0) or 0.0) * 1e6)
+            num = (max(1, budget // bb) if budget
+                   else cfg.max_streams * self.kv_blocks_per_stream)
+            self.kv_pool = BlockPool(num, bb)
 
     def budget_for(self, feats: dict) -> int:
         """One stream's token budget: its max_tokens clamped to the
@@ -164,6 +171,35 @@ class InferenceEngine:
     def kv_block_bytes(self) -> int:
         """Bytes one ``KV_BLOCK_SIZE``-token block costs."""
         return self.kv_token_bytes() * self.kv_block_size
+
+    def kv_bytes_estimate(self, feats: dict) -> int:
+        """Admission-time ceiling of one request's KV footprint in bytes:
+        its prompt bucket plus the server's decode budget of positions (an
+        encoder-decoder adds its cross-attention K/V over the encoder
+        bucket).  A ceiling, so the budget fails safe; under ``PAGED_KV=1``
+        the block ledger (``kv_blocks_estimate``) takes its place for
+        streams."""
+        if self.bundle.kind != KIND_SEQ2SEQ:
+            return 0
+        s = bucket_for(max(int(feats.get("length", 0) or 0), 1), self.seq_buckets,
+                       self.seq_multiple)
+        per_tok = self.kv_token_bytes()
+        total = (s + self.max_decode_len) * per_tok
+        if getattr(self.bundle.cfg, "d_kv", None) is not None:
+            total += s * per_tok
+        return int(total)
+
+    def kv_blocks_estimate(self, feats: dict) -> tuple[int, int]:
+        """Paged mode's exact ledger for one stream: (initial, worst)
+        blocks.  ``initial`` covers the prompt bucket and the first chunk,
+        what admission charges up front; ``worst`` the request's own decode
+        budget in whole chunks, the bound past which it can never fit."""
+        s = bucket_for(max(int(feats.get("length", 0) or 0), 1), self.seq_buckets,
+                       self.seq_multiple)
+        budget = -(-self.budget_for(feats) // self.chunk_tokens) * self.chunk_tokens
+        initial = blocks_for(s + self.chunk_tokens, self.kv_block_size)
+        worst = blocks_for(s + budget, self.kv_block_size)
+        return initial, max(initial, worst)
 
     def _collate_images(self, feats: list[dict]) -> tuple[torch.Tensor, int]:
         """A uint8 [bsz, S, S, 3] batch at the batch bucket, written straight

@@ -5,7 +5,9 @@ Counterpart of the JAX package's ``engine/kv_blocks.py`` for the
 continuous loop's paged mode (``PAGED_KV=1``): the KV cache is a pool of
 ``KV_BLOCK_SIZE``-token blocks shared by every slot, a stream holds only
 the blocks its positions need, grows block by block at chunk boundaries
-and returns every block the moment it ends.  Everything here is host-side:
+and returns every block the moment it ends; a stream whose growth finds
+the pool dry is checkpointed and queued again (``engine/streams.py``).
+Everything here is host-side:
 block ids index the device pools (``models/gpt.PagedState``); each decode
 dispatch carries the tables as an int32 tensor.  Each block has one holder:
 the reference's refcounts, adoption and trimming serve its prefix cache,
@@ -40,19 +42,31 @@ class OutOfBlocks(Exception):
 
 
 class BlockPool:
-    """Thread-safe free-list allocator.  All-or-nothing: a failed
-    allocation takes nothing; a double free raises."""
+    """Thread-safe free-list allocator of ``num_blocks`` blocks of
+    ``block_bytes`` each (the admission ledger reads its bytes).
+    All-or-nothing: a failed allocation takes nothing; a double free
+    raises."""
 
-    def __init__(self, num_blocks: int):
+    def __init__(self, num_blocks: int, block_bytes: int = 0):
         self.num_blocks = int(num_blocks)
+        self.block_bytes = int(block_bytes)
         self._free: deque[int] = deque(range(self.num_blocks))
         self._held: set[int] = set()
         self._lock = threading.Lock()
 
     @property
+    def free_blocks(self) -> int:
+        with self._lock:
+            return len(self._free)
+
+    @property
     def used_blocks(self) -> int:
         with self._lock:
             return self.num_blocks - len(self._free)
+
+    @property
+    def used_bytes(self) -> int:
+        return self.used_blocks * self.block_bytes
 
     def alloc(self, n: int) -> list[int]:
         """Take ``n`` blocks or raise ``OutOfBlocks`` without taking any."""

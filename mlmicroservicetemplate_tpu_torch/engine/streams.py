@@ -64,21 +64,41 @@ largest seq bucket; ``MAX_STREAMS`` counts those streams too,
 ``loop.call_soon_threadsafe``.  The loop thread enters
 ``torch.inference_mode`` itself (it is thread-local).
 
-Shedding, as in the reference: past ``MAX_STREAMS`` admitted streams a
-submit raises ``QueueFullError`` with ``Retry-After`` advice of (admitted +
-1) x the EWMA of stream lifetimes (submit to release) / ``MAX_STREAMS``; a
-stream still queued when its deadline (``deadline_ms``, else
-``DEADLINE_MS``) passes is failed with ``DeadlineExceededError`` at the
-next iteration top (the API answers 504).  A stream in a slot never
-expires.
+Admission and shedding, as in the reference: each stream is classified
+(``X-Priority``, else ``PRIORITY_DEFAULT``; ``deadline_ms``, else
+``DEADLINE_MS``) and admitted by the shared ``AdmissionController``
+(``scheduler/admission.py``: drain, and the KV budget, which sheds work
+that can never fit and down-classes interactive work under pressure), then
+waits in a two-class EDF ``DeadlineQueue`` of ``MAX_STREAMS +
+MAX_STREAM_QUEUE``.  Past that many admitted streams a submit sheds the
+lowest-class latest-deadline waiter it outranks, or else itself, with
+``QueueFullError`` and ``Retry-After`` advice of (admitted + 1) x the EWMA
+of stream lifetimes (submit to release) / ``MAX_STREAMS``.  A stream still
+queued when its deadline passes is failed with ``DeadlineExceededError``
+at the next iteration top (the API answers 504).  A stream leaves the
+queue only when its KV reservation fits (``AdmissionController.fits``).
 
-Not ported (``ROADMAP.md``): priority classes and eviction, preemption
-and checkpoint-resume, the prefix cache and shared blocks, chunked
-prefill, the host and disk KV tiers,
-decode windows, pipelining deeper than one chunk, speculative decoding in
-the loop, fleets, the journal and the supervisor.  The pool holds
-``MAX_STREAMS`` worst-case streams, so growth never finds it dry; if it
-ever does, the dispatch raises instead of requeueing.
+Preemption (``PREEMPT``, on by default): when interactive streams wait and
+every slot is busy, the iteration top checkpoints batch-class slot
+holders (latest deadline first; a stream yields at most twice; none while
+a checkpointed stream still waits) and queues them again, ``started``, so
+they neither expire nor are evicted.  The checkpoint is the tokens already
+delivered: a greedy stream of a causal decoder (``supports_prefix``) whose
+prompt and delivered tokens fit the largest seq bucket resumes by
+prefilling them as its new prompt (*recast*); every other stream (sampled,
+T5) replays its whole generation with the delivered tokens suppressed
+(*replay*; a sampled stream's seed is pinned at admission, so the replay
+draws the same tokens).  A paged stream whose insert or growth finds the
+pool dry is checkpointed and queued again the same way.  A checkpointed
+stream holds no blocks and no reservation while it waits.  The victim's
+row in the chunk still in flight writes through the table that chunk
+read; its blocks return to the pool at once, and a new tenant's insert,
+enqueued on the same CUDA stream, lands after that chunk's writes.
+
+Not ported (``ROADMAP.md``): the prefix cache and shared blocks, chunked
+prefill, the host and disk KV tiers, decode windows, pipelining deeper
+than one chunk, speculative decoding in the loop, fleets, the journal and
+the supervisor.
 """
 
 from __future__ import annotations
@@ -86,6 +106,7 @@ from __future__ import annotations
 import asyncio
 import dataclasses
 import logging
+import random
 import threading
 import time
 from typing import Any, AsyncIterator
@@ -97,7 +118,14 @@ from ..models.gpt import GPTState, PagedState, state_tensors
 from ..models.sampling import greedy_params
 from ..ops.paged_attention import scatter_pages
 from ..runtime import compile_cache
-from ..scheduler.policy import DeadlineExceededError, DeadlineQueue, QueueFullError
+from ..scheduler.admission import AdmissionController
+from ..scheduler.policy import (
+    BATCH,
+    INTERACTIVE,
+    DeadlineExceededError,
+    DeadlineQueue,
+    QueueFullError,
+)
 from ..utils import metrics, tracing
 from .kv_blocks import OutOfBlocks, StreamBlocks
 
@@ -111,29 +139,47 @@ class StreamClosedError(Exception):
 
 
 class _Stream:
-    """One client stream: the loop thread's handle on an event-loop
-    queue of token chunks."""
+    """One client stream: the loop thread's handle on an event-loop queue
+    of token chunks, the deadline queue's item (``klass``, ``deadline``,
+    ``started``) and, under preemption, its own checkpoint: ``tokens`` holds
+    every token delivered, so a preempted stream resumes token-identically."""
 
-    __slots__ = ("feats", "chunks", "loop", "cancelled", "produced", "delivered",
-                 "released", "budget", "blocks", "s_base", "rid", "t_emit", "t_in",
-                 "deadline")
+    __slots__ = ("feats", "chunks", "loop", "cancelled", "produced", "released", "budget",
+                 "klass", "deadline", "started", "kv", "kv_held", "skip", "tokens",
+                 "preempted", "_removed", "blocks", "s_base", "rid", "t_emit", "t_in",
+                 "t_queued")
 
-    def __init__(self, feats: dict, loop: asyncio.AbstractEventLoop, budget: int,
-                 deadline: float | None = None):
+    # The admission ledger's marker: paged streams are accounted by the pool.
+    is_stream = True
+
+    def __init__(self, feats: dict, loop: asyncio.AbstractEventLoop, budget: int):
         self.feats = feats
         self.t_in = time.monotonic()  # submit; release - t_in is the lifetime
-        # Absolute monotonic seconds by which the stream must leave the
-        # queue for a slot, or None.
-        self.deadline = deadline
+        self.t_queued = self.t_in  # when it last entered the queue
+        # Scheduling fields, set at submit: the class, the absolute
+        # monotonic deadline by which it must leave the queue (or None),
+        # whether it has delivered tokens and was queued again (exempt
+        # from expiry and eviction), and its KV reservation.
+        self.klass = INTERACTIVE
+        self.deadline: float | None = None
+        self.started = False
+        self.kv = 0
+        self.kv_held = False
+        self._removed = False
         self.chunks: asyncio.Queue = asyncio.Queue()
         self.loop = loop
         self.cancelled = threading.Event()
-        # Decode steps run for this stream, and tokens sent to it (never
-        # past ``budget``: max_tokens clamped to the server's budget).
+        # Decode steps run for this stream since its last (re)start, and
+        # its budget (max_tokens clamped to the server's; after a recast,
+        # what was left of it).
         self.produced = 0
-        self.delivered = 0
         self.released = False  # exactly-once release
         self.budget = budget
+        # The checkpoint: tokens delivered (since the last recast), tokens a
+        # replay still suppresses, and how often it was preempted.
+        self.tokens: list[int] = []
+        self.skip = 0
+        self.preempted = 0
         # Paged KV: the stream's blocks and its prefill's collated width.
         self.blocks: StreamBlocks | None = None
         self.s_base = 0
@@ -191,9 +237,15 @@ class ContinuousDecodeLoop:
         # An idle loop waits this long for the rest of a concurrent burst
         # before admitting the wave (ADMIT_GRACE_MS).
         self.admit_grace_s = float(getattr(cfg, "admit_grace_ms", 8.0)) / 1e3
-        # DEADLINE_MS: the deadline of a stream that brings none (<= 0: none).
-        self.default_deadline_ms = float(getattr(cfg, "deadline_ms", 0.0) or 0.0)
-        self.queue = DeadlineQueue(self.max_streams)
+        # Up to MAX_STREAM_QUEUE streams wait beyond the slots.
+        self.max_stream_queue = max(0, int(getattr(cfg, "max_stream_queue", 0)))
+        self.queue = DeadlineQueue(self.max_streams + self.max_stream_queue,
+                                   weight=int(getattr(cfg, "class_weight", 4)))
+        # Classes, deadlines and the KV ledger; the batcher puts its own
+        # controller here, shared with its request queue.
+        self.admission = AdmissionController(cfg, engine)
+        # Interactive arrivals may preempt batch-class slot holders.
+        self.preempt = bool(getattr(cfg, "preempt", True))
         # EWMA of stream lifetimes (submit to release), behind Retry-After.
         self._stream_ewma_s = 1.0
         # Streams the batcher serves on the per-stream path: MAX_STREAMS
@@ -230,6 +282,13 @@ class ContinuousDecodeLoop:
         self.prefill_dispatches = 0
         self.chunk_dispatches = 0
         self.decode_steps = 0
+        # Checkpoints: preemptions for interactive work, dry-pool stalls (a
+        # paged insert or growth found the pool dry), and how the
+        # checkpointed streams resume (recast or replay).
+        self.preemptions = 0
+        self.kv_growth_stalls = 0
+        self.recasts = 0
+        self.replays = 0
 
     # ------------------------------------------------------------------
     # event-loop side
@@ -240,29 +299,47 @@ class ContinuousDecodeLoop:
 
     def submit_stream(self, feats: dict) -> AsyncIterator[np.ndarray]:
         """Queue one stream; returns the async iterator of its token
-        chunks.  Sheds with ``QueueFullError`` once ``max_streams`` streams
-        are admitted.  A stream still queued when its deadline
-        (``deadline_ms``, else ``DEADLINE_MS``) passes fails with
-        ``DeadlineExceededError`` (the API answers 504)."""
+        chunks.  Classifies and admits it (``QueueFullError`` while draining
+        or past the KV budget); past ``max_streams + max_stream_queue``
+        admitted streams it sheds the waiter it outranks, or else itself,
+        with ``QueueFullError``.  A stream still queued when its deadline
+        passes fails with ``DeadlineExceededError`` (the API answers 504)."""
         if self._stop.is_set():
             raise RuntimeError("decode loop is stopped")
-        ms = feats.get("deadline_ms")
-        ms = float(ms) if ms is not None else self.default_deadline_ms
-        deadline = time.monotonic() + ms / 1e3 if ms > 0 else None
-        st = _Stream(feats, asyncio.get_running_loop(), self.engine.budget_for(feats),
-                     deadline)
+        if float(feats.get("temperature", 0.0) or 0.0) > 0.0 and feats.get("seed") is None:
+            # Pin the seed now: a resume replays the generation, and a seed
+            # drawn again at collate would part from the tokens delivered.
+            feats["seed"] = random.getrandbits(32)
+        adm = self.admission
+        st = _Stream(feats, asyncio.get_running_loop(), self.engine.budget_for(feats))
         with tracing.span("admission", cat="sched", rid=st.rid):
+            klass, st.deadline = adm.classify(feats)
+            try:
+                st.klass, st.kv = adm.admit(feats, klass)
+            except QueueFullError as e:
+                if e.retry_after_s is None:
+                    e.retry_after_s = self._retry_after_s()
+                metrics.SHED.labels(self.model, e.reason).inc()
+                raise
+            cap = self.max_streams + self.max_stream_queue
             with self._admitted_lock:
                 total = self._admitted + int(self.external_active())
-                if total < self.max_streams:
+                victim = self.queue.evict_for(st) if total >= cap else None
+                if total < cap or victim is not None:
                     self._admitted += 1
-            if total >= self.max_streams:
+            if total >= cap and victim is None:
                 metrics.SHED.labels(self.model, "queue_full").inc()
                 raise QueueFullError(
-                    f"{total} streams active >= max_streams={self.max_streams}",
+                    f"{total} streams active >= max_streams={self.max_streams}"
+                    f"+{self.max_stream_queue} queued",
                     retry_after_s=self._retry_after_s(),
                 )
-            self.queue.put(st)
+            if victim is not None:
+                metrics.SHED.labels(self.model, "queue_full").inc()
+                self._finish(victim, QueueFullError("shed for higher-priority stream",
+                                                    retry_after_s=self._retry_after_s()))
+            st.t_queued = time.monotonic()
+            self.queue.put(st, force=True)  # the bound is enforced above
         self._ensure_thread()
         return self._consumer_gen(st)
 
@@ -351,17 +428,24 @@ class ContinuousDecodeLoop:
                 # before any admission work.
                 self._expire_queued()
                 if not self.active and not self._inflight and self.queue.qsize() == 0:
-                    st = self.queue.pop(timeout=0.05)
+                    st = self.queue.pop(timeout=0.05, fits=self.admission.fits)
                     if st is None:
                         continue
+                    self._reserve(st)
                     wave = [st]
                 else:
                     wave = []
+                # Interactive streams wait and every slot is busy: checkpoint
+                # batch-class slot holders so this wave admits them.
+                if (self.preempt and not wave and not self.free
+                        and self.queue.waiting(INTERACTIVE) > 0):
+                    self._preempt_for_interactive()
                 # Chunk boundary: admit everything that fits, as one wave.
                 while len(wave) + len(self.active) < self.n_slots:
-                    st = self.queue.pop_nowait()
+                    st = self.queue.pop_nowait(fits=self.admission.fits)
                     if st is None:
                         break
+                    self._reserve(st)
                     wave.append(st)
                 if wave and not self.active and not self._inflight:
                     # Idle: give the rest of a concurrent burst a moment to
@@ -371,10 +455,12 @@ class ContinuousDecodeLoop:
                         remaining = deadline - time.monotonic()
                         if remaining <= 0:
                             break
-                        st = self.queue.pop(timeout=remaining)
+                        st = self.queue.pop(timeout=remaining, fits=self.admission.fits)
                         if st is None:
                             break
+                        self._reserve(st)
                         wave.append(st)
+                self._class_gauges()
                 # The live chunk goes first; the wave's prefill queues
                 # behind it on the device.
                 dispatched = False
@@ -399,6 +485,10 @@ class ContinuousDecodeLoop:
                 elif self._inflight and not dispatched:
                     while self._inflight:
                         self._deliver_oldest()
+                elif not dispatched and not wave and not self.active:
+                    # Waiters whose reservation does not fit yet, nothing in
+                    # flight: poll, do not spin.
+                    time.sleep(0.01)
             except Exception as e:
                 log.exception("decode loop iteration failed")
                 self._fail_all(e)
@@ -425,6 +515,19 @@ class ContinuousDecodeLoop:
         self._inflight.clear()
         self._state_stale = True  # reset at the next admission
 
+    def _reserve(self, st: _Stream) -> None:
+        tr = tracing.tracer()
+        if tr is not None:
+            # The queue wait ends here (a resume's starts at its requeue).
+            tr.add("queue_wait", cat="sched", rid=st.rid, t0=st.t_queued, klass=st.klass,
+                   resumed=st.started)
+        self.admission.reserve(st)
+
+    def _class_gauges(self) -> None:
+        for klass in (INTERACTIVE, BATCH):
+            metrics.CLASS_QUEUE_DEPTH.labels(self.model, "stream", klass).set(
+                self.queue.waiting(klass))
+
     def _expire_queued(self) -> None:
         """Fail every queued stream whose deadline passed while it waited;
         its consumer raises before any response bytes went out.  A stream
@@ -438,6 +541,7 @@ class ContinuousDecodeLoop:
         """Exactly once per stream."""
         if not st.released:
             st.released = True
+            self.admission.release(st)
             dt = time.monotonic() - st.t_in
             with self._admitted_lock:
                 self._admitted -= 1
@@ -465,19 +569,113 @@ class ContinuousDecodeLoop:
             st.blocks = None
         self._table[slot, :] = self.pool.num_blocks
         self._dispatched_steps.pop(slot, None)
-        self._note_pool()
+        self.admission.note_pool()
 
-    def _note_pool(self) -> None:
-        used = self.pool.used_blocks
-        metrics.KV_POOL_BLOCKS.labels(self.model, "used").set(used)
-        metrics.KV_POOL_BLOCKS.labels(self.model, "free").set(self.pool.num_blocks - used)
+    # -- preemption ----------------------------------------------------
+
+    def _preempt_for_interactive(self) -> None:
+        """Interactive streams wait and every slot is busy: at this chunk
+        boundary, checkpoint batch-class slot holders (latest deadline
+        first) and queue them again; their consumers never see the gap.
+        None while a checkpointed stream still waits (each preemption
+        discards compute), and a stream yields at most twice."""
+        if self.queue.waiting_started() > 0:
+            return
+        want = min(self.queue.waiting(INTERACTIVE), self.n_slots)
+        victims = [(slot, st) for slot, st in self.active.items()
+                   if st.klass == BATCH and not st.cancelled.is_set() and st.preempted < 2]
+        victims.sort(key=lambda e: e[1].deadline if e[1].deadline is not None
+                     else float("inf"), reverse=True)
+        n = 0
+        for slot, st in victims:
+            if n >= want or len(self.free) >= want:
+                break
+            self._vacate(slot, st)
+            self.preemptions += 1
+            metrics.PREEMPTIONS.labels(self.model).inc()
+            n += 1
+        if n:
+            # The vacated slots go to the interactive waiters, not back to
+            # the batch class just preempted.
+            self.queue.prefer_interactive()
+
+    def _vacate(self, slot: int, st: _Stream) -> None:
+        """Take a live stream out of its slot, checkpoint it and queue it
+        again.  Its row in a chunk still in flight is never routed (struck
+        from the snapshot, since the stream may be admitted again, even to
+        the same slot, before that chunk is routed), its blocks return to
+        the pool and its table row points at the sentinel."""
+        for _, snapshot in self._inflight:
+            if snapshot.get(slot) is st:
+                del snapshot[slot]
+        self.active.pop(slot)
+        self.sampled_slots.discard(slot)
+        self.free.append(slot)
+        self.admission.release(st)
+        self._requeue_preempted(st)
+        self._release_blocks(slot, st)
+
+    def _note_stall(self) -> None:
+        """A paged insert or growth found the pool dry."""
+        self.kv_growth_stalls += 1
+        metrics.KV_GROWTH_STALLS.labels(self.model).inc()
+
+    def _checkpoint_for_resume(self, st: _Stream) -> bool:
+        """Prepare one stream's token-identical resume off the tokens it
+        delivered; False when nothing is left to resume (finished or
+        cancelled).  Recast: a greedy causal decoder's remaining tokens
+        continue prompt + delivered, so those become its prompt (when they
+        fit the largest seq bucket).  Replay: everything else runs its whole
+        generation again and suppresses the first ``skip`` tokens."""
+        remaining = st.budget - st.produced
+        if remaining <= 0 or st.cancelled.is_set():
+            return False
+        st.started = True
+        st.preempted += 1
+        greedy = float(st.feats.get("temperature", 0.0)) == 0.0
+        ids = np.asarray(st.feats["input_ids"], np.int32)[: int(st.feats["length"])]
+        new_len = int(ids.size) + len(st.tokens)
+        if (greedy and self.engine.bundle.supports_prefix and st.skip == 0
+                and new_len <= self.max_prompt):
+            st.feats = dict(st.feats, input_ids=np.concatenate(
+                [ids, np.asarray(st.tokens, np.int32)]), length=np.int32(new_len))
+            st.budget = remaining
+            st.tokens = []  # folded into the prompt
+            self.recasts += 1
+        else:
+            st.skip = len(st.tokens)
+            self.replays += 1
+        st.produced = 0
+        if st.blocks is not None:
+            st.blocks.release()
+        # A checkpointed stream holds no blocks and no reservation.
+        st.blocks = None
+        st.s_base = 0
+        return True
+
+    def _requeue_preempted(self, st: _Stream) -> None:
+        """Checkpoint one stream and queue it again, its footprint
+        re-estimated off its new prompt (a recast grew it)."""
+        if not self._checkpoint_for_resume(st):
+            self._finish(st)
+            return
+        st.kv = self.admission.kv_bytes_for_resume(st.feats)
+        st.t_queued = time.monotonic()
+        self.queue.put(st, force=True)
 
     def _emit_tokens(self, st: _Stream, chunk: np.ndarray) -> None:
-        """Send one chunk's tokens to a stream, never past its budget."""
-        arr = chunk[: max(0, st.budget - st.delivered)]
+        """Send one chunk's tokens to a stream: skip what a replay already
+        delivered, never pass its budget, and record them for a later
+        checkpoint."""
+        arr = np.asarray(chunk)
+        if st.skip:
+            k = min(st.skip, int(arr.size))
+            st.skip -= k
+            arr = arr[k:]
+        arr = arr[: max(0, st.budget - len(st.tokens))]
         if not arr.size:
             return
-        st.delivered += int(arr.size)
+        st.tokens.extend(int(t) for t in arr.tolist())
         st.emit(arr)
         metrics.TOKENS.labels(self.model).inc(int(arr.size))
         now = time.monotonic()
@@ -535,6 +733,16 @@ class ContinuousDecodeLoop:
                     self._insert_paged(st, state1, slot, row, width)
                 else:
                     self._insert(state1, slot, row)
+            except OutOfBlocks:
+                # Another reservation took the blocks since the stream left
+                # the queue: its first chunk is delivered, so checkpoint it
+                # and queue it again.
+                if slot is not None:
+                    self.free.append(slot)
+                self._note_stall()
+                self.admission.release(st)
+                self._requeue_preempted(st)
+                continue
             except Exception as e:
                 if slot is not None:
                     self.free.append(slot)
@@ -598,7 +806,7 @@ class ContinuousDecodeLoop:
         self._state_stale = False
         if self.paged:
             self._table_dev = torch.tensor(self._table, device=dev)
-            self._note_pool()
+            self.admission.note_pool()
         self._capture_chunks()
 
     def _capture_chunks(self) -> None:
@@ -689,7 +897,7 @@ class ContinuousDecodeLoop:
         st.s_base = width
         self._table[slot] = table_row
         self._dispatched_steps[slot] = self.chunk
-        self._note_pool()
+        self.admission.note_pool()
 
     # -- decode chunks -------------------------------------------------
 
@@ -702,25 +910,26 @@ class ContinuousDecodeLoop:
     def _grow_for_dispatch(self) -> None:
         """Grant every live row the blocks the next chunk writes (never
         past its budget: later writes go to the scratch block and are
-        never read)."""
+        never read).  A row whose growth finds the pool dry is checkpointed
+        and queued again (it resumes token-identically when blocks free up);
+        admission's worst-case bound lets a stream alone always fit."""
         grew = False
-        for slot, st in self.active.items():
+        for slot, st in list(self.active.items()):
             if st.cancelled.is_set() or st.blocks is None:
                 continue  # frees at the next delivery; its writes go to scratch
             steps = self._dispatched_steps.get(slot, 0) + self.chunk
             try:
                 fresh = st.blocks.ensure(st.s_base + min(steps, st.budget))
-            except OutOfBlocks as e:
-                raise RuntimeError(
-                    "paged KV pool ran dry although it holds MAX_STREAMS worst-case "
-                    "streams (preemption is not ported)"
-                ) from e
+            except OutOfBlocks:
+                self._note_stall()
+                self._vacate(slot, st)
+                continue
             if fresh:
                 self._table[slot, : len(st.blocks.ids)] = st.blocks.ids
                 grew = True
             self._dispatched_steps[slot] = steps
         if grew:
-            self._note_pool()
+            self.admission.note_pool()
 
     def _chunk_call(self, sample: bool = False):
         """One decode chunk over the whole slot state (caller holds the

@@ -89,6 +89,10 @@ class ModelBundle:
     # Cap on a tokenized prompt (generation keeps position-table room for
     # the decode budget).
     max_prompt_len: int | None = None
+    # A causal decoder whose prompt may carry a prefix (gpt2, llama): a
+    # preempted greedy stream resumes by prefilling its prompt and the
+    # tokens it delivered (``engine/streams.py``).
+    supports_prefix: bool = False
     # Sequence-parallel placement (bert-long): the engine hands ``forward``
     # lists of sequence shards placed by it instead of tensors.
     placement: Any = None
@@ -454,6 +458,7 @@ def _generative_bundle(name: str, family, model, cfg, tokenizer, svc_cfg,
         generate_chunk=generate_chunk,
         paged_chunk=paged_chunk,
         max_prompt_len=max_prompt,
+        supports_prefix=True,
     )
 
 

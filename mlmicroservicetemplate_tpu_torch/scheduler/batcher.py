@@ -4,19 +4,26 @@ route futures; and the entry of streaming generation.
 The non-streaming path of the JAX package's ``scheduler/batcher.py``.  A
 batch closes when it reaches ``max_batch`` items or ``batch_timeout_ms``
 after its first item arrived, whichever comes first; a burst already
-queued forms a full batch with no added wait.  Past ``max_queue`` waiting
-items ``submit`` sheds with ``QueueFullError`` (503); a request whose
-``deadline_ms`` passes while it waits fails with ``DeadlineExceededError``
-(504).  Dispatch runs on worker threads so the device call never blocks
-the event loop; ``stop()`` drains the queue and joins them.
+queued forms a full batch with no added wait.  Requests carry a priority
+class and a deadline (``scheduler/admission.py``): the queue is earliest
+deadline first within a class and class-weighted across classes
+(``policy.py``), and a KV-footprint budget gates dequeue.  Past
+``max_queue`` waiting items ``submit`` sheds with ``QueueFullError``
+(503): the newcomer, or the lowest-class latest-deadline waiter it
+outranks; a request whose deadline passes while it waits fails with
+``DeadlineExceededError`` (504).  Dispatch runs on worker threads so the
+device call never blocks the event loop; ``stop()`` drains the queue and
+joins them; ``begin_drain()`` stops admission (503 ``drain``).
 
 A generative model also gets a ``ContinuousDecodeLoop`` (one loop, unless
 ``CONTINUOUS_BATCHING=0``): ``submit_stream`` hands it every stream whose
 prompt fits its slots, and ``stop()`` stops it.  The other streams (a
 prompt past the loop's largest seq bucket, or every stream without a loop)
 take the per-stream path, as in the JAX package: one worker thread each
-runs ``InferenceEngine.generate_stream``, admitted at once or shed, with
-``MAX_STREAMS`` capping both paths' streams together.
+runs ``InferenceEngine.generate_stream``, admitted at once or shed (the
+drain and KV gates apply), with ``MAX_STREAMS`` capping both paths'
+streams together.  One ``AdmissionController`` serves the request queue
+and the loop, so its ledger covers both.
 """
 
 from __future__ import annotations
@@ -31,7 +38,8 @@ import numpy as np
 
 from ..models.registry import KIND_IMAGE, KIND_SEQ2SEQ
 from ..utils import metrics, tracing
-from .policy import DeadlineExceededError, DeadlineQueue, QueueFullError
+from .admission import AdmissionController
+from .policy import BATCH, INTERACTIVE, DeadlineExceededError, DeadlineQueue, QueueFullError
 
 __all__ = ["Batcher", "DeadlineExceededError", "QueueFullError", "batch_results"]
 
@@ -42,14 +50,22 @@ PIPELINE_DEPTH = 2
 
 
 class _QueuedCall:
-    __slots__ = ("feats", "future", "t_in", "deadline")
+    """One queued request: its future and scheduling fields."""
 
-    def __init__(self, feats: dict, future: asyncio.Future, default_ms: float = 0.0):
+    __slots__ = ("feats", "future", "t_in", "klass", "deadline", "started", "kv", "kv_held",
+                 "_removed")
+
+    def __init__(self, feats: dict, future: asyncio.Future, klass: str,
+                 deadline: float | None, kv: int):
         self.feats = feats
         self.future = future
         self.t_in = time.monotonic()
-        ms = feats.get("deadline_ms") or default_ms
-        self.deadline = self.t_in + float(ms) / 1000.0 if ms else None
+        self.klass = klass
+        self.deadline = deadline
+        self.started = False
+        self.kv = kv
+        self.kv_held = False
+        self._removed = False
 
     def fail(self, exc: BaseException) -> None:
         if not self.future.done():
@@ -62,10 +78,9 @@ class Batcher:
         self.model = engine.bundle.name
         self.max_batch = int(cfg.max_batch)
         self.timeout_s = float(cfg.batch_timeout_ms) / 1000.0
-        # DEADLINE_MS: the deadline of an item that brings none
-        self.default_deadline_ms = float(getattr(cfg, "deadline_ms", 0.0) or 0.0)
         self.pipeline_depth = int(getattr(cfg, "pipeline_depth", PIPELINE_DEPTH))
-        self._queue = DeadlineQueue(cfg.max_queue)
+        self.admission = AdmissionController(cfg, engine)
+        self._queue = DeadlineQueue(cfg.max_queue, weight=int(getattr(cfg, "class_weight", 4)))
         self._wake = asyncio.Event()
         self._executor = ThreadPoolExecutor(
             max_workers=self.pipeline_depth, thread_name_prefix="dispatch"
@@ -75,7 +90,6 @@ class Batcher:
         self._task: asyncio.Task | None = None
         self._inflight: set[asyncio.Task] = set()
         self._closed = False
-        self.draining = False
         self._cdl = None
         # The per-stream path: its workers and its live streams.
         self.max_streams = int(getattr(cfg, "max_streams", 8))
@@ -90,6 +104,8 @@ class Batcher:
 
                 self._cdl = ContinuousDecodeLoop(engine, cfg)
                 self._cdl.external_active = lambda: self._active_streams
+                # One admission controller (KV ledger) for both queues.
+                self._cdl.admission = self.admission
 
     async def start(self) -> None:
         if self._task is None:
@@ -112,6 +128,24 @@ class Batcher:
             # Each per-stream worker stops at its next chunk once its
             # consumer is gone.
             self._stream_executor.shutdown(wait=False)
+
+    @property
+    def default_deadline_ms(self) -> float:
+        """DEADLINE_MS: the deadline of an item that brings none."""
+        return self.admission.default_deadline_ms
+
+    def begin_drain(self) -> None:
+        """Stop admitting (new work sheds 503 ``drain``); everything queued
+        or in flight runs to its end."""
+        self.admission.draining = True
+
+    @property
+    def draining(self) -> bool:
+        return self.admission.draining
+
+    @draining.setter
+    def draining(self, value: bool) -> None:
+        self.admission.draining = bool(value)
 
     def pending_work(self) -> int:
         streams = self._cdl.admitted if self._cdl is not None else 0
@@ -162,15 +196,13 @@ class Batcher:
         chunks (int32 arrays), from the continuous decode loop when its
         slots take the prompt, else from the per-stream path
         (``_submit_per_stream``).  Sheds with ``QueueFullError`` past
-        ``max_streams`` streams on both paths together (or while
-        draining)."""
+        ``max_streams`` streams on both paths together (the loop: past
+        ``MAX_STREAM_QUEUE`` more waiting), while draining, or past the KV
+        budget."""
         if self._closed:
             raise RuntimeError("batcher is stopped")
         if self._stream_executor is None:
             raise ValueError(f"{self.model} is not a generative model; nothing to stream")
-        if self.draining:
-            self._shed("drain")
-            raise QueueFullError("draining", reason="drain", retry_after_s=self.retry_after_s())
         if self._cdl is not None and int(feats.get("length", 0)) <= self._cdl.max_prompt:
             return self._cdl.submit_stream(feats)
         return self._submit_per_stream(feats)
@@ -180,7 +212,16 @@ class Batcher:
         chunks onto the event loop.  Admission is checked and counted here,
         in the event loop, before the iterator is returned; the count drops
         when the worker ends, so an abandoned iterator frees its place.  A
-        consumer that goes away stops the worker before its next chunk."""
+        consumer that goes away stops the worker before its next chunk.
+        The drain and KV-budget gates apply; there is no wait queue."""
+        klass, _ = self.admission.classify(feats)
+        try:
+            self.admission.admit(feats, klass)
+        except QueueFullError as e:
+            if e.retry_after_s is None:
+                e.retry_after_s = self.retry_after_s(streams=True)
+            self._shed(e.reason)
+            raise
         loop_admitted = self._cdl.admitted if self._cdl is not None else 0
         if self._active_streams + loop_admitted >= self.max_streams:
             self._shed("queue_full")
@@ -253,36 +294,59 @@ class Batcher:
     def _shed(self, reason: str) -> None:
         metrics.SHED.labels(self.model, reason).inc()
 
+    def _depth_gauges(self) -> None:
+        metrics.QUEUE_DEPTH.labels(self.model).set(self._queue.qsize())
+        for klass in (INTERACTIVE, BATCH):
+            metrics.CLASS_QUEUE_DEPTH.labels(self.model, "batch", klass).set(
+                self._queue.waiting(klass))
+
     async def submit(self, feats: dict) -> np.ndarray:
-        """Enqueue one preprocessed item; resolves to its logits row."""
+        """Enqueue one preprocessed item; resolves to its result row.
+        Sheds with ``QueueFullError`` (503: queue_full, kv_budget or drain)
+        or, when its deadline passes before dispatch,
+        ``DeadlineExceededError`` (504)."""
         if self._closed:
             raise RuntimeError("batcher is stopped")
-        if self.draining:
-            self._shed("drain")
-            raise QueueFullError("draining", reason="drain",
-                                 retry_after_s=self.retry_after_s())
-        fut = asyncio.get_running_loop().create_future()
-        item = _QueuedCall(feats, fut, self.default_deadline_ms)
+        klass, deadline = self.admission.classify(feats)
         try:
-            self._queue.put(item)
+            klass, kv = self.admission.admit(feats, klass)
+        except QueueFullError as e:
+            if e.retry_after_s is None:
+                e.retry_after_s = self.retry_after_s()
+            self._shed(e.reason)
+            raise
+        fut = asyncio.get_running_loop().create_future()
+        item = _QueuedCall(feats, fut, klass, deadline, kv)
+        try:
+            victim = self._queue.put(item)
         except QueueFullError as e:
             e.retry_after_s = self.retry_after_s()
             self._shed("queue_full")
             raise
+        if victim is not None:
+            self._shed("queue_full")
+            victim.fail(QueueFullError("shed for higher-priority work",
+                                       retry_after_s=self.retry_after_s()))
         self._wake.set()
-        metrics.QUEUE_DEPTH.labels(self.model).set(self._queue.qsize())
+        self._depth_gauges()
         return await fut
 
     def _expire(self) -> None:
         for item in self._queue.expire():
+            self.admission.release(item)
             self._shed("deadline")
             item.fail(DeadlineExceededError(
                 "deadline passed while queued; request shed before dispatch"
             ))
 
     def _pop_ready(self):
+        """Expire stale waiters, then pop the next item whose KV reservation
+        fits (any item once the batcher is closing) and reserve it."""
         self._expire()
-        return self._queue.pop_nowait()
+        item = self._queue.pop_nowait(fits=None if self._closed else self.admission.fits)
+        if item is not None:
+            self.admission.reserve(item)
+        return item
 
     async def _wait_wake(self, timeout: float | None) -> None:
         try:
@@ -301,10 +365,14 @@ class Batcher:
             item = self._pop_ready()
             if item is not None:
                 return item
-            if self._closed:
+            if self._closed and self._queue.qsize() == 0:
                 return None
             nd = self._queue.next_deadline()
             timeout = None if nd is None else max(0.01, nd - time.monotonic())
+            if self._queue.qsize() > 0 or self._closed:
+                # Waiters held by the KV budget (no event marks a release),
+                # or shutdown under way: poll.
+                timeout = 0.05 if timeout is None else min(timeout, 0.05)
             await self._wait_wake(timeout)
 
     async def _acquire_dispatch(self) -> None:
@@ -335,7 +403,7 @@ class Batcher:
                     await self._wait_wake(remaining)
                     continue
                 batch.append(item)
-            metrics.QUEUE_DEPTH.labels(self.model).set(self._queue.qsize())
+            self._depth_gauges()
             task = asyncio.get_running_loop().create_task(self._dispatch(batch))
             self._inflight.add(task)
             task.add_done_callback(self._dispatch_done)
@@ -354,7 +422,7 @@ class Batcher:
             if tr is not None:
                 tr.add("queue_wait", cat="sched",
                        rid=str(item.feats.get("request_id") or ""),
-                       t0=item.t_in, dur=now - item.t_in)
+                       t0=item.t_in, dur=now - item.t_in, klass=item.klass)
         metrics.BATCH_SIZE.labels(self.model).observe(len(batch))
         feats = [item.feats for item in batch]
         t0 = time.monotonic()
@@ -364,6 +432,9 @@ class Batcher:
             for item in batch:
                 item.fail(e)
             return
+        finally:
+            for item in batch:
+                self.admission.release(item)
         dt = time.monotonic() - t0
         self._batch_ewma_s = 0.8 * self._batch_ewma_s + 0.2 * dt
         metrics.DEVICE_TIME.labels(self.model).observe(dt)

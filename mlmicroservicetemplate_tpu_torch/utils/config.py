@@ -1,7 +1,8 @@
 """Env-var driven service configuration (12-factor), as a stdlib dataclass.
 
 Holds the fields the ResNet-50, BERT-base, bert-long, llama, GPT-2 and
-T5-small paths, chat and the parent registration read, under the same
+T5-small paths, chat, the scheduler's priority classes, KV budget and
+preemption, and the parent registration read, under the same
 environment names as the JAX package's ``ServiceConfig``.  ``DEVICE`` is
 ``cuda|cpu`` and defaults to ``cuda``; ``MODEL_NAME`` defaults to
 ``resnet50``, as in the JAX package.
@@ -73,6 +74,23 @@ class ServiceConfig:
     pipeline_depth: int = 2
     # Deadline of a request that carries no X-Deadline-Ms header; 0 = none.
     deadline_ms: float = 0.0
+    # Priority class of a request without an X-Priority header
+    # (interactive | batch).
+    priority_default: str = "interactive"
+    # Interactive pops per batch pop while both classes wait.
+    class_weight: int = 4
+    # KV-cache bytes (MB) the admitted work may commit: a request that can
+    # never fit sheds 503, interactive work over what is committed waits as
+    # batch, and under PAGED_KV the pool holds this many MB of blocks.
+    # 0 = no budget (the pool holds MAX_STREAMS worst cases).
+    kv_budget_mb: float = 0.0
+    # Streams that may wait in the loop's queue beyond MAX_STREAMS live
+    # ones; 0 = the 503 past MAX_STREAMS at once.
+    max_stream_queue: int = 0
+    # Interactive arrivals preempt batch-class streams when every slot is
+    # busy (checkpoint, free the slot, queue again for a token-identical
+    # resume).  Needs MAX_STREAM_QUEUE > 0 for an arrival to wait.
+    preempt: bool = True
     # Seconds the SIGTERM drain waits for queued and in-flight work.
     drain_grace_s: float = 30.0
     # Generative models: decode budget per request (rounded up to whole
@@ -151,6 +169,15 @@ class ServiceConfig:
             raise ValueError("DEADLINE_MS and DRAIN_GRACE_S must be >= 0")
         if not self.admit_grace_ms >= 0:
             raise ValueError("ADMIT_GRACE_MS must be >= 0")
+        prio = self.priority_default.lower()
+        if prio not in ("interactive", "batch"):
+            raise ValueError(
+                f"PRIORITY_DEFAULT must be 'interactive' or 'batch', got {self.priority_default!r}")
+        object.__setattr__(self, "priority_default", prio)
+        if self.class_weight < 1:
+            raise ValueError("CLASS_WEIGHT must be >= 1")
+        if not self.kv_budget_mb >= 0 or self.max_stream_queue < 0:  # also NaN
+            raise ValueError("KV_BUDGET_MB and MAX_STREAM_QUEUE must be >= 0")
         object.__setattr__(self, "chat_template", self.chat_template.lower())
         object.__setattr__(self, "seq_buckets", _align_paged_seq_buckets(self))
 
@@ -197,12 +224,9 @@ UNPORTED_KNOBS = {
     "ADAPTER_SLOTS": ("8",),
     # The continuous loop runs one chunk in flight (0 = auto picks that on
     # a directly attached card), preps each chunk after the last one, and
-    # holds a pool sized for MAX_STREAMS worst cases; its other knobs wait
-    # for later slices.
+    # has no host KV tier; its other knobs wait for later slices.
     "STREAM_PIPELINE": ("0", "1"),
     "HOST_PREP_DOUBLE": _OFF,
-    "KV_BUDGET_MB": ("0",),
-    "MAX_STREAM_QUEUE": ("0",),
     "KV_HOST_BUDGET_MB": ("0",),
     "KV_DISK_BUDGET_MB": ("0",),
     "KV_PREFETCH_BLOCKS": ("4",),
@@ -211,11 +235,6 @@ UNPORTED_KNOBS = {
     # The loop always admits behind the live chunk (the JAX default); the
     # blocking admission order of ADMIT_OVERLAP=0 is not ported.
     "ADMIT_OVERLAP": _ON,
-    # Priority classes: every request is interactive (X-Priority: batch
-    # answers 400), nothing is preempted.
-    "PRIORITY_DEFAULT": ("interactive",),
-    "CLASS_WEIGHT": ("4",),
-    "PREEMPT": _OFF,
     "TENANTS": (),
     "TENANTS_FILE": (),
     "TENANT_DEFAULT_WEIGHT": ("1",),
@@ -324,7 +343,8 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
     MAX_QUEUE, BATCH_BUCKETS, SEQ_BUCKETS, WARMUP, LOG_LEVEL, TRACE, MAX_DECODE_LEN,
     STREAM_CHUNK_TOKENS, QUANT_KV, LLAMA_CONFIG, MAX_STREAMS, PAGED_KV,
     KV_BLOCK_SIZE, CONTINUOUS_BATCHING, SP, TRACE_RING, PIPELINE_DEPTH, DEADLINE_MS,
-    DRAIN_GRACE_S, WARMUP_SAMPLING, ADMIT_GRACE_MS, CHAT_TEMPLATE.  Any of
+    DRAIN_GRACE_S, WARMUP_SAMPLING, ADMIT_GRACE_MS, CHAT_TEMPLATE, PRIORITY_DEFAULT,
+    CLASS_WEIGHT, KV_BUDGET_MB, MAX_STREAM_QUEUE, PREEMPT.  Any of
     ``UNPORTED_KNOBS`` set to a value that turns it on raises;
     ``INERT_KNOBS`` are accepted and ignored."""
     e = dict(os.environ)
@@ -351,6 +371,7 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
         ("labels_path", "LABELS_PATH"), ("host", "HOST"), ("server_url", "SERVER_URL"),
         ("log_level", "LOG_LEVEL"), ("quant_kv", "QUANT_KV"),
         ("llama_config", "LLAMA_CONFIG"), ("chat_template", "CHAT_TEMPLATE"),
+        ("priority_default", "PRIORITY_DEFAULT"),
     ):
         v = get(var)
         if v is not None:
@@ -360,13 +381,15 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
                        ("stream_chunk_tokens", "STREAM_CHUNK_TOKENS"),
                        ("max_streams", "MAX_STREAMS"), ("kv_block_size", "KV_BLOCK_SIZE"),
                        ("sp", "SP"), ("trace_ring", "TRACE_RING"),
-                       ("pipeline_depth", "PIPELINE_DEPTH")):
+                       ("pipeline_depth", "PIPELINE_DEPTH"), ("class_weight", "CLASS_WEIGHT"),
+                       ("max_stream_queue", "MAX_STREAM_QUEUE")):
         v = get(var)
         if v is not None:
             kwargs[field] = int(v)
     for field, var in (("batch_timeout_ms", "BATCH_TIMEOUT_MS"), ("deadline_ms", "DEADLINE_MS"),
                        ("drain_grace_s", "DRAIN_GRACE_S"), ("admit_grace_ms", "ADMIT_GRACE_MS"),
-                       ("register_heartbeat_s", "REGISTER_HEARTBEAT_S")):
+                       ("register_heartbeat_s", "REGISTER_HEARTBEAT_S"),
+                       ("kv_budget_mb", "KV_BUDGET_MB")):
         v = get(var)
         if v is not None:
             kwargs[field] = float(v)
@@ -379,7 +402,7 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
             kwargs[field] = buckets
     for field, var in (("warmup", "WARMUP"), ("trace", "TRACE"), ("paged_kv", "PAGED_KV"),
                        ("warmup_sampling", "WARMUP_SAMPLING"),
-                       ("continuous_batching", "CONTINUOUS_BATCHING")):
+                       ("continuous_batching", "CONTINUOUS_BATCHING"), ("preempt", "PREEMPT")):
         v = get(var)
         if v is not None:
             kwargs[field] = _flag(v)

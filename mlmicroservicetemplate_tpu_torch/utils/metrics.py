@@ -1,10 +1,12 @@
 """Prometheus series of the serving path, exported at ``GET /metrics``.
 
 Request count and latency, queue wait, device time per batch, batch size,
-queue depth and load sheds; graph-cache events and warm-phase seconds;
+queue depth by class and load sheds; the admission ledger's committed KV
+bytes; graph-cache events and warm-phase seconds;
 for streaming generation, generated tokens,
 live streams per loop chunk, time to first token, the gap between chunk
-deliveries and the paged KV pool's blocks.  The series live in this package's own
+deliveries, preemptions, the paged KV pool's blocks and its dry-pool
+stalls.  The series live in this package's own
 registry, so a process that also imports the JAX package registers no
 name twice.  Without ``prometheus_client`` every series is a no-op stub.
 """
@@ -83,8 +85,30 @@ QUEUE_DEPTH = Gauge(
     "batch_queue_depth", "Requests currently queued", ["model"], registry=REGISTRY,
 )
 SHED = Counter(
-    "requests_shed_total", "Load-shed requests by reason (queue_full | deadline)",
+    "requests_shed_total",
+    "Load-shed requests by reason (queue_full | kv_budget | drain | deadline)",
     ["model", "reason"], registry=REGISTRY,
+)
+CLASS_QUEUE_DEPTH = Gauge(
+    "sched_class_queue_depth",
+    "Requests waiting in the deadline queue, by queue and priority class",
+    ["model", "queue", "klass"], registry=REGISTRY,
+)
+PREEMPTIONS = Counter(
+    "stream_preemptions_total",
+    "Batch-class streams checkpointed and queued again to admit interactive work",
+    ["model"], registry=REGISTRY,
+)
+KV_COMMITTED = Gauge(
+    "kv_committed_bytes",
+    "KV-cache bytes committed against the admission budget",
+    ["model"], registry=REGISTRY,
+)
+KV_GROWTH_STALLS = Counter(
+    "kv_growth_stalls_total",
+    "Paged-KV insert or growth found the pool dry: the stream was checkpointed "
+    "and queued again (it resumes when blocks free up)",
+    ["model"], registry=REGISTRY,
 )
 
 TOKENS = Counter(

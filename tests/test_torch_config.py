@@ -234,8 +234,9 @@ def _jax_knob_names() -> list[str]:
 
 
 # A value that asks for something other than what the port does when the
-# name is unset.  For PREEMPT, SUPERVISE, PERF_OBS and HOST_PREP_DOUBLE,
-# whose JAX default is on and which the port does not do, that is "1".
+# name is unset.  For SUPERVISE, PERF_OBS and HOST_PREP_DOUBLE, whose JAX
+# default is on and which the port does not do, that is "1"; for PREEMPT,
+# which the port reads with the JAX default (on), "0".
 NON_DEFAULT = {
     "DEVICE": "cuda", "MODEL_NAME": "llama", "MODEL_PATH": "/w.npz",
     "TOKENIZER_PATH": "/vocab.txt", "HOST": "127.0.0.1", "PORT": "8123",
@@ -248,7 +249,7 @@ NON_DEFAULT = {
     "SPEC_MAX_STREAMS": "2", "SPEC_SAMPLED": "0", "SPEC_CONTINUOUS": "1",
     "PREFIX_CACHE": "1", "PREFIX_CACHE_MB": "64", "PRIORITY_DEFAULT": "batch",
     "DEADLINE_MS": "250", "CLASS_WEIGHT": "2", "KV_BUDGET_MB": "64",
-    "MAX_STREAM_QUEUE": "4", "PREEMPT": "1", "DRAIN_GRACE_S": "5", "PAGED_KV": "1",
+    "MAX_STREAM_QUEUE": "4", "PREEMPT": "0", "DRAIN_GRACE_S": "5", "PAGED_KV": "1",
     "KV_BLOCK_SIZE": "32", "KV_HOST_BUDGET_MB": "128", "KV_DISK_BUDGET_MB": "128",
     "JOURNAL_DIR": "/journal", "JOURNAL_FSYNC": "never", "KV_PREFETCH_BLOCKS": "2",
     "JOBS_ENABLED": "1", "JOB_MAX_CONCURRENT_LINES": "2", "JOB_RESULT_TTL_S": "60",
@@ -308,9 +309,15 @@ def test_every_jax_knob_is_read_refused_or_inert(name, monkeypatch):
 
 @pytest.mark.parametrize("name", ["PREEMPT", "SUPERVISE", "PERF_OBS", "HOST_PREP_DOUBLE"])
 def test_knobs_the_port_leaves_off_accept_off(name):
-    """The JAX default of these is on; the port does none of them, so it
-    takes their off value and refuses the on one."""
+    """The JAX default of these is on.  The port does all but PREEMPT
+    without, so it takes their off value and refuses the on one; PREEMPT
+    it reads, on unless set off, as the JAX package does."""
     assert load_config({"DEVICE": "cpu", name: "0"}).device == "cpu"
+    if name == "PREEMPT":
+        assert load_config({"DEVICE": "cpu"}).preempt is True
+        assert load_config({"DEVICE": "cpu", name: "0"}).preempt is False
+        assert load_config({"DEVICE": "cpu", name: "true"}).preempt is True
+        return
     with pytest.raises(ValueError, match="not ported"):
         load_config({"DEVICE": "cpu", name: "true"})
 
@@ -396,12 +403,11 @@ TINY_LLAMA = ('{"vocab_size": 512, "d_model": 64, "num_heads": 4, "num_kv_heads"
 
 
 @pytest.mark.parametrize("priority,status", [(None, 200), ("interactive", 200),
-                                             ("Interactive", 200), ("batch", 400),
+                                             ("Interactive", 200), ("batch", 200),
                                              ("urgent", 400)])
 def test_x_priority_header(priority, status):
-    """Every request is interactive: X-Priority interactive (or none) is
-    served, batch answers 400 saying priority classes are not ported, and
-    any other value answers 400 with the JAX package's reason."""
+    """X-Priority interactive, batch (or none) is served, as by the JAX
+    app; any other value answers 400 with the JAX package's reason."""
     from aiohttp.test_utils import TestClient, TestServer
 
     from mlmicroservicetemplate_tpu_torch.api.app import build_app
@@ -424,9 +430,7 @@ def test_x_priority_header(priority, status):
 
     got, reason = asyncio.run(main())
     assert got == status, reason
-    if priority == "batch":
-        assert "not ported" in reason
-    elif priority == "urgent":
+    if priority == "urgent":
         assert reason == 'X-Priority must be "interactive" or "batch"'
 
 

@@ -227,12 +227,14 @@ def test_unported_requests_answer_400(services, path, body):
     ids=lambda k: next(iter(k)),
 )
 def test_unported_knobs_raise(knob, tmp_path):
-    """Knobs the port does not serve raise "not ported".  Two it once
+    """Knobs the port does not serve raise "not ported".  Three it once
     refused serve now, and their cases pin what the JAX package does: a
     SentencePiece ``TOKENIZER_PATH`` loads with a leading <s> and no
-    trailing </s> (the model's eos/pad the tokenizer's), and
+    trailing </s> (the model's eos/pad the tokenizer's),
     ``CONTINUOUS_BATCHING=0`` builds no loop and streams every request on
-    the per-stream path, with the JAX batcher's tokens."""
+    the per-stream path, with the JAX batcher's tokens, and
+    ``KV_BUDGET_MB`` is the admission budget and, paged, sizes the pool to
+    the JAX engine's blocks."""
     name = next(iter(knob))
     overrides = {"MODEL_NAME": "llama", "DEVICE": "cpu", "WARMUP": "0",
                  "LLAMA_CONFIG": json.dumps(SMALL), **knob}
@@ -266,6 +268,22 @@ def test_unported_knobs_raise(knob, tmp_path):
         want = asyncio.run(_stream_all(JaxBatcher(jengine, jcfg), jbundle, JaxRawItem))
         got = asyncio.run(_stream_all(batcher, bundle, RawItem))
         assert got == want and engine.dispatches == len(REQUESTS)
+        return
+    if name == "KV_BUDGET_MB":
+        extra = {"PAGED_KV": "1", "KV_BLOCK_SIZE": "8", "SEQ_BUCKETS": "16,32",
+                 "MAX_DECODE_LEN": "10"}
+        _, _, engine, batcher = build_service({**overrides, **extra})
+        os.environ["LLAMA_CONFIG"] = json.dumps(SMALL)
+        try:
+            jcfg = JaxServiceConfig(device="cpu", model_name="llama", warmup=False,
+                                    paged_kv=True, kv_block_size=8, kv_budget_mb=64.0,
+                                    **SERVE)
+            jengine = JaxEngine(jax_build_model(jcfg), jcfg, ReplicaSet(make_mesh(1)))
+        finally:
+            del os.environ["LLAMA_CONFIG"]
+        assert batcher.admission.kv_budget_bytes == 64_000_000
+        assert (engine.kv_pool.num_blocks, engine.kv_pool.block_bytes) == (
+            jengine.kv_pool.num_blocks, jengine.kv_pool.block_bytes)
         return
     with pytest.raises(ValueError, match="not ported"):
         build_service(overrides)

@@ -152,8 +152,8 @@ def test_stop_finishes_queued_work_and_refuses_new():
 def test_deadline_queue_is_edf_with_fifo_ties():
     q = DeadlineQueue(8)
     now = time.monotonic()
-    items = [types.SimpleNamespace(name=n, deadline=d) for n, d in
-             (("a", None), ("b", now + 5), ("c", None), ("d", now + 1))]
+    items = [types.SimpleNamespace(name=n, deadline=d, klass="interactive", started=False)
+             for n, d in (("a", None), ("b", now + 5), ("c", None), ("d", now + 1))]
     for it in items:
         q.put(it)
     assert [q.pop_nowait().name for _ in range(4)] == ["d", "b", "a", "c"]
