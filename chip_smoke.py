@@ -141,8 +141,9 @@ result line:
    first parting where the reference's two best perturbed scores are within
    the tolerance (batch buckets run other GEMM shapes in bf16).  Warmup
    captures every bucket's argmax and sampled graphs.
-7b. serve llama stream / stream int8 / stream contiguous: the same weights
-   (the int8 and the contiguous loop at CUT_LAYERS layers) streamed through ``Batcher.submit_stream`` and the continuous decode
+7b. serve llama stream / stream int8 / stream contiguous: TinyLlama at
+   CUT_LAYERS layers (7d drives the paged loop at full depth) streamed
+   through ``Batcher.submit_stream`` and the continuous decode
    loop (16 slots, 64-token budget): paged KV (16-token blocks) with the
    dense and the int8 cache, then contiguous slots; 32 streams in waves of
    1, 2, 5, 8 and 16.  Every token is teacher-forced as in 7; the paged
@@ -150,10 +151,10 @@ result line:
    times per step of each admission wave's first chunk (and, contiguous,
    per slot step); the pool must hold 0 blocks after the last stream.
    Every bucket's ``start`` and the loop's chunk are captured before the
-   first stream, as the app warms.  Then one chunk of the 16-slot state at
-   full width is timed (CUDA events) and split by kernel
-   (``torch.profiler``), eager and as the loop's graph.
-7c. serve llama classes: the same full-depth weights through the paged
+   first stream, as the app warms.  Then one chunk of the 16-slot state is
+   timed (CUDA events) and split by kernel (``torch.profiler``), eager and
+   as the loop's graph.
+7c. serve llama classes: TinyLlama at CUT_LAYERS layers through the paged
    loop (16 slots, 64-token budget, ``MAX_STREAM_QUEUE`` 16, ``PREEMPT``)
    over a pool of ``KV_BUDGET_MB`` = 4 of the engine's worst-case streams
    (its block bytes times its blocks a stream): 16 ``batch``-class
@@ -164,6 +165,26 @@ result line:
    back to 0 blocks, no KV committed; 0 graph misses after warmup;
    preemptions, recasts, replays, dry-pool stalls and TTFT p50/p99 per
    class printed.
+7d. serve llama prefix: TinyLlama at full depth (22 layers) through the
+   paged loop with ``PREFIX_CACHE=1`` (16 slots, batch buckets 1 and 16,
+   ``PREFIX_CACHE_MB`` of 16 pins of 128 tokens, the default pool of 16
+   worst-case streams): 4 conversations of 3 growing turns (each turn a
+   wave of 4; a 150-byte system prompt), a shared document once, then 8
+   questions on it at once (one grouped hit wave, its rows sharing the
+   document's blocks in K3's tables), then 16 batch-class streams that
+   each pin 32 tokens hold every slot and 4 interactive ones preempt them
+   (the greedy victims recast into their own pins); a third sampled and
+   seeded.  Gates: hits and misses, grouped hit waves, recast hits, the
+   most blocks shared at once and within one chunk's tables, preemptions
+   all > 0; K2 22 a step of every start's first chunk and K3 22 a slot
+   step, equal to the replays'; 0 graph misses after warmup (the prefix
+   grid, 9 (prefix, suffix) pairs x B 1 and 16 x 2 variants, captured at
+   warmup, its captures, seconds and graph-pool bytes printed); the pool
+   back to exactly the pins' blocks, 0 after a flush; every token
+   teacher-forced against an f32 forward of the whole prompt without the
+   cache; TTFT p50/p99 of hits and misses apart.  Then ``chunk llama
+   prefix``: one chunk of the 16-slot state at full depth timed and split
+   as in 7b.
 8. decode step: where one llama decode step's time goes at B in {1, 8,
    32}, T=576: wall time against busy time, split into K2, GEMMs, other,
    eager and as a graph of the step.
@@ -172,6 +193,15 @@ result line:
    hidden, 12 heads, vocab 50257, position table 1024; random weights from
    seed 0; bf16; the byte tokenizer), as 7 and 7b: K2 or K3 launch 12 times
    a decode step (R = 1) and never in prefill.
+8a'. serve gpt2 prefix, serve gpt2 prefix per-stream, serve gpt2 prompt
+   prefix, each with its graphs phase: GPT-2 small (4 slots, batch
+   buckets 1 and 4) with ``PREFIX_CACHE=1`` on the contiguous loop (a
+   conversation's solo hits, a grouped burst of 4), with
+   ``CONTINUOUS_BATCHING=0`` (two conversations' hits through
+   ``start_fused`` on the per-stream path, whose chunks replay the
+   ``gen_chunk`` graphs of the prefixed shapes), and with a 59-token
+   ``PROMPT_PREFIX``, whole and through the loop; the gates of 7d, every
+   token teacher-forced over the prefix's ids and the prompt.
 8b. decode step gpt2: one GPT-2 step at B in {1, 8, 16} over a 320-key
    cache, greedy against sampled, eager and as graphs, split into K2,
    GEMMs and the rest; the sampler alone as graphs on [B, 50257] logits
@@ -2710,6 +2740,278 @@ def phase_serve_classes(label: str, overrides: dict, params, ref_model, rehearsa
     return bundle, {k: v for k, v in got.items() if v}, gdrive
 
 
+PREFIX_WORDS = ["system", "prompt", "history", "assistant", "answer", "user", "turn",
+                "prefix", "cache", "shared"]
+
+
+def prefix_sampling(i: int) -> dict:
+    """Every third stream sampled and seeded (temperature 0.7 or 1.0,
+    top_k 0 or 40)."""
+    if i % 3 != 2:
+        return {}
+    j = i // 3
+    return dict(temperature=(0.7, 1.0)[j % 2], top_k=(0, 40)[j // 2 % 2], seed=3000 + i)
+
+
+def prefix_text(rng, n: int) -> str:
+    return " ".join(rng.choice(PREFIX_WORDS, size=n))[:n]
+
+
+def prefix_steps(s_max: int, n_conv: int, n_burst: int, n_batch: int = 0,
+                 n_inter: int = 0) -> list:
+    """Traffic for a prefix-cache service whose largest seq bucket is
+    ``s_max`` (byte tokenizer: a token a byte, and a trailing EOS):
+
+    - ``n_conv`` conversations of three turns, each turn the conversation
+      so far and a new user turn (a system prompt of 0.55 ``s_max`` bytes,
+      turns of 0.66, 0.8 and 0.93 ``s_max``): each first turn misses and
+      donates the bucket of half ``s_max``, the later turns hit it; the
+      conversations' turns run as waves of ``n_conv``;
+    - a shared document (0.52 ``s_max``) with a question once (0.6), then
+      ``n_burst`` other questions on it at once, whose suffixes fall in one
+      bucket: one grouped hit wave;
+    - with ``n_batch``: that many unique batch-class prompts of 40-60 bytes
+      (each donates 32 tokens), the last quarter sampled and seeded, hold
+      every slot, then ``n_inter`` interactive ones arrive and preempt.
+
+    Every third conversation and burst stream is sampled and seeded.
+    Returns steps ``("wave", items)`` or ``("classes", (batch, inter))``."""
+    import numpy as np
+
+    from mlmicroservicetemplate_tpu_torch.models.registry import RawItem
+
+    rng = np.random.default_rng(13)
+    i = 0
+
+    def item(text: str, **kw):
+        nonlocal i
+        out = RawItem(text=text, **prefix_sampling(i), **kw)
+        i += 1
+        return out
+
+    convs = []
+    for _ in range(n_conv):
+        whole = prefix_text(rng, int(0.55 * s_max)) + " user: " + prefix_text(rng, s_max)
+        convs.append([whole[: int(f * s_max)] for f in (0.66, 0.8, 0.93)])
+    steps = [("wave", [item(c[t]) for c in convs]) for t in range(3)]
+    doc = prefix_text(rng, int(0.52 * s_max))
+    q = prefix_text(rng, s_max)
+    if n_burst:
+        steps.append(("wave", [item((doc + q)[: int(0.6 * s_max)])]))
+    if n_burst:
+        lo, step = int(0.645 * s_max), max(1, int(0.012 * s_max))
+        steps.append(("wave", [item(doc + prefix_text(rng, s_max)[: lo + step * k - len(doc)])
+                               for k in range(n_burst)]))
+    if n_batch:
+        batch = [RawItem(text=prefix_text(rng, int(rng.integers(40, 60))),
+                         **(dict(temperature=0.8, top_k=40, seed=4000 + k)
+                            if k >= 3 * n_batch // 4 else {}))
+                 for k in range(n_batch)]
+        inter = [RawItem(text=prefix_text(rng, 20)) for _ in range(n_inter)]
+        steps.append(("classes", (batch, inter)))
+    return steps
+
+
+async def drive_prefix(batcher, bundle, engine, steps):
+    """Run ``prefix_steps``' steps in order through
+    ``Batcher.submit_stream``: a wave's streams at once; a classes step's
+    batch-class streams at once and, once each has its first chunk, the
+    interactive ones; a ``whole`` step's requests at once through
+    ``Batcher.submit`` (rows of the decode budget, no first chunk).  Each
+    stream is recorded as a hit when the prefix cache held a prefix of its
+    prompt as it was submitted (``peek``).
+    Returns ([(feats, tokens, time to the first chunk s, hit)], wall s)."""
+    import numpy as np
+
+    await batcher.start()
+    cache = engine.prefix_cache
+
+    async def one(item, klass=None, first_seen=None):
+        f = bundle.preprocess(item)
+        if klass:
+            f["priority"] = klass
+        hit = cache is not None and cache.peek(f["input_ids"], int(f["length"])) > 0
+        t0 = time.monotonic()
+        toks, ttft = [], None
+        try:
+            async for chunk in batcher.submit_stream(f):
+                if ttft is None:
+                    ttft = time.monotonic() - t0
+                    if first_seen is not None:
+                        first_seen.set()
+                toks.extend(int(x) for x in chunk)
+        finally:
+            if first_seen is not None:
+                first_seen.set()
+        return f, np.array(toks, np.int32), ttft, hit
+
+    async def whole(item):
+        f = bundle.preprocess(item)
+        return f, await batcher.submit(f), None, False
+
+    out = []
+    try:
+        t0 = time.monotonic()
+        for kind, items in steps:
+            if kind in ("wave", "whole"):
+                out += await asyncio.gather(*((one if kind == "wave" else whole)(it)
+                                              for it in items))
+                continue
+            batch, inter = items
+            seen = [asyncio.Event() for _ in batch]
+            tasks = [asyncio.create_task(one(it, "batch", ev)) for it, ev in zip(batch, seen)]
+            for ev in seen:
+                await ev.wait()
+            tasks += [asyncio.create_task(one(it, "interactive")) for it in inter]
+            out += await asyncio.gather(*tasks)
+        wall = time.monotonic() - t0
+    finally:
+        await batcher.stop()
+    return out, wall
+
+
+def ttft_split(results) -> dict:
+    """TTFT p50 / p99 ms of the hits and of the misses, apart."""
+    import numpy as np
+
+    out = {}
+    for name, want in (("hit", True), ("miss", False)):
+        t = np.array([r[2] for r in results if r[3] == want and r[2] is not None]) * 1e3
+        out[f"{name}_streams"] = int(t.size)
+        for q in (50, 99):
+            out[f"ttft_{name}_p{q}_ms"] = float(np.percentile(t, q)) if t.size else None
+    return out
+
+
+def with_prefix_ids(feats, prefix_ids):
+    """Feats whose ids carry a global prefix's ids first (the context the
+    model saw), for the teacher-forced reference."""
+    import numpy as np
+
+    if prefix_ids is None:
+        return feats
+    return [dict(f, input_ids=np.concatenate([prefix_ids, np.asarray(f["input_ids"])]),
+                 length=np.int32(len(prefix_ids) + int(f["length"]))) for f in feats]
+
+
+def held_launches(label: str, bundle, engine, loop, k2: int, k3: int, rehearsal: bool) -> None:
+    """K2 and K3 held against the counts of what ran: K2 a layer at every
+    step of each start's first chunk (loop admissions, prefixed or not) and
+    of the engine's own decode (whole generations, the per-stream path),
+    and at every slot step of a contiguous loop; K3 a layer at every slot
+    step of a paged loop."""
+    layers, chunk = bundle.cfg.num_layers, engine.chunk_tokens
+    want_k2, want_k3 = engine.decode_steps, 0
+    if loop is not None:
+        want_k2 += chunk * loop.prefill_dispatches
+        if engine.paged_kv:
+            want_k3 = loop.decode_steps
+        else:
+            want_k2 += loop.decode_steps
+    want = (0, 0) if rehearsal else (layers * want_k2, layers * want_k3)
+    if (k2, k3) != want:
+        raise AssertionError(f"{label}: decode_attention launched {k2} times and "
+                             f"paged_decode_attention {k3}; want {want}")
+
+
+GPT2_PROMPT_PREFIX = "You are a helpful assistant. Answer in one short sentence. "
+
+
+def prompt_items(n: int, seed: int) -> list:
+    """``n`` short prompts behind a global prefix, every third sampled and
+    seeded."""
+    import numpy as np
+
+    from mlmicroservicetemplate_tpu_torch.models.registry import RawItem
+
+    rng = np.random.default_rng(seed)
+    return [RawItem(text=prefix_text(rng, int(rng.integers(10, 40))), **prefix_sampling(k))
+            for k in range(n)]
+
+
+def phase_serve_prefix(label: str, overrides: dict, params, ref_model, steps, rehearsal: bool,
+                       card_line: str, gates: tuple = (), prompt_prefix=None):
+    """A decoder service with ``PREFIX_CACHE=1`` (or a ``PROMPT_PREFIX``,
+    ``prompt_prefix``) driven by ``steps`` (``drive_prefix``).  Gates: the cache's hits and misses
+    (and each counter of the loop's named in ``gates``) > 0; K2/K3 held
+    against the counts; every token teacher-forced against an f32 forward
+    of the whole context (a global prefix's ids, the prompt, the tokens
+    before) on the same weights without any cache; every stream released;
+    paged, the pool holding exactly the pins' blocks, then 0 after a
+    flush.  TTFT p50 / p99 of hits and misses printed apart.  Returns
+    (bundle, {kernel: launches}, graph accounting)."""
+    import numpy as np
+
+    from mlmicroservicetemplate_tpu_torch.models.registry import prompt_prefix_ids
+    from mlmicroservicetemplate_tpu_torch.ops.attention import decode_attention
+    from mlmicroservicetemplate_tpu_torch.ops.paged_attention import paged_decode_attention
+    from mlmicroservicetemplate_tpu_torch.serve import build_service
+
+    cfg, bundle, engine, batcher = build_service(overrides, params=params)
+    loop = batcher._cdl
+    warm_s = batcher.warm_engine() + batcher.warm_streams()
+    prefix_ids = (prompt_prefix_ids(bundle.tokenizer, prompt_prefix, bundle.cfg.max_position)
+                  if prompt_prefix else None)
+    kernels = (decode_attention, paged_decode_attention)
+    for k in kernels:
+        k.launches = 0
+    engine.decode_steps = engine.dispatches = 0
+    if loop is not None:
+        loop.prefill_dispatches = loop.chunk_dispatches = loop.decode_steps = 0
+    marks = graph_marks(bundle)
+    results, wall = asyncio.run(drive_prefix(batcher, bundle, engine, steps))
+    k2, k3 = (k.launches for k in kernels)
+    gdrive = graph_drive(bundle, marks, {"decode_attention": k2, "paged_decode_attention": k3})
+    held_launches(label, bundle, engine, loop, k2, k3, rehearsal)
+    counts = {}
+    cache = engine.prefix_cache
+    if cache is not None:
+        counts = dict(cache.stats())
+        if not (counts["hits"] > 0 and counts["misses"] > 0):
+            raise AssertionError(f"{label}: prefix cache {counts}")
+    for name in gates:
+        counts[name] = getattr(loop, name)
+        if counts[name] < 1:
+            raise AssertionError(f"{label}: {name} = 0 ({counts})")
+    if loop is not None and loop.admitted != 0:
+        raise AssertionError(f"{label}: {loop.admitted} streams never released")
+    pool = None
+    if engine.paged_kv:
+        pins = {b for e in cache._entries.values() for b in e.block_ids}
+        pool = {"pinned_blocks": len(pins), "used_after_streams": engine.kv_pool.used_blocks,
+                **{k: v for k, v in engine.kv_pool.stats().items() if k != "used"}}
+        if engine.kv_pool.used_blocks != len(pins):
+            raise AssertionError(f"{label}: the pool holds {engine.kv_pool.used_blocks} "
+                                 f"blocks, the pins {len(pins)}")
+        pool["flushed_pins"] = cache.flush()
+        pool["used_after_flush"] = engine.kv_pool.used_blocks
+        if pool["used_after_flush"] != 0:
+            raise AssertionError(f"{label}: {pool['used_after_flush']} blocks after a flush")
+    stream_feats = [f for f, *_ in results]
+    stream_rows = [r for _, r, *_ in results]
+    for f, row in zip(stream_feats, stream_rows):
+        if not 1 <= len(row) <= engine.max_decode_len:
+            raise AssertionError(f"{label}: a stream of {len(row)} tokens")
+    check = teacher_forced(bundle, ref_model, with_prefix_ids(stream_feats, prefix_ids),
+                           stream_rows, engine.max_decode_len)
+    out = dict(
+        device=str(bundle.device), card=card_line, layers=bundle.cfg.num_layers,
+        kv_quant=bundle.cfg.kv_quant, paged=engine.paged_kv,
+        slots=loop.n_slots if loop is not None else None, streams=len(results),
+        prompt_prefix_tokens=engine.global_prefix_len(),
+        **counts, pool=pool,
+        admission_waves=loop.prefill_dispatches if loop is not None else None,
+        slot_decode_steps=loop.decode_steps if loop is not None else None,
+        engine_decode_steps=engine.decode_steps, decode_attention_launches=k2,
+        paged_decode_attention_launches=k3, warm_s=warm_s, prefix_warm=engine.prefix_warm,
+        **ttft_split(results), generated_tok_per_s=check["tokens_checked"] / wall,
+        graph_modes=engine.graph_modes(), **check,
+    )
+    emit(label, **out)
+    return bundle, {k: v for k, v in (("decode_attention", k2),
+                                       ("paged_decode_attention", k3)) if v}, gdrive, engine, loop
+
+
 def time_chunk(engine, loop) -> dict:
     """One chunk of the loop's slot state, eager and through its graph,
     timed (CUDA events) and split by kernel (``torch.profiler``): every
@@ -3258,6 +3560,7 @@ def main(argv: list[str]) -> int:
     if args.perf:
         return perf_main()
     rehearsal = args.cpu_rehearsal
+    t_start = time.monotonic()
     phase = "env"
     try:
         import torch
@@ -3386,7 +3689,8 @@ def main(argv: list[str]) -> int:
         release(llama8[1])
         del llama8
         # Streaming through the continuous decode loop: paged (dense, int8),
-        # then contiguous slots.
+        # then contiguous slots, all at CUT_LAYERS layers: the prefix phase
+        # below drives the paged loop at full depth (and times its chunk).
         stream = {"PAGED_KV": "1", "KV_BLOCK_SIZE": str(PAGE), "MAX_STREAMS": "16",
                   "MAX_DECODE_LEN": "64"}
         k2_streams = k3_streams = 0
@@ -3394,7 +3698,7 @@ def main(argv: list[str]) -> int:
         # The int8 loop runs unwarmed: its chunks are captured at the first
         # admission, before any slot is live.
         for phase, extra, warm_loop, weights in (
-                ("serve llama stream", {}, True, (llama_overrides, params, ref_model)),
+                ("serve llama stream", {}, True, (cut_overrides, cparams, cref)),
                 ("serve llama stream int8", {"QUANT_KV": "int8"}, False,
                  (cut_overrides, cparams, cref)),
                 ("serve llama stream contiguous", {"PAGED_KV": "0"}, True,
@@ -3411,21 +3715,48 @@ def main(argv: list[str]) -> int:
                 stream_svc = svc  # kept for the http phase
             else:
                 release(svc[1])
-        # Priority classes at full depth: 16 batch streams over a pool of 4
-        # worst-case streams (KV_BUDGET_MB; the rehearsal's smaller buckets
-        # take 7), then 8 interactive arrivals.  Batch buckets cut to 1, 4
-        # and 16 (a wave pads to one): warmup captures 48 graphs, not 80.
+        # Priority classes at CUT_LAYERS layers: 16 batch streams over a pool
+        # of 4 worst-case streams (KV_BUDGET_MB; the rehearsal's smaller
+        # buckets take 7), then 8 interactive arrivals.  Batch buckets cut to
+        # 1, 4 and 16 (a wave pads to one): warmup captures 48 graphs, not 80.
         phase = "serve llama classes"
         classes = phase_serve_classes(
-            phase, {**llama_overrides, **stream, "BATCH_BUCKETS": "1,4,16",
+            phase, {**cut_overrides, **stream, "BATCH_BUCKETS": "1,4,16",
                     "MAX_STREAM_QUEUE": "16", "PREEMPT": "1"},
-            params, ref_model, rehearsal, card_line, n_batch=16, n_inter=8, cap=28,
+            cparams, cref, rehearsal, card_line, n_batch=16, n_inter=8, cap=28,
             budget_streams=7 if rehearsal else 4)
         k2_streams += classes[1].get("decode_attention", 0)
         k3_streams += classes[1].get("paged_decode_attention", 0)
         phase = "graphs llama classes"
         graphs("llama classes", classes[0], classes[2])
         release(classes[0])
+        # The prefix cache at full depth over the paged loop: conversations,
+        # a burst on one shared prefix (one grouped hit wave, K3 over tables
+        # whose rows share its blocks), then 16 batch streams that each pin
+        # 32 tokens hold every slot and 4 interactive arrivals preempt them:
+        # the greedy victims recast into their own pins.  PREFIX_CACHE_MB
+        # holds 16 pins of half the largest bucket.  The pool is the default
+        # (16 worst-case streams): a pool small enough to stall growth would
+        # evict every pin before it checkpointed a stream.
+        phase = "serve llama prefix"
+        s_max = 64 if rehearsal else 256
+        token_bytes = 2 * lcfg.num_layers * lcfg.num_kv_heads * lcfg.head_dim * (
+            4 if rehearsal else 2)
+        prefix = phase_serve_prefix(
+            phase, {**llama_overrides, **stream, "BATCH_BUCKETS": "1,16",
+                    "MAX_STREAM_QUEUE": "16", "PREEMPT": "1", "PREFIX_CACHE": "1",
+                    "PREFIX_CACHE_MB": str(16 * (s_max // 2) * token_bytes / 1e6)},
+            params, ref_model, prefix_steps(s_max, 4, 8, 16, 4), rehearsal, card_line,
+            gates=("prefix_hit_waves", "peak_shared_blocks", "peak_shared_in_chunk",
+                   "preemptions") + (() if rehearsal else ("recast_hits",)))
+        k2_streams += prefix[1].get("decode_attention", 0)
+        k3_streams += prefix[1].get("paged_decode_attention", 0)
+        if not rehearsal:
+            emit("chunk llama prefix", layers=lcfg.num_layers, card=card_line,
+                 **time_chunk(prefix[3], prefix[4]))
+        phase = "graphs llama prefix"
+        graphs("llama prefix", prefix[0], prefix[2])
+        release(prefix[0])
         del ref_model, params, cref, cparams
         if rehearsal:
             emit("decode step", skipped="cpu rehearsal: no card to profile")
@@ -3468,6 +3799,29 @@ def main(argv: list[str]) -> int:
                 gpt2_stream = svc  # kept for the http phase
             else:
                 release(svc[1])
+        # The prefix cache on the contiguous loop (a conversation's solo
+        # hits, a grouped burst), on the per-stream path
+        # (CONTINUOUS_BATCHING=0: start_fused), then PROMPT_PREFIX, whole and
+        # in the loop.
+        s_max = 64 if rehearsal else 256
+        prefix_base = {**gpt2_overrides, "BATCH_BUCKETS": "1,4", "MAX_STREAMS": "4",
+                       "MAX_DECODE_LEN": "16" if rehearsal else "64"}
+        for phase, extra, steps, gates, kw in (
+                ("serve gpt2 prefix", {"PREFIX_CACHE": "1"}, prefix_steps(s_max, 1, 4),
+                 ("prefix_hit_waves",), {}),
+                ("serve gpt2 prefix per-stream",
+                 {"PREFIX_CACHE": "1", "CONTINUOUS_BATCHING": "0", "BATCH_BUCKETS": "1"},
+                 prefix_steps(s_max, 2, 0), (), {}),
+                ("serve gpt2 prompt prefix", {"PROMPT_PREFIX": GPT2_PROMPT_PREFIX},
+                 [("whole", prompt_items(4, 2)), ("wave", prompt_items(4, 1))], (),
+                 {"prompt_prefix": GPT2_PROMPT_PREFIX})):
+            svc = phase_serve_prefix(phase, {**prefix_base, **extra}, gparams, gref, steps,
+                                     rehearsal, card_line, gates=gates, **kw)
+            gpt2_k2 += svc[1].get("decode_attention", 0)
+            label = phase[len("serve "):]
+            phase = f"graphs {label}"
+            graphs(label, svc[0], svc[2])
+            release(svc[0])
         del gref, gparams
         if rehearsal:
             emit("decode step gpt2", skipped="cpu rehearsal: no card to profile")
@@ -3679,6 +4033,7 @@ def main(argv: list[str]) -> int:
             **extra,
         }
 
+    emit("total", seconds=time.monotonic() - t_start, card=card_line)
     print(json.dumps({"kernels": [
         # launches: BERT-base's and T5's encoder (with its bias, beside its
         # own case's numbers), each served path of the run.

@@ -839,6 +839,8 @@ async def handle_status(request: web.Request) -> web.Response:
         warnings = app[K_STATE]["chat_template_warnings"]
         if warnings:
             body["chat_template_warnings"] = warnings
+        if getattr(engine, "prefix_cache", None) is not None:
+            body["prefix_cache"] = engine.prefix_cache.stats()
     return web.json_response(body)
 
 

@@ -47,6 +47,17 @@ not ported), the same functions run eagerly; ``graph_modes`` says which.
   seq bucket plus the decode budget each).  ``kv_bytes_estimate`` and
   ``kv_blocks_estimate`` are the admission controller's footprints
   (``scheduler/admission.py``).
+- Prefixes, as in the JAX package: a global ``PROMPT_PREFIX`` sits at
+  positions ``[0, P)`` of every generation (the bundle's ``init_state``
+  puts it there; ``global_prefix_len`` widens the footprints and the
+  loop's slots).  ``PREFIX_CACHE=1`` builds ``prefix_cache``
+  (``engine/prefix_cache.py``): ``start_fused`` starts one stream through
+  it (a hit prefills the suffix behind the entry, a miss donates
+  ``_capture_prefix``'s clone of its rows), and ``_start_prefixed`` starts
+  a batch of suffixes behind per-row prefixes, on the card through a
+  ``start_prefixed`` graph per (B, P, S) whose static inputs include the
+  per-layer prefix K/V; warmup captures that grid (``prefixed_grid`` x
+  ``prefixed_batches``).
 """
 
 from __future__ import annotations
@@ -60,12 +71,13 @@ from typing import Iterator
 import numpy as np
 import torch
 
-from ..models.gpt import clone_state, copy_state
+from ..models.gpt import clone_state, copy_state, prefix_len
 from ..models.registry import KIND_IMAGE, KIND_SEQ2SEQ, KIND_TEXT, ModelBundle, decode_budget
 from ..models.sampling import SampleParams, greedy_params, make_params
 from ..runtime import compile_cache
 from ..utils import tracing
-from .kv_blocks import BlockPool, blocks_for, kv_token_bytes
+from .kv_blocks import BlockPool, PagedPrefix, blocks_for, kv_token_bytes
+from .prefix_cache import PrefixCache
 
 # A per-stream prompt past the largest seq bucket is collated at its length
 # rounded up to this step (at most the model's prompt cap), so such prompts
@@ -84,6 +96,14 @@ def bucket_for(n: int, buckets: tuple[int, ...], multiple: int = 1) -> int:
         if b >= lo and b % multiple == 0:
             return b
     return int(math.ceil(max(buckets + (lo,)) / multiple)) * multiple
+
+
+def _stack(entries: list):
+    """Per-row prefix entries ``[1, P, ...]`` (or int8 and scale pairs of
+    them) stacked along the batch."""
+    if isinstance(entries[0], tuple):
+        return tuple(torch.cat([e[i] for e in entries]) for i in range(len(entries[0])))
+    return torch.cat(entries)
 
 
 class InferenceEngine:
@@ -154,6 +174,26 @@ class InferenceEngine:
             num = (max(1, budget // bb) if budget
                    else cfg.max_streams * self.kv_blocks_per_stream)
             self.kv_pool = BlockPool(num, bb)
+        # The per-request prefix cache (PREFIX_CACHE=1, decoder families
+        # without a global PROMPT_PREFIX).  Paged, its entries are pins on
+        # the pool's blocks, and an eviction frees the pin's refs.
+        self.prefix_cache = None
+        if (getattr(cfg, "prefix_cache", False) and bundle.supports_prefix
+                and getattr(bundle, "prompt_prefix", None) is None):
+            on_evict = None
+            if self.paged_kv:
+                def on_evict(entry, key=None):
+                    if isinstance(entry, PagedPrefix):
+                        self.kv_pool.free(list(entry.block_ids))
+
+            self.prefix_cache = PrefixCache(
+                self.seq_buckets, float(getattr(cfg, "prefix_cache_mb", 256.0)),
+                on_evict=on_evict)
+        # Static per-layer prefix K/V of the prefixed starts' graphs, one
+        # set per (batch, prefix length), shared by the graphs of that pair;
+        # and the prefix grid's warm accounting (``_warm_prefixed``).
+        self._prefix_inputs: dict[tuple[int, int], dict] = {}
+        self.prefix_warm: dict | None = None
 
     def budget_for(self, feats: dict) -> int:
         """One stream's token budget: its max_tokens clamped to the
@@ -172,19 +212,25 @@ class InferenceEngine:
         """Bytes one ``KV_BLOCK_SIZE``-token block costs."""
         return self.kv_token_bytes() * self.kv_block_size
 
+    def global_prefix_len(self) -> int:
+        """Positions a global ``PROMPT_PREFIX`` takes in every generation's
+        cache (0 without one)."""
+        pre = self.bundle.prompt_prefix
+        return 0 if pre is None else prefix_len(pre["k"][0])
+
     def kv_bytes_estimate(self, feats: dict) -> int:
         """Admission-time ceiling of one request's KV footprint in bytes:
-        its prompt bucket plus the server's decode budget of positions (an
-        encoder-decoder adds its cross-attention K/V over the encoder
-        bucket).  A ceiling, so the budget fails safe; under ``PAGED_KV=1``
-        the block ledger (``kv_blocks_estimate``) takes its place for
-        streams."""
+        a global prefix's positions, its prompt bucket and the server's
+        decode budget (an encoder-decoder adds its cross-attention K/V over
+        the encoder bucket).  A ceiling, so the budget fails safe; under
+        ``PAGED_KV=1`` the block ledger (``kv_blocks_estimate``) takes its
+        place for streams."""
         if self.bundle.kind != KIND_SEQ2SEQ:
             return 0
         s = bucket_for(max(int(feats.get("length", 0) or 0), 1), self.seq_buckets,
                        self.seq_multiple)
         per_tok = self.kv_token_bytes()
-        total = (s + self.max_decode_len) * per_tok
+        total = (self.global_prefix_len() + s + self.max_decode_len) * per_tok
         if getattr(self.bundle.cfg, "d_kv", None) is not None:
             total += s * per_tok
         return int(total)
@@ -221,7 +267,8 @@ class InferenceEngine:
         ``"eager: <reason>"``."""
         kinds = {KIND_IMAGE: ("forward_images",), KIND_TEXT: ("forward",),
                  KIND_SEQ2SEQ: ("start", "gen_chunk",
-                                "loop_chunk_paged" if self.paged_kv else "loop_chunk")}
+                                "loop_chunk_paged" if self.paged_kv else "loop_chunk")
+                 + (("start_prefixed",) if self.prefix_cache is not None else ())}
         mode = "graph" if self.graphs is not None else f"eager: {self.eager_reason}"
         return {kind: mode for kind in kinds.get(self.bundle.kind, ())}
 
@@ -350,11 +397,20 @@ class InferenceEngine:
 
         return start, (ids, mask, sp), self.device
 
+    def _start_graph(self, shape: tuple, sample: bool) -> compile_cache.GraphEntry:
+        """The ``start`` graph of a bucket ``(B, S)``, or the
+        ``start_prefixed`` graph of ``(B, P, S)``."""
+        if len(shape) == 3:
+            return self._graph("start_prefixed", shape, sample,
+                               lambda: self._make_start_prefixed(shape, sample))
+        return self._graph("start", shape, sample, lambda: self._make_start(shape, sample))
+
     def _make_gen_chunk(self, shape: tuple, sample: bool):
-        """One decode chunk over the state of the bucket's ``start`` graph
-        of the same variant, which is replayed first, so the eager warm run
-        reads a real state; the output is the chunk's tokens."""
-        entry = self._graph("start", shape, sample, lambda: self._make_start(shape, sample))
+        """One decode chunk over the state of the bucket's start graph
+        (``_start_graph``: a prefixed one for a ``(B, P, S)`` shape) of the
+        same variant, which is replayed first, so the eager warm run reads a
+        real state; the output is the chunk's tokens."""
+        entry = self._start_graph(shape, sample)
         entry.replay()
         state = entry.outputs[0]
 
@@ -383,6 +439,202 @@ class InferenceEngine:
         state, toks = entry.outputs
         state.steps = self.chunk_tokens
         return state, toks
+
+    # -- the prefix cache's starts ---------------------------------------
+
+    def _prefix_guard(self, length: int):
+        """``usable(P)`` for a prompt of ``length`` tokens: the suffix's
+        bucket and the prefix fit the largest seq bucket (the loop's slots),
+        and prefix, suffix and decode fit the position table."""
+        s_max = max(self.seq_buckets)
+        max_pos = int(getattr(self.bundle.cfg, "max_position", 1 << 30))
+
+        def usable(p_len: int) -> bool:
+            s_suf = bucket_for(max(length - p_len, 1), self.seq_buckets, self.seq_multiple)
+            return p_len + s_suf <= s_max and p_len + s_suf + self.max_decode_len <= max_pos
+
+        return usable
+
+    def _capture_prefix(self, state, p_len: int, row: int = 0) -> dict:
+        """A prefix-cache entry from a fresh prefill: rows ``[0, p_len)`` of
+        batch row ``row`` of each layer's cache, cloned (int8 payload and
+        scale under the int8 cache), so it outlives the state, which the
+        bucket's next replay overwrites.  The caller holds ``_lock``."""
+        def cut(c):
+            if isinstance(c, tuple):
+                return tuple(x[row:row + 1, :p_len].clone() for x in c)
+            return c[row:row + 1, :p_len].clone()
+
+        return {"k": [cut(c) for c in state.cache_k], "v": [cut(c) for c in state.cache_v]}
+
+    def _prefix_input(self, b: int, p_len: int) -> dict:
+        """The static per-layer prefix K/V ``[b, p_len, KVH, D]`` (int8 and
+        scale pairs under the int8 cache) of the prefixed starts' graphs,
+        allocated once per pair, outside the graph pool."""
+        key = (b, p_len)
+        if key not in self._prefix_inputs:
+            c = self.bundle.cfg
+            shape = (b, p_len, c.num_kv_heads, c.head_dim)
+            dtype = self.bundle.policy.compute_dtype
+
+            def entry():
+                if c.kv_quant:
+                    return (torch.zeros(shape, dtype=torch.int8, device=self.device),
+                            torch.ones(shape[:3] + (1,), dtype=dtype, device=self.device))
+                return torch.zeros(shape, dtype=dtype, device=self.device)
+
+            self._prefix_inputs[key] = {"k": [entry() for _ in range(c.num_layers)],
+                                        "v": [entry() for _ in range(c.num_layers)]}
+        return self._prefix_inputs[key]
+
+    def _make_start_prefixed(self, shape: tuple, sample: bool):
+        """Static suffix ids and mask ``[B, S]``, per-row ``SampleParams``
+        and prefix K/V ``[B, P, ...]``, and the suffix prefill behind that
+        prefix plus the first chunk over them; the outputs are (state,
+        tokens [B, chunk])."""
+        b, p_len, s = shape
+        ids, mask = (torch.ones((b, s), dtype=torch.int32, device=self.device) for _ in range(2))
+        sp = greedy_params(b, self.device)
+        prefix = self._prefix_input(b, p_len)
+
+        def start():
+            state = self.bundle.init_state(ids, mask, self.max_decode_len, sample=sp,
+                                           prefix_kv=prefix)
+            return self.bundle.generate_chunk(state, self.chunk_tokens, sample)
+
+        return start, (ids, mask, sp, prefix), self.device
+
+    def _start_prefixed(self, prefixes: list[dict], ids: np.ndarray, mask: np.ndarray,
+                        sp: SampleParams, sample: bool):
+        """Prefill of a batch of suffixes, row ``r`` behind ``prefixes[r]``
+        (one per row, or one for them all: ``[1, P, ...]`` entries), plus
+        the first decode chunk; returns (state, tokens [B, chunk]).  On the
+        card the state is the ``start_prefixed`` graph's static one, valid
+        until its next replay.  The caller holds ``_lock`` inside
+        ``torch.inference_mode``."""
+        b = ids.shape[0]
+        p_len = prefix_len(prefixes[0]["k"][0])
+        if self.graphs is None:
+            prefix = prefixes[0] if len(prefixes) == 1 else {
+                name: [_stack([p[name][li] for p in prefixes])
+                       for li in range(len(prefixes[0][name]))]
+                for name in ("k", "v")}
+            state = self.bundle.init_state(torch.from_numpy(ids).to(self.device),
+                                           torch.from_numpy(mask).to(self.device),
+                                           self.max_decode_len, sample=sp.to(self.device),
+                                           prefix_kv=prefix)
+            return self.bundle.generate_chunk(state, self.chunk_tokens, sample)
+        shape = (b, p_len, ids.shape[1])
+        entry = self._start_graph(shape, sample)
+        for dst, host in zip(entry.inputs, (ids, mask)):
+            dst.copy_(torch.from_numpy(host), non_blocking=True)
+        entry.inputs[2].copy_(sp)
+        static = entry.inputs[3]
+        rows = [(slice(0, b), prefixes[0])] if len(prefixes) == 1 else [
+            (slice(r, r + 1), p) for r, p in enumerate(prefixes)]
+        for name in ("k", "v"):
+            for li, dst in enumerate(static[name]):
+                for sl, p in rows:
+                    src = p[name][li]
+                    for d, x in (zip(dst, src) if isinstance(dst, tuple) else [(dst, src)]):
+                        d[sl].copy_(x)
+        entry.replay()
+        state, toks = entry.outputs
+        state.steps = self.chunk_tokens
+        return state, toks
+
+    def start_fused(self, feats: dict, width: int | None = None):
+        """Prefill plus the first decode chunk of ONE stream, through the
+        prefix cache when it is on: a hit prefills only the suffix behind
+        the cached prefix, a miss prefills the whole prompt (collated at
+        ``width`` when given: the per-stream path's long prompts) and
+        donates its longest bucket prefix; a hit donates too when the
+        prompt now covers a longer bucket (a growing conversation).  Paged,
+        the cache's entries are the loop's pins: this contiguous path
+        neither reads nor feeds them.  Returns (state, tokens [1, chunk],
+        sampled, shape): ``shape`` keys the state's per-stream chunk graph
+        (``(1, S)``, or ``(1, P, S)`` after a hit).  The caller holds
+        ``_lock`` inside ``torch.inference_mode``."""
+        length = int(feats["length"])
+        row_ids = np.asarray(feats["input_ids"], np.int32)[:length]
+        cache = None if self.paged_kv else self.prefix_cache
+        if cache is not None:
+            m = cache.match(row_ids, length, usable=self._prefix_guard(length))
+            if m is not None:
+                p_len, prefix = m
+                sfeats = dict(feats, input_ids=row_ids[p_len:], length=np.int32(length - p_len))
+                ids, mask, _ = self._collate_text([sfeats])
+                sp, sampled = self._collate_sample([feats], ids.shape[0])
+                state, toks = self._start_prefixed([prefix], ids, mask, sp, sampled)
+                p_ins = cache.bucket_for_insert(length)
+                if p_ins is not None and p_ins > p_len and not cache.contains(row_ids, p_ins):
+                    cache.insert(row_ids, p_ins, self._capture_prefix(state, p_ins))
+                return state, toks, sampled, (1, p_len, ids.shape[1])
+        ids, mask, _ = self._collate_text([feats])
+        if width is not None and width > ids.shape[1]:
+            pad = ((0, 0), (0, width - ids.shape[1]))
+            ids, mask = np.pad(ids, pad), np.pad(mask, pad)
+        sp, sampled = self._collate_sample([feats], ids.shape[0])
+        state, toks = self._start(ids, mask, sp, sampled)
+        if cache is not None:
+            p_ins = cache.bucket_for_insert(length)
+            if p_ins is not None and not cache.contains(row_ids, p_ins):
+                cache.insert(row_ids, p_ins, self._capture_prefix(state, p_ins))
+        return state, toks, sampled, ids.shape
+
+    def prefixed_grid(self) -> list[tuple[int, int]]:
+        """The (prefix bucket, suffix bucket) pairs a hit can use
+        (``_prefix_guard``)."""
+        s_max = max(self.seq_buckets)
+        max_pos = int(getattr(self.bundle.cfg, "max_position", 1 << 30))
+        return [(p, s) for p in self.seq_buckets for s in self.seq_buckets
+                if p + s <= s_max and p + s + self.max_decode_len <= max_pos]
+
+    def prefixed_batches(self) -> tuple[int, ...]:
+        """Batch sizes of the prefixed starts: 1, and the slot count's
+        bucket for the continuous loop's grouped hit waves."""
+        if not self.cfg.continuous_batching:
+            return (1,)
+        return tuple(sorted({1, bucket_for(self.cfg.max_streams, self.batch_buckets)}))
+
+    def _warm_prefixed(self, variants) -> float:
+        """The prefixed starts' grid (``prefixed_grid`` x
+        ``prefixed_batches``, each variant), a warm phase of its own
+        (``prefix``): captured on the card, run on the CPU; with the loop
+        off, the per-stream path's chunk graphs over those states too.
+        Records the graphs captured, their seconds and the graph pool's
+        bytes after them in ``prefix_warm``; returns the seconds."""
+        per_stream = not self.cfg.continuous_batching and self.max_decode_len > self.chunk_tokens
+        before = self.graphs.stats()["insert"] if self.graphs is not None else 0
+        with compile_cache.warm_phase(self.bundle.name, "prefix") as phase, self._lock, \
+                torch.inference_mode():
+            for b in self.prefixed_batches():
+                for p_len, s in self.prefixed_grid():
+                    shape = (b, p_len, s)
+                    for sample in variants:
+                        if self.graphs is None:
+                            ids = np.ones((b, s), np.int32)
+                            sp, _ = self._collate_sample(
+                                [{"temperature": 1.0, "seed": 0}] * b if sample else [], b)
+                            self._start_prefixed([self._prefix_input(b, p_len)], ids, ids, sp,
+                                                 sample)
+                            continue
+                        self._start_graph(shape, sample)
+                        if per_stream:
+                            self._graph("gen_chunk", shape, sample,
+                                        lambda: self._make_gen_chunk(shape, sample))
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        graphs = self.graphs.stats()["insert"] - before if self.graphs is not None else 0
+        self.prefix_warm = {"graphs": graphs, "seconds": phase.seconds,
+                            "pairs": len(self.prefixed_grid()),
+                            "batches": list(self.prefixed_batches()),
+                            "graph_pool_bytes": (compile_cache.graph_pool_bytes()
+                                                 if self.graphs is not None else 0)}
+        log.info("%s: prefix grid of %d (prefix, suffix) pairs at batches %s warmed in %.2fs, "
+                 "%d CUDA graphs captured", self.bundle.name, self.prefix_warm["pairs"],
+                 self.prefix_warm["batches"], phase.seconds, graphs)
+        return phase.seconds
 
     def _generate(self, ids: np.ndarray, mask: np.ndarray, budgets: np.ndarray,
                   sp: SampleParams, sample: bool) -> tuple[np.ndarray, int]:
@@ -430,12 +682,9 @@ class InferenceEngine:
         if self.bundle.kind != KIND_SEQ2SEQ:
             raise ValueError(f"{self.bundle.name} does not support streaming")
         budget = self.budget_for(feats)
-        ids, mask, _ = self._collate_text([feats])
-        pad = ((0, 0), (0, self.stream_width(ids.shape[1]) - ids.shape[1]))
-        ids, mask = np.pad(ids, pad), np.pad(mask, pad)
-        sp, sampled = self._collate_sample([feats], ids.shape[0])
+        width = self.stream_width(self._collate_text([feats])[0].shape[1])
         with self._lock, torch.inference_mode():
-            state, toks = self._start(ids, mask, sp, sampled)
+            state, toks, sampled, shape = self.start_fused(feats, width)
             chunk, done = toks[0].cpu().numpy(), bool(state.done[0])
             if self.graphs is not None:
                 state = clone_state(state)
@@ -445,7 +694,7 @@ class InferenceEngine:
         yield chunk[:budget]
         while not done and produced < budget:
             with self._lock, torch.inference_mode():
-                toks = self._stream_chunk(ids.shape, state, sampled)
+                toks = self._stream_chunk(shape, state, sampled)
                 chunk, done = toks[0].cpu().numpy(), bool(state.done[0])
                 self.decode_steps += self.chunk_tokens
             yield chunk[: budget - produced]
@@ -463,15 +712,15 @@ class InferenceEngine:
 
     def _stream_chunk(self, shape: tuple, state, sample: bool) -> torch.Tensor:
         """One decode chunk of a per-stream state (the caller holds
-        ``_lock``): eagerly, or on the card through the bucket's
-        ``gen_chunk`` graph with the state copied into the bucket's static
-        state and back; returns the chunk's tokens [1, chunk]."""
+        ``_lock``): eagerly, or on the card through the ``gen_chunk`` graph
+        of the state's start shape (``start_fused``) with the state copied
+        into that start graph's static state and back; returns the chunk's
+        tokens [1, chunk]."""
         if self.graphs is None:
             return self.bundle.generate_chunk(state, self.chunk_tokens, sample)[1]
         entry = self._graph("gen_chunk", shape, sample,
                             lambda: self._make_gen_chunk(shape, sample))
-        static = self._graph("start", shape, sample,
-                             lambda: self._make_start(shape, sample)).outputs[0]
+        static = self._start_graph(shape, sample).outputs[0]
         copy_state(static, state)
         entry.replay()
         copy_state(state, static)
@@ -551,6 +800,9 @@ class InferenceEngine:
                                             lambda: self._make_gen_chunk(ids.shape, sample))
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
+        seconds = phase.seconds
+        if self.prefix_cache is not None:
+            seconds += self._warm_prefixed(variants)
         n_seq = 1 if image else len(self.seq_buckets)
         if self.graphs is not None:
             captured = self.graphs.stats()["insert"] - captured
@@ -561,4 +813,4 @@ class InferenceEngine:
             log.info("%s: warmed %d buckets in %.2fs; %s run eagerly: %s", self.bundle.name,
                      len(self.batch_buckets) * n_seq, phase.seconds,
                      ", ".join(self.graph_modes()), self.eager_reason)
-        return phase.seconds
+        return seconds

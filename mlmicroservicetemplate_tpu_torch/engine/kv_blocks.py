@@ -1,5 +1,5 @@
-"""Block-paged KV-cache bookkeeping: a free-list allocator and per-stream
-block tables.
+"""Block-paged KV-cache bookkeeping: a refcounted free-list allocator,
+per-stream block tables and the prefix cache's block pins.
 
 Counterpart of the JAX package's ``engine/kv_blocks.py`` for the
 continuous loop's paged mode (``PAGED_KV=1``): the KV cache is a pool of
@@ -9,9 +9,16 @@ and returns every block the moment it ends; a stream whose growth finds
 the pool dry is checkpointed and queued again (``engine/streams.py``).
 Everything here is host-side:
 block ids index the device pools (``models/gpt.PagedState``); each decode
-dispatch carries the tables as an int32 tensor.  Each block has one holder:
-the reference's refcounts, adoption and trimming serve its prefix cache,
-and its host and disk tiers, none of which is ported.
+dispatch carries the tables as an int32 tensor.
+
+Copy-on-write prefix sharing (``PREFIX_CACHE=1``): KV is append-only, so
+"CoW" is pure sharing.  A prefix-cache entry is a ``PagedPrefix``, a pin
+of one pool ref on a donor's prompt blocks; a stream that hits it adopts
+those blocks (one ref each) and never writes below the prefix, whose
+length is a block-aligned seq bucket.  A block returns to the free list
+only when its last holder (streams and pins alike) frees it.  The
+reference's ``take`` (the journal's restart, ROADMAP A12) and ``trim``
+(decode windows, A8.5) wait for their callers.
 """
 
 from __future__ import annotations
@@ -43,15 +50,16 @@ class OutOfBlocks(Exception):
 
 class BlockPool:
     """Thread-safe free-list allocator of ``num_blocks`` blocks of
-    ``block_bytes`` each (the admission ledger reads its bytes).
-    All-or-nothing: a failed allocation takes nothing; a double free
-    raises."""
+    ``block_bytes`` each (the admission ledger reads its bytes), with
+    per-block refcounts: ``alloc`` hands a block out at 1, ``ref`` adds a
+    holder, ``free`` drops one and returns the block at 0.  All-or-nothing:
+    a failed allocation takes nothing; a double free raises."""
 
     def __init__(self, num_blocks: int, block_bytes: int = 0):
         self.num_blocks = int(num_blocks)
         self.block_bytes = int(block_bytes)
         self._free: deque[int] = deque(range(self.num_blocks))
-        self._held: set[int] = set()
+        self._ref: dict[int, int] = {}
         self._lock = threading.Lock()
 
     @property
@@ -68,8 +76,13 @@ class BlockPool:
     def used_bytes(self) -> int:
         return self.used_blocks * self.block_bytes
 
+    def refcount(self, block: int) -> int:
+        with self._lock:
+            return self._ref.get(block, 0)
+
     def alloc(self, n: int) -> list[int]:
-        """Take ``n`` blocks or raise ``OutOfBlocks`` without taking any."""
+        """Take ``n`` blocks (refcount 1 each) or raise ``OutOfBlocks``
+        without taking any."""
         if n <= 0:
             return []
         with self._lock:
@@ -78,28 +91,61 @@ class BlockPool:
                     f"need {n} blocks, {len(self._free)} free of {self.num_blocks}"
                 )
             ids = [self._free.popleft() for _ in range(n)]
-            self._held.update(ids)
+            for b in ids:
+                self._ref[b] = 1
             return ids
 
-    def free(self, ids: list[int]) -> None:
-        """Return blocks to the free list.  A double free raises."""
+    def ref(self, ids: list[int]) -> None:
+        """Add one holder to each block (a prefix pin, or a sharer)."""
         with self._lock:
             for b in ids:
-                if b not in self._held:
+                if self._ref.get(b, 0) <= 0:
+                    raise ValueError(f"ref of unallocated block {b}")
+                self._ref[b] += 1
+
+    def free(self, ids: list[int]) -> None:
+        """Drop one holder per id; a block rejoins the free list at 0.  A
+        free of a block nobody holds raises."""
+        with self._lock:
+            for b in ids:
+                c = self._ref.get(b, 0)
+                if c <= 0:
                     raise ValueError(f"double free of block {b}")
-                self._held.remove(b)
-                self._free.append(b)
+                if c == 1:
+                    del self._ref[b]
+                    self._free.append(b)
+                else:
+                    self._ref[b] = c - 1
+
+    def stats(self) -> dict:
+        """{num_blocks, free, used, shared (blocks with two or more holders)}."""
+        with self._lock:
+            return {"num_blocks": self.num_blocks, "free": len(self._free),
+                    "used": self.num_blocks - len(self._free),
+                    "shared": sum(1 for c in self._ref.values() if c > 1)}
 
 
 @dataclass
 class StreamBlocks:
-    """One stream's block table: ids in logical-position order.
-    ``release`` frees every id exactly once."""
+    """One stream's block table: ids in logical-position order.  The first
+    ``shared`` are a donor's prefix blocks it adopted (one ref each, like
+    any holder); ``release`` frees every id exactly once."""
 
     pool: BlockPool
     block_size: int
     ids: list[int] = field(default_factory=list)
+    shared: int = 0
     released: bool = False
+
+    def adopt(self, shared_ids: list[int]) -> None:
+        """Take one ref on each of a donor's block-aligned prefix blocks,
+        which become the table's first entries; only before any
+        allocation."""
+        if self.ids:
+            raise ValueError("adopt must precede any allocation")
+        self.pool.ref(shared_ids)
+        self.ids = list(shared_ids)
+        self.shared = len(shared_ids)
 
     def ensure(self, n_tokens: int) -> list[int]:
         """Grow the table to cover ``n_tokens`` positions; returns the new
@@ -118,3 +164,17 @@ class StreamBlocks:
             if self.ids:
                 self.pool.free(self.ids)
             self.ids = []
+            self.shared = 0
+
+
+@dataclass(frozen=True)
+class PagedPrefix:
+    """A prefix-cache entry in paged mode: the donor's prompt-block ids, on
+    which the cache holds one pool ref (the pin); no KV copy.  Eviction
+    frees only the pin's ref, so sharers keep the blocks.  ``nbytes`` (the
+    pinned positions' KV bytes in the pool) counts against
+    ``PREFIX_CACHE_MB``."""
+
+    p_len: int
+    block_ids: tuple[int, ...]
+    nbytes: int

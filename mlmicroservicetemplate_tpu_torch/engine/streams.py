@@ -95,10 +95,34 @@ row in the chunk still in flight writes through the table that chunk
 read; its blocks return to the pool at once, and a new tenant's insert,
 enqueued on the same CUDA stream, lands after that chunk's writes.
 
-Not ported (``ROADMAP.md``): the prefix cache and shared blocks, chunked
-prefill, the host and disk KV tiers, decode windows, pipelining deeper
-than one chunk, speculative decoding in the loop, fleets, the journal and
-the supervisor.
+Prefix cache (``PREFIX_CACHE=1``; ``engine/prefix_cache.py``), as in the
+reference: each admitted stream is matched once.  Hits group by (prefix
+bucket, suffix bucket), one prefixed start per group (B = 1 for a solo
+hit, else the slot count's bucket, pad rows behind the first member's
+prefix), and misses share one full wave.  Contiguous, every row donates
+its longest bucket prefix (a clone of its rows, taken at dispatch; a hit
+only when the prompt now covers a longer bucket).  Paged, an entry is a
+pin on the donor's prompt blocks (``_donate_paged``, after the insert); a
+hit takes one ref on each at match (``StreamBlocks.adopt``, so a pin
+evicted before the stream's insert cannot free them), prefills its suffix
+over a dense gather of them from the pools (``_gather_prefix``), and its
+insert scatters only positions ``[s_lo, s_cut)``: the shared rows below
+its prefix length are never rewritten, and K3 reads them through several
+table rows.  A growth or insert that finds the pool dry evicts LRU pins
+before it checkpoints a stream (``_reclaim_then_ensure``), and a rebuilt
+slot state flushes every pin.  A recast resume re-enters admission with
+prompt and delivered tokens, so it hits the prefix its first admission
+donated.  Each group's start graph is replayed and its rows copied into
+their slots before the next group's replay, since a graph's outputs last
+only until another graph of the pool replays.  The loop counts
+``prefix_hit_waves`` (grouped hit starts), ``recast_hits``, the most
+blocks shared at once (``peak_shared_blocks``) and the most blocks two or
+more live rows of one dispatched chunk's tables name
+(``peak_shared_in_chunk``).
+
+Not ported (``ROADMAP.md``): chunked prefill, the host and disk KV tiers,
+decode windows, pipelining deeper than one chunk, speculative decoding in
+the loop, fleets, the journal and the supervisor.
 """
 
 from __future__ import annotations
@@ -116,7 +140,7 @@ import torch
 
 from ..models.gpt import GPTState, PagedState, state_tensors
 from ..models.sampling import greedy_params
-from ..ops.paged_attention import scatter_pages
+from ..ops.paged_attention import gather_pages, scatter_pages
 from ..runtime import compile_cache
 from ..scheduler.admission import AdmissionController
 from ..scheduler.policy import (
@@ -127,7 +151,8 @@ from ..scheduler.policy import (
     QueueFullError,
 )
 from ..utils import metrics, tracing
-from .kv_blocks import OutOfBlocks, StreamBlocks
+from .engine import bucket_for
+from .kv_blocks import OutOfBlocks, PagedPrefix, StreamBlocks
 
 log = logging.getLogger(__name__)
 
@@ -146,7 +171,7 @@ class _Stream:
 
     __slots__ = ("feats", "chunks", "loop", "cancelled", "produced", "released", "budget",
                  "klass", "deadline", "started", "kv", "kv_held", "skip", "tokens",
-                 "preempted", "_removed", "blocks", "s_base", "rid", "t_emit", "t_in",
+                 "preempted", "_removed", "blocks", "s_base", "s_lo", "rid", "t_emit", "t_in",
                  "t_queued")
 
     # The admission ledger's marker: paged streams are accounted by the pool.
@@ -180,9 +205,12 @@ class _Stream:
         self.tokens: list[int] = []
         self.skip = 0
         self.preempted = 0
-        # Paged KV: the stream's blocks and its prefill's collated width.
+        # Paged KV: the stream's blocks (a prefix hit's adopted ones first),
+        # where its prefill's rows end (prefix and collated width) and the
+        # prefix length below which it writes nothing.
         self.blocks: StreamBlocks | None = None
         self.s_base = 0
+        self.s_lo = 0
         self.rid = str(feats.get("request_id") or "")
         self.t_emit = 0.0
 
@@ -227,6 +255,7 @@ class ContinuousDecodeLoop:
         self.max_prompt = max(engine.seq_buckets)
         self.chunk = engine.chunk_tokens
         self.paged = engine.paged_kv
+        self.prefix_cache = getattr(engine, "prefix_cache", None)
         if self.paged:
             self.block_size = engine.kv_block_size
             self.pool = engine.kv_pool
@@ -289,6 +318,11 @@ class ContinuousDecodeLoop:
         self.kv_growth_stalls = 0
         self.recasts = 0
         self.replays = 0
+        # The prefix cache's admissions (see the module docstring).
+        self.prefix_hit_waves = 0
+        self.recast_hits = 0
+        self.peak_shared_blocks = 0
+        self.peak_shared_in_chunk = 0
 
     # ------------------------------------------------------------------
     # event-loop side
@@ -514,6 +548,8 @@ class ContinuousDecodeLoop:
             self._free_slot(slot)
         self._inflight.clear()
         self._state_stale = True  # reset at the next admission
+        if self.paged and self.prefix_cache is not None:
+            self.prefix_cache.flush()  # the pins name blocks of the pools to be reset
 
     def _reserve(self, st: _Stream) -> None:
         tr = tracing.tracer()
@@ -548,6 +584,11 @@ class ContinuousDecodeLoop:
                 self._stream_ewma_s = 0.8 * self._stream_ewma_s + 0.2 * dt
 
     def _finish(self, st: _Stream, item: Any = _END) -> None:
+        """End a stream that holds no slot (blocks a prefix hit adopted at
+        match go back)."""
+        if st.blocks is not None:
+            st.blocks.release()
+            st.blocks = None
         st.emit(item)
         self._release(st)
 
@@ -650,7 +691,7 @@ class ContinuousDecodeLoop:
             st.blocks.release()
         # A checkpointed stream holds no blocks and no reservation.
         st.blocks = None
-        st.s_base = 0
+        st.s_base = st.s_lo = 0
         return True
 
     def _requeue_preempted(self, st: _Stream) -> None:
@@ -703,21 +744,126 @@ class ContinuousDecodeLoop:
                 ok.append(st)
         if not ok:
             return []
+        if self.prefix_cache is not None:
+            self._admit_prefixed(ok)
+            return []
+        return self._start_wave(ok)
+
+    def _start_wave(self, streams: list[_Stream]) -> list:
+        """One ``start`` of whole prompts for ``streams``, collated as one
+        batch; returns their admissions (a failed start ends them)."""
         try:
-            state1, toks, width = eng.start([st.feats for st in ok])
+            state1, toks, width = self.engine.start([st.feats for st in streams])
             copy = _HostCopy(toks, state1.done)
         except Exception as e:
-            for st in ok:
+            for st in streams:
                 self._finish(st, e)
             return []
         self.prefill_dispatches += 1
-        return [(st, state1, copy, row, width) for row, st in enumerate(ok)]
+        for st in streams:
+            st.s_lo, st.s_base = 0, width
+        return [(st, state1, copy, row) for row, st in enumerate(streams)]
+
+    def _admit_prefixed(self, ok: list[_Stream]) -> None:
+        """Admission through the prefix cache (the caller holds the
+        engine's lock): match each stream once, start the misses as one
+        wave and each (prefix, suffix) group of hits as one prefixed start,
+        donate, and complete each start's admissions (first chunk, slot
+        insert) before the next one replays."""
+        eng, cache = self.engine, self.prefix_cache
+        groups: dict[tuple[int, int], list] = {}
+        misses: list[tuple[_Stream, np.ndarray, int]] = []
+        for st in ok:
+            length = int(st.feats["length"])
+            row_ids = np.asarray(st.feats["input_ids"], np.int32)[:length]
+            m = cache.match(row_ids, length, usable=eng._prefix_guard(length))
+            if m is not None and self.paged and (self._state is None or self._state_stale
+                                                 or not isinstance(m[1], PagedPrefix)):
+                m = None  # counted as a hit, as in the reference, but served as a miss
+            if m is None:
+                misses.append((st, row_ids, length))
+                continue
+            p_len, prefix = m
+            if self.paged:
+                # The stream's refs on the pin's blocks, taken now: an eviction
+                # before its insert then frees only the pin's.
+                st.blocks = StreamBlocks(self.pool, self.block_size)
+                st.blocks.adopt(list(prefix.block_ids))
+                prefix = self._gather_prefix(p_len, prefix.block_ids)
+            if st.started and st.skip == 0:
+                self.recast_hits += 1
+            s_suf = bucket_for(max(length - p_len, 1), eng.seq_buckets, eng.seq_multiple)
+            groups.setdefault((p_len, s_suf), []).append((st, row_ids, length, p_len, prefix))
+        self._pending_wave = [g[0] for members in groups.values() for g in members]
+        if misses:
+            started = self._start_wave([st for st, _, _ in misses])
+            self._complete(started, [(row_ids, length, None) for _, row_ids, length in misses])
+        for (p_len, s_suf), members in groups.items():
+            streams = [m[0] for m in members]
+            self._pending_wave = [st for st in self._pending_wave if st not in streams]
+            started = self._start_hits(p_len, members)
+            self._complete(started, [(row_ids, length, p_len)
+                                     for _, row_ids, length, _, _ in members])
+        self._pending_wave = []
+
+    def _start_hits(self, p_len: int, members: list) -> list:
+        """One prefixed start of a (prefix, suffix) group's suffixes: B = 1
+        for one member, else padded to the slot count's bucket (pad rows
+        empty, behind the first member's prefix); returns the
+        admissions."""
+        eng = self.engine
+        feats = [dict(st.feats, input_ids=row_ids[p_len:], length=np.int32(length - p_len))
+                 for st, row_ids, length, _, _ in members]
+        if len(feats) > 1:
+            feats += [{"input_ids": np.zeros(0, np.int32), "length": np.int32(0)}] * (
+                self.n_slots - len(feats))
+        try:
+            ids, mask, _ = eng._collate_text(feats)
+            sp, sampled = eng._collate_sample(feats, ids.shape[0])
+            prefixes = [m[4] for m in members]
+            prefixes += [prefixes[0]] * (ids.shape[0] - len(prefixes) if len(prefixes) > 1
+                                         else 0)
+            state1, toks = eng._start_prefixed(prefixes, ids, mask, sp, sampled)
+            copy = _HostCopy(toks, state1.done)
+        except Exception as e:
+            for st, *_ in members:
+                self._finish(st, e)
+            return []
+        self.prefill_dispatches += 1
+        if len(members) > 1:
+            self.prefix_hit_waves += 1
+        for st, *_ in members:
+            st.s_lo, st.s_base = p_len, p_len + ids.shape[1]
+        return [(st, state1, copy, row) for row, (st, *_) in enumerate(members)]
+
+    def _donate(self, state1, row: int, row_ids: np.ndarray, length: int,
+                over: int | None) -> None:
+        """Contiguous donation of one wave row's longest bucket prefix (a
+        hit's only past its own prefix, ``over``); paged rows donate block
+        pins after their insert (``_donate_paged``)."""
+        cache = self.prefix_cache
+        if self.paged:
+            return
+        p_ins = cache.bucket_for_insert(length)
+        if (p_ins is not None and (over is None or p_ins > over)
+                and not cache.contains(row_ids, p_ins)):
+            cache.insert(row_ids, p_ins, self.engine._capture_prefix(state1, p_ins, row))
+
+    def _complete(self, started: list, donors: list) -> None:
+        """Donate each admitted row's prefix (``donors``: its ids, length
+        and the prefix it hit, in ``started``'s order), then complete the
+        admissions; the failure path ends them meanwhile."""
+        self._pending_admissions = started
+        for (_, state1, _, row), (row_ids, length, over) in zip(started, donors):
+            self._donate(state1, row, row_ids, length, over)
+        self._admit_complete(started)
+        self._pending_admissions = []
 
     def _admit_complete(self, started: list) -> None:
         """Route each admitted stream's first chunk, then copy its row into
         a free slot (or end it, when the first chunk finished it); the
         caller holds the engine's lock."""
-        for st, state1, copy, row, width in started:
+        for st, state1, copy, row in started:
             toks_np, done_np = copy.get()
             st.produced = self.chunk
             self._emit_tokens(st, toks_np[row])
@@ -730,7 +876,7 @@ class ContinuousDecodeLoop:
                     self._build_empty_state()
                 slot = self.free.pop()
                 if self.paged:
-                    self._insert_paged(st, state1, slot, row, width)
+                    self._insert_paged(st, state1, slot, row)
                 else:
                     self._insert(state1, slot, row)
             except OutOfBlocks:
@@ -751,6 +897,8 @@ class ContinuousDecodeLoop:
             self.active[slot] = st
             if float(st.feats.get("temperature", 0.0)) > 0.0:
                 self.sampled_slots.add(slot)
+            if self.paged and self.prefix_cache is not None:
+                self._donate_paged(st)
 
     def _build_empty_state(self) -> None:
         """Every slot dead: zeroed caches (paged: ``num_blocks`` pool
@@ -766,6 +914,9 @@ class ContinuousDecodeLoop:
         dtype = eng.bundle.policy.compute_dtype
         n = self.n_slots
         st = self._state
+        if self.paged and self.prefix_cache is not None:
+            # The pins name blocks of the pools being cleared.
+            self.prefix_cache.flush()
         if st is not None:
             self._reset_state(st)
             return
@@ -777,7 +928,7 @@ class ContinuousDecodeLoop:
         if self.paged:
             lead, width = (self.pool.num_blocks + 1, self.block_size), self.nb_max * self.block_size
         else:
-            width = self.max_prompt + eng.max_decode_len
+            width = self._slot_width()
             lead = (n, width)
         shape = lead + (cfg.num_kv_heads, cfg.head_dim)
         scale_fill = 1 if self.paged else 0
@@ -808,6 +959,12 @@ class ContinuousDecodeLoop:
             self._table_dev = torch.tensor(self._table, device=dev)
             self.admission.note_pool()
         self._capture_chunks()
+
+    def _slot_width(self) -> int:
+        """A contiguous slot's positions: a global PROMPT_PREFIX's, the
+        largest seq bucket's and the decode budget's."""
+        eng = self.engine
+        return eng.global_prefix_len() + self.max_prompt + eng.max_decode_len
 
     def _capture_chunks(self) -> None:
         """On the card, capture the chunk's graphs (argmax and sampled) over
@@ -870,16 +1027,17 @@ class ContinuousDecodeLoop:
             d[slot, : s.shape[1]] = s[row]
             d[slot, s.shape[1]:] = 0
 
-    def _insert_paged(self, st: _Stream, single: GPTState, slot: int, row: int,
-                      width: int) -> None:
+    def _insert_paged(self, st: _Stream, single: GPTState, slot: int, row: int) -> None:
         """Paged insert: grant the stream the blocks its prompt and first
-        chunk wrote (positions ``[0, width + chunk)``), point the slot's
-        table row at them and scatter that span of the wave row's caches
-        into them."""
-        s_cut = width + self.chunk
-        sb = StreamBlocks(self.pool, self.block_size)
+        chunk wrote (positions ``[0, s_base + chunk)``; a prefix hit's first
+        ``s_lo`` positions are its adopted blocks), evicting prefix pins if
+        the pool is dry, point the slot's table row at them and scatter
+        positions ``[s_lo, s_base + chunk)`` of the wave row's caches into
+        them (shared prefix rows are never written again)."""
+        s_cut = st.s_base + self.chunk
+        sb = st.blocks if st.blocks is not None else StreamBlocks(self.pool, self.block_size)
         try:
-            sb.ensure(s_cut)
+            self._reclaim_then_ensure(sb, s_cut)
             table_row = np.full(self.nb_max, self.pool.num_blocks, np.int32)
             table_row[: len(sb.ids)] = sb.ids
             row_t = torch.from_numpy(table_row)
@@ -888,16 +1046,68 @@ class ContinuousDecodeLoop:
                 pairs = (zip(d_entry, s_entry) if isinstance(d_entry, tuple)
                          else [(d_entry, s_entry)])
                 for pool, s in pairs:
-                    scatter_pages(pool, row_t, s[row, :s_cut], self.block_size)
+                    scatter_pages(pool, row_t, s[row, st.s_lo:s_cut], self.block_size,
+                                  start=st.s_lo)
             self._insert_rows(single, slot, row)
         except BaseException:
             sb.release()
+            st.blocks = None
             raise
         st.blocks = sb
-        st.s_base = width
         self._table[slot] = table_row
         self._dispatched_steps[slot] = self.chunk
+        if self.prefix_cache is not None:
+            self.peak_shared_blocks = max(self.peak_shared_blocks, self.pool.stats()["shared"])
         self.admission.note_pool()
+
+    def _reclaim_then_ensure(self, sb: StreamBlocks, n_tokens: int) -> list[int]:
+        """Grow ``sb`` to ``n_tokens`` positions; when the pool is dry,
+        evict LRU prefix pins (sharers keep their refs) until it fits, else
+        raise ``OutOfBlocks``.  Returns the new ids."""
+        while True:
+            try:
+                return sb.ensure(n_tokens)
+            except OutOfBlocks:
+                if self.prefix_cache is None or self.prefix_cache.pop_lru() is None:
+                    raise
+
+    def _gather_prefix(self, p_len: int, block_ids) -> dict:
+        """A dense ``{"k": [...], "v": [...]}`` of a pin's first ``p_len``
+        positions (``[1, P, KVH, D]``, int8 and scale pairs under the int8
+        cache), gathered from the current pools: what a paged hit's
+        prefixed start reads.  The blocks are written once, by their
+        donor's insert, so any later pool holds the right rows."""
+        blocks = torch.tensor([list(block_ids)], dtype=torch.int32, device=self.engine.device)
+
+        def one(pool):
+            return gather_pages(pool, blocks, self.block_size)[:, :p_len]
+
+        def entry(c):
+            return tuple(one(x) for x in c) if isinstance(c, tuple) else one(c)
+
+        return {"k": [entry(c) for c in self._state.cache_k],
+                "v": [entry(c) for c in self._state.cache_v]}
+
+    def _donate_paged(self, st: _Stream) -> None:
+        """Paged donation after the insert: pin the stream's first
+        ``bucket_for_insert`` positions' blocks with one ref (no copy); a
+        hit donates only a bucket longer than its own prefix.  Prefix
+        buckets are block-aligned (``utils/config``), so a pin never covers
+        part of a block."""
+        cache = self.prefix_cache
+        length = int(st.feats["length"])
+        row_ids = np.asarray(st.feats["input_ids"], np.int32)[:length]
+        p_ins = cache.bucket_for_insert(length)
+        if (p_ins is None or (st.s_lo > 0 and p_ins <= st.s_lo)
+                or cache.contains(row_ids, p_ins) or st.blocks is None):
+            return
+        nb_pin = p_ins // self.block_size
+        if nb_pin <= 0 or nb_pin > len(st.blocks.ids):
+            return
+        ids = list(st.blocks.ids[:nb_pin])
+        self.pool.ref(ids)
+        cache.insert(row_ids, p_ins, PagedPrefix(p_ins, tuple(ids),
+                                                 p_ins * self.engine.kv_token_bytes()))
 
     # -- decode chunks -------------------------------------------------
 
@@ -919,7 +1129,7 @@ class ContinuousDecodeLoop:
                 continue  # frees at the next delivery; its writes go to scratch
             steps = self._dispatched_steps.get(slot, 0) + self.chunk
             try:
-                fresh = st.blocks.ensure(st.s_base + min(steps, st.budget))
+                fresh = self._reclaim_then_ensure(st.blocks, st.s_base + min(steps, st.budget))
             except OutOfBlocks:
                 self._note_stall()
                 self._vacate(slot, st)
@@ -955,7 +1165,7 @@ class ContinuousDecodeLoop:
         cfg = eng.bundle.cfg
         kind = "loop_chunk_paged" if self.paged else "loop_chunk"
         shape = ((self.pool.num_blocks, self.block_size, self.nb_max) if self.paged
-                 else (self.max_prompt + eng.max_decode_len,))
+                 else (self._slot_width(),))
         descriptor = (self.n_slots, *shape, self.chunk, "sample" if sample else "greedy",
                       str(eng.bundle.policy.compute_dtype).split(".")[-1],
                       "int8" if cfg.kv_quant else "none",
@@ -981,6 +1191,8 @@ class ContinuousDecodeLoop:
                           streams=[st.rid for st in self.active.values()], paged=self.paged):
             if self.paged:
                 self._grow_for_dispatch()
+                if self.prefix_cache is not None:
+                    self._note_shared_rows()
             with self.engine._lock:
                 self._state, toks = self._chunk_call(bool(self.sampled_slots))
                 copy = _HostCopy(toks, self._state.done)
@@ -988,6 +1200,15 @@ class ContinuousDecodeLoop:
         self.decode_steps += self.chunk
         metrics.STREAM_BATCH.labels(self.model).observe(len(self.active))
         self._inflight.append((copy, dict(self.active)))
+
+    def _note_shared_rows(self) -> None:
+        """The most blocks that two or more live rows of the chunk about to
+        be dispatched name in their tables (K3 reads them through each)."""
+        rows = self._table[list(self.active)]
+        ids = rows[rows != self.pool.num_blocks]
+        if ids.size:
+            _, counts = np.unique(ids, return_counts=True)
+            self.peak_shared_in_chunk = max(self.peak_shared_in_chunk, int((counts > 1).sum()))
 
     def _deliver_oldest(self) -> None:
         copy, snapshot = self._inflight.pop(0)

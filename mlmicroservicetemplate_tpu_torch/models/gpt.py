@@ -33,6 +33,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -181,27 +182,67 @@ def write_at(state, idx: torch.Tensor, width: int) -> torch.Tensor:
     return idx.clamp(max=width - 1)
 
 
-def prefill_caches(kv, total: int, kv_quant: bool, dtype, device):
+def prefill_caches(kv, total: int, kv_quant: bool, dtype, device, prefix=None):
     """Each layer's prompt K and V ``[B, S, KVH, D]`` written into caches
     preallocated ``total`` positions wide (dense, or int8 payload plus
-    scale); returns (cache_k, cache_v)."""
+    scale) at positions ``[P, P + S)``, after a prefix's rows at ``[0, P)``:
+    ``prefix`` is one ``(k, v)`` per layer of ``[1 or B, P, KVH, D]``
+    entries in the cache's own form (``(int8, scale)`` pairs under
+    ``kv_quant``), None for none.  Returns (cache_k, cache_v)."""
     cache_k, cache_v = [], []
-    for k, v in kv:
+    p_len = 0 if prefix is None else prefix_len(prefix[0][0])
+    for li, (k, v) in enumerate(kv):
         b, s, kvh, d = k.shape
         shape = (b, total, kvh, d)
-        for new, caches in ((k, cache_k), (v, cache_v)):
+        for j, (new, caches) in enumerate(((k, cache_k), (v, cache_v))):
+            pre = None if prefix is None else prefix[li][j]
             if kv_quant:
                 q8, sc = kv_quantize(new)
                 c8 = torch.zeros(shape, dtype=torch.int8, device=device)
                 cs = torch.ones(shape[:3] + (1,), dtype=dtype, device=device)
-                c8[:, :s] = q8
-                cs[:, :s] = sc.to(dtype)
+                if pre is not None:
+                    c8[:, :p_len] = pre[0]
+                    cs[:, :p_len] = pre[1]
+                c8[:, p_len:p_len + s] = q8
+                cs[:, p_len:p_len + s] = sc.to(dtype)
                 caches.append((c8, cs))
             else:
                 c = torch.zeros(shape, dtype=new.dtype, device=device)
-                c[:, :s] = new
+                if pre is not None:
+                    c[:, :p_len] = pre.to(c.dtype)
+                c[:, p_len:p_len + s] = new
                 caches.append(c)
     return cache_k, cache_v
+
+
+def prefix_len(entry) -> int:
+    """Positions of one prefix K/V entry: dense ``[1, P, KVH, D]`` or an
+    ``(int8, scale)`` pair."""
+    return (entry[0] if isinstance(entry, tuple) else entry).shape[1]
+
+
+def prefix_pairs(prefix: dict | None):
+    """A ``{"k": [...], "v": [...]}`` prefix as one ``(k, v)`` per layer
+    (None for None)."""
+    return None if prefix is None else list(zip(prefix["k"], prefix["v"]))
+
+
+def prefix_mask(mask: torch.Tensor, p_len: int) -> torch.Tensor:
+    """A suffix's attention mask ``[B, 1, S, S]`` widened over a prefix of
+    ``p_len`` keys that every query sees: ``[B, 1, S, P + S]``."""
+    if not p_len:
+        return mask
+    b, _, s, _ = mask.shape
+    pre = torch.ones(b, 1, s, p_len, dtype=torch.bool, device=mask.device)
+    return torch.cat([pre, mask], dim=-1)
+
+
+def with_prefix(x: torch.Tensor, pre: torch.Tensor | None) -> torch.Tensor:
+    """Prefix rows ``[1 or B, P, ...]`` (broadcast over the batch) before
+    the suffix's ``x`` ``[B, S, ...]`` along positions."""
+    if pre is None:
+        return x
+    return torch.cat([pre.to(x.dtype).expand((x.shape[0],) + tuple(pre.shape[1:])), x], dim=1)
 
 
 def write_kv(cache, rows, t, new: torch.Tensor, dtype) -> None:
@@ -293,20 +334,20 @@ def finish_step(state, cfg, logits: torch.Tensor, sample: bool):
     return state, next_tok
 
 
-def row_fields(input_ids, attention_mask, max_len: int, pad_id: int, sample):
-    """The per-row fields after a prefill of right-padded prompts: the
-    first step re-embeds each row's last prompt token at its own position
-    (rewriting its K/V row), fully padded rows are born done; ``sample``
-    (copied) or all-greedy params."""
+def row_fields(input_ids, attention_mask, max_len: int, pad_id: int, sample, p_len: int = 0):
+    """The per-row fields after a prefill of right-padded prompts (behind
+    a prefix of ``p_len`` positions): the first step re-embeds each row's
+    last prompt token at its own position (rewriting its K/V row), fully
+    padded rows are born done; ``sample`` (copied) or all-greedy params."""
     b = input_ids.shape[0]
     dev = input_ids.device
     lengths = attention_mask.sum(dim=-1)
-    write_idx = (lengths - 1).clamp(min=0).long()
+    last = (lengths - 1).clamp(min=0).long()
     rows = torch.arange(b, device=dev)
     return dict(
-        write_idx=write_idx,
+        write_idx=last + p_len,
         pos=torch.zeros(b, dtype=torch.long, device=dev),
-        last_token=input_ids[rows, write_idx].long(),
+        last_token=input_ids[rows, last].long(),
         done=lengths == 0,
         tokens=torch.full((b, max_len), pad_id, dtype=torch.int32, device=dev),
         sample=greedy_params(b, dev) if sample is None else sample.to(dev).clone(),
@@ -395,23 +436,41 @@ class GPTModel(nn.Module):
 
 
 def forward_hidden(model: GPTModel, input_ids: torch.Tensor, attention_mask: torch.Tensor,
-                   dtype: torch.dtype = torch.float32, collect_kv: bool = False):
+                   dtype: torch.dtype = torch.float32, collect_kv: bool = False,
+                   prefix_kv=None):
     """Final hidden states [B, S, D] (and, with ``collect_kv``, each
-    layer's K and V [B, S, H, D])."""
+    layer's K and V [B, S, H, D]).  With ``prefix_kv`` (one ``(k, v)`` of
+    ``[1 or B, P, H, D]`` per layer, a cached prefix) the batch is the
+    suffix of that prefix: its tokens take positions ``P ..``, every query
+    sees the whole prefix and its causal suffix, and only the suffix's K/V
+    is computed."""
     s = input_ids.shape[1]
     dev = input_ids.device
+    p_len = 0 if prefix_kv is None else prefix_len(prefix_kv[0][0])
     x = embed(model.wte.weight, input_ids, dtype)
-    x = x + embed(model.wpe.weight, torch.arange(s, device=dev), dtype)[None]
+    x = x + embed(model.wpe.weight, torch.arange(p_len, p_len + s, device=dev), dtype)[None]
     causal = torch.ones(s, s, dtype=torch.bool, device=dev).tril()
-    mask = causal[None, None] & (attention_mask[:, None, None, :] != 0)
+    mask = prefix_mask(causal[None, None] & (attention_mask[:, None, None, :] != 0), p_len)
     kv = []
-    for layer in model.layers:
+    for li, layer in enumerate(model.layers):
         q, k, v = layer.qkv(x)
         if collect_kv:
             kv.append((k, v))
+        if p_len:
+            pk, pv = prefix_kv[li]
+            k, v = with_prefix(k, pk), with_prefix(v, pv)
         x = layer.finish(x, mha_attention(q, k, v, mask=mask))
     x = model.final_ln(x)
     return (x, kv) if collect_kv else x
+
+
+def compute_prefix_kv(model: GPTModel, prefix_ids, dtype: torch.dtype = torch.float32) -> dict:
+    """Each layer's K/V ``[1, P, H, D]`` of a shared prompt prefix (``P``
+    ids): ``{"k": [...], "v": [...]}``, computed once at startup."""
+    dev = model.wte.weight.device
+    ids = torch.as_tensor(np.asarray(prefix_ids, np.int32), device=dev).reshape(1, -1)
+    _, kv = forward_hidden(model, ids, torch.ones_like(ids), dtype, collect_kv=True)
+    return {"k": [k for k, _ in kv], "v": [v for _, v in kv]}
 
 
 def logits_of(model: GPTModel, x: torch.Tensor) -> torch.Tensor:
@@ -425,20 +484,38 @@ def lm_logits(model: GPTModel, input_ids, attention_mask,
     return logits_of(model, forward_hidden(model, input_ids, attention_mask, dtype))
 
 
+def prefixed_state(cache_k, cache_v, input_ids, attention_mask, max_len: int, p_len: int,
+                   pad_id: int, sample) -> GPTState:
+    """A prefill's ``GPTState`` over caches ``P + S + max_len`` wide whose
+    first ``p_len`` rows hold a prefix (every such key valid)."""
+    b, s = input_ids.shape
+    key_valid = torch.zeros(b, p_len + s + max_len, dtype=torch.int32, device=input_ids.device)
+    key_valid[:, :p_len] = 1
+    key_valid[:, p_len:p_len + s] = attention_mask.to(torch.int32)
+    return GPTState(cache_k=cache_k, cache_v=cache_v, key_valid=key_valid,
+                    **row_fields(input_ids, attention_mask, max_len, pad_id, sample, p_len))
+
+
 def init_decode_state(model: GPTModel, input_ids: torch.Tensor, attention_mask: torch.Tensor,
                       max_len: int, dtype: torch.dtype = torch.float32,
-                      sample: SampleParams | None = None) -> GPTState:
+                      sample: SampleParams | None = None, prefix_kv: dict | None = None
+                      ) -> GPTState:
     """Prefill, then the preallocated cache and the per-row state; the
-    first decode step embeds each row's last prompt token again."""
+    first decode step embeds each row's last prompt token again.  With
+    ``prefix_kv`` (``compute_prefix_kv``'s form, ``[1 or B, P, H, D]``; a
+    global ``PROMPT_PREFIX`` or a prefix-cache hit) the prompt is its
+    suffix: the prefix rows sit at ``[0, P)`` of the cache, valid, and
+    ``write_idx`` starts at ``P + len - 1``."""
     cfg = model.cfg
-    b, s = input_ids.shape
-    total = s + max_len
-    _, kv = forward_hidden(model, input_ids, attention_mask, dtype, collect_kv=True)
-    cache_k, cache_v = prefill_caches(kv, total, cfg.kv_quant, dtype, input_ids.device)
-    key_valid = torch.zeros(b, total, dtype=torch.int32, device=input_ids.device)
-    key_valid[:, :s] = attention_mask.to(torch.int32)
-    return GPTState(cache_k=cache_k, cache_v=cache_v, key_valid=key_valid,
-                    **row_fields(input_ids, attention_mask, max_len, cfg.pad_id, sample))
+    s = input_ids.shape[1]
+    pairs = prefix_pairs(prefix_kv)
+    p_len = 0 if pairs is None else prefix_len(pairs[0][0])
+    _, kv = forward_hidden(model, input_ids, attention_mask, dtype, collect_kv=True,
+                           prefix_kv=pairs)
+    cache_k, cache_v = prefill_caches(kv, p_len + s + max_len, cfg.kv_quant, dtype,
+                                      input_ids.device, prefix=pairs)
+    return prefixed_state(cache_k, cache_v, input_ids, attention_mask, max_len, p_len,
+                          cfg.pad_id, sample)
 
 
 def _step(model: GPTModel, state, write_kv_fn, attend, sample: bool):

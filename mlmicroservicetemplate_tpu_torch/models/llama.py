@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -56,8 +57,12 @@ from .gpt import (
     finish_step,
     paged_io,
     prefill_caches,
-    row_fields,
+    prefix_len,
+    prefix_mask,
+    prefix_pairs,
+    prefixed_state,
     run_steps,
+    with_prefix,
     write_at,
 )
 from .sampling import SampleParams
@@ -195,6 +200,36 @@ def _kv_int8_roundtrip(x: torch.Tensor) -> torch.Tensor:
     return (q8.float() * scale).to(x.dtype)
 
 
+def _dequant_prefix(entry, dtype: torch.dtype) -> torch.Tensor:
+    """Dense form of a prefix K/V entry for the suffix prefill's attention
+    (an ``(int8, scale)`` pair is dequantized in ``dtype``, once a
+    prefill; the cached copy stays int8)."""
+    if isinstance(entry, tuple):
+        q8, sc = entry
+        return q8.to(dtype) * sc.to(dtype)
+    return entry.to(dtype)
+
+
+def _quant_prefix_entry(entry, dtype: torch.dtype):
+    """The int8 cache's ``(int8, scale in dtype)`` form of a prefix K/V
+    entry: a pair passes through exactly (a capture under the int8 cache
+    cuts its rows), a dense entry quantizes with the cache's own
+    per-token, per-head scheme."""
+    if isinstance(entry, tuple):
+        q8, sc = entry
+        return q8, sc.to(dtype)
+    q8, sc = kv_quantize(entry)
+    return q8, sc.to(dtype)
+
+
+def quantize_prefix_kv(pkv: dict) -> dict:
+    """A dense ``compute_prefix_kv`` result in the int8 cache's ``(int8,
+    scale)`` form: a global ``PROMPT_PREFIX`` under ``QUANT_KV=int8`` is
+    quantized once, at startup."""
+    return {"k": [tuple(kv_quantize(k)) for k in pkv["k"]],
+            "v": [tuple(kv_quantize(v)) for v in pkv["v"]]}
+
+
 def forward_hidden(
     model: LlamaModel,
     input_ids: torch.Tensor,  # [B, S]
@@ -202,29 +237,51 @@ def forward_hidden(
     dtype: torch.dtype = torch.float32,
     collect_kv: bool = False,
     kv_int8_roundtrip: bool = False,
+    prefix_kv=None,
 ):
     """Final hidden states [B, S, D] (and, with ``collect_kv``, each
     layer's rotated K and V).  ``kv_int8_roundtrip`` passes K and V
     through the int8 cache's quantize-dequantize before attention, which
-    measures what storing them in int8 costs."""
+    measures what storing them in int8 costs.  With ``prefix_kv`` (one
+    ``(k, v)`` per layer of ``[1 or B, P, KVH, D]`` rotated entries, dense
+    or ``(int8, scale)``: a cached prefix) the batch is the suffix of that
+    prefix: its tokens take rotary positions ``P ..``, every query sees the
+    whole prefix and its causal suffix, and only the suffix's K/V is
+    computed."""
     cfg = model.cfg
     s = input_ids.shape[1]
+    dev = input_ids.device
+    p_len = 0 if prefix_kv is None else prefix_len(prefix_kv[0][0])
     x = embed(model.embed.weight, input_ids, dtype)
-    cos, sin = rope_tables(cfg, torch.arange(s, device=input_ids.device), dtype)
+    cos, sin = rope_tables(cfg, torch.arange(p_len, p_len + s, device=dev), dtype)
     cos, sin = cos[None, :, None, :], sin[None, :, None, :]
-    causal = torch.ones(s, s, dtype=torch.bool, device=input_ids.device).tril()
-    mask = causal[None, None] & (attention_mask[:, None, None, :] != 0)
+    causal = torch.ones(s, s, dtype=torch.bool, device=dev).tril()
+    mask = prefix_mask(causal[None, None] & (attention_mask[:, None, None, :] != 0), p_len)
     kv = []
-    for layer in model.layers:
+    for li, layer in enumerate(model.layers):
         q, k, v = layer.qkv(cfg, x, cos, sin)
         if collect_kv:
             kv.append((k, v))
         if kv_int8_roundtrip:
             k, v = _kv_int8_roundtrip(k), _kv_int8_roundtrip(v)
+        if p_len:
+            pk, pv = prefix_kv[li]
+            k = with_prefix(k, _dequant_prefix(pk, k.dtype))
+            v = with_prefix(v, _dequant_prefix(pv, v.dtype))
         ctx = mha_attention(q, repeat_kv(k, cfg.n_rep), repeat_kv(v, cfg.n_rep), mask=mask)
         x = layer.finish(x, ctx)
     x = model.final_ln(x)
     return (x, kv) if collect_kv else x
+
+
+def compute_prefix_kv(model: LlamaModel, prefix_ids,
+                      dtype: torch.dtype = torch.float32) -> dict:
+    """Each layer's rotated K/V ``[1, P, KVH, D]`` of a shared prompt prefix
+    (``P`` ids): ``{"k": [...], "v": [...]}``, computed once at startup."""
+    dev = model.embed.weight.device
+    ids = torch.as_tensor(np.asarray(prefix_ids, np.int32), device=dev).reshape(1, -1)
+    _, kv = forward_hidden(model, ids, torch.ones_like(ids), dtype, collect_kv=True)
+    return {"k": [k for k, _ in kv], "v": [v for _, v in kv]}
 
 
 def lm_logits(model: LlamaModel, input_ids, attention_mask, dtype=torch.float32,
@@ -246,21 +303,30 @@ def init_decode_state(
     max_len: int,
     dtype: torch.dtype = torch.float32,
     sample: SampleParams | None = None,
+    prefix_kv: dict | None = None,
 ) -> GPTState:
     """Prefill, then the preallocated cache and the per-row state
     (``sample``: per-row sampling parameters, copied; None = greedy).
 
     As in the JAX package, ``write_idx`` starts at the last prompt token:
-    the first decode step embeds it again and rewrites its K/V row."""
+    the first decode step embeds it again and rewrites its K/V row.  With
+    ``prefix_kv`` (``compute_prefix_kv``'s form, ``[1 or B, P, KVH, D]``,
+    dense or ``(int8, scale)``; a global ``PROMPT_PREFIX`` or a
+    prefix-cache hit) the prompt is its suffix: the prefix rows sit at
+    ``[0, P)``, valid (under the int8 cache as int8 and scale, a pair copied
+    bit for bit), and ``write_idx`` starts at ``P + len - 1``."""
     cfg = model.cfg
-    b, s = input_ids.shape
-    total = s + max_len
-    _, kv = forward_hidden(model, input_ids, attention_mask, dtype, collect_kv=True)
-    cache_k, cache_v = prefill_caches(kv, total, cfg.kv_quant, dtype, input_ids.device)
-    key_valid = torch.zeros(b, total, dtype=torch.int32, device=input_ids.device)
-    key_valid[:, :s] = attention_mask.to(torch.int32)
-    return GPTState(cache_k=cache_k, cache_v=cache_v, key_valid=key_valid,
-                    **row_fields(input_ids, attention_mask, max_len, cfg.pad_id, sample))
+    s = input_ids.shape[1]
+    pairs = prefix_pairs(prefix_kv)
+    p_len = 0 if pairs is None else prefix_len(pairs[0][0])
+    _, kv = forward_hidden(model, input_ids, attention_mask, dtype, collect_kv=True,
+                           prefix_kv=pairs)
+    if pairs is not None and cfg.kv_quant:
+        pairs = [tuple(_quant_prefix_entry(e, dtype) for e in kv_pair) for kv_pair in pairs]
+    cache_k, cache_v = prefill_caches(kv, p_len + s + max_len, cfg.kv_quant, dtype,
+                                      input_ids.device, prefix=pairs)
+    return prefixed_state(cache_k, cache_v, input_ids, attention_mask, max_len, p_len,
+                          cfg.pad_id, sample)
 
 
 def _step(model: LlamaModel, state, write_kv_fn, attend, sample: bool):

@@ -72,9 +72,11 @@ class ModelBundle:
     # classification: (images [B, S, S, 3] uint8 on the device) -> f32
     # logits [B, num_labels].
     forward: Callable[..., torch.Tensor] | None = None
-    # Generation: (input_ids, attention_mask, max_len, sample=None) ->
-    # decode state after prefill (``sample``: per-row SampleParams), and
-    # (state, n_steps, sample=False) -> (state, tokens [B, n_steps]), where
+    # Generation: (input_ids, attention_mask, max_len, sample=None,
+    # prefix_kv=None) -> decode state after prefill (``sample``: per-row
+    # SampleParams; ``prefix_kv``: a cached prefix's per-layer K/V, whose
+    # suffix the ids are, else the global ``prompt_prefix``), and (state,
+    # n_steps, sample=False) -> (state, tokens [B, n_steps]), where
     # ``sample`` picks per-row sampling over argmax (the JAX static arg).
     init_state: Callable | None = None
     generate_chunk: Callable | None = None
@@ -89,10 +91,15 @@ class ModelBundle:
     # Cap on a tokenized prompt (generation keeps position-table room for
     # the decode budget).
     max_prompt_len: int | None = None
-    # A causal decoder whose prompt may carry a prefix (gpt2, llama): a
-    # preempted greedy stream resumes by prefilling its prompt and the
-    # tokens it delivered (``engine/streams.py``).
+    # A causal decoder whose prompt may carry a prefix (gpt2, llama): it
+    # serves PROMPT_PREFIX and PREFIX_CACHE, and a preempted greedy stream
+    # resumes by prefilling its prompt and the tokens it delivered
+    # (``engine/streams.py``).
     supports_prefix: bool = False
+    # PROMPT_PREFIX's per-layer K/V ({"k": [...], "v": [...]} of [1, P,
+    # KVH, D], (int8, scale) pairs under QUANT_KV=int8), computed once at
+    # startup; every generation's cache holds it at [0, P).
+    prompt_prefix: dict | None = None
     # Sequence-parallel placement (bert-long): the engine hands ``forward``
     # lists of sequence shards placed by it instead of tensors.
     placement: Any = None
@@ -336,25 +343,54 @@ def decode_budget(svc_cfg) -> int:
     return int(math.ceil(svc_cfg.max_decode_len / chunk) * chunk)
 
 
-def _decode_position_budget(svc_cfg, max_position: int, family: str) -> int:
-    """Prompt plus decode must fit the position table (an embedding lookup
-    past it would fail, where the JAX package's would silently clamp):
-    returns the longest prompt; raises when no prompt fits or a seq bucket
-    exceeds it."""
+def _decode_position_budget(svc_cfg, max_position: int, p_len: int, family: str) -> int:
+    """Prefix, prompt and decode must fit the position table (an embedding
+    lookup past it would fail, where the JAX package's would silently
+    clamp): returns the longest prompt; raises when no prompt fits or a seq
+    bucket exceeds it."""
     budget = decode_budget(svc_cfg)
-    if budget >= max_position:
+    if budget + p_len >= max_position:
         raise ValueError(
-            f"MAX_DECODE_LEN(+chunk rounding)={budget} plus prefix 0 leaves no room for a "
-            f"prompt within {family}'s {max_position} positions"
+            f"MAX_DECODE_LEN(+chunk rounding)={budget} plus prefix {p_len} leaves no room "
+            f"for a prompt within {family}'s {max_position} positions"
         )
-    max_prompt = max_position - budget
+    max_prompt = max_position - budget - p_len
     bad = [s for s in svc_cfg.seq_buckets if s > max_prompt]
     if bad:
         raise ValueError(
             f"SEQ_BUCKETS {bad} exceed {family}'s position budget: max prompt = "
-            f"{max_position} - {budget} decode - 0 prefix = {max_prompt}"
+            f"{max_position} - {budget} decode - {p_len} prefix = {max_prompt}"
         )
     return max_prompt
+
+
+def prompt_prefix_ids(tokenizer, prefix: str, max_positions: int) -> np.ndarray:
+    """A PROMPT_PREFIX's ids: the request tokenizer's, less the terminal
+    specials it appends (an EOS, a [SEP]), which inside every served context
+    would cut the prefix off from the prompt; a leading BOS stays.  A
+    prefix of nothing else raises."""
+    ids, mask = tokenizer.encode(prefix, max_positions)
+    n = int(mask.sum())
+    terminal = {int(t) for t in (getattr(tokenizer, "eos_id", None),
+                                 getattr(tokenizer, "sep_id", None)) if t is not None}
+    while n > 0 and int(ids[n - 1]) in terminal:
+        n -= 1
+    if n == 0:
+        raise ValueError("PROMPT_PREFIX tokenized to zero (non-special) tokens")
+    return np.asarray(ids[:n], np.int32)
+
+
+def _attach_prompt_prefix(model, family, tokenizer, svc_cfg, policy: DtypePolicy,
+                          max_positions: int) -> dict | None:
+    """PROMPT_PREFIX's per-layer K/V (``family.compute_prefix_kv`` over
+    ``prompt_prefix_ids``, one prefill at startup), or None without one."""
+    if not svc_cfg.prompt_prefix:
+        return None
+    ids = prompt_prefix_ids(tokenizer, svc_cfg.prompt_prefix, max_positions)
+    with torch.inference_mode():
+        pkv = family.compute_prefix_kv(model, ids, dtype=policy.compute_dtype)
+    log.info("cached prompt prefix: %d tokens", len(ids))
+    return pkv
 
 
 def _llama_config(svc_cfg, tokenizer) -> llama_mod.LlamaConfig:
@@ -420,23 +456,34 @@ def _build_llama(svc_cfg, policy: DtypePolicy, device: torch.device,
     else:
         tokenizer = build_tokenizer(tok_path, for_t5=True)
     cfg = _llama_config(svc_cfg, tokenizer)
-    max_prompt = _decode_position_budget(svc_cfg, cfg.max_position, "llama")
     model = llama_mod.build_model(cfg, _llama_state(svc_cfg, cfg, params), device,
                                   policy.param_dtype)
+    # The shared prefix carries the BOS; the prompts after it then take none.
+    prefix = _attach_prompt_prefix(model, llama_mod, tokenizer, svc_cfg, policy,
+                                   cfg.max_position)
+    if prefix is not None and cfg.kv_quant:
+        # The int8 cache holds every row as int8 and a scale, the prefix's
+        # too: quantized once here.
+        prefix = llama_mod.quantize_prefix_kv(prefix)
+    if prefix is not None and getattr(tokenizer, "add_bos", False):
+        tokenizer.add_bos = False
+    p_len = 0 if prefix is None else gpt_mod.prefix_len(prefix["k"][0])
+    max_prompt = _decode_position_budget(svc_cfg, cfg.max_position, p_len, "llama")
     return _generative_bundle("llama", llama_mod, model, cfg, tokenizer, svc_cfg, policy,
-                              device, max_prompt)
+                              device, max_prompt, prefix)
 
 
 def _generative_bundle(name: str, family, model, cfg, tokenizer, svc_cfg,
                        policy: DtypePolicy, device: torch.device,
-                       max_prompt: int) -> ModelBundle:
+                       max_prompt: int, prompt_prefix: dict | None = None) -> ModelBundle:
     """A ``KIND_SEQ2SEQ`` bundle over a decoder family's module (``gpt`` or
     ``llama``: ``init_decode_state``, ``generate_chunk``,
-    ``generate_chunk_paged``)."""
+    ``generate_chunk_paged``), behind ``prompt_prefix`` when given."""
 
-    def init_state(input_ids, attention_mask, max_len: int, sample=None):
-        return family.init_decode_state(model, input_ids, attention_mask, max_len,
-                                        dtype=policy.compute_dtype, sample=sample)
+    def init_state(input_ids, attention_mask, max_len: int, sample=None, prefix_kv=None):
+        return family.init_decode_state(
+            model, input_ids, attention_mask, max_len, dtype=policy.compute_dtype,
+            sample=sample, prefix_kv=prompt_prefix if prefix_kv is None else prefix_kv)
 
     def generate_chunk(state, n_steps: int, sample: bool = False):
         return family.generate_chunk(model, state, n_steps, sample)
@@ -459,6 +506,7 @@ def _generative_bundle(name: str, family, model, cfg, tokenizer, svc_cfg,
         paged_chunk=paged_chunk,
         max_prompt_len=max_prompt,
         supports_prefix=True,
+        prompt_prefix=prompt_prefix,
     )
 
 
@@ -499,11 +547,14 @@ def _build_gpt(svc_cfg, policy: DtypePolicy, device: torch.device,
             f"tokenizer eos_id={cfg.eos_id}/pad_id={cfg.pad_id} outside gpt2 vocab of "
             f"{cfg.vocab_size}"
         )
-    max_prompt = _decode_position_budget(svc_cfg, cfg.max_position, "gpt2")
     model = gpt_mod.build_model(cfg, _gpt_state(svc_cfg, cfg, params), device,
                                 policy.param_dtype)
+    prefix = _attach_prompt_prefix(model, gpt_mod, tokenizer, svc_cfg, policy,
+                                   cfg.max_position)
+    p_len = 0 if prefix is None else gpt_mod.prefix_len(prefix["k"][0])
+    max_prompt = _decode_position_budget(svc_cfg, cfg.max_position, p_len, "gpt2")
     return _generative_bundle("gpt2", gpt_mod, model, cfg, tokenizer, svc_cfg, policy, device,
-                              max_prompt)
+                              max_prompt, prefix)
 
 
 # T5 has no position table (relative positions), so its prompts are capped
@@ -625,4 +676,33 @@ def build_model(svc_cfg, policy: DtypePolicy | None = None, params=None) -> Mode
             f"PAGED_KV is not supported for {svc_cfg.model_name!r} "
             "(block-paged KV covers the decoder families: gpt2, llama)"
         )
-    return builder(svc_cfg, policy, device, params)
+    bundle = builder(svc_cfg, policy, device, params)
+    # The prefix knobs, refused where they would be dropped or collide,
+    # with the JAX package's messages.
+    if svc_cfg.prompt_prefix and not bundle.supports_prefix:
+        raise ValueError(
+            f"PROMPT_PREFIX is not supported for {svc_cfg.model_name!r} "
+            "(cached-prefix serving covers the decoder families: gpt2, llama)"
+        )
+    if svc_cfg.paged_kv and svc_cfg.prompt_prefix:
+        raise ValueError(
+            "PAGED_KV and PROMPT_PREFIX are mutually exclusive: the "
+            "global prefix overlay predates the block pool — use "
+            "PREFIX_CACHE=1, whose hits SHARE prompt blocks by "
+            "refcount"
+        )
+    if svc_cfg.prefix_cache:
+        if not bundle.supports_prefix:
+            raise ValueError(
+                f"PREFIX_CACHE is not supported for {svc_cfg.model_name!r} "
+                "(per-request prefix caching covers the decoder "
+                "families: gpt2, llama)"
+            )
+        if svc_cfg.prompt_prefix:
+            raise ValueError(
+                "PREFIX_CACHE and PROMPT_PREFIX are mutually exclusive: "
+                "the global prefix occupies positions 0..P that "
+                "per-request prefixes need (the cache generalizes the "
+                "global knob — drop PROMPT_PREFIX)"
+            )
+    return bundle

@@ -14,10 +14,13 @@ Key discipline, as in the JAX module:
 - the **fingerprint** is a token minted per object and stored on it
   (``fingerprint``): two bundles never share one, even with equal names;
 - the **kind** names the code path: ``forward``, ``forward_images``,
-  ``start`` (prefill plus the first decode chunk), ``gen_chunk``,
-  ``loop_chunk``, ``loop_chunk_paged`` (``KINDS``);
+  ``start`` (prefill plus the first decode chunk), ``start_prefixed``
+  (the same behind a prefix-cache entry, whose per-layer K/V are static
+  inputs ``[B, P, KVH, D]`` written before each replay like the ids),
+  ``gen_chunk``, ``loop_chunk``, ``loop_chunk_paged`` (``KINDS``);
 - the **descriptor** spells out what the captured call closes over
-  besides the bundle: the bucket's shapes, the compute type, the KV
+  besides the bundle: the bucket's shapes (``(B, P, S)`` for a prefixed
+  start and its per-stream ``gen_chunk``), the compute type, the KV
   quantization, and, for the continuous loop, the token of the slot state
   whose buffers the graph reads and writes in place;
 - the **placement** is the device set the call runs on.
@@ -67,7 +70,8 @@ from typing import Any, Callable
 
 from ..utils import metrics
 
-KINDS = ("forward", "forward_images", "start", "gen_chunk", "loop_chunk", "loop_chunk_paged")
+KINDS = ("forward", "forward_images", "start", "start_prefixed", "gen_chunk", "loop_chunk",
+         "loop_chunk_paged")
 
 _fp_lock = threading.Lock()
 _fp_counter = itertools.count()

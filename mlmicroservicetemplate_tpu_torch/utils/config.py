@@ -2,7 +2,8 @@
 
 Holds the fields the ResNet-50, BERT-base, bert-long, llama, GPT-2 and
 T5-small paths, chat, the scheduler's priority classes, KV budget and
-preemption, and the parent registration read, under the same
+preemption, the prompt prefix and the prefix cache, and the parent
+registration read, under the same
 environment names as the JAX package's ``ServiceConfig``.  ``DEVICE`` is
 ``cuda|cpu`` and defaults to ``cuda``; ``MODEL_NAME`` defaults to
 ``resnet50``, as in the JAX package.
@@ -118,6 +119,20 @@ class ServiceConfig:
     # (api/chat.py: plain|llama2|chatml|zephyr|llama3); validated when the
     # app is built.
     chat_template: str = "plain"
+    # Shared system prompt of the decoder families (gpt2, llama): its KV is
+    # computed once at startup and sits at positions [0, P) of every
+    # generation, whose prefill runs over the request's own tokens only.
+    prompt_prefix: str | None = None
+    # Per-request prefix cache (decoder families, streamed generation): the
+    # KV of recurring token prefixes (a conversation's system prompt and
+    # history) is kept from each prefill, matched by content hash at seq
+    # bucket lengths, and a later request sharing one prefills its suffix
+    # only; LRU within prefix_cache_mb.  Paged, an entry pins the donor's
+    # prompt blocks, which hits share by refcount.  Warmup captures a
+    # (prefix bucket x suffix bucket) grid of graphs.  Mutually exclusive
+    # with prompt_prefix.
+    prefix_cache: bool = False
+    prefix_cache_mb: float = 256.0
     # Block-paged KV for the continuous loop: a pool of kv_block_size-token
     # blocks with per-slot block tables instead of per-slot contiguous
     # caches.  Seq buckets round up to the block grid.
@@ -178,6 +193,8 @@ class ServiceConfig:
             raise ValueError("CLASS_WEIGHT must be >= 1")
         if not self.kv_budget_mb >= 0 or self.max_stream_queue < 0:  # also NaN
             raise ValueError("KV_BUDGET_MB and MAX_STREAM_QUEUE must be >= 0")
+        if not self.prefix_cache_mb >= 0:
+            raise ValueError("PREFIX_CACHE_MB must be >= 0")
         object.__setattr__(self, "chat_template", self.chat_template.lower())
         object.__setattr__(self, "seq_buckets", _align_paged_seq_buckets(self))
 
@@ -204,9 +221,6 @@ _ON = ("1", "true", "yes")
 # default).  Setting one to any other value raises instead of serving
 # without it.
 UNPORTED_KNOBS = {
-    "PROMPT_PREFIX": (),
-    "PREFIX_CACHE": _OFF,
-    "PREFIX_CACHE_MB": ("256",),
     "SPEC_DECODE": ("none",) + _OFF,
     "SPEC_K": ("8",),
     "SPEC_NGRAM": ("2",),
@@ -344,7 +358,8 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
     STREAM_CHUNK_TOKENS, QUANT_KV, LLAMA_CONFIG, MAX_STREAMS, PAGED_KV,
     KV_BLOCK_SIZE, CONTINUOUS_BATCHING, SP, TRACE_RING, PIPELINE_DEPTH, DEADLINE_MS,
     DRAIN_GRACE_S, WARMUP_SAMPLING, ADMIT_GRACE_MS, CHAT_TEMPLATE, PRIORITY_DEFAULT,
-    CLASS_WEIGHT, KV_BUDGET_MB, MAX_STREAM_QUEUE, PREEMPT.  Any of
+    CLASS_WEIGHT, KV_BUDGET_MB, MAX_STREAM_QUEUE, PREEMPT, PROMPT_PREFIX,
+    PREFIX_CACHE, PREFIX_CACHE_MB.  Any of
     ``UNPORTED_KNOBS`` set to a value that turns it on raises;
     ``INERT_KNOBS`` are accepted and ignored."""
     e = dict(os.environ)
@@ -371,7 +386,7 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
         ("labels_path", "LABELS_PATH"), ("host", "HOST"), ("server_url", "SERVER_URL"),
         ("log_level", "LOG_LEVEL"), ("quant_kv", "QUANT_KV"),
         ("llama_config", "LLAMA_CONFIG"), ("chat_template", "CHAT_TEMPLATE"),
-        ("priority_default", "PRIORITY_DEFAULT"),
+        ("priority_default", "PRIORITY_DEFAULT"), ("prompt_prefix", "PROMPT_PREFIX"),
     ):
         v = get(var)
         if v is not None:
@@ -389,7 +404,7 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
     for field, var in (("batch_timeout_ms", "BATCH_TIMEOUT_MS"), ("deadline_ms", "DEADLINE_MS"),
                        ("drain_grace_s", "DRAIN_GRACE_S"), ("admit_grace_ms", "ADMIT_GRACE_MS"),
                        ("register_heartbeat_s", "REGISTER_HEARTBEAT_S"),
-                       ("kv_budget_mb", "KV_BUDGET_MB")):
+                       ("kv_budget_mb", "KV_BUDGET_MB"), ("prefix_cache_mb", "PREFIX_CACHE_MB")):
         v = get(var)
         if v is not None:
             kwargs[field] = float(v)
@@ -402,7 +417,8 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
             kwargs[field] = buckets
     for field, var in (("warmup", "WARMUP"), ("trace", "TRACE"), ("paged_kv", "PAGED_KV"),
                        ("warmup_sampling", "WARMUP_SAMPLING"),
-                       ("continuous_batching", "CONTINUOUS_BATCHING"), ("preempt", "PREEMPT")):
+                       ("continuous_batching", "CONTINUOUS_BATCHING"), ("preempt", "PREEMPT"),
+                       ("prefix_cache", "PREFIX_CACHE")):
         v = get(var)
         if v is not None:
             kwargs[field] = _flag(v)

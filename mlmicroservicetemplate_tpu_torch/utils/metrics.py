@@ -124,7 +124,8 @@ TTFT = Histogram(
     ["model"], buckets=_LATENCY_BUCKETS, registry=REGISTRY,
 )
 KV_POOL_BLOCKS = Gauge(
-    "kv_pool_blocks", "Paged-KV pool blocks by state (used | free)",
+    "kv_pool_blocks", "Paged-KV pool blocks by state (used | free; used includes "
+    "prefix-cache pins)",
     ["model", "state"], registry=REGISTRY,
 )
 TBT = Histogram(

@@ -63,3 +63,52 @@ def test_kv_token_bytes_matches_jax(quant):
     args = (22, 4, 64, 2, quant)
     assert port_kv.kv_token_bytes(*args) == jax_kv.kv_token_bytes(*args)
     assert port_kv.kv_token_bytes(22, 4, 64, 2) == 22528
+
+
+def _refcount_script(kv) -> list:
+    """Refcounts, adoption and stats through one call sequence; return
+    everything a caller can observe."""
+    log = []
+    pool = kv.BlockPool(8)
+    donor = kv.StreamBlocks(pool, block_size=4)
+    sharer = kv.StreamBlocks(pool, block_size=4)
+    late = kv.StreamBlocks(pool, block_size=4)
+
+    def note(tag, fn):
+        try:
+            out = fn()
+        except Exception as e:  # the failure's type and message are the contract
+            out = f"raised {type(e).__name__}: {e}"
+        log.append((tag, out, pool.stats(), [pool.refcount(b) for b in range(8)],
+                    list(donor.ids), list(sharer.ids), sharer.shared))
+
+    note("donor.ensure 10", lambda: donor.ensure(10))
+    note("pin the first two", lambda: pool.ref(donor.ids[:2]))
+    note("sharer.adopt", lambda: sharer.adopt(donor.ids[:2]))
+    note("sharer.ensure 13", lambda: sharer.ensure(13))
+    note("adopt after alloc", lambda: sharer.adopt(donor.ids[:1]))
+    note("late.ensure 4", lambda: late.ensure(4))
+    note("late.adopt after alloc", lambda: late.adopt(donor.ids[:1]))
+    note("donor.release", donor.release)
+    note("unpin", lambda: pool.free([0, 1]))
+    note("ref of a free block", lambda: pool.ref([7]))
+    note("sharer.release", sharer.release)
+    note("double free", lambda: pool.free([0]))
+    note("late.release", late.release)
+    return log
+
+
+def test_refcounts_and_adopt_match_jax_call_for_call():
+    got, want = _refcount_script(port_kv), _refcount_script(jax_kv)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g == w, (g[0], g, w)
+    assert got[-1][2] == {"num_blocks": 8, "free": 8, "used": 0, "shared": 0}
+
+
+def test_paged_prefix_matches_jax():
+    a = port_kv.PagedPrefix(32, (3, 4), 2048)
+    b = jax_kv.PagedPrefix(32, (3, 4), 2048)
+    assert (a.p_len, a.block_ids, a.nbytes) == (b.p_len, b.block_ids, b.nbytes)
+    with pytest.raises(AttributeError):
+        a.p_len = 16  # frozen, as the reference's

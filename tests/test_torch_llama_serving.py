@@ -227,14 +227,15 @@ def test_unported_requests_answer_400(services, path, body):
     ids=lambda k: next(iter(k)),
 )
 def test_unported_knobs_raise(knob, tmp_path):
-    """Knobs the port does not serve raise "not ported".  Three it once
+    """Knobs the port does not serve raise "not ported".  Five it once
     refused serve now, and their cases pin what the JAX package does: a
     SentencePiece ``TOKENIZER_PATH`` loads with a leading <s> and no
     trailing </s> (the model's eos/pad the tokenizer's),
     ``CONTINUOUS_BATCHING=0`` builds no loop and streams every request on
-    the per-stream path, with the JAX batcher's tokens, and
+    the per-stream path, with the JAX batcher's tokens,
     ``KV_BUDGET_MB`` is the admission budget and, paged, sizes the pool to
-    the JAX engine's blocks."""
+    the JAX engine's blocks, and ``PROMPT_PREFIX`` and ``PREFIX_CACHE``
+    stream the JAX batcher's tokens (the cache with its counts)."""
     name = next(iter(knob))
     overrides = {"MODEL_NAME": "llama", "DEVICE": "cpu", "WARMUP": "0",
                  "LLAMA_CONFIG": json.dumps(SMALL), **knob}
@@ -268,6 +269,31 @@ def test_unported_knobs_raise(knob, tmp_path):
         want = asyncio.run(_stream_all(JaxBatcher(jengine, jcfg), jbundle, JaxRawItem))
         got = asyncio.run(_stream_all(batcher, bundle, RawItem))
         assert got == want and engine.dispatches == len(REQUESTS)
+        return
+    if name in ("PROMPT_PREFIX", "PREFIX_CACHE"):
+        jkw = ({"prompt_prefix": knob[name]} if name == "PROMPT_PREFIX"
+               else {"prefix_cache": True})
+        os.environ["LLAMA_CONFIG"] = json.dumps(SMALL)
+        try:
+            jcfg = JaxServiceConfig(device="cpu", model_name="llama", warmup=False,
+                                    continuous_batching=False, batch_timeout_ms=1.0, **SERVE,
+                                    **jkw)
+            jbundle = jax_build_model(jcfg)
+            jengine = JaxEngine(jbundle, jcfg, ReplicaSet(make_mesh(1)))
+        finally:
+            del os.environ["LLAMA_CONFIG"]
+        params = {k: v for k, v in jax.tree.map(np.asarray, jbundle.params).items()
+                  if k != "__prefix__"}
+        _, bundle, engine, batcher = build_service(
+            {**overrides, "SEQ_BUCKETS": "16,32", "MAX_DECODE_LEN": "10",
+             "STREAM_CHUNK_TOKENS": "4", "CONTINUOUS_BATCHING": "0"}, params=params)
+        want = asyncio.run(_stream_all(JaxBatcher(jengine, jcfg), jbundle, JaxRawItem))
+        got = asyncio.run(_stream_all(batcher, bundle, RawItem))
+        assert got == want
+        if name == "PREFIX_CACHE":
+            assert engine.prefix_cache.stats() == jengine.prefix_cache.stats()
+        else:
+            assert engine.global_prefix_len() == jengine._global_prefix_len() > 0
         return
     if name == "KV_BUDGET_MB":
         extra = {"PAGED_KV": "1", "KV_BLOCK_SIZE": "8", "SEQ_BUCKETS": "16,32",
