@@ -4,6 +4,7 @@
     python3 chip_smoke.py                  # on a machine with a CUDA GPU
     python3 chip_smoke.py --cpu-rehearsal  # small CPU dry run of the paths
     python3 chip_smoke.py --perf           # decode kernels' timing phases only
+    python3 chip_smoke.py --chunked        # the chunked-prefill phases only
 
 Phases, one JSON line each; any failure exits non-zero and prints no
 result line:
@@ -165,8 +166,8 @@ result line:
    back to 0 blocks, no KV committed; 0 graph misses after warmup;
    preemptions, recasts, replays, dry-pool stalls and TTFT p50/p99 per
    class printed.
-7d. serve llama prefix: TinyLlama at full depth (22 layers) through the
-   paged loop with ``PREFIX_CACHE=1`` (16 slots, batch buckets 1 and 16,
+7d. serve llama prefix: TinyLlama at CUT_LAYERS layers (7e drives the
+   paged loop at full depth) through the paged loop with ``PREFIX_CACHE=1`` (16 slots, batch buckets 1 and 16,
    ``PREFIX_CACHE_MB`` of 16 pins of 128 tokens, the default pool of 16
    worst-case streams): 4 conversations of 3 growing turns (each turn a
    wave of 4; a 150-byte system prompt), a shared document once, then 8
@@ -182,9 +183,26 @@ result line:
    warmup, its captures, seconds and graph-pool bytes printed); the pool
    back to exactly the pins' blocks, 0 after a flush; every token
    teacher-forced against an f32 forward of the whole prompt without the
-   cache; TTFT p50/p99 of hits and misses apart.  Then ``chunk llama
-   prefix``: one chunk of the 16-slot state at full depth timed and split
-   as in 7b.
+   cache; TTFT p50/p99 of hits and misses apart.
+7e. serve llama chunked: TinyLlama at full depth (22 layers) through the
+   paged loop with ``PREFILL_CHUNK=128`` (the budget one window) and
+   ``PREFIX_CACHE=1`` (16 slots, batch buckets 1 and 16, 16-token blocks,
+   the default pool of 320 blocks, tables of 128 blocks: the position
+   budget): 8 short interactive streams decode, then three long prompts
+   of 1760-1800 bytes arrive (one interactive, two batch, one of those
+   sampled and seeded; each past the largest bucket, 14-15 windows), then
+   a fourth that shares the first one's opening once the cache holds it.
+   Gates: every token teacher-forced against an f32 forward of the whole
+   prompt; ``prefill_chunks_total`` and the loop's count equal to the
+   windows the jobs ran (redone windows of checkpointed jobs included); a
+   pacer hold, a mid-prefill checkpoint (the batch prompts and the fourth
+   outgrow the pool) and a prefix hit whose suffix went through windows;
+   K2 and K3 held against the counts; the pool back to its pins, 0 after a
+   flush.  Printed: one window's wall and busy time at the longest prompt's
+   end (eager and as its graph), one chunk of the 16 slots over their
+   128-block tables with every key valid timed and split as in 7b, the
+   short streams' largest and median chunk gap during the long prefills
+   beside those before, and the long prompts' TTFT.
 8. decode step: where one llama decode step's time goes at B in {1, 8,
    32}, T=576: wall time against busy time, split into K2, GEMMs, other,
    eager and as a graph of the step.
@@ -202,6 +220,15 @@ result line:
    ``gen_chunk`` graphs of the prefixed shapes), and with a 59-token
    ``PROMPT_PREFIX``, whole and through the loop; the gates of 7d, every
    token teacher-forced over the prefix's ids and the prompt.
+8a''. serve gpt2 chunked: GPT-2 small on the contiguous loop (4 slots as
+   wide as the position table, 1024, so K2 decodes over 1024 keys) with
+   ``PREFILL_CHUNK=64`` and ``PREFIX_CACHE=1``: five prompts of 300-900
+   bytes at once (every other sampled and seeded), then one that opens
+   with the longest one's first 300 bytes (a hit seeded into its job's
+   state).  Gates: every token teacher-forced; each request's tokens
+   against the whole-generation service's (``serve gpt2``'s engine, alone),
+   identical or parted first inside the tie margin; the windows equal the
+   jobs'; K2 held against the counts.
 8b. decode step gpt2: one GPT-2 step at B in {1, 8, 16} over a 320-key
    cache, greedy against sampled, eager and as graphs, split into K2,
    GEMMs and the rest; the sampler alone as graphs on [B, 50257] logits
@@ -292,7 +319,8 @@ HEADS, HEAD_DIM, LAYERS = 12, 64, 12
 # PAGE tokens under PAGED_KV.
 LLAMA_HEADS, LLAMA_KV_HEADS, PAGE = 32, 4, 16
 # Depth of the llama services cut to stay within the run's time limit (the
-# int8 services and the contiguous loop; the rest keep TinyLlama's 22).
+# int8 services, the loop phases but the chunked one, the classes and the
+# prefix phases; the whole service and the chunked phase keep TinyLlama's 22).
 CUT_LAYERS = 6
 # The llama the rehearsal serves on the CPU.
 REHEARSAL_LLAMA = dict(vocab_size=512, d_model=256, num_heads=4, num_kv_heads=2,
@@ -3012,6 +3040,439 @@ def phase_serve_prefix(label: str, overrides: dict, params, ref_model, steps, re
                                        ("paged_decode_attention", k3)) if v}, gdrive, engine, loop
 
 
+def chunked_llama(rehearsal: bool) -> dict:
+    """``serve llama chunked``'s knobs over the paged loop's (16 slots,
+    16-token blocks, a 64-token budget): batch buckets 1 and 16, the prefix
+    cache, 128-token windows (64 in the rehearsal's smaller buckets)."""
+    return {"BATCH_BUCKETS": "1,16", "PREFIX_CACHE": "1",
+            "PREFILL_CHUNK": "64" if rehearsal else "128"}
+
+
+def chunked_gpt2(rehearsal: bool) -> dict:
+    """``serve gpt2 chunked``'s knobs over the GPT-2 prefix phases' (4
+    contiguous slots, batch buckets 1 and 4): a queue for the fifth
+    stream, the prefix cache, 64-token windows (32 in the rehearsal)."""
+    return {"MAX_STREAM_QUEUE": "8", "PREFIX_CACHE": "1",
+            "PREFILL_CHUNK": "32" if rehearsal else "64"}
+
+
+def chunked_items(rehearsal: bool):
+    """Traffic of ``serve llama chunked``: 8 short interactive prompts of
+    40-60 bytes; three long prompts of 1760-1800 bytes (byte tokenizer: a
+    token a byte), one interactive and two batch-class, the last sampled and
+    seeded; and a fourth long one that opens with the first long prompt's
+    first 400 bytes (a prefix the cache holds once that prompt went live).
+    The two batch prompts and the fourth prefill together once the
+    interactive one decodes: their blocks alone pass the default pool of 16
+    worst-case streams of a 256 bucket (320 blocks of 16) less the pins.
+    Returns (shorts, [(item, class)] of the three, (item, class) of the
+    fourth)."""
+    import numpy as np
+
+    from mlmicroservicetemplate_tpu_torch.models.registry import RawItem
+
+    rng = np.random.default_rng(17)
+    shorts = [RawItem(text=prefix_text(rng, int(rng.integers(40, 61)))) for _ in range(8)]
+    sizes, share = ((800, 790, 780, 770), 100) if rehearsal else ((1800, 1780, 1760, 1740), 400)
+    texts = [prefix_text(rng, n) for n in sizes]
+    texts[3] = texts[0][:share] + texts[3][share:]
+    longs = [(RawItem(text=texts[0]), "interactive"), (RawItem(text=texts[1]), "batch"),
+             (RawItem(text=texts[2], temperature=0.8, top_k=40, seed=5150), "batch")]
+    return shorts, longs, (RawItem(text=texts[3]), "batch")
+
+
+async def drive_chunked(batcher, bundle, shorts, longs, hit):
+    """Open the short streams; once each has 3 chunks (or ended), open the
+    three long ones; once the first long one has its first chunk (it went
+    live and donated its prefix), open the fourth.  Returns ([{feats,
+    tokens, kind, klass, submitted, chunk arrival times}], wall s)."""
+    import numpy as np
+
+    await batcher.start()
+
+    async def one(item, klass, kind, seen=None, after=1):
+        f = dict(bundle.preprocess(item), priority=klass)
+        rec = {"feats": f, "kind": kind, "klass": klass, "t_submit": time.monotonic(),
+               "t_chunks": [], "toks": []}
+        try:
+            async for chunk in batcher.submit_stream(f):
+                rec["t_chunks"].append(time.monotonic())
+                rec["toks"].extend(int(x) for x in chunk)
+                if seen is not None and len(rec["t_chunks"]) >= after:
+                    seen.set()
+        finally:
+            if seen is not None:
+                seen.set()
+        rec["toks"] = np.array(rec["toks"], np.int32)
+        return rec
+
+    try:
+        t0 = time.monotonic()
+        seen = [asyncio.Event() for _ in shorts]
+        tasks = [asyncio.create_task(one(it, "interactive", "short", ev, 3))
+                 for it, ev in zip(shorts, seen)]
+        for ev in seen:
+            await ev.wait()
+        first_live = asyncio.Event()
+        tasks.append(asyncio.create_task(one(*longs[0], "long", first_live)))
+        tasks += [asyncio.create_task(one(it, klass, "long")) for it, klass in longs[1:]]
+        await first_live.wait()
+        tasks.append(asyncio.create_task(one(*hit, "hit")))
+        recs = await asyncio.gather(*tasks)
+        wall = time.monotonic() - t0
+    finally:
+        await batcher.stop()
+    return recs, wall
+
+
+def chunk_gaps(recs) -> dict:
+    """The short streams' gaps between consecutive chunks: the largest (and
+    median) of those that overlap a long prompt's prefill (from the first
+    long submit to the last long first chunk) and of those that end before
+    the first long submit."""
+    import numpy as np
+
+    longs = [r for r in recs if r["kind"] != "short"]
+    lo = min(r["t_submit"] for r in longs)
+    hi = max(r["t_chunks"][0] for r in longs if r["t_chunks"])
+    during, before = [], []
+    for r in recs:
+        if r["kind"] != "short":
+            continue
+        for a, b in zip(r["t_chunks"], r["t_chunks"][1:]):
+            if b <= lo:
+                before.append(b - a)
+            elif a < hi:
+                during.append(b - a)
+    out = {}
+    for name, gaps in (("without_prefill", before), ("during_prefill", during)):
+        g = np.array(gaps) * 1e3
+        out[f"gaps_{name}"] = int(g.size)
+        out[f"max_gap_{name}_ms"] = float(g.max()) if g.size else None
+        out[f"p50_gap_{name}_ms"] = float(np.median(g)) if g.size else None
+    return out
+
+
+def time_window(engine, loop, length: int) -> dict:
+    """One paged prefill window at the end of a ``length``-token prompt (its
+    queries over every earlier key), eager and through the window's graph,
+    over blocks taken for the purpose: CUDA-event wall, busy time split."""
+    import numpy as np
+    import torch
+
+    from mlmicroservicetemplate_tpu_torch.engine.kv_blocks import StreamBlocks
+
+    c = loop.prefill_chunk
+    start = (length - 1) // c * c
+    sb = StreamBlocks(loop.pool, loop.block_size)
+    sb.ensure(length)
+    row = np.full(loop.nb_max, loop.pool.num_blocks, np.int32)
+    row[: len(sb.ids)] = sb.ids
+    try:
+        with torch.inference_mode(), engine._lock:
+            entry = loop.window_graph()
+            ids, mask, s_start, target = entry.inputs
+            ids.fill_(7)
+            mask.zero_()
+            mask[:, : length - start] = 1
+            s_start.fill_(start)
+            target.copy_(torch.from_numpy(row))
+
+            def eager():
+                engine.bundle.paged_prefill_chunk(loop._state, target, ids, mask, s_start)
+
+            out = eager_and_graph(eager, entry.replay, 5, K3_KERNEL, "k3")
+            target.fill_(loop.pool.num_blocks)
+    finally:
+        sb.release()
+    return {"window_tokens": c, "keys": length, **out}
+
+
+def phase_serve_chunked(label: str, overrides: dict, params, ref_model, rehearsal: bool,
+                        card_line: str):
+    """A decoder service with ``PREFILL_CHUNK`` over the paged loop with the
+    prefix cache, driven by ``chunked_items`` (``drive_chunked``).  Gates:
+    every token teacher-forced against an f32 forward of the whole prompt;
+    ``prefill_chunks_total`` (and the loop's count) equal to the windows
+    the jobs ran (each job that went live ceil((L - P) / C) from its
+    prefix P, each job checkpointed mid-prefill the windows it ran); at
+    least one pacer hold, one mid-prefill checkpoint and one prefix hit
+    whose suffix went through windows; every long prompt live (a stream
+    checkpointed after it went live prefills again); K2 and K3 held
+    against the counts;
+    every stream released; the pool back to its pins, then 0 after a
+    flush.  Printed: one window's device ms, one chunk of the 16 slots over
+    tables of the position budget with every key valid (``time_chunk``),
+    the short streams' largest chunk gap during the long prefills beside
+    the one before them, the long prompts' TTFT.  Returns (bundle, {kernel: launches}, graph
+    accounting)."""
+    import math
+
+    import numpy as np
+
+    from mlmicroservicetemplate_tpu_torch.ops.attention import decode_attention
+    from mlmicroservicetemplate_tpu_torch.ops.paged_attention import paged_decode_attention
+    from mlmicroservicetemplate_tpu_torch.serve import build_service
+    from mlmicroservicetemplate_tpu_torch.utils import metrics
+
+    cfg, bundle, engine, batcher = build_service(overrides, params=params)
+    loop = batcher._cdl
+    warm_s = batcher.warm_engine() + batcher.warm_streams()
+    c = loop.prefill_chunk
+    went_live, checkpointed = [], []
+    handoff, checkpoint = loop._handoff_job, loop._checkpoint_job
+
+    def on_handoff(job):
+        rec = (job.L, job.p_len)
+        live = handoff(job)
+        if live:
+            went_live.append(rec)
+        return live
+
+    def on_checkpoint(job):
+        checkpointed.append((job.consumed, job.p_len))
+        return checkpoint(job)
+
+    loop._handoff_job, loop._checkpoint_job = on_handoff, on_checkpoint
+    kernels = (decode_attention, paged_decode_attention)
+    for k in kernels:
+        k.launches = 0
+    engine.decode_steps = engine.dispatches = 0
+    loop.prefill_dispatches = loop.chunk_dispatches = loop.decode_steps = 0
+    loop.prefill_chunk_dispatches = 0
+    counter = metrics.PREFILL_CHUNKS.labels(bundle.name)
+    windows_metric0 = counter._value.get()
+    marks = graph_marks(bundle)
+    shorts, longs, hit = chunked_items(rehearsal)
+    recs, wall = asyncio.run(drive_chunked(batcher, bundle, shorts, longs, hit))
+    k2, k3 = (k.launches for k in kernels)
+    gdrive = graph_drive(bundle, marks, {"decode_attention": k2, "paged_decode_attention": k3})
+    held_launches(label, bundle, engine, loop, k2, k3, rehearsal)
+    implied = (sum(math.ceil((n - p) / c) for n, p in went_live)
+               + sum(math.ceil((done - p) / c) for done, p in checkpointed))
+    counts = dict(prefill_chunks=loop.prefill_chunk_dispatches,
+                  prefill_chunks_metric=counter._value.get() - windows_metric0,
+                  implied_windows=implied, jobs_live=sorted(went_live),
+                  checkpoints=sorted(checkpointed), pacer_holds=loop._pacer.holds,
+                  prefix_cache=engine.prefix_cache.stats())
+    long_lengths = sorted(int(r["feats"]["length"]) for r in recs if r["kind"] != "short")
+    if counts["prefill_chunks"] != implied or counts["prefill_chunks_metric"] != implied:
+        raise AssertionError(f"{label}: windows {counts}")
+    if sorted({n for n, _ in went_live}) != long_lengths:
+        raise AssertionError(f"{label}: jobs live {went_live}, long prompts {long_lengths}")
+    # A hit's suffix went through windows: it went live, or was checkpointed
+    # (a dry pool evicts the pins first, so its resume may miss) after
+    # windows past its prefix.
+    counts["hits_through_windows"] = (sum(p > 0 for _, p in went_live)
+                                      + sum(0 < p < done for done, p in checkpointed))
+    if not (counts["pacer_holds"] >= 1 and checkpointed and counts["hits_through_windows"]):
+        raise AssertionError(f"{label}: want a pacer hold, a mid-prefill checkpoint and a "
+                             f"prefix hit through windows: {counts}")
+    if loop.admitted != 0:
+        raise AssertionError(f"{label}: {loop.admitted} streams never released")
+    cache = engine.prefix_cache
+    pins = {b for e in cache._entries.values() for b in e.block_ids}
+    pool = {"pinned_blocks": len(pins), "used_after_streams": engine.kv_pool.used_blocks,
+            "num_blocks": engine.kv_pool.num_blocks, "table_blocks": loop.nb_max}
+    if engine.kv_pool.used_blocks != len(pins):
+        raise AssertionError(f"{label}: the pool holds {engine.kv_pool.used_blocks} blocks, "
+                             f"the pins {len(pins)}")
+    window = None if rehearsal else time_window(engine, loop, long_lengths[-1])
+    chunk = None if rehearsal else time_chunk(engine, loop)
+    pool["flushed_pins"] = cache.flush()
+    pool["used_after_flush"] = engine.kv_pool.used_blocks
+    if pool["used_after_flush"] != 0:
+        raise AssertionError(f"{label}: {pool['used_after_flush']} blocks after a flush")
+    feats = [r["feats"] for r in recs]
+    rows = [r["toks"] for r in recs]
+    for f, row in zip(feats, rows):
+        if not 1 <= len(row) <= engine.max_decode_len:
+            raise AssertionError(f"{label}: a stream of {len(row)} tokens")
+    check = teacher_forced(bundle, ref_model, feats, rows, engine.max_decode_len)
+    ttft = {f"ttft_{r['kind']}_{int(r['feats']['length'])}_ms":
+            (r["t_chunks"][0] - r["t_submit"]) * 1e3 for r in recs if r["kind"] != "short"}
+    out = dict(
+        device=str(bundle.device), card=card_line, layers=bundle.cfg.num_layers,
+        paged=engine.paged_kv, slots=loop.n_slots, streams=len(recs), prefill_chunk=c,
+        budget=loop.prefill_budget, max_prompt=loop.max_prompt, long_prompts=long_lengths,
+        **counts, pool=pool, admission_waves=loop.prefill_dispatches,
+        slot_decode_steps=loop.decode_steps, decode_attention_launches=k2,
+        paged_decode_attention_launches=k3, kv_growth_stalls=loop.kv_growth_stalls,
+        warm_s=warm_s, **ttft, **chunk_gaps(recs), window=window, chunk=chunk,
+        generated_tok_per_s=check["tokens_checked"] / wall, graph_modes=engine.graph_modes(),
+        **check)
+    emit(label, **out)
+    return bundle, {k: v for k, v in (("decode_attention", k2),
+                                       ("paged_decode_attention", k3)) if v}, gdrive
+
+
+def gpt2_chunked_items(rehearsal: bool):
+    """Traffic of ``serve gpt2 chunked``: five prompts of 300-900 bytes (a
+    token a byte), every other sampled and seeded, then a sixth that opens
+    with the longest one's first 300 bytes (a prefix hit)."""
+    import numpy as np
+
+    from mlmicroservicetemplate_tpu_torch.models.registry import RawItem
+
+    rng = np.random.default_rng(19)
+    sizes, share = ((100, 130, 160, 190, 220, 200), 80) if rehearsal else (
+        (300, 450, 600, 750, 900, 800), 300)
+    texts = [prefix_text(rng, n) for n in sizes]
+    texts[5] = texts[4][:share] + texts[5][share:]
+    items = [RawItem(text=t, **(dict(temperature=0.9, top_k=40, seed=6100 + i) if i % 2 else {}))
+             for i, t in enumerate(texts)]
+    return items[:5], items[5]
+
+
+async def drive_gpt2_chunked(batcher, bundle, wave, hit):
+    """The wave at once, then the hit once the longest prompt of the wave
+    has its first chunk.  Returns ([(feats, tokens)], wall s)."""
+    import numpy as np
+
+    await batcher.start()
+
+    async def one(item, seen=None):
+        f = bundle.preprocess(item)
+        toks = []
+        try:
+            async for chunk in batcher.submit_stream(f):
+                toks.extend(int(x) for x in chunk)
+                if seen is not None:
+                    seen.set()
+        finally:
+            if seen is not None:
+                seen.set()
+        return f, np.array(toks, np.int32)
+
+    try:
+        t0 = time.monotonic()
+        live = asyncio.Event()
+        tasks = [asyncio.create_task(one(it, live if i == len(wave) - 1 else None))
+                 for i, it in enumerate(wave)]
+        await live.wait()
+        tasks.append(asyncio.create_task(one(hit)))
+        done = await asyncio.gather(*tasks)
+        wall = time.monotonic() - t0
+    finally:
+        await batcher.stop()
+    return done, wall
+
+
+def whole_vs_chunked(bundle, ref_model, f: dict, chunked, whole, tol: float) -> dict:
+    """A request's tokens through the chunked loop against the whole
+    generation's: identical, or parted first at a step where both picks
+    are ones the f32 reference (teacher-forced on the common tokens)
+    admits within the run's tolerance, the teacher-forced check's margin:
+    greedy, each within ``tol`` of the best logit; sampled, each within the
+    tolerance of the best perturbed score among the tokens surely inside
+    the filter and no further than it below the filter's cutoff (bf16 at
+    other shapes may flip a near tie, or a token's side of the top-k /
+    top-p cutoff)."""
+    import torch
+
+    a, b = [int(t) for t in whole], [int(t) for t in chunked]
+    n = min(len(a), len(b))
+    at = next((j for j in range(n) if a[j] != b[j]), None)
+    out = {"tokens": n, "identical": at is None and len(a) == len(b)}
+    if at is None:
+        if len(a) != len(b):
+            raise AssertionError(f"whole {len(a)} tokens, chunked {len(b)}")
+        return out
+    picks = torch.tensor([a[at], b[at]])
+    with torch.inference_mode():
+        ref = forced_logits(bundle, ref_model, f, b[: at + 1])[-1:]
+        if float(f.get("temperature", 0.0)) > 0:
+            score, raw, cutoff, tol_s = perturbed(ref, f, torch.tensor([at]), tol)
+            sure = raw[0] >= cutoff[0] + tol_s
+            sure |= raw[0] == raw[0].max()
+            best = score[0][sure].max()
+            gaps = torch.maximum(best - score[0][picks], cutoff[0] - raw[0][picks])
+            limit = tol_s
+        else:
+            gaps, limit = ref[0].max() - ref[0][picks], tol
+    out.update(parted_at=at, whole_gap=float(gaps[0]), chunked_gap=float(gaps[1]), tol=limit)
+    if float(gaps.max()) > limit:
+        raise AssertionError(f"the chunked loop and the whole generation part: {out}")
+    return out
+
+
+def phase_serve_gpt2_chunked(label: str, overrides: dict, params, ref_model, whole_engine,
+                             rehearsal: bool, card_line: str):
+    """GPT-2 with ``PREFILL_CHUNK`` on the contiguous loop with the prefix
+    cache (``gpt2_chunked_items``): every token teacher-forced, and each
+    request's tokens against the whole-generation service's
+    (``whole_vs_chunked``); the windows equal the jobs' (a hit's from its
+    prefix); one prefix hit whose suffix went through windows; K2 held
+    against the counts (R = 1, over a slot as wide as the position table).
+    Returns (bundle, {kernel: launches}, graph accounting)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from mlmicroservicetemplate_tpu_torch.ops.attention import decode_attention
+    from mlmicroservicetemplate_tpu_torch.ops.paged_attention import paged_decode_attention
+    from mlmicroservicetemplate_tpu_torch.serve import build_service
+
+    cfg, bundle, engine, batcher = build_service(overrides, params=params)
+    loop = batcher._cdl
+    warm_s = batcher.warm_engine() + batcher.warm_streams()
+    c = loop.prefill_chunk
+    went_live = []
+    handoff = loop._handoff_job
+
+    def on_handoff(job):
+        rec = (job.L, job.p_len)
+        live = handoff(job)
+        if live:
+            went_live.append(rec)
+        return live
+
+    loop._handoff_job = on_handoff
+    kernels = (decode_attention, paged_decode_attention)
+    for k in kernels:
+        k.launches = 0
+    engine.decode_steps = engine.dispatches = 0
+    loop.prefill_dispatches = loop.chunk_dispatches = loop.decode_steps = 0
+    loop.prefill_chunk_dispatches = 0
+    marks = graph_marks(bundle)
+    wave, hit = gpt2_chunked_items(rehearsal)
+    done, wall = asyncio.run(drive_gpt2_chunked(batcher, bundle, wave, hit))
+    k2, k3 = (k.launches for k in kernels)
+    gdrive = graph_drive(bundle, marks, {"decode_attention": k2, "paged_decode_attention": k3})
+    held_launches(label, bundle, engine, loop, k2, k3, rehearsal)
+    implied = sum(math.ceil((n - p) / c) for n, p in went_live)
+    if loop.prefill_chunk_dispatches != implied or not any(p > 0 for _, p in went_live):
+        raise AssertionError(f"{label}: windows {loop.prefill_chunk_dispatches}, jobs "
+                             f"{went_live}")
+    if loop.admitted != 0:
+        raise AssertionError(f"{label}: {loop.admitted} streams never released")
+    feats = [f for f, _ in done]
+    rows = [r for _, r in done]
+    check = teacher_forced(bundle, ref_model, feats, rows, engine.max_decode_len)
+    versus = []
+    with torch.inference_mode():
+        for f, row in zip(feats, rows):
+            budget = min(int(f.get("max_tokens", engine.max_decode_len)), engine.max_decode_len)
+            whole = [int(t) for t in whole_engine.run_batch([dict(f)])[0][:budget]]
+            if bundle.cfg.eos_id in whole:
+                whole = whole[: whole.index(bundle.cfg.eos_id) + 1]
+            versus.append(whole_vs_chunked(bundle, ref_model, f, row, whole, check["tol"]))
+    out = dict(
+        device=str(bundle.device), card=card_line, layers=bundle.cfg.num_layers,
+        paged=engine.paged_kv, slots=loop.n_slots, slot_width=loop._slot_width(),
+        prefill_chunk=c,
+        prompts=[int(f["length"]) for f in feats], jobs_live=sorted(went_live),
+        prefill_chunks=loop.prefill_chunk_dispatches, prefix_cache=engine.prefix_cache.stats(),
+        admission_waves=loop.prefill_dispatches, slot_decode_steps=loop.decode_steps,
+        decode_attention_launches=k2, warm_s=warm_s, whole_vs_chunked=versus,
+        identical=sum(v["identical"] for v in versus),
+        generated_tok_per_s=check["tokens_checked"] / wall, graph_modes=engine.graph_modes(),
+        **check)
+    emit(label, **out)
+    return bundle, {"decode_attention": k2} if k2 else {}, gdrive
+
+
 def time_chunk(engine, loop) -> dict:
     """One chunk of the loop's slot state, eager and through its graph,
     timed (CUDA events) and split by kernel (``torch.profiler``): every
@@ -3550,15 +4011,78 @@ def perf_main() -> int:
     return 0
 
 
+def chunked_main() -> int:
+    """``--chunked``: the build and the two chunked-prefill phases with
+    their graphs phases (``serve llama chunked`` at 22 layers, ``serve gpt2
+    chunked`` against GPT-2's whole-generation service); prints no result
+    line."""
+    import torch
+
+    from mlmicroservicetemplate_tpu_torch.convert.jax_params import (
+        gpt_params_from_jax,
+        llama_params_from_jax,
+    )
+    from mlmicroservicetemplate_tpu_torch.models import gpt as gpt_mod
+    from mlmicroservicetemplate_tpu_torch.models import llama as llama_mod
+    from mlmicroservicetemplate_tpu_torch.serve import build_service
+
+    phase = "env"
+    try:
+        if not torch.cuda.is_available():
+            print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
+            return 1
+        card_line = card()
+        emit(phase, card=card_line, torch=torch.__version__, cuda=torch.version.cuda,
+             mode="chunked")
+        phase = "build"
+        phase_build()
+        phase = "serve llama chunked"
+        lcfg = llama_mod.LlamaConfig(eos_id=1, pad_id=0)
+        params = llama_pytree(lcfg, seed=0)
+        ref = llama_mod.build_model(lcfg, llama_params_from_jax(params, lcfg),
+                                    torch.device("cuda"), torch.float32)
+        svc = phase_serve_chunked(
+            phase, {"MODEL_NAME": "llama", "DEVICE": "cuda", "SEQ_BUCKETS": "32,64,128,256",
+                    "PAGED_KV": "1", "KV_BLOCK_SIZE": str(PAGE), "MAX_STREAMS": "16",
+                    "MAX_DECODE_LEN": "64", **chunked_llama(False)},
+            params, ref, False, card_line)
+        phase = "graphs llama chunked"
+        phase_graphs("llama chunked", svc[0], **svc[2])
+        release(svc[0])
+        del ref, params, svc
+        phase = "serve gpt2 chunked"
+        gcfg = gpt_mod.GPTConfig(eos_id=1, pad_id=0)
+        gparams = gpt2_pytree(gcfg, seed=0)
+        gref = gpt_mod.build_model(gcfg, gpt_params_from_jax(gparams, gcfg),
+                                   torch.device("cuda"), torch.float32)
+        gpt2 = {"MODEL_NAME": "gpt2", "DEVICE": "cuda", "SEQ_BUCKETS": "32,64,128,256"}
+        whole = build_service({**gpt2, "BATCH_BUCKETS": "1,2,4,8,16"}, params=gparams)[2]
+        svc = phase_serve_gpt2_chunked(
+            phase, {**gpt2, "BATCH_BUCKETS": "1,4", "MAX_STREAMS": "4", "MAX_DECODE_LEN": "64",
+                    **chunked_gpt2(False)},
+            gparams, gref, whole, False, card_line)
+        phase = "graphs gpt2 chunked"
+        phase_graphs("gpt2 chunked", svc[0], **svc[2])
+    except Exception as e:
+        traceback.print_exc()
+        emit(phase, ok=False, error=f"{type(e).__name__}: {e}")
+        return 1
+    return 0
+
+
 def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
                     help="skip build and kernel phases; serve on the CPU at small buckets")
     ap.add_argument("--perf", action="store_true",
                     help="only the decode kernels' phases, the decode step and a loop chunk")
+    ap.add_argument("--chunked", action="store_true",
+                    help="only the build and the two chunked-prefill phases")
     args = ap.parse_args(argv)
     if args.perf:
         return perf_main()
+    if args.chunked:
+        return chunked_main()
     rehearsal = args.cpu_rehearsal
     t_start = time.monotonic()
     phase = "env"
@@ -3738,25 +4262,38 @@ def main(argv: list[str]) -> int:
         # holds 16 pins of half the largest bucket.  The pool is the default
         # (16 worst-case streams): a pool small enough to stall growth would
         # evict every pin before it checkpointed a stream.
+        # At CUT_LAYERS layers for the run's time (the chunked phase below
+        # drives the paged loop at full depth and times its chunk).
         phase = "serve llama prefix"
         s_max = 64 if rehearsal else 256
-        token_bytes = 2 * lcfg.num_layers * lcfg.num_kv_heads * lcfg.head_dim * (
+        token_bytes = 2 * ccfg.num_layers * ccfg.num_kv_heads * ccfg.head_dim * (
             4 if rehearsal else 2)
         prefix = phase_serve_prefix(
-            phase, {**llama_overrides, **stream, "BATCH_BUCKETS": "1,16",
+            phase, {**cut_overrides, **stream, "BATCH_BUCKETS": "1,16",
                     "MAX_STREAM_QUEUE": "16", "PREEMPT": "1", "PREFIX_CACHE": "1",
                     "PREFIX_CACHE_MB": str(16 * (s_max // 2) * token_bytes / 1e6)},
-            params, ref_model, prefix_steps(s_max, 4, 8, 16, 4), rehearsal, card_line,
+            cparams, cref, prefix_steps(s_max, 4, 8, 16, 4), rehearsal, card_line,
             gates=("prefix_hit_waves", "peak_shared_blocks", "peak_shared_in_chunk",
                    "preemptions") + (() if rehearsal else ("recast_hits",)))
         k2_streams += prefix[1].get("decode_attention", 0)
         k3_streams += prefix[1].get("paged_decode_attention", 0)
-        if not rehearsal:
-            emit("chunk llama prefix", layers=lcfg.num_layers, card=card_line,
-                 **time_chunk(prefix[3], prefix[4]))
         phase = "graphs llama prefix"
         graphs("llama prefix", prefix[0], prefix[2])
         release(prefix[0])
+        # Chunked prefill at full depth over the paged loop with the prefix
+        # cache: short interactive streams decode while three long prompts
+        # (past the largest bucket) prefill in windows between their chunks,
+        # a fourth hits the first one's prefix, and the default pool (16
+        # worst-case streams of the largest bucket) runs dry mid-prefill.
+        phase = "serve llama chunked"
+        chunked = phase_serve_chunked(phase, {**llama_overrides, **stream,
+                                              **chunked_llama(rehearsal)},
+                                      params, ref_model, rehearsal, card_line)
+        k2_streams += chunked[1].get("decode_attention", 0)
+        k3_streams += chunked[1].get("paged_decode_attention", 0)
+        phase = "graphs llama chunked"
+        graphs("llama chunked", chunked[0], chunked[2])
+        release(chunked[0])
         del ref_model, params, cref, cparams
         if rehearsal:
             emit("decode step", skipped="cpu rehearsal: no card to profile")
@@ -3822,6 +4359,16 @@ def main(argv: list[str]) -> int:
             phase = f"graphs {label}"
             graphs(label, svc[0], svc[2])
             release(svc[0])
+        # Chunked prefill on the contiguous loop (slots as wide as the
+        # position table) with the prefix cache: prompts of 300-900 tokens,
+        # one a hit seeded into its job's state; against the whole service.
+        phase = "serve gpt2 chunked"
+        svc = phase_serve_gpt2_chunked(phase, {**prefix_base, **chunked_gpt2(rehearsal)},
+                                       gparams, gref, gpt2_svc[2], rehearsal, card_line)
+        gpt2_k2 += svc[1].get("decode_attention", 0)
+        phase = "graphs gpt2 chunked"
+        graphs("gpt2 chunked", svc[0], svc[2])
+        release(svc[0])
         del gref, gparams
         if rehearsal:
             emit("decode step gpt2", skipped="cpu rehearsal: no card to profile")

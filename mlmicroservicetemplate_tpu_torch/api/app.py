@@ -469,7 +469,10 @@ async def _open_stream(request: web.Request, feats: dict, item: RawItem, t0: flo
         await stream_iter.aclose()
         metrics.REQUESTS.labels(bundle.name, "500").inc()
         raise
-    metrics.TTFT.labels(bundle.name).observe(time.monotonic() - t0)
+    # The admission mode: the loop stamps "chunked" on the feats it was
+    # handed when it prefilled the prompt in windows.
+    metrics.TTFT.labels(bundle.name, feats.get("prefill_mode", "monolithic")).observe(
+        time.monotonic() - t0)
 
     async def chained():
         yield first
@@ -841,6 +844,16 @@ async def handle_status(request: web.Request) -> web.Response:
             body["chat_template_warnings"] = warnings
         if getattr(engine, "prefix_cache", None) is not None:
             body["prefix_cache"] = engine.prefix_cache.stats()
+        cdl = app[K_BATCHER]._cdl
+        if cdl is not None and cdl.prefill_chunk:
+            body["prefill"] = {
+                "chunk": cdl.prefill_chunk,
+                "budget": cdl.prefill_budget,
+                "max_prompt": cdl.max_prompt,
+                "chunks_total": cdl.prefill_chunk_dispatches,
+                "backlog_tokens": cdl.prefill_backlog_tokens(),
+                "stall_seconds": round(cdl.prefill_stall_s, 4),
+            }
     return web.json_response(body)
 
 

@@ -58,6 +58,12 @@ not ported), the same functions run eagerly; ``graph_modes`` says which.
   ``start_prefixed`` graph per (B, P, S) whose static inputs include the
   per-layer prefix K/V; warmup captures that grid (``prefixed_grid`` x
   ``prefixed_batches``).
+- Chunked prefill (``PREFILL_CHUNK``): refused at build for a family
+  without windows, with ``PROMPT_PREFIX``, and off the block grid under
+  ``PAGED_KV``, with the reference's messages; ``chunked_prefill_applies``
+  is the routing rule the loop and the ledger share, and a chunked
+  prompt's ``kv_blocks_estimate`` charges its first window up front and
+  grows its worst case off its exact length.
 """
 
 from __future__ import annotations
@@ -164,9 +170,11 @@ class InferenceEngine:
         self.kv_block_size = int(cfg.kv_block_size)
         self.kv_pool = None
         if self.paged_kv:
-            # The most blocks one stream can hold (the loop's table width),
-            # and a pool of KV_BUDGET_MB's blocks, else of MAX_STREAMS of
-            # those worst cases.
+            # A worst-case stream's blocks (the largest seq bucket and the
+            # decode budget), and a pool of KV_BUDGET_MB's blocks, else of
+            # MAX_STREAMS of those.  The loop's table width is its own: under
+            # PREFILL_CHUNK it covers the position budget, while the pool
+            # stays sized off the largest bucket, as in the reference.
             self.kv_blocks_per_stream = blocks_for(
                 max(self.seq_buckets) + self.max_decode_len, self.kv_block_size)
             bb = self.kv_block_bytes()
@@ -174,6 +182,31 @@ class InferenceEngine:
             num = (max(1, budget // bb) if budget
                    else cfg.max_streams * self.kv_blocks_per_stream)
             self.kv_pool = BlockPool(num, bb)
+        # Chunked prefill (PREFILL_CHUNK > 0, the decoder families): the
+        # continuous loop prefills long prompts in windows between its
+        # decode chunks (``engine/streams.py``).  Refused here, before
+        # readiness, where it would silently serve monolithic.
+        self.prefill_chunk = int(getattr(cfg, "prefill_chunk", 0) or 0)
+        if self.prefill_chunk:
+            if bundle.prefill_chunk is None:
+                raise ValueError(
+                    f"PREFILL_CHUNK is not supported for {bundle.name!r} "
+                    "(chunked prefill covers the decoder families: gpt2, llama)"
+                )
+            if self.global_prefix_len() > 0:
+                raise ValueError(
+                    "PREFILL_CHUNK and PROMPT_PREFIX are mutually "
+                    "exclusive (the global prefix overlay is seeded "
+                    "by init_decode_state, which chunked prefill "
+                    "bypasses); use PREFIX_CACHE=1"
+                )
+            if self.paged_kv and self.prefill_chunk % self.kv_block_size:
+                raise ValueError(
+                    f"PREFILL_CHUNK={self.prefill_chunk} must be a "
+                    f"multiple of KV_BLOCK_SIZE={self.kv_block_size} "
+                    "(block-aligned window boundaries keep per-chunk "
+                    "block growth exact)"
+                )
         # The per-request prefix cache (PREFIX_CACHE=1, decoder families
         # without a global PROMPT_PREFIX).  Paged, its entries are pins on
         # the pool's blocks, and an eviction frees the pin's refs.
@@ -235,16 +268,33 @@ class InferenceEngine:
             total += s * per_tok
         return int(total)
 
+    def chunked_prefill_applies(self, length: int) -> bool:
+        """Whether the continuous loop prefills a prompt of ``length``
+        tokens in PREFILL_CHUNK windows: chunked prefill is on and the
+        prompt is longer than one window or than the largest seq bucket.
+        One predicate for the loop's routing and the admission ledger, so
+        the two cannot drift."""
+        return bool(self.prefill_chunk) and (
+            int(length) > self.prefill_chunk or int(length) > max(self.seq_buckets))
+
     def kv_blocks_estimate(self, feats: dict) -> tuple[int, int]:
         """Paged mode's exact ledger for one stream: (initial, worst)
         blocks.  ``initial`` covers the prompt bucket and the first chunk,
         what admission charges up front; ``worst`` the request's own decode
-        budget in whole chunks, the bound past which it can never fit."""
-        s = bucket_for(max(int(feats.get("length", 0) or 0), 1), self.seq_buckets,
-                       self.seq_multiple)
+        budget in whole chunks, the bound past which it can never fit.
+        A chunked prompt's ``initial`` is its first window (the loop grows
+        the rest window by window, and a stream checkpointed mid-prefill
+        reserves the same again) and its ``worst`` grows off its exact
+        length, not the padded bucket."""
+        length = max(int(feats.get("length", 0) or 0), 1)
+        s = bucket_for(length, self.seq_buckets, self.seq_multiple)
         budget = -(-self.budget_for(feats) // self.chunk_tokens) * self.chunk_tokens
-        initial = blocks_for(s + self.chunk_tokens, self.kv_block_size)
-        worst = blocks_for(s + budget, self.kv_block_size)
+        if self.chunked_prefill_applies(length):
+            initial = blocks_for(min(length, self.prefill_chunk), self.kv_block_size)
+            worst = blocks_for(length + budget, self.kv_block_size)
+        else:
+            initial = blocks_for(s + self.chunk_tokens, self.kv_block_size)
+            worst = blocks_for(s + budget, self.kv_block_size)
         return initial, max(initial, worst)
 
     def _collate_images(self, feats: list[dict]) -> tuple[torch.Tensor, int]:
@@ -268,7 +318,9 @@ class InferenceEngine:
         kinds = {KIND_IMAGE: ("forward_images",), KIND_TEXT: ("forward",),
                  KIND_SEQ2SEQ: ("start", "gen_chunk",
                                 "loop_chunk_paged" if self.paged_kv else "loop_chunk")
-                 + (("start_prefixed",) if self.prefix_cache is not None else ())}
+                 + (("start_prefixed",) if self.prefix_cache is not None else ())
+                 + (("prefill_window_paged" if self.paged_kv else "prefill_window",)
+                    if self.prefill_chunk else ())}
         mode = "graph" if self.graphs is not None else f"eager: {self.eager_reason}"
         return {kind: mode for kind in kinds.get(self.bundle.kind, ())}
 

@@ -120,9 +120,37 @@ blocks shared at once (``peak_shared_blocks``) and the most blocks two or
 more live rows of one dispatched chunk's tables name
 (``peak_shared_in_chunk``).
 
-Not ported (``ROADMAP.md``): chunked prefill, the host and disk KV tiers,
-decode windows, pipelining deeper than one chunk, speculative decoding in
-the loop, fleets, the journal and the supervisor.
+Chunked prefill (``PREFILL_CHUNK``), as in the reference: a prompt longer
+than one window or than the largest seq bucket does not join a wave; it
+becomes a job (``_PrefillJob``) whose windows of ``PREFILL_CHUNK`` tokens
+dispatch after each iteration's decode chunk (``_advance_prefill``), so a
+long prompt delays the live streams by at most ``PREFILL_BUDGET`` tokens
+of window compute a chunk boundary (unbounded when nothing decodes).  The
+jobs go by class, deadline and arrival, and ``PrefillPacer`` holds
+batch-class windows while interactive streams decode (one every
+``CLASS_WEIGHT`` boundaries gets through).  The knob lifts the loop's
+prompt ceiling to ``PREFILL_MAX_PROMPT``, else the position budget: the
+contiguous slots and the paged tables widen to it (the pool stays sized
+off the largest bucket).  Contiguous, a job fills a detached state of the
+slot width (a prefix hit's rows seeded into it first) and its handoff is
+the usual slot insert; paged, its windows write straight into the pools
+through its own table row, which grows a window at a time (a hit adopts
+the donor's blocks first), and its handoff writes the slot's row fields
+only.  The row goes live at ``write_idx = L - 1`` and step 0, so the next
+chunk re-embeds the last prompt token as ``init_decode_state`` arranges,
+and its tokens are the monolithic path's.  A job whose window finds the
+pool dry (after the pins are reclaimed) is checkpointed: it holds no block
+while it waits and reserves its first window again.  A job whose deadline
+passes before its first token sheds with 504.  On the card each window
+replays one graph of its width (``prefill_window``, over a detached state
+of its own that a job's state is copied into and out of, or
+``prefill_window_paged``, over the loop's pools and a static table row),
+captured with the loop's chunk while every slot is dead.
+
+Not ported (``ROADMAP.md``): the host and disk KV tiers, decode windows,
+pipelining deeper than one chunk, speculative decoding in the loop,
+fleets, the journal and the supervisor (the reference's ``prefill_chunk``
+fault site with them).
 """
 
 from __future__ import annotations
@@ -138,7 +166,7 @@ from typing import Any, AsyncIterator
 import numpy as np
 import torch
 
-from ..models.gpt import GPTState, PagedState, state_tensors
+from ..models.gpt import GPTState, PagedState, copy_state, state_tensors
 from ..models.sampling import greedy_params
 from ..ops.paged_attention import gather_pages, scatter_pages
 from ..runtime import compile_cache
@@ -148,11 +176,12 @@ from ..scheduler.policy import (
     INTERACTIVE,
     DeadlineExceededError,
     DeadlineQueue,
+    PrefillPacer,
     QueueFullError,
 )
 from ..utils import metrics, tracing
 from .engine import bucket_for
-from .kv_blocks import OutOfBlocks, PagedPrefix, StreamBlocks
+from .kv_blocks import OutOfBlocks, PagedPrefix, StreamBlocks, blocks_for
 
 log = logging.getLogger(__name__)
 
@@ -222,6 +251,29 @@ class _Stream:
             self.cancelled.set()
 
 
+class _PrefillJob:
+    """One stream mid-chunked-prefill: the prompt positions consumed so far
+    and the KV carried between windows, a detached B=1 state (contiguous)
+    or the stream's own blocks and table row (paged, where the windows
+    write straight into the pools).  ``ready`` once the prompt is
+    exhausted: the job then waits only for a free slot."""
+
+    __slots__ = ("st", "ids", "L", "p_len", "consumed", "state", "sb", "table_row", "ready",
+                 "t_in")
+
+    def __init__(self, st: _Stream, ids: np.ndarray, length: int):
+        self.st = st
+        self.ids = ids
+        self.L = length
+        self.p_len = 0  # a prefix hit's seeded or adopted positions
+        self.consumed = 0  # absolute positions prefilled so far
+        self.state = None  # contiguous: the detached state
+        self.sb: StreamBlocks | None = None  # paged: the blocks being grown
+        self.table_row: np.ndarray | None = None  # paged: sentinel-padded
+        self.ready = False
+        self.t_in = time.monotonic()
+
+
 class _HostCopy:
     """Device-to-host copies started without waiting (pinned buffers and
     an event on the card; copies on the CPU).  ``get`` waits for them."""
@@ -256,10 +308,29 @@ class ContinuousDecodeLoop:
         self.chunk = engine.chunk_tokens
         self.paged = engine.paged_kv
         self.prefix_cache = getattr(engine, "prefix_cache", None)
+        # Chunked prefill (PREFILL_CHUNK): long prompts prefill as windows
+        # between the decode chunks, and the prompt ceiling rises past the
+        # largest bucket, to PREFILL_MAX_PROMPT or the position budget (the
+        # slots and tables are sized for it below).
+        self.prefill_chunk = int(getattr(engine, "prefill_chunk", 0) or 0)
+        self._prefilling: list[_PrefillJob] = []
+        self.prefill_chunk_dispatches = 0
+        self.prefill_stall_s = 0.0
+        self.prefill_checkpoints = 0
+        self.prefill_budget = 0
+        self._pacer: PrefillPacer | None = None
+        if self.prefill_chunk:
+            cap = engine.bundle.cfg.max_position - engine.max_decode_len
+            want = int(getattr(cfg, "prefill_max_prompt", 0) or 0) or cap
+            self.max_prompt = max(self.max_prompt, min(want, cap))
+            self.prefill_budget = int(getattr(cfg, "prefill_budget", 0) or 0) or self.prefill_chunk
+            self._pacer = PrefillPacer(weight=int(getattr(cfg, "class_weight", 4)))
         if self.paged:
             self.block_size = engine.kv_block_size
             self.pool = engine.kv_pool
-            self.nb_max = engine.kv_blocks_per_stream
+            # The table covers the prompt ceiling and the decode budget (the
+            # pool is sized off the largest bucket by the engine).
+            self.nb_max = blocks_for(self.max_prompt + engine.max_decode_len, self.block_size)
             # A free slot's row names the sentinel id (== pool size).
             self._table = np.full((self.n_slots, self.nb_max), self.pool.num_blocks, np.int32)
             self._dispatched_steps: dict[int, int] = {}
@@ -461,7 +532,8 @@ class ContinuousDecodeLoop:
                 # Streams whose deadline passed in the queue shed as 504s
                 # before any admission work.
                 self._expire_queued()
-                if not self.active and not self._inflight and self.queue.qsize() == 0:
+                if (not self.active and not self._inflight and not self._prefilling
+                        and self.queue.qsize() == 0):
                     st = self.queue.pop(timeout=0.05, fits=self.admission.fits)
                     if st is None:
                         continue
@@ -475,7 +547,9 @@ class ContinuousDecodeLoop:
                         and self.queue.waiting(INTERACTIVE) > 0):
                     self._preempt_for_interactive()
                 # Chunk boundary: admit everything that fits, as one wave.
-                while len(wave) + len(self.active) < self.n_slots:
+                # Jobs mid-prefill count against the slots: each needs one at
+                # its handoff.
+                while len(wave) + len(self.active) + len(self._prefilling) < self.n_slots:
                     st = self.queue.pop_nowait(fits=self.admission.fits)
                     if st is None:
                         break
@@ -512,6 +586,8 @@ class ContinuousDecodeLoop:
                         if self._pending_admissions:
                             self._admit_complete(self._pending_admissions)
                             self._pending_admissions = []
+                # Prefill windows queue behind the live chunk on the device.
+                advanced = self._advance_prefill()
                 # One chunk in flight: route the older one once the next
                 # is dispatched, or everything when nothing was.
                 if len(self._inflight) > 1:
@@ -519,7 +595,7 @@ class ContinuousDecodeLoop:
                 elif self._inflight and not dispatched:
                     while self._inflight:
                         self._deliver_oldest()
-                elif not dispatched and not wave and not self.active:
+                elif not dispatched and not wave and not self.active and not advanced:
                     # Waiters whose reservation does not fit yet, nothing in
                     # flight: poll, do not spin.
                     time.sleep(0.01)
@@ -527,6 +603,7 @@ class ContinuousDecodeLoop:
                 log.exception("decode loop iteration failed")
                 self._fail_all(e)
         closed = StreamClosedError("server stopping")
+        self._fail_jobs(closed)
         for st in self.queue.drain_all():
             self._finish(st, closed)
         for slot in list(self.active):
@@ -543,6 +620,7 @@ class ContinuousDecodeLoop:
         for st in self._pending_wave:
             self._finish(st, exc)
         self._pending_wave = []
+        self._fail_jobs(exc)
         for slot in list(self.active):
             self.active[slot].emit(exc)
             self._free_slot(slot)
@@ -550,6 +628,13 @@ class ContinuousDecodeLoop:
         self._state_stale = True  # reset at the next admission
         if self.paged and self.prefix_cache is not None:
             self.prefix_cache.flush()  # the pins name blocks of the pools to be reset
+
+    def _fail_jobs(self, exc: BaseException) -> None:
+        """End every stream mid-prefill with ``exc``, its KV returned."""
+        for job in self._prefilling:
+            self._drop_job(job)
+            self._finish(job.st, exc)
+        self._prefilling = []
 
     def _reserve(self, st: _Stream) -> None:
         tr = tracing.tracer()
@@ -742,6 +827,16 @@ class ContinuousDecodeLoop:
                 ))
             else:
                 ok.append(st)
+        if self.prefill_chunk:
+            # A prompt longer than one window, or than the largest bucket,
+            # becomes a job; shorter ones keep the wave (one fused start).
+            rest = []
+            for st in ok:
+                if eng.chunked_prefill_applies(int(st.feats["length"])):
+                    self._start_prefill_job(st)
+                else:
+                    rest.append(st)
+            ok = rest
         if not ok:
             return []
         if self.prefix_cache is not None:
@@ -900,6 +995,340 @@ class ContinuousDecodeLoop:
             if self.paged and self.prefix_cache is not None:
                 self._donate_paged(st)
 
+    # -- chunked prefill (PREFILL_CHUNK) ----------------------------------
+
+    def prefill_backlog_tokens(self) -> int:
+        """Prompt tokens admitted but not yet prefilled (read from other
+        threads as a snapshot)."""
+        return sum(max(0, j.L - j.consumed) for j in list(self._prefilling))
+
+    def _chunked_prefix_usable(self, length: int):
+        """``usable(P)`` of a chunked prompt's prefix-cache match: prefix,
+        prompt and decode fit the position table; paged, the prefix is
+        whole blocks and leaves a token; contiguous, the prefix and the
+        suffix's bucket fit the prompt ceiling."""
+        eng = self.engine
+        max_pos = int(eng.bundle.cfg.max_position)
+
+        def usable(p_len: int) -> bool:
+            if length + eng.max_decode_len > max_pos:
+                return False
+            if self.paged:
+                return p_len % self.block_size == 0 and p_len < length
+            s_suf = bucket_for(max(length - p_len, 1), eng.seq_buckets, eng.seq_multiple)
+            return p_len + s_suf <= self.max_prompt
+
+        return usable
+
+    def _start_prefill_job(self, st: _Stream) -> None:
+        """Make one chunked-prefill job and queue it for ``_advance_prefill``
+        (the caller holds the engine's lock): match the prefix cache once (a
+        paged hit adopts the donor's blocks, a contiguous one seeds its rows
+        into the job's state) and set up the job's table row or its
+        detached state."""
+        eng = self.engine
+        length = int(st.feats["length"])
+        ids = np.asarray(st.feats["input_ids"], np.int32)[:length]
+        # The TTFT's admission-mode label: the API reads it off the feats it
+        # submitted.
+        st.feats["prefill_mode"] = "chunked"
+        self._pending_wave = [s for s in self._pending_wave if s is not st]
+        job = _PrefillJob(st, ids, length)
+        try:
+            if self.paged and (self._state is None or self._state_stale):
+                # The windows write into the pools (and a reset flushes the
+                # pins of the pools it clears, before the match below).
+                self._build_empty_state()
+            p_len, prefix = 0, None
+            if self.prefix_cache is not None:
+                m = self.prefix_cache.match(ids, length,
+                                            usable=self._chunked_prefix_usable(length))
+                if m is not None and (not self.paged or isinstance(m[1], PagedPrefix)):
+                    p_len, prefix = m
+                    if st.started and st.skip == 0:
+                        self.recast_hits += 1
+            job.p_len = job.consumed = p_len
+            if self.paged:
+                st.s_lo, st.s_base = p_len, length  # growth runs off the exact length
+                job.sb = StreamBlocks(self.pool, self.block_size)
+                if p_len:
+                    job.sb.adopt(list(prefix.block_ids))
+                job.table_row = np.full(self.nb_max, self.pool.num_blocks, np.int32)
+                job.table_row[: len(job.sb.ids)] = job.sb.ids
+            else:
+                job.state = eng.bundle.empty_state(1, self.max_prompt, eng.max_decode_len)
+                if p_len:
+                    self._seed_prefix_state(job.state, prefix, p_len)
+        except Exception as e:
+            self._drop_job(job)
+            self._finish(st, e)
+            return
+        self._prefilling.append(job)
+
+    @staticmethod
+    def _seed_prefix_state(state, prefix: dict, p_len: int) -> None:
+        """A contiguous prefix-cache hit's rows into positions ``[0, p_len)``
+        of a job's fresh state, marked valid: the suffix then prefills in
+        windows from ``p_len``."""
+        for caches, entries in ((state.cache_k, prefix["k"]), (state.cache_v, prefix["v"])):
+            for c, e in zip(caches, entries):
+                for ci, ei in (zip(c, e) if isinstance(c, tuple) else [(c, e)]):
+                    ci[:, :p_len] = ei.to(ci.dtype)
+        state.key_valid[:, :p_len] = 1
+
+    def _drop_job(self, job: _PrefillJob) -> None:
+        """Return a job's KV: its blocks, or its detached state."""
+        if job.sb is not None:
+            job.sb.release()
+            job.sb = None
+            self.admission.note_pool()
+        job.state = None
+
+    def _checkpoint_job(self, job: _PrefillJob) -> None:
+        """Checkpoint a job whose window found the pool dry: nothing was
+        delivered, so its resume is a clean restart through admission; it
+        holds no block while it waits and reserves its first window
+        again."""
+        self._drop_job(job)
+        self.prefill_checkpoints += 1
+        self.admission.release(job.st)
+        self._requeue_preempted(job.st)
+
+    def _dispatch_prefill_window(self, job: _PrefillJob) -> None:
+        """One window of ``job``: the prompt slice padded to the window,
+        (paged) the table grown to cover it, the window dispatched.  Raises
+        ``OutOfBlocks`` (the caller checkpoints the job) or the dispatch's
+        own failure."""
+        eng = self.engine
+        c = self.prefill_chunk
+        start = job.consumed
+        end = min(start + c, job.L)
+        with tracing.span("prefill_window", cat="engine", rid=job.st.rid, start=start, end=end,
+                          total=job.L, paged=self.paged):
+            ids = np.zeros((1, c), np.int32)
+            mask = np.zeros((1, c), np.int32)
+            ids[0, : end - start] = job.ids[start:end]
+            mask[0, : end - start] = 1
+            if self.paged:
+                self._reclaim_then_ensure(job.sb, end)
+                job.table_row[: len(job.sb.ids)] = job.sb.ids
+            with eng._lock:
+                self._window_call(job, ids, mask, start)
+            if self.paged:
+                self.admission.note_pool()
+            job.consumed = end
+            self.prefill_chunk_dispatches += 1
+            metrics.PREFILL_CHUNKS.labels(self.model).inc()
+
+    def _window_call(self, job: _PrefillJob, ids: np.ndarray, mask: np.ndarray,
+                     start: int) -> None:
+        """One window of ``job`` (the caller holds the engine's lock): run
+        eagerly, or on the card its graph replayed over the window's static
+        inputs, the job's state copied into the graph's detached state and
+        back (contiguous) or its table row into the static row (paged)."""
+        eng = self.engine
+        dev = eng.device
+        if eng.graphs is None:
+            args = (torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev),
+                    torch.tensor(start, device=dev))
+            if self.paged:
+                eng.bundle.paged_prefill_chunk(self._state, torch.from_numpy(job.table_row).to(dev),
+                                               *args)
+            else:
+                eng.bundle.prefill_chunk(job.state, *args)
+            return
+        entry = self.window_graph()
+        s_ids, s_mask, s_start, target = entry.inputs
+        s_ids.copy_(torch.from_numpy(ids), non_blocking=True)
+        s_mask.copy_(torch.from_numpy(mask), non_blocking=True)
+        s_start.fill_(start)
+        if self.paged:
+            target.copy_(torch.from_numpy(job.table_row), non_blocking=True)
+            entry.replay()
+            return
+        copy_state(target, job.state)
+        entry.replay()
+        copy_state(job.state, target)
+
+    def window_graph(self) -> compile_cache.GraphEntry:
+        """The graph of one prefill window of this loop (captured on the
+        first call): paged over its pools, contiguous over a detached state
+        of the slot width, the graph's own."""
+        eng = self.engine
+        kind = "prefill_window_paged" if self.paged else "prefill_window"
+        width = self.nb_max if self.paged else self._slot_width()
+        descriptor = (self.prefill_chunk, width,
+                      str(eng.bundle.policy.compute_dtype).split(".")[-1],
+                      "int8" if eng.bundle.cfg.kv_quant else "none",
+                      compile_cache.fingerprint(self))
+        return eng.graphs.get(eng.bundle, kind, descriptor, eng.placement_key,
+                              self._make_window)
+
+    def _make_window(self):
+        """Static window inputs (ids and mask [1, C], the 0-d start, and a
+        sentinel table row [T] or a detached state) and the window over
+        them.  A paged capture's eager run writes through a table of
+        sentinels into the scratch block only."""
+        eng = self.engine
+        dev = eng.device
+        c = self.prefill_chunk
+        ids = torch.zeros((1, c), dtype=torch.int32, device=dev)
+        mask = torch.zeros((1, c), dtype=torch.int32, device=dev)
+        start = torch.zeros((), dtype=torch.long, device=dev)
+        if self.paged:
+            state = self._state
+            target = torch.full((self.nb_max,), self.pool.num_blocks, dtype=torch.int32,
+                                device=dev)
+
+            def window():
+                eng.bundle.paged_prefill_chunk(state, target, ids, mask, start)
+        else:
+            target = eng.bundle.empty_state(1, self.max_prompt, eng.max_decode_len)
+
+            def window():
+                eng.bundle.prefill_chunk(target, ids, mask, start)
+        return window, (ids, mask, start, target), dev
+
+    def _handoff_job(self, job: _PrefillJob) -> bool:
+        """The prompt is exhausted: put the stream live in a free slot.  The
+        row starts at step 0 with ``write_idx = L - 1`` and the last prompt
+        token as its last token (the next chunk's first step embeds it
+        again, as ``init_decode_state`` arranges), sampling from its pinned
+        seed's first draw.  Contiguous, the job's state goes in by the slot
+        insert; paged, its KV is in its blocks already and only the row's
+        fields are written.  Then the stream donates to the prefix cache as
+        a wave row does.  Returns True when the stream went live."""
+        st = job.st
+        eng = self.engine
+        if st.cancelled.is_set():
+            self._drop_job(job)
+            self._release(st)
+            return False
+        slot = None
+        try:
+            with eng._lock:
+                if self._state is None or self._state_stale:
+                    self._build_empty_state()
+                slot = self.free.pop()
+                sp, _ = eng._collate_sample([st.feats], 1)
+                dev = eng.device
+                fields = dict(
+                    write_idx=torch.full((1,), job.L - 1, dtype=torch.long, device=dev),
+                    pos=torch.zeros(1, dtype=torch.long, device=dev),
+                    last_token=torch.full((1,), int(job.ids[-1]), dtype=torch.long, device=dev),
+                    done=torch.zeros(1, dtype=torch.bool, device=dev), sample=sp.to(dev))
+                if self.paged:
+                    key_valid = torch.zeros(1, self.nb_max * self.block_size, dtype=torch.int32,
+                                            device=dev)
+                    key_valid[:, : job.L] = 1
+                    tokens = torch.full((1, eng.max_decode_len), eng.bundle.cfg.pad_id,
+                                        dtype=torch.int32, device=dev)
+                    self._insert_rows(GPTState(cache_k=[], cache_v=[], key_valid=key_valid,
+                                               tokens=tokens, **fields), slot, 0)
+                    st.blocks, job.sb = job.sb, None
+                    self._table[slot] = job.table_row
+                    self._dispatched_steps[slot] = 0
+                else:
+                    for name, value in fields.items():
+                        setattr(job.state, name, value)
+                    self._insert(job.state, slot, 0)
+        except Exception as e:
+            if slot is not None:
+                self.free.append(slot)
+            self._drop_job(job)
+            self._finish(st, e)
+            return False
+        self.active[slot] = st
+        if float(st.feats.get("temperature", 0.0)) > 0.0:
+            self.sampled_slots.add(slot)
+        if self.paged:
+            self.admission.note_pool()
+            if self.prefix_cache is not None:
+                self.peak_shared_blocks = max(self.peak_shared_blocks,
+                                              self.pool.stats()["shared"])
+                self._donate_paged(st)
+        elif self.prefix_cache is not None:
+            with eng._lock:
+                self._donate(job.state, 0, job.ids, job.L, job.p_len or None)
+        self._drop_job(job)
+        return True
+
+    def _advance_prefill(self) -> bool:
+        """Dispatch prefill windows behind this iteration's decode chunk: the
+        live streams wait for at most ``prefill_budget`` window tokens a
+        chunk boundary, an idle loop backfills the whole backlog, and the
+        pacer holds batch-class windows while interactive streams decode.
+        Cancelled jobs drop first, a job past its deadline sheds (504),
+        ready jobs take the free slots, and a job whose window finds the
+        pool dry is checkpointed.  Returns True when a window dispatched or
+        a job went live."""
+        if not self.prefill_chunk:
+            return False
+        if not self._prefilling:
+            metrics.PREFILL_BACKLOG.labels(self.model).set(0)
+            return False
+        advanced = False
+        t0 = time.monotonic()
+        live = bool(self.active)
+        interactive_live = any(s.klass == INTERACTIVE and not s.cancelled.is_set()
+                               for s in self.active.values())
+        for job in list(self._prefilling):
+            st = job.st
+            if st.cancelled.is_set():
+                self._prefilling.remove(job)
+                self._drop_job(job)
+                self._release(st)
+            elif not st.started and st.deadline is not None and time.monotonic() > st.deadline:
+                self._prefilling.remove(job)
+                self._drop_job(job)
+                metrics.SHED.labels(self.model, "deadline").inc()
+                self._finish(st, DeadlineExceededError(
+                    "deadline passed mid-prefill; stream shed before its first token"))
+        for job in [j for j in self._prefilling if j.ready]:
+            if not self.free:
+                break
+            self._prefilling.remove(job)
+            advanced = self._handoff_job(job) or advanced
+        budget = self.prefill_budget if live else 1 << 30
+        jobs = sorted((j for j in self._prefilling if not j.ready),
+                      key=lambda j: (j.st.klass != INTERACTIVE,
+                                     j.st.deadline if j.st.deadline is not None
+                                     else float("inf"), j.t_in))
+        for job in jobs:
+            if budget <= 0:
+                break
+            if live and not self._pacer.allow(job.st.klass, interactive_live):
+                continue
+            try:
+                self._dispatch_prefill_window(job)
+            except OutOfBlocks:
+                self._note_stall()
+                self._prefilling.remove(job)
+                self._checkpoint_job(job)
+                continue
+            except Exception as e:
+                log.exception("prefill window failed")
+                self._prefilling.remove(job)
+                self._drop_job(job)
+                self._finish(job.st, e)
+                continue
+            advanced = True
+            budget -= self.prefill_chunk
+            if job.consumed >= job.L:
+                job.ready = True
+                if self.free:
+                    self._prefilling.remove(job)
+                    self._handoff_job(job)
+        if live and advanced:
+            # The host time this boundary spent on prefill while streams
+            # were live (the windows run behind the chunk on the device, so
+            # this bounds the stall, it does not equal it).
+            dt = time.monotonic() - t0
+            self.prefill_stall_s += dt
+            metrics.PREFILL_STALL.labels(self.model).inc(dt)
+        metrics.PREFILL_BACKLOG.labels(self.model).set(self.prefill_backlog_tokens())
+        return advanced
+
     def _build_empty_state(self) -> None:
         """Every slot dead: zeroed caches (paged: ``num_blocks`` pool
         blocks plus the scratch block, int8 scale pools of ones) and
@@ -967,12 +1396,15 @@ class ContinuousDecodeLoop:
         return eng.global_prefix_len() + self.max_prompt + eng.max_decode_len
 
     def _capture_chunks(self) -> None:
-        """On the card, capture the chunk's graphs (argmax and sampled) over
-        the freshly allocated slot state, every slot dead."""
+        """On the card, capture the chunk's graphs (argmax and sampled) and
+        the prefill window's over the freshly allocated slot state, every
+        slot dead."""
         if self.engine.graphs is not None:
             try:
                 self.chunk_graph(False)
                 self.chunk_graph(True)
+                if self.prefill_chunk:
+                    self.window_graph()
             except BaseException:
                 self._state = None  # the next admission allocates and captures anew
                 raise

@@ -18,6 +18,12 @@ Counterpart of the JAX package's ``models/gpt.py``:
   ``ops.paged_attention.paged_decode_attention`` (paged): the hand-written
   CUDA kernels on the card, at one query head per KV head, and their plain
   versions on the CPU.
+- Chunked prefill's windows, shared by the decoder families where they
+  can be (``empty_state``, ``window_mask``, ``window_write``, the paged
+  window's destinations and gather), and GPT-2's ``prefill_chunk`` and
+  ``paged_prefill_chunk``: one prompt window at a time into a detached
+  state or straight into the pool blocks, its queries over every key
+  already written (plain PyTorch, as the reference's XLA ops).
 
 As in the port's llama, the caches are preallocated at their full width
 and every decode step writes its K/V row, the key-validity bit, its token,
@@ -39,7 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import decode_attention
-from ..ops.paged_attention import paged_decode_attention
+from ..ops.paged_attention import gather_pages, paged_decode_attention
 from .bert import LayerNorm, Linear
 from .common import embed, kv_quantize, lm_head_logits, merge_heads, mha_attention, split_heads
 from .sampling import SampleParams, greedy_params, select_token
@@ -590,6 +596,195 @@ def greedy_generate(model: GPTModel, input_ids, attention_mask, max_len: int,
     state = init_decode_state(model, input_ids, attention_mask, max_len, dtype)
     state, _ = generate_chunk(model, state, max_len)
     return state.tokens
+
+
+# ---------------------------------------------------------------------------
+# chunked prefill (PREFILL_CHUNK; engine/streams.py drives the windows)
+#
+# A window is ``C`` prompt tokens at absolute positions ``[start, start +
+# C)``.  ``start`` is a 0-d device tensor, not a Python int, so one captured
+# graph of a width serves every window; the mask and the write positions
+# are built from it on the device.  The windows update the state in place.
+
+
+def empty_caches(cfg, batch: int, total: int, dtype: torch.dtype, device):
+    """Zeroed caches ``[batch, total, KVH, D]`` per layer (under the int8
+    cache, int8 payloads with scales of ones, as ``prefill_caches`` lays
+    them out); returns (cache_k, cache_v)."""
+    shape = (batch, total, cfg.num_kv_heads, cfg.head_dim)
+
+    def entry():
+        if cfg.kv_quant:
+            return (torch.zeros(shape, dtype=torch.int8, device=device),
+                    torch.ones(shape[:3] + (1,), dtype=dtype, device=device))
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return ([entry() for _ in range(cfg.num_layers)],
+            [entry() for _ in range(cfg.num_layers)])
+
+
+def empty_state(cfg, batch: int, s_total: int, max_len: int, dtype: torch.dtype,
+                device) -> GPTState:
+    """All-zero decode state for a chunked prefill of either decoder
+    family: caches ``s_total`` prompt positions plus the decode budget
+    wide, every row born done and greedy.  ``prefill_chunk`` fills the
+    prompt region window by window; the loop flips the row live
+    (``write_idx``, ``last_token``, ``done``, ``sample``) once the prompt
+    is exhausted, and the state is then what ``init_decode_state`` gives
+    for the same prompt."""
+    total = s_total + max_len
+    cache_k, cache_v = empty_caches(cfg, batch, total, dtype, device)
+
+    def zeros():
+        return torch.zeros(batch, dtype=torch.long, device=device)
+
+    return GPTState(
+        cache_k=cache_k, cache_v=cache_v,
+        key_valid=torch.zeros(batch, total, dtype=torch.int32, device=device),
+        write_idx=zeros(), pos=zeros(), last_token=zeros(),
+        done=torch.ones(batch, dtype=torch.bool, device=device),
+        tokens=torch.full((batch, max_len), cfg.pad_id, dtype=torch.int32, device=device),
+        sample=greedy_params(batch, device))
+
+
+def empty_decode_state(model: GPTModel, batch: int, s_total: int, max_len: int,
+                       dtype: torch.dtype = torch.float32) -> GPTState:
+    """``empty_state`` on the model's device."""
+    return empty_state(model.cfg, batch, s_total, max_len, dtype, model.wte.weight.device)
+
+
+def window_positions(start: torch.Tensor, c: int) -> torch.Tensor:
+    """The window's absolute positions ``start + [0, C)`` ([C], long)."""
+    return start.long() + torch.arange(c, device=start.device)
+
+
+def window_mask(base_valid: torch.Tensor, chunk_mask: torch.Tensor,
+                start: torch.Tensor) -> torch.Tensor:
+    """[B, 1, C, total] attention mask of one prefill window: every key
+    already valid (``base_valid`` [B, total] bool: earlier windows, or a
+    seeded or adopted prefix) and the causal, pad-gated part of the window
+    itself."""
+    b, c = chunk_mask.shape
+    total = base_valid.shape[1]
+    off = torch.arange(total, device=base_valid.device)[None, :] - start.long()  # [1, total]
+    in_win = (off >= 0) & (off < c)
+    wvalid = chunk_mask.gather(1, off.clamp(0, c - 1).expand(b, total)) != 0
+    win_keys = in_win & wvalid  # [B, total]
+    causal = off[:, None, :] <= torch.arange(c, device=off.device)[None, :, None]  # [1, C, total]
+    return (base_valid[:, None, :] | (win_keys[:, None, :] & causal))[:, None]
+
+
+def window_write(dst: torch.Tensor, new: torch.Tensor, start: torch.Tensor) -> None:
+    """Write a window's rows ``new`` [B, C, ...] at positions ``start + [0,
+    C)`` of ``dst`` [B, total, ...], in place; positions past ``total``
+    drop, as the reference's ``mode="drop"`` scatter does.  Each dropped
+    position is aimed at ``total - 1`` with the value that position gets
+    anyway (the window's own row there, or its current one when the window
+    lies wholly past it), so the writes agree whatever their order, and
+    nothing is copied from the host."""
+    c = new.shape[1]
+    total = dst.shape[1]
+    idx = window_positions(start, c).clamp(max=total - 1)
+    src = idx - start.long()  # the window row each position takes
+    take = (src >= 0).view((1, c) + (1,) * (new.dim() - 2))
+    val = torch.where(take, new[:, src.clamp(min=0)].to(dst.dtype), dst[:, idx])
+    dst[:, idx] = val
+
+
+def window_write_kv(cache, new: torch.Tensor, start: torch.Tensor, dtype) -> None:
+    """``window_write`` of one layer's K (or V) rows into a dense cache or
+    an (int8 payload, scale) pair, with the cache's per-token, per-head
+    quantization."""
+    if isinstance(cache, tuple):
+        q8, sc = kv_quantize(new)
+        window_write(cache[0], q8, start)
+        window_write(cache[1], sc.to(dtype), start)
+    else:
+        window_write(cache, new, start)
+
+
+def prefill_chunk(model: GPTModel, state: GPTState, chunk_ids: torch.Tensor,
+                  chunk_mask: torch.Tensor, start: torch.Tensor) -> GPTState:
+    """Consume one prompt window ``chunk_ids`` [B, C] (right-padded,
+    ``chunk_mask`` [B, C]) at absolute position ``start`` into the state,
+    in place: K/V written at their positions, ``key_valid`` extended, each
+    window query attending to the whole prefilled prefix and its causal
+    window context, so the windows together are the monolithic prompt
+    forward.  The last window's pad tail writes junk K/V past the prompt,
+    as the monolithic prefill's bucket padding does: ``key_valid`` never
+    marks it, and decode overwrites each position in the step that
+    validates it."""
+    cfg = model.cfg
+    dtype = cache_dtype(state)
+    c = chunk_ids.shape[1]
+    pos_w = window_positions(start, c)
+    x = embed(model.wte.weight, chunk_ids, dtype)
+    x = x + embed(model.wpe.weight, pos_w.clamp(max=cfg.max_position - 1), dtype)[None]
+    mask = window_mask(state.key_valid != 0, chunk_mask, start)
+    for li, layer in enumerate(model.layers):
+        q, k1, v1 = layer.qkv(x)
+        window_write_kv(state.cache_k[li], k1, start, dtype)
+        window_write_kv(state.cache_v[li], v1, start, dtype)
+        x = layer.finish(x, mha_attention(q, state.cache_k[li], state.cache_v[li], mask=mask))
+    window_write(state.key_valid, chunk_mask.to(state.key_valid.dtype), start)
+    return state
+
+
+def window_dest(table_row: torch.Tensor, start: torch.Tensor, c: int, bs: int,
+                nb: int) -> torch.Tensor:
+    """Flat pool indices of a window's positions through one stream's
+    table row [T]: positions past the table or at a sentinel entry go to
+    the scratch block ``nb``, which no valid key reads (the reference drops
+    those writes)."""
+    pos_w = window_positions(start, c)
+    return paged_dest(table_row.view(1, -1).expand(c, -1), pos_w, bs, nb)
+
+
+def paged_window_kv(ck, cv, table_row: torch.Tensor, bs: int):
+    """The dense [1, T * BS, KVH, D] view of one stream's blocks of a
+    layer's pools (int8 payload and scale pairs gathered apart), for a
+    window's attention."""
+    rows = table_row.view(1, -1)
+
+    def one(pool):
+        return tuple(gather_pages(p, rows, bs) for p in pool) if isinstance(pool, tuple) \
+            else gather_pages(pool, rows, bs)
+
+    return one(ck), one(cv)
+
+
+def paged_window_base(table_row: torch.Tensor, bs: int, start: torch.Tensor) -> torch.Tensor:
+    """[1, T * BS] keys valid before a window: the prompt is contiguous
+    from 0 (an adopted prefix included), so exactly the positions below
+    ``start``."""
+    total = table_row.numel() * bs
+    return (torch.arange(total, device=table_row.device) < start.long())[None]
+
+
+def paged_prefill_chunk(model: GPTModel, state: PagedState, table_row: torch.Tensor,
+                        chunk_ids: torch.Tensor, chunk_mask: torch.Tensor,
+                        start: torch.Tensor, block_size: int) -> PagedState:
+    """One prompt window [1, C] written straight into the stream's pool
+    blocks through its table row [T] (PREFILL_CHUNK x PAGED_KV), in place;
+    attention reads a dense gather of the stream's own blocks (adopted
+    prefix blocks included, so a prefix-cache hit prefills its suffix in
+    windows with no KV copy).  Only the pools change: the slot rows belong
+    to other streams, and this stream's row fields land at its handoff."""
+    cfg = model.cfg
+    dtype = cache_dtype(state)
+    c = chunk_ids.shape[1]
+    pos_w = window_positions(start, c)
+    x = embed(model.wte.weight, chunk_ids, dtype)
+    x = x + embed(model.wpe.weight, pos_w.clamp(max=cfg.max_position - 1), dtype)[None]
+    mask = window_mask(paged_window_base(table_row, block_size, start), chunk_mask, start)
+    dest = window_dest(table_row, start, c, block_size, state.num_blocks)
+    for li, layer in enumerate(model.layers):
+        q, k1, v1 = layer.qkv(x)
+        paged_write_kv(state.cache_k[li], dest, k1[0], dtype)
+        paged_write_kv(state.cache_v[li], dest, v1[0], dtype)
+        kd, vd = paged_window_kv(state.cache_k[li], state.cache_v[li], table_row, block_size)
+        x = layer.finish(x, mha_attention(q, kd, vd, mask=mask))
+    return state
 
 
 # ---------------------------------------------------------------------------

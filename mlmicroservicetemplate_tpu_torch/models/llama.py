@@ -27,6 +27,12 @@ Paged decode (``PAGED_KV=1``, the continuous loop) keeps the same step
 over a ``gpt.PagedState``: K/V rows go to a block pool through a block
 table, and the single query attends through
 ``ops.paged_attention.paged_decode_attention``.
+
+Chunked prefill (``PREFILL_CHUNK``): ``prefill_chunk`` and
+``paged_prefill_chunk`` take ``gpt.py``'s window contract at GQA width and
+with the int8 cache; a one-token window attends through the decode kernel
+(K2), as the reference's ``_cache_attention`` takes its decode kernel for
+a single query.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ from .common import (
     lm_head_logits,
     merge_heads,
     mha_attention,
+    mha_attention_kv8,
     repeat_kv,
     rmsnorm,
     split_heads,
@@ -52,16 +59,26 @@ from .common import (
 from .gpt import (
     GPTState,
     PagedState,
+    cache_attention,
     cache_dtype,
     contiguous_io,
+    empty_state,
     finish_step,
     paged_io,
+    paged_window_base,
+    paged_window_kv,
+    paged_write_kv,
     prefill_caches,
     prefix_len,
     prefix_mask,
     prefix_pairs,
     prefixed_state,
     run_steps,
+    window_dest,
+    window_mask,
+    window_positions,
+    window_write,
+    window_write_kv,
     with_prefix,
     write_at,
 )
@@ -404,6 +421,89 @@ def greedy_generate(model: LlamaModel, input_ids, attention_mask, max_len: int,
     state = init_decode_state(model, input_ids, attention_mask, max_len, dtype)
     state, _ = generate_chunk(model, state, max_len)
     return state.tokens
+
+
+# ---------------------------------------------------------------------------
+# chunked prefill (PREFILL_CHUNK): gpt.py's window contract at GQA width,
+# with the int8 KV cache
+
+
+def empty_decode_state(model: LlamaModel, batch: int, s_total: int, max_len: int,
+                       dtype: torch.dtype = torch.float32) -> GPTState:
+    """All-zero decode state for a chunked prefill (``gpt.empty_state``);
+    under ``kv_quant`` int8 payloads with scales of ones, the layout the
+    monolithic prefill writes, so the windows' quantized rows land where
+    its rows would."""
+    return empty_state(model.cfg, batch, s_total, max_len, dtype, model.embed.weight.device)
+
+
+def _window_rope(cfg: LlamaConfig, pos_w: torch.Tensor, dtype):
+    """cos / sin [1, C, 1, D] at the window's positions (clamped to the
+    position table)."""
+    cos, sin = rope_tables(cfg, pos_w.clamp(max=cfg.max_position - 1), dtype)
+    return cos[None, :, None, :], sin[None, :, None, :]
+
+
+def _window_attention(cfg: LlamaConfig, q, ck, cv, mask) -> torch.Tensor:
+    """A window's queries [B, C, H, D] over dense or int8 K/V [B, T, KVH,
+    D] under ``mask`` [B, 1, C, T]: the GQA repeat of payloads and scales
+    alike, then ``mha_attention`` or ``mha_attention_kv8``.  A one-token
+    window runs the decode kernel (K2) instead, as the reference's
+    ``_cache_attention`` takes its decode kernel for a single query: no
+    repeat, int8 payloads dequantized inside."""
+    if q.shape[1] == 1:
+        return cache_attention(q, ck, cv, mask[:, 0, 0, :].to(torch.int32))
+    if isinstance(ck, tuple):
+        return mha_attention_kv8(q, repeat_kv(ck[0], cfg.n_rep), repeat_kv(ck[1], cfg.n_rep),
+                                 repeat_kv(cv[0], cfg.n_rep), repeat_kv(cv[1], cfg.n_rep),
+                                 mask=mask)
+    return mha_attention(q, repeat_kv(ck, cfg.n_rep), repeat_kv(cv, cfg.n_rep), mask=mask)
+
+
+def prefill_chunk(model: LlamaModel, state: GPTState, chunk_ids: torch.Tensor,
+                  chunk_mask: torch.Tensor, start: torch.Tensor) -> GPTState:
+    """One prompt window into the contiguous cache, in place
+    (``gpt.prefill_chunk``): RoPE at each absolute position, K/V written at
+    KV-head width (quantized per token and head under ``kv_quant``, the
+    monolithic prefill's scheme, so the grouping into windows never changes
+    the stored bytes), the window's queries over the cache."""
+    cfg = model.cfg
+    dtype = cache_dtype(state)
+    c = chunk_ids.shape[1]
+    cos, sin = _window_rope(cfg, window_positions(start, c), dtype)
+    x = embed(model.embed.weight, chunk_ids, dtype)
+    mask = window_mask(state.key_valid != 0, chunk_mask, start)
+    for li, layer in enumerate(model.layers):
+        q, k1, v1 = layer.qkv(cfg, x, cos, sin)
+        window_write_kv(state.cache_k[li], k1, start, dtype)
+        window_write_kv(state.cache_v[li], v1, start, dtype)
+        x = layer.finish(x, _window_attention(cfg, q, state.cache_k[li], state.cache_v[li],
+                                              mask))
+    window_write(state.key_valid, chunk_mask.to(state.key_valid.dtype), start)
+    return state
+
+
+def paged_prefill_chunk(model: LlamaModel, state: PagedState, table_row: torch.Tensor,
+                        chunk_ids: torch.Tensor, chunk_mask: torch.Tensor,
+                        start: torch.Tensor, block_size: int) -> PagedState:
+    """One prompt window [1, C] straight into the stream's pool blocks
+    (``gpt.paged_prefill_chunk``), at GQA width and with the int8 pool
+    pairs; the window's queries read a dense gather of the stream's
+    blocks."""
+    cfg = model.cfg
+    dtype = cache_dtype(state)
+    c = chunk_ids.shape[1]
+    cos, sin = _window_rope(cfg, window_positions(start, c), dtype)
+    x = embed(model.embed.weight, chunk_ids, dtype)
+    mask = window_mask(paged_window_base(table_row, block_size, start), chunk_mask, start)
+    dest = window_dest(table_row, start, c, block_size, state.num_blocks)
+    for li, layer in enumerate(model.layers):
+        q, k1, v1 = layer.qkv(cfg, x, cos, sin)
+        paged_write_kv(state.cache_k[li], dest, k1[0], dtype)
+        paged_write_kv(state.cache_v[li], dest, v1[0], dtype)
+        kd, vd = paged_window_kv(state.cache_k[li], state.cache_v[li], table_row, block_size)
+        x = layer.finish(x, _window_attention(cfg, q, kd, vd, mask))
+    return state
 
 
 # ---------------------------------------------------------------------------

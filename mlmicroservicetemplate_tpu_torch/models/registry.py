@@ -84,6 +84,16 @@ class ModelBundle:
     # table [B, T] int32 on the device, n_steps, sample=False) -> (state,
     # tokens).
     paged_chunk: Callable | None = None
+    # Chunked prefill (PREFILL_CHUNK, the decoder-only families; None for
+    # the others): (batch, s_total, max_len) -> an all-dead decode state
+    # ``s_total`` prompt positions plus ``max_len`` wide; (state, ids [B,
+    # C], mask [B, C], start) consumes one prompt window at the absolute
+    # position ``start`` (a 0-d device tensor) into it, in place; and
+    # (paged_state, table_row [T], ids [1, C], mask [1, C], start) writes
+    # one window straight into the stream's pool blocks.
+    empty_state: Callable | None = None
+    prefill_chunk: Callable | None = None
+    paged_prefill_chunk: Callable | None = None
     # Encoder-decoders: (n_slots, encoder width, max_len) -> the continuous
     # loop's slot state, every row dead (decoder-only families: None, the
     # loop builds a ``gpt.GPTState`` or ``gpt.PagedState``).
@@ -492,6 +502,17 @@ def _generative_bundle(name: str, family, model, cfg, tokenizer, svc_cfg,
         return family.generate_chunk_paged(model, state, table, svc_cfg.kv_block_size,
                                            n_steps, sample)
 
+    def empty_state(batch: int, s_total: int, max_len: int):
+        return family.empty_decode_state(model, batch, s_total, max_len,
+                                         dtype=policy.compute_dtype)
+
+    def prefill_chunk(state, ids, mask, start):
+        return family.prefill_chunk(model, state, ids, mask, start)
+
+    def paged_prefill_chunk(state, table_row, ids, mask, start):
+        return family.paged_prefill_chunk(model, state, table_row, ids, mask, start,
+                                          svc_cfg.kv_block_size)
+
     return ModelBundle(
         name=name,
         kind=KIND_SEQ2SEQ,
@@ -504,6 +525,9 @@ def _generative_bundle(name: str, family, model, cfg, tokenizer, svc_cfg,
         init_state=init_state,
         generate_chunk=generate_chunk,
         paged_chunk=paged_chunk,
+        empty_state=empty_state,
+        prefill_chunk=prefill_chunk,
+        paged_prefill_chunk=paged_prefill_chunk,
         max_prompt_len=max_prompt,
         supports_prefix=True,
         prompt_prefix=prompt_prefix,
@@ -691,6 +715,30 @@ def build_model(svc_cfg, policy: DtypePolicy | None = None, params=None) -> Mode
             "PREFIX_CACHE=1, whose hits SHARE prompt blocks by "
             "refcount"
         )
+    if svc_cfg.prefill_chunk > 0:
+        # Chunked prefill changes the loop's dispatch unit: a combination it
+        # does not serve refuses to start rather than serve monolithic.
+        if bundle.prefill_chunk is None:
+            raise ValueError(
+                f"PREFILL_CHUNK is not supported for {svc_cfg.model_name!r} "
+                "(chunked prefill covers the decoder families gpt2/llama; "
+                "encoder-decoders like t5 prefill the DECODER from a start "
+                "token — the encoder pass has no incremental KV to chunk)"
+            )
+        if svc_cfg.prompt_prefix:
+            raise ValueError(
+                "PREFILL_CHUNK and PROMPT_PREFIX are mutually exclusive: "
+                "the global prefix overlay seeds positions 0..P inside "
+                "init_decode_state, which chunked prefill bypasses — use "
+                "PREFIX_CACHE=1, whose hits suffix-prefill in chunks"
+            )
+        if svc_cfg.paged_kv and svc_cfg.prefill_chunk % svc_cfg.kv_block_size:
+            raise ValueError(
+                f"PREFILL_CHUNK={svc_cfg.prefill_chunk} must be a "
+                f"multiple of KV_BLOCK_SIZE={svc_cfg.kv_block_size} so every window "
+                "boundary is block-aligned (per-chunk block growth "
+                "stays exact)"
+            )
     if svc_cfg.prefix_cache:
         if not bundle.supports_prefix:
             raise ValueError(

@@ -17,7 +17,12 @@ Key discipline, as in the JAX module:
   ``start`` (prefill plus the first decode chunk), ``start_prefixed``
   (the same behind a prefix-cache entry, whose per-layer K/V are static
   inputs ``[B, P, KVH, D]`` written before each replay like the ids),
-  ``gen_chunk``, ``loop_chunk``, ``loop_chunk_paged`` (``KINDS``);
+  ``gen_chunk``, ``loop_chunk``, ``loop_chunk_paged``, and chunked
+  prefill's windows: ``prefill_window`` (one window into a detached
+  contiguous state of the loop's slot width, the graph's own, which each
+  job's state is copied into and back out of) and
+  ``prefill_window_paged`` (one window into the loop's pools through a
+  static table row) (``KINDS``);
 - the **descriptor** spells out what the captured call closes over
   besides the bundle: the bucket's shapes (``(B, P, S)`` for a prefixed
   start and its per-stream ``gen_chunk``), the compute type, the KV
@@ -71,7 +76,7 @@ from typing import Any, Callable
 from ..utils import metrics
 
 KINDS = ("forward", "forward_images", "start", "start_prefixed", "gen_chunk", "loop_chunk",
-         "loop_chunk_paged")
+         "loop_chunk_paged", "prefill_window", "prefill_window_paged")
 
 _fp_lock = threading.Lock()
 _fp_counter = itertools.count()

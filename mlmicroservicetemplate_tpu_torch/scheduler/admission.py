@@ -90,7 +90,10 @@ class AdmissionController:
         """The footprint a checkpointed stream reserves again at dequeue,
         off its current feats: a recast resume folds the delivered tokens
         into the prompt, so the admission-time estimate can fall short of
-        the new prompt's bucket."""
+        the new prompt's bucket.  A stream checkpointed mid-prefill (chunked
+        prefill, a dry pool) holds no block while it waits and reserves
+        only its first window again (``kv_blocks_estimate``'s chunked
+        ``initial``), never the whole prompt."""
         if self.paged and self.pool is not None:
             initial, _ = self.engine.kv_blocks_estimate(feats)
             return initial * self.pool.block_bytes

@@ -17,8 +17,9 @@ the continuous decode loop's stream queue.
   A ``started`` waiter (a preempted stream queued to resume) is never
   expired nor evicted.
 
-Fair share across tenants, the prefill pacer, the backfill, SLO, scaling
-and decode-window governors are not ported.
+``PrefillPacer`` paces chunked prefill's windows against live decode.
+Fair share across tenants, the backfill, SLO, scaling and decode-window
+governors are not ported.
 """
 
 from __future__ import annotations
@@ -47,6 +48,36 @@ class QueueFullError(Exception):
 
 class DeadlineExceededError(Exception):
     """The request's deadline passed while it waited (HTTP 504)."""
+
+
+class PrefillPacer:
+    """Which prefill windows may dispatch at a chunk boundary (chunked
+    prefill, ``engine/streams.py``), mirroring the dequeue weights:
+    interactive-class prefill always advances (holding it back only moves
+    its own TTFT); batch-class prefill is held while interactive decode is
+    live, except one window every ``weight`` boundaries so it cannot
+    starve; with no interactive decode running it backfills freely.
+    ``recorder`` stays None: the flight recorder that would log each hold
+    and grant is not ported."""
+
+    def __init__(self, weight: int = 4):
+        self.weight = max(1, int(weight))
+        self._held = 0
+        self.recorder = None
+        # Decisions so far that held a batch window back.
+        self.holds = 0
+
+    def allow(self, job_klass: str, interactive_active: bool) -> bool:
+        """May a ``job_klass`` window dispatch now, given whether
+        interactive decode is live?"""
+        if job_klass == INTERACTIVE or not interactive_active:
+            return True
+        self._held += 1
+        if self._held >= self.weight:
+            self._held = 0
+            return True
+        self.holds += 1
+        return False
 
 
 def _dl(item) -> float:

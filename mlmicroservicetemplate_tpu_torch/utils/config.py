@@ -2,7 +2,7 @@
 
 Holds the fields the ResNet-50, BERT-base, bert-long, llama, GPT-2 and
 T5-small paths, chat, the scheduler's priority classes, KV budget and
-preemption, the prompt prefix and the prefix cache, and the parent
+preemption, the prompt prefix, the prefix cache and chunked prefill, and the parent
 registration read, under the same
 environment names as the JAX package's ``ServiceConfig``.  ``DEVICE`` is
 ``cuda|cpu`` and defaults to ``cuda``; ``MODEL_NAME`` defaults to
@@ -133,6 +133,18 @@ class ServiceConfig:
     # with prompt_prefix.
     prefix_cache: bool = False
     prefix_cache_mb: float = 256.0
+    # Chunked prefill (decoder families, the continuous loop): prompts longer
+    # than prefill_chunk tokens, or past the largest seq bucket, prefill in
+    # prefill_chunk-token windows interleaved with the loop's decode chunks,
+    # so one long prompt never stalls every live stream for its whole
+    # prefill; the loop's prompt ceiling rises to prefill_max_prompt (0 =
+    # the model's position budget less the decode budget).  While streams
+    # decode, at most prefill_budget window tokens dispatch at a chunk
+    # boundary (0 = one window).  0 = off.  Under PAGED_KV a multiple of
+    # KV_BLOCK_SIZE; refused for t5 and with PROMPT_PREFIX.
+    prefill_chunk: int = 0
+    prefill_budget: int = 0
+    prefill_max_prompt: int = 0
     # Block-paged KV for the continuous loop: a pool of kv_block_size-token
     # blocks with per-slot block tables instead of per-slot contiguous
     # caches.  Seq buckets round up to the block grid.
@@ -195,6 +207,8 @@ class ServiceConfig:
             raise ValueError("KV_BUDGET_MB and MAX_STREAM_QUEUE must be >= 0")
         if not self.prefix_cache_mb >= 0:
             raise ValueError("PREFIX_CACHE_MB must be >= 0")
+        if min(self.prefill_chunk, self.prefill_budget, self.prefill_max_prompt) < 0:
+            raise ValueError("PREFILL_CHUNK/PREFILL_BUDGET/PREFILL_MAX_PROMPT must be >= 0")
         object.__setattr__(self, "chat_template", self.chat_template.lower())
         object.__setattr__(self, "seq_buckets", _align_paged_seq_buckets(self))
 
@@ -227,9 +241,6 @@ UNPORTED_KNOBS = {
     "SPEC_MAX_STREAMS": ("1",),
     "SPEC_SAMPLED": _ON,
     "SPEC_CONTINUOUS": _OFF,
-    "PREFILL_CHUNK": ("0",),
-    "PREFILL_BUDGET": ("0",),
-    "PREFILL_MAX_PROMPT": ("0",),
     "DECODE_WINDOW": ("1",),
     "DECODE_WINDOW_AUTO": _ON,
     "TP": ("0", "1"),
@@ -359,7 +370,8 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
     KV_BLOCK_SIZE, CONTINUOUS_BATCHING, SP, TRACE_RING, PIPELINE_DEPTH, DEADLINE_MS,
     DRAIN_GRACE_S, WARMUP_SAMPLING, ADMIT_GRACE_MS, CHAT_TEMPLATE, PRIORITY_DEFAULT,
     CLASS_WEIGHT, KV_BUDGET_MB, MAX_STREAM_QUEUE, PREEMPT, PROMPT_PREFIX,
-    PREFIX_CACHE, PREFIX_CACHE_MB.  Any of
+    PREFIX_CACHE, PREFIX_CACHE_MB, PREFILL_CHUNK, PREFILL_BUDGET,
+    PREFILL_MAX_PROMPT.  Any of
     ``UNPORTED_KNOBS`` set to a value that turns it on raises;
     ``INERT_KNOBS`` are accepted and ignored."""
     e = dict(os.environ)
@@ -397,7 +409,9 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
                        ("max_streams", "MAX_STREAMS"), ("kv_block_size", "KV_BLOCK_SIZE"),
                        ("sp", "SP"), ("trace_ring", "TRACE_RING"),
                        ("pipeline_depth", "PIPELINE_DEPTH"), ("class_weight", "CLASS_WEIGHT"),
-                       ("max_stream_queue", "MAX_STREAM_QUEUE")):
+                       ("max_stream_queue", "MAX_STREAM_QUEUE"), ("prefill_chunk", "PREFILL_CHUNK"),
+                       ("prefill_budget", "PREFILL_BUDGET"),
+                       ("prefill_max_prompt", "PREFILL_MAX_PROMPT")):
         v = get(var)
         if v is not None:
             kwargs[field] = int(v)

@@ -120,8 +120,28 @@ STREAM_BATCH = Histogram(
 )
 TTFT = Histogram(
     "stream_ttft_seconds",
-    "Streaming time-to-first-token-chunk (submit to first event)",
-    ["model"], buckets=_LATENCY_BUCKETS, registry=REGISTRY,
+    "Streaming time-to-first-token-chunk (submit to first event), by "
+    "admission mode (chunked = PREFILL_CHUNK windows, monolithic = "
+    "one fused prefill dispatch)",
+    ["model", "mode"], buckets=_LATENCY_BUCKETS, registry=REGISTRY,
+)
+PREFILL_CHUNKS = Counter(
+    "prefill_chunks_total",
+    "Prompt windows dispatched by chunked prefill (PREFILL_CHUNK)",
+    ["model"], registry=REGISTRY,
+)
+PREFILL_STALL = Counter(
+    "prefill_stall_seconds",
+    "Host time spent dispatching prefill windows while decode streams "
+    "were live: the decode-cadence delay chunked prefill bounds to one "
+    "window (the windows queue behind the decode chunk on the device, so "
+    "this is the interleaving overhead, not a full stall)",
+    ["model"], registry=REGISTRY,
+)
+PREFILL_BACKLOG = Gauge(
+    "prefill_backlog_tokens",
+    "Prompt tokens admitted but not yet prefilled (chunked backlog)",
+    ["model"], registry=REGISTRY,
 )
 KV_POOL_BLOCKS = Gauge(
     "kv_pool_blocks", "Paged-KV pool blocks by state (used | free; used includes "

@@ -3,8 +3,10 @@
 The ``/predict`` path records three spans, keyed by the request id: the
 HTTP ``request``, the batcher's ``queue_wait`` and the engine's
 ``dispatch`` (one per batch).  The continuous decode loop records an
-``admission`` span per stream submit and a ``decode_chunk`` span per
-chunk dispatch (with its live streams).  Spans sit in a bounded ring
+``admission`` span per stream submit, a ``decode_chunk`` span per
+chunk dispatch (with its live streams) and, under chunked prefill, a
+``prefill_window`` span per window (``start``, ``end`` and ``total`` prompt
+positions, ``paged``).  Spans sit in a bounded ring
 (``Tracer.snapshot``).  With tracing off, ``tracer()`` is None and
 ``span()`` returns one shared no-op context manager.
 """

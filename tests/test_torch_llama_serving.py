@@ -218,7 +218,7 @@ def test_unported_requests_answer_400(services, path, body):
     "knob",
     [
         {"PROMPT_PREFIX": "You are a helpful"}, {"PREFIX_CACHE": "1"},
-        {"SPEC_DECODE": "ngram"}, {"KV_BUDGET_MB": "64"}, {"PREFILL_CHUNK": "64"},
+        {"SPEC_DECODE": "ngram"}, {"KV_BUDGET_MB": "64"}, {"PREFILL_CHUNK": "4"},
         {"DECODE_WINDOW": "4"}, {"TP": "2"}, {"QUANTIZE": "int8"},
         {"ADAPTER_DIR": "/adapters"}, {"TOKENIZER_PATH": "tokenizer.model"},
         {"LLAMA_CONFIG": json.dumps({**SMALL, "pallas_decode": True})},
@@ -227,15 +227,17 @@ def test_unported_requests_answer_400(services, path, body):
     ids=lambda k: next(iter(k)),
 )
 def test_unported_knobs_raise(knob, tmp_path):
-    """Knobs the port does not serve raise "not ported".  Five it once
+    """Knobs the port does not serve raise "not ported".  Six it once
     refused serve now, and their cases pin what the JAX package does: a
     SentencePiece ``TOKENIZER_PATH`` loads with a leading <s> and no
     trailing </s> (the model's eos/pad the tokenizer's),
     ``CONTINUOUS_BATCHING=0`` builds no loop and streams every request on
     the per-stream path, with the JAX batcher's tokens,
     ``KV_BUDGET_MB`` is the admission budget and, paged, sizes the pool to
-    the JAX engine's blocks, and ``PROMPT_PREFIX`` and ``PREFIX_CACHE``
-    stream the JAX batcher's tokens (the cache with its counts)."""
+    the JAX engine's blocks, ``PROMPT_PREFIX`` and ``PREFIX_CACHE``
+    stream the JAX batcher's tokens (the cache with its counts), and
+    ``PREFILL_CHUNK`` streams them through the loop's windows, as many as
+    the JAX loop's."""
     name = next(iter(knob))
     overrides = {"MODEL_NAME": "llama", "DEVICE": "cpu", "WARMUP": "0",
                  "LLAMA_CONFIG": json.dumps(SMALL), **knob}
@@ -269,6 +271,24 @@ def test_unported_knobs_raise(knob, tmp_path):
         want = asyncio.run(_stream_all(JaxBatcher(jengine, jcfg), jbundle, JaxRawItem))
         got = asyncio.run(_stream_all(batcher, bundle, RawItem))
         assert got == want and engine.dispatches == len(REQUESTS)
+        return
+    if name == "PREFILL_CHUNK":
+        os.environ["LLAMA_CONFIG"] = json.dumps(SMALL)
+        try:
+            jcfg = JaxServiceConfig(device="cpu", model_name="llama", warmup=False,
+                                    batch_timeout_ms=1.0, prefill_chunk=4, **SERVE)
+            jbundle = jax_build_model(jcfg)
+            jengine = JaxEngine(jbundle, jcfg, ReplicaSet(make_mesh(1)))
+        finally:
+            del os.environ["LLAMA_CONFIG"]
+        _, bundle, engine, batcher = build_service(
+            {**overrides, "SEQ_BUCKETS": "16,32", "MAX_DECODE_LEN": "10",
+             "STREAM_CHUNK_TOKENS": "4"}, params=jax.tree.map(np.asarray, jbundle.params))
+        jbatcher = JaxBatcher(jengine, jcfg)
+        want = asyncio.run(_stream_all(jbatcher, jbundle, JaxRawItem))
+        got = asyncio.run(_stream_all(batcher, bundle, RawItem))
+        assert got == want
+        assert batcher._cdl.prefill_chunk_dispatches == jbatcher._cdl.prefill_chunk_dispatches > 0
         return
     if name in ("PROMPT_PREFIX", "PREFIX_CACHE"):
         jkw = ({"prompt_prefix": knob[name]} if name == "PROMPT_PREFIX"
