@@ -5,6 +5,7 @@
     python3 chip_smoke.py --cpu-rehearsal  # small CPU dry run of the paths
     python3 chip_smoke.py --perf           # decode kernels' timing phases only
     python3 chip_smoke.py --chunked        # the chunked-prefill phases only
+    python3 chip_smoke.py --tier           # the host KV tier's phase only
 
 Phases, one JSON line each; any failure exits non-zero and prints no
 result line:
@@ -203,6 +204,28 @@ result line:
    128-block tables with every key valid timed and split as in 7b, the
    short streams' largest and median chunk gap during the long prefills
    beside those before, and the long prompts' TTFT.
+7f. serve llama tier: TinyLlama at full depth through the paged loop (16
+   slots, 16-token blocks, batch buckets 1 and 16) with ``PREEMPT``,
+   ``PREFILL_CHUNK=128``, ``PREFIX_CACHE=1`` (``PREFIX_CACHE_MB`` of two
+   and a half 128-token pins) and the host KV tier (``KV_HOST_BUDGET_MB``
+   1000, pinned, ``KV_PREFETCH_BLOCKS=4``), over a pool of the long
+   prompt's worst case, the pins' blocks and 4 more (140 blocks; 7 worst-case
+   streams of the 256 bucket): four conversations on 150-byte system prompts (the last two
+   evict the first two pins, which are demoted), 16 batch streams then 8
+   interactive ones (the victims swap out; greedy ones recast, sampled
+   ones replay), the first conversation's next turn (its pin promoted back),
+   then 8 short interactive streams and a 1780-byte prompt that outgrows
+   the pool mid-prefill (its consumed windows swap out; it resumes
+   partially).  Gates: every token teacher-forced; swap-outs, whole and
+   partial swap-ins, promotions and prefetch blocks copied while decode
+   was live > 0; no fallback; the long prompt's windows its uninterrupted
+   count; K2 and K3 held against the counts; 0 misses; the pool back to
+   its pins, then 0 after a flush; no stream entry left on the host.
+   Printed: swap bytes, one swap-out (gather and copy to the host) and one
+   4-block prefetch (copy to the card and scatter) timed by CUDA events
+   with GB/s, the pinning time, the overlap ratio, the resume latency of
+   swapped streams and of the long prompt, its TTFT and the chunk
+   boundaries its prefetch took.
 8. decode step: where one llama decode step's time goes at B in {1, 8,
    32}, T=576: wall time against busy time, split into K2, GEMMs, other,
    eager and as a graph of the step.
@@ -3306,6 +3329,339 @@ def phase_serve_chunked(label: str, overrides: dict, params, ref_model, rehearsa
                                        ("paged_decode_attention", k3)) if v}, gdrive
 
 
+def tier_llama(rehearsal: bool) -> dict:
+    """``serve llama tier``'s knobs over the paged loop's (16 slots,
+    16-token blocks, a 64-token budget): batch buckets 1 and 16, preemption
+    with a queue, 128-token windows (64 in the rehearsal), the prefix cache
+    and the host tier, 4 blocks a chunk boundary.  ``KV_BUDGET_MB`` and
+    ``PREFIX_CACHE_MB`` come from the engine's blocks (``phase_serve_tier``);
+    the host budget holds every swap of the phase."""
+    return {"BATCH_BUCKETS": "1,16", "MAX_STREAM_QUEUE": "32", "PREEMPT": "1",
+            "PREFILL_CHUNK": "64" if rehearsal else "128", "PREFIX_CACHE": "1",
+            "KV_HOST_BUDGET_MB": "1000", "KV_PREFETCH_BLOCKS": "4"}
+
+
+def tier_items(rehearsal: bool, s_max: int):
+    """Traffic of ``serve llama tier`` at a largest seq bucket of ``s_max``
+    (byte tokenizer: a token a byte, and a trailing EOS), in four steps:
+
+    - ``convs``: four conversations, each a system prompt of 0.6 ``s_max``
+      bytes and a question: each donates a pin of half ``s_max``, and the
+      third and fourth evict the first two (``PREFIX_CACHE_MB`` holds two
+      and a half), which are demoted to the host;
+    - ``classes``: 16 batch-class prompts under 28 bytes (a third sampled
+      and seeded), then 8 interactive ones (``class_items``): preemptions,
+      greedy victims recast and sampled ones replayed, all swapped out;
+    - ``back``: the first conversation's second turn, whose pin comes back
+      from the host;
+    - ``long``: 8 interactive prompts of 0.4-0.48 ``s_max`` bytes (bucket
+      ``s_max / 2``), half with ``max_tokens`` 16, then one long interactive
+      prompt of 1780 bytes (800 in the rehearsal; interactive, so the pacer
+      lets a window through at every boundary) that the pool cannot hold
+      beside them: it is checkpointed mid-prefill and resumes partially."""
+    import numpy as np
+
+    from mlmicroservicetemplate_tpu_torch.models.registry import RawItem
+
+    rng = np.random.default_rng(23)
+    system = [prefix_text(rng, int(0.6 * s_max)) for _ in range(4)]
+    q1 = [" " + prefix_text(rng, int(0.12 * s_max)) for _ in range(4)]
+    convs = [RawItem(text=system[i] + q1[i]) for i in range(4)]
+    back = RawItem(text=system[0] + q1[0] + " " + prefix_text(rng, int(0.15 * s_max)))
+    batch_items, inter_items = class_items(rehearsal, 16, 8, 28)
+    shorts = [RawItem(text=prefix_text(rng, int(rng.integers(int(0.4 * s_max),
+                                                             int(0.48 * s_max)))),
+                      **({"max_tokens": 16} if i % 2 else {})) for i in range(8)]
+    long_item = RawItem(text=prefix_text(rng, 800 if rehearsal else 1780))
+    return convs, (batch_items, inter_items), back, (shorts, long_item)
+
+
+async def drive_tier(batcher, bundle, items):
+    """Run ``tier_items``' steps in order, each to its end: the
+    conversations one at a time, the classes (the interactive prompts once
+    every batch stream has its first chunk), the returning turn, then the
+    short streams and, once each has its first chunk, the long prompt.
+    Returns ([{feats, toks, kind, klass, t_submit, t_chunks}], wall s)."""
+    import numpy as np
+
+    convs, (batch_items, inter_items), back, (shorts, long_item) = items
+    await batcher.start()
+    n = [0]
+
+    async def one(item, klass, kind, seen=None):
+        f = dict(bundle.preprocess(item), priority=klass, request_id=f"{kind}{n[0]}")
+        n[0] += 1
+        rec = {"feats": f, "kind": kind, "klass": klass, "t_submit": time.monotonic(),
+               "t_chunks": [], "toks": []}
+        try:
+            async for chunk in batcher.submit_stream(f):
+                rec["t_chunks"].append(time.monotonic())
+                rec["toks"].extend(int(x) for x in chunk)
+                if seen is not None:
+                    seen.set()
+        finally:
+            if seen is not None:
+                seen.set()
+        rec["toks"] = np.array(rec["toks"], np.int32)
+        return rec
+
+    async def after_first(first, then):
+        seen = [asyncio.Event() for _ in first]
+        tasks = [asyncio.create_task(one(*it, ev)) for it, ev in zip(first, seen)]
+        for ev in seen:
+            await ev.wait()
+        tasks += [asyncio.create_task(one(*it)) for it in then]
+        return await asyncio.gather(*tasks)
+
+    try:
+        t0 = time.monotonic()
+        recs = [await one(item, "interactive", "conv") for item in convs]
+        recs += await after_first([(it, "batch", "class") for it in batch_items],
+                                  [(it, "interactive", "class") for it in inter_items])
+        recs.append(await one(back, "interactive", "back"))
+        recs += await after_first([(it, "interactive", "short") for it in shorts],
+                                  [(long_item, "interactive", "long")])
+        wall = time.monotonic() - t0
+    finally:
+        await batcher.stop()
+    return recs, wall
+
+
+def time_swaps(engine, loop, n_out: int) -> dict:
+    """One swap-out of ``n_out`` blocks (the gather from every pool leaf
+    and the copy to pinned host memory) and one prefetch of
+    ``KV_PREFETCH_BLOCKS`` blocks (the host rows into pinned staging, the
+    copy to the card and the scatter into the pools), 5 times each over
+    blocks taken for the purpose: CUDA-event ms and wall ms of the best,
+    GB/s over the blocks' bytes."""
+    import torch
+
+    tier = engine.kv_host
+    k = loop.swap_chunk_blocks
+    ids = loop.pool.alloc(n_out)
+    entry = tier.reserve(n_out, n_out * loop.block_size, kind="stream")
+    out = {"swap_out_blocks": n_out, "prefetch_blocks": k,
+           "block_bytes": loop.pool.block_bytes}
+    try:
+        with torch.inference_mode():
+            for name, n, fn in (
+                    ("swap_out", n_out, lambda: loop._gather(ids)[1].tensors()),
+                    ("prefetch", k, lambda: loop._host_to_device(entry, 0, ids[:k]))):
+                best = None
+                for _ in range(5):
+                    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                        enable_timing=True)
+                    torch.cuda.synchronize()
+                    w0 = time.perf_counter()
+                    e0.record()
+                    with engine._lock:
+                        got = fn()
+                    e1.record()
+                    e1.synchronize()
+                    wall = (time.perf_counter() - w0) * 1e3
+                    ms = e0.elapsed_time(e1)
+                    if best is None or ms < best[0]:
+                        best = (ms, wall)
+                    if name == "swap_out":
+                        entry.pool.write(entry.ids, got)
+                nbytes = n * loop.pool.block_bytes
+                out[f"{name}_ms"], out[f"{name}_wall_ms"] = best
+                out[f"{name}_gb_s"] = nbytes / best[0] / 1e6
+    finally:
+        tier.release(entry)
+        loop.pool.free(ids)
+    return out
+
+
+def phase_serve_tier(label: str, overrides: dict, params, ref_model, rehearsal: bool,
+                     card_line: str):
+    """The host KV tier over the paged loop with preemption, chunked
+    prefill and the prefix cache, driven by ``tier_items``
+    (``drive_tier``).  The pool holds the long prompt's worst case, the
+    pins' blocks and 4 more, and at least 6 of the engine's worst-case
+    streams (``KV_BUDGET_MB`` from its block bytes); ``PREFIX_CACHE_MB``
+    two and a half pins of half the largest bucket.  Gates: every token
+    teacher-forced against an f32 forward of the whole prompt; swap-outs,
+    whole swap-ins, partial swap-ins, promotions and prefetch blocks
+    copied while decode was live all > 0; no fallback; the long prompt's
+    windows its uninterrupted count; K2 and K3 held against the counts; 0
+    graph misses; every stream released, the pool back to its pins, then
+    0 after a flush, no stream entry left in the host ledger.  Printed:
+    swap bytes, one swap-out's and one prefetch's time and GB/s, the
+    pinning time, the overlap ratio, the swapped streams' resume latency
+    (checkpoint to the first chunk after it), the partial resume's TTFT
+    and chunk boundaries.  Returns (bundle, {kernel: launches}, graph
+    accounting)."""
+    import math
+
+    import numpy as np
+
+    from mlmicroservicetemplate_tpu_torch.engine.engine import InferenceEngine
+    from mlmicroservicetemplate_tpu_torch.engine.kv_blocks import blocks_for
+    from mlmicroservicetemplate_tpu_torch.ops.attention import decode_attention
+    from mlmicroservicetemplate_tpu_torch.ops.paged_attention import paged_decode_attention
+    from mlmicroservicetemplate_tpu_torch.scheduler.batcher import Batcher
+    from mlmicroservicetemplate_tpu_torch.serve import build_service
+
+    cfg, bundle, engine, batcher = build_service(overrides, params=params)
+    s_max = max(engine.seq_buckets)
+    items = tier_items(rehearsal, s_max)
+    long_len = int(bundle.preprocess(items[3][1])["length"])
+    long_worst = blocks_for(long_len + engine.max_decode_len, engine.kv_block_size)
+    pin_bytes = (s_max // 2) * engine.kv_token_bytes()
+    # Room for the long prompt's worst case beside the pins the cache may
+    # hold: pins count as used at the dequeue gate and are reclaimed only
+    # at an insert or a growth, so a resume that needs more than the rest
+    # would wait for ever once nothing else runs (ROADMAP, kept on purpose).
+    pins_blocks = math.ceil(2.5 * blocks_for(s_max // 2, engine.kv_block_size))
+    blocks = max(long_worst + pins_blocks + 4, 6 * engine.kv_blocks_per_stream)
+    bb = engine.kv_block_bytes()
+    cfg = dataclasses.replace(cfg, kv_budget_mb=(blocks * bb + bb // 2) / 1e6,
+                              prefix_cache_mb=2.5 * pin_bytes / 1e6)
+    engine = InferenceEngine(bundle, cfg)
+    batcher = Batcher(engine, cfg)
+    if engine.kv_pool.num_blocks != blocks or engine.kv_host is None:
+        raise AssertionError(f"{label}: {engine.kv_pool.num_blocks} pool blocks, want {blocks}; "
+                             f"host tier {engine.kv_host}")
+    loop = batcher._cdl
+    warm_s = batcher.warm_engine() + batcher.warm_streams()
+    tier = engine.kv_host
+    pin_s = tier.pin_seconds
+    if tier.pool is None:
+        raise AssertionError(f"{label}: warmup built no host buffers")
+    swaps, partials, copies, windows, swapins = [], [], [], {}, {}
+    swap_out_blocks, to_prefill, h2d, window, start_swapin = (
+        loop._swap_out_blocks, loop._swapin_to_prefill, loop._host_to_device,
+        loop._dispatch_prefill_window, loop._start_swapin)
+
+    def on_swap_out(st, block_ids, cov):
+        before = loop.swap_outs
+        swap_out_blocks(st, block_ids, cov)
+        if loop.swap_outs > before:
+            swaps.append((st.rid, time.monotonic(), blocks_for(cov, loop.block_size), cov))
+
+    def on_partial(job):
+        partials.append((job.st.rid, job.resume_at, job.L, time.monotonic()))
+        return to_prefill(job)
+
+    def on_swapin(st):
+        t = time.monotonic()
+        started = start_swapin(st)
+        if any(j.st is st for j in loop._swapping):
+            swapins.setdefault(st.rid, []).append(t)
+        return started
+
+    def on_h2d(entry, pos, dev_ids):
+        rid = next((j.st.rid for j in loop._swapping if j.st.swap is entry), "promotion")
+        copies.append((rid, len(dev_ids), bool(loop.active)))
+        return h2d(entry, pos, dev_ids)
+
+    def on_window(job):
+        window(job)
+        windows[job.st.rid] = windows.get(job.st.rid, 0) + 1
+
+    loop._swap_out_blocks, loop._swapin_to_prefill, loop._host_to_device = (
+        on_swap_out, on_partial, on_h2d)
+    loop._dispatch_prefill_window, loop._start_swapin = on_window, on_swapin
+    kernels = (decode_attention, paged_decode_attention)
+    for kern in kernels:
+        kern.launches = 0
+    engine.decode_steps = engine.dispatches = 0
+    loop.prefill_dispatches = loop.chunk_dispatches = loop.decode_steps = 0
+    loop.prefill_chunk_dispatches = 0
+    marks = graph_marks(bundle)
+    recs, wall = asyncio.run(drive_tier(batcher, bundle, items))
+    k2, k3 = (kern.launches for kern in kernels)
+    gdrive = graph_drive(bundle, marks, {"decode_attention": k2, "paged_decode_attention": k3})
+    held_launches(label, bundle, engine, loop, k2, k3, rehearsal)
+    by_rid = {r["feats"]["request_id"]: r for r in recs}
+    long_rec = next(r for r in recs if r["kind"] == "long")
+    long_rid = long_rec["feats"]["request_id"]
+    partial_ins = len(partials)
+    counts = dict(
+        swap_outs=loop.swap_outs, swap_ins=loop.swap_ins, whole_swap_ins=loop.swap_ins
+        - partial_ins, partial_swap_ins=partial_ins, swap_fallbacks=loop.swap_fallbacks,
+        host_prefix_promotes=loop.host_prefix_promotes,
+        prefetch_blocks_total=loop.prefetch_blocks_total,
+        prefetch_blocks_live=loop.prefetch_blocks_live,
+        swap_out_bytes=loop.swap_out_bytes, swap_in_bytes=loop.swap_in_bytes,
+        preemptions=loop.preemptions, recasts=loop.recasts, replays=loop.replays,
+        kv_growth_stalls=loop.kv_growth_stalls, prefill_checkpoints=loop.prefill_checkpoints,
+        prefill_chunks=loop.prefill_chunk_dispatches, windows_by_stream=windows,
+        host_ledger=tier.ledger.stats(),
+        prefix_cache=engine.prefix_cache.stats())
+    counts["overlap_ratio"] = (loop.prefetch_blocks_live / loop.prefetch_blocks_total
+                               if loop.prefetch_blocks_total else None)
+    want_windows = math.ceil(long_len / loop.prefill_chunk)
+    gates = ("swap_outs", "whole_swap_ins", "partial_swap_ins", "host_prefix_promotes",
+             "prefetch_blocks_live")
+    if any(counts[g] < 1 for g in gates) or counts["swap_fallbacks"] != 0:
+        raise AssertionError(f"{label}: want {gates} > 0 and no fallback: {counts}")
+    if windows.get(long_rid) != want_windows:
+        raise AssertionError(f"{label}: the long prompt ran {windows.get(long_rid)} windows, "
+                             f"its uninterrupted count {want_windows} ({windows})")
+    if loop.admitted != 0:
+        raise AssertionError(f"{label}: {loop.admitted} streams never released")
+    cache = engine.prefix_cache
+    pins = {b for e in cache._entries.values() for b in e.block_ids}
+    pool = {"num_blocks": engine.kv_pool.num_blocks, "pinned_blocks": len(pins),
+            "used_after_streams": engine.kv_pool.used_blocks}
+    if engine.kv_pool.used_blocks != len(pins):
+        raise AssertionError(f"{label}: the pool holds {engine.kv_pool.used_blocks} blocks, "
+                             f"the pins {len(pins)}")
+    if tier.ledger.stats()["stream_entries"] != 0:
+        raise AssertionError(f"{label}: stream entries left in the host ledger "
+                             f"{tier.ledger.stats()}")
+    timing = None if rehearsal else time_swaps(engine, loop, max(nb for _, _, nb, _ in swaps))
+    pool["flushed_pins"] = cache.stats()["entries"]
+    with engine._lock:
+        loop._flush_pins()
+    pool["used_after_flush"] = engine.kv_pool.used_blocks
+    if pool["used_after_flush"] != 0:
+        raise AssertionError(f"{label}: {pool['used_after_flush']} blocks after a flush")
+    # Resume latency: a swap-out to the stream's first chunk after it.
+    resume_ms = {"stream": [], "job": []}
+    for rid, t_out, _, _ in swaps:
+        later = [t for t in by_rid[rid]["t_chunks"] if t > t_out]
+        if later:
+            resume_ms["job" if rid == long_rid else "stream"].append((later[0] - t_out) * 1e3)
+    resume = {f"resume_{k}_{q}_ms": (float(np.percentile(v, q)) if v else None)
+              for k, v in resume_ms.items() for q in (50, 100)}
+    resume.update({f"resumed_{k}s": len(v) for k, v in resume_ms.items()})
+    # The partial resume: its copies (one a chunk boundary), how many ran
+    # beside live decode, and the time from its swap-in's start to its
+    # last block back (the prefetch's pace) beside the copies' own time.
+    partial_runs = []
+    for rid, at, length, t_done in partials:
+        mine = [(n, live) for r, n, live in copies if r == rid]
+        t_start = max(t for t in swapins.get(rid, [t_done]) if t <= t_done)
+        partial_runs.append({
+            "resume_at": at, "prompt": length, "blocks": blocks_for(at, loop.block_size),
+            "boundaries": len(mine), "live_boundaries": sum(live for _, live in mine),
+            "prefetch_ms": (t_done - t_start) * 1e3})
+    feats = [r["feats"] for r in recs]
+    rows = [r["toks"] for r in recs]
+    for f, row in zip(feats, rows):
+        if not 1 <= len(row) <= engine.max_decode_len:
+            raise AssertionError(f"{label}: a stream of {len(row)} tokens")
+    check = teacher_forced(bundle, ref_model, feats, rows, engine.max_decode_len)
+    out = dict(
+        device=str(bundle.device), card=card_line, layers=bundle.cfg.num_layers,
+        slots=loop.n_slots, streams=len(recs), long_prompt=long_len, long_windows=want_windows,
+        long_ttft_ms=(long_rec["t_chunks"][0] - long_rec["t_submit"]) * 1e3,
+        partial_resumes=partial_runs, **counts, pool=pool,
+        host_tier={"budget_mb": cfg.kv_host_budget_mb, "num_blocks": tier.num_blocks,
+                   "pin_seconds": pin_s},
+        swap_timing=timing, **resume, admission_waves=loop.prefill_dispatches,
+        slot_decode_steps=loop.decode_steps, decode_attention_launches=k2,
+        paged_decode_attention_launches=k3, warm_s=warm_s,
+        generated_tok_per_s=check["tokens_checked"] / wall, graph_modes=engine.graph_modes(),
+        **check)
+    emit(label, **out)
+    return bundle, {k: v for k, v in (("decode_attention", k2),
+                                       ("paged_decode_attention", k3)) if v}, gdrive
+
+
 def gpt2_chunked_items(rehearsal: bool):
     """Traffic of ``serve gpt2 chunked``: five prompts of 300-900 bytes (a
     token a byte), every other sampled and seeded, then a sixth that opens
@@ -4070,6 +4426,43 @@ def chunked_main() -> int:
     return 0
 
 
+def tier_main() -> int:
+    """``--tier``: the build and ``serve llama tier`` at 22 layers with its
+    graphs phase; prints no result line."""
+    import torch
+
+    from mlmicroservicetemplate_tpu_torch.convert.jax_params import llama_params_from_jax
+    from mlmicroservicetemplate_tpu_torch.models import llama as llama_mod
+
+    phase = "env"
+    try:
+        if not torch.cuda.is_available():
+            print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
+            return 1
+        card_line = card()
+        emit(phase, card=card_line, torch=torch.__version__, cuda=torch.version.cuda,
+             mode="tier")
+        phase = "build"
+        phase_build()
+        phase = "serve llama tier"
+        lcfg = llama_mod.LlamaConfig(eos_id=1, pad_id=0)
+        params = llama_pytree(lcfg, seed=0)
+        ref = llama_mod.build_model(lcfg, llama_params_from_jax(params, lcfg),
+                                    torch.device("cuda"), torch.float32)
+        svc = phase_serve_tier(
+            phase, {"MODEL_NAME": "llama", "DEVICE": "cuda", "SEQ_BUCKETS": "32,64,128,256",
+                    "PAGED_KV": "1", "KV_BLOCK_SIZE": str(PAGE), "MAX_STREAMS": "16",
+                    "MAX_DECODE_LEN": "64", **tier_llama(False)},
+            params, ref, False, card_line)
+        phase = "graphs llama tier"
+        phase_graphs("llama tier", svc[0], **svc[2])
+    except Exception as e:
+        traceback.print_exc()
+        emit(phase, ok=False, error=f"{type(e).__name__}: {e}")
+        return 1
+    return 0
+
+
 def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
@@ -4078,11 +4471,15 @@ def main(argv: list[str]) -> int:
                     help="only the decode kernels' phases, the decode step and a loop chunk")
     ap.add_argument("--chunked", action="store_true",
                     help="only the build and the two chunked-prefill phases")
+    ap.add_argument("--tier", action="store_true",
+                    help="only the build and the host KV tier's phase")
     args = ap.parse_args(argv)
     if args.perf:
         return perf_main()
     if args.chunked:
         return chunked_main()
+    if args.tier:
+        return tier_main()
     rehearsal = args.cpu_rehearsal
     t_start = time.monotonic()
     phase = "env"
@@ -4294,6 +4691,18 @@ def main(argv: list[str]) -> int:
         phase = "graphs llama chunked"
         graphs("llama chunked", chunked[0], chunked[2])
         release(chunked[0])
+        # The host KV tier at full depth over the paged loop with the three
+        # above: conversations whose pins are demoted and come back,
+        # preempted streams swapped out and prefetched back, and a long
+        # prompt checkpointed mid-prefill that resumes partially.
+        phase = "serve llama tier"
+        tiered = phase_serve_tier(phase, {**llama_overrides, **stream, **tier_llama(rehearsal)},
+                                  params, ref_model, rehearsal, card_line)
+        k2_streams += tiered[1].get("decode_attention", 0)
+        k3_streams += tiered[1].get("paged_decode_attention", 0)
+        phase = "graphs llama tier"
+        graphs("llama tier", tiered[0], tiered[2])
+        release(tiered[0])
         del ref_model, params, cref, cparams
         if rehearsal:
             emit("decode step", skipped="cpu rehearsal: no card to profile")

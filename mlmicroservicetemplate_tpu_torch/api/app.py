@@ -845,6 +845,22 @@ async def handle_status(request: web.Request) -> web.Response:
         if getattr(engine, "prefix_cache", None) is not None:
             body["prefix_cache"] = engine.prefix_cache.stats()
         cdl = app[K_BATCHER]._cdl
+        tier = getattr(engine, "kv_host", None)
+        if cdl is not None and tier is not None and tier.enabled:
+            # The host KV tier: swap traffic, how much of the prefetch ran
+            # behind live decode, and the host pool and ledger.
+            total, live = cdl.prefetch_blocks_total, cdl.prefetch_blocks_live
+            body["kv_tier"] = {
+                "swap_outs": cdl.swap_outs,
+                "swap_resumes": cdl.swap_ins,
+                "swap_fallbacks": cdl.swap_fallbacks,
+                "swap_out_bytes": cdl.swap_out_bytes,
+                "swap_in_bytes": cdl.swap_in_bytes,
+                "prefetch_overlap_ratio": round(live / total, 4) if total else None,
+                "host_prefix_promotes": cdl.host_prefix_promotes,
+                "prefetch_blocks": cdl.swap_chunk_blocks,
+                "host_pool": tier.stats(),
+            }
         if cdl is not None and cdl.prefill_chunk:
             body["prefill"] = {
                 "chunk": cdl.prefill_chunk,

@@ -64,6 +64,11 @@ not ported), the same functions run eagerly; ``graph_modes`` says which.
   is the routing rule the loop and the ledger share, and a chunked
   prompt's ``kv_blocks_estimate`` charges its first window up front and
   grows its worst case off its exact length.
+- The host KV tier (``KV_HOST_BUDGET_MB``): ``kv_host`` (a
+  ``kv_blocks.KVHostTier``, refused without ``PAGED_KV`` with the
+  reference's message), whose buffers the loop builds and fills; under it
+  the paged prefix cache's ``on_evict`` hands an evicted pin and its refs
+  to ``_host_demote_pending`` for the loop to demote.
 """
 
 from __future__ import annotations
@@ -82,7 +87,7 @@ from ..models.registry import KIND_IMAGE, KIND_SEQ2SEQ, KIND_TEXT, ModelBundle, 
 from ..models.sampling import SampleParams, greedy_params, make_params
 from ..runtime import compile_cache
 from ..utils import tracing
-from .kv_blocks import BlockPool, PagedPrefix, blocks_for, kv_token_bytes
+from .kv_blocks import BlockPool, KVHostTier, PagedPrefix, blocks_for, kv_token_bytes
 from .prefix_cache import PrefixCache
 
 # A per-stream prompt past the largest seq bucket is collated at its length
@@ -182,6 +187,27 @@ class InferenceEngine:
             num = (max(1, budget // bb) if budget
                    else cfg.max_streams * self.kv_blocks_per_stream)
             self.kv_pool = BlockPool(num, bb)
+        # The host KV tier (KV_HOST_BUDGET_MB > 0, generators): a
+        # checkpointed stream's blocks swap out to pinned host buffers and
+        # its resume prefetches them back (``engine/streams.py``), and an
+        # evicted prefix pin is demoted there instead of freed.  It swaps
+        # paged blocks, so it needs PAGED_KV, refused here as the reference
+        # refuses it.  Demotions queue here (``on_evict`` may run under the
+        # cache's lock, where nothing copies) for the loop to gather at its
+        # next chunk boundary; a flush of pins whose blocks are about to be
+        # cleared turns ``_host_demote_on`` off around it.
+        self.kv_host = None
+        self._host_demote_pending: list = []
+        self._host_demote_on = True
+        host_mb = float(getattr(cfg, "kv_host_budget_mb", 0.0) or 0.0)
+        if host_mb > 0 and getattr(bundle, "kind", None) == KIND_SEQ2SEQ:
+            if not self.paged_kv:
+                raise ValueError(
+                    "KV_HOST_BUDGET_MB requires PAGED_KV=1 (the host "
+                    "tier swaps paged blocks; the contiguous layout "
+                    "has no block identity to swap)"
+                )
+            self.kv_host = KVHostTier(host_mb, self.kv_block_bytes())
         # Chunked prefill (PREFILL_CHUNK > 0, the decoder families): the
         # continuous loop prefills long prompts in windows between its
         # decode chunks (``engine/streams.py``).  Refused here, before
@@ -216,8 +242,14 @@ class InferenceEngine:
             on_evict = None
             if self.paged_kv:
                 def on_evict(entry, key=None):
-                    if isinstance(entry, PagedPrefix):
-                        self.kv_pool.free(list(entry.block_ids))
+                    if not isinstance(entry, PagedPrefix):
+                        return
+                    if self.kv_host is not None and key is not None and self._host_demote_on:
+                        # The pin's refs go with it to the loop's demotion
+                        # queue and free once its blocks are on the host.
+                        self._host_demote_pending.append((key, entry))
+                        return
+                    self.kv_pool.free(list(entry.block_ids))
 
             self.prefix_cache = PrefixCache(
                 self.seq_buckets, float(getattr(cfg, "prefix_cache_mb", 256.0)),

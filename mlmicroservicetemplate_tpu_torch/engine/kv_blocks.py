@@ -19,13 +19,25 @@ length is a block-aligned seq bucket.  A block returns to the free list
 only when its last holder (streams and pins alike) frees it.  The
 reference's ``take`` (the journal's restart, ROADMAP A12) and ``trim``
 (decode windows, A8.5) wait for their callers.
+
+Host KV tier (``KV_HOST_BUDGET_MB``): ``HostBlockPool`` is a second pool
+with the same discipline that also holds the blocks' contents, one host
+tensor per leaf of the paged pools (pinned on the card); ``SwapLedger``
+maps its blocks to the swapped-out stream checkpoints and demoted prefix
+pins that own them, and ``KVHostTier`` builds both on first use.  The
+copies between the tiers are the loop's (``engine/streams.py``).  The
+reference's ``SwapLedger.restore`` (the disk tier's replay, ROADMAP A12)
+waits for its caller.
 """
 
 from __future__ import annotations
 
 import threading
-from collections import deque
+import time
+from collections import OrderedDict, deque
 from dataclasses import dataclass, field
+
+import torch
 
 
 def blocks_for(tokens: int, block_size: int) -> int:
@@ -178,3 +190,205 @@ class PagedPrefix:
     p_len: int
     block_ids: tuple[int, ...]
     nbytes: int
+
+
+class HostBlockPool(BlockPool):
+    """The host tier's blocks: the device pool's free list and refcounts,
+    plus their contents, one preallocated host tensor per leaf of the
+    paged pools (``[num_blocks, block_size, heads, dim]`` payloads, and
+    the scale leaves under ``QUANT_KV=int8``), so a block's rows cross
+    between the tiers by id with no reshaping.  ``leaf_specs`` is
+    ``[(per-block shape, dtype)]`` in the loop's leaf order (``cache_k``
+    then ``cache_v``, layer by layer, a payload before its scale).  With
+    ``pin`` (the card) the buffers are page-locked.  They are allocated
+    once and written in place; rows cross to and from the card through
+    pinned staging (indexing them returns unpinned memory, from which a
+    copy to the card would be synchronous)."""
+
+    def __init__(self, num_blocks: int, block_bytes: int, leaf_specs, pin: bool = False):
+        super().__init__(num_blocks, block_bytes)
+        self.leaves = [torch.zeros((self.num_blocks,) + tuple(shape), dtype=dtype,
+                                   pin_memory=pin)
+                       for shape, dtype in leaf_specs]
+
+    @staticmethod
+    def _index(ids) -> torch.Tensor:
+        return torch.as_tensor(list(ids), dtype=torch.long)
+
+    def write(self, ids, leaf_vals) -> None:
+        """Store block rows: ``leaf_vals[i]`` is ``[len(ids), bs, ...]``."""
+        idx = self._index(ids)
+        for buf, vals in zip(self.leaves, leaf_vals):
+            buf.index_copy_(0, idx, vals.to(buf.dtype))
+
+    def read(self, ids, out=None) -> list[torch.Tensor]:
+        """Block rows, one ``[len(ids), bs, ...]`` tensor per leaf, into
+        ``out`` when given (pinned staging: indexing would return unpinned
+        memory, from which a copy to the card is synchronous)."""
+        idx = self._index(ids)
+        if out is None:
+            return [buf.index_select(0, idx) for buf in self.leaves]
+        for buf, o in zip(self.leaves, out):
+            torch.index_select(buf, 0, idx, out=o)
+        return out
+
+
+class SwapEntry:
+    """One unit of the host tier: the host block ids holding a stream's
+    resume-prompt KV (kind ``stream``) or a demoted prefix pin's (kind
+    ``prefix``), and the token positions they cover.  ``alive`` turns
+    False at eviction or release (a waiting stream whose entry died
+    resumes by recompute); ``ready`` turns True once the device-to-host
+    copy has landed in the buffers.  ``pool`` and ``ledger`` say which
+    tier holds the ids and frees them."""
+
+    __slots__ = ("ids", "tokens", "kind", "key", "alive", "ready", "pool", "ledger")
+
+    def __init__(self, ids, tokens: int, kind: str, key=None, pool=None, ledger=None):
+        self.ids = list(ids)
+        self.tokens = int(tokens)
+        self.kind = kind
+        self.key = key
+        self.alive = True
+        self.ready = False
+        self.pool = pool
+        self.ledger = ledger
+
+
+class SwapLedger:
+    """Which host blocks hold which stream's or prefix's KV.  Every block
+    of the host pool is owned by exactly one live entry, so releasing
+    every entry drains the pool to 0; a second release of an entry is
+    absorbed (the pool still raises on a true double free).  Under
+    pressure the LRU evicts demoted prefix entries before stream
+    checkpoints: a waiting stream's resume is hotter than a cache
+    entry's maybe-reuse."""
+
+    def __init__(self, pool: HostBlockPool):
+        self.pool = pool
+        self._lru: OrderedDict[SwapEntry, None] = OrderedDict()
+        self._prefix: dict = {}
+        self._lock = threading.Lock()
+        self.evictions = 0
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._lru)
+
+    def reserve(self, n_blocks: int, tokens: int, kind: str, key=None) -> SwapEntry | None:
+        """``n_blocks`` host blocks as a new entry, evicting older entries
+        (prefix ones first) to make room; None when the tier cannot hold
+        it even empty."""
+        if n_blocks <= 0 or n_blocks > self.pool.num_blocks:
+            return None
+        with self._lock:
+            while True:
+                try:
+                    ids = self.pool.alloc(n_blocks)
+                    break
+                except OutOfBlocks:
+                    if not self._evict_one_locked():
+                        return None
+            entry = SwapEntry(ids, tokens, kind, key=key, pool=self.pool, ledger=self)
+            self._lru[entry] = None
+            if key is not None:
+                self._prefix[key] = entry
+            return entry
+
+    def _evict_one_locked(self) -> bool:
+        victim = None
+        for e in self._lru:  # oldest first; a prefix entry goes before any stream's
+            if e.kind == "prefix":
+                victim = e
+                break
+            if victim is None:
+                victim = e
+        if victim is None:
+            return False
+        self._release_locked(victim)
+        self.evictions += 1
+        return True
+
+    def _release_locked(self, entry: SwapEntry) -> None:
+        if not entry.alive:
+            return
+        entry.alive = False
+        self._lru.pop(entry, None)
+        if entry.key is not None:
+            self._prefix.pop(entry.key, None)
+        self.pool.free(entry.ids)
+
+    def release(self, entry: SwapEntry) -> None:
+        with self._lock:
+            self._release_locked(entry)
+
+    def prefix_get(self, key) -> SwapEntry | None:
+        """A live prefix entry by its cache key (bucket, content hash);
+        a hit moves it to the LRU's hot end."""
+        with self._lock:
+            e = self._prefix.get(key)
+            if e is not None and e.alive:
+                self._lru.move_to_end(e)
+                return e
+            return None
+
+    def stats(self) -> dict:
+        with self._lock:
+            streams = sum(1 for e in self._lru if e.kind == "stream")
+            return {"entries": len(self._lru), "stream_entries": streams,
+                    "prefix_entries": len(self._lru) - streams, "evictions": self.evictions,
+                    "used_blocks": self.pool.used_blocks, "free_blocks": self.pool.free_blocks}
+
+
+class KVHostTier:
+    """One host KV tier: its budget, and the pool and ledger built on first
+    use (``ensure_pool``: the leaf shapes are known once the paged pools
+    are).  ``pin_seconds`` is how long that first build took (pinning a
+    large budget is not free)."""
+
+    def __init__(self, budget_mb: float, block_bytes: int):
+        self.budget_bytes = int(float(budget_mb) * 1e6)
+        self.block_bytes = int(block_bytes)
+        self.num_blocks = self.budget_bytes // max(1, self.block_bytes)
+        self.pool: HostBlockPool | None = None
+        self.ledger: SwapLedger | None = None
+        self.pin_seconds: float | None = None
+        self._lock = threading.Lock()
+
+    @property
+    def enabled(self) -> bool:
+        return self.num_blocks > 0
+
+    def ensure_pool(self, leaf_specs, pin: bool = False) -> bool:
+        """Build the buffers on first use; False when the budget holds no
+        whole block (the tier is off)."""
+        if not self.enabled:
+            return False
+        with self._lock:
+            if self.pool is None:
+                t0 = time.monotonic()
+                self.pool = HostBlockPool(self.num_blocks, self.block_bytes, leaf_specs, pin=pin)
+                self.ledger = SwapLedger(self.pool)
+                self.pin_seconds = time.monotonic() - t0
+        return True
+
+    def reserve(self, n_blocks: int, tokens: int, kind: str, key=None) -> SwapEntry | None:
+        return (self.ledger.reserve(n_blocks, tokens, kind, key=key)
+                if self.ledger is not None else None)
+
+    def release(self, entry: SwapEntry) -> None:
+        if self.ledger is not None:
+            self.ledger.release(entry)
+
+    def prefix_get(self, key) -> SwapEntry | None:
+        return self.ledger.prefix_get(key) if self.ledger is not None else None
+
+    def prefix_resident(self, key) -> bool:
+        return self.prefix_get(key) is not None
+
+    def stats(self) -> dict:
+        base = {"budget_bytes": self.budget_bytes, "block_bytes": self.block_bytes,
+                "num_blocks": self.num_blocks}
+        if self.ledger is not None:
+            base.update(self.ledger.stats())
+        return base

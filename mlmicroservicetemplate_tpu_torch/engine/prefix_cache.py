@@ -33,8 +33,10 @@ or past their own prefix, and a block returns to the free list only when
 its last holder frees it); ``on_evict`` frees the pin's ref.
 
 Mutually exclusive with ``PROMPT_PREFIX``, whose rows occupy ``[0, P)`` of
-every stream; the engine builds this cache only without one.  The
-reference's ``host_lookup`` waits for the host KV tier (ROADMAP A8.4).
+every stream; the engine builds this cache only without one.  Under the
+host KV tier (``KV_HOST_BUDGET_MB``) an evicted paged pin is demoted to the
+host rather than freed (the engine's ``on_evict``), and ``host_lookup``
+finds it there under the same key after a device miss.
 """
 
 from __future__ import annotations
@@ -112,6 +114,19 @@ class PrefixCache:
                 if p <= length - 1 and (p, _key(ids, p)) in self._entries:
                     return p
             return 0
+
+    def host_lookup(self, ids: np.ndarray, length: int, tier, usable=None):
+        """Longest prefix of ``ids[:length]`` the host tier holds, asked
+        after the device entries missed: (P, ``SwapEntry``) or None.  The
+        caller promotes it back (blocks, the copy to the card, a new pin);
+        the counts here do not move."""
+        for p in reversed(self.buckets):
+            if p > length - 1 or (usable is not None and not usable(p)):
+                continue
+            e = tier.prefix_get((p, _key(ids, p)))
+            if e is not None:
+                return p, e
+        return None
 
     def bucket_for_insert(self, length: int) -> int | None:
         """Largest bucket ``<= length - 1`` (the longest prefix a prompt of

@@ -147,7 +147,29 @@ of its own that a job's state is copied into and out of, or
 ``prefill_window_paged``, over the loop's pools and a static table row),
 captured with the loop's chunk while every slot is dead.
 
-Not ported (``ROADMAP.md``): the host and disk KV tiers, decode windows,
+Host KV tier (``KV_HOST_BUDGET_MB``, paged only; ``kv_blocks.KVHostTier``
+on the engine), as in the reference: a checkpoint (preemption, a dry
+pool) copies the blocks behind its resume prompt to pinned host buffers
+before it frees them (``_swap_out``: one ``index_select`` of the pool
+leaves on the loop's CUDA stream, behind every chunk that wrote them, then
+a device-to-host copy that lands at the next iteration top,
+``_drain_swapouts``); its resume allocates those blocks up front and
+copies them back ``KV_PREFETCH_BLOCKS`` a chunk boundary while streams
+decode, as many for each resuming stream otherwise (``_advance_swapins``:
+pinned staging, then ``index_copy_`` into the pools on the loop's stream,
+so it lands after any chunk in flight that still names a fresh block),
+then goes live by the chunked-prefill handoff, token-identically.  A job checkpointed
+mid-prefill swaps out its consumed windows and resumes as a job at that
+boundary (``_swapin_to_prefill``).  An evicted paged prefix pin is
+demoted: the engine queues it with its refs (``_drain_demotions`` gathers
+it, the refs free when it lands) and a later device miss promotes it back
+(``_promote_host_prefix``).  The copies are eager and write the pools the
+graphs captured in place.  A host copy that is missing, evicted or not
+landed falls back to the recompute resume (``swap_fallbacks``); a dry pool
+at swap-in requeues the stream with its entry intact.  A flush of pins
+before a reset demotes nothing (``_flush_pins``).
+
+Not ported (``ROADMAP.md``): the disk KV tier, decode windows,
 pipelining deeper than one chunk, speculative decoding in the loop,
 fleets, the journal and the supervisor (the reference's ``prefill_chunk``
 fault site with them).
@@ -201,7 +223,7 @@ class _Stream:
     __slots__ = ("feats", "chunks", "loop", "cancelled", "produced", "released", "budget",
                  "klass", "deadline", "started", "kv", "kv_held", "skip", "tokens",
                  "preempted", "_removed", "blocks", "s_base", "s_lo", "rid", "t_emit", "t_in",
-                 "t_queued")
+                 "t_queued", "swap")
 
     # The admission ledger's marker: paged streams are accounted by the pool.
     is_stream = True
@@ -240,6 +262,9 @@ class _Stream:
         self.blocks: StreamBlocks | None = None
         self.s_base = 0
         self.s_lo = 0
+        # The host tier's copy of its resume KV (a ``SwapEntry``) while it
+        # waits, checkpointed, or is prefetched back.
+        self.swap = None
         self.rid = str(feats.get("request_id") or "")
         self.t_emit = 0.0
 
@@ -274,6 +299,32 @@ class _PrefillJob:
         self.t_in = time.monotonic()
 
 
+class _SwapInJob:
+    """A checkpointed stream whose resume KV comes back from the host tier:
+    its device blocks, allocated up front and filled ``copied`` at a time
+    (``_advance_swapins``).  ``resume_at`` is the positions the host copy
+    covers: ``L`` for a whole resume prompt (the stream then goes live by
+    the chunked-prefill handoff, whose fields it shares with
+    ``_PrefillJob``), fewer for a job checkpointed mid-prefill, which
+    becomes a prefill job again at that boundary."""
+
+    __slots__ = ("st", "ids", "L", "p_len", "sb", "table_row", "copied", "ready", "state",
+                 "t_in", "resume_at")
+
+    def __init__(self, st: _Stream, ids: np.ndarray, length: int):
+        self.st = st
+        self.ids = ids
+        self.L = length
+        self.p_len = 0  # swapped blocks are the stream's own: no adopted prefix
+        self.sb: StreamBlocks | None = None
+        self.table_row: np.ndarray | None = None
+        self.copied = 0
+        self.ready = False
+        self.state = None
+        self.t_in = time.monotonic()
+        self.resume_at = length
+
+
 class _HostCopy:
     """Device-to-host copies started without waiting (pinned buffers and
     an event on the card; copies on the CPU).  ``get`` waits for them."""
@@ -289,10 +340,13 @@ class _HostCopy:
         else:
             self.host = [t.clone() for t in tensors]
 
-    def get(self) -> list[np.ndarray]:
+    def tensors(self) -> list[torch.Tensor]:
         if self.event is not None:
             self.event.synchronize()
-        return [h.numpy() for h in self.host]
+        return self.host
+
+    def get(self) -> list[np.ndarray]:
+        return [h.numpy() for h in self.tensors()]
 
 
 class ContinuousDecodeLoop:
@@ -394,6 +448,22 @@ class ContinuousDecodeLoop:
         self.recast_hits = 0
         self.peak_shared_blocks = 0
         self.peak_shared_in_chunk = 0
+        # The host KV tier (paged, KV_HOST_BUDGET_MB): streams whose resume
+        # KV is coming back, swap-outs and demotions whose device-to-host
+        # copy is in flight ((entry, gathered device rows, host copy, device
+        # refs freed when it lands)), the blocks a boundary prefetches while
+        # streams decode, and the counts.
+        self._swapping: list[_SwapInJob] = []
+        self._swap_pending: list = []
+        self.swap_chunk_blocks = max(1, int(getattr(cfg, "kv_prefetch_blocks", 4) or 4))
+        self.swap_outs = 0
+        self.swap_ins = 0
+        self.swap_fallbacks = 0
+        self.swap_out_bytes = 0
+        self.swap_in_bytes = 0
+        self.prefetch_blocks_total = 0
+        self.prefetch_blocks_live = 0
+        self.host_prefix_promotes = 0
 
     # ------------------------------------------------------------------
     # event-loop side
@@ -532,8 +602,12 @@ class ContinuousDecodeLoop:
                 # Streams whose deadline passed in the queue shed as 504s
                 # before any admission work.
                 self._expire_queued()
+                # The host tier's copies of the last iteration land in its
+                # buffers, and demoted pins gather out.
+                self._drain_swapouts()
+                self._drain_demotions()
                 if (not self.active and not self._inflight and not self._prefilling
-                        and self.queue.qsize() == 0):
+                        and not self._swapping and self.queue.qsize() == 0):
                     st = self.queue.pop(timeout=0.05, fits=self.admission.fits)
                     if st is None:
                         continue
@@ -547,9 +621,10 @@ class ContinuousDecodeLoop:
                         and self.queue.waiting(INTERACTIVE) > 0):
                     self._preempt_for_interactive()
                 # Chunk boundary: admit everything that fits, as one wave.
-                # Jobs mid-prefill count against the slots: each needs one at
-                # its handoff.
-                while len(wave) + len(self.active) + len(self._prefilling) < self.n_slots:
+                # Jobs mid-prefill or mid-prefetch count against the slots:
+                # each needs one at its handoff.
+                while (len(wave) + len(self.active) + len(self._prefilling)
+                       + len(self._swapping) < self.n_slots):
                     st = self.queue.pop_nowait(fits=self.admission.fits)
                     if st is None:
                         break
@@ -586,8 +661,10 @@ class ContinuousDecodeLoop:
                         if self._pending_admissions:
                             self._admit_complete(self._pending_admissions)
                             self._pending_admissions = []
-                # Prefill windows queue behind the live chunk on the device.
-                advanced = self._advance_prefill()
+                # Prefetches and prefill windows queue behind the live chunk
+                # on the device.
+                advanced = self._advance_swapins()
+                advanced = self._advance_prefill() or advanced
                 # One chunk in flight: route the older one once the next
                 # is dispatched, or everything when nothing was.
                 if len(self._inflight) > 1:
@@ -603,6 +680,10 @@ class ContinuousDecodeLoop:
                 log.exception("decode loop iteration failed")
                 self._fail_all(e)
         closed = StreamClosedError("server stopping")
+        self._drain_swapouts()
+        if self.paged:
+            # Demotions never gathered now: their refs return to the pool.
+            self._free_demotions()
         self._fail_jobs(closed)
         for st in self.queue.drain_all():
             self._finish(st, closed)
@@ -627,14 +708,16 @@ class ContinuousDecodeLoop:
         self._inflight.clear()
         self._state_stale = True  # reset at the next admission
         if self.paged and self.prefix_cache is not None:
-            self.prefix_cache.flush()  # the pins name blocks of the pools to be reset
+            self._flush_pins()  # the pins name blocks of the pools to be reset
 
     def _fail_jobs(self, exc: BaseException) -> None:
-        """End every stream mid-prefill with ``exc``, its KV returned."""
-        for job in self._prefilling:
+        """End every stream mid-prefill or mid-prefetch with ``exc``, its KV
+        returned."""
+        for job in self._prefilling + self._swapping:
             self._drop_job(job)
             self._finish(job.st, exc)
         self._prefilling = []
+        self._swapping = []
 
     def _reserve(self, st: _Stream) -> None:
         tr = tracing.tracer()
@@ -662,6 +745,7 @@ class ContinuousDecodeLoop:
         """Exactly once per stream."""
         if not st.released:
             st.released = True
+            self._drop_swap(st)  # nothing resumes it now
             self.admission.release(st)
             dt = time.monotonic() - st.t_in
             with self._admitted_lock:
@@ -773,6 +857,11 @@ class ContinuousDecodeLoop:
             self.replays += 1
         st.produced = 0
         if st.blocks is not None:
+            # The feats now spell the resume prompt, whose KV is positions
+            # [0, length) of these blocks: under the host tier they are
+            # copied out before they free, and the resume prefetches them.
+            if self.paged:
+                self._swap_out(st)
             st.blocks.release()
         # A checkpointed stream holds no blocks and no reservation.
         st.blocks = None
@@ -785,7 +874,8 @@ class ContinuousDecodeLoop:
         if not self._checkpoint_for_resume(st):
             self._finish(st)
             return
-        st.kv = self.admission.kv_bytes_for_resume(st.feats)
+        # A host-swapped checkpoint is charged the blocks its prefetch takes.
+        st.kv = self.admission.kv_bytes_for_resume(st.feats, swap_tokens=self._swap_tokens(st))
         st.t_queued = time.monotonic()
         self.queue.put(st, force=True)
 
@@ -825,7 +915,9 @@ class ContinuousDecodeLoop:
                     f"prompt longer than the largest seq bucket ({self.max_prompt}) "
                     "cannot join the shared batch"
                 ))
-            else:
+            elif not (self.paged and st.swap is not None and self._start_swapin(st)):
+                # (A host-swapped checkpoint resumes by prefetch; one whose
+                # host copy is gone falls back to this recompute admission.)
                 ok.append(st)
         if self.prefill_chunk:
             # A prompt longer than one window, or than the largest bucket,
@@ -872,6 +964,9 @@ class ContinuousDecodeLoop:
             length = int(st.feats["length"])
             row_ids = np.asarray(st.feats["input_ids"], np.int32)[:length]
             m = cache.match(row_ids, length, usable=eng._prefix_guard(length))
+            if m is None and self.paged:
+                # A pin demoted to the host tier comes back on a device miss.
+                m = self._promote_host_prefix(row_ids, length, eng._prefix_guard(length))
             if m is not None and self.paged and (self._state is None or self._state_stale
                                                  or not isinstance(m[1], PagedPrefix)):
                 m = None  # counted as a hit, as in the reference, but served as a miss
@@ -1043,6 +1138,9 @@ class ContinuousDecodeLoop:
             if self.prefix_cache is not None:
                 m = self.prefix_cache.match(ids, length,
                                             usable=self._chunked_prefix_usable(length))
+                if m is None and self.paged:
+                    m = self._promote_host_prefix(ids, length,
+                                                  self._chunked_prefix_usable(length))
                 if m is not None and (not self.paged or isinstance(m[1], PagedPrefix)):
                     p_len, prefix = m
                     if st.started and st.skip == 0:
@@ -1087,8 +1185,10 @@ class ContinuousDecodeLoop:
     def _checkpoint_job(self, job: _PrefillJob) -> None:
         """Checkpoint a job whose window found the pool dry: nothing was
         delivered, so its resume is a clean restart through admission; it
-        holds no block while it waits and reserves its first window
-        again."""
+        holds no block while it waits and reserves its first window again,
+        or, under the host tier, the blocks of the windows it consumed,
+        which are copied out first and prefetched back at its resume."""
+        self._swap_out_job(job)
         self._drop_job(job)
         self.prefill_checkpoints += 1
         self.admission.release(job.st)
@@ -1345,7 +1445,7 @@ class ContinuousDecodeLoop:
         st = self._state
         if self.paged and self.prefix_cache is not None:
             # The pins name blocks of the pools being cleared.
-            self.prefix_cache.flush()
+            self._flush_pins()
         if st is not None:
             self._reset_state(st)
             return
@@ -1387,6 +1487,11 @@ class ContinuousDecodeLoop:
         if self.paged:
             self._table_dev = torch.tensor(self._table, device=dev)
             self.admission.note_pool()
+            tier = self._host_tier()
+            if tier is not None:
+                # The host buffers, once the pool leaves' shapes are known.
+                self._ensure_host_pool(tier)
+                self._note_host_gauges()
         self._capture_chunks()
 
     def _slot_width(self) -> int:
@@ -1540,6 +1645,405 @@ class ContinuousDecodeLoop:
         self.pool.ref(ids)
         cache.insert(row_ids, p_ins, PagedPrefix(p_ins, tuple(ids),
                                                  p_ins * self.engine.kv_token_bytes()))
+
+    # -- host KV tier (KV_HOST_BUDGET_MB) --------------------------------
+
+    def _host_tier(self):
+        """The engine's ``KVHostTier`` when this loop uses one (paged, a
+        budget of at least one block), else None."""
+        if not self.paged:
+            return None
+        tier = getattr(self.engine, "kv_host", None)
+        return tier if tier is not None and tier.enabled else None
+
+    def _ensure_host_pool(self, tier) -> bool:
+        """Build the tier's buffers, pinned on the card, off the pool
+        leaves (the first build, at the slot state's allocation, pins them
+        all before the service is ready)."""
+        return tier.ensure_pool(
+            [(tuple(x.shape[1:]), x.dtype) for x in self._pool_leaves()],
+            pin=self.engine.device.type == "cuda")
+
+    def _pool_leaves(self) -> list[torch.Tensor]:
+        """The paged pools in the host buffers' order: ``cache_k`` then
+        ``cache_v``, layer by layer, an int8 payload before its scale."""
+        out = []
+        for entry in self._state.cache_k + self._state.cache_v:
+            out.extend(entry if isinstance(entry, tuple) else (entry,))
+        return out
+
+    def _swap_tokens(self, st: _Stream) -> int | None:
+        e = st.swap
+        return e.tokens if e is not None and e.alive else None
+
+    def _drop_swap(self, st: _Stream) -> None:
+        """Release a stream's host entry (it ended, fell back, went live or
+        is swapped out again), through the entry's own ledger."""
+        e = st.swap
+        if e is not None:
+            st.swap = None
+            if e.ledger is not None:
+                e.ledger.release(e)
+            self._note_host_gauges()
+
+    def _note_host_gauges(self) -> None:
+        tier = self._host_tier()
+        if tier is None or tier.pool is None:
+            return
+        metrics.KV_HOST_POOL_BLOCKS.labels(self.model, "used").set(tier.pool.used_blocks)
+        metrics.KV_HOST_POOL_BLOCKS.labels(self.model, "free").set(tier.pool.free_blocks)
+
+    def _give_back(self, ids: list[int]) -> None:
+        self.pool.free(ids)
+        self.admission.note_pool()
+
+    def _free_demotions(self) -> None:
+        """Demotions queued and not gathered return their device refs."""
+        eng = self.engine
+        pending, eng._host_demote_pending = eng._host_demote_pending, []
+        for _, pp in pending:
+            self._give_back(list(pp.block_ids))
+
+    def _flush_pins(self) -> None:
+        """Flush the prefix cache's pins before their blocks are cleared:
+        no demotion (its copy would read what the reset clears), and the
+        demotions still queued free their refs."""
+        eng = self.engine
+        prev = getattr(eng, "_host_demote_on", True)
+        eng._host_demote_on = False
+        try:
+            self.prefix_cache.flush()
+        finally:
+            eng._host_demote_on = prev
+        if getattr(eng, "_host_demote_pending", None):
+            self._free_demotions()
+
+    def _gather(self, block_ids: list[int]):
+        """One gather of ``block_ids``' rows from every pool leaf, on the
+        loop's CUDA stream (after every chunk in flight that wrote them),
+        into fresh device tensors, and their copy to the host started
+        without waiting; the blocks may go to another stream at once.
+        Returns (gathered rows, which must outlive the copy; the copy)."""
+        idx = torch.as_tensor(list(block_ids), dtype=torch.long).to(self.engine.device)
+        with self.engine._lock:
+            gathered = [leaf.index_select(0, idx) for leaf in self._pool_leaves()]
+            return gathered, _HostCopy(*gathered)
+
+    def _swap_out(self, st: _Stream) -> None:
+        """Copy the blocks behind a checkpointed stream's resume prompt
+        (positions ``[0, length)`` of its feats, rewritten already) to the
+        host tier."""
+        self._swap_out_blocks(st, list(st.blocks.ids), int(st.feats.get("length", 0) or 0))
+
+    def _swap_out_job(self, job: _PrefillJob) -> None:
+        """A job checkpointed mid-prefill: copy the windows it consumed
+        (``[0, consumed)``, block-aligned, as PREFILL_CHUNK and the prefix
+        buckets are) to the host tier before its blocks free, so its resume
+        prefetches them and prefills only the windows it never ran."""
+        cov = int(job.consumed)
+        if not self.paged or job.sb is None or cov <= 0 or cov % self.block_size:
+            return
+        self._swap_out_blocks(job.st, list(job.sb.ids), cov)
+
+    def _swap_out_blocks(self, st: _Stream, block_ids: list[int], cov: int) -> None:
+        """Swap the first ``blocks_for(cov)`` of ``block_ids`` out as
+        ``st``'s resume KV: a host entry, one gather, the copy landing at
+        the next iteration top.  Any failure leaves the stream on the
+        recompute resume: the swap is never a correctness dependency."""
+        tier = self._host_tier()
+        if tier is None or self._state is None or st.cancelled.is_set():
+            return
+        self._drop_swap(st)  # supersedes an earlier entry
+        nb = blocks_for(cov, self.block_size)
+        if nb <= 0 or nb > len(block_ids):
+            return
+        entry = None
+        try:
+            if not self._ensure_host_pool(tier):
+                return
+            entry = tier.reserve(nb, cov, kind="stream")
+            if entry is None:
+                return  # the tier cannot hold it even after eviction
+            gathered, copy = self._gather(block_ids[:nb])
+        except Exception:
+            log.exception("KV swap-out failed; the stream resumes by recompute")
+            if entry is not None:
+                tier.release(entry)
+            return
+        self._swap_pending.append((entry, gathered, copy, None))
+        st.swap = entry
+        self.swap_outs += 1
+        nbytes = nb * self.pool.block_bytes
+        self.swap_out_bytes += nbytes
+        metrics.KV_SWAP_BYTES.labels(self.model, "out").inc(nbytes)
+        self._note_host_gauges()
+
+    def _drain_swapouts(self) -> None:
+        """Land the device-to-host copies in flight in the host buffers
+        (``index_copy_`` on the CPU; the copies started at the gather have
+        usually finished): at the iteration top, before a swap-in reads an
+        entry, and at shutdown.  A demotion's device refs free here."""
+        if not self._swap_pending:
+            return
+        pending, self._swap_pending = self._swap_pending, []
+        for entry, _gathered, copy, free_ids in pending:
+            try:
+                if entry.alive:
+                    entry.pool.write(entry.ids, copy.tensors())
+                    entry.ready = True
+            except Exception:
+                log.exception("KV swap-out copy failed")
+                if entry.ledger is not None:
+                    entry.ledger.release(entry)
+            finally:
+                if free_ids:
+                    self._give_back(free_ids)
+        self._note_host_gauges()
+
+    def _drain_demotions(self) -> None:
+        """Gather the prefix pins the cache evicted since the last
+        iteration (their refs came with them) to the host tier; the refs
+        free when the copy lands.  A demotion that cannot land (no tier,
+        no state, the key resident already, the tier full) frees its refs
+        now: an eviction still evicts."""
+        eng = self.engine
+        pending = getattr(eng, "_host_demote_pending", None)
+        if not pending:
+            return
+        eng._host_demote_pending = []
+        tier = self._host_tier()
+        for key, pp in pending:
+            ids = list(pp.block_ids)
+            entry = None
+            if (tier is not None and self._state is not None and not self._state_stale
+                    and ids and self._ensure_host_pool(tier)
+                    and not tier.prefix_resident(key)):
+                entry = tier.reserve(len(ids), pp.p_len, kind="prefix", key=key)
+            if entry is None:
+                self._give_back(ids)
+                continue
+            try:
+                gathered, copy = self._gather(ids)
+            except Exception:
+                log.exception("prefix demotion gather failed")
+                tier.release(entry)
+                self._give_back(ids)
+                continue
+            nbytes = len(ids) * self.pool.block_bytes
+            self.swap_out_bytes += nbytes
+            metrics.KV_SWAP_BYTES.labels(self.model, "out").inc(nbytes)
+            self._swap_pending.append((entry, gathered, copy, ids))
+
+    def _host_to_device(self, entry, pos: int, dev_ids: list[int]) -> None:
+        """Copy host blocks ``entry.ids[pos:pos + n]`` into device blocks
+        ``dev_ids`` (the caller holds the engine's lock): the host rows
+        into pinned staging, to the card without waiting, then
+        ``index_copy_`` into the pools on the loop's stream, behind any
+        chunk in flight whose table still names those blocks (a vacated
+        row's); the pools are the graphs' own tensors, written in place."""
+        dev = self.engine.device
+        pin = dev.type == "cuda"
+        n = len(dev_ids)
+        staging = [torch.empty((n,) + tuple(buf.shape[1:]), dtype=buf.dtype, pin_memory=pin)
+                   for buf in entry.pool.leaves]
+        entry.pool.read(entry.ids[pos:pos + n], out=staging)
+        idx = torch.as_tensor(list(dev_ids), dtype=torch.long).to(dev)
+        for leaf, rows in zip(self._pool_leaves(), staging):
+            leaf.index_copy_(0, idx, rows.to(dev, non_blocking=True))
+
+    def _start_swapin(self, st: _Stream) -> bool:
+        """Begin a host-swapped checkpoint's resume (the caller holds the
+        engine's lock): allocate the device blocks its host copy covers
+        (admission charged exactly them) and queue the prefetch.  False
+        only when the host copy is unusable (evicted, another tier's, not
+        landed, or covering neither the whole resume prompt nor a
+        block-aligned part of it that chunked prefill can continue): the
+        caller admits the stream by recompute.  A dry pool requeues it with
+        its entry intact."""
+        entry = st.swap
+        tier = self._host_tier()
+        self._drain_swapouts()  # the entry's copy may not have landed yet
+        length = int(st.feats["length"])
+        partial_ok = (entry is not None and 0 < entry.tokens < length and bool(self.prefill_chunk)
+                      and entry.tokens % self.block_size == 0)
+        if (entry is None or tier is None or tier.pool is None or entry.pool is not tier.pool
+                or not entry.alive or not entry.ready
+                or not (entry.tokens == length or partial_ok)):
+            self._drop_swap(st)
+            self.swap_fallbacks += 1
+            metrics.KV_SWAP_RESUMES.labels(self.model, "fallback").inc()
+            return False
+        self._pending_wave = [s for s in self._pending_wave if s is not st]
+        ids = np.asarray(st.feats["input_ids"], np.int32)[:length]
+        st.feats["prefill_mode"] = "swapped"
+        job = _SwapInJob(st, ids, length)
+        job.resume_at = int(entry.tokens)
+        job.sb = StreamBlocks(self.pool, self.block_size)
+        try:
+            if self._state is None or self._state_stale:
+                self._build_empty_state()
+            # Exactly the blocks the host copy covers; a partial resume
+            # grows the rest a window at a time.
+            self._reclaim_then_ensure(job.sb, job.resume_at)
+        except OutOfBlocks:
+            job.sb.release()
+            self._note_stall()
+            self.admission.release(st)
+            self._requeue_preempted(st)
+            return True
+        except Exception as e:
+            job.sb.release()
+            self._finish(st, e)
+            return True
+        # Growth runs off the exact length: the KV covers real positions only.
+        st.s_lo, st.s_base = 0, length
+        job.table_row = np.full(self.nb_max, self.pool.num_blocks, np.int32)
+        job.table_row[: len(job.sb.ids)] = job.sb.ids
+        self._swapping.append(job)
+        self.admission.note_pool()
+        return True
+
+    def _note_swapin(self, st: _Stream) -> None:
+        self.swap_ins += 1
+        metrics.KV_SWAP_RESUMES.labels(self.model, "swapped").inc()
+        self._drop_swap(st)
+
+    def _swapin_to_prefill(self, job: _SwapInJob) -> None:
+        """A mid-prefill checkpoint's consumed windows are back: the stream
+        becomes a prefill job again at that boundary, its restored blocks
+        what those windows wrote, so only the windows it never ran
+        prefill."""
+        st = job.st
+        self._swapping.remove(job)
+        pj = _PrefillJob(st, job.ids, job.L)
+        pj.consumed = job.resume_at
+        pj.sb, job.sb = job.sb, None
+        pj.table_row = job.table_row
+        self._note_swapin(st)
+        self._prefilling.append(pj)
+
+    def _swap_handoff(self, job: _SwapInJob) -> bool:
+        """A whole resume prompt's blocks are back: the chunked-prefill
+        handoff puts the stream live (``write_idx = L - 1``, step 0), its
+        tokens those of a fresh prefill of the same prompt."""
+        st = job.st
+        ok = self._handoff_job(job)
+        if ok:
+            self._note_swapin(st)
+        return ok
+
+    def _advance_swapins(self) -> bool:
+        """Copy the resuming streams' blocks back, ``KV_PREFETCH_BLOCKS`` a
+        chunk boundary in all while streams decode (as many for each job
+        when none does), interactive streams first, behind the live chunk
+        as prefill windows are; hand off the ones complete when a slot is
+        free.  A host entry evicted mid-prefetch returns its device blocks
+        and the stream resumes by recompute.  Returns True when a copy or
+        a handoff happened."""
+        if not self._swapping:
+            return False
+        advanced = False
+        live = bool(self.active)
+        for job in list(self._swapping):
+            if job.st.cancelled.is_set():
+                self._swapping.remove(job)
+                self._drop_job(job)
+                self._release(job.st)
+        for job in [j for j in self._swapping if j.ready]:
+            if not self.free:
+                break
+            self._swapping.remove(job)
+            advanced = self._swap_handoff(job) or advanced
+        budget = self.swap_chunk_blocks if live else 1 << 30
+        jobs = sorted((j for j in self._swapping if not j.ready),
+                      key=lambda j: (j.st.klass != INTERACTIVE, j.t_in))
+        for job in jobs:
+            if budget <= 0:
+                break
+            entry = job.st.swap
+            if entry is None or not entry.alive:
+                self._swapping.remove(job)
+                self._drop_job(job)
+                self._drop_swap(job.st)
+                self.swap_fallbacks += 1
+                metrics.KV_SWAP_RESUMES.labels(self.model, "fallback").inc()
+                self.admission.release(job.st)
+                self._requeue_preempted(job.st)
+                continue
+            n = len(job.sb.ids)
+            k = min(self.swap_chunk_blocks, n - job.copied, budget)
+            if k > 0:
+                try:
+                    with self.engine._lock:
+                        self._host_to_device(entry, job.copied,
+                                             job.sb.ids[job.copied: job.copied + k])
+                except Exception as e:
+                    log.exception("KV prefetch failed")
+                    self._swapping.remove(job)
+                    self._drop_job(job)
+                    self._finish(job.st, e)
+                    continue
+                job.copied += k
+                budget -= k
+                advanced = True
+                nbytes = k * self.pool.block_bytes
+                self.swap_in_bytes += nbytes
+                self.prefetch_blocks_total += k
+                if live:
+                    self.prefetch_blocks_live += k
+                metrics.KV_SWAP_BYTES.labels(self.model, "in").inc(nbytes)
+            if job.copied >= n:
+                if job.resume_at < job.L:
+                    self._swapin_to_prefill(job)
+                    advanced = True
+                else:
+                    job.ready = True
+                    if self.free:
+                        self._swapping.remove(job)
+                        advanced = self._swap_handoff(job) or advanced
+        return advanced
+
+    def _promote_host_prefix(self, row_ids: np.ndarray, length: int, usable):
+        """On a device miss, a prefix the host tier holds comes back (the
+        caller holds the engine's lock): fresh blocks, the copy to the
+        card, a new pin whose ref is the allocation's.  Returns the match
+        ``(P, PagedPrefix)``, or None on any miss or pressure: a promotion
+        never fails or sheds a request."""
+        tier = self._host_tier()
+        cache = self.prefix_cache
+        if (tier is None or tier.ledger is None or cache is None or self._state is None
+                or self._state_stale):
+            return None
+        m = cache.host_lookup(row_ids, length, tier, usable=usable)
+        if m is None:
+            return None
+        p_len, entry = m
+        nb = p_len // self.block_size
+        if nb <= 0 or len(entry.ids) < nb or not entry.ready:
+            return None
+        try:
+            ids = self.pool.alloc(nb)
+        except OutOfBlocks:
+            return None
+        try:
+            k = self.swap_chunk_blocks
+            for i in range(0, nb, k):
+                self._host_to_device(entry, i, ids[i: i + k])
+        except Exception:
+            log.exception("prefix promotion copy failed")
+            self._give_back(ids)
+            return None
+        pp = PagedPrefix(p_len, tuple(ids), p_len * self.engine.kv_token_bytes())
+        cache.insert(row_ids, p_len, pp)
+        if not cache.contains(row_ids, p_len):
+            return None  # evicted straight back out (a budget under one entry)
+        self.admission.note_pool()
+        self.host_prefix_promotes += 1
+        nbytes = nb * self.pool.block_bytes
+        self.swap_in_bytes += nbytes
+        metrics.KV_SWAP_BYTES.labels(self.model, "in").inc(nbytes)
+        metrics.KV_HOST_PREFIX_HITS.labels(self.model).inc()
+        return p_len, pp
 
     # -- decode chunks -------------------------------------------------
 

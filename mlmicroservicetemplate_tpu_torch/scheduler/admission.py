@@ -30,6 +30,7 @@ from __future__ import annotations
 import threading
 import time
 
+from ..engine.kv_blocks import blocks_for
 from ..utils import metrics, tracing
 from .policy import BATCH, CLASSES, INTERACTIVE, QueueFullError
 
@@ -86,15 +87,21 @@ class AdmissionController:
         est = getattr(self.engine, "kv_bytes_estimate", None)
         return int(est(feats)) if est is not None else 0
 
-    def kv_bytes_for_resume(self, feats: dict) -> int:
+    def kv_bytes_for_resume(self, feats: dict, swap_tokens: int | None = None) -> int:
         """The footprint a checkpointed stream reserves again at dequeue,
         off its current feats: a recast resume folds the delivered tokens
         into the prompt, so the admission-time estimate can fall short of
         the new prompt's bucket.  A stream checkpointed mid-prefill (chunked
         prefill, a dry pool) holds no block while it waits and reserves
         only its first window again (``kv_blocks_estimate``'s chunked
-        ``initial``), never the whole prompt."""
+        ``initial``), never the whole prompt.  ``swap_tokens`` (the host KV
+        tier): the resume prefetches that many positions' blocks back from
+        the host, all allocated up front, so those blocks are its charge
+        (a mid-prefill checkpoint's then grow window by window)."""
         if self.paged and self.pool is not None:
+            if swap_tokens:
+                return blocks_for(int(swap_tokens), int(self.engine.kv_block_size)) * \
+                    self.pool.block_bytes
             initial, _ = self.engine.kv_blocks_estimate(feats)
             return initial * self.pool.block_bytes
         return self.kv_bytes(feats)

@@ -2,7 +2,8 @@
 
 Holds the fields the ResNet-50, BERT-base, bert-long, llama, GPT-2 and
 T5-small paths, chat, the scheduler's priority classes, KV budget and
-preemption, the prompt prefix, the prefix cache and chunked prefill, and the parent
+preemption, the prompt prefix, the prefix cache, chunked prefill and the
+host KV tier, and the parent
 registration read, under the same
 environment names as the JAX package's ``ServiceConfig``.  ``DEVICE`` is
 ``cuda|cpu`` and defaults to ``cuda``; ``MODEL_NAME`` defaults to
@@ -150,6 +151,14 @@ class ServiceConfig:
     # caches.  Seq buckets round up to the block grid.
     paged_kv: bool = False
     kv_block_size: int = 16
+    # Host-RAM KV tier under PAGED_KV (MB of pinned host buffers; 0 = off):
+    # a checkpointed stream's blocks swap out to it and its resume
+    # prefetches them back instead of prefilling again, and an evicted
+    # prefix-cache pin demotes to it and promotes back on a later match.
+    # kv_prefetch_blocks blocks a chunk boundary come back while streams
+    # decode (as many for each resuming stream when none does).
+    kv_host_budget_mb: float = 0.0
+    kv_prefetch_blocks: int = 4
     # Sequence-parallel width for bert-long: the sequence axis shards over
     # this many devices and attention runs as a ring (parallel/ring.py).
     # 0 = every visible card (one shard on the CPU).
@@ -188,6 +197,10 @@ class ServiceConfig:
             raise ValueError("MAX_STREAMS must be >= 1")
         if not 1 <= self.kv_block_size <= 1024:
             raise ValueError("KV_BLOCK_SIZE must be in [1, 1024]")
+        if not self.kv_host_budget_mb >= 0:  # also NaN
+            raise ValueError("KV_HOST_BUDGET_MB must be >= 0")
+        if not 1 <= self.kv_prefetch_blocks <= 4096:
+            raise ValueError("KV_PREFETCH_BLOCKS must be in [1, 4096]")
         if self.sp < 0:
             raise ValueError(f"SP must be >= 0, got {self.sp}")
         if self.pipeline_depth < 1 or self.trace_ring < 1:
@@ -249,12 +262,11 @@ UNPORTED_KNOBS = {
     "ADAPTER_SLOTS": ("8",),
     # The continuous loop runs one chunk in flight (0 = auto picks that on
     # a directly attached card), preps each chunk after the last one, and
-    # has no host KV tier; its other knobs wait for later slices.
+    # has no disk KV tier under its host tier; its other knobs wait for
+    # later slices.
     "STREAM_PIPELINE": ("0", "1"),
     "HOST_PREP_DOUBLE": _OFF,
-    "KV_HOST_BUDGET_MB": ("0",),
     "KV_DISK_BUDGET_MB": ("0",),
-    "KV_PREFETCH_BLOCKS": ("4",),
     "JOURNAL_DIR": (),
     "JOURNAL_FSYNC": ("always",),
     # The loop always admits behind the live chunk (the JAX default); the
@@ -371,7 +383,7 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
     DRAIN_GRACE_S, WARMUP_SAMPLING, ADMIT_GRACE_MS, CHAT_TEMPLATE, PRIORITY_DEFAULT,
     CLASS_WEIGHT, KV_BUDGET_MB, MAX_STREAM_QUEUE, PREEMPT, PROMPT_PREFIX,
     PREFIX_CACHE, PREFIX_CACHE_MB, PREFILL_CHUNK, PREFILL_BUDGET,
-    PREFILL_MAX_PROMPT.  Any of
+    PREFILL_MAX_PROMPT, KV_HOST_BUDGET_MB, KV_PREFETCH_BLOCKS.  Any of
     ``UNPORTED_KNOBS`` set to a value that turns it on raises;
     ``INERT_KNOBS`` are accepted and ignored."""
     e = dict(os.environ)
@@ -411,14 +423,16 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
                        ("pipeline_depth", "PIPELINE_DEPTH"), ("class_weight", "CLASS_WEIGHT"),
                        ("max_stream_queue", "MAX_STREAM_QUEUE"), ("prefill_chunk", "PREFILL_CHUNK"),
                        ("prefill_budget", "PREFILL_BUDGET"),
-                       ("prefill_max_prompt", "PREFILL_MAX_PROMPT")):
+                       ("prefill_max_prompt", "PREFILL_MAX_PROMPT"),
+                       ("kv_prefetch_blocks", "KV_PREFETCH_BLOCKS")):
         v = get(var)
         if v is not None:
             kwargs[field] = int(v)
     for field, var in (("batch_timeout_ms", "BATCH_TIMEOUT_MS"), ("deadline_ms", "DEADLINE_MS"),
                        ("drain_grace_s", "DRAIN_GRACE_S"), ("admit_grace_ms", "ADMIT_GRACE_MS"),
                        ("register_heartbeat_s", "REGISTER_HEARTBEAT_S"),
-                       ("kv_budget_mb", "KV_BUDGET_MB"), ("prefix_cache_mb", "PREFIX_CACHE_MB")):
+                       ("kv_budget_mb", "KV_BUDGET_MB"), ("prefix_cache_mb", "PREFIX_CACHE_MB"),
+                       ("kv_host_budget_mb", "KV_HOST_BUDGET_MB")):
         v = get(var)
         if v is not None:
             kwargs[field] = float(v)

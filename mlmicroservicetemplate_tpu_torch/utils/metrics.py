@@ -6,7 +6,8 @@ bytes; graph-cache events and warm-phase seconds;
 for streaming generation, generated tokens,
 live streams per loop chunk, time to first token, the gap between chunk
 deliveries, preemptions, the paged KV pool's blocks and its dry-pool
-stalls.  The series live in this package's own
+stalls, and the host KV tier's blocks, swap bytes, resumes and prefix
+hits.  The series live in this package's own
 registry, so a process that also imports the JAX package registers no
 name twice.  Without ``prometheus_client`` every series is a no-op stub.
 """
@@ -147,6 +148,33 @@ KV_POOL_BLOCKS = Gauge(
     "kv_pool_blocks", "Paged-KV pool blocks by state (used | free; used includes "
     "prefix-cache pins)",
     ["model", "state"], registry=REGISTRY,
+)
+KV_HOST_POOL_BLOCKS = Gauge(
+    "kv_host_pool_blocks",
+    "Host-RAM KV tier blocks by state (KV_HOST_BUDGET_MB; used = "
+    "swapped-out stream checkpoints + demoted prefix entries)",
+    ["model", "state"], registry=REGISTRY,
+)
+KV_SWAP_BYTES = Counter(
+    "kv_swap_bytes_total",
+    "KV bytes moved across the device/host tier boundary, by direction "
+    "(out = checkpoint swap-out + prefix demotion, in = resume "
+    "prefetch + prefix promotion)",
+    ["model", "dir"], registry=REGISTRY,
+)
+KV_SWAP_RESUMES = Counter(
+    "kv_swap_resumes_total",
+    "Checkpointed-stream resumes by outcome: swapped = KV prefetched "
+    "from the host tier (zero re-prefill), fallback = host copy "
+    "missing/evicted/foreign so the stream re-prefilled (recast or "
+    "replay)",
+    ["model", "outcome"], registry=REGISTRY,
+)
+KV_HOST_PREFIX_HITS = Counter(
+    "kv_host_prefix_hits_total",
+    "Prefix-cache matches served from the host tier: the entry was "
+    "demoted under device-budget pressure and promoted back on match",
+    ["model"], registry=REGISTRY,
 )
 TBT = Histogram(
     "stream_tbt_seconds",

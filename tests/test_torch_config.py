@@ -481,3 +481,42 @@ def test_admit_grace_ms_is_the_loops_grace():
     assert loop.admit_grace_s == 0.02
     with pytest.raises(ValueError, match="ADMIT_GRACE_MS"):
         load_config({"DEVICE": "cpu", "ADMIT_GRACE_MS": "-1"})
+
+
+@pytest.mark.parametrize("env", [{"KV_HOST_BUDGET_MB": "128"}, {"KV_PREFETCH_BLOCKS": "2"},
+                                 {"KV_HOST_BUDGET_MB": "0.5", "KV_PREFETCH_BLOCKS": "4096"},
+                                 {}])
+def test_host_tier_knobs_are_served_like_jax(env):
+    """KV_HOST_BUDGET_MB and KV_PREFETCH_BLOCKS are read under the JAX
+    names, defaults 0 (off) and 4."""
+    base = {"DEVICE": "cpu", "PAGED_KV": "1"}
+    port, ref = load_config({**base, **env}), jax_load_config({**base, **env})
+    assert (port.kv_host_budget_mb, port.kv_prefetch_blocks) == (
+        ref.kv_host_budget_mb, ref.kv_prefetch_blocks)
+    if not env:
+        assert (port.kv_host_budget_mb, port.kv_prefetch_blocks) == (0.0, 4)
+
+
+@pytest.mark.parametrize("name,value", [("KV_HOST_BUDGET_MB", "-1"), ("KV_PREFETCH_BLOCKS", "0"),
+                                        ("KV_PREFETCH_BLOCKS", "4097"),
+                                        ("KV_HOST_BUDGET_MB", "nan")])
+def test_host_tier_knobs_are_validated_with_the_jax_messages(name, value):
+    """Out of range, both packages refuse at load with the same message
+    (the JAX one wrapped by its validation error)."""
+    if value != "nan":
+        with pytest.raises(ValueError) as want:
+            jax_load_config({"DEVICE": "cpu", name: value})
+    with pytest.raises(ValueError, match=name) as got:
+        load_config({"DEVICE": "cpu", name: value})
+    if value != "nan":
+        assert str(got.value) in str(want.value)
+
+
+@pytest.mark.parametrize("name,value", [("KV_DISK_BUDGET_MB", "128"), ("JOURNAL_DIR", "/journal")])
+def test_disk_tier_and_journal_still_raise_not_ported(name, value):
+    """The disk rung under the host tier and the journal it lives in wait
+    for their slice: set, with or without the host tier, they raise."""
+    for extra in ({}, {"PAGED_KV": "1", "KV_HOST_BUDGET_MB": "64"}):
+        with pytest.raises(ValueError, match=f"{name}.*not ported"):
+            load_config({"DEVICE": "cpu", name: value, **extra})
+    assert load_config({"DEVICE": "cpu", "KV_DISK_BUDGET_MB": "0"}).device == "cpu"
