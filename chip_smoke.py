@@ -6,6 +6,7 @@
     python3 chip_smoke.py --perf           # decode kernels' timing phases only
     python3 chip_smoke.py --chunked        # the chunked-prefill phases only
     python3 chip_smoke.py --tier           # the host KV tier's phase only
+    python3 chip_smoke.py --window         # the fused decode-window phases only
 
 Phases, one JSON line each; any failure exits non-zero and prints no
 result line:
@@ -226,6 +227,29 @@ result line:
    with GB/s, the pinning time, the overlap ratio, the resume latency of
    swapped streams and of the long prompt, its TTFT and the chunk
    boundaries its prefetch took.
+7g. serve llama window: fused decode windows, TinyLlama at full depth
+   through the paged loop (16 slots, 16-token blocks, batch buckets 1 and
+   16, one seq bucket) with ``DECODE_WINDOW=8`` and AUTO on.  A probe
+   service (``DECODE_WINDOW=1``, the model's own eos) streams 240 candidate
+   prompts (every third sampled and seeded) and 8 interactive ones alone;
+   the token that first appears at steps 8-55 of the most candidates is
+   rigged as the eos; 15 batch-class streams that end on it (a third
+   sampled where that many do; budgets mixed, each past its eos) start at
+   once and, once one has 12 tokens, an interactive one that ends on it
+   too arrives.  The same traffic runs on a service at
+   ``DECODE_WINDOW=1`` and on one at 8, twice each (the second pass
+   measured), then the batch streams alone (the interactive one holds W
+   at 1 from its arrival on, so only this pass measures windows end to
+   end).  Gates: windows formed, one ended early; the same tokens at
+   both depths, in both measured passes (any stream that differs is
+   printed); the governor at 1 while the interactive stream is live or
+   waiting and above 1 before; every token teacher-forced; K2 and K3 held
+   against the loop's counts; the pool empty.  Printed, for the mixed
+   pass and the batch-only one: window dispatches, chunks and early
+   exits, the governor's depths over time, chunk and fetch boundaries per
+   token and tokens/s at both depths, the device ms of the chunks windows
+   ran past every row's end (CUDA events around each chunk), K2/K3
+   launches, and each service's warm-up seconds.
 8. decode step: where one llama decode step's time goes at B in {1, 8,
    32}, T=576: wall time against busy time, split into K2, GEMMs, other,
    eager and as a graph of the step.
@@ -252,6 +276,11 @@ result line:
    against the whole-generation service's (``serve gpt2``'s engine, alone),
    identical or parted first inside the tie margin; the windows equal the
    jobs'; K2 held against the counts.
+8d. serve gpt2 window: GPT-2 small through the contiguous loop (16
+   slots, K2) with ``DECODE_WINDOW=4`` and AUTO off, 15 batch streams (a
+   third sampled and seeded) chosen and rigged as in 7g, against
+   ``DECODE_WINDOW=1``; the gates and prints of 7g but the governor's and
+   the early exit.
 8b. decode step gpt2: one GPT-2 step at B in {1, 8, 16} over a 320-key
    cache, greedy against sampled, eager and as graphs, split into K2,
    GEMMs and the rest; the sampler alone as graphs on [B, 50257] logits
@@ -4325,6 +4354,377 @@ def json_key(key: str):
     return read
 
 
+# ---------------------------------------------------------------------------
+# fused decode windows (DECODE_WINDOW)
+
+WINDOW_WORDS = ["window", "fused", "chunk", "batch", "exit", "early", "token", "slot"]
+
+
+def window_candidates(rehearsal: bool, n: int, seed: int):
+    """``n`` prompts under 31 bytes (one seq bucket, 32, with a BOS), every
+    third sampled and seeded (temperature 0.7 or 1.0, top_k 0 or 40)."""
+    import numpy as np
+
+    from mlmicroservicetemplate_tpu_torch.models.registry import RawItem
+
+    rng = np.random.default_rng(seed)
+    items = []
+    for i in range(n):
+        length = int(rng.integers(12, 30))
+        text = " ".join(rng.choice(WINDOW_WORDS, size=length))[:length]
+        sampling = {}
+        if i % 3 == 2:
+            sampling = dict(temperature=(0.7, 1.0)[i // 3 % 2], top_k=(0, 40)[i // 6 % 2],
+                            seed=3000 + seed * 100 + i)
+        items.append(RawItem(text=text, **sampling))
+    return items
+
+
+def rig_eos(bundle, eos: int) -> None:
+    """``eos`` as the model's end token, before anything is captured: the
+    phase's streams end on it (the random weights' own eos is rare)."""
+    bundle.cfg = dataclasses.replace(bundle.cfg, eos_id=int(eos))
+    bundle.model.cfg = bundle.cfg
+
+
+def pick_eos(batch_rows, inter_rows, lo: int, hi: int, need_inter: bool):
+    """The token whose first appearance falls in steps [lo, hi) of the most
+    batch rows (and, with ``need_inter``, at a step >= ``lo`` + 8 of an
+    interactive row); returns (token, {batch row: its step}, interactive
+    row or None)."""
+    def firsts(row):
+        seen = {}
+        for k, t in enumerate(int(x) for x in row):
+            seen.setdefault(t, k)
+        return seen
+
+    counts: dict[int, dict] = {}
+    for i, row in enumerate(batch_rows):
+        for t, k in firsts(row).items():
+            if lo <= k < hi:
+                counts.setdefault(t, {})[i] = k
+    inter_at = [firsts(row) for row in inter_rows]
+    for t in sorted(counts, key=lambda t: -len(counts[t])):
+        j = next((j for j, f in enumerate(inter_at) if lo + 8 <= f.get(t, -1) < hi), None)
+        if j is not None or not need_inter:
+            return t, counts[t], j
+    raise AssertionError("no token ends several streams of the probe")
+
+
+async def drive_window(batcher, bundle, batch_items, inter_items, min_tokens: int,
+                       reset, read, passes):
+    """For each of ``passes`` (whether its interactive streams open):
+    ``reset()``, open the batch-class streams at once; once one has
+    ``min_tokens`` tokens, open the interactive ones; read every stream to
+    its end and wait until the loop released them.  Returns each pass's
+    ([(feats, tokens)] batch first, wall seconds, ``read(its index)``
+    after it)."""
+    import numpy as np
+
+    await batcher.start()
+    loop = batcher._cdl
+
+    async def one(item, klass, go, batch: bool):
+        f = dict(bundle.preprocess(item), priority=klass)
+        toks = []
+        try:
+            async for chunk in batcher.submit_stream(f):
+                toks.extend(int(x) for x in chunk)
+                if batch and len(toks) >= min_tokens:
+                    go.set()
+        finally:
+            go.set()
+        return f, np.array(toks, np.int32)
+
+    out = []
+    try:
+        for i, with_inter in enumerate(passes):
+            reset()
+            go = asyncio.Event()
+            t0 = time.monotonic()
+            tasks = [asyncio.create_task(one(item, "batch", go, True)) for item in batch_items]
+            if with_inter and inter_items:
+                await go.wait()
+                tasks += [asyncio.create_task(one(item, "interactive", go, False))
+                          for item in inter_items]
+            done = await asyncio.gather(*tasks)
+            wall = time.monotonic() - t0
+            while loop.admitted or loop._inflight:
+                await asyncio.sleep(0.005)
+            out.append((done, wall, read(i)))
+    finally:
+        await batcher.stop()
+    return out
+
+
+def window_llama(rehearsal: bool, device: str) -> tuple[dict, int]:
+    """``serve llama window``'s service (TinyLlama at 22 layers, paged, 16
+    slots, one seq bucket used) and its batch streams (rehearsal: the small
+    llama, 6)."""
+    ov = {"MODEL_NAME": "llama", "DEVICE": device, "BATCH_BUCKETS": "1,16",
+          "SEQ_BUCKETS": "32,64", "PAGED_KV": "1", "KV_BLOCK_SIZE": str(PAGE),
+          "MAX_STREAMS": "16", "MAX_DECODE_LEN": "64"}
+    if rehearsal:
+        ov["LLAMA_CONFIG"] = json.dumps(REHEARSAL_LLAMA)
+    return ov, 6 if rehearsal else 15
+
+
+def window_gpt2(rehearsal: bool, device: str) -> tuple[dict, int]:
+    """``serve gpt2 window``'s service (GPT-2 small, contiguous, 16 slots)
+    and its batch streams (rehearsal: 6)."""
+    return ({"MODEL_NAME": "gpt2", "DEVICE": device, "BATCH_BUCKETS": "1,16",
+             "SEQ_BUCKETS": "32,64", "MAX_STREAMS": "16", "MAX_DECODE_LEN": "64"},
+            6 if rehearsal else 15)
+
+
+def window_service(overrides: dict, params, eos: int | None):
+    """A service of the phase's model with ``eos`` rigged, its loop's slot
+    state built and chunk graphs captured (``warm_streams``); the engine's
+    bucket graphs are captured at first use."""
+    from mlmicroservicetemplate_tpu_torch.serve import build_service
+
+    cfg, bundle, engine, batcher = build_service(overrides, params=params)
+    if eos is not None:
+        rig_eos(bundle, eos)
+    warm_s = batcher.warm_streams()
+    return cfg, bundle, engine, batcher, warm_s
+
+
+def phase_serve_window(label: str, overrides: dict, params, ref_model, rehearsal: bool,
+                       card_line: str, cap: int, auto: bool, n_batch: int, n_inter: int,
+                       want_early_exit: bool):
+    """Fused decode windows through the continuous loop: a probe service
+    (``DECODE_WINDOW=1``, the model's own eos) streams candidate prompts
+    and the token that first appears early in most of them becomes the eos;
+    the ``n_batch`` batch-class streams that end on it (budgets mixed, each
+    past its eos) and, once they decode, ``n_inter`` interactive ones run
+    on a service at ``DECODE_WINDOW=1`` and on one at ``cap`` (AUTO
+    ``auto``), twice each (the first pass captures the start graphs; the
+    second is measured).  A third of the batch streams are sampled and
+    seeded where that many sampled candidates end on the eos.  A window
+    ends early only when every slot's row is done, and a row whose stream
+    ended on its budget never is: so every stream ends on the eos.  Gates:
+    windows formed and (``want_early_exit``) one ended early; the same tokens at both
+    depths, greedy and seeded; under AUTO the governor at 1 while an
+    interactive stream is live or waiting; every token teacher-forced; K2
+    and K3 held against the loop's counts; the pool empty, every stream
+    released.  Printed: window counts, the governor's depths over time,
+    chunk and fetch boundaries per token and tokens/s at both depths, the
+    device ms of the chunks a window ran past every row's end."""
+    import numpy as np
+
+    from mlmicroservicetemplate_tpu_torch.ops.attention import decode_attention
+    from mlmicroservicetemplate_tpu_torch.ops.paged_attention import paged_decode_attention
+
+    t_phase = time.monotonic()
+    base = {**overrides, "DECODE_WINDOW_AUTO": "1" if auto else "0"}
+    # The probe: every candidate alone or in waves of 16 (one seq bucket,
+    # the wave's batch bucket as in the measured run).
+    n_cand = (2 if rehearsal else 16) * n_batch
+    cands = window_candidates(rehearsal, n_cand, 1)
+    inter_cands = window_candidates(rehearsal, (4 if rehearsal else 8) * n_inter, 2)
+    inter_cands = [dataclasses.replace(it, temperature=0.0, seed=None) for it in inter_cands]
+    cfg, bundle, engine, batcher, _ = window_service({**base, "DECODE_WINDOW": "1"}, params,
+                                                     None)
+    max_len = engine.max_decode_len
+    waves = [cands[i:i + n_batch] for i in range(0, n_cand, n_batch)]
+    probe = asyncio.run(drive_streams(batcher, bundle, waves + [[it] for it in inter_cands]))
+    rows = probe[1]
+    release(bundle)
+    del cfg, bundle, engine, batcher
+    eos, hits, j = pick_eos(rows[:n_cand], rows[n_cand:], 8, max_len - 8, bool(n_inter))
+    by_step = sorted(hits, key=lambda i: hits[i])
+    sampled = [i for i in by_step if cands[i].temperature > 0][: n_batch // 3]
+    chosen = sorted(sampled + [i for i in by_step if i not in sampled][: n_batch - len(sampled)])
+    if len(chosen) < 3:
+        raise AssertionError(f"{label}: the eos {eos} ends {len(chosen)} probe streams")
+    rng = np.random.default_rng(7)
+    batch_items = [dataclasses.replace(
+        cands[i], max_tokens=int(min(max_len, hits[i] + 1 + 8 * rng.integers(1, 4))))
+        for i in chosen]
+    inter_items = [inter_cands[j]] if n_inter else []
+
+    runs = {}
+    for w in (1, cap):
+        cfg, bundle, engine, batcher, warm_s = window_service(
+            {**base, "DECODE_WINDOW": str(w)}, params, eos)
+        loop = batcher._cdl
+        picks = []
+        if w > 1:
+            gov, t0 = loop._window_gov, time.monotonic()
+            orig_pick = gov.pick
+
+            def pick(max_chunks, interactive_live, interactive_waiting, orig=orig_pick, t0=t0):
+                got = orig(max_chunks, interactive_live, interactive_waiting)
+                picks.append((round(time.monotonic() - t0, 4), got,
+                              bool(interactive_live or interactive_waiting)))
+                return got
+
+            gov.pick = pick
+        def reset(loop=loop, engine=engine, w=w):
+            picks.clear()
+            decode_attention.launches = paged_decode_attention.launches = 0
+            for name in ("prefill_dispatches", "chunk_dispatches", "decode_steps",
+                         "window_dispatches", "window_chunks", "window_early_exits",
+                         "tokens_emitted", "window_tail_chunks"):
+                setattr(loop, name, 0)
+            loop.window_tail_ms = 0.0
+            loop.time_windows = w > 1 and not rehearsal
+            engine.decode_steps = 0
+            engine.dispatch_counts = {}
+
+        def read(i, loop=loop, engine=engine, bundle=bundle, w=w):
+            """The pass's counts; K2 and K3 held against them from the
+            second pass on (the first captures the start graphs)."""
+            if i > 0:
+                held_launches(label, bundle, engine, loop, decode_attention.launches,
+                              paged_decode_attention.launches, rehearsal)
+            dc = dict(engine.dispatch_counts)
+            out = dict(
+                admission_waves=loop.prefill_dispatches, dispatches=loop.chunk_dispatches,
+                slot_decode_steps=loop.decode_steps, window_dispatches=loop.window_dispatches,
+                window_chunks=loop.window_chunks, window_early_exits=loop.window_early_exits,
+                tokens_emitted=loop.tokens_emitted, dispatch_counts=dc,
+                chunk_fetch_per_token=(dc.get("chunk", 0) + dc.get("fetch", 0))
+                / max(1, loop.tokens_emitted),
+                decode_attention_launches=decode_attention.launches,
+                paged_decode_attention_launches=paged_decode_attention.launches,
+                picks=list(picks))
+            if w > 1:
+                out.update(
+                    window_tail_ms=loop.window_tail_ms if not rehearsal else None,
+                    window_tail_chunks=loop.window_tail_chunks,
+                    window_tail_ms_per_chunk=(loop.window_tail_ms / loop.window_tail_chunks
+                                              if loop.window_tail_chunks and not rehearsal
+                                              else None))
+            return out
+
+        # The first pass captures the start graphs it meets; the second is
+        # the one measured and checked.  With interactive streams a third
+        # pass runs the batch streams alone: under AUTO the interactive
+        # one holds W at 1 from its arrival on, so only this pass measures
+        # windows end to end.
+        passes = (True, True, False) if inter_items else (True, True)
+        measured = asyncio.run(drive_window(batcher, bundle, batch_items, inter_items,
+                                            3 * engine.chunk_tokens, reset, read, passes))
+        done, wall, counts = measured[1]
+        pass_picks = counts.pop("picks")
+        if engine.paged_kv and engine.kv_pool.used_blocks != 0:
+            raise AssertionError(f"{label}: {engine.kv_pool.used_blocks} pool blocks still held")
+        if loop.admitted != 0:
+            raise AssertionError(f"{label}: {loop.admitted} streams never released")
+        tokens = sum(len(row) for _, row in done)
+        runs[w] = dict(
+            feats=[f for f, _ in done], rows=[row for _, row in done], bundle=bundle,
+            out=dict(warm_s=warm_s, tokens=tokens, generated_tok_per_s=tokens / wall,
+                     wall_s=wall, **counts),
+            loop=loop, picks=pass_picks)
+        if len(measured) > 2:
+            b_done, b_wall, b_counts = measured[2]
+            b_picks = b_counts.pop("picks")
+            b_tokens = sum(len(row) for _, row in b_done)
+            runs[w]["batch_rows"] = [row for _, row in b_done]
+            runs[w]["batch_only"] = dict(
+                tokens=b_tokens, generated_tok_per_s=b_tokens / b_wall, wall_s=b_wall,
+                **b_counts, governor=[p[1] for p in b_picks] if w > 1 else None)
+        if w > 1:
+            check = teacher_forced(bundle, ref_model, runs[w]["feats"], runs[w]["rows"],
+                                   max_len)
+        release(bundle)
+        del cfg, bundle, engine, batcher, loop
+    one, fused = runs[1], runs[cap]
+    parted = [i for i, (a, b) in enumerate(zip(one["rows"], fused["rows"]))
+              if a.tolist() != b.tolist()]
+    if parted:
+        raise AssertionError(f"{label}: streams {parted} differ between DECODE_WINDOW=1 and "
+                             f"{cap}: " + "; ".join(
+                                 f"{one['rows'][i].tolist()} vs {fused['rows'][i].tolist()}"
+                                 for i in parted[:3]))
+    if "batch_rows" in one:
+        parted = [i for i, (a, b) in enumerate(zip(one["batch_rows"], fused["batch_rows"]))
+                  if a.tolist() != b.tolist()]
+        if parted or fused["batch_only"]["window_dispatches"] < 1:
+            raise AssertionError(f"{label}: batch streams alone: {parted} differ between "
+                                 f"DECODE_WINDOW=1 and {cap}; windows "
+                                 f"{fused['batch_only']['window_dispatches']}")
+    fo = fused["out"]
+    early = fo["window_early_exits"] >= 1 or not want_early_exit
+    if fo["window_dispatches"] < 1 or not early or one["out"]["window_dispatches"] != 0:
+        raise AssertionError(f"{label}: windows {fo['window_dispatches']}, early exits "
+                             f"{fo['window_early_exits']}")
+    picks = fused["picks"]
+    if auto and n_inter:
+        under = [p for p in picks if p[2]]
+        if not under or any(p[1] != 1 for p in under) or not any(p[1] > 1 for p in picks):
+            raise AssertionError(f"{label}: the governor's picks {picks}: W must be 1 while "
+                                 "an interactive stream is live or waiting, and > 1 otherwise")
+    ended = sum(1 for f, row in zip(fused["feats"], fused["rows"])
+                if eos in row.tolist())
+    emit(label, device=str(fused["bundle"].device), card=card_line,
+         layers=fused["bundle"].cfg.num_layers, paged=bool(overrides.get("PAGED_KV") == "1"),
+         cap=cap, auto=auto, eos=eos, batch_streams=len(batch_items),
+         interactive_streams=len(inter_items), streams_ended_on_eos=ended,
+         budgets=[it.max_tokens for it in batch_items],
+         identical_at_both_depths=True, sampled_streams=sum(
+             1 for it in batch_items if it.temperature > 0),
+         w1=one["out"], fused=fo,
+         governor=[p[:2] for p in picks] if auto else None,
+         w1_batch_only=one.get("batch_only"), fused_batch_only=fused.get("batch_only"),
+         phase_s=time.monotonic() - t_phase, **check)
+    return fo
+
+
+def window_main(rehearsal: bool) -> int:
+    """``--window``: the build and the two fused-window phases (``serve
+    llama window`` at 22 layers, ``serve gpt2 window``); with
+    ``--cpu-rehearsal`` the same phases on the CPU at the small llama and
+    no build.  Prints no result line."""
+    import torch
+
+    from mlmicroservicetemplate_tpu_torch.convert.jax_params import (
+        gpt_params_from_jax,
+        llama_params_from_jax,
+    )
+    from mlmicroservicetemplate_tpu_torch.models import gpt as gpt_mod
+    from mlmicroservicetemplate_tpu_torch.models import llama as llama_mod
+
+    phase = "env"
+    device = "cpu" if rehearsal else "cuda"
+    try:
+        if not rehearsal and not torch.cuda.is_available():
+            print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
+            return 1
+        card_line = "cpu (rehearsal)" if rehearsal else card()
+        emit(phase, card=card_line, torch=torch.__version__, cuda=torch.version.cuda,
+             mode="window")
+        if not rehearsal:
+            phase = "build"
+            phase_build()
+        phase = "serve llama window"
+        lcfg = llama_mod.LlamaConfig(**(REHEARSAL_LLAMA if rehearsal else {}), eos_id=1,
+                                     pad_id=0)
+        params = llama_pytree(lcfg, seed=0)
+        ref = llama_mod.build_model(lcfg, llama_params_from_jax(params, lcfg),
+                                    torch.device(device), torch.float32)
+        ov, n = window_llama(rehearsal, device)
+        phase_serve_window(phase, ov, params, ref, rehearsal, card_line, cap=8, auto=True,
+                           n_batch=n, n_inter=1, want_early_exit=True)
+        del ref, params
+        phase = "serve gpt2 window"
+        gcfg = gpt_mod.GPTConfig(eos_id=1, pad_id=0)
+        gparams = gpt2_pytree(gcfg, seed=0)
+        gref = gpt_mod.build_model(gcfg, gpt_params_from_jax(gparams, gcfg),
+                                   torch.device(device), torch.float32)
+        ov, n = window_gpt2(rehearsal, device)
+        phase_serve_window(phase, ov, gparams, gref, rehearsal, card_line, cap=4, auto=False,
+                           n_batch=n, n_inter=0, want_early_exit=False)
+    except Exception as e:
+        traceback.print_exc()
+        emit(phase, ok=False, error=f"{type(e).__name__}: {e}")
+        return 1
+    return 0
+
+
 def perf_main() -> int:
     """``--perf``: the phases that time the decode kernels, alone and inside
     the decode step and the loop chunk; prints no result line.  Run from
@@ -4473,6 +4873,8 @@ def main(argv: list[str]) -> int:
                     help="only the build and the two chunked-prefill phases")
     ap.add_argument("--tier", action="store_true",
                     help="only the build and the host KV tier's phase")
+    ap.add_argument("--window", action="store_true",
+                    help="only the build and the two fused decode-window phases")
     args = ap.parse_args(argv)
     if args.perf:
         return perf_main()
@@ -4480,6 +4882,8 @@ def main(argv: list[str]) -> int:
         return chunked_main()
     if args.tier:
         return tier_main()
+    if args.window:
+        return window_main(args.cpu_rehearsal)
     rehearsal = args.cpu_rehearsal
     t_start = time.monotonic()
     phase = "env"
@@ -4703,6 +5107,15 @@ def main(argv: list[str]) -> int:
         phase = "graphs llama tier"
         graphs("llama tier", tiered[0], tiered[2])
         release(tiered[0])
+        # Fused decode windows at full depth over the paged loop (AUTO on):
+        # batch streams that end on a common token at mixed steps, then an
+        # interactive one; DECODE_WINDOW=1 against 8 on the same traffic.
+        phase = "serve llama window"
+        ov, n = window_llama(rehearsal, device)
+        lwin = phase_serve_window(phase, ov, params, ref_model, rehearsal, card_line, cap=8,
+                                  auto=True, n_batch=n, n_inter=1, want_early_exit=True)
+        k2_streams += lwin["decode_attention_launches"]
+        k3_streams += lwin["paged_decode_attention_launches"]
         del ref_model, params, cref, cparams
         if rehearsal:
             emit("decode step", skipped="cpu rehearsal: no card to profile")
@@ -4778,6 +5191,13 @@ def main(argv: list[str]) -> int:
         phase = "graphs gpt2 chunked"
         graphs("gpt2 chunked", svc[0], svc[2])
         release(svc[0])
+        # Fused decode windows over the contiguous loop, AUTO off, a third
+        # of the streams sampled and seeded.
+        phase = "serve gpt2 window"
+        ov, n = window_gpt2(rehearsal, device)
+        gwin = phase_serve_window(phase, ov, gparams, gref, rehearsal, card_line, cap=4,
+                                  auto=False, n_batch=n, n_inter=0, want_early_exit=False)
+        gpt2_k2 += gwin["decode_attention_launches"]
         del gref, gparams
         if rehearsal:
             emit("decode step gpt2", skipped="cpu rehearsal: no card to profile")

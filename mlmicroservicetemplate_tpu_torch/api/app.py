@@ -823,16 +823,49 @@ async def handle_status(request: web.Request) -> web.Response:
         "uptime_s": round(time.time() - app[K_STARTED_AT], 1),
         "batch_buckets": list(engine.batch_buckets),
         "seq_buckets": list(engine.seq_buckets),
-        "warmup_s": app[K_STATE]["warmup_s"],
+        "warmup_s": (round(app[K_STATE]["warmup_s"], 3)
+                     if app[K_STATE]["warmup_s"] is not None else None),
         "dispatches": engine.dispatches,
         "decode_steps": engine.decode_steps,
         "scheduler": {
             "draining": app[K_BATCHER].draining,
+            "queue_depth": app[K_BATCHER]._queue.qsize(),
             "pending": app[K_BATCHER].pending_work(),
             "kv_committed_bytes": app[K_BATCHER].admission.committed_bytes,
             "kv_budget_bytes": app[K_BATCHER].admission.kv_budget_bytes,
         },
         "compile": app[K_BATCHER].compile_status(),
+    }
+    cdl = app[K_BATCHER]._cdl
+    if cdl is not None:
+        # The loop's dispatch shape: one chunk in flight, the fused decode
+        # window's cap, last depth and counts, and the host's dispatch and
+        # fetch boundaries by site (what a window divides).  The double-
+        # buffered host prep is not ported: off, its counts 0.
+        body["decode"] = {
+            "chain_depth": cdl.chain_depth,
+            "chain_depth_auto": cdl._auto_depth,
+            "chunk_tokens": engine.chunk_tokens,
+            "window_cap": cdl.decode_window,
+            "last_window": cdl.last_window,
+            "window_dispatches": cdl.window_dispatches,
+            "window_chunks": cdl.window_chunks,
+            "window_early_exits": cdl.window_early_exits,
+            "chunk_dispatches": cdl.chunk_dispatches,
+            "tokens_emitted": cdl.tokens_emitted,
+            "host_prep_double": False,
+            "prep_staged": 0,
+            "prep_hits": 0,
+            "prep_misses": 0,
+            "dispatch_counts": dict(sorted(engine.dispatch_counts.items())),
+        }
+    tr = tracing.tracer()
+    # The flight recorder is not ported: its ring and dumps read 0.
+    body["observability"] = {
+        "trace": tr is not None,
+        "spans_created": tr.spans_created if tr is not None else 0,
+        "flight_ring": 0,
+        "flight_dumps": 0,
     }
     err = app[K_STATE]["ready_error"]
     if err:
@@ -844,7 +877,6 @@ async def handle_status(request: web.Request) -> web.Response:
             body["chat_template_warnings"] = warnings
         if getattr(engine, "prefix_cache", None) is not None:
             body["prefix_cache"] = engine.prefix_cache.stats()
-        cdl = app[K_BATCHER]._cdl
         tier = getattr(engine, "kv_host", None)
         if cdl is not None and tier is not None and tier.enabled:
             # The host KV tier: swap traffic, how much of the prefetch ran

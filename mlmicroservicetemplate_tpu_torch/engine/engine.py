@@ -170,6 +170,12 @@ class InferenceEngine:
         self.dispatches = 0
         self.decode_steps = 0
         self.last_decode_steps = 0
+        # Host dispatch and fetch boundaries of streamed generation by site
+        # (``prefill``, ``chunk``, ``fetch``, ``prefill_chunk``), the JAX
+        # engine's per-site dispatch counts: what a fused decode window
+        # divides (``/status.decode.dispatch_counts``).
+        self.dispatch_counts: dict[str, int] = {}
+        self._counts_lock = threading.Lock()
         # Block-paged KV of the continuous loop (PAGED_KV=1).
         self.paged_kv = bool(cfg.paged_kv)
         self.kv_block_size = int(cfg.kv_block_size)
@@ -259,6 +265,14 @@ class InferenceEngine:
         # and the prefix grid's warm accounting (``_warm_prefixed``).
         self._prefix_inputs: dict[tuple[int, int], dict] = {}
         self.prefix_warm: dict | None = None
+
+    def note_dispatch(self, site: str) -> None:
+        """Count one host dispatch or fetch boundary at ``site``.  The
+        counts are replaced, never changed in place, so a reader on another
+        thread (``/status``) iterates a dict no writer touches."""
+        with self._counts_lock:
+            counts = self.dispatch_counts
+            self.dispatch_counts = {**counts, site: counts.get(site, 0) + 1}
 
     def budget_for(self, feats: dict) -> int:
         """One stream's token budget: its max_tokens clamped to the
@@ -770,6 +784,8 @@ class InferenceEngine:
         with self._lock, torch.inference_mode():
             state, toks, sampled, shape = self.start_fused(feats, width)
             chunk, done = toks[0].cpu().numpy(), bool(state.done[0])
+            self.note_dispatch("prefill")
+            self.note_dispatch("fetch")
             if self.graphs is not None:
                 state = clone_state(state)
             self.decode_steps += self.chunk_tokens
@@ -780,6 +796,8 @@ class InferenceEngine:
             with self._lock, torch.inference_mode():
                 toks = self._stream_chunk(shape, state, sampled)
                 chunk, done = toks[0].cpu().numpy(), bool(state.done[0])
+                self.note_dispatch("chunk")
+                self.note_dispatch("fetch")
                 self.decode_steps += self.chunk_tokens
             yield chunk[: budget - produced]
             produced += self.chunk_tokens

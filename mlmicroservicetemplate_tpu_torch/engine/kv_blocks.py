@@ -16,9 +16,10 @@ Copy-on-write prefix sharing (``PREFIX_CACHE=1``): KV is append-only, so
 of one pool ref on a donor's prompt blocks; a stream that hits it adopts
 those blocks (one ref each) and never writes below the prefix, whose
 length is a block-aligned seq bucket.  A block returns to the free list
-only when its last holder (streams and pins alike) frees it.  The
-reference's ``take`` (the journal's restart, ROADMAP A12) and ``trim``
-(decode windows, A8.5) wait for their callers.
+only when its last holder (streams and pins alike) frees it.
+``StreamBlocks.trim`` returns the blocks a fused decode window granted for
+chunks it did not need.  The reference's ``take`` (the journal's restart,
+ROADMAP A12) waits for its caller.
 
 Host KV tier (``KV_HOST_BUDGET_MB``): ``HostBlockPool`` is a second pool
 with the same discipline that also holds the blocks' contents, one host
@@ -169,6 +170,20 @@ class StreamBlocks:
         fresh = self.pool.alloc(need)
         self.ids.extend(fresh)
         return fresh
+
+    def trim(self, n_tokens: int) -> list[int]:
+        """Return the tail blocks past what ``n_tokens`` positions need to
+        the pool, never into the adopted prefix (``shared``); returns the
+        freed ids ([] when already exact).  The reference's loop trims a
+        row still live after a window's early exit; none is (every row is
+        done there and freed whole), so the port's loop never calls it."""
+        keep = max(blocks_for(n_tokens, self.block_size), self.shared)
+        if keep >= len(self.ids):
+            return []
+        tail = self.ids[keep:]
+        self.ids = self.ids[:keep]
+        self.pool.free(tail)
+        return tail
 
     def release(self) -> None:
         if not self.released:

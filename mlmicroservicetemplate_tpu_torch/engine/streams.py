@@ -169,7 +169,24 @@ landed falls back to the recompute resume (``swap_fallbacks``); a dry pool
 at swap-in requeues the stream with its entry intact.  A flush of pins
 before a reset demotes nothing (``_flush_pins``).
 
-Not ported (``ROADMAP.md``): the disk KV tier, decode windows,
+Fused decode windows (``DECODE_WINDOW``, ``DECODE_WINDOW_AUTO``; gpt2 and
+llama), as in the reference: ``DecodeWindowGovernor`` picks each
+dispatch's depth W (1 while interactive streams are live or waiting,
+under AUTO; else up to the cap and the chunks a live stream still needs,
+a power of two), a paged dispatch grants the blocks of all W chunks up
+front, and the W chunks go out with no host sync between them
+(``models/window.py``; on the card the chunk's graph replayed W times,
+each chunk's tokens and ``done`` flags copied into the window's buffers
+before the next replay).  One fetch a window brings its tokens, the
+``done`` history and the chunks it ran by the reference's rule; routing
+replays the per-chunk routing over them.  The reference stops a window on
+the device once every row is done; here the chunks past that point still
+run, over an all-done batch whose tokens are pad, so what reaches the
+streams is identical and the cost is their device time
+(``time_windows``).  Chunked prefill's budget a
+boundary scales by the last window.
+
+Not ported (``ROADMAP.md``): the disk KV tier,
 pipelining deeper than one chunk, speculative decoding in the loop,
 fleets, the journal and the supervisor (the reference's ``prefill_chunk``
 fault site with them).
@@ -190,6 +207,7 @@ import torch
 
 from ..models.gpt import GPTState, PagedState, copy_state, state_tensors
 from ..models.sampling import greedy_params
+from ..models.window import decode_window
 from ..ops.paged_attention import gather_pages, scatter_pages
 from ..runtime import compile_cache
 from ..scheduler.admission import AdmissionController
@@ -198,6 +216,7 @@ from ..scheduler.policy import (
     INTERACTIVE,
     DeadlineExceededError,
     DeadlineQueue,
+    DecodeWindowGovernor,
     PrefillPacer,
     QueueFullError,
 )
@@ -332,7 +351,8 @@ class _HostCopy:
     def __init__(self, *tensors: torch.Tensor):
         self.event = None
         if tensors[0].device.type == "cuda":
-            self.host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+            self.host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                         for t in tensors]
             for h, t in zip(self.host, tensors):
                 h.copy_(t, non_blocking=True)
             self.event = torch.cuda.Event()
@@ -347,6 +367,21 @@ class _HostCopy:
 
     def get(self) -> list[np.ndarray]:
         return [h.numpy() for h in self.tensors()]
+
+
+class _Inflight:
+    """A dispatched chunk or fused window not yet routed: the host copy of
+    its (tokens, done) or (tokens, done history, chunks run), the slots'
+    streams at dispatch, its depth ``w`` (1: one chunk) and, when the loop
+    times windows, the CUDA events around its chunks."""
+
+    __slots__ = ("copy", "snapshot", "w", "events")
+
+    def __init__(self, copy: _HostCopy, snapshot: dict, w: int = 1, events=None):
+        self.copy = copy
+        self.snapshot = snapshot
+        self.w = w
+        self.events = events
 
 
 class ContinuousDecodeLoop:
@@ -415,10 +450,38 @@ class ContinuousDecodeLoop:
         self._state = None
         self._table_dev: torch.Tensor | None = None
         self._state_stale = False
-        # Dispatched chunks not yet routed: (host copy of (tokens, done),
-        # {slot: stream at dispatch}); the snapshot keeps a late chunk's
-        # rows from reaching a slot's next tenant.
-        self._inflight: list[tuple[_HostCopy, dict[int, _Stream]]] = []
+        # Dispatched chunks and windows not yet routed (``_Inflight``); the
+        # snapshot of each keeps its late rows from reaching a slot's next
+        # tenant.  One is in flight at a time (``chain_depth``; STREAM_PIPELINE
+        # 0, auto, picks one on a directly attached card).
+        self._inflight: list[_Inflight] = []
+        self.chain_depth = 1
+        self._auto_depth = int(getattr(cfg, "stream_pipeline", 0) or 0) == 0
+        # Fused decode windows (DECODE_WINDOW): the governor picks each
+        # dispatch's depth; the decoder-only families serve one (an
+        # encoder-decoder's loop has a slot state of its own).
+        self.decode_window = max(1, int(getattr(cfg, "decode_window", 1) or 1))
+        bundle = engine.bundle
+        if self.decode_window > 1 and bundle.slot_state is not None:
+            raise ValueError(
+                f"DECODE_WINDOW={self.decode_window} needs a window-capable family "
+                f"(gpt2/llama); {bundle.name} decodes one chunk per dispatch")
+        self._window_gov = DecodeWindowGovernor(
+            self.decode_window, bool(getattr(cfg, "decode_window_auto", True)))
+        # Window counts (/status.decode): dispatches of more than one chunk,
+        # chunks they ran, those that stopped early, the last depth picked;
+        # tokens sent to streams.
+        self.window_dispatches = 0
+        self.window_chunks = 0
+        self.window_early_exits = 0
+        self.last_window = 1
+        self.tokens_emitted = 0
+        # With ``time_windows`` (off; a measurement turns it on, on the
+        # card), CUDA events around each window's chunks: the device ms its
+        # chunks past ``n_chunks`` took, summed, and how many there were.
+        self.time_windows = False
+        self.window_tail_ms = 0.0
+        self.window_tail_chunks = 0
         # Streams admitted and not yet released (queued or in a slot).
         self._admitted = 0
         self._admitted_lock = threading.Lock()
@@ -563,8 +626,9 @@ class ContinuousDecodeLoop:
         """Build the slot state and run one chunk over it (every row dead)
         before the first stream, so the pools' allocation, the decode
         kernels' first build and load and, on the card, the chunk's graph
-        capture land before the service reports ready; returns the seconds
-        taken.  A no-op once the loop thread runs."""
+        capture land before the service reports ready (a window replays
+        that graph); returns the seconds taken.  A no-op once the loop
+        thread runs."""
         with self._thread_lock:
             if self._thread is not None:
                 return 0.0
@@ -815,9 +879,9 @@ class ContinuousDecodeLoop:
         from the snapshot, since the stream may be admitted again, even to
         the same slot, before that chunk is routed), its blocks return to
         the pool and its table row points at the sentinel."""
-        for _, snapshot in self._inflight:
-            if snapshot.get(slot) is st:
-                del snapshot[slot]
+        for entry in self._inflight:
+            if entry.snapshot.get(slot) is st:
+                del entry.snapshot[slot]
         self.active.pop(slot)
         self.sampled_slots.discard(slot)
         self.free.append(slot)
@@ -893,6 +957,7 @@ class ContinuousDecodeLoop:
             return
         st.tokens.extend(int(t) for t in arr.tolist())
         st.emit(arr)
+        self.tokens_emitted += int(arr.size)
         metrics.TOKENS.labels(self.model).inc(int(arr.size))
         now = time.monotonic()
         if st.t_emit:
@@ -947,6 +1012,7 @@ class ContinuousDecodeLoop:
                 self._finish(st, e)
             return []
         self.prefill_dispatches += 1
+        self.engine.note_dispatch("prefill")
         for st in streams:
             st.s_lo, st.s_base = 0, width
         return [(st, state1, copy, row) for row, st in enumerate(streams)]
@@ -1020,6 +1086,7 @@ class ContinuousDecodeLoop:
                 self._finish(st, e)
             return []
         self.prefill_dispatches += 1
+        eng.note_dispatch("prefill")
         if len(members) > 1:
             self.prefix_hit_waves += 1
         for st, *_ in members:
@@ -1053,8 +1120,12 @@ class ContinuousDecodeLoop:
         """Route each admitted stream's first chunk, then copy its row into
         a free slot (or end it, when the first chunk finished it); the
         caller holds the engine's lock."""
+        fetched: set[int] = set()
         for st, state1, copy, row in started:
             toks_np, done_np = copy.get()
+            if id(copy) not in fetched:  # a wave's rows share one fetch
+                fetched.add(id(copy))
+                self.engine.note_dispatch("fetch")
             st.produced = self.chunk
             self._emit_tokens(st, toks_np[row])
             if bool(done_np[row]) or st.produced >= st.budget:
@@ -1218,6 +1289,7 @@ class ContinuousDecodeLoop:
                 self.admission.note_pool()
             job.consumed = end
             self.prefill_chunk_dispatches += 1
+            eng.note_dispatch("prefill_chunk")
             metrics.PREFILL_CHUNKS.labels(self.model).inc()
 
     def _window_call(self, job: _PrefillJob, ids: np.ndarray, mask: np.ndarray,
@@ -1389,7 +1461,9 @@ class ContinuousDecodeLoop:
                 break
             self._prefilling.remove(job)
             advanced = self._handoff_job(job) or advanced
-        budget = self.prefill_budget if live else 1 << 30
+        # Window boundaries are up to last_window times rarer than chunk
+        # boundaries: prefill keeps its share of the interleave.
+        budget = self.prefill_budget * max(1, self.last_window) if live else 1 << 30
         jobs = sorted((j for j in self._prefilling if not j.ready),
                       key=lambda j: (j.st.klass != INTERACTIVE,
                                      j.st.deadline if j.st.deadline is not None
@@ -2045,25 +2119,55 @@ class ContinuousDecodeLoop:
         metrics.KV_HOST_PREFIX_HITS.labels(self.model).inc()
         return p_len, pp
 
-    # -- decode chunks -------------------------------------------------
+    # -- decode chunks and windows ---------------------------------------
+
+    def _inflight_chunks_ahead(self) -> int:
+        """Chunks the dispatches in flight will deliver at most (a window
+        counts its depth: an early exit only shortens it)."""
+        return sum(e.w for e in self._inflight)
 
     def _work_remains(self) -> bool:
-        """True while a live stream needs tokens beyond what the chunks in
-        flight will deliver."""
-        ahead = len(self._inflight) * self.chunk
+        """True while a live stream needs tokens beyond what the chunks and
+        windows in flight will deliver."""
+        ahead = self._inflight_chunks_ahead() * self.chunk
         return any(st.produced + ahead < st.budget for st in self.active.values())
 
-    def _grow_for_dispatch(self) -> None:
-        """Grant every live row the blocks the next chunk writes (never
-        past its budget: later writes go to the scratch block and are
-        never read).  A row whose growth finds the pool dry is checkpointed
-        and queued again (it resumes token-identically when blocks free up);
-        admission's worst-case bound lets a stream alone always fit."""
+    def interactive_load(self) -> tuple[bool, bool]:
+        """(an interactive stream holds a slot, an interactive stream waits
+        in the queue, mid-prefill or mid-prefetch): the decode window
+        governor's class pressure."""
+        live = any(st.klass == INTERACTIVE and not st.cancelled.is_set()
+                   for st in self.active.values())
+        waiting = self.queue.waiting(INTERACTIVE) > 0 or any(
+            j.st.klass == INTERACTIVE for jobs in (self._prefilling, self._swapping)
+            for j in jobs)
+        return live, waiting
+
+    def _pick_window(self) -> int:
+        """The next dispatch's window depth: the governor's class policy,
+        clamped to the chunks a live stream still needs beyond those in
+        flight."""
+        if self.decode_window <= 1:
+            return 1
+        ahead = self._inflight_chunks_ahead() * self.chunk
+        need = max((st.budget - st.produced - ahead for st in self.active.values()
+                    if not st.cancelled.is_set()), default=0)
+        live, waiting = self.interactive_load()
+        return self._window_gov.pick(max_chunks=-(-need // self.chunk),
+                                     interactive_live=live, interactive_waiting=waiting)
+
+    def _grow_for_dispatch(self, n_chunks: int = 1) -> None:
+        """Grant every live row the blocks the next ``n_chunks`` chunks write
+        (a window's whole depth up front; never past its budget: later
+        writes go to the scratch block and are never read).  A row whose
+        growth finds the pool dry is checkpointed and queued again (it
+        resumes token-identically when blocks free up); admission's
+        worst-case bound lets a stream alone always fit."""
         grew = False
         for slot, st in list(self.active.items()):
             if st.cancelled.is_set() or st.blocks is None:
                 continue  # frees at the next delivery; its writes go to scratch
-            steps = self._dispatched_steps.get(slot, 0) + self.chunk
+            steps = self._dispatched_steps.get(slot, 0) + self.chunk * max(1, n_chunks)
             try:
                 fresh = self._reclaim_then_ensure(st.blocks, st.s_base + min(steps, st.budget))
             except OutOfBlocks:
@@ -2077,21 +2181,52 @@ class ContinuousDecodeLoop:
         if grew:
             self.admission.note_pool()
 
-    def _chunk_call(self, sample: bool = False):
-        """One decode chunk over the whole slot state (caller holds the
-        engine's lock; ``sample``: the sampled variant): the block table
-        copied to its device buffer, then the chunk's graph replayed (on
-        the CPU: the chunk run); returns (state, tokens [n_slots, chunk])."""
+    def _chunk_call(self, sample: bool = False, w: int = 1, events=None):
+        """One decode chunk over the whole slot state, or with ``w`` > 1 a
+        fused window of ``w`` chunks (caller holds the engine's lock;
+        ``sample``: the sampled variant): the block table copied to its
+        device buffer, then each chunk the chunk's graph replayed (on the
+        CPU: the chunk run).  Returns (state, tokens [n_slots, chunk]), or
+        for a window (state, tokens, done history, chunks run) as
+        ``window.decode_window`` does, with no host sync between its
+        chunks and ``events`` (``w`` + 1 CUDA events, or None) recorded
+        before the first and after each."""
         eng = self.engine
+        bundle = eng.bundle
         if self.paged:
             self._table_dev.copy_(torch.from_numpy(self._table), non_blocking=True)
-        if eng.graphs is None:
-            if self.paged:
-                return eng.bundle.paged_chunk(self._state, self._table_dev, self.chunk, sample)
-            return eng.bundle.generate_chunk(self._state, self.chunk, sample)
-        entry = self.chunk_graph(sample)
-        entry.replay()
-        return self._state, entry.outputs
+        if eng.graphs is not None:
+            entry = self.chunk_graph(sample)
+
+            def step(state):
+                entry.replay()
+                return state, entry.outputs
+        elif self.paged:
+            def step(state):
+                return bundle.paged_chunk(state, self._table_dev, self.chunk, sample)
+        else:
+            def step(state):
+                return bundle.generate_chunk(state, self.chunk, sample)
+        if w == 1:
+            return step(self._state)
+        chunk_fn = step
+        if events is not None:
+            events[0].record()
+            marks = iter(events[1:])
+
+            def chunk_fn(state):
+                out = step(state)
+                next(marks).record()
+                return out
+
+        return decode_window(chunk_fn, self._state, self.chunk, w, bundle.cfg.pad_id)
+
+    def _window_events(self, w: int):
+        """``w`` + 1 timing events for a window when the loop times them on
+        the card, else None."""
+        if not self.time_windows or self.engine.device.type != "cuda":
+            return None
+        return [torch.cuda.Event(enable_timing=True) for _ in range(w + 1)]
 
     def chunk_graph(self, sample: bool = False) -> compile_cache.GraphEntry:
         """The graph of one chunk over this loop's slot state, argmax or
@@ -2123,19 +2258,37 @@ class ContinuousDecodeLoop:
         return chunk, (state, table), eng.device
 
     def _dispatch_chunk(self) -> None:
+        """Dispatch one chunk or fused window of every live slot (its depth
+        from ``_pick_window``; paged, the blocks of all its chunks granted
+        first) and start the host copy of its results."""
+        w = self._pick_window()
+        self.last_window = w
         with tracing.span("decode_chunk", cat="engine", n_streams=len(self.active),
-                          streams=[st.rid for st in self.active.values()], paged=self.paged):
+                          streams=[st.rid for st in self.active.values()], paged=self.paged,
+                          window=w):
             if self.paged:
-                self._grow_for_dispatch()
+                self._grow_for_dispatch(w)
+                if not self.active:  # every row checkpointed on a dry pool
+                    return
                 if self.prefix_cache is not None:
                     self._note_shared_rows()
+            events = self._window_events(w) if w > 1 else None
             with self.engine._lock:
-                self._state, toks = self._chunk_call(bool(self.sampled_slots))
-                copy = _HostCopy(toks, self._state.done)
+                if w > 1:
+                    self._state, toks, hist, n = self._chunk_call(bool(self.sampled_slots), w,
+                                                                  events)
+                    copy = _HostCopy(toks, hist, n)
+                else:
+                    self._state, toks = self._chunk_call(bool(self.sampled_slots))
+                    copy = _HostCopy(toks, self._state.done)
+        self.engine.note_dispatch("chunk")
         self.chunk_dispatches += 1
-        self.decode_steps += self.chunk
+        self.decode_steps += self.chunk * w
         metrics.STREAM_BATCH.labels(self.model).observe(len(self.active))
-        self._inflight.append((copy, dict(self.active)))
+        metrics.DECODE_WINDOW_CHUNKS.labels(self.model).observe(w)
+        if w > 1:
+            self.window_dispatches += 1
+        self._inflight.append(_Inflight(copy, dict(self.active), w, events))
 
     def _note_shared_rows(self) -> None:
         """The most blocks that two or more live rows of the chunk about to
@@ -2147,9 +2300,36 @@ class ContinuousDecodeLoop:
             self.peak_shared_in_chunk = max(self.peak_shared_in_chunk, int((counts > 1).sum()))
 
     def _deliver_oldest(self) -> None:
-        copy, snapshot = self._inflight.pop(0)
-        toks_np, done_np = copy.get()
-        self._route_chunk(toks_np, done_np, snapshot)
+        e = self._inflight.pop(0)
+        fetched = e.copy.get()
+        self.engine.note_dispatch("fetch")
+        if e.w > 1:
+            toks_np, hist_np, n = fetched
+            self._route_window(toks_np, hist_np, int(n), e)
+        else:
+            self._route_chunk(*fetched, e.snapshot)
+
+    def _route_window(self, toks_np: np.ndarray, hist_np: np.ndarray, nc: int,
+                      e: _Inflight) -> None:
+        """A window's delivery: the per-chunk routing replayed over the
+        ``nc`` chunks it ran, each with its ``done`` flags from the
+        history, so the streams get what fetching each chunk would have
+        given them.  No row outlives an early exit: every row is done after
+        the last chunk the window ran (at its entry, when it ran none), so
+        this routing, or the one before that saw the row end, frees each
+        row of the snapshot whole, with the blocks granted for the chunks
+        past its end."""
+        w, chunk = e.w, self.chunk
+        self.window_chunks += nc
+        if nc < w:
+            self.window_early_exits += 1
+            metrics.WINDOW_EARLY_EXITS.labels(self.model).inc()
+            if e.events is not None:
+                # Synchronized by the fetch: the copy followed the last chunk.
+                self.window_tail_ms += e.events[nc].elapsed_time(e.events[w])
+                self.window_tail_chunks += w - nc
+        for c in range(nc):
+            self._route_chunk(toks_np[:, c * chunk:(c + 1) * chunk], hist_np[c], e.snapshot)
 
     def _route_chunk(self, toks_np: np.ndarray, done_np: np.ndarray,
                      snapshot: dict[int, _Stream]) -> None:

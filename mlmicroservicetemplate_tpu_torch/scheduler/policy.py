@@ -17,9 +17,9 @@ the continuous decode loop's stream queue.
   A ``started`` waiter (a preempted stream queued to resume) is never
   expired nor evicted.
 
-``PrefillPacer`` paces chunked prefill's windows against live decode.
-Fair share across tenants, the backfill, SLO, scaling and decode-window
-governors are not ported.
+``PrefillPacer`` paces chunked prefill's windows against live decode, and
+``DecodeWindowGovernor`` picks the loop's fused decode window.  Fair share
+across tenants, the backfill, SLO and scaling governors are not ported.
 """
 
 from __future__ import annotations
@@ -78,6 +78,51 @@ class PrefillPacer:
             return True
         self.holds += 1
         return False
+
+
+class DecodeWindowGovernor:
+    """The fused decode window's depth W for one dispatch of the
+    continuous loop (``DECODE_WINDOW``, ``engine/streams.py``).  A deep
+    window divides the host's dispatches and fetches per token by W but
+    widens every boundary the host sees (token delivery, admission,
+    preemption, prefill interleave) to W chunks.  So, as the reference:
+
+    - interactive streams live or waiting: W = 1 (their cadence binds at
+      chunk granularity);
+    - batch-only traffic: fuse up to the cap;
+    - never past the chunks a live stream still needs, floored to a power
+      of two, so the depths stay {1, 2, 4, ...}.
+
+    ``auto=False`` always fuses to the cap.  ``recorder`` stays None: the
+    flight recorder that would log each drop to W = 1 is not ported."""
+
+    def __init__(self, cap: int, auto: bool = True):
+        self.cap = max(1, int(cap))
+        self.auto = bool(auto)
+        self.recorder = None
+        self._last = 1
+
+    def pick(self, max_chunks: int, interactive_live: bool,
+             interactive_waiting: bool) -> int:
+        if self.cap <= 1 or max_chunks <= 1:
+            return 1
+        w = self.preview(max_chunks, interactive_live, interactive_waiting)
+        if w == 1 and self._last > 1 and self.recorder is not None:
+            self.recorder.event("window_drop", live=bool(interactive_live),
+                                waiting=bool(interactive_waiting))
+        self._last = w
+        return w
+
+    def preview(self, max_chunks: int, interactive_live: bool,
+                interactive_waiting: bool) -> int:
+        """``pick`` without its side effects (the last depth, the
+        recorder)."""
+        if self.cap <= 1 or max_chunks <= 1:
+            return 1
+        if self.auto and (interactive_live or interactive_waiting):
+            return 1
+        w = min(self.cap, int(max_chunks))
+        return 1 << (w.bit_length() - 1)
 
 
 def _dl(item) -> float:

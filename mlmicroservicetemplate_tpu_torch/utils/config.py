@@ -2,8 +2,8 @@
 
 Holds the fields the ResNet-50, BERT-base, bert-long, llama, GPT-2 and
 T5-small paths, chat, the scheduler's priority classes, KV budget and
-preemption, the prompt prefix, the prefix cache, chunked prefill and the
-host KV tier, and the parent
+preemption, the prompt prefix, the prefix cache, chunked prefill, the
+host KV tier and fused decode windows, and the parent
 registration read, under the same
 environment names as the JAX package's ``ServiceConfig``.  ``DEVICE`` is
 ``cuda|cpu`` and defaults to ``cuda``; ``MODEL_NAME`` defaults to
@@ -159,6 +159,19 @@ class ServiceConfig:
     # decode (as many for each resuming stream when none does).
     kv_host_budget_mb: float = 0.0
     kv_prefetch_blocks: int = 4
+    # Fused decode windows (gpt2, llama; the continuous loop): up to
+    # decode_window chunks dispatched back to back and fetched once, so the
+    # host dispatches and fetches once a window instead of once a chunk.
+    # 1 = one chunk a dispatch.  With decode_window_auto (the default) the
+    # window drops to 1 while interactive streams are live or waiting and
+    # fuses up to the cap for batch-class traffic; off, it always fuses to
+    # the cap.  Refused for t5.
+    decode_window: int = 1
+    decode_window_auto: bool = True
+    # STREAM_PIPELINE: chunks the continuous loop keeps in flight; the port
+    # runs one, and accepts only 0 (auto, which picks one on a directly
+    # attached card) and 1 (UNPORTED_KNOBS).  Read for /status.decode.
+    stream_pipeline: int = 0
     # Sequence-parallel width for bert-long: the sequence axis shards over
     # this many devices and attention runs as a ring (parallel/ring.py).
     # 0 = every visible card (one shard on the CPU).
@@ -201,6 +214,8 @@ class ServiceConfig:
             raise ValueError("KV_HOST_BUDGET_MB must be >= 0")
         if not 1 <= self.kv_prefetch_blocks <= 4096:
             raise ValueError("KV_PREFETCH_BLOCKS must be in [1, 4096]")
+        if not 1 <= self.decode_window <= 64:
+            raise ValueError("DECODE_WINDOW must be in [1, 64]")
         if self.sp < 0:
             raise ValueError(f"SP must be >= 0, got {self.sp}")
         if self.pipeline_depth < 1 or self.trace_ring < 1:
@@ -254,8 +269,6 @@ UNPORTED_KNOBS = {
     "SPEC_MAX_STREAMS": ("1",),
     "SPEC_SAMPLED": _ON,
     "SPEC_CONTINUOUS": _OFF,
-    "DECODE_WINDOW": ("1",),
-    "DECODE_WINDOW_AUTO": _ON,
     "TP": ("0", "1"),
     "QUANTIZE": ("none",) + _OFF,
     "ADAPTER_DIR": (),
@@ -383,7 +396,8 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
     DRAIN_GRACE_S, WARMUP_SAMPLING, ADMIT_GRACE_MS, CHAT_TEMPLATE, PRIORITY_DEFAULT,
     CLASS_WEIGHT, KV_BUDGET_MB, MAX_STREAM_QUEUE, PREEMPT, PROMPT_PREFIX,
     PREFIX_CACHE, PREFIX_CACHE_MB, PREFILL_CHUNK, PREFILL_BUDGET,
-    PREFILL_MAX_PROMPT, KV_HOST_BUDGET_MB, KV_PREFETCH_BLOCKS.  Any of
+    PREFILL_MAX_PROMPT, KV_HOST_BUDGET_MB, KV_PREFETCH_BLOCKS, DECODE_WINDOW,
+    DECODE_WINDOW_AUTO, STREAM_PIPELINE (0 or 1).  Any of
     ``UNPORTED_KNOBS`` set to a value that turns it on raises;
     ``INERT_KNOBS`` are accepted and ignored."""
     e = dict(os.environ)
@@ -424,7 +438,9 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
                        ("max_stream_queue", "MAX_STREAM_QUEUE"), ("prefill_chunk", "PREFILL_CHUNK"),
                        ("prefill_budget", "PREFILL_BUDGET"),
                        ("prefill_max_prompt", "PREFILL_MAX_PROMPT"),
-                       ("kv_prefetch_blocks", "KV_PREFETCH_BLOCKS")):
+                       ("kv_prefetch_blocks", "KV_PREFETCH_BLOCKS"),
+                       ("decode_window", "DECODE_WINDOW"),
+                       ("stream_pipeline", "STREAM_PIPELINE")):
         v = get(var)
         if v is not None:
             kwargs[field] = int(v)
@@ -446,7 +462,8 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
     for field, var in (("warmup", "WARMUP"), ("trace", "TRACE"), ("paged_kv", "PAGED_KV"),
                        ("warmup_sampling", "WARMUP_SAMPLING"),
                        ("continuous_batching", "CONTINUOUS_BATCHING"), ("preempt", "PREEMPT"),
-                       ("prefix_cache", "PREFIX_CACHE")):
+                       ("prefix_cache", "PREFIX_CACHE"),
+                       ("decode_window_auto", "DECODE_WINDOW_AUTO")):
         v = get(var)
         if v is not None:
             kwargs[field] = _flag(v)

@@ -6,8 +6,9 @@ bytes; graph-cache events and warm-phase seconds;
 for streaming generation, generated tokens,
 live streams per loop chunk, time to first token, the gap between chunk
 deliveries, preemptions, the paged KV pool's blocks and its dry-pool
-stalls, and the host KV tier's blocks, swap bytes, resumes and prefix
-hits.  The series live in this package's own
+stalls, the host KV tier's blocks, swap bytes, resumes and prefix
+hits, and the chunks of each fused decode window and its early exits.
+The series live in this package's own
 registry, so a process that also imports the JAX package registers no
 name twice.  Without ``prometheus_client`` every series is a no-op stub.
 """
@@ -174,6 +175,19 @@ KV_HOST_PREFIX_HITS = Counter(
     "kv_host_prefix_hits_total",
     "Prefix-cache matches served from the host tier: the entry was "
     "demoted under device-budget pressure and promoted back on match",
+    ["model"], registry=REGISTRY,
+)
+DECODE_WINDOW_CHUNKS = Histogram(
+    "decode_window_chunks",
+    "Decode chunks fused per window dispatch (DECODE_WINDOW; 1 = the "
+    "unfused per-chunk path) — host syncs per token scale inversely "
+    "with this",
+    ["model"], buckets=(1, 2, 4, 8, 16, 32, 64), registry=REGISTRY,
+)
+WINDOW_EARLY_EXITS = Counter(
+    "decode_window_early_exits_total",
+    "Fused decode windows that exited on-device before their chunk cap "
+    "because every live row hit EOS",
     ["model"], registry=REGISTRY,
 )
 TBT = Histogram(

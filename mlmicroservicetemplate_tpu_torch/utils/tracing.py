@@ -4,10 +4,12 @@ The ``/predict`` path records three spans, keyed by the request id: the
 HTTP ``request``, the batcher's ``queue_wait`` and the engine's
 ``dispatch`` (one per batch).  The continuous decode loop records an
 ``admission`` span per stream submit, a ``decode_chunk`` span per
-chunk dispatch (with its live streams) and, under chunked prefill, a
+dispatch of a chunk or a fused decode window (with its live streams and
+the window's depth ``window``) and, under chunked prefill, a
 ``prefill_window`` span per window (``start``, ``end`` and ``total`` prompt
 positions, ``paged``).  Spans sit in a bounded ring
-(``Tracer.snapshot``).  With tracing off, ``tracer()`` is None and
+(``Tracer.snapshot``); ``spans_created`` counts every span made.  With
+tracing off, ``tracer()`` is None and
 ``span()`` returns one shared no-op context manager.
 """
 
@@ -62,19 +64,23 @@ class Tracer:
     def __init__(self, ring: int = 4096):
         self._spans: collections.deque = collections.deque(maxlen=max(16, int(ring)))
         self._lock = threading.Lock()
+        # Spans made since the tracer was installed (``/status.observability``).
+        self.spans_created = 0
 
     def _record(self, sp: Span) -> None:
         with self._lock:
             self._spans.append(sp)
 
     def span(self, name: str, cat: str = "app", rid: str = "", **args) -> Span:
+        with self._lock:
+            self.spans_created += 1
         return Span(self, name, cat, rid, args)
 
     def add(self, name: str, cat: str = "app", rid: str = "",
             t0: float | None = None, dur: float | None = None, **args) -> None:
         """Record a finished interval ``[t0, t0 + dur]`` (dur defaults to
         now - t0)."""
-        sp = Span(self, name, cat, rid, args)
+        sp = self.span(name, cat, rid, **args)
         if t0 is not None:
             sp.t0 = t0
         sp.dur = dur if dur is not None else max(0.0, _now() - sp.t0)

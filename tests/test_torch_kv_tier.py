@@ -83,8 +83,17 @@ async def _collect(gen) -> list[int]:
 
 def _run(loop, batch) -> list[list[int]]:
     async def body():
-        return list(await asyncio.gather(*(_collect(loop.submit_stream(dict(f)))
-                                           for f in batch)))
+        out = list(await asyncio.gather(*(_collect(loop.submit_stream(dict(f)))
+                                          for f in batch)))
+        # A loop releases a stream's admission after its last chunk, the
+        # JAX loop through this event loop (``call_soon_threadsafe``): keep
+        # it running until both have, or a release queued as it closes is
+        # lost.
+        for _ in range(1000):
+            if not loop._admitted:
+                break
+            await asyncio.sleep(0.01)
+        return out
     try:
         return asyncio.run(body())
     finally:

@@ -227,7 +227,7 @@ def test_unported_requests_answer_400(services, path, body):
     ids=lambda k: next(iter(k)),
 )
 def test_unported_knobs_raise(knob, tmp_path):
-    """Knobs the port does not serve raise "not ported".  Six it once
+    """Knobs the port does not serve raise "not ported".  Seven it once
     refused serve now, and their cases pin what the JAX package does: a
     SentencePiece ``TOKENIZER_PATH`` loads with a leading <s> and no
     trailing </s> (the model's eos/pad the tokenizer's),
@@ -235,9 +235,10 @@ def test_unported_knobs_raise(knob, tmp_path):
     the per-stream path, with the JAX batcher's tokens,
     ``KV_BUDGET_MB`` is the admission budget and, paged, sizes the pool to
     the JAX engine's blocks, ``PROMPT_PREFIX`` and ``PREFIX_CACHE``
-    stream the JAX batcher's tokens (the cache with its counts), and
+    stream the JAX batcher's tokens (the cache with its counts),
     ``PREFILL_CHUNK`` streams them through the loop's windows, as many as
-    the JAX loop's."""
+    the JAX loop's, and ``DECODE_WINDOW`` streams batch-class requests
+    through fused decode windows, as many as the JAX loop's."""
     name = next(iter(knob))
     overrides = {"MODEL_NAME": "llama", "DEVICE": "cpu", "WARMUP": "0",
                  "LLAMA_CONFIG": json.dumps(SMALL), **knob}
@@ -271,6 +272,26 @@ def test_unported_knobs_raise(knob, tmp_path):
         want = asyncio.run(_stream_all(JaxBatcher(jengine, jcfg), jbundle, JaxRawItem))
         got = asyncio.run(_stream_all(batcher, bundle, RawItem))
         assert got == want and engine.dispatches == len(REQUESTS)
+        return
+    if name == "DECODE_WINDOW":
+        # Batch-class streams (the AUTO policy fuses only without
+        # interactive work) through windows of up to 4 chunks.
+        os.environ["LLAMA_CONFIG"] = json.dumps(SMALL)
+        try:
+            jcfg = JaxServiceConfig(device="cpu", model_name="llama", warmup=False,
+                                    batch_timeout_ms=1.0, decode_window=4, **SERVE)
+            jbundle = jax_build_model(jcfg)
+            jengine = JaxEngine(jbundle, jcfg, ReplicaSet(make_mesh(1)))
+        finally:
+            del os.environ["LLAMA_CONFIG"]
+        _, bundle, engine, batcher = build_service(
+            {**overrides, "SEQ_BUCKETS": "16,32", "MAX_DECODE_LEN": "10",
+             "STREAM_CHUNK_TOKENS": "4"}, params=jax.tree.map(np.asarray, jbundle.params))
+        jbatcher = JaxBatcher(jengine, jcfg)
+        want = asyncio.run(_stream_all(jbatcher, jbundle, JaxRawItem, priority="batch"))
+        got = asyncio.run(_stream_all(batcher, bundle, RawItem, priority="batch"))
+        assert got == want
+        assert batcher._cdl.window_dispatches == jbatcher._cdl.window_dispatches > 0
         return
     if name == "PREFILL_CHUNK":
         os.environ["LLAMA_CONFIG"] = json.dumps(SMALL)
@@ -335,14 +356,16 @@ def test_unported_knobs_raise(knob, tmp_path):
         build_service(overrides)
 
 
-async def _stream_all(batcher, bundle, item_cls):
-    """Every request of ``REQUESTS`` streamed at once through the batcher."""
+async def _stream_all(batcher, bundle, item_cls, **extra):
+    """Every request of ``REQUESTS`` streamed at once through the batcher
+    (``extra``: more fields of each request's feats)."""
     async def one(f):
         return [t async for chunk in batcher.submit_stream(f) for t in np.asarray(chunk).tolist()]
 
     await batcher.start()
     try:
-        return await asyncio.gather(*(one(bundle.preprocess(item_cls(text=t, max_tokens=m)))
+        return await asyncio.gather(*(one({**bundle.preprocess(item_cls(text=t, max_tokens=m)),
+                                           **extra})
                                       for t, m in REQUESTS))
     finally:
         await batcher.stop()

@@ -1,0 +1,153 @@
+"""``GET /status`` of the port's app against the JAX app's, f32 on the CPU,
+after the same traffic on the same weights, for a classifier (BERT at two
+layers), a decoder with the continuous loop (llama, paged,
+``DECODE_WINDOW=4``, one batch-class stream) and T5 (its contiguous loop,
+one stream).
+
+Compared: the key sets, section by section, and every value that does not
+depend on the clock.  Left out, by name:
+
+- sections of features the port does not serve yet: ``fault_tolerance``
+  (the supervisor), ``fleet``, ``durability`` (the journal), ``jobs``,
+  ``tenancy``, ``perf`` (the perf observatory);
+- keys only the port serves: ``device_name``, ``dispatches``,
+  ``decode_steps`` and ``scheduler.pending``;
+- values measured by the clock (``uptime_s``, the ``compile`` section's,
+  whose keys are the graph cache's on the port and XLA's in JAX);
+- values of parts not ported: ``decode.host_prep_double`` and the
+  ``prep_*`` counts (the double-buffered host prep), ``flight_ring`` and
+  ``flight_dumps`` (the flight recorder), ``dispatch_counts`` beyond
+  ``chunk`` and ``fetch`` (JAX counts its batch path and the host prep
+  too).  ``chain_depth`` is compared: without a warmup the JAX loop does
+  not auto-tune it."""
+
+import asyncio
+import contextlib
+import functools
+import json
+
+import numpy as np
+import pytest
+import torch
+from aiohttp.test_utils import TestClient, TestServer
+from test_torch_t5_serving import LM_HEAD, small_t5
+
+import jax
+
+from mlmicroservicetemplate_tpu.api import build_app as jax_build_app
+from mlmicroservicetemplate_tpu.models import bert as jax_bert
+from mlmicroservicetemplate_tpu.serve import build_service as jax_build_service
+from mlmicroservicetemplate_tpu_torch.api.app import build_app
+from mlmicroservicetemplate_tpu_torch.models import bert as port_bert
+from mlmicroservicetemplate_tpu_torch.serve import build_service
+
+NOT_PORTED = {"fault_tolerance", "fleet", "durability", "jobs", "tenancy", "perf"}
+PORT_ONLY = {"device_name", "dispatches", "decode_steps"}
+MEASURED = {"uptime_s", "compile"}
+DECODE_NOT_PORTED = {"host_prep_double", "prep_staged", "prep_hits", "prep_misses"}
+FLIGHT = {"flight_ring", "flight_dumps"}
+BERT = dict(num_layers=2, hidden_size=64, num_heads=2, intermediate_size=128)
+LLAMA = dict(vocab_size=300, d_model=256, num_heads=4, num_kv_heads=2, num_layers=2,
+             d_ff=512, max_position=128)
+SERVE = {"SEQ_BUCKETS": "16,32", "MAX_DECODE_LEN": "16", "STREAM_CHUNK_TOKENS": "4",
+         "MAX_STREAMS": "4", "BATCH_BUCKETS": "1,4", "BATCH_TIMEOUT_MS": "1"}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+@contextlib.contextmanager
+def _small(model: str):
+    if model == "t5-small":
+        with small_t5():
+            yield
+        return
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_bert, "BertConfig", functools.partial(jax_bert.BertConfig, **BERT))
+        mp.setattr(port_bert, "BertConfig", functools.partial(port_bert.BertConfig, **BERT))
+        mp.setenv("LLAMA_CONFIG", json.dumps(LLAMA))
+        yield
+
+
+CASES = {
+    "bert-base": ({}, [("/predict", {"text": "hello there"}, {})]),
+    "llama": ({"PAGED_KV": "1", "KV_BLOCK_SIZE": "8", "DECODE_WINDOW": "4"},
+              [("/v1/completions", {"prompt": "hello there", "max_tokens": 16, "stream": True},
+                {"X-Priority": "batch"})]),
+    "t5-small": ({}, [("/predict", {"text": "summarize: a short text", "max_tokens": 8,
+                                    "stream": True}, {})]),
+}
+
+
+async def _status(app, posts) -> dict:
+    client = TestClient(TestServer(app))
+    await client.start_server()
+    try:
+        for _ in range(400):
+            if (await client.get("/readyz")).status == 200:
+                break
+            await asyncio.sleep(0.05)
+        for path, body, headers in posts:
+            resp = await client.post(path, json=body, headers=headers)
+            assert resp.status == 200, await resp.text()
+            await resp.read()
+        # A stream's body ends before its loop releases it and routes the
+        # dispatch still in flight: read /status once that has settled.
+        for _ in range(200):
+            status = await (await client.get("/status")).json()
+            if status["scheduler"]["kv_committed_bytes"] == 0:
+                break
+            await asyncio.sleep(0.025)
+        await asyncio.sleep(0.2)
+        return await (await client.get("/status")).json()
+    finally:
+        await client.close()
+
+
+def _apps(model: str, extra: dict):
+    env = {"DEVICE": "cpu", "MODEL_NAME": model, "WARMUP": "0", **SERVE, **extra}
+    with _small(model):
+        if model == "llama":
+            env["LLAMA_CONFIG"] = json.dumps(LLAMA)
+        jcfg, jbundle, jengine, jbatcher, _ = jax_build_service({**env, "REPLICAS": "1"})
+        if model == "t5-small":
+            jbundle.params["lm_head"] = {"kernel": LM_HEAD}  # a tied random head locks
+        cfg, bundle, engine, batcher = build_service(
+            env, params=jax.tree.map(np.asarray, jbundle.params))
+    return (jax_build_app(jcfg, jbundle, jengine, jbatcher),
+            build_app(cfg, bundle, engine, batcher))
+
+
+@pytest.mark.parametrize("model", list(CASES))
+def test_status_has_the_jax_apps_keys_and_values(model):
+    extra, posts = CASES[model]
+    japp, app = _apps(model, extra)
+    want = asyncio.run(_status(japp, posts))
+    got = asyncio.run(_status(app, posts))
+    assert set(got) - PORT_ONLY == set(want) - NOT_PORTED
+    for key in set(want) - NOT_PORTED - MEASURED - {"scheduler", "decode", "observability"}:
+        assert got[key] == want[key], key
+    sched = dict(got["scheduler"])
+    assert sched.pop("pending") == 0
+    assert sched == want["scheduler"]
+    assert got["observability"].keys() == want["observability"].keys()
+    for key in set(want["observability"]) - FLIGHT:
+        assert got["observability"][key] == want["observability"][key], key
+    assert got["observability"]["flight_ring"] == got["observability"]["flight_dumps"] == 0
+    assert ("decode" in got) == ("decode" in want) == (model != "bert-base")
+    if "decode" not in want:
+        return
+    dec, jdec = got["decode"], want["decode"]
+    assert dec.keys() == jdec.keys()
+    for key in set(jdec) - DECODE_NOT_PORTED - {"dispatch_counts"}:
+        assert dec[key] == jdec[key], key
+    for site in ("chunk", "fetch"):
+        assert dec["dispatch_counts"][site] == jdec["dispatch_counts"][site] > 0, site
+    assert dec["host_prep_double"] is False and dec["prep_staged"] == 0
+    if model == "llama":
+        assert dec["window_cap"] == 4 and dec["window_dispatches"] > 0
