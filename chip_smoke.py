@@ -240,9 +240,10 @@ result line:
    ``DECODE_WINDOW=1`` and on one at 8, twice each (the second pass
    measured), then the batch streams alone (the interactive one holds W
    at 1 from its arrival on, so only this pass measures windows end to
-   end).  Gates: windows formed, one ended early; the same tokens at
-   both depths, in both measured passes (any stream that differs is
-   printed); the governor at 1 while the interactive stream is live or
+   end), then a stream alone whose eos comes a chunk or two into its first
+   window.  Gates: windows formed, the lone stream's first window ended
+   early; the same tokens at both depths, in every measured pass (any
+   stream that differs is printed); the governor at 1 while the interactive stream is live or
    waiting and above 1 before; every token teacher-forced; K2 and K3 held
    against the loop's counts; the pool empty.  Printed, for the mixed
    pass and the batch-only one: window dispatches, chunks and early
@@ -281,6 +282,26 @@ result line:
    third sampled and seeded) chosen and rigged as in 7g, against
    ``DECODE_WINDOW=1``; the gates and prints of 7g but the governor's and
    the early exit.
+8e. serve gpt2 pipeline: the loop's dispatch pipeline, GPT-2 small through
+   the paged loop (16 slots, 16-token blocks, K3; every wave padded to the
+   one batch bucket, 16, and one seq bucket used): a probe picks a common
+   token as the eos as in 7g; 15 batch streams (a third sampled and seeded)
+   that end on it open at once and, once one has 12 tokens, a late wave of
+   4 arrives with chunks in flight, on four services: ``STREAM_PIPELINE=1
+   HOST_PREP_DOUBLE=0`` (the serial order), ``STREAM_PIPELINE=3
+   HOST_PREP_DOUBLE=1``, the same with ``DECODE_WINDOW=4``, and
+   ``ADMIT_OVERLAP=0`` at the defaults (the depth tuned at warmup); every
+   start graph captured first, then one pass and three measured.  Gates:
+   every pass of every service the serial order's tokens; every token
+   teacher-forced; depth 3 staged plans and used one; never more
+   dispatches in flight at a dispatch than the depth; K2 and K3 held
+   against the loop's counts; the pool empty and every stream released.  Then 8 requests each alone on an
+   idle loop, at the defaults (the tuned depth and admission grace) and at
+   ``STREAM_PIPELINE=1`` (the configured 8 ms grace).  Printed: the tuned
+   depth with the measured RTT and compute, the grace, the host seconds by
+   dispatch site (count, p50, sum), chunk and fetch boundaries per token,
+   tokens/s (the middle of three passes, and all three), the staged-prep
+   counts, the most dispatches in flight, and the lone requests' TTFT.
 8b. decode step gpt2: one GPT-2 step at B in {1, 8, 16} over a 320-key
    cache, greedy against sampled, eager and as graphs, split into K2,
    GEMMs and the rest; the sampler alone as graphs on [B, 50257] logits
@@ -2571,6 +2592,14 @@ async def drive_streams(batcher, bundle, waves):
             for f, row in await asyncio.gather(*(one(item) for item in wave)):
                 feats.append(f)
                 rows.append(row)
+            # A stream's place frees when the loop or the per-stream worker
+            # releases it, which can come after its consumer read the end:
+            # the next wave, as large as MAX_STREAMS, waits for every place.
+            t_wait = time.monotonic() + 10.0
+            while (batcher._active_streams or (batcher._cdl is not None
+                                               and batcher._cdl.admitted)) \
+                    and time.monotonic() < t_wait:
+                await asyncio.sleep(0.001)
         wall = time.monotonic() - t0
     finally:
         await batcher.stop()
@@ -4411,14 +4440,14 @@ def pick_eos(batch_rows, inter_rows, lo: int, hi: int, need_inter: bool):
     raise AssertionError("no token ends several streams of the probe")
 
 
-async def drive_window(batcher, bundle, batch_items, inter_items, min_tokens: int,
-                       reset, read, passes):
-    """For each of ``passes`` (whether its interactive streams open):
+async def drive_window(batcher, bundle, min_tokens: int, reset, read, passes,
+                       late_klass: str = "interactive"):
+    """For each of ``passes`` (its batch items and its late items):
     ``reset()``, open the batch-class streams at once; once one has
-    ``min_tokens`` tokens, open the interactive ones; read every stream to
-    its end and wait until the loop released them.  Returns each pass's
-    ([(feats, tokens)] batch first, wall seconds, ``read(its index)``
-    after it)."""
+    ``min_tokens`` tokens, open the late ones (of class ``late_klass``);
+    read every stream to its end and wait until the loop released them.
+    Returns each pass's ([(feats, tokens)] batch first, wall seconds,
+    ``read(its index)`` after it)."""
     import numpy as np
 
     await batcher.start()
@@ -4438,15 +4467,15 @@ async def drive_window(batcher, bundle, batch_items, inter_items, min_tokens: in
 
     out = []
     try:
-        for i, with_inter in enumerate(passes):
+        for i, (batch_items, late_items) in enumerate(passes):
             reset()
             go = asyncio.Event()
             t0 = time.monotonic()
             tasks = [asyncio.create_task(one(item, "batch", go, True)) for item in batch_items]
-            if with_inter and inter_items:
+            if late_items:
                 await go.wait()
-                tasks += [asyncio.create_task(one(item, "interactive", go, False))
-                          for item in inter_items]
+                tasks += [asyncio.create_task(one(item, late_klass, go, False))
+                          for item in late_items]
             done = await asyncio.gather(*tasks)
             wall = time.monotonic() - t0
             while loop.admitted or loop._inflight:
@@ -4526,7 +4555,7 @@ def phase_serve_window(label: str, overrides: dict, params, ref_model, rehearsal
     inter_cands = [dataclasses.replace(it, temperature=0.0, seed=None) for it in inter_cands]
     cfg, bundle, engine, batcher, _ = window_service({**base, "DECODE_WINDOW": "1"}, params,
                                                      None)
-    max_len = engine.max_decode_len
+    max_len, chunk = engine.max_decode_len, engine.chunk_tokens
     waves = [cands[i:i + n_batch] for i in range(0, n_cand, n_batch)]
     probe = asyncio.run(drive_streams(batcher, bundle, waves + [[it] for it in inter_cands]))
     rows = probe[1]
@@ -4543,6 +4572,22 @@ def phase_serve_window(label: str, overrides: dict, params, ref_model, rehearsal
         cands[i], max_tokens=int(min(max_len, hits[i] + 1 + 8 * rng.integers(1, 4))))
         for i in chosen]
     inter_items = [inter_cands[j]] if n_inter else []
+    # A greedy stream alone with the whole budget whose eos comes before the
+    # last chunk of its first window (``cap`` chunks from step ``chunk``):
+    # that window ends early on the device.  Taken from the probe's lone
+    # greedy streams (the same batch bucket, 1, as the pass; its start graph
+    # captured in the first pass, by the interactive stream), else from the
+    # greedy candidates.
+    def first(row):
+        return next((k for k, t in enumerate(row.tolist()) if t == eos), -1)
+
+    in_window = [(inter_cands[k], first(row)) for k, row in enumerate(rows[n_cand:])]
+    in_window += [(cands[i], hits[i]) for i in by_step if cands[i].temperature == 0]
+    lone = next((it for it, at in in_window if chunk <= at < chunk * cap), None)
+    if want_early_exit and lone is None:
+        raise AssertionError(f"{label}: no greedy probe stream ends on {eos} in its first "
+                             "window")
+    lone_item = dataclasses.replace(lone, max_tokens=max_len) if want_early_exit else None
 
     runs = {}
     for w in (1, cap):
@@ -4603,10 +4648,15 @@ def phase_serve_window(label: str, overrides: dict, params, ref_model, rehearsal
         # the one measured and checked.  With interactive streams a third
         # pass runs the batch streams alone: under AUTO the interactive
         # one holds W at 1 from its arrival on, so only this pass measures
-        # windows end to end.
-        passes = (True, True, False) if inter_items else (True, True)
-        measured = asyncio.run(drive_window(batcher, bundle, batch_items, inter_items,
-                                            3 * engine.chunk_tokens, reset, read, passes))
+        # windows end to end.  Where an early exit is wanted, a last pass
+        # runs one stream alone whose eos comes inside its first window.
+        passes = [(batch_items, inter_items)] * 2
+        if inter_items:
+            passes.append((batch_items, []))
+        if want_early_exit:
+            passes.append(([lone_item], []))
+        measured = asyncio.run(drive_window(batcher, bundle, 3 * engine.chunk_tokens, reset,
+                                            read, passes))
         done, wall, counts = measured[1]
         pass_picks = counts.pop("picks")
         if engine.paged_kv and engine.kv_pool.used_blocks != 0:
@@ -4619,6 +4669,12 @@ def phase_serve_window(label: str, overrides: dict, params, ref_model, rehearsal
             out=dict(warm_s=warm_s, tokens=tokens, generated_tok_per_s=tokens / wall,
                      wall_s=wall, **counts),
             loop=loop, picks=pass_picks)
+        if want_early_exit:
+            l_done, _, l_counts = measured.pop()
+            runs[w]["lone_feats"], runs[w]["lone_row"] = l_done[0]
+            runs[w]["lone"] = {k: l_counts[k] for k in (
+                "dispatches", "window_dispatches", "window_chunks", "window_early_exits",
+                "slot_decode_steps")}
         if len(measured) > 2:
             b_done, b_wall, b_counts = measured[2]
             b_picks = b_counts.pop("picks")
@@ -4628,8 +4684,10 @@ def phase_serve_window(label: str, overrides: dict, params, ref_model, rehearsal
                 tokens=b_tokens, generated_tok_per_s=b_tokens / b_wall, wall_s=b_wall,
                 **b_counts, governor=[p[1] for p in b_picks] if w > 1 else None)
         if w > 1:
-            check = teacher_forced(bundle, ref_model, runs[w]["feats"], runs[w]["rows"],
-                                   max_len)
+            lone = [runs[w]["lone_feats"]] if want_early_exit else []
+            lone_rows = [runs[w]["lone_row"]] if want_early_exit else []
+            check = teacher_forced(bundle, ref_model, runs[w]["feats"] + lone,
+                                   runs[w]["rows"] + lone_rows, max_len)
         release(bundle)
         del cfg, bundle, engine, batcher, loop
     one, fused = runs[1], runs[cap]
@@ -4648,10 +4706,13 @@ def phase_serve_window(label: str, overrides: dict, params, ref_model, rehearsal
                                  f"DECODE_WINDOW=1 and {cap}; windows "
                                  f"{fused['batch_only']['window_dispatches']}")
     fo = fused["out"]
-    early = fo["window_early_exits"] >= 1 or not want_early_exit
+    early = not want_early_exit or (
+        fused["lone"]["window_early_exits"] >= 1
+        and one["lone_row"].tolist() == fused["lone_row"].tolist())
     if fo["window_dispatches"] < 1 or not early or one["out"]["window_dispatches"] != 0:
         raise AssertionError(f"{label}: windows {fo['window_dispatches']}, early exits "
-                             f"{fo['window_early_exits']}")
+                             f"{fo['window_early_exits']} (the lone stream's: "
+                             f"{fused.get('lone')})")
     picks = fused["picks"]
     if auto and n_inter:
         under = [p for p in picks if p[2]]
@@ -4670,6 +4731,7 @@ def phase_serve_window(label: str, overrides: dict, params, ref_model, rehearsal
          w1=one["out"], fused=fo,
          governor=[p[:2] for p in picks] if auto else None,
          w1_batch_only=one.get("batch_only"), fused_batch_only=fused.get("batch_only"),
+         w1_lone=one.get("lone"), fused_lone=fused.get("lone"),
          phase_s=time.monotonic() - t_phase, **check)
     return fo
 
@@ -4718,6 +4780,292 @@ def window_main(rehearsal: bool) -> int:
         ov, n = window_gpt2(rehearsal, device)
         phase_serve_window(phase, ov, gparams, gref, rehearsal, card_line, cap=4, auto=False,
                            n_batch=n, n_inter=0, want_early_exit=False)
+    except Exception as e:
+        traceback.print_exc()
+        emit(phase, ok=False, error=f"{type(e).__name__}: {e}")
+        return 1
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# the loop's dispatch pipeline (STREAM_PIPELINE, HOST_PREP_DOUBLE, ADMIT_OVERLAP)
+
+
+def pipeline_gpt2(rehearsal: bool, device: str) -> tuple[dict, int, int]:
+    """``serve gpt2 pipeline``'s service (GPT-2 small through the paged
+    loop, 16 slots, 16-token blocks; every wave padded to the one batch
+    bucket of 16 and the prompts under one seq bucket, so a stream's
+    arithmetic is the same whatever wave it joins), its batch streams and
+    its late wave (rehearsal: 6 and 2)."""
+    ov = {"MODEL_NAME": "gpt2", "DEVICE": device, "BATCH_BUCKETS": "16",
+          "SEQ_BUCKETS": "32,64", "PAGED_KV": "1", "KV_BLOCK_SIZE": str(PAGE),
+          "MAX_STREAMS": "16", "MAX_STREAM_QUEUE": "8", "MAX_DECODE_LEN": "64"}
+    return ov, (6 if rehearsal else 15), (2 if rehearsal else 4)
+
+
+# Measured passes a service (after one more).
+PIPELINE_PASSES = 3
+PIPELINE_SERVICES = (
+    ("serial", {"STREAM_PIPELINE": "1", "HOST_PREP_DOUBLE": "0"}),
+    ("depth3", {"STREAM_PIPELINE": "3", "HOST_PREP_DOUBLE": "1"}),
+    ("depth3_window4", {"STREAM_PIPELINE": "3", "HOST_PREP_DOUBLE": "1",
+                        "DECODE_WINDOW": "4"}),
+    ("blocking_admission", {"ADMIT_OVERLAP": "0"}),
+)
+
+
+def pipeline_service(overrides: dict, params, eos: int | None):
+    """``window_service`` with every start graph captured too (as the app
+    warms), so that no pass captures one: a capture runs its call eagerly
+    once, which the launch counts would see."""
+    cfg, bundle, engine, batcher, warm_s = window_service(overrides, params, eos)
+    return cfg, bundle, engine, batcher, warm_s + batcher.warm_engine()
+
+
+def host_seconds(samples: dict) -> dict:
+    """Per dispatch site: the count, p50 and sum of the host seconds the
+    loop observed into ``dispatch_host_seconds``."""
+    import numpy as np
+
+    return {site: {"count": len(v), "p50_ms": float(np.percentile(v, 50)) * 1e3,
+                   "sum_ms": float(np.sum(v)) * 1e3}
+            for site, v in sorted(samples.items())}
+
+
+async def lone_ttfts(batcher, bundle, items) -> list[float]:
+    """Each item alone on an idle loop: seconds from submit to its first
+    chunk."""
+    await batcher.start()
+    loop = batcher._cdl
+    out = []
+
+    async def one(item):
+        t0 = time.monotonic()
+        first = None
+        async for _ in batcher.submit_stream(bundle.preprocess(item)):
+            if first is None:
+                first = time.monotonic() - t0
+        while loop.admitted or loop._inflight:
+            await asyncio.sleep(0.002)
+        await asyncio.sleep(0.05)  # the loop thread back at its idle wait
+        return first
+
+    try:
+        for item in items:
+            out.append(await one(item))
+    finally:
+        await batcher.stop()
+    return out
+
+
+def phase_serve_pipeline(label: str, overrides: dict, params, ref_model, rehearsal: bool,
+                         card_line: str, n_batch: int, n_late: int):
+    """The loop's dispatch pipeline through the paged loop (K3): a probe
+    service picks a common token as the eos and the streams that end on it,
+    as in 7g; then ``n_batch`` batch-class streams (a third sampled and
+    seeded) open at once and, once one has 12 tokens, a late wave of
+    ``n_late`` arrives while chunks are in flight, on four services
+    (``PIPELINE_SERVICES``: the serial order, depth 3 with the staged host
+    prep, the same with windows of 4, the blocking admission at the
+    defaults), every start graph captured first as the app warms, then a
+    pass and three measured passes each.
+    Gates: every service the serial one's tokens; every token teacher-forced;
+    depth 3 staged plans and used them; never more than the depth in flight
+    at a dispatch; K2 and K3 held against the loop's counts; the pool empty
+    and every stream released after each.  Then 8 lone requests on an idle
+    loop at the defaults (the tuned depth and grace) and at
+    ``STREAM_PIPELINE=1`` (the configured 8 ms grace): their TTFT.
+    Printed: the tuned depth, RTT, compute and grace, the host seconds by
+    dispatch site, chunk and fetch boundaries per token, tokens/s and the
+    staged-prep counts of each service."""
+    import numpy as np
+
+    from mlmicroservicetemplate_tpu_torch.ops.attention import decode_attention
+    from mlmicroservicetemplate_tpu_torch.ops.paged_attention import paged_decode_attention
+
+    t_phase = time.monotonic()
+    n_cand = (2 if rehearsal else 16) * n_batch
+    cands = window_candidates(rehearsal, n_cand, 1)
+    cfg, bundle, engine, batcher, _ = window_service({**overrides, "STREAM_PIPELINE": "1"},
+                                                     params, None)
+    max_len = engine.max_decode_len
+    waves = [cands[i:i + n_batch] for i in range(0, n_cand, n_batch)]
+    rows = asyncio.run(drive_streams(batcher, bundle, waves))[1]
+    release(bundle)
+    del cfg, bundle, engine, batcher
+    eos, hits, _ = pick_eos(rows, [], 8, max_len - 8, False)
+    by_step = sorted(hits, key=lambda i: hits[i])
+    sampled = [i for i in by_step if cands[i].temperature > 0][: n_batch // 3]
+    chosen = sorted(sampled + [i for i in by_step if i not in sampled][: n_batch - len(sampled)])
+    spare = [i for i in by_step if i not in chosen] + [
+        i for i in range(n_cand) if i not in hits]
+    late = spare[:n_late]
+    if len(chosen) < 3:
+        raise AssertionError(f"{label}: the eos {eos} ends {len(chosen)} probe streams")
+    rng = np.random.default_rng(11)
+
+    def budget(i):
+        if i not in hits:
+            return max_len
+        return int(min(max_len, hits[i] + 1 + 8 * rng.integers(1, 4)))
+
+    batch_items = [dataclasses.replace(cands[i], max_tokens=budget(i)) for i in chosen]
+    late_items = [dataclasses.replace(cands[i], max_tokens=budget(i)) for i in late]
+
+    runs = {}
+    for name, knobs in PIPELINE_SERVICES:
+        cfg, bundle, engine, batcher, warm_s = pipeline_service({**overrides, **knobs}, params,
+                                                                eos)
+        loop = batcher._cdl
+        in_flight, samples = [], {}
+        orig_dispatch, orig_note = loop._dispatch_chunk, engine.note_dispatch
+
+        def dispatch(loop=loop, orig=orig_dispatch, in_flight=in_flight):
+            in_flight.append(len(loop._inflight))
+            return orig()
+
+        def note(site, host_s=None, orig=orig_note, samples=samples):
+            if host_s is not None:
+                samples.setdefault(site, []).append(host_s)
+            return orig(site, host_s)
+
+        loop._dispatch_chunk, engine.note_dispatch = dispatch, note
+
+        def reset(loop=loop, engine=engine, in_flight=in_flight, samples=samples):
+            in_flight.clear()
+            samples.clear()
+            decode_attention.launches = paged_decode_attention.launches = 0
+            for key in ("prefill_dispatches", "chunk_dispatches", "decode_steps",
+                        "window_dispatches", "window_chunks", "window_early_exits",
+                        "tokens_emitted", "prep_staged", "prep_hits", "prep_misses"):
+                setattr(loop, key, 0)
+            engine.decode_steps = 0
+            engine.dispatch_counts = {}
+
+        def read(i, loop=loop, engine=engine, bundle=bundle, in_flight=in_flight,
+                 samples=samples):
+            if i > 0:
+                held_launches(label, bundle, engine, loop, decode_attention.launches,
+                              paged_decode_attention.launches, rehearsal)
+            dc = dict(engine.dispatch_counts)
+            return dict(
+                admission_waves=loop.prefill_dispatches, dispatches=loop.chunk_dispatches,
+                slot_decode_steps=loop.decode_steps, window_dispatches=loop.window_dispatches,
+                tokens_emitted=loop.tokens_emitted, dispatch_counts=dc,
+                chunk_fetch_per_token=(dc.get("chunk", 0) + dc.get("fetch", 0))
+                / max(1, loop.tokens_emitted),
+                prep_staged=loop.prep_staged, prep_hits=loop.prep_hits,
+                prep_misses=loop.prep_misses, max_in_flight_at_dispatch=max(in_flight,
+                                                                            default=0),
+                host_seconds=host_seconds(samples),
+                decode_attention_launches=decode_attention.launches,
+                paged_decode_attention_launches=paged_decode_attention.launches)
+
+        measured = asyncio.run(drive_window(batcher, bundle, 3 * engine.chunk_tokens, reset,
+                                            read, [(batch_items, late_items)] * (1 + PIPELINE_PASSES),
+                                            late_klass="batch"))[1:]
+        # The middle pass by tokens/s (the passes are short: their spread
+        # is printed).
+        rates = [sum(len(row) for _, row in d) / wall for d, wall, _ in measured]
+        done, wall, counts = measured[int(np.argsort(rates)[len(rates) // 2])]
+        rows_of = [[row.tolist() for _, row in d] for d, _, _ in measured]
+        if any(r != rows_of[0] for r in rows_of):
+            raise AssertionError(f"{label} {name}: the passes gave different tokens")
+        if engine.kv_pool.used_blocks != 0:
+            raise AssertionError(f"{label} {name}: {engine.kv_pool.used_blocks} pool blocks "
+                                 "still held")
+        if loop.admitted != 0:
+            raise AssertionError(f"{label} {name}: {loop.admitted} streams never released")
+        most = max(c["max_in_flight_at_dispatch"] for _, _, c in measured)
+        if most > loop.chain_depth:
+            raise AssertionError(f"{label} {name}: {most} "
+                                 f"dispatches in flight at depth {loop.chain_depth}")
+        tokens = sum(len(row) for _, row in done)
+        runs[name] = dict(
+            feats=[f for f, _ in done], rows=[row for _, row in done],
+            out=dict(knobs=knobs, chain_depth=loop.chain_depth, auto=loop._auto_depth,
+                     tuned_rtt_ms=loop.tuned[0] * 1e3 if loop.tuned else None,
+                     tuned_compute_ms=loop.tuned[1] * 1e3 if loop.tuned else None,
+                     admit_grace_ms=loop.admit_grace_s * 1e3, warm_s=warm_s, tokens=tokens,
+                     generated_tok_per_s=tokens / wall, tok_per_s_passes=rates, wall_s=wall,
+                     **counts))
+        if name == "serial":
+            check = teacher_forced(bundle, ref_model, runs[name]["feats"], runs[name]["rows"],
+                                   max_len)
+        release(bundle)
+        del cfg, bundle, engine, batcher, loop
+    serial = runs["serial"]["rows"]
+    for name, run in runs.items():
+        parted = [i for i, (a, b) in enumerate(zip(serial, run["rows"]))
+                  if a.tolist() != b.tolist()]
+        if parted or len(run["rows"]) != len(serial):
+            raise AssertionError(f"{label}: streams {parted} of {name} differ from the serial "
+                                 "order's: " + "; ".join(
+                                     f"{serial[i].tolist()} vs {run['rows'][i].tolist()}"
+                                     for i in parted[:3]))
+    d3 = runs["depth3"]["out"]
+    if d3["prep_staged"] < 1 or d3["prep_hits"] < 1:
+        raise AssertionError(f"{label}: depth 3 staged {d3['prep_staged']} plans and used "
+                             f"{d3['prep_hits']}")
+    if runs["depth3_window4"]["out"]["window_dispatches"] < 1:
+        raise AssertionError(f"{label}: no window formed at DECODE_WINDOW=4")
+
+    # Lone requests on an idle loop: the tuned grace against the configured.
+    lone = [dataclasses.replace(item, max_tokens=8) for item in cands[:8]]
+    ttft = {}
+    for name, knobs in (("tuned", {}), ("configured_8ms", {"STREAM_PIPELINE": "1"})):
+        cfg, bundle, engine, batcher, warm_s = pipeline_service({**overrides, **knobs}, params,
+                                                                None)
+        loop = batcher._cdl
+        got = np.array(asyncio.run(lone_ttfts(batcher, bundle, lone))) * 1e3
+        ttft[name] = dict(chain_depth=loop.chain_depth, admit_grace_ms=loop.admit_grace_s * 1e3,
+                          tuned_rtt_ms=loop.tuned[0] * 1e3 if loop.tuned else None,
+                          tuned_compute_ms=loop.tuned[1] * 1e3 if loop.tuned else None,
+                          ttft_p50_ms=float(np.percentile(got, 50)),
+                          ttft_ms=[float(x) for x in got])
+        release(bundle)
+        del cfg, bundle, engine, batcher, loop
+    k2 = sum(r["out"]["decode_attention_launches"] for r in runs.values())
+    k3 = sum(r["out"]["paged_decode_attention_launches"] for r in runs.values())
+    emit(label, device=overrides["DEVICE"], card=card_line, eos=eos,
+         batch_streams=len(batch_items), late_streams=len(late_items),
+         sampled_streams=sum(1 for it in batch_items + late_items if it.temperature > 0),
+         streams_ended_on_eos=sum(1 for row in serial if eos in row.tolist()),
+         identical_across_services=True,
+         services={name: run["out"] for name, run in runs.items()}, lone_requests=ttft,
+         ttft_gain_ms=ttft["configured_8ms"]["ttft_p50_ms"] - ttft["tuned"]["ttft_p50_ms"],
+         phase_s=time.monotonic() - t_phase, **check)
+    return k2, k3
+
+
+def pipeline_main(rehearsal: bool) -> int:
+    """``--pipeline``: the build and ``serve gpt2 pipeline`` (8e); with
+    ``--cpu-rehearsal`` the phase on the CPU at full width, no build.
+    Prints no result line."""
+    import torch
+
+    from mlmicroservicetemplate_tpu_torch.convert.jax_params import gpt_params_from_jax
+    from mlmicroservicetemplate_tpu_torch.models import gpt as gpt_mod
+
+    phase = "env"
+    device = "cpu" if rehearsal else "cuda"
+    try:
+        if not rehearsal and not torch.cuda.is_available():
+            print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
+            return 1
+        card_line = "cpu (rehearsal)" if rehearsal else card()
+        emit(phase, card=card_line, torch=torch.__version__, cuda=torch.version.cuda,
+             mode="pipeline")
+        if not rehearsal:
+            phase = "build"
+            phase_build()
+        phase = "serve gpt2 pipeline"
+        gcfg = gpt_mod.GPTConfig(eos_id=1, pad_id=0)
+        gparams = gpt2_pytree(gcfg, seed=0)
+        gref = gpt_mod.build_model(gcfg, gpt_params_from_jax(gparams, gcfg),
+                                   torch.device(device), torch.float32)
+        ov, n, n_late = pipeline_gpt2(rehearsal, device)
+        phase_serve_pipeline(phase, ov, gparams, gref, rehearsal, card_line, n, n_late)
     except Exception as e:
         traceback.print_exc()
         emit(phase, ok=False, error=f"{type(e).__name__}: {e}")
@@ -4875,6 +5223,8 @@ def main(argv: list[str]) -> int:
                     help="only the build and the host KV tier's phase")
     ap.add_argument("--window", action="store_true",
                     help="only the build and the two fused decode-window phases")
+    ap.add_argument("--pipeline", action="store_true",
+                    help="only the build and the dispatch pipeline's phase")
     args = ap.parse_args(argv)
     if args.perf:
         return perf_main()
@@ -4884,6 +5234,8 @@ def main(argv: list[str]) -> int:
         return tier_main()
     if args.window:
         return window_main(args.cpu_rehearsal)
+    if args.pipeline:
+        return pipeline_main(args.cpu_rehearsal)
     rehearsal = args.cpu_rehearsal
     t_start = time.monotonic()
     phase = "env"
@@ -5198,6 +5550,15 @@ def main(argv: list[str]) -> int:
         gwin = phase_serve_window(phase, ov, gparams, gref, rehearsal, card_line, cap=4,
                                   auto=False, n_batch=n, n_inter=0, want_early_exit=False)
         gpt2_k2 += gwin["decode_attention_launches"]
+        # The loop's dispatch pipeline over the paged loop: the serial order,
+        # depth 3 with the staged host prep (and windows), the blocking
+        # admission; lone requests at the tuned and the configured grace.
+        phase = "serve gpt2 pipeline"
+        ov, n, n_late = pipeline_gpt2(rehearsal, device)
+        pipe_k2, pipe_k3 = phase_serve_pipeline(phase, ov, gparams, gref, rehearsal,
+                                                card_line, n, n_late)
+        gpt2_k2 += pipe_k2
+        gpt2_k3 += pipe_k3
         del gref, gparams
         if rehearsal:
             emit("decode step gpt2", skipped="cpu rehearsal: no card to profile")

@@ -838,10 +838,11 @@ async def handle_status(request: web.Request) -> web.Response:
     }
     cdl = app[K_BATCHER]._cdl
     if cdl is not None:
-        # The loop's dispatch shape: one chunk in flight, the fused decode
-        # window's cap, last depth and counts, and the host's dispatch and
-        # fetch boundaries by site (what a window divides).  The double-
-        # buffered host prep is not ported: off, its counts 0.
+        # The loop's dispatch shape: the pipelining depth (tuned at warmup
+        # under STREAM_PIPELINE=0), the fused decode window's cap, last
+        # depth and counts, the staged host prep's plans (HOST_PREP_DOUBLE:
+        # staged, used as staged, rolled back) and the host's dispatch and
+        # fetch boundaries by site (what a window divides).
         body["decode"] = {
             "chain_depth": cdl.chain_depth,
             "chain_depth_auto": cdl._auto_depth,
@@ -853,10 +854,10 @@ async def handle_status(request: web.Request) -> web.Response:
             "window_early_exits": cdl.window_early_exits,
             "chunk_dispatches": cdl.chunk_dispatches,
             "tokens_emitted": cdl.tokens_emitted,
-            "host_prep_double": False,
-            "prep_staged": 0,
-            "prep_hits": 0,
-            "prep_misses": 0,
+            "host_prep_double": cdl.host_prep_double,
+            "prep_staged": cdl.prep_staged,
+            "prep_hits": cdl.prep_hits,
+            "prep_misses": cdl.prep_misses,
             "dispatch_counts": dict(sorted(engine.dispatch_counts.items())),
         }
     tr = tracing.tracer()

@@ -86,7 +86,7 @@ from ..models.gpt import clone_state, copy_state, prefix_len
 from ..models.registry import KIND_IMAGE, KIND_SEQ2SEQ, KIND_TEXT, ModelBundle, decode_budget
 from ..models.sampling import SampleParams, greedy_params, make_params
 from ..runtime import compile_cache
-from ..utils import tracing
+from ..utils import metrics, tracing
 from .kv_blocks import BlockPool, KVHostTier, PagedPrefix, blocks_for, kv_token_bytes
 from .prefix_cache import PrefixCache
 
@@ -171,7 +171,7 @@ class InferenceEngine:
         self.decode_steps = 0
         self.last_decode_steps = 0
         # Host dispatch and fetch boundaries of streamed generation by site
-        # (``prefill``, ``chunk``, ``fetch``, ``prefill_chunk``), the JAX
+        # (``prefill``, ``chunk``, ``fetch``, ``prefill_chunk``, ``prep``), the JAX
         # engine's per-site dispatch counts: what a fused decode window
         # divides (``/status.decode.dispatch_counts``).
         self.dispatch_counts: dict[str, int] = {}
@@ -266,10 +266,14 @@ class InferenceEngine:
         self._prefix_inputs: dict[tuple[int, int], dict] = {}
         self.prefix_warm: dict | None = None
 
-    def note_dispatch(self, site: str) -> None:
-        """Count one host dispatch or fetch boundary at ``site``.  The
-        counts are replaced, never changed in place, so a reader on another
-        thread (``/status``) iterates a dict no writer touches."""
+    def note_dispatch(self, site: str, host_s: float | None = None) -> None:
+        """Count one host dispatch or fetch boundary at ``site`` and, given
+        the host seconds the call took (``time.perf_counter`` around it, no
+        synchronisation added), observe them in ``dispatch_host_seconds``.
+        The counts are replaced, never changed in place, so a reader on
+        another thread (``/status``) iterates a dict no writer touches."""
+        if host_s is not None:
+            metrics.DISPATCH_HOST.labels(self.bundle.name, site).observe(host_s)
         with self._counts_lock:
             counts = self.dispatch_counts
             self.dispatch_counts = {**counts, site: counts.get(site, 0) + 1}

@@ -7,9 +7,9 @@ boundary it admits the waiting streams as one wave (one prefill plus the
 first decode chunk for the whole wave, ``InferenceEngine.start``), copies
 each wave row into a free slot, dispatches one batched decode chunk for
 every live slot and routes each row's tokens to its stream; a stream that
-hits EOS or its budget frees its slot.  One chunk stays in flight: chunk
-N+1 is dispatched before chunk N's tokens and ``done`` flags are read to
-the host, once per chunk.
+hits EOS or its budget frees its slot.  Up to ``chain_depth`` chunks stay
+in flight: chunk N+D is dispatched before chunk N's tokens and ``done``
+flags are read to the host (see "Dispatch pipeline" below).
 
 Sampling: each slot row carries its stream's ``SampleParams`` (copied in
 at insert with the rest of the row, the rng chain as the wave's first
@@ -186,10 +186,39 @@ streams is identical and the cost is their device time
 (``time_windows``).  Chunked prefill's budget a
 boundary scales by the last window.
 
-Not ported (``ROADMAP.md``): the disk KV tier,
-pipelining deeper than one chunk, speculative decoding in the loop,
-fleets, the journal and the supervisor (the reference's ``prefill_chunk``
-fault site with them).
+Dispatch pipeline, as in the reference:
+- depth (``STREAM_PIPELINE``): up to ``chain_depth`` dispatches stay in
+  flight; once one more is out the oldest is fetched and routed, and an
+  iteration that dispatched nothing drains the whole chain with one wait
+  (one ``fetch`` boundary: on one CUDA stream the newest copy's event
+  follows every older one).  Each dispatch's host copy is queued right
+  after its own replay, before the next replay overwrites the graph's
+  outputs.  0 (the default) tunes the depth at ``warm()``: k chained
+  chunk replays and one fetch take RTT + k x compute, so ``wall(1)`` and
+  ``wall(5)`` give both, the depth is RTT / compute clamped to [1, 8], and
+  the idle-burst admission grace drops to min(``ADMIT_GRACE_MS``, RTT /
+  10): on a directly attached card a lone request no longer waits 8 ms for
+  a burst that never comes.
+- ready delivery (paged): at the top of each iteration, dispatches whose
+  host copy has landed (``_HostCopy.ready``, an event query, no sync; on
+  the CPU always) are routed first, so rows that ended return their blocks
+  before the growth pass, and no all-done window follows an early exit.
+- staged host prep (``HOST_PREP_DOUBLE``, paged, on by default): right
+  after a dispatch, the next one's growth pass runs and its block table is
+  uploaded (``_stage_host_prep``); the next dispatch uses them only if the
+  window, the tenants, the step cursors and the table are all unchanged,
+  else the staged grants are rolled back and the prep runs again inline.
+  The upload goes straight into the graph's table buffer: it is queued on
+  the loop's CUDA stream after the chunk just dispatched, so no chunk in
+  flight reads it, and only chunk graphs read that buffer.  Host tables
+  go through pinned buffers, one reused only after its last copy's event.
+- blocking admission (``ADMIT_OVERLAP=0``): a wave's prefill, fetch and
+  insert all finish before the next chunk dispatch.
+Each dispatch site's host seconds feed ``dispatch_host_seconds``.
+
+Not ported (``ROADMAP.md``): the disk KV tier, speculative decoding in
+the loop, fleets, the journal and the supervisor (the reference's
+``prefill_chunk`` fault site with them).
 """
 
 from __future__ import annotations
@@ -346,7 +375,8 @@ class _SwapInJob:
 
 class _HostCopy:
     """Device-to-host copies started without waiting (pinned buffers and
-    an event on the card; copies on the CPU).  ``get`` waits for them."""
+    an event on the card; copies on the CPU).  ``get`` waits for them;
+    ``ready`` asks without waiting."""
 
     def __init__(self, *tensors: torch.Tensor):
         self.event = None
@@ -359,6 +389,9 @@ class _HostCopy:
             self.event.record()
         else:
             self.host = [t.clone() for t in tensors]
+
+    def ready(self) -> bool:
+        return self.event is None or self.event.query()
 
     def tensors(self) -> list[torch.Tensor]:
         if self.event is not None:
@@ -452,11 +485,28 @@ class ContinuousDecodeLoop:
         self._state_stale = False
         # Dispatched chunks and windows not yet routed (``_Inflight``); the
         # snapshot of each keeps its late rows from reaching a slot's next
-        # tenant.  One is in flight at a time (``chain_depth``; STREAM_PIPELINE
-        # 0, auto, picks one on a directly attached card).
+        # tenant.  Up to ``chain_depth`` stay in flight (STREAM_PIPELINE; 0
+        # tunes it at warm(), see the module docstring).
         self._inflight: list[_Inflight] = []
-        self.chain_depth = 1
+        self.chain_depth = max(1, int(getattr(cfg, "stream_pipeline", 0) or 1))
         self._auto_depth = int(getattr(cfg, "stream_pipeline", 0) or 0) == 0
+        # The tuned (RTT, compute) seconds, once warm() measured them.
+        self.tuned: tuple[float, float] | None = None
+        metrics.CHAIN_DEPTH.labels(self.model).set(self.chain_depth)
+        # Staged host prep (HOST_PREP_DOUBLE, paged): the next dispatch's
+        # plan, and how many were staged, used as staged, rolled back.
+        self.host_prep_double = bool(getattr(cfg, "host_prep_double", True))
+        self._staged_prep: dict | None = None
+        self.prep_staged = 0
+        self.prep_hits = 0
+        self.prep_misses = 0
+        # Pinned host copies of the block table on their way to the card
+        # ([tensor, event of its last copy]), used in turn.
+        self._table_host: list[list] = []
+        self._table_turn = 0
+        # ADMIT_OVERLAP=0: a wave's admission completes before the next
+        # chunk dispatch.
+        self.overlap_admission = bool(getattr(cfg, "admit_overlap", True))
         # Fused decode windows (DECODE_WINDOW): the governor picks each
         # dispatch's depth; the decoder-only families serve one (an
         # encoder-decoder's loop has a slot state of its own).
@@ -627,8 +677,11 @@ class ContinuousDecodeLoop:
         before the first stream, so the pools' allocation, the decode
         kernels' first build and load and, on the card, the chunk's graph
         capture land before the service reports ready (a window replays
-        that graph); returns the seconds taken.  A no-op once the loop
-        thread runs."""
+        that graph); with ``STREAM_PIPELINE=0`` tune the depth and the
+        admission grace over that chunk (``_tune_chain_depth``, paged
+        ``_tune_chain_depth_paged``); then reset every slot to dead, so no
+        warm chunk leaks into serving.  Returns the seconds taken.  A no-op
+        once the loop thread runs."""
         with self._thread_lock:
             if self._thread is not None:
                 return 0.0
@@ -639,7 +692,62 @@ class ContinuousDecodeLoop:
                     self._build_empty_state()
                 self._state, toks = self._chunk_call()
                 toks.cpu()
+                if self._auto_depth:
+                    if self.paged:
+                        self._tune_chain_depth_paged()
+                    else:
+                        self._tune_chain_depth()
+                self._build_empty_state()
         return phase.seconds
+
+    @staticmethod
+    def depth_from(rtt_s: float, compute_s: float) -> int:
+        """Chain depth from measured numbers: cadence ~ max(RTT / D, chunk
+        compute), so D ~ RTT / compute closes the gap to the wire; clamped
+        to [1, 8] (deeper chains only add fetch latency)."""
+        return max(1, min(8, round(rtt_s / max(compute_s, 1e-4))))
+
+    def _apply_tuned_depth(self, rtt: float, compute: float) -> None:
+        """Set the depth from the measured numbers and cut the idle-burst
+        grace to a tenth of the round trip: a lone request on a directly
+        attached card does not wait out ``ADMIT_GRACE_MS`` for a burst that
+        never comes."""
+        self.tuned = (rtt, compute)
+        self.chain_depth = self.depth_from(rtt, compute)
+        metrics.CHAIN_DEPTH.labels(self.model).set(self.chain_depth)
+        self.admit_grace_s = min(self.admit_grace_s, rtt / 10.0)
+        log.info(
+            "continuous loop: chunk compute %.1f ms, dispatch RTT %.1f ms "
+            "-> chain depth %d, admit grace %.1f ms",
+            compute * 1e3, rtt * 1e3, self.chain_depth, self.admit_grace_s * 1e3)
+
+    def _tune_chain_depth(self) -> None:
+        """Measure the dispatch round trip and the chunk's compute over the
+        warm slot state (the caller holds the engine's lock): ``wall(k)`` is
+        k chained chunks (on the card, replays of the loop's chunk graph,
+        nothing captured anew) and one fetch (a device-to-host copy of the
+        last chunk's tokens and a wait on it), RTT + k x compute; one
+        ``wall(1)`` primes, then compute = (wall(5) - wall(1)) / 4 and RTT =
+        wall(1) - compute."""
+        def wall(k: int) -> float:
+            t0 = time.perf_counter()
+            for _ in range(k):
+                self._state, toks = self._chunk_call(upload=False)
+            _HostCopy(toks).tensors()
+            return time.perf_counter() - t0
+
+        wall(1)
+        w1 = wall(1)
+        w5 = wall(5)
+        compute = max((w5 - w1) / 4.0, 1e-4)
+        rtt = max(w1 - compute, 0.0)
+        self._apply_tuned_depth(rtt, compute)
+
+    def _tune_chain_depth_paged(self) -> None:
+        """The paged loop's tuning: the block table uploaded once, then
+        every chunk of the measurement over it."""
+        self._upload_table()
+        self._tune_chain_depth()
 
     # ------------------------------------------------------------------
     # loop thread
@@ -670,6 +778,10 @@ class ContinuousDecodeLoop:
                 # buffers, and demoted pins gather out.
                 self._drain_swapouts()
                 self._drain_demotions()
+                # Dispatches whose results have landed route now (paged):
+                # rows that ended free their blocks before this iteration's
+                # growth pass and open slots for the wave below.
+                self._deliver_ready()
                 if (not self.active and not self._inflight and not self._prefilling
                         and not self._swapping and self.queue.qsize() == 0):
                     st = self.queue.pop(timeout=0.05, fits=self.admission.fits)
@@ -708,6 +820,17 @@ class ContinuousDecodeLoop:
                         self._reserve(st)
                         wave.append(st)
                 self._class_gauges()
+                if wave and not self.overlap_admission:
+                    # ADMIT_OVERLAP=0: the blocking order, the wave's
+                    # prefill, fetch and insert before the next chunk.
+                    self._pending_wave = wave
+                    with self.engine._lock:
+                        self._pending_admissions = self._admit_dispatch(wave)
+                        self._pending_wave = []
+                        if self._pending_admissions:
+                            self._admit_complete(self._pending_admissions)
+                            self._pending_admissions = []
+                    wave = []
                 # The live chunk goes first; the wave's prefill queues
                 # behind it on the device.
                 dispatched = False
@@ -729,13 +852,17 @@ class ContinuousDecodeLoop:
                 # on the device.
                 advanced = self._advance_swapins()
                 advanced = self._advance_prefill() or advanced
-                # One chunk in flight: route the older one once the next
-                # is dispatched, or everything when nothing was.
-                if len(self._inflight) > 1:
+                # With the chunk just dispatched in flight, stage the next
+                # dispatch's host prep.
+                if dispatched:
+                    self._stage_host_prep()
+                # Up to chain_depth in flight: route the oldest once one
+                # more is out, and drain the chain when nothing was
+                # dispatched.
+                if len(self._inflight) > self.chain_depth:
                     self._deliver_oldest()
                 elif self._inflight and not dispatched:
-                    while self._inflight:
-                        self._deliver_oldest()
+                    self._deliver_all()
                 elif not dispatched and not wave and not self.active and not advanced:
                     # Waiters whose reservation does not fit yet, nothing in
                     # flight: poll, do not spin.
@@ -744,6 +871,7 @@ class ContinuousDecodeLoop:
                 log.exception("decode loop iteration failed")
                 self._fail_all(e)
         closed = StreamClosedError("server stopping")
+        self._staged_prep = None  # the slot frees below return every block
         self._drain_swapouts()
         if self.paged:
             # Demotions never gathered now: their refs return to the pool.
@@ -766,6 +894,7 @@ class ContinuousDecodeLoop:
             self._finish(st, exc)
         self._pending_wave = []
         self._fail_jobs(exc)
+        self._staged_prep = None  # the slot frees below return every block
         for slot in list(self.active):
             self.active[slot].emit(exc)
             self._free_slot(slot)
@@ -1005,14 +1134,16 @@ class ContinuousDecodeLoop:
         """One ``start`` of whole prompts for ``streams``, collated as one
         batch; returns their admissions (a failed start ends them)."""
         try:
+            t0 = time.perf_counter()
             state1, toks, width = self.engine.start([st.feats for st in streams])
+            host_s = time.perf_counter() - t0
             copy = _HostCopy(toks, state1.done)
         except Exception as e:
             for st in streams:
                 self._finish(st, e)
             return []
         self.prefill_dispatches += 1
-        self.engine.note_dispatch("prefill")
+        self.engine.note_dispatch("prefill", host_s)
         for st in streams:
             st.s_lo, st.s_base = 0, width
         return [(st, state1, copy, row) for row, st in enumerate(streams)]
@@ -1079,14 +1210,16 @@ class ContinuousDecodeLoop:
             prefixes = [m[4] for m in members]
             prefixes += [prefixes[0]] * (ids.shape[0] - len(prefixes) if len(prefixes) > 1
                                          else 0)
+            t0 = time.perf_counter()
             state1, toks = eng._start_prefixed(prefixes, ids, mask, sp, sampled)
+            host_s = time.perf_counter() - t0
             copy = _HostCopy(toks, state1.done)
         except Exception as e:
             for st, *_ in members:
                 self._finish(st, e)
             return []
         self.prefill_dispatches += 1
-        eng.note_dispatch("prefill")
+        eng.note_dispatch("prefill", host_s)
         if len(members) > 1:
             self.prefix_hit_waves += 1
         for st, *_ in members:
@@ -1122,10 +1255,11 @@ class ContinuousDecodeLoop:
         caller holds the engine's lock."""
         fetched: set[int] = set()
         for st, state1, copy, row in started:
+            t0 = time.perf_counter()
             toks_np, done_np = copy.get()
             if id(copy) not in fetched:  # a wave's rows share one fetch
                 fetched.add(id(copy))
-                self.engine.note_dispatch("fetch")
+                self.engine.note_dispatch("fetch", time.perf_counter() - t0)
             st.produced = self.chunk
             self._emit_tokens(st, toks_np[row])
             if bool(done_np[row]) or st.produced >= st.budget:
@@ -1284,12 +1418,14 @@ class ContinuousDecodeLoop:
                 self._reclaim_then_ensure(job.sb, end)
                 job.table_row[: len(job.sb.ids)] = job.sb.ids
             with eng._lock:
+                t0 = time.perf_counter()
                 self._window_call(job, ids, mask, start)
+                host_s = time.perf_counter() - t0
             if self.paged:
                 self.admission.note_pool()
             job.consumed = end
             self.prefill_chunk_dispatches += 1
-            eng.note_dispatch("prefill_chunk")
+            eng.note_dispatch("prefill_chunk", host_s)
             metrics.PREFILL_CHUNKS.labels(self.model).inc()
 
     def _window_call(self, job: _PrefillJob, ids: np.ndarray, mask: np.ndarray,
@@ -2143,18 +2279,20 @@ class ContinuousDecodeLoop:
             for j in jobs)
         return live, waiting
 
-    def _pick_window(self) -> int:
+    def _pick_window(self, preview: bool = False) -> int:
         """The next dispatch's window depth: the governor's class policy,
         clamped to the chunks a live stream still needs beyond those in
-        flight."""
+        flight; ``preview`` (the staged host prep) leaves the governor's
+        state alone."""
         if self.decode_window <= 1:
             return 1
         ahead = self._inflight_chunks_ahead() * self.chunk
         need = max((st.budget - st.produced - ahead for st in self.active.values()
                     if not st.cancelled.is_set()), default=0)
         live, waiting = self.interactive_load()
-        return self._window_gov.pick(max_chunks=-(-need // self.chunk),
-                                     interactive_live=live, interactive_waiting=waiting)
+        fn = self._window_gov.preview if preview else self._window_gov.pick
+        return fn(max_chunks=-(-need // self.chunk), interactive_live=live,
+                  interactive_waiting=waiting)
 
     def _grow_for_dispatch(self, n_chunks: int = 1) -> None:
         """Grant every live row the blocks the next ``n_chunks`` chunks write
@@ -2181,20 +2319,21 @@ class ContinuousDecodeLoop:
         if grew:
             self.admission.note_pool()
 
-    def _chunk_call(self, sample: bool = False, w: int = 1, events=None):
+    def _chunk_call(self, sample: bool = False, w: int = 1, events=None, upload: bool = True):
         """One decode chunk over the whole slot state, or with ``w`` > 1 a
         fused window of ``w`` chunks (caller holds the engine's lock;
         ``sample``: the sampled variant): the block table copied to its
-        device buffer, then each chunk the chunk's graph replayed (on the
-        CPU: the chunk run).  Returns (state, tokens [n_slots, chunk]), or
-        for a window (state, tokens, done history, chunks run) as
+        device buffer (unless ``upload`` is off: a staged plan uploaded it),
+        then each chunk the chunk's graph replayed (on the CPU: the chunk
+        run).  Returns (state, tokens [n_slots, chunk]), or for a window
+        (state, tokens, done history, chunks run) as
         ``window.decode_window`` does, with no host sync between its
         chunks and ``events`` (``w`` + 1 CUDA events, or None) recorded
         before the first and after each."""
         eng = self.engine
         bundle = eng.bundle
-        if self.paged:
-            self._table_dev.copy_(torch.from_numpy(self._table), non_blocking=True)
+        if self.paged and upload:
+            self._upload_table()
         if eng.graphs is not None:
             entry = self.chunk_graph(sample)
 
@@ -2220,6 +2359,30 @@ class ContinuousDecodeLoop:
                 return out
 
         return decode_window(chunk_fn, self._state, self.chunk, w, bundle.cfg.pad_id)
+
+    def _upload_table(self) -> None:
+        """The host block table into the chunk graph's device buffer (the
+        caller holds the engine's lock), queued on the loop's CUDA stream
+        behind every dispatch in flight, which therefore never read it.  On
+        the card through pinned buffers used in turn (a copy from pageable
+        memory may hold the host), one reused only once its last copy's
+        event fired: chain_depth + 2 of them, so that wait is rarely
+        felt."""
+        src = torch.from_numpy(self._table)
+        if self._table_dev.device.type != "cuda":
+            self._table_dev.copy_(src)
+            return
+        while len(self._table_host) < self.chain_depth + 2:
+            self._table_host.append([torch.empty(src.shape, dtype=src.dtype, pin_memory=True),
+                                     None])
+        self._table_turn = (self._table_turn + 1) % len(self._table_host)
+        buf = self._table_host[self._table_turn]
+        if buf[1] is not None:
+            buf[1].synchronize()
+        buf[0].copy_(src)
+        self._table_dev.copy_(buf[0], non_blocking=True)
+        buf[1] = torch.cuda.Event()
+        buf[1].record()
 
     def _window_events(self, w: int):
         """``w`` + 1 timing events for a window when the loop times them on
@@ -2257,31 +2420,112 @@ class ContinuousDecodeLoop:
                 return eng.bundle.generate_chunk(state, self.chunk, sample)[1]
         return chunk, (state, table), eng.device
 
+    # -- staged host prep (HOST_PREP_DOUBLE) -----------------------------
+
+    def _stage_host_prep(self) -> None:
+        """With the chunk just dispatched in flight, run the next
+        dispatch's host prep now (paged): the growth pass for the window
+        the governor would pick (``preview``, no side effect) and the
+        table's upload, so that dispatch only checks the plan.  The growth
+        is the inline pass itself: a dry pool checkpoints as it would one
+        iteration later (the undelivered tokens in flight are part of no
+        checkpoint).  Both halves count as ``prep`` boundaries."""
+        self._rollback_staged_prep()
+        if not (self.host_prep_double and self.paged and self.active):
+            return
+        if not self._work_remains():
+            return
+        eng = self.engine
+        w = self._pick_window(preview=True)
+        t0 = time.perf_counter()
+        steps0 = dict(self._dispatched_steps)
+        self._grow_for_dispatch(w)
+        if not self.active:  # every row checkpointed on a dry pool
+            return
+        deltas = {slot: self._dispatched_steps.get(slot, 0) - steps0.get(slot, 0)
+                  for slot in self.active}
+        table_np = self._table.copy()
+        eng.note_dispatch("prep", time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        with eng._lock:
+            self._upload_table()
+        eng.note_dispatch("prep", time.perf_counter() - t0)
+        self._staged_prep = {"w": w, "tenants": dict(self.active),
+                             "steps": dict(self._dispatched_steps), "deltas": deltas,
+                             "table_np": table_np}
+        self.prep_staged += 1
+
+    def _rollback_staged_prep(self) -> None:
+        """Return a stale plan's grants: each tenant still live gets its
+        step cursor back and its blocks past it trimmed, its table row
+        rewritten (one that left released its whole list already)."""
+        staged, self._staged_prep = self._staged_prep, None
+        if staged is None:
+            return
+        trimmed = False
+        for slot, st in staged["tenants"].items():
+            delta = staged["deltas"].get(slot, 0)
+            if self.active.get(slot) is not st or st.blocks is None or not delta:
+                continue
+            steps = max(0, self._dispatched_steps.get(slot, 0) - delta)
+            self._dispatched_steps[slot] = steps
+            trimmed |= bool(st.blocks.trim(st.s_base + min(steps, st.budget)))
+            n = len(st.blocks.ids)
+            self._table[slot, :n] = st.blocks.ids
+            self._table[slot, n:] = self.pool.num_blocks
+        if trimmed:
+            self.admission.note_pool()
+
+    def _consume_staged_prep(self, w: int) -> bool:
+        """Whether the staged plan holds for this dispatch: the same window,
+        tenants (by identity), step cursors and table bytes.  Else it is
+        rolled back, so the inline prep starts from the state before it."""
+        staged = self._staged_prep
+        if staged is None:
+            return False
+        if (staged["w"] == w and staged["tenants"] == dict(self.active)
+                and staged["steps"] == self._dispatched_steps
+                and np.array_equal(staged["table_np"], self._table)):
+            self._staged_prep = None
+            self.prep_hits += 1
+            return True
+        self.prep_misses += 1
+        self._rollback_staged_prep()
+        return False
+
     def _dispatch_chunk(self) -> None:
         """Dispatch one chunk or fused window of every live slot (its depth
         from ``_pick_window``; paged, the blocks of all its chunks granted
-        first) and start the host copy of its results."""
+        first, by the staged plan when it holds) and start the host copy of
+        its results."""
         w = self._pick_window()
         self.last_window = w
         with tracing.span("decode_chunk", cat="engine", n_streams=len(self.active),
                           streams=[st.rid for st in self.active.values()], paged=self.paged,
                           window=w):
+            staged = False
             if self.paged:
-                self._grow_for_dispatch(w)
-                if not self.active:  # every row checkpointed on a dry pool
-                    return
+                staged = self._consume_staged_prep(w)
+                if not staged:
+                    self._grow_for_dispatch(w)
+                    if not self.active:  # every row checkpointed on a dry pool
+                        return
                 if self.prefix_cache is not None:
                     self._note_shared_rows()
             events = self._window_events(w) if w > 1 else None
             with self.engine._lock:
+                t0 = time.perf_counter()
                 if w > 1:
-                    self._state, toks, hist, n = self._chunk_call(bool(self.sampled_slots), w,
-                                                                  events)
+                    self._state, toks, hist, n = self._chunk_call(
+                        bool(self.sampled_slots), w, events, upload=not staged)
+                    host_s = time.perf_counter() - t0
                     copy = _HostCopy(toks, hist, n)
                 else:
-                    self._state, toks = self._chunk_call(bool(self.sampled_slots))
+                    self._state, toks = self._chunk_call(bool(self.sampled_slots),
+                                                         upload=not staged)
+                    host_s = time.perf_counter() - t0
                     copy = _HostCopy(toks, self._state.done)
-        self.engine.note_dispatch("chunk")
+        self.engine.note_dispatch("chunk", host_s)
         self.chunk_dispatches += 1
         self.decode_steps += self.chunk * w
         metrics.STREAM_BATCH.labels(self.model).observe(len(self.active))
@@ -2301,8 +2545,34 @@ class ContinuousDecodeLoop:
 
     def _deliver_oldest(self) -> None:
         e = self._inflight.pop(0)
+        t0 = time.perf_counter()
         fetched = e.copy.get()
-        self.engine.note_dispatch("fetch")
+        self.engine.note_dispatch("fetch", time.perf_counter() - t0)
+        self._route_entry(e, fetched)
+
+    def _deliver_all(self) -> None:
+        """Drain every dispatch in flight with one wait, one ``fetch``
+        boundary: the newest copy's event follows every older one on the
+        loop's CUDA stream."""
+        entries, self._inflight = self._inflight, []
+        t0 = time.perf_counter()
+        entries[-1].copy.tensors()
+        fetched = [e.copy.get() for e in entries]
+        self.engine.note_dispatch("fetch", time.perf_counter() - t0)
+        for e, got in zip(entries, fetched):
+            self._route_entry(e, got)
+
+    def _deliver_ready(self) -> None:
+        """Route, oldest first, the dispatches in flight whose host copy
+        has landed (paged; on the card an event query, no sync): rows that
+        ended return their blocks before the growth pass instead of after
+        it.  Nothing waits, so the pipeline's cadence is untouched."""
+        if not self.paged:
+            return
+        while self._inflight and self._inflight[0].copy.ready():
+            self._deliver_oldest()
+
+    def _route_entry(self, e: _Inflight, fetched: list[np.ndarray]) -> None:
         if e.w > 1:
             toks_np, hist_np, n = fetched
             self._route_window(toks_np, hist_np, int(n), e)

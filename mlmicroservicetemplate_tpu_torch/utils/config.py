@@ -168,10 +168,20 @@ class ServiceConfig:
     # the cap.  Refused for t5.
     decode_window: int = 1
     decode_window_auto: bool = True
-    # STREAM_PIPELINE: chunks the continuous loop keeps in flight; the port
-    # runs one, and accepts only 0 (auto, which picks one on a directly
-    # attached card) and 1 (UNPORTED_KNOBS).  Read for /status.decode.
+    # STREAM_PIPELINE: chunks (or windows) the continuous loop keeps in
+    # flight before it fetches the oldest; 0 (auto) measures the dispatch
+    # round trip against the chunk's compute at warmup and picks the depth
+    # from them, trimming ADMIT_GRACE_MS to a tenth of the round trip.
     stream_pipeline: int = 0
+    # HOST_PREP_DOUBLE: with a chunk in flight, the paged loop stages the
+    # next dispatch's growth pass and block-table upload, and uses them at
+    # that dispatch only if nothing they derive from moved (else they are
+    # rolled back and prepared again inline).  A no-op for contiguous slots.
+    host_prep_double: bool = True
+    # ADMIT_OVERLAP: a wave's prefill queues behind the live chunk and its
+    # fetch rides behind it; off, the wave's prefill, fetch and insert all
+    # finish before the next chunk dispatch (the blocking order).
+    admit_overlap: bool = True
     # Sequence-parallel width for bert-long: the sequence axis shards over
     # this many devices and attention runs as a ring (parallel/ring.py).
     # 0 = every visible card (one shard on the CPU).
@@ -218,6 +228,9 @@ class ServiceConfig:
             raise ValueError("DECODE_WINDOW must be in [1, 64]")
         if self.sp < 0:
             raise ValueError(f"SP must be >= 0, got {self.sp}")
+        if self.stream_pipeline < 0:
+            raise ValueError("REPLICAS/SP/TP/STREAM_PIPELINE/MAX_STREAM_QUEUE/"
+                             "FAULT_SEED/SPEC_MAX_STREAMS must be >= 0 (0 = auto/off)")
         if self.pipeline_depth < 1 or self.trace_ring < 1:
             raise ValueError("PIPELINE_DEPTH and TRACE_RING must be >= 1")
         if not (self.deadline_ms >= 0 and self.drain_grace_s >= 0):  # also rejects NaN
@@ -273,18 +286,11 @@ UNPORTED_KNOBS = {
     "QUANTIZE": ("none",) + _OFF,
     "ADAPTER_DIR": (),
     "ADAPTER_SLOTS": ("8",),
-    # The continuous loop runs one chunk in flight (0 = auto picks that on
-    # a directly attached card), preps each chunk after the last one, and
-    # has no disk KV tier under its host tier; its other knobs wait for
-    # later slices.
-    "STREAM_PIPELINE": ("0", "1"),
-    "HOST_PREP_DOUBLE": _OFF,
+    # The continuous loop has no disk KV tier under its host tier and no
+    # journal yet.
     "KV_DISK_BUDGET_MB": ("0",),
     "JOURNAL_DIR": (),
     "JOURNAL_FSYNC": ("always",),
-    # The loop always admits behind the live chunk (the JAX default); the
-    # blocking admission order of ADMIT_OVERLAP=0 is not ported.
-    "ADMIT_OVERLAP": _ON,
     "TENANTS": (),
     "TENANTS_FILE": (),
     "TENANT_DEFAULT_WEIGHT": ("1",),
@@ -397,7 +403,7 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
     CLASS_WEIGHT, KV_BUDGET_MB, MAX_STREAM_QUEUE, PREEMPT, PROMPT_PREFIX,
     PREFIX_CACHE, PREFIX_CACHE_MB, PREFILL_CHUNK, PREFILL_BUDGET,
     PREFILL_MAX_PROMPT, KV_HOST_BUDGET_MB, KV_PREFETCH_BLOCKS, DECODE_WINDOW,
-    DECODE_WINDOW_AUTO, STREAM_PIPELINE (0 or 1).  Any of
+    DECODE_WINDOW_AUTO, STREAM_PIPELINE, HOST_PREP_DOUBLE, ADMIT_OVERLAP.  Any of
     ``UNPORTED_KNOBS`` set to a value that turns it on raises;
     ``INERT_KNOBS`` are accepted and ignored."""
     e = dict(os.environ)
@@ -463,7 +469,9 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
                        ("warmup_sampling", "WARMUP_SAMPLING"),
                        ("continuous_batching", "CONTINUOUS_BATCHING"), ("preempt", "PREEMPT"),
                        ("prefix_cache", "PREFIX_CACHE"),
-                       ("decode_window_auto", "DECODE_WINDOW_AUTO")):
+                       ("decode_window_auto", "DECODE_WINDOW_AUTO"),
+                       ("host_prep_double", "HOST_PREP_DOUBLE"),
+                       ("admit_overlap", "ADMIT_OVERLAP")):
         v = get(var)
         if v is not None:
             kwargs[field] = _flag(v)

@@ -7,7 +7,8 @@ for streaming generation, generated tokens,
 live streams per loop chunk, time to first token, the gap between chunk
 deliveries, preemptions, the paged KV pool's blocks and its dry-pool
 stalls, the host KV tier's blocks, swap bytes, resumes and prefix
-hits, and the chunks of each fused decode window and its early exits.
+hits, the chunks of each fused decode window and its early exits, the
+loop's pipelining depth, and the host seconds of each dispatch by site.
 The series live in this package's own
 registry, so a process that also imports the JAX package registers no
 name twice.  Without ``prometheus_client`` every series is a no-op stub.
@@ -176,6 +177,23 @@ KV_HOST_PREFIX_HITS = Counter(
     "Prefix-cache matches served from the host tier: the entry was "
     "demoted under device-budget pressure and promoted back on match",
     ["model"], registry=REGISTRY,
+)
+CHAIN_DEPTH = Gauge(
+    "stream_chain_depth",
+    "Chunk-chain pipelining depth the continuous decode loop runs at "
+    "(STREAM_PIPELINE; auto-tuned at warmup from measured dispatch RTT "
+    "vs chunk compute when 0)",
+    ["model"], registry=REGISTRY,
+)
+DISPATCH_HOST = Histogram(
+    "dispatch_host_seconds",
+    "Host time one guarded device dispatch spent from submit to "
+    "return, by dispatch site (prefill | prefill_chunk | chunk | "
+    "fetch | batch | handoff | swap | prep) — the host-side half of "
+    "the host-vs-device attribution split (TRACE=1 spans carry the "
+    "device half); prep is the double-buffered host prep staged while "
+    "the previous chunk is in flight",
+    ["model", "site"], buckets=_FINE_BUCKETS, registry=REGISTRY,
 )
 DECODE_WINDOW_CHUNKS = Histogram(
     "decode_window_chunks",

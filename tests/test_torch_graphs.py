@@ -538,8 +538,11 @@ def test_loop_through_graphs_gives_jax_tokens(paged, quant, warm):
     kind = "loop_chunk_paged" if paged else "loop_chunk"
     assert len([e for e in cache.entries() if e.kind == kind]) == 2  # argmax and sampled
     chunk, sampled = loop.chunk_graph(False), loop.chunk_graph(True)
-    # warm() replays once before the streams' chunks; no stream samples
-    assert chunk.replays == loop.chunk_dispatches + warm and loop.chunk_dispatches > 0
+    # warm() replays once before the streams' chunks and, under
+    # STREAM_PIPELINE=0, seven more to tune the depth (a priming chunk,
+    # then one and five chained); no stream samples
+    assert loop._auto_depth and loop.tuned is not None or not warm
+    assert chunk.replays == loop.chunk_dispatches + 8 * warm and loop.chunk_dispatches > 0
     assert sampled.replays == 0
     if warm:
         assert loop._state is state and [t.data_ptr() for t in _tensors(state)] == ptrs

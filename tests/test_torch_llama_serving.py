@@ -227,7 +227,7 @@ def test_unported_requests_answer_400(services, path, body):
     ids=lambda k: next(iter(k)),
 )
 def test_unported_knobs_raise(knob, tmp_path):
-    """Knobs the port does not serve raise "not ported".  Seven it once
+    """Knobs the port does not serve raise "not ported".  Eight it once
     refused serve now, and their cases pin what the JAX package does: a
     SentencePiece ``TOKENIZER_PATH`` loads with a leading <s> and no
     trailing </s> (the model's eos/pad the tokenizer's),
@@ -237,8 +237,9 @@ def test_unported_knobs_raise(knob, tmp_path):
     the JAX engine's blocks, ``PROMPT_PREFIX`` and ``PREFIX_CACHE``
     stream the JAX batcher's tokens (the cache with its counts),
     ``PREFILL_CHUNK`` streams them through the loop's windows, as many as
-    the JAX loop's, and ``DECODE_WINDOW`` streams batch-class requests
-    through fused decode windows, as many as the JAX loop's."""
+    the JAX loop's, ``DECODE_WINDOW`` streams batch-class requests
+    through fused decode windows, as many as the JAX loop's, and
+    ``STREAM_PIPELINE`` streams them with two dispatches in flight."""
     name = next(iter(knob))
     overrides = {"MODEL_NAME": "llama", "DEVICE": "cpu", "WARMUP": "0",
                  "LLAMA_CONFIG": json.dumps(SMALL), **knob}
@@ -273,13 +274,17 @@ def test_unported_knobs_raise(knob, tmp_path):
         got = asyncio.run(_stream_all(batcher, bundle, RawItem))
         assert got == want and engine.dispatches == len(REQUESTS)
         return
-    if name == "DECODE_WINDOW":
-        # Batch-class streams (the AUTO policy fuses only without
-        # interactive work) through windows of up to 4 chunks.
+    if name in ("DECODE_WINDOW", "STREAM_PIPELINE"):
+        # DECODE_WINDOW: batch-class streams (the AUTO policy fuses only
+        # without interactive work) through windows of up to 4 chunks;
+        # STREAM_PIPELINE: two dispatches in flight.
+        window = name == "DECODE_WINDOW"
+        jkw = {"decode_window": 4} if window else {"stream_pipeline": 2}
+        extra = {"priority": "batch"} if window else {}
         os.environ["LLAMA_CONFIG"] = json.dumps(SMALL)
         try:
             jcfg = JaxServiceConfig(device="cpu", model_name="llama", warmup=False,
-                                    batch_timeout_ms=1.0, decode_window=4, **SERVE)
+                                    batch_timeout_ms=1.0, **jkw, **SERVE)
             jbundle = jax_build_model(jcfg)
             jengine = JaxEngine(jbundle, jcfg, ReplicaSet(make_mesh(1)))
         finally:
@@ -288,10 +293,13 @@ def test_unported_knobs_raise(knob, tmp_path):
             {**overrides, "SEQ_BUCKETS": "16,32", "MAX_DECODE_LEN": "10",
              "STREAM_CHUNK_TOKENS": "4"}, params=jax.tree.map(np.asarray, jbundle.params))
         jbatcher = JaxBatcher(jengine, jcfg)
-        want = asyncio.run(_stream_all(jbatcher, jbundle, JaxRawItem, priority="batch"))
-        got = asyncio.run(_stream_all(batcher, bundle, RawItem, priority="batch"))
+        want = asyncio.run(_stream_all(jbatcher, jbundle, JaxRawItem, **extra))
+        got = asyncio.run(_stream_all(batcher, bundle, RawItem, **extra))
         assert got == want
-        assert batcher._cdl.window_dispatches == jbatcher._cdl.window_dispatches > 0
+        if window:
+            assert batcher._cdl.window_dispatches == jbatcher._cdl.window_dispatches > 0
+        else:
+            assert batcher._cdl.chain_depth == jbatcher._cdl.chain_depth == 2
         return
     if name == "PREFILL_CHUNK":
         os.environ["LLAMA_CONFIG"] = json.dumps(SMALL)
