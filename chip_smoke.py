@@ -7,6 +7,8 @@
     python3 chip_smoke.py --chunked        # the chunked-prefill phases only
     python3 chip_smoke.py --tier           # the host KV tier's phase only
     python3 chip_smoke.py --window         # the fused decode-window phases only
+    python3 chip_smoke.py --pipeline       # the dispatch pipeline's phase only
+    python3 chip_smoke.py --spec           # the speculative decoding phase only
 
 Phases, one JSON line each; any failure exits non-zero and prints no
 result line:
@@ -227,7 +229,8 @@ result line:
    with GB/s, the pinning time, the overlap ratio, the resume latency of
    swapped streams and of the long prompt, its TTFT and the chunk
    boundaries its prefetch took.
-7g. serve llama window: fused decode windows, TinyLlama at full depth
+7g. serve llama window (``--window`` only; the main run keeps GPT-2's
+   windows, 8d): fused decode windows, TinyLlama at full depth
    through the paged loop (16 slots, 16-token blocks, batch buckets 1 and
    16, one seq bucket) with ``DECODE_WINDOW=8`` and AUTO on.  A probe
    service (``DECODE_WINDOW=1``, the model's own eos) streams 240 candidate
@@ -302,6 +305,30 @@ result line:
    dispatch site (count, p50, sum), chunk and fetch boundaries per token,
    tokens/s (the middle of three passes, and all three), the staged-prep
    counts, the most dispatches in flight, and the lone requests' TTFT.
+8f. serve spec (``--spec`` runs the build and its three services alone;
+   in the main run ``serve spec llama`` comes after 7f, ``serve spec gpt2
+   loop`` after 8e and ``serve spec t5`` after 8c, each over the weights
+   its section built):
+   speculative decoding, ``SPEC_DECODE=ngram`` (``SPEC_K`` 8, 4 verify
+   rounds a chunk, 64 decode positions).  ``serve spec llama``: TinyLlama
+   at full width (22 layers) per stream (``CONTINUOUS_BATCHING=0``, the
+   prefix cache on, buckets 1 x 64/128): six prompts, four quoting
+   themselves, two seeded sampled, each alone, then a prompt that hits the
+   first one's 64-token prefix, then a greedy and a sampled one whole
+   (``full_spec``); the same greedy prompts again with speculation off (the
+   plain path's graphs) for tokens/s; a verify round against a decode step
+   at B = 1 over the 128 bucket (CUDA events, split by ``torch.profiler``
+   into GEMMs and the rest; the window's attention timed alone).  ``serve
+   spec gpt2 loop``: GPT-2 small under ``SPEC_CONTINUOUS`` in the
+   contiguous loop (4 slots, every stream routed there), the items twice
+   at once.  ``serve spec t5``: T5-small per stream, K1 in its encoder.
+   Gates: 0 misses after warmup; launches equal to the replays' (K2 never
+   on the per-stream spec paths, 12 x 4 a GPT-2 loop wave's first chunk,
+   K1 6 a T5 generation); every greedy token teacher-forced against an f32
+   forward within 3x the run's logit error, every sampled token inside its
+   filtered support under that forward; a whole generation and a loop
+   chunk of verify rounds through graphs equal to eager; a prefix hit.
+   Printed: tokens per verify step, spec against plain tokens/s.
 8b. decode step gpt2: one GPT-2 step at B in {1, 8, 16} over a 320-key
    cache, greedy against sampled, eager and as graphs, split into K2,
    GEMMs and the rest; the sampler alone as graphs on [B, 50257] logits
@@ -5211,6 +5238,431 @@ def tier_main() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# 8f: speculative decoding (SPEC_DECODE, SPEC_CONTINUOUS)
+
+
+def spec_items(rehearsal: bool, t5: bool = False):
+    """Prompts that quote themselves (prompt lookup's regime) and plain
+    ones, greedy, and two seeded sampled ones; each a wave of its own, so
+    every stream is alone (the per-stream path speculates only then)."""
+    from mlmicroservicetemplate_tpu_torch.models.registry import RawItem
+
+    lead = "summarize: " if t5 else ""
+    texts = [lead + "the cat sat on the mat. the cat sat on the mat. the cat sat on the mat. "
+                    "the cat sat on",
+             lead + "one two three four one two three four one two three",
+             lead + "a plain prompt with nothing to quote",
+             lead + "abcabcabcabcabcabcabcabc"]
+    items = [RawItem(text=t) for t in texts]
+    items += [RawItem(text=texts[0], temperature=0.8, top_k=40, seed=11),
+              RawItem(text=texts[1], temperature=1.0, top_p=0.9, seed=12)]
+    if rehearsal:
+        items = [items[0], items[3], items[4]]
+    return items
+
+
+def spec_tokens_check(bundle, ref_model, feats, rows, max_len: int) -> dict:
+    """Every emitted token against an f32 forward: greedy rows
+    teacher-forced (``teacher_forced``: each token within TF_FACTOR times
+    the run's logit error of the reference's best); a sampled row's draws
+    are rejection sampling's, not the sequential sampler's, so each of its
+    tokens must lie inside the row's filtered support under the reference
+    (its temperature-scaled logit no further below the filter's cutoff than
+    the tolerance)."""
+    import torch
+
+    greedy = [(f, r) for f, r in zip(feats, rows) if float(f.get("temperature", 0.0)) == 0.0]
+    check = teacher_forced(bundle, ref_model, [f for f, _ in greedy], [r for _, r in greedy],
+                           max_len)
+    worst, n = 0.0, 0
+    with torch.inference_mode():
+        for f, row in zip(feats, rows):
+            if float(f.get("temperature", 0.0)) == 0.0:
+                continue
+            toks = [int(t) for t in row]
+            if bundle.cfg.eos_id in toks:
+                toks = toks[: toks.index(bundle.cfg.eos_id) + 1]
+            ref = forced_logits(bundle, ref_model, f, toks)
+            steps = torch.arange(len(toks), device=ref.device)
+            _, raw, cutoff, tol_s = perturbed(ref, f, steps, check["tol"])
+            t = torch.tensor(toks, device=ref.device)[:, None]
+            outside = float((cutoff - raw.gather(1, t)[:, 0]).max())
+            worst = max(worst, outside / tol_s)
+            n += len(toks)
+    if worst > 1.0:
+        raise AssertionError(f"a sampled spec token lies outside its filtered support: {worst}")
+    return {**check, "sampled_tokens": n, "sampled_worst_outside_over_tol": worst}
+
+
+def verify_vs_step(engine, s: int) -> dict:
+    """A verify round against a decode step at B = 1 over an S-token
+    prompt's cache: each the bucket's graph replay (``spec_chunk``: the
+    chunk's rounds; ``gen_chunk``: its steps) timed by CUDA events a round
+    or step, and split by ``torch.profiler`` into GEMMs (attention's
+    einsums among them) and the rest, K2 apart in the step; and the verify
+    window's attention alone (``_window_attention`` at the round's shapes,
+    the GQA repeat included) timed and split, times the layers."""
+    import torch
+
+    from mlmicroservicetemplate_tpu_torch.models import llama
+
+    bundle = engine.bundle
+    cfg = bundle.cfg
+    n, k = engine.chunk_tokens, engine.spec_k
+    shape = (1, s)
+    with torch.inference_mode(), engine._lock:
+        start = engine._spec_start_graph(shape, False)
+        spec = engine._graph("spec_chunk", shape, False,
+                             lambda: engine._make_spec_chunk(shape, False))
+        gstart = engine._start_graph(shape, False)
+        gchunk = engine._graph("gen_chunk", shape, False,
+                               lambda: engine._make_gen_chunk(shape, False))
+
+        def round_():
+            start.replay()
+            spec.replay()
+
+        def step():
+            gstart.replay()
+            gchunk.replay()
+
+        # The start's share is timed apart and taken off.
+        t_start, t_round = cuda_ms(start.replay, 10), cuda_ms(round_, 10)
+        t_gstart, t_step = cuda_ms(gstart.replay, 10), cuda_ms(step, 10)
+        p_start = profile_split(start.replay, 3, r"^$", "none")
+        p_round = profile_split(round_, 3, r"^$", "none")
+        p_gstart = profile_split(gstart.replay, 3, K2_KERNEL, "attention")
+        p_step = profile_split(step, 3, K2_KERNEL, "attention")
+        total = s + engine.max_decode_len
+        dt = bundle.policy.compute_dtype
+        q = torch.randn(1, k + 1, cfg.num_heads, cfg.head_dim, device="cuda", dtype=dt)
+        kv = [torch.randn(1, total, cfg.num_kv_heads, cfg.head_dim, device="cuda", dtype=dt)
+              for _ in range(2)]
+        mask = torch.ones(1, 1, k + 1, total, dtype=torch.bool, device="cuda")
+
+        def attend():
+            llama._window_attention(cfg, q, kv[0], kv[1], mask)
+
+        # Alone, eager: its wall time is the launches', so its busy time
+        # (the profiler's) stands for its share.
+        p_attn = profile_split(attend, 5, r"^$", "none")
+
+    def per(a: dict, b: dict, div: int) -> dict:
+        return {key: (a[key] - b[key]) / div for key in ("gemm_ms", "other_ms")
+                if a.get(key) is not None and b.get(key) is not None}
+
+    verify_ms, step_ms = (t_round - t_start) / n, (t_step - t_gstart) / n
+    round_split = per(p_round, p_start, n)
+    step_split = per(p_step, p_gstart, n)
+    step_split["k2_ms"] = (p_step["attention_ms"] - p_gstart["attention_ms"]) / n
+    attn = {key: p_attn[key] * cfg.num_layers for key in ("gemm_ms", "other_ms")}
+    attn_busy = sum(attn.values())
+    return {
+        "batch": 1, "prompt_bucket": s, "cache_len": total, "window": k + 1,
+        "verify_round_ms": verify_ms, "decode_step_ms": step_ms,
+        "verify_over_step": verify_ms / step_ms,
+        "verify_round_busy_split_ms": round_split,
+        "decode_step_busy_split_ms": step_split,
+        "window_attention_busy_ms": attn_busy, "window_attention_busy_split_ms": attn,
+        "window_attention_share_of_round_busy": attn_busy / sum(round_split.values()),
+        "window_attention_kernels_a_layer": p_attn["kernels"],
+    }
+
+
+def spec_stream_service(label: str, overrides: dict, params, ref_model, rehearsal: bool,
+                        card_line: str, t5: bool = False) -> tuple:
+    """A per-stream speculative service (``CONTINUOUS_BATCHING=0``,
+    ``SPEC_DECODE=ngram``): warmed, its spec items streamed each alone
+    through ``Batcher.submit_stream``, a greedy and a sampled one whole
+    through ``Batcher.submit`` (``full_spec``), and with the prefix cache
+    on (decoder families) a second prompt that hits the first's bucket
+    prefix.  Gates: 0 graph misses after warmup, the launch counters
+    against the replays, every token checked (``spec_tokens_check``), a
+    whole greedy generation through graphs equal to eager.  Then the same
+    streams with speculation off (the engine's plain path, same graphs
+    warmed) for tokens/s, and on the card a verify round against a decode
+    step.  Returns (launches by kernel, the emitted line)."""
+    import numpy as np
+
+    from mlmicroservicetemplate_tpu_torch.ops.attention import decode_attention, fused_attention
+    from mlmicroservicetemplate_tpu_torch.scheduler.batcher import Batcher
+    from mlmicroservicetemplate_tpu_torch.serve import build_service
+
+    cfg, bundle, engine, batcher = build_service(overrides, params=params)
+    warm_s = engine.warmup()
+    items = spec_items(rehearsal, t5)
+    greedy = [it for it in items if it.temperature == 0.0]
+    if not t5:
+        # A prompt whose first bucket (a byte a token) is the first one's:
+        # the first donates that prefix, this one hits it.
+        s_lo = min(engine.seq_buckets)
+        items.append(type(greedy[0])(text=greedy[0].text[:s_lo + 4] + " and then the dog"))
+    # Tokens a verify round of each streamed chunk, as the
+    # ``spec_tokens_per_verify_step`` histogram observes them.
+    per_round = []
+    emitted = engine._spec_emitted
+
+    def record(out_np, ns_np, n_verify, row=0):
+        chunk = emitted(out_np, ns_np, n_verify, row)
+        per_round.append(chunk.size / n_verify)
+        return chunk
+
+    engine._spec_emitted = record
+    fused_attention.launches = decode_attention.launches = 0
+    engine.spec_rounds = engine.decode_steps = engine.dispatches = 0
+    marks = graph_marks(bundle)
+    feats, rows, latencies, ttfts, wall = asyncio.run(
+        drive_streams(batcher, bundle, [[it] for it in items]))
+    stream_rounds = engine.spec_rounds
+    whole_items = [greedy[0]] + [it for it in items if it.temperature > 0][:1]
+    wfeats, wrows, _, _ = asyncio.run(drive(Batcher(engine, cfg), bundle,
+                                            [[it] for it in whole_items]))
+    engine._spec_emitted = emitted
+    counted = {"fused_attention": fused_attention.launches,
+               "decode_attention": decode_attention.launches}
+    gdrive = graph_drive(bundle, marks, counted)
+    rounds, tokens = engine.spec_rounds, sum(len(r) for r in rows)
+    if gdrive["misses"] or rounds < 1:
+        raise AssertionError(f"{label}: {gdrive['misses']} misses after warmup, {rounds} rounds")
+    enc_layers = bundle.cfg.num_layers if t5 else 0
+    want = {"fused_attention": 0 if rehearsal else enc_layers * engine.dispatches,
+            "decode_attention": 0}
+    if counted != want:
+        raise AssertionError(f"{label}: launches {counted}, want {want} over "
+                             f"{engine.dispatches} generations")
+    check = spec_tokens_check(bundle, ref_model, feats + wfeats,
+                              rows + [r[: int(f.get("max_tokens", engine.max_decode_len))]
+                                      for f, r in zip(wfeats, wrows)], engine.max_decode_len)
+    hits = engine.prefix_cache.stats()["hits"] if engine.prefix_cache is not None else None
+    if engine.prefix_cache is not None and not hits:
+        raise AssertionError(f"{label}: no prefix-cache hit")
+    graph_eager = ({"skipped": "cpu rehearsal"} if rehearsal
+                   else tokens_graph_vs_eager(engine, [feats[0]]))
+    # Speculation off: the same greedy streams through the plain per-stream
+    # path (its start and gen_chunk graphs were warmed too).
+    gitems = [it for it in items if it.temperature == 0.0]
+    engine.spec_enabled = False
+    try:
+        _, plain_rows, _, _, plain_wall = asyncio.run(
+            drive_streams(Batcher(engine, cfg), bundle, [[it] for it in gitems]))
+    finally:
+        engine.spec_enabled = True
+    k2_plain = decode_attention.launches - counted["decode_attention"]
+    spec_greedy = [r for f, r in zip(feats, rows) if float(f.get("temperature", 0.0)) == 0.0]
+    spec_wall = wall * len(spec_greedy) / len(rows)  # the greedy streams' share
+    out = dict(
+        device=str(bundle.device), card=card_line, layers=bundle.cfg.num_layers,
+        spec_k=engine.spec_k, chunk_tokens=engine.chunk_tokens, streams=len(rows),
+        whole=len(wrows), verify_rounds=rounds, stream_tokens=tokens,
+        stream_verify_rounds=stream_rounds,
+        tokens_per_verify_step=float(np.mean(per_round)), prefix_hits=hits,
+        misses_after_warmup=gdrive["misses"], launches=counted,
+        plain_decode_attention_launches=k2_plain, warm_s=warm_s,
+        ttft_p50_ms=float(np.percentile(np.array(ttfts) * 1e3, 50)),
+        spec_tok_per_s=sum(len(r) for r in spec_greedy) / spec_wall,
+        plain_tok_per_s=sum(len(r) for r in plain_rows) / plain_wall,
+        graph_vs_eager=graph_eager, **check)
+    if not rehearsal and not t5:
+        out["verify_vs_step"] = verify_vs_step(engine, max(engine.seq_buckets))
+    emit(label, **out)
+    graphs_out = None
+    if not rehearsal:
+        graphs_out = phase_graphs(label[len("serve "):], bundle, **gdrive)
+    release(bundle)
+    return {"fused_attention": counted["fused_attention"],
+            "decode_attention": k2_plain}, out, graphs_out
+
+
+def spec_loop_graph_vs_eager(engine, loop) -> dict:
+    """One chunk of verify rounds of the speculative slot state, every slot
+    live, through its graph and, from the same state restored, eagerly:
+    outputs and counts identical, argmax and sampled."""
+    import torch
+
+    from mlmicroservicetemplate_tpu_torch.models.gpt import state_tensors
+
+    with torch.inference_mode(), engine._lock:
+        st = loop._state
+        every_key_valid(st.base)
+        st.base.done.fill_(False)
+        out = {}
+        for sample in (False, True):
+            if sample:
+                sp = st.base.sample
+                sp.temperature.fill_(1.0)
+                sp.top_k.fill_(40)
+                sp.top_p.fill_(0.9)
+                sp.rng.copy_(torch.arange(sp.rng.numel()).view_as(sp.rng))
+            saved = [t.clone() for t in state_tensors(st)]
+            _, got = loop._chunk_call(sample)
+            got = [t.clone() for t in got]
+            for t, s in zip(state_tensors(st), saved):
+                t.copy_(s)
+            graphs, engine.graphs = engine.graphs, None
+            try:
+                _, want = loop._chunk_call(sample)
+            finally:
+                engine.graphs = graphs
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"a spec loop chunk through its graph differs from eager "
+                                     f"(sampled: {sample})")
+            out["sampled" if sample else "argmax"] = True
+    return {"slots": loop.n_slots, "rounds": loop.chunk, "identical": out}
+
+
+def spec_loop_service(label: str, overrides: dict, params, ref_model, rehearsal: bool,
+                      card_line: str) -> tuple:
+    """GPT-2 under ``SPEC_CONTINUOUS`` in the contiguous loop (every stream
+    routed there: ``SPEC_MAX_STREAMS=0``): the spec items twice over, at
+    once, more streams than slots.  Gates: K2 launches = layers x the
+    admission waves' first chunks (a wave's start decodes through K2, the
+    verify rounds never), 0 misses after warmup, every token checked, the
+    loop's spec chunk through its graph equal to eager.  Printed: tokens
+    per verify round of a live row."""
+    import numpy as np
+
+    from mlmicroservicetemplate_tpu_torch.ops.attention import decode_attention
+    from mlmicroservicetemplate_tpu_torch.serve import build_service
+
+    cfg, bundle, engine, batcher = build_service(overrides, params=params)
+    loop = batcher._cdl
+    warm_s = batcher.warm_engine() + batcher.warm_streams()
+    items = spec_items(rehearsal) * 2
+    routed = {"rows": 0, "tokens": 0}
+    route = loop._route_chunk
+
+    def counting(toks_np, done_np, snapshot):
+        out_np, ns_np = toks_np
+        for slot, st in snapshot.items():
+            if loop.active.get(slot) is st:
+                routed["rows"] += loop.chunk
+                routed["tokens"] += int(ns_np[slot].sum())
+        route(toks_np, done_np, snapshot)
+
+    loop._route_chunk = counting
+    decode_attention.launches = 0
+    loop.prefill_dispatches = loop.chunk_dispatches = loop.spec_rounds = 0
+    marks = graph_marks(bundle)
+    feats, rows, latencies, ttfts, wall = asyncio.run(drive_streams(batcher, bundle, [items]))
+    k2 = decode_attention.launches
+    gdrive = graph_drive(bundle, marks, {"decode_attention": k2})
+    layers = bundle.cfg.num_layers
+    want = 0 if rehearsal else layers * engine.chunk_tokens * loop.prefill_dispatches
+    if k2 != want or loop.spec_rounds < 1 or gdrive["misses"]:
+        raise AssertionError(f"{label}: K2 {k2} (want {want}), {loop.spec_rounds} rounds, "
+                             f"{gdrive['misses']} misses")
+    if loop.admitted:
+        raise AssertionError(f"{label}: {loop.admitted} streams never released")
+    check = spec_tokens_check(bundle, ref_model, feats, rows, engine.max_decode_len)
+    out = dict(
+        device=str(bundle.device), card=card_line, layers=layers, slots=loop.n_slots,
+        spec_k=engine.spec_k, streams=len(rows), admission_waves=loop.prefill_dispatches,
+        chunk_dispatches=loop.chunk_dispatches, verify_rounds=loop.spec_rounds,
+        tokens_per_verify_round_per_row=routed["tokens"] / max(1, routed["rows"]),
+        decode_attention_launches=k2, misses_after_warmup=gdrive["misses"], warm_s=warm_s,
+        tok_per_s=sum(len(r) for r in rows) / wall,
+        ttft_p50_ms=float(np.percentile(np.array(ttfts) * 1e3, 50)),
+        graph_vs_eager=({"skipped": "cpu rehearsal"} if rehearsal
+                        else spec_loop_graph_vs_eager(engine, loop)), **check)
+    emit(label, **out)
+    if not rehearsal:
+        phase_graphs(label[len("serve "):], bundle, **gdrive)
+    release(bundle)
+    return k2, out
+
+
+SPEC = {"SPEC_DECODE": "ngram", "MAX_DECODE_LEN": "64"}
+
+
+def spec_llama(params, ref_model, rehearsal: bool, card_line: str) -> int:
+    """8f, ``serve spec llama``: TinyLlama (22 layers; the rehearsal's
+    small llama on the CPU) per stream with the prefix cache; returns the
+    K2 launches of its plain comparison run."""
+    ov = {**SPEC, "MODEL_NAME": "llama", "DEVICE": "cpu" if rehearsal else "cuda",
+          "BATCH_BUCKETS": "1", "SEQ_BUCKETS": "64,128", "CONTINUOUS_BATCHING": "0",
+          "PREFIX_CACHE": "1"}
+    if rehearsal:
+        ov.update(LLAMA_CONFIG=json.dumps(REHEARSAL_LLAMA), MAX_DECODE_LEN="16")
+    launches, _, _ = spec_stream_service("serve spec llama", ov, params, ref_model, rehearsal,
+                                         card_line)
+    return launches["decode_attention"]
+
+
+def spec_gpt2(params, ref_model, rehearsal: bool, card_line: str) -> int:
+    """8f, ``serve spec gpt2 loop``: GPT-2 small under ``SPEC_CONTINUOUS``;
+    returns its K2 launches (the waves' first chunks)."""
+    ov = {**SPEC, "MODEL_NAME": "gpt2", "DEVICE": "cpu" if rehearsal else "cuda",
+          "BATCH_BUCKETS": "1,4", "SEQ_BUCKETS": "64,128", "MAX_STREAMS": "4",
+          "MAX_STREAM_QUEUE": "16", "SPEC_CONTINUOUS": "1", "SPEC_MAX_STREAMS": "0"}
+    if rehearsal:
+        ov.update(MAX_DECODE_LEN="16")
+    return spec_loop_service("serve spec gpt2 loop", ov, params, ref_model, rehearsal,
+                             card_line)[0]
+
+
+def spec_t5(params, ref_model, rehearsal: bool, card_line: str) -> int:
+    """8f, ``serve spec t5``: T5-small per stream; returns K1's launches
+    (6 an encoder pass)."""
+    ov = {**SPEC, "MODEL_NAME": "t5-small", "DEVICE": "cpu" if rehearsal else "cuda",
+          "BATCH_BUCKETS": "1", "SEQ_BUCKETS": "64,128", "CONTINUOUS_BATCHING": "0"}
+    if rehearsal:
+        ov.update(SEQ_BUCKETS="32,64,128", MAX_DECODE_LEN="16")
+    launches, _, _ = spec_stream_service("serve spec t5", ov, params, ref_model, rehearsal,
+                                         card_line, t5=True)
+    return launches["fused_attention"]
+
+
+def spec_main(rehearsal: bool) -> int:
+    """``--spec``: the build and ``serve spec`` (8f: its three services); with
+    ``--cpu-rehearsal`` the phase on the CPU at small sizes, no build.
+    Prints no result line."""
+    import torch
+
+    phase = "env"
+    try:
+        if not rehearsal and not torch.cuda.is_available():
+            print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
+            return 1
+        card_line = "cpu (rehearsal)" if rehearsal else card()
+        emit(phase, card=card_line, torch=torch.__version__, cuda=torch.version.cuda,
+             mode="spec")
+        if not rehearsal:
+            phase = "build"
+            phase_build()
+        from mlmicroservicetemplate_tpu_torch.convert.jax_params import (
+            gpt_params_from_jax,
+            llama_params_from_jax,
+            t5_params_from_jax,
+        )
+        from mlmicroservicetemplate_tpu_torch.models import gpt as gpt_mod
+        from mlmicroservicetemplate_tpu_torch.models import llama as llama_mod
+        from mlmicroservicetemplate_tpu_torch.models import t5 as t5_mod
+
+        dev = torch.device("cpu" if rehearsal else "cuda")
+        t0 = time.monotonic()
+        launches = {}
+        for phase, mod, cfg, pytree, convert, serve in (
+                ("serve spec llama", llama_mod,
+                 llama_mod.LlamaConfig(**(REHEARSAL_LLAMA if rehearsal else {}), eos_id=1,
+                                       pad_id=0), llama_pytree, llama_params_from_jax,
+                 spec_llama),
+                ("serve spec gpt2 loop", gpt_mod, gpt_mod.GPTConfig(eos_id=1, pad_id=0),
+                 gpt2_pytree, gpt_params_from_jax, spec_gpt2),
+                ("serve spec t5", t5_mod, t5_mod.T5Config(), t5_pytree, t5_params_from_jax,
+                 spec_t5)):
+            params = pytree(cfg, seed=0)
+            ref = mod.build_model(cfg, convert(params, cfg), dev, torch.float32)
+            launches[phase] = serve(params, ref, rehearsal, card_line)
+            del params, ref
+        emit("serve spec", launches=launches, seconds=time.monotonic() - t0)
+    except Exception as e:
+        traceback.print_exc()
+        emit(phase, ok=False, error=f"{type(e).__name__}: {e}")
+        return 1
+    return 0
+
+
 def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
@@ -5225,6 +5677,8 @@ def main(argv: list[str]) -> int:
                     help="only the build and the two fused decode-window phases")
     ap.add_argument("--pipeline", action="store_true",
                     help="only the build and the dispatch pipeline's phase")
+    ap.add_argument("--spec", action="store_true",
+                    help="only the build and the speculative decoding phase")
     args = ap.parse_args(argv)
     if args.perf:
         return perf_main()
@@ -5236,6 +5690,8 @@ def main(argv: list[str]) -> int:
         return window_main(args.cpu_rehearsal)
     if args.pipeline:
         return pipeline_main(args.cpu_rehearsal)
+    if args.spec:
+        return spec_main(args.cpu_rehearsal)
     rehearsal = args.cpu_rehearsal
     t_start = time.monotonic()
     phase = "env"
@@ -5459,15 +5915,11 @@ def main(argv: list[str]) -> int:
         phase = "graphs llama tier"
         graphs("llama tier", tiered[0], tiered[2])
         release(tiered[0])
-        # Fused decode windows at full depth over the paged loop (AUTO on):
-        # batch streams that end on a common token at mixed steps, then an
-        # interactive one; DECODE_WINDOW=1 against 8 on the same traffic.
-        phase = "serve llama window"
-        ov, n = window_llama(rehearsal, device)
-        lwin = phase_serve_window(phase, ov, params, ref_model, rehearsal, card_line, cap=8,
-                                  auto=True, n_batch=n, n_inter=1, want_early_exit=True)
-        k2_streams += lwin["decode_attention_launches"]
-        k3_streams += lwin["paged_decode_attention_launches"]
+        # Fused decode windows over the paged loop at full depth (7g) run
+        # behind ``--window`` (GPT-2's 8d keeps windows here); speculative
+        # decoding at full depth per stream (8f) takes their time.
+        phase = "serve spec llama"
+        spec_k2 = spec_llama(params, ref_model, rehearsal, card_line)
         del ref_model, params, cref, cparams
         if rehearsal:
             emit("decode step", skipped="cpu rehearsal: no card to profile")
@@ -5559,6 +6011,9 @@ def main(argv: list[str]) -> int:
                                                 card_line, n, n_late)
         gpt2_k2 += pipe_k2
         gpt2_k3 += pipe_k3
+        # SPEC_CONTINUOUS in the contiguous loop (8f).
+        phase = "serve spec gpt2 loop"
+        spec_k2 += spec_gpt2(gparams, gref, rehearsal, card_line)
         del gref, gparams
         if rehearsal:
             emit("decode step gpt2", skipped="cpu rehearsal: no card to profile")
@@ -5639,6 +6094,9 @@ def main(argv: list[str]) -> int:
                    graph_vs_eager=lambda: stream_graph_vs_eager(svc[2], widest))
             t5_k1 += svc[3]
             release(svc[1])
+        # T5 per stream with speculation (8f): K1 in every spec start.
+        phase = "serve spec t5"
+        t5_k1 += spec_t5(tparams, tref, rehearsal, card_line)
         del tref, tparams
 
         phase = "http"
@@ -5784,7 +6242,8 @@ def main(argv: list[str]) -> int:
         # launches: llama's and GPT-2's (at R = 1, beside its own case's
         # numbers), each served path of the run.
         kernel_entry("decode_attention", "mlmicroservicetemplate_tpu/ops/attention.py:310",
-                     llama_svc[3] + llama8_launches + k2_streams + gpt2_k2, decode_headline,
+                     llama_svc[3] + llama8_launches + k2_streams + gpt2_k2 + spec_k2,
+                     decode_headline,
                      gpt2=gpt2_entry(gpt2_decode, gpt2_k2)),
         kernel_entry("paged_decode_attention",
                      "mlmicroservicetemplate_tpu/ops/paged_attention.py:353",

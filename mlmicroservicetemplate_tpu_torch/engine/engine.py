@@ -64,6 +64,16 @@ not ported), the same functions run eagerly; ``graph_modes`` says which.
   is the routing rule the loop and the ledger share, and a chunked
   prompt's ``kv_blocks_estimate`` charges its first window up front and
   grows its worst case off its exact length.
+- Speculative decoding (``SPEC_DECODE=ngram``, gpt2/llama/t5): a stream on
+  the per-stream path runs ``_spec_stream``, ``spec_start`` (prefill, the
+  drafting history and ``STREAM_CHUNK_TOKENS`` verify rounds; behind a
+  prefix-cache hit ``spec_start_prefixed``) then ``spec_chunk`` graphs, and
+  a non-streaming batch of at most ``SPEC_MAX_STREAMS`` rows runs
+  ``full_spec`` and ``full_spec_chunk`` replays until every row is done, each
+  round capped by the rows' budgets on the device, as the reference's one
+  ``while_loop`` is.  ``generate_stream`` speculates only while the per-stream
+  streams (itself included) are at most ``SPEC_MAX_STREAMS``
+  (``_live_streams``); sampled rows only under ``SPEC_SAMPLED``.
 - The host KV tier (``KV_HOST_BUDGET_MB``): ``kv_host`` (a
   ``kv_blocks.KVHostTier``, refused without ``PAGED_KV`` with the
   reference's message), whose buffers the loop builds and fills; under it
@@ -83,6 +93,7 @@ import numpy as np
 import torch
 
 from ..models.gpt import clone_state, copy_state, prefix_len
+from ..models.spec import flatten_emitted
 from ..models.registry import KIND_IMAGE, KIND_SEQ2SEQ, KIND_TEXT, ModelBundle, decode_budget
 from ..models.sampling import SampleParams, greedy_params, make_params
 from ..runtime import compile_cache
@@ -115,6 +126,19 @@ def _stack(entries: list):
     if isinstance(entries[0], tuple):
         return tuple(torch.cat([e[i] for e in entries]) for i in range(len(entries[0])))
     return torch.cat(entries)
+
+
+def _copy_prefixes(static: dict, prefixes: list[dict], b: int) -> None:
+    """Per-row prefix K/V (one entry for every row, or one per row) into a
+    prefixed graph's static ``{"k", "v"}`` inputs ``[b, P, ...]``."""
+    rows = [(slice(0, b), prefixes[0])] if len(prefixes) == 1 else [
+        (slice(r, r + 1), p) for r, p in enumerate(prefixes)]
+    for name in ("k", "v"):
+        for li, dst in enumerate(static[name]):
+            for sl, p in rows:
+                src = p[name][li]
+                for d, x in (zip(dst, src) if isinstance(dst, tuple) else [(dst, src)]):
+                    d[sl].copy_(x)
 
 
 class InferenceEngine:
@@ -260,6 +284,16 @@ class InferenceEngine:
             self.prefix_cache = PrefixCache(
                 self.seq_buckets, float(getattr(cfg, "prefix_cache_mb", 256.0)),
                 on_evict=on_evict)
+        # Speculative decoding (SPEC_DECODE=ngram, a family with verify
+        # windows), and the per-stream streams live now, whose count gates it
+        # on the per-stream path.
+        self.spec_enabled = bool(cfg.spec_decode == "ngram"
+                                 and getattr(bundle, "spec_chunk", None) is not None)
+        self.spec_k = int(cfg.spec_k)
+        self.spec_sampled = self.spec_enabled and bool(cfg.spec_sampled)
+        self.spec_rounds = 0
+        self._live_streams = 0
+        self._live_streams_lock = threading.Lock()
         # Static per-layer prefix K/V of the prefixed starts' graphs, one
         # set per (batch, prefix length), shared by the graphs of that pair;
         # and the prefix grid's warm accounting (``_warm_prefixed``).
@@ -365,12 +399,18 @@ class InferenceEngine:
     def graph_modes(self) -> dict[str, str]:
         """Per graph kind this engine dispatches: ``"graph"``, or
         ``"eager: <reason>"``."""
+        loop = ("loop_chunk_paged" if self.paged_kv
+                else "loop_spec_chunk" if self.spec_enabled and self.cfg.spec_continuous
+                else "loop_chunk")
         kinds = {KIND_IMAGE: ("forward_images",), KIND_TEXT: ("forward",),
-                 KIND_SEQ2SEQ: ("start", "gen_chunk",
-                                "loop_chunk_paged" if self.paged_kv else "loop_chunk")
+                 KIND_SEQ2SEQ: ("start", "gen_chunk", loop)
                  + (("start_prefixed",) if self.prefix_cache is not None else ())
                  + (("prefill_window_paged" if self.paged_kv else "prefill_window",)
-                    if self.prefill_chunk else ())}
+                    if self.prefill_chunk else ())
+                 + (("spec_start", "spec_chunk", "full_spec", "full_spec_chunk")
+                    if self.spec_enabled else ())
+                 + (("spec_start_prefixed",)
+                    if self.spec_enabled and self.prefix_cache is not None else ())}
         mode = "graph" if self.graphs is not None else f"eager: {self.eager_reason}"
         return {kind: mode for kind in kinds.get(self.bundle.kind, ())}
 
@@ -631,15 +671,7 @@ class InferenceEngine:
         for dst, host in zip(entry.inputs, (ids, mask)):
             dst.copy_(torch.from_numpy(host), non_blocking=True)
         entry.inputs[2].copy_(sp)
-        static = entry.inputs[3]
-        rows = [(slice(0, b), prefixes[0])] if len(prefixes) == 1 else [
-            (slice(r, r + 1), p) for r, p in enumerate(prefixes)]
-        for name in ("k", "v"):
-            for li, dst in enumerate(static[name]):
-                for sl, p in rows:
-                    src = p[name][li]
-                    for d, x in (zip(dst, src) if isinstance(dst, tuple) else [(dst, src)]):
-                        d[sl].copy_(x)
+        _copy_prefixes(entry.inputs[3], prefixes, b)
         entry.replay()
         state, toks = entry.outputs
         state.steps = self.chunk_tokens
@@ -699,7 +731,30 @@ class InferenceEngine:
             return (1,)
         return tuple(sorted({1, bucket_for(self.cfg.max_streams, self.batch_buckets)}))
 
-    def _warm_prefixed(self, variants) -> float:
+    def _warm_spec(self, ids: np.ndarray, variants) -> None:
+        """The speculative graphs of a (B, S) bucket, each variant: at B = 1
+        the per-stream ``spec_start`` and ``spec_chunk``, and at every batch
+        bucket a batch of at most ``SPEC_MAX_STREAMS`` rows collates to the
+        non-streaming ``full_spec`` and ``full_spec_chunk``; on the CPU the
+        same calls run (the caller holds ``_lock``)."""
+        b = ids.shape[0]
+        full = b <= bucket_for(int(self.cfg.spec_max_streams), self.batch_buckets)
+        for sample in variants:
+            if self.graphs is None:
+                sp, _ = self._collate_sample(
+                    [{"temperature": 1.0, "seed": 0}] * b if sample else [], b)
+                if b == 1:
+                    self._spec_start(ids, ids, sp, sample)
+                continue
+            if b == 1:
+                self._spec_start_graph(ids.shape, sample)
+                self._graph("spec_chunk", ids.shape, sample,
+                            lambda: self._make_spec_chunk(ids.shape, sample))
+            if full:
+                self._graph("full_spec_chunk", ids.shape, sample,
+                            lambda: self._make_full_spec_chunk(ids.shape, sample))
+
+    def _warm_prefixed(self, variants, spec_variants=()) -> float:
         """The prefixed starts' grid (``prefixed_grid`` x
         ``prefixed_batches``, each variant), a warm phase of its own
         (``prefix``): captured on the card, run on the CPU; with the loop
@@ -725,6 +780,18 @@ class InferenceEngine:
                         if per_stream:
                             self._graph("gen_chunk", shape, sample,
                                         lambda: self._make_gen_chunk(shape, sample))
+                    # The per-stream spec path's hits: B = 1.
+                    for sample in spec_variants if b == 1 else ():
+                        if self.graphs is None:
+                            ids = np.ones((1, s), np.int32)
+                            sp, _ = self._collate_sample(
+                                [{"temperature": 1.0, "seed": 0}] if sample else [], 1)
+                            self._spec_start(ids, ids, sp, sample, self._prefix_input(1, p_len),
+                                             np.ones(p_len, np.int32))
+                            continue
+                        self._spec_start_graph(shape, sample)
+                        self._graph("spec_chunk", shape, sample,
+                                    lambda: self._make_spec_chunk(shape, sample))
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         graphs = self.graphs.stats()["insert"] - before if self.graphs is not None else 0
@@ -780,9 +847,27 @@ class InferenceEngine:
         On the card the bucket's graphs read and write one static state,
         which another dispatch of the bucket may overwrite between two
         chunks, so the stream keeps its own copy of the state and moves it
-        in and out around each replay."""
+        in and out around each replay.  Under ``SPEC_DECODE`` the stream
+        speculates (``_spec_stream``) while the per-stream streams live,
+        itself included, are at most ``SPEC_MAX_STREAMS``, a sampled one only
+        under ``SPEC_SAMPLED``."""
         if self.bundle.kind != KIND_SEQ2SEQ:
             raise ValueError(f"{self.bundle.name} does not support streaming")
+        with self._live_streams_lock:
+            self._live_streams += 1
+            spec_ok = self._live_streams <= int(self.cfg.spec_max_streams)
+        try:
+            if self.spec_enabled and spec_ok and (
+                    float(feats.get("temperature", 0.0)) == 0.0 or self.spec_sampled):
+                yield from self._spec_stream(feats)
+                return
+            yield from self._plain_stream(feats)
+        finally:
+            with self._live_streams_lock:
+                self._live_streams -= 1
+
+    def _plain_stream(self, feats: dict) -> Iterator[np.ndarray]:
+        """``generate_stream``'s non-speculative chunks."""
         budget = self.budget_for(feats)
         width = self.stream_width(self._collate_text([feats])[0].shape[1])
         with self._lock, torch.inference_mode():
@@ -833,6 +918,277 @@ class InferenceEngine:
         state.steps += self.chunk_tokens
         return entry.outputs
 
+    # -- speculative decoding (SPEC_DECODE) -------------------------------
+
+    def _make_spec_start(self, shape: tuple, sample: bool):
+        """Static [B, S] ids and mask and per-row ``SampleParams``, and over
+        them the prefill, the drafting history and the first chunk of
+        verify rounds; the outputs are (spec state, out, n_emit)."""
+        ids, mask = (torch.ones(shape, dtype=torch.int32, device=self.device) for _ in range(2))
+        sp = greedy_params(shape[0], self.device)
+
+        def start():
+            state = self.bundle.init_state(ids, mask, self.max_decode_len, sample=sp)
+            ss = self.bundle.init_spec(state, ids, mask)
+            return self.bundle.spec_chunk(ss, self.chunk_tokens, self.spec_k, sample)
+
+        return start, (ids, mask, sp), self.device
+
+    def _make_spec_start_prefixed(self, shape: tuple, sample: bool):
+        """As ``_make_spec_start`` behind a prefix ``[B, P, ...]`` of the
+        request's own tokens, whose ids [1, P] are a static input too (the
+        history drafts from them)."""
+        b, p_len, s = shape
+        ids, mask = (torch.ones((b, s), dtype=torch.int32, device=self.device) for _ in range(2))
+        sp = greedy_params(b, self.device)
+        prefix = self._prefix_input(b, p_len)
+        pids = torch.zeros((1, p_len), dtype=torch.long, device=self.device)
+
+        def start():
+            state = self.bundle.init_state(ids, mask, self.max_decode_len, sample=sp,
+                                           prefix_kv=prefix)
+            ss = self.bundle.init_spec(state, ids, mask, prefix_ids=pids)
+            return self.bundle.spec_chunk(ss, self.chunk_tokens, self.spec_k, sample)
+
+        return start, (ids, mask, sp, prefix, pids), self.device
+
+    def _spec_start_graph(self, shape: tuple, sample: bool) -> compile_cache.GraphEntry:
+        """The ``spec_start`` graph of ``(B, S)``, or the
+        ``spec_start_prefixed`` graph of ``(B, P, S)``."""
+        if len(shape) == 3:
+            return self._graph("spec_start_prefixed", shape, sample,
+                               lambda: self._make_spec_start_prefixed(shape, sample))
+        return self._graph("spec_start", shape, sample,
+                           lambda: self._make_spec_start(shape, sample))
+
+    def _make_spec_chunk(self, shape: tuple, sample: bool):
+        """``STREAM_CHUNK_TOKENS`` verify rounds over the state of the
+        shape's spec start graph, which is replayed first; the outputs are
+        (out, n_emit)."""
+        entry = self._spec_start_graph(shape, sample)
+        entry.replay()
+        ss = entry.outputs[0]
+
+        def chunk():
+            return self.bundle.spec_chunk(ss, self.chunk_tokens, self.spec_k, sample)[1:]
+
+        return chunk, ss, self.device
+
+    def _spec_start(self, ids: np.ndarray, mask: np.ndarray, sp: SampleParams, sample: bool,
+                    prefix: dict | None = None, prefix_ids: np.ndarray | None = None):
+        """Prefill, history and the first chunk of verify rounds of one
+        collated batch (behind ``prefix``, whose ids are ``prefix_ids``, for
+        a prefix-cache hit); returns (spec state, out [B, chunk, K + 1],
+        n_emit [B, chunk]).  On the card the state is the graph's static
+        one, valid until its next replay.  The caller holds ``_lock`` inside
+        ``torch.inference_mode``."""
+        if self.graphs is None:
+            dev = self.device
+            ids_t, mask_t = torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev)
+            pids = None
+            if prefix is not None:
+                pids = torch.from_numpy(np.asarray(prefix_ids, np.int64)).to(dev)[None]
+                state = self.bundle.init_state(ids_t, mask_t, self.max_decode_len,
+                                               sample=sp.to(dev), prefix_kv=prefix)
+            else:
+                state = self.bundle.init_state(ids_t, mask_t, self.max_decode_len,
+                                               sample=sp.to(dev))
+            ss = self.bundle.init_spec(state, ids_t, mask_t, prefix_ids=pids)
+            return self.bundle.spec_chunk(ss, self.chunk_tokens, self.spec_k, sample)
+        shape = ids.shape if prefix is None else (ids.shape[0], prefix_len(prefix["k"][0]),
+                                                  ids.shape[1])
+        entry = self._spec_start_graph(shape, sample)
+        for dst, host in zip(entry.inputs, (ids, mask)):
+            dst.copy_(torch.from_numpy(host), non_blocking=True)
+        entry.inputs[2].copy_(sp)
+        if prefix is not None:
+            _copy_prefixes(entry.inputs[3], [prefix], ids.shape[0])
+            entry.inputs[4].copy_(torch.from_numpy(np.asarray(prefix_ids, np.int64))[None])
+        entry.replay()
+        return entry.outputs
+
+    def _spec_stream_chunk(self, shape: tuple, ss, sample: bool):
+        """One chunk of verify rounds of a per-stream spec state (the caller
+        holds ``_lock``): eagerly, or on the card through the shape's
+        ``spec_chunk`` graph with the state (its history included) copied
+        into the spec start graph's static state and back; returns (out,
+        n_emit)."""
+        if self.graphs is None:
+            return self.bundle.spec_chunk(ss, self.chunk_tokens, self.spec_k, sample)[1:]
+        entry = self._graph("spec_chunk", shape, sample,
+                            lambda: self._make_spec_chunk(shape, sample))
+        static = self._spec_start_graph(shape, sample).outputs[0]
+        copy_state(static, ss)
+        entry.replay()
+        copy_state(ss, static)
+        return entry.outputs
+
+    def _spec_stream(self, feats: dict) -> Iterator[np.ndarray]:
+        """Speculative streaming of one request: each dispatch runs
+        ``STREAM_CHUNK_TOKENS`` verify rounds and yields between that many
+        and that many times ``SPEC_K + 1`` tokens, trimmed to the budget.
+        Through the prefix cache as ``start_fused`` goes (bypassed under
+        ``PAGED_KV``): a hit prefills the suffix only and drafts from the
+        whole prompt, a miss (or a hit that now covers a longer bucket)
+        donates.  The stream keeps its own copy of the state, as
+        ``_plain_stream`` does."""
+        n_verify = self.chunk_tokens
+        budget = self.budget_for(feats)
+        length = int(feats["length"])
+        row_ids = np.asarray(feats["input_ids"], np.int32)[:length]
+        sampled = float(feats.get("temperature", 0.0)) > 0.0
+        cache = None if self.paged_kv else self.prefix_cache
+        with self._lock, torch.inference_mode():
+            hit = None
+            if cache is not None:
+                hit = cache.match(row_ids, length, usable=self._prefix_guard(length))
+            if hit is not None:
+                p_len, prefix = hit
+                sfeats = dict(feats, input_ids=row_ids[p_len:], length=np.int32(length - p_len))
+                ids, mask, _ = self._collate_text([sfeats])
+                sp, _ = self._collate_sample([feats], ids.shape[0])
+                ss, out, ns = self._spec_start(ids, mask, sp, sampled, prefix, row_ids[:p_len])
+                shape = (1, p_len, ids.shape[1])
+                p_ins = cache.bucket_for_insert(length)
+                if p_ins is not None and p_ins > p_len and not cache.contains(row_ids, p_ins):
+                    cache.insert(row_ids, p_ins, self._capture_prefix(ss.base, p_ins))
+            else:
+                ids, mask, _ = self._collate_text([feats])
+                width = self.stream_width(ids.shape[1])
+                if width > ids.shape[1]:
+                    pad = ((0, 0), (0, width - ids.shape[1]))
+                    ids, mask = np.pad(ids, pad), np.pad(mask, pad)
+                sp, _ = self._collate_sample([feats], ids.shape[0])
+                ss, out, ns = self._spec_start(ids, mask, sp, sampled)
+                shape = ids.shape
+                if cache is not None:
+                    p_ins = cache.bucket_for_insert(length)
+                    if p_ins is not None and not cache.contains(row_ids, p_ins):
+                        cache.insert(row_ids, p_ins, self._capture_prefix(ss.base, p_ins))
+            out_np, ns_np, done = out.cpu().numpy(), ns.cpu().numpy(), bool(ss.base.done[0])
+            self.note_dispatch("prefill")
+            self.note_dispatch("fetch")
+            if self.graphs is not None:
+                ss = clone_state(ss)
+            self.spec_rounds += n_verify
+            self.dispatches += 1
+        chunk = self._spec_emitted(out_np, ns_np, n_verify)[:budget]
+        produced = int(chunk.size)
+        yield chunk
+        # One chunk ahead, as the reference pipelines it: chunk k + 1 is
+        # dispatched before chunk k's results are read (at most one is
+        # wasted at the end), skipped once the budget could be covered.
+        ahead = None
+        while not done and produced < budget:
+            with self._lock, torch.inference_mode():
+                if ahead is None:
+                    ahead = self._spec_dispatch(shape, ss, sampled)
+                current, ahead = ahead, None
+                if produced + n_verify < budget:  # every round emits >= 1
+                    ahead = self._spec_dispatch(shape, ss, sampled)
+                out_np, ns_np, done_np = (t.cpu().numpy() for t in current)
+                self.note_dispatch("fetch")
+            done = bool(done_np[0])
+            chunk = self._spec_emitted(out_np, ns_np, n_verify)[: budget - produced]
+            produced += int(chunk.size)
+            if chunk.size:
+                yield chunk
+
+    def _spec_dispatch(self, shape: tuple, ss, sample: bool) -> tuple:
+        """One chunk of verify rounds of a per-stream spec state; returns
+        copies of its (out, n_emit, done), which the next replay leaves
+        alone.  The caller holds ``_lock``."""
+        out, ns = self._spec_stream_chunk(shape, ss, sample)
+        self.note_dispatch("chunk")
+        self.spec_rounds += self.chunk_tokens
+        return out.clone(), ns.clone(), ss.base.done.clone()
+
+    def _spec_emitted(self, out_np: np.ndarray, ns_np: np.ndarray, n_verify: int,
+                      row: int = 0) -> np.ndarray:
+        """One row's emitted tokens of a fetched chunk of verify rounds,
+        observed in ``spec_tokens_per_verify_step``."""
+        chunk = flatten_emitted(out_np, ns_np, row)
+        metrics.SPEC_EMITTED.labels(self.bundle.name).observe(int(chunk.size) / max(1, n_verify))
+        return chunk
+
+    def _spec_rounds(self, ss, caps: torch.Tensor, sample: bool) -> None:
+        """``STREAM_CHUNK_TOKENS`` verify rounds of a non-streaming batch,
+        each followed by its budget cap: a row counts as done once its
+        position reaches ``caps`` (its budget plus one, at most the decode
+        budget), the reference's per-round cap."""
+        for _ in range(self.chunk_tokens):
+            self.bundle.spec_chunk(ss, 1, self.spec_k, sample)
+            torch.logical_or(ss.base.done, ss.base.pos >= caps, out=ss.base.done)
+
+    def _make_full_spec(self, shape: tuple, sample: bool):
+        """Static [B, S] ids and mask, ``SampleParams`` and caps [B], and
+        over them the prefill, the history and the first capped rounds; the
+        output is the spec state."""
+        ids, mask = (torch.ones(shape, dtype=torch.int32, device=self.device) for _ in range(2))
+        sp = greedy_params(shape[0], self.device)
+        caps = torch.ones(shape[0], dtype=torch.long, device=self.device)
+
+        def start():
+            state = self.bundle.init_state(ids, mask, self.max_decode_len, sample=sp)
+            ss = self.bundle.init_spec(state, ids, mask)
+            self._spec_rounds(ss, caps, sample)
+            return ss
+
+        return start, (ids, mask, sp, caps), self.device
+
+    def _make_full_spec_chunk(self, shape: tuple, sample: bool):
+        """More capped rounds over the ``full_spec`` graph's state, which is
+        replayed first; the output is the rows' ``done`` flags."""
+        entry = self._graph("full_spec", shape, sample,
+                            lambda: self._make_full_spec(shape, sample))
+        entry.replay()
+        ss, caps = entry.outputs, entry.inputs[3]
+
+        def chunk():
+            self._spec_rounds(ss, caps, sample)
+            return ss.base.done
+
+        return chunk, ss, self.device
+
+    def _generate_spec(self, ids: np.ndarray, mask: np.ndarray, budgets: np.ndarray,
+                       sp: SampleParams, sample: bool) -> tuple[np.ndarray, int]:
+        """A non-streaming batch by verify rounds: prefill, history and
+        capped rounds until every row is done (bucket-padding rows are born
+        done); returns the token rows [B, max_decode_len] int32 and the
+        largest position, the reference's ``pos.max()``."""
+        caps = np.minimum(budgets.astype(np.int64) + 1, self.max_decode_len)
+        with self._lock, torch.inference_mode():
+            if self.graphs is None:
+                fn, inputs, _ = self._make_full_spec(ids.shape, sample)
+                chunk_fn = None
+            else:
+                # Before the start replays: a first capture replays it itself.
+                chunk = self._graph("full_spec_chunk", ids.shape, sample,
+                                    lambda: self._make_full_spec_chunk(ids.shape, sample))
+                entry = self._graph("full_spec", ids.shape, sample,
+                                    lambda: self._make_full_spec(ids.shape, sample))
+                fn, inputs, chunk_fn = entry.replay, entry.inputs, chunk.replay
+            for dst, host in zip(inputs, (ids, mask)):
+                dst.copy_(torch.from_numpy(host), non_blocking=True)
+            inputs[2].copy_(sp)
+            inputs[3].copy_(torch.from_numpy(caps), non_blocking=True)
+            ss = fn()
+            if self.graphs is not None:
+                ss = entry.outputs
+            self.spec_rounds += self.chunk_tokens
+            # Every live row moves one position a round, so the loop ends
+            # within the decode budget's rounds.
+            for _ in range(-(-self.max_decode_len // self.chunk_tokens)):
+                if bool(ss.base.done.all()):
+                    break
+                if chunk_fn is None:
+                    self._spec_rounds(ss, inputs[3], sample)
+                else:
+                    chunk_fn()
+                self.spec_rounds += self.chunk_tokens
+            self.dispatches += 1
+            return ss.base.tokens.cpu().numpy(), int(ss.base.pos.max())
+
     def start(self, feats: list[dict]):
         """Prefill plus the first decode chunk of a wave of streams,
         collated as one batch at the wave's widest bucket (sampled if any
@@ -864,10 +1220,15 @@ class InferenceEngine:
         ids, mask, n = self._collate_text(feats)
         with tracing.span("dispatch", cat="engine", batch=ids.shape[0], seq=ids.shape[1], n=n):
             if self.bundle.kind == KIND_SEQ2SEQ:
-                rows, self.last_decode_steps = self._generate(
-                    ids, mask, self._collate_budget(feats, ids.shape[0]),
-                    *self._collate_sample(feats, ids.shape[0]),
-                )
+                sp, sampled = self._collate_sample(feats, ids.shape[0])
+                # Speculation is the low-concurrency lever (the streams'
+                # gate): a batch of at most SPEC_MAX_STREAMS rows, sampled
+                # ones only under SPEC_SAMPLED.
+                spec = (self.spec_enabled and (not sampled or self.spec_sampled)
+                        and n <= int(self.cfg.spec_max_streams))
+                run = self._generate_spec if spec else self._generate
+                rows, self.last_decode_steps = run(
+                    ids, mask, self._collate_budget(feats, ids.shape[0]), sp, sampled)
             else:
                 rows = self._forward(ids, mask)
         return [rows[i] for i in range(n)]
@@ -876,11 +1237,16 @@ class InferenceEngine:
         """Every (batch, seq) bucket once (an image model: every batch
         bucket): on the card its graphs captured (a generative model's
         ``start`` and ``gen_chunk``, greedy and, unless
-        ``WARMUP_SAMPLING=0``, sampled), on the CPU its functions run;
-        returns the seconds taken.  A failed capture raises."""
+        ``WARMUP_SAMPLING=0``, sampled; under ``SPEC_DECODE`` the speculative
+        graphs, ``_warm_spec``), on the CPU its functions run; returns the
+        seconds taken.  A failed capture raises."""
         image = self.bundle.kind == KIND_IMAGE
         captured = self.graphs.stats()["insert"] if self.graphs is not None else 0
         variants = (False, True) if self.cfg.warmup_sampling else (False,)
+        # SPEC_MAX_STREAMS=0 leaves the per-stream and whole spec paths unused
+        # (only SPEC_CONTINUOUS's loop speculates): nothing of theirs to warm.
+        spec_variants = ((False, True) if self.cfg.warmup_sampling and self.spec_sampled
+                         else (False,)) if self.spec_enabled and self.cfg.spec_max_streams else ()
         with compile_cache.warm_phase(self.bundle.name, "engine") as phase:
             for b in self.batch_buckets:
                 if image:
@@ -904,11 +1270,13 @@ class InferenceEngine:
                             if self.max_decode_len > self.chunk_tokens:
                                 self._graph("gen_chunk", ids.shape, sample,
                                             lambda: self._make_gen_chunk(ids.shape, sample))
+                        if spec_variants:
+                            self._warm_spec(ids, spec_variants)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         seconds = phase.seconds
         if self.prefix_cache is not None:
-            seconds += self._warm_prefixed(variants)
+            seconds += self._warm_prefixed(variants, spec_variants)
         n_seq = 1 if image else len(self.seq_buckets)
         if self.graphs is not None:
             captured = self.graphs.stats()["insert"] - captured

@@ -216,9 +216,20 @@ Dispatch pipeline, as in the reference:
   insert all finish before the next chunk dispatch.
 Each dispatch site's host seconds feed ``dispatch_host_seconds``.
 
-Not ported (``ROADMAP.md``): the disk KV tier, speculative decoding in
-the loop, fleets, the journal and the supervisor (the reference's
-``prefill_chunk`` fault site with them).
+Speculative decoding in the loop (``SPEC_CONTINUOUS``, contiguous slots
+only, as in the reference): the slot state is a ``spec.SpecState`` (the
+family's slot state as ``base``, and each slot's drafting history
+``_hist_w`` wide; the cache ``_kv_w`` wide, T5's history wider by the
+encoder ids), and each chunk is ``STREAM_CHUNK_TOKENS`` verify rounds of
+every slot (``loop_spec_chunk`` on the card), whose rows emit 1 to
+``SPEC_K + 1`` tokens a round, routed through ``spec.flatten_emitted`` and
+trimmed to each stream's budget.  A wave still starts through the normal
+``start`` (its first chunk through K2); ``_insert_spec`` recasts its row
+through the family's ``init_spec`` and writes the slot's history row
+``_hist_row`` built on the host from the prompt and that first chunk.
+
+Not ported (``ROADMAP.md``): the disk KV tier, fleets, the journal and the
+supervisor (the reference's ``prefill_chunk`` fault site with them).
 """
 
 from __future__ import annotations
@@ -236,6 +247,7 @@ import torch
 
 from ..models.gpt import GPTState, PagedState, copy_state, state_tensors
 from ..models.sampling import greedy_params
+from ..models.spec import SpecState, flatten_emitted
 from ..models.window import decode_window
 from ..ops.paged_attention import gather_pages, scatter_pages
 from ..runtime import compile_cache
@@ -402,6 +414,22 @@ class _HostCopy:
         return [h.numpy() for h in self.tensors()]
 
 
+def _outputs(toks) -> tuple:
+    """A chunk's outputs as a tuple: its tokens, or a spec chunk's (out,
+    n_emit)."""
+    return tuple(toks) if isinstance(toks, (tuple, list)) else (toks,)
+
+
+def _dummy_prompt(state) -> tuple[torch.Tensor, torch.Tensor]:
+    """Empty ids and mask for recasting a state through ``init_spec`` when
+    its history is not wanted: [B, 1], or an encoder-decoder's [B, S_enc],
+    whose history is as much wider than its cache."""
+    enc = getattr(state, "enc_mask", None)
+    ids = torch.zeros((state.done.shape[0], 1 if enc is None else enc.shape[1]),
+                      dtype=torch.int32, device=state.done.device)
+    return ids, ids
+
+
 class _Inflight:
     """A dispatched chunk or fused window not yet routed: the host copy of
     its (tokens, done) or (tokens, done history, chunks run), the slots'
@@ -430,6 +458,20 @@ class ContinuousDecodeLoop:
         self.chunk = engine.chunk_tokens
         self.paged = engine.paged_kv
         self.prefix_cache = getattr(engine, "prefix_cache", None)
+        # SPEC_CONTINUOUS: verify rounds in the shared chunk.  Decoder-only
+        # families draft from a history whose [0, P) is a global
+        # PROMPT_PREFIX's (ids unknown: -1); an encoder-decoder's history
+        # starts with the encoder ids.  The widths are set with the slot
+        # state.
+        self.spec = bool(getattr(cfg, "spec_continuous", False)
+                         and getattr(engine, "spec_enabled", False))
+        if getattr(cfg, "spec_continuous", False) and not self.spec:
+            raise ValueError(
+                "SPEC_CONTINUOUS needs SPEC_DECODE=ngram on a spec-capable family")
+        self._p_len = engine.global_prefix_len() if self.spec else 0
+        self._hist_w: int | None = None
+        self._kv_w: int | None = None
+        self.spec_rounds = 0
         # Chunked prefill (PREFILL_CHUNK): long prompts prefill as windows
         # between the decode chunks, and the prompt ceiling rises past the
         # largest bucket, to PREFILL_MAX_PROMPT or the position budget (the
@@ -441,6 +483,13 @@ class ContinuousDecodeLoop:
         self.prefill_checkpoints = 0
         self.prefill_budget = 0
         self._pacer: PrefillPacer | None = None
+        if self.prefill_chunk and self.spec:
+            raise ValueError(
+                "PREFILL_CHUNK does not compose with SPEC_CONTINUOUS "
+                "(the spec slot insert rebuilds the drafting history "
+                "from a monolithic collated prompt)")
+        if self.paged and self.spec:
+            raise ValueError("PAGED_KV does not compose with SPEC_CONTINUOUS yet")
         if self.prefill_chunk:
             cap = engine.bundle.cfg.max_position - engine.max_decode_len
             want = int(getattr(cfg, "prefill_max_prompt", 0) or 0) or cap
@@ -512,6 +561,10 @@ class ContinuousDecodeLoop:
         # encoder-decoder's loop has a slot state of its own).
         self.decode_window = max(1, int(getattr(cfg, "decode_window", 1) or 1))
         bundle = engine.bundle
+        if self.decode_window > 1 and self.spec:
+            raise ValueError(
+                "DECODE_WINDOW>1 does not compose with SPEC_CONTINUOUS "
+                "(spec rounds are their own fused dispatch shape)")
         if self.decode_window > 1 and bundle.slot_state is not None:
             raise ValueError(
                 f"DECODE_WINDOW={self.decode_window} needs a window-capable family "
@@ -691,7 +744,7 @@ class ContinuousDecodeLoop:
                 if self._state is None:
                     self._build_empty_state()
                 self._state, toks = self._chunk_call()
-                toks.cpu()
+                _HostCopy(*_outputs(toks)).tensors()
                 if self._auto_depth:
                     if self.paged:
                         self._tune_chain_depth_paged()
@@ -733,7 +786,7 @@ class ContinuousDecodeLoop:
             t0 = time.perf_counter()
             for _ in range(k):
                 self._state, toks = self._chunk_call(upload=False)
-            _HostCopy(toks).tensors()
+            _HostCopy(*_outputs(toks)).tensors()
             return time.perf_counter() - t0
 
         wall(1)
@@ -1272,6 +1325,8 @@ class ContinuousDecodeLoop:
                 slot = self.free.pop()
                 if self.paged:
                     self._insert_paged(st, state1, slot, row)
+                elif self.spec:
+                    self._insert_spec(state1, slot, row, self._hist_row(st.feats, toks_np[row]))
                 else:
                     self._insert(state1, slot, row)
             except OutOfBlocks:
@@ -1660,7 +1715,8 @@ class ContinuousDecodeLoop:
             self._reset_state(st)
             return
         if eng.bundle.slot_state is not None:  # an encoder-decoder's own layout
-            self._state = eng.bundle.slot_state(n, self.max_prompt, eng.max_decode_len)
+            self._state = self._spec_slots(
+                eng.bundle.slot_state(n, self.max_prompt, eng.max_decode_len))
             self._state_stale = False
             self._capture_chunks()
             return
@@ -1692,7 +1748,8 @@ class ContinuousDecodeLoop:
                               device=dev),
             sample=greedy_params(n, dev),
         )
-        self._state = PagedState(**fields) if self.paged else GPTState(**fields, steps=None)
+        self._state = (PagedState(**fields) if self.paged
+                       else self._spec_slots(GPTState(**fields, steps=None)))
         self._state_stale = False
         if self.paged:
             self._table_dev = torch.tensor(self._table, device=dev)
@@ -1703,6 +1760,56 @@ class ContinuousDecodeLoop:
                 self._ensure_host_pool(tier)
                 self._note_host_gauges()
         self._capture_chunks()
+
+    def _spec_slots(self, base):
+        """Under SPEC_CONTINUOUS the slot state as a ``SpecState``: the
+        family's dead slots recast by its ``init_spec`` (T5 gains
+        ``key_valid`` and ``write_idx``) and a history of -1 everywhere; sets
+        ``_hist_w`` and ``_kv_w``.  Otherwise ``base`` itself."""
+        if not self.spec:
+            return base
+        ss = self.engine.bundle.init_spec(base, *_dummy_prompt(base))
+        ss.history.fill_(-1)
+        self._hist_w = int(ss.history.shape[1])
+        self._kv_w = int(ss.base.key_valid.shape[1])
+        return ss
+
+    def _hist_row(self, feats: dict, first_toks: np.ndarray) -> np.ndarray:
+        """A slot's drafting-history row [``_hist_w``] built on the host from
+        what it knows (the prompt and the first chunk's tokens), at the
+        slot's layout: ``hist[hoff + p]`` is the token embedded at cache
+        position ``p``, -1 where none lives.  An encoder-decoder's row holds
+        the encoder ids, then its start token at ``hoff``, then the first
+        chunk (clamped when that chunk fills the budget: the last budget
+        token is never embedded); a decoder-only row holds the prompt at
+        ``[P, P + L)`` behind a global prefix's ``P`` unknown ids, then the
+        first chunk."""
+        hw, kw = self._hist_w, self._kv_w
+        hoff = hw - kw
+        n = int(feats["length"])
+        ids = np.asarray(feats["input_ids"], np.int64)[:n]
+        row = np.full(hw, -1, np.int64)
+        chunk = np.asarray(first_toks, np.int64)
+        if hoff > 0:
+            row[:n] = ids
+            row[hoff] = int(getattr(self.engine.bundle.cfg, "decoder_start_id", 0))
+            room = hw - (hoff + 1)
+            row[hoff + 1: hoff + 1 + min(chunk.size, room)] = chunk[:room]
+        else:
+            base = self._p_len + n
+            row[self._p_len:base] = ids
+            room = hw - base
+            row[base: base + min(chunk.size, room)] = chunk[:room]
+        return row
+
+    def _insert_spec(self, single, slot: int, row: int, hist_row: np.ndarray) -> None:
+        """SPEC_CONTINUOUS insert: wave row ``row`` recast by the family's
+        ``init_spec`` (its device history is dropped: per-bucket widths and
+        T5's offset do not pad to the slot's layout) into slot ``slot``
+        (``_insert``'s zero padding), and the slot's history row."""
+        recast = self.engine.bundle.init_spec(single, *_dummy_prompt(single)).base
+        self._insert_into(self._state.base, recast, slot, row)
+        self._state.history[slot].copy_(torch.from_numpy(hist_row))
 
     def _slot_width(self) -> int:
         """A contiguous slot's positions: a global PROMPT_PREFIX's, the
@@ -1727,8 +1834,13 @@ class ContinuousDecodeLoop:
     def _reset_state(self, st) -> None:
         """Every slot dead again, in place (the graphs keep their
         addresses): caches zeroed (int8 scale pools of the paged layout
-        ones), the other fields zeroed, rows done, tokens pad, greedy."""
+        ones), the other fields zeroed, rows done, tokens pad, greedy; a
+        spec slot state's histories -1."""
         eng = self.engine
+        if isinstance(st, SpecState):
+            st.history.fill_(-1)
+            self._reset_state(st.base)
+            return
         scale_fill = 1 if self.paged else 0
         for entry in st.cache_k + st.cache_v:
             if isinstance(entry, tuple):
@@ -1767,7 +1879,11 @@ class ContinuousDecodeLoop:
         ``ins_row``): a field narrower than the slot's (a cache, an encoder-
         decoder's cross K/V and encoder mask at the wave's width) zero-padded
         past its width."""
-        for d, s in zip(state_tensors(self._state), state_tensors(single)):
+        self._insert_into(self._state, single, slot, row)
+
+    @staticmethod
+    def _insert_into(dst, single, slot: int, row: int) -> None:
+        for d, s in zip(state_tensors(dst), state_tensors(single)):
             if d.dim() == 1:
                 d[slot] = s[row]
                 continue
@@ -2329,7 +2445,8 @@ class ContinuousDecodeLoop:
         (state, tokens, done history, chunks run) as
         ``window.decode_window`` does, with no host sync between its
         chunks and ``events`` (``w`` + 1 CUDA events, or None) recorded
-        before the first and after each."""
+        before the first and after each.  Under SPEC_CONTINUOUS the chunk is
+        verify rounds and its tokens are (out, n_emit)."""
         eng = self.engine
         bundle = eng.bundle
         if self.paged and upload:
@@ -2340,6 +2457,9 @@ class ContinuousDecodeLoop:
             def step(state):
                 entry.replay()
                 return state, entry.outputs
+        elif self.spec:
+            def step(state):
+                return state, bundle.spec_chunk(state, self.chunk, eng.spec_k, sample)[1:]
         elif self.paged:
             def step(state):
                 return bundle.paged_chunk(state, self._table_dev, self.chunk, sample)
@@ -2397,7 +2517,8 @@ class ContinuousDecodeLoop:
         slot state's token, so no other loop's state aliases it."""
         eng = self.engine
         cfg = eng.bundle.cfg
-        kind = "loop_chunk_paged" if self.paged else "loop_chunk"
+        kind = ("loop_chunk_paged" if self.paged else "loop_spec_chunk" if self.spec
+                else "loop_chunk")
         shape = ((self.pool.num_blocks, self.block_size, self.nb_max) if self.paged
                  else (self._slot_width(),))
         descriptor = (self.n_slots, *shape, self.chunk, "sample" if sample else "greedy",
@@ -2415,6 +2536,9 @@ class ContinuousDecodeLoop:
         if self.paged:
             def chunk():
                 return eng.bundle.paged_chunk(state, table, self.chunk, sample)[1]
+        elif self.spec:
+            def chunk():
+                return eng.bundle.spec_chunk(state, self.chunk, eng.spec_k, sample)[1:]
         else:
             def chunk():
                 return eng.bundle.generate_chunk(state, self.chunk, sample)[1]
@@ -2524,10 +2648,14 @@ class ContinuousDecodeLoop:
                     self._state, toks = self._chunk_call(bool(self.sampled_slots),
                                                          upload=not staged)
                     host_s = time.perf_counter() - t0
-                    copy = _HostCopy(toks, self._state.done)
+                    base = self._state.base if self.spec else self._state
+                    copy = _HostCopy(*_outputs(toks), base.done)
         self.engine.note_dispatch("chunk", host_s)
         self.chunk_dispatches += 1
-        self.decode_steps += self.chunk * w
+        if self.spec:
+            self.spec_rounds += self.chunk
+        else:
+            self.decode_steps += self.chunk * w
         metrics.STREAM_BATCH.labels(self.model).observe(len(self.active))
         metrics.DECODE_WINDOW_CHUNKS.labels(self.model).observe(w)
         if w > 1:
@@ -2576,6 +2704,9 @@ class ContinuousDecodeLoop:
         if e.w > 1:
             toks_np, hist_np, n = fetched
             self._route_window(toks_np, hist_np, int(n), e)
+        elif self.spec:
+            out_np, ns_np, done_np = fetched
+            self._route_chunk((out_np, ns_np), done_np, e.snapshot)
         else:
             self._route_chunk(*fetched, e.snapshot)
 
@@ -2611,8 +2742,17 @@ class ContinuousDecodeLoop:
             if st.cancelled.is_set():
                 self._free_slot(slot)
                 continue
-            self._emit_tokens(st, toks_np[slot])
-            st.produced += self.chunk
+            if self.spec:
+                # A verify round may pass the budget mid-chunk: trim.
+                out_np, ns_np = toks_np
+                chunk = flatten_emitted(out_np, ns_np, slot)
+                metrics.SPEC_EMITTED.labels(self.model).observe(int(chunk.size) / max(1, self.chunk))
+                chunk = chunk[: st.budget - st.produced]
+                st.produced += int(chunk.size)
+                self._emit_tokens(st, chunk)
+            else:
+                self._emit_tokens(st, toks_np[slot])
+                st.produced += self.chunk
             if bool(done_np[slot]) or st.produced >= st.budget:
                 st.emit(_END)
                 self._free_slot(slot)

@@ -18,6 +18,12 @@ Counterpart of the JAX package's ``models/gpt.py``:
   ``ops.paged_attention.paged_decode_attention`` (paged): the hand-written
   CUDA kernels on the card, at one query head per KV head, and their plain
   versions on the CPU.
+- Speculative decoding's verify window (``models/spec.py``), shared where
+  it can be (``span_write``, ``span_write_kv``, ``span_mask``), and GPT-2's
+  ``multi_step``: D tokens a row at the row's own positions ``write_idx +
+  [0, D)``, each query over the valid keys and its causal window prefix
+  (plain PyTorch, as the reference's XLA ops), K/V written at every window
+  position and writes past the cache dropped.
 - Chunked prefill's windows, shared by the decoder families where they
   can be (``empty_state``, ``window_mask``, ``window_write``, the paged
   window's destinations and gather), and GPT-2's ``prefill_chunk`` and
@@ -785,6 +791,77 @@ def paged_prefill_chunk(model: GPTModel, state: PagedState, table_row: torch.Ten
         kd, vd = paged_window_kv(state.cache_k[li], state.cache_v[li], table_row, block_size)
         x = layer.finish(x, mha_attention(q, kd, vd, mask=mask))
     return state
+
+
+# ---------------------------------------------------------------------------
+# speculative verify windows (models/spec.py drives them)
+#
+# A window is D tokens a row at positions ``write_idx[b] + [0, D)``: a start
+# per row, unlike chunked prefill's one scalar start.
+
+
+def span_positions(start: torch.Tensor, d: int) -> torch.Tensor:
+    """Each row's window positions ``start[b] + [0, D)`` ([B, D], long)."""
+    return start.long()[:, None] + torch.arange(d, device=start.device)[None]
+
+
+def span_mask(base_valid: torch.Tensor, start: torch.Tensor, d: int) -> torch.Tensor:
+    """[B, 1, D, total] mask of a verify window: the keys already valid
+    (``base_valid`` [B, total] bool) and the window's own keys up to each
+    query's position."""
+    pos_k = torch.arange(base_valid.shape[1], device=base_valid.device)[None, None]
+    pos_w = span_positions(start, d)
+    in_window = (pos_k >= start.long()[:, None, None]) & (pos_k <= pos_w[:, :, None])
+    return (base_valid[:, None, :] | in_window)[:, None]
+
+
+def span_write(dst: torch.Tensor, new: torch.Tensor, start: torch.Tensor) -> None:
+    """Write each row's window ``new`` [B, D, ...] at ``start[b] + [0, D)``
+    of ``dst`` [B, total, ...], in place; positions past ``total`` drop, as
+    the reference's ``mode="drop"`` scatter does.  A dropped position is
+    aimed at ``total - 1`` with the value that column gets anyway (the
+    row's own window row there, or its current one when the window lies
+    wholly past it), so no write of the scatter changes a column another
+    write of it fills, and nothing is copied from the host."""
+    b, d = new.shape[:2]
+    total = dst.shape[1]
+    idx = span_positions(start, d).clamp(max=total - 1)
+    src = idx - start.long()[:, None]  # the window row each position takes
+    rows = torch.arange(b, device=dst.device)[:, None]
+    take = (src >= 0).view((b, d) + (1,) * (new.dim() - 2))
+    dst[rows, idx] = torch.where(take, new[rows, src.clamp(min=0)].to(dst.dtype), dst[rows, idx])
+
+
+def span_write_kv(cache, new: torch.Tensor, start: torch.Tensor, dtype) -> None:
+    """``span_write`` of one layer's window K (or V) into a dense cache or
+    an (int8 payload, scale) pair, quantized per token and head."""
+    if isinstance(cache, tuple):
+        q8, sc = kv_quantize(new)
+        span_write(cache[0], q8, start)
+        span_write(cache[1], sc.to(dtype), start)
+    else:
+        span_write(cache, new, start)
+
+
+def multi_step(model: GPTModel, state: GPTState, tokens: torch.Tensor) -> torch.Tensor:
+    """The verify window: ``tokens`` [B, D] at positions ``write_idx +
+    [0, D)`` in one pass, K/V written at every window position (past the
+    cache dropped), each query over the valid cache and its causal window
+    prefix; returns f32 logits [B, D, V].  ``key_valid`` is left to
+    acceptance (``spec.verify_step``)."""
+    cfg = model.cfg
+    dtype = cache_dtype(state)
+    t = state.write_idx
+    pos_w = span_positions(t, tokens.shape[1])
+    x = embed(model.wte.weight, tokens, dtype)
+    x = x + embed(model.wpe.weight, pos_w.clamp(max=cfg.max_position - 1), dtype)
+    mask = span_mask(state.key_valid != 0, t, tokens.shape[1])
+    for li, layer in enumerate(model.layers):
+        q, k1, v1 = layer.qkv(x)
+        span_write_kv(state.cache_k[li], k1, t, dtype)
+        span_write_kv(state.cache_v[li], v1, t, dtype)
+        x = layer.finish(x, mha_attention(q, state.cache_k[li], state.cache_v[li], mask=mask))
+    return logits_of(model, model.final_ln(x))
 
 
 # ---------------------------------------------------------------------------

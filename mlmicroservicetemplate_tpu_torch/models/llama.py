@@ -28,6 +28,11 @@ over a ``gpt.PagedState``: K/V rows go to a block pool through a block
 table, and the single query attends through
 ``ops.paged_attention.paged_decode_attention``.
 
+Speculative decoding (``SPEC_DECODE``): ``multi_step`` is the verify
+window of ``gpt.multi_step`` with RoPE at each row's own window positions,
+K/V written at KV-head width (dense or int8), and the window's queries
+through ``_window_attention``'s plain path (``K + 1`` >= 2 queries a row).
+
 Chunked prefill (``PREFILL_CHUNK``): ``prefill_chunk`` and
 ``paged_prefill_chunk`` take ``gpt.py``'s window contract at GQA width and
 with the int8 cache; a one-token window attends through the decode kernel
@@ -74,6 +79,9 @@ from .gpt import (
     prefix_pairs,
     prefixed_state,
     run_steps,
+    span_mask,
+    span_positions,
+    span_write_kv,
     window_dest,
     window_mask,
     window_positions,
@@ -504,6 +512,33 @@ def paged_prefill_chunk(model: LlamaModel, state: PagedState, table_row: torch.T
         kd, vd = paged_window_kv(state.cache_k[li], state.cache_v[li], table_row, block_size)
         x = layer.finish(x, _window_attention(cfg, q, kd, vd, mask))
     return state
+
+
+# ---------------------------------------------------------------------------
+# speculative verify window (models/spec.py)
+
+
+def multi_step(model: LlamaModel, state: GPTState, tokens: torch.Tensor) -> torch.Tensor:
+    """The verify window (``gpt.multi_step``): RoPE at each row's window
+    positions, K/V written at KV-head width (quantized under ``kv_quant``)
+    with writes past the cache dropped, the window's queries over the GQA
+    repeat of the cache; returns f32 logits [B, D, V]."""
+    cfg = model.cfg
+    dtype = cache_dtype(state)
+    t = state.write_idx
+    pos_w = span_positions(t, tokens.shape[1])
+    cos, sin = rope_tables(cfg, pos_w.clamp(max=cfg.max_position - 1), dtype)
+    cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    x = embed(model.embed.weight, tokens, dtype)
+    mask = span_mask(state.key_valid != 0, t, tokens.shape[1])
+    for li, layer in enumerate(model.layers):
+        q, k1, v1 = layer.qkv(cfg, x, cos, sin)
+        span_write_kv(state.cache_k[li], k1, t, dtype)
+        span_write_kv(state.cache_v[li], v1, t, dtype)
+        x = layer.finish(x, _window_attention(cfg, q, state.cache_k[li], state.cache_v[li],
+                                              mask))
+    x = model.final_ln(x)
+    return lm_head_logits(x, model.lm_head.weight)
 
 
 # ---------------------------------------------------------------------------

@@ -13,7 +13,8 @@ attention runs as a ring over sequence shards), and generation with llama,
 GPT-2 and the T5-small encoder-decoder (``KIND_SEQ2SEQ``, the JAX
 package's kind for every generative model), greedy or sampled per request,
 whole or streamed through the continuous decode loop over a contiguous or
-(``PAGED_KV=1``, the decoder-only families) block-paged KV cache.
+(``PAGED_KV=1``, the decoder-only families) block-paged KV cache, and with
+``SPEC_DECODE=ngram`` by speculative verify rounds (``models/spec.py``).
 ``register_model`` adds a model of the user's own under a name.
 """
 
@@ -34,6 +35,7 @@ from . import bert as bert_mod
 from . import gpt as gpt_mod
 from . import llama as llama_mod
 from . import resnet as resnet_mod
+from . import spec as spec_mod
 from . import t5 as t5_mod
 from .preprocess import (
     IMAGENET_MEAN,
@@ -98,6 +100,14 @@ class ModelBundle:
     # loop's slot state, every row dead (decoder-only families: None, the
     # loop builds a ``gpt.GPTState`` or ``gpt.PagedState``).
     slot_state: Callable | None = None
+    # Speculative decoding (gpt2, llama, t5; None for the others): (state,
+    # input_ids, attention_mask, prefix_ids=None) -> ``spec.SpecState`` over
+    # a fresh prefill state (``prefix_ids`` [1, P]: a prefix-cache hit's own
+    # leading tokens, drafted from), and (spec_state, n_verify, spec_k,
+    # sample=False) -> (state, out [B, n_verify, K + 1], n_emit [B,
+    # n_verify]), ``n_verify`` verify rounds in place.
+    init_spec: Callable | None = None
+    spec_chunk: Callable | None = None
     # Cap on a tokenized prompt (generation keeps position-table room for
     # the decode budget).
     max_prompt_len: int | None = None
@@ -513,6 +523,8 @@ def _generative_bundle(name: str, family, model, cfg, tokenizer, svc_cfg,
         return family.paged_prefill_chunk(model, state, table_row, ids, mask, start,
                                           svc_cfg.kv_block_size)
 
+    p_len = 0 if prompt_prefix is None else gpt_mod.prefix_len(prompt_prefix["k"][0])
+
     return ModelBundle(
         name=name,
         kind=KIND_SEQ2SEQ,
@@ -528,10 +540,23 @@ def _generative_bundle(name: str, family, model, cfg, tokenizer, svc_cfg,
         empty_state=empty_state,
         prefill_chunk=prefill_chunk,
         paged_prefill_chunk=paged_prefill_chunk,
+        init_spec=spec_mod.make_init_spec_fn(p_len),
+        spec_chunk=_spec_chunk_fn(lambda st, toks: family.multi_step(model, st, toks), cfg,
+                                  svc_cfg),
         max_prompt_len=max_prompt,
         supports_prefix=True,
         prompt_prefix=prompt_prefix,
     )
+
+
+def _spec_chunk_fn(multi_fn, cfg, svc_cfg):
+    """The bundle's ``spec_chunk`` over a family's verify window
+    ``multi_fn(state, tokens) -> logits``, at ``SPEC_NGRAM``."""
+    def spec_chunk(spec_state, n_verify: int, spec_k: int, sample: bool = False):
+        return spec_mod.spec_chunk(spec_state, n_verify, spec_k, int(svc_cfg.spec_ngram),
+                                   multi_fn, cfg.eos_id, cfg.pad_id, sample)
+
+    return spec_chunk
 
 
 def _gpt_state(svc_cfg, cfg: gpt_mod.GPTConfig, params) -> dict[str, torch.Tensor]:
@@ -630,6 +655,11 @@ def _build_t5(svc_cfg, policy: DtypePolicy, device: torch.device,
         return t5_mod.empty_state(cfg, n_slots, enc_width, max_len, policy.compute_dtype,
                                   device)
 
+    # Summaries quote their input: the drafting history is [encoder ids |
+    # decoder tokens], so lookups land in the document.
+    def init_spec(state, input_ids, attention_mask, prefix_ids=None):
+        return t5_mod.init_spec_state(state, input_ids, attention_mask)
+
     return ModelBundle(
         name="t5-small",
         kind=KIND_SEQ2SEQ,
@@ -642,6 +672,9 @@ def _build_t5(svc_cfg, policy: DtypePolicy, device: torch.device,
         init_state=init_state,
         generate_chunk=generate_chunk,
         slot_state=slot_state,
+        init_spec=init_spec,
+        spec_chunk=_spec_chunk_fn(lambda st, toks: t5_mod.multi_step(model, st, toks), cfg,
+                                  svc_cfg),
         max_prompt_len=T5_MAX_PROMPT,
     )
 
@@ -708,12 +741,31 @@ def build_model(svc_cfg, policy: DtypePolicy | None = None, params=None) -> Mode
             f"PROMPT_PREFIX is not supported for {svc_cfg.model_name!r} "
             "(cached-prefix serving covers the decoder families: gpt2, llama)"
         )
+    # SPEC_DECODE, refused where it would be dropped: an operator who turned
+    # it on must not serve without it.
+    if svc_cfg.spec_decode and bundle.spec_chunk is None:
+        raise ValueError(
+            f"SPEC_DECODE is not supported for {svc_cfg.model_name!r} "
+            "(speculative decoding covers the generative families: "
+            "gpt2, llama, t5-small)"
+        )
+    if svc_cfg.spec_continuous and not svc_cfg.spec_decode:
+        raise ValueError(
+            "SPEC_CONTINUOUS requires SPEC_DECODE=ngram (it is the "
+            "continuous-loop extension of speculative decoding)"
+        )
     if svc_cfg.paged_kv and svc_cfg.prompt_prefix:
         raise ValueError(
             "PAGED_KV and PROMPT_PREFIX are mutually exclusive: the "
             "global prefix overlay predates the block pool — use "
             "PREFIX_CACHE=1, whose hits SHARE prompt blocks by "
             "refcount"
+        )
+    if svc_cfg.paged_kv and svc_cfg.spec_continuous:
+        raise ValueError(
+            "PAGED_KV does not yet compose with SPEC_CONTINUOUS "
+            "(speculative verify windows write multi-token spans "
+            "through the table; planned follow-up)"
         )
     if svc_cfg.prefill_chunk > 0:
         # Chunked prefill changes the loop's dispatch unit: a combination it
@@ -731,6 +783,12 @@ def build_model(svc_cfg, policy: DtypePolicy | None = None, params=None) -> Mode
                 "the global prefix overlay seeds positions 0..P inside "
                 "init_decode_state, which chunked prefill bypasses — use "
                 "PREFIX_CACHE=1, whose hits suffix-prefill in chunks"
+            )
+        if svc_cfg.spec_continuous:
+            raise ValueError(
+                "PREFILL_CHUNK does not compose with SPEC_CONTINUOUS "
+                "(the spec slot insert rebuilds the drafting history from "
+                "a monolithic collated prompt; planned follow-up)"
             )
         if svc_cfg.paged_kv and svc_cfg.prefill_chunk % svc_cfg.kv_block_size:
             raise ValueError(

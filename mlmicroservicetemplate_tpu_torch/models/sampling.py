@@ -176,6 +176,28 @@ def random_bits(keys: torch.Tensor, n: int) -> torch.Tensor:
     return b0 ^ b1
 
 
+def fold_in(keys: torch.Tensor, data: int) -> torch.Tensor:
+    """``jax.random.fold_in(key, data)`` for each row's key [B, 2]: the key
+    hashed with the counter pair (0, data)."""
+    zero = torch.zeros_like(keys[:, 0:1])
+    b0, b1 = threefry2x32(keys[:, 0:1], keys[:, 1:2], zero, zero + data)
+    return torch.cat([b0, b1], dim=-1)
+
+
+def uniform(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.uniform(key, (n,))`` for each row's key [B, 2]: f32 in
+    [0, 1), JAX's default ``minval`` (no clamp at tiny, unlike the Gumbel
+    path's ``uniforms``)."""
+    bits = random_bits(keys, n)
+    return ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+
+
+def categorical(keys: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits)`` for each row's key [B, 2]
+    over its logits [B, V]: Gumbel-max, the first maximum on a tie."""
+    return (logits + gumbel(keys, logits.shape[-1])).argmax(dim=-1)
+
+
 def uniforms(bits: torch.Tensor) -> torch.Tensor:
     """f32 uniforms in [tiny, 1) from 32-bit words, as JAX's ``_uniform``
     with ``minval=tiny``: 23 random mantissa bits under the exponent of
@@ -199,6 +221,6 @@ def select_token(logits: torch.Tensor, sp: SampleParams) -> tuple[torch.Tensor, 
     greedy_tok = logits.argmax(dim=-1)
     z = filtered_logits(logits, sp.temperature, sp.top_k, sp.top_p)
     next_rng, step_keys = row_split(sp.rng)
-    sampled = (z + gumbel(step_keys, z.shape[-1])).argmax(dim=-1)
+    sampled = categorical(step_keys, z)
     tok = torch.where(sp.temperature > 0.0, sampled, greedy_tok)
     return tok, dataclasses.replace(sp, rng=next_rng)

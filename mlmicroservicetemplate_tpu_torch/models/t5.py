@@ -30,6 +30,14 @@ Defaults are T5-small.
   own last column (``gpt.write_at``), where the reference drops them.
 - Rows of a batch whose encoder mask is empty (bucket padding) are done
   from the start, as the JAX engine marks them.
+- Speculative decoding (``models/spec.py``): ``T5SpecState`` is the decode
+  state with the spec contract's ``key_valid`` and ``write_idx`` (equal to
+  ``pos``: the decoder's positions start at 0), ``init_spec_state`` recasts a
+  fresh state and builds the history ``[encoder ids | decoder tokens]``, so
+  drafts match n-grams of the document, and ``multi_step`` is the verify
+  window (self-attention over the valid cache and the causal window with the
+  relative bias of each query's own position, cross-attention over the
+  encoder; plain PyTorch, as in the reference).
 """
 
 from __future__ import annotations
@@ -43,7 +51,7 @@ from torch import nn
 
 from ..ops.attention import fused_attention, fused_attention_ref
 from .common import embed, lm_head_logits, merge_heads, mha_attention, split_heads
-from .gpt import finish_step, run_steps, write_at
+from .gpt import finish_step, run_steps, span_mask, span_positions, span_write, write_at
 from .llama import Linear, RMSNorm
 from .sampling import SampleParams, greedy_params
 
@@ -370,6 +378,95 @@ def greedy_generate(model: T5Model, input_ids, attention_mask, max_len: int,
     state = init_decode_state(model, enc, attention_mask, max_len)
     state, _ = generate_chunk(model, state, max_len)
     return state.tokens
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding (models/spec.py)
+
+
+@dataclasses.dataclass
+class T5SpecState:
+    """``T5State`` recast to the spec contract: ``key_valid`` [B, T] int32
+    (positions below ``write_idx``) and ``write_idx`` (== ``pos``) join the
+    fields; the cross K/V and encoder mask ride along."""
+
+    cache_k: list[torch.Tensor]
+    cache_v: list[torch.Tensor]
+    cross_k: list[torch.Tensor]
+    cross_v: list[torch.Tensor]
+    enc_mask: torch.Tensor
+    key_valid: torch.Tensor  # [B, T] int32
+    write_idx: torch.Tensor  # [B] int64
+    pos: torch.Tensor  # [B] int64
+    last_token: torch.Tensor  # [B] int64
+    done: torch.Tensor  # [B] bool
+    tokens: torch.Tensor  # [B, T] int32
+    sample: SampleParams | None = None
+
+
+def init_spec_state(state: T5State, input_ids: torch.Tensor, attention_mask: torch.Tensor):
+    """A fresh ``T5State`` as a ``spec.SpecState`` whose history [B, S_enc +
+    T] holds the encoder ids (-1 past each row's mask) and then the decoder
+    tokens: cache position ``p`` at history position ``S_enc + p``, the
+    last token at ``S_enc + pos``.  The state's tensors are shared, not
+    copied."""
+    from .spec import SpecState
+
+    b, s_enc = input_ids.shape
+    t_max = state.tokens.shape[1]
+    dev = input_ids.device
+    base = T5SpecState(
+        cache_k=state.cache_k, cache_v=state.cache_v, cross_k=state.cross_k,
+        cross_v=state.cross_v, enc_mask=state.enc_mask,
+        key_valid=(torch.arange(t_max, device=dev)[None] < state.pos[:, None]).to(torch.int32),
+        write_idx=state.pos.clone(), pos=state.pos, last_token=state.last_token,
+        done=state.done, tokens=state.tokens, sample=state.sample)
+    hist = torch.full((b, s_enc + t_max), -1, dtype=torch.long, device=dev)
+    hist[:, :s_enc] = torch.where(attention_mask != 0, input_ids.long(),
+                                  torch.full_like(input_ids.long(), -1))
+    hist[torch.arange(b, device=dev), s_enc + state.pos] = state.last_token
+    return SpecState(base=base, history=hist)
+
+
+def multi_step(model: T5Model, state: T5SpecState, tokens: torch.Tensor) -> torch.Tensor:
+    """The verify window: ``tokens`` [B, D] at decoder positions
+    ``write_idx + [0, D)``, self-attention over the valid cache and the
+    causal window with each query's relative bias (writes past the cache
+    dropped), cross-attention over the encoder; returns f32 logits [B, D,
+    V].  ``key_valid`` is left to acceptance."""
+    cfg = model.cfg
+    dtype = state.cross_k[0].dtype
+    d_w = tokens.shape[1]
+    width = state.tokens.shape[1]
+    t = state.write_idx
+    pos_w = span_positions(t, d_w)
+    x = embed(model.shared.weight, tokens, dtype)
+    mask = span_mask(state.key_valid != 0, t, d_w)
+    # The relative bias of each window query over every key: a query past
+    # the cache's end (its writes dropped) sees distances up to width + D -
+    # 2, so the table spans width + D.
+    rel = model.decoder.layers[0].self_attn.rel_bias.weight
+    table = bucket_table(model, "decoder", width + d_w, t.device)
+    k_pos = torch.arange(width, device=t.device)
+    dist = (pos_w[:, :, None] - k_pos[None, None, :]).clamp(0, width + d_w - 1)
+    bias = rel[table[dist]].permute(0, 3, 1, 2)  # [B, H, D, T]
+    cross_mask = (state.enc_mask != 0)[:, None, None, :]
+    for li, layer in enumerate(model.decoder.layers):
+        sa = layer.self_attn
+        h = layer.self_attn_ln(x)
+        q, k1, v1 = (split_heads(p(h), cfg.num_heads) for p in (sa.q, sa.k, sa.v))
+        span_write(state.cache_k[li], k1, t)
+        span_write(state.cache_v[li], v1, t)
+        ctx = mha_attention(q, state.cache_k[li], state.cache_v[li], mask=mask, bias=bias,
+                            scale=1.0)
+        x = x + sa.out(merge_heads(ctx))
+        ca = layer.cross_attn
+        qc = split_heads(ca.q(layer.cross_attn_ln(x)), cfg.num_heads)
+        ctx = mha_attention(qc, state.cross_k[li], state.cross_v[li], mask=cross_mask,
+                            scale=1.0)
+        x = x + ca.out(merge_heads(ctx))
+        x = x + layer.mlp(layer.mlp_ln(x))
+    return lm_logits(model, model.decoder.final_ln(x))
 
 
 def teacher_forced_logits(model: T5Model, input_ids, attention_mask, targets,

@@ -22,7 +22,14 @@ Key discipline, as in the JAX module:
   contiguous state of the loop's slot width, the graph's own, which each
   job's state is copied into and back out of) and
   ``prefill_window_paged`` (one window into the loop's pools through a
-  static table row) (``KINDS``);
+  static table row), and speculative decoding's: ``spec_start`` (prefill,
+  the drafting history and the first chunk of verify rounds),
+  ``spec_start_prefixed`` (the same behind a prefix-cache entry, whose ids
+  are a static input too), ``spec_chunk`` (verify rounds over a spec
+  start's state), ``full_spec`` and ``full_spec_chunk`` (a non-streaming
+  batch's start and rounds, each capped by the rows' budgets) and
+  ``loop_spec_chunk`` (``SPEC_CONTINUOUS``: the loop's rounds over its slot
+  state and histories) (``KINDS``);
 - the **descriptor** spells out what the captured call closes over
   besides the bundle: the bucket's shapes (``(B, P, S)`` for a prefixed
   start and its per-stream ``gen_chunk``), the compute type, the KV
@@ -76,7 +83,8 @@ from typing import Any, Callable
 from ..utils import metrics
 
 KINDS = ("forward", "forward_images", "start", "start_prefixed", "gen_chunk", "loop_chunk",
-         "loop_chunk_paged", "prefill_window", "prefill_window_paged")
+         "loop_chunk_paged", "prefill_window", "prefill_window_paged", "spec_start",
+         "spec_start_prefixed", "spec_chunk", "full_spec", "full_spec_chunk", "loop_spec_chunk")
 
 _fp_lock = threading.Lock()
 _fp_counter = itertools.count()

@@ -23,7 +23,11 @@ take the per-stream path, as in the JAX package: one worker thread each
 runs ``InferenceEngine.generate_stream``, admitted at once or shed (the
 drain and KV gates apply), with ``MAX_STREAMS`` capping both paths'
 streams together.  One ``AdmissionController`` serves the request queue
-and the loop, so its ledger covers both.
+and the loop, so its ledger covers both.  Under ``SPEC_DECODE`` a stream
+takes the per-stream path's speculation while fewer than
+``SPEC_MAX_STREAMS`` generations are active on both paths (``spec_route``),
+and under ``SPEC_CONTINUOUS`` with ``SPEC_SAMPLED=0`` a sampled stream
+bypasses the speculative loop (``sampled_opt_out``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -203,7 +207,26 @@ class Batcher:
             raise RuntimeError("batcher is stopped")
         if self._stream_executor is None:
             raise ValueError(f"{self.model} is not a generative model; nothing to stream")
-        if self._cdl is not None and int(feats.get("length", 0)) <= self._cdl.max_prompt:
+        # SPEC_DECODE routes a stream to the per-stream path (where the
+        # speculative graphs live) only in the low-concurrency regime it
+        # targets: fewer than SPEC_MAX_STREAMS active on both paths.  Under
+        # load one batched dispatch beats serialized speculative streams, so
+        # the loop takes them.  Sampled streams speculate by rejection
+        # sampling unless SPEC_SAMPLED=0.
+        eng = self.engine
+        loop_admitted = self._cdl.admitted if self._cdl is not None else 0
+        sampled = float(feats.get("temperature", 0.0)) > 0.0
+        spec_route = (getattr(eng, "spec_enabled", False) and not feats.get("adapter_id")
+                      and (not sampled or eng.spec_sampled)
+                      and self._active_streams + loop_admitted
+                      < int(eng.cfg.spec_max_streams))
+        # A speculative loop (SPEC_CONTINUOUS) under SPEC_SAMPLED=0 would
+        # accept its sampled rows by rejection sampling, breaking the
+        # opt-out's seed contract: those streams take the per-stream path.
+        sampled_opt_out = (self._cdl is not None and self._cdl.spec and sampled
+                           and not eng.spec_sampled)
+        if (self._cdl is not None and not spec_route and not sampled_opt_out
+                and int(feats.get("length", 0)) <= self._cdl.max_prompt):
             return self._cdl.submit_stream(feats)
         return self._submit_per_stream(feats)
 

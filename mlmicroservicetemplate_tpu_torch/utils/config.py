@@ -3,7 +3,7 @@
 Holds the fields the ResNet-50, BERT-base, bert-long, llama, GPT-2 and
 T5-small paths, chat, the scheduler's priority classes, KV budget and
 preemption, the prompt prefix, the prefix cache, chunked prefill, the
-host KV tier and fused decode windows, and the parent
+host KV tier, fused decode windows, speculative decoding and the parent
 registration read, under the same
 environment names as the JAX package's ``ServiceConfig``.  ``DEVICE`` is
 ``cuda|cpu`` and defaults to ``cuda``; ``MODEL_NAME`` defaults to
@@ -182,6 +182,24 @@ class ServiceConfig:
     # fetch rides behind it; off, the wave's prefill, fetch and insert all
     # finish before the next chunk dispatch (the blocking order).
     admit_overlap: bool = True
+    # Speculative decoding (gpt2, llama, t5-small): "ngram" drafts the next
+    # spec_k tokens by prompt lookup (the last spec_ngram tokens matched
+    # against the prompt and the generation so far; for t5 against the
+    # encoder input) and verifies them in one forward of spec_k + 1 tokens a
+    # row.  Greedy output equals the non-speculative greedy tokens.  Streams
+    # take the speculative per-stream path while fewer than
+    # spec_max_streams generations are active (non-streaming batches of at
+    # most that many rows speculate too); spec_continuous runs the verify
+    # rounds in the continuous loop instead (contiguous KV only).
+    # spec_sampled: sampled rows speculate by rejection sampling (the same
+    # distribution, other draws than the sequential sampler's); off, they
+    # take the non-speculative paths.
+    spec_decode: str | None = None
+    spec_k: int = 8
+    spec_ngram: int = 2
+    spec_max_streams: int = 1
+    spec_continuous: bool = False
+    spec_sampled: bool = True
     # Sequence-parallel width for bert-long: the sequence axis shards over
     # this many devices and attention runs as a ring (parallel/ring.py).
     # 0 = every visible card (one shard on the CPU).
@@ -218,6 +236,16 @@ class ServiceConfig:
             object.__setattr__(self, "quant_kv", q)
         if self.max_streams < 1:
             raise ValueError("MAX_STREAMS must be >= 1")
+        if self.spec_decode is not None:
+            v = self.spec_decode.lower()
+            v = None if v in ("", "none", "off", "0", "false") else v
+            if v not in (None, "ngram"):
+                raise ValueError(f"SPEC_DECODE must be 'ngram' or unset, got {self.spec_decode!r}")
+            object.__setattr__(self, "spec_decode", v)
+        if not 1 <= self.spec_k <= 64:
+            raise ValueError("SPEC_K must be in [1, 64]")
+        if not 1 <= self.spec_ngram <= 8:
+            raise ValueError("SPEC_NGRAM must be in [1, 8]")
         if not 1 <= self.kv_block_size <= 1024:
             raise ValueError("KV_BLOCK_SIZE must be in [1, 1024]")
         if not self.kv_host_budget_mb >= 0:  # also NaN
@@ -228,7 +256,7 @@ class ServiceConfig:
             raise ValueError("DECODE_WINDOW must be in [1, 64]")
         if self.sp < 0:
             raise ValueError(f"SP must be >= 0, got {self.sp}")
-        if self.stream_pipeline < 0:
+        if self.stream_pipeline < 0 or self.spec_max_streams < 0:
             raise ValueError("REPLICAS/SP/TP/STREAM_PIPELINE/MAX_STREAM_QUEUE/"
                              "FAULT_SEED/SPEC_MAX_STREAMS must be >= 0 (0 = auto/off)")
         if self.pipeline_depth < 1 or self.trace_ring < 1:
@@ -276,12 +304,6 @@ _ON = ("1", "true", "yes")
 # default).  Setting one to any other value raises instead of serving
 # without it.
 UNPORTED_KNOBS = {
-    "SPEC_DECODE": ("none",) + _OFF,
-    "SPEC_K": ("8",),
-    "SPEC_NGRAM": ("2",),
-    "SPEC_MAX_STREAMS": ("1",),
-    "SPEC_SAMPLED": _ON,
-    "SPEC_CONTINUOUS": _OFF,
     "TP": ("0", "1"),
     "QUANTIZE": ("none",) + _OFF,
     "ADAPTER_DIR": (),
@@ -403,7 +425,8 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
     CLASS_WEIGHT, KV_BUDGET_MB, MAX_STREAM_QUEUE, PREEMPT, PROMPT_PREFIX,
     PREFIX_CACHE, PREFIX_CACHE_MB, PREFILL_CHUNK, PREFILL_BUDGET,
     PREFILL_MAX_PROMPT, KV_HOST_BUDGET_MB, KV_PREFETCH_BLOCKS, DECODE_WINDOW,
-    DECODE_WINDOW_AUTO, STREAM_PIPELINE, HOST_PREP_DOUBLE, ADMIT_OVERLAP.  Any of
+    DECODE_WINDOW_AUTO, STREAM_PIPELINE, HOST_PREP_DOUBLE, ADMIT_OVERLAP, SPEC_DECODE,
+    SPEC_K, SPEC_NGRAM, SPEC_MAX_STREAMS, SPEC_SAMPLED, SPEC_CONTINUOUS.  Any of
     ``UNPORTED_KNOBS`` set to a value that turns it on raises;
     ``INERT_KNOBS`` are accepted and ignored."""
     e = dict(os.environ)
@@ -431,6 +454,7 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
         ("log_level", "LOG_LEVEL"), ("quant_kv", "QUANT_KV"),
         ("llama_config", "LLAMA_CONFIG"), ("chat_template", "CHAT_TEMPLATE"),
         ("priority_default", "PRIORITY_DEFAULT"), ("prompt_prefix", "PROMPT_PREFIX"),
+        ("spec_decode", "SPEC_DECODE"),
     ):
         v = get(var)
         if v is not None:
@@ -446,7 +470,8 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
                        ("prefill_max_prompt", "PREFILL_MAX_PROMPT"),
                        ("kv_prefetch_blocks", "KV_PREFETCH_BLOCKS"),
                        ("decode_window", "DECODE_WINDOW"),
-                       ("stream_pipeline", "STREAM_PIPELINE")):
+                       ("stream_pipeline", "STREAM_PIPELINE"), ("spec_k", "SPEC_K"),
+                       ("spec_ngram", "SPEC_NGRAM"), ("spec_max_streams", "SPEC_MAX_STREAMS")):
         v = get(var)
         if v is not None:
             kwargs[field] = int(v)
@@ -471,7 +496,8 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
                        ("prefix_cache", "PREFIX_CACHE"),
                        ("decode_window_auto", "DECODE_WINDOW_AUTO"),
                        ("host_prep_double", "HOST_PREP_DOUBLE"),
-                       ("admit_overlap", "ADMIT_OVERLAP")):
+                       ("admit_overlap", "ADMIT_OVERLAP"), ("spec_sampled", "SPEC_SAMPLED"),
+                       ("spec_continuous", "SPEC_CONTINUOUS")):
         v = get(var)
         if v is not None:
             kwargs[field] = _flag(v)

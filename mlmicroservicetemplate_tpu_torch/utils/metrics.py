@@ -8,7 +8,8 @@ live streams per loop chunk, time to first token, the gap between chunk
 deliveries, preemptions, the paged KV pool's blocks and its dry-pool
 stalls, the host KV tier's blocks, swap bytes, resumes and prefix
 hits, the chunks of each fused decode window and its early exits, the
-loop's pipelining depth, and the host seconds of each dispatch by site.
+loop's pipelining depth, the host seconds of each dispatch by site, and
+the tokens each speculative verify round emitted.
 The series live in this package's own
 registry, so a process that also imports the JAX package registers no
 name twice.  Without ``prometheus_client`` every series is a no-op stub.
@@ -116,6 +117,12 @@ KV_GROWTH_STALLS = Counter(
 
 TOKENS = Counter(
     "generated_tokens_total", "Seq2seq tokens generated", ["model"], registry=REGISTRY,
+)
+SPEC_EMITTED = Histogram(
+    "spec_tokens_per_verify_step",
+    "Speculative decoding: tokens emitted per verify step (1.0 = no "
+    "draft accepted; the acceptance-rate observability surface)",
+    ["model"], buckets=(1.0, 1.5, 2.0, 3.0, 4.0, 6.0, 9.0), registry=REGISTRY,
 )
 STREAM_BATCH = Histogram(
     "stream_batch_size", "Live streams served per continuous-batching chunk dispatch",

@@ -524,3 +524,35 @@ def test_disk_tier_and_journal_still_raise_not_ported(name, value):
         with pytest.raises(ValueError, match=f"{name}.*not ported"):
             load_config({"DEVICE": "cpu", name: value, **extra})
     assert load_config({"DEVICE": "cpu", "KV_DISK_BUDGET_MB": "0"}).device == "cpu"
+
+
+SPEC_FIELDS = ("spec_decode", "spec_k", "spec_ngram", "spec_max_streams", "spec_sampled",
+               "spec_continuous")
+
+
+@pytest.mark.parametrize("env", [
+    {}, {"SPEC_DECODE": "ngram"}, {"SPEC_DECODE": "NGRAM", "SPEC_K": "64", "SPEC_NGRAM": "8"},
+    {"SPEC_DECODE": "off"}, {"SPEC_DECODE": "none", "SPEC_K": "1", "SPEC_NGRAM": "1"},
+    {"SPEC_DECODE": "ngram", "SPEC_MAX_STREAMS": "0", "SPEC_SAMPLED": "no",
+     "SPEC_CONTINUOUS": "yes"},
+    {"SPEC_SAMPLED": "false", "SPEC_CONTINUOUS": "0", "SPEC_MAX_STREAMS": "4"},
+])
+def test_spec_knobs_are_read_like_jax(env):
+    """The six speculative-decoding knobs are read, not refused: each field
+    equals the JAX ServiceConfig's for the same environment, defaults
+    included (off, 8, 2, 1, on, off)."""
+    port, ref = load_config({"DEVICE": "cpu", **env}), jax_load_config({"DEVICE": "cpu", **env})
+    assert [getattr(port, f) for f in SPEC_FIELDS] == [getattr(ref, f) for f in SPEC_FIELDS]
+    if not env:
+        assert [getattr(port, f) for f in SPEC_FIELDS] == [None, 8, 2, 1, True, False]
+
+
+@pytest.mark.parametrize("name,value", [("SPEC_DECODE", "medusa"), ("SPEC_K", "0"),
+                                        ("SPEC_K", "65"), ("SPEC_NGRAM", "0"),
+                                        ("SPEC_NGRAM", "9"), ("SPEC_MAX_STREAMS", "-1")])
+def test_spec_knobs_are_validated_with_the_jax_messages(name, value):
+    with pytest.raises(ValueError) as want:
+        jax_load_config({"DEVICE": "cpu", name: value})
+    with pytest.raises(ValueError, match=name) as got:
+        load_config({"DEVICE": "cpu", name: value})
+    assert str(got.value) in str(want.value)

@@ -227,7 +227,7 @@ def test_unported_requests_answer_400(services, path, body):
     ids=lambda k: next(iter(k)),
 )
 def test_unported_knobs_raise(knob, tmp_path):
-    """Knobs the port does not serve raise "not ported".  Eight it once
+    """Knobs the port does not serve raise "not ported".  Nine it once
     refused serve now, and their cases pin what the JAX package does: a
     SentencePiece ``TOKENIZER_PATH`` loads with a leading <s> and no
     trailing </s> (the model's eos/pad the tokenizer's),
@@ -239,7 +239,8 @@ def test_unported_knobs_raise(knob, tmp_path):
     ``PREFILL_CHUNK`` streams them through the loop's windows, as many as
     the JAX loop's, ``DECODE_WINDOW`` streams batch-class requests
     through fused decode windows, as many as the JAX loop's, and
-    ``STREAM_PIPELINE`` streams them with two dispatches in flight."""
+    ``STREAM_PIPELINE`` streams them with two dispatches in flight, and
+    ``SPEC_DECODE`` streams them with a lone stream speculating."""
     name = next(iter(knob))
     overrides = {"MODEL_NAME": "llama", "DEVICE": "cpu", "WARMUP": "0",
                  "LLAMA_CONFIG": json.dumps(SMALL), **knob}
@@ -300,6 +301,26 @@ def test_unported_knobs_raise(knob, tmp_path):
             assert batcher._cdl.window_dispatches == jbatcher._cdl.window_dispatches > 0
         else:
             assert batcher._cdl.chain_depth == jbatcher._cdl.chain_depth == 2
+        return
+    if name == "SPEC_DECODE":
+        # Speculative decoding: a lone stream speculates on the per-stream
+        # path, the rest join the loop (SPEC_MAX_STREAMS=1), with the JAX
+        # batcher's tokens; the engine ran verify rounds.
+        os.environ["LLAMA_CONFIG"] = json.dumps(SMALL)
+        try:
+            jcfg = JaxServiceConfig(device="cpu", model_name="llama", warmup=False,
+                                    batch_timeout_ms=1.0, spec_decode="ngram", **SERVE)
+            jbundle = jax_build_model(jcfg)
+            jengine = JaxEngine(jbundle, jcfg, ReplicaSet(make_mesh(1)))
+        finally:
+            del os.environ["LLAMA_CONFIG"]
+        _, bundle, engine, batcher = build_service(
+            {**overrides, "SEQ_BUCKETS": "16,32", "MAX_DECODE_LEN": "10",
+             "STREAM_CHUNK_TOKENS": "4"}, params=jax.tree.map(np.asarray, jbundle.params))
+        assert engine.spec_enabled
+        want = asyncio.run(_stream_all(JaxBatcher(jengine, jcfg), jbundle, JaxRawItem))
+        got = asyncio.run(_stream_all(batcher, bundle, RawItem))
+        assert got == want and engine.spec_rounds > 0
         return
     if name == "PREFILL_CHUNK":
         os.environ["LLAMA_CONFIG"] = json.dumps(SMALL)

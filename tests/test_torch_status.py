@@ -2,7 +2,8 @@
 after the same traffic on the same weights, for a classifier (BERT at two
 layers), a decoder with the continuous loop (llama, paged,
 ``DECODE_WINDOW=4``, one batch-class stream) and T5 (its contiguous loop,
-one stream).
+one stream), and a llama service under ``SPEC_DECODE`` with
+``SPEC_CONTINUOUS``.
 
 Compared: the key sets, section by section, and every value that does not
 depend on the clock.  Left out, by name:
@@ -84,6 +85,12 @@ CASES = {
     "llama-pipeline": ({"PAGED_KV": "1", "KV_BLOCK_SIZE": "8", "STREAM_PIPELINE": "2"},
                        [("/v1/completions", {"prompt": "hello there", "max_tokens": 16,
                                              "stream": True}, {})]),
+    # A lone stream speculates on the per-stream path, the next two in the
+    # speculative loop (SPEC_CONTINUOUS).
+    "llama-spec": ({"SPEC_DECODE": "ngram", "SPEC_CONTINUOUS": "1", "SPEC_K": "4"},
+                   [("/v1/completions", {"prompt": "hello hello hello", "max_tokens": 16,
+                                         "stream": True}, {}),
+                    ("/predict", {"text": "abcabcabcabc", "max_tokens": 12}, {})]),
 }
 
 
@@ -146,7 +153,7 @@ def _apps(model: str, extra: dict):
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_status_has_the_jax_apps_keys_and_values(case):
-    model = case.split("-pipeline")[0]
+    model = case.split("-pipeline")[0].split("-spec")[0]
     extra, posts = CASES[case]
     japp, app = _apps(model, extra)
     want = asyncio.run(_status(japp, posts))
