@@ -9,6 +9,8 @@
     python3 chip_smoke.py --window         # the fused decode-window phases only
     python3 chip_smoke.py --pipeline       # the dispatch pipeline's phase only
     python3 chip_smoke.py --spec           # the speculative decoding phase only
+    python3 chip_smoke.py --quant          # the QUANTIZE=int8 phase only
+    python3 chip_smoke.py --lora           # the LoRA adapters phase only
 
 Phases, one JSON line each; any failure exits non-zero and prints no
 result line:
@@ -131,10 +133,11 @@ result line:
    1e-3 of a row's largest |logit|; eager and graph timed beside the SP=1
    forward and split by kernel.
 7. serve llama / serve llama int8: full-width TinyLlama (22 layers, random
-   weights from seed 0; the int8 service at CUT_LAYERS = 6 layers of
-   weights of their own from seed 0, to keep the run within its time
-   limit), bf16, the dense and the int8 KV cache, through ``Batcher.submit`` in waves over
-   several buckets, some with ``max_tokens``, every third sampled and
+   weights from seed 0; the int8 service at CUT_LAYERS = 6 layers, the
+   first 6 of those weights, to keep the run within its time limit), bf16,
+   the dense and the int8 KV cache, on CUT_GRID's buckets (batch 1, 4 and
+   16, seq 64 and 256; GPT-2's whole service warms the 5 x 4 grid), through
+   ``Batcher.submit`` in waves over several buckets, some with ``max_tokens``, every third sampled and
    seeded (temperature 0.7 or 1, top_k 0 or 40, top_p 1 or 0.9).  The
    decode kernel must launch 22 times per decode step and never in
    prefill; every emitted token is checked teacher-forced against an f32
@@ -147,9 +150,9 @@ result line:
    the tolerance (batch buckets run other GEMM shapes in bf16).  Warmup
    captures every bucket's argmax and sampled graphs.
 7b. serve llama stream / stream int8 / stream contiguous: TinyLlama at
-   CUT_LAYERS layers (7d drives the paged loop at full depth) streamed
-   through ``Batcher.submit_stream`` and the continuous decode
-   loop (16 slots, 64-token budget): paged KV (16-token blocks) with the
+   CUT_LAYERS layers on CUT_GRID's buckets (8g and 8h drive the paged loop
+   at full depth) streamed through ``Batcher.submit_stream`` and the
+   continuous decode loop (16 slots, 64-token budget): paged KV (16-token blocks) with the
    dense and the int8 cache, then contiguous slots; 32 streams in waves of
    1, 2, 5, 8 and 16.  Every token is teacher-forced as in 7; the paged
    kernel must launch 22 times per slot decode step, the decode kernel 22
@@ -170,8 +173,7 @@ result line:
    back to 0 blocks, no KV committed; 0 graph misses after warmup;
    preemptions, recasts, replays, dry-pool stalls and TTFT p50/p99 per
    class printed.
-7d. serve llama prefix: TinyLlama at CUT_LAYERS layers (7e drives the
-   paged loop at full depth) through the paged loop with ``PREFIX_CACHE=1`` (16 slots, batch buckets 1 and 16,
+7d. serve llama prefix: TinyLlama at CUT_LAYERS layers through the paged loop with ``PREFIX_CACHE=1`` (16 slots, batch buckets 1 and 16,
    ``PREFIX_CACHE_MB`` of 16 pins of 128 tokens, the default pool of 16
    worst-case streams): 4 conversations of 3 growing turns (each turn a
    wave of 4; a 150-byte system prompt), a shared document once, then 8
@@ -188,8 +190,9 @@ result line:
    back to exactly the pins' blocks, 0 after a flush; every token
    teacher-forced against an f32 forward of the whole prompt without the
    cache; TTFT p50/p99 of hits and misses apart.
-7e. serve llama chunked: TinyLlama at full depth (22 layers) through the
-   paged loop with ``PREFILL_CHUNK=128`` (the budget one window) and
+7e. serve llama chunked: TinyLlama at CUT_LAYERS layers (full depth until
+   PR 19, which gave 8g and 8h its time) through the paged loop with
+   ``PREFILL_CHUNK=128`` (the budget one window) and
    ``PREFIX_CACHE=1`` (16 slots, batch buckets 1 and 16, 16-token blocks,
    the default pool of 320 blocks, tables of 128 blocks: the position
    budget): 8 short interactive streams decode, then three long prompts
@@ -207,7 +210,8 @@ result line:
    128-block tables with every key valid timed and split as in 7b, the
    short streams' largest and median chunk gap during the long prefills
    beside those before, and the long prompts' TTFT.
-7f. serve llama tier: TinyLlama at full depth through the paged loop (16
+7f. serve llama tier: TinyLlama at CUT_LAYERS layers (full depth until PR
+   19) through the paged loop (16
    slots, 16-token blocks, batch buckets 1 and 16) with ``PREEMPT``,
    ``PREFILL_CHUNK=128``, ``PREFIX_CACHE=1`` (``PREFIX_CACHE_MB`` of two
    and a half 128-token pins) and the host KV tier (``KV_HOST_BUDGET_MB``
@@ -257,11 +261,48 @@ result line:
 8. decode step: where one llama decode step's time goes at B in {1, 8,
    32}, T=576: wall time against busy time, split into K2, GEMMs, other,
    eager and as a graph of the step.
+8g. serve quantize (``--quant`` runs the build and 8g alone): weight-only
+   int8 (``QUANTIZE=int8``).  TinyLlama at full width (22 layers, seed-0
+   weights cast to bf16, then quantized on the card) whole (K2) and through
+   the paged loop (16 slots, K3), batch buckets 1 and 16, the waves of 7
+   (a third sampled and seeded); the service's q8 and scales must equal
+   those of a model quantized the same way, and every token is
+   teacher-forced against that model's f32 run on the card (the very int8
+   weights, dequantized in f32), with the gates of 7 and 7b.  Printed: the
+   resident weight bytes, int8 against bf16 (``torch.cuda.memory_allocated``
+   across each service's build), and one decode step at B = 8, T = 576 as a
+   graph, int8 against bf16: wall, busy time split into K2, GEMMs, the int8
+   converts, the multiplies and the rest.  Then BERT-base (K1 12 a
+   dispatch) and ResNet-50 under ``QUANTIZE=int8`` through
+   ``Batcher.submit``, every answer against the port's f32 run on the CPU
+   of the same int8 weights (the card's state loaded into a CPU service),
+   within PROB_TOL and RESNET_LOGIT_TOL as 5 and 6a; 0 graph misses; one
+   ``/predict`` each over loopback (ResNet's a PNG, where PIL is installed).
+8h. serve llama lora (``--lora`` runs the build and 8h alone): batched
+   multi-adapter LoRA.  TinyLlama at full width through the paged loop (16
+   slots, one batch bucket, 16, so every start pads to it) with
+   ``ADAPTER_DIR`` a temporary directory of three adapters of q/k/v/o
+   written from seed 0 (ranks 8, 16 with alpha 32, 8 with alpha 16) and
+   ``ADAPTER_SLOTS=2``: two waves of 12 streams on alpha, beta and none in
+   turn (every fourth sampled and seeded), a wave of 4 on gamma and 2 on
+   none (gamma's install evicts), then alpha and beta streams hold both
+   slots and a gamma one sheds ``adapter_pool``.  Gates: every token
+   teacher-forced against the f32 run on the card of the same weights
+   through that row's adapter; every row without an adapter gets the
+   tokens of a service without ``ADAPTER_DIR`` on the same traffic, and
+   adapted rows other ones; installs and evictions > 0 and no graph
+   captured after warmup (an install after the drive too); K2 and K3 held
+   against the loop's counts; the pool's refs back to 0, no block left.
+   Printed: an install's ms, and one chunk of the 16 slots with and
+   without the adapters (as 7b, as graphs only), whose busy difference
+   over the chunk's steps is the delta's device ms a step.
 8a. serve gpt2, serve gpt2 stream (paged), serve gpt2 stream contiguous,
    each with its graphs phase: GPT-2 small at full width (12 layers, 768
    hidden, 12 heads, vocab 50257, position table 1024; random weights from
-   seed 0; bf16; the byte tokenizer), as 7 and 7b: K2 or K3 launch 12 times
-   a decode step (R = 1) and never in prefill.
+   seed 0; bf16; the byte tokenizer), as 7 and 7b (the whole service on
+   the 5 x 4 grid of batch 1, 2, 4, 8, 16 and seq 32, 64, 128, 256, the
+   loops on CUT_GRID): K2 or K3 launch 12 times a decode step (R = 1) and
+   never in prefill.
 8a'. serve gpt2 prefix, serve gpt2 prefix per-stream, serve gpt2 prompt
    prefix, each with its graphs phase: GPT-2 small (4 slots, batch
    buckets 1 and 4) with ``PREFIX_CACHE=1`` on the contiguous loop (a
@@ -311,7 +352,7 @@ result line:
    its section built):
    speculative decoding, ``SPEC_DECODE=ngram`` (``SPEC_K`` 8, 4 verify
    rounds a chunk, 64 decode positions).  ``serve spec llama``: TinyLlama
-   at full width (22 layers) per stream (``CONTINUOUS_BATCHING=0``, the
+   at full width (22 layers; CUT_LAYERS in the main run) per stream (``CONTINUOUS_BATCHING=0``, the
    prefix cache on, buckets 1 x 64/128): six prompts, four quoting
    themselves, two seeded sampled, each alone, then a prompt that hits the
    first one's 64-token prefix, then a greedy and a sampled one whole
@@ -378,6 +419,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import dataclasses
+import functools
 import json
 import re
 import socket
@@ -419,8 +461,8 @@ HEADS, HEAD_DIM, LAYERS = 12, 64, 12
 # PAGE tokens under PAGED_KV.
 LLAMA_HEADS, LLAMA_KV_HEADS, PAGE = 32, 4, 16
 # Depth of the llama services cut to stay within the run's time limit (the
-# int8 services, the loop phases but the chunked one, the classes and the
-# prefix phases; the whole service and the chunked phase keep TinyLlama's 22).
+# int8 KV services, the loop phases, the classes, prefix, chunked and tier
+# phases; the whole service, 8f's llama, 8g and 8h keep TinyLlama's 22).
 CUT_LAYERS = 6
 # The llama the rehearsal serves on the CPU.
 REHEARSAL_LLAMA = dict(vocab_size=512, d_model=256, num_heads=4, num_kv_heads=2,
@@ -463,6 +505,11 @@ LAUNCHED_KERNEL = {"fused_attention": r"EncoderOp", "decode_attention": r"decode
 # waits PROFILER_SETTLE_S before the traced work (``profiler_primer``); the
 # spin kernels are left out of every count by their name.
 PRIMER_KERNELS, PROFILER_SETTLE_S = 256, 0.05
+# The bucket grid of the services that repeat a path which GPT-2's whole
+# service warms on the full grid (5 x 4 buckets): 3 x 2 buckets, a wave of
+# 2 padded to 4 and of 5 or 8 to 16, so a llama service's warmup captures
+# 24 graphs, not 80.
+CUT_GRID = {"BATCH_BUCKETS": "1,4,16", "SEQ_BUCKETS": "64,256"}
 PRIMER_KERNEL = re.compile(r"spin_kernel")
 # Served logits through a CUDA graph against the same engine's eager
 # dispatch on the same batch: the largest error of a row, as a fraction of
@@ -571,13 +618,16 @@ def phase_build(require_mma: bool = True) -> None:
     HGMMA and HMMA counts per library are printed; K1's and K4's libraries
     (the shared wgmma loop) must hold HGMMA instructions, K2's and K3's
     (mma.sync for the dense bf16 cache) HMMA."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from mlmicroservicetemplate_tpu_torch.ops import _build
 
     t0 = time.monotonic()
     built = _build.build()
     libraries = []
-    for b in built:
-        hgmma, hmma = mma_counts(b.path)
+    with ThreadPoolExecutor(len(built)) as pool:  # one cuobjdump a library, all at once
+        counts = list(pool.map(lambda b: mma_counts(b.path), built))
+    for b, (hgmma, hmma) in zip(built, counts):
         libraries.append({"name": b.name, "seconds": b.seconds, "hgmma": hgmma, "hmma": hmma,
                           "ptxas": ptxas_report(b.log),
                           "warnings": sorted({ln.strip()[:240] for ln in b.log.splitlines()
@@ -2041,14 +2091,18 @@ def eager_and_graph(eager, graph, reps: int, kernel_name: str, label: str, iters
                     count: str | None = None) -> dict:
     """Wall time (CUDA events over ``iters`` calls) and ``profile_split``
     over ``reps`` calls of the eager function and of the graph replay, side
-    by side; the kernel launches a call are the profile's ``kernels``."""
+    by side; the kernel launches a call are the profile's ``kernels``.
+    With ``eager`` None, the graph alone."""
     out = {}
     for mode, fn in (("eager", eager), ("graph", graph)):
+        if fn is None:
+            continue
         wall = cuda_ms(fn, iters)
         split = profile_split(fn, reps, kernel_name, label, count=count)
         busy = split["device_busy_ms"]
         out[mode] = {"wall_ms": wall, "busy_share": busy / wall if busy else None, **split}
-    out["wall_speedup"] = out["eager"]["wall_ms"] / out["graph"]["wall_ms"]
+    if eager is not None:
+        out["wall_speedup"] = out["eager"]["wall_ms"] / out["graph"]["wall_ms"]
     return out
 
 
@@ -2324,7 +2378,9 @@ def phase_forward(bundle, engine) -> None:
 
 def llama_pytree(cfg, seed: int) -> dict:
     """Random weights in the JAX package's llama layout (numpy f32,
-    ``[d_in, d_out]`` kernels): N(0, 0.02), unit RMSNorm scales."""
+    ``[d_in, d_out]`` kernels): N(0, 0.02), unit RMSNorm scales.  Each
+    kernel is the transpose of a row-major ``[d_out, d_in]`` array, so
+    carrying it into the port's layout is a plain copy (``kernel``)."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -2334,6 +2390,9 @@ def llama_pytree(cfg, seed: int) -> dict:
         a *= 0.02
         return a
 
+    def k(d_in, d_out):
+        return w(d_out, d_in).T
+
     d, kv = cfg.d_model, cfg.num_kv_heads * cfg.head_dim
     ones = np.ones(d, np.float32)
     return {
@@ -2341,16 +2400,16 @@ def llama_pytree(cfg, seed: int) -> dict:
         "layers": [
             {
                 "attn_ln": {"scale": ones},
-                "attn": {"q": {"kernel": w(d, d)}, "k": {"kernel": w(d, kv)},
-                         "v": {"kernel": w(d, kv)}, "o": {"kernel": w(d, d)}},
+                "attn": {"q": {"kernel": k(d, d)}, "k": {"kernel": k(d, kv)},
+                         "v": {"kernel": k(d, kv)}, "o": {"kernel": k(d, d)}},
                 "mlp_ln": {"scale": ones},
-                "mlp": {"gate": {"kernel": w(d, cfg.d_ff)}, "up": {"kernel": w(d, cfg.d_ff)},
-                        "down": {"kernel": w(cfg.d_ff, d)}},
+                "mlp": {"gate": {"kernel": k(d, cfg.d_ff)}, "up": {"kernel": k(d, cfg.d_ff)},
+                        "down": {"kernel": k(cfg.d_ff, d)}},
             }
             for _ in range(cfg.num_layers)
         ],
         "final_ln": {"scale": ones},
-        "lm_head": {"kernel": w(d, cfg.vocab_size)},
+        "lm_head": {"kernel": k(d, cfg.vocab_size)},
     }
 
 
@@ -2386,12 +2445,19 @@ def forced_logits(bundle, model, f: dict, toks: list, dtype=None, **kw):
 
 def step_keys(seed: int, n: int, device):
     """A seeded row's step keys [n, 2]: the key of its step j is the second
-    half of the (j + 1)-th split of its chain."""
+    half of the (j + 1)-th split of its chain (split on the CPU, where the
+    threefry rounds' small ops cost no launches, and kept: every phase
+    draws the same seeds)."""
+    return _step_keys_cpu(seed, n).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _step_keys_cpu(seed: int, n: int):
     import torch
 
     from mlmicroservicetemplate_tpu_torch.models import sampling
 
-    rng = sampling.make_params([seed], [1.0], [0], [1.0]).rng.to(device)
+    rng = sampling.make_params([seed], [1.0], [0], [1.0]).rng
     keys = []
     for _ in range(n):
         rng, key = sampling.row_split(rng)
@@ -2634,7 +2700,7 @@ async def drive_streams(batcher, bundle, waves):
 
 
 def phase_serve_stream(label: str, overrides: dict, params, ref_model, rehearsal: bool,
-                       card_line: str, warm_loop: bool = True):
+                       card_line: str, warm_loop: bool = True, eager_chunk: bool = True):
     """A generative service (llama or gpt2) streaming through the continuous
     decode loop: every token teacher-forced (greedy and sampled), the
     kernels' launches held against the loop's counts, the paged pool back
@@ -2642,7 +2708,8 @@ def phase_serve_stream(label: str, overrides: dict, params, ref_model, rehearsal
     alone; on the card, one slot-state chunk timed and split by kernel.
     Without ``warm_loop`` the loop is not warmed (as under ``WARMUP=0``):
     its chunk's graphs (argmax and sampled) are captured at the first
-    admission, two misses in the drive."""
+    admission, two misses in the drive.  Without ``eager_chunk`` the
+    chunk is timed as a graph only."""
     import numpy as np
 
     from mlmicroservicetemplate_tpu_torch.ops.attention import decode_attention
@@ -2708,7 +2775,7 @@ def phase_serve_stream(label: str, overrides: dict, params, ref_model, rehearsal
         seeded_alone_vs_batch=alone, **check,
     )
     if not rehearsal:
-        out["chunk"] = time_chunk(engine, loop)
+        out["chunk"] = time_chunk(engine, loop, eager=eager_chunk)
     emit(label, **out)
     return cfg, bundle, engine, k2, k3, gdrive, loop
 
@@ -2839,6 +2906,7 @@ def phase_serve_classes(label: str, overrides: dict, params, ref_model, rehearsa
         raise AssertionError(f"{label}: launches {got}, want {want} over "
                              f"{loop.prefill_dispatches} waves and {loop.decode_steps} steps")
     counts = dict(preemptions=loop.preemptions, recasts=loop.recasts, replays=loop.replays,
+                  replays_parted=loop.replays_parted,
                   kv_growth_stalls=loop.kv_growth_stalls)
     if loop.preemptions < 1:
         raise AssertionError(f"{label}: no interactive arrival preempted a batch stream "
@@ -3671,6 +3739,7 @@ def phase_serve_tier(label: str, overrides: dict, params, ref_model, rehearsal: 
         prefetch_blocks_live=loop.prefetch_blocks_live,
         swap_out_bytes=loop.swap_out_bytes, swap_in_bytes=loop.swap_in_bytes,
         preemptions=loop.preemptions, recasts=loop.recasts, replays=loop.replays,
+        replays_parted=loop.replays_parted,
         kv_growth_stalls=loop.kv_growth_stalls, prefill_checkpoints=loop.prefill_checkpoints,
         prefill_chunks=loop.prefill_chunk_dispatches, windows_by_stream=windows,
         host_ledger=tier.ledger.stats(),
@@ -3914,12 +3983,12 @@ def phase_serve_gpt2_chunked(label: str, overrides: dict, params, ref_model, who
     return bundle, {"decode_attention": k2} if k2 else {}, gdrive
 
 
-def time_chunk(engine, loop) -> dict:
-    """One chunk of the loop's slot state, eager and through its graph,
-    timed (CUDA events) and split by kernel (``torch.profiler``): every
-    slot live at full width (all keys valid and, paged, a table of distinct
-    pool blocks; a dead row's compute is a live row's), so the attention
-    reads what full streams would."""
+def time_chunk(engine, loop, eager: bool = True) -> dict:
+    """One chunk of the loop's slot state, eager (unless ``eager`` is
+    false) and through its graph, timed (CUDA events) and split by kernel
+    (``torch.profiler``): every slot live at full width (all keys valid
+    and, paged, a table of distinct pool blocks; a dead row's compute is a
+    live row's), so the attention reads what full streams would."""
     import numpy as np
     import torch
 
@@ -3931,7 +4000,7 @@ def time_chunk(engine, loop) -> dict:
                 engine.kv_pool.num_blocks
             loop._table_dev.copy_(torch.from_numpy(loop._table))
 
-        def eager():
+        def eager_chunk():
             if engine.paged_kv:
                 bundle.paged_chunk(loop._state, loop._table_dev, loop.chunk)
             else:
@@ -3940,8 +4009,8 @@ def time_chunk(engine, loop) -> dict:
         def graph():
             loop._chunk_call()
 
-        return eager_and_graph(eager, graph, 5, K3_KERNEL if engine.paged_kv else K2_KERNEL,
-                               "attention")
+        return eager_and_graph(eager_chunk if eager else None, graph, 5,
+                               K3_KERNEL if engine.paged_kv else K2_KERNEL, "attention")
 
 
 def phase_decode_step(bundle, label: str = "decode step", batches=(1, 8, 32),
@@ -4080,8 +4149,9 @@ def phase_sampler() -> dict:
 
 def gpt2_pytree(cfg, seed: int) -> dict:
     """Random weights in the JAX package's GPT-2 layout (numpy f32,
-    ``[d_in, d_out]`` kernels) at its init's scales: N(0, 0.02) token
-    table and projections, N(0, 0.01) positions, zero biases, unit
+    ``[d_in, d_out]`` kernels, each the transpose of a row-major ``[d_out,
+    d_in]`` array as ``llama_pytree``'s) at its init's scales: N(0, 0.02)
+    token table and projections, N(0, 0.01) positions, zero biases, unit
     LayerNorm scales."""
     import numpy as np
 
@@ -4098,7 +4168,7 @@ def gpt2_pytree(cfg, seed: int) -> dict:
         return {"scale": np.ones(d, np.float32), "bias": np.zeros(d, np.float32)}
 
     def dense(n_in, n_out):
-        return {"kernel": w(0.02, n_in, n_out), "bias": np.zeros(n_out, np.float32)}
+        return {"kernel": w(0.02, n_out, n_in).T, "bias": np.zeros(n_out, np.float32)}
 
     return {
         "wte": {"embedding": w(0.02, cfg.vocab_size, d)},
@@ -5575,13 +5645,16 @@ def spec_loop_service(label: str, overrides: dict, params, ref_model, rehearsal:
 SPEC = {"SPEC_DECODE": "ngram", "MAX_DECODE_LEN": "64"}
 
 
-def spec_llama(params, ref_model, rehearsal: bool, card_line: str) -> int:
-    """8f, ``serve spec llama``: TinyLlama (22 layers; the rehearsal's
-    small llama on the CPU) per stream with the prefix cache; returns the
-    K2 launches of its plain comparison run."""
+def spec_llama(params, ref_model, rehearsal: bool, card_line: str,
+               dims: dict | None = None) -> int:
+    """8f, ``serve spec llama``: TinyLlama (22 layers, or ``dims``' config;
+    the rehearsal's small llama on the CPU) per stream with the prefix
+    cache; returns the K2 launches of its plain comparison run."""
     ov = {**SPEC, "MODEL_NAME": "llama", "DEVICE": "cpu" if rehearsal else "cuda",
           "BATCH_BUCKETS": "1", "SEQ_BUCKETS": "64,128", "CONTINUOUS_BATCHING": "0",
           "PREFIX_CACHE": "1"}
+    if dims:
+        ov["LLAMA_CONFIG"] = json.dumps(dims)
     if rehearsal:
         ov.update(LLAMA_CONFIG=json.dumps(REHEARSAL_LLAMA), MAX_DECODE_LEN="16")
     launches, _, _ = spec_stream_service("serve spec llama", ov, params, ref_model, rehearsal,
@@ -5663,6 +5736,519 @@ def spec_main(rehearsal: bool) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# 8g. serve quantize (QUANTIZE=int8) and 8h. serve llama lora (ADAPTER_DIR)
+
+# The int8 weights' dequantization in a profile: the convert of q8 to the
+# compute type (a copy kernel) and the multiply by the scale.
+CONVERT_KERNEL, MUL_KERNEL = r"direct_copy|copy_kernel", r"MulFunctor"
+# 8h's adapters: (name, rank, alpha or None), N(0, 0.02) factors from seed 0.
+LORA_SPECS = (("alpha", 8, None), ("beta", 16, 32.0), ("gamma", 8, 16.0))
+
+
+def kernel_split(fn, reps: int, parts: dict) -> dict:
+    """``profile_split`` over named parts: each device kernel of ``reps``
+    calls of ``fn`` goes to the first part whose regex its name matches,
+    else to ``other``; per call, each part's ms and kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profiler_primer()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    names = list(parts) + ["other"]
+    us, n = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0)
+    by_name: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA or PRIMER_KERNEL.search(e.name):
+            continue
+        part = next((k for k, rx in parts.items() if re.search(rx, e.name)), "other")
+        t = e.time_range.elapsed_us()
+        us[part] += t
+        n[part] += 1
+        by_name[e.name] = by_name.get(e.name, 0.0) + t
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return dict(device_busy_ms=sum(us.values()) / reps / 1e3 if by_name else None,
+                **{f"{k}_ms": us[k] / reps / 1e3 for k in names},
+                kernels={k: n[k] / reps for k in names},
+                top_kernels=[[name[:80], t / reps / 1e3] for name, t in top],
+                note=None if by_name else "torch.profiler recorded no device kernels")
+
+
+def resident_bytes(build):
+    """(device bytes ``build()`` leaves allocated, its result): the
+    difference of ``torch.cuda.memory_allocated`` across it."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    m0 = torch.cuda.memory_allocated()
+    out = build()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated() - m0, out
+
+
+def model_bytes(model) -> int:
+    """Bytes of a model's parameters and buffers (int8 payloads, f32 scales
+    and the float weights left)."""
+    return sum(t.numel() * t.element_size() for t in model.state_dict().values())
+
+
+def quant_step(bundles: dict, b: int = 8, prompt: int = 512) -> dict:
+    """One decode step at ``b`` rows over a (prompt + 64)-key cache as a
+    captured graph, per bundle: CUDA-event wall of a replay and its kernels
+    split into K2, GEMMs, the int8 converts, the multiplies (the scales'
+    and the model's own) and the rest."""
+    import torch
+
+    from mlmicroservicetemplate_tpu_torch.runtime.compile_cache import capture_graph
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    ids = torch.randint(5, 261, (b, prompt), device="cuda", generator=gen, dtype=torch.int32)
+    mask = torch.ones_like(ids)
+    parts = {"K2": K2_KERNEL, "gemm": GEMM_KERNEL.pattern, "convert": CONVERT_KERNEL,
+             "mul": MUL_KERNEL}
+    out = {}
+    for name, bundle in bundles.items():
+        with torch.inference_mode():
+            state = bundle.init_state(ids, mask, 64)
+
+            def step():
+                state.steps = 0
+                return bundle.generate_chunk(state, 1)[1]
+
+            entry = capture_graph("gen_chunk", step, state, "cuda")
+            out[name] = {"graph_wall_ms": cuda_ms(entry.replay, 20),
+                         **kernel_split(entry.replay, 5, parts)}
+    i8, bf = out["int8"], out["bf16"]
+    out["int8_over_bf16_wall"] = i8["graph_wall_ms"] / bf["graph_wall_ms"]
+    out["dequant_ms"] = i8["convert_ms"] + i8["mul_ms"] - bf["convert_ms"] - bf["mul_ms"]
+    return out
+
+
+def quant_llama_models(cfg, params, device: str, dtype):
+    """QUANTIZE=int8's TinyLlama as the service builds it (the weights cast
+    to ``dtype``, then quantized on the device) and its f32 reference: the
+    very q8 and scales, the rest of the weights in f32."""
+    import torch
+
+    from mlmicroservicetemplate_tpu_torch.convert.jax_params import llama_params_from_jax
+    from mlmicroservicetemplate_tpu_torch.models import llama as llama_mod
+
+    dev = torch.device(device)
+    q = llama_mod.build_model(cfg, llama_params_from_jax(params, cfg), dev, dtype, quantize=True)
+    return q, llama_mod.build_model(cfg, q.state_dict(), dev, torch.float32)
+
+
+def same_int8(model, want) -> int:
+    """How many int8 buffers ``model`` holds; raises unless each equals
+    ``want``'s (the served weights are the reference's)."""
+    import torch
+
+    got, ref = model.state_dict(), want.state_dict()
+    keys = [k for k in got if k.endswith((".q8", ".scale")) and k.rpartition(".")[0] + ".q8" in got]
+    if not keys or any(not torch.equal(got[k], ref[k].to(got[k].device)) for k in keys):
+        raise AssertionError("the served int8 weights differ from the reference's")
+    return sum(k.endswith(".q8") for k in keys)
+
+
+def quant_classifier(name: str, rehearsal: bool, card_line: str) -> int:
+    """8g's BERT-base or ResNet-50 under QUANTIZE=int8 through
+    ``Batcher.submit`` (every bucket captured first): each answer held
+    against the port's f32 run on the CPU of the same int8 weights (the
+    card's state loaded into a CPU service), within PROB_TOL / RESNET_LOGIT_TOL
+    as the bf16 services; K1 12 launches a BERT dispatch.  Returns K1's
+    launches."""
+    import numpy as np
+
+    from mlmicroservicetemplate_tpu_torch.models.resnet import ResNetConfig
+    from mlmicroservicetemplate_tpu_torch.ops.attention import fused_attention
+    from mlmicroservicetemplate_tpu_torch.serve import build_service
+
+    bert = name == "bert-base"
+    ov = {"MODEL_NAME": name, "DEVICE": "cpu" if rehearsal else "cuda", "QUANTIZE": "int8"}
+    if rehearsal:
+        ov.update(BATCH_BUCKETS="1,4,8,16", SEQ_BUCKETS="32,64,128") if bert else ov.update(
+            BATCH_BUCKETS="1,8")
+    elif not bert:
+        ov["BATCH_BUCKETS"] = "1,8,16"
+    params = None if bert else resnet_pytree(ResNetConfig(), seed=0)
+    t0 = time.monotonic()
+    nbytes, (cfg, bundle, engine, batcher) = (
+        (None, build_service(ov, params=params)) if rehearsal
+        else resident_bytes(lambda: build_service(ov, params=params)))
+    warm_s = engine.warmup() if bert else batcher.warm_engine()
+    waves = make_waves(rehearsal) if bert else image_waves(rehearsal)
+    fused_attention.launches = 0
+    engine.dispatches = 0
+    misses = graph_marks(bundle)[1]
+    feats, rows, latencies, wall = asyncio.run(drive(batcher, bundle, waves,
+                                                     prep=None if bert else dict))
+    from mlmicroservicetemplate_tpu_torch.runtime.compile_cache import CACHE
+
+    misses = CACHE.stats()["miss"] - misses
+    launches = fused_attention.launches
+    if bert and not rehearsal and launches != LAYERS * engine.dispatches:
+        raise AssertionError(f"{name} int8: fused_attention launched {launches} times over "
+                             f"{engine.dispatches} dispatches")
+    if misses and not rehearsal:
+        raise AssertionError(f"{name} int8: {misses} graph misses after warmup")
+    _, cpu_bundle, cpu_engine, cpu_batcher = build_service(
+        {**ov, "DEVICE": "cpu", "WARMUP": "0"}, params=params)
+    asyncio.run(cpu_batcher.stop())
+    cpu_bundle.model.load_state_dict(bundle.model.state_dict())
+    n_q8 = same_int8(cpu_bundle.model, bundle.model)
+    ref = cpu_engine.run_batch(feats)
+    if bert:
+        worst, checked = check_probs(bundle, rows, ref, "the CPU f32 run of the int8 weights")
+        errs = dict(max_prob_err_vs_cpu_f32=worst, prob_tol=PROB_TOL, labels_checked=checked)
+    else:
+        worst, checked = check_logits(rows, ref, "the CPU f32 run of the int8 weights")
+        errs = dict(max_logit_err_over_max_logit=worst, logit_tol=RESNET_LOGIT_TOL,
+                    top1_checked=checked)
+    http = {"skipped": "cpu rehearsal"} if rehearsal else {}
+    if not rehearsal and bert:
+        (http["predict"],) = asyncio.run(http_check(
+            cfg, bundle, engine, [("/predict", {"text": "hello card"}, json_key("prediction"))]))
+    elif not rehearsal:
+        try:
+            import PIL  # noqa: F401  (decodes the image body)
+        except ImportError:
+            http = {"skipped": "PIL is not installed; it is needed only to decode image bodies"}
+        else:
+            (http["predict"],) = asyncio.run(http_check(
+                cfg, bundle, engine, [("/predict", png_bytes(9), json_key("prediction"))]))
+    lat = np.array(latencies) * 1e3
+    emit(f"serve quantize {name}", device=str(bundle.device), card=card_line, http=http,
+         int8_tensors=n_q8, resident_bytes=nbytes, model_bytes=model_bytes(bundle.model),
+         requests=len(rows), dispatches=engine.dispatches, fused_attention_launches=launches,
+         misses=misses, warmup_s=warm_s, p50_ms=float(np.percentile(lat, 50)),
+         p99_ms=float(np.percentile(lat, 99)), per_s=len(rows) / wall, **errs,
+         seconds=time.monotonic() - t0)
+    release(bundle)
+    return launches
+
+
+def phase_serve_quant(params, cfg, rehearsal: bool, card_line: str) -> dict:
+    """8g, ``serve quantize``: TinyLlama (``cfg``, seed-0 ``params``) under
+    QUANTIZE=int8 whole (K2) and through the paged loop (K3), greedy and
+    seeded sampled, every token teacher-forced against the f32 run of the
+    same int8 weights; the resident weight bytes and one decode step (B =
+    8, T = 576, as a graph) against bf16; then BERT-base (K1) and
+    ResNet-50.  Returns each kernel's launches."""
+    import torch
+
+    from mlmicroservicetemplate_tpu_torch.serve import build_service
+
+    t0 = time.monotonic()
+    device = "cpu" if rehearsal else "cuda"
+    dtype = torch.float32 if rehearsal else torch.bfloat16
+    base = {"MODEL_NAME": "llama", "DEVICE": device, "BATCH_BUCKETS": "1,16",
+            "SEQ_BUCKETS": "64,128" if rehearsal else "128,256",
+            "LLAMA_CONFIG": json.dumps({f.name: getattr(cfg, f.name)
+                                        for f in dataclasses.fields(cfg)
+                                        if f.name not in ("eos_id", "pad_id", "kv_quant")})}
+    quant = {**base, "QUANTIZE": "int8"}
+    qmodel, qref = quant_llama_models(cfg, params, device, dtype)
+    whole = phase_serve_gen("serve quantize llama", quant, params, qref, rehearsal, card_line)
+    n_q8 = same_int8(whole[1].model, qmodel)
+    stream = phase_serve_stream(
+        "serve quantize llama stream", {**quant, "PAGED_KV": "1", "KV_BLOCK_SIZE": str(PAGE),
+                                        "MAX_STREAMS": "16", "MAX_DECODE_LEN": "64"},
+        params, qref, rehearsal, card_line, eager_chunk=False)
+    same_int8(stream[1].model, qmodel)
+    del qmodel, qref
+    out = {"decode_attention": whole[3] + stream[3], "paged_decode_attention": stream[4]}
+    if rehearsal:
+        emit("serve quantize llama step", skipped="cpu rehearsal: no card to profile")
+    else:
+        bf16_bytes, bf16 = resident_bytes(lambda: build_service(
+            {**base, "WARMUP": "0"}, params=params))
+        i8_bytes, i8 = resident_bytes(lambda: build_service(
+            {**quant, "WARMUP": "0"}, params=params))
+        step = quant_step({"bf16": bf16[1], "int8": i8[1]})
+        emit("serve quantize llama step", card=card_line, layers=cfg.num_layers,
+             resident_bytes={"bf16": bf16_bytes, "int8": i8_bytes,
+                             "int8_over_bf16": i8_bytes / bf16_bytes},
+             model_bytes={"bf16": model_bytes(bf16[1].model), "int8": model_bytes(i8[1].model)},
+             int8_tensors=n_q8, batch=8, cache_len=576, **step)
+        release(bf16[1])
+        release(i8[1])
+        del bf16, i8
+    release(whole[1])
+    release(stream[1])
+    del whole, stream
+    out["fused_attention"] = quant_classifier("bert-base", rehearsal, card_line)
+    quant_classifier("resnet50", rehearsal, card_line)
+    emit("serve quantize", launches=out, seconds=time.monotonic() - t0)
+    return out
+
+
+def write_lora_dir(path: str, cfg, seed: int = 0) -> str:
+    """``LORA_SPECS``' adapters of llama ``cfg``'s q/k/v/o as ``.npz`` files
+    under ``path``, N(0, 0.02) factors from ``seed``."""
+    import os
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    d, kv = cfg.d_model, cfg.num_kv_heads * cfg.head_dim
+    projs = {"q": (d, d), "k": (d, kv), "v": (d, kv), "o": (d, d)}
+    for name, r, alpha in LORA_SPECS:
+        arrs = {} if alpha is None else {"alpha": np.float32(alpha)}
+        for li in range(cfg.num_layers):
+            for proj, (d_in, d_out) in projs.items():
+                for leaf, shape in (("lora_a", (d_in, r)), ("lora_b", (r, d_out))):
+                    a = rng.standard_normal(shape, dtype=np.float32)
+                    a *= 0.02
+                    arrs[f"layers.{li}.{proj}.{leaf}"] = a
+        np.savez(os.path.join(path, f"{name}.npz"), **arrs)
+    return path
+
+
+def lora_waves():
+    """8h's traffic, (item, adapter id or None) a stream: two mixed waves of
+    12 (alpha, beta and none in turn, every fourth sampled and seeded), then
+    a wave of 4 on gamma (an install that evicts) and 2 on none."""
+    import numpy as np
+
+    from mlmicroservicetemplate_tpu_torch.models.registry import RawItem
+
+    rng = np.random.default_rng(5)
+    words = ["adapter", "tenant", "slot", "delta", "rank", "batch", "row", "wave"]
+    aids, waves, i = ("alpha", "beta", None), [], 0
+    for size, pick in ((12, None), (12, None), (6, ("gamma",) * 4 + (None, None))):
+        wave = []
+        for j in range(size):
+            length = int(rng.integers(20, 60))
+            text = " ".join(rng.choice(words, size=length))[:length]
+            sampling = (dict(temperature=0.8, top_k=40, seed=2000 + i) if i % 4 == 3 else {})
+            wave.append((RawItem(text=text, **sampling), aids[j % 3] if pick is None
+                         else pick[j]))
+            i += 1
+        waves.append(wave)
+    return waves
+
+
+async def drive_lora(batcher, bundle, waves, shed: bool):
+    """Each wave's streams opened at once (their adapter ids set), read to
+    the end; then, with ``shed``, alpha and beta streams hold both slots and
+    a gamma one must shed with ``adapter_pool``.  Returns (feats, rows,
+    adapter ids, the shed's reason and Retry-After, wall seconds)."""
+    import numpy as np
+
+    from mlmicroservicetemplate_tpu_torch.scheduler.policy import QueueFullError
+
+    await batcher.start()
+    feats, rows, aids = [], [], []
+
+    def prep(item, aid):
+        f = bundle.preprocess(item)
+        if aid is not None:
+            f["adapter_id"] = aid
+        return f
+
+    async def read(f, gen, aid):
+        return f, np.array([int(x) async for chunk in gen for x in chunk], np.int32), aid
+
+    async def one(item, aid):
+        f = prep(item, aid)
+        return await read(f, batcher.submit_stream(f), aid)
+
+    async def settle():
+        t_wait = time.monotonic() + 10.0
+        while batcher._cdl.admitted and time.monotonic() < t_wait:
+            await asyncio.sleep(0.001)
+
+    shed_out = None
+    try:
+        t0 = time.monotonic()
+        for wave in waves:
+            for f, row, aid in await asyncio.gather(*(one(*x) for x in wave)):
+                feats.append(f)
+                rows.append(row)
+                aids.append(aid)
+            await settle()
+        if shed:
+            held = [(prep(x, a), a) for x, a in ((waves[0][0][0], "alpha"),
+                                                  (waves[0][1][0], "beta"))]
+            gens = [(f, batcher.submit_stream(f), a) for f, a in held]
+            try:
+                batcher.submit_stream(prep(waves[2][0][0], "gamma"))
+            except QueueFullError as e:
+                shed_out = {"reason": e.reason, "retry_after_s": e.retry_after_s}
+            for f, row, aid in await asyncio.gather(*(read(*g) for g in gens)):
+                feats.append(f)
+                rows.append(row)
+                aids.append(aid)
+            await settle()
+            if not shed_out or shed_out["reason"] != "adapter_pool":
+                raise AssertionError(f"a third adapter with both slots held: {shed_out}")
+        wall = time.monotonic() - t0
+    finally:
+        await batcher.stop()
+    return feats, rows, aids, shed_out, wall
+
+
+def lora_teacher_forced(bundle, ref_model, adir: str, feats, rows, aids, max_len: int) -> dict:
+    """``teacher_forced`` per adapter: the served model and the f32
+    reference each seen through the overlay of that row's adapter (a pool
+    of their own holding all three, f32 factors as the service's)."""
+    import torch
+
+    from mlmicroservicetemplate_tpu_torch.models import lora
+    from mlmicroservicetemplate_tpu_torch.tenancy.adapters import AdapterPool, load_adapter_dir
+
+    pool = AdapterPool(load_adapter_dir(adir), slots=len(LORA_SPECS), device=bundle.device)
+    out = {}
+    for aid in sorted({a for a in aids if a is not None}) + [None]:
+        idx = [i for i, a in enumerate(aids) if a == aid]
+        ov = None
+        if aid is not None:
+            ov = pool.overlay(torch.tensor([pool.acquire(aid)], device=bundle.device))
+        served = dataclasses.replace(bundle, model=lora.attach(bundle.model, ov))
+        out[aid or "none"] = teacher_forced(served, lora.attach(ref_model, ov),
+                                            [feats[i] for i in idx], [rows[i] for i in idx],
+                                            max_len)
+    return out
+
+
+def phase_serve_lora(params, ref_model, cfg, rehearsal: bool, card_line: str) -> dict:
+    """8h, ``serve llama lora``: TinyLlama (``cfg``) through the paged loop
+    with ``ADAPTER_DIR`` (three adapters, ``ADAPTER_SLOTS=2``) and the same
+    traffic on a service without it; returns K2's and K3's launches."""
+    import tempfile
+
+    import numpy as np
+
+    from mlmicroservicetemplate_tpu_torch.ops.attention import decode_attention
+    from mlmicroservicetemplate_tpu_torch.ops.paged_attention import paged_decode_attention
+    from mlmicroservicetemplate_tpu_torch.runtime import compile_cache
+    from mlmicroservicetemplate_tpu_torch.serve import build_service
+
+    t0 = time.monotonic()
+    waves = lora_waves()
+    ov = {"MODEL_NAME": "llama", "DEVICE": "cpu" if rehearsal else "cuda",
+          "BATCH_BUCKETS": "16", "SEQ_BUCKETS": "64", "MAX_STREAMS": "16",
+          "MAX_DECODE_LEN": "16" if rehearsal else "64", "PAGED_KV": "1",
+          "KV_BLOCK_SIZE": str(PAGE),
+          "LLAMA_CONFIG": json.dumps({f.name: getattr(cfg, f.name)
+                                      for f in dataclasses.fields(cfg)
+                                      if f.name not in ("eos_id", "pad_id", "kv_quant")})}
+    with tempfile.TemporaryDirectory() as adir:
+        write_lora_dir(adir, cfg)
+        cfg_, bundle, engine, batcher = build_service(
+            {**ov, "ADAPTER_DIR": adir, "ADAPTER_SLOTS": "2"}, params=params)
+        loop, pool = batcher._cdl, batcher.adapters
+        warm_s = batcher.warm_engine() + batcher.warm_streams()
+        captures = compile_cache.capture_stats()["count"]
+        decode_attention.launches = paged_decode_attention.launches = 0
+        loop.prefill_dispatches = loop.chunk_dispatches = loop.decode_steps = 0
+        marks = graph_marks(bundle)
+        feats, rows, aids, shed, wall = asyncio.run(drive_lora(batcher, bundle, waves, True))
+        k2, k3 = decode_attention.launches, paged_decode_attention.launches
+        gdrive = graph_drive(bundle, marks, {})
+        held_launches("serve llama lora", bundle, engine, loop, k2, k3, rehearsal)
+        st = pool.status()
+        if st["installs"] < 1 or st["demotions"] < 1 or st["live_refs"] != 0:
+            raise AssertionError(f"serve llama lora: pool {st}")
+        if compile_cache.capture_stats()["count"] != captures or gdrive["misses"]:
+            raise AssertionError(f"serve llama lora: graphs captured after warmup {gdrive}")
+        if engine.kv_pool.used_blocks or loop.admitted:
+            raise AssertionError("serve llama lora: blocks or streams left")
+        check = lora_teacher_forced(bundle, ref_model, adir, feats, rows, aids,
+                                    engine.max_decode_len)
+        timing = {}
+        if not rehearsal:
+            import torch
+
+            free = [a for a in pool.ids() if a not in {r["adapter"] for r in
+                                                        st["resident"].values()}]
+            ti = time.perf_counter()
+            slot = pool.acquire(free[0])
+            torch.cuda.synchronize()
+            timing["install_ms"] = (time.perf_counter() - ti) * 1e3
+            pool.release(slot)
+            if compile_cache.capture_stats()["count"] != captures:
+                raise AssertionError("serve llama lora: an install captured a graph")
+            timing["chunk"] = time_chunk(engine, loop, eager=False)
+        # The same traffic, adapter ids dropped, on a service without
+        # ADAPTER_DIR: every row that had none gets its very tokens.
+        _, pbundle, pengine, pbatcher = build_service(ov, params=params)
+        pbatcher.warm_engine()
+        pbatcher.warm_streams()
+        plain = [[(item, None) for item, _ in wave] for wave in waves]
+        _, prows, _, _, _ = asyncio.run(drive_lora(pbatcher, pbundle, plain, False))
+        base = [i for i, a in enumerate(aids[:len(prows)]) if a is None]
+        differ = [i for i in base if not np.array_equal(rows[i], prows[i])]
+        adapted = [i for i, a in enumerate(aids[:len(prows)]) if a is not None]
+        changed = sum(not np.array_equal(rows[i], prows[i]) for i in adapted)
+        if differ or not changed:
+            raise AssertionError(f"serve llama lora: base rows {differ} differ from the plain "
+                                 f"service's, {changed} adapted rows changed")
+        if not rehearsal:
+            base_chunk = time_chunk(pengine, pbatcher._cdl, eager=False)
+            lb, bb = timing["chunk"]["graph"]["device_busy_ms"], base_chunk["graph"][
+                "device_busy_ms"]
+            timing["base_chunk"] = base_chunk
+            timing["delta_ms_per_step"] = ((lb - bb) / engine.chunk_tokens
+                                           if lb and bb else None)
+        emit("serve llama lora", device=str(bundle.device), card=card_line,
+             layers=bundle.cfg.num_layers, adapters=[list(s) for s in LORA_SPECS],
+             slots=pool.n_slots, rank=pool.rank, streams=len(rows),
+             adapted_streams=len(adapted) + 2, base_rows_equal=len(base),
+             adapted_rows_changed=changed, shed=shed, pool=st, warm_s=warm_s,
+             graph_captures_across_installs=0, misses=gdrive["misses"],
+             admission_waves=loop.prefill_dispatches, slot_decode_steps=loop.decode_steps,
+             decode_attention_launches=k2, paged_decode_attention_launches=k3,
+             generated_tok_per_s=sum(len(r) for r in rows) / wall, teacher_forced=check,
+             **timing, seconds=time.monotonic() - t0)
+        release(bundle)
+        release(pbundle)
+    return {"decode_attention": k2, "paged_decode_attention": k3}
+
+
+def weight_main(which: str, rehearsal: bool) -> int:
+    """``--quant`` / ``--lora``: the build and 8g or 8h alone, TinyLlama at
+    full width (the rehearsal's small llama on the CPU, no build).  Prints
+    no result line."""
+    import torch
+
+    phase = "env"
+    try:
+        if not rehearsal and not torch.cuda.is_available():
+            print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
+            return 1
+        card_line = "cpu (rehearsal)" if rehearsal else card()
+        emit(phase, card=card_line, torch=torch.__version__, cuda=torch.version.cuda,
+             mode=which)
+        if not rehearsal:
+            phase = "build"
+            phase_build()
+        from mlmicroservicetemplate_tpu_torch.convert.jax_params import llama_params_from_jax
+        from mlmicroservicetemplate_tpu_torch.models import llama as llama_mod
+
+        device = "cpu" if rehearsal else "cuda"
+        cfg = llama_mod.LlamaConfig(**(REHEARSAL_LLAMA if rehearsal else {}), eos_id=1, pad_id=0)
+        params = llama_pytree(cfg, seed=0)
+        if which == "quant":
+            phase = "serve quantize"
+            phase_serve_quant(params, cfg, rehearsal, card_line)
+        else:
+            phase = "serve llama lora"
+            ref = llama_mod.build_model(cfg, llama_params_from_jax(params, cfg),
+                                        torch.device(device), torch.float32)
+            phase_serve_lora(params, ref, cfg, rehearsal, card_line)
+    except Exception as e:
+        traceback.print_exc()
+        emit(phase, ok=False, error=f"{type(e).__name__}: {e}")
+        return 1
+    return 0
+
+
 def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
@@ -5679,6 +6265,10 @@ def main(argv: list[str]) -> int:
                     help="only the build and the dispatch pipeline's phase")
     ap.add_argument("--spec", action="store_true",
                     help="only the build and the speculative decoding phase")
+    ap.add_argument("--quant", action="store_true",
+                    help="only the build and the QUANTIZE=int8 phase")
+    ap.add_argument("--lora", action="store_true",
+                    help="only the build and the LoRA adapters phase")
     args = ap.parse_args(argv)
     if args.perf:
         return perf_main()
@@ -5692,6 +6282,8 @@ def main(argv: list[str]) -> int:
         return pipeline_main(args.cpu_rehearsal)
     if args.spec:
         return spec_main(args.cpu_rehearsal)
+    if args.quant or args.lora:
+        return weight_main("quant" if args.quant else "lora", args.cpu_rehearsal)
     rehearsal = args.cpu_rehearsal
     t_start = time.monotonic()
     phase = "env"
@@ -5797,24 +6389,26 @@ def main(argv: list[str]) -> int:
         params = llama_pytree(lcfg, seed=0)
         ref_model = llama_mod.build_model(lcfg, llama_params_from_jax(params, lcfg),
                                           torch.device(device), torch.float32)
-        llama_svc = phase_serve_gen(phase, llama_overrides, params, ref_model,
+        grid = {} if rehearsal else CUT_GRID
+        llama_svc = phase_serve_gen(phase, {**llama_overrides, **grid}, params, ref_model,
                                     rehearsal, card_line)
         phase = "graphs llama"
         graphs("llama", llama_svc[1], llama_svc[4],
                graph_vs_eager=lambda: tokens_graph_vs_eager(llama_svc[2], llama_svc[5][-16:]))
         # The int8 services and the contiguous loop run at CUT_LAYERS layers
-        # (the whole-generation and paged-loop services keep TinyLlama's 22),
-        # with weights of their own from seed 0: a llama service's warmup
-        # captures 80 graphs, and the run must stay within its time limit.
+        # (8g and 8h drive TinyLlama's 22), on the first CUT_LAYERS layers of
+        # the weights above, and the int8 and loop services on CUT_GRID: a
+        # llama service's warmup captures 80 graphs on the whole grid, and
+        # the run must stay within its time limit.
         cut = {**dims, "num_layers": CUT_LAYERS} if not rehearsal else dims
         ccfg = llama_mod.LlamaConfig(**cut, eos_id=1, pad_id=0)
-        cparams = llama_pytree(ccfg, seed=0)
+        cparams = {**params, "layers": params["layers"][:ccfg.num_layers]}
         cref = llama_mod.build_model(ccfg, llama_params_from_jax(cparams, ccfg),
                                      torch.device(device), torch.float32)
         cut_overrides = {**llama_overrides, "LLAMA_CONFIG": json.dumps(cut)}
         phase = "serve llama int8"
-        llama8 = phase_serve_gen(phase, {**cut_overrides, "QUANT_KV": "int8"}, cparams, cref,
-                                 rehearsal, card_line)
+        llama8 = phase_serve_gen(phase, {**cut_overrides, **grid, "QUANT_KV": "int8"}, cparams,
+                                 cref, rehearsal, card_line)
         llama8_launches = llama8[3]
         phase = "graphs llama int8"
         graphs("llama int8", llama8[1], llama8[4],
@@ -5836,8 +6430,8 @@ def main(argv: list[str]) -> int:
                  (cut_overrides, cparams, cref)),
                 ("serve llama stream contiguous", {"PAGED_KV": "0"}, True,
                  (cut_overrides, cparams, cref))):
-            svc = phase_serve_stream(phase, {**weights[0], **stream, **extra}, *weights[1:],
-                                     rehearsal, card_line, warm_loop)
+            svc = phase_serve_stream(phase, {**weights[0], **stream, **grid, **extra},
+                                     *weights[1:], rehearsal, card_line, warm_loop)
             k2_streams += svc[3]
             k3_streams += svc[4]
             label = phase[len("serve "):]
@@ -5889,27 +6483,29 @@ def main(argv: list[str]) -> int:
         phase = "graphs llama prefix"
         graphs("llama prefix", prefix[0], prefix[2])
         release(prefix[0])
-        # Chunked prefill at full depth over the paged loop with the prefix
-        # cache: short interactive streams decode while three long prompts
-        # (past the largest bucket) prefill in windows between their chunks,
-        # a fourth hits the first one's prefix, and the default pool (16
-        # worst-case streams of the largest bucket) runs dry mid-prefill.
+        # Chunked prefill over the paged loop with the prefix cache: short
+        # interactive streams decode while three long prompts (past the
+        # largest bucket) prefill in windows between their chunks, a fourth
+        # hits the first one's prefix, and the default pool (16 worst-case
+        # streams of the largest bucket) runs dry mid-prefill.  At
+        # CUT_LAYERS layers, as the host tier below, for the run's time: 8g
+        # and 8h drive TinyLlama at full depth.
         phase = "serve llama chunked"
-        chunked = phase_serve_chunked(phase, {**llama_overrides, **stream,
+        chunked = phase_serve_chunked(phase, {**cut_overrides, **stream,
                                               **chunked_llama(rehearsal)},
-                                      params, ref_model, rehearsal, card_line)
+                                      cparams, cref, rehearsal, card_line)
         k2_streams += chunked[1].get("decode_attention", 0)
         k3_streams += chunked[1].get("paged_decode_attention", 0)
         phase = "graphs llama chunked"
         graphs("llama chunked", chunked[0], chunked[2])
         release(chunked[0])
-        # The host KV tier at full depth over the paged loop with the three
-        # above: conversations whose pins are demoted and come back,
-        # preempted streams swapped out and prefetched back, and a long
-        # prompt checkpointed mid-prefill that resumes partially.
+        # The host KV tier over the paged loop with the three above:
+        # conversations whose pins are demoted and come back, preempted
+        # streams swapped out and prefetched back, and a long prompt
+        # checkpointed mid-prefill that resumes partially.
         phase = "serve llama tier"
-        tiered = phase_serve_tier(phase, {**llama_overrides, **stream, **tier_llama(rehearsal)},
-                                  params, ref_model, rehearsal, card_line)
+        tiered = phase_serve_tier(phase, {**cut_overrides, **stream, **tier_llama(rehearsal)},
+                                  cparams, cref, rehearsal, card_line)
         k2_streams += tiered[1].get("decode_attention", 0)
         k3_streams += tiered[1].get("paged_decode_attention", 0)
         phase = "graphs llama tier"
@@ -5917,15 +6513,23 @@ def main(argv: list[str]) -> int:
         release(tiered[0])
         # Fused decode windows over the paged loop at full depth (7g) run
         # behind ``--window`` (GPT-2's 8d keeps windows here); speculative
-        # decoding at full depth per stream (8f) takes their time.
+        # decoding per stream (8f) at CUT_LAYERS layers (``--spec`` at full
+        # depth) for the run's time.
         phase = "serve spec llama"
-        spec_k2 = spec_llama(params, ref_model, rehearsal, card_line)
-        del ref_model, params, cref, cparams
+        spec_k2 = spec_llama(cparams, cref, rehearsal, card_line, cut)
+        del cref, cparams
         if rehearsal:
             emit("decode step", skipped="cpu rehearsal: no card to profile")
         else:
             phase = "decode step"
             phase_decode_step(llama_svc[1])
+        # Weight int8 (8g) and LoRA adapters (8h) at full depth on the
+        # whole service's weights.
+        phase = "serve quantize"
+        quant_launches = phase_serve_quant(params, lcfg, rehearsal, card_line)
+        phase = "serve llama lora"
+        lora_launches = phase_serve_lora(params, ref_model, lcfg, rehearsal, card_line)
+        del ref_model, params
 
         # GPT-2 small at full width, random weights from seed 0, bf16: whole,
         # then streamed through the loop (paged, then contiguous).
@@ -5947,7 +6551,7 @@ def main(argv: list[str]) -> int:
         gpt2_stream = None
         for phase, extra in (("serve gpt2 stream", {}),
                              ("serve gpt2 stream contiguous", {"PAGED_KV": "0"})):
-            svc = phase_serve_stream(phase, {**gpt2_overrides, "PAGED_KV": "1",
+            svc = phase_serve_stream(phase, {**gpt2_overrides, **grid, "PAGED_KV": "1",
                                              "KV_BLOCK_SIZE": str(PAGE), "MAX_STREAMS": "16",
                                              "MAX_DECODE_LEN": "16" if rehearsal else "64",
                                              **extra},
@@ -6233,7 +6837,8 @@ def main(argv: list[str]) -> int:
         # launches: BERT-base's and T5's encoder (with its bias, beside its
         # own case's numbers), each served path of the run.
         kernel_entry("fused_attention", "mlmicroservicetemplate_tpu/ops/attention.py:400",
-                     launches + t5_k1, headline, tflops=headline["tflops"],
+                     launches + t5_k1 + quant_launches["fused_attention"], headline,
+                     tflops=headline["tflops"],
                      tflops_every_key=headline["tflops_every_key"],
                      t5={**gpt2_entry(t5_headline, t5_k1), "bias": t5_headline["bias"],
                          "bias_path": t5_headline["bias_path"],
@@ -6242,12 +6847,15 @@ def main(argv: list[str]) -> int:
         # launches: llama's and GPT-2's (at R = 1, beside its own case's
         # numbers), each served path of the run.
         kernel_entry("decode_attention", "mlmicroservicetemplate_tpu/ops/attention.py:310",
-                     llama_svc[3] + llama8_launches + k2_streams + gpt2_k2 + spec_k2,
+                     llama_svc[3] + llama8_launches + k2_streams + gpt2_k2 + spec_k2
+                     + quant_launches["decode_attention"] + lora_launches["decode_attention"],
                      decode_headline,
                      gpt2=gpt2_entry(gpt2_decode, gpt2_k2)),
         kernel_entry("paged_decode_attention",
                      "mlmicroservicetemplate_tpu/ops/paged_attention.py:353",
-                     k3_streams + gpt2_k3, paged_headline, gpt2=gpt2_entry(gpt2_paged, gpt2_k3)),
+                     k3_streams + gpt2_k3 + quant_launches["paged_decode_attention"]
+                     + lora_launches["paged_decode_attention"], paged_headline,
+                     gpt2=gpt2_entry(gpt2_paged, gpt2_k3)),
         # launches: the served bert-long path; the 4-shard check (a direct
         # call, no serving path) is counted apart.
         kernel_entry("ring_hop", "mlmicroservicetemplate_tpu/parallel/ring.py:58",

@@ -177,11 +177,13 @@ async def _on_cleanup(app: web.Application) -> None:
 
 
 def _sched_fields(request: web.Request) -> dict:
-    """X-Priority / X-Deadline-Ms headers -> the scheduling fields of the
-    feats dict that the admission controller reads (``priority``,
-    ``deadline_ms``); a malformed header answers 400 with the JAX package's
-    reason.  A request without them takes ``PRIORITY_DEFAULT`` and
-    ``DEADLINE_MS``."""
+    """X-Priority / X-Deadline-Ms / X-Adapter headers -> the scheduling
+    fields of the feats dict that the admission controller and the loop
+    read (``priority``, ``deadline_ms``, ``adapter_id``); a malformed header,
+    an adapter the pool does not know and an adapter on a service without
+    ``ADAPTER_DIR`` answer 400 with the JAX package's reason.  A request
+    without them takes ``PRIORITY_DEFAULT`` and ``DEADLINE_MS``, and the
+    base model."""
     out: dict = {}
     p = request.headers.get("X-Priority")
     if p is not None:
@@ -198,6 +200,18 @@ def _sched_fields(request: web.Request) -> dict:
         if not dv > 0:  # also rejects NaN
             raise web.HTTPBadRequest(reason="X-Deadline-Ms must be > 0")
         out["deadline_ms"] = dv
+    a = request.headers.get("X-Adapter")
+    if a is not None and a.strip():
+        # A LoRA adapter of the pool (ADAPTER_DIR); an empty header opts
+        # out (the reference's opt-out of a tenant's default adapter).
+        a = a.strip()
+        pool = getattr(request.app[K_BATCHER], "adapters", None)
+        if pool is None:
+            raise web.HTTPBadRequest(reason="X-Adapter requires ADAPTER_DIR to be configured")
+        if not pool.known(a):
+            raise web.HTTPBadRequest(
+                reason=f"unknown adapter {a!r} (available: {', '.join(pool.ids()) or 'none'})")
+        out["adapter_id"] = a
     return out
 
 
@@ -836,6 +850,10 @@ async def handle_status(request: web.Request) -> web.Response:
         },
         "compile": app[K_BATCHER].compile_status(),
     }
+    tenancy = getattr(app[K_BATCHER], "tenancy_status", lambda: None)()
+    if tenancy is not None:
+        # The adapter pool's slot residency (ADAPTER_DIR); absent without.
+        body["tenancy"] = tenancy
     cdl = app[K_BATCHER]._cdl
     if cdl is not None:
         # The loop's dispatch shape: the pipelining depth (tuned at warmup

@@ -16,7 +16,11 @@ and an optional untied ``lm_head`` kernel) onto ``T5Model``, and
 ``resnet_params_from_jax`` the JAX ResNet pytree (HWIO conv kernels, BN
 ``scale``/``bias``/``mean``/``var``) onto ``ResNet``, each conv kernel
 permuted to OIHW.  All raise on a missing leaf, an unused leaf or a shape
-that does not fit the config, so a wrong checkpoint never serves.
+that does not fit the config, so a wrong checkpoint never serves.  A leaf
+the JAX package quantized (``QUANTIZE=int8``: ``{"q8", "scale"}``) comes
+across as the port's int8 module entries (``<module>.q8`` and
+``<module>.scale``, both in the port's layout), which the family's
+``build_model`` loads into ``quant``'s int8 modules.
 ``paged_state_from_jax`` carries a JAX paged decode state (numpy leaves)
 into the port's ``PagedState``, so a test can step both from the very same
 pool.
@@ -162,16 +166,24 @@ def _from_jax(pytree, expected, jax_name, family: str, cfg) -> dict[str, torch.T
     for name, ref in expected.items():
         jname, perm = jax_name(name)
         arr = leaves.pop(jname, None)
+        if arr is None and f"{jname}.q8" in leaves:
+            # A leaf the reference quantized ({"q8", "scale"}): both carried
+            # across in the same layout, as the port's int8 module's entries.
+            mod = name.rpartition(".")[0]
+            q8 = _carry(leaves.pop(f"{jname}.q8"), perm, ref, jname, name, cfg)
+            scale = leaves.pop(f"{jname}.scale", None)
+            if scale is None:
+                missing.append(f"{jname}.scale")
+                continue
+            if perm is not None and scale.ndim == len(perm):
+                scale = np.transpose(scale, perm)
+            out[f"{mod}.q8"] = torch.from_numpy(np.array(q8, dtype=np.int8, order="C"))
+            out[f"{mod}.scale"] = torch.from_numpy(np.array(scale, dtype=np.float32, order="C"))
+            continue
         if arr is None:
             missing.append(jname)
             continue
-        if perm is not None and arr.ndim == len(perm):
-            arr = np.transpose(arr, perm)
-        if tuple(arr.shape) != tuple(ref.shape):
-            raise ValueError(
-                f"JAX leaf {jname} has shape {tuple(arr.shape)}; the port's "
-                f"{name} needs {tuple(ref.shape)} for {cfg}"
-            )
+        arr = _carry(arr, perm, ref, jname, name, cfg)
         # an owned, row-major copy
         out[name] = torch.from_numpy(np.array(arr, dtype=np.float32, order="C"))
     if missing:
@@ -181,6 +193,19 @@ def _from_jax(pytree, expected, jax_name, family: str, cfg) -> dict[str, torch.T
             f"JAX {family} params have {len(leaves)} unused leaves: {sorted(leaves)[:8]}"
         )
     return out
+
+
+def _carry(arr: np.ndarray, perm, ref, jname: str, name: str, cfg) -> np.ndarray:
+    """A JAX leaf in the port's layout (``perm`` applied), checked against
+    the shape the port's ``name`` needs."""
+    if perm is not None and arr.ndim == len(perm):
+        arr = np.transpose(arr, perm)
+    if tuple(arr.shape) != tuple(ref.shape):
+        raise ValueError(
+            f"JAX leaf {jname} has shape {tuple(arr.shape)}; the port's "
+            f"{name} needs {tuple(ref.shape)} for {cfg}"
+        )
+    return arr
 
 
 def paged_state_from_jax(state) -> PagedState:

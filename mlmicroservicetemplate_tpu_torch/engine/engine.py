@@ -79,6 +79,13 @@ not ported), the same functions run eagerly; ``graph_modes`` says which.
   reference's message), whose buffers the loop builds and fills; under it
   the paged prefix cache's ``on_evict`` hands an evicted pin and its refs
   to ``_host_demote_pending`` for the loop to demote.
+- LoRA adapters (``ADAPTER_DIR``): the batcher hands the engine its
+  ``AdapterPool`` (``adapters``); the continuous loop's starts pass each
+  row's adapter slot (``start``'s ``rows``) and run through the pool's
+  overlay, in ``start``/``start_prefixed`` graphs of their own (a static
+  rows input written before each replay), warmed with the base ones.  The
+  whole path and the per-stream path stay on the base model, as in the
+  reference.
 """
 
 from __future__ import annotations
@@ -95,7 +102,7 @@ import torch
 from ..models.gpt import clone_state, copy_state, prefix_len
 from ..models.spec import flatten_emitted
 from ..models.registry import KIND_IMAGE, KIND_SEQ2SEQ, KIND_TEXT, ModelBundle, decode_budget
-from ..models.sampling import SampleParams, greedy_params, make_params
+from ..models.sampling import SampleParams, advance, greedy_params, make_params
 from ..runtime import compile_cache
 from ..utils import metrics, tracing
 from .kv_blocks import BlockPool, KVHostTier, PagedPrefix, blocks_for, kv_token_bytes
@@ -294,6 +301,10 @@ class InferenceEngine:
         self.spec_rounds = 0
         self._live_streams = 0
         self._live_streams_lock = threading.Lock()
+        # The LoRA adapter pool (``tenancy/adapters.py``) under ADAPTER_DIR,
+        # set by the batcher: the continuous loop's starts then run through
+        # its overlay (``start``'s ``rows``), in graphs of their own.
+        self.adapters = None
         # Static per-layer prefix K/V of the prefixed starts' graphs, one
         # set per (batch, prefix length), shared by the graphs of that pair;
         # and the prefix grid's warm accounting (``_warm_prefixed``).
@@ -415,15 +426,32 @@ class InferenceEngine:
         return {kind: mode for kind in kinds.get(self.bundle.kind, ())}
 
     def _graph(self, kind: str, shape: tuple, sample: bool | None,
-               make) -> compile_cache.GraphEntry:
+               make, lora: bool = False) -> compile_cache.GraphEntry:
         """This bundle's graph of ``kind`` for a bucket ``shape`` (a
-        generation's: its greedy or ``sample`` variant), captured from
-        ``make()`` on a miss; the caller holds ``_lock``."""
+        generation's: its greedy or ``sample`` variant; ``lora``: the one
+        over the adapter pool's overlay), captured from ``make()`` on a
+        miss; the caller holds ``_lock``."""
         dtype = str(self.bundle.policy.compute_dtype).split(".")[-1]
         quant = "int8" if getattr(self.bundle.cfg, "kv_quant", False) else "none"
         variant = () if sample is None else ("sample" if sample else "greedy",)
-        return self.graphs.get(self.bundle, kind, (*shape, *variant, dtype, quant),
+        adapted = ("lora",) if lora else ()
+        return self.graphs.get(self.bundle, kind, (*shape, *variant, dtype, quant, *adapted),
                                self.placement_key, make)
+
+    # -- LoRA adapters (ADAPTER_DIR) ---------------------------------------
+
+    def _slot_rows(self, rows: list[int], b: int) -> torch.Tensor:
+        """A dispatch's per-row adapter slots on the host, int64 [b]: the
+        given rows, then bucket-padding rows on the zero slot."""
+        out = torch.zeros(b, dtype=torch.long)
+        out[: len(rows)] = torch.tensor(rows, dtype=torch.long)
+        return out
+
+    def _adapter_kw(self, rows_dev: torch.Tensor | None) -> dict:
+        """The ``adapters=`` keyword of the bundle's generation callables:
+        the pool's overlay over the device rows ``rows_dev``, or nothing
+        (the base model) without them."""
+        return {} if rows_dev is None else {"adapters": self.adapters.overlay(rows_dev)}
 
     def _forward_images(self, images: torch.Tensor) -> np.ndarray:
         with self._lock, torch.inference_mode():
@@ -486,7 +514,13 @@ class InferenceEngine:
                 # mask keeps one bad row from failing a shared batch.
                 s = int(s) if s is not None else random.getrandbits(32)
                 seed[i] = np.uint32(s & 0xFFFFFFFF)
-        return make_params(seed, temp, top_k, top_p), sampled
+        params = make_params(seed, temp, top_k, top_p)
+        skips = [int(f.get("rng_skip", 0)) for f in feats]
+        if any(skips):
+            # A recast resume's key chain continues past the steps that drew
+            # the tokens folded into its prompt (``engine/streams.py``).
+            params.rng = advance(params.rng, skips)
+        return params, sampled
 
     def _shards(self, a: np.ndarray) -> list[np.ndarray]:
         """A [B, S] host array as the placement's sequence shards (one
@@ -526,26 +560,32 @@ class InferenceEngine:
             return (lambda: self.bundle.forward(ids, mask)), (ids, mask), self.device
         return (lambda: self.bundle.forward(ids[0], mask[0])), (ids, mask), self.device
 
-    def _make_start(self, shape: tuple, sample: bool):
-        """Static [B, S] ids and mask and per-row ``SampleParams``, and
-        prefill plus the first chunk over them (``sample``: the sampled
-        variant); the outputs are (state, tokens [B, chunk])."""
+    def _make_start(self, shape: tuple, sample: bool, lora: bool = False):
+        """Static [B, S] ids and mask and per-row ``SampleParams`` (with
+        ``lora`` a static [B] of adapter slots too, the pool's overlay over
+        it), and prefill plus the first chunk over them (``sample``: the
+        sampled variant); the outputs are (state, tokens [B, chunk])."""
         ids, mask = (torch.ones(shape, dtype=torch.int32, device=self.device) for _ in range(2))
         sp = greedy_params(shape[0], self.device)
+        rows = torch.zeros(shape[0], dtype=torch.long, device=self.device) if lora else None
+        kw = self._adapter_kw(rows)
 
         def start():
-            state = self.bundle.init_state(ids, mask, self.max_decode_len, sample=sp)
-            return self.bundle.generate_chunk(state, self.chunk_tokens, sample)
+            state = self.bundle.init_state(ids, mask, self.max_decode_len, sample=sp, **kw)
+            return self.bundle.generate_chunk(state, self.chunk_tokens, sample, **kw)
 
-        return start, (ids, mask, sp), self.device
+        return start, (ids, mask, sp) + ((rows,) if lora else ()), self.device
 
-    def _start_graph(self, shape: tuple, sample: bool) -> compile_cache.GraphEntry:
+    def _start_graph(self, shape: tuple, sample: bool,
+                     lora: bool = False) -> compile_cache.GraphEntry:
         """The ``start`` graph of a bucket ``(B, S)``, or the
-        ``start_prefixed`` graph of ``(B, P, S)``."""
+        ``start_prefixed`` graph of ``(B, P, S)`` (``lora``: over the adapter
+        overlay)."""
         if len(shape) == 3:
             return self._graph("start_prefixed", shape, sample,
-                               lambda: self._make_start_prefixed(shape, sample))
-        return self._graph("start", shape, sample, lambda: self._make_start(shape, sample))
+                               lambda: self._make_start_prefixed(shape, sample, lora), lora)
+        return self._graph("start", shape, sample, lambda: self._make_start(shape, sample, lora),
+                           lora)
 
     def _make_gen_chunk(self, shape: tuple, sample: bool):
         """One decode chunk over the state of the bucket's start graph
@@ -562,21 +602,30 @@ class InferenceEngine:
 
         return chunk, state, self.device
 
-    def _start(self, ids: np.ndarray, mask: np.ndarray, sp: SampleParams, sample: bool):
-        """Prefill plus the first decode chunk of a collated batch; returns
+    def _start(self, ids: np.ndarray, mask: np.ndarray, sp: SampleParams, sample: bool,
+               rows: list[int] | None = None):
+        """Prefill plus the first decode chunk of a collated batch (with
+        ``rows``, each row's adapter slot, through the pool's LoRA overlay:
+        the continuous loop's admissions under ADAPTER_DIR); returns
         (state, tokens [B, chunk]).  On the card the state is the bucket's
         static one, valid until the next replay.  The caller holds
         ``_lock`` inside ``torch.inference_mode``."""
+        lora = rows is not None
+        slots = self._slot_rows(rows, ids.shape[0]) if lora else None
         if self.graphs is None:
+            kw = self._adapter_kw(None if slots is None else slots.to(self.device))
             state = self.bundle.init_state(torch.from_numpy(ids).to(self.device),
                                            torch.from_numpy(mask).to(self.device),
-                                           self.max_decode_len, sample=sp.to(self.device))
-            return self.bundle.generate_chunk(state, self.chunk_tokens, sample)
+                                           self.max_decode_len, sample=sp.to(self.device),
+                                           **kw)
+            return self.bundle.generate_chunk(state, self.chunk_tokens, sample, **kw)
         entry = self._graph("start", ids.shape, sample,
-                            lambda: self._make_start(ids.shape, sample))
+                            lambda: self._make_start(ids.shape, sample, lora), lora)
         for dst, host in zip(entry.inputs, (ids, mask)):
             dst.copy_(torch.from_numpy(host), non_blocking=True)
         entry.inputs[2].copy_(sp)
+        if lora:
+            entry.inputs[3].copy_(slots, non_blocking=True)
         entry.replay()
         state, toks = entry.outputs
         state.steps = self.chunk_tokens
@@ -629,25 +678,27 @@ class InferenceEngine:
                                         "v": [entry() for _ in range(c.num_layers)]}
         return self._prefix_inputs[key]
 
-    def _make_start_prefixed(self, shape: tuple, sample: bool):
+    def _make_start_prefixed(self, shape: tuple, sample: bool, lora: bool = False):
         """Static suffix ids and mask ``[B, S]``, per-row ``SampleParams``
-        and prefix K/V ``[B, P, ...]``, and the suffix prefill behind that
-        prefix plus the first chunk over them; the outputs are (state,
-        tokens [B, chunk])."""
+        and prefix K/V ``[B, P, ...]`` (with ``lora`` static adapter slots
+        [B] too), and the suffix prefill behind that prefix plus the first
+        chunk over them; the outputs are (state, tokens [B, chunk])."""
         b, p_len, s = shape
         ids, mask = (torch.ones((b, s), dtype=torch.int32, device=self.device) for _ in range(2))
         sp = greedy_params(b, self.device)
         prefix = self._prefix_input(b, p_len)
+        rows = torch.zeros(b, dtype=torch.long, device=self.device) if lora else None
+        kw = self._adapter_kw(rows)
 
         def start():
             state = self.bundle.init_state(ids, mask, self.max_decode_len, sample=sp,
-                                           prefix_kv=prefix)
-            return self.bundle.generate_chunk(state, self.chunk_tokens, sample)
+                                           prefix_kv=prefix, **kw)
+            return self.bundle.generate_chunk(state, self.chunk_tokens, sample, **kw)
 
-        return start, (ids, mask, sp, prefix), self.device
+        return start, (ids, mask, sp, prefix) + ((rows,) if lora else ()), self.device
 
     def _start_prefixed(self, prefixes: list[dict], ids: np.ndarray, mask: np.ndarray,
-                        sp: SampleParams, sample: bool):
+                        sp: SampleParams, sample: bool, rows: list[int] | None = None):
         """Prefill of a batch of suffixes, row ``r`` behind ``prefixes[r]``
         (one per row, or one for them all: ``[1, P, ...]`` entries), plus
         the first decode chunk; returns (state, tokens [B, chunk]).  On the
@@ -656,22 +707,27 @@ class InferenceEngine:
         ``torch.inference_mode``."""
         b = ids.shape[0]
         p_len = prefix_len(prefixes[0]["k"][0])
+        lora = rows is not None
+        slots = self._slot_rows(rows, b) if lora else None
         if self.graphs is None:
             prefix = prefixes[0] if len(prefixes) == 1 else {
                 name: [_stack([p[name][li] for p in prefixes])
                        for li in range(len(prefixes[0][name]))]
                 for name in ("k", "v")}
+            kw = self._adapter_kw(None if slots is None else slots.to(self.device))
             state = self.bundle.init_state(torch.from_numpy(ids).to(self.device),
                                            torch.from_numpy(mask).to(self.device),
                                            self.max_decode_len, sample=sp.to(self.device),
-                                           prefix_kv=prefix)
-            return self.bundle.generate_chunk(state, self.chunk_tokens, sample)
+                                           prefix_kv=prefix, **kw)
+            return self.bundle.generate_chunk(state, self.chunk_tokens, sample, **kw)
         shape = (b, p_len, ids.shape[1])
-        entry = self._start_graph(shape, sample)
+        entry = self._start_graph(shape, sample, lora)
         for dst, host in zip(entry.inputs, (ids, mask)):
             dst.copy_(torch.from_numpy(host), non_blocking=True)
         entry.inputs[2].copy_(sp)
         _copy_prefixes(entry.inputs[3], prefixes, b)
+        if lora:
+            entry.inputs[4].copy_(slots, non_blocking=True)
         entry.replay()
         state, toks = entry.outputs
         state.steps = self.chunk_tokens
@@ -777,6 +833,8 @@ class InferenceEngine:
                                                  sample)
                             continue
                         self._start_graph(shape, sample)
+                        if self.adapters is not None:
+                            self._start_graph(shape, sample, True)
                         if per_stream:
                             self._graph("gen_chunk", shape, sample,
                                         lambda: self._make_gen_chunk(shape, sample))
@@ -1189,16 +1247,17 @@ class InferenceEngine:
             self.dispatches += 1
             return ss.base.tokens.cpu().numpy(), int(ss.base.pos.max())
 
-    def start(self, feats: list[dict]):
+    def start(self, feats: list[dict], rows: list[int] | None = None):
         """Prefill plus the first decode chunk of a wave of streams,
         collated as one batch at the wave's widest bucket (sampled if any
-        row samples); returns (state, tokens [B, chunk], collated width).
+        row samples; with ``rows``, each stream's adapter slot, through the
+        LoRA overlay); returns (state, tokens [B, chunk], collated width).
         The caller holds ``_lock`` inside ``torch.inference_mode`` until it
         has read the state, which on the card the bucket's next ``start``
         overwrites."""
         ids, mask, _ = self._collate_text(feats)
         sp, sampled = self._collate_sample(feats, ids.shape[0])
-        state, toks = self._start(ids, mask, sp, sampled)
+        state, toks = self._start(ids, mask, sp, sampled, rows)
         return state, toks, ids.shape[1]
 
     def run_batch(self, feats: list[dict]) -> list[np.ndarray]:
@@ -1267,6 +1326,10 @@ class InferenceEngine:
                                 continue
                             self._graph("start", ids.shape, sample,
                                         lambda: self._make_start(ids.shape, sample))
+                            if self.adapters is not None:
+                                # The continuous loop's admissions start
+                                # through the adapter overlay.
+                                self._start_graph(ids.shape, sample, True)
                             if self.max_decode_len > self.chunk_tokens:
                                 self._graph("gen_chunk", ids.shape, sample,
                                             lambda: self._make_gen_chunk(ids.shape, sample))

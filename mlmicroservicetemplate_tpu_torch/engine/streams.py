@@ -228,6 +228,17 @@ trimmed to each stream's budget.  A wave still starts through the normal
 through the family's ``init_spec`` and writes the slot's history row
 ``_hist_row`` built on the host from the prompt and that first chunk.
 
+LoRA adapters (``ADAPTER_DIR``, as in the reference): a stream with an
+``adapter_id`` takes a reference on its pool slot at submit (a pool whose
+every slot serves a live stream sheds it, 503 ``adapter_pool``) and drops
+it at its release, a checkpoint keeping it.  Every dispatch of the loop
+then runs through the pool's overlay: a wave's start with each stream's
+slot (the engine's ``lora`` start graphs), each chunk and window over
+``_ad_rows`` (the slot holders' adapter slots, 0 for a free slot), each
+prefill window over ``_ad_job_rows``.  Both are device buffers allocated
+with the slot state, before its graphs are captured, and written by
+device fills before a dispatch when a slot's adapter changed.
+
 Not ported (``ROADMAP.md``): the disk KV tier, fleets, the journal and the
 supervisor (the reference's ``prefill_chunk`` fault site with them).
 """
@@ -261,6 +272,7 @@ from ..scheduler.policy import (
     PrefillPacer,
     QueueFullError,
 )
+from ..tenancy.adapters import AdapterBusy
 from ..utils import metrics, tracing
 from .engine import bucket_for
 from .kv_blocks import OutOfBlocks, PagedPrefix, StreamBlocks, blocks_for
@@ -283,7 +295,7 @@ class _Stream:
     __slots__ = ("feats", "chunks", "loop", "cancelled", "produced", "released", "budget",
                  "klass", "deadline", "started", "kv", "kv_held", "skip", "tokens",
                  "preempted", "_removed", "blocks", "s_base", "s_lo", "rid", "t_emit", "t_in",
-                 "t_queued", "swap")
+                 "t_queued", "swap", "adapter_slot", "parted")
 
     # The admission ledger's marker: paged streams are accounted by the pool.
     is_stream = True
@@ -316,6 +328,10 @@ class _Stream:
         self.tokens: list[int] = []
         self.skip = 0
         self.preempted = 0
+        # A replay whose regenerated tokens parted from those delivered
+        # (bf16 draws of another batch shape at a near tie): it resumes
+        # from the delivered tokens instead (``_recast_parted``).
+        self.parted = False
         # Paged KV: the stream's blocks (a prefix hit's adopted ones first),
         # where its prefill's rows end (prefix and collated width) and the
         # prefix length below which it writes nothing.
@@ -325,6 +341,9 @@ class _Stream:
         # The host tier's copy of its resume KV (a ``SwapEntry``) while it
         # waits, checkpointed, or is prefetched back.
         self.swap = None
+        # The LoRA pool slot it holds a reference on (0: the base model),
+        # from submit to its release; a checkpoint keeps it.
+        self.adapter_slot = 0
         self.rid = str(feats.get("request_id") or "")
         self.t_emit = 0.0
 
@@ -609,6 +628,9 @@ class ContinuousDecodeLoop:
         self.kv_growth_stalls = 0
         self.recasts = 0
         self.replays = 0
+        # Replays whose regenerated tokens parted from those delivered
+        # (each then resumed as a recast, ``_recast_parted``).
+        self.replays_parted = 0
         # The prefix cache's admissions (see the module docstring).
         self.prefix_hit_waves = 0
         self.recast_hits = 0
@@ -630,6 +652,15 @@ class ContinuousDecodeLoop:
         self.prefetch_blocks_total = 0
         self.prefetch_blocks_live = 0
         self.host_prefix_promotes = 0
+        # The LoRA adapter pool (ADAPTER_DIR; the batcher sets it): every
+        # dispatch of this loop then runs through its overlay, over the
+        # per-slot adapter slots in ``_ad_rows`` (a prefill window's in
+        # ``_ad_job_rows``): device buffers allocated with the slot state,
+        # before its graphs are captured, and written before each dispatch.
+        self.adapters = None
+        self._ad_rows: torch.Tensor | None = None
+        self._ad_job_rows: torch.Tensor | None = None
+        self._ad_rows_now: list[int] = []
 
     # ------------------------------------------------------------------
     # event-loop side
@@ -679,6 +710,18 @@ class ContinuousDecodeLoop:
                 metrics.SHED.labels(self.model, "queue_full").inc()
                 self._finish(victim, QueueFullError("shed for higher-priority stream",
                                                     retry_after_s=self._retry_after_s()))
+            if self.adapters is not None and feats.get("adapter_id"):
+                # The stream's LoRA slot, pinned for its lifetime: after the
+                # capacity checks (a shed must not churn the pool); a pool
+                # whose every slot serves a live stream sheds it.
+                try:
+                    st.adapter_slot = self.adapters.acquire(str(feats["adapter_id"]))
+                except AdapterBusy as e:
+                    with self._admitted_lock:
+                        self._admitted -= 1
+                    metrics.SHED.labels(self.model, "adapter_pool").inc()
+                    raise QueueFullError(str(e), reason="adapter_pool",
+                                         retry_after_s=e.retry_after_s) from e
             st.t_queued = time.monotonic()
             self.queue.put(st, force=True)  # the bound is enforced above
         self._ensure_thread()
@@ -835,6 +878,7 @@ class ContinuousDecodeLoop:
                 # rows that ended free their blocks before this iteration's
                 # growth pass and open slots for the wave below.
                 self._deliver_ready()
+                self._recast_parted()
                 if (not self.active and not self._inflight and not self._prefilling
                         and not self._swapping and self.queue.qsize() == 0):
                     st = self.queue.pop(timeout=0.05, fits=self.admission.fits)
@@ -993,6 +1037,11 @@ class ContinuousDecodeLoop:
             st.released = True
             self._drop_swap(st)  # nothing resumes it now
             self.admission.release(st)
+            if st.adapter_slot and self.adapters is not None:
+                # The LoRA pool's reference, dropped once, at the stream's
+                # end (a preempted stream kept it across its checkpoint).
+                self.adapters.release(st.adapter_slot)
+                st.adapter_slot = 0
             dt = time.monotonic() - st.t_in
             with self._admitted_lock:
                 self._admitted -= 1
@@ -1055,6 +1104,12 @@ class ContinuousDecodeLoop:
             # the batch class just preempted.
             self.queue.prefer_interactive()
 
+    def _recast_parted(self) -> None:
+        """Take every live replay that parted from its delivered tokens out
+        of its slot; its checkpoint resumes from those tokens."""
+        for slot, st in [(slot, st) for slot, st in self.active.items() if st.parted]:
+            self._vacate(slot, st)
+
     def _vacate(self, slot: int, st: _Stream) -> None:
         """Take a live stream out of its slot, checkpoint it and queue it
         again.  Its row in a chunk still in flight is never routed (struck
@@ -1083,7 +1138,8 @@ class ContinuousDecodeLoop:
         continue prompt + delivered, so those become its prompt (when they
         fit the largest seq bucket).  Replay: everything else runs its whole
         generation again and suppresses the first ``skip`` tokens."""
-        remaining = st.budget - st.produced
+        parted, st.parted = st.parted, False
+        remaining = st.budget - (len(st.tokens) if parted else st.produced)
         if remaining <= 0 or st.cancelled.is_set():
             return False
         st.started = True
@@ -1091,8 +1147,28 @@ class ContinuousDecodeLoop:
         greedy = float(st.feats.get("temperature", 0.0)) == 0.0
         ids = np.asarray(st.feats["input_ids"], np.int32)[: int(st.feats["length"])]
         new_len = int(ids.size) + len(st.tokens)
-        if (greedy and self.engine.bundle.supports_prefix and st.skip == 0
-                and new_len <= self.max_prompt):
+        fits = self.engine.bundle.supports_prefix and new_len <= self.max_prompt
+        if parted:
+            # A parted replay resumes as a recast whatever it samples: the
+            # delivered tokens join its prompt and its key chain moves past
+            # the steps that drew them, so it draws what it would have.  Its
+            # KV past the parting is the regenerated history's, so nothing
+            # is swapped out.  One that cannot (T5, a prompt past the
+            # largest bucket) ends with the tokens it delivered.
+            if not fits:
+                return False
+            st.feats = dict(st.feats, input_ids=np.concatenate(
+                [ids, np.asarray(st.tokens, np.int32)]), length=np.int32(new_len),
+                rng_skip=int(st.feats.get("rng_skip", 0)) + len(st.tokens))
+            st.budget, st.tokens, st.skip, st.produced = remaining, [], 0, 0
+            self.recasts += 1
+            self._drop_swap(st)
+            if st.blocks is not None:
+                st.blocks.release()
+            st.blocks = None
+            st.s_base = st.s_lo = 0
+            return True
+        if greedy and fits and st.skip == 0:
             st.feats = dict(st.feats, input_ids=np.concatenate(
                 [ids, np.asarray(st.tokens, np.int32)]), length=np.int32(new_len))
             st.budget = remaining
@@ -1130,8 +1206,17 @@ class ContinuousDecodeLoop:
         delivered, never pass its budget, and record them for a later
         checkpoint."""
         arr = np.asarray(chunk)
+        if st.parted:
+            return
         if st.skip:
             k = min(st.skip, int(arr.size))
+            at = len(st.tokens) - st.skip
+            if arr[:k].tolist() != st.tokens[at:at + k]:
+                # The replay drew other tokens than it delivered: what it
+                # generates now follows a history the consumer never saw.
+                st.parted = True
+                self.replays_parted += 1
+                return
             st.skip -= k
             arr = arr[k:]
         arr = arr[: max(0, st.budget - len(st.tokens))]
@@ -1188,7 +1273,8 @@ class ContinuousDecodeLoop:
         batch; returns their admissions (a failed start ends them)."""
         try:
             t0 = time.perf_counter()
-            state1, toks, width = self.engine.start([st.feats for st in streams])
+            state1, toks, width = self.engine.start([st.feats for st in streams],
+                                                    self._wave_rows(streams))
             host_s = time.perf_counter() - t0
             copy = _HostCopy(toks, state1.done)
         except Exception as e:
@@ -1264,7 +1350,8 @@ class ContinuousDecodeLoop:
             prefixes += [prefixes[0]] * (ids.shape[0] - len(prefixes) if len(prefixes) > 1
                                          else 0)
             t0 = time.perf_counter()
-            state1, toks = eng._start_prefixed(prefixes, ids, mask, sp, sampled)
+            state1, toks = eng._start_prefixed(prefixes, ids, mask, sp, sampled,
+                                               self._wave_rows([m[0] for m in members]))
             host_s = time.perf_counter() - t0
             copy = _HostCopy(toks, state1.done)
         except Exception as e:
@@ -1491,14 +1578,17 @@ class ContinuousDecodeLoop:
         back (contiguous) or its table row into the static row (paged)."""
         eng = self.engine
         dev = eng.device
+        if self._ad_job_rows is not None:
+            self._ad_job_rows.fill_(job.st.adapter_slot)
         if eng.graphs is None:
             args = (torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev),
                     torch.tensor(start, device=dev))
+            kw = self.engine._adapter_kw(self._ad_job_rows)
             if self.paged:
                 eng.bundle.paged_prefill_chunk(self._state, torch.from_numpy(job.table_row).to(dev),
-                                               *args)
+                                               *args, **kw)
             else:
-                eng.bundle.prefill_chunk(job.state, *args)
+                eng.bundle.prefill_chunk(job.state, *args, **kw)
             return
         entry = self.window_graph()
         s_ids, s_mask, s_start, target = entry.inputs
@@ -1538,18 +1628,19 @@ class ContinuousDecodeLoop:
         ids = torch.zeros((1, c), dtype=torch.int32, device=dev)
         mask = torch.zeros((1, c), dtype=torch.int32, device=dev)
         start = torch.zeros((), dtype=torch.long, device=dev)
+        kw = self.engine._adapter_kw(self._ad_job_rows)
         if self.paged:
             state = self._state
             target = torch.full((self.nb_max,), self.pool.num_blocks, dtype=torch.int32,
                                 device=dev)
 
             def window():
-                eng.bundle.paged_prefill_chunk(state, target, ids, mask, start)
+                eng.bundle.paged_prefill_chunk(state, target, ids, mask, start, **kw)
         else:
             target = eng.bundle.empty_state(1, self.max_prompt, eng.max_decode_len)
 
             def window():
-                eng.bundle.prefill_chunk(target, ids, mask, start)
+                eng.bundle.prefill_chunk(target, ids, mask, start, **kw)
         return window, (ids, mask, start, target), dev
 
     def _handoff_job(self, job: _PrefillJob) -> bool:
@@ -1708,6 +1799,7 @@ class ContinuousDecodeLoop:
         dtype = eng.bundle.policy.compute_dtype
         n = self.n_slots
         st = self._state
+        self._alloc_adapter_rows()
         if self.paged and self.prefix_cache is not None:
             # The pins name blocks of the pools being cleared.
             self._flush_pins()
@@ -1810,6 +1902,39 @@ class ContinuousDecodeLoop:
         recast = self.engine.bundle.init_spec(single, *_dummy_prompt(single)).base
         self._insert_into(self._state.base, recast, slot, row)
         self._state.history[slot].copy_(torch.from_numpy(hist_row))
+
+    # -- LoRA adapters (ADAPTER_DIR) ----------------------------------------
+
+    def _wave_rows(self, streams) -> list[int] | None:
+        """Each stream's adapter slot for a start through the overlay, or
+        None without a pool (the base start)."""
+        if self.adapters is None:
+            return None
+        return [st.adapter_slot for st in streams]
+
+    def _alloc_adapter_rows(self) -> None:
+        """The per-slot and the window's adapter-slot buffers, once, outside
+        any graph pool (a capture reads their addresses)."""
+        if self.adapters is not None and self._ad_rows is None:
+            dev = self.engine.device
+            self._ad_rows = torch.zeros(self.n_slots, dtype=torch.long, device=dev)
+            self._ad_job_rows = torch.zeros(1, dtype=torch.long, device=dev)
+            self._ad_rows_now = [0] * self.n_slots
+
+    def _write_slot_rows(self) -> None:
+        """Each slot's adapter slot into ``_ad_rows`` before a dispatch (the
+        caller holds the engine's lock): its live stream's, 0 for a free
+        slot, as the reference's ``_slot_rows``.  Only changed slots are
+        written, each by a device fill queued behind the dispatches in
+        flight, so no host copy waits on them."""
+        if self._ad_rows is None:
+            return
+        for slot in range(self.n_slots):
+            st = self.active.get(slot)
+            v = st.adapter_slot if st is not None else 0
+            if v != self._ad_rows_now[slot]:
+                self._ad_rows[slot].fill_(v)
+                self._ad_rows_now[slot] = v
 
     def _slot_width(self) -> int:
         """A contiguous slot's positions: a global PROMPT_PREFIX's, the
@@ -2451,6 +2576,8 @@ class ContinuousDecodeLoop:
         bundle = eng.bundle
         if self.paged and upload:
             self._upload_table()
+        self._write_slot_rows()
+        kw = self.engine._adapter_kw(self._ad_rows)
         if eng.graphs is not None:
             entry = self.chunk_graph(sample)
 
@@ -2462,10 +2589,10 @@ class ContinuousDecodeLoop:
                 return state, bundle.spec_chunk(state, self.chunk, eng.spec_k, sample)[1:]
         elif self.paged:
             def step(state):
-                return bundle.paged_chunk(state, self._table_dev, self.chunk, sample)
+                return bundle.paged_chunk(state, self._table_dev, self.chunk, sample, **kw)
         else:
             def step(state):
-                return bundle.generate_chunk(state, self.chunk, sample)
+                return bundle.generate_chunk(state, self.chunk, sample, **kw)
         if w == 1:
             return step(self._state)
         chunk_fn = step
@@ -2533,15 +2660,16 @@ class ContinuousDecodeLoop:
             raise RuntimeError(f"{self.model}: the loop chunk's capture would advance "
                                f"{len(self.active)} live streams")
         eng, state, table = self.engine, self._state, self._table_dev
+        kw = self.engine._adapter_kw(self._ad_rows)
         if self.paged:
             def chunk():
-                return eng.bundle.paged_chunk(state, table, self.chunk, sample)[1]
+                return eng.bundle.paged_chunk(state, table, self.chunk, sample, **kw)[1]
         elif self.spec:
             def chunk():
                 return eng.bundle.spec_chunk(state, self.chunk, eng.spec_k, sample)[1:]
         else:
             def chunk():
-                return eng.bundle.generate_chunk(state, self.chunk, sample)[1]
+                return eng.bundle.generate_chunk(state, self.chunk, sample, **kw)[1]
         return chunk, (state, table), eng.device
 
     # -- staged host prep (HOST_PREP_DOUBLE) -----------------------------

@@ -19,6 +19,7 @@ from torch import nn
 from ..ops.attention import fused_attention
 from ..parallel.ring import Hop, ring_attention, ring_hop
 from .common import dense, embed, gelu, layernorm, merge_heads, mha_attention, split_heads
+from .quant import load_weights
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,11 +124,11 @@ class BertModel(nn.Module):
         offset + S - 1."""
         s = input_ids.shape[1]
         e = self.embeddings
-        x = embed(e.word.weight, input_ids, dtype)
+        x = embed(e.word, input_ids, dtype)
         pos = torch.arange(offset, offset + s, device=input_ids.device)
-        x = x + embed(e.position.weight, pos, dtype)[None]
+        x = x + embed(e.position, pos, dtype)[None]
         tt = token_type_ids if token_type_ids is not None else torch.zeros_like(input_ids)
-        x = x + embed(e.token_type.weight, tt, dtype)
+        x = x + embed(e.token_type, tt, dtype)
         return e.ln(x)
 
     def head(self, cls: torch.Tensor) -> torch.Tensor:
@@ -220,11 +221,10 @@ def init_params(cfg: BertConfig, generator: torch.Generator) -> dict[str, torch.
 
 
 def build_model(cfg: BertConfig, state: dict[str, torch.Tensor], device: torch.device,
-                dtype: torch.dtype) -> BertModel:
+                dtype: torch.dtype, quantize: bool = False) -> BertModel:
     """A ``BertModel`` holding ``state`` (strictly: every key, no extras)
-    in ``dtype`` on ``device``, in eval mode."""
+    in ``dtype`` on ``device``, in eval mode;
+    with ``quantize`` its eligible weights int8 (``quant.load_weights``)."""
     with torch.device("meta"):
         model = BertModel(cfg)
-    state = {k: v.to(device=device, dtype=dtype) for k, v in state.items()}
-    model.load_state_dict(state, strict=True, assign=True)
-    return model.eval()
+    return load_weights(model, state, device, dtype, quantize)

@@ -18,6 +18,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 
 def dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
@@ -81,10 +82,19 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Te
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
-def lm_head_logits(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    """f32 logits ``x @ weight.T`` for a dense head stored ``[V, D]``
-    (the JAX ``lm_head_logits`` with an unquantized ``[D, V]`` kernel)."""
-    return F.linear(x.float(), weight.float())
+def lm_head_logits(x: torch.Tensor, head) -> torch.Tensor:
+    """f32 logits ``x @ W.T`` for a head ``W`` stored ``[V, D]``: a tensor,
+    the ``nn.Linear`` or ``nn.Embedding`` (a tied head) that holds it, or
+    their int8 counterpart, whose per-row scale factors out of the product
+    exactly, ``(x @ q8.T) * scale``, so the table is never dequantized whole
+    (the JAX ``lm_head_logits``; its ``[D, V]`` kernel's per-column scale is
+    this per-row one)."""
+    from .quant import Int8Embedding, Int8Linear
+
+    if isinstance(head, (Int8Linear, Int8Embedding)):
+        return F.linear(x.float(), head.q8.float()) * head.scale[:, 0]
+    w = head.weight if isinstance(head, nn.Module) else head
+    return F.linear(x.float(), w.float())
 
 
 def kv_quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -109,8 +119,16 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="none")
 
 
-def embed(table: torch.Tensor, ids: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    return F.embedding(ids, table).to(dtype)
+def embed(table, ids: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Rows ``ids`` of a table in ``dtype``: a tensor, the ``nn.Embedding``
+    that holds it, or an ``Int8Embedding`` (rows and their scales gathered,
+    then dequantized)."""
+    from .quant import Int8Embedding
+
+    if isinstance(table, Int8Embedding):
+        return table.lookup(ids, dtype)
+    w = table.weight if isinstance(table, nn.Module) else table
+    return F.embedding(ids, w).to(dtype)
 
 
 def split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:

@@ -54,6 +54,8 @@ from ..ops.attention import decode_attention
 from ..ops.paged_attention import gather_pages, paged_decode_attention
 from .bert import LayerNorm, Linear
 from .common import embed, kv_quantize, lm_head_logits, merge_heads, mha_attention, split_heads
+from . import lora
+from .quant import load_weights
 from .sampling import SampleParams, greedy_params, select_token
 
 
@@ -425,14 +427,19 @@ class Block(nn.Module):
         self.mlp = Mlp(cfg)
         self.num_heads = cfg.num_heads
 
-    def qkv(self, x: torch.Tensor):
-        """q, k, v [B, S, H, D] of the pre-LN input."""
-        q, k, v = self.attn.qkv(self.ln1(x)).chunk(3, dim=-1)
+    def qkv(self, x: torch.Tensor, ad=None, li: int = 0):
+        """q, k, v [B, S, H, D] of the pre-LN input (the fused projection
+        with its per-row LoRA delta under an adapter overlay ``ad``, at
+        layer ``li``; ``models/lora.py``)."""
+        h = self.ln1(x)
+        q, k, v = lora.apply(ad, "qkv", li, h, self.attn.qkv(h)).chunk(3, dim=-1)
         return tuple(split_heads(t, self.num_heads) for t in (q, k, v))
 
-    def finish(self, x: torch.Tensor, ctx: torch.Tensor) -> torch.Tensor:
-        """Attention output projection and the MLP, both residual."""
-        x = x + self.attn.out(merge_heads(ctx))
+    def finish(self, x: torch.Tensor, ctx: torch.Tensor, ad=None, li: int = 0) -> torch.Tensor:
+        """Attention output projection (with its LoRA delta under ``ad``)
+        and the MLP, both residual."""
+        c = merge_heads(ctx)
+        x = x + lora.apply(ad, "out", li, c, self.attn.out(c))
         m = self.mlp
         return x + m.down(gelu_new(m.up(self.ln2(x))))
 
@@ -459,19 +466,20 @@ def forward_hidden(model: GPTModel, input_ids: torch.Tensor, attention_mask: tor
     s = input_ids.shape[1]
     dev = input_ids.device
     p_len = 0 if prefix_kv is None else prefix_len(prefix_kv[0][0])
-    x = embed(model.wte.weight, input_ids, dtype)
-    x = x + embed(model.wpe.weight, torch.arange(p_len, p_len + s, device=dev), dtype)[None]
+    x = embed(model.wte, input_ids, dtype)
+    x = x + embed(model.wpe, torch.arange(p_len, p_len + s, device=dev), dtype)[None]
     causal = torch.ones(s, s, dtype=torch.bool, device=dev).tril()
     mask = prefix_mask(causal[None, None] & (attention_mask[:, None, None, :] != 0), p_len)
     kv = []
+    ad = lora.adapter_tables(model)
     for li, layer in enumerate(model.layers):
-        q, k, v = layer.qkv(x)
+        q, k, v = layer.qkv(x, ad, li)
         if collect_kv:
             kv.append((k, v))
         if p_len:
             pk, pv = prefix_kv[li]
             k, v = with_prefix(k, pk), with_prefix(v, pv)
-        x = layer.finish(x, mha_attention(q, k, v, mask=mask))
+        x = layer.finish(x, mha_attention(q, k, v, mask=mask), ad, li)
     x = model.final_ln(x)
     return (x, kv) if collect_kv else x
 
@@ -479,7 +487,7 @@ def forward_hidden(model: GPTModel, input_ids: torch.Tensor, attention_mask: tor
 def compute_prefix_kv(model: GPTModel, prefix_ids, dtype: torch.dtype = torch.float32) -> dict:
     """Each layer's K/V ``[1, P, H, D]`` of a shared prompt prefix (``P``
     ids): ``{"k": [...], "v": [...]}``, computed once at startup."""
-    dev = model.wte.weight.device
+    dev = model.final_ln.weight.device
     ids = torch.as_tensor(np.asarray(prefix_ids, np.int32), device=dev).reshape(1, -1)
     _, kv = forward_hidden(model, ids, torch.ones_like(ids), dtype, collect_kv=True)
     return {"k": [k for k, _ in kv], "v": [v for _, v in kv]}
@@ -487,7 +495,7 @@ def compute_prefix_kv(model: GPTModel, prefix_ids, dtype: torch.dtype = torch.fl
 
 def logits_of(model: GPTModel, x: torch.Tensor) -> torch.Tensor:
     """The tied head: f32 logits of hidden states."""
-    return lm_head_logits(x, model.wte.weight)
+    return lm_head_logits(x, model.wte)
 
 
 def lm_logits(model: GPTModel, input_ids, attention_mask,
@@ -541,15 +549,17 @@ def _step(model: GPTModel, state, write_kv_fn, attend, sample: bool):
     rows = torch.arange(b, device=state.last_token.device)
     t = state.write_idx
     at = write_at(state, t, state.key_valid.shape[1])
-    x = embed(model.wte.weight, state.last_token[:, None], dtype)  # [B, 1, D]
-    x = x + embed(model.wpe.weight, t.clamp(max=cfg.max_position - 1), dtype)[:, None]
+    x = embed(model.wte, state.last_token[:, None], dtype)  # [B, 1, D]
+    x = x + embed(model.wpe, t.clamp(max=cfg.max_position - 1), dtype)[:, None]
     # A device tensor, not a Python 1: a scalar would be copied from the host.
     state.key_valid[rows, at] = torch.ones_like(at, dtype=state.key_valid.dtype)
+    ad = lora.adapter_tables(model)
     for li, layer in enumerate(model.layers):
-        q, k1, v1 = layer.qkv(x)
+        q, k1, v1 = layer.qkv(x, ad, li)
         write_kv_fn(state.cache_k[li], at, k1[:, 0])
         write_kv_fn(state.cache_v[li], at, v1[:, 0])
-        x = layer.finish(x, attend(q, state.cache_k[li], state.cache_v[li], state.key_valid))
+        ctx = attend(q, state.cache_k[li], state.cache_v[li], state.key_valid)
+        x = layer.finish(x, ctx, ad, li)
     x = model.final_ln(x)
     state.write_idx.add_(1)
     return finish_step(state, cfg, logits_of(model, x[:, 0]), sample)
@@ -656,7 +666,7 @@ def empty_state(cfg, batch: int, s_total: int, max_len: int, dtype: torch.dtype,
 def empty_decode_state(model: GPTModel, batch: int, s_total: int, max_len: int,
                        dtype: torch.dtype = torch.float32) -> GPTState:
     """``empty_state`` on the model's device."""
-    return empty_state(model.cfg, batch, s_total, max_len, dtype, model.wte.weight.device)
+    return empty_state(model.cfg, batch, s_total, max_len, dtype, model.final_ln.weight.device)
 
 
 def window_positions(start: torch.Tensor, c: int) -> torch.Tensor:
@@ -724,14 +734,16 @@ def prefill_chunk(model: GPTModel, state: GPTState, chunk_ids: torch.Tensor,
     dtype = cache_dtype(state)
     c = chunk_ids.shape[1]
     pos_w = window_positions(start, c)
-    x = embed(model.wte.weight, chunk_ids, dtype)
-    x = x + embed(model.wpe.weight, pos_w.clamp(max=cfg.max_position - 1), dtype)[None]
+    x = embed(model.wte, chunk_ids, dtype)
+    x = x + embed(model.wpe, pos_w.clamp(max=cfg.max_position - 1), dtype)[None]
     mask = window_mask(state.key_valid != 0, chunk_mask, start)
+    ad = lora.adapter_tables(model)
     for li, layer in enumerate(model.layers):
-        q, k1, v1 = layer.qkv(x)
+        q, k1, v1 = layer.qkv(x, ad, li)
         window_write_kv(state.cache_k[li], k1, start, dtype)
         window_write_kv(state.cache_v[li], v1, start, dtype)
-        x = layer.finish(x, mha_attention(q, state.cache_k[li], state.cache_v[li], mask=mask))
+        ctx = mha_attention(q, state.cache_k[li], state.cache_v[li], mask=mask)
+        x = layer.finish(x, ctx, ad, li)
     window_write(state.key_valid, chunk_mask.to(state.key_valid.dtype), start)
     return state
 
@@ -780,16 +792,17 @@ def paged_prefill_chunk(model: GPTModel, state: PagedState, table_row: torch.Ten
     dtype = cache_dtype(state)
     c = chunk_ids.shape[1]
     pos_w = window_positions(start, c)
-    x = embed(model.wte.weight, chunk_ids, dtype)
-    x = x + embed(model.wpe.weight, pos_w.clamp(max=cfg.max_position - 1), dtype)[None]
+    x = embed(model.wte, chunk_ids, dtype)
+    x = x + embed(model.wpe, pos_w.clamp(max=cfg.max_position - 1), dtype)[None]
     mask = window_mask(paged_window_base(table_row, block_size, start), chunk_mask, start)
     dest = window_dest(table_row, start, c, block_size, state.num_blocks)
+    ad = lora.adapter_tables(model)
     for li, layer in enumerate(model.layers):
-        q, k1, v1 = layer.qkv(x)
+        q, k1, v1 = layer.qkv(x, ad, li)
         paged_write_kv(state.cache_k[li], dest, k1[0], dtype)
         paged_write_kv(state.cache_v[li], dest, v1[0], dtype)
         kd, vd = paged_window_kv(state.cache_k[li], state.cache_v[li], table_row, block_size)
-        x = layer.finish(x, mha_attention(q, kd, vd, mask=mask))
+        x = layer.finish(x, mha_attention(q, kd, vd, mask=mask), ad, li)
     return state
 
 
@@ -853,14 +866,16 @@ def multi_step(model: GPTModel, state: GPTState, tokens: torch.Tensor) -> torch.
     dtype = cache_dtype(state)
     t = state.write_idx
     pos_w = span_positions(t, tokens.shape[1])
-    x = embed(model.wte.weight, tokens, dtype)
-    x = x + embed(model.wpe.weight, pos_w.clamp(max=cfg.max_position - 1), dtype)
+    x = embed(model.wte, tokens, dtype)
+    x = x + embed(model.wpe, pos_w.clamp(max=cfg.max_position - 1), dtype)
     mask = span_mask(state.key_valid != 0, t, tokens.shape[1])
+    ad = lora.adapter_tables(model)
     for li, layer in enumerate(model.layers):
-        q, k1, v1 = layer.qkv(x)
+        q, k1, v1 = layer.qkv(x, ad, li)
         span_write_kv(state.cache_k[li], k1, t, dtype)
         span_write_kv(state.cache_v[li], v1, t, dtype)
-        x = layer.finish(x, mha_attention(q, state.cache_k[li], state.cache_v[li], mask=mask))
+        ctx = mha_attention(q, state.cache_k[li], state.cache_v[li], mask=mask)
+        x = layer.finish(x, ctx, ad, li)
     return logits_of(model, model.final_ln(x))
 
 
@@ -889,11 +904,10 @@ def init_params(cfg: GPTConfig, generator: torch.Generator) -> dict[str, torch.T
 
 
 def build_model(cfg: GPTConfig, state: dict[str, torch.Tensor], device: torch.device,
-                dtype: torch.dtype) -> GPTModel:
+                dtype: torch.dtype, quantize: bool = False) -> GPTModel:
     """A ``GPTModel`` holding ``state`` (every key, no extras) in ``dtype``
-    on ``device``, in eval mode."""
+    on ``device``, in eval mode;
+    with ``quantize`` its eligible weights int8 (``quant.load_weights``)."""
     with torch.device("meta"):
         model = GPTModel(cfg)
-    state = {k: v.to(device=device, dtype=dtype) for k, v in state.items()}
-    model.load_state_dict(state, strict=True, assign=True)
-    return model.eval()
+    return load_weights(model, state, device, dtype, quantize)

@@ -90,6 +90,8 @@ from .gpt import (
     with_prefix,
     write_at,
 )
+from . import lora
+from .quant import load_weights
 from .sampling import SampleParams
 
 
@@ -167,17 +169,22 @@ class Layer(nn.Module):
         self.mlp_ln = RMSNorm(cfg.d_model, cfg.rms_eps)
         self.mlp = Mlp(cfg)
 
-    def qkv(self, cfg: LlamaConfig, x, cos, sin):
-        """Rotated q [B, S, H, D], rotated k and v [B, S, KVH, D]."""
+    def qkv(self, cfg: LlamaConfig, x, cos, sin, ad=None, li: int = 0):
+        """Rotated q [B, S, H, D], rotated k and v [B, S, KVH, D] (each
+        projection with its per-row LoRA delta under an adapter overlay
+        ``ad``, at layer ``li``; ``models/lora.py``)."""
         h = self.attn_ln(x)
         a = self.attn
-        q = apply_rope(split_heads(a.q(h), cfg.num_heads), cos, sin)
-        k = apply_rope(split_heads(a.k(h), cfg.num_kv_heads), cos, sin)
-        return q, k, split_heads(a.v(h), cfg.num_kv_heads)
+        q, k, v = (lora.apply(ad, name, li, h, getattr(a, name)(h)) for name in "qkv")
+        q = apply_rope(split_heads(q, cfg.num_heads), cos, sin)
+        k = apply_rope(split_heads(k, cfg.num_kv_heads), cos, sin)
+        return q, k, split_heads(v, cfg.num_kv_heads)
 
-    def finish(self, x: torch.Tensor, ctx: torch.Tensor) -> torch.Tensor:
-        """Attention output projection and the MLP, both residual."""
-        x = x + self.attn.o(merge_heads(ctx))
+    def finish(self, x: torch.Tensor, ctx: torch.Tensor, ad=None, li: int = 0) -> torch.Tensor:
+        """Attention output projection (with its LoRA delta under ``ad``)
+        and the MLP, both residual."""
+        c = merge_heads(ctx)
+        x = x + lora.apply(ad, "o", li, c, self.attn.o(c))
         return x + self.mlp(self.mlp_ln(x))
 
 
@@ -277,14 +284,15 @@ def forward_hidden(
     s = input_ids.shape[1]
     dev = input_ids.device
     p_len = 0 if prefix_kv is None else prefix_len(prefix_kv[0][0])
-    x = embed(model.embed.weight, input_ids, dtype)
+    x = embed(model.embed, input_ids, dtype)
     cos, sin = rope_tables(cfg, torch.arange(p_len, p_len + s, device=dev), dtype)
     cos, sin = cos[None, :, None, :], sin[None, :, None, :]
     causal = torch.ones(s, s, dtype=torch.bool, device=dev).tril()
     mask = prefix_mask(causal[None, None] & (attention_mask[:, None, None, :] != 0), p_len)
     kv = []
+    ad = lora.adapter_tables(model)
     for li, layer in enumerate(model.layers):
-        q, k, v = layer.qkv(cfg, x, cos, sin)
+        q, k, v = layer.qkv(cfg, x, cos, sin, ad, li)
         if collect_kv:
             kv.append((k, v))
         if kv_int8_roundtrip:
@@ -294,7 +302,7 @@ def forward_hidden(
             k = with_prefix(k, _dequant_prefix(pk, k.dtype))
             v = with_prefix(v, _dequant_prefix(pv, v.dtype))
         ctx = mha_attention(q, repeat_kv(k, cfg.n_rep), repeat_kv(v, cfg.n_rep), mask=mask)
-        x = layer.finish(x, ctx)
+        x = layer.finish(x, ctx, ad, li)
     x = model.final_ln(x)
     return (x, kv) if collect_kv else x
 
@@ -303,7 +311,7 @@ def compute_prefix_kv(model: LlamaModel, prefix_ids,
                       dtype: torch.dtype = torch.float32) -> dict:
     """Each layer's rotated K/V ``[1, P, KVH, D]`` of a shared prompt prefix
     (``P`` ids): ``{"k": [...], "v": [...]}``, computed once at startup."""
-    dev = model.embed.weight.device
+    dev = model.final_ln.weight.device
     ids = torch.as_tensor(np.asarray(prefix_ids, np.int32), device=dev).reshape(1, -1)
     _, kv = forward_hidden(model, ids, torch.ones_like(ids), dtype, collect_kv=True)
     return {"k": [k for k, _ in kv], "v": [v for _, v in kv]}
@@ -314,7 +322,7 @@ def lm_logits(model: LlamaModel, input_ids, attention_mask, dtype=torch.float32,
     """[B, S, V] next-token logits in f32 (the non-generative forward)."""
     x = forward_hidden(model, input_ids, attention_mask, dtype,
                        kv_int8_roundtrip=kv_int8_roundtrip)
-    return lm_head_logits(x, model.lm_head.weight)
+    return lm_head_logits(x, model.lm_head)
 
 
 # ---------------------------------------------------------------------------
@@ -370,19 +378,20 @@ def _step(model: LlamaModel, state, write_kv_fn, attend, sample: bool):
     rows = torch.arange(b, device=state.last_token.device)
     t = state.write_idx
     at = write_at(state, t, state.key_valid.shape[1])
-    x = embed(model.embed.weight, state.last_token[:, None], dtype)  # [B, 1, D]
+    x = embed(model.embed, state.last_token[:, None], dtype)  # [B, 1, D]
     cos, sin = rope_tables(cfg, t.clamp(max=cfg.max_position - 1), dtype)
     cos, sin = cos[:, None, None, :], sin[:, None, None, :]
     # A device tensor, not a Python 1: a scalar would be copied from the host.
     state.key_valid[rows, at] = torch.ones_like(at, dtype=state.key_valid.dtype)
+    ad = lora.adapter_tables(model)
     for li, layer in enumerate(model.layers):
-        q, k1, v1 = layer.qkv(cfg, x, cos, sin)
+        q, k1, v1 = layer.qkv(cfg, x, cos, sin, ad, li)
         write_kv_fn(state.cache_k[li], at, k1[:, 0])
         write_kv_fn(state.cache_v[li], at, v1[:, 0])
         ctx = attend(q, state.cache_k[li], state.cache_v[li], state.key_valid)
-        x = layer.finish(x, ctx)
+        x = layer.finish(x, ctx, ad, li)
     x = model.final_ln(x)
-    logits = lm_head_logits(x[:, 0], model.lm_head.weight)
+    logits = lm_head_logits(x[:, 0], model.lm_head)
     state.write_idx.add_(1)
     return finish_step(state, cfg, logits, sample)
 
@@ -442,7 +451,7 @@ def empty_decode_state(model: LlamaModel, batch: int, s_total: int, max_len: int
     under ``kv_quant`` int8 payloads with scales of ones, the layout the
     monolithic prefill writes, so the windows' quantized rows land where
     its rows would."""
-    return empty_state(model.cfg, batch, s_total, max_len, dtype, model.embed.weight.device)
+    return empty_state(model.cfg, batch, s_total, max_len, dtype, model.final_ln.weight.device)
 
 
 def _window_rope(cfg: LlamaConfig, pos_w: torch.Tensor, dtype):
@@ -479,14 +488,15 @@ def prefill_chunk(model: LlamaModel, state: GPTState, chunk_ids: torch.Tensor,
     dtype = cache_dtype(state)
     c = chunk_ids.shape[1]
     cos, sin = _window_rope(cfg, window_positions(start, c), dtype)
-    x = embed(model.embed.weight, chunk_ids, dtype)
+    x = embed(model.embed, chunk_ids, dtype)
     mask = window_mask(state.key_valid != 0, chunk_mask, start)
+    ad = lora.adapter_tables(model)
     for li, layer in enumerate(model.layers):
-        q, k1, v1 = layer.qkv(cfg, x, cos, sin)
+        q, k1, v1 = layer.qkv(cfg, x, cos, sin, ad, li)
         window_write_kv(state.cache_k[li], k1, start, dtype)
         window_write_kv(state.cache_v[li], v1, start, dtype)
         x = layer.finish(x, _window_attention(cfg, q, state.cache_k[li], state.cache_v[li],
-                                              mask))
+                                              mask), ad, li)
     window_write(state.key_valid, chunk_mask.to(state.key_valid.dtype), start)
     return state
 
@@ -502,15 +512,16 @@ def paged_prefill_chunk(model: LlamaModel, state: PagedState, table_row: torch.T
     dtype = cache_dtype(state)
     c = chunk_ids.shape[1]
     cos, sin = _window_rope(cfg, window_positions(start, c), dtype)
-    x = embed(model.embed.weight, chunk_ids, dtype)
+    x = embed(model.embed, chunk_ids, dtype)
     mask = window_mask(paged_window_base(table_row, block_size, start), chunk_mask, start)
     dest = window_dest(table_row, start, c, block_size, state.num_blocks)
+    ad = lora.adapter_tables(model)
     for li, layer in enumerate(model.layers):
-        q, k1, v1 = layer.qkv(cfg, x, cos, sin)
+        q, k1, v1 = layer.qkv(cfg, x, cos, sin, ad, li)
         paged_write_kv(state.cache_k[li], dest, k1[0], dtype)
         paged_write_kv(state.cache_v[li], dest, v1[0], dtype)
         kd, vd = paged_window_kv(state.cache_k[li], state.cache_v[li], table_row, block_size)
-        x = layer.finish(x, _window_attention(cfg, q, kd, vd, mask))
+        x = layer.finish(x, _window_attention(cfg, q, kd, vd, mask), ad, li)
     return state
 
 
@@ -529,16 +540,17 @@ def multi_step(model: LlamaModel, state: GPTState, tokens: torch.Tensor) -> torc
     pos_w = span_positions(t, tokens.shape[1])
     cos, sin = rope_tables(cfg, pos_w.clamp(max=cfg.max_position - 1), dtype)
     cos, sin = cos[:, :, None, :], sin[:, :, None, :]
-    x = embed(model.embed.weight, tokens, dtype)
+    x = embed(model.embed, tokens, dtype)
     mask = span_mask(state.key_valid != 0, t, tokens.shape[1])
+    ad = lora.adapter_tables(model)
     for li, layer in enumerate(model.layers):
-        q, k1, v1 = layer.qkv(cfg, x, cos, sin)
+        q, k1, v1 = layer.qkv(cfg, x, cos, sin, ad, li)
         span_write_kv(state.cache_k[li], k1, t, dtype)
         span_write_kv(state.cache_v[li], v1, t, dtype)
         x = layer.finish(x, _window_attention(cfg, q, state.cache_k[li], state.cache_v[li],
-                                              mask))
+                                              mask), ad, li)
     x = model.final_ln(x)
-    return lm_head_logits(x, model.lm_head.weight)
+    return lm_head_logits(x, model.lm_head)
 
 
 # ---------------------------------------------------------------------------
@@ -559,11 +571,10 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator) -> dict[str, torch
 
 
 def build_model(cfg: LlamaConfig, state: dict[str, torch.Tensor], device: torch.device,
-                dtype: torch.dtype) -> LlamaModel:
+                dtype: torch.dtype, quantize: bool = False) -> LlamaModel:
     """A ``LlamaModel`` holding ``state`` (every key, no extras) in
-    ``dtype`` on ``device``, in eval mode."""
+    ``dtype`` on ``device``, in eval mode;
+    with ``quantize`` its eligible weights int8 (``quant.load_weights``)."""
     with torch.device("meta"):
         model = LlamaModel(cfg)
-    state = {k: v.to(device=device, dtype=dtype) for k, v in state.items()}
-    model.load_state_dict(state, strict=True, assign=True)
-    return model.eval()
+    return load_weights(model, state, device, dtype, quantize)

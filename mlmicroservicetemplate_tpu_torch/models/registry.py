@@ -5,7 +5,9 @@ JAX package's layout, as numpy arrays), ``MODEL_PATH`` (an HF state dict,
 mapped through the same pytree layout; ResNet's HF layouts are the port's,
 so its map gives the state dict directly), or a deterministic random init
 drawn on the CPU from a seeded ``torch.Generator``.  All three go through
-``convert.jax_params`` or produce its output layout.
+``convert.jax_params`` or produce its output layout.  ``QUANTIZE=int8``
+stores every model's large weights as int8 with f32 scales
+(``models/quant.py``), quantized after the cast, as the reference does.
 
 Three kinds are served: image classification (ResNet-50), text
 classification (BERT-base, and bert-long, the long-context BERT whose
@@ -33,6 +35,7 @@ import torch
 from ..runtime.device import DtypePolicy, default_policy, get_device
 from . import bert as bert_mod
 from . import gpt as gpt_mod
+from . import lora
 from . import llama as llama_mod
 from . import resnet as resnet_mod
 from . import spec as spec_mod
@@ -80,6 +83,9 @@ class ModelBundle:
     # suffix the ids are, else the global ``prompt_prefix``), and (state,
     # n_steps, sample=False) -> (state, tokens [B, n_steps]), where
     # ``sample`` picks per-row sampling over argmax (the JAX static arg).
+    # The decoder families' generation callables (these, ``paged_chunk`` and
+    # the two window ones) take ``adapters=``: a LoRA overlay
+    # (``models/lora.py``), None for the base model.
     init_state: Callable | None = None
     generate_chunk: Callable | None = None
     # Paged generation (PAGED_KV=1, the continuous loop): (PagedState,
@@ -197,6 +203,15 @@ class RawItem:
     stop: tuple[str, ...] = ()
 
 
+def _quantize(svc_cfg) -> bool:
+    """QUANTIZE=int8: every builder quantizes its weights after the cast to
+    the parameter type (``models/quant.py``), random or loaded alike, as
+    the reference's ``_maybe_quantize`` does; weights the reference already
+    quantized (a JAX param tree with ``{"q8", "scale"}`` leaves) load as
+    they are."""
+    return getattr(svc_cfg, "quantize", None) == "int8"
+
+
 def _bert_pytree(svc_cfg, cfg: bert_mod.BertConfig, params, name: str):
     """BERT weights in the JAX package's layout: ``params`` if given, else
     MODEL_PATH's HF state dict mapped onto it; None means random init."""
@@ -248,7 +263,7 @@ def _build_resnet(svc_cfg, policy: DtypePolicy, device: torch.device,
     else:
         log.info("no MODEL_PATH for resnet50: deterministic random init (seed %d)", INIT_SEED)
         state = resnet_mod.init_params(cfg, torch.Generator().manual_seed(INIT_SEED))
-    model = resnet_mod.build_model(cfg, state, device, policy.param_dtype)
+    model = resnet_mod.build_model(cfg, state, device, policy.param_dtype, _quantize(svc_cfg))
     # On the device once: a per-call copy from the host would wait for the
     # previous forward.
     stats = [torch.from_numpy(a).to(device) for a in (IMAGENET_MEAN, IMAGENET_STD)]
@@ -278,7 +293,7 @@ def _build_bert(svc_cfg, policy: DtypePolicy, device: torch.device,
                 params=None) -> ModelBundle:
     cfg = bert_mod.BertConfig()
     model = bert_mod.build_model(cfg, _bert_state(svc_cfg, cfg, params), device,
-                                 policy.param_dtype)
+                                 policy.param_dtype, _quantize(svc_cfg))
 
     def forward(input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
         # The key mask always goes in, so attention runs fused_attention:
@@ -324,7 +339,8 @@ def _build_bert_long(svc_cfg, policy: DtypePolicy, device: torch.device,
         # lookup past it would fail at the first long request (the JAX
         # package's jnp.take would clamp it and serve wrong logits), so fail
         # at startup instead.
-        pos_rows = int(np.shape(params["embeddings"]["position"]["embedding"])[0])
+        pos = params["embeddings"]["position"]["embedding"]
+        pos_rows = int(np.shape(pos["q8"] if isinstance(pos, dict) else pos)[0])
         if pos_rows < max_pos:
             raise ValueError(
                 f"bert-long needs a position-embedding table with >= {max_pos} rows for "
@@ -334,7 +350,8 @@ def _build_bert_long(svc_cfg, policy: DtypePolicy, device: torch.device,
         cfg = dataclasses.replace(cfg, max_position=pos_rows)
     state = _bert_state(svc_cfg, cfg, params, "bert-long")
     replicas = placement.place_params(
-        lambda dev: bert_mod.build_model(cfg, state, dev, policy.param_dtype))
+        lambda dev: bert_mod.build_model(cfg, state, dev, policy.param_dtype,
+                                         _quantize(svc_cfg)))
 
     def forward(input_ids: list[torch.Tensor], attention_mask: list[torch.Tensor]):
         # Sequence shards in, logits [B, num_labels] f32 on the first
@@ -477,7 +494,7 @@ def _build_llama(svc_cfg, policy: DtypePolicy, device: torch.device,
         tokenizer = build_tokenizer(tok_path, for_t5=True)
     cfg = _llama_config(svc_cfg, tokenizer)
     model = llama_mod.build_model(cfg, _llama_state(svc_cfg, cfg, params), device,
-                                  policy.param_dtype)
+                                  policy.param_dtype, _quantize(svc_cfg))
     # The shared prefix carries the BOS; the prompts after it then take none.
     prefix = _attach_prompt_prefix(model, llama_mod, tokenizer, svc_cfg, policy,
                                    cfg.max_position)
@@ -498,30 +515,35 @@ def _generative_bundle(name: str, family, model, cfg, tokenizer, svc_cfg,
                        max_prompt: int, prompt_prefix: dict | None = None) -> ModelBundle:
     """A ``KIND_SEQ2SEQ`` bundle over a decoder family's module (``gpt`` or
     ``llama``: ``init_decode_state``, ``generate_chunk``,
-    ``generate_chunk_paged``), behind ``prompt_prefix`` when given."""
+    ``generate_chunk_paged``), behind ``prompt_prefix`` when given.  The
+    prefill, decode and window callables take an ``adapters`` overlay
+    (``models/lora.py``; the continuous loop's, under ADAPTER_DIR), None
+    for the base model."""
 
-    def init_state(input_ids, attention_mask, max_len: int, sample=None, prefix_kv=None):
+    def init_state(input_ids, attention_mask, max_len: int, sample=None, prefix_kv=None,
+                   adapters=None):
         return family.init_decode_state(
-            model, input_ids, attention_mask, max_len, dtype=policy.compute_dtype,
-            sample=sample, prefix_kv=prompt_prefix if prefix_kv is None else prefix_kv)
+            lora.attach(model, adapters), input_ids, attention_mask, max_len,
+            dtype=policy.compute_dtype, sample=sample,
+            prefix_kv=prompt_prefix if prefix_kv is None else prefix_kv)
 
-    def generate_chunk(state, n_steps: int, sample: bool = False):
-        return family.generate_chunk(model, state, n_steps, sample)
+    def generate_chunk(state, n_steps: int, sample: bool = False, adapters=None):
+        return family.generate_chunk(lora.attach(model, adapters), state, n_steps, sample)
 
-    def paged_chunk(state, table, n_steps: int, sample: bool = False):
-        return family.generate_chunk_paged(model, state, table, svc_cfg.kv_block_size,
-                                           n_steps, sample)
+    def paged_chunk(state, table, n_steps: int, sample: bool = False, adapters=None):
+        return family.generate_chunk_paged(lora.attach(model, adapters), state, table,
+                                           svc_cfg.kv_block_size, n_steps, sample)
 
     def empty_state(batch: int, s_total: int, max_len: int):
         return family.empty_decode_state(model, batch, s_total, max_len,
                                          dtype=policy.compute_dtype)
 
-    def prefill_chunk(state, ids, mask, start):
-        return family.prefill_chunk(model, state, ids, mask, start)
+    def prefill_chunk(state, ids, mask, start, adapters=None):
+        return family.prefill_chunk(lora.attach(model, adapters), state, ids, mask, start)
 
-    def paged_prefill_chunk(state, table_row, ids, mask, start):
-        return family.paged_prefill_chunk(model, state, table_row, ids, mask, start,
-                                          svc_cfg.kv_block_size)
+    def paged_prefill_chunk(state, table_row, ids, mask, start, adapters=None):
+        return family.paged_prefill_chunk(lora.attach(model, adapters), state, table_row, ids,
+                                          mask, start, svc_cfg.kv_block_size)
 
     p_len = 0 if prompt_prefix is None else gpt_mod.prefix_len(prompt_prefix["k"][0])
 
@@ -597,7 +619,7 @@ def _build_gpt(svc_cfg, policy: DtypePolicy, device: torch.device,
             f"{cfg.vocab_size}"
         )
     model = gpt_mod.build_model(cfg, _gpt_state(svc_cfg, cfg, params), device,
-                                policy.param_dtype)
+                                policy.param_dtype, _quantize(svc_cfg))
     prefix = _attach_prompt_prefix(model, gpt_mod, tokenizer, svc_cfg, policy,
                                    cfg.max_position)
     p_len = 0 if prefix is None else gpt_mod.prefix_len(prefix["k"][0])
@@ -642,7 +664,7 @@ def _build_t5(svc_cfg, policy: DtypePolicy, device: torch.device,
             f"embedding table rows {cfg.vocab_size}"
         )
     model = t5_mod.build_model(cfg, _t5_state(svc_cfg, cfg, params), device,
-                               policy.param_dtype)
+                               policy.param_dtype, _quantize(svc_cfg))
 
     def init_state(input_ids, attention_mask, max_len: int, sample=None):
         enc = t5_mod.encode(model, input_ids, attention_mask, policy.compute_dtype)

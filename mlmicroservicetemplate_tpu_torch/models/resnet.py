@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .common import batchnorm_affine, batchnorm_init, conv2d
+from .quant import Int8Conv, Int8Linear, dequant, prepare_int8_modules, quantize_model
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,13 +139,19 @@ def _conv_bn_pairs(model: ResNet):
 def fold_batchnorm(model: ResNet, dtype: torch.dtype) -> None:
     """Fold every BN into the conv before it, in f32 (``W * g`` per output
     channel, bias ``b``, from ``batchnorm_affine``), cast once to ``dtype``
-    (conv weights channels-last), and remove the BN modules."""
+    (conv weights channels-last), and remove the BN modules.  An int8 conv
+    (``QUANTIZE=int8``) keeps its integers and takes ``g`` into its f32
+    per-channel scale."""
     for mod, conv_name, bn_name in _conv_bn_pairs(model):
         conv, bn = getattr(mod, conv_name), getattr(mod, bn_name)
         g, b = batchnorm_affine(bn.scale, bn.bias, bn.mean, bn.var, torch.float32)
-        w = conv.weight.float() * g[:, None, None, None]
-        conv.weight = nn.Parameter(w.to(dtype).contiguous(memory_format=torch.channels_last),
-                                   requires_grad=False)
+        if isinstance(conv, Int8Conv):
+            # int8 weights keep their integers: g joins the per-channel scale.
+            conv.scale = conv.scale * g[:, None, None, None]
+        else:
+            w = conv.weight.float() * g[:, None, None, None]
+            conv.weight = nn.Parameter(w.to(dtype).contiguous(memory_format=torch.channels_last),
+                                       requires_grad=False)
         conv.bias = nn.Parameter(b.to(dtype), requires_grad=False)
         delattr(mod, bn_name)
     model.folded = True
@@ -167,8 +174,10 @@ def apply(model: ResNet, images: torch.Tensor) -> torch.Tensor:
     # logits never depend on the batch bucket it rides in.
     pooled = x.float().mean(dim=(2, 3))
     n = pooled.shape[0]
-    w = model.classifier.weight.float().t().expand(n, -1, -1)
-    b = model.classifier.bias.float().expand(n, 1, -1)
+    cls = model.classifier
+    w = (dequant(cls.q8, cls.scale, torch.float32) if isinstance(cls, Int8Linear)
+         else cls.weight.float()).t().expand(n, -1, -1)
+    b = cls.bias.float().expand(n, 1, -1)
     return torch.baddbmm(b, pooled[:, None, :], w)[:, 0]
 
 
@@ -196,16 +205,27 @@ def init_params(cfg: ResNetConfig, generator: torch.Generator) -> dict[str, torc
 
 
 def build_model(cfg: ResNetConfig, state: dict[str, torch.Tensor], device: torch.device,
-                dtype: torch.dtype) -> ResNet:
+                dtype: torch.dtype, quantize: bool = False) -> ResNet:
     """A ``ResNet`` holding ``state`` (strictly: every key, no extras) on
-    ``device``, loaded in f32, its BNs folded into the convs
-    (``fold_batchnorm``), then conv weights and biases and the classifier
-    in ``dtype``, the conv weights channels-last."""
+    ``device``, loaded in f32 (int8 payloads as given), its BNs folded into
+    the convs (``fold_batchnorm``), then conv weights and biases and the
+    classifier in ``dtype``, the conv weights channels-last.  With
+    ``quantize`` (``QUANTIZE=int8``) the eligible weights are quantized
+    first, unfolded and from their ``dtype`` values, as the reference
+    quantizes its HWIO kernels before its BN runs: q8 is the reference's
+    transposed, and the fold then scales its per-channel scale."""
     with torch.device("meta"):
         model = ResNet(cfg)
-    placed = {name: torch.as_tensor(v).to(device=device, dtype=torch.float32)
-              for name, v in state.items()}
+    prepare_int8_modules(model, state)
+    placed = {name: torch.as_tensor(v).to(
+        device=device, dtype=torch.int8 if v.dtype == torch.int8 else torch.float32)
+        for name, v in state.items()}
     model.load_state_dict(placed, strict=True, assign=True)
+    if quantize:
+        quantize_model(model, dtype)
     fold_batchnorm(model, dtype)
-    model.classifier.to(dtype)
+    if isinstance(model.classifier, Int8Linear):
+        model.classifier.bias.data = model.classifier.bias.data.to(dtype)
+    else:
+        model.classifier.to(dtype)
     return model.eval()

@@ -168,6 +168,16 @@ def row_split(rng: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.stack([b0[:, 0], b1[:, 0]], dim=-1), torch.stack([b0[:, 1], b1[:, 1]], dim=-1)
 
 
+def advance(rng: torch.Tensor, steps) -> torch.Tensor:
+    """Each row's key chain [B, 2] moved ``steps[i]`` splits ahead: the
+    chain a row holds after that many sampled steps."""
+    out = rng.clone()
+    for i, n in enumerate(steps):
+        for _ in range(int(n)):
+            out[i:i + 1] = row_split(out[i:i + 1])[0]
+    return out
+
+
 def random_bits(keys: torch.Tensor, n: int) -> torch.Tensor:
     """``jax.random.bits(key, (n,), uint32)`` for each row's key [B, 2]:
     [B, n] int64 of 32-bit words."""

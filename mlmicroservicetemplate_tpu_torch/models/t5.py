@@ -53,6 +53,7 @@ from ..ops.attention import fused_attention, fused_attention_ref
 from .common import embed, lm_head_logits, merge_heads, mha_attention, split_heads
 from .gpt import finish_step, run_steps, span_mask, span_positions, span_write, write_at
 from .llama import Linear, RMSNorm
+from .quant import load_weights
 from .sampling import SampleParams, greedy_params
 
 RMS_EPS = 1e-6  # the reference's rmsnorm default
@@ -241,7 +242,7 @@ def encode(model: T5Model, input_ids: torch.Tensor, attention_mask: torch.Tensor
     cfg = model.cfg
     attend = fused_attention_ref if plain else fused_attention
     s = input_ids.shape[1]
-    x = embed(model.shared.weight, input_ids, dtype)
+    x = embed(model.shared, input_ids, dtype)
     bias = encoder_position_bias(model, s, dtype, input_ids.device)
     for layer in model.encoder.layers:
         a = layer.attn
@@ -328,7 +329,7 @@ def lm_logits(model: T5Model, x: torch.Tensor) -> torch.Tensor:
     """f32 logits: x * d_model**-0.5 through the untied head, else the
     shared embedding."""
     x = x * (model.cfg.d_model ** -0.5)
-    head = model.lm_head.weight if model.lm_head is not None else model.shared.weight
+    head = model.lm_head if model.lm_head is not None else model.shared
     return lm_head_logits(x, head)
 
 
@@ -342,7 +343,7 @@ def decode_step(model: T5Model, state: T5State, sample: bool = False):
     rows = torch.arange(b, device=state.pos.device)
     t = state.pos
     at = write_at(state, t, width)
-    x = embed(model.shared.weight, state.last_token[:, None], dtype)  # [B, 1, D]
+    x = embed(model.shared, state.last_token[:, None], dtype)  # [B, 1, D]
     k_pos = torch.arange(width, device=t.device)
     self_mask = (k_pos[None, :] <= t[:, None])[:, None, None, :]
     self_bias = decoder_position_bias(model, t, width)
@@ -440,7 +441,7 @@ def multi_step(model: T5Model, state: T5SpecState, tokens: torch.Tensor) -> torc
     width = state.tokens.shape[1]
     t = state.write_idx
     pos_w = span_positions(t, d_w)
-    x = embed(model.shared.weight, tokens, dtype)
+    x = embed(model.shared, tokens, dtype)
     mask = span_mask(state.key_valid != 0, t, d_w)
     # The relative bias of each window query over every key: a query past
     # the cache's end (its writes dropped) sees distances up to width + D -
@@ -482,7 +483,7 @@ def teacher_forced_logits(model: T5Model, input_ids, attention_mask, targets,
     enc = encode(model, input_ids, attention_mask, dtype, plain)
     dec_in = torch.cat([torch.full((b, 1), cfg.decoder_start_id, dtype=torch.long, device=dev),
                         targets[:, :-1].long()], dim=1)
-    x = embed(model.shared.weight, dec_in, dtype)
+    x = embed(model.shared, dec_in, dtype)
     pos = torch.arange(n, device=dev)
     rel = model.decoder.layers[0].self_attn.rel_bias.weight
     table = bucket_table(model, "decoder", n, dev)
@@ -530,11 +531,10 @@ def init_params(cfg: T5Config, generator: torch.Generator,
 
 
 def build_model(cfg: T5Config, state: dict[str, torch.Tensor], device: torch.device,
-                dtype: torch.dtype) -> T5Model:
+                dtype: torch.dtype, quantize: bool = False) -> T5Model:
     """A ``T5Model`` holding ``state`` in ``dtype`` on ``device``, in eval
-    mode; untied when ``state`` carries ``lm_head.weight``."""
+    mode (``quantize``: its eligible weights int8, ``quant.load_weights``);
+    untied when ``state`` carries an ``lm_head``."""
     with torch.device("meta"):
-        model = T5Model(cfg, untied_head="lm_head.weight" in state)
-    state = {k: v.to(device=device, dtype=dtype) for k, v in state.items()}
-    model.load_state_dict(state, strict=True, assign=True)
-    return model.eval()
+        model = T5Model(cfg, untied_head=any(k.startswith("lm_head.") for k in state))
+    return load_weights(model, state, device, dtype, quantize)

@@ -28,6 +28,12 @@ takes the per-stream path's speculation while fewer than
 ``SPEC_MAX_STREAMS`` generations are active on both paths (``spec_route``),
 and under ``SPEC_CONTINUOUS`` with ``SPEC_SAMPLED=0`` a sampled stream
 bypasses the speculative loop (``sampled_opt_out``), as in the JAX package.
+Under ``ADAPTER_DIR`` the batcher builds the LoRA ``AdapterPool`` and hands
+it to the engine and the loop (refused with speculative decoding and for
+adapters of another architecture, as in the JAX package); a stream with an
+``adapter_id`` serves only through the loop, and the per-stream path sheds
+it with reason ``adapter_pool``.  The whole (non-streamed) path generates
+with the base model, as the reference's does.
 """
 
 from __future__ import annotations
@@ -110,6 +116,30 @@ class Batcher:
                 self._cdl.external_active = lambda: self._active_streams
                 # One admission controller (KV ledger) for both queues.
                 self._cdl.admission = self.admission
+        # The batched multi-adapter LoRA pool (ADAPTER_DIR;
+        # tenancy/adapters.py), with the reference's boot refusals.  Unset,
+        # none of it is built and every dispatch is the base model's.
+        self.adapters = None
+        if getattr(cfg, "adapter_dir", None):
+            from ..tenancy.adapters import AdapterPool
+
+            pool = AdapterPool.from_cfg(cfg, model=self.model, device=engine.device,
+                                        device_lock=engine._lock)
+            if getattr(engine, "spec_enabled", False) or (
+                    self._cdl is not None and self._cdl.spec):
+                raise ValueError(
+                    "ADAPTER_DIR does not compose with "
+                    "SPEC_DECODE/SPEC_CONTINUOUS: the "
+                    "draft→verify executables run the base "
+                    "model only"
+                )
+            # Wrong-architecture adapters fail the boot, not the first
+            # adapted request.
+            pool.validate_against(engine.bundle.model)
+            self.adapters = pool
+            engine.adapters = pool
+            if self._cdl is not None:
+                self._cdl.adapters = pool
 
     async def start(self) -> None:
         if self._task is None:
@@ -192,8 +222,20 @@ class Batcher:
         }
 
     def warm_streams(self) -> float:
-        """Warm the decode loop (a no-op without one); returns seconds."""
-        return self._cdl.warm() if self._cdl is not None else 0.0
+        """Warm the decode loop (a no-op without one), the adapter pool's
+        install path first; returns seconds."""
+        if self._cdl is None:
+            return 0.0
+        if self._cdl.adapters is not None:
+            self._cdl.adapters.warm()
+        return self._cdl.warm()
+
+    def tenancy_status(self) -> dict | None:
+        """``/status.tenancy``: the adapter pool's slot residency, or None
+        (the key absent) without ``ADAPTER_DIR``."""
+        if self.adapters is None:
+            return None
+        return {"adapters": self.adapters.status()}
 
     def submit_stream(self, feats: dict):
         """Streaming generation: the async iterator of the stream's token
@@ -245,6 +287,17 @@ class Batcher:
                 e.retry_after_s = self.retry_after_s(streams=True)
             self._shed(e.reason)
             raise
+        if feats.get("adapter_id"):
+            # Adapters serve through the continuous loop's batched dispatch
+            # only: this path sheds rather than generate base-model tokens.
+            self._shed("adapter_pool")
+            raise QueueFullError(
+                "adapter streams require the continuous batching path "
+                "(prompt exceeds the largest seq bucket, or "
+                "CONTINUOUS_BATCHING=0)",
+                reason="adapter_pool",
+                retry_after_s=self.retry_after_s(streams=True),
+            )
         loop_admitted = self._cdl.admitted if self._cdl is not None else 0
         if self._active_streams + loop_admitted >= self.max_streams:
             self._shed("queue_full")

@@ -102,6 +102,11 @@ class ServiceConfig:
     stream_chunk_tokens: int = 4
     # "int8" = int8 KV cache with per-token, per-head scales (llama).
     quant_kv: str | None = None
+    # "int8" = weight-only int8 on every model (models/quant.py): per-output
+    # -channel (tables: per-row) f32 scales, dequantized in the compute type
+    # at each use.  TP, the one knob the reference refuses beside it, is not
+    # ported, so no refusal of the pair is needed here yet.
+    quantize: str | None = None
     # JSON object of LlamaConfig overrides, e.g. '{"num_layers": 4}'.
     llama_config: str | None = None
     # Streaming generations: concurrent streams (the continuous decode
@@ -200,6 +205,14 @@ class ServiceConfig:
     spec_max_streams: int = 1
     spec_continuous: bool = False
     spec_sampled: bool = True
+    # LoRA adapter library (tenancy/adapters.py): each <name>.npz under
+    # adapter_dir (keys "layers.{i}.{proj}.lora_a|lora_b", optional scalar
+    # "alpha") is an adapter a request picks with X-Adapter; rows of
+    # different adapters decode in one dispatch of the continuous loop over
+    # adapter_slots device slots (slot 0 the zero delta).  Unset: no adapter
+    # code runs.  Refused with SPEC_DECODE/SPEC_CONTINUOUS.
+    adapter_dir: str | None = None
+    adapter_slots: int = 8
     # Sequence-parallel width for bert-long: the sequence axis shards over
     # this many devices and attention runs as a ring (parallel/ring.py).
     # 0 = every visible card (one shard on the CPU).
@@ -234,6 +247,14 @@ class ServiceConfig:
             if q not in (None, "int8"):
                 raise ValueError(f"QUANT_KV must be 'int8' or unset, got {self.quant_kv!r}")
             object.__setattr__(self, "quant_kv", q)
+        if self.quantize is not None:
+            q = self.quantize.lower()
+            q = None if q in ("", "none", "0", "false") else q
+            if q not in (None, "int8"):
+                raise ValueError(f"QUANTIZE must be 'int8' or unset, got {q!r}")
+            object.__setattr__(self, "quantize", q)
+        if not (1 <= self.adapter_slots <= 256):
+            raise ValueError("ADAPTER_SLOTS must be in [1, 256]")
         if self.max_streams < 1:
             raise ValueError("MAX_STREAMS must be >= 1")
         if self.spec_decode is not None:
@@ -305,9 +326,6 @@ _ON = ("1", "true", "yes")
 # without it.
 UNPORTED_KNOBS = {
     "TP": ("0", "1"),
-    "QUANTIZE": ("none",) + _OFF,
-    "ADAPTER_DIR": (),
-    "ADAPTER_SLOTS": ("8",),
     # The continuous loop has no disk KV tier under its host tier and no
     # journal yet.
     "KV_DISK_BUDGET_MB": ("0",),
@@ -426,7 +444,8 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
     PREFIX_CACHE, PREFIX_CACHE_MB, PREFILL_CHUNK, PREFILL_BUDGET,
     PREFILL_MAX_PROMPT, KV_HOST_BUDGET_MB, KV_PREFETCH_BLOCKS, DECODE_WINDOW,
     DECODE_WINDOW_AUTO, STREAM_PIPELINE, HOST_PREP_DOUBLE, ADMIT_OVERLAP, SPEC_DECODE,
-    SPEC_K, SPEC_NGRAM, SPEC_MAX_STREAMS, SPEC_SAMPLED, SPEC_CONTINUOUS.  Any of
+    SPEC_K, SPEC_NGRAM, SPEC_MAX_STREAMS, SPEC_SAMPLED, SPEC_CONTINUOUS, QUANTIZE,
+    ADAPTER_DIR, ADAPTER_SLOTS.  Any of
     ``UNPORTED_KNOBS`` set to a value that turns it on raises;
     ``INERT_KNOBS`` are accepted and ignored."""
     e = dict(os.environ)
@@ -454,7 +473,8 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
         ("log_level", "LOG_LEVEL"), ("quant_kv", "QUANT_KV"),
         ("llama_config", "LLAMA_CONFIG"), ("chat_template", "CHAT_TEMPLATE"),
         ("priority_default", "PRIORITY_DEFAULT"), ("prompt_prefix", "PROMPT_PREFIX"),
-        ("spec_decode", "SPEC_DECODE"),
+        ("spec_decode", "SPEC_DECODE"), ("quantize", "QUANTIZE"),
+        ("adapter_dir", "ADAPTER_DIR"),
     ):
         v = get(var)
         if v is not None:
@@ -471,7 +491,8 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
                        ("kv_prefetch_blocks", "KV_PREFETCH_BLOCKS"),
                        ("decode_window", "DECODE_WINDOW"),
                        ("stream_pipeline", "STREAM_PIPELINE"), ("spec_k", "SPEC_K"),
-                       ("spec_ngram", "SPEC_NGRAM"), ("spec_max_streams", "SPEC_MAX_STREAMS")):
+                       ("spec_ngram", "SPEC_NGRAM"), ("spec_max_streams", "SPEC_MAX_STREAMS"),
+                       ("adapter_slots", "ADAPTER_SLOTS")):
         v = get(var)
         if v is not None:
             kwargs[field] = int(v)

@@ -9,7 +9,8 @@ deliveries, preemptions, the paged KV pool's blocks and its dry-pool
 stalls, the host KV tier's blocks, swap bytes, resumes and prefix
 hits, the chunks of each fused decode window and its early exits, the
 loop's pipelining depth, the host seconds of each dispatch by site, and
-the tokens each speculative verify round emitted.
+the tokens each speculative verify round emitted; the LoRA adapter
+pool's slots by state.
 The series live in this package's own
 registry, so a process that also imports the JAX package registers no
 name twice.  Without ``prometheus_client`` every series is a no-op stub.
@@ -90,7 +91,8 @@ QUEUE_DEPTH = Gauge(
 )
 SHED = Counter(
     "requests_shed_total",
-    "Load-shed requests by reason (queue_full | kv_budget | drain | deadline)",
+    "Load-shed requests by reason (queue_full | kv_budget | drain | deadline | "
+    "adapter_pool)",
     ["model", "reason"], registry=REGISTRY,
 )
 CLASS_QUEUE_DEPTH = Gauge(
@@ -227,6 +229,14 @@ WARM_SECONDS = Histogram(
     "captures, loop = the continuous loop's chunk capture)",
     ["model", "phase"], buckets=(0.1, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0, 120.0, 300.0),
     registry=REGISTRY,
+)
+ADAPTER_SLOTS = Gauge(
+    "adapter_pool_slots",
+    "LoRA adapter device-slot pool by state (resident = installed "
+    "adapters, active = slots refcounted by live streams, free = "
+    "installable without eviction, host = adapters loaded host-side) "
+    "- tenancy/adapters.py",
+    ["model", "state"], registry=REGISTRY,
 )
 EXEC_CACHE_EVENTS = Counter(
     "executable_cache_events_total",

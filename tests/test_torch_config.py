@@ -556,3 +556,31 @@ def test_spec_knobs_are_validated_with_the_jax_messages(name, value):
     with pytest.raises(ValueError, match=name) as got:
         load_config({"DEVICE": "cpu", name: value})
     assert str(got.value) in str(want.value)
+
+
+WEIGHT_FIELDS = ("quantize", "adapter_dir", "adapter_slots")
+
+
+@pytest.mark.parametrize("env", [
+    {}, {"QUANTIZE": "int8"}, {"QUANTIZE": "INT8"}, {"QUANTIZE": "none"}, {"QUANTIZE": "0"},
+    {"ADAPTER_DIR": "/adapters"}, {"ADAPTER_DIR": "/adapters", "ADAPTER_SLOTS": "2"},
+    {"ADAPTER_SLOTS": "256"},
+])
+def test_quantize_and_adapter_knobs_are_read_like_jax(env):
+    """QUANTIZE, ADAPTER_DIR and ADAPTER_SLOTS are read, not refused: each
+    field equals the JAX ServiceConfig's for the same environment, defaults
+    included (off, unset, 8)."""
+    port, ref = load_config({"DEVICE": "cpu", **env}), jax_load_config({"DEVICE": "cpu", **env})
+    assert [getattr(port, f) for f in WEIGHT_FIELDS] == [getattr(ref, f) for f in WEIGHT_FIELDS]
+    if not env:
+        assert [getattr(port, f) for f in WEIGHT_FIELDS] == [None, None, 8]
+
+
+@pytest.mark.parametrize("name,value", [("QUANTIZE", "int4"), ("QUANTIZE", "fp8"),
+                                        ("ADAPTER_SLOTS", "0"), ("ADAPTER_SLOTS", "257")])
+def test_quantize_and_adapter_knobs_are_validated_with_the_jax_messages(name, value):
+    with pytest.raises(ValueError) as want:
+        jax_load_config({"DEVICE": "cpu", name: value})
+    with pytest.raises(ValueError, match=name) as got:
+        load_config({"DEVICE": "cpu", name: value})
+    assert str(got.value) in str(want.value)

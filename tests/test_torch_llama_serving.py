@@ -227,7 +227,7 @@ def test_unported_requests_answer_400(services, path, body):
     ids=lambda k: next(iter(k)),
 )
 def test_unported_knobs_raise(knob, tmp_path):
-    """Knobs the port does not serve raise "not ported".  Nine it once
+    """Knobs the port does not serve raise "not ported".  Eleven it once
     refused serve now, and their cases pin what the JAX package does: a
     SentencePiece ``TOKENIZER_PATH`` loads with a leading <s> and no
     trailing </s> (the model's eos/pad the tokenizer's),
@@ -239,8 +239,14 @@ def test_unported_knobs_raise(knob, tmp_path):
     ``PREFILL_CHUNK`` streams them through the loop's windows, as many as
     the JAX loop's, ``DECODE_WINDOW`` streams batch-class requests
     through fused decode windows, as many as the JAX loop's, and
-    ``STREAM_PIPELINE`` streams them with two dispatches in flight, and
-    ``SPEC_DECODE`` streams them with a lone stream speculating."""
+    ``STREAM_PIPELINE`` streams them with two dispatches in flight,
+    ``SPEC_DECODE`` streams them with a lone stream speculating,
+    ``QUANTIZE=int8`` streams them over the JAX package's int8 weights,
+    held as the port's int8 modules, and ``ADAPTER_DIR`` streams them with
+    rows on two LoRA adapters and none in one wave, the pool's status the
+    JAX pool's.  The window case queues every stream before either loop
+    runs (``_stream_queued``), so both form the same waves whatever the
+    host's load."""
     name = next(iter(knob))
     overrides = {"MODEL_NAME": "llama", "DEVICE": "cpu", "WARMUP": "0",
                  "LLAMA_CONFIG": json.dumps(SMALL), **knob}
@@ -294,8 +300,9 @@ def test_unported_knobs_raise(knob, tmp_path):
             {**overrides, "SEQ_BUCKETS": "16,32", "MAX_DECODE_LEN": "10",
              "STREAM_CHUNK_TOKENS": "4"}, params=jax.tree.map(np.asarray, jbundle.params))
         jbatcher = JaxBatcher(jengine, jcfg)
-        want = asyncio.run(_stream_all(jbatcher, jbundle, JaxRawItem, **extra))
-        got = asyncio.run(_stream_all(batcher, bundle, RawItem, **extra))
+        run = _stream_queued if window else _stream_all
+        want = asyncio.run(run(jbatcher, jbundle, JaxRawItem, **extra))
+        got = asyncio.run(run(batcher, bundle, RawItem, **extra))
         assert got == want
         if window:
             assert batcher._cdl.window_dispatches == jbatcher._cdl.window_dispatches > 0
@@ -321,6 +328,34 @@ def test_unported_knobs_raise(knob, tmp_path):
         want = asyncio.run(_stream_all(JaxBatcher(jengine, jcfg), jbundle, JaxRawItem))
         got = asyncio.run(_stream_all(batcher, bundle, RawItem))
         assert got == want and engine.spec_rounds > 0
+        return
+    if name in ("QUANTIZE", "ADAPTER_DIR"):
+        quant = name == "QUANTIZE"
+        jkw = {"quantize": "int8"} if quant else {
+            "adapter_dir": _write_adapters(tmp_path), "adapter_slots": 2}
+        os.environ["LLAMA_CONFIG"] = json.dumps(SMALL)
+        try:
+            jcfg = JaxServiceConfig(device="cpu", model_name="llama", warmup=False,
+                                    batch_timeout_ms=1.0, **jkw, **SERVE)
+            jbundle = jax_build_model(jcfg)
+            jengine = JaxEngine(jbundle, jcfg, ReplicaSet(make_mesh(1)))
+        finally:
+            del os.environ["LLAMA_CONFIG"]
+        extra = ({name: knob[name]} if quant
+                 else {name: jkw["adapter_dir"], "ADAPTER_SLOTS": "2"})
+        _, bundle, engine, batcher = build_service(
+            {**overrides, **extra, "SEQ_BUCKETS": "16,32", "MAX_DECODE_LEN": "10",
+             "STREAM_CHUNK_TOKENS": "4"}, params=jax.tree.map(np.asarray, jbundle.params))
+        jbatcher = JaxBatcher(jengine, jcfg)
+        aids = None if quant else ["alpha", None, "beta", "alpha"]
+        want = asyncio.run(_stream_queued(jbatcher, jbundle, JaxRawItem, adapters=aids))
+        got = asyncio.run(_stream_queued(batcher, bundle, RawItem, adapters=aids))
+        assert got == want
+        if quant:
+            assert type(bundle.model.layers[0].attn.q).__name__ == "Int8Linear"
+        else:
+            assert batcher.tenancy_status() == jbatcher.tenancy_status()
+            assert batcher.adapters.status()["installs"] == 2
         return
     if name == "PREFILL_CHUNK":
         os.environ["LLAMA_CONFIG"] = json.dumps(SMALL)
@@ -398,6 +433,51 @@ async def _stream_all(batcher, bundle, item_cls, **extra):
                                       for t, m in REQUESTS))
     finally:
         await batcher.stop()
+
+
+async def _stream_queued(batcher, bundle, item_cls, adapters=None, **extra):
+    """As ``_stream_all``, with every stream queued before the loop's
+    thread starts, so its first wave holds them all (``adapters``: each
+    request's ``adapter_id``, None for the base model)."""
+    feats = [{**bundle.preprocess(item_cls(text=t, max_tokens=m)), **extra}
+             for t, m in REQUESTS]
+    for f, aid in zip(feats, adapters or ()):
+        if aid is not None:
+            f["adapter_id"] = aid
+
+    async def drain(gen):
+        return [t async for chunk in gen for t in np.asarray(chunk).tolist()]
+
+    loop = batcher._cdl
+    await batcher.start()
+    try:
+        loop._ensure_thread = lambda: None
+        try:
+            gens = [batcher.submit_stream(f) for f in feats]
+        finally:
+            del loop._ensure_thread
+        loop._ensure_thread()
+        return await asyncio.gather(*(drain(g) for g in gens))
+    finally:
+        await batcher.stop()
+
+
+def _write_adapters(tmp_path) -> str:
+    """Two LoRA adapters of ``SMALL`` llama's q/k/v/o (ranks 4 and 2, the
+    second with an alpha) as ``.npz`` files; returns their directory."""
+    rng = np.random.default_rng(7)
+    d, kv = SMALL["d_model"], SMALL["d_model"] // SMALL["num_heads"] * SMALL["num_kv_heads"]
+    projs = {"q": (d, d), "k": (d, kv), "v": (d, kv), "o": (d, d)}
+    for name, r, alpha in (("alpha", 4, None), ("beta", 2, 4.0)):
+        arrs = {} if alpha is None else {"alpha": np.float32(alpha)}
+        for li in range(SMALL["num_layers"]):
+            for proj, (d_in, d_out) in projs.items():
+                arrs[f"layers.{li}.{proj}.lora_a"] = rng.normal(0, 0.2, (d_in, r)).astype(
+                    np.float32)
+                arrs[f"layers.{li}.{proj}.lora_b"] = rng.normal(0, 0.2, (r, d_out)).astype(
+                    np.float32)
+        np.savez(str(tmp_path / f"{name}.npz"), **arrs)
+    return str(tmp_path)
 
 
 def test_knobs_left_off_and_aliases_build():

@@ -15,6 +15,9 @@ on the CPU, at small llama, GPT-2 and T5 configs:
   drains.
 - An unseeded sampled stream gets its seed at admission, so its replay
   draws the tokens its first run delivered (the JAX engine's for that seed).
+- A replay whose regenerated tokens part from those it delivered resumes
+  as a recast with its key chain moved past them (the port's guard for the
+  card's bf16 draws; on the CPU the parting is forced).
 - Over HTTP, ``X-Priority: batch`` is served: ``/predict``, ndjson and SSE
   bodies and ``/status``'s KV ledger equal the JAX app's; the per-stream
   path sheds ``drain`` and ``kv_budget`` as the JAX batcher does.
@@ -198,6 +201,42 @@ def test_interactive_preempts_batch_and_resumes_like_jax(model, extra, resume):
     assert list(outs[1]) == list(outs[0]) == refs
     assert len(refs[0]) > 2 * engine.chunk_tokens  # preempted mid-generation
     assert (loop.recasts > 0, loop.replays > 0) == (resume == "recast", resume == "replay")
+    _settle(loop, engine)
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
+def test_a_replay_that_parts_resumes_as_a_recast(paged):
+    """A sampled replay whose regenerated tokens part from those it
+    delivered (on the card, bf16 draws of another batch shape at a near
+    tie; here one suppressed token is altered) leaves its slot at the next
+    iteration top and resumes as a recast: its delivered tokens join the
+    prompt and its key chain moves past them, so it gets the tokens of its
+    unpreempted run all the same."""
+    kw = dict(ONE_SLOT, **(dict(paged_kv=True, kv_block_size=8) if paged else {}))
+    jloop, _, loop, engine = _loops("llama", **kw)
+    jloop.stop()
+    batch = _prompt(BATCH_LEN, priority="batch", temperature=0.8, top_k=40, seed=7)
+    inter = _prompt(INTER_LEN, priority="interactive")
+    refs = [_solo(engine, batch), _solo(engine, inter)]
+    emit, altered = loop._emit_tokens, []
+
+    def altering(st, chunk):
+        arr = np.array(chunk)
+        if st.skip and not altered:
+            k = min(st.skip, int(arr.size))
+            arr[k - 1] = 5 + (int(arr[k - 1]) + 1) % 250
+            altered.append(k)
+        return emit(st, arr)
+
+    loop._emit_tokens = altering
+    _hold_first_chunk(loop)
+    try:
+        got = asyncio.run(_preempted(loop, dict(batch), dict(inter)))
+    finally:
+        loop.stop()
+    assert altered and loop.replays == 1 and loop.replays_parted == 1
+    assert loop.recasts == 1  # the parted replay's resume
+    assert list(got) == refs
     _settle(loop, engine)
 
 

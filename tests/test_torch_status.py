@@ -2,15 +2,16 @@
 after the same traffic on the same weights, for a classifier (BERT at two
 layers), a decoder with the continuous loop (llama, paged,
 ``DECODE_WINDOW=4``, one batch-class stream) and T5 (its contiguous loop,
-one stream), and a llama service under ``SPEC_DECODE`` with
-``SPEC_CONTINUOUS``.
+one stream), a llama service under ``SPEC_DECODE`` with
+``SPEC_CONTINUOUS``, and one with ``ADAPTER_DIR`` (two LoRA adapters in two
+slots, each installed once), whose ``tenancy`` section is compared whole.
 
 Compared: the key sets, section by section, and every value that does not
 depend on the clock.  Left out, by name:
 
 - sections of features the port does not serve yet: ``fault_tolerance``
   (the supervisor), ``fleet``, ``durability`` (the journal), ``jobs``,
-  ``tenancy``, ``perf`` (the perf observatory);
+  ``perf`` (the perf observatory);
 - keys only the port serves: ``device_name``, ``dispatches``,
   ``decode_steps`` and ``scheduler.pending``;
 - values measured by the clock (``uptime_s``, the ``compile`` section's,
@@ -32,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 from aiohttp.test_utils import TestClient, TestServer
+from test_torch_lora import write_adapters
 from test_torch_t5_serving import LM_HEAD, small_t5
 
 import jax
@@ -43,7 +45,7 @@ from mlmicroservicetemplate_tpu_torch.api.app import build_app
 from mlmicroservicetemplate_tpu_torch.models import bert as port_bert
 from mlmicroservicetemplate_tpu_torch.serve import build_service
 
-NOT_PORTED = {"fault_tolerance", "fleet", "durability", "jobs", "tenancy", "perf"}
+NOT_PORTED = {"fault_tolerance", "fleet", "durability", "jobs", "perf"}
 PORT_ONLY = {"device_name", "dispatches", "decode_steps"}
 MEASURED = {"uptime_s", "compile"}
 FLIGHT = {"flight_ring", "flight_dumps"}
@@ -91,6 +93,14 @@ CASES = {
                    [("/v1/completions", {"prompt": "hello hello hello", "max_tokens": 16,
                                          "stream": True}, {}),
                     ("/predict", {"text": "abcabcabcabc", "max_tokens": 12}, {})]),
+    # ADAPTER_DIR (written per test): streams on each adapter and on none.
+    "llama-lora": ({"ADAPTER_DIR": None, "ADAPTER_SLOTS": "2"},
+                   [("/predict", {"text": "hello there", "max_tokens": 8, "stream": True},
+                     {"X-Adapter": "alpha"}),
+                    ("/v1/completions", {"prompt": "hello there", "max_tokens": 8,
+                                         "stream": True}, {"X-Adapter": "beta"}),
+                    ("/predict", {"text": "hello there", "max_tokens": 8, "stream": True},
+                     {})]),
 }
 
 
@@ -152,9 +162,11 @@ def _apps(model: str, extra: dict):
 
 
 @pytest.mark.parametrize("case", list(CASES))
-def test_status_has_the_jax_apps_keys_and_values(case):
-    model = case.split("-pipeline")[0].split("-spec")[0]
+def test_status_has_the_jax_apps_keys_and_values(case, tmp_path):
+    model = case.split("-pipeline")[0].split("-spec")[0].split("-lora")[0]
     extra, posts = CASES[case]
+    if "ADAPTER_DIR" in extra:
+        extra = {**extra, "ADAPTER_DIR": write_adapters(tmp_path, "llama", LLAMA)}
     japp, app = _apps(model, extra)
     want = asyncio.run(_status(japp, posts))
     got = asyncio.run(_status(app, posts))
@@ -168,6 +180,9 @@ def test_status_has_the_jax_apps_keys_and_values(case):
     for key in set(want["observability"]) - FLIGHT:
         assert got["observability"][key] == want["observability"][key], key
     assert got["observability"]["flight_ring"] == got["observability"]["flight_dumps"] == 0
+    assert ("tenancy" in got) == ("tenancy" in want) == (case == "llama-lora")
+    if case == "llama-lora":
+        assert got["tenancy"]["adapters"]["installs"] == 2
     assert ("decode" in got) == ("decode" in want) == (model != "bert-base")
     if "decode" not in want:
         return
