@@ -11,6 +11,7 @@
     python3 chip_smoke.py --spec           # the speculative decoding phase only
     python3 chip_smoke.py --quant          # the QUANTIZE=int8 phase only
     python3 chip_smoke.py --lora           # the LoRA adapters phase only
+    python3 chip_smoke.py --faults         # faults, tuning and the converter only
 
 Phases, one JSON line each; any failure exits non-zero and prints no
 result line:
@@ -262,8 +263,9 @@ result line:
    32}, T=576: wall time against busy time, split into K2, GEMMs, other,
    eager and as a graph of the step.
 8g. serve quantize (``--quant`` runs the build and 8g alone): weight-only
-   int8 (``QUANTIZE=int8``).  TinyLlama at full width (22 layers, seed-0
-   weights cast to bf16, then quantized on the card) whole (K2) and through
+   int8 (``QUANTIZE=int8``).  TinyLlama at full width (22 layers under
+   ``--quant``, the first ``CUT_LAYERS`` in the main run; seed-0 weights
+   cast to bf16, then quantized on the card) whole (K2) and through
    the paged loop (16 slots, K3), batch buckets 1 and 16, the waves of 7
    (a third sampled and seeded); the service's q8 and scales must equal
    those of a model quantized the same way, and every token is
@@ -279,8 +281,9 @@ result line:
    within PROB_TOL and RESNET_LOGIT_TOL as 5 and 6a; 0 graph misses; one
    ``/predict`` each over loopback (ResNet's a PNG, where PIL is installed).
 8h. serve llama lora (``--lora`` runs the build and 8h alone): batched
-   multi-adapter LoRA.  TinyLlama at full width through the paged loop (16
-   slots, one batch bucket, 16, so every start pads to it) with
+   multi-adapter LoRA.  TinyLlama at full width (22 layers under
+   ``--lora``, the first ``CUT_LAYERS`` in the main run) through the paged
+   loop (16 slots, one batch bucket, 16, so every start pads to it) with
    ``ADAPTER_DIR`` a temporary directory of three adapters of q/k/v/o
    written from seed 0 (ranks 8, 16 with alpha 32, 8 with alpha 16) and
    ``ADAPTER_SLOTS=2``: two waves of 12 streams on alpha, beta and none in
@@ -296,12 +299,39 @@ result line:
    Printed: an install's ms, and one chunk of the 16 slots with and
    without the adapters (as 7b, as graphs only), whose busy difference
    over the chunk's steps is the delta's device ms a step.
+8i. serve llama faults (``--faults`` runs the build, 8i and ``convert
+   gpt2`` alone): TinyLlama at full width (22 layers, seed-0 weights)
+   through the paged loop's graphs (4 slots, one seq bucket of 256, 48
+   tokens in chunks of 4), four streams (one sampled), each case an engine of its
+   own over one bundle.  clean: the heuristic split, every token
+   teacher-forced, K3 22 a slot step.  autotune: ``PALLAS_AUTOTUNE=1`` on
+   a fresh table; every feasible split count of K3 verified against the
+   plain version, then timed (CUDA events behind a device spin), each
+   candidate's device µs and the winner printed; the loop's K3 plans at
+   the winner, its tokens the clean run's; a second engine on the table
+   (the process table forgotten) hits it, no sweep.  pin:
+   ``PALLAS_VARIANT`` at a split that is not the heuristic's.  fatal
+   (``chunk:fatal@5``), transient (``chunk:transient@2+3``, three retries)
+   and hang (``chunk:hang(30)@5``, ``DISPATCH_TIMEOUT_S=3``): the streams
+   resume with the clean run's tokens (identical, or a greedy row parting
+   at a near tie; every token teacher-forced), one rebuild for fatal and
+   hang (none for transient), no capture in the drive, the chunk graphs
+   replayed after the rebuild over the slot state's same addresses; the rebuild's ms and the fault to the
+   first resumed token printed.  budget (``chunk:fatal~1``,
+   ``ENGINE_RESTARTS_MAX=1``): through the app, the stream fails,
+   ``/readyz`` answers 503 with the reference's body.  Then ``convert
+   gpt2``: the converter CLI's entry point on a seed-0 GPT-2 HF state dict
+   at full width; ``MODEL_PATH`` at its output and at the ``.npz`` give
+   equal parameters and bf16 logits on the card.
 8a. serve gpt2, serve gpt2 stream (paged), serve gpt2 stream contiguous,
    each with its graphs phase: GPT-2 small at full width (12 layers, 768
    hidden, 12 heads, vocab 50257, position table 1024; random weights from
-   seed 0; bf16; the byte tokenizer), as 7 and 7b (the whole service on
-   the 5 x 4 grid of batch 1, 2, 4, 8, 16 and seq 32, 64, 128, 256, the
-   loops on CUT_GRID): K2 or K3 launch 12 times a decode step (R = 1) and
+   seed 0; bf16; the byte tokenizer), as 7 and 7b (every service on
+   CUT_GRID; the two loops, the prefix services and the speculative loop
+   at the first ``CUT_LAYERS`` of its 12 layers; the
+   whole service, ``serve gpt2 chunked`` (its tokens held against the
+   whole one's) and the window and pipeline phases (their eos picked from
+   a probe) at 12): K2 or K3 launch once a layer a decode step (R = 1) and
    never in prefill.
 8a'. serve gpt2 prefix, serve gpt2 prefix per-stream, serve gpt2 prompt
    prefix, each with its graphs phase: GPT-2 small (4 slots, batch
@@ -419,8 +449,10 @@ from __future__ import annotations
 import argparse
 import asyncio
 import dataclasses
+import contextlib
 import functools
 import json
+import os
 import re
 import socket
 import subprocess
@@ -462,7 +494,8 @@ HEADS, HEAD_DIM, LAYERS = 12, 64, 12
 LLAMA_HEADS, LLAMA_KV_HEADS, PAGE = 32, 4, 16
 # Depth of the llama services cut to stay within the run's time limit (the
 # int8 KV services, the loop phases, the classes, prefix, chunked and tier
-# phases; the whole service, 8f's llama, 8g and 8h keep TinyLlama's 22).
+# phases, 8f's llama, 8g and 8h in the main run; the whole service and 8i
+# keep TinyLlama's 22, as do ``--spec``, ``--quant`` and ``--lora``).
 CUT_LAYERS = 6
 # The llama the rehearsal serves on the CPU.
 REHEARSAL_LLAMA = dict(vocab_size=512, d_model=256, num_heads=4, num_kv_heads=2,
@@ -505,10 +538,10 @@ LAUNCHED_KERNEL = {"fused_attention": r"EncoderOp", "decode_attention": r"decode
 # waits PROFILER_SETTLE_S before the traced work (``profiler_primer``); the
 # spin kernels are left out of every count by their name.
 PRIMER_KERNELS, PROFILER_SETTLE_S = 256, 0.05
-# The bucket grid of the services that repeat a path which GPT-2's whole
-# service warms on the full grid (5 x 4 buckets): 3 x 2 buckets, a wave of
-# 2 padded to 4 and of 5 or 8 to 16, so a llama service's warmup captures
-# 24 graphs, not 80.
+# The bucket grid of the services that repeat a path (every llama and
+# GPT-2 service of the main run, GPT-2's whole one included):
+# 3 x 2 buckets, a wave of 2 padded to 4 and of 5 or 8 to 16, so a llama
+# service's warmup captures 24 graphs, not 80.
 CUT_GRID = {"BATCH_BUCKETS": "1,4,16", "SEQ_BUCKETS": "64,256"}
 PRIMER_KERNEL = re.compile(r"spin_kernel")
 # Served logits through a CUDA graph against the same engine's eager
@@ -522,8 +555,14 @@ MMA_LIBRARIES = ("decode_attention", "paged_decode_attention")
 RAGGED = (342, 1, 999, 63, 500, 880, 31, 1000)
 
 
+# Every phase line carries the seconds since the script started
+# (``at_s``): the differences are what each phase cost of the run's limit.
+T_START = time.monotonic()
+
+
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    print(json.dumps({"phase": phase, **kw, "at_s": round(time.monotonic() - T_START, 1)}),
+          flush=True)
 
 
 def card() -> str:
@@ -2588,6 +2627,21 @@ def alone_vs_batch(bundle, ref_model, f: dict, in_batch, alone, tol: float) -> d
     return out
 
 
+@contextlib.contextmanager
+def gpt2_layers(n: int):
+    """Every GPT-2 the registry builds inside has ``n`` layers (it takes the
+    first ``n`` of the weights it is given): the registry's config is GPT-2
+    small's, whose depth no knob sets."""
+    from mlmicroservicetemplate_tpu_torch.models import gpt as gpt_mod
+
+    full = gpt_mod.GPTConfig
+    gpt_mod.GPTConfig = functools.partial(full, num_layers=n)
+    try:
+        yield
+    finally:
+        gpt_mod.GPTConfig = full
+
+
 def release(bundle) -> None:
     """Drop a finished service's graphs from the cache and return their
     memory (the http phase keeps the services it drives)."""
@@ -4604,15 +4658,17 @@ def window_gpt2(rehearsal: bool, device: str) -> tuple[dict, int]:
 
 
 def window_service(overrides: dict, params, eos: int | None):
-    """A service of the phase's model with ``eos`` rigged, its loop's slot
-    state built and chunk graphs captured (``warm_streams``); the engine's
-    bucket graphs are captured at first use."""
+    """A service of the phase's model with ``eos`` rigged, its engine's
+    bucket graphs captured and its loop's slot state built and chunk graphs
+    captured (``warm_engine``, ``warm_streams``): no pass captures a start
+    graph, whose eager run would launch K2 outside the loop's counts (a
+    pass's waves form as the streams arrive)."""
     from mlmicroservicetemplate_tpu_torch.serve import build_service
 
     cfg, bundle, engine, batcher = build_service(overrides, params=params)
     if eos is not None:
         rig_eos(bundle, eos)
-    warm_s = batcher.warm_streams()
+    warm_s = batcher.warm_engine() + batcher.warm_streams()
     return cfg, bundle, engine, batcher, warm_s
 
 
@@ -6249,6 +6305,660 @@ def weight_main(which: str, rehearsal: bool) -> int:
     return 0
 
 
+# Faults, the watchdog, the supervisor and K3's split autotuner (8i), and
+# the converter CLI, over TinyLlama at full width through the paged loop's
+# graphs.  One bundle; each case is an engine and a batcher of its own over
+# it (the engines share the bundle's start graphs, each loop captures its
+# chunk graphs at its warm-up).
+FAULT_WORDS = ["fault", "rebuild", "resume", "split", "tune", "graph", "slot", "watchdog"]
+
+
+def fault_items(rehearsal: bool) -> list:
+    """Four prompts of 14-58 bytes (under every seq bucket of the phase),
+    the last sampled and seeded; each asks for the whole decode budget."""
+    import numpy as np
+
+    from mlmicroservicetemplate_tpu_torch.models.registry import RawItem
+
+    rng = np.random.default_rng(8)
+    items = []
+    for i, n in enumerate((14, 30, 45, 58)):
+        text = " ".join(rng.choice(FAULT_WORDS, size=n))[:n]
+        sampling = dict(temperature=0.8, top_k=40, seed=2024) if i == 3 else {}
+        items.append(RawItem(text=text, **sampling))
+    return items
+
+
+def faults_overrides(device: str, rehearsal: bool) -> dict:
+    """The phase's service: TinyLlama, paged (16-token blocks), 4 slots,
+    one seq bucket (256: a table of 19 blocks, 5 key tiles, so K3 has four
+    split counts to choose from), 48 tokens in chunks of 4 (12 chunk
+    dispatches a wave), one dispatch in flight."""
+    ov = {"MODEL_NAME": "llama", "DEVICE": device, "PAGED_KV": "1", "KV_BLOCK_SIZE": str(PAGE),
+          "MAX_STREAMS": "4", "BATCH_BUCKETS": "1,4", "SEQ_BUCKETS": "256",
+          "MAX_DECODE_LEN": "48", "STREAM_CHUNK_TOKENS": "4", "STREAM_PIPELINE": "1"}
+    if rehearsal:
+        ov["SEQ_BUCKETS"] = "64"
+    if rehearsal:
+        ov["LLAMA_CONFIG"] = json.dumps(REHEARSAL_LLAMA)
+    return ov
+
+
+def fault_engine(bundle, overrides: dict, **knobs):
+    """An engine and a batcher over ``bundle`` under the phase's overrides
+    and ``knobs``, warmed as the app warms (the bucket graphs, then the
+    loop: its tuning, then its chunk graphs); returns (cfg, engine,
+    batcher, warm seconds)."""
+    from mlmicroservicetemplate_tpu_torch.engine.engine import InferenceEngine
+    from mlmicroservicetemplate_tpu_torch.scheduler.batcher import Batcher
+    from mlmicroservicetemplate_tpu_torch.utils.config import load_config
+
+    cfg = load_config({**overrides, **knobs})
+    engine = InferenceEngine(bundle, cfg)
+    batcher = Batcher(engine, cfg)
+    t0 = time.monotonic()
+    batcher.warm_engine()
+    batcher.warm_streams()
+    return cfg, engine, batcher, time.monotonic() - t0
+
+
+async def drive_queued(batcher, bundle, items):
+    """Every item's stream queued before the loop's thread starts (one
+    wave), each read to its end; returns (feats, [its tokens, or the
+    stream's exception])."""
+    loop = batcher._cdl
+    await batcher.start()
+    feats = [bundle.preprocess(item) for item in items]
+
+    async def read(gen):
+        return [int(x) async for chunk in gen for x in chunk]
+
+    try:
+        loop._ensure_thread = lambda: None
+        try:
+            gens = [batcher.submit_stream(dict(f)) for f in feats]
+        finally:
+            del loop._ensure_thread
+        loop._ensure_thread()
+        outs = await asyncio.gather(*(read(g) for g in gens), return_exceptions=True)
+    finally:
+        await batcher.stop()
+    return feats, outs
+
+
+def spy_recover(loop) -> list:
+    """Record each supervised recovery of ``loop``: (start, end) monotonic
+    seconds and whether it rebuilt."""
+    seen = []
+    orig = loop._recover
+
+    def timed(exc):
+        t0 = time.monotonic()
+        ok = orig(exc)
+        seen.append((t0, time.monotonic(), ok))
+        return ok
+
+    loop._recover = timed
+    return seen
+
+
+def greedy_parting(bundle, ref_model, f: dict, want, got, tol: float) -> dict:
+    """Two greedy rows of one request: identical, or they part first at a
+    step where both tokens are within the tolerance of the f32 reference's
+    best logit (teacher-forced on ``want``), so twice it of each other:
+    another split's summation order, a recast's prefill or another batch
+    shape in bf16 may flip such a step."""
+    import torch
+
+    a, b = [int(t) for t in want], [int(t) for t in got]
+    n = min(len(a), len(b))
+    at = next((j for j in range(n) if a[j] != b[j]), None)
+    out = {"tokens": n, "identical": at is None and len(a) == len(b)}
+    if at is None:
+        if len(a) != len(b):
+            raise AssertionError(f"{len(a)} tokens against {len(b)}")
+        return out
+    with torch.inference_mode():
+        ref = forced_logits(bundle, ref_model, f, a[: at + 1])[-1]
+    best = float(ref.max())
+    gaps = (best - float(ref[a[at]]), best - float(ref[b[at]]))
+    out.update(parted_at=at, gaps=gaps, tol=tol)
+    if max(gaps) > tol:
+        raise AssertionError(f"a greedy stream parted from the clean run off a near tie: {out}")
+    return out
+
+
+def same_tokens(label: str, bundle, ref_model, feats, want_rows, got_rows, tol: float,
+                max_len: int) -> dict:
+    """Each stream's tokens against the clean run's: identical, or a greedy
+    row parting only at a near tie (``greedy_parting``); and every token of
+    every row teacher-forced against the f32 reference (a sampled row's
+    draws too, where a token at the top-k or top-p boundary may fall either
+    side of it)."""
+    exact, parted = 0, []
+    for f, want, got in zip(feats, want_rows, got_rows):
+        if isinstance(got, BaseException):
+            raise AssertionError(f"{label}: a stream failed: {type(got).__name__}: {got}")
+        if [int(t) for t in want] == [int(t) for t in got]:
+            exact += 1
+        elif float(f.get("temperature", 0.0)) > 0:
+            at = next((j for j, (a, b) in enumerate(zip(want, got)) if a != b),
+                      min(len(want), len(got)))
+            parted.append({"sampled": True, "parted_at": at})
+        else:
+            parted.append(greedy_parting(bundle, ref_model, f, want, got, tol))
+    check = teacher_forced(bundle, ref_model, feats, got_rows, max_len)
+    return {"streams": len(got_rows), "identical": exact, "parted": parted,
+            "worst_gap": check["worst_gap"], "tol": check["tol"],
+            "sampled_worst_gap_over_tol": check["sampled_worst_gap_over_tol"]}
+
+
+def loop_plan_splits(loop) -> list[int]:
+    """The split counts of the K3 plans built, under the tuning table's
+    current state and with no forced count, for this loop's decode shape
+    (its slots, its table width)."""
+    from mlmicroservicetemplate_tpu_torch.ops import autotune
+    from mlmicroservicetemplate_tpu_torch.ops import paged_attention as pa
+
+    gen = autotune.generation()
+    # key: (block size, forced splits, generation) + the signature, whose
+    # 13th field is the table's shape
+    return sorted({plan.splits for key, plan in pa._paged_plans.items()
+                   if key[1] is None and key[2] == gen
+                   and tuple(key[15]) == (loop.n_slots, loop.nb_max)})
+
+
+def graph_replays(loop) -> int:
+    """Replays so far of the loop's chunk graphs (argmax and sampled)."""
+    return sum(loop.chunk_graph(s).replays for s in (False, True))
+
+
+def state_addresses(loop) -> list[int]:
+    from mlmicroservicetemplate_tpu_torch.models.gpt import state_tensors
+
+    return [t.data_ptr() for t in state_tensors(loop._state)]
+
+
+def recovery_case(label: str, bundle, ref_model, overrides: dict, clean, tol: float, drive,
+                  rehearsal: bool, card_line: str, restarts: int, fired: int, **knobs) -> dict:
+    """One fault case: an engine under ``knobs``, the phase's streams
+    driven, then held: the clean run's tokens (``same_tokens``),
+    ``restarts`` supervised rebuilds and ``fired`` injected faults, every
+    stream released and every block back; on the card no graph captured in
+    the drive, the chunk graphs replayed after the rebuild, and the slot
+    state at the addresses the graphs were captured over.  Times: each
+    rebuild, and from its start to the loop's first emission after it (a
+    resumed stream's first token)."""
+    from mlmicroservicetemplate_tpu_torch.runtime.compile_cache import CACHE
+
+    cfg, engine, batcher, warm_s = fault_engine(bundle, overrides, **knobs)
+    loop = batcher._cdl
+    recs = spy_recover(loop)
+    # The loop's emissions (tokens sent to a stream), by time.
+    emitted = []
+    emit_tokens = loop._emit_tokens
+
+    def emit_spy(st, chunk):
+        before = loop.tokens_emitted
+        emit_tokens(st, chunk)
+        if loop.tokens_emitted > before:
+            emitted.append(time.monotonic())
+
+    loop._emit_tokens = emit_spy
+    at_recover = []
+    if not rehearsal:
+        orig = loop._recover
+
+        def probe(exc):
+            at_recover.append(graph_replays(loop))
+            return orig(exc)
+
+        loop._recover = probe
+        addresses, inserts = state_addresses(loop), CACHE.counts["insert"]
+    t0 = time.monotonic()
+    feats, outs = drive(batcher)
+    wall = time.monotonic() - t0
+    tokens = same_tokens(label, bundle, ref_model, feats, clean,
+                         outs, tol,
+                         engine.max_decode_len)
+    sup = batcher.supervisor.stats()
+    got_fired = sum(r.fired for r in engine.faults.rules)
+    out = dict(card=card_line, knobs=knobs, warm_s=warm_s, wall_s=wall,
+               tokens=tokens, supervisor=sup, fired=got_fired,
+               chunk_dispatches=loop.chunk_dispatches,
+               dispatch_counts=dict(sorted(engine.dispatch_counts.items())))
+    if sup["restarts"] != restarts or sup["failed"] or got_fired != fired:
+        raise AssertionError(f"{label}: {sup}, {got_fired} faults fired "
+                             f"(want {restarts} restarts, {fired} faults)")
+    if loop.admitted or engine.kv_pool.used_blocks:
+        raise AssertionError(f"{label}: {loop.admitted} streams, "
+                             f"{engine.kv_pool.used_blocks} blocks never released")
+    if recs:
+        start, end, _ = recs[0]
+        after = [t for t in emitted if t > end]
+        out.update(rebuild_ms=(end - start) * 1e3,
+                   fault_to_first_resumed_token_ms=(min(after) - start) * 1e3 if after else None)
+    if not rehearsal:
+        after = graph_replays(loop) - (at_recover[0] if at_recover else 0)
+        out.update(captures_in_drive=CACHE.counts["insert"] - inserts,
+                   chunk_replays_after_rebuild=after if at_recover else None,
+                   state_addresses_kept=state_addresses(loop) == addresses)
+        if out["captures_in_drive"] or not out["state_addresses_kept"] or (
+                at_recover and after < 1):
+            raise AssertionError(f"{label}: the rebuild left the graphs: {out}")
+    emit(label, **out)
+    return out
+
+
+async def budget_http(cfg, bundle, engine, batcher) -> dict:
+    """The app over ``batcher`` (its canary through the batch path), one
+    streamed completion whose chunks fault until the budget is spent, then
+    ``/readyz`` until it answers 503, and ``/status.fault_tolerance``."""
+    import aiohttp
+    from aiohttp import web
+
+    from mlmicroservicetemplate_tpu_torch.api.app import build_app
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    app = build_app(dataclasses.replace(cfg, warmup=False), bundle, engine, batcher)
+    runner = web.AppRunner(app, access_log=None)
+    await runner.setup()
+    try:
+        await web.TCPSite(runner, "127.0.0.1", port).start()
+        url = f"http://127.0.0.1:{port}"
+        async with aiohttp.ClientSession() as session:
+            for _ in range(600):
+                async with session.get(f"{url}/readyz") as r:
+                    if r.status == 200:
+                        break
+                await asyncio.sleep(0.05)
+            else:
+                raise AssertionError("/readyz never turned 200")
+            async with session.post(f"{url}/v1/completions", json={
+                    "prompt": "a budget spent", "max_tokens": 32, "stream": True}) as r:
+                stream_status, body = r.status, await r.text()
+            for _ in range(600):
+                async with session.get(f"{url}/readyz") as r:
+                    ready_status, ready = r.status, await r.json()
+                if ready_status == 503:
+                    break
+                await asyncio.sleep(0.05)
+            async with session.get(f"{url}/status") as r:
+                status = await r.json()
+        return {"stream_status": stream_status, "stream_error": "error" in body,
+                "readyz_status": ready_status, "readyz": ready,
+                "fault_tolerance": status.get("fault_tolerance")}
+    finally:
+        await runner.cleanup()
+
+
+def gpt2_hf_state(cfg, seed: int) -> dict:
+    """A random HF GPT-2 state dict at ``cfg``'s widths (``transformer.*``
+    names, Conv1D weights ``[in, out]``): N(0, 0.02) weights, unit
+    LayerNorm scales, zero biases."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    d, f = cfg.d_model, cfg.d_ff
+
+    def w(*shape):
+        a = rng.standard_normal(shape, dtype=np.float32)
+        a *= 0.02
+        return a
+
+    state = {"transformer.wte.weight": w(cfg.vocab_size, d),
+             "transformer.wpe.weight": w(cfg.max_position, d),
+             "transformer.ln_f.weight": np.ones(d, np.float32),
+             "transformer.ln_f.bias": np.zeros(d, np.float32)}
+    for i in range(cfg.num_layers):
+        b = f"transformer.h.{i}"
+        for name in ("ln_1", "ln_2"):
+            state[f"{b}.{name}.weight"] = np.ones(d, np.float32)
+            state[f"{b}.{name}.bias"] = np.zeros(d, np.float32)
+        for name, (n_in, n_out) in (("attn.c_attn", (d, 3 * d)), ("attn.c_proj", (d, d)),
+                                    ("mlp.c_fc", (d, f)), ("mlp.c_proj", (f, d))):
+            state[f"{b}.{name}.weight"] = w(n_in, n_out)
+            state[f"{b}.{name}.bias"] = np.zeros(n_out, np.float32)
+    return state
+
+
+# A child process that meets the two kinds of CUDA error: an allocation
+# past the card (out of memory) and an out-of-range index (a device-side
+# assert, which the runtime makes sticky: the next call fails too).  It
+# prints what torch raised, as [type, message], one JSON object.
+STICKY_CHILD = """
+import json, torch
+out = {}
+try:
+    torch.empty(1 << 40, device="cuda")
+except Exception as e:
+    out["oom"] = [type(e).__name__, str(e)]
+try:
+    t = torch.zeros(4, device="cuda")
+    t[torch.tensor([10], device="cuda")] = 1.0
+    torch.cuda.synchronize()
+except Exception as e:
+    out["assert"] = [type(e).__name__, str(e)]
+try:
+    (torch.ones(1, device="cuda") + 1).cpu()
+except Exception as e:
+    out["after"] = [type(e).__name__, str(e)]
+print(json.dumps(out))
+"""
+
+
+def phase_sticky_errors(card_line: str) -> dict:
+    """The fault classifier on what torch really raises on the card, from a
+    child process (a sticky error ends the process's use of the card):
+    its device-side assert, and the call after it, must read as a poisoned
+    context; its out-of-memory error must not."""
+    import torch
+
+    from mlmicroservicetemplate_tpu_torch.engine.faults import is_context_poisoned
+
+    run = subprocess.run([sys.executable, "-c", STICKY_CHILD], capture_output=True,
+                         text=True, timeout=300)
+    got = json.loads(run.stdout.strip().splitlines()[-1])
+    if set(got) != {"oom", "assert", "after"}:
+        raise AssertionError(f"serve llama faults sticky: the child raised {got}, "
+                             f"stderr {run.stderr[-2000:]}")
+    kinds = {"OutOfMemoryError": torch.cuda.OutOfMemoryError,
+             "AcceleratorError": getattr(torch, "AcceleratorError", RuntimeError)}
+    out = {}
+    for key, (kind, msg) in got.items():
+        exc = kinds.get(kind, RuntimeError)(msg)
+        out[key] = {"type": kind, "message": msg.splitlines()[0],
+                    "poisoned": is_context_poisoned(exc)}
+    if (out["oom"]["poisoned"] or not out["assert"]["poisoned"]
+            or not out["after"]["poisoned"]):
+        raise AssertionError(f"serve llama faults sticky: misclassified {out}")
+    emit("serve llama faults sticky", card=card_line, **out)
+    return out
+
+
+def phase_convert_gpt2(card_line: str, device: str = "cuda") -> dict:
+    """The converter CLI's entry point on a seed-0 random GPT-2 HF state
+    dict at full width (``.npz``), then ``MODEL_PATH`` at its output and at
+    the ``.npz`` itself: the two models' parameters and bf16 logits on the
+    card must be equal."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mlmicroservicetemplate_tpu_torch.convert.__main__ import main as convert_main
+    from mlmicroservicetemplate_tpu_torch.models import gpt as gpt_mod
+    from mlmicroservicetemplate_tpu_torch.models.registry import build_model
+    from mlmicroservicetemplate_tpu_torch.utils.config import load_config
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_convert_")
+    try:
+        src, ckpt = f"{work}/gpt2.npz", f"{work}/ckpt"
+        np.savez(src, **gpt2_hf_state(gpt_mod.GPTConfig(), seed=0))
+        t0 = time.monotonic()
+        convert_main(["--model", "gpt2", "--input", src, "--output", ckpt])
+        convert_s = time.monotonic() - t0
+        models = {}
+        for name, path in (("checkpoint", ckpt), ("npz", src)):
+            models[name] = build_model(load_config(
+                {"MODEL_NAME": "gpt2", "DEVICE": device, "MODEL_PATH": path, "WARMUP": "0",
+                 "SEQ_BUCKETS": "64", "MAX_DECODE_LEN": "16"}))
+        a, b = models["checkpoint"], models["npz"]
+        sa, sb = a.model.state_dict(), b.model.state_dict()
+        if sorted(sa) != sorted(sb) or not all(torch.equal(sa[k], sb[k]) for k in sa):
+            raise AssertionError("MODEL_PATH at the checkpoint built other weights than at "
+                                 "the .npz")
+        ids = torch.tensor([list(b"the converter's checkpoint serves these logits")],
+                           dtype=torch.int32, device=device)
+        with torch.inference_mode():
+            la, lb = (gpt_mod.lm_logits(m.model, ids, torch.ones_like(ids),
+                                        m.policy.compute_dtype).float() for m in (a, b))
+        diff = float((la - lb).abs().max())
+        out = dict(card=card_line, convert_s=convert_s, parameters=len(sa),
+                   checkpoint_mb=os.path.getsize(f"{ckpt}/params.npz") / 1e6,
+                   npz_mb=os.path.getsize(src) / 1e6, logits=list(la.shape),
+                   logits_max_abs_diff=diff, logits_finite=bool(la.isfinite().all()))
+        if diff != 0.0 or not out["logits_finite"]:
+            raise AssertionError(f"convert gpt2: logits differ: {out}")
+        emit("convert gpt2", **out)
+        del models, a, b
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        return out
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def phase_serve_faults(params, ref_model, rehearsal: bool, card_line: str) -> dict:
+    """8i: TinyLlama (the rehearsal's small llama on the CPU) through the
+    paged loop's graphs, four streams (one sampled) of 48 tokens:
+
+    - clean: the heuristic split, no fault; every token teacher-forced;
+    - (a) ``PALLAS_AUTOTUNE=1`` with a fresh table: the sweep verifies every
+      candidate split against the plain version before timing it (none
+      rejected), each candidate's device µs and the winner printed, the
+      loop's K3 plans at the winner's split, its tokens the clean run's; a
+      second engine on the same table (the process table forgotten) hits
+      it with no sweep;
+    - (b) ``PALLAS_VARIANT`` pinned to a split that is not the heuristic's:
+      its plans at the pin, the clean run's tokens;
+    - (c) ``chunk:fatal@5`` under the supervisor: one rebuild, the streams
+      resumed with the clean run's tokens, the chunk graphs replayed after
+      it over the same slot state, no capture;
+    - (d) ``chunk:transient@2+3`` with three retries: invisible, no rebuild;
+    - (e) ``chunk:hang(30)@5`` cut by a 3 s ``DISPATCH_TIMEOUT_S``: one
+      rebuild, as (c);
+    - (f) ``chunk:fatal~1`` with ``ENGINE_RESTARTS_MAX=1``: through the app,
+      the stream fails, ``/readyz`` answers 503 with the reference's body
+      and ``/status.fault_tolerance`` reads the spent budget.
+
+    Tokens "the clean run's": identical, or a greedy row parting only at a
+    near tie, and every token teacher-forced against the f32 reference
+    (``same_tokens``).  Returns the K2 and K3 launches of its drives."""
+    import tempfile
+
+    from mlmicroservicetemplate_tpu_torch.models.registry import build_model
+    from mlmicroservicetemplate_tpu_torch.ops import autotune
+    from mlmicroservicetemplate_tpu_torch.ops.attention import decode_attention
+    from mlmicroservicetemplate_tpu_torch.ops.paged_attention import (
+        feasible_splits,
+        paged_decode_attention,
+    )
+    from mlmicroservicetemplate_tpu_torch.utils.config import load_config
+
+    device = "cpu" if rehearsal else "cuda"
+    ov = faults_overrides(device, rehearsal)
+    bundle = build_model(load_config(ov), params=params)
+    items = fault_items(rehearsal)
+    launches = {"decode_attention": 0, "paged_decode_attention": 0}
+
+    def drive(batcher):
+        k2, k3 = decode_attention.launches, paged_decode_attention.launches
+        out = asyncio.run(drive_queued(batcher, bundle, items))
+        launches["decode_attention"] += decode_attention.launches - k2
+        launches["paged_decode_attention"] += paged_decode_attention.launches - k3
+        return out
+
+    autotune.clear()
+    try:
+        # clean
+        cfg0, engine0, batcher0, warm0 = fault_engine(bundle, ov)
+        loop0 = batcher0._cdl
+        default_splits = [] if rehearsal else loop_plan_splits(loop0)
+        k3 = paged_decode_attention.launches
+        feats, outs = drive(batcher0)
+        k3 = paged_decode_attention.launches - k3
+        if any(isinstance(o, BaseException) for o in outs):
+            raise AssertionError(f"serve llama faults clean: {outs}")
+        clean = outs
+        check = teacher_forced(bundle, ref_model, feats, clean, engine0.max_decode_len)
+        want_k3 = 0 if rehearsal else bundle.cfg.num_layers * loop0.decode_steps
+        if k3 != want_k3 or any(len(r) != engine0.max_decode_len for r in clean):
+            raise AssertionError(f"serve llama faults clean: K3 {k3} launches (want {want_k3}), "
+                                 f"rows of {[len(r) for r in clean]} tokens")
+        emit("serve llama faults clean", card=card_line, layers=bundle.cfg.num_layers,
+             slots=loop0.n_slots, table_blocks=loop0.nb_max, warm_s=warm0,
+             heuristic_splits=default_splits, chunk_dispatches=loop0.chunk_dispatches,
+             paged_decode_attention_launches=k3, **check)
+        tol = check["tol"]
+        if rehearsal:
+            for name in ("autotune", "pin"):
+                emit(f"serve llama faults {name}",
+                     skipped="cpu rehearsal: the loop tunes K3 on the card only")
+        else:
+            # (a) the sweep, then a second engine on its table
+            table = f"{tempfile.mkdtemp(prefix='chip_smoke_tune_')}/pallas_tune.json"
+            knobs = {"PALLAS_AUTOTUNE": "1", "PALLAS_TUNE_TABLE": table}
+            autotune.clear()
+            sweep_s = []
+            ensure = autotune.ensure_tuned
+
+            def timed(*a, **k):
+                t0 = time.monotonic()
+                got = ensure(*a, **k)
+                sweep_s.append(time.monotonic() - t0)
+                return got
+
+            autotune.ensure_tuned = timed
+            try:
+                _, _, batcher_a, warm_a = fault_engine(bundle, ov, **knobs)
+            finally:
+                autotune.ensure_tuned = ensure
+            loop_a = batcher_a._cdl
+            stats = autotune.stats()
+            ((key, sweep),) = stats["sweeps"].items()
+            counts = stats["counts"]
+            cands = feasible_splits(loop_a.nb_max, loop_a.block_size)
+            winner = int(sweep["winner"][1:])
+            tuned_splits = loop_plan_splits(loop_a)
+            if (counts["sweeps"] != 1 or counts["candidates"] != len(cands)
+                    or counts["timed"] != len(cands) or counts["reject_verify"]
+                    or counts["reject_error"] or loop_a.kernel_variant != sweep["winner"]
+                    or tuned_splits != [winner]):
+                raise AssertionError(f"serve llama faults autotune: {stats}, the loop's "
+                                     f"variant {loop_a.kernel_variant!r}, its plans "
+                                     f"{tuned_splits}, feasible {cands}")
+            _, outs_a = drive(batcher_a)
+            tokens_a = same_tokens("serve llama faults autotune", bundle, ref_model, feats,
+                                   clean, outs_a, tol, engine0.max_decode_len)
+            autotune.clear()  # a new process on the same table
+            _, _, batcher_a2, _ = fault_engine(bundle, ov, **knobs)
+            counts2 = autotune.stats()["counts"]
+            if (counts2["hits"] != 1 or counts2["sweeps"] != 0
+                    or batcher_a2._cdl.kernel_variant != sweep["winner"]
+                    or loop_plan_splits(batcher_a2._cdl) != [winner]):
+                raise AssertionError(f"serve llama faults autotune: the second engine "
+                                     f"{counts2}, {batcher_a2._cdl.kernel_variant!r}")
+            emit("serve llama faults autotune", card=card_line, key=key,
+                 candidates=[f"s{n}" for n in cands], default=sweep["default"],
+                 winner=sweep["winner"], device_us=sweep["per_call_us"],
+                 sweep_s=sweep_s[0], warm_s=warm_a, counts=counts, tokens=tokens_a,
+                 second_engine=counts2)
+            # (b) a pin that is not the heuristic's split
+            others = [n for n in cands if n not in default_splits]
+            if not others:
+                raise AssertionError(f"serve llama faults pin: no split but {default_splits}")
+            pin = next((n for n in others if n != winner), others[0])
+            autotune.clear()
+            _, _, batcher_b, _ = fault_engine(bundle, ov, PALLAS_VARIANT=f"s{pin}")
+            pinned = loop_plan_splits(batcher_b._cdl)
+            if pinned != [pin] or autotune.stats()["counts"]["pins"] != 1:
+                raise AssertionError(f"serve llama faults pin: plans {pinned}, pin s{pin}")
+            _, outs_b = drive(batcher_b)
+            tokens_b = same_tokens("serve llama faults pin", bundle, ref_model, feats, clean,
+                                   outs_b, tol, engine0.max_decode_len)
+            emit("serve llama faults pin", card=card_line, pin=f"s{pin}", plans=pinned,
+                 tokens=tokens_b)
+            autotune.clear()  # the fault cases run the heuristic's split
+        # (c) fatal, (d) transient, (e) hang
+        fatal = recovery_case("serve llama faults fatal", bundle, ref_model, ov, clean, tol,
+                              drive, rehearsal, card_line, restarts=1, fired=1,
+                              FAULT_SPEC="chunk:fatal@5")
+        recovery_case("serve llama faults transient", bundle, ref_model, ov, clean, tol, drive,
+                      rehearsal, card_line, restarts=0, fired=3,
+                      FAULT_SPEC="chunk:transient@2+3", DISPATCH_RETRIES="3",
+                      DISPATCH_BACKOFF_S="0.001")
+        hang = recovery_case("serve llama faults hang", bundle, ref_model, ov, clean, tol,
+                             drive, rehearsal, card_line, restarts=1, fired=1,
+                             FAULT_SPEC="chunk:hang(30)@5", DISPATCH_TIMEOUT_S="3")
+        # (f) the budget spent, through the app
+        cfg_f, engine_f, batcher_f, _ = fault_engine(bundle, ov, FAULT_SPEC="chunk:fatal~1",
+                                                     ENGINE_RESTARTS_MAX="1")
+        try:
+            import aiohttp  # noqa: F401
+        except ImportError:
+            feats_f, outs_f = drive(batcher_f)
+            budget = {"http": "aiohttp is not installed; the loop driven directly",
+                      "streams_failed": all(isinstance(o, BaseException) for o in outs_f),
+                      "fault_tolerance": batcher_f.supervisor.stats()}
+            ok = budget["streams_failed"]
+        else:
+            budget = asyncio.run(budget_http(cfg_f, bundle, engine_f, batcher_f))
+            ok = (budget["readyz_status"] == 503 and budget["readyz"] == {
+                "ready": False, "error": "engine restart budget exhausted (ENGINE_RESTARTS_MAX)"}
+                and budget["stream_error"])
+        if not ok or budget["fault_tolerance"] != {"restarts": 1, "max_restarts": 1,
+                                                   "failed": True}:
+            raise AssertionError(f"serve llama faults budget: {budget}")
+        emit("serve llama faults budget", card=card_line, **budget)
+        if rehearsal:
+            emit("serve llama faults sticky", skipped="cpu rehearsal: no CUDA error to raise")
+        else:
+            phase_sticky_errors(card_line)
+        emit("serve llama faults", card=card_line, ok=True, launches=launches,
+             fatal_rebuild_ms=fatal.get("rebuild_ms"),
+             fatal_to_first_resumed_token_ms=fatal.get("fault_to_first_resumed_token_ms"),
+             hang_rebuild_ms=hang.get("rebuild_ms"),
+             hang_cut_to_first_resumed_token_ms=hang.get("fault_to_first_resumed_token_ms"))
+        return launches
+    finally:
+        autotune.clear()
+        if not rehearsal:
+            release(bundle)
+
+
+def faults_main(rehearsal: bool) -> int:
+    """``--faults``: the build and 8i alone (the converter's check on the
+    card), TinyLlama at full width (the rehearsal's small llama on the CPU,
+    no build).  Prints no result line."""
+    import torch
+
+    phase = "env"
+    try:
+        if not rehearsal and not torch.cuda.is_available():
+            print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
+            return 1
+        card_line = "cpu (rehearsal)" if rehearsal else card()
+        emit(phase, card=card_line, torch=torch.__version__, cuda=torch.version.cuda,
+             mode="faults")
+        if not rehearsal:
+            phase = "build"
+            phase_build()
+        from mlmicroservicetemplate_tpu_torch.convert.jax_params import llama_params_from_jax
+        from mlmicroservicetemplate_tpu_torch.models import llama as llama_mod
+
+        device = "cpu" if rehearsal else "cuda"
+        cfg = llama_mod.LlamaConfig(**(REHEARSAL_LLAMA if rehearsal else {}), eos_id=1, pad_id=0)
+        params = llama_pytree(cfg, seed=0)
+        ref = llama_mod.build_model(cfg, llama_params_from_jax(params, cfg), torch.device(device),
+                                    torch.float32)
+        phase = "serve llama faults"
+        phase_serve_faults(params, ref, rehearsal, card_line)
+        if rehearsal:
+            emit("convert gpt2", skipped="cpu rehearsal: GPT-2 at full width runs on the card")
+        else:
+            phase = "convert gpt2"
+            phase_convert_gpt2(card_line)
+    except Exception as e:
+        traceback.print_exc()
+        emit(phase, ok=False, error=f"{type(e).__name__}: {e}")
+        return 1
+    return 0
+
+
 def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
@@ -6269,6 +6979,8 @@ def main(argv: list[str]) -> int:
                     help="only the build and the QUANTIZE=int8 phase")
     ap.add_argument("--lora", action="store_true",
                     help="only the build and the LoRA adapters phase")
+    ap.add_argument("--faults", action="store_true",
+                    help="only the build, the faults and tuning phase and the converter's")
     args = ap.parse_args(argv)
     if args.perf:
         return perf_main()
@@ -6284,6 +6996,8 @@ def main(argv: list[str]) -> int:
         return spec_main(args.cpu_rehearsal)
     if args.quant or args.lora:
         return weight_main("quant" if args.quant else "lora", args.cpu_rehearsal)
+    if args.faults:
+        return faults_main(args.cpu_rehearsal)
     rehearsal = args.cpu_rehearsal
     t_start = time.monotonic()
     phase = "env"
@@ -6517,18 +7231,27 @@ def main(argv: list[str]) -> int:
         # depth) for the run's time.
         phase = "serve spec llama"
         spec_k2 = spec_llama(cparams, cref, rehearsal, card_line, cut)
-        del cref, cparams
         if rehearsal:
             emit("decode step", skipped="cpu rehearsal: no card to profile")
         else:
             phase = "decode step"
             phase_decode_step(llama_svc[1])
-        # Weight int8 (8g) and LoRA adapters (8h) at full depth on the
-        # whole service's weights.
+        # Weight int8 (8g) and LoRA adapters (8h) at CUT_LAYERS layers for
+        # the run's time (``--quant`` and ``--lora`` keep 22).
         phase = "serve quantize"
-        quant_launches = phase_serve_quant(params, lcfg, rehearsal, card_line)
+        quant_launches = phase_serve_quant(cparams, ccfg, rehearsal, card_line)
         phase = "serve llama lora"
-        lora_launches = phase_serve_lora(params, ref_model, lcfg, rehearsal, card_line)
+        lora_launches = phase_serve_lora(cparams, cref, ccfg, rehearsal, card_line)
+        del cref, cparams
+        # Faults, the watchdog, the supervisor and K3's autotuner (8i) at
+        # full depth, then the converter CLI at GPT-2's full width.
+        phase = "serve llama faults"
+        fault_launches = phase_serve_faults(params, ref_model, rehearsal, card_line)
+        if rehearsal:
+            emit("convert gpt2", skipped="cpu rehearsal: GPT-2 at full width runs on the card")
+        else:
+            phase = "convert gpt2"
+            phase_convert_gpt2(card_line)
         del ref_model, params
 
         # GPT-2 small at full width, random weights from seed 0, bf16: whole,
@@ -6543,55 +7266,18 @@ def main(argv: list[str]) -> int:
         if rehearsal:
             gpt2_overrides.update(BATCH_BUCKETS="1,2,4", SEQ_BUCKETS="32,64",
                                   MAX_DECODE_LEN="16")
-        gpt2_svc = phase_serve_gen(phase, gpt2_overrides, gparams, gref, rehearsal, card_line)
+        gpt2_svc = phase_serve_gen(phase, {**gpt2_overrides, **grid}, gparams, gref, rehearsal,
+                                   card_line)
         phase = "graphs gpt2"
         graphs("gpt2", gpt2_svc[1], gpt2_svc[4],
                graph_vs_eager=lambda: tokens_graph_vs_eager(gpt2_svc[2], gpt2_svc[5][-16:]))
         gpt2_k2, gpt2_k3 = gpt2_svc[3], 0
-        gpt2_stream = None
-        for phase, extra in (("serve gpt2 stream", {}),
-                             ("serve gpt2 stream contiguous", {"PAGED_KV": "0"})):
-            svc = phase_serve_stream(phase, {**gpt2_overrides, **grid, "PAGED_KV": "1",
-                                             "KV_BLOCK_SIZE": str(PAGE), "MAX_STREAMS": "16",
-                                             "MAX_DECODE_LEN": "16" if rehearsal else "64",
-                                             **extra},
-                                     gparams, gref, rehearsal, card_line)
-            gpt2_k2 += svc[3]
-            gpt2_k3 += svc[4]
-            label = phase[len("serve "):]
-            phase = f"graphs {label}"
-            graphs(label, svc[1], svc[5],
-                   graph_vs_eager=lambda: chunk_graph_vs_eager(svc[2], svc[6]))
-            if gpt2_stream is None:
-                gpt2_stream = svc  # kept for the http phase
-            else:
-                release(svc[1])
-        # The prefix cache on the contiguous loop (a conversation's solo
-        # hits, a grouped burst), on the per-stream path
-        # (CONTINUOUS_BATCHING=0: start_fused), then PROMPT_PREFIX, whole and
-        # in the loop.
-        s_max = 64 if rehearsal else 256
         prefix_base = {**gpt2_overrides, "BATCH_BUCKETS": "1,4", "MAX_STREAMS": "4",
                        "MAX_DECODE_LEN": "16" if rehearsal else "64"}
-        for phase, extra, steps, gates, kw in (
-                ("serve gpt2 prefix", {"PREFIX_CACHE": "1"}, prefix_steps(s_max, 1, 4),
-                 ("prefix_hit_waves",), {}),
-                ("serve gpt2 prefix per-stream",
-                 {"PREFIX_CACHE": "1", "CONTINUOUS_BATCHING": "0", "BATCH_BUCKETS": "1"},
-                 prefix_steps(s_max, 2, 0), (), {}),
-                ("serve gpt2 prompt prefix", {"PROMPT_PREFIX": GPT2_PROMPT_PREFIX},
-                 [("whole", prompt_items(4, 2)), ("wave", prompt_items(4, 1))], (),
-                 {"prompt_prefix": GPT2_PROMPT_PREFIX})):
-            svc = phase_serve_prefix(phase, {**prefix_base, **extra}, gparams, gref, steps,
-                                     rehearsal, card_line, gates=gates, **kw)
-            gpt2_k2 += svc[1].get("decode_attention", 0)
-            label = phase[len("serve "):]
-            phase = f"graphs {label}"
-            graphs(label, svc[0], svc[2])
-            release(svc[0])
         # Chunked prefill on the contiguous loop (slots as wide as the
         # position table) with the prefix cache: prompts of 300-900 tokens,
-        # one a hit seeded into its job's state; against the whole service.
+        # one a hit seeded into its job's state; against the whole service,
+        # so at its 12 layers.
         phase = "serve gpt2 chunked"
         svc = phase_serve_gpt2_chunked(phase, {**prefix_base, **chunked_gpt2(rehearsal)},
                                        gparams, gref, gpt2_svc[2], rehearsal, card_line)
@@ -6600,7 +7286,8 @@ def main(argv: list[str]) -> int:
         graphs("gpt2 chunked", svc[0], svc[2])
         release(svc[0])
         # Fused decode windows over the contiguous loop, AUTO off, a third
-        # of the streams sampled and seeded.
+        # of the streams sampled and seeded (at 12 layers: its eos is picked
+        # from a probe's streams).
         phase = "serve gpt2 window"
         ov, n = window_gpt2(rehearsal, device)
         gwin = phase_serve_window(phase, ov, gparams, gref, rehearsal, card_line, cap=4,
@@ -6615,10 +7302,57 @@ def main(argv: list[str]) -> int:
                                                 card_line, n, n_late)
         gpt2_k2 += pipe_k2
         gpt2_k3 += pipe_k3
-        # SPEC_CONTINUOUS in the contiguous loop (8f).
-        phase = "serve spec gpt2 loop"
-        spec_k2 += spec_gpt2(gparams, gref, rehearsal, card_line)
-        del gref, gparams
+        # The loops, the prefix services and speculation at CUT_LAYERS layers
+        # for the run's time: the first CUT_LAYERS layers of the same
+        # weights.
+        gcut = gpt_mod.GPTConfig(num_layers=CUT_LAYERS, eos_id=1, pad_id=0)
+        cgparams = {**gparams, "layers": gparams["layers"][:CUT_LAYERS]}
+        cgref = gpt_mod.build_model(gcut, gpt_params_from_jax(cgparams, gcut),
+                                    torch.device(device), torch.float32)
+        gpt2_stream = None
+        with gpt2_layers(CUT_LAYERS):
+            for phase, extra in (("serve gpt2 stream", {}),
+                                 ("serve gpt2 stream contiguous", {"PAGED_KV": "0"})):
+                svc = phase_serve_stream(phase, {**gpt2_overrides, **grid, "PAGED_KV": "1",
+                                                 "KV_BLOCK_SIZE": str(PAGE), "MAX_STREAMS": "16",
+                                                 "MAX_DECODE_LEN": "16" if rehearsal else "64",
+                                                 **extra},
+                                         cgparams, cgref, rehearsal, card_line)
+                gpt2_k2 += svc[3]
+                gpt2_k3 += svc[4]
+                label = phase[len("serve "):]
+                phase = f"graphs {label}"
+                graphs(label, svc[1], svc[5],
+                       graph_vs_eager=lambda: chunk_graph_vs_eager(svc[2], svc[6]))
+                if gpt2_stream is None:
+                    gpt2_stream = svc  # kept for the http phase
+                else:
+                    release(svc[1])
+            # The prefix cache on the contiguous loop (a conversation's solo
+            # hits, a grouped burst), on the per-stream path
+            # (CONTINUOUS_BATCHING=0: start_fused), then PROMPT_PREFIX, whole and
+            # in the loop.
+            s_max = 64 if rehearsal else 256
+            for phase, extra, steps, gates, kw in (
+                    ("serve gpt2 prefix", {"PREFIX_CACHE": "1"}, prefix_steps(s_max, 1, 4),
+                     ("prefix_hit_waves",), {}),
+                    ("serve gpt2 prefix per-stream",
+                     {"PREFIX_CACHE": "1", "CONTINUOUS_BATCHING": "0", "BATCH_BUCKETS": "1"},
+                     prefix_steps(s_max, 2, 0), (), {}),
+                    ("serve gpt2 prompt prefix", {"PROMPT_PREFIX": GPT2_PROMPT_PREFIX},
+                     [("whole", prompt_items(4, 2)), ("wave", prompt_items(4, 1))], (),
+                     {"prompt_prefix": GPT2_PROMPT_PREFIX})):
+                svc = phase_serve_prefix(phase, {**prefix_base, **extra}, cgparams, cgref, steps,
+                                         rehearsal, card_line, gates=gates, **kw)
+                gpt2_k2 += svc[1].get("decode_attention", 0)
+                label = phase[len("serve "):]
+                phase = f"graphs {label}"
+                graphs(label, svc[0], svc[2])
+                release(svc[0])
+            # SPEC_CONTINUOUS in the contiguous loop (8f).
+            phase = "serve spec gpt2 loop"
+            spec_k2 += spec_gpt2(cgparams, cgref, rehearsal, card_line)
+        del gref, gparams, cgref, cgparams
         if rehearsal:
             emit("decode step gpt2", skipped="cpu rehearsal: no card to profile")
         else:
@@ -6848,13 +7582,15 @@ def main(argv: list[str]) -> int:
         # numbers), each served path of the run.
         kernel_entry("decode_attention", "mlmicroservicetemplate_tpu/ops/attention.py:310",
                      llama_svc[3] + llama8_launches + k2_streams + gpt2_k2 + spec_k2
-                     + quant_launches["decode_attention"] + lora_launches["decode_attention"],
+                     + quant_launches["decode_attention"] + lora_launches["decode_attention"]
+                     + fault_launches["decode_attention"],
                      decode_headline,
                      gpt2=gpt2_entry(gpt2_decode, gpt2_k2)),
         kernel_entry("paged_decode_attention",
                      "mlmicroservicetemplate_tpu/ops/paged_attention.py:353",
                      k3_streams + gpt2_k3 + quant_launches["paged_decode_attention"]
-                     + lora_launches["paged_decode_attention"], paged_headline,
+                     + lora_launches["paged_decode_attention"]
+                     + fault_launches["paged_decode_attention"], paged_headline,
                      gpt2=gpt2_entry(gpt2_paged, gpt2_k3)),
         # launches: the served bert-long path; the 4-shard check (a direct
         # call, no serving path) is counted apart.

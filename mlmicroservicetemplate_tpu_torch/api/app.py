@@ -138,7 +138,7 @@ async def _on_startup(app: web.Application) -> None:
                     None, batcher.warm_streams)
             else:
                 # Canary: ready means "the device answers".
-                await batcher.submit(_canary_feats(app[K_BUNDLE]))
+                await _canary(app)
         except asyncio.CancelledError:
             raise
         except Exception as e:
@@ -154,6 +154,24 @@ async def _on_startup(app: web.Application) -> None:
 
         app[K_STATE]["_register_task"] = asyncio.get_running_loop().create_task(
             registration_loop(cfg, app[K_BUNDLE].name))
+
+
+async def _canary(app: web.Application) -> None:
+    """The canary dispatch runs under the engine's watchdog (the batcher's
+    guarded ``batch`` site), so a wedged device raises at
+    ``DISPATCH_TIMEOUT_S`` and leaves /readyz unready; the asyncio bound is
+    the reference's backstop for a hang outside guarded code (queue wait
+    and transient retries: twice the deadline plus 5 s)."""
+    timeout = float(getattr(app[K_CFG], "dispatch_timeout_s", 0.0) or 0.0)
+    coro = app[K_BATCHER].submit(_canary_feats(app[K_BUNDLE]))
+    if timeout > 0:
+        try:
+            await asyncio.wait_for(coro, timeout * 2 + 5.0)
+        except asyncio.TimeoutError:
+            raise TimeoutError(
+                f"canary dispatch exceeded DISPATCH_TIMEOUT_S={timeout}s; device wedged?")
+    else:
+        await coro
 
 
 def _canary_feats(bundle: ModelBundle) -> dict:
@@ -809,9 +827,18 @@ async def handle_healthz(request: web.Request) -> web.Response:
 
 
 async def handle_readyz(request: web.Request) -> web.Response:
-    if request.app[K_BATCHER].draining:
+    batcher = request.app[K_BATCHER]
+    if batcher.draining:
         return web.json_response({"ready": False, "draining": True}, status=503)
     if request.app[K_READY].is_set():
+        sup = getattr(batcher, "supervisor", None)
+        if sup is not None and sup.failed:
+            # The engine spent its restart budget (or a CUDA error poisoned
+            # its context): unready for good, so the LB stops routing here.
+            return web.json_response(
+                {"ready": False,
+                 "error": "engine restart budget exhausted (ENGINE_RESTARTS_MAX)"},
+                status=503)
         return web.json_response({"ready": True})
     body = {"ready": False}
     err = request.app[K_STATE]["ready_error"]
@@ -850,6 +877,9 @@ async def handle_status(request: web.Request) -> web.Response:
         },
         "compile": app[K_BATCHER].compile_status(),
     }
+    sup = getattr(app[K_BATCHER], "supervisor", None)
+    if sup is not None:
+        body["fault_tolerance"] = sup.stats()
     tenancy = getattr(app[K_BATCHER], "tenancy_status", lambda: None)()
     if tenancy is not None:
         # The adapter pool's slot residency (ADAPTER_DIR); absent without.
@@ -878,6 +908,16 @@ async def handle_status(request: web.Request) -> web.Response:
             "prep_misses": cdl.prep_misses,
             "dispatch_counts": dict(sorted(engine.dispatch_counts.items())),
         }
+        # K3's split variant (PALLAS_AUTOTUNE / PALLAS_VARIANT; "" = the
+        # heuristic's) and the autotuner's counters and table, under the
+        # reference's condition.
+        if cdl.kernel_variant or getattr(app[K_CFG], "pallas_autotune", False):
+            from ..ops import autotune
+
+            a_stats = autotune.stats()
+            body["decode"]["kernel_variant"] = cdl.kernel_variant
+            body["decode"]["autotune"] = a_stats["counts"]
+            body["decode"]["autotune_table"] = a_stats["table"]
     tr = tracing.tracer()
     # The flight recorder is not ported: its ring and dumps read 0.
     body["observability"] = {

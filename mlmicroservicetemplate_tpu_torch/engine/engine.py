@@ -86,6 +86,15 @@ not ported), the same functions run eagerly; ``graph_modes`` says which.
   rows input written before each replay), warmed with the base ones.  The
   whole path and the per-stream path stay on the base model, as in the
   reference.
+- Faults (``engine/faults.py``): ``faults`` (the ``FAULT_SPEC`` schedule,
+  its grammar checked here, before readiness) and ``watchdog``
+  (``DISPATCH_TIMEOUT_S``, ``DISPATCH_RETRIES``, ``DISPATCH_BACKOFF_S``)
+  around every dispatch site: ``dispatch_guard(site, fn)`` runs one
+  dispatch under both and counts its host seconds, ``fault_point`` is a
+  bare injection point (the paged allocator's ``grow``).  With no spec, no
+  deadline and no retries a guard is a plain call.  ``reset_device_state``
+  is the supervised rebuild's device half, in place: the pools, the params
+  and the graphs keep their addresses.
 """
 
 from __future__ import annotations
@@ -94,6 +103,7 @@ import logging
 import math
 import random
 import threading
+import time
 from typing import Iterator
 
 import numpy as np
@@ -105,6 +115,7 @@ from ..models.registry import KIND_IMAGE, KIND_SEQ2SEQ, KIND_TEXT, ModelBundle, 
 from ..models.sampling import SampleParams, advance, greedy_params, make_params
 from ..runtime import compile_cache
 from ..utils import metrics, tracing
+from .faults import FaultInjector, Watchdog
 from .kv_blocks import BlockPool, KVHostTier, PagedPrefix, blocks_for, kv_token_bytes
 from .prefix_cache import PrefixCache
 
@@ -310,6 +321,16 @@ class InferenceEngine:
         # and the prefix grid's warm accounting (``_warm_prefixed``).
         self._prefix_inputs: dict[tuple[int, int], dict] = {}
         self.prefix_warm: dict | None = None
+        # Fault injection and the dispatch watchdog (FAULT_SPEC; the port is
+        # one engine, replica 0).
+        self.faults = FaultInjector.from_spec(getattr(cfg, "fault_spec", None),
+                                              int(getattr(cfg, "fault_seed", 0) or 0))
+        self.watchdog = Watchdog(
+            bundle.name,
+            timeout_s=float(getattr(cfg, "dispatch_timeout_s", 0.0) or 0.0),
+            retries=int(getattr(cfg, "dispatch_retries", 2)),
+            backoff_s=float(getattr(cfg, "dispatch_backoff_s", 0.05)),
+            injector=self.faults)
 
     def note_dispatch(self, site: str, host_s: float | None = None) -> None:
         """Count one host dispatch or fetch boundary at ``site`` and, given
@@ -322,6 +343,43 @@ class InferenceEngine:
         with self._counts_lock:
             counts = self.dispatch_counts
             self.dispatch_counts = {**counts, site: counts.get(site, 0) + 1}
+
+    def dispatch_guard(self, site: str, fn):
+        """Run one dispatch (or fetch) ``fn`` under the fault injector and
+        the watchdog, and count it at ``site`` with its host seconds.  A
+        fault fires before ``fn`` touches the device, so a retried
+        transient dispatches once."""
+        t0 = time.perf_counter()
+        out = self.watchdog.run(site, fn)
+        self.note_dispatch(site, time.perf_counter() - t0)
+        return out
+
+    def fault_point(self, site: str) -> None:
+        """Bare injection point for a boundary that is not a dispatch (the
+        paged allocator's ``grow``: an injected ``OutOfBlocks`` takes the
+        checkpoint-and-requeue path)."""
+        if self.faults is not None:
+            self.faults.fire(site)
+
+    def reset_device_state(self) -> None:
+        """The device half of a supervised rebuild, in place.  The reference
+        re-creates the paged pool and re-places the params, because its
+        executables take buffers as arguments; the port's graphs replay
+        fixed addresses, so the pools, the params and the pinned buffers
+        stay where they are, and what named the torn-down state goes: the
+        prefix cache is flushed (its pins' refs return to the pool, with no
+        demotion) and the demotions still queued return theirs.  The loop
+        resets its slot state in place and has already returned every
+        stream's blocks."""
+        self._host_demote_on = False
+        try:
+            if self.prefix_cache is not None:
+                self.prefix_cache.flush()
+        finally:
+            self._host_demote_on = True
+        pending, self._host_demote_pending = self._host_demote_pending, []
+        for _key, entry in pending:
+            self.kv_pool.free(list(entry.block_ids))
 
     def budget_for(self, feats: dict) -> int:
         """One stream's token budget: its max_tokens clamped to the
@@ -929,7 +987,8 @@ class InferenceEngine:
         budget = self.budget_for(feats)
         width = self.stream_width(self._collate_text([feats])[0].shape[1])
         with self._lock, torch.inference_mode():
-            state, toks, sampled, shape = self.start_fused(feats, width)
+            state, toks, sampled, shape = self.watchdog.run(
+                "prefill", lambda: self.start_fused(feats, width))
             chunk, done = toks[0].cpu().numpy(), bool(state.done[0])
             self.note_dispatch("prefill")
             self.note_dispatch("fetch")
@@ -941,7 +1000,8 @@ class InferenceEngine:
         yield chunk[:budget]
         while not done and produced < budget:
             with self._lock, torch.inference_mode():
-                toks = self._stream_chunk(shape, state, sampled)
+                toks = self.watchdog.run(
+                    "chunk", lambda: self._stream_chunk(shape, state, sampled))
                 chunk, done = toks[0].cpu().numpy(), bool(state.done[0])
                 self.note_dispatch("chunk")
                 self.note_dispatch("fetch")

@@ -239,8 +239,30 @@ prefill window over ``_ad_job_rows``.  Both are device buffers allocated
 with the slot state, before its graphs are captured, and written by
 device fills before a dispatch when a slot's adapter changed.
 
-Not ported (``ROADMAP.md``): the disk KV tier, fleets, the journal and the
-supervisor (the reference's ``prefill_chunk`` fault site with them).
+Faults and supervised recovery (``FAULT_SPEC``, ``DISPATCH_TIMEOUT_S``,
+``SUPERVISE``; ``engine/faults.py``, ``engine/supervisor.py``): every
+dispatch of the loop runs through ``engine.dispatch_guard`` at its site.
+An iteration that raises goes to ``_recover``: under a supervisor with
+budget left, every stream pending, mid-prefill, mid-prefetch or live is
+checkpointed at the tokens it delivered and queued again, as a preempted
+one is (``_checkpoint_requeue``; after a watchdog cut no KV swaps out,
+``_swap_hold``), the slot state and the block table reset in place (the
+graphs keep their addresses, so they stay valid) and the prefix cache
+flushed (``engine.reset_device_state``); the streams then resume
+token-identically.  A failed prefill parks the fault
+(``_fault_pending``) for the next iteration top, its streams requeued
+(``_fail_streams``).  Without a supervisor, with the budget spent or after
+a CUDA error that poisoned the context, every stream ends with the error;
+a spent or failed supervisor stops the loop.  The reference's flight
+recorder dump (the observability slice) and its fleet failover are not
+ported.
+
+The decode-kernel autotuner (``PALLAS_AUTOTUNE``, ``PALLAS_VARIANT``;
+``ops/autotune.py``): ``warm`` resolves K3's split count at the paged
+loop's shape before the slot state's graphs are captured
+(``_autotune_kernel``), so they replay the winner's grid.
+
+Not ported (``ROADMAP.md``): the disk KV tier, fleets and the journal.
 """
 
 from __future__ import annotations
@@ -260,6 +282,7 @@ from ..models.gpt import GPTState, PagedState, copy_state, state_tensors
 from ..models.sampling import greedy_params
 from ..models.spec import SpecState, flatten_emitted
 from ..models.window import decode_window
+from ..ops import autotune
 from ..ops.paged_attention import gather_pages, scatter_pages
 from ..runtime import compile_cache
 from ..scheduler.admission import AdmissionController
@@ -275,6 +298,7 @@ from ..scheduler.policy import (
 from ..tenancy.adapters import AdapterBusy
 from ..utils import metrics, tracing
 from .engine import bucket_for
+from .faults import DispatchTimeoutError, is_context_poisoned, is_fatal_device
 from .kv_blocks import OutOfBlocks, PagedPrefix, StreamBlocks, blocks_for
 
 log = logging.getLogger(__name__)
@@ -661,6 +685,15 @@ class ContinuousDecodeLoop:
         self._ad_rows: torch.Tensor | None = None
         self._ad_job_rows: torch.Tensor | None = None
         self._ad_rows_now: list[int] = []
+        # Crash recovery: the batcher attaches the supervisor (SUPERVISE);
+        # None ends every stream on a fault.  A fatal fault the prefill path
+        # parked (its streams requeued) runs the recovery at the next
+        # iteration top; after a watchdog cut no KV swaps out.
+        self.supervisor = None
+        self._fault_pending: BaseException | None = None
+        self._swap_hold = False
+        # K3's split variant resolved at warm-up ("" = the heuristic's).
+        self.kernel_variant = ""
 
     # ------------------------------------------------------------------
     # event-loop side
@@ -785,6 +818,7 @@ class ContinuousDecodeLoop:
             with compile_cache.warm_phase(self.model, "loop") as phase, \
                     torch.inference_mode(), eng._lock:
                 if self._state is None:
+                    self._autotune_kernel()
                     self._build_empty_state()
                 self._state, toks = self._chunk_call()
                 _HostCopy(*_outputs(toks)).tensors()
@@ -795,6 +829,29 @@ class ContinuousDecodeLoop:
                         self._tune_chain_depth()
                 self._build_empty_state()
         return phase.seconds
+
+    def _autotune_kernel(self) -> None:
+        """K3's split count for this loop's decode shape, before the slot
+        state's graphs are captured: a ``PALLAS_VARIANT`` pin checked
+        against the table width and installed, else under
+        ``PALLAS_AUTOTUNE`` the table's entry or a measured sweep
+        (``ops/autotune.py``).  A no-op for the contiguous loop, off the
+        card, or with neither knob set (``kernel_variant`` stays "")."""
+        eng = self.engine
+        cfg = eng.cfg
+        pin = getattr(cfg, "pallas_variant", None) or None
+        if not (self.paged and eng.device.type == "cuda"
+                and (pin or getattr(cfg, "pallas_autotune", False))):
+            return
+        bcfg = eng.bundle.cfg
+        kvh = int(getattr(bcfg, "num_kv_heads", bcfg.num_heads))
+        self.kernel_variant = autotune.ensure_tuned(
+            "paged_decode", b=self.n_slots, kvh=kvh, n_rep=int(bcfg.num_heads) // kvh,
+            d=int(bcfg.head_dim), block_size=self.block_size, t=self.nb_max,
+            dtype=str(eng.bundle.policy.compute_dtype).split(".")[-1],
+            quant=bool(getattr(bcfg, "kv_quant", False)), device=eng.device, pin=pin,
+            table_path=autotune.default_table_path(getattr(cfg, "pallas_tune_table", None)),
+            iters=int(getattr(cfg, "pallas_autotune_iters", autotune.SWEEP_ITERS)))
 
     @staticmethod
     def depth_from(rtt_s: float, compute_s: float) -> int:
@@ -867,6 +924,11 @@ class ContinuousDecodeLoop:
                  "paged" if self.paged else "contiguous")
         while not self._stop.is_set():
             try:
+                # A fatal fault the prefill path parked (its streams
+                # requeued): the recovery runs now, with clean pending lists.
+                if self._fault_pending is not None:
+                    e, self._fault_pending = self._fault_pending, None
+                    raise e
                 # Streams whose deadline passed in the queue shed as 504s
                 # before any admission work.
                 self._expire_queued()
@@ -965,8 +1027,17 @@ class ContinuousDecodeLoop:
                     # flight: poll, do not spin.
                     time.sleep(0.01)
             except Exception as e:
+                if self._recover(e):
+                    continue
                 log.exception("decode loop iteration failed")
-                self._fail_all(e)
+                n_lost = self._fail_all(e)
+                if n_lost:
+                    metrics.STREAMS_LOST.labels(self.model, "0", "fault").inc(n_lost)
+                # The budget is spent (or the context poisoned): the loop
+                # stops, the shutdown below ends every queued consumer, and
+                # /readyz stays unready.
+                if self.supervisor is not None and self.supervisor.failed:
+                    self._stop.set()
         closed = StreamClosedError("server stopping")
         self._staged_prep = None  # the slot frees below return every block
         self._drain_swapouts()
@@ -981,16 +1052,17 @@ class ContinuousDecodeLoop:
             self._free_slot(slot)
         self._inflight.clear()
 
-    def _fail_all(self, exc: BaseException) -> None:
+    def _fail_all(self, exc: BaseException) -> int:
         """End every pending and live stream with ``exc``; the slot state
-        is rebuilt at the next admission."""
+        is rebuilt at the next admission.  Returns how many ended."""
+        n = len(self._pending_admissions) + len(self._pending_wave) + len(self.active)
         for st, *_ in self._pending_admissions:
             self._finish(st, exc)
         self._pending_admissions = []
         for st in self._pending_wave:
             self._finish(st, exc)
         self._pending_wave = []
-        self._fail_jobs(exc)
+        n += self._fail_jobs(exc)
         self._staged_prep = None  # the slot frees below return every block
         for slot in list(self.active):
             self.active[slot].emit(exc)
@@ -999,15 +1071,121 @@ class ContinuousDecodeLoop:
         self._state_stale = True  # reset at the next admission
         if self.paged and self.prefix_cache is not None:
             self._flush_pins()  # the pins name blocks of the pools to be reset
+        return n
 
-    def _fail_jobs(self, exc: BaseException) -> None:
+    def _fail_jobs(self, exc: BaseException) -> int:
         """End every stream mid-prefill or mid-prefetch with ``exc``, its KV
-        returned."""
-        for job in self._prefilling + self._swapping:
+        returned; returns how many."""
+        jobs = self._prefilling + self._swapping
+        for job in jobs:
             self._drop_job(job)
             self._finish(job.st, exc)
         self._prefilling = []
         self._swapping = []
+        return len(jobs)
+
+    # -- crash recovery ------------------------------------------------
+
+    def _checkpoint_requeue(self, st: _Stream) -> bool:
+        """Checkpoint one stream at its delivered tokens and queue it again
+        for a token-identical resume; a finished or cancelled one just ends.
+        Returns True when requeued."""
+        self.admission.release(st)
+        if st.cancelled.is_set() or st.budget - st.produced <= 0:
+            self._finish(st)
+            return False
+        self._requeue_preempted(st)
+        return True
+
+    def _fail_streams(self, streams: list[_Stream], exc: Exception) -> None:
+        """A failure on the prefill path of ``streams`` (in no slot yet).
+        Under a supervisor a fatal device fault requeues them (nothing was
+        delivered: the resume is a clean restart) and parks the fault for
+        the recovery at the next iteration top; anything else ends just
+        these streams, so one bad request never takes the loop down."""
+        if self.supervisor is not None and is_fatal_device(exc):
+            # A poisoned context resumes nothing: they end with the error,
+            # and the recovery fails the supervisor.
+            poisoned = is_context_poisoned(exc)
+            for st in streams:
+                if poisoned:
+                    self._finish(st, exc)
+                else:
+                    self._checkpoint_requeue(st)
+            self._fault_pending = exc
+            return
+        for st in streams:
+            self._finish(st, exc)
+
+    def _recover(self, exc: Exception) -> bool:
+        """Supervised recovery on the loop thread: checkpoint every pending,
+        mid-prefill, mid-prefetch and live stream at the tokens it
+        delivered (``produced`` advances only at routing, so a chunk in
+        flight belongs to no checkpoint), reset the device state in place
+        and queue the checkpoints again.  False (the caller ends every
+        stream) without a supervisor, with the budget spent, or after a CUDA
+        error that poisoned the context, which fails the supervisor
+        outright: no rebuild in this process can serve again.  (The
+        reference dumps its flight recorder here; that comes with the
+        observability slice.)"""
+        sup = self.supervisor
+        if sup is None:
+            return False
+        if is_context_poisoned(exc):
+            log.error("decode loop fault poisoned the CUDA context (%s: %s); "
+                      "no in-process restart", type(exc).__name__, exc)
+            sup.fail()
+            return False
+        if not sup.allow_restart():
+            return False
+        eng = self.engine
+        log.warning("decode loop fault (%s: %s); supervised engine restart %d/%d",
+                    type(exc).__name__, exc, sup.restarts, sup.max_restarts)
+        # After a watchdog cut the device may be wedged: no swap-out gather.
+        self._swap_hold = isinstance(exc, DispatchTimeoutError)
+        # Each checkpoint below returns its stream's whole block list,
+        # staged grants included.
+        self._staged_prep = None
+        recovered = 0
+        for st, *_ in self._pending_admissions:
+            recovered += self._checkpoint_requeue(st)
+        self._pending_admissions = []
+        for st in self._pending_wave:
+            recovered += self._checkpoint_requeue(st)
+        self._pending_wave = []
+        for job in self._prefilling:
+            self._swap_out_job(job)  # its consumed windows, unless held
+            self._drop_job(job)
+            recovered += self._checkpoint_requeue(job.st)
+        self._prefilling = []
+        for job in self._swapping:
+            # The host copy survives the rebuild: the resume prefetches again.
+            self._drop_job(job)
+            recovered += self._checkpoint_requeue(job.st)
+        self._swapping = []
+        for slot in list(self.active):
+            st = self.active.pop(slot)
+            recovered += self._checkpoint_requeue(st)
+        self._swap_hold = False
+        self.sampled_slots.clear()
+        self.free = list(range(self.n_slots))
+        self._inflight.clear()
+        # The swap-outs gathered above land while this thread owns them.
+        self._drain_swapouts()
+        # The slot state resets in place at the next admission; the graphs
+        # keep replaying the same addresses.
+        self._state_stale = True
+        if self.paged:
+            self._table[:] = self.pool.num_blocks
+            self._dispatched_steps.clear()
+        eng.reset_device_state()
+        self.admission.note_pool()
+        metrics.ENGINE_RESTARTS.labels(self.model).inc()
+        if recovered:
+            metrics.STREAMS_RECOVERED.labels(self.model, "0", "restart").inc(recovered)
+        log.info("engine rebuilt; %d stream checkpoint(s) requeued for token-identical "
+                 "resume", recovered)
+        return True
 
     def _reserve(self, st: _Stream) -> None:
         tr = tracing.tracer()
@@ -1272,17 +1450,14 @@ class ContinuousDecodeLoop:
         """One ``start`` of whole prompts for ``streams``, collated as one
         batch; returns their admissions (a failed start ends them)."""
         try:
-            t0 = time.perf_counter()
-            state1, toks, width = self.engine.start([st.feats for st in streams],
-                                                    self._wave_rows(streams))
-            host_s = time.perf_counter() - t0
+            state1, toks, width = self.engine.dispatch_guard(
+                "prefill", lambda: self.engine.start([st.feats for st in streams],
+                                                     self._wave_rows(streams)))
             copy = _HostCopy(toks, state1.done)
         except Exception as e:
-            for st in streams:
-                self._finish(st, e)
+            self._fail_streams(streams, e)
             return []
         self.prefill_dispatches += 1
-        self.engine.note_dispatch("prefill", host_s)
         for st in streams:
             st.s_lo, st.s_base = 0, width
         return [(st, state1, copy, row) for row, st in enumerate(streams)]
@@ -1349,17 +1524,14 @@ class ContinuousDecodeLoop:
             prefixes = [m[4] for m in members]
             prefixes += [prefixes[0]] * (ids.shape[0] - len(prefixes) if len(prefixes) > 1
                                          else 0)
-            t0 = time.perf_counter()
-            state1, toks = eng._start_prefixed(prefixes, ids, mask, sp, sampled,
-                                               self._wave_rows([m[0] for m in members]))
-            host_s = time.perf_counter() - t0
+            rows = self._wave_rows([m[0] for m in members])
+            state1, toks = eng.dispatch_guard(
+                "prefill", lambda: eng._start_prefixed(prefixes, ids, mask, sp, sampled, rows))
             copy = _HostCopy(toks, state1.done)
         except Exception as e:
-            for st, *_ in members:
-                self._finish(st, e)
+            self._fail_streams([st for st, *_ in members], e)
             return []
         self.prefill_dispatches += 1
-        eng.note_dispatch("prefill", host_s)
         if len(members) > 1:
             self.prefix_hit_waves += 1
         for st, *_ in members:
@@ -1393,13 +1565,15 @@ class ContinuousDecodeLoop:
         """Route each admitted stream's first chunk, then copy its row into
         a free slot (or end it, when the first chunk finished it); the
         caller holds the engine's lock."""
-        fetched: set[int] = set()
+        copies = {id(copy): copy for _, _, copy, _ in started}  # a wave's rows share one
+        try:
+            got = self.engine.dispatch_guard(
+                "fetch", lambda: {k: c.get() for k, c in copies.items()})
+        except Exception as e:
+            self._fail_streams([st for st, *_ in started], e)
+            return
         for st, state1, copy, row in started:
-            t0 = time.perf_counter()
-            toks_np, done_np = copy.get()
-            if id(copy) not in fetched:  # a wave's rows share one fetch
-                fetched.add(id(copy))
-                self.engine.note_dispatch("fetch", time.perf_counter() - t0)
+            toks_np, done_np = got[id(copy)]
             st.produced = self.chunk
             self._emit_tokens(st, toks_np[row])
             if bool(done_np[row]) or st.produced >= st.budget:
@@ -1506,7 +1680,7 @@ class ContinuousDecodeLoop:
                     self._seed_prefix_state(job.state, prefix, p_len)
         except Exception as e:
             self._drop_job(job)
-            self._finish(st, e)
+            self._fail_streams([st], e)
             return
         self._prefilling.append(job)
 
@@ -1557,17 +1731,16 @@ class ContinuousDecodeLoop:
             ids[0, : end - start] = job.ids[start:end]
             mask[0, : end - start] = 1
             if self.paged:
+                eng.fault_point("grow")
                 self._reclaim_then_ensure(job.sb, end)
                 job.table_row[: len(job.sb.ids)] = job.sb.ids
             with eng._lock:
-                t0 = time.perf_counter()
-                self._window_call(job, ids, mask, start)
-                host_s = time.perf_counter() - t0
+                eng.dispatch_guard("prefill_chunk",
+                                   lambda: self._window_call(job, ids, mask, start))
             if self.paged:
                 self.admission.note_pool()
             job.consumed = end
             self.prefill_chunk_dispatches += 1
-            eng.note_dispatch("prefill_chunk", host_s)
             metrics.PREFILL_CHUNKS.labels(self.model).inc()
 
     def _window_call(self, job: _PrefillJob, ids: np.ndarray, mask: np.ndarray,
@@ -1664,33 +1837,12 @@ class ContinuousDecodeLoop:
                 if self._state is None or self._state_stale:
                     self._build_empty_state()
                 slot = self.free.pop()
-                sp, _ = eng._collate_sample([st.feats], 1)
-                dev = eng.device
-                fields = dict(
-                    write_idx=torch.full((1,), job.L - 1, dtype=torch.long, device=dev),
-                    pos=torch.zeros(1, dtype=torch.long, device=dev),
-                    last_token=torch.full((1,), int(job.ids[-1]), dtype=torch.long, device=dev),
-                    done=torch.zeros(1, dtype=torch.bool, device=dev), sample=sp.to(dev))
-                if self.paged:
-                    key_valid = torch.zeros(1, self.nb_max * self.block_size, dtype=torch.int32,
-                                            device=dev)
-                    key_valid[:, : job.L] = 1
-                    tokens = torch.full((1, eng.max_decode_len), eng.bundle.cfg.pad_id,
-                                        dtype=torch.int32, device=dev)
-                    self._insert_rows(GPTState(cache_k=[], cache_v=[], key_valid=key_valid,
-                                               tokens=tokens, **fields), slot, 0)
-                    st.blocks, job.sb = job.sb, None
-                    self._table[slot] = job.table_row
-                    self._dispatched_steps[slot] = 0
-                else:
-                    for name, value in fields.items():
-                        setattr(job.state, name, value)
-                    self._insert(job.state, slot, 0)
+                eng.dispatch_guard("handoff", lambda: self._handoff_rows(job, slot))
         except Exception as e:
             if slot is not None:
                 self.free.append(slot)
             self._drop_job(job)
-            self._finish(st, e)
+            self._fail_streams([st], e)
             return False
         self.active[slot] = st
         if float(st.feats.get("temperature", 0.0)) > 0.0:
@@ -1706,6 +1858,34 @@ class ContinuousDecodeLoop:
                 self._donate(job.state, 0, job.ids, job.L, job.p_len or None)
         self._drop_job(job)
         return True
+
+    def _handoff_rows(self, job: _PrefillJob, slot: int) -> None:
+        """The row fields of a job whose prompt is exhausted into ``slot``
+        (paged: its blocks become the stream's; contiguous: its state goes in
+        by the slot insert); the caller holds the engine's lock."""
+        st, eng = job.st, self.engine
+        sp, _ = eng._collate_sample([st.feats], 1)
+        dev = eng.device
+        fields = dict(
+            write_idx=torch.full((1,), job.L - 1, dtype=torch.long, device=dev),
+            pos=torch.zeros(1, dtype=torch.long, device=dev),
+            last_token=torch.full((1,), int(job.ids[-1]), dtype=torch.long, device=dev),
+            done=torch.zeros(1, dtype=torch.bool, device=dev), sample=sp.to(dev))
+        if self.paged:
+            key_valid = torch.zeros(1, self.nb_max * self.block_size, dtype=torch.int32,
+                                    device=dev)
+            key_valid[:, : job.L] = 1
+            tokens = torch.full((1, eng.max_decode_len), eng.bundle.cfg.pad_id,
+                                dtype=torch.int32, device=dev)
+            self._insert_rows(GPTState(cache_k=[], cache_v=[], key_valid=key_valid,
+                                       tokens=tokens, **fields), slot, 0)
+            st.blocks, job.sb = job.sb, None
+            self._table[slot] = job.table_row
+            self._dispatched_steps[slot] = 0
+        else:
+            for name, value in fields.items():
+                setattr(job.state, name, value)
+            self._insert(job.state, slot, 0)
 
     def _advance_prefill(self) -> bool:
         """Dispatch prefill windows behind this iteration's decode chunk: the
@@ -1766,7 +1946,9 @@ class ContinuousDecodeLoop:
                 log.exception("prefill window failed")
                 self._prefilling.remove(job)
                 self._drop_job(job)
-                self._finish(job.st, e)
+                self._fail_streams([job.st], e)
+                if self._fault_pending is not None:
+                    break  # the recovery takes every other job at the top
                 continue
             advanced = True
             budget -= self.prefill_chunk
@@ -2025,6 +2207,7 @@ class ContinuousDecodeLoop:
         s_cut = st.s_base + self.chunk
         sb = st.blocks if st.blocks is not None else StreamBlocks(self.pool, self.block_size)
         try:
+            self.engine.fault_point("grow")
             self._reclaim_then_ensure(sb, s_cut)
             table_row = np.full(self.nb_max, self.pool.num_blocks, np.int32)
             table_row[: len(sb.ids)] = sb.ids
@@ -2202,7 +2385,7 @@ class ContinuousDecodeLoop:
         the next iteration top.  Any failure leaves the stream on the
         recompute resume: the swap is never a correctness dependency."""
         tier = self._host_tier()
-        if tier is None or self._state is None or st.cancelled.is_set():
+        if tier is None or self._state is None or st.cancelled.is_set() or self._swap_hold:
             return
         self._drop_swap(st)  # supersedes an earlier entry
         nb = blocks_for(cov, self.block_size)
@@ -2215,7 +2398,8 @@ class ContinuousDecodeLoop:
             entry = tier.reserve(nb, cov, kind="stream")
             if entry is None:
                 return  # the tier cannot hold it even after eviction
-            gathered, copy = self._gather(block_ids[:nb])
+            gathered, copy = self.engine.dispatch_guard(
+                "swap", lambda: self._gather(block_ids[:nb]))
         except Exception:
             log.exception("KV swap-out failed; the stream resumes by recompute")
             if entry is not None:
@@ -2426,13 +2610,15 @@ class ContinuousDecodeLoop:
             if k > 0:
                 try:
                     with self.engine._lock:
-                        self._host_to_device(entry, job.copied,
-                                             job.sb.ids[job.copied: job.copied + k])
+                        self.engine.dispatch_guard("swap", lambda: self._host_to_device(
+                            entry, job.copied, job.sb.ids[job.copied: job.copied + k]))
                 except Exception as e:
                     log.exception("KV prefetch failed")
                     self._swapping.remove(job)
                     self._drop_job(job)
-                    self._finish(job.st, e)
+                    self._fail_streams([job.st], e)
+                    if self._fault_pending is not None:
+                        break
                     continue
                 job.copied += k
                 budget -= k
@@ -2548,6 +2734,7 @@ class ContinuousDecodeLoop:
                 continue  # frees at the next delivery; its writes go to scratch
             steps = self._dispatched_steps.get(slot, 0) + self.chunk * max(1, n_chunks)
             try:
+                self.engine.fault_point("grow")
                 fresh = self._reclaim_then_ensure(st.blocks, st.s_base + min(steps, st.budget))
             except OutOfBlocks:
                 self._note_stall()
@@ -2698,10 +2885,12 @@ class ContinuousDecodeLoop:
                   for slot in self.active}
         table_np = self._table.copy()
         eng.note_dispatch("prep", time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        with eng._lock:
-            self._upload_table()
-        eng.note_dispatch("prep", time.perf_counter() - t0)
+
+        def upload():
+            with eng._lock:
+                self._upload_table()
+
+        eng.dispatch_guard("prep", upload)
         self._staged_prep = {"w": w, "tenants": dict(self.active),
                              "steps": dict(self._dispatched_steps), "deltas": deltas,
                              "table_np": table_np}
@@ -2765,20 +2954,17 @@ class ContinuousDecodeLoop:
                 if self.prefix_cache is not None:
                     self._note_shared_rows()
             events = self._window_events(w) if w > 1 else None
+            sample = bool(self.sampled_slots)
             with self.engine._lock:
-                t0 = time.perf_counter()
                 if w > 1:
-                    self._state, toks, hist, n = self._chunk_call(
-                        bool(self.sampled_slots), w, events, upload=not staged)
-                    host_s = time.perf_counter() - t0
+                    self._state, toks, hist, n = self.engine.dispatch_guard(
+                        "chunk", lambda: self._chunk_call(sample, w, events, upload=not staged))
                     copy = _HostCopy(toks, hist, n)
                 else:
-                    self._state, toks = self._chunk_call(bool(self.sampled_slots),
-                                                         upload=not staged)
-                    host_s = time.perf_counter() - t0
+                    self._state, toks = self.engine.dispatch_guard(
+                        "chunk", lambda: self._chunk_call(sample, upload=not staged))
                     base = self._state.base if self.spec else self._state
                     copy = _HostCopy(*_outputs(toks), base.done)
-        self.engine.note_dispatch("chunk", host_s)
         self.chunk_dispatches += 1
         if self.spec:
             self.spec_rounds += self.chunk
@@ -2801,9 +2987,7 @@ class ContinuousDecodeLoop:
 
     def _deliver_oldest(self) -> None:
         e = self._inflight.pop(0)
-        t0 = time.perf_counter()
-        fetched = e.copy.get()
-        self.engine.note_dispatch("fetch", time.perf_counter() - t0)
+        fetched = self.engine.dispatch_guard("fetch", e.copy.get)
         self._route_entry(e, fetched)
 
     def _deliver_all(self) -> None:
@@ -2811,10 +2995,12 @@ class ContinuousDecodeLoop:
         boundary: the newest copy's event follows every older one on the
         loop's CUDA stream."""
         entries, self._inflight = self._inflight, []
-        t0 = time.perf_counter()
-        entries[-1].copy.tensors()
-        fetched = [e.copy.get() for e in entries]
-        self.engine.note_dispatch("fetch", time.perf_counter() - t0)
+
+        def fetch():
+            entries[-1].copy.tensors()
+            return [e.copy.get() for e in entries]
+
+        fetched = self.engine.dispatch_guard("fetch", fetch)
         for e, got in zip(entries, fetched):
             self._route_entry(e, got)
 

@@ -227,11 +227,48 @@ def _bert_state(svc_cfg, cfg: bert_mod.BertConfig, params,
                 name: str = "bert-base") -> dict[str, torch.Tensor]:
     from ..convert.jax_params import bert_params_from_jax
 
+    if params is None and name == "bert-base":
+        state = _port_checkpoint(svc_cfg, name, cfg)
+        if state is not None:
+            return state
     params = _bert_pytree(svc_cfg, cfg, params, name)
     if params is not None:
         return bert_params_from_jax(params, cfg)
     log.info("no MODEL_PATH for %s: deterministic random init (seed %d)", name, INIT_SEED)
     return bert_mod.init_params(cfg, torch.Generator().manual_seed(INIT_SEED))
+
+
+def _port_checkpoint(svc_cfg, name: str, cfg) -> dict[str, torch.Tensor] | None:
+    """MODEL_PATH's parameters when it is a directory the converter CLI
+    wrote (``python -m mlmicroservicetemplate_tpu_torch.convert``): loaded
+    as they are, no HF mapping; else None."""
+    from .checkpoint import is_checkpoint_dir, load_checkpoint
+
+    path = svc_cfg.model_path
+    if not path or not is_checkpoint_dir(path):
+        return None
+    log.info("loading converted %s checkpoint from %s", name, path)
+    return load_checkpoint(path, name, getattr(cfg, "num_layers", None))
+
+
+def param_config(name: str, num_layers: int | None = None):
+    """The config whose parameter shapes a checkpoint of ``name`` has: the
+    model's standard widths (llama's as ``LLAMA_CONFIG`` sets them, as the
+    service reads that variable), at ``num_layers`` when given.  The
+    converter CLI carries its parameters into the port's names with it."""
+    layers = {} if num_layers is None else {"num_layers": int(num_layers)}
+    if name == "resnet50":
+        return resnet_mod.ResNetConfig()
+    if name == "bert-base":
+        return bert_mod.BertConfig(**layers)
+    if name == "t5-small":
+        return t5_mod.T5Config(**layers)
+    if name == "gpt2":
+        return gpt_mod.GPTConfig(**layers)
+    if name == "llama":
+        overrides = json.loads(os.environ.get("LLAMA_CONFIG") or "{}")
+        return llama_mod.LlamaConfig(**{**overrides, **layers})
+    raise ValueError(f"no checkpoint config for {name!r}")
 
 
 def _load_hf_state(path: str, name: str) -> dict[str, np.ndarray]:
@@ -240,7 +277,8 @@ def _load_hf_state(path: str, name: str) -> dict[str, np.ndarray]:
     if os.path.isdir(path):
         raise ValueError(
             f"MODEL_PATH={path!r} is a directory; the port loads HF state dicts "
-            "(.npz, .safetensors, .bin), not orbax checkpoints"
+            "(.npz, .safetensors, .bin) and the directories its converter writes "
+            "(python -m mlmicroservicetemplate_tpu_torch.convert), not orbax checkpoints"
         )
     log.info("loading %s checkpoint from %s", name, path)
     return load_state_dict(path)
@@ -255,6 +293,8 @@ def _build_resnet(svc_cfg, policy: DtypePolicy, device: torch.device,
     cfg = resnet_mod.ResNetConfig()
     if params is not None:
         state = resnet_params_from_jax(params, cfg)
+    elif (converted := _port_checkpoint(svc_cfg, "resnet50", cfg)) is not None:
+        state = converted
     elif svc_cfg.model_path:
         from ..convert.hf_maps import resnet_state_to_pytree
 
@@ -467,6 +507,9 @@ def _llama_state(svc_cfg, cfg: llama_mod.LlamaConfig, params) -> dict[str, torch
 
     if params is not None:
         return llama_params_from_jax(params, cfg)
+    state = _port_checkpoint(svc_cfg, "llama", cfg)
+    if state is not None:
+        return state
     if svc_cfg.model_path:
         from ..convert.hf_maps import llama_state_to_pytree
 
@@ -586,6 +629,9 @@ def _gpt_state(svc_cfg, cfg: gpt_mod.GPTConfig, params) -> dict[str, torch.Tenso
 
     if params is not None:
         return gpt_params_from_jax(params, cfg)
+    state = _port_checkpoint(svc_cfg, "gpt2", cfg)
+    if state is not None:
+        return state
     if svc_cfg.model_path:
         from ..convert.hf_maps import gpt2_state_to_pytree
 
@@ -638,6 +684,9 @@ def _t5_state(svc_cfg, cfg: t5_mod.T5Config, params) -> dict[str, torch.Tensor]:
 
     if params is not None:
         return t5_params_from_jax(params, cfg)
+    state = _port_checkpoint(svc_cfg, "t5-small", cfg)
+    if state is not None:
+        return state
     if svc_cfg.model_path:
         from ..convert.hf_maps import t5_state_to_pytree
 

@@ -10,18 +10,27 @@ position ``p`` of row ``b`` lives at ``pool[table[b, p // BS], p % BS]``.
   ``NB - 1`` on a gather and drops on a scatter.
 - ``paged_attention_ref``: the plain version (gather the dense view,
   dequantize, masked f32 softmax with masked keys at -1e30).
+- ``paged_attention_split_ref``: the plain version in the kernel's split
+  form (per-split partial (o, m, l), merged as the kernel's combine
+  merges them): the form each candidate split of the autotuner is held
+  against on the CPU.
 - ``paged_decode_attention``: the wrapper.  CUDA tensors launch the
   hand-written kernel ``csrc/paged_decode_attention.cu`` on the decode core
   ``csrc/decode_sm90.cuh`` that K2 shares (replacing the Pallas kernel
   ``paged_decode_attention`` of the JAX package, bodies ``_paged_kernel_v``
   and ``_fold_block``) or raise; CPU tensors take ``paged_attention_ref``.
-  The table splits across CTAs in whole blocks (``block_unit_tiles``,
-  ``split_plan``); each call signature's plan is built once.
+  The table splits across CTAs in whole blocks (``block_unit_tiles``): as
+  many splits as ``split_plan`` picks from the shapes, or as the
+  autotuner's table holds for the call's tuning key (``ops/autotune.py``:
+  ``PALLAS_AUTOTUNE`` measures them at the paged loop's warm-up,
+  ``PALLAS_VARIANT`` pins them), or as ``splits`` asks.  Each call
+  signature's plan is built once per state of that table.
   ``paged_decode_attention.launches`` counts its launches.  The sources'
   headers say what bounds the kernel.
 
-The Pallas kernel's tuning variants, its TP sharding wrapper and its
-autotuner are TPU tuning points of the same function and are not carried.
+The Pallas kernel's tuning variants (block folding, head batching) and
+its TP sharding wrapper are TPU tuning points of the same function and are
+not carried; the split count is the Hopper kernel's own tuning axis.
 """
 
 from __future__ import annotations
@@ -47,6 +56,7 @@ from .attention import (
     _stream,
     split_plan,
 )
+from . import autotune
 from ..runtime.compile_cache import counts_launches
 
 
@@ -112,6 +122,62 @@ def paged_attention_ref(
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bgrt,btgd->bgrd", p, vd)
     return o.reshape(b, h, d).to(q.dtype)
+
+
+def paged_attention_split_ref(
+    q: torch.Tensor,  # [B, H, D]
+    k_pool: torch.Tensor,  # [NB, BS, KVH, D] dense, or int8
+    v_pool: torch.Tensor,
+    table: torch.Tensor,  # [B, T] block ids
+    key_valid: torch.Tensor,  # [B, T * BS], nonzero = attend
+    block_size: int,
+    splits: int,
+    split_tiles: int,
+    k_scale: torch.Tensor | None = None,
+    v_scale: torch.Tensor | None = None,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """The plain version in the kernel's split form, in f32: the keys cut
+    into ``splits`` runs of ``split_tiles`` 64-key tiles; each split's
+    partial (o, m, l) of a masked softmax (a split with no valid key m =
+    -inf, l = 0; a row with no valid key gives each split (sum v, 0, count),
+    its plain mean after the merge), merged as the kernel's combine merges
+    them: split s weighed by exp(m_s - max m).  Returns [B, H, D] in q's
+    type."""
+    b, h, d = q.shape
+    kvh = k_pool.shape[2]
+    rep = h // kvh
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    kd = gather_pages(k_pool, table, block_size).float()
+    vd = gather_pages(v_pool, table, block_size).float()
+    if k_scale is not None:
+        kd = kd * gather_pages(k_scale, table, block_size).float()
+        vd = vd * gather_pages(v_scale, table, block_size).float()
+    n = kd.shape[1]
+    span = split_tiles * SPLIT_TILE
+    if not (splits - 1) * span < n <= splits * span:
+        raise ValueError(f"{splits} splits of {split_tiles} tiles do not cover {n} keys")
+    pad = splits * span - n
+    valid = torch.nn.functional.pad(key_valid != 0, (0, pad))  # [B, S * span]
+    vpad = torch.nn.functional.pad(vd, (0, 0, 0, 0, 0, pad)).reshape(b, splits, span, kvh, d)
+    sc = torch.einsum("bgrd,bngd->bgrn", q.float().reshape(b, kvh, rep, d), kd) * scale
+    sc = torch.nn.functional.pad(sc, (0, pad))
+    sc = torch.where(valid[:, None, None, :], sc, -math.inf).reshape(b, kvh, rep, splits, span)
+    m = sc.amax(dim=-1)  # [B, G, R, S]
+    p = torch.exp(sc - torch.where(torch.isfinite(m), m, 0.0)[..., None])
+    l = p.sum(dim=-1)
+    o = torch.einsum("bgrsn,bsngd->bgrsd", p, vpad)
+    # A row with no valid key: every split's (sum v, 0, count).
+    row_any = valid.any(dim=1)[:, None, None, None]
+    count = (n - torch.arange(splits, device=l.device) * span).clamp(0, span).to(l)
+    o_all = vpad.sum(dim=2).permute(0, 2, 1, 3)[:, :, None]  # [B, G, 1, S, D]
+    m = torch.where(row_any, m, 0.0)
+    l = torch.where(row_any, l, count)
+    o = torch.where(row_any[..., None], o, o_all)
+    w = torch.exp(m - m.amax(dim=-1, keepdim=True))
+    out = (w[..., None] * o).sum(dim=-2) / (w * l).sum(dim=-1)[..., None]
+    return out.reshape(b, h, d).to(q.dtype)
 
 
 def _check(q, k_pool, v_pool, table, key_valid, block_size, k_scale, v_scale) -> None:
@@ -200,12 +266,55 @@ def block_unit_tiles(block_size: int) -> int:
 _paged_plans: dict[tuple, _Plan] = {}
 
 
+def _units(t: int, block_size: int) -> tuple[int, int]:
+    """(units, tiles a unit) of a table of ``t`` blocks of ``block_size``."""
+    unit = block_unit_tiles(block_size)
+    return -(-(-(-t * block_size // SPLIT_TILE)) // unit), unit
+
+
+def feasible_splits(t: int, block_size: int) -> list[int]:
+    """Every split count a plan over ``t`` blocks of ``block_size`` can have,
+    ascending: whole units of ``block_unit_tiles`` tiles, at most
+    MAX_SPLIT_TILES a split, every split holding a key."""
+    units, unit = _units(t, block_size)
+    out = []
+    for n in range(1, units + 1):
+        per = -(-units // n)
+        if per * unit <= MAX_SPLIT_TILES and -(-units // per) == n:
+            out.append(n)
+    return out
+
+
+def split_count(b: int, kvh: int, t: int, block_size: int, splits: int = 0) -> tuple[int, int]:
+    """(splits, tiles per split) of a plan over ``t`` blocks that asks for
+    ``splits``; 0 is ``split_plan``'s own choice.  ValueError where no plan
+    has that many splits."""
+    units, unit = _units(t, block_size)
+    if splits <= 0:
+        return split_plan(b, kvh, t * block_size, unit)
+    if splits not in feasible_splits(t, block_size):
+        raise ValueError(
+            f"{splits} splits do not fit a table of {t} blocks of {block_size} "
+            f"(feasible: {feasible_splits(t, block_size)})")
+    per = -(-units // splits)
+    return splits, per * unit
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).split(".")[-1]
+
+
 def _paged_plan(q, k_pool, v_pool, table, key_valid, block_size, k_scale=None,
-                v_scale=None) -> _Plan:
+                v_scale=None, splits: int | None = None) -> _Plan:
     """The launch plan of ``paged_decode_attention`` for these inputs: on the
     first call of a signature the full ``_check``; on every call the pools'
-    16-byte alignment."""
-    key = (block_size,) + _signature(q, k_pool, v_pool, table, key_valid, k_scale, v_scale)
+    16-byte alignment.  The split count is ``splits`` when given, else the
+    autotuner's entry for the call's tuning key, else ``split_plan``'s; the
+    cache is keyed by the tuning table's generation, so a plan built before
+    a pin or a sweep is not used after it, and one built again after the
+    cache was cleared reads the table again."""
+    key = (block_size, splits, autotune.generation()) + _signature(
+        q, k_pool, v_pool, table, key_valid, k_scale, v_scale)
     plan = _paged_plans.get(key)
     if plan is not None:
         if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
@@ -220,7 +329,11 @@ def _paged_plan(q, k_pool, v_pool, table, key_valid, block_size, k_scale=None,
             or key_valid.dtype != torch.int32 or key_valid.stride(1) != 1)
     quant = k_scale is not None
     sc_strides = (k_scale.stride()[:3] + v_scale.stride()[:3]) if quant else (0,) * 6
-    splits, split_tiles = split_plan(b, kvh, t * bs, block_unit_tiles(bs))
+    if splits is None:
+        splits = autotune.parse_variant(autotune.lookup(
+            "paged_decode", b=b, kvh=kvh, n_rep=h // kvh, d=d, block_size=bs, t=t,
+            dtype=_dtype_name(q.dtype), quant=quant))
+    splits, split_tiles = split_count(b, kvh, t, bs, splits)
     device = q.get_device()
     plan = _Plan(
         args=(ctypes.c_longlong * 31)(
@@ -266,6 +379,7 @@ def paged_decode_attention(
     k_scale: torch.Tensor | None = None,  # [NB, BS, KVH, 1]: int8 pools
     v_scale: torch.Tensor | None = None,
     scale: float | None = None,
+    splits: int | None = None,
 ) -> torch.Tensor:
     """One decode step's attention over the paged pool; returns [B, H, D]
     in q's type.
@@ -273,13 +387,15 @@ def paged_decode_attention(
     CUDA tensors launch the kernel (``csrc/paged_decode_attention.cu``: the
     split kernel, and past one split the combine, on the current stream; the
     host reads nothing back) or raise; CPU tensors take
-    ``paged_attention_ref``."""
+    ``paged_attention_ref``.  ``splits`` forces the grid's split count (the
+    autotuner's candidates); by default the tuned or the heuristic one."""
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pool, v_pool, table, key_valid, block_size,
                                    k_scale, v_scale, scale)
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: unsupported device {q.device}")
-    plan = _paged_plan(q, k_pool, v_pool, table, key_valid, block_size, k_scale, v_scale)
+    plan = _paged_plan(q, k_pool, v_pool, table, key_valid, block_size, k_scale, v_scale,
+                       splits)
     lib = _load_paged()
     if plan.cast_keep:
         table = table.to(torch.int32).contiguous()

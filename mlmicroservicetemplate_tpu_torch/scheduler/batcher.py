@@ -101,6 +101,9 @@ class Batcher:
         self._inflight: set[asyncio.Task] = set()
         self._closed = False
         self._cdl = None
+        # Supervised crash recovery (SUPERVISE, engine/supervisor.py): the
+        # continuous loop's restart budget; /readyz reads its ``failed``.
+        self.supervisor = None
         # The per-stream path: its workers and its live streams.
         self.max_streams = int(getattr(cfg, "max_streams", 8))
         self._stream_executor = None
@@ -116,6 +119,11 @@ class Batcher:
                 self._cdl.external_active = lambda: self._active_streams
                 # One admission controller (KV ledger) for both queues.
                 self._cdl.admission = self.admission
+                if getattr(cfg, "supervise", True):
+                    from ..engine.supervisor import Supervisor
+
+                    self.supervisor = Supervisor(cfg)
+                    self._cdl.supervisor = self.supervisor
         # The batched multi-adapter LoRA pool (ADAPTER_DIR;
         # tenancy/adapters.py), with the reference's boot refusals.  Unset,
         # none of it is built and every dispatch is the base model's.
@@ -519,15 +527,14 @@ class Batcher:
                 item.future.set_result(row)
 
     def _run_batch(self, feats: list[dict]):
-        """One batch through the engine, its host seconds on the ``batch``
-        dispatch site (as the JAX batcher's guarded dispatch counts it;
-        duck-typed engines without the count run bare)."""
-        note = getattr(self.engine, "note_dispatch", None)
-        t0 = time.perf_counter()
-        rows = self.engine.run_batch(feats)
-        if note is not None:
-            note("batch", time.perf_counter() - t0)
-        return rows
+        """One batch through the engine under its fault injector and
+        watchdog, its host seconds on the ``batch`` dispatch site, as the
+        JAX batcher's guarded dispatch (duck-typed engines without the
+        guard run bare)."""
+        guard = getattr(self.engine, "dispatch_guard", None)
+        if guard is None:
+            return self.engine.run_batch(feats)
+        return guard("batch", lambda: self.engine.run_batch(feats))
 
 
 def batch_results(rows: list[np.ndarray]) -> Any:

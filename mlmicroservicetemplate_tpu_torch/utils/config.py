@@ -3,8 +3,9 @@
 Holds the fields the ResNet-50, BERT-base, bert-long, llama, GPT-2 and
 T5-small paths, chat, the scheduler's priority classes, KV budget and
 preemption, the prompt prefix, the prefix cache, chunked prefill, the
-host KV tier, fused decode windows, speculative decoding and the parent
-registration read, under the same
+host KV tier, fused decode windows, speculative decoding, the decode
+kernel's autotuner, fault injection, the dispatch watchdog, the engine
+supervisor and the parent registration read, under the same
 environment names as the JAX package's ``ServiceConfig``.  ``DEVICE`` is
 ``cuda|cpu`` and defaults to ``cuda``; ``MODEL_NAME`` defaults to
 ``resnet50``, as in the JAX package.
@@ -217,6 +218,30 @@ class ServiceConfig:
     # this many devices and attention runs as a ring (parallel/ring.py).
     # 0 = every visible card (one shard on the CPU).
     sp: int = 0
+    # K3's split autotuner (ops/autotune.py): at the paged loop's warm-up
+    # every feasible split count of the decode kernel's grid is verified
+    # against the plain version and timed at the serving shape; the winner
+    # persists in the tuning table (pallas_tune_table, else
+    # build/torch_kernels/pallas_tune.json).  pallas_variant pins one split
+    # count ("s<N>"), checked here and against the table width at warm-up.
+    pallas_autotune: bool = False
+    pallas_variant: str | None = None
+    pallas_tune_table: str | None = None
+    pallas_autotune_iters: int = 4
+    # Fault tolerance (engine/faults.py, engine/supervisor.py), with the JAX
+    # package's defaults: a FAULT_SPEC schedule of injected faults at the
+    # dispatch sites (its grammar checked when the engine is built), a
+    # watchdog deadline per dispatch (0 = off) with transient retries and
+    # capped exponential backoff, and supervised rebuilds of the continuous
+    # loop within a lifetime (or sliding-window) restart budget.
+    fault_spec: str | None = None
+    fault_seed: int = 0
+    dispatch_timeout_s: float = 0.0
+    dispatch_retries: int = 2
+    dispatch_backoff_s: float = 0.05
+    engine_restarts_max: int = 3
+    engine_restart_window_s: float = 0.0
+    supervise: bool = True
 
     def __post_init__(self) -> None:
         dev = self.device.lower()
@@ -255,6 +280,21 @@ class ServiceConfig:
             object.__setattr__(self, "quantize", q)
         if not (1 <= self.adapter_slots <= 256):
             raise ValueError("ADAPTER_SLOTS must be in [1, 256]")
+        if self.pallas_variant:
+            from ..ops.autotune import parse_variant
+
+            parse_variant(self.pallas_variant)  # ValueError with the grammar on junk
+        if self.pallas_autotune_iters < 1:
+            raise ValueError("PALLAS_AUTOTUNE_ITERS must be >= 1")
+        if self.fault_spec is not None and self.fault_spec.strip().lower() in (
+                "", "none", "off", "0"):
+            object.__setattr__(self, "fault_spec", None)
+        if not (self.dispatch_timeout_s >= 0 and self.dispatch_backoff_s >= 0):
+            raise ValueError("dispatch timeout/backoff must be >= 0")
+        if self.dispatch_retries < 0 or self.engine_restarts_max < 0:
+            raise ValueError("DISPATCH_RETRIES/ENGINE_RESTARTS_MAX must be >= 0")
+        if not self.engine_restart_window_s >= 0:
+            raise ValueError("ENGINE_RESTART_WINDOW_S must be >= 0")
         if self.max_streams < 1:
             raise ValueError("MAX_STREAMS must be >= 1")
         if self.spec_decode is not None:
@@ -339,15 +379,6 @@ UNPORTED_KNOBS = {
     "JOBS_ENABLED": _OFF,
     "JOB_MAX_CONCURRENT_LINES": ("4",),
     "JOB_RESULT_TTL_S": ("3600",),
-    # Fault injection, dispatch watchdog and engine supervision.
-    "FAULT_SPEC": (),
-    "FAULT_SEED": ("0",),
-    "DISPATCH_TIMEOUT_S": ("0",),
-    "DISPATCH_RETRIES": ("2",),
-    "DISPATCH_BACKOFF_S": ("0.05",),
-    "ENGINE_RESTARTS_MAX": ("3",),
-    "ENGINE_RESTART_WINDOW_S": ("0",),
-    "SUPERVISE": _OFF,
     # Data-parallel replicas over several cards (ReplicaSet) and bert-long's
     # 2-D ('replica', 'sp') mesh; the fleet router and its autoscaler.
     "REPLICAS": ("0", "1"),
@@ -391,9 +422,6 @@ UNPORTED_KNOBS = {
 INERT_KNOBS = {
     "COMPILE_CACHE_DIR": "XLA's persistent compilation cache; the port's kernels "
                          "are cached by source hash under build/torch_kernels",
-    "PALLAS_AUTOTUNE": "sweeps the Pallas kernels' TPU tuning variants; the CUDA "
-                       "kernels have one configuration",
-    "PALLAS_VARIANT": "names a Pallas tuning variant of the same function",
     "PALLAS_INTERPRET": "runs Pallas kernels in interpret mode; CPU tensors take "
                         "the plain PyTorch versions instead",
     "PALLAS_SINGLE_BLOCK_MAX_SEQ": "caps the TPU encoder kernel's single VMEM block; "
@@ -405,10 +433,6 @@ INERT_KNOBS = {
                             "always launches its CUDA kernel on the card",
     "USE_PALLAS_DECODE": "switches the Pallas decode kernels on or off; the port "
                          "always launches its CUDA kernels on the card",
-    "PALLAS_AUTOTUNE_ITERS": "timing iterations of the Pallas autotuner; the CUDA "
-                             "kernels have one configuration",
-    "PALLAS_TUNE_TABLE": "file of the Pallas autotuner's chosen variants; the CUDA "
-                         "kernels have one configuration",
 }
 
 
@@ -445,7 +469,10 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
     PREFILL_MAX_PROMPT, KV_HOST_BUDGET_MB, KV_PREFETCH_BLOCKS, DECODE_WINDOW,
     DECODE_WINDOW_AUTO, STREAM_PIPELINE, HOST_PREP_DOUBLE, ADMIT_OVERLAP, SPEC_DECODE,
     SPEC_K, SPEC_NGRAM, SPEC_MAX_STREAMS, SPEC_SAMPLED, SPEC_CONTINUOUS, QUANTIZE,
-    ADAPTER_DIR, ADAPTER_SLOTS.  Any of
+    ADAPTER_DIR, ADAPTER_SLOTS, PALLAS_AUTOTUNE, PALLAS_VARIANT, PALLAS_TUNE_TABLE,
+    PALLAS_AUTOTUNE_ITERS, FAULT_SPEC, FAULT_SEED, DISPATCH_TIMEOUT_S,
+    DISPATCH_RETRIES, DISPATCH_BACKOFF_S, ENGINE_RESTARTS_MAX,
+    ENGINE_RESTART_WINDOW_S, SUPERVISE.  Any of
     ``UNPORTED_KNOBS`` set to a value that turns it on raises;
     ``INERT_KNOBS`` are accepted and ignored."""
     e = dict(os.environ)
@@ -474,7 +501,8 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
         ("llama_config", "LLAMA_CONFIG"), ("chat_template", "CHAT_TEMPLATE"),
         ("priority_default", "PRIORITY_DEFAULT"), ("prompt_prefix", "PROMPT_PREFIX"),
         ("spec_decode", "SPEC_DECODE"), ("quantize", "QUANTIZE"),
-        ("adapter_dir", "ADAPTER_DIR"),
+        ("adapter_dir", "ADAPTER_DIR"), ("pallas_variant", "PALLAS_VARIANT"),
+        ("pallas_tune_table", "PALLAS_TUNE_TABLE"), ("fault_spec", "FAULT_SPEC"),
     ):
         v = get(var)
         if v is not None:
@@ -492,7 +520,10 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
                        ("decode_window", "DECODE_WINDOW"),
                        ("stream_pipeline", "STREAM_PIPELINE"), ("spec_k", "SPEC_K"),
                        ("spec_ngram", "SPEC_NGRAM"), ("spec_max_streams", "SPEC_MAX_STREAMS"),
-                       ("adapter_slots", "ADAPTER_SLOTS")):
+                       ("adapter_slots", "ADAPTER_SLOTS"),
+                       ("pallas_autotune_iters", "PALLAS_AUTOTUNE_ITERS"),
+                       ("fault_seed", "FAULT_SEED"), ("dispatch_retries", "DISPATCH_RETRIES"),
+                       ("engine_restarts_max", "ENGINE_RESTARTS_MAX")):
         v = get(var)
         if v is not None:
             kwargs[field] = int(v)
@@ -500,7 +531,10 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
                        ("drain_grace_s", "DRAIN_GRACE_S"), ("admit_grace_ms", "ADMIT_GRACE_MS"),
                        ("register_heartbeat_s", "REGISTER_HEARTBEAT_S"),
                        ("kv_budget_mb", "KV_BUDGET_MB"), ("prefix_cache_mb", "PREFIX_CACHE_MB"),
-                       ("kv_host_budget_mb", "KV_HOST_BUDGET_MB")):
+                       ("kv_host_budget_mb", "KV_HOST_BUDGET_MB"),
+                       ("dispatch_timeout_s", "DISPATCH_TIMEOUT_S"),
+                       ("dispatch_backoff_s", "DISPATCH_BACKOFF_S"),
+                       ("engine_restart_window_s", "ENGINE_RESTART_WINDOW_S")):
         v = get(var)
         if v is not None:
             kwargs[field] = float(v)
@@ -518,7 +552,8 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
                        ("decode_window_auto", "DECODE_WINDOW_AUTO"),
                        ("host_prep_double", "HOST_PREP_DOUBLE"),
                        ("admit_overlap", "ADMIT_OVERLAP"), ("spec_sampled", "SPEC_SAMPLED"),
-                       ("spec_continuous", "SPEC_CONTINUOUS")):
+                       ("spec_continuous", "SPEC_CONTINUOUS"),
+                       ("pallas_autotune", "PALLAS_AUTOTUNE"), ("supervise", "SUPERVISE")):
         v = get(var)
         if v is not None:
             kwargs[field] = _flag(v)

@@ -10,7 +10,9 @@ stalls, the host KV tier's blocks, swap bytes, resumes and prefix
 hits, the chunks of each fused decode window and its early exits, the
 loop's pipelining depth, the host seconds of each dispatch by site, and
 the tokens each speculative verify round emitted; the LoRA adapter
-pool's slots by state.
+pool's slots by state; the decode-kernel autotuner's decisions; the
+supervisor's engine rebuilds, watchdog retries and timeouts, and the
+streams a fault recovered or lost.
 The series live in this package's own
 registry, so a process that also imports the JAX package registers no
 name twice.  Without ``prometheus_client`` every series is a no-op stub.
@@ -244,6 +246,47 @@ EXEC_CACHE_EVENTS = Counter(
     "none under the key; insert = a graph was captured) - "
     "runtime/compile_cache.py",
     ["event"], registry=REGISTRY,
+)
+
+PALLAS_AUTOTUNE_EVENTS = Counter(
+    "pallas_autotune_events_total",
+    "Decode-kernel autotuner decisions by event (sweep = a measured "
+    "split search ran; hit = the tuning table answered without one; "
+    "pin = PALLAS_VARIANT honored; install = a winner entered the "
+    "process table K3's plans read; reject_verify/reject_error = "
+    "candidates dropped by the plain-version check / a failed launch; "
+    "persist_error = a tuning-table read or write failed) - ops/autotune.py",
+    ["event"], registry=REGISTRY,
+)
+ENGINE_RESTARTS = Counter(
+    "engine_restarts_total",
+    "Supervised engine rebuilds after a fatal dispatch fault or decode "
+    "loop death (streams checkpoint and resume token-identically)",
+    ["model"], registry=REGISTRY,
+)
+DISPATCH_RETRIES = Counter(
+    "dispatch_retries_total",
+    "Transient dispatch failures retried under the watchdog, by "
+    "exception type",
+    ["model", "reason"], registry=REGISTRY,
+)
+DISPATCH_TIMEOUTS = Counter(
+    "dispatch_timeouts_total",
+    "Dispatches cut off by the DISPATCH_TIMEOUT_S watchdog deadline",
+    ["model"], registry=REGISTRY,
+)
+STREAMS_RECOVERED = Counter(
+    "streams_recovered_total",
+    "Live streams checkpointed and resumed token-identically, by "
+    "replica and cause (restart = same-engine rebuild)",
+    ["model", "replica", "cause"], registry=REGISTRY,
+)
+STREAMS_LOST = Counter(
+    "streams_lost_total",
+    "Live streams error-terminated by an unrecoverable engine fault, "
+    "by replica and cause (fault = no supervisor, budget spent or a "
+    "poisoned CUDA context)",
+    ["model", "replica", "cause"], registry=REGISTRY,
 )
 
 

@@ -31,6 +31,7 @@ import types
 import numpy as np
 import pytest
 
+from test_torch_jax_cache import isolated_jax_cache  # noqa: F401
 from mlmicroservicetemplate_tpu.engine import InferenceEngine as JaxEngine
 from mlmicroservicetemplate_tpu.models.registry import build_model as jax_build_model
 from mlmicroservicetemplate_tpu.parallel import ReplicaSet, make_mesh

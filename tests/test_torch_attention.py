@@ -10,6 +10,7 @@ import torch
 
 import jax.numpy as jnp
 
+from test_torch_jax_cache import isolated_jax_cache  # noqa: F401
 from mlmicroservicetemplate_tpu.ops.attention import fused_attention as jax_fused_attention
 from mlmicroservicetemplate_tpu_torch.ops import attention as port_attention
 

@@ -10,6 +10,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from test_torch_jax_cache import isolated_jax_cache  # noqa: F401
 from mlmicroservicetemplate_tpu.models import bert as jax_bert
 from mlmicroservicetemplate_tpu.ops import attention as jax_attention
 from mlmicroservicetemplate_tpu_torch.convert.jax_params import bert_params_from_jax

@@ -19,6 +19,7 @@ from aiohttp.test_utils import TestClient, TestServer
 
 import jax
 
+from test_torch_jax_cache import isolated_jax_cache  # noqa: F401
 from mlmicroservicetemplate_tpu.models import bert as jax_bert
 from mlmicroservicetemplate_tpu.serve import build_service as jax_build_service
 from mlmicroservicetemplate_tpu_torch.api.app import build_app

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_jax_cache import isolated_jax_cache  # noqa: F401
 from mlmicroservicetemplate_tpu.engine.engine import bucket_for as jax_bucket_for
 from mlmicroservicetemplate_tpu.models import tokenizer as jax_tok
 from mlmicroservicetemplate_tpu.utils.config import load_config as jax_load_config
@@ -234,9 +235,11 @@ def _jax_knob_names() -> list[str]:
 
 
 # A value that asks for something other than what the port does when the
-# name is unset.  For SUPERVISE and PERF_OBS, whose JAX default is on and
-# which the port does not do, that is "1"; for PREEMPT and
-# HOST_PREP_DOUBLE, which the port reads with the JAX default (on), "0".
+# name is unset.  For PERF_OBS, whose JAX default is on and which the port
+# does not do, that is "1"; for PREEMPT, HOST_PREP_DOUBLE and SUPERVISE,
+# which the port reads with the JAX default (on), "0".  PALLAS_VARIANT takes
+# the port's grammar (s<N>, a split count of K3): the JAX package's Pallas
+# keys are refused (test_pallas_keys_are_refused_by_the_ports_grammar).
 NON_DEFAULT = {
     "DEVICE": "cuda", "MODEL_NAME": "llama", "MODEL_PATH": "/w.npz",
     "TOKENIZER_PATH": "/vocab.txt", "HOST": "127.0.0.1", "PORT": "8123",
@@ -259,7 +262,7 @@ NON_DEFAULT = {
     "PREFILL_MAX_PROMPT": "256", "DECODE_WINDOW": "4", "DECODE_WINDOW_AUTO": "0",
     "STREAM_PIPELINE": "2", "FAULT_SPEC": "dispatch:error:0.1", "FAULT_SEED": "7",
     "DISPATCH_TIMEOUT_S": "5", "DISPATCH_RETRIES": "0", "DISPATCH_BACKOFF_S": "0.5",
-    "ENGINE_RESTARTS_MAX": "1", "ENGINE_RESTART_WINDOW_S": "60", "SUPERVISE": "1",
+    "ENGINE_RESTARTS_MAX": "1", "ENGINE_RESTART_WINDOW_S": "60", "SUPERVISE": "0",
     "FLEET_REPLICAS": "2", "FLEET_ROUTE": "round_robin", "FLEET_BREAKER_N": "5",
     "FLEET_EVICT_S": "20", "FLEET_TP_GROUPS": "2", "FLEET_MIN_REPLICAS": "1",
     "FLEET_MAX_REPLICAS": "4", "SCALE_UP_QUEUE": "4", "SCALE_UP_KV_FRAC": "0.5",
@@ -270,7 +273,7 @@ NON_DEFAULT = {
     "PEAK_TFLOPS": "989", "LATENCY_BUCKETS": "0.1,1", "SLO_TTFT_MS": "500",
     "SLO_TBT_MS": "50", "SLO_BATCH_TTFT_MS": "5000", "SLO_BATCH_TBT_MS": "500",
     "SLO_TARGET": "0.9", "SLO_WINDOWS_S": "30,300", "SCALE_UP_SLO_BURN": "2",
-    "PALLAS_AUTOTUNE": "1", "PALLAS_VARIANT": "head_batched", "PALLAS_INTERPRET": "1",
+    "PALLAS_AUTOTUNE": "1", "PALLAS_VARIANT": "s2", "PALLAS_INTERPRET": "1",
     "PALLAS_SINGLE_BLOCK_MAX_SEQ": "256", "DECODE_KERNEL_VMEM_BUDGET_MB": "20",
     # Read outside load_config by the JAX package.
     "ADMIT_GRACE_MS": "20", "ADMIT_OVERLAP": "0", "CHAT_TEMPLATE": "chatml",
@@ -309,21 +312,63 @@ def test_every_jax_knob_is_read_refused_or_inert(name, monkeypatch):
 
 @pytest.mark.parametrize("name", ["PREEMPT", "SUPERVISE", "PERF_OBS", "HOST_PREP_DOUBLE"])
 def test_knobs_the_port_leaves_off_accept_off(name):
-    """The JAX default of these is on.  The port does SUPERVISE and
-    PERF_OBS without, so it takes their off value and refuses the on one;
-    PREEMPT and HOST_PREP_DOUBLE it reads, on unless set off, as the JAX
+    """The JAX default of these is on.  The port does PERF_OBS without, so
+    it takes its off value and refuses the on one; PREEMPT,
+    HOST_PREP_DOUBLE and SUPERVISE it reads, on unless set off, as the JAX
     package does."""
     assert load_config({"DEVICE": "cpu", name: "0"}).device == "cpu"
-    if name in ("PREEMPT", "HOST_PREP_DOUBLE"):
+    if name in ("PREEMPT", "HOST_PREP_DOUBLE", "SUPERVISE"):
         field = name.lower()
         for env in ({}, {name: "0"}, {name: "true"}, {name: "no"}, {name: "FALSE"}):
             got = getattr(load_config({"DEVICE": "cpu", **env}), field)
             assert got is getattr(jax_load_config({"DEVICE": "cpu", **env}), field)
         assert load_config({"DEVICE": "cpu"}).host_prep_double is True
+        assert load_config({"DEVICE": "cpu"}).supervise is True
         assert load_config({"DEVICE": "cpu", name: "0"}).preempt is (name != "PREEMPT")
         return
     with pytest.raises(ValueError, match="not ported"):
         load_config({"DEVICE": "cpu", name: "true"})
+
+
+@pytest.mark.parametrize("value", ["head_batched", "b4-hb", "b2-nat-accbf16"])
+def test_pallas_keys_are_refused_by_the_ports_grammar(value):
+    """PALLAS_VARIANT names a split count of K3 on the card (``s<N>``): a
+    Pallas variant key is refused when the configuration loads, with the
+    port's grammar in the message (``head_batched`` the JAX package
+    refuses too)."""
+    with pytest.raises(ValueError, match=r"the port's grammar: s<N>"):
+        load_config({"DEVICE": "cpu", "PALLAS_VARIANT": value})
+
+
+@pytest.mark.parametrize("env,field,want", [
+    ({"PALLAS_AUTOTUNE": "1"}, "pallas_autotune", True),
+    ({"PALLAS_TUNE_TABLE": "/t.json"}, "pallas_tune_table", "/t.json"),
+    ({"PALLAS_AUTOTUNE_ITERS": "9"}, "pallas_autotune_iters", 9),
+    ({"FAULT_SPEC": "chunk:fatal@5"}, "fault_spec", "chunk:fatal@5"),
+    ({"FAULT_SPEC": "off"}, "fault_spec", None),
+    ({"FAULT_SEED": "7"}, "fault_seed", 7),
+    ({"DISPATCH_TIMEOUT_S": "5"}, "dispatch_timeout_s", 5.0),
+    ({"DISPATCH_RETRIES": "0"}, "dispatch_retries", 0),
+    ({"DISPATCH_BACKOFF_S": "0.5"}, "dispatch_backoff_s", 0.5),
+    ({"ENGINE_RESTARTS_MAX": "1"}, "engine_restarts_max", 1),
+    ({"ENGINE_RESTART_WINDOW_S": "60"}, "engine_restart_window_s", 60.0),
+    ({"SUPERVISE": "false"}, "supervise", False),
+    ({}, "supervise", True),
+    ({}, "dispatch_retries", 2),
+])
+def test_fault_and_autotune_knobs_are_read_like_jax(env, field, want):
+    assert getattr(load_config({"DEVICE": "cpu", **env}), field) == want
+    if field not in ("pallas_tune_table", "pallas_autotune_iters"):  # env-only in JAX
+        assert getattr(jax_load_config({"DEVICE": "cpu", **env}), field) == want
+
+
+@pytest.mark.parametrize("env", [{"DISPATCH_TIMEOUT_S": "-1"}, {"DISPATCH_BACKOFF_S": "-0.1"},
+                                 {"DISPATCH_RETRIES": "-1"}, {"ENGINE_RESTARTS_MAX": "-2"},
+                                 {"ENGINE_RESTART_WINDOW_S": "-5"},
+                                 {"PALLAS_AUTOTUNE_ITERS": "0"}])
+def test_fault_knobs_are_validated(env):
+    with pytest.raises(ValueError):
+        load_config({"DEVICE": "cpu", **env})
 
 
 def test_numeric_off_values_compare_as_numbers():

@@ -14,6 +14,7 @@ import torch
 
 import jax.numpy as jnp
 
+from test_torch_jax_cache import isolated_jax_cache  # noqa: F401
 from mlmicroservicetemplate_tpu.models.common import kv_quantize as jax_kv_quantize
 from mlmicroservicetemplate_tpu.ops.attention import decode_attention as jax_decode_attention
 from mlmicroservicetemplate_tpu_torch.models.common import mha_attention, repeat_kv

@@ -53,6 +53,7 @@ from test_torch_t5_serving import small_t5
 import jax
 import jax.numpy as jnp
 
+from test_torch_jax_cache import isolated_jax_cache  # noqa: F401
 from mlmicroservicetemplate_tpu.engine import InferenceEngine as JaxEngine
 from mlmicroservicetemplate_tpu.engine.kv_blocks import BlockPool as JaxBlockPool
 from mlmicroservicetemplate_tpu.engine.kv_blocks import StreamBlocks as JaxStreamBlocks

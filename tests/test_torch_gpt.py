@@ -30,6 +30,7 @@ from aiohttp.test_utils import TestClient, TestServer
 import jax
 import jax.numpy as jnp
 
+from test_torch_jax_cache import isolated_jax_cache  # noqa: F401
 from mlmicroservicetemplate_tpu.api import build_app as jax_build_app
 from mlmicroservicetemplate_tpu.convert import hf_maps as jax_hf_maps
 from mlmicroservicetemplate_tpu.engine import InferenceEngine as JaxEngine

@@ -25,6 +25,7 @@ import torch
 from aiohttp import MultipartWriter
 from aiohttp.test_utils import TestClient, TestServer
 
+from test_torch_jax_cache import isolated_jax_cache  # noqa: F401
 from mlmicroservicetemplate_tpu.api import build_app as jax_build_app
 from mlmicroservicetemplate_tpu.models import preprocess as jax_pre
 from mlmicroservicetemplate_tpu.models.registry import KIND_TEXT as JAX_KIND_TEXT

@@ -6,6 +6,7 @@ leaving nothing allocated, double frees), and ``blocks_for`` /
 
 import pytest
 
+from test_torch_jax_cache import isolated_jax_cache  # noqa: F401
 from mlmicroservicetemplate_tpu.engine import kv_blocks as jax_kv
 from mlmicroservicetemplate_tpu_torch.engine import kv_blocks as port_kv
 

@@ -33,6 +33,7 @@ from aiohttp.test_utils import TestClient, TestServer
 from prometheus_client.parser import text_string_to_metric_families
 from test_torch_prefill_loop import feats, ids_of, loops, services, settle
 
+from test_torch_jax_cache import isolated_jax_cache  # noqa: F401
 from mlmicroservicetemplate_tpu.api import build_app as jax_build_app
 from mlmicroservicetemplate_tpu.engine import InferenceEngine as JaxEngine
 from mlmicroservicetemplate_tpu.engine import kv_blocks as jax_kv

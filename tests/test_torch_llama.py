@@ -15,6 +15,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from test_torch_jax_cache import isolated_jax_cache  # noqa: F401
 from mlmicroservicetemplate_tpu.convert import llama_state_to_pytree as jax_llama_state_to_pytree
 from mlmicroservicetemplate_tpu.models import common as jax_common
 from mlmicroservicetemplate_tpu.models import llama as jax_llama

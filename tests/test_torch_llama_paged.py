@@ -18,6 +18,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from test_torch_jax_cache import isolated_jax_cache  # noqa: F401
 from mlmicroservicetemplate_tpu.models import llama as jax_llama
 from mlmicroservicetemplate_tpu_torch.convert.jax_params import (
     llama_params_from_jax,

@@ -38,6 +38,7 @@ from test_torch_graphs import _with_graphs
 import jax
 import jax.numpy as jnp
 
+from test_torch_jax_cache import isolated_jax_cache  # noqa: F401
 from mlmicroservicetemplate_tpu.api import build_app as jax_build_app
 from mlmicroservicetemplate_tpu.engine import InferenceEngine as JaxEngine
 from mlmicroservicetemplate_tpu.models import gpt as jax_gpt

@@ -13,6 +13,7 @@ import torch
 
 import jax.numpy as jnp
 
+from test_torch_jax_cache import isolated_jax_cache  # noqa: F401
 from mlmicroservicetemplate_tpu.ops import paged_attention as jax_pa
 from mlmicroservicetemplate_tpu_torch.ops import paged_attention as port_pa
 

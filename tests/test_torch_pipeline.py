@@ -43,6 +43,7 @@ from test_torch_preempt import (
     _solo,
 )
 
+from test_torch_jax_cache import isolated_jax_cache  # noqa: F401
 from mlmicroservicetemplate_tpu.engine.streams import ContinuousDecodeLoop as JaxLoop
 from mlmicroservicetemplate_tpu.utils import metrics as jax_metrics
 from mlmicroservicetemplate_tpu.utils.config import ServiceConfig as JaxServiceConfig

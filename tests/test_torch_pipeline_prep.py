@@ -28,6 +28,7 @@ from test_torch_pipeline import FAMILIES, LENGTHS, BUDGETS, PAGED, SERVE, _late,
 from test_torch_preempt import _collect, _loops, _prompt, _settle
 from test_torch_status import _settle_ready
 
+from test_torch_jax_cache import isolated_jax_cache  # noqa: F401
 from mlmicroservicetemplate_tpu.engine.streams import ContinuousDecodeLoop as JaxLoop
 
 

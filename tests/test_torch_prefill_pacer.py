@@ -40,6 +40,7 @@ from test_torch_prefill_loop import (
     settle,
 )
 
+from test_torch_jax_cache import isolated_jax_cache  # noqa: F401
 from mlmicroservicetemplate_tpu.api import build_app as jax_build_app
 from mlmicroservicetemplate_tpu.models.registry import build_model as jax_build_model
 from mlmicroservicetemplate_tpu.scheduler import Batcher as JaxBatcher
@@ -242,7 +243,9 @@ def _slow_windows(loop, seconds: float) -> None:
     loop._dispatch_prefill_window = slow
 
 
-async def _http(app, posts, headers=None):
+async def _http(app, posts, headers=None, warm=(), after_warm=None):
+    """``warm`` bodies are posted first, without ``headers``, their answers
+    read whole; then ``after_warm()``; then ``posts``."""
     client = TestClient(TestServer(app))
     await client.start_server()
     try:
@@ -250,6 +253,12 @@ async def _http(app, posts, headers=None):
             if (await client.get("/readyz")).status == 200:
                 break
             await asyncio.sleep(0.05)
+        for body in warm:
+            resp = await client.post("/v1/completions", json=body)
+            assert resp.status == 200, await resp.text()
+            await resp.read()
+        if after_warm is not None:
+            after_warm()
         out = []
         for body in posts:
             resp = await client.post("/v1/completions", json=body, headers=headers or {})
@@ -268,18 +277,44 @@ def _apps(**kw):
             (build_app(cfg, bundle, engine, batcher), batcher))
 
 
+def _deadline_after_first_window(loop, seconds: float) -> None:
+    """The stream's deadline re-armed ``seconds`` ahead when its first
+    window dispatches: it cannot pass in the queue or before that window,
+    whatever the machine's load, and passes a few windows later."""
+    orig = loop._dispatch_prefill_window
+    armed = set()
+
+    def first(job):
+        if id(job.st) not in armed:
+            armed.add(id(job.st))
+            job.st.deadline = time.monotonic() + seconds
+        return orig(job)
+
+    loop._dispatch_prefill_window = first
+
+
 def test_a_deadline_passing_mid_prefill_answers_504_like_jax():
-    """A 60-byte streamed prompt (15 windows of 4) with ``X-Deadline-Ms``
-    of 300 and each window slowed by 50 ms: it leaves the queue in time,
-    and its deadline passes before its first token: both apps answer 504."""
+    """A 60-byte streamed prompt (15 windows of 4), each window slowed by
+    50 ms, with an ``X-Deadline-Ms`` deadline that the first window re-arms
+    300 ms ahead: it passes mid-prefill, before the first token, and both
+    apps answer 504.  A warm request of the same shape runs first, with no
+    deadline and at full speed, so the timed one meets no first-call
+    compile."""
     posts = [{"prompt": "x" * 60, "max_tokens": 4, "stream": True}]
     statuses = []
     for app, batcher in _apps(**LOOP):
         loop = batcher._cdl
-        _slow_windows(loop, 0.05)
-        out, _, _ = asyncio.run(_http(app, posts, {"X-Deadline-Ms": "300"}))
+        before = {}
+
+        def slow_from_now():
+            before["windows"] = loop.prefill_chunk_dispatches
+            _slow_windows(loop, 0.05)
+            _deadline_after_first_window(loop, 0.3)
+
+        out, _, _ = asyncio.run(_http(app, posts, {"X-Deadline-Ms": "60000"}, warm=posts,
+                                      after_warm=slow_from_now))
         statuses.append([s for s, _ in out])
-        assert 0 < loop.prefill_chunk_dispatches < 15
+        assert 0 < loop.prefill_chunk_dispatches - before["windows"] < 15
     assert statuses[1] == statuses[0] == [504]
 
 

@@ -27,6 +27,7 @@ from test_torch_gpt import small_gpt2
 
 import jax
 
+from test_torch_jax_cache import isolated_jax_cache  # noqa: F401
 from mlmicroservicetemplate_tpu.engine import InferenceEngine as JaxEngine
 from mlmicroservicetemplate_tpu.models import gpt as jax_gpt
 from mlmicroservicetemplate_tpu.models import llama as jax_llama

@@ -35,6 +35,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from test_torch_jax_cache import isolated_jax_cache  # noqa: F401
 from mlmicroservicetemplate_tpu.engine import InferenceEngine as JaxEngine
 from mlmicroservicetemplate_tpu.models import bert as jax_bert
 from mlmicroservicetemplate_tpu.models import common as jax_common

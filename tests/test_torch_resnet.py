@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_jax_cache import isolated_jax_cache  # noqa: F401
 from mlmicroservicetemplate_tpu.convert import resnet_state_to_pytree as jax_hf_map
 from mlmicroservicetemplate_tpu.models.checkpoint import load_pytree
 from mlmicroservicetemplate_tpu.models import preprocess as jax_pre

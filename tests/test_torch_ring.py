@@ -26,6 +26,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh
 
+from test_torch_jax_cache import isolated_jax_cache  # noqa: F401
 from mlmicroservicetemplate_tpu.models.common import mha_attention
 from mlmicroservicetemplate_tpu.parallel.ring import _hop_pallas, make_ring_attention
 from mlmicroservicetemplate_tpu_torch.parallel import ring as port_ring

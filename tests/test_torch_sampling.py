@@ -33,6 +33,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from test_torch_jax_cache import isolated_jax_cache  # noqa: F401
 from mlmicroservicetemplate_tpu.engine import InferenceEngine as JaxEngine
 from mlmicroservicetemplate_tpu.engine.streams import ContinuousDecodeLoop as JaxLoop
 from mlmicroservicetemplate_tpu.models import gpt as jax_gpt

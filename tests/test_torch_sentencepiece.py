@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 from test_sentencepiece import _bpe_fixture, _pieces
 
+from test_torch_jax_cache import isolated_jax_cache  # noqa: F401
 from mlmicroservicetemplate_tpu.models import sentencepiece as jax_sp
 from mlmicroservicetemplate_tpu.models import tokenizer as jax_tok
 from mlmicroservicetemplate_tpu_torch.models import sentencepiece as port_sp

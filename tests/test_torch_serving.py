@@ -20,6 +20,7 @@ from aiohttp.test_utils import TestClient, TestServer
 
 import jax
 
+from test_torch_jax_cache import isolated_jax_cache  # noqa: F401
 from mlmicroservicetemplate_tpu.convert import bert_state_to_pytree as jax_bert_state_to_pytree
 from mlmicroservicetemplate_tpu.models import bert as jax_bert
 from mlmicroservicetemplate_tpu.models.checkpoint import load_pytree

@@ -14,6 +14,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from test_torch_jax_cache import isolated_jax_cache  # noqa: F401
 from mlmicroservicetemplate_tpu.models import gpt as jax_gpt
 from mlmicroservicetemplate_tpu.models import llama as jax_llama
 from mlmicroservicetemplate_tpu.models import sampling as jax_sampling

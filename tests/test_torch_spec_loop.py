@@ -14,6 +14,7 @@ import pytest
 import torch
 from test_torch_spec_serving import _feats, services
 
+from test_torch_jax_cache import isolated_jax_cache  # noqa: F401
 from mlmicroservicetemplate_tpu.engine.streams import ContinuousDecodeLoop as JaxLoop
 from mlmicroservicetemplate_tpu.models.registry import RawItem as JaxRawItem
 from mlmicroservicetemplate_tpu.scheduler import Batcher as JaxBatcher

@@ -20,6 +20,7 @@ from test_torch_t5_serving import LM_HEAD, small_t5
 
 import jax
 
+from test_torch_jax_cache import isolated_jax_cache  # noqa: F401
 from mlmicroservicetemplate_tpu.api import build_app as jax_build_app
 from mlmicroservicetemplate_tpu.engine import InferenceEngine as JaxEngine
 from mlmicroservicetemplate_tpu.models.registry import RawItem as JaxRawItem

@@ -9,9 +9,8 @@ slots, each installed once), whose ``tenancy`` section is compared whole.
 Compared: the key sets, section by section, and every value that does not
 depend on the clock.  Left out, by name:
 
-- sections of features the port does not serve yet: ``fault_tolerance``
-  (the supervisor), ``fleet``, ``durability`` (the journal), ``jobs``,
-  ``perf`` (the perf observatory);
+- sections of features the port does not serve yet: ``fleet``,
+  ``durability`` (the journal), ``jobs``, ``perf`` (the perf observatory);
 - keys only the port serves: ``device_name``, ``dispatches``,
   ``decode_steps`` and ``scheduler.pending``;
 - values measured by the clock (``uptime_s``, the ``compile`` section's,
@@ -20,8 +19,12 @@ depend on the clock.  Left out, by name:
   flight recorder).
 
 ``decode`` is compared whole: the pipelining depth (without a warmup
-neither loop tunes it), the staged host prep's knob and counts, and the
-dispatch and fetch boundaries of every site.  A paged llama service at
+neither loop tunes it), the staged host prep's knob and counts, the
+dispatch and fetch boundaries of every site and, under ``PALLAS_AUTOTUNE``,
+the kernel variant, the autotuner's counters and its table (on the CPU
+neither loop has a kernel to tune).  ``fault_tolerance`` (the supervisor
+of the decode loop, on by default as in the JAX package) is compared
+whole.  A paged llama service at
 ``STREAM_PIPELINE=2`` keeps two dispatches in flight."""
 
 import asyncio
@@ -38,14 +41,17 @@ from test_torch_t5_serving import LM_HEAD, small_t5
 
 import jax
 
+from test_torch_jax_cache import isolated_jax_cache  # noqa: F401
 from mlmicroservicetemplate_tpu.api import build_app as jax_build_app
 from mlmicroservicetemplate_tpu.models import bert as jax_bert
+from mlmicroservicetemplate_tpu.ops import autotune as jax_autotune
 from mlmicroservicetemplate_tpu.serve import build_service as jax_build_service
 from mlmicroservicetemplate_tpu_torch.api.app import build_app
 from mlmicroservicetemplate_tpu_torch.models import bert as port_bert
+from mlmicroservicetemplate_tpu_torch.ops import autotune as port_autotune
 from mlmicroservicetemplate_tpu_torch.serve import build_service
 
-NOT_PORTED = {"fault_tolerance", "fleet", "durability", "jobs", "perf"}
+NOT_PORTED = {"fleet", "durability", "jobs", "perf"}
 PORT_ONLY = {"device_name", "dispatches", "decode_steps"}
 MEASURED = {"uptime_s", "compile"}
 FLIGHT = {"flight_ring", "flight_dumps"}
@@ -93,6 +99,10 @@ CASES = {
                    [("/v1/completions", {"prompt": "hello hello hello", "max_tokens": 16,
                                          "stream": True}, {}),
                     ("/predict", {"text": "abcabcabcabc", "max_tokens": 12}, {})]),
+    # K3's autotuner on: its counters and table join /status.decode.
+    "llama-autotune": ({"PAGED_KV": "1", "KV_BLOCK_SIZE": "8", "PALLAS_AUTOTUNE": "1"},
+                       [("/v1/completions", {"prompt": "hello there", "max_tokens": 16,
+                                             "stream": True}, {})]),
     # ADAPTER_DIR (written per test): streams on each adapter and on none.
     "llama-lora": ({"ADAPTER_DIR": None, "ADAPTER_SLOTS": "2"},
                    [("/predict", {"text": "hello there", "max_tokens": 8, "stream": True},
@@ -163,7 +173,9 @@ def _apps(model: str, extra: dict):
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_status_has_the_jax_apps_keys_and_values(case, tmp_path):
-    model = case.split("-pipeline")[0].split("-spec")[0].split("-lora")[0]
+    model = case.split("-")[0] if case.startswith("llama") else case
+    port_autotune.clear()
+    jax_autotune.clear()
     extra, posts = CASES[case]
     if "ADAPTER_DIR" in extra:
         extra = {**extra, "ADAPTER_DIR": write_adapters(tmp_path, "llama", LLAMA)}
@@ -195,5 +207,9 @@ def test_status_has_the_jax_apps_keys_and_values(case, tmp_path):
         assert dec["window_cap"] == 4 and dec["window_dispatches"] > 0
     if extra.get("PAGED_KV") == "1":
         assert dec["prep_staged"] > 0 and dec["dispatch_counts"]["prep"] == 2 * dec["prep_staged"]
+    assert ("autotune" in dec) == (case == "llama-autotune")
+    if case == "llama-autotune":
+        assert dec["kernel_variant"] == "" and dec["autotune_table"] == {}
+    assert got["fault_tolerance"] == {"restarts": 0, "max_restarts": 3, "failed": False}
     if case == "llama-pipeline":
         assert dec["chain_depth"] == 2 and not dec["chain_depth_auto"]

@@ -16,6 +16,7 @@ from aiohttp.test_utils import TestClient, TestServer
 
 import jax
 
+from test_torch_jax_cache import isolated_jax_cache  # noqa: F401
 from mlmicroservicetemplate_tpu.api import build_app as jax_build_app
 from mlmicroservicetemplate_tpu.engine import InferenceEngine as JaxEngine
 from mlmicroservicetemplate_tpu.models.registry import RawItem as JaxRawItem

@@ -42,6 +42,7 @@ from aiohttp.test_utils import TestClient, TestServer
 
 import jax
 
+from test_torch_jax_cache import isolated_jax_cache  # noqa: F401
 import mlmicroservicetemplate_tpu.engine.streams as jax_streams
 import mlmicroservicetemplate_tpu.scheduler.batcher as jax_batcher
 import mlmicroservicetemplate_tpu_torch.engine.streams as port_streams

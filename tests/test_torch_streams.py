@@ -7,8 +7,8 @@ and 1 with a dense and an int8 KV cache.
   admitted in one wave, late into a live batch and into reused slots, get
   tokens identical to the JAX loop's; the paged pool drains to 0 blocks.
 - A cancelled consumer frees its slot; ``max_streams + 1`` concurrent
-  streams shed ``QueueFullError``; a failed dispatch ends the live streams
-  with its error and the loop serves again; stopping ends waiting streams
+  streams shed ``QueueFullError``; without a supervisor a failed dispatch
+  ends the live streams with its error and the loop serves again; stopping ends waiting streams
   with ``StreamClosedError``; streams and whole requests racing for the
   engine leak nothing and get the tokens the whole path gives.
 - On the CPU no kernel launch is counted."""
@@ -25,6 +25,7 @@ import torch
 
 import jax
 
+from test_torch_jax_cache import isolated_jax_cache  # noqa: F401
 from mlmicroservicetemplate_tpu.engine import InferenceEngine as JaxEngine
 from mlmicroservicetemplate_tpu.engine.streams import ContinuousDecodeLoop as JaxLoop
 from mlmicroservicetemplate_tpu.models.registry import RawItem as JaxRawItem
@@ -196,8 +197,13 @@ def test_one_stream_past_max_streams_sheds(service):
 
 
 def test_failed_dispatch_ends_live_streams_and_the_loop_serves_again(service):
+    """Without a supervisor (SUPERVISE=0, as the JAX loop without one): a
+    failed chunk ends the live stream with its error.  The supervised
+    recovery of the default is held against the JAX loop in
+    tests/test_torch_faults.py."""
     _, bundle, engine, batcher = service
     loop = batcher._cdl
+    sup, loop.supervisor = loop.supervisor, None
     name = "paged_chunk" if engine.paged_kv else "generate_chunk"
     real = getattr(bundle, name)
     armed = {"on": True}
@@ -223,6 +229,7 @@ def test_failed_dispatch_ends_live_streams_and_the_loop_serves_again(service):
         assert len(asyncio.run(body())) == 6
     finally:
         setattr(bundle, name, real)
+        loop.supervisor = sup
     if engine.paged_kv:
         assert _wait(lambda: engine.kv_pool.used_blocks == 0)
 

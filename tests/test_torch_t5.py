@@ -27,6 +27,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from test_torch_jax_cache import isolated_jax_cache  # noqa: F401
 from mlmicroservicetemplate_tpu.convert import hf_maps as jax_hf_maps
 from mlmicroservicetemplate_tpu.models import sampling as js
 from mlmicroservicetemplate_tpu.models import t5 as jax_t5

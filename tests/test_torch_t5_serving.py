@@ -35,6 +35,7 @@ from test_torch_graphs import _with_graphs
 
 import jax
 
+from test_torch_jax_cache import isolated_jax_cache  # noqa: F401
 from mlmicroservicetemplate_tpu.api import build_app as jax_build_app
 from mlmicroservicetemplate_tpu.engine import InferenceEngine as JaxEngine
 from mlmicroservicetemplate_tpu.engine.streams import ContinuousDecodeLoop as JaxLoop

@@ -17,6 +17,7 @@ import torch
 from aiohttp import web
 from aiohttp.test_utils import TestClient, TestServer
 
+from test_torch_jax_cache import isolated_jax_cache  # noqa: F401
 from mlmicroservicetemplate_tpu.api.registration import (
     register_with_parent as jax_register_with_parent,
 )
