@@ -12,6 +12,7 @@
     python3 chip_smoke.py --quant          # the QUANTIZE=int8 phase only
     python3 chip_smoke.py --lora           # the LoRA adapters phase only
     python3 chip_smoke.py --faults         # faults, tuning and the converter only
+    python3 chip_smoke.py --observe        # the observability phase only
 
 Phases, one JSON line each; any failure exits non-zero and prints no
 result line:
@@ -319,10 +320,51 @@ result line:
    replayed after the rebuild over the slot state's same addresses; the rebuild's ms and the fault to the
    first resumed token printed.  budget (``chunk:fatal~1``,
    ``ENGINE_RESTARTS_MAX=1``): through the app, the stream fails,
-   ``/readyz`` answers 503 with the reference's body.  Then ``convert
-   gpt2``: the converter CLI's entry point on a seed-0 GPT-2 HF state dict
-   at full width; ``MODEL_PATH`` at its output and at the ``.npz`` give
-   equal parameters and bf16 logits on the card.
+   ``/readyz`` answers 503 with the reference's body.  Then (in the main
+   run after 8j) ``convert gpt2``: the converter CLI's entry point on a
+   seed-0 GPT-2 HF state dict at full width (the main run: its first
+   ``CUT_LAYERS`` layers, through ``--num-layers``); ``MODEL_PATH`` at its
+   output and at the ``.npz`` give equal parameters and bf16 logits on the
+   card.  Beside it, ``serve llama faults sticky``: a child process's
+   device-side assert and the call after it classify as a poisoned
+   context, its out-of-memory error does not.
+8j. serve llama observe (``--observe`` runs the build and 8j alone):
+   TinyLlama at full width (22 layers, seed-0 weights, bf16) through the
+   paged loop's graphs (8 slots, one seq bucket of 128, 64 tokens in
+   chunks of 4, one dispatch in flight), eight streams (one sampled) queued
+   as one wave under ``FAULT_SPEC=chunk:fatal@1;chunk:transient@4`` (the
+   fatal fault at the first loop chunk, when nothing is in flight, so the
+   resume is the same in both runs), and eight BERT-base ``/predict``
+   requests one at a time (K1, 12 launches each), served twice: the layer
+   off (``PERF_OBS=0 TRACE=0 FLIGHT_RING=0``) and on (``PERF_OBS=1 TRACE=1
+   LOG_FORMAT=json LOCKTRACE=1``, built through ``serve.build_service``).
+   Gates: the on-run's tokens the off-run's (identical, or a greedy row
+   parting at a near tie; every token teacher-forced), its
+   ``dispatch_counts`` and K1 and K3 launches equal; neither drive
+   captures a graph; CUDA-event busy time of the drive's graph replays <=
+   the estimator's ``device_busy_total_s`` over the drive <= the drive's
+   wall time, and the estimate at most ``OBSERVE_BUSY_FACTOR`` (1.5) times
+   the events' busy; the chunk graph's modeled FLOPs
+   a decode step equal to the hand count of TinyLlama's linears and LM head
+   (exact: integer counts), and the book's accrual over the drive equal to
+   count x replays; ``mfu_estimate`` > 0; over HTTP, ``/debug/trace``
+   parses and holds ``decode_chunk`` and ``dispatch:chunk`` spans,
+   ``/debug/engine`` holds iterations, the ``dispatch_retry`` event and one
+   dump, ``/status.observability.flight_dumps`` is 1; ``POST /debug/profile
+   {"seconds": 2}`` while streams run writes a Chrome trace that names K3's
+   split kernel; the lock-order detector reports no violation; every log
+   line of the on-run parses as JSON.  Printed: tokens/s with the layer on
+   and off (no gate).  Then ``serve llama observe cost``: the same llama
+   service at the layer's defaults (``PERF_OBS=1 FLIGHT_RING=256
+   TRACE=0``), no fault, the wave's start graph left to the first drive:
+   a cold drive (which captures it inside its guarded prefill) and a
+   warm one, each with CUDA events around every replay (printed: the
+   estimator's busy, the events', the drive's capture seconds; gates: the
+   warm drive's tokens teacher-forced, its event busy <= estimated busy <=
+   wall), then three pairs
+   of drives (two waves each) with the layer's default parts switched on
+   and off at run time (on, off, off, on, on, off): tokens/s of each and
+   the ratio of the medians (no gate).
 8a. serve gpt2, serve gpt2 stream (paged), serve gpt2 stream contiguous,
    each with its graphs phase: GPT-2 small at full width (12 layers, 768
    hidden, 12 heads, vocab 50257, position table 1024; random weights from
@@ -400,7 +442,7 @@ result line:
    filtered support under that forward; a whole generation and a loop
    chunk of verify rounds through graphs equal to eager; a prefix hit.
    Printed: tokens per verify step, spec against plain tokens/s.
-8b. decode step gpt2: one GPT-2 step at B in {1, 8, 16} over a 320-key
+8b. decode step gpt2: one GPT-2 step at B = 16 over a 320-key
    cache, greedy against sampled, eager and as graphs, split into K2,
    GEMMs and the rest; the sampler alone as graphs on [B, 50257] logits
    (threefry Gumbel noise, sort and filter, ``select_token``, argmax).
@@ -410,14 +452,15 @@ result line:
    at the JAX init's scales with an untied head; bf16; the byte
    tokenizer), whole, through the contiguous loop, with two prompts of
    different lengths past a cut SEQ_BUCKETS on the per-stream path (one
-   width, their lengths rounded up to a multiple of 128: 2 misses), and
+   width, their lengths rounded up to a multiple of 128; alone in their
+   service, the second sampled: 4 misses), and
    with ``CONTINUOUS_BATCHING=0``; the waves of 7 and four long prompts
    (the 512 bucket).  K1 must launch 6 times per run of a ``start`` graph
    and K2 never; every token is teacher-forced against an f32 one-pass
    forward through K1's plain version; the device's bucket tables must
    equal the CPU's; graphs against eager for the batch, the loop's chunk
    and a per-stream generation.  Then ``start t5``: encode + cross K/V +
-   first chunk at B in {1, 8, 32}, S=512, eager and as graphs, split into
+   first chunk at B = 32, S=512, eager and as graphs, split into
    K1, GEMMs and the rest, and ``decode step t5`` at the same batches.
    ``serve t5 classes``: 4 batch streams in T5's 4 contiguous slots, then 4
    interactive ones; the victims replay (K1 runs their ``start`` again);
@@ -4417,18 +4460,18 @@ def phase_serve_t5(label: str, overrides: dict, params, ref_model, waves, rehear
     return cfg, bundle, engine, k1, gdrive, feats, loop
 
 
-def phase_t5_timings(bundle, engine) -> None:
+def phase_t5_timings(bundle, engine, batches=(32,)) -> None:
     """Where T5's time goes on the card: ``start`` (encode, the cross K/V,
-    the first chunk) at B in {1, 8, 32}, S=512, eager and as the bucket's
-    graph, split into K1, GEMMs and the rest; then one decode step at the
-    same batches over a 64-position cache (``phase_decode_step``; K1 runs in
-    none)."""
+    the first chunk) at S=512 and each of ``batches`` (B = 32 in the main
+    run, for its time), eager and as the bucket's graph, split into K1,
+    GEMMs and the rest; then one decode step at the same batches over a
+    64-position cache (``phase_decode_step``; K1 runs in none)."""
     import torch
 
     from mlmicroservicetemplate_tpu_torch.models.sampling import greedy_params
 
     gen = torch.Generator(device="cuda").manual_seed(4)
-    for b in (1, 8, 32):
+    for b in batches:
         shape = (b, 512)
         ids = torch.randint(5, 261, shape, device="cuda", generator=gen, dtype=torch.int32)
         mask = torch.ones_like(ids)
@@ -4446,7 +4489,7 @@ def phase_t5_timings(bundle, engine) -> None:
             out = eager_and_graph(eager, entry.replay, 5, K1_KERNEL, "attention",
                                   count=LAUNCHED_KERNEL["fused_attention"])
         emit("start t5", shape=list(shape), chunk=engine.chunk_tokens, **out)
-    phase_decode_step(bundle, "decode step t5", batches=(1, 8, 32), prompt=512,
+    phase_decode_step(bundle, "decode step t5", batches=batches, prompt=512,
                       kernel=(K1_KERNEL, "attention"))
 
 
@@ -4769,7 +4812,7 @@ def phase_serve_window(label: str, overrides: dict, params, ref_model, rehearsal
             loop.window_tail_ms = 0.0
             loop.time_windows = w > 1 and not rehearsal
             engine.decode_steps = 0
-            engine.dispatch_counts = {}
+            engine.dispatch_stats.clear()
 
         def read(i, loop=loop, engine=engine, bundle=bundle, w=w):
             """The pass's counts; K2 and K3 held against them from the
@@ -5093,7 +5136,7 @@ def phase_serve_pipeline(label: str, overrides: dict, params, ref_model, rehears
                         "tokens_emitted", "prep_staged", "prep_hits", "prep_misses"):
                 setattr(loop, key, 0)
             engine.decode_steps = 0
-            engine.dispatch_counts = {}
+            engine.dispatch_stats.clear()
 
         def read(i, loop=loop, engine=engine, bundle=bundle, in_flight=in_flight,
                  samples=samples):
@@ -5931,6 +5974,8 @@ def quant_classifier(name: str, rehearsal: bool, card_line: str) -> int:
             BATCH_BUCKETS="1,8")
     elif not bert:
         ov["BATCH_BUCKETS"] = "1,8,16"
+    else:  # 9 graphs, not 30, for the run's time; the waves still pad up
+        ov.update(BATCH_BUCKETS="1,4,16", SEQ_BUCKETS="64,256,512")
     params = None if bert else resnet_pytree(ResNetConfig(), seed=0)
     t0 = time.monotonic()
     nbytes, (cfg, bundle, engine, batcher) = (
@@ -6649,7 +6694,31 @@ print(json.dumps(out))
 """
 
 
-def phase_sticky_errors(card_line: str) -> dict:
+def sticky_child() -> subprocess.Popen:
+    """Start ``phase_sticky_errors``' child (it runs beside the converter's
+    check, which does not time the card)."""
+    return subprocess.Popen([sys.executable, "-c", STICKY_CHILD], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def converter_and_sticky(card_line: str, rehearsal: bool, layers: int | None = None) -> None:
+    """``convert gpt2`` (at ``layers`` when given), then the sticky errors
+    of the child started before it; the child is stopped whatever fails."""
+    if rehearsal:
+        emit("convert gpt2", skipped="cpu rehearsal: GPT-2 at full width runs on the card")
+        emit("serve llama faults sticky", skipped="cpu rehearsal: no CUDA error to raise")
+        return
+    child = sticky_child()
+    try:
+        phase_convert_gpt2(card_line, layers=layers)
+        phase_sticky_errors(card_line, child)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+
+
+def phase_sticky_errors(card_line: str, child: subprocess.Popen) -> dict:
     """The fault classifier on what torch really raises on the card, from a
     child process (a sticky error ends the process's use of the card):
     its device-side assert, and the call after it, must read as a poisoned
@@ -6658,12 +6727,11 @@ def phase_sticky_errors(card_line: str) -> dict:
 
     from mlmicroservicetemplate_tpu_torch.engine.faults import is_context_poisoned
 
-    run = subprocess.run([sys.executable, "-c", STICKY_CHILD], capture_output=True,
-                         text=True, timeout=300)
-    got = json.loads(run.stdout.strip().splitlines()[-1])
+    stdout, stderr = child.communicate(timeout=300)
+    got = json.loads(stdout.strip().splitlines()[-1])
     if set(got) != {"oom", "assert", "after"}:
         raise AssertionError(f"serve llama faults sticky: the child raised {got}, "
-                             f"stderr {run.stderr[-2000:]}")
+                             f"stderr {stderr[-2000:]}")
     kinds = {"OutOfMemoryError": torch.cuda.OutOfMemoryError,
              "AcceleratorError": getattr(torch, "AcceleratorError", RuntimeError)}
     out = {}
@@ -6678,10 +6746,11 @@ def phase_sticky_errors(card_line: str) -> dict:
     return out
 
 
-def phase_convert_gpt2(card_line: str, device: str = "cuda") -> dict:
+def phase_convert_gpt2(card_line: str, device: str = "cuda", layers: int | None = None) -> dict:
     """The converter CLI's entry point on a seed-0 random GPT-2 HF state
-    dict at full width (``.npz``), then ``MODEL_PATH`` at its output and at
-    the ``.npz`` itself: the two models' parameters and bf16 logits on the
+    dict at full width (``.npz``; its first ``layers`` layers when given,
+    ``--num-layers``), then ``MODEL_PATH`` at its output and at the
+    ``.npz`` itself: the two models' parameters and bf16 logits on the
     card must be equal."""
     import shutil
     import tempfile
@@ -6697,15 +6766,18 @@ def phase_convert_gpt2(card_line: str, device: str = "cuda") -> dict:
     work = tempfile.mkdtemp(prefix="chip_smoke_convert_")
     try:
         src, ckpt = f"{work}/gpt2.npz", f"{work}/ckpt"
-        np.savez(src, **gpt2_hf_state(gpt_mod.GPTConfig(), seed=0))
+        cfg = gpt_mod.GPTConfig() if layers is None else gpt_mod.GPTConfig(num_layers=layers)
+        np.savez(src, **gpt2_hf_state(cfg, seed=0))
+        depth = [] if layers is None else ["--num-layers", str(layers)]
         t0 = time.monotonic()
-        convert_main(["--model", "gpt2", "--input", src, "--output", ckpt])
+        convert_main(["--model", "gpt2", "--input", src, "--output", ckpt, *depth])
         convert_s = time.monotonic() - t0
         models = {}
-        for name, path in (("checkpoint", ckpt), ("npz", src)):
-            models[name] = build_model(load_config(
-                {"MODEL_NAME": "gpt2", "DEVICE": device, "MODEL_PATH": path, "WARMUP": "0",
-                 "SEQ_BUCKETS": "64", "MAX_DECODE_LEN": "16"}))
+        with gpt2_layers(cfg.num_layers):
+            for name, path in (("checkpoint", ckpt), ("npz", src)):
+                models[name] = build_model(load_config(
+                    {"MODEL_NAME": "gpt2", "DEVICE": device, "MODEL_PATH": path, "WARMUP": "0",
+                     "SEQ_BUCKETS": "64", "MAX_DECODE_LEN": "16"}))
         a, b = models["checkpoint"], models["npz"]
         sa, sb = a.model.state_dict(), b.model.state_dict()
         if sorted(sa) != sorted(sb) or not all(torch.equal(sa[k], sb[k]) for k in sa):
@@ -6717,7 +6789,7 @@ def phase_convert_gpt2(card_line: str, device: str = "cuda") -> dict:
             la, lb = (gpt_mod.lm_logits(m.model, ids, torch.ones_like(ids),
                                         m.policy.compute_dtype).float() for m in (a, b))
         diff = float((la - lb).abs().max())
-        out = dict(card=card_line, convert_s=convert_s, parameters=len(sa),
+        out = dict(card=card_line, layers=cfg.num_layers, convert_s=convert_s, parameters=len(sa),
                    checkpoint_mb=os.path.getsize(f"{ckpt}/params.npz") / 1e6,
                    npz_mb=os.path.getsize(src) / 1e6, logits=list(la.shape),
                    logits_max_abs_diff=diff, logits_finite=bool(la.isfinite().all()))
@@ -6904,10 +6976,6 @@ def phase_serve_faults(params, ref_model, rehearsal: bool, card_line: str) -> di
                                                    "failed": True}:
             raise AssertionError(f"serve llama faults budget: {budget}")
         emit("serve llama faults budget", card=card_line, **budget)
-        if rehearsal:
-            emit("serve llama faults sticky", skipped="cpu rehearsal: no CUDA error to raise")
-        else:
-            phase_sticky_errors(card_line)
         emit("serve llama faults", card=card_line, ok=True, launches=launches,
              fatal_rebuild_ms=fatal.get("rebuild_ms"),
              fatal_to_first_resumed_token_ms=fatal.get("fault_to_first_resumed_token_ms"),
@@ -6947,11 +7015,572 @@ def faults_main(rehearsal: bool) -> int:
                                     torch.float32)
         phase = "serve llama faults"
         phase_serve_faults(params, ref, rehearsal, card_line)
+        phase = "convert gpt2"
+        converter_and_sticky(card_line, rehearsal)
+    except Exception as e:
+        traceback.print_exc()
+        emit(phase, ok=False, error=f"{type(e).__name__}: {e}")
+        return 1
+    return 0
+
+
+OBSERVE_WORDS = ["trace", "flight", "ring", "busy", "bubble", "graph", "replay", "span"]
+# The phase's layer, on and off.
+LAYER_ON = {"PERF_OBS": "1", "TRACE": "1", "LOG_FORMAT": "json", "LOCKTRACE": "1"}
+LAYER_OFF = {"PERF_OBS": "0", "TRACE": "0", "FLIGHT_RING": "0", "LOG_FORMAT": "text",
+             "LOCKTRACE": "0"}
+OBSERVE_FAULTS = "chunk:fatal@1;chunk:transient@4"
+# 8j's gate on the estimator's looseness under TRACE=1: its busy time at
+# most this many times the CUDA-event busy time of the same replays.
+OBSERVE_BUSY_FACTOR = 1.5
+# The cost part's layer: the defaults (TRACE off), no fault; its on/off
+# pairs of drives; the flight ring it switches back on.
+OBSERVE_RING = 256
+LAYER_DEFAULT = {"PERF_OBS": "1", "TRACE": "0", "FLIGHT_RING": str(OBSERVE_RING),
+                 "LOG_FORMAT": "text", "LOCKTRACE": "0", "FAULT_SPEC": ""}
+OBSERVE_AB_PAIRS = 3
+
+
+def observe_items(rehearsal: bool) -> list:
+    """Eight prompts of 12-96 bytes (under the seq bucket), the last sampled
+    and seeded; each asks for the whole decode budget."""
+    import numpy as np
+
+    from mlmicroservicetemplate_tpu_torch.models.registry import RawItem
+
+    rng = np.random.default_rng(9)
+    items = []
+    for i, n in enumerate((12, 20, 31, 40, 52, 64, 80, 96)):
         if rehearsal:
-            emit("convert gpt2", skipped="cpu rehearsal: GPT-2 at full width runs on the card")
+            n = min(n, 48)
+        text = " ".join(rng.choice(OBSERVE_WORDS, size=n))[:n]
+        sampling = dict(temperature=0.8, top_k=40, seed=77) if i == 7 else {}
+        items.append(RawItem(text=text, **sampling))
+    return items
+
+
+def observe_overrides(device: str, rehearsal: bool) -> dict:
+    """TinyLlama, paged (16-token blocks), 8 slots, one seq bucket of 128,
+    64 tokens in chunks of 4 (16 chunk dispatches a wave), one dispatch in
+    flight; a fatal fault at the first loop chunk and a transient one at
+    the fourth after it."""
+    ov = {"MODEL_NAME": "llama", "DEVICE": device, "PAGED_KV": "1", "KV_BLOCK_SIZE": str(PAGE),
+          "MAX_STREAMS": "8", "BATCH_BUCKETS": "1,8", "SEQ_BUCKETS": "128",
+          "MAX_DECODE_LEN": "64", "STREAM_CHUNK_TOKENS": "4", "STREAM_PIPELINE": "1",
+          "WARMUP": "0", "FAULT_SPEC": OBSERVE_FAULTS, "DISPATCH_RETRIES": "2",
+          "DISPATCH_BACKOFF_S": "0.001"}
+    if rehearsal:  # 3 loop chunks a stream after the resume: the transient at the second
+        ov.update(SEQ_BUCKETS="64", MAX_DECODE_LEN="16", LLAMA_CONFIG=json.dumps(REHEARSAL_LLAMA),
+                  FAULT_SPEC="chunk:fatal@1;chunk:transient@2")
+    return ov
+
+
+def llama_hand_flops(cfg, rows: int) -> int:
+    """FLOPs of one decode step of ``rows`` rows through the linears and the
+    LM head of a llama (2 a multiply-add; attention, the hand-written
+    kernels' work, is left out, as the graph count leaves it)."""
+    d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    q = o = d * cfg.num_heads * cfg.head_dim
+    kv = d * cfg.num_kv_heads * cfg.head_dim
+    return rows * (cfg.num_layers * 2 * (q + 2 * kv + o + 3 * d * f) + 2 * d * v)
+
+
+def loop_rows(batcher) -> int:
+    """The batch bucket a wave of the loop's every slot collates to."""
+    from mlmicroservicetemplate_tpu_torch.engine.engine import bucket_for
+
+    return bucket_for(batcher._cdl.n_slots, batcher.engine.batch_buckets)
+
+
+def observe_drive(loop, bundle, items):
+    """Every item's stream queued before the loop's thread starts (one wave),
+    straight into the loop (its batcher stays unstarted, for the app);
+    returns (feats, rows, wall seconds)."""
+    feats = [bundle.preprocess(item) for item in items]
+
+    async def read(gen):
+        return [int(x) async for chunk in gen for x in chunk]
+
+    async def main():
+        loop._ensure_thread = lambda: None
+        try:
+            gens = [loop.submit_stream(dict(f)) for f in feats]
+        finally:
+            del loop._ensure_thread
+        loop._ensure_thread()
+        return await asyncio.gather(*(read(g) for g in gens), return_exceptions=True)
+
+    t0 = time.perf_counter()
+    rows = asyncio.run(main())
+    wall = time.perf_counter() - t0
+    bad = [r for r in rows if isinstance(r, BaseException)]
+    if bad:
+        raise AssertionError(f"serve llama observe: a stream failed: {bad[0]!r}")
+    return feats, rows, wall
+
+
+def graph_captures(engine) -> tuple[int, float]:
+    """The graph cache's captures so far and their host seconds."""
+    graphs = engine.graphs
+    return (graphs.counts["insert"], graphs.capture_s) if graphs is not None else (0, 0.0)
+
+
+def replay_events(enabled: bool):
+    """CUDA events around every graph replay while the returned list is
+    being filled (``enabled``), and a function that stops it."""
+    from mlmicroservicetemplate_tpu_torch.runtime import compile_cache
+
+    events: list = []
+    orig = compile_cache.GraphEntry.replay
+    if not enabled:
+        return events, lambda: None
+
+    def replay(self):
+        import torch
+
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        orig(self)
+        b.record()
+        events.append((a, b))
+
+    compile_cache.GraphEntry.replay = replay
+    return events, lambda: setattr(compile_cache.GraphEntry, "replay", orig)
+
+
+async def observe_http(llama_svc, bert_svc, n_bert: int, full: bool) -> dict:
+    """Serve both apps over loopback: ``n_bert`` BERT ``/predict`` requests
+    one at a time; with ``full``, the llama app's ``/debug/perf``,
+    ``/debug/trace``, ``/debug/engine`` and ``/status``, then
+    ``POST /debug/profile {"seconds": 2}`` while streams run."""
+    import aiohttp
+    from aiohttp import web
+
+    from mlmicroservicetemplate_tpu_torch.api.app import build_app
+
+    runners, urls = [], []
+    try:
+        for cfg, bundle, engine, batcher in (llama_svc, bert_svc):
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                port = s.getsockname()[1]
+            app = build_app(dataclasses.replace(cfg, warmup=False), bundle, engine, batcher)
+            runner = web.AppRunner(app, access_log=None)
+            await runner.setup()
+            runners.append(runner)
+            await web.TCPSite(runner, "127.0.0.1", port).start()
+            urls.append(f"http://127.0.0.1:{port}")
+        llama_url, bert_url = urls
+        out: dict = {}
+        async with aiohttp.ClientSession() as session:
+            for url in urls:
+                for _ in range(1200):
+                    async with session.get(f"{url}/readyz") as r:
+                        if r.status == 200:
+                            break
+                    await asyncio.sleep(0.05)
+                else:
+                    raise AssertionError(f"{url}/readyz never turned 200")
+            for i in range(n_bert):
+                async with session.post(f"{bert_url}/predict",
+                                        json={"text": f"observe the card {i}"}) as r:
+                    if r.status != 200:
+                        raise AssertionError(f"bert /predict {r.status}: {await r.text()}")
+                    await r.read()
+            if not full:
+                return out
+            for key, path in (("perf", "/debug/perf"), ("trace", "/debug/trace"),
+                              ("engine", "/debug/engine"), ("status", "/status")):
+                async with session.get(f"{llama_url}{path}") as r:
+                    if r.status != 200:
+                        raise AssertionError(f"{path} answered {r.status}")
+                    out[key] = json.loads(await r.text())
+            stop = asyncio.Event()
+            streamed = [0]
+
+            async def one(i: int):
+                body = {"prompt": f"observe {i} " * 4, "stream": True, "max_tokens": 32}
+                async with session.post(f"{llama_url}/v1/completions", json=body) as r:
+                    if r.status != 200:
+                        raise AssertionError(f"/v1/completions {r.status}")
+                    await r.read()
+                streamed[0] += 1
+
+            async def traffic():
+                # Waves of 2 streams with pauses: the profile only has to
+                # name K3, and each kernel event costs the export time.
+                i = 0
+                while not stop.is_set():
+                    await asyncio.gather(*(one(i + j) for j in range(2)))
+                    await asyncio.sleep(0.2)
+                    i += 2
+
+            load = asyncio.create_task(traffic())
+            try:
+                await asyncio.sleep(0.2)  # the first wave is in the loop
+                async with session.post(f"{llama_url}/debug/profile",
+                                        json={"seconds": 2}) as r:
+                    out["profile_status"] = r.status
+                    out["profile"] = json.loads(await r.text())
+            finally:
+                stop.set()
+                await load
+            out["profile_streams"] = streamed[0]
+        return out
+    finally:
+        for runner in runners:
+            await runner.cleanup()
+
+
+def observe_run(layer: dict, params, items, rehearsal: bool, full: bool) -> dict:
+    """One run of 8j's traffic under ``layer``: the llama and BERT services
+    built through ``serve.build_service``, warmed as the app warms, the
+    queued wave through the loop, then the HTTP part."""
+    import torch
+
+    from mlmicroservicetemplate_tpu_torch.ops.attention import fused_attention
+    from mlmicroservicetemplate_tpu_torch.ops.paged_attention import paged_decode_attention
+    from mlmicroservicetemplate_tpu_torch.serve import build_service
+
+    device = "cpu" if rehearsal else "cuda"
+    llama = build_service({**observe_overrides(device, rehearsal), **layer}, params=params)
+    bert = build_service({"MODEL_NAME": "bert-base", "DEVICE": device, "WARMUP": "0",
+                          "BATCH_BUCKETS": "1", "SEQ_BUCKETS": "32", **layer})
+    cfg, bundle, engine, batcher = llama
+    # WARMUP=0, as the app would serve it: the loop's slot state and chunk
+    # graphs are built (they must be before a stream), and of the bucket
+    # graphs only the wave's (8 rows at 128, argmax and sampled), so that
+    # the drive captures nothing; the app's canary captures its own.
+    batcher.warm_streams()
+    if engine.graphs is not None:
+        with engine._lock, torch.inference_mode():
+            for sample in (False, True):
+                engine._start_graph((loop_rows(batcher), max(engine.seq_buckets)), sample)
+    bert[3].warm_engine()
+    loop = batcher._cdl
+    def entries():
+        return engine.graphs.entries(bundle) if engine.graphs is not None else []
+
+    replays0 = {id(e): e.replays for e in entries()}
+    perf0 = engine.perf.snapshot()
+    k3 = paged_decode_attention.launches
+    captures0 = graph_captures(engine)
+    events, stop_events = replay_events(full and not rehearsal)
+    try:
+        feats, rows, wall = observe_drive(loop, bundle, items)
+    finally:
+        stop_events()
+    if not rehearsal:
+        torch.cuda.synchronize()
+    perf1 = engine.perf.snapshot()
+    captures1 = graph_captures(engine)
+    # What the drive's replays should have accrued, graph kind by kind (a
+    # bucket's graph captured in the drive accrues from its first replay).
+    expected: dict = {}
+    for e in entries():
+        n = e.replays - replays0.get(id(e), 0)
+        if e.cost is not None and n > 0:
+            expected[e.kind] = expected.get(e.kind, 0) + e.cost.flops * n
+    run = {"cfg": cfg, "bundle": bundle, "engine": engine, "loop": loop, "feats": feats,
+           "rows": rows, "wall_s": wall, "k3": paged_decode_attention.launches - k3,
+           "dispatch_counts": dict(engine.dispatch_counts),
+           "restarts": batcher.supervisor.restarts, "perf0": perf0, "perf1": perf1,
+           "expected_flops": expected,
+           "event_busy_s": sum(a.elapsed_time(b) for a, b in events) / 1e3,
+           "replays": len(events), "drive_captures": captures1[0] - captures0[0],
+           "drive_capture_s": captures1[1] - captures0[1]}
+    k1 = fused_attention.launches
+    run["http"] = asyncio.run(observe_http(llama, bert, 8, full))
+    run["k1"] = fused_attention.launches - k1
+    run["bert_bundle"] = bert[1]
+    return run
+
+
+def phase_serve_observe(params, ref_model, rehearsal: bool, card_line: str) -> dict:
+    """8j (the module docstring has the gates); returns the K1 and K3
+    launches of both runs' drives."""
+    import io
+    import logging
+    import tempfile
+
+    import torch
+
+    from mlmicroservicetemplate_tpu_torch.utils import locktrace, perfobs, tracing
+
+    items = observe_items(rehearsal)
+    launches = {"fused_attention": 0, "paged_decode_attention": 0}
+    off = observe_run(LAYER_OFF, params, items, rehearsal, full=False)
+    for key, name in (("k1", "fused_attention"), ("k3", "paged_decode_attention")):
+        launches[name] += off[key]
+    if not rehearsal:
+        release(off["bundle"])
+        release(off["bert_bundle"])
+    # The on-run's log lines, in whatever shape build_service gives them.
+    root = logging.getLogger()
+    captured = io.StringIO()
+    capture = logging.StreamHandler(captured)
+    formatters = {h: h.formatter for h in root.handlers}
+    root.addHandler(capture)
+    profile_dir = tempfile.mkdtemp(prefix="chip_smoke_profile_")
+    try:
+        on = observe_run({**LAYER_ON, "PROFILE_DIR": profile_dir}, params, items, rehearsal,
+                         full=True)
+        violations = locktrace.violations()
+    finally:
+        root.removeHandler(capture)
+        for h, fmt in formatters.items():
+            h.setFormatter(fmt)
+        locktrace.uninstall()
+        tracing.configure(False)
+        perfobs.configure(True)
+    for key, name in (("k1", "fused_attention"), ("k3", "paged_decode_attention")):
+        launches[name] += on[key]
+    label = "serve llama observe"
+    bundle, engine, loop, http = on["bundle"], on["engine"], on["loop"], on["http"]
+    try:
+        # 1. the layer changes nothing the card computes
+        check = teacher_forced(bundle, ref_model, on["feats"], on["rows"], engine.max_decode_len)
+        if on["rows"] == off["rows"]:
+            tokens = {"streams": len(on["rows"]), "identical": len(on["rows"]), "parted": [],
+                      **{k: check[k] for k in ("worst_gap", "tol", "sampled_worst_gap_over_tol")}}
         else:
-            phase = "convert gpt2"
-            phase_convert_gpt2(card_line)
+            tokens = same_tokens(label, bundle, ref_model, on["feats"], off["rows"], on["rows"],
+                                 check["tol"], engine.max_decode_len)
+        if (on["dispatch_counts"] != off["dispatch_counts"] or on["k1"] != off["k1"]
+                or on["k3"] != off["k3"] or on["restarts"] != 1 or off["restarts"] != 1):
+            raise AssertionError(
+                f"{label}: dispatch counts {on['dispatch_counts']} vs {off['dispatch_counts']}, "
+                f"K1 {on['k1']} vs {off['k1']}, K3 {on['k3']} vs {off['k3']}, restarts "
+                f"{on['restarts']} vs {off['restarts']}")
+        # K1: the eight requests and the app's canary, 12 layers each; K3:
+        # every layer at every step of each loop chunk dispatched.
+        want_k3 = 0 if rehearsal else (bundle.cfg.num_layers * engine.chunk_tokens
+                                        * on["dispatch_counts"]["chunk"])
+        if on["k3"] != want_k3 or on["k1"] != (0 if rehearsal else 9 * LAYERS):
+            raise AssertionError(f"{label}: K3 {on['k3']} (want {want_k3}), K1 {on['k1']}")
+        # 2. event busy <= estimated busy <= wall, and the estimate within
+        # OBSERVE_BUSY_FACTOR of the events, over a drive that captured no
+        # graph (a capture inside a guarded dispatch is host time the
+        # estimator counts as busy: the cost phase below measures that case)
+        busy = on["perf1"]["device_busy_total_s"] - on["perf0"]["device_busy_total_s"]
+        if on["drive_captures"] or off["drive_captures"]:
+            raise AssertionError(f"{label}: the drives captured {on['drive_captures']} and "
+                                 f"{off['drive_captures']} graphs (warm-up missed a bucket)")
+        if not rehearsal and not (on["event_busy_s"] <= busy <= on["wall_s"]
+                                  and busy <= OBSERVE_BUSY_FACTOR * on["event_busy_s"]):
+            raise AssertionError(f"{label}: CUDA-event busy {on['event_busy_s']:.4f} s, "
+                                 f"estimated {busy:.4f} s (at most {OBSERVE_BUSY_FACTOR}x the "
+                                 f"events), wall {on['wall_s']:.4f} s")
+        # 3. modeled FLOPs of a decode step against the hand count
+        hand = llama_hand_flops(bundle.cfg, loop.n_slots)
+        flops = {"hand_per_step": hand, "tolerance": "exact (integer counts)"}
+        accrued = {}
+        if engine.graphs is not None:
+            entry = loop.chunk_graph(False)
+            per_step = entry.cost.flops // engine.chunk_tokens
+            by0, by1 = (on[k]["modeled_flops_by_kind"] for k in ("perf0", "perf1"))
+            accrued = {k: v - by0.get(k, 0.0) for k, v in by1.items() if v != by0.get(k, 0.0)}
+            flops.update(graph_per_step=per_step, kind=entry.kind, accrued=accrued,
+                         expected=on["expected_flops"])
+            if per_step * engine.chunk_tokens != entry.cost.flops or per_step != hand:
+                raise AssertionError(f"{label}: modeled {entry.cost.flops} FLOPs a chunk of "
+                                     f"{engine.chunk_tokens} steps, hand {hand} a step")
+            if accrued != on["expected_flops"]:
+                raise AssertionError(f"{label}: accrued {accrued}, the replays' "
+                                     f"{on['expected_flops']}")
+        # 4. MFU
+        mfu = http["perf"]["mfu_estimate"]
+        if not rehearsal and not (mfu and mfu > 0):
+            raise AssertionError(f"{label}: mfu_estimate {mfu}")
+        # 5. /debug/trace
+        names = {ev["name"] for ev in http["trace"]["traceEvents"]}
+        if not {"decode_chunk", "dispatch:chunk"} <= names:
+            raise AssertionError(f"{label}: /debug/trace spans {sorted(names)}")
+        # 6. /debug/engine and /status
+        dbg = http["engine"]
+        kinds = {e["event"] for e in dbg["events"]}
+        if (not dbg["iterations"] or "dispatch_retry" not in kinds or dbg["dumps"] != 1
+                or http["status"]["observability"]["flight_dumps"] != 1):
+            raise AssertionError(f"{label}: /debug/engine {len(dbg['iterations'])} iterations, "
+                                 f"events {sorted(kinds)}, dumps {dbg['dumps']}, /status "
+                                 f"{http['status']['observability']}")
+        # 7. the profile
+        prof = http["profile"]
+        if http["profile_status"] != 200 or not os.path.exists(prof.get("trace_file", "")):
+            raise AssertionError(f"{label}: /debug/profile {http['profile_status']} {prof}")
+        with open(prof["trace_file"]) as f:
+            text = f.read()
+        if not text.lstrip().startswith("{") or '"traceEvents"' not in text:
+            raise AssertionError(f"{label}: {prof['trace_file']} is no Chrome trace")
+        # Event names by a regex over the text (a full parse of the ~250 MB
+        # file costs seconds of the run); K3's appear on its kernel events.
+        event_names = sorted(set(re.findall(r'"name":\s*"([^"]*)"', text)))
+        k3_named = [n for n in event_names if re.search(K3_KERNEL, n)]
+        if not rehearsal and not k3_named:
+            raise AssertionError(f"{label}: the profile names no K3 kernel "
+                                 f"({len(event_names)} event names)")
+        # 8. locks and logs
+        lines = [ln for ln in captured.getvalue().splitlines() if ln.strip()]
+        not_json = []
+        for ln in lines:
+            try:
+                json.loads(ln)
+            except ValueError:
+                not_json.append(ln)
+        if violations or not lines or not_json:
+            raise AssertionError(f"{label}: locktrace {violations}, {len(lines)} log lines, "
+                                 f"not JSON: {not_json[:3]}")
+        toks = sum(len(r) for r in on["rows"])
+        peak, drive_flops = http["perf"]["peak_flops"], sum(accrued.values())
+        emit(label, card=card_line, layers=bundle.cfg.num_layers, slots=loop.n_slots,
+             fault_spec=on["cfg"].fault_spec, tokens=tokens, dispatch_counts=on["dispatch_counts"],
+             launches={"fused_attention": on["k1"], "paged_decode_attention": on["k3"]},
+             restarts=on["restarts"], wall_s=on["wall_s"], estimated_busy_s=busy,
+             event_busy_s=on["event_busy_s"], replays=on["replays"],
+             busy_gap_s=busy - on["event_busy_s"], bubble_s=(
+                 on["perf1"]["device_bubble_s"] - on["perf0"]["device_bubble_s"]),
+             modeled_flops=flops, mfu_estimate=mfu, peak_flops=peak,
+             # The drive's accrued FLOPs over its busy and its wall time (the
+             # book is per model name, so /debug/perf's mfu_busy also holds
+             # the run's earlier llama services).
+             mfu_drive_busy=drive_flops / busy / peak if peak and busy else None,
+             mfu_drive_wall=drive_flops / on["wall_s"] / peak if peak else None,
+             trace_spans=len(http["trace"]["traceEvents"]),
+             flight={"iterations": len(dbg["iterations"]), "events": sorted(kinds),
+                     "dumps": dbg["dumps"], "last_dump": dbg["last_dump"]["reason"]},
+             profile={"seconds": prof["seconds"], "streams": http["profile_streams"],
+                      "event_names": len(event_names), "k3_names": k3_named[:2],
+                      "bytes": os.path.getsize(prof["trace_file"])},
+             locktrace_violations=len(violations), log_lines=len(lines),
+             tokens_per_s_on=toks / on["wall_s"],
+             tokens_per_s_off=sum(len(r) for r in off["rows"]) / off["wall_s"])
+    finally:
+        if not rehearsal:
+            release(bundle)
+            release(on["bert_bundle"])
+    cost = phase_observe_cost(params, ref_model, items, off["rows"], rehearsal, card_line)
+    launches["paged_decode_attention"] += cost["paged_decode_attention"]
+    return launches
+
+
+def observe_switch(engine, on: bool) -> None:
+    """The layer's default hot-path parts on or off at run time, between
+    drives: the replays' cost accrual, the occupancy estimator and the
+    flight recorder (``PERF_OBS=0 FLIGHT_RING=0`` turn off the same)."""
+    from mlmicroservicetemplate_tpu_torch.utils import perfobs
+
+    perfobs.configure(on)
+    engine.perf.enabled = on
+    engine.flight.size = OBSERVE_RING if on else 0
+
+
+def phase_observe_cost(params, ref_model, items, off_rows, rehearsal: bool,
+                       card_line: str) -> dict:
+    """8j's cost part: TinyLlama as 8j serves it (a queue of 8 behind its 8
+    slots), with the layer at its defaults (``PERF_OBS=1 FLIGHT_RING=256
+    TRACE=0``) and no fault, its loop warmed but not the wave's start
+    graphs.  A cold drive captures the wave's start graph inside its
+    guarded prefill; a warm drive follows; each with CUDA events around
+    every replay (the estimator's busy against the events' and the drive's
+    capture seconds, printed; the warm drive's every token teacher-forced
+    and its event busy <= estimated busy <= wall).  Then OBSERVE_AB_PAIRS
+    pairs of drives of two waves each, on, off, off, on, ..., the layer
+    switched at run time between them (``observe_switch``): tokens/s of each
+    (printed, no gate).  Returns the K3 launches of its drives."""
+    import statistics
+
+    import torch
+
+    from mlmicroservicetemplate_tpu_torch.ops.paged_attention import paged_decode_attention
+    from mlmicroservicetemplate_tpu_torch.serve import build_service
+
+    label = "serve llama observe cost"
+    device = "cpu" if rehearsal else "cuda"
+    cfg, bundle, engine, batcher = build_service(
+        {**observe_overrides(device, rehearsal), **LAYER_DEFAULT, "MAX_STREAM_QUEUE": "8"},
+        params=params)
+    try:
+        batcher.warm_streams()
+        loop = batcher._cdl
+        k3 = paged_decode_attention.launches
+        drives = {}
+        for name in ("cold", "warm"):
+            perf0, captures0 = engine.perf.snapshot(), graph_captures(engine)
+            events, stop_events = replay_events(not rehearsal)
+            try:
+                feats, rows, wall = observe_drive(loop, bundle, items)
+            finally:
+                stop_events()
+            if not rehearsal:
+                torch.cuda.synchronize()
+            perf1, captures1 = engine.perf.snapshot(), graph_captures(engine)
+            busy = perf1["device_busy_total_s"] - perf0["device_busy_total_s"]
+            event_busy = sum(a.elapsed_time(b) for a, b in events) / 1e3
+            drives[name] = {"wall_s": wall, "estimated_busy_s": busy,
+                            "event_busy_s": event_busy, "busy_gap_s": busy - event_busy,
+                            "replays": len(events), "captures": captures1[0] - captures0[0],
+                            "capture_s": captures1[1] - captures0[1],
+                            "pending_after": perf1["pending_dispatches"],
+                            "rows_as_off": sum(a == b for a, b in zip(rows, off_rows))}
+        # No fault here: rows may part from the faulted runs' after their
+        # recast (bf16, ROADMAP C9); every token is held to the reference.
+        check = teacher_forced(bundle, ref_model, feats, rows, engine.max_decode_len)
+        warm = drives["warm"]
+        warm["teacher_forced"] = {k: check[k] for k in ("worst_gap", "tol",
+                                                        "sampled_worst_gap_over_tol")}
+        if not rehearsal and (drives["cold"]["captures"] == 0 or warm["captures"]):
+            raise AssertionError(f"{label}: captures cold {drives['cold']['captures']}, "
+                                 f"warm {warm['captures']}")
+        if not rehearsal and not (warm["event_busy_s"] <= warm["estimated_busy_s"]
+                                  <= warm["wall_s"]):
+            raise AssertionError(f"{label}: warm drive CUDA-event busy "
+                                 f"{warm['event_busy_s']:.4f} s, estimated "
+                                 f"{warm['estimated_busy_s']:.4f} s, wall {warm['wall_s']:.4f} s")
+        emit(label, card=card_line, layer=LAYER_DEFAULT, drives=drives)
+        ab = {"on": [], "off": []}
+        for i in range(2 * OBSERVE_AB_PAIRS):
+            on = i % 4 in (0, 3)
+            observe_switch(engine, on)
+            _, rows, wall = observe_drive(loop, bundle, items * 2)  # two waves
+            ab["on" if on else "off"].append(sum(len(r) for r in rows) / wall)
+        observe_switch(engine, True)
+        on_med, off_med = statistics.median(ab["on"]), statistics.median(ab["off"])
+        emit(label, card=card_line, tokens_per_s_on=ab["on"], tokens_per_s_off=ab["off"],
+             median_on=on_med, median_off=off_med, on_over_off=on_med / off_med)
+        return {"paged_decode_attention": paged_decode_attention.launches - k3}
+    finally:
+        observe_switch(engine, True)
+        asyncio.run(batcher.stop())  # joins the loop's thread
+        if not rehearsal:
+            release(bundle)
+
+
+def observe_main(rehearsal: bool) -> int:
+    """``--observe``: the build and 8j alone, TinyLlama at full width (the
+    rehearsal's small llama on the CPU, no build).  Prints no result line."""
+    import torch
+
+    phase = "env"
+    try:
+        if not rehearsal and not torch.cuda.is_available():
+            print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
+            return 1
+        card_line = "cpu (rehearsal)" if rehearsal else card()
+        emit(phase, card=card_line, torch=torch.__version__, cuda=torch.version.cuda,
+             mode="observe")
+        if not rehearsal:
+            phase = "build"
+            phase_build()
+        from mlmicroservicetemplate_tpu_torch.convert.jax_params import llama_params_from_jax
+        from mlmicroservicetemplate_tpu_torch.models import llama as llama_mod
+
+        device = "cpu" if rehearsal else "cuda"
+        cfg = llama_mod.LlamaConfig(**(REHEARSAL_LLAMA if rehearsal else {}), eos_id=1, pad_id=0)
+        params = llama_pytree(cfg, seed=0)
+        ref = llama_mod.build_model(cfg, llama_params_from_jax(params, cfg), torch.device(device),
+                                    torch.float32)
+        phase = "serve llama observe"
+        phase_serve_observe(params, ref, rehearsal, card_line)
     except Exception as e:
         traceback.print_exc()
         emit(phase, ok=False, error=f"{type(e).__name__}: {e}")
@@ -6981,6 +7610,8 @@ def main(argv: list[str]) -> int:
                     help="only the build and the LoRA adapters phase")
     ap.add_argument("--faults", action="store_true",
                     help="only the build, the faults and tuning phase and the converter's")
+    ap.add_argument("--observe", action="store_true",
+                    help="only the build and the observability phase")
     args = ap.parse_args(argv)
     if args.perf:
         return perf_main()
@@ -6998,6 +7629,8 @@ def main(argv: list[str]) -> int:
         return weight_main("quant" if args.quant else "lora", args.cpu_rehearsal)
     if args.faults:
         return faults_main(args.cpu_rehearsal)
+    if args.observe:
+        return observe_main(args.cpu_rehearsal)
     rehearsal = args.cpu_rehearsal
     t_start = time.monotonic()
     phase = "env"
@@ -7247,12 +7880,15 @@ def main(argv: list[str]) -> int:
         # full depth, then the converter CLI at GPT-2's full width.
         phase = "serve llama faults"
         fault_launches = phase_serve_faults(params, ref_model, rehearsal, card_line)
-        if rehearsal:
-            emit("convert gpt2", skipped="cpu rehearsal: GPT-2 at full width runs on the card")
-        else:
-            phase = "convert gpt2"
-            phase_convert_gpt2(card_line)
+        # Observability (8j) at full depth: the layer off and on, K1 in a
+        # BERT-base wave beside it, then its cost at the defaults.
+        phase = "serve llama observe"
+        observe_launches = phase_serve_observe(params, ref_model, rehearsal, card_line)
         del ref_model, params
+        # The converter CLI at GPT-2's full width and CUT_LAYERS layers
+        # (``--faults`` converts all 12), 8i's sticky-error child beside it.
+        phase = "convert gpt2"
+        converter_and_sticky(card_line, rehearsal, CUT_LAYERS)
 
         # GPT-2 small at full width, random weights from seed 0, bf16: whole,
         # then streamed through the loop (paged, then contiguous).
@@ -7357,7 +7993,8 @@ def main(argv: list[str]) -> int:
             emit("decode step gpt2", skipped="cpu rehearsal: no card to profile")
         else:
             phase = "decode step gpt2"
-            phase_decode_step(gpt2_svc[1], phase, batches=(1, 8, 16), prompt=256,
+            # B = 16 only, for the run's time.
+            phase_decode_step(gpt2_svc[1], phase, batches=(16,), prompt=256,
                               sampled=True)
 
         # T5-small at full width (6+6 layers, d_model 512, 8 heads of 64,
@@ -7413,12 +8050,16 @@ def main(argv: list[str]) -> int:
         release(classes[0])
         # The per-stream path: two prompts of different lengths past the
         # largest of cut buckets (one width, a multiple of 128: start and
-        # gen_chunk captured at first use, 2 misses for both), then every
+        # gen_chunk captured at first use, greedy and sampled: 4 misses), then every
         # stream with the loop off (B=1 buckets, all warmed).
-        long_wave = [t5_long_wave(rehearsal, n=1, lengths=lens)[0] for lens in long_lens]
+        # The long prompts alone (the loop's waves on cut
+        # buckets ran here too; `serve t5 stream` drives the loop), the
+        # second sampled and seeded.
+        long_wave = [t5_long_wave(rehearsal, n=i + 1, lengths=lens)[i]
+                     for i, lens in enumerate(long_lens)]
         for phase, extra, waves, misses in (
                 ("serve t5 long prompt", {"SEQ_BUCKETS": cut_seq, "BATCH_BUCKETS": "1,4,16"},
-                 gen_waves(rehearsal) + [long_wave], 2),
+                 [long_wave], 4),
                 ("serve t5 per-stream", {"CONTINUOUS_BATCHING": "0", "BATCH_BUCKETS": "1"},
                  gen_waves(rehearsal), 0)):
             if rehearsal and "BATCH_BUCKETS" in extra:
@@ -7571,7 +8212,8 @@ def main(argv: list[str]) -> int:
         # launches: BERT-base's and T5's encoder (with its bias, beside its
         # own case's numbers), each served path of the run.
         kernel_entry("fused_attention", "mlmicroservicetemplate_tpu/ops/attention.py:400",
-                     launches + t5_k1 + quant_launches["fused_attention"], headline,
+                     launches + t5_k1 + quant_launches["fused_attention"]
+                     + observe_launches["fused_attention"], headline,
                      tflops=headline["tflops"],
                      tflops_every_key=headline["tflops_every_key"],
                      t5={**gpt2_entry(t5_headline, t5_k1), "bias": t5_headline["bias"],
@@ -7590,7 +8232,8 @@ def main(argv: list[str]) -> int:
                      "mlmicroservicetemplate_tpu/ops/paged_attention.py:353",
                      k3_streams + gpt2_k3 + quant_launches["paged_decode_attention"]
                      + lora_launches["paged_decode_attention"]
-                     + fault_launches["paged_decode_attention"], paged_headline,
+                     + fault_launches["paged_decode_attention"]
+                     + observe_launches["paged_decode_attention"], paged_headline,
                      gpt2=gpt2_entry(gpt2_paged, gpt2_k3)),
         # launches: the served bert-long path; the 4-shard check (a direct
         # call, no serving path) is counted apart.

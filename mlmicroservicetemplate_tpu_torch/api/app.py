@@ -13,7 +13,12 @@ message list rendered by ``CHAT_TEMPLATE``, ``api/chat.py``); with
 per-stream path: a prompt past the largest seq bucket, or
 ``CONTINUOUS_BATCHING=0``), ``/predict`` as ndjson lines of text deltas and the ``/v1`` routes as
 server-sent events ending in ``data: [DONE]``.  Also ``GET /v1/models``,
-``/healthz``, ``/readyz``, ``/status`` and ``/metrics``.  With ``SERVER_URL`` set, the
+``/healthz``, ``/readyz``, ``/status`` and ``/metrics``, and the reference's
+debug routes: ``GET /debug/trace`` (the span ring as Chrome trace-event
+JSON), ``GET /debug/engine`` (the flight recorder), ``GET /debug/perf``
+(the perf observatory) and ``POST /debug/profile`` (a ``torch.profiler``
+capture of CPU and, on the card, CUDA activity, written as a Chrome trace
+into ``PROFILE_DIR``).  With ``SERVER_URL`` set, the
 app registers with its parent on startup (``api/registration.py``).  The
 ``api`` package is the only part of the port that imports aiohttp.
 """
@@ -24,6 +29,7 @@ import asyncio
 import json
 import logging
 import math
+import os
 import time
 import uuid
 
@@ -93,7 +99,7 @@ def build_app(cfg, bundle: ModelBundle, engine, batcher: Batcher) -> web.Applica
     app[K_STARTED_AT] = time.time()
     # Runtime state goes in one mutable dict: aiohttp freezes the app
     # mapping once it starts.
-    app[K_STATE] = {"ready_error": None, "warmup_s": None}
+    app[K_STATE] = {"ready_error": None, "warmup_s": None, "tracing": False}
     app.router.add_post("/predict", handle_predict)
     app.router.add_post("/v1/completions", handle_completions)
     app.router.add_post("/v1/chat/completions", handle_chat_completions)
@@ -102,6 +108,10 @@ def build_app(cfg, bundle: ModelBundle, engine, batcher: Batcher) -> web.Applica
     app.router.add_get("/readyz", handle_readyz)
     app.router.add_get("/status", handle_status)
     app.router.add_get("/metrics", handle_metrics)
+    app.router.add_get("/debug/trace", handle_trace)
+    app.router.add_get("/debug/engine", handle_engine_debug)
+    app.router.add_get("/debug/perf", handle_perf_debug)
+    app.router.add_post("/debug/profile", handle_profile)
 
     # A misconfigured CHAT_TEMPLATE fails at startup, not as 500s once the
     # server is ready; a tokenizer that shatters the template's markers was
@@ -918,13 +928,23 @@ async def handle_status(request: web.Request) -> web.Response:
             body["decode"]["kernel_variant"] = cdl.kernel_variant
             body["decode"]["autotune"] = a_stats["counts"]
             body["decode"]["autotune_table"] = a_stats["table"]
+    perf = getattr(engine, "perf", None)
+    if perf is not None:
+        # The perf observatory's compact view (/debug/perf has the detail).
+        psnap = perf.snapshot()
+        body["perf"] = {k: psnap[k] for k in (
+            "enabled", "device_busy_total_s", "device_bubble_s", "busy_ratio",
+            "prep_overlap_s", "mfu_estimate", "modeled_flops_total")}
+        slo = getattr(cdl, "slo", None) if cdl is not None else None
+        if slo is not None:
+            body["perf"]["slo"] = slo.snapshot()
     tr = tracing.tracer()
-    # The flight recorder is not ported: its ring and dumps read 0.
+    flight = getattr(engine, "flight", None)
     body["observability"] = {
         "trace": tr is not None,
         "spans_created": tr.spans_created if tr is not None else 0,
-        "flight_ring": 0,
-        "flight_dumps": 0,
+        "flight_ring": getattr(flight, "size", 0),
+        "flight_dumps": getattr(flight, "dumps", 0),
     }
     err = app[K_STATE]["ready_error"]
     if err:
@@ -967,6 +987,149 @@ async def handle_status(request: web.Request) -> web.Response:
 async def handle_metrics(request: web.Request) -> web.Response:
     body, ctype = metrics.render()
     return web.Response(body=body, content_type=ctype.split(";")[0])
+
+
+async def handle_trace(request: web.Request) -> web.Response:
+    """``GET /debug/trace?last=N``: the span ring as Chrome trace-event JSON
+    (Perfetto, ``chrome://tracing``); empty ``traceEvents`` with
+    ``otherData.trace_enabled: false`` under ``TRACE=0``."""
+    tr = tracing.tracer()
+    last = request.query.get("last")
+    try:
+        last = int(last) if last is not None else None
+    except ValueError:
+        raise web.HTTPBadRequest(reason='"last" must be an integer')
+    if last is not None and last <= 0:
+        raise web.HTTPBadRequest(reason='"last" must be > 0')
+    if tr is None:
+        return web.json_response({
+            "traceEvents": [],
+            "displayTimeUnit": "ms",
+            "otherData": {"trace_enabled": False, "hint": "start the server with TRACE=1"},
+        })
+    out = tr.chrome_trace(last)
+    out["otherData"]["trace_enabled"] = True
+    return web.json_response(out)
+
+
+def _loop_summary(cdl) -> dict:
+    return {
+        "active": len(cdl.active),
+        "queued": cdl.queue.qsize(),
+        "prefilling": len(cdl._prefilling),
+        "swapping": len(cdl._swapping),
+        "chunk_dispatches": cdl.chunk_dispatches,
+        "prefill_dispatches": cdl.prefill_dispatches,
+        "preemptions": cdl.preemptions,
+    }
+
+
+async def handle_engine_debug(request: web.Request) -> web.Response:
+    """``GET /debug/engine``: the flight recorder (the loop's last
+    iterations, scheduling and fault events, the last fatal-fault dump), the
+    per-site dispatch accounting and the loop's summary.  ``?all=1`` asks
+    for every replica's merged timeline; with one engine and no fleet it is
+    this engine's ring, as in the reference."""
+    engine = request.app[K_ENGINE]
+    flight = getattr(engine, "flight", None)
+    if flight is None:
+        raise web.HTTPNotFound(reason="engine has no flight recorder")
+    body = flight.snapshot()
+    body["dispatch_attribution"] = (engine.dispatch_attribution()
+                                    if hasattr(engine, "dispatch_attribution") else {})
+    cdl = getattr(request.app[K_BATCHER], "_cdl", None)
+    if cdl is not None:
+        body["loop"] = _loop_summary(cdl)
+    return web.json_response(body)
+
+
+async def handle_perf_debug(request: web.Request) -> web.Response:
+    """``GET /debug/perf``: the perf observatory's detail (device busy and
+    bubble by site, prep overlap, modeled FLOPs by graph kind, the MFU
+    estimate and its components), SLO burn rates, the counted graphs by
+    kind and the per-site dispatch accounting."""
+    from ..runtime.compile_cache import cost_stats
+
+    engine = request.app[K_ENGINE]
+    perf = getattr(engine, "perf", None)
+    if perf is None:
+        raise web.HTTPNotFound(reason="engine has no perf estimator")
+    body = perf.snapshot()
+    cdl = getattr(request.app[K_BATCHER], "_cdl", None)
+    slo = getattr(cdl, "slo", None) if cdl is not None else None
+    if slo is not None:
+        body["slo"] = slo.snapshot()
+    body["analyzed_signatures"] = cost_stats()
+    body["dispatch_attribution"] = (engine.dispatch_attribution()
+                                    if hasattr(engine, "dispatch_attribution") else {})
+    return web.json_response(body)
+
+
+def _profiler_start(engine):
+    """A started ``torch.profiler`` capture: CPU activity, and CUDA activity
+    on the card.  It starts under the engine's dispatch lock (on the card
+    the graph pool's), so CUPTI never starts in the middle of a graph
+    capture."""
+    import torch.profiler as tp
+
+    activities = [tp.ProfilerActivity.CPU]
+    if engine.device.type == "cuda":
+        activities.append(tp.ProfilerActivity.CUDA)
+    prof = tp.profile(activities=activities)
+    with engine._lock:
+        prof.start()
+    return prof
+
+
+def _profiler_stop(engine, prof) -> None:
+    with engine._lock:
+        prof.stop()
+
+
+def _profiler_export(prof, path: str) -> None:
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prof.export_chrome_trace(path)
+
+
+async def handle_profile(request: web.Request) -> web.Response:
+    """``POST /debug/profile {"seconds": 2}``: capture a ``torch.profiler``
+    trace for that long while traffic flows and write it as a Chrome trace
+    into the server's directory (``PROFILE_DIR``, else ``JAX_TRACE_DIR``,
+    else ``/tmp/jax-trace``; never the client's).  ``seconds`` in (0, 30];
+    a second capture while one runs answers 409."""
+    try:
+        body = await request.json()
+    except Exception:
+        body = {}
+    seconds = body.get("seconds", request.query.get("seconds", 2.0))
+    try:
+        seconds = float(seconds)
+    except (TypeError, ValueError):
+        raise web.HTTPBadRequest(reason='"seconds" must be a number')
+    if not (0.0 < seconds <= 30.0):  # also refuses NaN
+        raise web.HTTPBadRequest(reason='"seconds" must be in (0, 30]')
+    trace_dir = getattr(request.app[K_CFG], "profile_dir", None) or "/tmp/jax-trace"
+    state = request.app[K_STATE]
+    if state["tracing"]:
+        raise web.HTTPConflict(reason="a profile capture is already running")
+    state["tracing"] = True
+    engine = request.app[K_ENGINE]
+    path = os.path.join(trace_dir, f"torch-trace-{int(time.time() * 1e3)}.json")
+    try:
+        # Started and stopped on this thread: a profiler session belongs to
+        # the thread that starts it.  The export (hundreds of MB of JSON
+        # for a few seconds of a busy loop on the card) runs on a worker
+        # thread, so the open streams keep flowing meanwhile.
+        prof = _profiler_start(engine)
+        try:
+            await asyncio.sleep(seconds)
+        finally:
+            _profiler_stop(engine, prof)
+        await asyncio.to_thread(_profiler_export, prof, path)
+    finally:
+        state["tracing"] = False
+    return web.json_response({"trace_dir": trace_dir, "seconds": seconds, "trace_file": path,
+                              "hint": "open in perfetto or chrome://tracing"})
 
 
 async def drain_app(app: web.Application, grace_s: float = 30.0) -> bool:

@@ -95,6 +95,17 @@ not ported), the same functions run eagerly; ``graph_modes`` says which.
   deadline and no retries a guard is a plain call.  ``reset_device_state``
   is the supervised rebuild's device half, in place: the pools, the params
   and the graphs keep their addresses.
+- Observability (``utils/tracing.py``, ``utils/perfobs.py``,
+  ``utils/locktrace.py``): ``flight`` (the flight recorder, ``FLIGHT_RING``;
+  the watchdog's retries and timeouts land in it, the loop's iterations
+  and events too), ``perf`` (the device busy / bubble estimator,
+  ``PERF_OBS``, on by default) and ``dispatch_stats`` (per site: count, host
+  seconds and, under ``TRACE=1`` only, device seconds;
+  ``dispatch_attribution()``).  ``dispatch_guard`` checks the lock-order
+  detector, stamps the submit for ``perf`` with the two clock reads it
+  already takes and, under ``TRACE=1``, records a ``dispatch:{site}`` span
+  whose device half synchronizes the engine's stream.  Outside ``TRACE=1``
+  nothing here synchronizes or reads the device.
 """
 
 from __future__ import annotations
@@ -114,7 +125,7 @@ from ..models.spec import flatten_emitted
 from ..models.registry import KIND_IMAGE, KIND_SEQ2SEQ, KIND_TEXT, ModelBundle, decode_budget
 from ..models.sampling import SampleParams, advance, greedy_params, make_params
 from ..runtime import compile_cache
-from ..utils import metrics, tracing
+from ..utils import locktrace, metrics, perfobs, tracing
 from .faults import FaultInjector, Watchdog
 from .kv_blocks import BlockPool, KVHostTier, PagedPrefix, blocks_for, kv_token_bytes
 from .prefix_cache import PrefixCache
@@ -212,12 +223,6 @@ class InferenceEngine:
         self.dispatches = 0
         self.decode_steps = 0
         self.last_decode_steps = 0
-        # Host dispatch and fetch boundaries of streamed generation by site
-        # (``prefill``, ``chunk``, ``fetch``, ``prefill_chunk``, ``prep``), the JAX
-        # engine's per-site dispatch counts: what a fused decode window
-        # divides (``/status.decode.dispatch_counts``).
-        self.dispatch_counts: dict[str, int] = {}
-        self._counts_lock = threading.Lock()
         # Block-paged KV of the continuous loop (PAGED_KV=1).
         self.paged_kv = bool(cfg.paged_kv)
         self.kv_block_size = int(cfg.kv_block_size)
@@ -321,6 +326,31 @@ class InferenceEngine:
         # and the prefix grid's warm accounting (``_warm_prefixed``).
         self._prefix_inputs: dict[tuple[int, int], dict] = {}
         self.prefix_warm: dict | None = None
+        # On the CPU the engine's own lock serializes its dispatches, held
+        # across each as the card's pool lock is (``device_lock`` registers
+        # that one with the lock-order detector).
+        if self.graphs is None:
+            locktrace.allow_across_dispatch(self._lock)
+        # Observability: TRACE=1 installs the process tracer if none is (a
+        # second engine without the knob leaves the first's on); the flight
+        # recorder rides on the engine whatever TRACE says.
+        if getattr(cfg, "trace", False) and tracing.tracer() is None:
+            tracing.configure(True, int(getattr(cfg, "trace_ring", 4096)))
+        self.flight = tracing.FlightRecorder(int(getattr(cfg, "flight_ring", 256)))
+        # Host dispatch and fetch boundaries by site (``batch``, ``prefill``,
+        # ``chunk``, ``fetch``, ``prefill_chunk``, ``prep``, ...), the JAX
+        # engine's per-site accounting: {site: [count, host seconds, device
+        # seconds]}, the device half only under TRACE=1.  Its counts are what
+        # a fused decode window divides (``dispatch_counts``).
+        self.dispatch_stats: dict[str, list] = {}
+        self._dispatch_stats_lock = threading.Lock()
+        # The perf observatory: device busy / bubble from submit stamps and
+        # the loop's fetch seams; the process switch also gates the graph
+        # cache's cost count.
+        perf_on = bool(getattr(cfg, "perf_obs", True))
+        perfobs.configure(perf_on)
+        self.perf = perfobs.DeviceOccupancy(bundle.name, enabled=perf_on,
+                                            peak_flops=perfobs.peak_flops(cfg))
         # Fault injection and the dispatch watchdog (FAULT_SPEC; the port is
         # one engine, replica 0).
         self.faults = FaultInjector.from_spec(getattr(cfg, "fault_spec", None),
@@ -330,28 +360,72 @@ class InferenceEngine:
             timeout_s=float(getattr(cfg, "dispatch_timeout_s", 0.0) or 0.0),
             retries=int(getattr(cfg, "dispatch_retries", 2)),
             backoff_s=float(getattr(cfg, "dispatch_backoff_s", 0.05)),
-            injector=self.faults)
+            injector=self.faults, recorder=self.flight)
 
-    def note_dispatch(self, site: str, host_s: float | None = None) -> None:
+    def note_dispatch(self, site: str, host_s: float | None = None,
+                      device_s: float | None = None) -> None:
         """Count one host dispatch or fetch boundary at ``site`` and, given
         the host seconds the call took (``time.perf_counter`` around it, no
-        synchronisation added), observe them in ``dispatch_host_seconds``.
-        The counts are replaced, never changed in place, so a reader on
-        another thread (``/status``) iterates a dict no writer touches."""
+        synchronisation added), observe them in ``dispatch_host_seconds``;
+        ``dispatch_stats`` keeps the count with the host and (``TRACE=1``)
+        device seconds."""
         if host_s is not None:
             metrics.DISPATCH_HOST.labels(self.bundle.name, site).observe(host_s)
-        with self._counts_lock:
-            counts = self.dispatch_counts
-            self.dispatch_counts = {**counts, site: counts.get(site, 0) + 1}
+        with self._dispatch_stats_lock:
+            st = self.dispatch_stats.setdefault(site, [0, 0.0, 0.0])
+            st[0] += 1
+            st[1] += host_s or 0.0
+            st[2] += device_s or 0.0
+
+    @property
+    def dispatch_counts(self) -> dict[str, int]:
+        """Dispatches and fetches so far by site (``/status.decode``)."""
+        with self._dispatch_stats_lock:
+            return {site: st[0] for site, st in self.dispatch_stats.items()}
+
+    def dispatch_attribution(self) -> dict:
+        """Per-site dispatch accounting: ``{site: {count, host_s,
+        host_ms_avg, device_s}}``; ``device_s`` stays 0.0 unless ``TRACE=1``
+        measured it."""
+        out = {}
+        with self._dispatch_stats_lock:
+            for site, (n, host, dev) in sorted(self.dispatch_stats.items()):
+                out[site] = {"count": n, "host_s": round(host, 4),
+                             "host_ms_avg": round(host / n * 1e3, 3) if n else 0.0,
+                             "device_s": round(dev, 4)}
+        return out
 
     def dispatch_guard(self, site: str, fn):
         """Run one dispatch (or fetch) ``fn`` under the fault injector and
         the watchdog, and count it at ``site`` with its host seconds.  A
         fault fires before ``fn`` touches the device, so a retried
-        transient dispatches once."""
-        t0 = time.perf_counter()
-        out = self.watchdog.run(site, fn)
-        self.note_dispatch(site, time.perf_counter() - t0)
+        transient dispatches once.
+
+        The perf observatory's submit stamp reuses the two clock reads.
+        Under ``TRACE=1`` a ``dispatch:{site}`` span also measures the
+        device half by synchronizing the engine's stream after ``fn``
+        returns (the reference's ``block_until_ready``): an attribution mode
+        that serializes the loop's pipeline."""
+        if locktrace.is_active():
+            locktrace.note_dispatch(site)
+        tr = tracing.tracer()
+        if tr is None:
+            t0 = time.perf_counter()
+            out = self.watchdog.run(site, fn)
+            t1 = time.perf_counter()
+            self.note_dispatch(site, t1 - t0)
+            self.perf.on_guard(site, t0, t1)
+            return out
+        with tr.span(f"dispatch:{site}", cat="dispatch") as sp:
+            t0 = time.perf_counter()
+            out = self.watchdog.run(site, fn)
+            host_s = time.perf_counter() - t0
+            self.perf.on_guard(site, t0, t0 + host_s)
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+            device_s = time.perf_counter() - t0 - host_s
+            sp.set(host_ms=round(host_s * 1e3, 3), device_ms=round(device_s * 1e3, 3))
+            self.note_dispatch(site, host_s, device_s)
         return out
 
     def fault_point(self, site: str) -> None:
@@ -987,11 +1061,12 @@ class InferenceEngine:
         budget = self.budget_for(feats)
         width = self.stream_width(self._collate_text([feats])[0].shape[1])
         with self._lock, torch.inference_mode():
-            state, toks, sampled, shape = self.watchdog.run(
+            state, toks, sampled, shape = self.dispatch_guard(
                 "prefill", lambda: self.start_fused(feats, width))
             chunk, done = toks[0].cpu().numpy(), bool(state.done[0])
-            self.note_dispatch("prefill")
             self.note_dispatch("fetch")
+            # The fetch returned: the prefill it read has finished.
+            self.perf.note_complete("prefill")
             if self.graphs is not None:
                 state = clone_state(state)
             self.decode_steps += self.chunk_tokens
@@ -1000,11 +1075,11 @@ class InferenceEngine:
         yield chunk[:budget]
         while not done and produced < budget:
             with self._lock, torch.inference_mode():
-                toks = self.watchdog.run(
+                toks = self.dispatch_guard(
                     "chunk", lambda: self._stream_chunk(shape, state, sampled))
                 chunk, done = toks[0].cpu().numpy(), bool(state.done[0])
-                self.note_dispatch("chunk")
                 self.note_dispatch("fetch")
+                self.perf.note_complete("chunk")
                 self.decode_steps += self.chunk_tokens
             yield chunk[: budget - produced]
             produced += self.chunk_tokens
@@ -1165,7 +1240,8 @@ class InferenceEngine:
                 sfeats = dict(feats, input_ids=row_ids[p_len:], length=np.int32(length - p_len))
                 ids, mask, _ = self._collate_text([sfeats])
                 sp, _ = self._collate_sample([feats], ids.shape[0])
-                ss, out, ns = self._spec_start(ids, mask, sp, sampled, prefix, row_ids[:p_len])
+                ss, out, ns = self.dispatch_guard("prefill", lambda: self._spec_start(
+                    ids, mask, sp, sampled, prefix, row_ids[:p_len]))
                 shape = (1, p_len, ids.shape[1])
                 p_ins = cache.bucket_for_insert(length)
                 if p_ins is not None and p_ins > p_len and not cache.contains(row_ids, p_ins):
@@ -1177,15 +1253,16 @@ class InferenceEngine:
                     pad = ((0, 0), (0, width - ids.shape[1]))
                     ids, mask = np.pad(ids, pad), np.pad(mask, pad)
                 sp, _ = self._collate_sample([feats], ids.shape[0])
-                ss, out, ns = self._spec_start(ids, mask, sp, sampled)
+                ss, out, ns = self.dispatch_guard(
+                    "prefill", lambda: self._spec_start(ids, mask, sp, sampled))
                 shape = ids.shape
                 if cache is not None:
                     p_ins = cache.bucket_for_insert(length)
                     if p_ins is not None and not cache.contains(row_ids, p_ins):
                         cache.insert(row_ids, p_ins, self._capture_prefix(ss.base, p_ins))
             out_np, ns_np, done = out.cpu().numpy(), ns.cpu().numpy(), bool(ss.base.done[0])
-            self.note_dispatch("prefill")
             self.note_dispatch("fetch")
+            self.perf.note_complete("prefill")
             if self.graphs is not None:
                 ss = clone_state(ss)
             self.spec_rounds += n_verify
@@ -1206,6 +1283,7 @@ class InferenceEngine:
                     ahead = self._spec_dispatch(shape, ss, sampled)
                 out_np, ns_np, done_np = (t.cpu().numpy() for t in current)
                 self.note_dispatch("fetch")
+                self.perf.note_complete("chunk")
             done = bool(done_np[0])
             chunk = self._spec_emitted(out_np, ns_np, n_verify)[: budget - produced]
             produced += int(chunk.size)
@@ -1216,8 +1294,7 @@ class InferenceEngine:
         """One chunk of verify rounds of a per-stream spec state; returns
         copies of its (out, n_emit, done), which the next replay leaves
         alone.  The caller holds ``_lock``."""
-        out, ns = self._spec_stream_chunk(shape, ss, sample)
-        self.note_dispatch("chunk")
+        out, ns = self.dispatch_guard("chunk", lambda: self._spec_stream_chunk(shape, ss, sample))
         self.spec_rounds += self.chunk_tokens
         return out.clone(), ns.clone(), ss.base.done.clone()
 

@@ -273,17 +273,18 @@ class Watchdog:
     caller's inference mode) and an overrun raises ``DispatchTimeoutError``:
     the thread is abandoned, and if it was still in the injector its
     dispatch never runs.  Transient failures retry up to ``retries`` times
-    with capped exponential backoff.  (The reference also writes retries
-    and timeouts to its flight recorder, which comes with the observability
-    slice.)"""
+    with capped exponential backoff.  Retries and timeouts are events of
+    ``recorder`` (the engine's flight recorder) when there is one."""
 
     def __init__(self, model: str, timeout_s: float = 0.0, retries: int = 0,
-                 backoff_s: float = 0.05, injector: FaultInjector | None = None):
+                 backoff_s: float = 0.05, injector: FaultInjector | None = None,
+                 recorder=None):
         self.model = model
         self.timeout_s = max(0.0, float(timeout_s))
         self.retries = max(0, int(retries))
         self.backoff_s = max(0.0, float(backoff_s))
         self.injector = injector
+        self.recorder = recorder
         self._passthrough = (
             self.injector is None and self.timeout_s <= 0 and self.retries <= 0)
 
@@ -297,6 +298,9 @@ class Watchdog:
             except Exception as e:
                 if is_transient(e) and attempt < self.retries:
                     metrics.DISPATCH_RETRIES.labels(self.model, type(e).__name__).inc()
+                    if self.recorder is not None:
+                        self.recorder.event("dispatch_retry", site=site, attempt=attempt + 1,
+                                            error=f"{type(e).__name__}: {e}")
                     time.sleep(min(self.backoff_s * (2 ** attempt), 2.0))
                     attempt += 1
                     continue
@@ -330,6 +334,8 @@ class Watchdog:
         if not done.wait(self.timeout_s):
             abandoned.set()
             metrics.DISPATCH_TIMEOUTS.labels(self.model).inc()
+            if self.recorder is not None:
+                self.recorder.event("dispatch_timeout", site=site, timeout_s=self.timeout_s)
             raise DispatchTimeoutError(
                 f"{site} dispatch exceeded DISPATCH_TIMEOUT_S={self.timeout_s}s")
         if "e" in box:

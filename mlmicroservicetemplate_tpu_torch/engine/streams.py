@@ -253,9 +253,20 @@ token-identically.  A failed prefill parks the fault
 (``_fault_pending``) for the next iteration top, its streams requeued
 (``_fail_streams``).  Without a supervisor, with the budget spent or after
 a CUDA error that poisoned the context, every stream ends with the error;
-a spent or failed supervisor stops the loop.  The reference's flight
-recorder dump (the observability slice) and its fleet failover are not
-ported.
+a spent or failed supervisor stops the loop.  The engine's flight
+recorder dumps before the rebuild (and at an unrecoverable fault), so the
+post-mortem shows the iterations that led to the fault.  The reference's
+fleet failover is not ported.
+
+Observability reads host state only: one flight-recorder frame per
+non-idle iteration (``_record_iteration``: batch composition, slot
+occupancy, queue depths, the pool's blocks), events at sheds,
+preemptions, checkpoints, dry-pool stalls, swaps, prefix demotions and
+promotions and window early exits (and the pacer's and the window
+governor's decisions); the perf observatory's completions at the seams
+where the host sees a dispatch's outputs land (``_deliver_ready`` /
+``_deliver_oldest``, ``_deliver_all``, ``_admit_complete``); and, under
+``SLO_*``, each TTFT and TBT sample into the SLO tracker.
 
 The decode-kernel autotuner (``PALLAS_AUTOTUNE``, ``PALLAS_VARIANT``;
 ``ops/autotune.py``): ``warm`` resolves K3's split count at the paged
@@ -294,6 +305,7 @@ from ..scheduler.policy import (
     DecodeWindowGovernor,
     PrefillPacer,
     QueueFullError,
+    SLOTracker,
 )
 from ..tenancy.adapters import AdapterBusy
 from ..utils import metrics, tracing
@@ -526,6 +538,9 @@ class ContinuousDecodeLoop:
         self.prefill_checkpoints = 0
         self.prefill_budget = 0
         self._pacer: PrefillPacer | None = None
+        # The engine's flight recorder (None on an engine without one): the
+        # pacer's and the window governor's decisions land in it too.
+        self._flight = getattr(engine, "flight", None)
         if self.prefill_chunk and self.spec:
             raise ValueError(
                 "PREFILL_CHUNK does not compose with SPEC_CONTINUOUS "
@@ -539,6 +554,7 @@ class ContinuousDecodeLoop:
             self.max_prompt = max(self.max_prompt, min(want, cap))
             self.prefill_budget = int(getattr(cfg, "prefill_budget", 0) or 0) or self.prefill_chunk
             self._pacer = PrefillPacer(weight=int(getattr(cfg, "class_weight", 4)))
+            self._pacer.recorder = self._flight
         if self.paged:
             self.block_size = engine.kv_block_size
             self.pool = engine.kv_pool
@@ -614,6 +630,9 @@ class ContinuousDecodeLoop:
                 f"(gpt2/llama); {bundle.name} decodes one chunk per dispatch")
         self._window_gov = DecodeWindowGovernor(
             self.decode_window, bool(getattr(cfg, "decode_window_auto", True)))
+        self._window_gov.recorder = self._flight
+        # SLO burn rates per class (SLO_*); None when every objective is 0.
+        self.slo = SLOTracker.from_cfg(self.model, cfg)
         # Window counts (/status.decode): dispatches of more than one chunk,
         # chunks they ran, those that stopped early, the last depth picked;
         # tokens sent to streams.
@@ -724,7 +743,7 @@ class ContinuousDecodeLoop:
             except QueueFullError as e:
                 if e.retry_after_s is None:
                     e.retry_after_s = self._retry_after_s()
-                metrics.SHED.labels(self.model, e.reason).inc()
+                self._shed(e.reason)
                 raise
             cap = self.max_streams + self.max_stream_queue
             with self._admitted_lock:
@@ -733,14 +752,14 @@ class ContinuousDecodeLoop:
                 if total < cap or victim is not None:
                     self._admitted += 1
             if total >= cap and victim is None:
-                metrics.SHED.labels(self.model, "queue_full").inc()
+                self._shed("queue_full")
                 raise QueueFullError(
                     f"{total} streams active >= max_streams={self.max_streams}"
                     f"+{self.max_stream_queue} queued",
                     retry_after_s=self._retry_after_s(),
                 )
             if victim is not None:
-                metrics.SHED.labels(self.model, "queue_full").inc()
+                self._shed("queue_full")
                 self._finish(victim, QueueFullError("shed for higher-priority stream",
                                                     retry_after_s=self._retry_after_s()))
             if self.adapters is not None and feats.get("adapter_id"):
@@ -752,7 +771,7 @@ class ContinuousDecodeLoop:
                 except AdapterBusy as e:
                     with self._admitted_lock:
                         self._admitted -= 1
-                    metrics.SHED.labels(self.model, "adapter_pool").inc()
+                    self._shed("adapter_pool")
                     raise QueueFullError(str(e), reason="adapter_pool",
                                          retry_after_s=e.retry_after_s) from e
             st.t_queued = time.monotonic()
@@ -776,6 +795,11 @@ class ContinuousDecodeLoop:
                 st.cancelled.set()
 
         return gen()
+
+    def _shed(self, reason: str) -> None:
+        metrics.SHED.labels(self.model, reason).inc()
+        if self._flight is not None:
+            self._flight.event("shed", reason=reason)
 
     def _retry_after_s(self) -> float:
         """Client guidance on 503: the streams ahead, and this one, each
@@ -1026,6 +1050,7 @@ class ContinuousDecodeLoop:
                     # Waiters whose reservation does not fit yet, nothing in
                     # flight: poll, do not spin.
                     time.sleep(0.01)
+                self._record_iteration()
             except Exception as e:
                 if self._recover(e):
                     continue
@@ -1051,6 +1076,34 @@ class ContinuousDecodeLoop:
             self.active[slot].emit(closed)
             self._free_slot(slot)
         self._inflight.clear()
+
+    def _record_iteration(self) -> None:
+        """One flight-recorder frame per non-idle iteration: batch
+        composition, slot occupancy, queue depths and the pool's blocks,
+        all host state."""
+        fl = self._flight
+        if fl is None or not fl.size:
+            return
+        if not (self.active or self._prefilling or self._swapping or self._inflight):
+            return
+        rec = dict(
+            active=len(self.active),
+            free_slots=len(self.free),
+            queued=self.queue.qsize(),
+            prefilling=len(self._prefilling),
+            swapping=len(self._swapping),
+            inflight_chunks=len(self._inflight),
+            chunk_dispatches=self.chunk_dispatches,
+            prefill_dispatches=self.prefill_dispatches,
+            window=self.last_window,
+            slots={str(slot): {"rid": st.rid, "klass": st.klass, "produced": st.produced,
+                               "budget": st.budget}
+                   for slot, st in self.active.items()},
+        )
+        if self.paged:
+            rec["pool_free_blocks"] = self.pool.free_blocks
+            rec["pool_used_blocks"] = self.pool.used_blocks
+        fl.record_iteration(**rec)
 
     def _fail_all(self, exc: BaseException) -> int:
         """End every pending and live stream with ``exc``; the slot state
@@ -1125,20 +1178,29 @@ class ContinuousDecodeLoop:
         and queue the checkpoints again.  False (the caller ends every
         stream) without a supervisor, with the budget spent, or after a CUDA
         error that poisoned the context, which fails the supervisor
-        outright: no rebuild in this process can serve again.  (The
-        reference dumps its flight recorder here; that comes with the
-        observability slice.)"""
+        outright: no rebuild in this process can serve again.  The flight
+        recorder dumps first either way (a spent budget's dump is the
+        supervisor's), so the post-mortem shows what led here."""
         sup = self.supervisor
+        fl = self._flight
         if sup is None:
+            if fl is not None:
+                fl.dump(f"unsupervised loop fault: {type(exc).__name__}: {exc}")
             return False
         if is_context_poisoned(exc):
             log.error("decode loop fault poisoned the CUDA context (%s: %s); "
                       "no in-process restart", type(exc).__name__, exc)
+            if fl is not None and not sup.failed:
+                fl.dump(f"CUDA context poisoned: {type(exc).__name__}: {exc}")
             sup.fail()
             return False
         if not sup.allow_restart():
             return False
         eng = self.engine
+        # Dump before the rebuild changes what the rings describe.
+        if fl is not None:
+            fl.dump(f"fatal fault, supervised restart {sup.restarts}/{sup.max_restarts}: "
+                    f"{type(exc).__name__}: {exc}")
         log.warning("decode loop fault (%s: %s); supervised engine restart %d/%d",
                     type(exc).__name__, exc, sup.restarts, sup.max_restarts)
         # After a watchdog cut the device may be wedged: no swap-out gather.
@@ -1205,7 +1267,7 @@ class ContinuousDecodeLoop:
         its consumer raises before any response bytes went out.  A stream
         in a slot never expires."""
         for st in self.queue.expire():
-            metrics.SHED.labels(self.model, "deadline").inc()
+            self._shed("deadline")
             self._finish(st, DeadlineExceededError(
                 "deadline passed while queued; stream shed before dispatch"))
 
@@ -1221,6 +1283,12 @@ class ContinuousDecodeLoop:
                 self.adapters.release(st.adapter_slot)
                 st.adapter_slot = 0
             dt = time.monotonic() - st.t_in
+            tr = tracing.tracer()
+            if tr is not None:
+                # The stream's lifetime (submit to release), the interval its
+                # queue-wait, prefill and decode spans tile.
+                tr.add("stream", cat="sched", rid=st.rid, t0=st.t_in, dur=dt,
+                       produced=st.produced, klass=st.klass, preempted=st.preempted)
             with self._admitted_lock:
                 self._admitted -= 1
                 self._stream_ewma_s = 0.8 * self._stream_ewma_s + 0.2 * dt
@@ -1276,6 +1344,8 @@ class ContinuousDecodeLoop:
             self._vacate(slot, st)
             self.preemptions += 1
             metrics.PREEMPTIONS.labels(self.model).inc()
+            if self._flight is not None:
+                self._flight.event("preempt", rid=st.rid, slot=slot)
             n += 1
         if n:
             # The vacated slots go to the interactive waiters, not back to
@@ -1304,10 +1374,13 @@ class ContinuousDecodeLoop:
         self._requeue_preempted(st)
         self._release_blocks(slot, st)
 
-    def _note_stall(self) -> None:
-        """A paged insert or growth found the pool dry."""
+    def _note_stall(self, st: _Stream, site: str) -> None:
+        """A paged insert, prefill window, prefetch or growth (``site``)
+        found the pool dry for ``st``."""
         self.kv_growth_stalls += 1
         metrics.KV_GROWTH_STALLS.labels(self.model).inc()
+        if self._flight is not None:
+            self._flight.event("kv_growth_stall", rid=st.rid, site=site)
 
     def _checkpoint_for_resume(self, st: _Stream) -> bool:
         """Prepare one stream's token-identical resume off the tokens it
@@ -1376,6 +1449,9 @@ class ContinuousDecodeLoop:
             return
         # A host-swapped checkpoint is charged the blocks its prefetch takes.
         st.kv = self.admission.kv_bytes_for_resume(st.feats, swap_tokens=self._swap_tokens(st))
+        if self._flight is not None:
+            self._flight.event("checkpoint_requeue", rid=st.rid, klass=st.klass,
+                               budget=st.budget, skip=st.skip, preempted=st.preempted)
         st.t_queued = time.monotonic()
         self.queue.put(st, force=True)
 
@@ -1406,7 +1482,12 @@ class ContinuousDecodeLoop:
         metrics.TOKENS.labels(self.model).inc(int(arr.size))
         now = time.monotonic()
         if st.t_emit:
-            metrics.TBT.labels(self.model).observe(now - st.t_emit)
+            gap = now - st.t_emit
+            metrics.TBT.labels(self.model).observe(gap)
+            if self.slo is not None:
+                self.slo.note("tbt", st.klass, gap)
+        elif self.slo is not None:
+            self.slo.note("ttft", st.klass, now - st.t_in)
         st.t_emit = now
 
     # -- admission -----------------------------------------------------
@@ -1572,6 +1653,8 @@ class ContinuousDecodeLoop:
         except Exception as e:
             self._fail_streams([st for st, *_ in started], e)
             return
+        # One prefill dispatch per distinct copy has landed.
+        self._perf_complete("prefill", len(copies))
         for st, state1, copy, row in started:
             toks_np, done_np = got[id(copy)]
             st.produced = self.chunk
@@ -1596,7 +1679,7 @@ class ContinuousDecodeLoop:
                 # and queue it again.
                 if slot is not None:
                     self.free.append(slot)
-                self._note_stall()
+                self._note_stall(st, "insert")
                 self.admission.release(st)
                 self._requeue_preempted(st)
                 continue
@@ -1915,7 +1998,7 @@ class ContinuousDecodeLoop:
             elif not st.started and st.deadline is not None and time.monotonic() > st.deadline:
                 self._prefilling.remove(job)
                 self._drop_job(job)
-                metrics.SHED.labels(self.model, "deadline").inc()
+                self._shed("deadline")
                 self._finish(st, DeadlineExceededError(
                     "deadline passed mid-prefill; stream shed before its first token"))
         for job in [j for j in self._prefilling if j.ready]:
@@ -1938,7 +2021,7 @@ class ContinuousDecodeLoop:
             try:
                 self._dispatch_prefill_window(job)
             except OutOfBlocks:
-                self._note_stall()
+                self._note_stall(job.st, "prefill")
                 self._prefilling.remove(job)
                 self._checkpoint_job(job)
                 continue
@@ -2411,6 +2494,8 @@ class ContinuousDecodeLoop:
         nbytes = nb * self.pool.block_bytes
         self.swap_out_bytes += nbytes
         metrics.KV_SWAP_BYTES.labels(self.model, "out").inc(nbytes)
+        if self._flight is not None:
+            self._flight.event("swap_out", rid=st.rid, tokens=cov, blocks=nb)
         self._note_host_gauges()
 
     def _drain_swapouts(self) -> None:
@@ -2467,6 +2552,8 @@ class ContinuousDecodeLoop:
             nbytes = len(ids) * self.pool.block_bytes
             self.swap_out_bytes += nbytes
             metrics.KV_SWAP_BYTES.labels(self.model, "out").inc(nbytes)
+            if self._flight is not None:
+                self._flight.event("prefix_demote", p_len=pp.p_len, blocks=len(ids))
             self._swap_pending.append((entry, gathered, copy, ids))
 
     def _host_to_device(self, entry, pos: int, dev_ids: list[int]) -> None:
@@ -2507,6 +2594,8 @@ class ContinuousDecodeLoop:
             self._drop_swap(st)
             self.swap_fallbacks += 1
             metrics.KV_SWAP_RESUMES.labels(self.model, "fallback").inc()
+            if self._flight is not None:
+                self._flight.event("swap_fallback", rid=st.rid)
             return False
         self._pending_wave = [s for s in self._pending_wave if s is not st]
         ids = np.asarray(st.feats["input_ids"], np.int32)[:length]
@@ -2522,7 +2611,7 @@ class ContinuousDecodeLoop:
             self._reclaim_then_ensure(job.sb, job.resume_at)
         except OutOfBlocks:
             job.sb.release()
-            self._note_stall()
+            self._note_stall(st, "swapin")
             self.admission.release(st)
             self._requeue_preempted(st)
             return True
@@ -2538,9 +2627,14 @@ class ContinuousDecodeLoop:
         self.admission.note_pool()
         return True
 
-    def _note_swapin(self, st: _Stream) -> None:
+    def _note_swapin(self, st: _Stream, tokens: int, partial: bool = False) -> None:
         self.swap_ins += 1
         metrics.KV_SWAP_RESUMES.labels(self.model, "swapped").inc()
+        if self._flight is not None:
+            if partial:
+                self._flight.event("swap_resume", rid=st.rid, tokens=tokens, partial=True)
+            else:
+                self._flight.event("swap_resume", rid=st.rid, tokens=tokens)
         self._drop_swap(st)
 
     def _swapin_to_prefill(self, job: _SwapInJob) -> None:
@@ -2554,7 +2648,7 @@ class ContinuousDecodeLoop:
         pj.consumed = job.resume_at
         pj.sb, job.sb = job.sb, None
         pj.table_row = job.table_row
-        self._note_swapin(st)
+        self._note_swapin(st, job.resume_at, partial=True)
         self._prefilling.append(pj)
 
     def _swap_handoff(self, job: _SwapInJob) -> bool:
@@ -2562,9 +2656,10 @@ class ContinuousDecodeLoop:
         handoff puts the stream live (``write_idx = L - 1``, step 0), its
         tokens those of a fresh prefill of the same prompt."""
         st = job.st
+        tokens = st.swap.tokens if st.swap is not None else job.L
         ok = self._handoff_job(job)
         if ok:
-            self._note_swapin(st)
+            self._note_swapin(st, tokens)
         return ok
 
     def _advance_swapins(self) -> bool:
@@ -2680,6 +2775,8 @@ class ContinuousDecodeLoop:
         self.swap_in_bytes += nbytes
         metrics.KV_SWAP_BYTES.labels(self.model, "in").inc(nbytes)
         metrics.KV_HOST_PREFIX_HITS.labels(self.model).inc()
+        if self._flight is not None:
+            self._flight.event("prefix_promote", p_len=p_len, blocks=nb, disk=False)
         return p_len, pp
 
     # -- decode chunks and windows ---------------------------------------
@@ -2737,7 +2834,7 @@ class ContinuousDecodeLoop:
                 self.engine.fault_point("grow")
                 fresh = self._reclaim_then_ensure(st.blocks, st.s_base + min(steps, st.budget))
             except OutOfBlocks:
-                self._note_stall()
+                self._note_stall(st, "grow")
                 self._vacate(slot, st)
                 continue
             if fresh:
@@ -2988,6 +3085,8 @@ class ContinuousDecodeLoop:
     def _deliver_oldest(self) -> None:
         e = self._inflight.pop(0)
         fetched = self.engine.dispatch_guard("fetch", e.copy.get)
+        # The host saw the oldest chunk land: a completion sample.
+        self._perf_complete("chunk")
         self._route_entry(e, fetched)
 
     def _deliver_all(self) -> None:
@@ -3001,6 +3100,7 @@ class ContinuousDecodeLoop:
             return [e.copy.get() for e in entries]
 
         fetched = self.engine.dispatch_guard("fetch", fetch)
+        self._perf_complete("chunk", len(entries))
         for e, got in zip(entries, fetched):
             self._route_entry(e, got)
 
@@ -3013,6 +3113,13 @@ class ContinuousDecodeLoop:
             return
         while self._inflight and self._inflight[0].copy.ready():
             self._deliver_oldest()
+
+    def _perf_complete(self, site: str, n: int = 1) -> None:
+        """One completion sample for the engine's device-occupancy
+        estimator (an engine without one records nowhere)."""
+        perf = getattr(self.engine, "perf", None)
+        if perf is not None:
+            perf.note_complete(site, n)
 
     def _route_entry(self, e: _Inflight, fetched: list[np.ndarray]) -> None:
         if e.w > 1:
@@ -3039,6 +3146,8 @@ class ContinuousDecodeLoop:
         if nc < w:
             self.window_early_exits += 1
             metrics.WINDOW_EARLY_EXITS.labels(self.model).inc()
+            if self._flight is not None:
+                self._flight.event("window_early_exit", ran=nc, window=w)
             if e.events is not None:
                 # Synchronized by the fetch: the copy followed the last chunk.
                 self.window_tail_ms += e.events[nc].elapsed_time(e.events[w])

@@ -16,8 +16,9 @@ Once ``failed`` flips the loop stops, every remaining consumer gets an
 error, new submissions are refused and ``/readyz`` stays unready.  On the
 card ``fail`` flips it outright, without spending a restart, when a CUDA
 error poisoned the process's context (``faults.is_context_poisoned``).
-The reference dumps its flight recorder when a restart is granted or
-refused; the recorder comes with the observability slice.
+``recorder`` (the engine's flight recorder) gets an ``engine_restart``
+event for each restart granted and dumps the moment the budget refuses
+one, so the post-mortem shows the iterations that led to the fault.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ class Supervisor:
     """Bounded-restart policy shared by the decode loop and /readyz."""
 
     def __init__(self, cfg=None, max_restarts: int | None = None,
-                 window_s: float | None = None, clock=None):
+                 window_s: float | None = None, clock=None, recorder=None):
         if max_restarts is None:
             max_restarts = int(getattr(cfg, "engine_restarts_max", 3) or 0)
         if window_s is None:
@@ -43,6 +44,7 @@ class Supervisor:
         self.restarts = 0  # lifetime count, in either mode
         self._times: list[float] = []  # in-window restart stamps
         self.failed = False
+        self.recorder = recorder
         self._lock = threading.Lock()
 
     def _prune_locked(self, now: float) -> None:
@@ -58,11 +60,18 @@ class Supervisor:
             self._prune_locked(now)
             used = len(self._times) if self.window_s > 0 else self.restarts
             if self.failed or used >= self.max_restarts:
+                first = not self.failed
                 self.failed = True
+                if self.recorder is not None and first:
+                    self.recorder.dump(
+                        f"engine restart budget exhausted ({used}/{self.max_restarts}"
+                        + (f" in {self.window_s:.0f}s window)" if self.window_s > 0 else ")"))
                 return False
             self.restarts += 1
             if self.window_s > 0:
                 self._times.append(now)
+            if self.recorder is not None:
+                self.recorder.event("engine_restart", n=self.restarts, max=self.max_restarts)
             return True
 
     def fail(self) -> None:

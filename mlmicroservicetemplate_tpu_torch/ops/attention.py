@@ -41,7 +41,7 @@ import threading
 
 import torch
 
-from ..runtime.compile_cache import counts_launches
+from ..runtime.compile_cache import counts_launches, uncounted
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIM = 64  # the only head width the kernels take (BERT-base, TinyLlama)
@@ -144,7 +144,8 @@ def fused_attention(
     CUDA tensors launch the kernel (or raise); CPU tensors take
     ``fused_attention_ref``."""
     if q.device.type == "cpu":
-        return fused_attention_ref(q, k, v, mask, bias, scale)
+        with uncounted():
+            return fused_attention_ref(q, k, v, mask, bias, scale)
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention: unsupported device {q.device}")
     _check(q, k, v, mask, bias)
@@ -465,7 +466,8 @@ def decode_attention(
     host reads nothing back) or raise; CPU tensors take
     ``decode_attention_ref``."""
     if q.device.type == "cpu":
-        return decode_attention_ref(q, k, v, mask, k_scale, v_scale, scale)
+        with uncounted():
+            return decode_attention_ref(q, k, v, mask, k_scale, v_scale, scale)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
     plan = _decode_plan(q, k, v, mask, k_scale, v_scale)

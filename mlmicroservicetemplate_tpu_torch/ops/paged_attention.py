@@ -57,7 +57,7 @@ from .attention import (
     split_plan,
 )
 from . import autotune
-from ..runtime.compile_cache import counts_launches
+from ..runtime.compile_cache import counts_launches, uncounted
 
 
 def gather_pages(pool: torch.Tensor, table: torch.Tensor, block_size: int) -> torch.Tensor:
@@ -390,8 +390,9 @@ def paged_decode_attention(
     ``paged_attention_ref``.  ``splits`` forces the grid's split count (the
     autotuner's candidates); by default the tuned or the heuristic one."""
     if q.device.type == "cpu":
-        return paged_attention_ref(q, k_pool, v_pool, table, key_valid, block_size,
-                                   k_scale, v_scale, scale)
+        with uncounted():
+            return paged_attention_ref(q, k_pool, v_pool, table, key_valid, block_size,
+                                       k_scale, v_scale, scale)
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: unsupported device {q.device}")
     plan = _paged_plan(q, k_pool, v_pool, table, key_valid, block_size, k_scale, v_scale,

@@ -35,7 +35,7 @@ from typing import Callable, Sequence
 import torch
 
 from ..ops.attention import _DTYPE_CODE, HEAD_DIM, MAX_SEQ
-from ..runtime.compile_cache import counts_launches
+from ..runtime.compile_cache import counts_launches, uncounted
 
 MASKED = -1e9  # score of a masked key: finite, so an all-masked row averages V
 MIN_SUM = 1e-20  # the ring's output is o / max(l, MIN_SUM)
@@ -169,7 +169,8 @@ def ring_hop(
     no state; or raise.  CPU tensors take ``ring_hop_ref``, which returns
     new tensors.  Callers use the returned ones."""
     if q.device.type == "cpu":
-        return ring_hop_ref(q, k, v, mask, o, m, l, scale, fresh=fresh, out=out)
+        with uncounted():
+            return ring_hop_ref(q, k, v, mask, o, m, l, scale, fresh=fresh, out=out)
     if q.device.type != "cuda":
         raise ValueError(f"ring_hop: unsupported device {q.device}")
     _check(q, k, v, mask, o, m, l, fresh, out)

@@ -69,6 +69,22 @@ refuses the pool's id to the next capture (an internal assert), and
 graphs captured outside the cache come and go.  Static inputs are
 allocated outside the pool.
 
+**Modeled cost** (the perf observatory, ``utils/perfobs.py``): with
+``PERF_OBS`` on, a graph's FLOPs and bytes are counted once, on the first
+call of its function (the capture's eager warm pass, or a CPU stand-in
+capturer's call), by a torch-function mode over the calls that multiply
+(a function mode costs a few µs a call; a dispatch mode, some 90):
+``2 * numel(out) * K`` for matmuls, linears and convolutions (K the
+contraction), ``2 * prod(index sizes)`` for a two-operand einsum, and each
+such call's operands read once and output written once as its bytes.  The
+hand-written kernels' wrappers count nothing (``uncounted``), on the card,
+where they are ctypes calls no mode sees, and on the CPU, where their plain
+versions would: one graph counts the same on both devices.
+Every replay accrues the count into the book (a fused window's graph holds
+its W chunks, so it counts W times a chunk's).  The reference's XLA cost
+analysis leaves out its Pallas calls the same way.  Eager paths, which
+replay no graph, accrue nothing.
+
 Import-light: nothing here touches CUDA at import.
 """
 
@@ -80,7 +96,7 @@ import threading
 import time
 from typing import Any, Callable
 
-from ..utils import metrics
+from ..utils import locktrace, metrics, perfobs
 
 KINDS = ("forward", "forward_images", "start", "start_prefixed", "gen_chunk", "loop_chunk",
          "loop_chunk_paged", "prefill_window", "prefill_window_paged", "spec_start",
@@ -121,10 +137,125 @@ def counts_launches(wrapper: Callable) -> Callable:
     return wrapper
 
 
+# -- modeled cost ------------------------------------------------------------
+_uncounted = threading.local()
+
+
+class uncounted:
+    """``with uncounted(): ...`` keeps the ops inside out of the cost count
+    (the kernel wrappers' plain versions).  Thread-local, nestable."""
+
+    def __enter__(self):
+        _uncounted.depth = getattr(_uncounted, "depth", 0) + 1
+        return self
+
+    def __exit__(self, *exc):
+        _uncounted.depth -= 1
+        return False
+
+
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
+_MATMULS = {"mm": 0, "bmm": 0, "matmul": 0, "__matmul__": 0, "linear": 0,
+            "addmm": 1, "baddbmm": 1}
+_CONVS = ("conv2d", "convolution", "cudnn_convolution_relu", "cudnn_convolution_add_relu")
+
+
+def _contraction(name: str, args: tuple) -> int | None:
+    """K of a multiply-accumulate call (FLOPs = 2 * numel(out) * K), or None
+    for a call that is not one."""
+    if name in _MATMULS:
+        return int(args[_MATMULS[name]].shape[-1])
+    if name in _CONVS:
+        w = args[1]
+        return w.numel() // int(w.shape[0])
+    return None
+
+
+def _einsum_operands(args: tuple) -> list:
+    ops = args[1:]
+    return list(ops[0]) if len(ops) == 1 and isinstance(ops[0], (list, tuple)) else list(ops)
+
+
+def _einsum_flops(eq: str, ops: list) -> int:
+    """2 * the product of every index's size, for a two-operand einsum."""
+    if len(ops) != 2:
+        return 0
+    lhs = eq.split("->")[0].replace(" ", "").split(",")
+    sizes: dict[str, int] = {}
+    for term, t in zip(lhs, ops):
+        for letter, n in zip(term, t.shape):
+            sizes[letter] = int(n)
+    total = 2
+    for n in sizes.values():
+        total *= n
+    return total
+
+
+class _Cost:
+    """FLOPs and bytes of one graph's call, and whether it was counted."""
+
+    __slots__ = ("flops", "bytes", "done")
+
+    def __init__(self):
+        self.flops = 0
+        self.bytes = 0
+        self.done = False
+
+
+def _cost_mode(cost: _Cost):
+    """A torch-function mode adding each multiplying call's FLOPs and bytes
+    to ``cost`` (outside ``uncounted``).  It sees the Python API's calls
+    (``F.linear``, ``einsum``, ``bmm``, the convolutions), once each: a
+    mode is off inside its own handler."""
+    import torch
+    from torch.overrides import TorchFunctionMode
+
+    class _CostMode(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if getattr(_uncounted, "depth", 0):
+                return out
+            name = getattr(func, "__name__", "")
+            if name == "einsum":
+                operands = _einsum_operands(args)
+                flops = _einsum_flops(args[0], operands)
+            else:
+                k = _contraction(name, args)
+                if k is None or not isinstance(out, torch.Tensor):
+                    return out
+                flops = 2 * out.numel() * k
+                operands = [a for a in args if isinstance(a, torch.Tensor)]
+            if flops:
+                cost.flops += flops
+                cost.bytes += sum(_nbytes(a) for a in operands) + _nbytes(out)
+            return out
+
+    return _CostMode()
+
+
+def _counted(fn: Callable[[], Any], cost: _Cost) -> Callable[[], Any]:
+    """``fn``, whose first call is counted into ``cost``."""
+
+    def call():
+        if cost.done:
+            return fn()
+        with _cost_mode(cost):
+            out = fn()
+        cost.done = True
+        return out
+
+    return call
+
+
 @dataclasses.dataclass
 class GraphEntry:
     """One captured call: replay it after writing its static inputs; read
-    its static outputs before another graph replays."""
+    its static outputs before another graph replays.  ``cost`` (its modeled
+    FLOPs and bytes, counted at capture under ``PERF_OBS``) accrues into
+    ``model``'s book at each replay."""
 
     kind: str
     graph: Any  # torch.cuda.CUDAGraph, or anything with ``replay()``
@@ -133,12 +264,17 @@ class GraphEntry:
     launches: dict[str, int]  # kernel name -> launches in one replay
     capture_s: float
     replays: int = 0
+    model: str = ""
+    cost: _Cost | None = None
 
     def replay(self) -> None:
         self.graph.replay()
         self.replays += 1
         for name, n in self.launches.items():
             LAUNCH_COUNTERS[name].launches += n
+        cost = self.cost
+        if cost is not None and cost.done and perfobs.enabled():
+            perfobs.note_cost(self.model, self.kind, cost.flops, cost.bytes)
 
 
 _pool_lock = threading.Lock()
@@ -161,7 +297,13 @@ def device_lock(device) -> threading.RLock:
     dispatches under it."""
     index = _index(device)
     with _pool_lock:
-        return _DEVICE_LOCKS.setdefault(index, threading.RLock())
+        lock = _DEVICE_LOCKS.get(index)
+        if lock is None:
+            lock = _DEVICE_LOCKS[index] = threading.RLock()
+            # Held across every replay by design: the lock-order detector's
+            # one lock allowed across a dispatch.
+            locktrace.allow_across_dispatch(lock)
+        return lock
 
 
 def graph_pool_bytes() -> int:
@@ -251,7 +393,13 @@ class GraphCache:
         if entry is not None:
             return entry
         fn, inputs, device = make()
+        cost = None
+        if perfobs.enabled():
+            cost = _Cost()
+            fn = _counted(fn, cost)
         entry = self.capturer(kind, fn, inputs, device)
+        entry.model = getattr(bundle, "name", "")
+        entry.cost = cost
         with self._lock:
             self._entries[key] = entry
             self.counts["insert"] += 1
@@ -269,6 +417,16 @@ class GraphCache:
         """{entries, hit, miss, insert}, as the JAX ``cache_stats``."""
         with self._lock:
             return {"entries": len(self._entries), **self.counts}
+
+    def cost_stats(self) -> dict[str, int]:
+        """Counted graphs per kind (the reference's analyzed signatures per
+        executable kind)."""
+        with self._lock:
+            out: dict[str, int] = {}
+            for key, e in self._entries.items():
+                if e.cost is not None and e.cost.done:
+                    out[key[1]] = out.get(key[1], 0) + 1
+            return out
 
     def kinds(self) -> dict[str, int]:
         """Entries per kind."""
@@ -309,6 +467,10 @@ def cache_stats() -> dict:
 
 def cache_kinds() -> dict[str, int]:
     return CACHE.kinds()
+
+
+def cost_stats() -> dict[str, int]:
+    return CACHE.cost_stats()
 
 
 def capture_stats() -> dict:

@@ -122,7 +122,9 @@ class Batcher:
                 if getattr(cfg, "supervise", True):
                     from ..engine.supervisor import Supervisor
 
-                    self.supervisor = Supervisor(cfg)
+                    # It dumps the engine's flight recorder the moment it
+                    # refuses a restart.
+                    self.supervisor = Supervisor(cfg, recorder=getattr(engine, "flight", None))
                     self._cdl.supervisor = self.supervisor
         # The batched multi-adapter LoRA pool (ADAPTER_DIR;
         # tenancy/adapters.py), with the reference's boot refusals.  Unset,

@@ -17,9 +17,12 @@ the continuous decode loop's stream queue.
   A ``started`` waiter (a preempted stream queued to resume) is never
   expired nor evicted.
 
-``PrefillPacer`` paces chunked prefill's windows against live decode, and
-``DecodeWindowGovernor`` picks the loop's fused decode window.  Fair share
-across tenants, the backfill, SLO and scaling governors are not ported.
+``PrefillPacer`` paces chunked prefill's windows against live decode,
+``DecodeWindowGovernor`` picks the loop's fused decode window (both write
+their decisions to the engine's flight recorder, ``recorder``), and
+``SLOTracker`` turns the loop's TTFT and TBT samples into SLO burn rates.
+Fair share across tenants, the backfill and scaling governors are not
+ported.
 """
 
 from __future__ import annotations
@@ -28,6 +31,9 @@ import heapq
 import itertools
 import threading
 import time
+from collections import deque
+
+from ..utils import metrics
 
 INTERACTIVE = "interactive"
 BATCH = "batch"
@@ -57,8 +63,8 @@ class PrefillPacer:
     its own TTFT); batch-class prefill is held while interactive decode is
     live, except one window every ``weight`` boundaries so it cannot
     starve; with no interactive decode running it backfills freely.
-    ``recorder`` stays None: the flight recorder that would log each hold
-    and grant is not ported."""
+    ``recorder`` (the engine's flight recorder, wired by the loop) gets
+    every hold and grant of a batch window as an event."""
 
     def __init__(self, weight: int = 4):
         self.weight = max(1, int(weight))
@@ -75,8 +81,13 @@ class PrefillPacer:
         self._held += 1
         if self._held >= self.weight:
             self._held = 0
+            if self.recorder is not None:
+                self.recorder.event("pacer_grant", klass=job_klass, weight=self.weight)
             return True
         self.holds += 1
+        if self.recorder is not None:
+            self.recorder.event("pacer_hold", klass=job_klass, held=self._held,
+                                weight=self.weight)
         return False
 
 
@@ -93,8 +104,9 @@ class DecodeWindowGovernor:
     - never past the chunks a live stream still needs, floored to a power
       of two, so the depths stay {1, 2, 4, ...}.
 
-    ``auto=False`` always fuses to the cap.  ``recorder`` stays None: the
-    flight recorder that would log each drop to W = 1 is not ported."""
+    ``auto=False`` always fuses to the cap.  ``recorder`` (the engine's
+    flight recorder, wired by the loop) gets each drop to W = 1 as an
+    event."""
 
     def __init__(self, cap: int, auto: bool = True):
         self.cap = max(1, int(cap))
@@ -123,6 +135,138 @@ class DecodeWindowGovernor:
             return 1
         w = min(self.cap, int(max_chunks))
         return 1 << (w.bit_length() - 1)
+
+
+class SLOTracker:
+    """Per-priority-class latency SLO burn rates, as the reference's.
+
+    Objectives come from ``SLO_TTFT_MS`` / ``SLO_TBT_MS`` (interactive
+    class) and ``SLO_BATCH_TTFT_MS`` / ``SLO_BATCH_TBT_MS``; 0 turns that
+    (kind, class) objective off.  Each delivery the loop already measures
+    (TTFT at a stream's first chunk, TBT at each later gap,
+    ``engine/streams.py::_emit_tokens``) is scored good or bad against its
+    objective, and the burn rate over a window is::
+
+        burn = (bad / total within window) / (1 - SLO_TARGET)
+
+    1.0 spends the error budget at exactly the sustainable rate.  The fast
+    window (``SLO_WINDOWS_S``'s first) reacts, the slow one filters blips.
+    Exported as ``slo_{ttft,tbt}_burn_rate{klass, window}`` (at most about
+    once a second).  The clock is injectable, each objective keeps one
+    deque pruned to the slow window, and notes and reads are thread-safe.
+    The reference's scaling governor, which reads ``worst_burn``, comes
+    with the fleet."""
+
+    KINDS = ("ttft", "tbt")
+    WINDOW_NAMES = ("fast", "slow")
+
+    def __init__(self, model: str, objectives: dict, target: float = 0.99,
+                 windows_s: tuple = (60.0, 600.0), clock=None, max_samples: int = 4096):
+        self.model = model
+        #: {(kind, klass): objective seconds}, the enabled ones only.
+        self.objectives = {k: float(v) for k, v in objectives.items() if v and v > 0}
+        self.target = float(target)
+        self.windows_s = (float(windows_s[0]), float(windows_s[1]))
+        self._budget = max(1e-9, 1.0 - self.target)
+        self._clock = clock if clock is not None else time.monotonic
+        self._lock = threading.Lock()
+        self._max_samples = int(max_samples)
+        self._samples: dict = {key: deque(maxlen=self._max_samples) for key in self.objectives}
+        self._last_export = 0.0
+
+    @classmethod
+    def from_cfg(cls, model: str, cfg, clock=None):
+        """A tracker from the service knobs, or None when every objective
+        is 0 (the default): no work on the delivery path."""
+        objectives = {
+            ("ttft", INTERACTIVE): float(getattr(cfg, "slo_ttft_ms", 0.0) or 0.0) / 1e3,
+            ("tbt", INTERACTIVE): float(getattr(cfg, "slo_tbt_ms", 0.0) or 0.0) / 1e3,
+            ("ttft", BATCH): float(getattr(cfg, "slo_batch_ttft_ms", 0.0) or 0.0) / 1e3,
+            ("tbt", BATCH): float(getattr(cfg, "slo_batch_tbt_ms", 0.0) or 0.0) / 1e3,
+        }
+        if not any(v > 0 for v in objectives.values()):
+            return None
+        windows = getattr(cfg, "slo_windows_s", None) or "60,600"
+        try:
+            parts = [float(x) for x in str(windows).split(",") if x.strip()]
+        except ValueError:
+            parts = [60.0, 600.0]
+        if len(parts) != 2 or parts[0] <= 0 or parts[0] >= parts[1]:
+            parts = [60.0, 600.0]
+        return cls(model, objectives, target=float(getattr(cfg, "slo_target", 0.99) or 0.99),
+                   windows_s=(parts[0], parts[1]), clock=clock)
+
+    def note(self, kind: str, klass: str, value_s: float) -> None:
+        obj = self.objectives.get((kind, klass))
+        if obj is None:
+            return
+        now = self._clock()
+        with self._lock:
+            q = self._samples[(kind, klass)]
+            q.append((now, value_s <= obj))
+            horizon = now - self.windows_s[1]
+            while q and q[0][0] < horizon:
+                q.popleft()
+            export = now - self._last_export >= 1.0
+            if export:
+                self._last_export = now
+        if export:
+            self.export_gauges(now)
+
+    def burn_rate(self, kind: str, klass: str, window_s: float | None = None,
+                  now: float | None = None) -> float:
+        """The burn rate over ``window_s`` (default the fast window); 0.0
+        with no samples."""
+        if (kind, klass) not in self.objectives:
+            return 0.0
+        window = self.windows_s[0] if window_s is None else float(window_s)
+        now = self._clock() if now is None else now
+        horizon = now - window
+        with self._lock:
+            total = bad = 0
+            for ts, good in reversed(self._samples[(kind, klass)]):
+                if ts < horizon:
+                    break
+                total += 1
+                if not good:
+                    bad += 1
+        if not total:
+            return 0.0
+        return (bad / total) / self._budget
+
+    def worst_burn(self) -> float:
+        """The largest fast-window burn across the enabled objectives."""
+        return max((self.burn_rate(kind, klass) for kind, klass in self.objectives),
+                   default=0.0)
+
+    def export_gauges(self, now: float | None = None) -> None:
+        """Set the burn-rate gauges of every (objective, window)."""
+        now = self._clock() if now is None else now
+        for (kind, klass) in self.objectives:
+            gauge = metrics.SLO_TTFT_BURN if kind == "ttft" else metrics.SLO_TBT_BURN
+            for name, win in zip(self.WINDOW_NAMES, self.windows_s):
+                gauge.labels(self.model, klass, name).set(
+                    self.burn_rate(kind, klass, win, now=now))
+
+    def snapshot(self) -> dict:
+        """``/status.perf.slo`` and ``/debug/perf``: objectives and burn
+        rates."""
+        now = self._clock()
+        out: dict = {
+            "target": self.target,
+            "windows_s": list(self.windows_s),
+            "objectives_ms": {f"{kind}:{klass}": round(obj * 1e3, 3)
+                              for (kind, klass), obj in sorted(self.objectives.items())},
+            "burn": {},
+        }
+        for (kind, klass) in sorted(self.objectives):
+            for name, win in zip(self.WINDOW_NAMES, self.windows_s):
+                out["burn"][f"{kind}:{klass}:{name}"] = round(
+                    self.burn_rate(kind, klass, win, now=now), 4)
+        with self._lock:
+            out["samples"] = {f"{kind}:{klass}": len(self._samples[(kind, klass)])
+                              for (kind, klass) in sorted(self.objectives)}
+        return out
 
 
 def _dl(item) -> float:

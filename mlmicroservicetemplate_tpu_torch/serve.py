@@ -52,7 +52,16 @@ def build_service(overrides: dict | None = None, params=None):
 
     ``params``: optional param pytree in the JAX package's layout (numpy
     leaves) of the named model (ResNet-50, BERT-base, bert-long or llama),
-    served in place of MODEL_PATH or random init."""
+    served in place of MODEL_PATH or random init.
+
+    ``LOCKTRACE=1`` installs the lock-order detector before any engine lock
+    exists (locks made earlier stay untraced); ``LOG_FORMAT=json`` gives the
+    root logger's handlers one JSON object per line."""
+    import os
+
+    from .utils import locktrace
+
+    locktrace.auto_install({**os.environ, **(overrides or {})})
     from .utils.config import load_config
 
     cfg = load_config(overrides)
@@ -62,6 +71,9 @@ def build_service(overrides: dict | None = None, params=None):
     )
     from .utils import tracing
 
+    if cfg.log_format == "json":
+        for h in logging.getLogger().handlers:
+            h.setFormatter(tracing.JsonLogFormatter())
     tracing.configure(cfg.trace, cfg.trace_ring)
 
     from .engine.engine import InferenceEngine

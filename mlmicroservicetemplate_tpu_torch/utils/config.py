@@ -5,7 +5,9 @@ T5-small paths, chat, the scheduler's priority classes, KV budget and
 preemption, the prompt prefix, the prefix cache, chunked prefill, the
 host KV tier, fused decode windows, speculative decoding, the decode
 kernel's autotuner, fault injection, the dispatch watchdog, the engine
-supervisor and the parent registration read, under the same
+supervisor, observability (the flight recorder, the perf observatory, SLO
+objectives, JSON logs, the lock-order detector and the profiler's
+directory) and the parent registration read, under the same
 environment names as the JAX package's ``ServiceConfig``.  ``DEVICE`` is
 ``cuda|cpu`` and defaults to ``cuda``; ``MODEL_NAME`` defaults to
 ``resnet50``, as in the JAX package.
@@ -67,10 +69,45 @@ class ServiceConfig:
     warmup: bool = True
     warmup_sampling: bool = True
     log_level: str = "INFO"
+    # Log line shape: "text" or "json" (one object per line,
+    # utils/tracing.JsonLogFormatter).
+    log_format: str = "text"
     # TRACE=1 records request / queue-wait / dispatch spans, the newest
-    # trace_ring of them.
+    # trace_ring of them (utils/tracing.py; GET /debug/trace).  Its
+    # dispatch spans synchronize each dispatch to split host from device
+    # time: an attribution mode, not a production default.
     trace: bool = False
     trace_ring: int = 4096
+    # The engine's flight recorder: loop iterations and scheduling / fault
+    # events kept for GET /debug/engine and the dump at a fatal fault; 0
+    # records nothing.
+    flight_ring: int = 256
+    # Directory of POST /debug/profile's traces: PROFILE_DIR, else the
+    # reference's JAX_TRACE_DIR; unset = /tmp/jax-trace.
+    profile_dir: str | None = None
+    # LOCKTRACE=1: the lock-order detector (utils/locktrace.py), installed
+    # by serve.build_service before any engine lock exists.
+    locktrace: bool = False
+    # The perf observatory (utils/perfobs.py): device busy / bubble seconds
+    # from submit stamps and the loop's fetch seams, with no added
+    # synchronisation, and modeled FLOPs per CUDA graph replay; off keeps no
+    # timestamps and counts no graph.
+    perf_obs: bool = True
+    # Peak TFLOP/s of the MFU estimate; 0 = the card's table entry
+    # (unknown on the CPU: the estimate stays unset).
+    peak_tflops: float = 0.0
+    # Latency histogram edges (comma-separated ascending seconds); unset =
+    # the defaults, which reach past 10 s.
+    latency_buckets: str | None = None
+    # SLO objectives per priority class in ms (0 = off), the attainment
+    # target whose complement is the error budget, and the burn-rate
+    # windows "fast,slow" in seconds (scheduler/policy.SLOTracker).
+    slo_ttft_ms: float = 0.0
+    slo_tbt_ms: float = 0.0
+    slo_batch_ttft_ms: float = 0.0
+    slo_batch_tbt_ms: float = 0.0
+    slo_target: float = 0.99
+    slo_windows_s: str = "60,600"
     # Batches in flight at once: the next batch is collated and queued on
     # the host while the current one runs (the engine runs one forward at
     # a time).  The JAX package's default is 8.
@@ -266,6 +303,7 @@ class ServiceConfig:
             raise ValueError(f"LOG_LEVEL must be a standard logging level, got {self.log_level!r}")
         if self.max_decode_len < 1 or self.stream_chunk_tokens < 1:
             raise ValueError("MAX_DECODE_LEN and STREAM_CHUNK_TOKENS must be >= 1")
+        self._check_observability()
         if self.quant_kv is not None:
             q = self.quant_kv.lower()
             q = None if q in ("", "none", "0", "false") else q
@@ -343,6 +381,41 @@ class ServiceConfig:
         object.__setattr__(self, "seq_buckets", _align_paged_seq_buckets(self))
 
 
+    def _check_observability(self) -> None:
+        """The reference's validators and messages for the observability
+        knobs."""
+        fmt = self.log_format.lower()
+        if fmt not in ("text", "json"):
+            raise ValueError(f"LOG_FORMAT must be 'text' or 'json', got {fmt!r}")
+        object.__setattr__(self, "log_format", fmt)
+        if self.flight_ring < 0:
+            raise ValueError("TRACE_RING/FLIGHT_RING must be >= 0")
+        if not all(v >= 0 for v in (self.peak_tflops, self.slo_ttft_ms, self.slo_tbt_ms,
+                                    self.slo_batch_ttft_ms, self.slo_batch_tbt_ms)):
+            raise ValueError("PEAK_TFLOPS/SLO_TTFT_MS/SLO_TBT_MS/SLO_BATCH_TTFT_MS/"
+                             "SLO_BATCH_TBT_MS/SCALE_UP_SLO_BURN must be >= 0 (0 = off/auto)")
+        if not 0.0 < self.slo_target < 1.0:
+            raise ValueError("SLO_TARGET must be in (0, 1) — the error budget is "
+                             "1 - SLO_TARGET")
+        try:
+            parts = [float(x) for x in self.slo_windows_s.split(",") if x.strip()]
+        except ValueError:
+            raise ValueError(
+                f"SLO_WINDOWS_S must be 'fast,slow' seconds, got {self.slo_windows_s!r}"
+            ) from None
+        if len(parts) != 2 or parts[0] <= 0 or parts[0] >= parts[1]:
+            raise ValueError("SLO_WINDOWS_S must be two ascending positive durations "
+                             f"'fast,slow', got {self.slo_windows_s!r}")
+        if self.latency_buckets is not None and not self.latency_buckets.strip():
+            object.__setattr__(self, "latency_buckets", None)
+        if self.latency_buckets is not None:
+            from .metrics import parse_buckets
+
+            if parse_buckets(self.latency_buckets) is None:
+                raise ValueError("LATENCY_BUCKETS must be comma-separated strictly "
+                                 f"ascending positive seconds, got {self.latency_buckets!r}")
+
+
 def _align_paged_seq_buckets(cfg: ServiceConfig) -> tuple[int, ...]:
     """Under PAGED_KV the seq buckets round up to the block grid (deduped,
     still ascending), so a prompt's collated width is whole blocks;
@@ -396,25 +469,8 @@ UNPORTED_KNOBS = {
     "SCALE_DOWN_LOAD": ("0.25",),
     "SCALE_DOWN_COOLDOWN_S": ("10",),
     "SCALE_PERIOD_S": ("0.5",),
+    # The scaling governor's SLO signal comes with the fleet.
     "SCALE_UP_SLO_BURN": ("0",),
-    # Observability beyond /metrics and TRACE: the flight recorder, the
-    # profiler endpoint, JSON logs, utilisation gauges, SLO burn rates.
-    "FLIGHT_RING": ("256",),
-    "PROFILE_DIR": (),
-    # The lock-order detector and the /debug/profile route (its trace
-    # directory).
-    "LOCKTRACE": _OFF,
-    "JAX_TRACE_DIR": (),
-    "LOG_FORMAT": ("text",),
-    "PERF_OBS": _OFF,
-    "PEAK_TFLOPS": ("0",),
-    "LATENCY_BUCKETS": (),
-    "SLO_TTFT_MS": ("0",),
-    "SLO_TBT_MS": ("0",),
-    "SLO_BATCH_TTFT_MS": ("0",),
-    "SLO_BATCH_TBT_MS": ("0",),
-    "SLO_TARGET": ("0.99",),
-    "SLO_WINDOWS_S": ("60,600",),
 }
 
 # Knobs of the JAX package with no meaning on the card, each with the
@@ -472,7 +528,9 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
     ADAPTER_DIR, ADAPTER_SLOTS, PALLAS_AUTOTUNE, PALLAS_VARIANT, PALLAS_TUNE_TABLE,
     PALLAS_AUTOTUNE_ITERS, FAULT_SPEC, FAULT_SEED, DISPATCH_TIMEOUT_S,
     DISPATCH_RETRIES, DISPATCH_BACKOFF_S, ENGINE_RESTARTS_MAX,
-    ENGINE_RESTART_WINDOW_S, SUPERVISE.  Any of
+    ENGINE_RESTART_WINDOW_S, SUPERVISE, LOG_FORMAT, FLIGHT_RING, PROFILE_DIR (else
+    JAX_TRACE_DIR), LOCKTRACE, PERF_OBS, PEAK_TFLOPS, LATENCY_BUCKETS, SLO_TTFT_MS,
+    SLO_TBT_MS, SLO_BATCH_TTFT_MS, SLO_BATCH_TBT_MS, SLO_TARGET, SLO_WINDOWS_S.  Any of
     ``UNPORTED_KNOBS`` set to a value that turns it on raises;
     ``INERT_KNOBS`` are accepted and ignored."""
     e = dict(os.environ)
@@ -503,6 +561,8 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
         ("spec_decode", "SPEC_DECODE"), ("quantize", "QUANTIZE"),
         ("adapter_dir", "ADAPTER_DIR"), ("pallas_variant", "PALLAS_VARIANT"),
         ("pallas_tune_table", "PALLAS_TUNE_TABLE"), ("fault_spec", "FAULT_SPEC"),
+        ("log_format", "LOG_FORMAT"), ("latency_buckets", "LATENCY_BUCKETS"),
+        ("slo_windows_s", "SLO_WINDOWS_S"),
     ):
         v = get(var)
         if v is not None:
@@ -523,7 +583,8 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
                        ("adapter_slots", "ADAPTER_SLOTS"),
                        ("pallas_autotune_iters", "PALLAS_AUTOTUNE_ITERS"),
                        ("fault_seed", "FAULT_SEED"), ("dispatch_retries", "DISPATCH_RETRIES"),
-                       ("engine_restarts_max", "ENGINE_RESTARTS_MAX")):
+                       ("engine_restarts_max", "ENGINE_RESTARTS_MAX"),
+                       ("flight_ring", "FLIGHT_RING")):
         v = get(var)
         if v is not None:
             kwargs[field] = int(v)
@@ -534,7 +595,10 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
                        ("kv_host_budget_mb", "KV_HOST_BUDGET_MB"),
                        ("dispatch_timeout_s", "DISPATCH_TIMEOUT_S"),
                        ("dispatch_backoff_s", "DISPATCH_BACKOFF_S"),
-                       ("engine_restart_window_s", "ENGINE_RESTART_WINDOW_S")):
+                       ("engine_restart_window_s", "ENGINE_RESTART_WINDOW_S"),
+                       ("peak_tflops", "PEAK_TFLOPS"), ("slo_ttft_ms", "SLO_TTFT_MS"),
+                       ("slo_tbt_ms", "SLO_TBT_MS"), ("slo_batch_ttft_ms", "SLO_BATCH_TTFT_MS"),
+                       ("slo_batch_tbt_ms", "SLO_BATCH_TBT_MS"), ("slo_target", "SLO_TARGET")):
         v = get(var)
         if v is not None:
             kwargs[field] = float(v)
@@ -553,8 +617,18 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
                        ("host_prep_double", "HOST_PREP_DOUBLE"),
                        ("admit_overlap", "ADMIT_OVERLAP"), ("spec_sampled", "SPEC_SAMPLED"),
                        ("spec_continuous", "SPEC_CONTINUOUS"),
-                       ("pallas_autotune", "PALLAS_AUTOTUNE"), ("supervise", "SUPERVISE")):
+                       ("pallas_autotune", "PALLAS_AUTOTUNE"), ("supervise", "SUPERVISE"),
+                       ("perf_obs", "PERF_OBS")):
         v = get(var)
         if v is not None:
             kwargs[field] = _flag(v)
+    # The profiler's directory: PROFILE_DIR, else the reference's older name.
+    v = get("PROFILE_DIR") or get("JAX_TRACE_DIR")
+    if v is not None:
+        kwargs["profile_dir"] = v
+    # LOCKTRACE is off for "0", "false" or empty, as the reference's
+    # ``locktrace.auto_install`` reads it.
+    v = get("LOCKTRACE")
+    if v is not None:
+        kwargs["locktrace"] = v.lower() not in ("0", "false")
     return ServiceConfig(**kwargs)

@@ -12,13 +12,18 @@ loop's pipelining depth, the host seconds of each dispatch by site, and
 the tokens each speculative verify round emitted; the LoRA adapter
 pool's slots by state; the decode-kernel autotuner's decisions; the
 supervisor's engine rebuilds, watchdog retries and timeouts, and the
-streams a fault recovered or lost.
+streams a fault recovered or lost; the perf observatory's device busy
+and bubble seconds, modeled FLOPs by graph kind and MFU estimate, and
+the SLO tracker's burn rates.  ``LATENCY_BUCKETS`` (comma-separated
+ascending seconds) replaces the latency histograms' default edges.
 The series live in this package's own
 registry, so a process that also imports the JAX package registers no
 name twice.  Without ``prometheus_client`` every series is a no-op stub.
 """
 
 from __future__ import annotations
+
+import os
 
 try:
     from prometheus_client import (
@@ -59,10 +64,30 @@ except ImportError:
 
 REGISTRY = CollectorRegistry()
 
-_LATENCY_BUCKETS = (
+# The default latency edges reach past 10 s, as the reference's do.
+_DEFAULT_LATENCY_BUCKETS = (
     0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5,
     5.0, 10.0, 30.0, 60.0, 120.0,
 )
+
+
+def parse_buckets(spec: str | None) -> tuple[float, ...] | None:
+    """Comma-separated ascending positive bucket edges, or None when unset
+    or invalid (the default edges then apply; ``ServiceConfig`` refuses an
+    invalid ``LATENCY_BUCKETS`` at startup)."""
+    if not spec:
+        return None
+    try:
+        vals = tuple(float(x) for x in spec.split(",") if x.strip())
+    except ValueError:
+        return None
+    if not vals or any(v <= 0 for v in vals) or list(vals) != sorted(set(vals)):
+        return None
+    return vals
+
+
+# Read once, at import, as the reference does: the histograms are made here.
+_LATENCY_BUCKETS = parse_buckets(os.environ.get("LATENCY_BUCKETS")) or _DEFAULT_LATENCY_BUCKETS
 _FINE_BUCKETS = (
     0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
     0.1, 0.25, 0.5, 1.0, 2.5, 10.0, 30.0, 120.0,
@@ -287,6 +312,43 @@ STREAMS_LOST = Counter(
     "by replica and cause (fault = no supervisor, budget spent or a "
     "poisoned CUDA context)",
     ["model", "replica", "cause"], registry=REGISTRY,
+)
+
+# -- the perf observatory (utils/perfobs.py) and the SLO tracker
+DEVICE_BUSY = Counter(
+    "device_busy_seconds",
+    "Estimated device-busy seconds by dispatch site, from submit stamps and "
+    "the loop's fetch seams (no added synchronisation)",
+    ["model", "site"], registry=REGISTRY,
+)
+DEVICE_BUBBLE = Counter(
+    "device_bubble_seconds",
+    "Estimated device idle gaps between attributed busy intervals",
+    ["model"], registry=REGISTRY,
+)
+MODELED_FLOPS = Counter(
+    "modeled_flops_total",
+    "Modeled FLOPs accrued per replayed CUDA graph kind (counted once at "
+    "capture, runtime/compile_cache.py)",
+    ["model", "kind"], registry=REGISTRY,
+)
+MFU = Gauge(
+    "mfu_estimate",
+    "Rolling model-FLOPs-utilization estimate: modeled FLOP rate over the "
+    "card's peak (PEAK_TFLOPS or the card table; 0 when unknown)",
+    ["model"], registry=REGISTRY,
+)
+SLO_TTFT_BURN = Gauge(
+    "slo_ttft_burn_rate",
+    "Per-priority-class TTFT SLO burn rate by window (fast/slow): the share "
+    "of the error budget (1 - SLO_TARGET) being consumed; 1.0 = at budget",
+    ["model", "klass", "window"], registry=REGISTRY,
+)
+SLO_TBT_BURN = Gauge(
+    "slo_tbt_burn_rate",
+    "Per-priority-class TBT SLO burn rate by window (fast/slow), the same "
+    "budget arithmetic as slo_ttft_burn_rate",
+    ["model", "klass", "window"], registry=REGISTRY,
 )
 
 

@@ -235,8 +235,7 @@ def _jax_knob_names() -> list[str]:
 
 
 # A value that asks for something other than what the port does when the
-# name is unset.  For PERF_OBS, whose JAX default is on and which the port
-# does not do, that is "1"; for PREEMPT, HOST_PREP_DOUBLE and SUPERVISE,
+# name is unset.  For PERF_OBS, PREEMPT, HOST_PREP_DOUBLE and SUPERVISE,
 # which the port reads with the JAX default (on), "0".  PALLAS_VARIANT takes
 # the port's grammar (s<N>, a split count of K3): the JAX package's Pallas
 # keys are refused (test_pallas_keys_are_refused_by_the_ports_grammar).
@@ -269,7 +268,7 @@ NON_DEFAULT = {
     "SCALE_UP_TTFT_MS": "200", "SCALE_UP_COOLDOWN_S": "1", "SCALE_DOWN_LOAD": "0.1",
     "SCALE_DOWN_COOLDOWN_S": "5", "SCALE_PERIOD_S": "1", "TRACE": "1", "TRACE_RING": "64",
     "FLIGHT_RING": "32", "PROFILE_DIR": "/profiles", "LOG_FORMAT": "json",
-    "COMPILE_CACHE_DIR": "/cache", "HOST_PREP_DOUBLE": "0", "PERF_OBS": "1",
+    "COMPILE_CACHE_DIR": "/cache", "HOST_PREP_DOUBLE": "0", "PERF_OBS": "0",
     "PEAK_TFLOPS": "989", "LATENCY_BUCKETS": "0.1,1", "SLO_TTFT_MS": "500",
     "SLO_TBT_MS": "50", "SLO_BATCH_TTFT_MS": "5000", "SLO_BATCH_TBT_MS": "500",
     "SLO_TARGET": "0.9", "SLO_WINDOWS_S": "30,300", "SCALE_UP_SLO_BURN": "2",
@@ -312,22 +311,18 @@ def test_every_jax_knob_is_read_refused_or_inert(name, monkeypatch):
 
 @pytest.mark.parametrize("name", ["PREEMPT", "SUPERVISE", "PERF_OBS", "HOST_PREP_DOUBLE"])
 def test_knobs_the_port_leaves_off_accept_off(name):
-    """The JAX default of these is on.  The port does PERF_OBS without, so
-    it takes its off value and refuses the on one; PREEMPT,
-    HOST_PREP_DOUBLE and SUPERVISE it reads, on unless set off, as the JAX
-    package does."""
+    """The JAX default of these is on.  The port reads each, on unless set
+    off, as the JAX package does (PERF_OBS since the perf observatory was
+    ported)."""
     assert load_config({"DEVICE": "cpu", name: "0"}).device == "cpu"
-    if name in ("PREEMPT", "HOST_PREP_DOUBLE", "SUPERVISE"):
-        field = name.lower()
-        for env in ({}, {name: "0"}, {name: "true"}, {name: "no"}, {name: "FALSE"}):
-            got = getattr(load_config({"DEVICE": "cpu", **env}), field)
-            assert got is getattr(jax_load_config({"DEVICE": "cpu", **env}), field)
-        assert load_config({"DEVICE": "cpu"}).host_prep_double is True
-        assert load_config({"DEVICE": "cpu"}).supervise is True
-        assert load_config({"DEVICE": "cpu", name: "0"}).preempt is (name != "PREEMPT")
-        return
-    with pytest.raises(ValueError, match="not ported"):
-        load_config({"DEVICE": "cpu", name: "true"})
+    field = name.lower()
+    for env in ({}, {name: "0"}, {name: "true"}, {name: "no"}, {name: "FALSE"}):
+        got = getattr(load_config({"DEVICE": "cpu", **env}), field)
+        assert got is getattr(jax_load_config({"DEVICE": "cpu", **env}), field)
+    assert load_config({"DEVICE": "cpu"}).host_prep_double is True
+    assert load_config({"DEVICE": "cpu"}).supervise is True
+    assert load_config({"DEVICE": "cpu"}).perf_obs is True
+    assert load_config({"DEVICE": "cpu", name: "0"}).preempt is (name != "PREEMPT")
 
 
 @pytest.mark.parametrize("value", ["head_batched", "b4-hb", "b2-nat-accbf16"])

@@ -356,9 +356,11 @@ async def _http(app, calls):
 
 async def _held_then(client, adapter_held, adapter_next):
     """Hold one stream on ``adapter_held`` open (its first line read), then
-    stream on ``adapter_next``: (status, Retry-After, reason)."""
+    stream on ``adapter_next``: (status, Retry-After, reason).  The held
+    stream asks for 48 tokens, so it is still live (its adapter slot taken)
+    when the second request arrives, however the loop's chunks are timed."""
     held = await client.post("/predict", json={"text": "a long prompt here", "stream": True,
-                                               "max_tokens": 8},
+                                               "max_tokens": 48},
                              headers={"X-Adapter": adapter_held})
     assert held.status == 200
     await held.content.readline()

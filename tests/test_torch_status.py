@@ -10,13 +10,18 @@ Compared: the key sets, section by section, and every value that does not
 depend on the clock.  Left out, by name:
 
 - sections of features the port does not serve yet: ``fleet``,
-  ``durability`` (the journal), ``jobs``, ``perf`` (the perf observatory);
+  ``durability`` (the journal), ``jobs``;
 - keys only the port serves: ``device_name``, ``dispatches``,
   ``decode_steps`` and ``scheduler.pending``;
 - values measured by the clock (``uptime_s``, the ``compile`` section's,
-  whose keys are the graph cache's on the port and XLA's in JAX);
-- values of parts not ported: ``flight_ring`` and ``flight_dumps`` (the
-  flight recorder).
+  whose keys are the graph cache's on the port and XLA's in JAX, and the
+  perf observatory's busy, bubble and overlap seconds);
+- ``perf.modeled_flops_total``: the reference's XLA cost analysis counts
+  every executable, the port counts CUDA graphs, which the CPU has none of
+  (its count is held against a hand count in ``test_torch_perfobs.py``).
+
+``observability`` (the tracer, the flight recorder's ring and dumps) is
+compared whole; ``perf``'s keys and its clock-free values too.
 
 ``decode`` is compared whole: the pipelining depth (without a warmup
 neither loop tunes it), the staged host prep's knob and counts, the
@@ -51,10 +56,12 @@ from mlmicroservicetemplate_tpu_torch.models import bert as port_bert
 from mlmicroservicetemplate_tpu_torch.ops import autotune as port_autotune
 from mlmicroservicetemplate_tpu_torch.serve import build_service
 
-NOT_PORTED = {"fleet", "durability", "jobs", "perf"}
+NOT_PORTED = {"fleet", "durability", "jobs"}
 PORT_ONLY = {"device_name", "dispatches", "decode_steps"}
 MEASURED = {"uptime_s", "compile"}
-FLIGHT = {"flight_ring", "flight_dumps"}
+# The perf section's values the clock or the FLOP mechanism decides.
+PERF_MEASURED = {"device_busy_total_s", "device_bubble_s", "busy_ratio", "prep_overlap_s",
+                 "modeled_flops_total"}
 BERT = dict(num_layers=2, hidden_size=64, num_heads=2, intermediate_size=128)
 LLAMA = dict(vocab_size=300, d_model=256, num_heads=4, num_kv_heads=2, num_layers=2,
              d_ff=512, max_position=128)
@@ -183,15 +190,16 @@ def test_status_has_the_jax_apps_keys_and_values(case, tmp_path):
     want = asyncio.run(_status(japp, posts))
     got = asyncio.run(_status(app, posts))
     assert set(got) - PORT_ONLY == set(want) - NOT_PORTED
-    for key in set(want) - NOT_PORTED - MEASURED - {"scheduler", "decode", "observability"}:
+    for key in set(want) - NOT_PORTED - MEASURED - {"scheduler", "decode", "perf"}:
         assert got[key] == want[key], key
     sched = dict(got["scheduler"])
     assert sched.pop("pending") == 0
     assert sched == want["scheduler"]
-    assert got["observability"].keys() == want["observability"].keys()
-    for key in set(want["observability"]) - FLIGHT:
-        assert got["observability"][key] == want["observability"][key], key
-    assert got["observability"]["flight_ring"] == got["observability"]["flight_dumps"] == 0
+    assert got["observability"]["flight_ring"] == 256 and got["observability"]["flight_dumps"] == 0
+    assert got["perf"].keys() == want["perf"].keys()
+    for key in set(want["perf"]) - PERF_MEASURED:
+        assert got["perf"][key] == want["perf"][key], key
+    assert got["perf"]["enabled"] is True and got["perf"]["mfu_estimate"] is None
     assert ("tenancy" in got) == ("tenancy" in want) == (case == "llama-lora")
     if case == "llama-lora":
         assert got["tenancy"]["adapters"]["installs"] == 2
