@@ -13,6 +13,7 @@
     python3 chip_smoke.py --lora           # the LoRA adapters phase only
     python3 chip_smoke.py --faults         # faults, tuning and the converter only
     python3 chip_smoke.py --observe        # the observability phase only
+    python3 chip_smoke.py --durable        # the durable-serving phase only
 
 Phases, one JSON line each; any failure exits non-zero and prints no
 result line:
@@ -49,9 +50,10 @@ result line:
    D=64, T in {96, 576, 2048}; one row padded to a third of T, and (B > 1)
    an all-masked row; then ``DECODE_EXTRA_CASES``: valid prefixes of an
    eighth of T, valid keys only in the last tile, T < 64, B=32 at T=2048.
-   Each row also gives ``device_us`` (the profiler's kernel time a call:
-   split kernel and combine; ``library_device_us`` SDPA's) and ``host_us``
-   (the wrapper's host time a call, back to back, no synchronisation).
+   Each bf16 row also gives ``device_us`` (the profiler's kernel time a
+   call: split kernel and combine; ``library_device_us`` SDPA's) and
+   ``host_us`` (the wrapper's host time a call, back to back, no
+   synchronisation); the other dtypes' rows give None for the three.
    Then GPT-2's shape at one query head per KV head (H = KVH = 12, R = 1):
    every dtype at B in {1, 8, 16} over a 320-key cache with a padded row
    and (B > 1) a row with no valid key, then valid prefixes and last-tile
@@ -137,8 +139,8 @@ result line:
 7. serve llama / serve llama int8: full-width TinyLlama (22 layers, random
    weights from seed 0; the int8 service at CUT_LAYERS = 6 layers, the
    first 6 of those weights, to keep the run within its time limit), bf16,
-   the dense and the int8 KV cache, on CUT_GRID's buckets (batch 1, 4 and
-   16, seq 64 and 256; GPT-2's whole service warms the 5 x 4 grid), through
+   the dense and the int8 KV cache, on CUT_GRID's buckets (batch 1 and 16,
+   seq 256; GPT-2's whole service on the same grid), through
    ``Batcher.submit`` in waves over several buckets, some with ``max_tokens``, every third sampled and
    seeded (temperature 0.7 or 1, top_k 0 or 40, top_p 1 or 0.9).  The
    decode kernel must launch 22 times per decode step and never in
@@ -321,7 +323,7 @@ result line:
    first resumed token printed.  budget (``chunk:fatal~1``,
    ``ENGINE_RESTARTS_MAX=1``): through the app, the stream fails,
    ``/readyz`` answers 503 with the reference's body.  Then (in the main
-   run after 8j) ``convert gpt2``: the converter CLI's entry point on a
+   run while 8k's first child boots) ``convert gpt2``: the converter CLI's entry point on a
    seed-0 GPT-2 HF state dict at full width (the main run: its first
    ``CUT_LAYERS`` layers, through ``--num-layers``); ``MODEL_PATH`` at its
    output and at the ``.npz`` give equal parameters and bf16 logits on the
@@ -329,7 +331,8 @@ result line:
    device-side assert and the call after it classify as a poisoned
    context, its out-of-memory error does not.
 8j. serve llama observe (``--observe`` runs the build and 8j alone):
-   TinyLlama at full width (22 layers, seed-0 weights, bf16) through the
+   TinyLlama at full width (22 layers, seed-0 weights, bf16; the main run's
+   at CUT_LAYERS) through the
    paged loop's graphs (8 slots, one seq bucket of 128, 64 tokens in
    chunks of 4, one dispatch in flight), eight streams (one sampled) queued
    as one wave under ``FAULT_SPEC=chunk:fatal@1;chunk:transient@4`` (the
@@ -365,6 +368,44 @@ result line:
    of drives (two waves each) with the layer's default parts switched on
    and off at run time (on, off, off, on, on, off): tokens/s of each and
    the ratio of the medians (no gate).
+8k. serve llama durable (``--durable`` runs the build and 8k alone):
+   TinyLlama at full width (22 layers, seed-0 weights; the main run's at
+   CUT_LAYERS) written once as a
+   converter checkpoint directory (f32 ``.npz``) and served in bf16 by
+   child processes of ``python -m mlmicroservicetemplate_tpu_torch.serve``
+   through ``MODEL_PATH``: the paged loop's graphs (4 slots, one batch
+   bucket of 4 and one seq bucket of 256, 128 tokens in chunks of 4),
+   ``KV_HOST_BUDGET_MB`` and
+   ``KV_DISK_BUDGET_MB``, ``JOURNAL_DIR`` in a temporary directory,
+   ``JOURNAL_FSYNC=always``, ``JOBS_ENABLED=1``.  Child A serves a sampled
+   seeded batch-class stream, a job of 8 lines (batch class) and a
+   ``/predict`` with ``X-Request-Id``; once the stream has 8 tokens and 2
+   lines are done, three greedy interactive streams arrive, find every
+   slot busy and preempt the batch holders: the sampled stream's
+   checkpoint swaps out to the host and writes through to disk.  A is
+   killed with SIGKILL once every stream's journaled cursor holds 8
+   tokens, the disk index holds that checkpoint and 2 lines are done
+   (read from the files).  Child B starts on the same directory.  Gates:
+   each stream's tokens in B's journal are A's cursor at the kill plus
+   the continuation, as many as its budget (no token twice), and ``GET
+   /v1/streams/{rid}`` serves them; they equal an uninterrupted run of the
+   same four streams in this process (or a greedy row parts at a near
+   tie, as 8i allows), every token teacher-forced; the checkpointed
+   stream resumes through the disk rung (``kv_disk.promotes`` >= 1, a
+   swap resume, no fallback, so no prefill of its own); the job ends
+   completed, no line done before the kill runs again (B's store appends
+   exactly the remaining lines and the end) and every line's result
+   equals B's streamed ``/predict`` answer; the ``/predict`` retry returns
+   the journaled body with no ``batch`` dispatch; K3's launch counter in
+   each child equals what its graphs' replays account for
+   (``/debug/perf?kernels=1``); the pool drains to 0.  Printed: restart
+   to readiness and the journal replay's ms (the same files opened on a
+   copy), restart to the first resumed token (its journal record), one
+   write-through's ms and GB/s and one disk -> host -> device prefetch's
+   ms (a ``KVDiskTier`` of the pool's layout, warm page cache), the fsync
+   histogram's p50 and p99 bucket edges in both children, and tokens/s of
+   the same four streams in this process with the journal on
+   (``fsync=always``) and off.
 8a. serve gpt2, serve gpt2 stream (paged), serve gpt2 stream contiguous,
    each with its graphs phase: GPT-2 small at full width (12 layers, 768
    hidden, 12 heads, vocab 50257, position table 1024; random weights from
@@ -416,7 +457,7 @@ result line:
    ``STREAM_PIPELINE=1`` (the configured 8 ms grace).  Printed: the tuned
    depth with the measured RTT and compute, the grace, the host seconds by
    dispatch site (count, p50, sum), chunk and fetch boundaries per token,
-   tokens/s (the middle of three passes, and all three), the staged-prep
+   tokens/s (the faster of two passes, and both), the staged-prep
    counts, the most dispatches in flight, and the lone requests' TTFT.
 8f. serve spec (``--spec`` runs the build and its three services alone;
    in the main run ``serve spec llama`` comes after 7f, ``serve spec gpt2
@@ -582,10 +623,10 @@ LAUNCHED_KERNEL = {"fused_attention": r"EncoderOp", "decode_attention": r"decode
 # spin kernels are left out of every count by their name.
 PRIMER_KERNELS, PROFILER_SETTLE_S = 256, 0.05
 # The bucket grid of the services that repeat a path (every llama and
-# GPT-2 service of the main run, GPT-2's whole one included):
-# 3 x 2 buckets, a wave of 2 padded to 4 and of 5 or 8 to 16, so a llama
-# service's warmup captures 24 graphs, not 80.
-CUT_GRID = {"BATCH_BUCKETS": "1,4,16", "SEQ_BUCKETS": "64,256"}
+# GPT-2 service of the main run, GPT-2's whole one included): 2 x 1
+# buckets, a wave of 2 to 8 padded to 16 and every prompt to 256, so a
+# llama service's warmup captures 8 graphs, not 80.
+CUT_GRID = {"BATCH_BUCKETS": "1,16", "SEQ_BUCKETS": "256"}
 PRIMER_KERNEL = re.compile(r"spin_kernel")
 # Served logits through a CUDA graph against the same engine's eager
 # dispatch on the same batch: the largest error of a row, as a fraction of
@@ -1065,6 +1106,16 @@ def device_us(fn, reps: int = 20) -> float | None:
     return None
 
 
+def profiled(kind: str, kernel, library) -> dict:
+    """``device_us``, ``library_device_us`` and ``host_us`` of a decode
+    kernel's case: profiled for bf16, the dtype every path serves, and
+    None for the others (each profile costs a fraction of a second)."""
+    if kind != "bfloat16":
+        return {"device_us": None, "library_device_us": None, "host_us": None}
+    return {"device_us": device_us(kernel), "library_device_us": device_us(library),
+            "host_us": host_us(kernel)}
+
+
 def host_us(fn, reps: int = 50) -> float:
     """Host time of one call of ``fn`` in microseconds: ``reps`` calls back
     to back with no synchronisation between them."""
@@ -1162,8 +1213,7 @@ def phase_decode_kernel() -> tuple[dict, dict]:
             dtype=kind, shape=[b, t, *heads, HEAD_DIM], mask=layout,
             max_abs_err=diff.max().item(), tol=f"atol=rtol={tol}", ok=ok,
             kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-            device_us=device_us(kernel), library_device_us=device_us(library),
-            host_us=host_us(kernel), bound_us=bound_ms * 1e3, bound_by=bound_by,
+            bound_us=bound_ms * 1e3, bound_by=bound_by, **profiled(kind, kernel, library),
         )
         emit("kernel decode_attention", **row)
         if not ok:
@@ -1322,8 +1372,7 @@ def phase_paged_kernel() -> tuple[dict, dict]:
             dtype=kind, shape=[b, t, PAGE, *heads, HEAD_DIM], mask=layout,
             max_abs_err=diff.max().item(), tol=f"atol=rtol={tol}", ok=ok,
             kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-            device_us=device_us(kernel), library_device_us=device_us(library),
-            host_us=host_us(kernel), bound_us=bound_ms * 1e3, bound_by=bound_by,
+            bound_us=bound_ms * 1e3, bound_by=bound_by, **profiled(kind, kernel, library),
         )
         emit("kernel paged_decode_attention", **row)
         if not ok:
@@ -5000,7 +5049,7 @@ def pipeline_gpt2(rehearsal: bool, device: str) -> tuple[dict, int, int]:
 
 
 # Measured passes a service (after one more).
-PIPELINE_PASSES = 3
+PIPELINE_PASSES = 2
 PIPELINE_SERVICES = (
     ("serial", {"STREAM_PIPELINE": "1", "HOST_PREP_DOUBLE": "0"}),
     ("depth3", {"STREAM_PIPELINE": "3", "HOST_PREP_DOUBLE": "1"}),
@@ -5160,8 +5209,8 @@ def phase_serve_pipeline(label: str, overrides: dict, params, ref_model, rehears
         measured = asyncio.run(drive_window(batcher, bundle, 3 * engine.chunk_tokens, reset,
                                             read, [(batch_items, late_items)] * (1 + PIPELINE_PASSES),
                                             late_klass="batch"))[1:]
-        # The middle pass by tokens/s (the passes are short: their spread
-        # is printed).
+        # The middle pass by tokens/s (of two, the faster; the passes are
+        # short: their spread is printed).
         rates = [sum(len(row) for _, row in d) / wall for d, wall, _ in measured]
         done, wall, counts = measured[int(np.argsort(rates)[len(rates) // 2])]
         rows_of = [[row.tolist() for _, row in d] for d, _, _ in measured]
@@ -7059,11 +7108,12 @@ def observe_items(rehearsal: bool) -> list:
     return items
 
 
-def observe_overrides(device: str, rehearsal: bool) -> dict:
+def observe_overrides(device: str, rehearsal: bool, layers: int | None = None) -> dict:
     """TinyLlama, paged (16-token blocks), 8 slots, one seq bucket of 128,
     64 tokens in chunks of 4 (16 chunk dispatches a wave), one dispatch in
     flight; a fatal fault at the first loop chunk and a transient one at
-    the fourth after it."""
+    the fourth after it.  ``layers``: the weights' depth, when it is not
+    TinyLlama's (the main run's 8j at ``CUT_LAYERS``)."""
     ov = {"MODEL_NAME": "llama", "DEVICE": device, "PAGED_KV": "1", "KV_BLOCK_SIZE": str(PAGE),
           "MAX_STREAMS": "8", "BATCH_BUCKETS": "1,8", "SEQ_BUCKETS": "128",
           "MAX_DECODE_LEN": "64", "STREAM_CHUNK_TOKENS": "4", "STREAM_PIPELINE": "1",
@@ -7072,6 +7122,8 @@ def observe_overrides(device: str, rehearsal: bool) -> dict:
     if rehearsal:  # 3 loop chunks a stream after the resume: the transient at the second
         ov.update(SEQ_BUCKETS="64", MAX_DECODE_LEN="16", LLAMA_CONFIG=json.dumps(REHEARSAL_LLAMA),
                   FAULT_SPEC="chunk:fatal@1;chunk:transient@2")
+    elif layers is not None:
+        ov["LLAMA_CONFIG"] = json.dumps({"num_layers": layers})
     return ov
 
 
@@ -7243,7 +7295,8 @@ def observe_run(layer: dict, params, items, rehearsal: bool, full: bool) -> dict
     from mlmicroservicetemplate_tpu_torch.serve import build_service
 
     device = "cpu" if rehearsal else "cuda"
-    llama = build_service({**observe_overrides(device, rehearsal), **layer}, params=params)
+    llama = build_service({**observe_overrides(device, rehearsal, len(params["layers"])),
+                           **layer}, params=params)
     bert = build_service({"MODEL_NAME": "bert-base", "DEVICE": device, "WARMUP": "0",
                           "BATCH_BUCKETS": "1", "SEQ_BUCKETS": "32", **layer})
     cfg, bundle, engine, batcher = llama
@@ -7497,7 +7550,8 @@ def phase_observe_cost(params, ref_model, items, off_rows, rehearsal: bool,
     label = "serve llama observe cost"
     device = "cpu" if rehearsal else "cuda"
     cfg, bundle, engine, batcher = build_service(
-        {**observe_overrides(device, rehearsal), **LAYER_DEFAULT, "MAX_STREAM_QUEUE": "8"},
+        {**observe_overrides(device, rehearsal, len(params["layers"])), **LAYER_DEFAULT,
+         "MAX_STREAM_QUEUE": "8"},
         params=params)
     try:
         batcher.warm_streams()
@@ -7588,6 +7642,639 @@ def observe_main(rehearsal: bool) -> int:
     return 0
 
 
+# Durable serving (8k): TinyLlama from child processes of the port's serve
+# entry, one killed with SIGKILL mid-traffic and a second on its JOURNAL_DIR.
+DURABLE_WORDS = ["journal", "resume", "disk", "restart", "cursor", "replay", "block", "tier"]
+DURABLE_BUDGET = 128  # tokens a stream asks for (the children's MAX_DECODE_LEN)
+DURABLE_MIN_TOKENS = 8  # each stream's cursor before the kill
+DURABLE_LINES, DURABLE_LINE_TOKENS, DURABLE_LINES_DONE = 8, 32, 2
+DURABLE_TIMEOUT_S = 240.0
+
+
+def durable_texts(n: int, length: int, seed: int) -> list[str]:
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [" ".join(rng.choice(DURABLE_WORDS, size=length))[:length] for _ in range(n)]
+
+
+def durable_env(device: str, rehearsal: bool, jd: str, ckpt: str, port: int,
+                layers: int | None = None) -> dict:
+    """A child's environment: TinyLlama from the checkpoint (at ``layers``
+    when given), paged (16-token blocks, 4 slots, one batch bucket of 4 and
+    one seq bucket of 256, 128 tokens in chunks of 4), the host and disk
+    tiers, the journal (fsync always) and the job lane."""
+    env = {k: v for k, v in os.environ.items()}
+    env.update({"MODEL_NAME": "llama", "DEVICE": device, "MODEL_PATH": ckpt,
+                "PAGED_KV": "1", "KV_BLOCK_SIZE": str(PAGE), "MAX_STREAMS": "4",
+                "BATCH_BUCKETS": "4", "SEQ_BUCKETS": "256",
+                "MAX_DECODE_LEN": str(DURABLE_BUDGET), "STREAM_CHUNK_TOKENS": "4",
+                "MAX_STREAM_QUEUE": "16", "KV_HOST_BUDGET_MB": "256",
+                "KV_DISK_BUDGET_MB": "256", "JOURNAL_DIR": jd, "JOURNAL_FSYNC": "always",
+                "JOBS_ENABLED": "1", "HOST": "127.0.0.1", "PORT": str(port),
+                "WARMUP": "1", "LOG_LEVEL": "INFO"})
+    if rehearsal:
+        env.update(LLAMA_CONFIG=json.dumps(REHEARSAL_LLAMA), SEQ_BUCKETS="64",
+                   MAX_DECODE_LEN="48", WARMUP="0")
+    elif layers is not None:
+        env["LLAMA_CONFIG"] = json.dumps({"num_layers": layers})
+    return env
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def durable_child(env: dict, log_path: str) -> subprocess.Popen:
+    """``python -m mlmicroservicetemplate_tpu_torch.serve`` in a session of
+    its own (so a kill reaches nothing else), its output to ``log_path``."""
+    log = open(log_path, "ab")
+    try:
+        return subprocess.Popen([sys.executable, "-m", "mlmicroservicetemplate_tpu_torch.serve"],
+                                env=env, stdout=log, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+    finally:
+        log.close()
+
+
+def stop_child(proc: subprocess.Popen, sig=None) -> None:
+    import signal
+
+    if proc.poll() is None:
+        try:
+            os.killpg(proc.pid, sig or signal.SIGTERM)
+        except ProcessLookupError:
+            pass
+        try:
+            proc.wait(60)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait(30)
+
+
+def http_call(method: str, url: str, body=None, headers=None, timeout: float = 120.0,
+              raw: bool = False):
+    """(status, JSON body or text) over loopback; an HTTP error's status too."""
+    import urllib.error
+    import urllib.request
+
+    data = None
+    hdrs = dict(headers or {})
+    if isinstance(body, (dict, list)):
+        data = json.dumps(body).encode()
+        hdrs.setdefault("Content-Type", "application/json")
+    elif isinstance(body, str):
+        data = body.encode()
+    req = urllib.request.Request(url, data=data, method=method, headers=hdrs)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            text = resp.read().decode()
+            status = resp.status
+    except urllib.error.HTTPError as e:
+        text, status = e.read().decode(), e.code
+    if raw:
+        return status, text
+    try:
+        return status, json.loads(text)
+    except ValueError:
+        return status, text
+
+
+def wait_ready(base: str, proc: subprocess.Popen, log_path: str,
+               timeout: float = DURABLE_TIMEOUT_S) -> float:
+    """Seconds until ``/readyz`` answers 200."""
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < timeout:
+        if proc.poll() is not None:
+            raise AssertionError(f"the child exited ({proc.returncode}): "
+                                 f"{open(log_path).read()[-3000:]}")
+        try:
+            if http_call("GET", base + "/readyz", timeout=2)[0] == 200:
+                return time.monotonic() - t0
+        except OSError:
+            pass
+        time.sleep(0.1)
+    raise AssertionError(f"the child was not ready in {timeout} s: "
+                         f"{open(log_path).read()[-3000:]}")
+
+
+class StreamRead:
+    """One streamed ``/predict`` read on a thread, line by line (it ends
+    with an error when its server is killed)."""
+
+    def __init__(self, url: str, body: dict, headers: dict):
+        import threading
+
+        self.lines: list = []
+        self.error = None
+        self.thread = threading.Thread(target=self._run, args=(url, body, headers), daemon=True)
+        self.thread.start()
+
+    def _run(self, url, body, headers):
+        import urllib.request
+
+        req = urllib.request.Request(url, data=json.dumps(body).encode(), method="POST",
+                                     headers={"Content-Type": "application/json", **headers})
+        try:
+            with urllib.request.urlopen(req, timeout=DURABLE_TIMEOUT_S) as resp:
+                for ln in resp:
+                    if ln.strip():
+                        self.lines.append(json.loads(ln))
+        except Exception as e:  # the kill cuts the connection
+            self.error = f"{type(e).__name__}: {e}"
+
+
+def journal_view(jd: str) -> dict:
+    """The stream journal's state read from its segments, without opening
+    it (its server holds the lock): rid -> tokens, done, admission."""
+    from mlmicroservicetemplate_tpu_torch.runtime.durability import read_frames
+
+    out: dict = {}
+    names = sorted(n for n in os.listdir(jd) if n.startswith("wal-") and n.endswith(".log"))
+    for name in names:
+        frames, _ = read_frames(os.path.join(jd, name))
+        for payload in frames:
+            rec = json.loads(payload)
+            rid, k = rec.get("rid"), rec.get("k")
+            if k == "admit":
+                out[rid] = {"tokens": list(rec.get("delivered", [])), "done": False,
+                            "budget": rec.get("budget"), "feats": rec.get("feats")}
+            elif k == "tokens" and rid in out:
+                out[rid]["tokens"].extend(rec["t"])
+            elif k == "done" and rid in out:
+                out[rid]["done"] = True
+    return out
+
+
+def disk_stream_keys(jd: str) -> set:
+    """Request ids whose checkpoint the disk tier's index holds."""
+    from mlmicroservicetemplate_tpu_torch.runtime.durability import read_frames
+
+    live = set()
+    frames, _ = read_frames(os.path.join(jd, "kv_disk", "index.log"))
+    for payload in frames:
+        rec = json.loads(payload)
+        key = rec.get("key")
+        if not (isinstance(key, list) and key and key[0] == "s"):
+            continue
+        if rec.get("op") == "put":
+            live.add(key[1])
+        elif rec.get("op") == "del":
+            live.discard(key[1])
+    return live
+
+
+def job_view(jd: str) -> dict:
+    """jid -> {i: result row} read from the job store's segments."""
+    from mlmicroservicetemplate_tpu_torch.runtime.durability import read_frames
+
+    out: dict = {}
+    d = os.path.join(jd, "jobs")
+    if not os.path.isdir(d):
+        return out
+    for name in sorted(n for n in os.listdir(d) if n.startswith("jobs-")):
+        frames, _ = read_frames(os.path.join(d, name))
+        for payload in frames:
+            rec = json.loads(payload)
+            if rec.get("k") == "job":
+                out.setdefault(rec["id"], {})
+            elif rec.get("k") == "line":
+                out.setdefault(rec["id"], {})[int(rec["i"])] = {
+                    k: rec.get(k) for k in ("text", "tokens", "finish", "error")}
+    return out
+
+
+def until(what: str, cond, timeout: float = DURABLE_TIMEOUT_S, poll: float = 0.01):
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < timeout:
+        got = cond()
+        if got:
+            return got
+        time.sleep(poll)
+    raise AssertionError(f"serve llama durable: {what} never held in {timeout} s")
+
+
+def histogram_quantiles(metrics_text: str, name: str, qs=(0.5, 0.99)) -> dict:
+    """Quantiles of a Prometheus histogram from its cumulative buckets (each
+    the upper edge of the bucket the rank falls in), and its count."""
+    buckets, count = [], 0.0
+    for ln in metrics_text.splitlines():
+        m = re.match(name + r'_bucket\{[^}]*le="([^"]+)"[^}]*\}\s+([0-9.e+-]+)', ln)
+        if m:
+            buckets.append((float(m.group(1)), float(m.group(2))))
+        m = re.match(name + r"_count\{[^}]*\}\s+([0-9.e+-]+)", ln)
+        if m:
+            count = float(m.group(1))
+    out = {"count": int(count)}
+    for q in qs:
+        edge = next((le for le, c in sorted(buckets) if count and c >= q * count), None)
+        out[f"p{int(q * 100)}_s_at_most"] = edge
+    return out
+
+
+def kernel_book(perf: dict, name: str) -> tuple[int, int]:
+    """(the process's launch counter of ``name``, what its graphs' replays
+    account for: each graph's replays and its capture's eager run, times its
+    launches a replay)."""
+    k = perf["kernels"]
+    replayed = sum((g["replays"] + 1) * g["launches"].get(name, 0) for g in k["graphs"])
+    return k["launches"].get(name, 0), replayed
+
+
+def child_log(path: str, t_spawn: float, keep: int = 30) -> list[str]:
+    """A child's log lines (the serve entry logs a few dozen at INFO), each
+    with its seconds after the child was spawned (``t_spawn``, wall clock)
+    instead of the clock."""
+    import datetime
+
+    out, t0 = [], t_spawn
+    with open(path, errors="replace") as f:
+        for ln in f:
+            ln = ln.rstrip()
+            m = re.match(r"(\d{4}-\d\d-\d\d \d\d:\d\d:\d\d,\d{3}) (.*)", ln)
+            if not m:
+                continue
+            t = datetime.datetime.strptime(m.group(1), "%Y-%m-%d %H:%M:%S,%f").timestamp()
+            out.append(f"+{t - t0:.2f}s {m.group(2)[:200]}")
+    return out[:keep]
+
+
+def write_durable_checkpoint(cfg, params, path: str) -> float:
+    """TinyLlama's seed-0 weights (f32, the port's names) as the converter
+    writes a checkpoint directory, which ``MODEL_PATH`` loads."""
+    from mlmicroservicetemplate_tpu_torch.convert.jax_params import llama_params_from_jax
+    from mlmicroservicetemplate_tpu_torch.models.checkpoint import save_checkpoint
+
+    t0 = time.monotonic()
+    save_checkpoint(path, "llama", cfg.num_layers, llama_params_from_jax(params, cfg))
+    return time.monotonic() - t0
+
+
+def disk_rung_timing(engine, n_blocks: int, reps: int = 3) -> dict:
+    """One write-through (``KVDiskTier.put`` of ``n_blocks`` of the pool's
+    layout, as the loop's swap-out lands) and one disk -> host -> device
+    prefetch (``read_into`` the host pool's pinned buffers, then the copy
+    into device blocks), best of ``reps``, on a tier under a temporary
+    directory."""
+    import tempfile
+
+    import torch
+
+    from mlmicroservicetemplate_tpu_torch.engine.kv_blocks import HostBlockPool
+    from mlmicroservicetemplate_tpu_torch.runtime.durability import KVDiskTier
+
+    cfg = engine.bundle.cfg
+    dtype = engine.bundle.policy.compute_dtype
+    spec = ((PAGE, cfg.num_kv_heads, cfg.head_dim), dtype)
+    specs = [spec] * (2 * cfg.num_layers)
+    bb = engine.kv_block_bytes()
+    dev = engine.device
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_disk_") as d:
+        tier = KVDiskTier(2 * n_blocks * bb / 1e6 + 1, bb, d)
+        tier.attach(specs)
+        host = HostBlockPool(n_blocks, bb, specs, pin=dev.type == "cuda")
+        dev_leaves = [torch.empty((n_blocks,) + spec[0], dtype=dtype, device=dev)
+                      for _ in specs]
+        vals = [torch.randn((n_blocks,) + spec[0]).to(dtype) for _ in specs]
+        put_s, pre_s = [], []
+        for i in range(reps):
+            t0 = time.perf_counter()
+            entry = tier.put(("stream", f"t{i}"), n_blocks * PAGE, "stream", vals)
+            put_s.append(time.perf_counter() - t0)
+            ids = list(range(n_blocks))
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tier.pool.read_into(entry.ids, host, ids)
+            for leaf, buf in zip(dev_leaves, host.leaves):
+                leaf.copy_(buf, non_blocking=True)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            pre_s.append(time.perf_counter() - t0)
+            tier.release(entry)
+        same = all(torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
+                               b.cpu().view(torch.int16) if b.dtype == torch.bfloat16
+                               else b.cpu())
+                   for a, b in zip(vals, dev_leaves))
+        tier.close()
+    nbytes = n_blocks * bb
+    if not same:
+        raise AssertionError("serve llama durable: the disk round trip changed the blocks")
+    return {"blocks": n_blocks, "bytes": nbytes, "write_through_ms": min(put_s) * 1e3,
+            "write_through_gb_s": nbytes / min(put_s) / 1e9,
+            "prefetch_ms": min(pre_s) * 1e3, "bit_equal": same,
+            "read": "warm (page cache)"}
+
+
+def durable_service(params, device: str, rehearsal: bool, layers: int | None):
+    """The children's service in this process (no journal, no tiers): the
+    teacher-forcing bundle, the uninterrupted run and the journal's A/B."""
+    from mlmicroservicetemplate_tpu_torch.serve import build_service
+
+    env = durable_env(device, rehearsal, "", "", 0, layers)
+    ov = {k: env[k] for k in ("MODEL_NAME", "DEVICE", "PAGED_KV", "KV_BLOCK_SIZE",
+                              "MAX_STREAMS", "BATCH_BUCKETS", "SEQ_BUCKETS", "MAX_DECODE_LEN",
+                              "STREAM_CHUNK_TOKENS", "MAX_STREAM_QUEUE", "WARMUP")}
+    if "LLAMA_CONFIG" in env:
+        ov["LLAMA_CONFIG"] = env["LLAMA_CONFIG"]
+    cfg, bundle, engine, batcher = build_service(ov, params=params)
+    if cfg.warmup:
+        batcher.warm_engine()
+    batcher.warm_streams()
+    return cfg, bundle, engine, batcher
+
+
+def durable_drive(loop, feats) -> tuple[list, float]:
+    """The streams as one wave through ``loop``; (rows, wall seconds)."""
+    async def read(gen):
+        return [int(x) async for chunk in gen for x in chunk]
+
+    async def main():
+        loop._ensure_thread = lambda: None
+        try:
+            gens = [loop.submit_stream(dict(f)) for f in feats]
+        finally:
+            del loop._ensure_thread
+        loop._ensure_thread()
+        return await asyncio.gather(*(read(g) for g in gens))
+
+    t0 = time.perf_counter()
+    rows = asyncio.run(main())
+    return rows, time.perf_counter() - t0
+
+
+def phase_serve_durable(params, ref_model, rehearsal: bool, card_line: str,
+                        beside=None) -> dict:
+    """8k (the module docstring has the gates), at the depth of ``params``
+    (TinyLlama's 22 layers, or the main run's ``CUT_LAYERS``); ``beside``
+    (a phase that times nothing on the card) runs while the first child
+    boots.  Returns K3's launches: the children's (A's read just before
+    its kill) and this process's drives."""
+    import signal
+    import tempfile
+
+    import torch
+
+    from mlmicroservicetemplate_tpu_torch.engine.kv_blocks import blocks_for
+    from mlmicroservicetemplate_tpu_torch.models import llama as llama_mod
+    from mlmicroservicetemplate_tpu_torch.models.registry import RawItem
+    from mlmicroservicetemplate_tpu_torch.ops.paged_attention import paged_decode_attention
+    from mlmicroservicetemplate_tpu_torch.runtime.durability import StreamJournal
+
+    label = "serve llama durable"
+    device = "cpu" if rehearsal else "cuda"
+    layers = len(params["layers"])
+    dims = REHEARSAL_LLAMA if rehearsal else {"num_layers": layers}
+    cfg = llama_mod.LlamaConfig(**dims, eos_id=1, pad_id=0)
+    root = tempfile.mkdtemp(prefix="chip_smoke_durable_")
+    ckpt, jd = os.path.join(root, "ckpt"), os.path.join(root, "journal")
+    ckpt_s = write_durable_checkpoint(cfg, params, ckpt)
+    prompt_len = 40 if rehearsal else 200
+    texts = durable_texts(4, prompt_len, seed=11)
+    sampling = dict(temperature=0.8, top_k=40, seed=2026)
+    streams = [{"text": t, "max_tokens": DURABLE_BUDGET, "stream": True} for t in texts]
+    streams[0].update(sampling)  # the sampled one, batch class: the checkpoint's victim
+    rids = [f"durable-{i}" for i in range(4)]
+    lines = [{"text": t, "max_tokens": DURABLE_LINE_TOKENS}
+             for t in durable_texts(DURABLE_LINES, 20, seed=12)]
+    unary = {"text": "the journal answers a retry", "max_tokens": 16}
+    procs = []
+    k3_children = 0
+    try:
+        # -- child A: the traffic, then SIGKILL -----------------------------
+        port_a = free_port()
+        base_a = f"http://127.0.0.1:{port_a}"
+        log_a = os.path.join(root, "a.log")
+        t_wall_a = time.time()
+        a = durable_child(durable_env(device, rehearsal, jd, ckpt, port_a, layers), log_a)
+        procs.append(a)
+        # This process's service (the uninterrupted run, the teacher-forcing
+        # bundle, the journal's A/B) builds and warms while A boots; its
+        # timed drives come once no child runs.
+        service = durable_service(params, device, rehearsal, layers)
+        if beside is not None:
+            beside()
+        ready_a = wait_ready(base_a, a, log_a)
+        reads = [StreamRead(base_a + "/predict", streams[0],
+                            {"X-Request-Id": rids[0], "X-Priority": "batch"})]
+        status, job = http_call("POST", base_a + "/v1/batches", {"lines": lines})
+        if status != 201:
+            raise AssertionError(f"{label}: job submit {status} {job}")
+        status, unary_a = http_call("POST", base_a + "/predict", unary,
+                                    {"X-Request-Id": "durable-unary"})
+        if status != 200:
+            raise AssertionError(f"{label}: /predict {status} {unary_a}")
+        until("the batch stream's 8 tokens and 2 job lines", lambda: (
+            len(journal_view(jd).get(rids[0], {}).get("tokens", ())) >= DURABLE_MIN_TOKENS
+            and len(job_view(jd).get(job["id"], {})) >= DURABLE_LINES_DONE))
+        # The interactive arrivals find every slot busy with batch work: the
+        # preemption checkpoints the batch stream (the oldest batch holder),
+        # its blocks swap out to the host and write through to disk.
+        for i in range(1, 4):
+            reads.append(StreamRead(base_a + "/predict", streams[i], {"X-Request-Id": rids[i]}))
+
+        def kill_gate():
+            view = journal_view(jd)
+            return (all(len(view.get(r, {}).get("tokens", ())) >= DURABLE_MIN_TOKENS
+                        for r in rids)
+                    and rids[0] in disk_stream_keys(jd)
+                    and len(job_view(jd).get(job["id"], {})) >= DURABLE_LINES_DONE)
+
+        until("the kill gate (every stream 8 tokens, a checkpoint on disk, 2 lines)",
+              kill_gate)
+        perf_a = http_call("GET", base_a + "/debug/perf?kernels=1", timeout=30)[1]
+        metrics_a = http_call("GET", base_a + "/metrics", timeout=30, raw=True)[1]
+        os.killpg(a.pid, signal.SIGKILL)
+        a.wait(30)
+        at_kill = journal_view(jd)
+        lines_at_kill = job_view(jd).get(job["id"], {})
+        k3_a, k3_a_replayed = kernel_book(perf_a, "paged_decode_attention")
+        k3_children += k3_a
+        incomplete = [r for r in rids if not at_kill[r]["done"]]
+        if rids[0] not in incomplete or len(incomplete) < 2:
+            raise AssertionError(f"{label}: at the kill {incomplete} were incomplete")
+        # The journal's replay, timed on a copy (the open compacts it).
+        import shutil
+
+        copy = os.path.join(root, "journal-copy")
+        shutil.copytree(jd, copy, ignore=shutil.ignore_patterns("kv_disk", "jobs", ".lock"))
+        t0 = time.perf_counter()
+        StreamJournal(copy, fsync="off").close()
+        replay_ms = (time.perf_counter() - t0) * 1e3
+
+        # -- child B on the same directory ---------------------------------
+        port_b = free_port()
+        base_b = f"http://127.0.0.1:{port_b}"
+        log_b = os.path.join(root, "b.log")
+        t_spawn_b, t_wall_b = time.monotonic(), time.time()
+        b = durable_child(durable_env(device, rehearsal, jd, ckpt, port_b, layers), log_b)
+        procs.append(b)
+        ready_b = wait_ready(base_b, b, log_b)
+
+        def resumed():
+            view = journal_view(jd)
+            return any(len(view.get(r, {}).get("tokens", ())) > len(at_kill[r]["tokens"])
+                       for r in incomplete)
+
+        until("a resumed token", resumed, poll=0.002)
+        first_token_s = time.monotonic() - t_spawn_b
+        attach = {}
+        for r in rids:
+            st, text = http_call("GET", f"{base_b}/v1/streams/{r}", raw=True)
+            attach[r] = (st, [json.loads(x) for x in text.splitlines() if x.strip()])
+        final_job = until("the job's completion", lambda: (
+            lambda s: s if s[1].get("status") == "completed" else None)(
+                http_call("GET", f"{base_b}/v1/batches/{job['id']}")), poll=0.05)[1]
+        results = {r["line"]: r for r in (json.loads(x) for x in http_call(
+            "GET", f"{base_b}/v1/batches/{job['id']}/results", raw=True)[1].splitlines()
+            if x.strip())}
+        interactive = []
+        for ln in lines:
+            st, text = http_call("POST", base_b + "/predict", {**ln, "stream": True}, raw=True)
+            last = [json.loads(x) for x in text.splitlines() if x.strip()][-1]
+            interactive.append((last["prediction"]["text"], last["tokens_generated"],
+                                last["finish_reason"]))
+        until("the pool's drain", lambda: http_call("GET", base_b + "/status")[1]
+              ["scheduler"]["kv_committed_bytes"] == 0, poll=0.05)
+        status_b0 = http_call("GET", base_b + "/status")[1]
+        st, unary_b = http_call("POST", base_b + "/predict", unary,
+                                {"X-Request-Id": "durable-unary"})
+        status_b = http_call("GET", base_b + "/status")[1]
+        perf_b = http_call("GET", base_b + "/debug/perf?kernels=1")[1]
+        metrics_b = http_call("GET", base_b + "/metrics", raw=True)[1]
+        stop_child(b)
+        view_b = journal_view(jd)
+        k3_b, k3_b_replayed = kernel_book(perf_b, "paged_decode_attention")
+        k3_children += k3_b
+    finally:
+        for p in procs:
+            stop_child(p, signal.SIGKILL)
+
+    # -- the gates ---------------------------------------------------------
+    fails = []
+    for r in rids:
+        got, pre = view_b[r]["tokens"], at_kill[r]["tokens"]
+        st, body = attach[r]
+        eos = cfg.eos_id in got
+        if (got[: len(pre)] != pre or not view_b[r]["done"]
+                or (len(got) != at_kill[r]["budget"] and not eos)):
+            fails.append(f"{r}: {len(pre)} tokens at the kill, {len(got)} after")
+        if st != 200 or not body or body[-1].get("tokens_generated") != len(got) - (
+                1 if eos else 0):
+            fails.append(f"{r}: /v1/streams {st} {body[-1:]}")
+    lines_b = {i: (row["text"], row["tokens"], row["finish_reason"]) for i, row in results.items()}
+    if (final_job["line_counts"] != {"total": DURABLE_LINES, "completed": DURABLE_LINES,
+                                     "failed": 0}
+            or [lines_b[i] for i in range(DURABLE_LINES)] != interactive):
+        fails.append(f"job {final_job} results {lines_b} interactive {interactive}")
+    for i, row in lines_at_kill.items():
+        if (row["text"], row["tokens"], row["finish"]) != lines_b[i]:
+            fails.append(f"job line {i} ran again: {row} then {lines_b[i]}")
+    jobs_b = status_b["jobs"]
+    if jobs_b["records_written"] != DURABLE_LINES - len(lines_at_kill) + 1:
+        fails.append(f"job store appended {jobs_b['records_written']} records for "
+                     f"{DURABLE_LINES - len(lines_at_kill)} lines")
+    disk = status_b["durability"]["kv_disk"]
+    tier = status_b.get("kv_tier", {})
+    if disk["promotes"] < 1 or tier.get("swap_resumes", 0) < 1 or tier.get("swap_fallbacks"):
+        fails.append(f"disk rung: kv_disk {disk}, kv_tier {tier}")
+    batch0 = status_b0["decode"]["dispatch_counts"].get("batch", 0)
+    if (st != 200 or unary_b["prediction"] != unary_a["prediction"]
+            or status_b["decode"]["dispatch_counts"].get("batch", 0) != batch0):
+        fails.append(f"/predict retry {st} {unary_b} (first {unary_a}), batch dispatches "
+                     f"{batch0} -> {status_b['decode']['dispatch_counts'].get('batch')}")
+    if k3_b != k3_b_replayed or k3_a != k3_a_replayed or (k3_b == 0) != rehearsal:
+        fails.append(f"K3 launches: B {k3_b} against its replays' {k3_b_replayed}, A {k3_a} "
+                     f"against {k3_a_replayed}")
+    if status_b["scheduler"]["kv_committed_bytes"] != 0:
+        fails.append(f"pool not drained: {status_b['scheduler']}")
+    if fails:
+        raise AssertionError(f"{label}: " + "; ".join(fails))
+
+    # -- the uninterrupted run in this process, and the journal's A/B ---------
+    k3_0 = paged_decode_attention.launches
+    scfg, bundle, engine, batcher = service
+    loop = batcher._cdl
+    feats = [bundle.preprocess(RawItem(text=s["text"], max_tokens=DURABLE_BUDGET,
+                                       **{key: s[key] for key in sampling if key in s}))
+             for s in streams]
+    for f, r in zip(feats, rids):
+        f["request_id"] = r
+    clean, plain_s = durable_drive(loop, feats)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_journal_") as d:
+        engine.journal = StreamJournal(d, fsync="always", model="llama")
+        try:
+            journaled, journal_s = durable_drive(loop, feats)
+        finally:
+            engine.journal.close()
+            engine.journal = None
+    k3_here = paged_decode_attention.launches - k3_0
+    got_rows = [view_b[r]["tokens"] for r in rids]
+    try:
+        check = teacher_forced(bundle, ref_model, feats, clean, engine.max_decode_len)
+        tokens = same_tokens(label, bundle, ref_model, feats, clean, got_rows, check["tol"],
+                             engine.max_decode_len)
+        rung = disk_rung_timing(engine, blocks_for(len(feats[0]["input_ids"]), PAGE))
+    finally:
+        if not rehearsal:
+            release(bundle)
+    n_tok = sum(len(r) for r in clean)
+    emit(f"{label} children", a=child_log(log_a, t_wall_a), b=child_log(log_b, t_wall_b))
+    emit(label, card=card_line, layers=cfg.num_layers, checkpoint_write_s=ckpt_s,
+         ready_a_s=ready_a, restart_to_ready_s=ready_b, journal_replay_ms=replay_ms,
+         restart_to_first_resumed_token_s=first_token_s,
+         at_kill={r: len(at_kill[r]["tokens"]) for r in rids},
+         incomplete_at_kill=incomplete, job_lines_at_kill=sorted(lines_at_kill),
+         tokens=tokens, identical_to_journaled_drive=journaled == clean,
+         kv_disk=disk, kv_tier=tier, jobs=jobs_b,
+         journal=status_b["durability"]["journal"],
+         k3={"a": k3_a, "b": k3_b, "b_replays_account": k3_b_replayed, "here": k3_here},
+         disk_rung=rung,
+         fsync_a=histogram_quantiles(metrics_a, "journal_fsync_seconds"),
+         fsync_b=histogram_quantiles(metrics_b, "journal_fsync_seconds"),
+         tokens_per_s_plain=n_tok / plain_s, tokens_per_s_journaled=n_tok / journal_s,
+         journal_fsync="always")
+    import shutil
+
+    shutil.rmtree(root, ignore_errors=True)
+    return {"paged_decode_attention": k3_children + k3_here}
+
+
+def durable_main(rehearsal: bool) -> int:
+    """``--durable``: the build and 8k alone, TinyLlama at full width (the
+    rehearsal's small llama on the CPU, no build).  Prints no result line."""
+    import torch
+
+    phase = "env"
+    try:
+        if not rehearsal and not torch.cuda.is_available():
+            print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
+            return 1
+        card_line = "cpu (rehearsal)" if rehearsal else card()
+        emit(phase, card=card_line, torch=torch.__version__, cuda=torch.version.cuda,
+             mode="durable")
+        if not rehearsal:
+            phase = "build"
+            phase_build()
+        from mlmicroservicetemplate_tpu_torch.convert.jax_params import llama_params_from_jax
+        from mlmicroservicetemplate_tpu_torch.models import llama as llama_mod
+
+        device = "cpu" if rehearsal else "cuda"
+        cfg = llama_mod.LlamaConfig(**(REHEARSAL_LLAMA if rehearsal else {}), eos_id=1, pad_id=0)
+        params = llama_pytree(cfg, seed=0)
+        ref = llama_mod.build_model(cfg, llama_params_from_jax(params, cfg), torch.device(device),
+                                    torch.float32)
+        phase = "serve llama durable"
+        phase_serve_durable(params, ref, rehearsal, card_line)
+    except Exception as e:
+        traceback.print_exc()
+        emit(phase, ok=False, error=f"{type(e).__name__}: {e}")
+        return 1
+    return 0
+
+
 def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
@@ -7612,6 +8299,8 @@ def main(argv: list[str]) -> int:
                     help="only the build, the faults and tuning phase and the converter's")
     ap.add_argument("--observe", action="store_true",
                     help="only the build and the observability phase")
+    ap.add_argument("--durable", action="store_true",
+                    help="only the build and the durable-serving phase")
     args = ap.parse_args(argv)
     if args.perf:
         return perf_main()
@@ -7631,6 +8320,8 @@ def main(argv: list[str]) -> int:
         return faults_main(args.cpu_rehearsal)
     if args.observe:
         return observe_main(args.cpu_rehearsal)
+    if args.durable:
+        return durable_main(args.cpu_rehearsal)
     rehearsal = args.cpu_rehearsal
     t_start = time.monotonic()
     phase = "env"
@@ -7795,8 +8486,9 @@ def main(argv: list[str]) -> int:
         # 1, 4 and 16 (a wave pads to one): warmup captures 48 graphs, not 80.
         phase = "serve llama classes"
         classes = phase_serve_classes(
-            phase, {**cut_overrides, **stream, "BATCH_BUCKETS": "1,4,16",
-                    "MAX_STREAM_QUEUE": "16", "PREEMPT": "1"},
+            phase, {**cut_overrides, **stream, "BATCH_BUCKETS": "1,16",
+                    "MAX_STREAM_QUEUE": "16", "PREEMPT": "1",
+                    **({} if rehearsal else {"SEQ_BUCKETS": "32,256"})},
             cparams, cref, rehearsal, card_line, n_batch=16, n_inter=8, cap=28,
             budget_streams=7 if rehearsal else 4)
         k2_streams += classes[1].get("decode_attention", 0)
@@ -7839,7 +8531,8 @@ def main(argv: list[str]) -> int:
         # and 8h drive TinyLlama at full depth.
         phase = "serve llama chunked"
         chunked = phase_serve_chunked(phase, {**cut_overrides, **stream,
-                                              **chunked_llama(rehearsal)},
+                                              **chunked_llama(rehearsal),
+                                              **({} if rehearsal else {"SEQ_BUCKETS": "64,256"})},
                                       cparams, cref, rehearsal, card_line)
         k2_streams += chunked[1].get("decode_attention", 0)
         k3_streams += chunked[1].get("paged_decode_attention", 0)
@@ -7875,20 +8568,27 @@ def main(argv: list[str]) -> int:
         quant_launches = phase_serve_quant(cparams, ccfg, rehearsal, card_line)
         phase = "serve llama lora"
         lora_launches = phase_serve_lora(cparams, cref, ccfg, rehearsal, card_line)
-        del cref, cparams
         # Faults, the watchdog, the supervisor and K3's autotuner (8i) at
         # full depth, then the converter CLI at GPT-2's full width.
         phase = "serve llama faults"
         fault_launches = phase_serve_faults(params, ref_model, rehearsal, card_line)
-        # Observability (8j) at full depth: the layer off and on, K1 in a
-        # BERT-base wave beside it, then its cost at the defaults.
-        phase = "serve llama observe"
-        observe_launches = phase_serve_observe(params, ref_model, rehearsal, card_line)
         del ref_model, params
+        # Observability (8j) at CUT_LAYERS layers for the run's time (the
+        # layer off and on, K1 in a BERT-base wave beside it, then its cost
+        # at the defaults; ``--observe`` keeps 22).
+        phase = "serve llama observe"
+        observe_launches = phase_serve_observe(cparams, cref, rehearsal, card_line)
+        # Durable serving (8k) at CUT_LAYERS layers (``--durable`` keeps
+        # 22): child processes of the serve entry, one killed with SIGKILL,
+        # a second resuming its journal.
         # The converter CLI at GPT-2's full width and CUT_LAYERS layers
-        # (``--faults`` converts all 12), 8i's sticky-error child beside it.
-        phase = "convert gpt2"
-        converter_and_sticky(card_line, rehearsal, CUT_LAYERS)
+        # (``--faults`` converts all 12), 8i's sticky-error child beside it,
+        # both while 8k's first child boots.
+        phase = "serve llama durable"
+        durable_launches = phase_serve_durable(
+            cparams, cref, rehearsal, card_line,
+            beside=lambda: converter_and_sticky(card_line, rehearsal, CUT_LAYERS))
+        del cref, cparams
 
         # GPT-2 small at full width, random weights from seed 0, bf16: whole,
         # then streamed through the loop (paged, then contiguous).
@@ -8009,10 +8709,11 @@ def main(argv: list[str]) -> int:
         tparams = t5_pytree(tcfg, seed=0)
         tref = t5_mod.build_model(tcfg, t5_params_from_jax(tparams, tcfg), torch.device(device),
                                   torch.float32)
-        t5_overrides = {"MODEL_NAME": "t5-small", "DEVICE": device, "BATCH_BUCKETS": "1,4,8,32",
-                        "SEQ_BUCKETS": "64,128,512", "MAX_DECODE_LEN": "64",
+        # Batch buckets 1, 8 and 32 by seq 64 and 512, for the run's time.
+        t5_overrides = {"MODEL_NAME": "t5-small", "DEVICE": device, "BATCH_BUCKETS": "1,8,32",
+                        "SEQ_BUCKETS": "64,512", "MAX_DECODE_LEN": "64",
                         "MAX_STREAMS": "16"}
-        cut_seq, long_lens = "64,128,256", ((400, 420), (385, 400))
+        cut_seq, long_lens = "64", ((400, 420), (385, 400))
         if rehearsal:
             t5_overrides.update(BATCH_BUCKETS="1,2,4", SEQ_BUCKETS="32,64,128",
                                 MAX_DECODE_LEN="16")
@@ -8058,7 +8759,7 @@ def main(argv: list[str]) -> int:
         long_wave = [t5_long_wave(rehearsal, n=i + 1, lengths=lens)[i]
                      for i, lens in enumerate(long_lens)]
         for phase, extra, waves, misses in (
-                ("serve t5 long prompt", {"SEQ_BUCKETS": cut_seq, "BATCH_BUCKETS": "1,4,16"},
+                ("serve t5 long prompt", {"SEQ_BUCKETS": cut_seq, "BATCH_BUCKETS": "1"},
                  [long_wave], 4),
                 ("serve t5 per-stream", {"CONTINUOUS_BATCHING": "0", "BATCH_BUCKETS": "1"},
                  gen_waves(rehearsal), 0)):
@@ -8233,7 +8934,8 @@ def main(argv: list[str]) -> int:
                      k3_streams + gpt2_k3 + quant_launches["paged_decode_attention"]
                      + lora_launches["paged_decode_attention"]
                      + fault_launches["paged_decode_attention"]
-                     + observe_launches["paged_decode_attention"], paged_headline,
+                     + observe_launches["paged_decode_attention"]
+                     + durable_launches["paged_decode_attention"], paged_headline,
                      gpt2=gpt2_entry(gpt2_paged, gpt2_k3)),
         # launches: the served bert-long path; the 4-shard check (a direct
         # call, no serving path) is counted apart.

@@ -18,7 +18,11 @@ debug routes: ``GET /debug/trace`` (the span ring as Chrome trace-event
 JSON), ``GET /debug/engine`` (the flight recorder), ``GET /debug/perf``
 (the perf observatory) and ``POST /debug/profile`` (a ``torch.profiler``
 capture of CPU and, on the card, CUDA activity, written as a Chrome trace
-into ``PROFILE_DIR``).  With ``SERVER_URL`` set, the
+into ``PROFILE_DIR``).  Under ``JOURNAL_DIR`` the startup replays the
+journal after warm-up (``_replay_journal``) and ``GET /v1/streams/{rid}``
+serves a resumed stream's journaled tokens and continuation; under
+``JOBS_ENABLED`` the ``/v1/batches`` routes (``jobs/api.py``) come up,
+and the startup resumes unfinished jobs.  With ``SERVER_URL`` set, the
 app registers with its parent on startup (``api/registration.py``).  The
 ``api`` package is the only part of the port that imports aiohttp.
 """
@@ -103,6 +107,7 @@ def build_app(cfg, bundle: ModelBundle, engine, batcher: Batcher) -> web.Applica
     app.router.add_post("/predict", handle_predict)
     app.router.add_post("/v1/completions", handle_completions)
     app.router.add_post("/v1/chat/completions", handle_chat_completions)
+    app.router.add_get("/v1/streams/{rid}", handle_stream_attach)
     app.router.add_get("/v1/models", handle_models)
     app.router.add_get("/healthz", handle_healthz)
     app.router.add_get("/readyz", handle_readyz)
@@ -112,6 +117,12 @@ def build_app(cfg, bundle: ModelBundle, engine, batcher: Batcher) -> web.Applica
     app.router.add_get("/debug/engine", handle_engine_debug)
     app.router.add_get("/debug/perf", handle_perf_debug)
     app.router.add_post("/debug/profile", handle_profile)
+    # The bulk-job lane's routes exist only when the batcher built its
+    # JobManager (JOBS_ENABLED).
+    if getattr(batcher, "jobs", None) is not None:
+        from ..jobs.api import add_job_routes
+
+        add_job_routes(app, batcher.jobs)
 
     # A misconfigured CHAT_TEMPLATE fails at startup, not as 500s once the
     # server is ready; a tokenizer that shatters the template's markers was
@@ -157,6 +168,19 @@ async def _on_startup(app: web.Application) -> None:
             return
         app[K_READY].set()
         log.info("model %s ready", app[K_BUNDLE].name)
+        # The journal's replay after warm-up (resumed streams pay no
+        # capture on the request path), then the jobs', so resumed streams
+        # claim capacity before bulk backfill does.
+        try:
+            await _replay_journal(app)
+        except Exception:
+            log.exception("journal replay failed (serving continues)")
+        try:
+            jobs = getattr(batcher, "jobs", None)
+            if jobs is not None:
+                jobs.replay()
+        except Exception:
+            log.exception("job replay failed (serving continues)")
 
     app[K_STATE]["_ready_task"] = asyncio.get_running_loop().create_task(warm_then_ready())
     if cfg.server_url:
@@ -192,7 +216,63 @@ def _canary_feats(bundle: ModelBundle) -> dict:
     return {"input_ids": np.ones(8, np.int32), "length": 8}
 
 
+async def _pump_resumed(rec, gen) -> None:
+    """Drain a resumed stream's continuation into its reconnect record (it
+    runs headless: its client's connection died with the old process)."""
+    try:
+        async for chunk in gen:
+            rec.extend(chunk)
+    except Exception as e:
+        rec.fail(str(e) or type(e).__name__)
+    else:
+        rec.complete()
+
+
+async def _replay_journal(app: web.Application) -> None:
+    """Readmit every incomplete journaled stream through the resume path,
+    and serve every journaled stream (finished ones too: reconnects are
+    idempotent) at ``GET /v1/streams/{request_id}``."""
+    journal = getattr(app[K_ENGINE], "journal", None)
+    if journal is None:
+        return
+    from ..runtime.durability import StreamRecord, StreamRegistry
+
+    model = app[K_BUNDLE].name
+    batcher = app[K_BATCHER]
+    registry = StreamRegistry()
+    app[K_STATE]["streams"] = registry
+    resumed = 0
+    tasks = app[K_STATE].setdefault("_resume_tasks", [])
+    for rs in list(journal.streams.values()):
+        rec = registry.add(StreamRecord(rs.rid, rs.tokens, max_tokens=rs.feats.get("max_tokens"),
+                                        stop=rs.stop))
+        if rs.done:
+            rec.complete()
+            continue
+        try:
+            gen = batcher.resume_stream(rs.np_feats(), rs.tokens)
+        except Exception as e:
+            log.exception("journal replay: could not resume %s", rs.rid)
+            rec.fail(f"resume failed: {e}")
+            metrics.JOURNAL_REPLAY.labels(model, "failed").inc()
+            continue
+        if gen is None:
+            # The cursor covers the whole budget: nothing left to decode.
+            rec.complete()
+            journal.done(rs.rid)
+            metrics.JOURNAL_REPLAY.labels(model, "complete").inc()
+            continue
+        tasks.append(asyncio.get_running_loop().create_task(_pump_resumed(rec, gen)))
+        metrics.JOURNAL_REPLAY.labels(model, "resumed").inc()
+        resumed += 1
+    if resumed:
+        log.info("journal replay: %d incomplete stream(s) re-admitted for token-identical "
+                 "resume (reconnect via GET /v1/streams/{request_id})", resumed)
+
+
 async def _on_cleanup(app: web.Application) -> None:
+    for task in app[K_STATE].get("_resume_tasks", ()):
+        task.cancel()
     for key in ("_ready_task", "_register_task"):
         task = app[K_STATE].get(key)
         if task is not None:
@@ -361,6 +441,12 @@ async def _preprocess(request: web.Request, bundle: ModelBundle, item: RawItem,
         raise web.HTTPBadRequest(reason=str(e) or "undecodable payload") from None
     feats.update(sched)
     feats["request_id"] = request.get("request_id", "")
+    if getattr(request.app[K_ENGINE], "journal", None) is not None:
+        # Durability: whether the id is the client's (unary X-Request-Id
+        # dedup applies; minted ids never repeat) and the stop strings (a
+        # reconnect after a restart renders the deltas with them).
+        feats["rid_client"] = "X-Request-Id" in request.headers
+        feats["stop_strs"] = list(item.stop)
     return feats
 
 
@@ -817,6 +903,91 @@ async def handle_chat_completions(request: web.Request) -> web.StreamResponse:
     })
 
 
+async def handle_stream_attach(request: web.Request) -> web.StreamResponse:
+    """``GET /v1/streams/{request_id}``: after a restart, a client whose
+    stream died mid-body reattaches by request id and drains the journaled
+    tokens and the live continuation as ndjson deltas, each token once
+    (the resumed decode suppresses what the journal holds).  404 for an id
+    the journal never saw, 410 for a finished stream whose tokens were
+    compacted away."""
+    app = request.app
+    bundle: ModelBundle = app[K_BUNDLE]
+    rid = request.match_info["rid"]
+    registry = app[K_STATE].get("streams")
+    if registry is None:
+        raise web.HTTPNotFound(reason="no journal replay ran (JOURNAL_DIR unset?)")
+    rec = registry.get(rid)
+    if rec is None:
+        journal = getattr(app[K_ENGINE], "journal", None)
+        outcome = journal.terminal_status(rid) if journal is not None else None
+        if outcome is not None:
+            raise web.HTTPGone(
+                text=json.dumps({
+                    "request_id": rid,
+                    "terminal": outcome,
+                    "detail": "stream completed; its token history was "
+                              "compacted out of the journal",
+                }),
+                content_type="application/json",
+            )
+        raise web.HTTPNotFound(reason=f"unknown stream {rid!r}")
+    item = RawItem(text="", stream=True, max_tokens=rec.max_tokens, stop=tuple(rec.stop))
+
+    async def chunks():
+        i = 0
+        while True:
+            cur = len(rec.tokens)
+            if cur > i:
+                yield np.asarray(rec.tokens[i:cur], np.int32)
+                i = cur
+                continue
+            if rec.done:
+                if rec.error:
+                    raise RuntimeError(rec.error)
+                return
+            await rec.wait_past(i)
+
+    events = _delta_stream(bundle, chunks(), item)
+    resp = web.StreamResponse(status=200, headers={
+        "Content-Type": "application/x-ndjson", "X-Accel-Buffering": "no",
+        "X-Request-Id": rid,
+    })
+    resp.enable_chunked_encoding()
+    await resp.prepare(request)
+    t0 = time.monotonic()
+    try:
+        async for ev in events:
+            if "delta" in ev:
+                await resp.write((json.dumps({"delta": ev["delta"]}) + "\n").encode())
+                continue
+            await resp.write((json.dumps({
+                "done": True,
+                "prediction": {"text": ev["text"]},
+                "tokens_generated": ev["tokens"],
+                "decode_steps": ev["steps"],
+                "finish_reason": ev["finish_reason"],
+                "model": bundle.name,
+                "timing_ms": round((time.monotonic() - t0) * 1000.0, 3),
+            }) + "\n").encode())
+            metrics.REQUESTS.labels(bundle.name, "200").inc()
+    except ConnectionError:
+        pass  # the client can reconnect again; the record stays
+    except Exception as e:
+        metrics.REQUESTS.labels(bundle.name, "500").inc()
+        log.exception("stream reconnect failed (request_id=%s)", rid)
+        try:
+            await resp.write((json.dumps(_error_body(
+                type(e).__name__, str(e) or "stream failed", rid)) + "\n").encode())
+        except ConnectionError:
+            pass
+    finally:
+        try:
+            await resp.write_eof()
+        except ConnectionError:
+            pass
+    return resp
+
+
 async def handle_models(request: web.Request) -> web.Response:
     """OpenAI ``/v1/models``: one entry, the served model."""
     app = request.app
@@ -938,6 +1109,21 @@ async def handle_status(request: web.Request) -> web.Response:
         slo = getattr(cdl, "slo", None) if cdl is not None else None
         if slo is not None:
             body["perf"]["slo"] = slo.snapshot()
+    journal = getattr(engine, "journal", None)
+    if journal is not None:
+        # Durable serving: the journal's health, the disk KV rung and the
+        # reconnect registry.
+        dur = {"journal": journal.stats()}
+        disk = getattr(engine, "kv_disk", None)
+        if disk is not None:
+            dur["kv_disk"] = disk.stats()
+        reg = app[K_STATE].get("streams")
+        if reg is not None:
+            dur["reconnect"] = reg.stats()
+        body["durability"] = dur
+    jobs = getattr(app[K_BATCHER], "jobs", None)
+    if jobs is not None:
+        body["jobs"] = jobs.stats()
     tr = tracing.tracer()
     flight = getattr(engine, "flight", None)
     body["observability"] = {
@@ -1047,7 +1233,8 @@ async def handle_perf_debug(request: web.Request) -> web.Response:
     """``GET /debug/perf``: the perf observatory's detail (device busy and
     bubble by site, prep overlap, modeled FLOPs by graph kind, the MFU
     estimate and its components), SLO burn rates, the counted graphs by
-    kind and the per-site dispatch accounting."""
+    kind and the per-site dispatch accounting; with ``?kernels=1`` also the
+    kernel launch counters and the graphs' replays."""
     from ..runtime.compile_cache import cost_stats
 
     engine = request.app[K_ENGINE]
@@ -1062,6 +1249,17 @@ async def handle_perf_debug(request: web.Request) -> web.Response:
     body["analyzed_signatures"] = cost_stats()
     body["dispatch_attribution"] = (engine.dispatch_attribution()
                                     if hasattr(engine, "dispatch_attribution") else {})
+    if request.query.get("kernels", "") in ("1", "true"):
+        # ``?kernels=1`` (the port's own): this process's kernel launch
+        # counters and each captured graph's replays and launches a replay,
+        # so a caller outside the process can hold one against the other.
+        from ..runtime.compile_cache import CACHE, LAUNCH_COUNTERS
+
+        body["kernels"] = {
+            "launches": {name: w.launches for name, w in sorted(LAUNCH_COUNTERS.items())},
+            "graphs": [{"kind": e.kind, "replays": e.replays, "launches": dict(e.launches)}
+                       for e in CACHE.entries()],
+        }
     return web.json_response(body)
 
 

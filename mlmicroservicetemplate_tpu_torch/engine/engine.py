@@ -79,6 +79,10 @@ not ported), the same functions run eagerly; ``graph_modes`` says which.
   reference's message), whose buffers the loop builds and fills; under it
   the paged prefix cache's ``on_evict`` hands an evicted pin and its refs
   to ``_host_demote_pending`` for the loop to demote.
+- Durability (``JOURNAL_DIR``): ``journal`` (the batcher's
+  ``StreamJournal``) and ``kv_disk`` (the ``KVDiskTier`` under
+  ``KV_DISK_BUDGET_MB``, refused without ``JOURNAL_DIR`` or without the
+  host tier, with the reference's messages); None without them.
 - LoRA adapters (``ADAPTER_DIR``): the batcher hands the engine its
   ``AdapterPool`` (``adapters``); the continuous loop's starts pass each
   row's adapter slot (``start``'s ``rows``) and run through the pool's
@@ -112,6 +116,7 @@ from __future__ import annotations
 
 import logging
 import math
+import os
 import random
 import threading
 import time
@@ -261,6 +266,34 @@ class InferenceEngine:
                     "has no block identity to swap)"
                 )
             self.kv_host = KVHostTier(host_mb, self.kv_block_bytes())
+        # The disk KV tier under the host tier (KV_DISK_BUDGET_MB > 0,
+        # generators): the host LRU's victims spill to memmap files under
+        # JOURNAL_DIR/kv_disk, and checkpoints write through, so a resume
+        # outlives the process (``runtime/durability.py``).  One tier per
+        # directory per process (``get_disk_tier``).  The journal is the
+        # batcher's (one per process), attached here; the supervisor's
+        # in-place rebuild keeps both, since a rebuild is not a restart.
+        self.kv_disk = None
+        self.journal = None
+        disk_mb = float(getattr(cfg, "kv_disk_budget_mb", 0.0) or 0.0)
+        if disk_mb > 0 and getattr(bundle, "kind", None) == KIND_SEQ2SEQ:
+            jdir = getattr(cfg, "journal_dir", None)
+            if not jdir:
+                raise ValueError(
+                    "KV_DISK_BUDGET_MB requires JOURNAL_DIR (the "
+                    "disk tier persists under the journal directory)"
+                )
+            if self.kv_host is None:
+                raise ValueError(
+                    "KV_DISK_BUDGET_MB requires PAGED_KV=1 and "
+                    "KV_HOST_BUDGET_MB>0 (the disk tier sits BELOW "
+                    "the host-RAM tier in the offload hierarchy)"
+                )
+            from ..runtime.durability import get_disk_tier
+
+            self.kv_disk = get_disk_tier(disk_mb, self.kv_block_bytes(),
+                                         os.path.join(jdir, "kv_disk"))
+            self.kv_disk.model = bundle.name
         # Chunked prefill (PREFILL_CHUNK > 0, the decoder families): the
         # continuous loop prefills long prompts in windows between its
         # decode chunks (``engine/streams.py``).  Refused here, before

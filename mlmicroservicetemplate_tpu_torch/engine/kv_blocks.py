@@ -18,8 +18,8 @@ those blocks (one ref each) and never writes below the prefix, whose
 length is a block-aligned seq bucket.  A block returns to the free list
 only when its last holder (streams and pins alike) frees it.
 ``StreamBlocks.trim`` returns the blocks a fused decode window granted for
-chunks it did not need.  The reference's ``take`` (the journal's restart,
-ROADMAP A12) waits for its caller.
+chunks it did not need.  ``BlockPool.take`` claims exact ids (the disk
+tier's restart rebuild, ``runtime/durability.py``).
 
 Host KV tier (``KV_HOST_BUDGET_MB``): ``HostBlockPool`` is a second pool
 with the same discipline that also holds the blocks' contents, one host
@@ -27,18 +27,21 @@ tensor per leaf of the paged pools (pinned on the card); ``SwapLedger``
 maps its blocks to the swapped-out stream checkpoints and demoted prefix
 pins that own them, and ``KVHostTier`` builds both on first use.  The
 copies between the tiers are the loop's (``engine/streams.py``).  The
-reference's ``SwapLedger.restore`` (the disk tier's replay, ROADMAP A12)
-waits for its caller.
+disk tier below (``KV_DISK_BUDGET_MB``) hangs off the ledger's ``spill``
+and ``on_release`` hooks and rebuilds its own ledger through ``restore``.
 """
 
 from __future__ import annotations
 
+import logging
 import threading
 import time
 from collections import OrderedDict, deque
 from dataclasses import dataclass, field
 
 import torch
+
+log = logging.getLogger(__name__)
 
 
 def blocks_for(tokens: int, block_size: int) -> int:
@@ -115,6 +118,24 @@ class BlockPool:
                 if self._ref.get(b, 0) <= 0:
                     raise ValueError(f"ref of unallocated block {b}")
                 self._ref[b] += 1
+
+    def take(self, ids: list[int]) -> None:
+        """Claim these free blocks at refcount 1: a persistent tier's
+        index names exact ids, so its restart rebuild takes those, not
+        what the free list pops.  All-or-nothing; an id out of range or
+        already held raises."""
+        with self._lock:
+            want = set()
+            for b in ids:
+                b = int(b)
+                if not (0 <= b < self.num_blocks):
+                    raise ValueError(f"take of out-of-range block {b}")
+                if self._ref.get(b, 0) > 0 or b in want:
+                    raise ValueError(f"take of already-held block {b}")
+                want.add(b)
+            self._free = deque(b for b in self._free if b not in want)
+            for b in want:
+                self._ref[b] = 1
 
     def free(self, ids: list[int]) -> None:
         """Drop one holder per id; a block rejoins the free list at 0.  A
@@ -285,6 +306,13 @@ class SwapLedger:
         self._prefix: dict = {}
         self._lock = threading.Lock()
         self.evictions = 0
+        # The tier below (``runtime/durability.py``): ``spill(entry)`` is
+        # offered an LRU victim before it dies, so its blocks demote to
+        # disk (a spill that fails still evicts), and ``on_release(entry)``
+        # mirrors every release into the disk tier's index.  Both None: no
+        # tier below.
+        self.spill = None
+        self.on_release = None
 
     def __len__(self) -> int:
         with self._lock:
@@ -310,6 +338,19 @@ class SwapLedger:
                 self._prefix[key] = entry
             return entry
 
+    def restore(self, ids: list[int], tokens: int, kind: str, key=None) -> SwapEntry:
+        """An entry at these exact block ids (a persistent tier's index at
+        restart): its payload is in the backing store already, so it is
+        born ``ready``."""
+        with self._lock:
+            self.pool.take(ids)
+            entry = SwapEntry(ids, tokens, kind, key=key, pool=self.pool, ledger=self)
+            entry.ready = True
+            self._lru[entry] = None
+            if key is not None:
+                self._prefix[key] = entry
+            return entry
+
     def _evict_one_locked(self) -> bool:
         victim = None
         for e in self._lru:  # oldest first; a prefix entry goes before any stream's
@@ -320,6 +361,11 @@ class SwapLedger:
                 victim = e
         if victim is None:
             return False
+        if self.spill is not None and victim.ready:
+            try:
+                self.spill(victim)
+            except Exception:
+                log.exception("KV tier spill failed; evicting without demotion")
         self._release_locked(victim)
         self.evictions += 1
         return True
@@ -332,14 +378,30 @@ class SwapLedger:
         if entry.key is not None:
             self._prefix.pop(entry.key, None)
         self.pool.free(entry.ids)
+        if self.on_release is not None:
+            try:
+                self.on_release(entry)
+            except Exception:
+                log.exception("KV tier release hook failed")
 
     def release(self, entry: SwapEntry) -> None:
         with self._lock:
             self._release_locked(entry)
 
+    def touch(self, entry: SwapEntry) -> None:
+        """Move a live entry to the LRU's hot end."""
+        with self._lock:
+            if entry.alive:
+                self._lru.move_to_end(entry)
+
     def prefix_get(self, key) -> SwapEntry | None:
         """A live prefix entry by its cache key (bucket, content hash);
         a hit moves it to the LRU's hot end."""
+        return self.get(key)
+
+    def get(self, key) -> SwapEntry | None:
+        """A live entry of any kind by its key (a stream checkpoint's is
+        ``("stream", rid)``); a hit moves it to the LRU's hot end."""
         with self._lock:
             e = self._prefix.get(key)
             if e is not None and e.alive:

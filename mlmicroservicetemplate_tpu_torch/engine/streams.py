@@ -273,7 +273,25 @@ The decode-kernel autotuner (``PALLAS_AUTOTUNE``, ``PALLAS_VARIANT``;
 loop's shape before the slot state's graphs are captured
 (``_autotune_kernel``), so they replay the winner's grid.
 
-Not ported (``ROADMAP.md``): the disk KV tier, fleets and the journal.
+Durable serving (``JOURNAL_DIR``; ``runtime/durability.py``), at the
+reference's places: ``submit_stream`` journals the admission record before
+the stream can produce anything; ``_emit_tokens`` journals each chunk's
+tokens before the consumer sees them; ``_journal_done`` writes the
+terminal record exactly once, before the end reaches the consumer (at the
+emit sites, and at ``_release`` for a stream that ends with no terminal
+emission); a checkpoint leaves its cursor.  ``resume_stream`` readmits a
+crashed process's stream off its journaled record and cursor through
+``_checkpoint_for_resume`` (a recast for greedy decoder-only streams, a
+replay with the seed pinned at admission for the rest).  The disk KV tier
+(``KV_DISK_BUDGET_MB``, paged): attached to the pool leaves' layout when
+the slot state is built; the host ledger's LRU victims spill to it, a
+checkpoint's landed swap-out writes through keyed by request id, a resume
+whose swap entry is on disk promotes it disk -> host (straight into the
+host pool's buffers) before the host -> device prefetch, a prefix missing
+from the host tier is looked up on disk, and a stream's end releases its
+disk entry.  The per-stream path does not journal, as in the reference.
+
+Not ported (``ROADMAP.md``): fleets.
 """
 
 from __future__ import annotations
@@ -331,7 +349,7 @@ class _Stream:
     __slots__ = ("feats", "chunks", "loop", "cancelled", "produced", "released", "budget",
                  "klass", "deadline", "started", "kv", "kv_held", "skip", "tokens",
                  "preempted", "_removed", "blocks", "s_base", "s_lo", "rid", "t_emit", "t_in",
-                 "t_queued", "swap", "adapter_slot", "parted")
+                 "t_queued", "swap", "adapter_slot", "parted", "done_journaled")
 
     # The admission ledger's marker: paged streams are accounted by the pool.
     is_stream = True
@@ -382,6 +400,9 @@ class _Stream:
         self.adapter_slot = 0
         self.rid = str(feats.get("request_id") or "")
         self.t_emit = 0.0
+        # The journal's terminal record: written once, before the consumer
+        # can see the end (``_journal_done``).
+        self.done_journaled = False
 
     def emit(self, item: Any) -> None:
         try:
@@ -774,6 +795,11 @@ class ContinuousDecodeLoop:
                     self._shed("adapter_pool")
                     raise QueueFullError(str(e), reason="adapter_pool",
                                          retry_after_s=e.retry_after_s) from e
+            # The write-ahead admission record, before the stream can
+            # produce anything: a kill at any later point finds it.
+            j = self._journal()
+            if j is not None and st.rid:
+                j.admit(st.rid, feats, st.klass, st.budget)
             st.t_queued = time.monotonic()
             self.queue.put(st, force=True)  # the bound is enforced above
         self._ensure_thread()
@@ -795,6 +821,78 @@ class ContinuousDecodeLoop:
                 st.cancelled.set()
 
         return gen()
+
+    def resume_stream(self, feats: dict, delivered: list[int]):
+        """Readmit a crashed process's stream off its journaled admission
+        record and delivered tokens, through the checkpoint machinery an
+        in-process resume takes: a greedy decoder-only stream recasts
+        (prompt + delivered prefilled), any other replays with the first
+        ``len(delivered)`` tokens suppressed and the seed pinned at its
+        admission.  Event-loop side; returns the iterator of the
+        continuation's chunks (the journaled prefix is the reconnect
+        route's to serve), or None when nothing is left to resume.  No
+        deadline: the original one passed while the process was down."""
+        st = _Stream(feats, asyncio.get_running_loop(), self.engine.budget_for(feats))
+        st.klass, _deadline = self.admission.classify(feats)
+        st.tokens = [int(t) for t in delivered]
+        st.produced = len(st.tokens)
+        j = self._journal()
+        if j is not None and st.rid and st.rid not in j.streams:
+            # A journal that never saw the rid: the continuation's cursor
+            # records need a base to extend.
+            j.admit(st.rid, feats, st.klass, st.budget)
+            j.tokens(st.rid, st.tokens)
+        if not self._checkpoint_for_resume(st):
+            return None
+        # The checkpoint's write-through copy on disk (a previous life's)
+        # rides the admission as the swap entry: ``_start_swapin``
+        # promotes it disk -> host -> device, any failure to the recompute
+        # resume.
+        d = getattr(self.engine, "kv_disk", None)
+        if self.paged and d is not None and d.enabled and st.rid:
+            entry = d.get(("stream", st.rid))
+            if entry is not None and entry.alive and entry.tokens <= int(st.feats["length"]):
+                st.swap = entry
+        st.kv = self.admission.kv_bytes_for_resume(st.feats, swap_tokens=self._swap_tokens(st))
+        aid = str(st.feats.get("adapter_id") or "")
+        if aid and self.adapters is not None:
+            st.adapter_slot = self.adapters.acquire(aid)
+        with self._admitted_lock:
+            self._admitted += 1
+        if self._flight is not None:
+            self._flight.event("resume_stream", rid=st.rid, klass=st.klass,
+                               budget=st.budget, skip=st.skip)
+        st.t_queued = time.monotonic()
+        self.queue.put(st, force=True)
+        self._ensure_thread()
+        return self._consumer_gen(st)
+
+    def _journal(self):
+        """The process's write-ahead journal (``JOURNAL_DIR``), else None;
+        read through the engine, whose rebuilds keep it."""
+        return getattr(self.engine, "journal", None)
+
+    def _disk_tier(self):
+        """The disk KV tier once its payload files are attached to the
+        pool leaves' layout (paged only), else None."""
+        if not self.paged:
+            return None
+        d = getattr(self.engine, "kv_disk", None)
+        if d is None or not d.enabled or d.pool.leaves is None:
+            return None
+        return d
+
+    def _journal_done(self, st: _Stream) -> None:
+        """The terminal record, exactly once, before the consumer can see
+        the end: the other order loses the race a kill runs against it
+        (the client saw the end, the journal still holds the stream
+        incomplete, and the restart runs it again)."""
+        if st.done_journaled:
+            return
+        j = self._journal()
+        if j is not None and st.rid:
+            j.done(st.rid)
+        st.done_journaled = True
 
     def _shed(self, reason: str) -> None:
         metrics.SHED.labels(self.model, reason).inc()
@@ -1073,6 +1171,7 @@ class ContinuousDecodeLoop:
         for st in self.queue.drain_all():
             self._finish(st, closed)
         for slot in list(self.active):
+            self._journal_done(self.active[slot])
             self.active[slot].emit(closed)
             self._free_slot(slot)
         self._inflight.clear()
@@ -1118,6 +1217,7 @@ class ContinuousDecodeLoop:
         n += self._fail_jobs(exc)
         self._staged_prep = None  # the slot frees below return every block
         for slot in list(self.active):
+            self._journal_done(self.active[slot])
             self.active[slot].emit(exc)
             self._free_slot(slot)
         self._inflight.clear()
@@ -1275,7 +1375,10 @@ class ContinuousDecodeLoop:
         """Exactly once per stream."""
         if not st.released:
             st.released = True
-            self._drop_swap(st)  # nothing resumes it now
+            # The terminal record (usually written at the emit site already)
+            # for a stream that ends with no terminal emission (cancelled).
+            self._journal_done(st)
+            self._drop_swap(st, disk_too=True)  # nothing resumes it now
             self.admission.release(st)
             if st.adapter_slot and self.adapters is not None:
                 # The LoRA pool's reference, dropped once, at the stream's
@@ -1299,6 +1402,7 @@ class ContinuousDecodeLoop:
         if st.blocks is not None:
             st.blocks.release()
             st.blocks = None
+        self._journal_done(st)
         st.emit(item)
         self._release(st)
 
@@ -1395,6 +1499,11 @@ class ContinuousDecodeLoop:
             return False
         st.started = True
         st.preempted += 1
+        # The checkpoint site's cursor: a crash between this checkpoint and
+        # its resume replays to the same continuation point.
+        j = self._journal()
+        if j is not None and st.rid:
+            j.checkpoint(st.rid)
         greedy = float(st.feats.get("temperature", 0.0)) == 0.0
         ids = np.asarray(st.feats["input_ids"], np.int32)[: int(st.feats["length"])]
         new_len = int(ids.size) + len(st.tokens)
@@ -1477,6 +1586,12 @@ class ContinuousDecodeLoop:
         if not arr.size:
             return
         st.tokens.extend(int(t) for t in arr.tolist())
+        # The write-ahead cursor: the journal learns of these tokens before
+        # the consumer can, so after a kill it covers everything a client
+        # received and the reconnect emits none twice.
+        j = self._journal()
+        if j is not None and st.rid:
+            j.tokens(st.rid, arr)
         st.emit(arr)
         self.tokens_emitted += int(arr.size)
         metrics.TOKENS.labels(self.model).inc(int(arr.size))
@@ -2116,6 +2231,7 @@ class ContinuousDecodeLoop:
                 # The host buffers, once the pool leaves' shapes are known.
                 self._ensure_host_pool(tier)
                 self._note_host_gauges()
+                self._attach_disk_tier(tier)
         self._capture_chunks()
 
     def _spec_slots(self, base):
@@ -2377,9 +2493,69 @@ class ContinuousDecodeLoop:
         """Build the tier's buffers, pinned on the card, off the pool
         leaves (the first build, at the slot state's allocation, pins them
         all before the service is ready)."""
-        return tier.ensure_pool(
-            [(tuple(x.shape[1:]), x.dtype) for x in self._pool_leaves()],
-            pin=self.engine.device.type == "cuda")
+        return tier.ensure_pool(self._leaf_specs(), pin=self.engine.device.type == "cuda")
+
+    def _leaf_specs(self) -> list:
+        """``[(per-block shape, dtype)]`` of the pool leaves."""
+        return [(tuple(x.shape[1:]), x.dtype) for x in self._pool_leaves()]
+
+    def _attach_disk_tier(self, tier) -> None:
+        """The disk rung under the host tier (KV_DISK_BUDGET_MB): its
+        payload files opened against the pool leaves' layout (a layout
+        that changed wipes the stale tier) and the host ledger's eviction
+        spilling to it."""
+        disk = getattr(self.engine, "kv_disk", None)
+        if disk is None or not disk.enabled or tier.ledger is None:
+            return
+        if disk.attach(self._leaf_specs()):
+            tier.ledger.spill = self._spill_host_entry
+            disk._note_gauges(self.model)
+        else:
+            log.warning("disk KV tier: leaf layout mismatch; tier disabled for this process")
+
+    def _spill_host_entry(self, entry) -> None:
+        """The host ledger's eviction hook: the victim's blocks go to the
+        disk tier before they die (host reads and memmap writes only,
+        under the host ledger's lock)."""
+        disk = self._disk_tier()
+        if disk is None or entry.key is None or entry.pool is None:
+            return
+        disk.put(entry.key, entry.tokens, entry.kind, entry.pool.read(entry.ids))
+        if self._flight is not None:
+            self._flight.event("disk_spill", entry=entry.kind, blocks=len(entry.ids))
+
+    def _is_disk_entry(self, entry) -> bool:
+        d = getattr(self.engine, "kv_disk", None)
+        return entry is not None and d is not None and entry.ledger is d.ledger
+
+    def _promote_disk_entry(self, entry, key):
+        """Disk -> host: a host entry of ``entry``'s blocks, read straight
+        into the host pool's buffers; None on any miss or pressure (the
+        caller takes its fallback)."""
+        d = self._disk_tier()
+        tier = self._host_tier()
+        if d is None or tier is None or entry is None or not entry.alive or not entry.ready:
+            return None
+        try:
+            if not self._ensure_host_pool(tier):
+                return None
+            # Hot on disk while the host reservation may spill a victim there.
+            d.ledger.touch(entry)
+            host = tier.reserve(len(entry.ids), entry.tokens, kind=entry.kind, key=key)
+            if host is None:
+                return None
+            d.pool.read_into(entry.ids, tier.pool, host.ids)
+            host.ready = True
+        except Exception:
+            log.exception("disk->host KV promotion failed")
+            return None
+        d.promotes += 1
+        self.swap_in_bytes += len(entry.ids) * self.pool.block_bytes
+        if self._flight is not None:
+            self._flight.event("disk_promote", entry=entry.kind, tokens=entry.tokens,
+                               blocks=len(entry.ids))
+        self._note_host_gauges()
+        return host
 
     def _pool_leaves(self) -> list[torch.Tensor]:
         """The paged pools in the host buffers' order: ``cache_k`` then
@@ -2393,15 +2569,24 @@ class ContinuousDecodeLoop:
         e = st.swap
         return e.tokens if e is not None and e.alive else None
 
-    def _drop_swap(self, st: _Stream) -> None:
+    def _drop_swap(self, st: _Stream, disk_too: bool = False) -> None:
         """Release a stream's host entry (it ended, fell back, went live or
-        is swapped out again), through the entry's own ledger."""
+        is swapped out again), through the entry's own ledger; at a
+        terminal end (``disk_too``) its disk copy too, which nothing will
+        resume now."""
         e = st.swap
         if e is not None:
             st.swap = None
             if e.ledger is not None:
                 e.ledger.release(e)
             self._note_host_gauges()
+        if disk_too and st.rid:
+            d = getattr(self.engine, "kv_disk", None)
+            if d is not None and d.enabled:
+                try:
+                    d.release_key(("stream", st.rid))
+                except Exception:
+                    log.exception("disk-tier release failed")
 
     def _note_host_gauges(self) -> None:
         tier = self._host_tier()
@@ -2478,7 +2663,10 @@ class ContinuousDecodeLoop:
         try:
             if not self._ensure_host_pool(tier):
                 return
-            entry = tier.reserve(nb, cov, kind="stream")
+            # Keyed by request id, so its disk write-through (and a restart's
+            # replay) finds it.
+            entry = tier.reserve(nb, cov, kind="stream",
+                                 key=("stream", st.rid) if st.rid else None)
             if entry is None:
                 return  # the tier cannot hold it even after eviction
             gathered, copy = self.engine.dispatch_guard(
@@ -2506,11 +2694,20 @@ class ContinuousDecodeLoop:
         if not self._swap_pending:
             return
         pending, self._swap_pending = self._swap_pending, []
+        disk = self._disk_tier()
         for entry, _gathered, copy, free_ids in pending:
             try:
                 if entry.alive:
-                    entry.pool.write(entry.ids, copy.tensors())
+                    vals = copy.tensors()
+                    entry.pool.write(entry.ids, vals)
                     entry.ready = True
+                    if disk is not None and entry.kind == "stream" and entry.key is not None:
+                        # Write-through: the resume KV now outlives the
+                        # process, and a restart prefetches it back.
+                        try:
+                            disk.put(entry.key, entry.tokens, "stream", vals)
+                        except Exception:
+                            log.exception("disk write-through failed (resume still host-served)")
             except Exception:
                 log.exception("KV swap-out copy failed")
                 if entry.ledger is not None:
@@ -2586,6 +2783,13 @@ class ContinuousDecodeLoop:
         tier = self._host_tier()
         self._drain_swapouts()  # the entry's copy may not have landed yet
         length = int(st.feats["length"])
+        if self._is_disk_entry(entry):
+            # The checkpoint's KV outlived a host eviction or the process:
+            # disk -> host first, then the host prefetch as for any swap.
+            if self._state is None or self._state_stale:
+                self._build_empty_state()
+            entry = self._promote_disk_entry(entry, ("stream", st.rid) if st.rid else None)
+            st.swap = entry
         partial_ok = (entry is not None and 0 < entry.tokens < length and bool(self.prefill_chunk)
                       and entry.tokens % self.block_size == 0)
         if (entry is None or tier is None or tier.pool is None or entry.pool is not tier.pool
@@ -2747,6 +2951,17 @@ class ContinuousDecodeLoop:
                 or self._state_stale):
             return None
         m = cache.host_lookup(row_ids, length, tier, usable=usable)
+        from_disk = False
+        if m is None:
+            # A prefix the host LRU spilled to disk comes back through the
+            # host tier.
+            disk = self._disk_tier()
+            if disk is not None:
+                m = cache.host_lookup(row_ids, length, disk, usable=usable)
+                if m is not None:
+                    host = self._promote_disk_entry(m[1], m[1].key)
+                    m = (m[0], host) if host is not None else None
+                    from_disk = m is not None
         if m is None:
             return None
         p_len, entry = m
@@ -2776,7 +2991,7 @@ class ContinuousDecodeLoop:
         metrics.KV_SWAP_BYTES.labels(self.model, "in").inc(nbytes)
         metrics.KV_HOST_PREFIX_HITS.labels(self.model).inc()
         if self._flight is not None:
-            self._flight.event("prefix_promote", p_len=p_len, blocks=nb, disk=False)
+            self._flight.event("prefix_promote", p_len=p_len, blocks=nb, disk=from_disk)
         return p_len, pp
 
     # -- decode chunks and windows ---------------------------------------
@@ -3177,5 +3392,6 @@ class ContinuousDecodeLoop:
                 self._emit_tokens(st, toks_np[slot])
                 st.produced += self.chunk
             if bool(done_np[slot]) or st.produced >= st.budget:
+                self._journal_done(st)
                 st.emit(_END)
                 self._free_slot(slot)

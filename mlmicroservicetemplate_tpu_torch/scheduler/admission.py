@@ -19,6 +19,8 @@ submit time:
   first chunk's (``kv_blocks_estimate``), and grows block by block.
 - **Drain**: once ``draining`` is set (SIGTERM), every admission sheds
   with 503 ``drain``.
+- **Backfill**: ``backfill_ok`` tells the bulk-job executor whether to
+  claim a line now (not while draining, not with the KV ledger full).
 
 One controller serves the batcher's request queue and the continuous
 loop's stream queue, so its ledger covers both.  Tenant quotas and the
@@ -145,6 +147,21 @@ class AdmissionController:
         if tr is not None:
             tr.add("downclass", cat="sched", rid=str(feats.get("request_id") or ""), dur=0.0,
                    why=why)
+
+    def backfill_ok(self) -> bool:
+        """The bulk-job executor's advisory gate before it claims a line
+        (``jobs/executor.py``): False while draining or while the KV ledger
+        has no headroom at all, so the claim waits instead of bouncing off
+        ``admit`` as a metered shed (backfill must not pollute the shed
+        counters an operator alerts on)."""
+        if self.draining:
+            return False
+        if self.paged and self.pool is not None:
+            return self.pool.free_blocks > 0
+        if self.kv_budget_bytes:
+            with self._lock:
+                return self._committed < self.kv_budget_bytes
+        return True
 
     def fits(self, item) -> bool:
         """The dequeue gate: may this waiter's reservation commit now?

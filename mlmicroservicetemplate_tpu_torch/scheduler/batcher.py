@@ -34,6 +34,16 @@ adapters of another architecture, as in the JAX package); a stream with an
 ``adapter_id`` serves only through the loop, and the per-stream path sheds
 it with reason ``adapter_pool``.  The whole (non-streamed) path generates
 with the base model, as the reference's does.
+
+Durable serving (``JOURNAL_DIR``, a generative model): the batcher builds
+one ``StreamJournal`` a process and hands it to the engine, where the
+loop's hooks find it; a unary request whose client-supplied
+``X-Request-Id`` has a journaled result is answered from it with no
+dispatch, and each such result is journaled as it lands;
+``resume_stream`` hands a journal replay's streams to the loop.  Under
+``JOBS_ENABLED`` it builds the bulk-job ``JobManager`` (``jobs/``), whose
+governor reads ``interactive_load``.  ``stop()`` stops the jobs first and
+closes the journal and the disk tier last.
 """
 
 from __future__ import annotations
@@ -101,6 +111,17 @@ class Batcher:
         self._inflight: set[asyncio.Task] = set()
         self._closed = False
         self._cdl = None
+        # One write-ahead journal a process (JOURNAL_DIR), on the engine
+        # where the loop's hooks find it.  Unset: no journal object exists.
+        self._owns_journal = False
+        jdir = getattr(cfg, "journal_dir", None)
+        if (jdir and getattr(engine.bundle, "kind", None) == KIND_SEQ2SEQ
+                and getattr(engine, "journal", None) is None):
+            from ..runtime.durability import StreamJournal
+
+            engine.journal = StreamJournal(jdir, fsync=getattr(cfg, "journal_fsync", "always"),
+                                           model=engine.bundle.name)
+            self._owns_journal = True
         # Supervised crash recovery (SUPERVISE, engine/supervisor.py): the
         # continuous loop's restart budget; /readyz reads its ``failed``.
         self.supervisor = None
@@ -150,6 +171,13 @@ class Batcher:
             engine.adapters = pool
             if self._cdl is not None:
                 self._cdl.adapters = pool
+        # The bulk-job lane (JOBS_ENABLED): its store under JOURNAL_DIR/jobs
+        # and the executor that backfills its lines.  Unset: no job code.
+        self.jobs = None
+        if getattr(cfg, "jobs_enabled", False):
+            from ..jobs.executor import JobManager
+
+            self.jobs = JobManager(engine, self, cfg)
 
     async def start(self) -> None:
         if self._task is None:
@@ -159,6 +187,9 @@ class Batcher:
         """Stop admitting, finish everything queued and in flight, and
         join the dispatch threads."""
         self._closed = True
+        if self.jobs is not None:
+            # The executor submits into this batcher: it stops first.
+            await self.jobs.stop()
         if self._task is not None:
             self._wake.set()
             await self._task
@@ -172,6 +203,29 @@ class Batcher:
             # Each per-stream worker stops at its next chunk once its
             # consumer is gone.
             self._stream_executor.shutdown(wait=False)
+        if self._owns_journal:
+            for part in (getattr(self.engine, "journal", None),
+                         getattr(self.engine, "kv_disk", None)):
+                if part is not None:
+                    part.close()
+
+    def interactive_load(self) -> tuple[bool, bool]:
+        """(interactive decode live, interactive work waiting): the bulk-job
+        governor's claim signal."""
+        if self._cdl is not None:
+            return self._cdl.interactive_load()
+        return self._active_streams > 0, False
+
+    def resume_stream(self, feats: dict, delivered: list[int]):
+        """A journal replay's stream, to the continuous loop: its
+        continuation's iterator, or None when its budget was delivered
+        already.  RuntimeError without the loop (CONTINUOUS_BATCHING=0)."""
+        if self._cdl is None:
+            raise RuntimeError(
+                "journal replay needs the continuous decode loop "
+                "(CONTINUOUS_BATCHING=1)"
+            )
+        return self._cdl.resume_stream(feats, delivered)
 
     @property
     def default_deadline_ms(self) -> float:
@@ -393,6 +447,16 @@ class Batcher:
         ``DeadlineExceededError`` (504)."""
         if self._closed:
             raise RuntimeError("batcher is stopped")
+        # A client-supplied X-Request-Id whose result was journaled (before
+        # a crash, say) is answered from the journal: a lookup, not a
+        # recompute, and never another completion.  Minted ids never
+        # repeat, so the API marks only the client's (``rid_client``).
+        j = getattr(self.engine, "journal", None)
+        rid = str(feats.get("request_id") or "")
+        if j is not None and rid and feats.get("rid_client"):
+            cached = j.lookup_result(rid)
+            if cached is not None:
+                return np.asarray(cached, np.int32)
         klass, deadline = self.admission.classify(feats)
         try:
             klass, kv = self.admission.admit(feats, klass)
@@ -524,7 +588,15 @@ class Batcher:
         dt = time.monotonic() - t0
         self._batch_ewma_s = 0.8 * self._batch_ewma_s + 0.2 * dt
         metrics.DEVICE_TIME.labels(self.model).observe(dt)
+        j = getattr(self.engine, "journal", None)
         for item, row in zip(batch, rows):
+            if j is not None and item.feats.get("rid_client"):
+                rid = str(item.feats.get("request_id") or "")
+                arr = np.asarray(row)
+                if rid and np.issubdtype(arr.dtype, np.integer):
+                    # Journaled for X-Request-Id dedup (token rows: the
+                    # generative unary path).
+                    j.result(rid, arr)
             if not item.future.done():
                 item.future.set_result(row)
 

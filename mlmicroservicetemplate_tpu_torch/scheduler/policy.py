@@ -19,10 +19,10 @@ the continuous decode loop's stream queue.
 
 ``PrefillPacer`` paces chunked prefill's windows against live decode,
 ``DecodeWindowGovernor`` picks the loop's fused decode window (both write
-their decisions to the engine's flight recorder, ``recorder``), and
-``SLOTracker`` turns the loop's TTFT and TBT samples into SLO burn rates.
-Fair share across tenants, the backfill and scaling governors are not
-ported.
+their decisions to the engine's flight recorder, ``recorder``),
+``BackfillGovernor`` caps a bulk job's lines in flight, and ``SLOTracker``
+turns the loop's TTFT and TBT samples into SLO burn rates.  Fair share
+across tenants and the scaling governor are not ported.
 """
 
 from __future__ import annotations
@@ -135,6 +135,26 @@ class DecodeWindowGovernor:
             return 1
         w = min(self.cap, int(max_chunks))
         return 1 << (w.bit_length() - 1)
+
+
+class BackfillGovernor:
+    """How many lines of a bulk job may be in flight now
+    (``JOB_MAX_CONCURRENT_LINES``; ``jobs/executor.py``).  Lines are
+    batch-class streams, so once admitted the class weights and
+    preemption protect interactive work; this bounds how hard the executor
+    pushes on admission: the whole cap with no interactive work anywhere,
+    half of it while interactive streams decode, one line while
+    interactive work waits."""
+
+    def __init__(self, cap: int):
+        self.cap = max(1, int(cap))
+
+    def target(self, interactive_live: bool, interactive_waiting: bool) -> int:
+        if interactive_waiting:
+            return 1
+        if interactive_live:
+            return max(1, self.cap // 2)
+        return self.cap
 
 
 class SLOTracker:

@@ -10,6 +10,8 @@ Boots from env vars with optional CLI overrides, e.g.::
         --model bert-long
     DEVICE=cpu MODEL_NAME=bert-base python -m mlmicroservicetemplate_tpu_torch.serve
     SERVER_URL=http://parent:9000 python -m mlmicroservicetemplate_tpu_torch
+    PAGED_KV=1 KV_HOST_BUDGET_MB=512 KV_DISK_BUDGET_MB=4096 JOBS_ENABLED=1 \
+        python -m mlmicroservicetemplate_tpu_torch.serve --model llama --journal-dir /var/journal
 
 ``build_service`` assembles everything but the HTTP layer, so it needs no
 aiohttp; ``main`` adds the aiohttp app and serves until SIGTERM/SIGINT.
@@ -39,6 +41,8 @@ def parse_args(argv: list[str] | None = None) -> dict:
                    help="parent server to register with (POST <url>/register)")
     p.add_argument("--max-batch", dest="MAX_BATCH")
     p.add_argument("--batch-timeout-ms", dest="BATCH_TIMEOUT_MS")
+    p.add_argument("--journal-dir", dest="JOURNAL_DIR",
+                   help="crash-safe stream journal directory (JOURNAL_DIR)")
     p.add_argument("--no-warmup", action="store_true")
     args = p.parse_args(argv)
     overrides = {k: str(v) for k, v in vars(args).items() if v is not None and k != "no_warmup"}
@@ -121,6 +125,20 @@ def main(argv: list[str] | None = None) -> None:
         "serving %s on %s:%d (device=%s, max_batch=%d)",
         bundle.name, cfg.host, cfg.port, cfg.device, cfg.max_batch,
     )
+    if cfg.journal_dir:
+        # The startup replay (api/app.py) readmits every incomplete
+        # journaled stream once the model is ready.
+        logging.getLogger("serve").info(
+            "durability: write-ahead journal at %s (fsync=%s, disk KV tier=%s)",
+            cfg.journal_dir, cfg.journal_fsync,
+            f"{cfg.kv_disk_budget_mb:g}MB" if cfg.kv_disk_budget_mb else "off",
+        )
+    if cfg.jobs_enabled:
+        logging.getLogger("serve").info(
+            "bulk jobs: /v1/batches enabled (store=%s/jobs, max_concurrent_lines=%d, "
+            "result_ttl=%gs)",
+            cfg.journal_dir, cfg.job_max_concurrent_lines, cfg.job_result_ttl_s,
+        )
     asyncio.run(_serve_until_signalled(app, cfg, cfg.drain_grace_s))
 
 

@@ -3,7 +3,8 @@
 Holds the fields the ResNet-50, BERT-base, bert-long, llama, GPT-2 and
 T5-small paths, chat, the scheduler's priority classes, KV budget and
 preemption, the prompt prefix, the prefix cache, chunked prefill, the
-host KV tier, fused decode windows, speculative decoding, the decode
+host KV tier, the journal, the disk KV tier and the bulk-job lane, fused
+decode windows, speculative decoding, the decode
 kernel's autotuner, fault injection, the dispatch watchdog, the engine
 supervisor, observability (the flight recorder, the perf observatory, SLO
 objectives, JSON logs, the lock-order detector and the profiler's
@@ -202,6 +203,22 @@ class ServiceConfig:
     # decode (as many for each resuming stream when none does).
     kv_host_budget_mb: float = 0.0
     kv_prefetch_blocks: int = 4
+    # Durable serving (runtime/durability.py): the write-ahead stream
+    # journal's directory (unset: no journal, no disk tier, no jobs), its
+    # fsync policy ("always" a record, "interval" at most every 50 ms,
+    # "off"), and the disk KV tier under the host tier (MB under
+    # JOURNAL_DIR/kv_disk; 0 = off; needs PAGED_KV, KV_HOST_BUDGET_MB and
+    # JOURNAL_DIR).
+    journal_dir: str | None = None
+    journal_fsync: str = "always"
+    kv_disk_budget_mb: float = 0.0
+    # The /v1/batches bulk-job lane (jobs/): durable jobs under
+    # JOURNAL_DIR/jobs whose lines backfill idle compute as batch-class
+    # streams, at most job_max_concurrent_lines of a job in flight; a
+    # finished job's results stay job_result_ttl_s seconds (0 = forever).
+    jobs_enabled: bool = False
+    job_max_concurrent_lines: int = 4
+    job_result_ttl_s: float = 3600.0
     # Fused decode windows (gpt2, llama; the continuous loop): up to
     # decode_window chunks dispatched back to back and fetched once, so the
     # host dispatches and fetches once a window instead of once a chunk.
@@ -349,6 +366,17 @@ class ServiceConfig:
             raise ValueError("KV_BLOCK_SIZE must be in [1, 1024]")
         if not self.kv_host_budget_mb >= 0:  # also NaN
             raise ValueError("KV_HOST_BUDGET_MB must be >= 0")
+        if not self.kv_disk_budget_mb >= 0:  # also NaN
+            raise ValueError("KV_DISK_BUDGET_MB must be >= 0")
+        fsync = self.journal_fsync.lower()
+        if fsync not in ("always", "interval", "off"):
+            raise ValueError(
+                f"JOURNAL_FSYNC must be 'always', 'interval' or 'off', got {fsync!r}")
+        object.__setattr__(self, "journal_fsync", fsync)
+        if not 1 <= self.job_max_concurrent_lines <= 256:
+            raise ValueError("JOB_MAX_CONCURRENT_LINES must be in [1, 256]")
+        if not self.job_result_ttl_s >= 0:
+            raise ValueError("JOB_RESULT_TTL_S must be >= 0")
         if not 1 <= self.kv_prefetch_blocks <= 4096:
             raise ValueError("KV_PREFETCH_BLOCKS must be in [1, 4096]")
         if not 1 <= self.decode_window <= 64:
@@ -430,28 +458,17 @@ def _flag(v: str) -> bool:
     return v.lower() not in ("0", "false", "no")
 
 
-_OFF = ("0", "false", "no")
-_ON = ("1", "true", "yes")
-
 # Knobs of the JAX package this port does not serve yet, with the values
 # that leave them off (for a knob read only under another one, its JAX
 # default).  Setting one to any other value raises instead of serving
 # without it.
 UNPORTED_KNOBS = {
     "TP": ("0", "1"),
-    # The continuous loop has no disk KV tier under its host tier and no
-    # journal yet.
-    "KV_DISK_BUDGET_MB": ("0",),
-    "JOURNAL_DIR": (),
-    "JOURNAL_FSYNC": ("always",),
     "TENANTS": (),
     "TENANTS_FILE": (),
     "TENANT_DEFAULT_WEIGHT": ("1",),
     "TENANT_WINDOW_S": ("60",),
     "TENANT_METRICS_TOPK": ("8",),
-    "JOBS_ENABLED": _OFF,
-    "JOB_MAX_CONCURRENT_LINES": ("4",),
-    "JOB_RESULT_TTL_S": ("3600",),
     # Data-parallel replicas over several cards (ReplicaSet) and bert-long's
     # 2-D ('replica', 'sp') mesh; the fleet router and its autoscaler.
     "REPLICAS": ("0", "1"),
@@ -522,7 +539,9 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
     DRAIN_GRACE_S, WARMUP_SAMPLING, ADMIT_GRACE_MS, CHAT_TEMPLATE, PRIORITY_DEFAULT,
     CLASS_WEIGHT, KV_BUDGET_MB, MAX_STREAM_QUEUE, PREEMPT, PROMPT_PREFIX,
     PREFIX_CACHE, PREFIX_CACHE_MB, PREFILL_CHUNK, PREFILL_BUDGET,
-    PREFILL_MAX_PROMPT, KV_HOST_BUDGET_MB, KV_PREFETCH_BLOCKS, DECODE_WINDOW,
+    PREFILL_MAX_PROMPT, KV_HOST_BUDGET_MB, KV_PREFETCH_BLOCKS, JOURNAL_DIR,
+    JOURNAL_FSYNC, KV_DISK_BUDGET_MB, JOBS_ENABLED, JOB_MAX_CONCURRENT_LINES,
+    JOB_RESULT_TTL_S, DECODE_WINDOW,
     DECODE_WINDOW_AUTO, STREAM_PIPELINE, HOST_PREP_DOUBLE, ADMIT_OVERLAP, SPEC_DECODE,
     SPEC_K, SPEC_NGRAM, SPEC_MAX_STREAMS, SPEC_SAMPLED, SPEC_CONTINUOUS, QUANTIZE,
     ADAPTER_DIR, ADAPTER_SLOTS, PALLAS_AUTOTUNE, PALLAS_VARIANT, PALLAS_TUNE_TABLE,
@@ -562,7 +581,8 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
         ("adapter_dir", "ADAPTER_DIR"), ("pallas_variant", "PALLAS_VARIANT"),
         ("pallas_tune_table", "PALLAS_TUNE_TABLE"), ("fault_spec", "FAULT_SPEC"),
         ("log_format", "LOG_FORMAT"), ("latency_buckets", "LATENCY_BUCKETS"),
-        ("slo_windows_s", "SLO_WINDOWS_S"),
+        ("slo_windows_s", "SLO_WINDOWS_S"), ("journal_dir", "JOURNAL_DIR"),
+        ("journal_fsync", "JOURNAL_FSYNC"),
     ):
         v = get(var)
         if v is not None:
@@ -584,7 +604,8 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
                        ("pallas_autotune_iters", "PALLAS_AUTOTUNE_ITERS"),
                        ("fault_seed", "FAULT_SEED"), ("dispatch_retries", "DISPATCH_RETRIES"),
                        ("engine_restarts_max", "ENGINE_RESTARTS_MAX"),
-                       ("flight_ring", "FLIGHT_RING")):
+                       ("flight_ring", "FLIGHT_RING"),
+                       ("job_max_concurrent_lines", "JOB_MAX_CONCURRENT_LINES")):
         v = get(var)
         if v is not None:
             kwargs[field] = int(v)
@@ -593,6 +614,8 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
                        ("register_heartbeat_s", "REGISTER_HEARTBEAT_S"),
                        ("kv_budget_mb", "KV_BUDGET_MB"), ("prefix_cache_mb", "PREFIX_CACHE_MB"),
                        ("kv_host_budget_mb", "KV_HOST_BUDGET_MB"),
+                       ("kv_disk_budget_mb", "KV_DISK_BUDGET_MB"),
+                       ("job_result_ttl_s", "JOB_RESULT_TTL_S"),
                        ("dispatch_timeout_s", "DISPATCH_TIMEOUT_S"),
                        ("dispatch_backoff_s", "DISPATCH_BACKOFF_S"),
                        ("engine_restart_window_s", "ENGINE_RESTART_WINDOW_S"),
@@ -618,7 +641,7 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
                        ("admit_overlap", "ADMIT_OVERLAP"), ("spec_sampled", "SPEC_SAMPLED"),
                        ("spec_continuous", "SPEC_CONTINUOUS"),
                        ("pallas_autotune", "PALLAS_AUTOTUNE"), ("supervise", "SUPERVISE"),
-                       ("perf_obs", "PERF_OBS")):
+                       ("perf_obs", "PERF_OBS"), ("jobs_enabled", "JOBS_ENABLED")):
         v = get(var)
         if v is not None:
             kwargs[field] = _flag(v)

@@ -14,7 +14,8 @@ pool's slots by state; the decode-kernel autotuner's decisions; the
 supervisor's engine rebuilds, watchdog retries and timeouts, and the
 streams a fault recovered or lost; the perf observatory's device busy
 and bubble seconds, modeled FLOPs by graph kind and MFU estimate, and
-the SLO tracker's burn rates.  ``LATENCY_BUCKETS`` (comma-separated
+the SLO tracker's burn rates; the journal's records, replays and fsync
+seconds, the disk KV tier's blocks, and the bulk jobs and their lines.  ``LATENCY_BUCKETS`` (comma-separated
 ascending seconds) replaces the latency histograms' default edges.
 The series live in this package's own
 registry, so a process that also imports the JAX package registers no
@@ -214,6 +215,49 @@ KV_HOST_PREFIX_HITS = Counter(
     "demoted under device-budget pressure and promoted back on match",
     ["model"], registry=REGISTRY,
 )
+JOURNAL_RECORDS = Counter(
+    "journal_records_total",
+    "Write-ahead stream-journal records appended, by kind (admit = "
+    "stream admission, tokens = delivered-token cursor delta, done = "
+    "terminal, result = unary /predict completion for X-Request-Id "
+    "dedup)",
+    ["model", "kind"], registry=REGISTRY,
+)
+JOURNAL_REPLAY = Counter(
+    "journal_replay_streams_total",
+    "Journaled streams processed at startup replay, by outcome "
+    "(resumed = re-admitted for token-identical continuation, "
+    "complete = already finished before the crash, failed = could not "
+    "re-admit)",
+    ["model", "outcome"], registry=REGISTRY,
+)
+JOBS_ACTIVE = Gauge(
+    "jobs_active",
+    "Bulk /v1/batches jobs with a live executor task (JOBS_ENABLED; "
+    "their lines backfill idle compute as batch-class streams)",
+    ["model"], registry=REGISTRY,
+)
+JOB_LINES = Counter(
+    "job_lines_total",
+    "Bulk job lines reaching a terminal state (completed = result "
+    "journaled write-ahead to JOURNAL_DIR/jobs, failed = the error "
+    "became the recorded result, cancelled = unfinished at job cancel)",
+    ["model", "state"], registry=REGISTRY,
+)
+JOB_REPLAYS = Counter(
+    "job_replays_total",
+    "Jobs processed at startup replay, by outcome (resumed = "
+    "re-admitted from the last completed line, complete = every line "
+    "finished before the kill, failed = could not re-admit)",
+    ["model", "outcome"], registry=REGISTRY,
+)
+KV_DISK_POOL_BLOCKS = Gauge(
+    "kv_disk_pool_blocks",
+    "Disk KV tier blocks by state (KV_DISK_BUDGET_MB; used = spilled "
+    "stream checkpoints + demoted prefix entries persisted under "
+    "JOURNAL_DIR/kv_disk)",
+    ["model", "state"], registry=REGISTRY,
+)
 CHAIN_DEPTH = Gauge(
     "stream_chain_depth",
     "Chunk-chain pipelining depth the continuous decode loop runs at "
@@ -248,6 +292,13 @@ TBT = Histogram(
     "stream_tbt_seconds",
     "Streaming inter-chunk delivery gap (time between consecutive token-chunk "
     "deliveries to one stream after its first chunk)",
+    ["model"], buckets=_FINE_BUCKETS, registry=REGISTRY,
+)
+JOURNAL_FSYNC = Histogram(
+    "journal_fsync_seconds",
+    "Wall time per journal fsync (JOURNAL_FSYNC=always pays one per "
+    "record on the delivery path; interval amortizes; off never "
+    "observes here)",
     ["model"], buckets=_FINE_BUCKETS, registry=REGISTRY,
 )
 WARM_SECONDS = Histogram(

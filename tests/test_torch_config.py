@@ -253,7 +253,7 @@ NON_DEFAULT = {
     "DEADLINE_MS": "250", "CLASS_WEIGHT": "2", "KV_BUDGET_MB": "64",
     "MAX_STREAM_QUEUE": "4", "PREEMPT": "0", "DRAIN_GRACE_S": "5", "PAGED_KV": "1",
     "KV_BLOCK_SIZE": "32", "KV_HOST_BUDGET_MB": "128", "KV_DISK_BUDGET_MB": "128",
-    "JOURNAL_DIR": "/journal", "JOURNAL_FSYNC": "never", "KV_PREFETCH_BLOCKS": "2",
+    "JOURNAL_DIR": "/journal", "JOURNAL_FSYNC": "interval", "KV_PREFETCH_BLOCKS": "2",
     "JOBS_ENABLED": "1", "JOB_MAX_CONCURRENT_LINES": "2", "JOB_RESULT_TTL_S": "60",
     "TENANTS": "a:1", "TENANTS_FILE": "/tenants.json", "TENANT_DEFAULT_WEIGHT": "2",
     "TENANT_WINDOW_S": "30", "TENANT_METRICS_TOPK": "4", "ADAPTER_DIR": "/adapters",
@@ -558,12 +558,50 @@ def test_host_tier_knobs_are_validated_with_the_jax_messages(name, value):
 
 @pytest.mark.parametrize("name,value", [("KV_DISK_BUDGET_MB", "128"), ("JOURNAL_DIR", "/journal")])
 def test_disk_tier_and_journal_still_raise_not_ported(name, value):
-    """The disk rung under the host tier and the journal it lives in wait
-    for their slice: set, with or without the host tier, they raise."""
+    """The disk rung under the host tier and the journal it lives in, set
+    with or without the host tier, are read as the JAX package reads them
+    (the name is kept from when they were refused); the disk tier's
+    missing stack is refused when the engine is built
+    (``tests/test_torch_durability.py``)."""
+    field = name.lower()
     for extra in ({}, {"PAGED_KV": "1", "KV_HOST_BUDGET_MB": "64"}):
-        with pytest.raises(ValueError, match=f"{name}.*not ported"):
-            load_config({"DEVICE": "cpu", name: value, **extra})
+        env = {"DEVICE": "cpu", name: value, **extra}
+        assert getattr(load_config(env), field) == getattr(jax_load_config(env), field)
     assert load_config({"DEVICE": "cpu", "KV_DISK_BUDGET_MB": "0"}).device == "cpu"
+
+
+DURABLE_FIELDS = ("journal_dir", "journal_fsync", "kv_disk_budget_mb", "jobs_enabled",
+                  "job_max_concurrent_lines", "job_result_ttl_s")
+
+
+@pytest.mark.parametrize("env", [
+    {}, {"JOURNAL_DIR": "/j", "JOURNAL_FSYNC": "INTERVAL", "KV_DISK_BUDGET_MB": "0.5"},
+    {"JOURNAL_FSYNC": "off", "JOBS_ENABLED": "1", "JOB_MAX_CONCURRENT_LINES": "256",
+     "JOB_RESULT_TTL_S": "0"},
+    {"JOBS_ENABLED": "no", "JOB_MAX_CONCURRENT_LINES": "1", "JOB_RESULT_TTL_S": "0.5"},
+])
+def test_durability_and_job_knobs_are_read_like_jax(env):
+    """The six knobs under the JAX names, with its defaults (no journal,
+    fsync always, no disk tier, jobs off, 4 lines, a TTL of 3600 s)."""
+    port, ref = load_config({"DEVICE": "cpu", **env}), jax_load_config({"DEVICE": "cpu", **env})
+    assert [getattr(port, f) for f in DURABLE_FIELDS] == [getattr(ref, f) for f in DURABLE_FIELDS]
+    if not env:
+        assert [getattr(port, f) for f in DURABLE_FIELDS] == [None, "always", 0.0, False, 4,
+                                                              3600.0]
+
+
+@pytest.mark.parametrize("name,value", [
+    ("JOURNAL_FSYNC", "never"), ("KV_DISK_BUDGET_MB", "-1"), ("JOB_MAX_CONCURRENT_LINES", "0"),
+    ("JOB_MAX_CONCURRENT_LINES", "257"), ("JOB_RESULT_TTL_S", "-1"), ("KV_DISK_BUDGET_MB", "nan"),
+])
+def test_durability_and_job_knobs_are_validated_with_the_jax_messages(name, value):
+    if value != "nan":
+        with pytest.raises(ValueError) as want:
+            jax_load_config({"DEVICE": "cpu", name: value})
+    with pytest.raises(ValueError, match=name) as got:
+        load_config({"DEVICE": "cpu", name: value})
+    if value != "nan":
+        assert str(got.value) in str(want.value)
 
 
 SPEC_FIELDS = ("spec_decode", "spec_k", "spec_ngram", "spec_max_streams", "spec_sampled",

@@ -387,7 +387,22 @@ HTTP_SERVE = dict(batch_buckets=(1, 4), seq_buckets=(16, 32), max_decode_len=10,
                   stream_chunk_tokens=4, max_streams=2, max_stream_queue=2, kv_budget_mb=8.0)
 
 
-async def _http(app, posts):
+def _count_idle_pops(loop) -> list:
+    """Count the loop's queue pops: once every response is in, no stream
+    arrives, so a pop is the loop's idle wait at an iteration top."""
+    calls = [0]
+    pop = loop.queue.pop
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return pop(*a, **kw)
+
+    loop.queue.pop = counted
+    return calls
+
+
+async def _http(app, posts, loop=None):
+    calls = None if loop is None else _count_idle_pops(loop)
     client = TestClient(TestServer(app))
     await client.start_server()
     try:
@@ -399,6 +414,17 @@ async def _http(app, posts):
         for path, body, headers in posts:
             resp = await client.post(path, json=body, headers=headers)
             out.append((resp.status, await resp.text()))
+        if calls is not None:
+            # A stream's end reaches its client before the loop releases its
+            # KV commitment (``_finish``: emit, then release): under load
+            # /status can land in between.  Settle both loops by waiting for
+            # two idle pops to start after the last response, so the
+            # iteration that ended the last stream has run to its end.
+            seen = calls[0]
+            for _ in range(400):
+                if calls[0] >= seen + 2:
+                    break
+                await asyncio.sleep(0.025)
         status = await (await client.get("/status")).json()
         return out, status["scheduler"]
     finally:
@@ -429,10 +455,12 @@ def test_batch_priority_over_http_like_jax():
         ("/predict", {"text": "hi"}, {"X-Priority": "Batch", "X-Request-Id": "r3"}),
         ("/predict", {"text": "hi"}, {"X-Priority": "urgent", "X-Request-Id": "r4"}),
     ]
+    jbatcher = JaxBatcher(jengine, jcfg)
     want, jsched = asyncio.run(_http(
-        jax_build_app(jcfg, jbundle, jengine, JaxBatcher(jengine, jcfg)), posts))
+        jax_build_app(jcfg, jbundle, jengine, jbatcher), posts, jbatcher._cdl))
     batcher = Batcher(engine, cfg)
-    got, sched = asyncio.run(_http(build_app(cfg, bundle, engine, batcher), posts))
+    got, sched = asyncio.run(_http(build_app(cfg, bundle, engine, batcher), posts,
+                                   batcher._cdl))
     assert [s for s, _ in got] == [s for s, _ in want] == [200] * 5 + [400]
     for (path, body, _), (_, g), (_, w) in zip(posts[:5], got, want):
         assert _comparable(path, body, g) == _comparable(path, body, w)

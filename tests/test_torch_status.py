@@ -9,8 +9,10 @@ slots, each installed once), whose ``tenancy`` section is compared whole.
 Compared: the key sets, section by section, and every value that does not
 depend on the clock.  Left out, by name:
 
-- sections of features the port does not serve yet: ``fleet``,
-  ``durability`` (the journal), ``jobs``;
+- sections of features the port does not serve yet: ``fleet``;
+- ``durability`` and ``jobs`` (under ``JOURNAL_DIR`` and
+  ``JOBS_ENABLED``, each app on its own directory): compared key by key
+  with the directory entries set aside;
 - keys only the port serves: ``device_name``, ``dispatches``,
   ``decode_steps`` and ``scheduler.pending``;
 - values measured by the clock (``uptime_s``, the ``compile`` section's,
@@ -56,7 +58,9 @@ from mlmicroservicetemplate_tpu_torch.models import bert as port_bert
 from mlmicroservicetemplate_tpu_torch.ops import autotune as port_autotune
 from mlmicroservicetemplate_tpu_torch.serve import build_service
 
-NOT_PORTED = {"fleet", "durability", "jobs"}
+NOT_PORTED = {"fleet"}
+# Sections holding the journal directory, which differs between the apps.
+WITH_DIRS = {"durability", "jobs"}
 PORT_ONLY = {"device_name", "dispatches", "decode_steps"}
 MEASURED = {"uptime_s", "compile"}
 # The perf section's values the clock or the FLOP mechanism decides.
@@ -118,7 +122,21 @@ CASES = {
                                          "stream": True}, {"X-Adapter": "beta"}),
                     ("/predict", {"text": "hello there", "max_tokens": 8, "stream": True},
                      {})]),
+    # JOURNAL_DIR (one per app) with the disk tier and the job lane: a
+    # journaled stream and a journaled unary result.
+    "llama-durable": ({"PAGED_KV": "1", "KV_BLOCK_SIZE": "8", "KV_HOST_BUDGET_MB": "1",
+                       "KV_DISK_BUDGET_MB": "1", "JOURNAL_DIR": None, "JOBS_ENABLED": "1"},
+                      [("/predict", {"text": "hello there", "max_tokens": 16, "stream": True},
+                        {"X-Request-Id": "s-1"}),
+                       ("/predict", {"text": "hello", "max_tokens": 4},
+                        {"X-Request-Id": "u-1"})]),
 }
+
+
+def _no_dirs(section: dict) -> dict:
+    """A section with its directory entries (``dir``, at any depth) left out."""
+    return {k: _no_dirs(v) if isinstance(v, dict) else v
+            for k, v in section.items() if k != "dir"}
 
 
 async def _status(app, posts) -> dict:
@@ -162,7 +180,7 @@ def _settle_ready(jloop) -> None:
     jloop._deliver_ready = ready
 
 
-def _apps(model: str, extra: dict):
+def _apps(model: str, extra: dict, port_extra: dict | None = None):
     env = {"DEVICE": "cpu", "MODEL_NAME": model, "WARMUP": "0", **SERVE, **extra}
     with _small(model):
         if model == "llama":
@@ -173,7 +191,7 @@ def _apps(model: str, extra: dict):
         if jbatcher._cdl is not None:
             _settle_ready(jbatcher._cdl)
         cfg, bundle, engine, batcher = build_service(
-            env, params=jax.tree.map(np.asarray, jbundle.params))
+            {**env, **(port_extra or {})}, params=jax.tree.map(np.asarray, jbundle.params))
     return (jax_build_app(jcfg, jbundle, jengine, jbatcher),
             build_app(cfg, bundle, engine, batcher))
 
@@ -186,12 +204,24 @@ def test_status_has_the_jax_apps_keys_and_values(case, tmp_path):
     extra, posts = CASES[case]
     if "ADAPTER_DIR" in extra:
         extra = {**extra, "ADAPTER_DIR": write_adapters(tmp_path, "llama", LLAMA)}
-    japp, app = _apps(model, extra)
+    port_extra = None
+    if "JOURNAL_DIR" in extra:
+        extra = {**extra, "JOURNAL_DIR": str(tmp_path / "jax")}
+        port_extra = {"JOURNAL_DIR": str(tmp_path / "port")}
+    japp, app = _apps(model, extra, port_extra)
     want = asyncio.run(_status(japp, posts))
     got = asyncio.run(_status(app, posts))
     assert set(got) - PORT_ONLY == set(want) - NOT_PORTED
-    for key in set(want) - NOT_PORTED - MEASURED - {"scheduler", "decode", "perf"}:
+    for key in set(want) - NOT_PORTED - MEASURED - WITH_DIRS - {"scheduler", "decode", "perf"}:
         assert got[key] == want[key], key
+    assert (WITH_DIRS <= set(got)) == (WITH_DIRS <= set(want)) == (case == "llama-durable")
+    for key in WITH_DIRS & set(want):
+        assert _no_dirs(got[key]) == _no_dirs(want[key]), key
+    if case == "llama-durable":
+        dur = got["durability"]
+        assert dur["journal"]["records_written"] > 0 and dur["journal"]["results_kept"] == 1
+        assert dur["kv_disk"]["attached"] and dur["reconnect"] == {"streams": 0, "live": 0}
+        assert got["jobs"]["replay"] == {"resumed": 0, "complete": 0, "failed": 0}
     sched = dict(got["scheduler"])
     assert sched.pop("pending") == 0
     assert sched == want["scheduler"]
