@@ -14,6 +14,7 @@
     python3 chip_smoke.py --faults         # faults, tuning and the converter only
     python3 chip_smoke.py --observe        # the observability phase only
     python3 chip_smoke.py --durable        # the durable-serving phase only
+    python3 chip_smoke.py --tenants        # the tenant accounts and fair-share phase only
 
 Phases, one JSON line each; any failure exits non-zero and prints no
 result line:
@@ -406,6 +407,31 @@ result line:
    histogram's p50 and p99 bucket edges in both children, and tokens/s of
    the same four streams in this process with the journal on
    (``fsync=always``) and off.
+8l. serve llama tenants (``--tenants`` runs the build and 8l alone, at 22
+   layers; the main run's at CUT_LAYERS on 8h's warmed engine and adapter
+   pool): ``TENANTS_FILE`` over 8h's service (the paged loop, 16 slots,
+   one batch bucket of 16, ``ADAPTER_SLOTS=2``): acme at weight 3 on
+   adapter alpha, bob at 1, carol at 1 with ``max_concurrency`` 2 and a
+   ``tokens_per_window`` of two and a half of her requests, keyless callers
+   anonymous; a batcher of its own on the engine.  A backlog of 48
+   batch-class streams (acme's and bob's in turn, every fourth sampled and
+   seeded) queued at once behind a full set of slots; then, over loopback
+   HTTP with the loop held at its chunk dispatch, carol's two streams, her
+   third (429), bob's stream and an anonymous stream and whole request; the
+   loop let go, carol over her window (429) and bob again.  Gates: while
+   acme and bob both had waiters, acme took 3 of every 4 of the loop
+   queue's pops, within one pop; each queue's fair-share ``served`` (the
+   batcher's in ``/status.tenancy``) equals the pops logged; carol's third
+   stream 429 with Retry-After >= 1, her request over the window 429 with
+   Retry-After the window less her oldest charge's age (within 1 s), bob
+   served after each; ``predict_requests_total{status="429"}`` and
+   ``tenant_requests_shed_total{reason="quota"}`` grew by 2; after the
+   drive the ledger's ``active`` and ``kv_bytes``, every
+   ``tenant_kv_committed_bytes``, the pool's ``live_refs`` and its used
+   blocks are 0; every row teacher-forced through its adapter; K2 and K3
+   held against the loop's and the engine's counts; no capture after the
+   loop's warm-up.  Printed: TTFT p50 and p99 by tenant, and tokens/s of the
+   backlog with ``TENANTS_FILE`` and on a batcher without it.
 8a. serve gpt2, serve gpt2 stream (paged), serve gpt2 stream contiguous,
    each with its graphs phase: GPT-2 small at full width (12 layers, 768
    hidden, 12 heads, vocab 50257, position table 1024; random weights from
@@ -6266,10 +6292,27 @@ def lora_teacher_forced(bundle, ref_model, adir: str, feats, rows, aids, max_len
     return out
 
 
-def phase_serve_lora(params, ref_model, cfg, rehearsal: bool, card_line: str) -> dict:
+def lora_overrides(cfg, rehearsal: bool) -> dict:
+    """The llama service of 8h and 8l (``cfg``'s TinyLlama): the paged loop,
+    16 slots, one batch bucket of 16 and one seq bucket of 64, 64 tokens
+    (16 in the rehearsal)."""
+    return {"MODEL_NAME": "llama", "DEVICE": "cpu" if rehearsal else "cuda",
+            "BATCH_BUCKETS": "16", "SEQ_BUCKETS": "64", "MAX_STREAMS": "16",
+            "MAX_DECODE_LEN": "16" if rehearsal else "64", "PAGED_KV": "1",
+            "KV_BLOCK_SIZE": str(PAGE),
+            "LLAMA_CONFIG": json.dumps({f.name: getattr(cfg, f.name)
+                                        for f in dataclasses.fields(cfg)
+                                        if f.name not in ("eos_id", "pad_id", "kv_quant")})}
+
+
+def phase_serve_lora(params, ref_model, cfg, rehearsal: bool, card_line: str,
+                     keep: bool = False):
     """8h, ``serve llama lora``: TinyLlama (``cfg``) through the paged loop
     with ``ADAPTER_DIR`` (three adapters, ``ADAPTER_SLOTS=2``) and the same
-    traffic on a service without it; returns K2's and K3's launches."""
+    traffic on a service without it; returns K2's and K3's launches and,
+    with ``keep``, the warmed adapter service for 8l (``lora_service``'s
+    dict: its graphs and its adapter directory stay until 8l releases
+    them)."""
     import tempfile
 
     import numpy as np
@@ -6281,14 +6324,9 @@ def phase_serve_lora(params, ref_model, cfg, rehearsal: bool, card_line: str) ->
 
     t0 = time.monotonic()
     waves = lora_waves()
-    ov = {"MODEL_NAME": "llama", "DEVICE": "cpu" if rehearsal else "cuda",
-          "BATCH_BUCKETS": "16", "SEQ_BUCKETS": "64", "MAX_STREAMS": "16",
-          "MAX_DECODE_LEN": "16" if rehearsal else "64", "PAGED_KV": "1",
-          "KV_BLOCK_SIZE": str(PAGE),
-          "LLAMA_CONFIG": json.dumps({f.name: getattr(cfg, f.name)
-                                      for f in dataclasses.fields(cfg)
-                                      if f.name not in ("eos_id", "pad_id", "kv_quant")})}
-    with tempfile.TemporaryDirectory() as adir:
+    ov = lora_overrides(cfg, rehearsal)
+    tmp = tempfile.TemporaryDirectory()
+    with (contextlib.nullcontext(tmp.name) if keep else tmp) as adir:
         write_lora_dir(adir, cfg)
         cfg_, bundle, engine, batcher = build_service(
             {**ov, "ADAPTER_DIR": adir, "ADAPTER_SLOTS": "2"}, params=params)
@@ -6356,15 +6394,458 @@ def phase_serve_lora(params, ref_model, cfg, rehearsal: bool, card_line: str) ->
              decode_attention_launches=k2, paged_decode_attention_launches=k3,
              generated_tok_per_s=sum(len(r) for r in rows) / wall, teacher_forced=check,
              **timing, seconds=time.monotonic() - t0)
-        release(bundle)
+        if not keep:
+            release(bundle)
         release(pbundle)
+    launches = {"decode_attention": k2, "paged_decode_attention": k3}
+    if keep:
+        return launches, {"cfg": cfg_, "bundle": bundle, "engine": engine, "pool": pool,
+                          "adir": tmp}
+    return launches
+
+
+# 8l, ``serve llama tenants``: tenant accounts and weighted fair share over
+# 8h's adapter service.  Carol's token window, in seconds.
+TENANT_WINDOW_S = 60.0
+TENANT_WORDS = ["tenant", "quota", "share", "window", "lease", "weight", "slot", "queue"]
+CAROL_BODY = {"text": "carol asks about the quota window", "stream": True, "max_tokens": 32}
+
+
+def tenant_table(carol_cost: int) -> list:
+    """8l's ``TENANTS_FILE``: acme at weight 3 on adapter alpha, bob at 1,
+    carol at 1 with two concurrent streams and a token window of two and a
+    half of her requests (``carol_cost`` tokens each); keyless callers are
+    the anonymous tenant."""
+    return [{"name": "acme", "weight": 3, "api_keys": ["key-acme"], "adapter": "alpha"},
+            {"name": "bob", "weight": 1, "api_keys": ["key-bob"]},
+            {"name": "carol", "weight": 1, "api_keys": ["key-carol"], "max_concurrency": 2,
+             "tokens_per_window": 2 * carol_cost + carol_cost // 2}]
+
+
+def tenant_backlog() -> list:
+    """8l's backlog, (API key, item) a stream: 48 streams, acme's and bob's
+    in turn, every fourth sampled and seeded (two of each eight: one of
+    each tenant's)."""
+    import numpy as np
+
+    from mlmicroservicetemplate_tpu_torch.models.registry import RawItem
+
+    rng = np.random.default_rng(11)
+    out = []
+    for i in range(48):
+        length = int(rng.integers(20, 60))
+        text = " ".join(rng.choice(TENANT_WORDS, size=length))[:length]
+        sampling = dict(temperature=0.8, top_k=40, seed=3000 + i) if i % 8 in (3, 6) else {}
+        out.append(("key-acme" if i % 2 == 0 else "key-bob", RawItem(text=text, **sampling)))
+    return out
+
+
+def tenant_feats(bundle, registry, key, item) -> dict:
+    """A stream's feats as the app's edge makes them: the key's tenant and
+    its default adapter (none without a registry), batch class."""
+    f = dict(bundle.preprocess(item), priority="batch")
+    if registry is not None:
+        spec = registry.classify(key)
+        if spec.name:
+            f["tenant"] = spec.name
+        if spec.adapter:
+            f["adapter_id"] = spec.adapter
+    elif key == "key-acme":
+        f["adapter_id"] = "alpha"
+    return f
+
+
+def log_pops(queue) -> list:
+    """Each pick of ``queue``'s fair share: (tenants with waiters, tenants
+    eligible, the one picked)."""
+    fs = queue._fairshare
+    pick = fs.pick
+    log = []
+
+    def logged(eligible):
+        eligible = sorted(eligible)
+        waiting = sorted({getattr(it, "tenant", "") or "" for heap in queue._heaps.values()
+                          for _, it in heap if not it._removed})
+        t = pick(eligible)
+        log.append((waiting, eligible, t))
+        return t
+
+    fs.pick = logged
+    return log
+
+
+def share_check(log) -> dict:
+    """acme's share of the pops while both acme and bob had waiters: after
+    each such pop, acme's count within one of three quarters of them."""
+    both = [t for waiting, _, t in log if {"acme", "bob"} <= set(waiting)
+            and t in ("acme", "bob")]
+    worst = max((abs(both[:n].count("acme") - 0.75 * n) for n in range(1, len(both) + 1)),
+                default=0.0)
+    out = {"pops_both_waiting": len(both), "acme": both.count("acme"),
+           "bob": both.count("bob"), "worst_lag_pops": worst,
+           "skipped_unfit": sum(1 for w, e, _ in log if set(w) != set(e))}
+    if not both or worst > 1.0:
+        raise AssertionError(f"serve llama tenants: acme's share is not 3 of 4 pops: {out}")
+    return out
+
+
+def percentiles(xs) -> dict:
+    import numpy as np
+
+    if not xs:
+        return {"n": 0}
+    return {"n": len(xs), "p50_ms": float(np.percentile(xs, 50)) * 1e3,
+            "p99_ms": float(np.percentile(xs, 99)) * 1e3}
+
+
+async def backlog_drive(batcher, feats, stop: bool = False):
+    """Every stream queued before the loop's thread starts (the first
+    admission pops a full set of slots, the rest wait), read to the end;
+    with ``stop`` the batcher stops after.  Returns (rows, TTFT seconds,
+    wall seconds)."""
+    import numpy as np
+
+    loop = batcher._cdl
+    await batcher.start()
+    loop._ensure_thread = lambda: None
+    t0 = time.monotonic()
+    try:
+        gens = [batcher.submit_stream(f) for f in feats]
+    finally:
+        del loop._ensure_thread
+    loop._ensure_thread()
+
+    async def read(gen):
+        toks, first = [], None
+        async for chunk in gen:
+            if first is None:
+                first = time.monotonic() - t0
+            toks.extend(int(x) for x in chunk)
+        return np.array(toks, np.int32), first
+
+    out = await asyncio.gather(*(read(g) for g in gens))
+    wall = time.monotonic() - t0
+    t_wait = time.monotonic() + 30.0
+    while loop.admitted and time.monotonic() < t_wait:
+        await asyncio.sleep(0.001)
+    if stop:
+        await batcher.stop()
+    return [r for r, _ in out], [t for _, t in out], wall
+
+
+def metric_samples(text: str, prefixes) -> dict:
+    """The samples of ``/metrics`` whose name starts with one of
+    ``prefixes`` ({line key: value}; counters' ``_created`` left out)."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith(tuple(prefixes)) and "_created{" not in line:
+            key, _, value = line.rpartition(" ")
+            out[key] = float(value)
+    return out
+
+
+async def tenant_http(batcher, cfg, bundle, engine, on_ready) -> dict:
+    """Carol's and the anonymous callers' requests (and bob's beside them)
+    over loopback through the app, the loop held at its chunk dispatch
+    while carol's two streams hold her slots; ``on_ready()`` runs once the
+    app's readiness canary has.  Returns what each answered, the 429s'
+    Retry-After, TTFT by tenant, /status.tenancy and the metric samples
+    around the drive.  The app's cleanup stops the batcher."""
+    import threading
+
+    import aiohttp
+    from aiohttp import web
+
+    from mlmicroservicetemplate_tpu_torch.api.app import build_app
+
+    loop = batcher._cdl
+    opened = threading.Event()
+    opened.set()
+    dispatch = loop._dispatch_chunk
+
+    def gated():
+        if not opened.wait(120):
+            raise AssertionError("serve llama tenants: the loop's gate never opened")
+        return dispatch()
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    app = build_app(dataclasses.replace(cfg, warmup=False), bundle, engine, batcher)
+    runner = web.AppRunner(app, access_log=None)
+    await runner.setup()
+    out = {"answers": {}, "ttft_s": {}}
+    try:
+        await web.TCPSite(runner, "127.0.0.1", port).start()
+        url = f"http://127.0.0.1:{port}"
+        async with aiohttp.ClientSession() as session:
+            for _ in range(600):
+                async with session.get(f"{url}/readyz") as r:
+                    if r.status == 200:
+                        break
+                await asyncio.sleep(0.05)
+            else:
+                raise AssertionError("serve llama tenants: /readyz never turned 200")
+            reg = batcher.tenants
+
+            async def metrics_now():
+                async with session.get(f"{url}/metrics") as r:
+                    return metric_samples(await r.text(), ("predict_requests_total",
+                                                           "tenant_"))
+
+            async def post(who, body, key):
+                headers = {"X-Api-Key": key} if key else {}
+                t0 = time.monotonic()
+                async with session.post(f"{url}/predict", json=body, headers=headers) as r:
+                    first = None
+                    lines = []
+                    async for line in r.content:
+                        if first is None:
+                            first = time.monotonic() - t0
+                        lines.append(line)
+                    if r.status == 200:
+                        out["ttft_s"].setdefault(who, []).append(first)
+                    out["answers"].setdefault(who, []).append(r.status)
+                    return r.status, r.headers.get("Retry-After"), b"".join(lines)
+
+            async def until(what, cond, timeout=60.0):
+                t_end = time.monotonic() + timeout
+                while not cond():
+                    if time.monotonic() > t_end:
+                        raise AssertionError(f"serve llama tenants: {what} never happened")
+                    await asyncio.sleep(0.002)
+
+            def active(name):
+                return reg.usage().get(name, {}).get("active", 0)
+
+            on_ready()
+            before = await metrics_now()
+            loop._dispatch_chunk = gated
+            opened.clear()
+            carol = "key-carol"
+            held = [asyncio.ensure_future(post("carol", CAROL_BODY, carol)) for _ in range(2)]
+            await until("carol's two admissions", lambda: active("carol") == 2)
+            oldest = reg._window["carol"][0][0]  # her first charge, on the registry's clock
+            third = await post("carol", CAROL_BODY, carol)
+            bob1 = asyncio.ensure_future(post("bob", {"text": "bob right after carol",
+                                                      "stream": True}, "key-bob"))
+            await until("bob's admission after carol's 429", lambda: active("bob") == 1)
+            anon = [asyncio.ensure_future(post("anon", {"text": "keyless stream",
+                                                        "stream": True}, None)),
+                    asyncio.ensure_future(post("anon", {"text": "keyless whole",
+                                                        "max_tokens": 16}, None))]
+            mid = reg.usage()
+            opened.set()
+            await asyncio.gather(*held, bob1, *anon)
+            await until("carol's streams' release", lambda: active("carol") == 0)
+            window = await post("carol", CAROL_BODY, carol)
+            age = reg._clock() - oldest
+            bob2 = await post("bob", {"text": "bob after the window", "stream": True}, "key-bob")
+            await until("every lease's release", lambda: reg.totals()["active"] == 0)
+            async with session.get(f"{url}/status") as r:
+                status = await r.json()
+            after = await metrics_now()
+            out.update(third=third[:2], window=window[:2], window_age_s=age,
+                       bob_after=(bob1.result()[0], bob2[0]), mid=mid,
+                       tenancy=status["tenancy"], metrics_before=before,
+                       metrics_after=after)
+    finally:
+        opened.set()
+        loop._dispatch_chunk = dispatch
+        await runner.cleanup()
+    return out
+
+
+def tenant_service(params, cfg, rehearsal: bool) -> dict:
+    """8h's adapter service, built and warmed (``--tenants`` alone: the
+    main run hands 8l the one 8h drove)."""
+    import tempfile
+
+    from mlmicroservicetemplate_tpu_torch.serve import build_service
+
+    tmp = tempfile.TemporaryDirectory()
+    write_lora_dir(tmp.name, cfg)
+    cfg_, bundle, engine, batcher = build_service(
+        {**lora_overrides(cfg, rehearsal), "ADAPTER_DIR": tmp.name, "ADAPTER_SLOTS": "2"},
+        params=params)
+    batcher.warm_engine()
+    return {"cfg": cfg_, "bundle": bundle, "engine": engine, "pool": batcher.adapters,
+            "adir": tmp}
+
+
+def tenant_batcher(svc: dict, **changes):
+    """A batcher of its own on ``svc``'s engine (its loop warmed), with the
+    service's adapter pool: the pool the engine's start graphs read."""
+    from mlmicroservicetemplate_tpu_torch.scheduler.batcher import Batcher
+
+    cfg = dataclasses.replace(svc["cfg"], adapter_dir=None, max_stream_queue=64, **changes)
+    batcher = Batcher(svc["engine"], cfg)
+    batcher.adapters = batcher._cdl.adapters = svc["pool"]
+    batcher.warm_streams()
+    return cfg, batcher
+
+
+def phase_serve_tenants(params, ref_model, cfg, rehearsal: bool, card_line: str,
+                        svc: dict | None = None) -> dict:
+    """8l, ``serve llama tenants``: ``TENANTS_FILE`` over 8h's adapter
+    service (``svc``, else one built here); returns K2's and K3's
+    launches."""
+    import numpy as np
+
+    from mlmicroservicetemplate_tpu_torch.models.registry import RawItem
+    from mlmicroservicetemplate_tpu_torch.ops.attention import decode_attention
+    from mlmicroservicetemplate_tpu_torch.ops.paged_attention import paged_decode_attention
+    from mlmicroservicetemplate_tpu_torch.runtime import compile_cache
+
+    t0 = time.monotonic()
+    if svc is None:
+        svc = tenant_service(params, cfg, rehearsal)
+    bundle, engine, pool, adir = svc["bundle"], svc["engine"], svc["pool"], svc["adir"].name
+    carol = bundle.preprocess(RawItem(text=CAROL_BODY["text"]))
+    carol_cost = int(carol["length"]) + engine.budget_for({"max_tokens": CAROL_BODY[
+        "max_tokens"]})
+    table = os.path.join(adir, "tenants.json")
+    with open(table, "w") as f:
+        json.dump(tenant_table(carol_cost), f)
+    tcfg, batcher = tenant_batcher(svc, tenants_file=table, tenant_window_s=TENANT_WINDOW_S)
+    loop, reg = batcher._cdl, batcher.tenants
+    loop_pops, batch_pops = log_pops(loop.queue), log_pops(batcher._queue)
+    captures = compile_cache.capture_stats()["count"]
+    items = tenant_backlog()
+    feats = [tenant_feats(bundle, reg, key, item) for key, item in items]
+
+    def zero():
+        decode_attention.launches = paged_decode_attention.launches = 0
+        loop.prefill_dispatches = loop.chunk_dispatches = loop.decode_steps = 0
+        engine.decode_steps = 0
+
+    # The backlog (48 streams behind a full set of slots), then carol's and
+    # the anonymous callers' requests over HTTP, the streams' tokens taken
+    # off the loop as they are routed; one event loop for both.
+    zero()
+    marks = graph_marks(bundle)
+    captured = []
+    submit = loop.submit_stream
+
+    def capture(f):
+        gen = submit(f)
+        rec = (f, [])
+        captured.append(rec)
+
+        async def tee():
+            async for chunk in gen:
+                rec[1].extend(int(x) for x in np.asarray(chunk).tolist())
+                yield chunk
+
+        return tee()
+
+
+    async def drive():
+        backlog = await backlog_drive(batcher, feats)
+        share = share_check(loop_pops)
+        held_launches("serve llama tenants", bundle, engine, loop, decode_attention.launches,
+                      paged_decode_attention.launches, rehearsal)
+        launched[:] = [decode_attention.launches, paged_decode_attention.launches]
+        loop.submit_stream = capture
+        try:
+            return backlog, share, await tenant_http(batcher, tcfg, bundle, engine, zero)
+        finally:
+            del loop.submit_stream
+
+    launched = []
+    (rows, ttft, wall), share, http = asyncio.run(drive())
+    k2, k3 = launched
+    backlog_ttft = {t: percentiles([x for f, x in zip(feats, ttft) if f["tenant"] == t])
+                    for t in ("acme", "bob")}
+    tok_s = sum(len(r) for r in rows) / wall
+    held_launches("serve llama tenants http", bundle, engine, loop, decode_attention.launches,
+                  paged_decode_attention.launches, rehearsal)
+    k2 += decode_attention.launches
+    k3 += paged_decode_attention.launches
+    gdrive = graph_drive(bundle, marks, {})
+    if compile_cache.capture_stats()["count"] != captures or gdrive["misses"]:
+        raise AssertionError(f"serve llama tenants: graphs captured after warmup {gdrive}")
+    # The gates of the HTTP drive.
+    ans = http["answers"]
+    if http["third"][0] != 429 or int(http["third"][1]) < 1:
+        raise AssertionError(f"serve llama tenants: carol's third stream got {http['third']}")
+    # The window less her oldest charge's age when the answer came; the
+    # header rounds the server's value (taken a moment before) up to whole
+    # seconds.
+    want_ra = max(1.0, TENANT_WINDOW_S - http["window_age_s"])
+    if http["window"][0] != 429 or not -0.05 <= int(http["window"][1]) - want_ra <= 1.05:
+        raise AssertionError(f"serve llama tenants: carol over her window got {http['window']}"
+                             f", want 429 with Retry-After {want_ra:.2f} (within 1 s)")
+    if ans["carol"].count(200) != 2 or any(a != 200 for t in ("bob", "anon") for a in ans[t]):
+        raise AssertionError(f"serve llama tenants: answers {ans}")
+    if http["bob_after"] != (200, 200):
+        raise AssertionError(f"serve llama tenants: bob after carol's 429s {http['bob_after']}")
+    if http["mid"]["carol"]["active"] != 2 or http["mid"]["bob"]["active"] != 1:
+        raise AssertionError(f"serve llama tenants: the ledger while held {http['mid']}")
+    name = bundle.name
+    before, after = http["metrics_before"], http["metrics_after"]
+
+    def grew(key):
+        return after.get(key, 0.0) - before.get(key, 0.0)
+
+    c429 = grew(f'predict_requests_total{{model="{name}",status="429"}}')
+    quota = grew(f'tenant_requests_shed_total{{model="{name}",reason="quota",tenant="carol"}}')
+    if c429 != 2 or quota != 2:
+        raise AssertionError(f"serve llama tenants: 429s counted {c429}, quota sheds {quota}")
+    kv_gauges = {k: v for k, v in after.items() if k.startswith("tenant_kv_committed_bytes")}
+    ten = http["tenancy"]
+    if (ten["totals"] != {"active": 0, "kv_bytes": 0} or any(kv_gauges.values())
+            or ten["adapters"]["live_refs"] or engine.kv_pool.used_blocks or loop.admitted):
+        raise AssertionError(f"serve llama tenants: left behind: {ten['totals']}, "
+                             f"{kv_gauges}, {ten['adapters']}, {engine.kv_pool.used_blocks} "
+                             f"blocks, {loop.admitted} streams")
+    # /status.tenancy.fairshare is the batcher queue's (the whole requests:
+    # the canary, the anonymous one); the loop's fair share its streams'.
+    for fs, log, what in ((ten["fairshare"], batch_pops, "batcher"),
+                          (loop.queue._fairshare.snapshot(), loop_pops, "loop")):
+        served = {t: v["served"] for t, v in fs.items() if v["served"]}
+        logged = {}
+        for _, _, t in log:
+            logged[t] = logged.get(t, 0) + 1
+        if served != logged:
+            raise AssertionError(f"serve llama tenants: the {what} queue served {served}, "
+                                 f"pops logged {logged}")
+    # Every row teacher-forced through its adapter.
+    rows_all = rows + [np.array(toks, np.int32) for _, toks in captured]
+    feats_all = feats + [f for f, _ in captured]
+    aids = [f.get("adapter_id") for f in feats_all]
+    check = lora_teacher_forced(bundle, ref_model, adir, feats_all, rows_all, aids,
+                                engine.max_decode_len)
+    # The same backlog on a batcher without TENANTS_FILE (the fair share
+    # and the ledger not built): tokens/s only.
+    _, plain = tenant_batcher(svc)
+    plain_feats = [tenant_feats(bundle, None, key, item) for key, item in items]
+    zero()
+    prows, _, pwall = asyncio.run(backlog_drive(plain, plain_feats, stop=True))
+    held_launches("serve llama tenants unset", bundle, engine, plain._cdl,
+                  decode_attention.launches, paged_decode_attention.launches, rehearsal)
+    k2 += decode_attention.launches
+    k3 += paged_decode_attention.launches
+    plain_tok_s = sum(len(r) for r in prows) / pwall
+    http_ttft = {t: percentiles(v) for t, v in http["ttft_s"].items()}
+    emit("serve llama tenants", device=str(bundle.device), card=card_line,
+         layers=bundle.cfg.num_layers, tenants=tenant_table(carol_cost), slots=loop.n_slots,
+         backlog_streams=len(rows), http_streams=len(captured), share=share,
+         carol_third=http["third"], carol_window=http["window"],
+         carol_window_want_retry_after=want_ra, answers=ans, counted_429=c429,
+         quota_sheds=quota, tenancy=ten, backlog_ttft=backlog_ttft, http_ttft=http_ttft,
+         tok_s_tenants=tok_s, tok_s_unset=plain_tok_s, tok_s_ratio=tok_s / plain_tok_s,
+         decode_attention_launches=k2, paged_decode_attention_launches=k3,
+         misses=gdrive["misses"], teacher_forced=check, seconds=time.monotonic() - t0)
+    release(bundle)
+    svc["adir"].cleanup()
     return {"decode_attention": k2, "paged_decode_attention": k3}
 
 
 def weight_main(which: str, rehearsal: bool) -> int:
-    """``--quant`` / ``--lora``: the build and 8g or 8h alone, TinyLlama at
-    full width (the rehearsal's small llama on the CPU, no build).  Prints
-    no result line."""
+    """``--quant`` / ``--lora`` / ``--tenants``: the build and 8g, 8h or 8l
+    alone, TinyLlama at full width (the rehearsal's small llama on the CPU,
+    no build).  Prints no result line."""
     import torch
 
     phase = "env"
@@ -6388,10 +6869,11 @@ def weight_main(which: str, rehearsal: bool) -> int:
             phase = "serve quantize"
             phase_serve_quant(params, cfg, rehearsal, card_line)
         else:
-            phase = "serve llama lora"
+            phase = "serve llama lora" if which == "lora" else "serve llama tenants"
             ref = llama_mod.build_model(cfg, llama_params_from_jax(params, cfg),
                                         torch.device(device), torch.float32)
-            phase_serve_lora(params, ref, cfg, rehearsal, card_line)
+            run = phase_serve_lora if which == "lora" else phase_serve_tenants
+            run(params, ref, cfg, rehearsal, card_line)
     except Exception as e:
         traceback.print_exc()
         emit(phase, ok=False, error=f"{type(e).__name__}: {e}")
@@ -8299,6 +8781,8 @@ def main(argv: list[str]) -> int:
                     help="only the build, the faults and tuning phase and the converter's")
     ap.add_argument("--observe", action="store_true",
                     help="only the build and the observability phase")
+    ap.add_argument("--tenants", action="store_true",
+                    help="only the build and the tenant accounts and fair-share phase")
     ap.add_argument("--durable", action="store_true",
                     help="only the build and the durable-serving phase")
     args = ap.parse_args(argv)
@@ -8322,6 +8806,8 @@ def main(argv: list[str]) -> int:
         return observe_main(args.cpu_rehearsal)
     if args.durable:
         return durable_main(args.cpu_rehearsal)
+    if args.tenants:
+        return weight_main("tenants", args.cpu_rehearsal)
     rehearsal = args.cpu_rehearsal
     t_start = time.monotonic()
     phase = "env"
@@ -8567,7 +9053,14 @@ def main(argv: list[str]) -> int:
         phase = "serve quantize"
         quant_launches = phase_serve_quant(cparams, ccfg, rehearsal, card_line)
         phase = "serve llama lora"
-        lora_launches = phase_serve_lora(cparams, cref, ccfg, rehearsal, card_line)
+        lora_launches, lora_svc = phase_serve_lora(cparams, cref, ccfg, rehearsal, card_line,
+                                                   keep=True)
+        # Tenant accounts and fair share (8l) on 8h's warmed engine and its
+        # adapter pool (``--tenants`` builds its own at 22 layers).
+        phase = "serve llama tenants"
+        tenant_launches = phase_serve_tenants(cparams, cref, ccfg, rehearsal, card_line,
+                                              svc=lora_svc)
+        del lora_svc
         # Faults, the watchdog, the supervisor and K3's autotuner (8i) at
         # full depth, then the converter CLI at GPT-2's full width.
         phase = "serve llama faults"
@@ -8926,13 +9419,14 @@ def main(argv: list[str]) -> int:
         kernel_entry("decode_attention", "mlmicroservicetemplate_tpu/ops/attention.py:310",
                      llama_svc[3] + llama8_launches + k2_streams + gpt2_k2 + spec_k2
                      + quant_launches["decode_attention"] + lora_launches["decode_attention"]
-                     + fault_launches["decode_attention"],
+                     + tenant_launches["decode_attention"] + fault_launches["decode_attention"],
                      decode_headline,
                      gpt2=gpt2_entry(gpt2_decode, gpt2_k2)),
         kernel_entry("paged_decode_attention",
                      "mlmicroservicetemplate_tpu/ops/paged_attention.py:353",
                      k3_streams + gpt2_k3 + quant_launches["paged_decode_attention"]
                      + lora_launches["paged_decode_attention"]
+                     + tenant_launches["paged_decode_attention"]
                      + fault_launches["paged_decode_attention"]
                      + observe_launches["paged_decode_attention"]
                      + durable_launches["paged_decode_attention"], paged_headline,

@@ -285,12 +285,15 @@ async def _on_cleanup(app: web.Application) -> None:
 
 
 def _sched_fields(request: web.Request) -> dict:
-    """X-Priority / X-Deadline-Ms / X-Adapter headers -> the scheduling
-    fields of the feats dict that the admission controller and the loop
-    read (``priority``, ``deadline_ms``, ``adapter_id``); a malformed header,
-    an adapter the pool does not know and an adapter on a service without
-    ``ADAPTER_DIR`` answer 400 with the JAX package's reason.  A request
-    without them takes ``PRIORITY_DEFAULT`` and ``DEADLINE_MS``, and the
+    """X-Priority / X-Deadline-Ms / X-Api-Key / X-Adapter headers -> the
+    scheduling fields of the feats dict that the admission controller, the
+    queues and the loop read (``priority``, ``deadline_ms``, ``tenant``,
+    ``adapter_id``); a malformed header, an adapter the pool does not know
+    and an adapter on a service without ``ADAPTER_DIR`` answer 400 with the
+    JAX package's reason.  Under ``TENANTS`` the key is classified here,
+    once: a named tenant rides ``tenant`` and brings its default adapter,
+    which an empty ``X-Adapter`` opts out of.  A request without them takes
+    ``PRIORITY_DEFAULT`` and ``DEADLINE_MS``, the anonymous tenant and the
     base model."""
     out: dict = {}
     p = request.headers.get("X-Priority")
@@ -308,12 +311,22 @@ def _sched_fields(request: web.Request) -> dict:
         if not dv > 0:  # also rejects NaN
             raise web.HTTPBadRequest(reason="X-Deadline-Ms must be > 0")
         out["deadline_ms"] = dv
+    batcher = request.app[K_BATCHER]
+    tenants = getattr(batcher, "tenants", None)
+    if tenants is not None:
+        spec = tenants.classify(request.headers.get("X-Api-Key"))
+        if spec.name:
+            out["tenant"] = spec.name
+        if spec.adapter:
+            out["adapter_id"] = spec.adapter
     a = request.headers.get("X-Adapter")
-    if a is not None and a.strip():
-        # A LoRA adapter of the pool (ADAPTER_DIR); an empty header opts
-        # out (the reference's opt-out of a tenant's default adapter).
+    if a is not None and not a.strip():
+        # An empty header opts out of the tenant's default adapter.
+        out.pop("adapter_id", None)
+    elif a is not None:
+        # A LoRA adapter of the pool (ADAPTER_DIR).
         a = a.strip()
-        pool = getattr(request.app[K_BATCHER], "adapters", None)
+        pool = getattr(batcher, "adapters", None)
         if pool is None:
             raise web.HTTPBadRequest(reason="X-Adapter requires ADAPTER_DIR to be configured")
         if not pool.known(a):
@@ -452,10 +465,17 @@ async def _preprocess(request: web.Request, bundle: ModelBundle, item: RawItem,
 
 def _failure(request: web.Request, model: str, e: Exception) -> web.Response:
     """The answer to a failed dispatch, counted: a shed raises 503 with
-    Retry-After, a passed deadline 504; anything else is a structured 500."""
+    Retry-After, a tenant's spent quota (reason ``quota``) 429 with the
+    tenant's own Retry-After, a passed deadline 504; anything else is a
+    structured 500."""
     if isinstance(e, QueueFullError):
-        metrics.REQUESTS.labels(model, "503").inc()
         ra = max(1, int(math.ceil(e.retry_after_s or 1.0)))
+        if e.reason == "quota":
+            metrics.REQUESTS.labels(model, "429").inc()
+            raise web.HTTPTooManyRequests(
+                reason=str(e) or "tenant quota exhausted, retry later",
+                headers={"Retry-After": str(ra)}) from None
+        metrics.REQUESTS.labels(model, "503").inc()
         raise web.HTTPServiceUnavailable(
             reason=str(e) or "overloaded, retry later", headers={"Retry-After": str(ra)}
         ) from None

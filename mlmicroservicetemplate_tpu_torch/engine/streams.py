@@ -349,7 +349,7 @@ class _Stream:
     __slots__ = ("feats", "chunks", "loop", "cancelled", "produced", "released", "budget",
                  "klass", "deadline", "started", "kv", "kv_held", "skip", "tokens",
                  "preempted", "_removed", "blocks", "s_base", "s_lo", "rid", "t_emit", "t_in",
-                 "t_queued", "swap", "adapter_slot", "parted", "done_journaled")
+                 "t_queued", "swap", "adapter_slot", "parted", "done_journaled", "tenant")
 
     # The admission ledger's marker: paged streams are accounted by the pool.
     is_stream = True
@@ -398,6 +398,9 @@ class _Stream:
         # The LoRA pool slot it holds a reference on (0: the base model),
         # from submit to its release; a checkpoint keeps it.
         self.adapter_slot = 0
+        # Its tenant ("" = anonymous): the fair share's key and the label of
+        # its sheds and SLO notes.
+        self.tenant = str(feats.get("tenant") or "")
         self.rid = str(feats.get("request_id") or "")
         self.t_emit = 0.0
         # The journal's terminal record: written once, before the consumer
@@ -722,6 +725,9 @@ class ContinuousDecodeLoop:
         # ``_ad_job_rows``): device buffers allocated with the slot state,
         # before its graphs are captured, and written before each dispatch.
         self.adapters = None
+        # The tenant registry (TENANTS; the batcher sets it, with a fair
+        # share on ``queue``): per-tenant sheds and SLO notes.
+        self.tenants = None
         self._ad_rows: torch.Tensor | None = None
         self._ad_job_rows: torch.Tensor | None = None
         self._ad_rows_now: list[int] = []
@@ -764,7 +770,7 @@ class ContinuousDecodeLoop:
             except QueueFullError as e:
                 if e.retry_after_s is None:
                     e.retry_after_s = self._retry_after_s()
-                self._shed(e.reason)
+                self._shed(e.reason, st.tenant)
                 raise
             cap = self.max_streams + self.max_stream_queue
             with self._admitted_lock:
@@ -773,14 +779,15 @@ class ContinuousDecodeLoop:
                 if total < cap or victim is not None:
                     self._admitted += 1
             if total >= cap and victim is None:
-                self._shed("queue_full")
+                adm.release_lease(feats)
+                self._shed("queue_full", st.tenant)
                 raise QueueFullError(
                     f"{total} streams active >= max_streams={self.max_streams}"
                     f"+{self.max_stream_queue} queued",
                     retry_after_s=self._retry_after_s(),
                 )
             if victim is not None:
-                self._shed("queue_full")
+                self._shed("queue_full", victim.tenant)
                 self._finish(victim, QueueFullError("shed for higher-priority stream",
                                                     retry_after_s=self._retry_after_s()))
             if self.adapters is not None and feats.get("adapter_id"):
@@ -792,7 +799,8 @@ class ContinuousDecodeLoop:
                 except AdapterBusy as e:
                     with self._admitted_lock:
                         self._admitted -= 1
-                    self._shed("adapter_pool")
+                    adm.release_lease(feats)
+                    self._shed("adapter_pool", st.tenant)
                     raise QueueFullError(str(e), reason="adapter_pool",
                                          retry_after_s=e.retry_after_s) from e
             # The write-ahead admission record, before the stream can
@@ -894,8 +902,11 @@ class ContinuousDecodeLoop:
             j.done(st.rid)
         st.done_journaled = True
 
-    def _shed(self, reason: str) -> None:
+    def _shed(self, reason: str, tenant: str = "") -> None:
         metrics.SHED.labels(self.model, reason).inc()
+        if self.tenants is not None and reason != "quota":
+            # Attributed to the tenant too; a quota shed was at its gate.
+            self.tenants.note_shed(tenant, reason)
         if self._flight is not None:
             self._flight.event("shed", reason=reason)
 
@@ -1367,7 +1378,7 @@ class ContinuousDecodeLoop:
         its consumer raises before any response bytes went out.  A stream
         in a slot never expires."""
         for st in self.queue.expire():
-            self._shed("deadline")
+            self._shed("deadline", st.tenant)
             self._finish(st, DeadlineExceededError(
                 "deadline passed while queued; stream shed before dispatch"))
 
@@ -1601,8 +1612,14 @@ class ContinuousDecodeLoop:
             metrics.TBT.labels(self.model).observe(gap)
             if self.slo is not None:
                 self.slo.note("tbt", st.klass, gap)
-        elif self.slo is not None:
-            self.slo.note("ttft", st.klass, now - st.t_in)
+            if self.tenants is not None:
+                self.tenants.note_latency(st.tenant, "tbt", st.klass, gap)
+        else:
+            ttft = now - st.t_in
+            if self.slo is not None:
+                self.slo.note("ttft", st.klass, ttft)
+            if self.tenants is not None:
+                self.tenants.note_latency(st.tenant, "ttft", st.klass, ttft)
         st.t_emit = now
 
     # -- admission -----------------------------------------------------
@@ -2113,7 +2130,7 @@ class ContinuousDecodeLoop:
             elif not st.started and st.deadline is not None and time.monotonic() > st.deadline:
                 self._prefilling.remove(job)
                 self._drop_job(job)
-                self._shed("deadline")
+                self._shed("deadline", st.tenant)
                 self._finish(st, DeadlineExceededError(
                     "deadline passed mid-prefill; stream shed before its first token"))
         for job in [j for j in self._prefilling if j.ready]:

@@ -19,12 +19,19 @@ submit time:
   first chunk's (``kv_blocks_estimate``), and grows block by block.
 - **Drain**: once ``draining`` is set (SIGTERM), every admission sheds
   with 503 ``drain``.
+- **Tenant quotas** (``TENANTS``/``TENANTS_FILE``, ``set_tenants``): last,
+  after the service-wide gates, the caller's tenant is charged its
+  concurrency, its KV bytes and its offered tokens (prompt and decode
+  budget) to a lease in ``feats["_lease"]``; a spent quota sheds with
+  reason ``quota`` (429) and the tenant's own Retry-After.  The lease is
+  returned at ``release``/``release_lease``, and a stream re-entering
+  service is charged its occupancy again at ``reserve``.
 - **Backfill**: ``backfill_ok`` tells the bulk-job executor whether to
   claim a line now (not while draining, not with the KV ledger full).
 
 One controller serves the batcher's request queue and the continuous
-loop's stream queue, so its ledger covers both.  Tenant quotas and the
-fleet's budget split are not ported.
+loop's stream queue, so its ledger covers both.  The fleet's budget split
+is not ported.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import threading
 import time
 
 from ..engine.kv_blocks import blocks_for
+from ..tenancy.accounts import QuotaExceeded
 from ..utils import metrics, tracing
 from .policy import BATCH, CLASSES, INTERACTIVE, QueueFullError
 
@@ -55,6 +63,15 @@ class AdmissionController:
         # stays for the batch path, against what the pool has not claimed.
         self.paged = bool(getattr(engine, "paged_kv", False))
         self.pool = getattr(engine, "kv_pool", None)
+        # The tenant registry (TENANTS; the batcher attaches it): None, no
+        # tenant gate.
+        self.tenants = None
+
+    def set_tenants(self, registry) -> None:
+        """Attach (or detach) the ``TenantRegistry``: every admission then
+        charges its tenant's quotas and sheds ``quota`` when one is
+        spent."""
+        self.tenants = registry
 
     def _pool_bytes(self) -> int:
         return self.pool.used_bytes if (self.paged and self.pool) else 0
@@ -109,14 +126,20 @@ class AdmissionController:
         return self.kv_bytes(feats)
 
     def admit(self, feats: dict, klass: str) -> tuple[str, int]:
-        """The drain and KV-budget gates.  Returns the (possibly
-        down-classed) class and the KV bytes to reserve; raises
-        ``QueueFullError`` with reason ``drain`` or ``kv_budget``.  Paged,
-        a stream whose prompt bucket and own decode budget exceed the
-        whole pool sheds, and the bytes returned are its initial blocks
-        (prompt and first chunk): the loop grows it from there."""
+        """The drain, KV-budget and tenant-quota gates.  Returns the
+        (possibly down-classed) class and the KV bytes to reserve; raises
+        ``QueueFullError`` with reason ``drain``, ``kv_budget`` or
+        ``quota``.  Paged, a stream whose prompt bucket and own decode
+        budget exceed the whole pool sheds, and the bytes returned are its
+        initial blocks (prompt and first chunk): the loop grows it from
+        there."""
         if self.draining:
             raise QueueFullError("server is draining", reason="drain", retry_after_s=5.0)
+        klass, kv = self._admit_kv(feats, klass)
+        self._quota_gate(feats, kv)
+        return klass, kv
+
+    def _admit_kv(self, feats: dict, klass: str) -> tuple[str, int]:
         if self.paged and self.pool is not None:
             initial, worst = self.engine.kv_blocks_estimate(feats)
             if worst > self.pool.num_blocks:
@@ -140,6 +163,36 @@ class AdmissionController:
                 klass = BATCH
                 self._note_downclass(feats, "kv_overcommit")
         return klass, kv
+
+    def _quota_gate(self, feats: dict, kv: int) -> None:
+        """Charge the caller's tenant and keep the lease in
+        ``feats["_lease"]``.  Runs last, so a request the service sheds
+        anyway spends none of the tenant's window.  The tokens charged are
+        the prompt's and the clamped decode budget (``budget_for``): the
+        window meters offered work."""
+        reg = self.tenants
+        if reg is None:
+            return
+        name = str(feats.get("tenant") or "")
+        spec = reg.spec(name)
+        if spec is None:
+            return
+        tokens = int(feats.get("length", 0) or 0)
+        bf = getattr(self.engine, "budget_for", None)
+        if bf is not None:
+            tokens += int(bf(feats))
+        try:
+            feats["_lease"] = reg.admit(spec, tokens, int(kv))
+        except QuotaExceeded as exc:
+            reg.note_shed(name, "quota")
+            raise QueueFullError(str(exc), reason="quota",
+                                 retry_after_s=exc.retry_after_s) from None
+
+    def release_lease(self, feats) -> None:
+        """Return a quota lease (idempotent: the lease leaves ``feats``)."""
+        lease = feats.pop("_lease", None) if isinstance(feats, dict) else None
+        if lease is not None and self.tenants is not None:
+            self.tenants.release(lease)
 
     @staticmethod
     def _note_downclass(feats: dict, why: str) -> None:
@@ -182,6 +235,15 @@ class AdmissionController:
             return self._committed + kv <= self.kv_budget_bytes
 
     def reserve(self, item) -> None:
+        # A stream re-entering service (a preemption or recovery resume)
+        # returned its lease when it was checkpointed: its occupancy is
+        # charged again, unconditionally and without window tokens.
+        if self.tenants is not None:
+            feats = getattr(item, "feats", None)
+            if isinstance(feats, dict) and "_lease" not in feats:
+                name = str(feats.get("tenant") or "")
+                if self.tenants.spec(name) is not None:
+                    feats["_lease"] = self.tenants.readmit(name, int(getattr(item, "kv", 0)))
         if self.paged and getattr(item, "is_stream", False):
             # The pool is the ledger: blocks commit at slot insert and grow
             # at chunk boundaries; only the gauge moves here.
@@ -195,6 +257,7 @@ class AdmissionController:
             item.kv_held = True
 
     def release(self, item) -> None:
+        self.release_lease(getattr(item, "feats", None))
         if self.paged and getattr(item, "is_stream", False):
             self.note_pool()
             return

@@ -33,7 +33,11 @@ it to the engine and the loop (refused with speculative decoding and for
 adapters of another architecture, as in the JAX package); a stream with an
 ``adapter_id`` serves only through the loop, and the per-stream path sheds
 it with reason ``adapter_pool``.  The whole (non-streamed) path generates
-with the base model, as the reference's does.
+with the base model, as the reference's does.  Under ``TENANTS`` or
+``TENANTS_FILE`` it builds the ``TenantRegistry`` (the admission
+controller's quota gate: 429 ``quota``) and a ``WeightedFairShare`` for its
+queue and one for the loop's; every other shed is counted against its
+tenant too, and every shed path returns the tenant's lease.
 
 Durable serving (``JOURNAL_DIR``, a generative model): the batcher builds
 one ``StreamJournal`` a process and hands it to the engine, where the
@@ -73,7 +77,7 @@ class _QueuedCall:
     """One queued request: its future and scheduling fields."""
 
     __slots__ = ("feats", "future", "t_in", "klass", "deadline", "started", "kv", "kv_held",
-                 "_removed")
+                 "_removed", "tenant")
 
     def __init__(self, feats: dict, future: asyncio.Future, klass: str,
                  deadline: float | None, kv: int):
@@ -86,6 +90,8 @@ class _QueuedCall:
         self.kv = kv
         self.kv_held = False
         self._removed = False
+        # The fair share's key ("" = anonymous).
+        self.tenant = str(feats.get("tenant") or "")
 
     def fail(self, exc: BaseException) -> None:
         if not self.future.done():
@@ -147,30 +153,17 @@ class Batcher:
                     # refuses a restart.
                     self.supervisor = Supervisor(cfg, recorder=getattr(engine, "flight", None))
                     self._cdl.supervisor = self.supervisor
-        # The batched multi-adapter LoRA pool (ADAPTER_DIR;
-        # tenancy/adapters.py), with the reference's boot refusals.  Unset,
-        # none of it is built and every dispatch is the base model's.
+        # Multi-tenant serving (tenancy/): the tenant registry and a fair
+        # share on the batcher's queue and the loop's (TENANTS,
+        # TENANTS_FILE), and the batched multi-adapter LoRA pool
+        # (ADAPTER_DIR), with the reference's boot refusals.  Unset, none of
+        # it is built: the queues pop plain EDF and every dispatch is the
+        # base model's.
+        self.tenants = None
         self.adapters = None
-        if getattr(cfg, "adapter_dir", None):
-            from ..tenancy.adapters import AdapterPool
-
-            pool = AdapterPool.from_cfg(cfg, model=self.model, device=engine.device,
-                                        device_lock=engine._lock)
-            if getattr(engine, "spec_enabled", False) or (
-                    self._cdl is not None and self._cdl.spec):
-                raise ValueError(
-                    "ADAPTER_DIR does not compose with "
-                    "SPEC_DECODE/SPEC_CONTINUOUS: the "
-                    "draft→verify executables run the base "
-                    "model only"
-                )
-            # Wrong-architecture adapters fail the boot, not the first
-            # adapted request.
-            pool.validate_against(engine.bundle.model)
-            self.adapters = pool
-            engine.adapters = pool
-            if self._cdl is not None:
-                self._cdl.adapters = pool
+        if getattr(cfg, "tenants", None) or getattr(cfg, "tenants_file", None) or getattr(
+                cfg, "adapter_dir", None):
+            self._build_tenancy(cfg)
         # The bulk-job lane (JOBS_ENABLED): its store under JOURNAL_DIR/jobs
         # and the executor that backfills its lines.  Unset: no job code.
         self.jobs = None
@@ -178,6 +171,50 @@ class Batcher:
             from ..jobs.executor import JobManager
 
             self.jobs = JobManager(engine, self, cfg)
+
+    def _build_tenancy(self, cfg) -> None:
+        """The tenant registry and its fair shares, and the adapter pool,
+        each where its knob is set; a bad table or pool fails the boot."""
+        from ..tenancy.accounts import TenantRegistry
+        from ..tenancy.adapters import AdapterPool
+        from ..tenancy.fairshare import WeightedFairShare
+
+        engine = self.engine
+        default_w = float(getattr(cfg, "tenant_default_weight", 1.0) or 1.0)
+        try:
+            reg = TenantRegistry.from_cfg(cfg, model=self.model)
+            pool = None
+            if getattr(cfg, "adapter_dir", None):
+                pool = AdapterPool.from_cfg(cfg, model=self.model, device=engine.device,
+                                            device_lock=engine._lock)
+                if getattr(engine, "spec_enabled", False) or (
+                        self._cdl is not None and self._cdl.spec):
+                    raise ValueError(
+                        "ADAPTER_DIR does not compose with "
+                        "SPEC_DECODE/SPEC_CONTINUOUS: the "
+                        "draft→verify executables run the base "
+                        "model only"
+                    )
+                # Wrong-architecture adapters fail the boot, not the first
+                # adapted request.
+                pool.validate_against(engine.bundle.model)
+        except Exception:
+            # A failed boot leaves no loop thread behind.
+            if self._cdl is not None:
+                self._cdl.stop()
+            raise
+        self.tenants = reg
+        self.adapters = pool
+        if pool is not None:
+            engine.adapters = pool
+        if reg is not None:
+            self.admission.set_tenants(reg)
+            self._queue.set_fairshare(WeightedFairShare(reg.weights(), default_w))
+        if self._cdl is not None:
+            self._cdl.tenants = reg
+            self._cdl.adapters = pool
+            if reg is not None:
+                self._cdl.queue.set_fairshare(WeightedFairShare(reg.weights(), default_w))
 
     async def start(self) -> None:
         if self._task is None:
@@ -295,11 +332,22 @@ class Batcher:
         return self._cdl.warm()
 
     def tenancy_status(self) -> dict | None:
-        """``/status.tenancy``: the adapter pool's slot residency, or None
-        (the key absent) without ``ADAPTER_DIR``."""
-        if self.adapters is None:
+        """``/status.tenancy``: each tenant's usage and quotas, the ledger's
+        totals and the fair share's virtual times (``TENANTS``), and the
+        adapter pool's slot residency (``ADAPTER_DIR``); None (the key
+        absent) with neither."""
+        if self.tenants is None and self.adapters is None:
             return None
-        return {"adapters": self.adapters.status()}
+        out: dict = {}
+        if self.tenants is not None:
+            out["tenants"] = self.tenants.usage()
+            out["totals"] = self.tenants.totals()
+            fs = self._queue._fairshare
+            if fs is not None:
+                out["fairshare"] = fs.snapshot()
+        if self.adapters is not None:
+            out["adapters"] = self.adapters.status()
+        return out
 
     def submit_stream(self, feats: dict):
         """Streaming generation: the async iterator of the stream's token
@@ -344,17 +392,19 @@ class Batcher:
         consumer that goes away stops the worker before its next chunk.
         The drain and KV-budget gates apply; there is no wait queue."""
         klass, _ = self.admission.classify(feats)
+        tenant = str(feats.get("tenant") or "")
         try:
             self.admission.admit(feats, klass)
         except QueueFullError as e:
             if e.retry_after_s is None:
                 e.retry_after_s = self.retry_after_s(streams=True)
-            self._shed(e.reason)
+            self._shed(e.reason, tenant)
             raise
         if feats.get("adapter_id"):
             # Adapters serve through the continuous loop's batched dispatch
             # only: this path sheds rather than generate base-model tokens.
-            self._shed("adapter_pool")
+            self.admission.release_lease(feats)
+            self._shed("adapter_pool", tenant)
             raise QueueFullError(
                 "adapter streams require the continuous batching path "
                 "(prompt exceeds the largest seq bucket, or "
@@ -364,7 +414,8 @@ class Batcher:
             )
         loop_admitted = self._cdl.admitted if self._cdl is not None else 0
         if self._active_streams + loop_admitted >= self.max_streams:
-            self._shed("queue_full")
+            self.admission.release_lease(feats)
+            self._shed("queue_full", tenant)
             raise QueueFullError(
                 f"{self._active_streams + loop_admitted} streams active >= "
                 f"max_streams={self.max_streams}",
@@ -401,6 +452,7 @@ class Batcher:
 
         def release(_fut) -> None:
             self._active_streams -= 1
+            self.admission.release_lease(feats)
             dt = time.monotonic() - t_started
             self._stream_ewma_s = 0.8 * self._stream_ewma_s + 0.2 * dt
 
@@ -431,8 +483,11 @@ class Batcher:
             est = (self._queue.qsize() / max(1, self.max_batch) + 1.0) * self._batch_ewma_s
         return min(60.0, max(1.0, est))
 
-    def _shed(self, reason: str) -> None:
+    def _shed(self, reason: str, tenant: str = "") -> None:
         metrics.SHED.labels(self.model, reason).inc()
+        if self.tenants is not None and reason != "quota":
+            # Attributed to the tenant too; a quota shed was at its gate.
+            self.tenants.note_shed(tenant, reason)
 
     def _depth_gauges(self) -> None:
         metrics.QUEUE_DEPTH.labels(self.model).set(self._queue.qsize())
@@ -463,18 +518,20 @@ class Batcher:
         except QueueFullError as e:
             if e.retry_after_s is None:
                 e.retry_after_s = self.retry_after_s()
-            self._shed(e.reason)
+            self._shed(e.reason, str(feats.get("tenant") or ""))
             raise
         fut = asyncio.get_running_loop().create_future()
         item = _QueuedCall(feats, fut, klass, deadline, kv)
         try:
             victim = self._queue.put(item)
         except QueueFullError as e:
+            self.admission.release_lease(feats)
             e.retry_after_s = self.retry_after_s()
-            self._shed("queue_full")
+            self._shed("queue_full", item.tenant)
             raise
         if victim is not None:
-            self._shed("queue_full")
+            self.admission.release_lease(victim.feats)
+            self._shed("queue_full", victim.tenant)
             victim.fail(QueueFullError("shed for higher-priority work",
                                        retry_after_s=self.retry_after_s()))
         self._wake.set()
@@ -484,7 +541,7 @@ class Batcher:
     def _expire(self) -> None:
         for item in self._queue.expire():
             self.admission.release(item)
-            self._shed("deadline")
+            self._shed("deadline", item.tenant)
             item.fail(DeadlineExceededError(
                 "deadline passed while queued; request shed before dispatch"
             ))

@@ -16,13 +16,17 @@ the continuous decode loop's stream queue.
 - Expiry: a waiter past its deadline is removed (504 before dispatch).
   A ``started`` waiter (a preempted stream queued to resume) is never
   expired nor evicted.
+- Fair share (``TENANTS``, ``set_fairshare``): within a class the
+  ``tenancy.fairshare.WeightedFairShare`` picks the tenant, and that
+  tenant's earliest-deadline waiter is served; without it the pop is plain
+  EDF.
 
 ``PrefillPacer`` paces chunked prefill's windows against live decode,
 ``DecodeWindowGovernor`` picks the loop's fused decode window (both write
 their decisions to the engine's flight recorder, ``recorder``),
 ``BackfillGovernor`` caps a bulk job's lines in flight, and ``SLOTracker``
-turns the loop's TTFT and TBT samples into SLO burn rates.  Fair share
-across tenants and the scaling governor are not ported.
+turns the loop's TTFT and TBT samples into SLO burn rates.  The scaling
+governor is not ported.
 """
 
 from __future__ import annotations
@@ -312,6 +316,9 @@ class DeadlineQueue:
         self._cond = threading.Condition()
         self._seq = itertools.count()
         self._streak = 0  # interactive pops in a row while batch waits
+        # Weighted fair share across tenants within a class (TENANTS; set by
+        # the batcher); None: plain EDF.
+        self._fairshare = None
         self._clock = clock if clock is not None else time.monotonic
 
     # -- introspection -------------------------------------------------
@@ -412,6 +419,14 @@ class DeadlineQueue:
                 if not self._cond.wait(timeout=remaining):
                     return self._pop_locked(fits)
 
+    def set_fairshare(self, fs) -> None:
+        """Attach (or, with None, detach) a ``WeightedFairShare``: within
+        each class the tenant with the lowest virtual time is served its
+        earliest-deadline waiter, so one tenant's backlog cannot starve
+        another's."""
+        with self._cond:
+            self._fairshare = fs
+
     def prefer_interactive(self) -> None:
         """Reset the weighted-dequeue streak so the next pop serves the
         interactive class (after a preemption: the vacated slot must not go
@@ -438,6 +453,8 @@ class DeadlineQueue:
         return (INTERACTIVE, BATCH) if self._count[INTERACTIVE] else (BATCH, INTERACTIVE)
 
     def _pop_class_locked(self, klass: str, fits):
+        if self._fairshare is not None:
+            return self._pop_class_fair_locked(klass, fits, self._fairshare)
         heap = self._heaps[klass]
         stash = []
         found = None
@@ -456,6 +473,28 @@ class DeadlineQueue:
         for entry in stash:
             heapq.heappush(heap, entry)
         return found
+
+    def _pop_class_fair_locked(self, klass: str, fits, fs):
+        """The fair pop: each tenant's earliest-deadline waiter that
+        ``fits``, then the fair share picks the tenant and is charged.  A
+        scan of the heap (lazy deletion keeps its EDF order for the plain
+        pop and ``expire``); it reorders across tenants only, never within
+        one."""
+        heads: dict[str, tuple] = {}
+        for key, it in self._heaps[klass]:
+            if it._removed or (fits is not None and not fits(it)):
+                continue
+            t = getattr(it, "tenant", "") or ""
+            cur = heads.get(t)
+            if cur is None or key < cur[0]:
+                heads[t] = (key, it)
+        if not heads:
+            return None
+        tenant = fs.pick(heads.keys())
+        it = heads[tenant][1]
+        self._remove_locked(it)
+        fs.charge(tenant)
+        return it
 
     # -- expiry / shutdown ---------------------------------------------
 

@@ -4,7 +4,7 @@ Holds the fields the ResNet-50, BERT-base, bert-long, llama, GPT-2 and
 T5-small paths, chat, the scheduler's priority classes, KV budget and
 preemption, the prompt prefix, the prefix cache, chunked prefill, the
 host KV tier, the journal, the disk KV tier and the bulk-job lane, fused
-decode windows, speculative decoding, the decode
+decode windows, speculative decoding, tenant accounts and fair share, the decode
 kernel's autotuner, fault injection, the dispatch watchdog, the engine
 supervisor, observability (the flight recorder, the perf observatory, SLO
 objectives, JSON logs, the lock-order detector and the profiler's
@@ -268,6 +268,21 @@ class ServiceConfig:
     # code runs.  Refused with SPEC_DECODE/SPEC_CONTINUOUS.
     adapter_dir: str | None = None
     adapter_slots: int = 8
+    # Multi-tenant accounts and fair share (tenancy/accounts.py,
+    # tenancy/fairshare.py): TENANTS is the inline table, comma-separated
+    # "name=weight" (or a bare "name", weight 1), each name its own
+    # X-Api-Key; TENANTS_FILE a JSON list of specs with optional "weight",
+    # "api_keys", "max_concurrency", "tokens_per_window", "kv_mb" and
+    # "adapter" (the file wins for a name in both).  A bad table fails at
+    # load.  Unset, no tenancy object is built.  Keyless callers share the
+    # anonymous tenant at tenant_default_weight; tokens_per_window counts
+    # over a sliding tenant_window_s; the first tenant_metrics_topk tenants
+    # keep their names as metric labels.
+    tenants: str | None = None
+    tenants_file: str | None = None
+    tenant_default_weight: float = 1.0
+    tenant_window_s: float = 60.0
+    tenant_metrics_topk: int = 8
     # Sequence-parallel width for bert-long: the sequence axis shards over
     # this many devices and attention runs as a ring (parallel/ring.py).
     # 0 = every visible card (one shard on the CPU).
@@ -335,6 +350,7 @@ class ServiceConfig:
             object.__setattr__(self, "quantize", q)
         if not (1 <= self.adapter_slots <= 256):
             raise ValueError("ADAPTER_SLOTS must be in [1, 256]")
+        self._check_tenancy()
         if self.pallas_variant:
             from ..ops.autotune import parse_variant
 
@@ -409,6 +425,18 @@ class ServiceConfig:
         object.__setattr__(self, "seq_buckets", _align_paged_seq_buckets(self))
 
 
+    def _check_tenancy(self) -> None:
+        """The reference's checks and messages for the tenancy knobs; the
+        tenant table is parsed here, so a bad one fails at load."""
+        if not (self.tenant_default_weight > 0 and self.tenant_window_s > 0):  # also NaN
+            raise ValueError("TENANT_DEFAULT_WEIGHT/TENANT_WINDOW_S must be > 0")
+        if not 1 <= self.tenant_metrics_topk <= 64:
+            raise ValueError("TENANT_METRICS_TOPK must be in [1, 64]")
+        if self.tenants or self.tenants_file:
+            from ..tenancy.accounts import parse_tenants
+
+            parse_tenants(self.tenants, self.tenants_file)
+
     def _check_observability(self) -> None:
         """The reference's validators and messages for the observability
         knobs."""
@@ -464,11 +492,6 @@ def _flag(v: str) -> bool:
 # without it.
 UNPORTED_KNOBS = {
     "TP": ("0", "1"),
-    "TENANTS": (),
-    "TENANTS_FILE": (),
-    "TENANT_DEFAULT_WEIGHT": ("1",),
-    "TENANT_WINDOW_S": ("60",),
-    "TENANT_METRICS_TOPK": ("8",),
     # Data-parallel replicas over several cards (ReplicaSet) and bert-long's
     # 2-D ('replica', 'sp') mesh; the fleet router and its autoscaler.
     "REPLICAS": ("0", "1"),
@@ -544,8 +567,9 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
     JOB_RESULT_TTL_S, DECODE_WINDOW,
     DECODE_WINDOW_AUTO, STREAM_PIPELINE, HOST_PREP_DOUBLE, ADMIT_OVERLAP, SPEC_DECODE,
     SPEC_K, SPEC_NGRAM, SPEC_MAX_STREAMS, SPEC_SAMPLED, SPEC_CONTINUOUS, QUANTIZE,
-    ADAPTER_DIR, ADAPTER_SLOTS, PALLAS_AUTOTUNE, PALLAS_VARIANT, PALLAS_TUNE_TABLE,
-    PALLAS_AUTOTUNE_ITERS, FAULT_SPEC, FAULT_SEED, DISPATCH_TIMEOUT_S,
+    ADAPTER_DIR, ADAPTER_SLOTS, TENANTS, TENANTS_FILE, TENANT_DEFAULT_WEIGHT,
+    TENANT_WINDOW_S, TENANT_METRICS_TOPK, PALLAS_AUTOTUNE, PALLAS_VARIANT,
+    PALLAS_TUNE_TABLE, PALLAS_AUTOTUNE_ITERS, FAULT_SPEC, FAULT_SEED, DISPATCH_TIMEOUT_S,
     DISPATCH_RETRIES, DISPATCH_BACKOFF_S, ENGINE_RESTARTS_MAX,
     ENGINE_RESTART_WINDOW_S, SUPERVISE, LOG_FORMAT, FLIGHT_RING, PROFILE_DIR (else
     JAX_TRACE_DIR), LOCKTRACE, PERF_OBS, PEAK_TFLOPS, LATENCY_BUCKETS, SLO_TTFT_MS,
@@ -582,7 +606,8 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
         ("pallas_tune_table", "PALLAS_TUNE_TABLE"), ("fault_spec", "FAULT_SPEC"),
         ("log_format", "LOG_FORMAT"), ("latency_buckets", "LATENCY_BUCKETS"),
         ("slo_windows_s", "SLO_WINDOWS_S"), ("journal_dir", "JOURNAL_DIR"),
-        ("journal_fsync", "JOURNAL_FSYNC"),
+        ("journal_fsync", "JOURNAL_FSYNC"), ("tenants", "TENANTS"),
+        ("tenants_file", "TENANTS_FILE"),
     ):
         v = get(var)
         if v is not None:
@@ -605,7 +630,8 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
                        ("fault_seed", "FAULT_SEED"), ("dispatch_retries", "DISPATCH_RETRIES"),
                        ("engine_restarts_max", "ENGINE_RESTARTS_MAX"),
                        ("flight_ring", "FLIGHT_RING"),
-                       ("job_max_concurrent_lines", "JOB_MAX_CONCURRENT_LINES")):
+                       ("job_max_concurrent_lines", "JOB_MAX_CONCURRENT_LINES"),
+                       ("tenant_metrics_topk", "TENANT_METRICS_TOPK")):
         v = get(var)
         if v is not None:
             kwargs[field] = int(v)
@@ -621,7 +647,9 @@ def load_config(overrides: dict[str, str] | None = None) -> ServiceConfig:
                        ("engine_restart_window_s", "ENGINE_RESTART_WINDOW_S"),
                        ("peak_tflops", "PEAK_TFLOPS"), ("slo_ttft_ms", "SLO_TTFT_MS"),
                        ("slo_tbt_ms", "SLO_TBT_MS"), ("slo_batch_ttft_ms", "SLO_BATCH_TTFT_MS"),
-                       ("slo_batch_tbt_ms", "SLO_BATCH_TBT_MS"), ("slo_target", "SLO_TARGET")):
+                       ("slo_batch_tbt_ms", "SLO_BATCH_TBT_MS"), ("slo_target", "SLO_TARGET"),
+                       ("tenant_default_weight", "TENANT_DEFAULT_WEIGHT"),
+                       ("tenant_window_s", "TENANT_WINDOW_S")):
         v = get(var)
         if v is not None:
             kwargs[field] = float(v)

@@ -9,7 +9,8 @@ deliveries, preemptions, the paged KV pool's blocks and its dry-pool
 stalls, the host KV tier's blocks, swap bytes, resumes and prefix
 hits, the chunks of each fused decode window and its early exits, the
 loop's pipelining depth, the host seconds of each dispatch by site, and
-the tokens each speculative verify round emitted; the LoRA adapter
+the tokens each speculative verify round emitted; per tenant its sheds,
+committed KV bytes, offered tokens and TTFT SLO burn; the LoRA adapter
 pool's slots by state; the decode-kernel autotuner's decisions; the
 supervisor's engine rebuilds, watchdog retries and timeouts, and the
 streams a fault recovered or lost; the perf observatory's device busy
@@ -307,6 +308,36 @@ WARM_SECONDS = Histogram(
     "captures, loop = the continuous loop's chunk capture)",
     ["model", "phase"], buckets=(0.1, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0, 120.0, 300.0),
     registry=REGISTRY,
+)
+# -- multi-tenancy (tenancy/).  The tenant label is bounded: the first
+# TENANT_METRICS_TOPK configured tenants export by name, the others as
+# "other", anonymous traffic as "anon" (TenantRegistry.label).
+TENANT_SHED = Counter(
+    "tenant_requests_shed_total",
+    "Per-tenant load sheds by reason (quota = the tenant exhausted its "
+    "own concurrency/token-window/KV envelope → HTTP 429; other "
+    "reasons mirror requests_shed_total, attributed to the caller)",
+    ["model", "tenant", "reason"], registry=REGISTRY,
+)
+TENANT_KV = Gauge(
+    "tenant_kv_committed_bytes",
+    "KV-cache bytes currently leased against each tenant's quota "
+    "(tenancy/accounts.py occupancy ledger; drains to zero at idle)",
+    ["model", "tenant"], registry=REGISTRY,
+)
+TENANT_TOKENS = Counter(
+    "tenant_tokens_total",
+    "Offered tokens charged to each tenant's sliding window (prompt "
+    "length + clamped decode budget, charged at admission — metered "
+    "work, not realized luck)",
+    ["model", "tenant"], registry=REGISTRY,
+)
+TENANT_SLO_BURN = Gauge(
+    "tenant_slo_ttft_burn_rate",
+    "Per-tenant TTFT SLO burn rate by window (fast/slow), same budget "
+    "arithmetic as slo_ttft_burn_rate — the noisy-neighbor blast-"
+    "radius gauge fair share is supposed to keep flat",
+    ["model", "tenant", "window"], registry=REGISTRY,
 )
 ADAPTER_SLOTS = Gauge(
     "adapter_pool_slots",

@@ -283,11 +283,12 @@ NON_DEFAULT = {
 
 
 @pytest.mark.parametrize("name", _jax_knob_names())
-def test_every_jax_knob_is_read_refused_or_inert(name, monkeypatch):
+def test_every_jax_knob_is_read_refused_or_inert(name, monkeypatch, tmp_path):
     """Each name the JAX package recognizes, set to a non-default value: the
     port reads it (a ServiceConfig field changes), raises "not ported", or
     lists it as inert with a reason.  A name the port has not classified
-    fails here."""
+    fails here.  TENANTS_FILE is read and parsed at load, so its value is a
+    table written here."""
     from mlmicroservicetemplate_tpu_torch.utils import config as port_config
 
     assert name in NON_DEFAULT, f"{name}: a JAX knob this test gives no value"
@@ -295,6 +296,9 @@ def test_every_jax_knob_is_read_refused_or_inert(name, monkeypatch):
         monkeypatch.delenv(var, raising=False)
     base_env = {"DEVICE": "cpu"}
     env = {**base_env, name: NON_DEFAULT[name]}
+    if name == "TENANTS_FILE":
+        (tmp_path / "tenants.json").write_text('[{"name": "a"}]')
+        env[name] = str(tmp_path / "tenants.json")
     if name in port_config.UNPORTED_KNOBS:
         assert name not in port_config.INERT_KNOBS
         with pytest.raises(ValueError, match=f"{name}.*not ported"):
@@ -660,5 +664,43 @@ def test_quantize_and_adapter_knobs_are_validated_with_the_jax_messages(name, va
     with pytest.raises(ValueError) as want:
         jax_load_config({"DEVICE": "cpu", name: value})
     with pytest.raises(ValueError, match=name) as got:
+        load_config({"DEVICE": "cpu", name: value})
+    assert str(got.value) in str(want.value)
+
+
+TENANT_FIELDS = ("tenants", "tenants_file", "tenant_default_weight", "tenant_window_s",
+                 "tenant_metrics_topk")
+
+
+@pytest.mark.parametrize("env", [
+    {}, {"TENANTS": "acme=3,bob"}, {"TENANTS": "a", "TENANT_DEFAULT_WEIGHT": "0.5",
+                                   "TENANT_WINDOW_S": "30", "TENANT_METRICS_TOPK": "64"},
+    {"TENANTS_FILE": None}, {"TENANTS": "acme=2", "TENANTS_FILE": None,
+                             "TENANT_METRICS_TOPK": "1"},
+])
+def test_tenancy_knobs_are_read_like_jax(env, tmp_path):
+    """The five tenancy knobs are read, not refused: each field equals the
+    JAX ServiceConfig's for the same environment, defaults included (unset,
+    unset, 1, 60, 8)."""
+    if "TENANTS_FILE" in env:
+        (tmp_path / "t.json").write_text('[{"name": "acme", "weight": 3}]')
+        env = {**env, "TENANTS_FILE": str(tmp_path / "t.json")}
+    port, ref = load_config({"DEVICE": "cpu", **env}), jax_load_config({"DEVICE": "cpu", **env})
+    assert [getattr(port, f) for f in TENANT_FIELDS] == [getattr(ref, f) for f in TENANT_FIELDS]
+    if not env:
+        assert [getattr(port, f) for f in TENANT_FIELDS] == [None, None, 1.0, 60.0, 8]
+
+
+@pytest.mark.parametrize("name,value", [
+    ("TENANT_DEFAULT_WEIGHT", "0"), ("TENANT_WINDOW_S", "-1"), ("TENANT_METRICS_TOPK", "0"),
+    ("TENANT_METRICS_TOPK", "65"), ("TENANTS", "=3"), ("TENANTS", "a=notanumber"),
+    ("TENANTS", "a=-1"), ("TENANTS_FILE", "/no/such/tenants.json"),
+])
+def test_tenancy_knobs_are_validated_with_the_jax_messages(name, value):
+    """A bad value or table fails at load in both packages, with the same
+    message (the JAX one wrapped by its validation error)."""
+    with pytest.raises(ValueError) as want:
+        jax_load_config({"DEVICE": "cpu", name: value})
+    with pytest.raises(ValueError) as got:
         load_config({"DEVICE": "cpu", name: value})
     assert str(got.value) in str(want.value)

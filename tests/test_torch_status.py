@@ -3,8 +3,10 @@ after the same traffic on the same weights, for a classifier (BERT at two
 layers), a decoder with the continuous loop (llama, paged,
 ``DECODE_WINDOW=4``, one batch-class stream) and T5 (its contiguous loop,
 one stream), a llama service under ``SPEC_DECODE`` with
-``SPEC_CONTINUOUS``, and one with ``ADAPTER_DIR`` (two LoRA adapters in two
-slots, each installed once), whose ``tenancy`` section is compared whole.
+``SPEC_CONTINUOUS``, one with ``ADAPTER_DIR`` (two LoRA adapters in two
+slots, each installed once) and one with ``TENANTS_FILE`` (two tenants and
+an anonymous caller, streamed and whole), whose ``tenancy`` sections are
+compared whole.
 
 Compared: the key sets, section by section, and every value that does not
 depend on the clock.  Left out, by name:
@@ -122,6 +124,14 @@ CASES = {
                                          "stream": True}, {"X-Adapter": "beta"}),
                     ("/predict", {"text": "hello there", "max_tokens": 8, "stream": True},
                      {})]),
+    # TENANTS_FILE (written per test): a stream and a whole request of two
+    # tenants and an anonymous one.
+    "llama-tenants": ({"TENANTS_FILE": None, "PAGED_KV": "1", "KV_BLOCK_SIZE": "8"},
+                      [("/predict", {"text": "hello there", "max_tokens": 16, "stream": True},
+                        {"X-Api-Key": "key-acme"}),
+                       ("/v1/completions", {"prompt": "hello there", "max_tokens": 8},
+                        {"X-Api-Key": "bob"}),
+                       ("/predict", {"text": "hello", "max_tokens": 4}, {})]),
     # JOURNAL_DIR (one per app) with the disk tier and the job lane: a
     # journaled stream and a journaled unary result.
     "llama-durable": ({"PAGED_KV": "1", "KV_BLOCK_SIZE": "8", "KV_HOST_BUDGET_MB": "1",
@@ -204,6 +214,12 @@ def test_status_has_the_jax_apps_keys_and_values(case, tmp_path):
     extra, posts = CASES[case]
     if "ADAPTER_DIR" in extra:
         extra = {**extra, "ADAPTER_DIR": write_adapters(tmp_path, "llama", LLAMA)}
+    if "TENANTS_FILE" in extra:
+        path = tmp_path / "tenants.json"
+        path.write_text(json.dumps([
+            {"name": "acme", "weight": 3, "api_keys": ["key-acme"], "max_concurrency": 2},
+            {"name": "bob", "tokens_per_window": 100}]))
+        extra = {**extra, "TENANTS_FILE": str(path)}
     port_extra = None
     if "JOURNAL_DIR" in extra:
         extra = {**extra, "JOURNAL_DIR": str(tmp_path / "jax")}
@@ -230,9 +246,17 @@ def test_status_has_the_jax_apps_keys_and_values(case, tmp_path):
     for key in set(want["perf"]) - PERF_MEASURED:
         assert got["perf"][key] == want["perf"][key], key
     assert got["perf"]["enabled"] is True and got["perf"]["mfu_estimate"] is None
-    assert ("tenancy" in got) == ("tenancy" in want) == (case == "llama-lora")
+    assert ("tenancy" in got) == ("tenancy" in want) == (case in ("llama-lora", "llama-tenants"))
     if case == "llama-lora":
         assert got["tenancy"]["adapters"]["installs"] == 2
+    if case == "llama-tenants":
+        ten = got["tenancy"]
+        assert set(ten) == {"tenants", "totals", "fairshare"}
+        assert ten["totals"] == {"active": 0, "kv_bytes": 0}
+        # The batcher queue's pops: bob's whole request, the anonymous one
+        # and the readiness canary's (the stream went through the loop's).
+        assert {t: v["served"] for t, v in ten["fairshare"].items()} == {
+            "acme": 0, "bob": 1, "": 2}
     assert ("decode" in got) == ("decode" in want) == (model != "bert-base")
     if "decode" not in want:
         return
